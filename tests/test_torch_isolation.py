@@ -1,0 +1,154 @@
+"""The port stands alone.
+
+(a) With ``jax``, ``jaxlib`` and ``volcano_tpu`` unimportable, the port's
+    modules import and run a tiny CPU solve.
+(b) No module of the port, and not ``chip_smoke.py``, imports ``jax`` or
+    anything of ``volcano_tpu``.
+(c) Without CUDA, the default-device entry points raise.
+(d) Every unsupported feature raises ``NotImplementedError``.
+"""
+
+import ast
+import os
+import subprocess
+import sys
+from pathlib import Path
+
+import numpy as np
+import pytest
+import torch
+
+import volcano_tpu_torch
+from volcano_tpu_torch.api import (GROUP_NAME_ANNOTATION, AffinityTerm, Node,
+                                   Pod, PodGroup)
+from volcano_tpu_torch.cache import ClusterStore
+from volcano_tpu_torch.ops import wave as port_wave
+from volcano_tpu_torch.synth import solve_args_from_store, synthetic_cluster
+
+ROOT = Path(__file__).resolve().parent.parent
+PORT = ROOT / "volcano_tpu_torch"
+
+_BLOCKER = r'''
+import importlib.abc, sys
+class _Block(importlib.abc.MetaPathFinder):
+    def find_spec(self, name, path=None, target=None):
+        top = name.split(".")[0]
+        if top in ("jax", "jaxlib", "volcano_tpu"):
+            raise ImportError("blocked: " + name)
+        return None
+sys.meta_path.insert(0, _Block())
+'''
+
+_TINY_SOLVE = r'''
+import pkgutil, importlib
+import numpy as np
+import volcano_tpu_torch
+for m in pkgutil.walk_packages(volcano_tpu_torch.__path__, "volcano_tpu_torch."):
+    importlib.import_module(m.name)
+from volcano_tpu_torch.synth import synthetic_cluster, solve_args_from_store
+from volcano_tpu_torch.ops.wave import solve_wave
+args, _ = solve_args_from_store(synthetic_cluster(n_nodes=8, n_pods=32),
+                                device="cpu")
+res = solve_wave(*args, wave=16, device="cpu")
+assert int((res.assigned >= 0).sum()) == 32
+assert not any(k.split(".")[0] in ("jax", "jaxlib", "volcano_tpu")
+               for k in sys.modules)
+print("ok")
+'''
+
+
+def test_port_runs_with_jax_and_reference_blocked():
+    env = dict(os.environ, PYTHONPATH=str(ROOT))
+    out = subprocess.run(
+        [sys.executable, "-c", _BLOCKER + "import sys\n" + _TINY_SOLVE],
+        capture_output=True, text=True, env=env, cwd=str(ROOT), timeout=300,
+    )
+    assert out.returncode == 0, out.stderr[-3000:]
+    assert out.stdout.strip().endswith("ok")
+
+
+def _imported_names(path: Path):
+    tree = ast.parse(path.read_text(), filename=str(path))
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            for a in node.names:
+                yield a.name
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            yield node.module or ""
+
+
+def test_no_jax_or_reference_imports():
+    files = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+    assert len(files) > 10
+    for f in files:
+        for name in _imported_names(f):
+            top = name.split(".")[0]
+            assert top not in ("jax", "jaxlib", "volcano_tpu"), (f, name)
+
+
+def test_default_device_raises_without_cuda(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    store = synthetic_cluster(n_nodes=4, n_pods=8)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        solve_args_from_store(store)
+    args, _ = solve_args_from_store(store, device="cpu")
+    with pytest.raises(RuntimeError, match="CUDA"):
+        port_wave.solve_wave(*args)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        port_wave.solve_wave(*args, device="cuda")
+
+
+def _store_with(**pod_extra):
+    store = ClusterStore()
+    for i in range(4):
+        store.add_node(Node(name=f"n{i}",
+                            allocatable={"cpu": "8", "memory": "16Gi"},
+                            labels={"zone": f"z{i % 2}"}))
+    store.add_pod_group(PodGroup(name="g", min_member=2))
+    for k in range(2):
+        store.add_pod(Pod(name=f"g-{k}", labels={"app": "g"},
+                          annotations={GROUP_NAME_ANNOTATION: "g"},
+                          containers=[{"cpu": "1", "memory": "1Gi"}],
+                          **pod_extra))
+    return store
+
+
+def _args(**pod_extra):
+    return solve_args_from_store(_store_with(**pod_extra), device="cpu")[0]
+
+
+def _with_releasing(args):
+    nodes = args[0]
+    rel = nodes.releasing.clone()
+    rel[0, 0] = 1000.0
+    return (nodes._replace(releasing=rel),) + args[1:]
+
+
+UNSUPPORTED = {
+    "host ports": (lambda: _args(host_ports=[8080]), {}),
+    "inter-pod affinity": (lambda: _args(affinity=[AffinityTerm(
+        match_labels={"app": "g"}, topology_key="zone")]), {}),
+    "anti-affinity": (lambda: _args(anti_affinity=[AffinityTerm(
+        match_labels={"app": "g"})]), {}),
+    "spread": (lambda: _args(topology_spread=[("zone", 5)]), {}),
+    "releasing capacity": (lambda: _with_releasing(_args()), {}),
+    "extra_ok": (_args, {"extra_ok": np.ones((2, 8), bool)}),
+    "extra_score": (_args, {"extra_score": np.zeros((2, 8), np.float32)}),
+    "node_bias": (_args, {"node_bias": np.zeros(8, np.float32)}),
+    "mesh_shards": (_args, {"mesh_shards": 2}),
+    "devincr": (_args, {"devincr": object()}),
+}
+
+
+@pytest.mark.parametrize("what", sorted(UNSUPPORTED))
+def test_unsupported_features_raise(what):
+    make, kw = UNSUPPORTED[what]
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        port_wave.solve_wave(*make(), wave=8, device="cpu", **kw)
+
+
+def test_single_phase_raises(monkeypatch):
+    monkeypatch.setenv("VOLCANO_TPU_TWOPHASE", "0")
+    with pytest.raises(NotImplementedError, match="TWOPHASE"):
+        port_wave.solve_wave(*_args(), wave=8, device="cpu")
+    assert volcano_tpu_torch.__version__

@@ -1,0 +1,219 @@
+"""Inter-pod (anti)affinity + topology-spread encoding: per-(term, domain)
+count tensors.
+
+This is the "hard predicate" of SURVEY.md (pod affinity is quadratic in pods
+if done naively, ``predicates.go:272-291``): instead of a pods x pods match
+matrix, every distinct (selector, topology-key, namespaces) term becomes a
+row of a count tensor ``cnt[E, D]`` — how many resident pods matching term
+``e`` live in topology domain ``d``.  The allocate solver then checks
+required affinity (count > 0) / anti-affinity (count == 0) with one gather
+per term, adds soft preferred/spread scores, and *updates the counts* as it
+places tasks — mirroring how the reference's predicates plugin keeps its
+nodeMap current through session Allocate events (predicates.go:111-136).
+
+Domain interning: every topology key used by any term gets a column of
+``node_dom[N, K]``; ``kubernetes.io/hostname`` domains are the node rows
+themselves, other keys intern their observed label values.  Nodes missing
+the label get domain -1 (they can never satisfy affinity there and never
+violate anti-affinity — matching the host predicate's None handling).
+
+The self-match rule of the upstream k8s predicate is reproduced: a required
+affinity term with *no* matching pod anywhere is satisfied iff the incoming
+pod itself matches the term's selector (this is what lets the first pod of a
+self-affine gang schedule at all).
+"""
+
+from __future__ import annotations
+
+from typing import Dict, List, NamedTuple, Sequence, Tuple
+
+import numpy as np
+
+from ..api import AffinityTerm, TaskInfo
+
+HOSTNAME_KEY = "kubernetes.io/hostname"
+
+# Pseudo-selector marker for topology-spread terms: matches pods of the
+# given job (PodGroup) instead of a label selector.
+JOB_SELECTOR = "__job__"
+
+I = np.int32
+F = np.float32
+
+
+class AffinityArgs(NamedTuple):
+    """Device inputs for the affinity/spread machinery ([E]=terms,
+    [D]=domains, [K]=topology keys).  E >= 1 always (padded all-false row)
+    so shapes stay static when no affinity exists."""
+
+    node_dom: np.ndarray  # [N, K] int32 domain id or -1
+    term_key: np.ndarray  # [E] int32 -> key column of node_dom
+    cnt0: np.ndarray  # [E, D] int32 resident pods matching term per domain
+    t_req_aff: np.ndarray  # [P, E] bool task requires affinity term
+    t_req_anti: np.ndarray  # [P, E] bool task requires anti-affinity term
+    t_matches: np.ndarray  # [P, E] bool task's own labels match the term
+    t_soft: np.ndarray  # [P, E] float32 soft weight (+prefer, -spread)
+
+
+def empty_affinity(n_nodes: int, n_tasks: int) -> AffinityArgs:
+    return AffinityArgs(
+        node_dom=np.full((n_nodes, 1), -1, I),
+        term_key=np.zeros((1,), I),
+        cnt0=np.zeros((1, 1), I),
+        t_req_aff=np.zeros((n_tasks, 1), bool),
+        t_req_anti=np.zeros((n_tasks, 1), bool),
+        t_matches=np.zeros((n_tasks, 1), bool),
+        t_soft=np.zeros((n_tasks, 1), F),
+    )
+
+
+def _labels_match(selector: Dict[str, str], labels: Dict[str, str]) -> bool:
+    return all(labels.get(k) == v for k, v in selector.items())
+
+
+class _TermTable:
+    """Interns (selector, topology_key, namespaces) triples."""
+
+    def __init__(self):
+        self.index: Dict[tuple, int] = {}
+        self.terms: List[tuple] = []  # (sel_items, key, namespaces)
+
+    def intern(self, term: AffinityTerm, task_ns: str) -> int:
+        ns = tuple(sorted(term.namespaces)) if term.namespaces else (task_ns,)
+        key = (tuple(sorted(term.match_labels.items())), term.topology_key, ns)
+        if key not in self.index:
+            self.index[key] = len(self.terms)
+            self.terms.append(key)
+        return self.index[key]
+
+    def intern_job(self, job_id: str, topology_key: str) -> int:
+        key = (((JOB_SELECTOR, job_id),), topology_key, None)
+        if key not in self.index:
+            self.index[key] = len(self.terms)
+            self.terms.append(key)
+        return self.index[key]
+
+
+def _term_matches_pod(term: tuple, namespace: str, labels: Dict[str, str],
+                      job_id: str) -> bool:
+    sel_items, _key, ns = term
+    sel = dict(sel_items)
+    if JOB_SELECTOR in sel:
+        return job_id == sel[JOB_SELECTOR]
+    if ns is not None and namespace not in ns:
+        return False
+    return _labels_match(sel, labels)
+
+
+def encode_affinity(
+    cluster,
+    pending_tasks: Sequence[TaskInfo],
+    node_names: Sequence[str],
+    n_pad: int,
+    p_pad: int,
+) -> AffinityArgs:
+    """Build AffinityArgs from the snapshot.
+
+    ``n_pad``/``p_pad`` are the padded node/task dims of the ClusterArrays.
+    Resident-pod counting is O(residents x terms); terms are the distinct
+    (selector, key, namespaces) triples across pending tasks, typically a
+    handful.
+    """
+    table = _TermTable()
+    per_task: List[Tuple[int, List[int], List[int], List[Tuple[int, float]]]] = []
+    any_terms = False
+    for i, ti in enumerate(pending_tasks):
+        req_aff = [table.intern(t, ti.namespace) for t in ti.pod.affinity]
+        req_anti = [table.intern(t, ti.namespace) for t in ti.pod.anti_affinity]
+        soft: List[Tuple[int, float]] = []
+        for term, w in getattr(ti.pod, "preferred_affinity", []):
+            soft.append((table.intern(term, ti.namespace), float(w)))
+        for term, w in getattr(ti.pod, "preferred_anti_affinity", []):
+            soft.append((table.intern(term, ti.namespace), -float(w)))
+        for key, w in getattr(ti.pod, "topology_spread", []):
+            soft.append((table.intern_job(ti.job, key), -float(w)))
+        if req_aff or req_anti or soft:
+            any_terms = True
+        per_task.append((i, req_aff, req_anti, soft))
+
+    if not any_terms:
+        return empty_affinity(n_pad, p_pad)
+
+    E = len(table.terms)
+
+    # ---- topology keys and node domains --------------------------------
+    keys: List[str] = []
+    key_index: Dict[str, int] = {}
+    for (_sel, key, _ns) in table.terms:
+        if key not in key_index:
+            key_index[key] = len(keys)
+            keys.append(key)
+    K = len(keys)
+
+    node_dom = np.full((n_pad, K), -1, I)
+    next_dom = 0
+    value_dom: Dict[Tuple[int, str], int] = {}
+    node_list = [cluster.nodes[n] for n in node_names]
+    for k, key in enumerate(keys):
+        if key == HOSTNAME_KEY:
+            for ni in range(len(node_list)):
+                node_dom[ni, k] = next_dom + ni
+            next_dom += len(node_list)
+            continue
+        for ni, node in enumerate(node_list):
+            labels = node.node.labels if node.node else {}
+            val = labels.get(key)
+            if val is None:
+                continue
+            dk = (k, val)
+            if dk not in value_dom:
+                value_dom[dk] = next_dom
+                next_dom += 1
+            node_dom[ni, k] = value_dom[dk]
+    D = max(1, next_dom)
+
+    term_key = np.array(
+        [key_index[key] for (_sel, key, _ns) in table.terms], I
+    )
+
+    # ---- resident counts ------------------------------------------------
+    cnt0 = np.zeros((E, D), I)
+    for ni, node in enumerate(node_list):
+        for resident in node.tasks.values():
+            for e, term in enumerate(table.terms):
+                if not _term_matches_pod(
+                    term, resident.namespace, resident.pod.labels,
+                    resident.job,
+                ):
+                    continue
+                d = node_dom[ni, term_key[e]]
+                if d >= 0:
+                    cnt0[e, d] += 1
+
+    # ---- per-task vectors ----------------------------------------------
+    t_req_aff = np.zeros((p_pad, E), bool)
+    t_req_anti = np.zeros((p_pad, E), bool)
+    t_matches = np.zeros((p_pad, E), bool)
+    t_soft = np.zeros((p_pad, E), F)
+    for i, req_aff, req_anti, soft in per_task:
+        ti = pending_tasks[i]
+        for e in req_aff:
+            t_req_aff[i, e] = True
+        for e in req_anti:
+            t_req_anti[i, e] = True
+        for e, w in soft:
+            t_soft[i, e] += w
+        for e, term in enumerate(table.terms):
+            t_matches[i, e] = _term_matches_pod(
+                term, ti.namespace, ti.pod.labels, ti.job
+            )
+
+    return AffinityArgs(
+        node_dom=node_dom,
+        term_key=term_key,
+        cnt0=cnt0,
+        t_req_aff=t_req_aff,
+        t_req_anti=t_req_anti,
+        t_matches=t_matches,
+        t_soft=t_soft,
+    )

@@ -1,0 +1,102 @@
+// apply_commit: commit accepted tasks to the cluster state, or roll back
+// discarded gangs.
+//
+// Replaces the apply step of the JAX package's sub-round
+// (volcano_tpu/ops/wave.py:2013-2021: idle, ntasks, q_alloc, and the
+// alloc_cnt / assigned updates of :2125-2131) and the final gang discard
+// (wave.py:2262-2274: idle and q_alloc give back the requests of every
+// task of a job that never reached min_available; assigned goes to -1).
+//
+// No float atomicAdd whose order could change a float sum: requests are
+// gathered per node and per queue in double (`accumulate_kernel`; request
+// values are integers in milli-units and bytes, so these sums are exact
+// and the same in any order), and `write_kernel` then adds each touched
+// row's sum to the float state once.  Integer counters use integer atomics.
+// Where the JAX scatter-adds are exact in f32 (as they are for
+// synthetic_cluster's milli-CPU and Gi values) the results agree bit for
+// bit; the JAX scatter order is unspecified (wave.py:2271), so beyond
+// that neither side is the reference.
+//
+// Bound: reads T task rows and writes the touched N x R rows; a few tens
+// of KB per sub-round, microseconds.
+#include "common.cuh"
+
+namespace {
+
+__global__ void __launch_bounds__(256) accumulate_kernel(
+    const int32_t* node, const uint8_t* mask, const float* rows,
+    const int32_t* row_idx, const int32_t* qidx, int T, int R,
+    float idle_sign, int mode, const int32_t* jw, int32_t* ntasks,
+    int32_t* alloc_l, int32_t* assigned, double* idle_acc, double* q_acc) {
+  const int t = blockIdx.x * blockDim.x + threadIdx.x;
+  if (t >= T || !mask[t]) return;
+  const int n = node[t];
+  const float* rq = rows + static_cast<int64_t>(row_idx[t]) * R;
+  const int q = qidx[t];
+  for (int s = 0; s < R; ++s) {
+    const double v = static_cast<double>(rq[s]);
+    if (v != 0.0) {
+      atomicAdd(&idle_acc[static_cast<int64_t>(n) * R + s],
+                static_cast<double>(idle_sign) * v);
+      atomicAdd(&q_acc[static_cast<int64_t>(q) * R + s],
+                -static_cast<double>(idle_sign) * v);
+    }
+  }
+  if (mode == 0) {
+    atomicAdd(&ntasks[n], 1);
+    atomicAdd(&alloc_l[jw[t]], 1);
+    assigned[t] = n;
+  } else {
+    assigned[t] = -1;
+  }
+}
+
+__global__ void __launch_bounds__(256) write_kernel(float* idle, int64_t nidle, double* idle_acc,
+                             float* q_alloc, int64_t nq, double* q_acc) {
+  const int64_t i = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
+  if (i < nidle) {
+    const double tot = idle_acc[i];
+    if (tot != 0.0) {
+      idle[i] = idle[i] + static_cast<float>(tot);
+      idle_acc[i] = 0.0;
+    }
+  } else if (i < nidle + nq) {
+    const int64_t j = i - nidle;
+    const double tot = q_acc[j];
+    if (tot != 0.0) {
+      q_alloc[j] = q_alloc[j] + static_cast<float>(tot);
+      q_acc[j] = 0.0;
+    }
+  }
+}
+
+}  // namespace
+
+extern "C" int vtt_apply_commit(
+    const void* node, const void* mask, const void* rows, const void* row_idx,
+    const void* qidx, int T, int R, float idle_sign, int mode, const void* jw,
+    void* idle, int N, void* q_alloc, int Q, void* ntasks, void* alloc_l,
+    void* assigned, void* idle_acc, void* q_acc, void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const int threads = 256;
+  if (T > 0) {
+    accumulate_kernel<<<(T + threads - 1) / threads, threads, 0, st>>>(
+        static_cast<const int32_t*>(node), static_cast<const uint8_t*>(mask),
+        static_cast<const float*>(rows), static_cast<const int32_t*>(row_idx),
+        static_cast<const int32_t*>(qidx), T, R, idle_sign, mode,
+        static_cast<const int32_t*>(jw), static_cast<int32_t*>(ntasks),
+        static_cast<int32_t*>(alloc_l), static_cast<int32_t*>(assigned),
+        static_cast<double*>(idle_acc), static_cast<double*>(q_acc));
+    cudaError_t err = cudaGetLastError();
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
+  const int64_t nidle = static_cast<int64_t>(N) * R;
+  const int64_t nq = static_cast<int64_t>(Q) * R;
+  const int64_t total = nidle + nq;
+  write_kernel<<<static_cast<int>((total + threads - 1) / threads), threads, 0,
+                 st>>>(static_cast<float*>(idle), nidle,
+                       static_cast<double*>(idle_acc),
+                       static_cast<float*>(q_alloc), nq,
+                       static_cast<double*>(q_acc));
+  return static_cast<int>(cudaGetLastError());
+}

@@ -1,0 +1,183 @@
+// coarse_shortlist: phase 1 of the two-phase wave solve.
+//
+// Replaces the JAX package's jitted `_coarse_shortlist`
+// (volcano_tpu/ops/wave.py:547), with `_class_static` (wave.py:285) and
+// `_topk_nodes` (wave.py:498) folded in.
+//
+// Pre-pass (`class_static_kernel`): the static ok/score planes per
+// (profile, node class).  The TPU ran the selector / affinity / taint bit
+// subset tests as bf16 indicator matmuls; here each test is an AND-NOT over
+// the packed uint32 words, exact by construction.
+//
+// Main pass (`shortlist_kernel`): one block per profile row scores all N
+// nodes into 64-bit keys (score descending, node id ascending: the
+// jax.lax.top_k tie-break), radix-selects the S-th key, and writes the
+// selected ids in ascending id order with a block prefix sum over the
+// selection mask, so the sorted output the solve needs comes for free.
+//
+// Bound: at 10k nodes x 64 profile rows the pass reads under a megabyte
+// (node planes once per block from L2) and does ~40 float operations per
+// (profile, node) pair: microseconds on an H100.  The 8 radix passes over
+// each block's keys dominate; keys live in a global scratch row per block
+// that stays in L2.
+#include "common.cuh"
+
+using vtt::Weights;
+
+namespace {
+
+__device__ __forceinline__ bool subset(const uint32_t* row,
+                                       const uint32_t* table, int words) {
+  for (int w = 0; w < words; ++w) {
+    if (row[w] & ~table[w]) return false;
+  }
+  return true;
+}
+
+__global__ void __launch_bounds__(256) class_static_kernel(
+    const uint32_t* sel_bits, int LW, const uint32_t* aff_bits, int A,
+    const int32_t* aff_terms, const uint32_t* tol_bits, int TW,
+    const uint32_t* pref_bits, int AP, const float* pref_w,
+    const uint32_t* cls_label, const uint32_t* cls_taint,
+    const uint8_t* cls_ready, int C, int U, float naff, int has_taints,
+    uint8_t* stat_ok, float* stat_score) {
+  const int64_t idx =
+      static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
+  if (idx >= static_cast<int64_t>(U) * C) return;
+  const int u = static_cast<int>(idx / C);
+  const int c = static_cast<int>(idx % C);
+  const uint32_t* label = cls_label + static_cast<int64_t>(c) * LW;
+  bool ok = cls_ready[c] != 0 &&
+            subset(sel_bits + static_cast<int64_t>(u) * LW, label, LW);
+  const int nterms = aff_terms[u];
+  if (nterms != 0) {
+    bool any = false;
+    for (int a = 0; a < A && a < nterms; ++a) {
+      if (subset(aff_bits + (static_cast<int64_t>(u) * A + a) * LW, label,
+                 LW)) {
+        any = true;
+        break;
+      }
+    }
+    ok = ok && any;
+  }
+  if (has_taints) {
+    // A node taint bit the profile does not tolerate kills the pair.
+    const uint32_t* taint = cls_taint + static_cast<int64_t>(c) * TW;
+    const uint32_t* tol = tol_bits + static_cast<int64_t>(u) * TW;
+    for (int w = 0; w < TW; ++w) {
+      if (taint[w] & ~tol[w]) ok = false;
+    }
+  }
+  float acc = 0.0f;
+  for (int a = 0; a < AP; ++a) {
+    const bool m =
+        subset(pref_bits + (static_cast<int64_t>(u) * AP + a) * LW, label, LW);
+    const float term = (m ? 1.0f : 0.0f) * pref_w[static_cast<int64_t>(u) * AP + a];
+    acc = a == 0 ? term : acc + term;
+  }
+  stat_ok[idx] = ok ? 1 : 0;
+  stat_score[idx] = naff * acc;
+}
+
+__global__ void __launch_bounds__(1024) shortlist_kernel(
+    const float* req, const float* init_req, int R, const uint8_t* stat_ok,
+    const float* stat_score, const int32_t* cls_id, int C,
+    const float* idle, const float* alloc, const int32_t* ntasks,
+    const int32_t* max_tasks, int N, const float* eps,
+    const uint8_t* scalar_slot, const float* bres, Weights w, int S,
+    uint64_t* keys_scratch, int32_t* out) {
+  __shared__ int hist[256];
+  __shared__ int bcast[2];
+  __shared__ int warp_sums[32];
+  __shared__ int base_s;
+  const int u = blockIdx.x;
+  const float* rq = req + static_cast<int64_t>(u) * R;
+  const float* irq = init_req + static_cast<int64_t>(u) * R;
+  uint64_t* keys = keys_scratch + static_cast<int64_t>(u) * N;
+  for (int n = threadIdx.x; n < N; n += blockDim.x) {
+    const int c = cls_id[n];
+    const float* id = idle + static_cast<int64_t>(n) * R;
+    const float* al = alloc + static_cast<int64_t>(n) * R;
+    const bool pods_ok = max_tasks[n] <= 0 || ntasks[n] < max_tasks[n];
+    const bool feas = stat_ok[static_cast<int64_t>(u) * C + c] != 0 &&
+                      vtt::less_equal(irq, id, eps, scalar_slot, R) &&
+                      pods_ok;
+    const float score = vtt::node_score(rq, al, id, bres, R, w) +
+                        stat_score[static_cast<int64_t>(u) * C + c];
+    keys[n] = vtt::make_key(feas ? score : vtt::kNeg, static_cast<uint32_t>(n));
+  }
+  __syncthreads();
+  const uint64_t kth = vtt::block_select_kth(keys, N, S, hist, bcast);
+  // Ascending-id compaction of the S selected keys.
+  if (threadIdx.x == 0) base_s = 0;
+  __syncthreads();
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const int nwarps = (blockDim.x + 31) >> 5;
+  int32_t* row = out + static_cast<int64_t>(u) * S;
+  for (int start = 0; start < N; start += blockDim.x) {
+    const int n = start + threadIdx.x;
+    const bool sel = n < N && keys[n] >= kth;
+    const unsigned ballot = __ballot_sync(0xFFFFFFFFu, sel);
+    if (lane == 0) warp_sums[warp] = __popc(ballot);
+    __syncthreads();
+    int before = 0;
+    int total = 0;
+    for (int i = 0; i < nwarps; ++i) {
+      if (i < warp) before += warp_sums[i];
+      total += warp_sums[i];
+    }
+    const int pos = base_s + before + __popc(ballot & ((1u << lane) - 1u));
+    if (sel) row[pos] = n;
+    __syncthreads();
+    if (threadIdx.x == 0) base_s += total;
+    __syncthreads();
+  }
+}
+
+}  // namespace
+
+extern "C" int vtt_coarse_shortlist(
+    const void* req, const void* init_req, int U, int R, const void* sel_bits,
+    int LW, const void* aff_bits, int A, const void* aff_terms,
+    const void* tol_bits, int TW, const void* pref_bits, int AP,
+    const void* pref_w, const void* cls_id, const void* cls_label,
+    const void* cls_taint, const void* cls_ready, int C, const void* idle,
+    const void* alloc, const void* ntasks, const void* max_tasks, int N,
+    const void* eps, const void* scalar_slot, const void* bres, float bw,
+    float lw, float mw, float balw, float naff, int has_taints, int S,
+    void* stat_ok, void* stat_score, void* keys_scratch, void* out,
+    void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const int64_t pairs = static_cast<int64_t>(U) * C;
+  const int threads = 256;
+  const int blocks = static_cast<int>((pairs + threads - 1) / threads);
+  class_static_kernel<<<blocks, threads, 0, st>>>(
+      static_cast<const uint32_t*>(sel_bits), LW,
+      static_cast<const uint32_t*>(aff_bits), A,
+      static_cast<const int32_t*>(aff_terms),
+      static_cast<const uint32_t*>(tol_bits), TW,
+      static_cast<const uint32_t*>(pref_bits), AP,
+      static_cast<const float*>(pref_w),
+      static_cast<const uint32_t*>(cls_label),
+      static_cast<const uint32_t*>(cls_taint),
+      static_cast<const uint8_t*>(cls_ready), C, U, naff, has_taints,
+      static_cast<uint8_t*>(stat_ok), static_cast<float*>(stat_score));
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  Weights w{bw, lw, mw, balw};
+  shortlist_kernel<<<U, 1024, 0, st>>>(
+      static_cast<const float*>(req), static_cast<const float*>(init_req), R,
+      static_cast<const uint8_t*>(stat_ok),
+      static_cast<const float*>(stat_score),
+      static_cast<const int32_t*>(cls_id), C,
+      static_cast<const float*>(idle), static_cast<const float*>(alloc),
+      static_cast<const int32_t*>(ntasks),
+      static_cast<const int32_t*>(max_tasks), N,
+      static_cast<const float*>(eps),
+      static_cast<const uint8_t*>(scalar_slot),
+      static_cast<const float*>(bres), w, S,
+      static_cast<uint64_t*>(keys_scratch), static_cast<int32_t*>(out));
+  return static_cast<int>(cudaGetLastError());
+}

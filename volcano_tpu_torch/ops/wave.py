@@ -1,0 +1,963 @@
+"""Wave-batched allocate solver, two-phase, on torch and the CUDA kernels of
+``ops/kernels.py``.
+
+The counterpart of the JAX package's ``ops/wave.py`` (its module docstring
+states the semantics: waves of W tasks in task order, per-profile rankings,
+a capacity walk with in-order prefix acceptance, queue-overuse gating at a
+job's first task, fit-failure aborts, and one vectorized gang discard).
+This module runs the same computation:
+
+1. host prep in numpy, copied byte for byte from ``wave.py:2316-2673``
+   (profile dedup with first-occurrence ``pid`` numbering, padding, wave
+   profile lists, node classes);
+2. phase 1, ``_coarse_shortlist``: static (profile x class) planes and each
+   profile's top-S shortlist over all nodes (kernel ``coarse_shortlist``);
+3. phase 2, ``_solve_wave``: the wave / attempt / sub-round loops of
+   ``wave.py:2260, 2225, 2151`` as Python loops around the kernels
+   ``rank_candidates``, ``walk_accept`` and ``apply_commit``.  The loop
+   conditions are read on the host, one sync per iteration;
+4. the gang discard (``apply_commit`` again) and the int16 narrowing of the
+   result.
+
+Supported: node selectors, required and preferred node affinity (through
+the static class planes), taints and tolerations, pod-slot limits,
+queue-overuse gating, compacted and identity node classes, the
+shortlist-exhaustion fallback rescore, the gang discard.  Host ports,
+inter-pod affinity and spread, releasing / pipelined capacity, custom
+plugin masks and scores, a topology node bias, mesh sharding, the
+device-incremental cache and ``VOLCANO_TPU_TWOPHASE=0`` raise
+``NotImplementedError``: the port never computes a different answer for
+them.
+"""
+
+from __future__ import annotations
+
+import os as _os
+import time as _time
+from typing import NamedTuple, Optional
+
+import numpy as np
+import torch
+
+from ..arrays.affinity import AffinityArgs
+from ..device import resolve_device, to_numpy, to_tensor, tree_to
+from . import kernels
+from .allocate import (AllocResult, SolveJobs, SolveNodes, SolveQueues,
+                       SolveTasks)
+from .nodeclass import NodeClasses
+from .resreq import less_equal
+from .scoring import ScoreWeights
+
+
+def _env_int(name: str, default: int) -> int:
+    try:
+        return int(_os.environ.get(name, default))
+    except ValueError:
+        return default
+
+
+# Knobs under the JAX package's names, so one env var steers both.
+DEFAULT_WAVE = _env_int("VOLCANO_TPU_WAVE", 2048)
+# diversification breadth: k-th contender takes its k-th best node
+TOPK = _env_int("VOLCANO_TPU_TOPK", 256)
+# In-attempt re-walk rounds for conflict losers.
+SUBROUNDS = _env_int("VOLCANO_TPU_SUBROUNDS", 4)
+
+
+def _two_phase_on() -> bool:
+    return _os.environ.get("VOLCANO_TPU_TWOPHASE", "1") != "0"
+
+
+def _nodeclass_on() -> bool:
+    return _os.environ.get("VOLCANO_TPU_NODECLASS", "1") != "0"
+
+
+def _fallback_cap() -> int:
+    """Max shortlist-fallback rescores per solve (0 = unlimited)."""
+    try:
+        return max(0, int(_os.environ.get("VOLCANO_TPU_FB_CAP", 0)))
+    except ValueError:
+        return 0
+
+
+def shortlist_size(n: int) -> int:
+    """Phase-2 shortlist length per profile (wave.py:179).
+    VOLCANO_TPU_TOPK pins it; the default mirrors the reference's adaptive
+    percentageOfNodesToFind (50 - N/125 percent, floor 5%, at least 100
+    nodes, scheduler_helper.go:37-62) and never drops below TOPK."""
+    raw = _os.environ.get("VOLCANO_TPU_TOPK")
+    if raw:
+        try:
+            return max(1, min(n, int(raw)))
+        except ValueError:
+            pass
+    pct = max(5, 50 - n // 125)
+    return min(n, max(100, TOPK, n * pct // 100))
+
+
+# Telemetry of the most recent solve on this host: prep_s, coarse_s,
+# fine_s (host wall seconds, each ending in a device sync), shortlist
+# (U, S), n_nodes, compacted_classes, syncs (host reads of loop
+# conditions).
+LAST_TWOPHASE: dict = {"enabled": False}
+
+
+class SolveProfiles(NamedTuple):
+    """Distinct task profiles ([U] rows): every per-task input that shapes
+    the [*, N] feasibility/score tensors.  Tasks map to profiles via
+    ``pid``; waves gather their present profiles via ``wave_prof``."""
+
+    req: object  # [U, R]
+    init_req: object  # [U, R]
+    ports: object  # [U, PW] uint32
+    sel_bits: object  # [U, LW]
+    aff_bits: object  # [U, A, LW]
+    aff_terms: object  # [U]
+    tol_bits: object  # [U, TW]
+    pref_bits: object  # [U, AP, LW]
+    pref_w: object  # [U, AP]
+    t_req_aff: object  # [U, E]
+    t_req_anti: object  # [U, E]
+    t_matches: object  # [U, E]
+    t_soft: object  # [U, E]
+
+
+class GState(NamedTuple):
+    """Cluster state threaded through waves and attempts (the fields this
+    slice carries; ports, affinity counts and pipelining arrive with their
+    features)."""
+
+    idle: object  # [N, R]
+    ntasks: object  # [N] int32
+    q_alloc: object  # [Q, R]
+    alloc_cnt: object  # [JP] int32
+    fit_failed: object  # [JP] bool
+    job_skip: object  # [JP] bool (fit abort OR overuse skip)
+    job_overskip: object  # [JP] bool (skipped for overuse only)
+    assigned: object  # [P] int32
+
+
+def _np(a):
+    # Host copy of a leaf: tensors come back from their device; numpy
+    # stays as it is (contiguous, for the profile-hash .view(uint8)).
+    return to_numpy(a)
+
+
+_HASH_SEED = np.random.RandomState(0x5EED)
+
+
+def _profile_tasks(tasks: SolveTasks, aff: AffinityArgs, extra_ok=None,
+                   extra_score=None):
+    """Group tasks into distinct profiles (host, numpy).
+
+    Returns (profiles, pid[P]) where profiles hold one row per distinct
+    combination of every per-task solver input except job identity, and
+    pid is ordered by first occurrence (so job-contiguous task order keeps
+    per-wave profile ranges narrow).
+
+    Grouping hashes each row with a random linear map and verifies the
+    result exactly (every row compared against its representative); on the
+    astronomically unlikely hash collision it falls back to exact grouping.
+    """
+    P = tasks.req.shape[0]
+    cols = [
+        _np(tasks.req).reshape(P, -1).view(np.uint8).reshape(P, -1),
+        _np(tasks.init_req).reshape(P, -1).view(np.uint8).reshape(P, -1),
+        _np(tasks.ports).reshape(P, -1).view(np.uint8).reshape(P, -1),
+        _np(tasks.sel_bits).reshape(P, -1).view(np.uint8).reshape(P, -1),
+        _np(tasks.aff_bits).reshape(P, -1).view(np.uint8).reshape(P, -1),
+        _np(tasks.aff_terms).reshape(P, -1).view(np.uint8).reshape(P, -1),
+        _np(tasks.tol_bits).reshape(P, -1).view(np.uint8).reshape(P, -1),
+        _np(tasks.pref_bits).reshape(P, -1).view(np.uint8).reshape(P, -1),
+        _np(tasks.pref_w).reshape(P, -1).view(np.uint8).reshape(P, -1),
+        _np(aff.t_req_aff).reshape(P, -1).view(np.uint8).reshape(P, -1),
+        _np(aff.t_req_anti).reshape(P, -1).view(np.uint8).reshape(P, -1),
+        _np(aff.t_matches).reshape(P, -1).view(np.uint8).reshape(P, -1),
+        _np(aff.t_soft).reshape(P, -1).view(np.uint8).reshape(P, -1),
+    ]
+    if extra_ok is not None:
+        # Custom per-task node masks split profiles: tasks of one profile
+        # must share a mask row (the kernel applies it per profile).
+        cols.append(np.packbits(_np(extra_ok), axis=1))
+    if extra_score is not None:
+        cols.append(
+            _np(extra_score).astype(np.float32)
+            .reshape(P, -1).view(np.uint8).reshape(P, -1)
+        )
+    raw = np.concatenate(cols, axis=1)  # [P, C] uint8
+    # Three independent linear hashes with small coefficients: every dot
+    # product stays below 2^33, so the float64 BLAS matmul is exact and two
+    # distinct rows collide in one column with probability ~2^-20 (the
+    # coefficients are random); across three columns ~2^-60 per pair.
+    rnd = _HASH_SEED.randint(1, 1 << 20, size=(raw.shape[1], 3))
+    h = (raw.astype(np.float64) @ rnd.astype(np.float64)).astype(np.int64)
+    p1 = np.uint64(0x9E3779B97F4A7C15).astype(np.int64)
+    p2 = np.uint64(0xC2B2AE3D27D4EB4F).astype(np.int64)
+    with np.errstate(over="ignore"):
+        hv = h[:, 0] + h[:, 1] * p1 + h[:, 2] * p2
+    _, first_idx, inv = np.unique(
+        hv, return_index=True, return_inverse=True
+    )
+    # Renumber profiles by first occurrence so pid follows task order.
+    order = np.argsort(first_idx, kind="stable")
+    rank = np.empty(len(order), np.int64)
+    rank[order] = np.arange(len(order))
+    pid = rank[inv].astype(np.int32)
+    u = first_idx[order]
+
+    if not np.array_equal(raw, raw[u][pid]):  # hash collision: exact path
+        key = np.ascontiguousarray(raw)
+        _, first_idx, inv = np.unique(
+            key.view([("", np.uint8)] * key.shape[1]).ravel(),
+            return_index=True,
+            return_inverse=True,
+        )
+        order = np.argsort(first_idx, kind="stable")
+        rank = np.empty(len(order), np.int64)
+        rank[order] = np.arange(len(order))
+        pid = rank[inv].astype(np.int32)
+        u = first_idx[order]
+
+    profiles = SolveProfiles(
+        req=_np(tasks.req)[u],
+        init_req=_np(tasks.init_req)[u],
+        ports=_np(tasks.ports)[u],
+        sel_bits=_np(tasks.sel_bits)[u],
+        aff_bits=_np(tasks.aff_bits)[u],
+        aff_terms=_np(tasks.aff_terms)[u],
+        tol_bits=_np(tasks.tol_bits)[u],
+        pref_bits=_np(tasks.pref_bits)[u],
+        pref_w=_np(tasks.pref_w)[u],
+        t_req_aff=_np(aff.t_req_aff)[u],
+        t_req_anti=_np(aff.t_req_anti)[u],
+        t_matches=_np(aff.t_matches)[u],
+        t_soft=_np(aff.t_soft)[u],
+    )
+    extra_prof = _np(extra_ok)[u] if extra_ok is not None else None
+    score_prof = (
+        _np(extra_score).astype(np.float32)[u]
+        if extra_score is not None else None
+    )
+    return profiles, pid, extra_prof, score_prof
+
+
+def _renumber_pid(pid: np.ndarray):
+    """Renumber profile ids by first occurrence; return (pid2, u_rows) where
+    u_rows[k] is the first task row of profile k."""
+    _, first_idx, inv = np.unique(pid, return_index=True, return_inverse=True)
+    order = np.argsort(first_idx, kind="stable")
+    rank = np.empty(len(order), np.int64)
+    rank[order] = np.arange(len(order))
+    return rank[inv].astype(np.int32), first_idx[order]
+
+
+def _profiles_from_pid(tasks: SolveTasks, aff: AffinityArgs,
+                       pid: np.ndarray):
+    """Build SolveProfiles from caller-supplied profile ids (the store
+    mirror interns them at pod-add time, so no per-cycle hashing)."""
+    pid, u = _renumber_pid(pid)
+    profiles = SolveProfiles(
+        req=_np(tasks.req)[u],
+        init_req=_np(tasks.init_req)[u],
+        ports=_np(tasks.ports)[u],
+        sel_bits=_np(tasks.sel_bits)[u],
+        aff_bits=_np(tasks.aff_bits)[u],
+        aff_terms=_np(tasks.aff_terms)[u],
+        tol_bits=_np(tasks.tol_bits)[u],
+        pref_bits=_np(tasks.pref_bits)[u],
+        pref_w=_np(tasks.pref_w)[u],
+        t_req_aff=_np(aff.t_req_aff)[u],
+        t_req_anti=_np(aff.t_req_anti)[u],
+        t_matches=_np(aff.t_matches)[u],
+        t_soft=_np(aff.t_soft)[u],
+    )
+    return profiles, pid
+
+
+def bucket_pow2(n: int, floor: int, min_pad: int = 8) -> int:
+    """Shape bucket: next power of two >= n plus 25% headroom (the JAX
+    package buckets to bound recompiles; the port keeps the same shapes so
+    both packages prepare identical arrays).  ``floor`` bounds the
+    smallest bucket per axis."""
+    target = n + max(n // 4, min_pad)
+    b = max(floor, 1)
+    while b < target:
+        b *= 2
+    return b
+
+
+def _pad_profiles_rows(profiles: SolveProfiles) -> SolveProfiles:
+    """Pad the profile table's row axis to a power of two (min 64) with
+    inert zero rows.  The row count is data-dependent (distinct task
+    profiles this cycle); the JAX package pads it to bound recompiles and
+    the port pads the same way.  Padded rows are never referenced: pid
+    and wave_prof only index real rows."""
+    U = int(_np(profiles.req).shape[0])
+    pad = bucket_pow2(U, floor=64) - U
+    if pad == 0:
+        return profiles
+    def z(a):
+        a = _np(a)
+        return np.concatenate(
+            [a, np.zeros((pad, *a.shape[1:]), a.dtype)]
+        )
+
+    return SolveProfiles(*[z(a) for a in profiles])
+
+
+def _term_windows(profiles: SolveProfiles, aff: AffinityArgs,
+                  pid: np.ndarray, wave_prof: np.ndarray, n_waves: int,
+                  skip_cnt0: bool = False, skip_prof: bool = False):
+    """Per-wave lists of the affinity terms the wave's profiles reference.
+
+    Every [*, E] tensor in the kernel is gathered down to the wave's term
+    list, bounding the affinity machinery by terms-per-wave instead of
+    total terms.  One dummy scratch row is appended to the term axis and
+    used as list padding, so the windowed count write-back scatters to
+    unique real rows (duplicates only hit the dummy).
+    Returns (profiles, aff, wave_terms [NW, EW], EW, iom) — iom being
+    the [U, E] nonzero union of the four profile-term tables (pre-dummy
+    columns; the sparse-shipping path reuses it).  ``skip_prof``: leave
+    the profile tables without the dummy column (the caller rebuilds
+    them on device at the dummy-extended width — skips four ~dense host
+    copies).
+    """
+    t_req_aff = _np(profiles.t_req_aff)
+    E = t_req_aff.shape[1]
+    iom = (
+        t_req_aff | _np(profiles.t_req_anti) | _np(profiles.t_matches)
+        | (_np(profiles.t_soft) != 0)
+    )
+    # Append the dummy scratch term row E.
+    def zc(a):
+        a = _np(a)
+        return np.concatenate(
+            [a, np.zeros((*a.shape[:-1], 1), a.dtype)], axis=-1
+        )
+
+    if not skip_prof:
+        profiles = profiles._replace(
+            t_req_aff=zc(profiles.t_req_aff),
+            t_req_anti=zc(profiles.t_req_anti),
+            t_matches=zc(profiles.t_matches),
+            t_soft=zc(profiles.t_soft),
+        )
+    repl = {
+        "term_key": np.concatenate(
+            [_np(aff.term_key), np.zeros(1, np.int32)]
+        ),
+    }
+    if not skip_cnt0:
+        # skip_cnt0: the caller rebuilds cnt0 on device with the dummy
+        # row included — skip the dense [Ep, D] host copy here.
+        repl["cnt0"] = np.concatenate(
+            [_np(aff.cnt0),
+             np.zeros((1, _np(aff.cnt0).shape[1]), _np(aff.cnt0).dtype)]
+        )
+    aff = aff._replace(**repl)
+    wp = _np(wave_prof)
+    U = iom.shape[0]
+    term_lists = []
+    ew = 1
+    for w in range(n_waves):
+        pids = np.unique(np.clip(wp[w], 0, U - 1))
+        terms = np.flatnonzero(iom[pids].any(axis=0))
+        term_lists.append(terms)
+        ew = max(ew, len(terms))
+    EW = bucket_pow2(ew, floor=16, min_pad=4)
+    wave_terms = np.full((n_waves, EW), E, np.int32)  # pad = dummy row
+    for w, terms in enumerate(term_lists):
+        wave_terms[w, :len(terms)] = terms
+    # Term sets are usually wave-disjoint (terms select a job's own app
+    # label and jobs never split across waves): no wave then reads a
+    # count another wave wrote, and the per-wave window write-back into
+    # the global [E, D] tables can be skipped wholesale.
+    if term_lists:
+        all_terms = np.concatenate(term_lists)
+        terms_disjoint = bool(
+            len(all_terms) == len(np.unique(all_terms))
+        )
+    else:
+        terms_disjoint = True
+    # iom's dummy column is all-zero; callers reuse it as the nonzero
+    # union of the four tables (the sparse-shipping path).
+    return profiles, aff, wave_terms, int(EW), iom, terms_disjoint
+
+
+def _wave_profiles(pid: np.ndarray, n_waves: int, wave: int):
+    """Per-wave lists of the profiles actually PRESENT in each wave.
+
+    Shared profiles recur across the whole task list, so id *ranges* per
+    wave degenerate to the full profile table at scale; explicit presence
+    lists keep UM at (distinct profiles per wave), padded to a power of
+    two across waves.  Padding repeats the wave's first profile
+    (read-only duplication).  Returns wave_prof [NW, UM]; each task's
+    index into its wave's list is its first match there
+    (``_wave_host_index``).
+    """
+    seg = pid.reshape(n_waves, wave)
+    lists = []
+    um = 1
+    for w in range(n_waves):
+        u = np.unique(seg[w])
+        lists.append(u)
+        um = max(um, len(u))
+    UM = 1
+    while UM < um:
+        UM *= 2
+    wave_prof = np.zeros((n_waves, UM), np.int32)
+    for w, u in enumerate(lists):
+        wave_prof[w, :len(u)] = u
+        wave_prof[w, len(u):] = u[0]
+    return wave_prof
+
+
+def _pad_tasks(tasks: SolveTasks, pad: int) -> SolveTasks:
+    def z(a):
+        a = _np(a)
+        return np.concatenate([a, np.zeros((pad, *a.shape[1:]), a.dtype)])
+
+    return SolveTasks(
+        req=z(tasks.req),
+        init_req=z(tasks.init_req),
+        job=np.concatenate(
+            [_np(tasks.job), np.full((pad,), -1, np.int32)]
+        ),
+        real=np.concatenate([_np(tasks.real), np.zeros((pad,), bool)]),
+        ports=z(tasks.ports),
+        sel_bits=z(tasks.sel_bits),
+        aff_bits=z(tasks.aff_bits),
+        aff_terms=z(tasks.aff_terms),
+        tol_bits=z(tasks.tol_bits),
+        pref_bits=z(tasks.pref_bits),
+        pref_w=z(tasks.pref_w),
+    )
+
+
+def _pad_aff(aff: AffinityArgs, pad: int) -> AffinityArgs:
+    def z(a):
+        a = _np(a)
+        return np.concatenate([a, np.zeros((pad, *a.shape[1:]), a.dtype)])
+
+    return AffinityArgs(
+        node_dom=aff.node_dom,
+        term_key=aff.term_key,
+        cnt0=aff.cnt0,
+        t_req_aff=z(aff.t_req_aff),
+        t_req_anti=z(aff.t_req_anti),
+        t_matches=z(aff.t_matches),
+        t_soft=z(aff.t_soft),
+    )
+
+
+def _host_node_classes(nodes: SolveNodes):
+    """Compact the node table into classes from host (numpy) arrays.
+
+    The grouping is memoized on a content digest of the static planes
+    (one entry): a node table is epoch-stable cycle to cycle, and the
+    digest (a linear byte hash) is cheaper than re-running the
+    structured-row unique sort every solve."""
+    import hashlib
+
+    from .nodeclass import build_node_classes
+
+    h = hashlib.blake2b(digest_size=16)
+    planes = (
+        nodes.label_bits, nodes.taint_bits, np.asarray(nodes.ready),
+        np.asarray(nodes.allocatable, np.float32),
+        np.asarray(nodes.max_tasks, np.int32),
+    )
+    for a in planes:
+        a = np.ascontiguousarray(a)
+        h.update(repr((a.shape, a.dtype.str)).encode())
+        h.update(memoryview(a).cast("B"))
+    key = h.hexdigest()
+    cached = _host_node_classes._cache
+    if cached is not None and cached[0] == key:
+        return cached[1]
+    classes, _n, _sig = build_node_classes(*planes)
+    _host_node_classes._cache = (key, classes)
+    return classes
+
+
+_host_node_classes._cache = None
+
+# ------------------------------------------------------------------ device
+
+def _unsupported(what: str, item: str):
+    return NotImplementedError(
+        f"volcano_tpu_torch solve_wave does not support {what} yet "
+        f"(ROADMAP.md: {item})"
+    )
+
+
+def _identity_classes(nodes: SolveNodes) -> NodeClasses:
+    """Per-node identity classes (wave.py:331): every node its own class."""
+    N = nodes.idle.shape[0]
+    return NodeClasses(
+        class_id=torch.arange(N, dtype=torch.int32, device=nodes.idle.device),
+        label_bits=nodes.label_bits,
+        taint_bits=nodes.taint_bits,
+        ready=nodes.ready,
+    )
+
+
+def _coarse_shortlist(nodes: SolveNodes, prof: SolveProfiles,
+                      cls: Optional[NodeClasses], weights: ScoreWeights,
+                      eps, scalar_slot, sl_k: int, features: tuple,
+                      plain: bool = False):
+    """Phase 1 (wave.py:547): ``(shortlists [U, sl_k] int32 ascending node
+    ids, stat_ok [U, C] bool, stat_score [U, C] f32)``.  ``cls`` None means
+    identity classes.  Masks and scores are evaluated at solve-start state;
+    the selection keeps each profile's top ``sl_k`` by (score desc, node id
+    asc)."""
+    if cls is None:
+        cls = _identity_classes(nodes)
+    return kernels.coarse_shortlist(
+        prof, cls, nodes.idle, nodes.allocatable, nodes.ntasks,
+        nodes.max_tasks, eps, scalar_slot, weights, sl_k,
+        has_taints=bool(features[2]), plain=plain,
+    )
+
+
+def _wave_host_index(job, real, pid, wave_prof, queue, J: int, W: int):
+    """Per-task wave indices computed once on the host: the job window
+    start ``jlo`` per wave, each task's window slot ``jw``, its row in the
+    wave's profile list ``pid_l`` (first match, the JAX argmax), and its
+    queue through the window (``queue_p[jlo + jw]``)."""
+    NW = wave_prof.shape[0]
+    tjob = np.where(real, job.astype(np.int64), J)
+    queue_p = np.concatenate([queue.astype(np.int32), np.zeros(W, np.int32)])
+    jlo = np.empty(NW, np.int64)
+    jw = np.empty(NW * W, np.int32)
+    pid_l = np.empty(NW * W, np.int32)
+    qidx = np.empty(NW * W, np.int32)
+    lut = np.zeros(int(pid.max()) + 1 if len(pid) else 1, np.int32)
+    UM = wave_prof.shape[1]
+    for w in range(NW):
+        sl = slice(w * W, (w + 1) * W)
+        jraw = tjob[sl]
+        lo = int(np.min(np.where(real[sl], jraw, J)))
+        jlo[w] = lo
+        jw[sl] = np.clip(jraw - lo, 0, W - 1)
+        rows = wave_prof[w].astype(np.int64)
+        lut[rows[::-1]] = np.arange(UM - 1, -1, -1, dtype=np.int32)
+        pid_l[sl] = lut[pid[sl]]
+        qidx[sl] = queue_p[lo + jw[sl]]
+    return tjob, queue_p, jlo, jw, pid_l, qidx
+
+
+def _solve_wave(nodes: SolveNodes, jobs: SolveJobs,
+                queues: SolveQueues, weights: ScoreWeights, eps, scalar_slot,
+                prof: SolveProfiles, pid, wave_prof: np.ndarray,
+                cls: Optional[NodeClasses], shortlists, stat_ok, stat_score,
+                host: dict, wave: int, n_waves: int, features: tuple,
+                fb_cap: int = 0, plain: bool = False) -> AllocResult:
+    """Phase 2 (wave.py:860) for the features this slice supports.
+
+    ``host`` carries the numpy task/job columns the loops index with
+    (``job``, ``real``, ``pid``, ``queue``); the device tensors carry the
+    state.  Every loop condition is one host read."""
+    has_overuse = bool(features[4])
+    dev = nodes.idle.device
+    N, R = nodes.idle.shape
+    P = int(host["real"].shape[0])
+    J = int(jobs.min_available.shape[0])
+    Q = int(queues.deserved.shape[0])
+    W = wave
+    UM = int(wave_prof.shape[1])
+    S = int(shortlists.shape[1])
+    K = min(TOPK, S)
+    JP = J + W
+    i32 = torch.int32
+    if cls is None:
+        cls = _identity_classes(nodes)
+    tjob_h, queue_p_h, jlo_h, jw_h, pid_l_h, qidx_h = _wave_host_index(
+        host["job"], host["real"], host["pid"], wave_prof, host["queue"],
+        J, W,
+    )
+    real = to_tensor(host["real"], dev)
+    tjob = torch.from_numpy(tjob_h).to(dev)
+    prev = np.concatenate([[-1], tjob_h[:-1]])
+    is_first = to_tensor(host["real"] & (tjob_h != prev), dev)
+    jw_all = to_tensor(jw_h, dev)
+    pid_l_all = to_tensor(pid_l_h, dev)
+    qidx_all = to_tensor(qidx_h, dev)
+    wave_prof_t = to_tensor(wave_prof.astype(np.int64), dev)
+    queue_p = to_tensor(queue_p_h, dev)
+
+    job_seen = torch.zeros(JP, dtype=torch.bool, device=dev)
+    job_seen[tjob[real]] = True
+    st = GState(
+        idle=nodes.idle.clone(),
+        ntasks=nodes.ntasks.clone(),
+        q_alloc=queues.allocated.clone(),
+        alloc_cnt=torch.zeros(JP, dtype=i32, device=dev),
+        fit_failed=torch.zeros(JP, dtype=torch.bool, device=dev),
+        job_skip=torch.zeros(JP, dtype=torch.bool, device=dev),
+        job_overskip=torch.zeros(JP, dtype=torch.bool, device=dev),
+        assigned=torch.full((P,), -1, dtype=i32, device=dev),
+    )
+    # float64 accumulators of apply_commit, kept zeroed between calls.
+    scratch = (torch.zeros((N, R), dtype=torch.float64, device=dev),
+               torch.zeros((Q, R), dtype=torch.float64, device=dev))
+    t_idx = torch.arange(W, device=dev)
+    all_rows = torch.arange(UM, dtype=i32, device=dev)
+    TOPOV = min(16, K)
+    iters = 0
+    fb_exhausted = 0
+    fb_rounds = 0
+    syncs = 0
+
+    for w in range(n_waves):
+        sl = slice(w * W, (w + 1) * W)
+        jlo = int(jlo_h[w])
+        jwin = slice(jlo, jlo + W)
+        real_w = real[sl]
+        is_first_w = is_first[sl]
+        jw = jw_all[sl]
+        jw_l = jw.long()
+        pid_l = pid_l_all[sl]
+        pl = pid_l.long()
+        qidx = qidx_all[sl]
+        pids = wave_prof_t[w]
+        p_req = prof.req[pids].contiguous()
+        p_init_req = prof.init_req[pids].contiguous()
+        ok_w = stat_ok[pids].contiguous()
+        score_w = stat_score[pids].contiguous()
+        sl_w = shortlists[pids].contiguous()
+
+        alloc_l = st.alloc_cnt[jwin].clone()
+        fitf_l = st.fit_failed[jwin].clone()
+        skip_l = st.job_skip[jwin].clone()
+        over_l = st.job_overskip[jwin].clone()
+        assigned_w = torch.full((W,), -1, dtype=i32, device=dev)
+        done = ~real_w
+        it = 0
+        stalled = False
+        while True:
+            skip_t = skip_l[jw_l] & real_w
+            syncs += 1
+            if (stalled or it >= 2 * W + 64
+                    or not bool((~done & ~skip_t).any())):
+                break
+            skip_l0 = skip_l.clone()
+            if has_overuse:
+                # Queue-overuse gating at each job's first task (live q).
+                gate = is_first_w & ~done
+                overused = ~less_equal(st.q_alloc[qidx.long()],
+                                       queues.deserved[qidx.long()],
+                                       eps, scalar_slot)
+                gate_over = gate & overused & real_w
+                gated = torch.zeros(W, dtype=torch.bool, device=dev)
+                gated[jw_l[gate_over]] = True
+                skip_l = skip_l | gated
+                over_l = over_l | gated
+            skip_t = skip_l[jw_l] & real_w
+            cand = ~done & ~skip_t
+
+            ranked, feas_k, p_any = kernels.rank_candidates(
+                all_rows, sl_w, ok_w, score_w, cls.class_id, p_req,
+                p_init_req, st.idle, nodes.allocatable, st.ntasks,
+                nodes.max_tasks, eps, scalar_slot, weights, K, plain=plain,
+            )
+            # Shortlist exhaustion -> full-N rescore of the affected
+            # profiles only (wave.py:1450-1512).
+            cand_u = torch.zeros(UM, dtype=torch.bool, device=dev)
+            cand_u[pl[cand]] = True
+            exhausted = cand_u & ~p_any
+            syncs += 1
+            need_fb = bool(exhausted.any())
+            if fb_cap:
+                need_fb = need_fb and fb_rounds < fb_cap
+            if need_fb:
+                rows_x = exhausted.nonzero().squeeze(1).to(i32)
+                r_f, f_f, a_f = kernels.rank_candidates(
+                    rows_x, None, ok_w, score_w, cls.class_id, p_req,
+                    p_init_req, st.idle, nodes.allocatable, st.ntasks,
+                    nodes.max_tasks, eps, scalar_slot, weights, K,
+                    plain=plain,
+                )
+                rx = rows_x.long()
+                ranked[rx] = r_f
+                feas_k[rx] = f_f
+                p_any[rx] = a_f
+                fb_exhausted += int(rows_x.shape[0])
+                fb_rounds += 1
+
+            any_feasible = p_any[pl]
+            no_node = cand & ~any_feasible
+            # Abort-in-order: a no-node task masks the later tasks of its
+            # job from this attempt (allocate.go:189-193).
+            first_nn = torch.full((W,), W, dtype=torch.int64, device=dev)
+            first_nn.scatter_reduce_(0, jw_l[no_node], t_idx[no_node],
+                                     reduce="amin")
+            aborted = first_nn[jw_l] < t_idx
+
+            # Contention groups: profiles sharing most of their top nodes.
+            top = ranked[:, :TOPOV].long()
+            member = torch.zeros((UM, N), dtype=torch.bool, device=dev)
+            member.scatter_(1, top, True)
+            ov = member[:, top].sum(dim=-1).T  # [UM, UM] shared-top counts
+            grp = (ov >= (TOPOV + 1) // 2).contiguous()
+
+            done_sub = done.clone()
+            subs = 0
+            syncs += 1
+            go = bool((cand & ~done_sub & ~aborted).any())
+            while go and subs < SUBROUNDS:
+                cand_s = cand & ~done_sub & ~aborted
+                choice, acc = kernels.walk_accept(
+                    ranked, feas_k, p_req, p_init_req, pid_l, cand_s,
+                    any_feasible, grp, st.idle, st.ntasks, nodes.max_tasks,
+                    eps, scalar_slot, plain=plain,
+                )
+                kernels.apply_commit(
+                    choice, acc, p_req, pid_l, qidx, st.idle, st.q_alloc,
+                    mode=0, idle_sign=-1.0, jw=jw, ntasks=st.ntasks,
+                    alloc_l=alloc_l, assigned=assigned_w, scratch=scratch,
+                    plain=plain,
+                )
+                done_sub = done_sub | acc
+                subs += 1
+                syncs += 1
+                go = bool(acc.any() & (cand & ~done_sub & ~aborted).any())
+
+            fit_upd = torch.zeros(W, dtype=torch.bool, device=dev)
+            fit_upd[jw_l[no_node & real_w]] = True
+            fitf_l = fitf_l | fit_upd
+            skip_l = skip_l | fit_upd
+            new_done = done_sub | no_node
+            syncs += 1
+            stalled = not bool((new_done & ~done).any()) and bool(
+                torch.equal(skip_l, skip_l0))
+            done = done | new_done
+            it += max(subs, 1)
+
+        iters += it
+        st.alloc_cnt[jwin] = alloc_l
+        st.fit_failed[jwin] = fitf_l
+        st.job_skip[jwin] = skip_l
+        st.job_overskip[jwin] = over_l
+        st.assigned[sl] = assigned_w
+
+    # ---- gang commit/discard (stmt.Discard, wave.py:2262-2274) ----------
+    min_av_p = torch.cat([jobs.min_available.to(i32),
+                          torch.full((W,), 1 << 30, dtype=i32, device=dev)])
+    ready_base_p = torch.cat([jobs.ready_base.to(i32),
+                              torch.zeros(W, dtype=i32, device=dev)])
+    job_ready = ready_base_p + st.alloc_cnt >= min_av_p
+    never_ready_p = job_seen & ~st.job_overskip & ~job_ready
+    discard = never_ready_p[tjob] & real & (st.assigned >= 0)
+    kernels.apply_commit(
+        st.assigned.clamp(min=0), discard, prof.req, pid,
+        queue_p[tjob].contiguous(), st.idle, st.q_alloc, mode=1,
+        idle_sign=1.0, assigned=st.assigned, scratch=scratch, plain=plain,
+    )
+    assigned = st.assigned
+    pipelined = torch.full((P,), -1, dtype=i32, device=dev)
+    if N <= 32000:
+        # Node indices fit int16 whenever N does (wave.py:2275).
+        assigned = assigned.to(torch.int16)
+        pipelined = pipelined.to(torch.int16)
+    LAST_TWOPHASE["syncs"] = syncs
+    return AllocResult(
+        assigned=assigned,
+        pipelined=pipelined,
+        never_ready=never_ready_p[:J],
+        fit_failed=st.fit_failed[:J],
+        idle=st.idle,
+        q_alloc=st.q_alloc + torch.zeros_like(st.q_alloc),
+        iters=torch.tensor(iters, dtype=i32, device=dev),
+        fb_exhausted=torch.tensor(fb_exhausted, dtype=i32, device=dev),
+        fb_affinity=torch.tensor(0, dtype=i32, device=dev),
+    )
+
+
+def _sync(dev: torch.device) -> None:
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+
+
+def solve_wave(
+    nodes: SolveNodes,
+    tasks: SolveTasks,
+    jobs: SolveJobs,
+    queues: SolveQueues,
+    weights: ScoreWeights,
+    eps,
+    scalar_slot,
+    aff: AffinityArgs,
+    node_bias=None,
+    wave: int = DEFAULT_WAVE,
+    pid=None,
+    profiles: SolveProfiles = None,
+    extra_ok=None,
+    extra_score=None,
+    taint_any=None,
+    node_classes: NodeClasses = None,
+    mesh_shards: int = 1,
+    devincr=None,
+    device=None,
+    plain: bool = False,
+) -> AllocResult:
+    """Wave-batched two-phase solve; the JAX ``solve_wave``'s signature and
+    result (wave.py:2674), plus:
+
+    ``device``: where the solve runs -- the card unless the caller passes
+    ``device="cpu"`` (without a card the default raises).  Inputs may be
+    numpy arrays or tensors anywhere; the host prep reads them as numpy.
+
+    ``plain``: run the kernels' plain PyTorch versions on the card.  Only
+    the kernel-versus-plain comparison of ``chip_smoke.py`` sets it; on CPU
+    tensors the plain versions run regardless.
+
+    The result's tensors live on ``device``.
+    """
+    dev = resolve_device(device)
+    if node_bias is not None:
+        raise _unsupported("a topology node bias (node_bias)",
+                           "queue 2, topology")
+    if mesh_shards and int(mesh_shards) > 1:
+        raise _unsupported("mesh sharding (mesh_shards > 1)",
+                           "queue 2, multi-GPU")
+    if devincr is not None:
+        raise _unsupported("the device-incremental cache (devincr)",
+                           "queue 2, devincr")
+    if extra_ok is not None:
+        raise _unsupported("custom predicate masks (extra_ok)",
+                           "queue 2, the cycle drivers")
+    if extra_score is not None:
+        raise _unsupported("custom node scores (extra_score)",
+                           "queue 2, the cycle drivers")
+    if not _two_phase_on():
+        raise _unsupported("the single-phase solve (VOLCANO_TPU_TWOPHASE=0)",
+                           "queue 2, ports/affinity/future")
+    t_start = _time.perf_counter()
+    nodes = SolveNodes(*[_np(a) for a in nodes])
+    tasks = SolveTasks(*[_np(a) for a in tasks])
+    jobs = SolveJobs(*[_np(a) for a in jobs])
+    queues = SolveQueues(*[_np(a) for a in queues])
+    aff = AffinityArgs(*[_np(a) for a in aff])
+    P = int(tasks.job.shape[0])
+    wave = int(min(wave, max(1, P)))
+    pad = (-P) % wave
+    if pad:
+        tasks = _pad_tasks(tasks, pad)
+        if profiles is None:
+            aff = _pad_aff(aff, pad)
+    n_waves = (P + pad) // wave
+    if profiles is not None and pid is not None:
+        pid = np.asarray(_np(pid), np.int64)
+        profiles = SolveProfiles(*[_np(a) for a in profiles])
+        if pad:
+            # Padded rows are all-zero features: append a fresh profile.
+            fresh = int(pid.max() + 1) if len(pid) else 0
+            pid = np.concatenate([pid, np.full(pad, fresh, np.int64)])
+            profiles = SolveProfiles(*[
+                np.concatenate([a, np.zeros((1, *a.shape[1:]), a.dtype)])
+                for a in profiles
+            ])
+        pid = pid.astype(np.int32)
+    elif pid is not None:
+        pid = np.asarray(_np(pid), np.int64)
+        if pad:
+            fresh = (pid.max() + 1) if len(pid) else 0
+            pid = np.concatenate([pid, np.full(pad, fresh, np.int64)])
+        profiles, pid = _profiles_from_pid(tasks, aff, pid)
+    else:
+        profiles, pid, _ep, _sp = _profile_tasks(tasks, aff)
+    profiles = _pad_profiles_rows(profiles)
+    wave_prof = _wave_profiles(pid, n_waves, wave)
+    cnt0_any = bool(_np(aff.cnt0).any())
+    features = (
+        bool(_np(profiles.ports).any()),
+        bool(
+            _np(profiles.t_req_aff).any()
+            or _np(profiles.t_req_anti).any()
+            or _np(profiles.t_soft).any()
+            or cnt0_any
+        ),
+        (bool(taint_any) if taint_any is not None
+         else bool(_np(nodes.taint_bits).any())),
+        bool(_np(nodes.releasing).any() or _np(nodes.pipelined).any()),
+        bool((_np(queues.deserved) < 1.0e38).any()),
+        False,
+        False,
+    )
+    if features[0]:
+        raise _unsupported("host ports", "queue 2, ports/affinity/future")
+    if features[1]:
+        raise _unsupported("inter-pod affinity and spread",
+                           "queue 2, ports/affinity/future")
+    if features[3]:
+        raise _unsupported("releasing or pipelined capacity",
+                           "queue 2, ports/affinity/future")
+    N_in = int(nodes.idle.shape[0])
+    if node_classes is None and _nodeclass_on():
+        node_classes = _host_node_classes(nodes)
+    cls_identity = node_classes is None
+    sl_k = shortlist_size(N_in)
+
+    # Device placement.  Bit planes travel as int32 (same bits).
+    nodes_t = tree_to(nodes, dev)
+    prof_t = tree_to(profiles, dev)
+    cls_t = None if cls_identity else tree_to(
+        NodeClasses(*[_np(a) for a in node_classes]), dev)
+    weights_t = ScoreWeights(
+        binpack_weight=float(weights.binpack_weight),
+        binpack_res=to_tensor(np.asarray(_np(weights.binpack_res),
+                                         np.float32), dev),
+        least_req_weight=float(weights.least_req_weight),
+        most_req_weight=float(weights.most_req_weight),
+        balanced_weight=float(weights.balanced_weight),
+        node_affinity_weight=float(weights.node_affinity_weight),
+    )
+    eps_t = to_tensor(np.asarray(_np(eps), np.float32), dev)
+    slot_t = to_tensor(np.asarray(_np(scalar_slot), bool), dev)
+    jobs_t = tree_to(jobs, dev)
+    queues_t = tree_to(queues, dev)
+    pid_t = to_tensor(pid.astype(np.int32), dev)
+    host = {
+        "job": tasks.job.astype(np.int64),
+        "real": tasks.real.astype(bool),
+        "pid": pid.astype(np.int64),
+        "queue": jobs.queue,
+    }
+    _sync(dev)
+    t_prep = _time.perf_counter() - t_start
+
+    t0 = _time.perf_counter()
+    sl, stat_ok, stat_score = _coarse_shortlist(
+        nodes_t, prof_t, cls_t, weights_t, eps_t, slot_t, sl_k, features,
+        plain=plain,
+    )
+    _sync(dev)
+    t_coarse = _time.perf_counter() - t0
+    t0 = _time.perf_counter()
+    res = _solve_wave(
+        nodes_t, jobs_t, queues_t, weights_t, eps_t, slot_t, prof_t,
+        pid_t, wave_prof, cls_t, sl, stat_ok, stat_score, host,
+        wave=wave, n_waves=n_waves, features=features,
+        fb_cap=_fallback_cap(), plain=plain,
+    )
+    _sync(dev)
+    t_fine = _time.perf_counter() - t0
+    syncs = LAST_TWOPHASE.get("syncs", 0)
+    LAST_TWOPHASE.clear()
+    LAST_TWOPHASE.update({
+        "enabled": True,
+        "prep_s": t_prep,
+        "coarse_s": t_coarse,
+        "fine_s": t_fine,
+        "shortlist": (int(profiles.req.shape[0]), sl_k),
+        "n_nodes": N_in,
+        "compacted_classes": not cls_identity,
+        "waves": n_waves,
+        "syncs": syncs,
+    })
+    if pad:
+        res = res._replace(
+            assigned=res.assigned[:P], pipelined=res.pipelined[:P]
+        )
+    return res

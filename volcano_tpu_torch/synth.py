@@ -1,0 +1,171 @@
+"""Synthetic cluster generator + solver-arg builder.
+
+The counterpart of the JAX package's ``synth.py``: ``synthetic_cluster``
+draws the same cluster from the same seed (identical
+``np.random.default_rng(seed)`` draws), and ``solve_args_from_store``
+encodes a store snapshot into the positional args of ``ops.wave.solve_wave``
+as tensors on the chosen device.
+"""
+
+from __future__ import annotations
+
+from typing import Optional, Sequence, Tuple
+
+import numpy as np
+
+from .api import (
+    GROUP_NAME_ANNOTATION,
+    Node,
+    Pod,
+    PodGroup,
+    Queue,
+    TaskStatus,
+)
+from .arrays import encode_cluster
+from .cache import ClusterStore
+
+
+def synthetic_cluster(
+    n_nodes: int = 1000,
+    n_pods: int = 10000,
+    gang_size: int = 4,
+    n_queues: int = 1,
+    node_cpu: str = "64",
+    node_mem: str = "256Gi",
+    pod_cpu_choices: Sequence[str] = ("1", "2", "4"),
+    pod_mem_choices: Sequence[str] = ("2Gi", "4Gi", "8Gi"),
+    seed: int = 0,
+    zones: int = 0,
+    affinity_fraction: float = 0.0,
+    anti_affinity_fraction: float = 0.0,
+    spread_fraction: float = 0.0,
+    queue_weights: Optional[Sequence[int]] = None,
+    gang_sizes: Optional[Sequence[int]] = None,
+) -> ClusterStore:
+    """A cluster of identical nodes and gang jobs with mixed pod sizes.
+
+    ``zones`` > 0 labels nodes round-robin with zone labels;
+    ``affinity_fraction``/``anti_affinity_fraction``/``spread_fraction``
+    give that share of gangs required zone affinity to their own app label,
+    required hostname anti-affinity, or soft zone topology spread
+    (BASELINE config 5's inter-pod affinity / topology-spread mix).
+    ``gang_sizes`` draws each gang's size from the sequence (config 3's
+    mixed TF/MPI shapes) instead of the fixed ``gang_size``.
+    """
+    from .api import AffinityTerm
+
+    rng = np.random.default_rng(seed)
+    store = ClusterStore()
+    for i in range(n_nodes):
+        labels = {}
+        if zones > 0:
+            labels["zone"] = f"zone-{i % zones}"
+        store.add_node(
+            Node(
+                name=f"node-{i:06d}",
+                allocatable={"cpu": node_cpu, "memory": node_mem, "pods": 256},
+                labels=labels,
+            )
+        )
+    for q in range(1, n_queues):
+        weight = (
+            queue_weights[q % len(queue_weights)]
+            if queue_weights else int(rng.integers(1, 9))
+        )
+        store.add_queue(Queue(name=f"queue-{q}", weight=weight))
+    queues = ["default"] + [f"queue-{q}" for q in range(1, n_queues)]
+
+    g = 0
+    pods_made = 0
+    while pods_made < n_pods:
+        size = (
+            int(rng.choice(gang_sizes)) if gang_sizes else gang_size
+        )
+        size = min(size, n_pods - pods_made) or 1
+        queue = queues[g % len(queues)]
+        pg = PodGroup(name=f"pg-{g:06d}", min_member=size, queue=queue)
+        store.add_pod_group(pg)
+        cpu = str(rng.choice(pod_cpu_choices))
+        mem = str(rng.choice(pod_mem_choices))
+        app = f"app-{g:06d}"
+        r = rng.random()
+        affinity = anti_affinity = None
+        spread = None
+        if zones > 0 and r < affinity_fraction:
+            affinity = [AffinityTerm(match_labels={"app": app},
+                                     topology_key="zone")]
+        elif r < affinity_fraction + anti_affinity_fraction:
+            anti_affinity = [AffinityTerm(
+                match_labels={"app": app},
+                topology_key="kubernetes.io/hostname",
+            )]
+        elif zones > 0 and r < (affinity_fraction + anti_affinity_fraction
+                                + spread_fraction):
+            spread = [("zone", 10)]
+        for k in range(size):
+            store.add_pod(
+                Pod(
+                    name=f"pg-{g:06d}-{k}",
+                    labels={"app": app},
+                    annotations={GROUP_NAME_ANNOTATION: pg.name},
+                    containers=[{"cpu": cpu, "memory": mem}],
+                    affinity=affinity or [],
+                    anti_affinity=anti_affinity or [],
+                    topology_spread=spread or [],
+                )
+            )
+            pods_made += 1
+        g += 1
+    return store
+
+
+def solve_args_from_store(
+    store: ClusterStore,
+    binpack: bool = True,
+    nodeorder: bool = False,
+    device=None,
+) -> Tuple[tuple, object]:
+    """Encode a store snapshot into the positional args of
+    ``ops.wave.solve_wave``, as tensors on ``device`` (the card unless the
+    caller passes ``device="cpu"``; without a card the default raises).
+
+    Returns (args, maps).  Orders jobs by id and tasks by creation; applies
+    infinite deserved shares (no proportion gating).
+    """
+    from .arrays.affinity import encode_affinity
+    from .device import resolve_device, tree_to
+    from .ops.allocate import solve_inputs
+    from .ops.scoring import default_weights
+
+    dev = resolve_device(device)
+
+    snap = store.snapshot()
+    job_ids = sorted(snap.jobs.keys())
+    pending = []
+    kept_job_ids = []
+    for jid in job_ids:
+        job = snap.jobs[jid]
+        tasks = sorted(
+            job.task_status_index.get(TaskStatus.Pending, {}).values(),
+            key=lambda t: (-t.priority, t.pod.creation_timestamp),
+        )
+        tasks = [t for t in tasks if not t.resreq.is_empty()]
+        if not tasks:
+            continue
+        kept_job_ids.append(jid)
+        pending.extend(tasks)
+    arrays, maps = encode_cluster(snap, pending, kept_job_ids)
+    aff = encode_affinity(
+        snap, pending, maps.node_names,
+        arrays.nodes.idle.shape[0], arrays.tasks.req.shape[0],
+    )
+    nodes, tasks, jobs, queues = solve_inputs(arrays)
+    args = (
+        nodes, tasks, jobs, queues,
+        default_weights(maps.slots.width, binpack_enabled=binpack,
+                        nodeorder_enabled=nodeorder),
+        arrays.eps,
+        arrays.scalar_slot,
+        aff,
+    )
+    return tuple(tree_to(a, dev) for a in args), maps
