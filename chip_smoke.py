@@ -17,11 +17,14 @@ check fails:
    16 zones, binpack + nodeorder scorers) from ``synthetic_cluster`` through
    ``solve_args_from_store`` and ``solve_wave`` on the card; launch counts
    are zeroed just before and read just after; invariants checked; then
-   the median wall time of 3 more solves;
+   the median wall time of 3 more solves, and one solve traced with
+   ``torch.profiler`` for its device time per kernel and its idle share;
 3. plain: the same solve with the plain PyTorch versions forced on the
    card; ``assigned`` (and every other result field) must be identical;
 4. kernels: each kernel against its plain version on the inputs of its
-   first main-phase launch, timed with CUDA events;
+   first main-phase launch; then timed with CUDA events around 20
+   back-to-back calls queued behind a sleep kernel, so the wrappers' host
+   work is not counted as device time (it is reported apart);
 5. features: 1,000 nodes x 10,000 pods with taints and tolerations, node
    selectors, required and preferred node affinity and two queues with
    finite deserved shares, so the taint and overuse branches run on the
@@ -220,9 +223,11 @@ def _clone(cap: dict) -> dict:
             for k, v in cap.items()}
 
 
-def _kernel_call(name, c, plain):
-    """Run wrapper ``name`` on the inputs ``c`` (consumed: apply_commit
-    updates them in place); return its outputs as a tuple of tensors."""
+def _kernel_fn(name, c, plain):
+    """A zero-argument call of wrapper ``name`` on the inputs ``c`` (consumed:
+    apply_commit updates them in place) that returns its outputs as a tuple
+    of tensors.  Everything but the wrapper call is done here, outside the
+    timed region."""
     import torch
 
     from volcano_tpu_torch.ops import kernels
@@ -239,60 +244,99 @@ def _kernel_call(name, c, plain):
             t_req_anti=z, t_matches=z, t_soft=z)
         cls = NodeClasses(c["cls_id"], c["cls_label"], c["cls_taint"],
                           c["cls_ready"])
-        out = kernels.coarse_shortlist(
+        return lambda: tuple(kernels.coarse_shortlist(
             prof, cls, c["idle"], c["alloc"], c["ntasks"], c["max_tasks"],
             c["eps"], c["scalar_slot"], c["weights"], c["S"],
-            c["has_taints"], plain=plain)
-        return tuple(out)
+            c["has_taints"], plain=plain))
     if name == "rank_candidates":
-        return tuple(kernels.rank_candidates(
+        return lambda: tuple(kernels.rank_candidates(
             c["rows"], c["cand"], c["ok_w"], c["score_w"], c["cls_id"],
             c["p_req"], c["p_init_req"], c["idle"], c["alloc"], c["ntasks"],
             c["max_tasks"], c["eps"], c["scalar_slot"], c["weights"], c["K"],
             plain=plain))
     if name == "walk_accept":
-        return tuple(kernels.walk_accept(
+        return lambda: tuple(kernels.walk_accept(
             c["ranked"], c["feas_k"], c["p_req"], c["p_init_req"],
             c["pid_l"], c["cand_s"], c["any_feas"], c["grp"], c["idle"],
             c["ntasks"], c["max_tasks"], c["eps"], c["scalar_slot"],
             plain=plain))
     if name == "apply_commit":
-        kernels.apply_commit(
-            c["node"], c["mask"], c["rows"], c["row_idx"], c["qidx"],
-            c["idle"], c["q_alloc"], mode=c["mode"],
-            idle_sign=c["idle_sign"], jw=c.get("jw"),
-            ntasks=c.get("ntasks"), alloc_l=c.get("alloc_l"),
-            assigned=c["assigned"], plain=plain)
-        return tuple(c[k] for k in ("idle", "q_alloc", "ntasks", "alloc_l",
-                                    "assigned") if k in c)
+        dev = c["idle"].device
+        scratch = (torch.zeros(c["idle"].shape, dtype=torch.float64,
+                               device=dev),
+                   torch.zeros(c["q_alloc"].shape, dtype=torch.float64,
+                               device=dev))
+
+        def call():
+            kernels.apply_commit(
+                c["node"], c["mask"], c["rows"], c["row_idx"], c["qidx"],
+                c["idle"], c["q_alloc"], mode=c["mode"],
+                idle_sign=c["idle_sign"], jw=c.get("jw"),
+                ntasks=c.get("ntasks"), alloc_l=c.get("alloc_l"),
+                assigned=c["assigned"], scratch=scratch, plain=plain)
+            return tuple(c[k] for k in ("idle", "q_alloc", "ntasks",
+                                        "alloc_l", "assigned") if k in c)
+        return call
     raise KeyError(name)
+
+
+def _distinct(idx) -> int:
+    import torch
+
+    return int(torch.unique(idx).numel())
 
 
 def _work(name, cap, outs):
     """(bytes, operations) the function needs on these inputs: each input
-    read once and each output written once; operations counted as float32
-    work at the per-pair cost of the arithmetic (score ~25 + 8 per slot,
-    fit 4 per slot, compares 1)."""
+    byte it needs read once (of a node plane gathered by node id, only the
+    distinct rows it gathers) and each output written once; operations
+    counted as float32 work at the per-pair cost of the arithmetic (score
+    ~25 + 8 per slot, fit 4 per slot, compares 1), for the cheapest
+    algorithm, not the kernel's own."""
+    import math
+
     import torch
 
-    ins = [v for v in cap.values() if isinstance(v, torch.Tensor)]
-    nbytes = _nbytes(*ins) + _nbytes(*outs)
+    out_bytes = _nbytes(*outs)
     if name == "coarse_shortlist":
+        ins = [v for v in cap.values() if isinstance(v, torch.Tensor)]
+        nbytes = _nbytes(*ins) + out_bytes
         U, R = cap["req"].shape
         N = cap["idle"].shape[0]
         C = cap["cls_ready"].shape[0]
         ops = U * N * (25 + 12 * R) + U * C * 8 * cap["sel_bits"].shape[1]
     elif name == "rank_candidates":
-        M = cap["rows"].shape[0]
-        R = cap["idle"].shape[1]
-        L = cap["idle"].shape[0] if cap["cand"] is None else \
-            cap["cand"].shape[1]
+        rows = cap["rows"].long()
+        M = rows.shape[0]
+        N, R = cap["idle"].shape
+        C = cap["ok_w"].shape[1]
+        if cap["cand"] is None:
+            L, D, cand_b = N, N, 0
+        else:
+            cand = cap["cand"][rows]
+            L, D, cand_b = cand.shape[1], _distinct(cand), _nbytes(cand)
+        # Per distinct node: idle and alloc rows, class, pod slots.
+        node_b = D * (2 * R * 4 + 3 * 4)
+        prof_b = M * (2 * R * 4 + C * 5 + 4)
+        nbytes = cand_b + node_b + prof_b + R * 9 + out_bytes
         ops = M * L * (25 + 12 * R)
     elif name == "walk_accept":
         W = cap["pid_l"].shape[0]
         UM, K = cap["ranked"].shape
         R = cap["idle"].shape[1]
-        ops = UM * K * 4 * R + W * K + W * (W - 1) * (1 + R // 2)
+        # The walk gathers idle / pod slots at the ranked nodes only; the
+        # chosen nodes are among them.
+        D = _distinct(cap["ranked"])
+        nbytes = (UM * K * 5 + D * (R * 4 + 8) + UM * (2 * R * 4 + UM)
+                  + W * 6 + R * 5 + out_bytes)
+        lw = max(1, math.ceil(math.log2(W)))
+        ops = (UM * K * (2 * R + 4)  # per-candidate capacity and mask
+               + UM * K  # its running sum along the ranking
+               + W + W * UM  # per-profile running counts -> group rank
+               + W * max(1, math.ceil(math.log2(K)))  # search for j
+               + W * lw  # sort by (choice, task)
+               + W * (R + 1)  # segmented same-node prefix
+               + W * (3 * R + 2))  # idle fit and pod slots
     else:
         T = cap["node"].shape[0]
         R = cap["rows"].shape[1]
@@ -304,10 +348,41 @@ def _work(name, cap, outs):
     return nbytes, ops
 
 
+SLEEP_CYCLES = 100_000_000  # ~50 ms at the H100's clock
+
+
+def _device_ms(fns) -> tuple:
+    """Device time per call of the zero-argument calls ``fns``: a sleep
+    kernel holds the stream while the host queues every call between two
+    events, so the wrappers' host work (checks, allocation, ctypes) overlaps
+    the sleep and the events time only the device's work.  Returns (device
+    ms per call, host ms per call, queued); ``queued`` is False when the
+    device reached the first event before the host had queued the last call
+    (a call synchronised, or the sleep was too short), and then the time
+    includes the host's gaps."""
+    import torch
+
+    torch.cuda.synchronize()
+    e0 = torch.cuda.Event(enable_timing=True)
+    e1 = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(SLEEP_CYCLES)
+    e0.record()
+    h0 = time.perf_counter()
+    for fn in fns:
+        fn()
+    host_ms = (time.perf_counter() - h0) * 1e3
+    queued = not e0.query()
+    e1.record()
+    torch.cuda.synchronize()
+    return e0.elapsed_time(e1) / len(fns), host_ms / len(fns), queued
+
+
 def replay_kernels(captured: dict, launches: dict, reps: int = 20) -> list:
     """Each kernel against its plain version on its captured inputs;
     integer outputs must be identical, float outputs identical too (the
-    kernels round like the plain versions and sum integers exactly)."""
+    kernels round like the plain versions and sum integers exactly).  Then
+    ``reps`` back-to-back calls of each, on fresh copies of the inputs,
+    timed by ``_device_ms``: kernel, plain, plain, kernel, best of each."""
     import torch
 
     from volcano_tpu_torch.ops import kernels
@@ -317,8 +392,8 @@ def replay_kernels(captured: dict, launches: dict, reps: int = 20) -> list:
         if name not in captured:
             raise AssertionError(f"kernel {name} never launched")
         cap = captured[name]
-        k_out = _kernel_call(name, _clone(cap), plain=False)
-        p_out = _kernel_call(name, _clone(cap), plain=True)
+        k_out = _kernel_fn(name, _clone(cap), plain=False)()
+        p_out = _kernel_fn(name, _clone(cap), plain=True)()
         torch.cuda.synchronize()
         err = 0.0
         for a, b in zip(k_out, p_out):
@@ -331,18 +406,11 @@ def replay_kernels(captured: dict, launches: dict, reps: int = 20) -> list:
                 raise AssertionError(f"{name}: kernel != plain version")
         times = {}
         for plain in (False, True, True, False):
-            total = 0.0
-            for _ in range(reps):
-                c = _clone(cap)
-                torch.cuda.synchronize()
-                e0 = torch.cuda.Event(enable_timing=True)
-                e1 = torch.cuda.Event(enable_timing=True)
-                e0.record()
-                _kernel_call(name, c, plain=plain)
-                e1.record()
-                torch.cuda.synchronize()
-                total += e0.elapsed_time(e1)
-            times.setdefault(plain, []).append(total / reps)
+            fns = [_kernel_fn(name, _clone(cap), plain=plain)
+                   for _ in range(reps)]
+            times.setdefault(plain, []).append(_device_ms(fns))
+        k_best = min(times[False])
+        p_best = min(times[True])
         nbytes, ops = _work(name, cap, k_out)
         t_bytes = nbytes / MEM_BPS * 1e3
         t_ops = ops / F32_OPS * 1e3
@@ -352,20 +420,82 @@ def replay_kernels(captured: dict, launches: dict, reps: int = 20) -> list:
             "replaces": kernels.REPLACES[name],
             "launches": int(launches[name]),
             "max_abs_err": err,
-            "ms": min(times[False]), "plain_ms": min(times[True]),
+            "ms": k_best[0], "plain_ms": p_best[0],
             "bound_ms": max(t_bytes, t_ops),
             "bound_by": "bytes" if t_bytes >= t_ops else "operations",
             "library_ms": None,
+            # Host time of one wrapper call (checks, allocation, ctypes),
+            # and whether the device ran the calls back to back (False:
+            # the time includes host gaps; the plain versions of
+            # walk_accept and apply_commit read values on the host).
+            "wrapper_ms": k_best[1],
+            "queued": k_best[2], "plain_queued": p_best[2],
+            "bytes": nbytes, "ops": ops,
         })
     return rows
+
+
+# The CUDA functions behind each wrapper (csrc/*.cu), to read a trace.
+KERNEL_FUNCS = {
+    "coarse_shortlist": ("class_static_kernel", "shortlist_kernel"),
+    "rank_candidates": ("rank_kernel",),
+    "walk_accept": ("walk_accept_kernel",),
+    "apply_commit": ("accumulate_kernel", "write_kernel"),
+}
+
+
+def profile_device(fn) -> dict:
+    """Device time of one call of ``fn`` from a ``torch.profiler`` trace of
+    the card's activity: summed time per device function, the union of the
+    device's busy intervals, and the call's host wall time (which the
+    tracing lengthens a little).  Empty when the trace holds no device
+    events."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    spans, by_name, count = [], {}, {}
+    for e in prof.events():
+        if e.device_type != DeviceType.CUDA:
+            continue
+        a, b = e.time_range.start, e.time_range.end
+        spans.append((a, b))
+        name = e.name.replace("(anonymous namespace)::", "")
+        key = name.split("(")[0].strip() or name
+        by_name[key] = by_name.get(key, 0.0) + (b - a) / 1e3
+        count[key] = count.get(key, 0) + 1
+    if not spans:
+        return {}
+    spans.sort()
+    busy, end = 0.0, float("-inf")
+    for a, b in spans:
+        if b > end:
+            busy += b - max(a, end)
+            end = b
+    per_kernel = {
+        k: sum(ms for n, ms in by_name.items() if any(f in n for f in fs))
+        for k, fs in KERNEL_FUNCS.items()
+    }
+    top = sorted(by_name, key=by_name.get, reverse=True)[:8]
+    return {"wall_ms": wall * 1e3, "busy_ms": busy / 1e3,
+            "device_events": len(spans), "kernels_ms": per_kernel,
+            "other_ms": sum(by_name.values()) - sum(per_kernel.values()),
+            "top": [[k[:60], by_name[k], count[k]] for k in top]}
 
 
 # --------------------------------------------------------------- main
 
 def run_phase(label, store_fn, deserved=None, timed=0):
     """Encode, zero the launch counts, solve on the card, read the counts;
-    invariants; optionally time more solves; plain-version solve on the
-    card must match; returns (stats, launches, captured inputs)."""
+    invariants; optionally time more solves and trace one; plain-version
+    solve on the card must match; returns (stats, launches, captured
+    inputs)."""
     import numpy as np
     import torch
 
@@ -417,6 +547,7 @@ def run_phase(label, store_fn, deserved=None, timed=0):
             if len(walls) % 2 else parts[0]
         stats["median_parts_s"] = {"prep": mid[0], "coarse": mid[1],
                                    "fine": mid[2]}
+        stats["profile"] = profile_device(lambda: solve_wave(*args))
     t0 = time.perf_counter()
     plain_res = solve_wave(*args, plain=True)
     torch.cuda.synchronize()
@@ -475,15 +606,27 @@ def main() -> int:
          f" s, pods bound {main_stats['pods_bound']}, card {card}")
     rows = replay_kernels(captured, launches)
     for r in rows:
-        _log(f"[kernels] {r['name']}: {r['ms']:.4f} ms/launch, plain "
-             f"{r['plain_ms']:.4f} ms, bound {r['bound_ms']:.6f} ms "
+        _log(f"[kernels] {r['name']}: {r['ms']:.4f} ms/launch on the "
+             f"device (queued {r['queued']}), wrapper host "
+             f"{r['wrapper_ms']:.4f} ms, plain {r['plain_ms']:.4f} ms "
+             f"(queued {r['plain_queued']}), bound {r['bound_ms']:.6f} ms "
              f"({r['bound_by']}), launches {r['launches']}")
-    # Kernel time per solve (replayed ms x main-path launches) against the
-    # solve's wall time: how much of the solve the four kernels occupy.
-    kernel_ms = sum(r["ms"] * r["launches"] for r in rows)
-    _log(f"[main] kernel time per solve {kernel_ms:.3f} ms = "
-         f"{100.0 * kernel_ms / (1e3 * main_stats['solve_s_median']):.2f}% "
-         f"of the median solve wall time")
+    # Device time per solve from the trace of one north-star solve,
+    # against the median wall time of the untraced solves.
+    wall_ms = 1e3 * main_stats["solve_s_median"]
+    prof = main_stats["profile"]
+    for r in rows:
+        r["solve_ms"] = prof["kernels_ms"][r["name"]] if prof else None
+    if prof:
+        kern = sum(prof["kernels_ms"].values())
+        _log(f"[main] traced solve: device busy {prof['busy_ms']:.3f} ms of "
+             f"{prof['wall_ms']:.3f} ms wall; the four kernels "
+             f"{kern:.3f} ms = {100.0 * kern / wall_ms:.2f}% of the median "
+             f"untraced wall time {wall_ms:.3f} ms; device idle share "
+             f"{100.0 * (1 - prof['busy_ms'] / prof['wall_ms']):.2f}%")
+    else:
+        _log("[main] traced solve: no device events in the trace "
+             "(device time per solve not measured)")
 
     # 5. features: taints, selectors, node affinity, finite deserved.
     gib = float(2 ** 30)

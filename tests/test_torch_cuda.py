@@ -60,3 +60,23 @@ def test_card_solve_equals_plain_and_cpu(cuda, make, wave):
     _same(k, p)
     _same(k, c)
     assert all(v > 0 for v in launched.values()), launched
+
+
+def test_rank_candidates_without_rows_launches_nothing(cuda):
+    """An empty row list returns empty outputs and counts no launch."""
+    N, R, UM, C, K = 16, 3, 4, 2, 4
+
+    def z(*shape, dtype=torch.float32):
+        return torch.zeros(shape, dtype=dtype, device=cuda)
+
+    i32 = torch.int32
+    kernels.reset_launches()
+    ranked, feas_k, p_any = kernels.rank_candidates(
+        z(0, dtype=i32), None, z(UM, C, dtype=torch.bool), z(UM, C),
+        z(N, dtype=i32), z(UM, R), z(UM, R), z(N, R), z(N, R),
+        z(N, dtype=i32), z(N, dtype=i32), z(R), z(R, dtype=torch.bool),
+        None, K)
+    assert ranked.shape == (0, K) and ranked.dtype == i32
+    assert feas_k.shape == (0, K) and feas_k.dtype == torch.bool
+    assert p_any.shape == (0,)
+    assert kernels.LAUNCHES["rank_candidates"] == 0

@@ -402,6 +402,12 @@ def rank_candidates(rows, cand, ok_w, score_w, cls_id, p_req, p_init_req,
     M = rows.shape[0]
     N, R = idle.shape
     L = N if cand is None else cand.shape[1]
+    if M == 0:
+        # No rows: nothing to launch (and nothing counted).
+        dev = idle.device
+        return (torch.empty((0, K), dtype=torch.int32, device=dev),
+                torch.empty((0, K), dtype=torch.bool, device=dev),
+                torch.empty((0,), dtype=torch.bool, device=dev))
     if not 1 <= K <= L:
         raise ValueError(f"ranking depth {K} outside [1, {L}]")
     if R > MAX_R:
@@ -432,8 +438,8 @@ def rank_candidates(rows, cand, ok_w, score_w, cls_id, p_req, p_init_req,
     ranked = torch.empty((M, K), dtype=i32, device=dev)
     feas_k = torch.empty((M, K), dtype=u8, device=dev)
     p_any = torch.empty((M,), dtype=u8, device=dev)
-    keys = torch.empty((max(M, 1), L), dtype=torch.int64, device=dev)
-    feas_s = torch.empty((max(M, 1), L), dtype=u8, device=dev)
+    keys = torch.empty((M, L), dtype=torch.int64, device=dev)
+    feas_s = torch.empty((M, L), dtype=u8, device=dev)
     rc = load().vtt_rank_candidates(
         _ptr(a["rows"]), M, _ptr(a["cand"]), L, _ptr(a["ok_w"]),
         _ptr(a["score_w"]), a["ok_w"].shape[1], _ptr(a["cls_id"]),
@@ -588,8 +594,8 @@ def _apply_plain(node, mask, rows, row_idx, qidx, idle_sign, mode, jw, idle,
 
 
 def apply_commit(node, mask, rows, row_idx, qidx, idle, q_alloc, *,
-                 mode: int, idle_sign: float, jw=None, ntasks=None,
-                 alloc_l=None, assigned=None, scratch=None,
+                 mode: int, idle_sign: float, scratch, jw=None,
+                 ntasks=None, alloc_l=None, assigned=None,
                  plain: bool = False) -> None:
     """Commit (``mode=0``: idle -= req, ntasks += 1, q_alloc += req,
     alloc_l[jw] += 1, assigned = node) or discard (``mode=1``: idle +=
@@ -615,9 +621,6 @@ def apply_commit(node, mask, rows, row_idx, qidx, idle, q_alloc, *,
     if mode == 0:
         a.update(jw=_req(jw, i32, "jw"), ntasks=_req(ntasks, i32, "ntasks"),
                  alloc_l=_req(alloc_l, i32, "alloc_l"))
-    if scratch is None:
-        scratch = (torch.zeros((N, R), dtype=torch.float64, device=idle.device),
-                   torch.zeros((Q, R), dtype=torch.float64, device=idle.device))
     idle_acc, q_acc = scratch
     _req(idle_acc, torch.float64, "idle scratch")
     _req(q_acc, torch.float64, "queue scratch")
