@@ -6,34 +6,45 @@ Run from the repository root on a machine with one CUDA card:
 
     python3 chip_smoke.py
 
-It builds the four CUDA kernels of ``volcano_tpu_torch/csrc`` and then runs
-these phases, each of which raises (and the script exits non-zero) when a
-check fails:
+It builds the seven CUDA kernels of ``volcano_tpu_torch/csrc`` (six
+sources, one nvcc each, started together) and then runs these phases, each
+of which raises (and the script exits non-zero) when a check fails:
 
 1. small reference: a 64-node x 512-pod solve on the card equals the same
    solve on the CPU (the plain versions, which the CPU tests hold against
    the JAX package bit for bit);
-2. main: the north-star cluster (10,000 nodes x 100,000 pods, gangs of 8,
-   16 zones, binpack + nodeorder scorers) from ``synthetic_cluster`` through
+2. solve path: the north-star cluster (10,000 nodes x 100,000 pods, gangs
+   of 8, 16 zones, binpack + nodeorder scorers) through
    ``solve_args_from_store`` and ``solve_wave`` on the card; launch counts
-   are zeroed just before and read just after; invariants checked; then
-   the median wall time of 3 more solves, and one solve traced with
-   ``torch.profiler`` for its device time per kernel and its idle share;
+   zeroed just before and read just after; invariants; the median wall
+   time of 3 more solves, and one solve traced with ``torch.profiler``;
 3. plain: the same solve with the plain PyTorch versions forced on the
-   card; ``assigned`` (and every other result field) must be identical;
-4. kernels: each kernel against its plain version on the inputs of its
-   first main-phase launch; then timed with CUDA events around 20
-   back-to-back calls queued behind a sleep kernel, so the wrappers' host
-   work is not counted as device time (it is reported apart);
-5. features: 1,000 nodes x 10,000 pods with taints and tolerations, node
-   selectors, required and preferred node affinity and two queues with
-   finite deserved shares, so the taint and overuse branches run on the
-   card; the same invariant, plain and kernel checks.
+   card; every result field must be identical;
+4. the solve path's kernels against their plain versions on the inputs of
+   their first launch, timed with CUDA events around 20 back-to-back calls
+   queued behind a sleep kernel (the wrappers' host work is reported
+   apart);
+5. features: 1,000 nodes x 10,000 pods with taints, selectors, node
+   affinity and finite deserved shares, kernels against plain versions;
+6. the cycle, the port's main path: ``Scheduler(store).run_once()`` with
+   the deployed conf on the north-star store -- one cold cycle (all
+   100,000 pods bound, devsnap full uploads), 5 steady cycles re-pending
+   the pods on nodes 0-63 (warm shortlists and static-plane hits
+   required), one traced steady cycle (device idle share), and one cycle
+   after ``update_node`` gives 100 nodes half as much CPU again (a devsnap
+   delta scatter and a full re-rank required); launch counts zeroed before the first cycle and
+   read after the last: every kernel must have launched; invariants after
+   every cycle;
+7. lanes on / off: the same sequence at 1,000 x 10,000 with the
+   device-incremental lane and the device snapshot on, then off; binds,
+   PodGroup phases and mirror states identical;
+8. every kernel of the cycle against its plain version on its captured
+   inputs, timed as in 4 (``scatter_rows`` beside ``index_copy_``).
 
 Output: the card's name and power limit, versions, build time, per-phase
-lines, one ``{"kernels": [...]}`` line and, last, one
-``{"ok": true, "device": {...}}`` line.  Without CUDA, or without the
-package beside it, it exits non-zero and prints no result.
+lines with the cycles' lane times, one ``{"kernels": [...]}`` line and,
+last, one ``{"ok": true, "device": {...}}`` line.  Without CUDA, or
+without the package beside it, it exits non-zero and prints no result.
 """
 
 from __future__ import annotations
@@ -236,18 +247,51 @@ def _kernel_fn(name, c, plain):
 
     if name == "coarse_shortlist":
         z = torch.zeros(1, dtype=torch.float32, device=c["req"].device)
+        g = (lambda k: c.get(k, z))  # static planes given: no bit rows
         prof = SolveProfiles(
             req=c["req"], init_req=c["init_req"], ports=z,
-            sel_bits=c["sel_bits"], aff_bits=c["aff_bits"],
-            aff_terms=c["aff_terms"], tol_bits=c["tol_bits"],
-            pref_bits=c["pref_bits"], pref_w=c["pref_w"], t_req_aff=z,
+            sel_bits=g("sel_bits"), aff_bits=g("aff_bits"),
+            aff_terms=g("aff_terms"), tol_bits=g("tol_bits"),
+            pref_bits=g("pref_bits"), pref_w=g("pref_w"), t_req_aff=z,
             t_req_anti=z, t_matches=z, t_soft=z)
-        cls = NodeClasses(c["cls_id"], c["cls_label"], c["cls_taint"],
-                          c["cls_ready"])
+        cls = NodeClasses(c["cls_id"], c.get("cls_label"),
+                          c.get("cls_taint"), c.get("cls_ready"))
+        stat = ((c["stat_ok"], c["stat_score"]) if "stat_ok" in c
+                else None)
         return lambda: tuple(kernels.coarse_shortlist(
             prof, cls, c["idle"], c["alloc"], c["ntasks"], c["max_tasks"],
             c["eps"], c["scalar_slot"], c["weights"], c["S"],
-            c["has_taints"], plain=plain))
+            c["has_taints"], stat=stat, n_blocks=c["n_blocks"],
+            plain=plain))
+    if name == "static_planes":
+        z = torch.zeros(1, dtype=torch.float32, device=c["sel_bits"].device)
+        prof = SolveProfiles(
+            req=z, init_req=z, ports=z, sel_bits=c["sel_bits"],
+            aff_bits=c["aff_bits"], aff_terms=c["aff_terms"],
+            tol_bits=c["tol_bits"], pref_bits=c["pref_bits"],
+            pref_w=c["pref_w"], t_req_aff=z, t_req_anti=z, t_matches=z,
+            t_soft=z)
+        cls = NodeClasses(None, c["cls_label"], c["cls_taint"],
+                          c["cls_ready"])
+        return lambda: tuple(kernels.static_planes(
+            prof, cls, c["naff"], c["has_taints"], plain=plain))
+    if name == "warm_shortlist":
+        z = torch.zeros(1, dtype=torch.float32, device=c["req"].device)
+        prof = SolveProfiles(
+            req=c["req"], init_req=c["init_req"], ports=z, sel_bits=z,
+            aff_bits=z, aff_terms=z, tol_bits=z, pref_bits=z, pref_w=z,
+            t_req_aff=z, t_req_anti=z, t_matches=z, t_soft=z)
+        return lambda: tuple(kernels.warm_shortlist(
+            prof, c["cls_id"], c["stat_ok"], c["stat_score"], c["idle"],
+            c["alloc"], c["ntasks"], c["max_tasks"], c["eps"],
+            c["scalar_slot"], c["weights"], c["db"], c["cand_s"],
+            c["cand_i"], c["S"], plain=plain))
+    if name == "scatter_rows":
+        def scatter():
+            kernels.scatter_rows(c["buf"], c["rows"], c["vals"],
+                                 plain=plain)
+            return (c["buf"],)
+        return scatter
     if name == "rank_candidates":
         return lambda: tuple(kernels.rank_candidates(
             c["rows"], c["cand"], c["ok_w"], c["score_w"], c["cls_id"],
@@ -303,8 +347,38 @@ def _work(name, cap, outs):
         nbytes = _nbytes(*ins) + out_bytes
         U, R = cap["req"].shape
         N = cap["idle"].shape[0]
+        C = cap["C"]
+        ops = U * N * (25 + 12 * R)
+        if "sel_bits" in cap:
+            ops += U * C * 8 * cap["sel_bits"].shape[1]
+        if cap["n_blocks"]:
+            # Selection over the blocks' candidates: one compare each.
+            ops += int(outs[3].numel())
+    elif name == "static_planes":
+        ins = [v for v in cap.values() if isinstance(v, torch.Tensor)]
+        nbytes = _nbytes(*ins) + out_bytes
+        U, LW = cap["sel_bits"].shape
         C = cap["cls_ready"].shape[0]
-        ops = U * N * (25 + 12 * R) + U * C * 8 * cap["sel_bits"].shape[1]
+        A = cap["aff_bits"].shape[1]
+        AP = cap["pref_bits"].shape[1]
+        TW = cap["tol_bits"].shape[1]
+        ops = U * C * (2 * LW * (1 + A + AP) + 2 * TW + 2 * AP)
+    elif name == "warm_shortlist":
+        U, B, klb = cap["cand_s"].shape
+        N, R = cap["idle"].shape
+        nlb = N // B
+        ndb = int(cap["db"].numel())
+        rows = ndb * nlb
+        # Dirty blocks' node rows, profile rows, static planes, the clean
+        # blocks' candidates (read) and every output (written).
+        nbytes = (rows * (2 * R * 4 + 3 * 4)
+                  + _nbytes(cap["req"], cap["init_req"], cap["stat_ok"],
+                            cap["stat_score"], cap["db"])
+                  + (B - ndb) * U * klb * 8 + out_bytes)
+        ops = U * rows * (25 + 12 * R) + U * B * klb
+    elif name == "scatter_rows":
+        nbytes = _nbytes(cap["rows"]) + 2 * _nbytes(cap["vals"])
+        ops = 0
     elif name == "rank_candidates":
         rows = cap["rows"].long()
         M = rows.shape[0]
@@ -377,18 +451,28 @@ def _device_ms(fns) -> tuple:
     return e0.elapsed_time(e1) / len(fns), host_ms / len(fns), queued
 
 
-def replay_kernels(captured: dict, launches: dict, reps: int = 20) -> list:
+def _library_fn(name, c):
+    """One PyTorch call computing the kernel's function, or None."""
+    if name == "scatter_rows":
+        rows = c["rows"].long()
+        return lambda: c["buf"].index_copy_(0, rows, c["vals"])
+    return None
+
+
+def replay_kernels(captured: dict, launches: dict, reps: int = 20,
+                   names=None) -> list:
     """Each kernel against its plain version on its captured inputs;
     integer outputs must be identical, float outputs identical too (the
     kernels round like the plain versions and sum integers exactly).  Then
     ``reps`` back-to-back calls of each, on fresh copies of the inputs,
-    timed by ``_device_ms``: kernel, plain, plain, kernel, best of each."""
+    timed by ``_device_ms``: kernel, plain, plain, kernel, best of each;
+    and, where one PyTorch call computes the same function, that call."""
     import torch
 
     from volcano_tpu_torch.ops import kernels
 
     rows = []
-    for name in kernels.LAUNCHES:
+    for name in names or kernels.LAUNCHES:
         if name not in captured:
             raise AssertionError(f"kernel {name} never launched")
         cap = captured[name]
@@ -411,6 +495,11 @@ def replay_kernels(captured: dict, launches: dict, reps: int = 20) -> list:
             times.setdefault(plain, []).append(_device_ms(fns))
         k_best = min(times[False])
         p_best = min(times[True])
+        lib_ms = None
+        if _library_fn(name, cap) is not None:
+            lib_ms = min(_device_ms([_library_fn(name, _clone(cap))
+                                     for _ in range(reps)])[0]
+                         for _ in range(2))
         nbytes, ops = _work(name, cap, k_out)
         t_bytes = nbytes / MEM_BPS * 1e3
         t_ops = ops / F32_OPS * 1e3
@@ -423,7 +512,7 @@ def replay_kernels(captured: dict, launches: dict, reps: int = 20) -> list:
             "ms": k_best[0], "plain_ms": p_best[0],
             "bound_ms": max(t_bytes, t_ops),
             "bound_by": "bytes" if t_bytes >= t_ops else "operations",
-            "library_ms": None,
+            "library_ms": lib_ms,
             # Host time of one wrapper call (checks, allocation, ctypes),
             # and whether the device ran the calls back to back (False:
             # the time includes host gaps; the plain versions of
@@ -437,10 +526,14 @@ def replay_kernels(captured: dict, launches: dict, reps: int = 20) -> list:
 
 # The CUDA functions behind each wrapper (csrc/*.cu), to read a trace.
 KERNEL_FUNCS = {
-    "coarse_shortlist": ("class_static_kernel", "shortlist_kernel"),
+    "coarse_shortlist": ("class_static_kernel<0>", "shortlist_kernel",
+                         "block_rank_kernel<true>", "merge_kernel<true>"),
     "rank_candidates": ("rank_kernel",),
     "walk_accept": ("walk_accept_kernel",),
     "apply_commit": ("accumulate_kernel", "write_kernel"),
+    "static_planes": ("class_static_kernel<1>",),
+    "warm_shortlist": ("block_rank_kernel<false>", "merge_kernel<false>"),
+    "scatter_rows": ("scatter_rows_kernel",),
 }
 
 
@@ -491,6 +584,11 @@ def profile_device(fn) -> dict:
 
 # --------------------------------------------------------------- main
 
+# The kernels of the solve path (solve_args_from_store -> solve_wave).
+SOLVE_KERNELS = ("coarse_shortlist", "rank_candidates", "walk_accept",
+                 "apply_commit")
+
+
 def run_phase(label, store_fn, deserved=None, timed=0):
     """Encode, zero the launch counts, solve on the card, read the counts;
     invariants; optionally time more solves and trace one; plain-version
@@ -523,7 +621,7 @@ def run_phase(label, store_fn, deserved=None, timed=0):
     first_s = time.perf_counter() - t0
     launches = dict(kernels.LAUNCHES)
     captured, kernels.CAPTURE = kernels.CAPTURE, None
-    missing = [k for k, v in launches.items() if v == 0]
+    missing = [k for k in SOLVE_KERNELS if launches[k] == 0]
     if missing:
         raise AssertionError(f"[{label}] kernels never launched: {missing}")
     stats = check_invariants(args, res)
@@ -556,6 +654,210 @@ def run_phase(label, store_fn, deserved=None, timed=0):
     stats["assigned_identical_to_plain"] = True
     _log(f"[{label}] {json.dumps(stats)}")
     return stats, launches, captured
+
+
+# ---------------------------------------------------------- the cycle
+
+ST_BOUND = 16  # TaskStatus.Bound
+
+
+def repend_feed(node_rows):
+    """Steady-state workload: every cycle re-pends the pods bound to the
+    given node rows (their gangs re-place in the same cycle)."""
+    import numpy as np
+
+    def feed(fc):
+        m = fc.m
+        rows = np.flatnonzero((m.p_status[:fc.Pn] == ST_BOUND)
+                              & m.p_alive[:fc.Pn])
+        sel = rows[np.isin(m.p_node[rows], node_rows)]
+        if len(sel):
+            fc._unbind_rows(sel)
+
+    return feed
+
+
+def cycle_invariants(store, n_pods: int) -> dict:
+    """Every pod bound, in the mirror and on the binder, to the node the
+    mirror names; no node over its allocatable (exact: requests are
+    multiples of 1000 milli-CPU and 1 GiB) or its pod slots; gangs whole;
+    every PodGroup Running."""
+    import numpy as np
+
+    m = store.mirror
+    Pn, Nn = m.n_pods, m.n_nodes
+    alive = m.p_alive[:Pn]
+    bound = alive & (m.p_status[:Pn] == ST_BOUND)
+    rows = np.flatnonzero(bound)
+    if len(rows) != n_pods or int(alive.sum()) != n_pods:
+        raise AssertionError(f"{len(rows)} of {n_pods} pods bound")
+    binds = store.binder.binds
+    if len(binds) != n_pods:
+        raise AssertionError(f"binder holds {len(binds)} binds")
+    keys = [m.p_key[r] for r in rows.tolist()]
+    if any(binds.get(k) != m.p_node_name[r]
+           for k, r in zip(keys, rows.tolist())):
+        raise AssertionError("a bind disagrees with the mirror's node")
+    R = 2 + len(m.scalar_slots)
+    alloc = np.zeros((Nn, R), np.float64)
+    er, si, v = m.c_n_alloc.gather(m.node_csr_rows(np.arange(Nn)))
+    alloc[er, si] = v
+    use = np.zeros((Nn, R), np.float64)
+    er, si, v = m.c_req.gather(rows)
+    np.add.at(use, (m.p_node[rows][er].astype(np.int64), si), v)
+    if (use > alloc).any():
+        raise AssertionError("a node holds more than its allocatable")
+    cnt = np.bincount(m.p_node[rows], minlength=Nn)
+    mt = m.n_maxtasks[:Nn]
+    if ((mt > 0) & (cnt > mt)).any():
+        raise AssertionError("pod slots exceeded")
+    Jn = len(m.j_uid)
+    per_job = np.bincount(m.p_job[rows], minlength=Jn)
+    if ((per_job > 0) & (per_job < m.j_minav[:Jn])).any():
+        raise AssertionError("a gang is bound below min_available")
+    phases = {pg.status.phase for pg in store.pod_groups.values()}
+    if phases != {"Running"}:
+        raise AssertionError(f"PodGroup phases {phases}")
+    return {"pods_bound": int(len(rows)), "nodes_used": int((cnt > 0).sum())}
+
+
+def _lanes(store) -> dict:
+    return {k: round(v * 1e3, 3) for k, v in
+            sorted((store.last_cycle_lanes or {}).items())}
+
+
+def run_cycle(label, store, n_pods, steady=5, n_update=100, trace=False):
+    """The port's main path: ``Scheduler(store).run_once()`` with the
+    deployed conf.  One cold cycle, ``steady`` cycles re-pending the pods
+    on nodes 0-63, one cycle after ``update_node`` gives ``n_update``
+    nodes half as much CPU again.  Returns (stats, per-cycle records, the scheduler)."""
+    import dataclasses
+
+    import torch
+
+    from volcano_tpu_torch.framework import DEPLOYED_SCHEDULER_CONF
+    from volcano_tpu_torch.scheduler import Scheduler
+
+    sched = Scheduler(store, conf_str=DEPLOYED_SCHEDULER_CONF)
+    stats = {"cycles": []}
+    records = []
+
+    def cycle(kind):
+        from volcano_tpu_torch.ops.wave import LAST_TWOPHASE
+
+        t0 = time.perf_counter()
+        sched.run_once()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        inv = cycle_invariants(store, n_pods)
+        snap = store.device_snapshot
+        rec = {"kind": kind, "wall_s": wall, "lanes_ms": _lanes(store),
+               "devincr": LAST_TWOPHASE.get("devincr"),
+               "devsnap": None if snap is None else [
+                   snap.full_uploads, snap.delta_uploads, snap.hits],
+               **inv}
+        stats["cycles"].append(rec)
+        _log(f"[{label}] {kind} cycle {wall:.4f} s devincr "
+             f"{json.dumps(rec['devincr'])} devsnap(full,delta,hits) "
+             f"{rec['devsnap']} lanes(ms) {json.dumps(rec['lanes_ms'])}")
+        records.append((dict(store.binder.binds),
+                        {u: pg.status.phase
+                         for u, pg in sorted(store.pod_groups.items())},
+                        _mirror_state(store)))
+
+    cycle("cold")
+    snap = store.device_snapshot
+    dv = store._devincr_cache
+    if snap is not None and snap.full_uploads < 1:
+        raise AssertionError(f"[{label}] no devsnap full upload")
+    store.cycle_feed = repend_feed(list(range(64)))
+    for _ in range(steady):
+        cycle("steady")
+    if dv is not None and (dv.counts["warm"] < 1 or dv.static_hits < 1):
+        raise AssertionError(f"[{label}] no warm shortlist / static hit: "
+                             f"{dv.counts} hits {dv.static_hits}")
+    if trace:
+        stats["profile"] = profile_device(sched.run_once)
+        cycle_invariants(store, n_pods)
+    full_before = dv.counts["full"] if dv is not None else 0
+    m = store.mirror
+    step = max(1, m.n_nodes // n_update)
+    for row in range(0, step * n_update, step):
+        # More capacity (never less, so no bound pod is stranded).
+        old = m.node_objs[row]
+        cpu = str(int(float(old.allocatable["cpu"]) * 1.5))
+        store.update_node(dataclasses.replace(
+            old, allocatable={**old.allocatable, "cpu": cpu},
+            capacity={**old.capacity, "cpu": cpu}))
+    cycle("update_node")
+    if snap is not None and snap.delta_uploads < 1:
+        raise AssertionError(f"[{label}] no devsnap delta upload")
+    if dv is not None and dv.counts["full"] <= full_before:
+        raise AssertionError(f"[{label}] node update did not re-rank")
+    if snap is not None:
+        stats["devsnap"] = {k: getattr(snap, k) for k in (
+            "full_uploads", "delta_uploads", "hits", "delta_chunks",
+            "class_uploads", "class_hits")}
+        stats["devsnap"]["resident_bytes"] = snap.resident_bytes()
+    if dv is not None:
+        stats["devincr"] = {"counts": dict(dv.counts),
+                            "static_hits": dv.static_hits,
+                            "static_builds": dv.static_builds,
+                            "last_blocks": list(dv.last_blocks)}
+    return stats, records, sched
+
+
+def _mirror_state(store):
+    m = store.mirror
+    return tuple((m.p_uid[r], int(m.p_status[r]), m.p_node_name[r])
+                 for r in range(m.n_pods) if m.p_uid[r] is not None)
+
+
+def _fresh_cluster(**kw):
+    """synthetic_cluster with the uid counters reset, so two builds of one
+    configuration carry the same uids."""
+    import itertools
+
+    import volcano_tpu_torch.api.spec as spec
+    from volcano_tpu_torch.synth import synthetic_cluster
+
+    spec._uid_counter = itertools.count(1)
+    spec._ts_counter = itertools.count(1)
+    return synthetic_cluster(**kw)
+
+
+def lanes_on_off(n_nodes, n_pods):
+    """The cycle sequence with the device-incremental lane and the device
+    snapshot on, then off: binds, phases and mirror states identical."""
+    import os
+
+    kw = dict(n_nodes=n_nodes, n_pods=n_pods, gang_size=8, zones=16, seed=0)
+    _on, rec_on, _ = run_cycle("on-off:on", _fresh_cluster(**kw), n_pods,
+                               n_update=n_nodes // 100)
+    saved = {k: os.environ.get(k) for k in ("VOLCANO_TPU_DEVINCR",
+                                            "VOLCANO_TPU_DEVSNAP")}
+    os.environ.update({k: "0" for k in saved})
+    try:
+        off_store = _fresh_cluster(**kw)
+        _off, rec_off, _ = run_cycle("on-off:off", off_store, n_pods,
+                                     n_update=n_nodes // 100)
+        if off_store.device_snapshot is not None \
+                or off_store._devincr_cache is not None:
+            raise AssertionError("[on-off] lanes ran while switched off")
+    finally:
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+    if len(rec_on) != len(rec_off):
+        raise AssertionError("[on-off] cycle counts differ")
+    for i, (a, b) in enumerate(zip(rec_on, rec_off)):
+        for what, x, y in zip(("binds", "phases", "mirror"), a, b):
+            if x != y:
+                raise AssertionError(f"[on-off] cycle {i}: {what} differ")
+    _log(f"[on-off] {n_nodes}x{n_pods}: {len(rec_on)} cycles, binds, "
+         f"phases and mirror states identical with the lanes on and off")
 
 
 def main() -> int:
@@ -595,18 +897,19 @@ def main() -> int:
         raise AssertionError("[reference] not every pod placed")
     _log("[reference] 64x512 solve on the card equals the CPU solve")
 
-    # 2-4. main path at the north-star shape.
-    main_stats, launches, captured = run_phase(
-        "main",
-        lambda: synthetic_cluster(n_nodes=10000, n_pods=100000, gang_size=8,
-                                  zones=16, seed=0),
-        timed=3,
-    )
+    # 2-4. the solve path at the north-star shape.
+    t0 = time.perf_counter()
+    ns_store = synthetic_cluster(n_nodes=10000, n_pods=100000, gang_size=8,
+                                 zones=16, seed=0)
+    _log(f"[main] north-star cluster {time.perf_counter() - t0:.3f} s")
+    main_stats, launches, captured = run_phase("main", lambda: ns_store,
+                                               timed=3)
     _log(f"[main] north-star solve median {main_stats['solve_s_median']:.4f}"
          f" s, pods bound {main_stats['pods_bound']}, card {card}")
-    rows = replay_kernels(captured, launches)
-    for r in rows:
-        _log(f"[kernels] {r['name']}: {r['ms']:.4f} ms/launch on the "
+    solve_names = SOLVE_KERNELS
+    solve_rows = replay_kernels(captured, launches, names=solve_names)
+    for r in solve_rows:
+        _log(f"[kernels:solve] {r['name']}: {r['ms']:.4f} ms/launch on the "
              f"device (queued {r['queued']}), wrapper host "
              f"{r['wrapper_ms']:.4f} ms, plain {r['plain_ms']:.4f} ms "
              f"(queued {r['plain_queued']}), bound {r['bound_ms']:.6f} ms "
@@ -615,10 +918,10 @@ def main() -> int:
     # against the median wall time of the untraced solves.
     wall_ms = 1e3 * main_stats["solve_s_median"]
     prof = main_stats["profile"]
-    for r in rows:
+    for r in solve_rows:
         r["solve_ms"] = prof["kernels_ms"][r["name"]] if prof else None
     if prof:
-        kern = sum(prof["kernels_ms"].values())
+        kern = sum(prof["kernels_ms"][k] for k in solve_names)
         _log(f"[main] traced solve: device busy {prof['busy_ms']:.3f} ms of "
              f"{prof['wall_ms']:.3f} ms wall; the four kernels "
              f"{kern:.3f} ms = {100.0 * kern / wall_ms:.2f}% of the median "
@@ -634,10 +937,59 @@ def main() -> int:
         "features", lambda: feature_store(1000, 10000, seed=1),
         deserved=[[8.0e6, 32000 * gib], [6.0e6, 24000 * gib]],
     )
-    replay_kernels(feat_cap, feat_launches, reps=3)
+    replay_kernels(feat_cap, feat_launches, reps=3, names=solve_names)
     if feat_stats["pods_bound"] >= 10000 or feat_stats["pods_bound"] == 0:
         raise AssertionError("[features] overuse gating did not bind")
     _log("[features] kernels match their plain versions")
+
+    # 6. the cycle: Scheduler(store).run_once() on the north-star store.
+    kernels.CAPTURE = {}
+    kernels.reset_launches()
+    cyc_stats, _rec, _sched = run_cycle("cycle", ns_store, 100000,
+                                        trace=True)
+    cyc_launches = dict(kernels.LAUNCHES)
+    cyc_captured, kernels.CAPTURE = kernels.CAPTURE, None
+    _log(f"[cycle] launches {json.dumps(cyc_launches)}")
+    missing = [k for k, v in cyc_launches.items() if v == 0]
+    if missing:
+        raise AssertionError(f"[cycle] kernels never launched: {missing}")
+    from volcano_tpu_torch.ops.wave import LAST_TWOPHASE
+
+    if LAST_TWOPHASE.get("host_reads") != 0:
+        raise AssertionError("[cycle] the solve read device planes back")
+    cprof = cyc_stats.pop("profile")
+    _log(f"[cycle] {json.dumps(cyc_stats)}")
+    if cprof:
+        _log(f"[cycle] traced steady cycle: device busy "
+             f"{cprof['busy_ms']:.3f} ms of {cprof['wall_ms']:.3f} ms "
+             f"wall, device idle share "
+             f"{100.0 * (1 - cprof['busy_ms'] / cprof['wall_ms']):.2f}%, "
+             f"kernels(ms) {json.dumps(cprof['kernels_ms'])}, "
+             f"other {cprof['other_ms']:.3f} ms, top "
+             f"{json.dumps(cprof['top'])}")
+    else:
+        _log("[cycle] traced steady cycle: no device events in the trace "
+             "(idle share not measured)")
+
+    # 7. lanes on against lanes off, at 1,000 x 10,000.
+    lanes_on_off(1000, 10000)
+
+    # 8. every kernel of the cycle against its plain version, timed.
+    rows = replay_kernels(cyc_captured, cyc_launches)
+    by_solve = {r["name"]: r for r in solve_rows}
+    for r in rows:
+        if cprof:
+            r["cycle_ms"] = cprof["kernels_ms"][r["name"]]
+        if r["name"] in by_solve:
+            s = by_solve[r["name"]]
+            r["solve_path"] = {k: s[k] for k in (
+                "launches", "ms", "plain_ms", "bound_ms", "wrapper_ms",
+                "solve_ms")}
+        _log(f"[kernels] {r['name']}: {r['ms']:.4f} ms/launch on the "
+             f"device (queued {r['queued']}), wrapper host "
+             f"{r['wrapper_ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, "
+             f"library {r['library_ms']}, bound {r['bound_ms']:.6f} ms "
+             f"({r['bound_by']}), launches {r['launches']}")
 
     print(json.dumps({"kernels": rows}), flush=True)
     print(card, flush=True)

@@ -59,7 +59,9 @@ def test_card_solve_equals_plain_and_cpu(cuda, make, wave):
     k, p, c, launched = _solve_three_ways(make(), wave)
     _same(k, p)
     _same(k, c)
-    assert all(v > 0 for v in launched.values()), launched
+    solve_kernels = ("coarse_shortlist", "rank_candidates", "walk_accept",
+                     "apply_commit")
+    assert all(launched[k] > 0 for k in solve_kernels), launched
 
 
 def test_rank_candidates_without_rows_launches_nothing(cuda):
@@ -80,3 +82,144 @@ def test_rank_candidates_without_rows_launches_nothing(cuda):
     assert feas_k.shape == (0, K) and feas_k.dtype == torch.bool
     assert p_any.shape == (0,)
     assert kernels.LAUNCHES["rank_candidates"] == 0
+
+
+def _equal(a, b, what):
+    assert a.dtype == b.dtype and a.shape == b.shape, what
+    assert torch.equal(a, b), what
+
+
+@pytest.mark.parametrize("kind", ["mixed", "ties", "neg"])
+@pytest.mark.parametrize("N,B,S", [(1024, 16, 51), (16384, 16, 819),
+                                   (4096, 4, 737)])
+def test_devincr_kernels_equal_plain(cuda, kind, N, B, S):
+    """static_planes, coarse_shortlist (static_ext, with_cand) and
+    warm_shortlist on the card equal their plain versions on the card."""
+    from test_torch_fixtures import shortlist_case, shortlist_tensors
+
+    case = shortlist_case(7, U=64, N=N, kind=kind)
+    prof, cls, nd, w, eps, slot = shortlist_tensors(case, cuda)
+    args = (nd["idle"], nd["alloc"], nd["ntasks"], nd["max_tasks"], eps,
+            slot, w)
+    kernels.reset_launches()
+    stat = kernels.static_planes(prof, cls, 1.0, True)
+    stat_p = kernels.static_planes(prof, cls, 1.0, True, plain=True)
+    _equal(stat[0], stat_p[0], "stat_ok")
+    _equal(stat[1], stat_p[1], "stat_score")
+    cold = kernels.coarse_shortlist(prof, cls, *args, S, True, stat=stat,
+                                    n_blocks=B)
+    cold_p = kernels.coarse_shortlist(prof, cls, *args, S, True, stat=stat,
+                                      n_blocks=B, plain=True)
+    for a, b, what in zip(cold, cold_p, ("sl", "ok", "sc", "cs", "ci")):
+        _equal(a, b, what)
+    direct = kernels.coarse_shortlist(prof, cls, *args, S, True, stat=stat)
+    _equal(direct[0], cold[0], "with_cand shortlist != direct shortlist")
+    # Dirty two blocks: their nodes lose capacity; warm == full re-rank.
+    nlb = N // B
+    db = torch.tensor([1, B - 1], dtype=torch.int32, device=cuda)
+    idle2 = nd["idle"].clone()
+    idle2[nlb:nlb + nlb // 2] = 0.0
+    idle2[N - 3:] *= 0.5
+    args2 = (idle2,) + args[1:]
+    warm = kernels.warm_shortlist(prof, cls.class_id, *stat, *args2[:6], w,
+                                  db, cold[3], cold[4], S)
+    warm_p = kernels.warm_shortlist(prof, cls.class_id, *stat, *args2[:6],
+                                    w, db, cold[3], cold[4], S, plain=True)
+    for a, b, what in zip(warm, warm_p, ("sl", "cs", "ci")):
+        _equal(a, b, what)
+    full = kernels.coarse_shortlist(prof, cls, *args2, S, True, stat=stat,
+                                    n_blocks=B)
+    for a, b, what in zip(warm, (full[0], full[3], full[4]),
+                          ("sl", "cs", "ci")):
+        _equal(a, b, f"warm != full re-rank: {what}")
+    assert kernels.LAUNCHES["static_planes"] == 1
+    assert kernels.LAUNCHES["warm_shortlist"] == 1
+    assert kernels.LAUNCHES["coarse_shortlist"] == 3
+
+
+@pytest.mark.parametrize("dtype,width", [
+    (torch.float32, 3), (torch.int32, 0), (torch.bool, 0), (torch.int32, 2),
+])
+def test_scatter_rows_equals_plain(cuda, dtype, width):
+    """In-place row patch of a resident plane equals index assignment;
+    rows outside the delta keep their bytes."""
+    g = torch.Generator().manual_seed(3)
+    shape = (16384,) + ((width,) if width else ())
+    base = torch.randint(-1000, 1000, shape, generator=g).to(dtype)
+    rows = torch.randperm(16384, generator=g)[:100].to(torch.int32)
+    vals = torch.randint(-1000, 1000, (100,) + shape[1:],
+                         generator=g).to(dtype)
+    got = base.to(cuda)
+    want = base.to(cuda)
+    kernels.reset_launches()
+    kernels.scatter_rows(got, rows.to(cuda), vals.to(cuda))
+    kernels.scatter_rows(want, rows.to(cuda), vals.to(cuda), plain=True)
+    _equal(got, want, "scatter_rows")
+    assert kernels.LAUNCHES["scatter_rows"] == 1
+
+
+def _cycle_run(device, cycles=6):
+    """Port cycles (re-pend feed + churn) on ``device``: per-cycle binds,
+    phases and mirror states."""
+    import itertools
+    import random
+
+    import volcano_tpu_torch.api.spec as spec
+    from test_torch_fixtures import churn, mirror_state, repend_feed
+    from volcano_tpu_torch.scheduler import Scheduler
+
+    spec._uid_counter = itertools.count(1)
+    spec._ts_counter = itertools.count(1)
+    store = synthetic_cluster(n_nodes=24, n_pods=72, gang_size=4, seed=13)
+    sched = Scheduler(store, device=device)
+    store.cycle_feed = repend_feed([0, 1])
+    rng = random.Random(7)
+    out = []
+    for step in range(cycles):
+        sched.run_once()
+        out.append((dict(store.binder.binds),
+                    {u: pg.status.phase
+                     for u, pg in sorted(store.pod_groups.items())},
+                    mirror_state(store)))
+        if step % 2 == 1:
+            churn(volcano_tpu_torch.api, store, rng, step)
+    return out, store
+
+
+def test_cycle_on_card_equals_cpu(cuda):
+    """Scheduler.run_once() on the card equals the CPU run cycle by
+    cycle, and every kernel of the cycle launched."""
+    kernels.reset_launches()
+    card, store = _cycle_run(None)
+    launched = dict(kernels.LAUNCHES)
+    cpu, _ = _cycle_run("cpu")
+    assert card == cpu
+    assert store.device_snapshot.device.type == "cuda"
+    for k in ("coarse_shortlist", "rank_candidates", "walk_accept",
+              "apply_commit", "static_planes", "warm_shortlist",
+              "scatter_rows"):
+        assert launched[k] > 0, (k, launched)
+
+
+def test_resident_planes_byte_equal_across_a_solve(cuda):
+    """A cycle that solves but leaves the node table alone writes no
+    resident plane; the solve counts no host reads."""
+    from test_torch_fixtures import repend_feed
+    from volcano_tpu_torch.ops.wave import LAST_TWOPHASE
+    from volcano_tpu_torch.scheduler import Scheduler
+
+    store = synthetic_cluster(n_nodes=24, n_pods=72, gang_size=4, seed=13)
+    sched = Scheduler(store)
+    store.cycle_feed = repend_feed([0, 1])
+    sched.run_once()
+    snap = store.device_snapshot
+    before = {k: v.clone() for k, v in snap._planes.items()}
+    cls_before = {k: v.clone() for k, v in snap._cls_planes.items()}
+    sched.run_once()
+    torch.cuda.synchronize()
+    assert LAST_TWOPHASE["host_reads"] == 0
+    assert snap.hits >= 1
+    for k, v in before.items():
+        assert torch.equal(v, snap._planes[k]), k
+    for k, v in cls_before.items():
+        assert torch.equal(v, snap._cls_planes[k]), k

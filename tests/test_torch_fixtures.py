@@ -161,3 +161,165 @@ def test_tonp_keeps_weights_scalars():
     w = tonp(args)[4]
     assert isinstance(w.binpack_weight, float)
     assert isinstance(w.binpack_res, np.ndarray)
+
+
+def shortlist_case(seed, U=16, N=1024, C=6, R=3, LW=2, TW=1, A=2, AP=2,
+                   kind="mixed"):
+    """Random inputs of the shortlist kernels as numpy arrays: node planes
+    (idle, allocatable, pod slots, class ids), class tables, profile rows
+    and scorer weights.  ``kind``: "mixed" (varied capacity and classes),
+    "ties" (identical nodes, one class: every score ties) or "neg" (nine
+    nodes in ten without room: blocks mostly NEG)."""
+    rng = np.random.default_rng(seed)
+    gib = float(2 ** 30)
+    cpu = rng.integers(0, 65, size=N) * 1000.0
+    mem = rng.integers(0, 257, size=N) * gib
+    gpu = rng.integers(0, 3, size=N).astype(np.float64)
+    alloc = np.stack([np.full(N, 64000.0), np.full(N, 256 * gib),
+                      np.full(N, 2.0)], 1)[:, :R].astype(np.float32)
+    idle = np.stack([cpu, mem, gpu], 1)[:, :R].astype(np.float32)
+    idle = np.minimum(idle, alloc)
+    cls_id = rng.integers(0, C, size=N).astype(np.int32)
+    ntasks = rng.integers(0, 8, size=N).astype(np.int32)
+    max_tasks = rng.choice([0, 4, 110], size=N).astype(np.int32)
+    if kind == "ties":
+        idle[:] = alloc[0]
+        cls_id[:] = 0
+        ntasks[:] = 0
+        max_tasks[:] = 110
+    elif kind == "neg":
+        idle[rng.random(N) < 0.9] = 0.0
+    bits = lambda *s: (rng.integers(0, 1 << 32, size=s, dtype=np.uint64)
+                       & rng.integers(0, 1 << 32, size=s, dtype=np.uint64)
+                       & rng.integers(0, 1 << 32, size=s, dtype=np.uint64)
+                       ).astype(np.uint32)
+    cls_label = (bits(C, LW) | bits(C, LW) | bits(C, LW)).astype(np.uint32)
+    cls_taint = bits(C, TW) * (rng.random((C, 1)) < 0.3)
+    cls_ready = rng.random(C) < 0.9
+    if kind == "ties":
+        cls_ready[0] = True
+        cls_taint[0] = 0
+    req = np.stack([rng.integers(1, 5, size=U) * 1000.0,
+                    rng.integers(1, 9, size=U) * gib,
+                    rng.integers(0, 2, size=U).astype(np.float64)],
+                   1)[:, :R].astype(np.float32)
+    # Selector / affinity words drawn as subsets of some class's labels,
+    # so a share of the (profile, class) pairs is feasible.
+    pick = rng.integers(0, C, size=(U, 1 + A + AP))
+    sub = lambda c: cls_label[c] & bits(*cls_label[c].shape)
+    sel_bits = sub(pick[:, 0]) * (rng.random((U, 1)) < 0.5)
+    aff_bits = np.stack([sub(pick[:, 1 + a]) for a in range(A)], 1)
+    aff_terms = rng.integers(0, A + 1, size=U).astype(np.int32)
+    tol_bits = bits(U, TW) | (rng.random((U, 1)) < 0.5) * np.uint32(
+        0xFFFFFFFF)
+    pref_bits = np.stack([sub(pick[:, 1 + A + a]) for a in range(AP)], 1)
+    pref_w = (rng.integers(0, 11, size=(U, AP)) / 10.0).astype(np.float32)
+    return dict(
+        idle=idle, alloc=alloc, cls_id=cls_id, ntasks=ntasks,
+        max_tasks=max_tasks, cls_label=cls_label,
+        cls_taint=cls_taint.astype(np.uint32), cls_ready=cls_ready,
+        req=req, init_req=req.copy(), sel_bits=sel_bits.astype(np.uint32),
+        aff_bits=aff_bits.astype(np.uint32), aff_terms=aff_terms,
+        tol_bits=tol_bits.astype(np.uint32),
+        pref_bits=pref_bits.astype(np.uint32), pref_w=pref_w,
+        eps=np.array([10.0, 1.0, 10.0], np.float32)[:R],
+        scalar_slot=np.array([False, False, True])[:R],
+        binpack_res=np.ones(R, np.float32),
+        weights=(1.0, 1.0, 0.0, 1.0, 1.0),
+    )
+
+
+def shortlist_tensors(case, device):
+    """``shortlist_case`` as the port's containers on ``device``:
+    (SolveProfiles, NodeClasses, node planes dict, ScoreWeights, eps,
+    scalar_slot)."""
+    import torch
+
+    from volcano_tpu_torch.device import to_tensor
+    from volcano_tpu_torch.ops.nodeclass import NodeClasses
+    from volcano_tpu_torch.ops.scoring import ScoreWeights
+    from volcano_tpu_torch.ops.wave import SolveProfiles
+
+    t = {k: to_tensor(v, device) for k, v in case.items()
+         if isinstance(v, np.ndarray)}
+    z = torch.zeros((case["req"].shape[0], 1), device=device)
+    prof = SolveProfiles(
+        req=t["req"], init_req=t["init_req"], ports=z,
+        sel_bits=t["sel_bits"], aff_bits=t["aff_bits"],
+        aff_terms=t["aff_terms"], tol_bits=t["tol_bits"],
+        pref_bits=t["pref_bits"], pref_w=t["pref_w"], t_req_aff=z,
+        t_req_anti=z, t_matches=z, t_soft=z)
+    cls = NodeClasses(class_id=t["cls_id"], label_bits=t["cls_label"],
+                      taint_bits=t["cls_taint"], ready=t["cls_ready"])
+    bw, lw, mw, balw, naff = case["weights"]
+    weights = ScoreWeights(binpack_weight=bw, binpack_res=t["binpack_res"],
+                           least_req_weight=lw, most_req_weight=mw,
+                           balanced_weight=balw, node_affinity_weight=naff)
+    nodes = {k: t[k] for k in ("idle", "alloc", "ntasks", "max_tasks")}
+    return prof, cls, nodes, weights, t["eps"], t["scalar_slot"]
+
+
+ST_BOUND = 16  # TaskStatus.Bound
+
+
+def repend_feed(node_rows):
+    """A cycle feed re-pending the pods bound to ``node_rows`` every
+    cycle (test_devincr.py's ``_partial_feed``)."""
+
+    def feed(fc):
+        m = fc.m
+        rows = np.flatnonzero(
+            (m.p_status[:fc.Pn] == ST_BOUND) & m.p_alive[:fc.Pn])
+        if len(rows):
+            sel = rows[np.isin(m.p_node[rows], node_rows)]
+            if len(sel):
+                fc._unbind_rows(sel)
+
+    return feed
+
+
+def mirror_state(store):
+    m = store.mirror
+    return tuple(
+        (m.p_uid[r], int(m.p_status[r]), m.p_node_name[r])
+        for r in range(m.n_pods) if m.p_uid[r] is not None
+    )
+
+
+def churn(api, store, rng, step):
+    """test_devincr.py's randomized mutation batch, built from ``api``."""
+    op = rng.choice(["add_gang", "delete_pod", "node_flap", "add_pods",
+                     "nothing"])
+    if op == "add_gang":
+        name = f"churn-{step}"
+        store.add_pod_group(api.PodGroup(name=name, min_member=2))
+        for i in range(2):
+            store.add_pod(api.Pod(
+                name=f"{name}-{i}",
+                annotations={api.GROUP_NAME_ANNOTATION: name},
+                containers=[{"cpu": "1", "memory": "1Gi"}],
+            ))
+    elif op == "delete_pod":
+        pods = sorted(store.pods.values(), key=lambda p: p.name)
+        if pods:
+            store.delete_pod(pods[rng.randrange(len(pods))])
+    elif op == "node_flap":
+        names = sorted(store.mirror.n_row)
+        if names:
+            name = names[rng.randrange(len(names))]
+            if rng.random() < 0.5:
+                store.delete_node(name)
+            else:
+                store.add_node(api.Node(
+                    name=name,
+                    allocatable={"cpu": "64", "memory": "256Gi",
+                                 "pods": 256},
+                ))
+    elif op == "add_pods":
+        name = f"solo-{step}"
+        store.add_pod_group(api.PodGroup(name=name, min_member=1))
+        store.add_pod(api.Pod(
+            name=f"{name}-0",
+            annotations={api.GROUP_NAME_ANNOTATION: name},
+            containers=[{"cpu": "2", "memory": "2Gi"}],
+        ))

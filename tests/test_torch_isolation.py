@@ -6,6 +6,10 @@
     anything of ``volcano_tpu``.
 (c) Without CUDA, the default-device entry points raise.
 (d) Every unsupported feature raises ``NotImplementedError``.
+(e) The same for the scheduler cycle: it runs with ``jax``, ``volcano_tpu``
+    and ``yaml`` unimportable, no module imports ``yaml``, the default
+    device raises without CUDA, and the JAX fast path's lanes the port does
+    not run raise ``NotImplementedError`` naming their ROADMAP.md item.
 """
 
 import ast
@@ -136,7 +140,6 @@ UNSUPPORTED = {
     "extra_score": (_args, {"extra_score": np.zeros((2, 8), np.float32)}),
     "node_bias": (_args, {"node_bias": np.zeros(8, np.float32)}),
     "mesh_shards": (_args, {"mesh_shards": 2}),
-    "devincr": (_args, {"devincr": object()}),
 }
 
 
@@ -152,3 +155,103 @@ def test_single_phase_raises(monkeypatch):
     with pytest.raises(NotImplementedError, match="TWOPHASE"):
         port_wave.solve_wave(*_args(), wave=8, device="cpu")
     assert volcano_tpu_torch.__version__
+
+
+_CYCLE = r'''
+import sys
+from volcano_tpu_torch.scheduler import Scheduler
+from volcano_tpu_torch.framework import DEPLOYED_SCHEDULER_CONF
+from volcano_tpu_torch.synth import synthetic_cluster
+store = synthetic_cluster(n_nodes=8, n_pods=32, gang_size=4)
+Scheduler(store, conf_str=DEPLOYED_SCHEDULER_CONF, device="cpu").run_once()
+assert len(store.binder.binds) == 32, store.binder.binds
+assert store.device_snapshot.full_uploads == 1
+assert store._devincr_cache.counts["full"] == 1
+assert not any(k.split(".")[0] in ("jax", "jaxlib", "volcano_tpu", "yaml")
+               for k in sys.modules)
+print("ok")
+'''
+
+
+def test_cycle_runs_with_jax_reference_and_yaml_blocked():
+    env = dict(os.environ, PYTHONPATH=str(ROOT))
+    blocker = _BLOCKER.replace('("jax", "jaxlib", "volcano_tpu")',
+                               '("jax", "jaxlib", "volcano_tpu", "yaml")')
+    out = subprocess.run(
+        [sys.executable, "-c", blocker + _CYCLE],
+        capture_output=True, text=True, env=env, cwd=str(ROOT), timeout=300,
+    )
+    assert out.returncode == 0, out.stderr[-3000:]
+    assert out.stdout.strip().endswith("ok")
+
+
+def test_no_yaml_imports():
+    files = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+    for f in files:
+        for name in _imported_names(f):
+            assert name.split(".")[0] != "yaml", (f, name)
+
+
+def test_scheduler_default_device_raises_without_cuda(monkeypatch):
+    from volcano_tpu_torch.scheduler import Scheduler
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    store = synthetic_cluster(n_nodes=4, n_pods=8)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        Scheduler(store)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        Scheduler(store, device="cuda")
+    assert not store.binder.binds
+
+
+def _cycle_store():
+    return synthetic_cluster(n_nodes=4, n_pods=8, gang_size=2)
+
+
+def _conf(actions="enqueue, allocate, backfill", extra_plugin=""):
+    return (f"actions: \"{actions}\"\ntiers:\n- plugins:\n"
+            f"  - name: priority\n  - name: gang\n{extra_plugin}")
+
+
+def _set(attr, value):
+    def make():
+        store = _cycle_store()
+        setattr(store, attr, value)
+        return store
+    return make
+
+
+CYCLE_NOT_PORTED = {
+    "preempt": (_cycle_store, _conf("enqueue, allocate, preempt")),
+    "reclaim": (_cycle_store, _conf("allocate, reclaim")),
+    "rebalance": (_cycle_store, _conf("allocate, rebalance")),
+    "custom plugin": (_cycle_store, _conf(extra_plugin="  - name: mine\n")),
+    "unknown action": (_cycle_store, _conf("allocate, shuffle")),
+    "sequential solver": (_cycle_store, _conf() + (
+        "configurations:\n- name: allocate\n  arguments:\n"
+        "    solver: seq\n")),
+    "pipeline": (_set("pipeline", True), _conf()),
+}
+
+
+@pytest.mark.parametrize("what", sorted(CYCLE_NOT_PORTED))
+def test_cycle_lanes_not_ported_raise(what):
+    from volcano_tpu_torch.scheduler import Scheduler
+
+    make, conf = CYCLE_NOT_PORTED[what]
+    store = make()
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        Scheduler(store, conf_str=conf, device="cpu").run_once()
+    assert not store.binder.binds
+
+
+@pytest.mark.parametrize("attr,value", [
+    ("async_bind", True), ("remote_solver", object()),
+    ("solve_mesh", object()),
+])
+def test_store_slots_not_ported_raise(attr, value):
+    store = _cycle_store()
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        setattr(store, attr, value)
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        store.evict(None, "test")

@@ -1,0 +1,1303 @@
+"""Incremental struct-of-arrays mirror of the cluster store.
+
+The device-native replacement for the reference's per-cycle deep-copied
+snapshot (``pkg/scheduler/cache/cache.go:652-730``): instead of cloning
+every Job/Node object and re-flattening it into device arrays each cycle
+(O(cluster) Python work), the store keeps a columnar pod/node/job table
+that is updated *incrementally* as objects mutate — the array analog of the
+reference's informer-driven cache (``cache/event_handlers.go:178-731``).
+
+Design:
+
+- **Static per-pod features are encoded once, at add time.**  Resource
+  requests, label selectors, tolerations, host ports, node-affinity terms
+  and inter-pod affinity terms are interned against store-scoped
+  *append-only* dictionaries and stored as CSR segments (flat index/value
+  buffers + per-row offsets).  Because the dictionaries only grow, encoded
+  rows never go stale.  The feature blob is cached on the ``Pod`` object, so
+  the copy-on-write pod replacement done by ``bind``/``evict`` reuses it.
+- **Dynamic per-pod state is three scalars** (status i8-equivalent, node
+  row, job row) updated in place.
+- **Everything aggregate is derived per cycle by vectorized reductions**
+  (``np.add.at`` over the live rows): node idle/used/releasing, queue
+  allocated, per-job status counts, affinity resident counts.  No
+  incremental double-entry bookkeeping to drift.
+- Rows are tombstoned on delete and compacted when more than half the
+  table is dead.
+
+The fast scheduling path (``volcano_tpu_torch.fastpath``) consumes these tables
+directly; the object model (``api.info``) remains the system of record for
+the controllers and for the object-session path (preempt/reclaim, custom
+plugins).
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass, field
+from typing import Dict, List, Optional, Tuple
+
+import numpy as np
+
+from ..api import (
+    SYSTEM_CLUSTER_CRITICAL,
+    SYSTEM_NAMESPACE,
+    SYSTEM_NODE_CRITICAL,
+    Pod,
+    TaskStatus,
+    topology_code,
+)
+from ..api.resource import Resource
+
+F = np.float32
+I = np.int32
+
+HOSTNAME_KEY = "kubernetes.io/hostname"
+JOB_SELECTOR = "__job__"
+
+# PodGroup phase -> j_phase_code (fastpath._PHASE_CODE coding: 0 = no
+# PodGroup, 5 = any other phase incl. "").
+_PG_PHASE_CODE = {
+    "Pending": 1,
+    "Inqueue": 2,
+    "Running": 3,
+    "Unknown": 4,
+}
+
+# TaskStatus values are bit flags; keep them in int16 columns.
+_OCCUPYING = (
+    TaskStatus.Bound | TaskStatus.Binding | TaskStatus.Running
+    | TaskStatus.Allocated | TaskStatus.Unknown
+)
+_TERMINATED = TaskStatus.Succeeded | TaskStatus.Failed
+
+
+class CSRColumn:
+    """Append-only ragged column: per-row variable-length int/float data.
+
+    Rows are appended once and never mutated; ``gather`` materializes the
+    concatenated segments of a row subset plus the local row index of every
+    element (for vectorized scatters).
+    """
+
+    __slots__ = ("idx", "val", "off", "_n", "_len", "has_val")
+
+    def __init__(self, has_val: bool = False, cap: int = 1024):
+        self.idx = np.zeros(cap, I)
+        self.val = np.zeros(cap, F) if has_val else None
+        self.off = np.zeros(cap + 1, np.int64)
+        self._n = 0  # rows
+        self._len = 0  # elements
+        self.has_val = has_val
+
+    def append(self, indices, values=None) -> None:
+        k = len(indices)
+        if self._len + k > len(self.idx):
+            grow = max(len(self.idx) * 2, self._len + k)
+            self.idx = np.resize(self.idx, grow)
+            if self.val is not None:
+                self.val = np.resize(self.val, grow)
+        if self._n + 1 >= len(self.off):
+            self.off = np.resize(self.off, len(self.off) * 2)
+        if k:
+            self.idx[self._len:self._len + k] = indices
+            if self.val is not None:
+                self.val[self._len:self._len + k] = values
+        self._len += k
+        self._n += 1
+        self.off[self._n] = self._len
+
+    def lens(self, rows: np.ndarray) -> np.ndarray:
+        return (self.off[rows + 1] - self.off[rows]).astype(np.int64)
+
+    def gather(self, rows: np.ndarray):
+        """-> (elem_row_local, indices[, values]) for the given rows."""
+        lens = self.lens(rows)
+        total = int(lens.sum())
+        elem_row = np.repeat(np.arange(len(rows)), lens)
+        if total == 0:
+            pos = np.zeros(0, np.int64)
+        else:
+            # Flat positions: start[row] + intra-row offset.
+            starts = self.off[rows]
+            cum = np.concatenate(([0], np.cumsum(lens)[:-1]))
+            pos = (
+                np.arange(total, dtype=np.int64)
+                - np.repeat(cum, lens)
+                + np.repeat(starts, lens)
+            )
+        if self.val is not None:
+            return elem_row, self.idx[pos], self.val[pos]
+        return elem_row, self.idx[pos]
+
+
+class Interner:
+    """Append-only value -> dense index dictionary."""
+
+    __slots__ = ("index", "items")
+
+    def __init__(self):
+        self.index: Dict[object, int] = {}
+        self.items: List[object] = []
+
+    def intern(self, key) -> int:
+        i = self.index.get(key)
+        if i is None:
+            i = len(self.items)
+            self.index[key] = i
+            self.items.append(key)
+        return i
+
+    def __len__(self) -> int:
+        return len(self.items)
+
+
+def _grow(a: np.ndarray, n: int) -> np.ndarray:
+    if n <= len(a):
+        return a
+    return np.resize(a, max(n, len(a) * 2))
+
+
+@dataclass
+class _PodFeat:
+    """Static per-pod encoded features (cached on the Pod object)."""
+
+    req: Tuple[list, list]  # (slot idxs, values)
+    init_req: Tuple[list, list]
+    sel: List[int]  # queried label-pair idxs (node selector)
+    tol: List[int]  # toleration specs (matched lazily per cycle)
+    ports: List[int]  # port idxs
+    aff_alts: List[List[int]]  # required node-affinity alternatives
+    pref: List[Tuple[List[int], float]]  # preferred node affinity
+    ip_req_aff: List[int]  # inter-pod term idxs (required affinity)
+    ip_req_anti: List[int]
+    ip_soft: List[Tuple[int, float]]
+    has_ip: bool
+    priority: int
+    create: float
+    best_effort: bool
+    key: tuple = ()
+
+
+class StoreMirror:
+    """Columnar mirror maintained by ``ClusterStore`` mutations."""
+
+    def __init__(self):
+        # -------- dictionaries (append-only; shared across the store life)
+        self.scalar_slots = Interner()  # scalar resource name -> slot-2
+        # Label bitset space: ONLY label pairs that appear in a selector /
+        # node-affinity term occupy bits — a pod's own labels never enter
+        # (they only matter for inter-pod term membership, matched against
+        # raw dicts).  Without this split, per-job app labels would blow
+        # the [N, LW]/[P, LW] bitset tables up quadratically at scale.
+        self.labels = Interner()  # QUERIED (k, v) pairs
+        self.taints = Interner()  # (key, value, effect)
+        self.ports = Interner()  # port number
+        self.terms = Interner()  # inter-pod term key
+        self.term_info: List[tuple] = []  # (sel_items dict, topo_key, ns set|None)
+        self.topo_keys = Interner()  # topology key -> column
+        # Term membership: per term, a growing list of pod rows whose labels
+        # match the term (resident counting + t_matches are derived).
+        # Inverted indexes keep maintenance O(1)-ish per pod/term instead
+        # of O(pods x terms): candidate terms for a pod come from its label
+        # pairs / job id; candidate pods for a new term come from the
+        # pair->rows index.
+        self.term_members: List[List[int]] = []
+        # Total memberships across terms: an O(1) content version for
+        # the encode cache (memberships only grow between compactions).
+        self.term_members_total = 0
+        self._terms_by_pair: Dict[Tuple[str, str], List[int]] = {}
+        self._terms_by_job: Dict[str, List[int]] = {}
+        self._terms_all: List[int] = []  # empty-selector terms
+        self._pods_by_pair: Dict[Tuple[str, str], List[int]] = {}
+        # Task profiles: pods with identical solver-relevant features share
+        # a profile id, interned once at add time (replaces the wave
+        # solver's per-cycle feature hashing).  The key deliberately
+        # excludes job identity; job-dependent inter-pod matches are
+        # refined per cycle by the fast path.
+        self.profiles = Interner()
+
+        # ------------------------------------------------------- pod table
+        cap = 1024
+        self.p_uid: List[Optional[str]] = []
+        self.p_key: List[str] = []  # "ns/name" bind key per row
+        # Live pod record per row (kept current by upsert_pod: every
+        # store.pods[uid] = pod write is paired with an upsert).  Lets the
+        # fast path's bulk commit reach 100k pod objects by list indexing
+        # instead of 100k string-keyed dict lookups.
+        self.p_pod: List[Optional[Pod]] = []
+        # Count of None entries in p_pod (tombstoned rows): lets the
+        # commit path skip its defensive 100k-element None scan when no
+        # pod has ever been removed (the common bench/steady case).
+        self.p_pod_nones = 0
+        self.p_feat: List[Optional[_PodFeat]] = []
+        self.p_row: Dict[str, int] = {}
+        self.p_status = np.zeros(cap, np.int16)
+        self.p_node = np.full(cap, -1, I)
+        # Bound hostname per row (None = unbound): written as ONE batched
+        # column write at commit time (fastpath._commit) instead of a
+        # 100k-iteration per-record setattr walk — the mirror-side source
+        # of truth for bound placements.
+        self.p_node_name = np.empty(cap, object)
+        self.p_job = np.full(cap, -1, I)
+        self.p_prio = np.zeros(cap, I)
+        self.p_create = np.zeros(cap, np.float64)
+        self.p_alive = np.zeros(cap, bool)
+        self.p_be = np.zeros(cap, bool)  # best-effort (empty init_req)
+        self.p_has_ip = np.zeros(cap, bool)  # has inter-pod terms
+        self.p_has_tol = np.zeros(cap, bool)  # has tolerations
+        # Critical (conformance-exempt) pods, precomputed at add time
+        # (conformance.go:44-66: system priority classes / kube-system):
+        # the evict machinery reads this as a column instead of walking
+        # 40k pod objects per session.
+        self.p_critical = np.zeros(cap, bool)
+        self.p_prof = np.zeros(cap, I)  # task profile id (self.profiles)
+        self.c_req = CSRColumn(has_val=True)
+        self.c_init_req = CSRColumn(has_val=True)
+        self.c_sel = CSRColumn()
+        self.c_tol = CSRColumn()
+        self.c_ports = CSRColumn()
+        # Node-affinity alternatives: rows in a side table, pods reference a
+        # contiguous [aff_lo, aff_hi) range of it.
+        self.c_aff_alt = CSRColumn()  # one row per alternative
+        self.p_aff_lo = np.zeros(cap, I)
+        self.p_aff_hi = np.zeros(cap, I)
+        self.c_pref = CSRColumn()  # one row per preferred term
+        self.pref_w: List[float] = []
+        self.p_pref_lo = np.zeros(cap, I)
+        self.p_pref_hi = np.zeros(cap, I)
+        self.c_ip_aff = CSRColumn()
+        self.c_ip_anti = CSRColumn()
+        self.c_ip_soft = CSRColumn(has_val=True)
+        self.n_dead = 0
+
+        # ------------------------------------------------------ node table
+        self.n_name: List[Optional[str]] = []
+        self.n_row: Dict[str, int] = {}
+        ncap = 64
+        self.n_ready = np.zeros(ncap, bool)
+        self.n_alive = np.zeros(ncap, bool)
+        self.n_maxtasks = np.zeros(ncap, I)
+        self.c_n_alloc = CSRColumn(has_val=True)
+        self.c_n_labels = CSRColumn()
+        self.c_n_taints = CSRColumn()
+        self.node_objs: List[object] = []  # Node spec per row (labels for dom)
+        # Topology domains: (key column, value) -> dense domain id;
+        # hostname domains are allocated per (node row).
+        self.domains = Interner()
+        self._node_dom_dirty = True
+        self._node_dom: Optional[np.ndarray] = None
+
+        # ------------------------------------------------- job (podgroup) table
+        self.j_uid: List[Optional[str]] = []
+        self.j_row: Dict[str, int] = {}
+        jcap = 64
+        self.j_minav = np.zeros(jcap, I)
+        self.j_prio = np.zeros(jcap, I)
+        self.j_create = np.zeros(jcap, np.float64)
+        self.j_queue: List[str] = []
+        self.j_ns: List[str] = []
+        # Interned namespace/queue codes (vectorized grouping in the fast
+        # path: string columns force Python loops at 10k+ jobs).
+        self.ns_names = Interner()
+        self.qnames = Interner()
+        self.j_ns_code = np.zeros(jcap, I)
+        self.j_queue_code = np.zeros(jcap, I)
+        # PodGroup object ref + status snapshot columns, maintained by
+        # upsert (every store add/update funnels through it) and written
+        # through by the fast path's close write-back: the cycle reads
+        # them as views instead of re-walking 45k PodGroup objects per
+        # derive.  Phase coding matches fastpath._PHASE_CODE (0 = no
+        # PodGroup, 5 = any other phase).
+        self.j_pg: List[Optional[object]] = []
+        self.j_phase_code = np.zeros(jcap, np.int8)
+        self.j_st_run = np.zeros(jcap, I)
+        self.j_st_fail = np.zeros(jcap, I)
+        self.j_st_succ = np.zeros(jcap, I)
+        # Process-local hash of the Unschedulable condition last written
+        # (0 = none): close skips the per-object condition scan/rewrite
+        # for persistently-unschedulable jobs without touching the
+        # PodGroup at all.  Refreshed from the object on upsert so
+        # external status writers stay coherent.
+        self.j_cond_sig = np.zeros(jcap, np.int64)
+        # Prebuilt per-job metric label tuple (("job_name", name),) and
+        # event key ("PodGroup/ns/name"): close consumes 25k of each per
+        # config-4 cycle.
+        self.j_gauge_key: List[Optional[tuple]] = []
+        self.j_event_key: List[str] = []
+        self.j_alive = np.zeros(jcap, bool)
+        # Fabric-topology constraint code per job (api.spec.topology_code:
+        # 0 none, 1 prefer-contiguous, 2 require-contiguous).
+        self.j_topo = np.zeros(jcap, np.int8)
+        # Append-only fabric interners (ops/topology.fabric_planes):
+        # (level, label value) -> code and (rack, slice) -> block id.
+        # Compaction-carried so codes stay stable for the store's life.
+        self._fabric_vals: Dict[tuple, int] = {}
+        self._fabric_blocks: Dict[tuple, int] = {}
+        # Toleration specs per pod row (matched lazily per cycle, because
+        # the taint dictionary may grow after the pod was added).
+        self._pod_tols: List[list] = []
+        # Pods bound to nodes the mirror has not seen yet: name -> uids.
+        self._orphans: Dict[str, List[str]] = {}
+        # Epoch bumps force full fallback-path consumers to resync if needed.
+        self.epoch = 0  # guarded-by: _lock
+        # Node-LIVENESS generation: bumped only when a node row's
+        # n_alive actually flips (join, rejoin, removal) — NOT on
+        # content-identical upserts or label/capacity edits.  The
+        # persistent cycle aggregates key on this instead of the full
+        # epoch: node liveness is the only node property the resident
+        # predicate reads, so routine node re-syncs/heartbeats keep the
+        # delta derive alive while real membership churn still forces
+        # the proven full rebuild.
+        self.node_liveness_gen = 0  # guarded-by: _lock
+        # Monotone pod/node mutation counter: the pipelined cycle's
+        # staleness guard compares the value captured at solve dispatch
+        # against the value at fetch — equality proves NO pod/node state
+        # changed during the overlap, so the capacity re-validation can
+        # be skipped wholesale (the steady-state case).
+        self.mutation_seq = 0  # guarded-by: _lock
+        # Bumped when maybe_compact renumbers pod rows: an in-flight
+        # solve's row indices are void across a compaction and the whole
+        # result must be dropped (rows are otherwise stable for a pod's
+        # lifetime — tombstoned rows are never reused).
+        self.compact_gen = 0  # guarded-by: _lock
+        # Cross-shard commit gate (shard.py): bumped by every
+        # sharded FastCycle._commit.  A shard captures the value at
+        # solve dispatch; an advance at fetch time proves ANOTHER shard
+        # committed binds during the overlap (a shard never commits
+        # after its own pipelined dispatch within one cycle), so the
+        # staleness guard's competing-bind / capacity-taken voids are
+        # attributed to the optimistic protocol as the
+        # `cross-shard-conflict` drop reason.  Correctness never rests
+        # on this counter — mutation_seq already forces the
+        # re-validation; this one only drives attribution + metrics.
+        self.shard_commit_seq = 0  # guarded-by: _lock
+        # Node rows touched since the last reset_node_delta(): lets the
+        # device-resident snapshot upload per-row deltas instead of the
+        # full [N, *] planes on every node-table epoch bump.
+        self._node_dirty_rows: set = set()  # guarded-by: _lock
+        self._node_dirty_floor = 0  # guarded-by: _lock
+        # Pod rows whose DYNAMIC state (status/node/job/alive) changed
+        # since the last derive consumed them: the incremental
+        # host-lane machinery (fastpath_incr.CycleAggregates) turns the
+        # per-cycle full-table reductions into subtract-old/add-new
+        # delta scatters over exactly these rows.  Every writer of the
+        # dynamic columns — the mirror's own mutators AND the fast
+        # path's bulk commits/unbinds/evictions — must mark the rows it
+        # touched, or the persistent aggregates silently drift; vclint's
+        # VCL50x family checks the contract statically and the
+        # VOLCANO_TPU_INCR_VERIFY=1 runtime guard checks it dynamically.
+        self._pod_dirty_mask = np.zeros(cap, bool)  # guarded-by: _lock
+        # Marked-row count with duplicates (the VOLCANO_TPU_DIRTY_CAP
+        # overflow trigger is O(1) per mark batch, not O(unique)).
+        self._pod_dirty_marks = 0  # guarded-by: _lock
+        # Tracking gave up for this span (cap overflow, resync_status):
+        # the next derive must full-rebuild, which resets it.
+        self._pod_dirty_overflow = False  # guarded-by: _lock
+        # Per-mirror memo of VOLCANO_TPU_DIRTY_CAP (the evict lane marks
+        # per row; an env read per mark would be its own hot path).
+        self._dirty_cap_memo = None  # guarded-by: _lock
+        # Monotone count of mark events: the pipelined staleness guard's
+        # agreement token — a dirty_seq advance between solve dispatch
+        # and commit implies a mutation_seq advance (never vice-free),
+        # so the guard can never skip a change the dirty set recorded.
+        self.dirty_seq = 0  # guarded-by: _lock
+        # Bumped whenever a pod RECORD slot changes (p_pod list writes:
+        # copy-on-write replacements, removals) — the commit path's
+        # object-array cache keys on it, so the 100k-element np.fromiter
+        # walk reruns only when a record actually moved.
+        self.pod_obj_gen = 0  # guarded-by: _lock
+        # Conservation auditor (obs/audit.py), attached by
+        # the owning store: the dynamic-state writers below declare
+        # their pod-count flows through it (double-entry bookkeeping
+        # the cycle-end reconcile balances against the census).  None
+        # for bare mirrors in tests; the auditor is internally
+        # synchronized, so no extra locking here.
+        self.audit = None
+        # Pod-journey log (obs/journey.py), attached by the
+        # owning store next to the auditor: the same dynamic-state
+        # writers record per-pod timeline events (enqueued /
+        # status-sync / removed) through it.  None for bare mirrors and
+        # under VOLCANO_TPU_JOURNEY=0; internally synchronized.
+        self.journey = None
+
+    # ================================================================ pods
+
+    # holds: _lock
+    def _feat(self, pod: Pod) -> _PodFeat:
+        feat = getattr(pod, "_mirror_feat", None)
+        if feat is not None:
+            return feat
+        req = pod.resource_request()
+        init_req = pod.init_resource_request()
+
+        def res_csr(r: Resource):
+            slots, vals = [], []
+            if r.milli_cpu:
+                slots.append(0)
+                vals.append(r.milli_cpu)
+            if r.memory:
+                slots.append(1)
+                vals.append(r.memory)
+            if r.scalars:
+                for name, quant in r.scalars.items():
+                    if quant:
+                        slots.append(2 + self.scalar_slots.intern(name))
+                        vals.append(quant)
+            return slots, vals
+
+        sel = [self._intern_queried(kv) for kv in pod.node_selector.items()]
+        tol = []
+        for t in pod.tolerations:
+            # A toleration row gates taints; intern every (key,value,effect)
+            # combination it covers that exists in the taint dict lazily at
+            # cycle time instead — here we record the toleration spec items.
+            tol.append(t)
+        ports = [self.ports.intern(p) for p in pod.host_ports]
+        aff_alts = [
+            [self._intern_queried(kv) for kv in alt.items()]
+            for alt in pod.required_node_affinity
+        ]
+        pref = [
+            ([self._intern_queried(kv) for kv in sel_d.items()], float(w))
+            for sel_d, w in pod.preferred_node_affinity
+        ]
+
+        ip_req_aff = [self._intern_term(t, pod.namespace) for t in pod.affinity]
+        ip_req_anti = [
+            self._intern_term(t, pod.namespace) for t in pod.anti_affinity
+        ]
+        ip_soft: List[Tuple[int, float]] = []
+        for term, w in getattr(pod, "preferred_affinity", []):
+            ip_soft.append((self._intern_term(term, pod.namespace), float(w)))
+        for term, w in getattr(pod, "preferred_anti_affinity", []):
+            ip_soft.append((self._intern_term(term, pod.namespace), -float(w)))
+        for key, w in getattr(pod, "topology_spread", []):
+            ip_soft.append((self._intern_job_term(pod.job_id(), key), -float(w)))
+
+        req_pair = res_csr(req)
+        init_pair = res_csr(init_req)
+        feat = _PodFeat(
+            req=req_pair,
+            init_req=init_pair,
+            sel=sel,
+            tol=tol,
+            ports=ports,
+            aff_alts=aff_alts,
+            pref=pref,
+            ip_req_aff=ip_req_aff,
+            ip_req_anti=ip_req_anti,
+            ip_soft=ip_soft,
+            has_ip=bool(ip_req_aff or ip_req_anti or ip_soft),
+            priority=pod.priority if pod.priority is not None else 1,
+            create=pod.creation_timestamp,
+            best_effort=init_req.is_empty(),
+            # NOTE: the pod's own labels/namespace are deliberately NOT part
+            # of the key — they only influence inter-pod term membership
+            # (t_matches), which the fast path refines per cycle.
+            key=(
+                tuple(zip(*req_pair)),
+                tuple(zip(*init_pair)),
+                tuple(sorted(sel)),
+                tuple(sorted(ports)),
+                tuple(tuple(sorted(a)) for a in aff_alts),
+                tuple((tuple(sorted(s)), w) for s, w in pref),
+                tuple(
+                    (t.key, t.operator, t.value, t.effect)
+                    for t in pod.tolerations
+                ),
+                tuple(sorted(ip_req_aff)),
+                tuple(sorted(ip_req_anti)),
+                tuple(sorted(ip_soft)),
+            ),
+        )
+        try:
+            pod._mirror_feat = feat
+        except Exception:
+            pass
+        return feat
+
+    # holds: _lock
+    def _intern_queried(self, kv: Tuple[str, str]) -> int:
+        """Intern a selector-queried label pair; nodes carrying a newly
+        queried pair are re-encoded so their bitset row gains the bit."""
+        before = len(self.labels)
+        idx = self.labels.intern(kv)
+        if len(self.labels) != before:
+            k, v = kv
+            for row, node in enumerate(self.node_objs):
+                if (
+                    node is not None
+                    and self.n_alive[row]
+                    and node.labels.get(k) == v
+                ):
+                    self.upsert_node(node)
+        return idx
+
+    def _intern_term(self, term, task_ns: str) -> int:
+        ns = tuple(sorted(term.namespaces)) if term.namespaces else (task_ns,)
+        key = (tuple(sorted(term.match_labels.items())), term.topology_key, ns)
+        before = len(self.terms)
+        e = self.terms.intern(key)
+        if len(self.terms) != before:
+            self.topo_keys.intern(term.topology_key)
+            sel = dict(term.match_labels)
+            self.term_info.append((sel, term.topology_key, set(ns)))
+            self.term_members.append([])
+            if sel:
+                for kv in sel.items():
+                    self._terms_by_pair.setdefault(kv, []).append(e)
+            else:
+                self._terms_all.append(e)
+            self._backfill_term(e)
+            self._node_dom_dirty = True
+        return e
+
+    def _intern_job_term(self, job_id: str, topo_key: str) -> int:
+        key = (((JOB_SELECTOR, job_id),), topo_key, None)
+        before = len(self.terms)
+        e = self.terms.intern(key)
+        if len(self.terms) != before:
+            self.topo_keys.intern(topo_key)
+            self.term_info.append(({JOB_SELECTOR: job_id}, topo_key, None))
+            self.term_members.append([])
+            self._terms_by_job.setdefault(job_id, []).append(e)
+            self._backfill_term(e)
+            self._node_dom_dirty = True
+        return e
+
+    def _term_matches(self, e: int, namespace: str, labels: Dict[str, str],
+                      job_uid: str) -> bool:
+        sel, _key, ns = self.term_info[e]
+        if JOB_SELECTOR in sel:
+            return job_uid == sel[JOB_SELECTOR]
+        if ns is not None and namespace not in ns:
+            return False
+        return all(labels.get(k) == v for k, v in sel.items())
+
+    def _backfill_term(self, e: int) -> None:
+        """A new term must learn which existing pods match it — resolved
+        from the inverted indexes, not a full pod scan."""
+        members = self.term_members[e]
+        sel, _key, _ns = self.term_info[e]
+        if JOB_SELECTOR in sel:
+            jrow = self.j_row.get(sel[JOB_SELECTOR])
+            if jrow is None:
+                return
+            rows = np.flatnonzero(
+                (self.p_job[:len(self.p_uid)] == jrow)
+                & self.p_alive[:len(self.p_uid)]
+            )
+            members.extend(int(r) for r in rows)
+            self.term_members_total += len(rows)
+            return
+        if sel:
+            # Candidates: rows carrying the rarest selector pair.
+            lists = [self._pods_by_pair.get(kv, []) for kv in sel.items()]
+            candidates = min(lists, key=len)
+        else:
+            candidates = [
+                r for r in range(len(self.p_uid)) if self.p_alive[r]
+            ]
+        pods = self._pods_ref or {}
+        for row in candidates:
+            if not self.p_alive[row]:
+                continue
+            uid = self.p_uid[row]
+            pod = pods.get(uid) if uid else None
+            if pod is None:
+                continue
+            jrow = self.p_job[row]
+            juid = self.j_uid[jrow] if jrow >= 0 else ""
+            if self._term_matches(e, pod.namespace, pod.labels, juid or ""):
+                members.append(row)
+                self.term_members_total += 1
+
+    _pods_ref: Optional[Dict[str, Pod]] = None
+
+    def attach(self, pods: Dict[str, Pod]) -> None:
+        """Give the mirror a live reference to the store's pod dict (used
+        only for rare term backfills)."""
+        self._pods_ref = pods
+
+    # holds: _lock
+    def upsert_pod(self, pod: Pod, job_row_of) -> None:
+        """Insert or update a pod row.  ``job_row_of(job_id) -> row``."""
+        self.mutation_seq += 1
+        feat = self._feat(pod)
+        status = int(pod.task_status())
+        node_row = -1
+        if pod.node_name:
+            node_row = self.n_row.get(pod.node_name, -1)
+            if node_row < 0:
+                # Node not seen yet: remember to adopt when it arrives
+                # (the placeholder-NodeInfo analog, event_handlers.go addTask).
+                self._orphans.setdefault(pod.node_name, []).append(pod.uid)
+        row = self.p_row.get(pod.uid)
+        if row is not None and self.p_uid[row] == pod.uid:
+            self.mark_pod_dirty(row)
+            self.pod_obj_gen += 1
+            self.p_pod[row] = pod
+            if self.p_feat[row] is feat:
+                # Same spec blob (bind/evict copy-on-write carries it over):
+                # update dynamic state only.  The job link is re-derived —
+                # the podgroup controller back-annotates bare pods with a
+                # group name after the fact (pg_controller_handler.go:72-105).
+                old = int(self.p_status[row])
+                if old != status:
+                    if self.audit is not None:
+                        self.audit.flow("pod-update", old, status)
+                    if self.journey is not None:
+                        self.journey.pod_event(pod.uid, "status-sync",
+                                               status=status)
+                self.p_status[row] = status
+                self.p_node[row] = node_row
+                self.p_node_name[row] = pod.node_name or None
+                jid = pod.job_id()
+                self.p_job[row] = job_row_of(jid) if jid else -1
+                return
+            # Spec changed: tombstone the old row, fall through to re-add.
+            self.remove_pod(pod.uid)
+        row = len(self.p_uid)
+        self.mark_pod_dirty(row)
+        self.p_uid.append(pod.uid)
+        self.p_key.append(f"{pod.namespace}/{pod.name}")
+        self.p_pod.append(pod)
+        self.p_feat.append(feat)
+        self.p_row[pod.uid] = row
+        n = row + 1
+        self.p_status = _grow(self.p_status, n)
+        self.p_node = _grow(self.p_node, n)
+        self.p_job = _grow(self.p_job, n)
+        self.p_prio = _grow(self.p_prio, n)
+        self.p_create = _grow(self.p_create, n)
+        self.p_alive = _grow(self.p_alive, n)
+        self.p_be = _grow(self.p_be, n)
+        self.p_has_ip = _grow(self.p_has_ip, n)
+        self.p_has_tol = _grow(self.p_has_tol, n)
+        self.p_critical = _grow(self.p_critical, n)
+        self.p_prof = _grow(self.p_prof, n)
+        self.p_aff_lo = _grow(self.p_aff_lo, n)
+        self.p_aff_hi = _grow(self.p_aff_hi, n)
+        self.p_pref_lo = _grow(self.p_pref_lo, n)
+        self.p_pref_hi = _grow(self.p_pref_hi, n)
+        self.p_node_name = _grow(self.p_node_name, n)
+
+        if self.audit is not None:
+            self.audit.flow_added(status)
+        self.p_status[row] = status
+        self.p_node[row] = node_row
+        self.p_node_name[row] = pod.node_name or None
+        jid = pod.job_id()
+        jrow = job_row_of(jid) if jid else -1
+        self.p_job[row] = jrow
+        if self.journey is not None:
+            self.journey.pod_event(
+                pod.uid, "enqueued", status=status,
+                queue=self.j_queue[jrow] if jrow >= 0 else "",
+                gang=jid)
+        self.p_prio[row] = feat.priority
+        self.p_create[row] = feat.create
+        self.p_alive[row] = True
+        self.p_be[row] = feat.best_effort
+        self.p_has_ip[row] = feat.has_ip
+        self.p_has_tol[row] = bool(feat.tol)
+        self.p_critical[row] = (
+            pod.priority_class in (SYSTEM_CLUSTER_CRITICAL,
+                                   SYSTEM_NODE_CRITICAL)
+            or pod.namespace == SYSTEM_NAMESPACE
+        )
+        self.p_prof[row] = self.profiles.intern(feat.key)
+
+        self.c_req.append(*feat.req)
+        self.c_init_req.append(*feat.init_req)
+        self.c_sel.append(feat.sel)
+        # Tolerations are matched lazily per cycle (taint dict may grow);
+        # store toleration list on the side.
+        self._pod_tols.append(feat.tol)
+        self.c_ports.append(feat.ports)
+        self.p_aff_lo[row] = self.c_aff_alt._n
+        for alt in feat.aff_alts:
+            self.c_aff_alt.append(alt)
+        self.p_aff_hi[row] = self.c_aff_alt._n
+        self.p_pref_lo[row] = self.c_pref._n
+        for sel_idx, w in feat.pref:
+            self.c_pref.append(sel_idx)
+            self.pref_w.append(w)
+        self.p_pref_hi[row] = self.c_pref._n
+        self.c_ip_aff.append(feat.ip_req_aff)
+        self.c_ip_anti.append(feat.ip_req_anti)
+        if feat.ip_soft:
+            si = [e for e, _ in feat.ip_soft]
+            sv = [w for _, w in feat.ip_soft]
+            self.c_ip_soft.append(si, sv)
+        else:
+            self.c_ip_soft.append([], [])
+        # Inverted index + term membership via candidate lookup.
+        for kv in pod.labels.items():
+            self._pods_by_pair.setdefault(kv, []).append(row)
+        if len(self.terms):
+            juid = jid or ""
+            cand: set = set(self._terms_all)
+            if juid:
+                cand.update(self._terms_by_job.get(juid, ()))
+            for kv in pod.labels.items():
+                cand.update(self._terms_by_pair.get(kv, ()))
+            for e in cand:
+                if self._term_matches(e, pod.namespace, pod.labels, juid):
+                    self.term_members[e].append(row)
+                    self.term_members_total += 1
+
+    # holds: _lock
+    def remove_pod(self, uid: str) -> None:
+        row = self.p_row.pop(uid, None)
+        if row is None:
+            return
+        self.mutation_seq += 1
+        self.mark_pod_dirty(row)
+        self.pod_obj_gen += 1
+        if self.p_alive[row]:
+            if self.audit is not None:
+                self.audit.flow_removed(int(self.p_status[row]))
+            if self.journey is not None:
+                self.journey.pod_event(uid, "removed",
+                                       status=int(self.p_status[row]))
+        self.p_alive[row] = False
+        self.p_uid[row] = None
+        self.p_node_name[row] = None
+        if self.p_pod[row] is not None:
+            self.p_pod_nones += 1
+        self.p_pod[row] = None
+        self.n_dead += 1
+
+    # holds: _lock
+    def set_pod_state(self, uid: str, status: int, node_row: int) -> None:
+        row = self.p_row.get(uid)
+        if row is not None:
+            self.mutation_seq += 1
+            self.mark_pod_dirty(row)
+            old = int(self.p_status[row])
+            if old != status:
+                if self.audit is not None:
+                    self.audit.flow("set-pod-state", old, status)
+                if self.journey is not None:
+                    self.journey.pod_event(uid, "status-sync",
+                                           status=status)
+            self.p_status[row] = status
+            self.p_node[row] = node_row
+            self.p_node_name[row] = (
+                self.n_name[node_row] if node_row >= 0 else None
+            )
+
+    # ================================================================ nodes
+
+    # holds: _lock
+    def upsert_node(self, node) -> int:
+        row = self.n_row.get(node.name)
+        new = row is None
+        if new:
+            row = len(self.n_name)
+            self.n_name.append(node.name)
+            self.n_row[node.name] = row
+            n = row + 1
+            self.n_ready = _grow(self.n_ready, n)
+            self.n_alive = _grow(self.n_alive, n)
+            self.n_maxtasks = _grow(self.n_maxtasks, n)
+            self.node_objs.append(node)
+        else:
+            self.node_objs[row] = node
+        alloc = node.allocatable_resource()
+        slots, vals = [], []
+        if alloc.milli_cpu:
+            slots.append(0)
+            vals.append(alloc.milli_cpu)
+        if alloc.memory:
+            slots.append(1)
+            vals.append(alloc.memory)
+        if alloc.scalars:
+            for name, quant in alloc.scalars.items():
+                if quant:
+                    slots.append(2 + self.scalar_slots.intern(name))
+                    vals.append(quant)
+        # Only queried pairs occupy bitset space; a node label pair that no
+        # selector has ever referenced carries no bit.
+        lbl_index = self.labels.index
+        labels = [
+            lbl_index[kv] for kv in node.labels.items() if kv in lbl_index
+        ]
+        taints = [
+            self.taints.intern((t.key, t.value, t.effect))
+            for t in node.taints
+            if t.effect in ("NoSchedule", "NoExecute")
+        ]
+        if new:
+            self.c_n_alloc.append(slots, vals)
+            self.c_n_labels.append(labels)
+            self.c_n_taints.append(taints)
+        else:
+            # Node spec updates are rare: rewrite by appending a fresh row
+            # and repointing (tombstone the CSR row implicitly).
+            nrow = self.c_n_alloc._n
+            self.c_n_alloc.append(slots, vals)
+            self.c_n_labels.append(labels)
+            self.c_n_taints.append(taints)
+            self._node_csr_row = getattr(self, "_node_csr_row", {})
+            self._node_csr_row[row] = nrow
+        self.n_ready[row] = bool(node.ready) and not node.unschedulable
+        if new or not self.n_alive[row]:
+            self.node_liveness_gen += 1
+        self.n_alive[row] = True
+        self.n_maxtasks[row] = alloc.max_task_num
+        self._node_dom_dirty = True
+        self.epoch += 1
+        self.mutation_seq += 1
+        self._node_dirty_rows.add(row)
+        for uid in self._orphans.pop(node.name, []):
+            prow = self.p_row.get(uid)
+            if prow is not None:
+                self.mark_pod_dirty(prow)
+                self.p_node[prow] = row
+        return row
+
+    def node_csr_rows(self, rows: np.ndarray) -> np.ndarray:
+        """Map node table rows to their (possibly rewritten) CSR rows."""
+        m = getattr(self, "_node_csr_row", None)
+        if not m:
+            return rows
+        out = rows.copy()
+        for i, r in enumerate(rows):
+            out[i] = m.get(int(r), int(r))
+        return out
+
+    # holds: _lock
+    def remove_node(self, name: str) -> None:
+        row = self.n_row.get(name)
+        if row is not None:
+            if self.n_alive[row]:
+                self.node_liveness_gen += 1
+            self.n_alive[row] = False
+            # Pods pointing at this node keep their row; their node col is
+            # fixed up by the per-cycle liveness mask (n_alive).
+            self.epoch += 1
+            self.mutation_seq += 1
+            self._node_dirty_rows.add(row)
+
+    # holds: _lock
+    def node_delta_rows(self, since_epoch: int) -> Optional[np.ndarray]:
+        """Node rows changed since ``since_epoch``, or None when the
+        dirty set cannot prove it covers that span (a second consumer
+        reset it, or the caller predates the tracking floor).  Single-
+        consumer contract: call ``reset_node_delta`` after applying."""
+        if since_epoch < self._node_dirty_floor:
+            return None
+        return np.array(sorted(self._node_dirty_rows), np.int64)
+
+    # holds: _lock
+    def reset_node_delta(self) -> None:
+        self._node_dirty_rows.clear()
+        self._node_dirty_floor = self.epoch
+
+    # ------------------------------------------------------ pod dirty set
+
+    @staticmethod
+    def dirty_cap() -> int:
+        """VOLCANO_TPU_DIRTY_CAP (docs/tuning.md): marked-row budget per
+        derive span, counted WITH duplicates so the overflow check is
+        O(1) per mark batch.  Past it the tracker gives up and the next
+        derive full-rebuilds — the bound on both the mask bookkeeping
+        and the delta-scatter work a single derive can be handed."""
+        import os
+
+        raw = os.environ.get("VOLCANO_TPU_DIRTY_CAP", "262144")
+        try:
+            return max(int(raw), 0)
+        except ValueError:
+            return 262144
+
+    # holds: _lock
+    def mark_pods_dirty(self, rows) -> None:
+        """Record pod rows whose dynamic state (status/node/job/alive)
+        just changed.  Idempotent per row; vectorized for the fast
+        path's bulk writers (a 100k-row commit pays one mask scatter)."""
+        n = len(rows)
+        if not n:
+            return
+        self.dirty_seq += 1
+        if self._pod_dirty_overflow:
+            return
+        cap = self._dirty_cap_memo
+        if cap is None:
+            cap = self._dirty_cap_memo = self.dirty_cap()
+        self._pod_dirty_marks += n
+        if self._pod_dirty_marks > cap:
+            self._pod_dirty_overflow = True
+            return
+        mask = self._pod_dirty_mask
+        top = int(np.max(rows)) if not isinstance(rows, np.ndarray) \
+            else int(rows.max())
+        if top >= len(mask):
+            mask = self._pod_dirty_mask = self._grow_mask(mask, top + 1)
+        mask[rows] = True
+
+    # holds: _lock
+    def mark_pod_dirty(self, row: int) -> None:
+        """Scalar ``mark_pods_dirty`` for the per-row mutators."""
+        self.dirty_seq += 1
+        if self._pod_dirty_overflow:
+            return
+        cap = self._dirty_cap_memo
+        if cap is None:
+            cap = self._dirty_cap_memo = self.dirty_cap()
+        self._pod_dirty_marks += 1
+        if self._pod_dirty_marks > cap:
+            self._pod_dirty_overflow = True
+            return
+        mask = self._pod_dirty_mask
+        if row >= len(mask):
+            mask = self._pod_dirty_mask = self._grow_mask(mask, row + 1)
+        mask[row] = True
+
+    @staticmethod
+    def _grow_mask(mask: np.ndarray, n: int) -> np.ndarray:
+        """Zero-filled growth — np.resize TILES the old contents, which
+        would plant stale True bits at rows beyond the live table."""
+        out = np.zeros(max(n, len(mask) * 2), bool)
+        out[:len(mask)] = mask
+        return out
+
+    # holds: _lock
+    def mark_pods_overflow(self) -> None:
+        """Give up tracking for this span (bulk resyncs): the next
+        derive must full-rebuild."""
+        self.dirty_seq += 1
+        self._pod_dirty_overflow = True
+
+    # holds: _lock
+    def consume_pod_dirty(self, n_rows: int):
+        """Hand the dirty rows (< ``n_rows``) to the single consumer
+        (the derive-time aggregate refresh) and reset tracking.  Returns
+        ``None`` when tracking overflowed — the caller must rebuild."""
+        overflow = self._pod_dirty_overflow
+        mask = self._pod_dirty_mask
+        rows = None
+        if not overflow:
+            rows = np.flatnonzero(mask[:n_rows])
+            mask[rows] = False
+            # Rows at/beyond n_rows cannot exist: the mask only ever
+            # marks rows of the live table, and compaction resets it.
+        else:
+            mask[:] = False
+        self._pod_dirty_marks = 0
+        self._pod_dirty_overflow = False
+        return rows
+
+    def node_dom(self) -> np.ndarray:
+        """[Nrows, K] topology domain ids (interned, append-only)."""
+        K = max(1, len(self.topo_keys))
+        N = len(self.n_name)
+        if (
+            not self._node_dom_dirty
+            and self._node_dom is not None
+            and self._node_dom.shape == (N, K)
+        ):
+            return self._node_dom
+        dom = np.full((N, K), -1, I)
+        for k, key in enumerate(self.topo_keys.items):
+            if key == HOSTNAME_KEY:
+                for ni in range(N):
+                    if self.n_alive[ni]:
+                        dom[ni, k] = self.domains.intern(("__host__", ni))
+                continue
+            for ni in range(N):
+                if not self.n_alive[ni]:
+                    continue
+                node = self.node_objs[ni]
+                val = node.labels.get(key) if node is not None else None
+                if val is not None:
+                    dom[ni, k] = self.domains.intern((k, val))
+        self._node_dom = dom
+        self._node_dom_dirty = False
+        return dom
+
+    # ========================================================== jobs (pgs)
+
+    def job_row(self, uid: str) -> int:
+        row = self.j_row.get(uid)
+        if row is None:
+            row = len(self.j_uid)
+            self.j_uid.append(uid)
+            self.j_row[uid] = row
+            n = row + 1
+            self.j_minav = _grow(self.j_minav, n)
+            self.j_prio = _grow(self.j_prio, n)
+            self.j_create = _grow(self.j_create, n)
+            self.j_alive = _grow(self.j_alive, n)
+            self.j_ns_code = _grow(self.j_ns_code, n)
+            self.j_queue_code = _grow(self.j_queue_code, n)
+            self.j_phase_code = _grow(self.j_phase_code, n)
+            self.j_st_run = _grow(self.j_st_run, n)
+            self.j_st_fail = _grow(self.j_st_fail, n)
+            self.j_st_succ = _grow(self.j_st_succ, n)
+            self.j_cond_sig = _grow(self.j_cond_sig, n)
+            self.j_topo = _grow(self.j_topo, n)
+            self.j_queue.append("default")
+            self.j_ns.append("default")
+            self.j_pg.append(None)
+            self.j_gauge_key.append(None)
+            self.j_event_key.append("")
+            self.j_ns_code[row] = self.ns_names.intern("default")
+            self.j_queue_code[row] = self.qnames.intern("default")
+            self.j_alive[row] = False
+            self.j_phase_code[row] = 0
+            self._j_uid_rank = None
+        return row
+
+    def job_uid_rank(self) -> np.ndarray:
+        """[Jn] integer rank array that is a strictly monotone map of the
+        job uid strings (the session default tie-break).  Cached until a
+        new job row appears — the string argsort over tens of thousands
+        of uids is too slow to pay per cycle."""
+        rank = self._j_uid_rank
+        Jn = len(self.j_uid)
+        if rank is None or len(rank) != Jn:
+            order = np.argsort(np.array(self.j_uid[:Jn]), kind="stable")
+            rank = np.empty(Jn, np.int64)
+            rank[order] = np.arange(Jn)
+            self._j_uid_rank = rank
+        return rank
+
+    _j_uid_rank: Optional[np.ndarray] = None
+
+    def upsert_pod_group(self, pg, priority: int) -> None:
+        row = self.job_row(pg.uid)
+        self.j_minav[row] = pg.min_member
+        self.j_prio[row] = priority
+        self.j_create[row] = pg.creation_timestamp
+        self.j_queue[row] = pg.queue
+        self.j_ns[row] = pg.namespace
+        self.j_ns_code[row] = self.ns_names.intern(pg.namespace)
+        self.j_queue_code[row] = self.qnames.intern(pg.queue)
+        self.j_alive[row] = True
+        self.j_pg[row] = pg
+        self.j_topo[row] = topology_code(pg)
+        self.j_gauge_key[row] = (("job_name", pg.name),)
+        self.j_event_key[row] = f"PodGroup/{pg.namespace}/{pg.name}"
+        st = pg.status
+        self.j_phase_code[row] = _PG_PHASE_CODE.get(st.phase, 5)
+        self.j_st_run[row] = st.running
+        self.j_st_fail[row] = st.failed
+        self.j_st_succ[row] = st.succeeded
+        sig = 0
+        for c in st.conditions:
+            if c.type == "Unschedulable" and c.status == "True":
+                sig = hash((c.reason, c.message)) & 0x7FFFFFFFFFFFFFFF
+        self.j_cond_sig[row] = sig
+        # Precompute the dense MinResources vector at add time (unknown
+        # scalar names are interned like pod requests are), so enqueue's
+        # budget walk never parses resource quantities in-cycle.
+        if pg.min_resources is not None:
+            try:
+                res = Resource.from_resource_list(pg.min_resources)
+                R = 2 + len(self.scalar_slots)
+                if res.scalars:
+                    for name in res.scalars:
+                        self.scalar_slots.intern(name)
+                    R = 2 + len(self.scalar_slots)
+                v = np.zeros((R,), np.float32)
+                v[0] = res.milli_cpu
+                v[1] = res.memory
+                if res.scalars:
+                    for name, quant in res.scalars.items():
+                        v[2 + self.scalar_slots.index[name]] = quant
+                pg._minres_vec = (R, v)
+            except Exception:
+                pass
+
+    def refresh_pod_group_status(self, pg) -> None:
+        """Re-sync the persistent status-snapshot columns (j_phase_code /
+        j_st_* / j_cond_sig) from the PodGroup object.  Every writer that
+        mutates pg.status OUTSIDE the fast path's close (the object
+        session's jobUpdater write-back, condition records) must call
+        this, or the fast path's change detection works off stale
+        'last written' state and skips real writes."""
+        row = self.j_row.get(pg.uid)
+        if row is None:
+            return
+        st = pg.status
+        self.j_phase_code[row] = _PG_PHASE_CODE.get(st.phase, 5)
+        self.j_st_run[row] = st.running
+        self.j_st_fail[row] = st.failed
+        self.j_st_succ[row] = st.succeeded
+        sig = 0
+        for c in st.conditions:
+            if c.type == "Unschedulable" and c.status == "True":
+                sig = hash((c.reason, c.message)) & 0x7FFFFFFFFFFFFFFF
+        self.j_cond_sig[row] = sig
+
+    def remove_pod_group(self, uid: str) -> None:
+        row = self.j_row.get(uid)
+        if row is not None:
+            self.j_alive[row] = False
+            self.j_pg[row] = None
+            self.j_phase_code[row] = 0
+            self.j_cond_sig[row] = 0
+            self.j_topo[row] = 0
+
+    # ========================================================== maintenance
+
+    # holds: _lock
+    def maybe_compact(self) -> None:
+        """Rebuild the pod table without tombstones (rare, amortized)."""
+        total = len(self.p_uid)
+        if total < 4096 or self.n_dead * 2 < total:
+            return
+        live = np.flatnonzero(self.p_alive[:total])
+        old = self
+        fresh = StoreMirror.__new__(StoreMirror)
+        fresh.__init__()
+        # Dictionaries and node/job tables carry over untouched.
+        for attr in ("scalar_slots", "labels", "taints", "ports", "terms",
+                     "term_info", "topo_keys", "profiles",
+                     "_terms_by_pair", "_terms_by_job", "_terms_all",
+                     "n_name", "n_row", "n_ready",
+                     "n_alive", "n_maxtasks", "c_n_alloc", "c_n_labels",
+                     "c_n_taints", "node_objs", "domains", "j_uid", "j_row",
+                     "j_minav", "j_prio", "j_create", "j_queue", "j_ns",
+                     "ns_names", "qnames", "j_ns_code", "j_queue_code",
+                     "j_pg", "j_phase_code", "j_st_run", "j_st_fail",
+                     "j_st_succ", "j_cond_sig", "j_gauge_key",
+                     "j_event_key", "j_topo",
+                     "_fabric_vals", "_fabric_blocks",
+                     "j_alive", "_pods_ref", "_orphans", "epoch",
+                     "node_liveness_gen"):
+            setattr(fresh, attr, getattr(old, attr))
+        fresh._node_dom_dirty = True
+        if hasattr(old, "_node_csr_row"):
+            fresh._node_csr_row = old._node_csr_row
+        remap = np.full(total, -1, I)
+        remap[live] = np.arange(len(live), dtype=I)
+        for r in live:
+            uid = old.p_uid[r]
+            fresh.p_uid.append(uid)
+            fresh.p_key.append(old.p_key[r])
+            fresh.p_pod.append(old.p_pod[r])
+            fresh.p_feat.append(old.p_feat[r])
+            fresh.p_row[uid] = len(fresh.p_uid) - 1
+        n = len(live)
+        for name in ("p_status", "p_node", "p_node_name", "p_job",
+                     "p_prio", "p_create", "p_alive", "p_be", "p_has_ip",
+                     "p_has_tol", "p_critical", "p_prof"):
+            arr = getattr(old, name)[:total][live]
+            setattr(fresh, name, arr.copy())
+        # CSR columns: re-append per live row (vectorized gather then bulk).
+        for col_name in ("c_req", "c_init_req", "c_sel", "c_ports",
+                         "c_ip_aff", "c_ip_anti", "c_ip_soft"):
+            oldc: CSRColumn = getattr(old, col_name)
+            newc = CSRColumn(has_val=oldc.has_val)
+            lens = oldc.lens(live)
+            g = oldc.gather(live)
+            newc.idx = g[1].astype(I).copy()
+            if oldc.has_val:
+                newc.val = g[2].astype(F).copy()
+            newc.off = np.concatenate(
+                ([0], np.cumsum(lens))
+            ).astype(np.int64)
+            newc._n = n
+            newc._len = int(lens.sum())
+            setattr(fresh, col_name, newc)
+        # Ragged side tables (aff alternatives / pref terms): rebuild.
+        fresh.p_aff_lo = np.zeros(max(n, 1), I)
+        fresh.p_aff_hi = np.zeros(max(n, 1), I)
+        fresh.p_pref_lo = np.zeros(max(n, 1), I)
+        fresh.p_pref_hi = np.zeros(max(n, 1), I)
+        fresh._pod_tols = []
+        for new_r, r in enumerate(live):
+            fresh.p_aff_lo[new_r] = fresh.c_aff_alt._n
+            for alt_row in range(old.p_aff_lo[r], old.p_aff_hi[r]):
+                _er, vals = old.c_aff_alt.gather(np.array([alt_row]))
+                fresh.c_aff_alt.append(vals)
+            fresh.p_aff_hi[new_r] = fresh.c_aff_alt._n
+            fresh.p_pref_lo[new_r] = fresh.c_pref._n
+            for p_row in range(old.p_pref_lo[r], old.p_pref_hi[r]):
+                _er, vals = old.c_pref.gather(np.array([p_row]))
+                fresh.c_pref.append(vals)
+                fresh.pref_w.append(old.pref_w[p_row])
+            fresh.p_pref_hi[new_r] = fresh.c_pref._n
+            fresh._pod_tols.append(old._pod_tols[r])
+        fresh.term_members = [
+            [int(remap[m]) for m in members if remap[m] >= 0]
+            for members in old.term_members
+        ]
+        fresh.term_members_total = sum(
+            len(members) for members in fresh.term_members
+        )
+        fresh._pods_by_pair = {
+            kv: [int(remap[r]) for r in rows if remap[r] >= 0]
+            for kv, rows in old._pods_by_pair.items()
+        }
+        # Counters survive compaction (fresh.__init__ zeroed them):
+        # row indices held by in-flight solves are void now, so bump the
+        # generation; any delta consumer must also full-resync.
+        seq, gen = self.mutation_seq, self.compact_gen
+        dseq = self.dirty_seq
+        dirty, floor = self._node_dirty_rows, self._node_dirty_floor
+        audit = self.audit
+        journey = self.journey
+        self.__dict__.update(fresh.__dict__)
+        # The auditor rides the STORE, not the table generation: row
+        # renumbering preserves the per-status census exactly (only
+        # tombstones drop), so conservation needs no re-anchor — the
+        # attached auditor itself must just survive the swap.  Same for
+        # the journey: it is uid-keyed, so timelines survive row
+        # renumbering untouched; only the handle must ride the swap.
+        self.audit = audit
+        self.journey = journey
+        self.mutation_seq = seq + 1
+        self.compact_gen = gen + 1
+        self._node_dirty_rows = dirty
+        self._node_dirty_floor = floor
+        # Row renumbering voids the pod dirty mask wholesale; the
+        # compact_gen bump already forces the aggregate consumer to
+        # full-rebuild (which resets tracking), so a fresh zero mask
+        # (from fresh.__init__) is exactly right — only the monotone
+        # agreement token must survive.
+        self.dirty_seq = dseq + 1
+
+    # holds: _lock
+    def resync_status(self, pods: Dict[str, "Pod"]) -> None:
+        """Re-derive every live row's dynamic state from the pod records
+        (the system of record).  Recovery path: a failed fast cycle may
+        leave uncommitted status mutations in the mirror."""
+        self.mutation_seq += 1
+        # Every live row may change: per-row marking would cost as much
+        # as the rebuild it exists to avoid.
+        self.mark_pods_overflow()
+        if self.audit is not None:
+            # Bulk re-derive: per-row flow declaration would be a scan
+            # of its own; re-anchor the conservation census instead.
+            self.audit.reanchor("resync-status")
+        if self.journey is not None:
+            # Same bulk shape journey-side: adopt the record truth in
+            # one pass (missing pods get synthetic roots; pods whose
+            # status says placed get a state-sync bind).
+            self.journey.pod_resync(
+                (uid, int(pod.task_status()))
+                for uid, pod in pods.items() if uid in self.p_row)
+        for uid, row in self.p_row.items():
+            pod = pods.get(uid)
+            if pod is None:
+                continue
+            self.p_status[row] = int(pod.task_status())
+            self.p_node[row] = (
+                self.n_row.get(pod.node_name, -1) if pod.node_name else -1
+            )
+            self.p_node_name[row] = pod.node_name or None
+
+    # ---------------------------------------------------------- inspection
+
+    @property
+    def n_pods(self) -> int:
+        return len(self.p_uid)
+
+    @property
+    def n_nodes(self) -> int:
+        return len(self.n_name)

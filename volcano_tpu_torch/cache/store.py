@@ -1,20 +1,39 @@
-"""In-memory cluster store: the scheduler cache (slim).
+"""In-memory cluster store: the scheduler cache.
 
-The event API (``add_node``, ``add_queue``, ``add_pod_group``, ``add_pod``,
-``add_priority_class``) and the deep-copied ``snapshot()`` of the JAX
-package's ``cache/store.py``, which mirrors ``pkg/scheduler/cache/cache.go``
-(event handlers ``cache/event_handlers.go:178-731``, snapshot
-``cache.go:652-730``).  The struct-of-arrays mirror, observability, journeys,
-audit, bind queue, pipeline, lockdep and PVC records belong to the cycle
-drivers and arrive with them.
+The counterpart of the JAX package's ``cache/store.py``, which mirrors
+``pkg/scheduler/cache/cache.go``: a mutex-guarded mirror of cluster state
+mutated through an event API (the analog of the reference's informer event
+handlers, ``cache/event_handlers.go:178-731``), producing a deep-copied
+``ClusterInfo`` snapshot per cycle (cache.go:652-730) and carrying the
+struct-of-arrays mirror (``cache/mirror.py``) the fast cycle schedules
+from.
+
+What the port's fast cycle needs is here: the mirror, pod / node /
+PodGroup / queue handlers, the bind path onto the binder (synchronous;
+failures re-enter Pending with backoff through ``drain_bind_failures``),
+the event trails the cycle writes, PodGroup status write-back, the claim
+registry the volume gate reads, and the cycle's cache slots
+(``cycle_feed``, ``_devincr_cache``, ``device_snapshot``).
+
+Not ported yet (ROADMAP.md, queue 1, "the fast path's remaining lanes"):
+asynchronous bind dispatch (``async_bind``), the remote solver
+(``remote_solver``), the device mesh (``solve_mesh``), persistence / HA,
+eviction (``evict``), the controller-plane records, and the journey,
+audit, SLO and lockdep hooks.  Setting one of the slots, or calling
+``evict``, raises ``NotImplementedError``.
 """
 
 from __future__ import annotations
 
+import collections
+import copy
+import logging
 import threading
-from typing import Dict, Optional
+import time
+from typing import Callable, Dict, List, Optional
 
 from ..api import (
+    NAMESPACE_WEIGHT_KEY,
     ClusterInfo,
     JobInfo,
     NamespaceInfo,
@@ -22,38 +41,399 @@ from ..api import (
     NodeInfo,
     Pod,
     PodGroup,
+    PodGroupCondition,
     PriorityClass,
     Queue,
     QueueInfo,
+    ResourceQuota,
     TaskInfo,
     TaskStatus,
+    pod_key,
 )
-from .interface import Binder, FakeBinder
+from .interface import (
+    Binder,
+    BindFailure,
+    FakeBinder,
+    FakeStatusUpdater,
+    StatusUpdater,
+    VolumeBinder,
+)
+
+log = logging.getLogger(__name__)
 
 DEFAULT_QUEUE = "default"
 
+# Bind-failure retry backoff (the rate-limited errTasks queue,
+# cache.go:627-649): 1 s doubling per consecutive failure, capped.
+BACKOFF_BASE = 1.0
+BACKOFF_MAX = 60.0
+
+def not_ported(what: str, item: str) -> NotImplementedError:
+    """The error for a part of the JAX package the port does not run yet,
+    naming its ROADMAP.md item."""
+    return NotImplementedError(
+        f"volcano_tpu_torch: {what} is not ported yet (ROADMAP.md, "
+        f"queue 1: {item})")
+
 
 class ClusterStore:
-    """Mutex-guarded cluster state + snapshotter."""
+    """Mutex-guarded cluster state mirror + snapshotter."""
 
     def __init__(
         self,
         binder: Optional[Binder] = None,
+        status_updater: Optional[StatusUpdater] = None,
+        volume_binder: Optional[VolumeBinder] = None,
         default_queue: str = DEFAULT_QUEUE,
     ):
         self._lock = threading.RLock()
-        self.jobs: Dict[str, JobInfo] = {}
-        self.nodes: Dict[str, NodeInfo] = {}
+        self._jobs: Dict[str, JobInfo] = {}
+        self._nodes: Dict[str, NodeInfo] = {}
+        # The fast path commits directly to the pod records + array mirror
+        # and marks the derived JobInfo/NodeInfo object model stale; it is
+        # lazily rebuilt from pods on next access.
+        self._objects_stale = False
         self.queues: Dict[str, QueueInfo] = {}
         self.priority_classes: Dict[str, PriorityClass] = {}
         self.namespace_weights: Dict[str, int] = {}
         self.pods: Dict[str, Pod] = {}
         self.pod_groups: Dict[str, PodGroup] = {}
         self.raw_queues: Dict[str, Queue] = {}
+        # Count of live pods carrying volume claims: the commit's volume
+        # gate skips on this O(1) check.
+        self.n_volume_pods = 0
+        # ns/name -> claim record {"spec", "phase", "node", "owner_job"}.
+        self.pvcs: Dict[str, Dict[str, object]] = {}
+
         self.binder: Binder = binder or FakeBinder()
-        # The default queue exists from startup, weight 1
-        # (cache.go:244-254).
+        self.status_updater: StatusUpdater = (
+            status_updater or FakeStatusUpdater())
+        self.volume_binder: VolumeBinder = (
+            volume_binder or StoreVolumeBinder(self))
+
+        self._watchers: List[Callable[[str, str, object], None]] = []
+
+        from .mirror import StoreMirror
+
+        self.mirror = StoreMirror()
+        self.mirror.attach(self.pods)
+
+        self._bind_fail_lock = threading.Lock()
+        self._succeeded_bind_keys: List[str] = []
+        self._failed_bind_keys: List[tuple] = []
+        # "ns/name" -> (consecutive fails, retry-not-before ts, pod uid).
+        self.bind_backoff: Dict[str, tuple] = {}
+
+        # Per-object event trail, "Kind/ns/name" -> [reason, message,
+        # count, first_ts, last_ts] entries deduplicated on (reason,
+        # message); OrderedDict for O(1) FIFO eviction at the cap.
+        self._events: "collections.OrderedDict[str, List[list]]" = (
+            collections.OrderedDict())
+        self._events_lock = threading.Lock()
+        self._deferred_events: List[tuple] = []
+
+        # The cycle's content-validated host-lane caches (fastpath.py,
+        # fastpath_incr.py) and the device-incremental context
+        # (ops/devincr.py), all written and read by the cycle thread under
+        # _lock and dropped on close().
+        self._job_rank_cache = None
+        self._pending_order_cache = None
+        self._encode_cache = None
+        self._objarr_cache = None
+        self._unbind_gather_cache = None
+        self._close_gang_cache = None
+        self._devincr_cache = None
+        # Device-resident node snapshot (ops/devsnap.py), created by the
+        # fast path on first use.
+        self.device_snapshot = None
+        # Workload-injection seam: called as feed(cycle) after the cycle's
+        # derive and before its actions.
+        self.cycle_feed = None
+        # Pipelined sessions are not ported: False (the default) is the
+        # only value the cycle accepts.
+        self.pipeline = None
+        # Where the cycle's solve runs: the card unless set to "cpu"
+        # (Scheduler(store, device=...) sets it).
+        self.device = None
+
+        from ..obs import FlightRecorder, Tracer
+
+        self.tracer = Tracer()
+        self.flight = FlightRecorder()
+        # Not ported: the fast cycle skips both hooks when they are None.
+        self.auditor = None
+        self.journey = None
+        self.mirror.audit = None
+        self.mirror.journey = None
+        self.last_cycle_lanes = None
+
         self.add_queue(Queue(name=default_queue, weight=1))
+
+    # ------------------------------------------------- not-ported slots
+
+    @property
+    def async_bind(self) -> bool:
+        return False
+
+    @async_bind.setter
+    def async_bind(self, value) -> None:
+        if value:
+            raise not_ported("asynchronous bind dispatch (async_bind)",
+                              "the fast path's remaining lanes")
+
+    @property
+    def remote_solver(self):
+        return None
+
+    @remote_solver.setter
+    def remote_solver(self, value) -> None:
+        if value is not None:
+            raise not_ported("the remote solver (remote_solver)",
+                              "the solver service")
+
+    @property
+    def solve_mesh(self):
+        return None
+
+    @solve_mesh.setter
+    def solve_mesh(self, value) -> None:
+        if value is not None:
+            raise not_ported("a device mesh (solve_mesh)", "multi-GPU")
+
+    # ------------------------------------------------------------- events
+
+    EVENTS_PER_OBJECT = 16
+    MAX_EVENT_OBJECTS = 100_000
+
+    def record_event(self, key: str, reason: str, message: str) -> None:
+        """Append a user-visible event to an object's trail
+        (``key`` = "Kind/ns/name")."""
+        now = time.time()
+        with self._events_lock:
+            self._drain_deferred_events_locked()
+            self._record_event_locked(key, reason, message, now)
+
+    def _record_event_locked(self, key, reason, message, now) -> None:
+        if (key not in self._events
+                and len(self._events) >= self.MAX_EVENT_OBJECTS):
+            self._events.popitem(last=False)
+        trail = self._events.setdefault(key, [])
+        for ev in trail:
+            if ev[0] == reason and ev[1] == message:
+                ev[2] += 1
+                ev[4] = now
+                return
+        trail.append([reason, message, 1, now, now])
+        if len(trail) > self.EVENTS_PER_OBJECT:
+            del trail[0]
+
+    def record_events(self, items) -> None:
+        """Batched ``record_event``: one lock acquisition and one clock
+        read for a whole commit's worth of (key, reason, message)."""
+        now = time.time()
+        items = items if isinstance(items, list) else list(items)
+        if len(items) >= self.MAX_EVENT_OBJECTS:
+            # A batch that alone overflows the cap with distinct keys
+            # leaves exactly its tail: clear and keep it.
+            tail: Dict[str, List[list]] = {}
+            for key, reason, message in reversed(items):
+                if key not in tail:
+                    tail[key] = [[reason, message, 1, now, now]]
+                    if len(tail) >= self.MAX_EVENT_OBJECTS:
+                        break
+            if len(tail) >= self.MAX_EVENT_OBJECTS:
+                with self._events_lock:
+                    self._deferred_events.clear()
+                    self._events.clear()
+                    self._events.update(reversed(tail.items()))
+                return
+        with self._events_lock:
+            self._drain_deferred_events_locked()
+            for key, reason, message in items:
+                self._record_event_locked(key, reason, message, now)
+
+    def record_events_deferred(self, items) -> None:
+        """O(1) enqueue of an event batch, folded into the trails at the
+        next read/record instead of inside the scheduling cycle."""
+        with self._events_lock:
+            self._deferred_events.append((time.time(), items))
+
+    def _drain_deferred_events_locked(self) -> None:
+        if not self._deferred_events:
+            return
+        batches, self._deferred_events = self._deferred_events, []
+        for now, items in batches:
+            for key, reason, message in items:
+                self._record_event_locked(key, reason, message, now)
+
+    def events_for(self, key: str) -> List[dict]:
+        with self._events_lock:
+            self._drain_deferred_events_locked()
+            return [
+                {"reason": r, "message": m, "count": c,
+                 "first_seen": f, "last_seen": l}
+                for r, m, c, f, l in self._events.get(key, [])
+            ]
+
+    # ------------------------------------------------------ bind machinery
+
+    def dispatch_binds(self, keys, hosts, pods) -> None:
+        """Dispatch a batch of binds to the binder, synchronously (the
+        JAX package queues them on a dispatcher thread; the port runs the
+        same drain inline).  Failures surface at the next cycle's
+        ``drain_bind_failures``; successes record Scheduled events."""
+        keys, hosts, pods = list(keys), list(hosts), list(pods)
+        failed: set = set()
+        bind_keys = getattr(self.binder, "bind_keys", None)
+        try:
+            if bind_keys is not None:
+                bind_keys(keys, hosts)
+            else:
+                for pod, hostname, key in zip(pods, hosts, keys):
+                    try:
+                        self.binder.bind(pod, hostname)
+                    except BindFailure:
+                        failed.add(key)
+        except BindFailure as bf:
+            failed = set(bf.failed)
+        if failed:
+            self._on_bind_failures(
+                [(k, p) for k, p in zip(keys, pods) if k in failed])
+        ok = [(k, h) for k, h in zip(keys, hosts) if k not in failed]
+        if ok:
+            self._on_bind_success([k for k, _ in ok], [h for _, h in ok])
+
+    def flush_binds(self, timeout: Optional[float] = None) -> bool:
+        """Binds dispatch inline, so nothing is ever queued."""
+        return True
+
+    def close(self) -> None:
+        """Drop the cycle's caches and the device-resident state (the
+        device snapshot's planes, the device-incremental planes)."""
+        with self._lock:
+            self._job_rank_cache = None
+            self._pending_order_cache = None
+            self._encode_cache = None
+            self._objarr_cache = None
+            self._unbind_gather_cache = None
+            self._close_gang_cache = None
+            self._devincr_cache = None
+            self.device_snapshot = None
+
+    def _on_bind_failures(self, failed_pairs) -> None:
+        with self._bind_fail_lock:
+            self._failed_bind_keys.extend(failed_pairs)
+
+    def _on_bind_success(self, keys: List[str], hosts: List[str]) -> None:
+        if self.bind_backoff:
+            with self._bind_fail_lock:
+                self._succeeded_bind_keys.extend(keys)
+        self.record_events(
+            (f"Pod/{key}", "Scheduled", f"bound to {host}")
+            for key, host in zip(keys, hosts)
+        )
+
+    def drain_bind_failures(self) -> int:
+        """Apply queued bind failures: the task re-enters Pending with an
+        exponential backoff window during which the solver skips it (the
+        rate-limited errTasks retry, cache.go:627-649).  Runs on the
+        scheduling-cycle thread so all mirror mutation stays there."""
+        with self._bind_fail_lock:
+            failed = self._failed_bind_keys
+            self._failed_bind_keys = []
+            succeeded = self._succeeded_bind_keys
+            self._succeeded_bind_keys = []
+        if succeeded:
+            with self._lock:
+                for key in succeeded:
+                    self.bind_backoff.pop(key, None)
+        if not failed:
+            return 0
+        now = time.time()
+        n = 0
+        with self._lock:
+            for key, pod in failed:
+                if (pod is None or self.pods.get(pod.uid) is not pod
+                        or pod.node_name is None):
+                    continue
+                fails, _, _ = self.bind_backoff.get(key, (0, 0.0, ""))
+                fails += 1
+                delay = min(BACKOFF_BASE * (2 ** (fails - 1)), BACKOFF_MAX)
+                self.bind_backoff[key] = (fails, now + delay, pod.uid)
+                pod.node_name = None
+                if pod.volumes:
+                    self.release_claims_for(pod)
+                self.mirror.set_pod_state(
+                    pod.uid, int(TaskStatus.Pending), -1
+                )
+                self.mark_objects_stale()
+                self.record_event(
+                    f"Pod/{key}", "FailedScheduling",
+                    f"bind failed; retry in {delay:.0f}s "
+                    f"(attempt {fails})",
+                )
+                self._notify("Pod", "update", pod)
+                n += 1
+        return n
+
+    # ----------------------------------------------- lazy object model
+
+    @property
+    def jobs(self) -> Dict[str, JobInfo]:
+        if self._objects_stale:
+            self._rebuild_objects()
+        return self._jobs
+
+    @property
+    def nodes(self) -> Dict[str, NodeInfo]:
+        if self._objects_stale:
+            self._rebuild_objects()
+        return self._nodes
+
+    def mark_objects_stale(self) -> None:
+        """Called by the fast path after a bulk commit: JobInfo/NodeInfo
+        accounting is rebuilt from the pod records on next read."""
+        self._objects_stale = True
+
+    def _rebuild_objects(self) -> None:
+        """Recompute the JobInfo/NodeInfo object model from pods + pod
+        groups (cache.go:376-417), jobs in mirror row order."""
+        with self._lock:
+            if not self._objects_stale:
+                return
+            self._objects_stale = False
+            self._nodes = {}
+            for row, name in enumerate(self.mirror.n_name):
+                if name is not None and self.mirror.n_alive[row]:
+                    self._nodes[name] = NodeInfo(self.mirror.node_objs[row])
+            self._jobs = {}
+            for uid in self.mirror.j_uid:
+                pg = self.pod_groups.get(uid) if uid else None
+                if pg is None:
+                    continue
+                job = JobInfo(uid)
+                job.set_pod_group(pg)
+                if (pg.priority_class
+                        and pg.priority_class in self.priority_classes):
+                    job.priority = self.priority_classes[
+                        pg.priority_class].value
+                self._jobs[uid] = job
+            for pod in self.pods.values():
+                try:
+                    self._add_task(pod)
+                except (ValueError, KeyError) as err:
+                    log.error("rebuild: failed to re-add task %s: %s",
+                              pod.uid, err)
+
+    # ------------------------------------------------------------- watchers
+
+    def watch(self, fn: Callable[[str, str, object], None]) -> None:
+        """Register fn(kind, event, obj) called after each mutation."""
+        self._watchers.append(fn)
+
+    def _notify(self, kind: str, event: str, obj: object) -> None:
+        for fn in self._watchers:
+            fn(kind, event, obj)
 
     # ------------------------------------------------------- job bookkeeping
 
@@ -84,7 +464,19 @@ class ClusterStore:
             fresh.node_name = ""
             node.add_task(fresh)
 
-    # ------------------------------------------------------------- handlers
+    def _remove_task(self, pod: Pod) -> None:
+        job_id = pod.job_id()
+        job = self.jobs.get(job_id) if job_id else None
+        if job is not None:
+            ti = job.tasks.get(pod.uid)
+            if ti is not None:
+                job.delete_task_info(ti)
+        if pod.node_name:
+            node = self.nodes.get(pod.node_name)
+            if node is not None and pod_key(pod) in node.tasks:
+                node.remove_task(TaskInfo(pod))
+
+    # --------------------------------------------------------- pod handlers
 
     def add_pod(self, pod: Pod) -> None:
         """Track a pod.  Ungrouped pods still occupy node resources when
@@ -92,7 +484,40 @@ class ClusterStore:
         PodGroup wraps them."""
         with self._lock:
             self.pods[pod.uid] = pod
+            if pod.volumes:
+                self.n_volume_pods += 1
             self._add_task(pod)
+            self.mirror.upsert_pod(pod, self.mirror.job_row)
+            self._notify("Pod", "add", pod)
+
+    def update_pod(self, pod: Pod) -> None:
+        with self._lock:
+            old = self.pods.get(pod.uid)
+            if old is not None:
+                self._remove_task(old)
+                if old.volumes:
+                    self.n_volume_pods -= 1
+            self.pods[pod.uid] = pod
+            if pod.volumes:
+                self.n_volume_pods += 1
+            self._add_task(pod)
+            self.mirror.upsert_pod(pod, self.mirror.job_row)
+            self._notify("Pod", "update", pod)
+
+    def delete_pod(self, pod: Pod) -> None:
+        with self._lock:
+            old = self.pods.pop(pod.uid, None)
+            if old is not None:
+                self._remove_task(old)
+                if old.volumes:
+                    self.n_volume_pods -= 1
+            if self.bind_backoff:
+                self.bind_backoff.pop(f"{pod.namespace}/{pod.name}", None)
+            self.mirror.remove_pod(pod.uid)
+            self.mirror.maybe_compact()
+            self._notify("Pod", "delete", pod)
+
+    # -------------------------------------------------------- node handlers
 
     def add_node(self, node: Node) -> None:
         with self._lock:
@@ -101,6 +526,26 @@ class ClusterStore:
                 existing.set_node(node)
             else:
                 self.nodes[node.name] = NodeInfo(node)
+            self.mirror.upsert_node(node)
+            self._notify("Node", "add", node)
+
+    def update_node(self, node: Node) -> None:
+        with self._lock:
+            existing = self.nodes.get(node.name)
+            if existing is None:
+                self.nodes[node.name] = NodeInfo(node)
+            else:
+                existing.set_node(node)
+            self.mirror.upsert_node(node)
+            self._notify("Node", "update", node)
+
+    def delete_node(self, name: str) -> None:
+        with self._lock:
+            self.nodes.pop(name, None)
+            self.mirror.remove_node(name)
+            self._notify("Node", "delete", name)
+
+    # --------------------------------------------------- pod group handlers
 
     def add_pod_group(self, pg: PodGroup) -> None:
         with self._lock:
@@ -109,15 +554,116 @@ class ClusterStore:
             job.set_pod_group(pg)
             if pg.priority_class and pg.priority_class in self.priority_classes:
                 job.priority = self.priority_classes[pg.priority_class].value
+            self.mirror.upsert_pod_group(pg, job.priority)
+            self._notify("PodGroup", "add", pg)
+
+    def update_pod_group(self, pg: PodGroup) -> None:
+        with self._lock:
+            self.pod_groups[pg.uid] = pg
+            job = self._get_or_create_job(pg.uid)
+            job.set_pod_group(pg)
+            if pg.priority_class and pg.priority_class in self.priority_classes:
+                job.priority = self.priority_classes[pg.priority_class].value
+            self.mirror.upsert_pod_group(pg, job.priority)
+            self._notify("PodGroup", "update", pg)
+
+    def delete_pod_group(self, uid: str) -> None:
+        with self._lock:
+            self.pod_groups.pop(uid, None)
+            job = self.jobs.get(uid)
+            if job is not None:
+                job.unset_pod_group()
+                if not job.tasks:
+                    del self.jobs[uid]
+            self.mirror.remove_pod_group(uid)
+            self._notify("PodGroup", "delete", uid)
+
+    # ------------------------------------------------------- queue handlers
 
     def add_queue(self, queue: Queue) -> None:
         with self._lock:
             self.raw_queues[queue.name] = queue
             self.queues[queue.name] = QueueInfo(queue)
+            self._notify("Queue", "add", queue)
+
+    def update_queue(self, queue: Queue) -> None:
+        with self._lock:
+            self.raw_queues[queue.name] = queue
+            self.queues[queue.name] = QueueInfo(queue)
+            self._notify("Queue", "update", queue)
+
+    def delete_queue(self, name: str) -> None:
+        with self._lock:
+            self.raw_queues.pop(name, None)
+            self.queues.pop(name, None)
+            self._notify("Queue", "delete", name)
+
+    # ------------------------------------------- priority class / quota
 
     def add_priority_class(self, pc: PriorityClass) -> None:
         with self._lock:
             self.priority_classes[pc.name] = pc
+            self._notify("PriorityClass", "add", pc)
+
+    def delete_priority_class(self, name: str) -> None:
+        with self._lock:
+            self.priority_classes.pop(name, None)
+            self._notify("PriorityClass", "delete", name)
+
+    def add_resource_quota(self, quota: ResourceQuota) -> None:
+        """Track namespace weight from the quota annotation
+        (event_handlers.go quota path + namespace_info.go:33-37)."""
+        with self._lock:
+            raw = quota.annotations.get(NAMESPACE_WEIGHT_KEY)
+            if raw is not None:
+                try:
+                    self.namespace_weights[quota.namespace] = max(
+                        self.namespace_weights.get(quota.namespace, 0),
+                        int(raw))
+                except ValueError:
+                    pass
+            self._notify("ResourceQuota", "add", quota)
+
+    # ------------------------------------------------------- claim registry
+
+    def put_pvc(self, ns: str, name: str, spec,
+                owner_job: str = "") -> None:
+        """Create/replace a claim record (phase Pending until the volume
+        binder binds it)."""
+        with self._lock:
+            self.pvcs[f"{ns}/{name}"] = {
+                "spec": dict(spec) if spec else {},
+                "phase": "Pending",
+                "node": None,
+                "owner_job": owner_job,
+            }
+
+    def delete_pvc(self, ns: str, name: str) -> None:
+        with self._lock:
+            self.pvcs.pop(f"{ns}/{name}", None)
+
+    def release_claims_for(self, pod) -> None:
+        """Roll back a failed bind's claim state: claims this pod pinned
+        return to Pending unless another placed pod still references
+        them."""
+        if not pod.volumes:
+            return
+        with self._lock:
+            claims = {f"{pod.namespace}/{c}" for c, _ in pod.volumes}
+            still_held = set()
+            for other in self.pods.values():
+                if (other.uid == pod.uid or not other.volumes
+                        or other.node_name is None):
+                    continue
+                for c, _ in other.volumes:
+                    k = f"{other.namespace}/{c}"
+                    if k in claims:
+                        still_held.add(k)
+            for k in claims - still_held:
+                rec = self.pvcs.get(k)
+                if rec is not None:
+                    rec["phase"] = "Pending"
+                    rec["node"] = None
 
     # -------------------------------------------------------------- snapshot
 
@@ -141,3 +687,107 @@ class ClusterStore:
                     ns, self.namespace_weights.get(ns, 1)
                 )
             return info
+
+    # ------------------------------------------------------------ side effects
+
+    def _replace_pod(self, pod, **mutations):
+        """Copy-on-write pod replacement: snapshot TaskInfos holding the
+        old Pod keep their point-in-time view.  Caller holds the lock."""
+        self._remove_task(pod)
+        pod = copy.copy(pod)
+        for name, value in mutations.items():
+            setattr(pod, name, value)
+        self.pods[pod.uid] = pod
+        self._add_task(pod)
+        self.mirror.upsert_pod(pod, self.mirror.job_row)
+        return pod
+
+    def bind(self, task: TaskInfo, hostname: str) -> None:
+        """Bind task's pod to a host (cache.go:492-554, synchronous)."""
+        with self._lock:
+            pod = self.pods.get(task.uid)
+            if pod is None:
+                raise KeyError(f"unknown pod {task.uid}")
+            self.binder.bind(task, hostname)
+            pod = self._replace_pod(pod, node_name=hostname)
+            self.record_event(
+                f"Pod/{pod.namespace}/{pod.name}", "Scheduled",
+                f"bound to {hostname}",
+            )
+            self._notify("Pod", "bind", pod)
+
+    def evict(self, task: TaskInfo, reason: str) -> None:
+        raise not_ported("eviction (evict)", "preempt/reclaim")
+
+    def update_job_status(self, job: JobInfo) -> JobInfo:
+        """Write PodGroup status back (interface.go UpdateJobStatus +
+        job_updater.go semantics)."""
+        with self._lock:
+            pg = job.pod_group
+            if pg is None:
+                return job
+            stored = self.pod_groups.get(pg.uid)
+            if stored is not None:
+                stored.status = pg.status
+                # The mirror's status-snapshot columns are the fast path's
+                # "last written" state.
+                self.mirror.refresh_pod_group_status(stored)
+                self.status_updater.update_pod_group(stored)
+                self._notify("PodGroup", "status", stored)
+            return job
+
+    def record_job_condition(self, job: JobInfo,
+                             condition: PodGroupCondition) -> None:
+        if job.pod_group is None:
+            return
+        with self._lock:
+            pg = self.pod_groups.get(job.pod_group.uid, job.pod_group)
+            conditions = [c for c in pg.status.conditions
+                          if c.type != condition.type]
+            conditions.append(condition)
+            pg.status.conditions = conditions
+            self.mirror.refresh_pod_group_status(pg)
+
+class StoreVolumeBinder:
+    """Volume binder against the store's claim registry (the
+    defaultVolumeBinder of cache.go:211-222, backed by ``store.pvcs``).
+    Accepts a TaskInfo or a bare Pod (the fast path hands pods)."""
+
+    def __init__(self, store: "ClusterStore"):
+        self._store = store
+
+    @staticmethod
+    def _pod(task):
+        return getattr(task, "pod", task)
+
+    def allocate_volumes(self, task, hostname: str) -> None:
+        from .interface import VolumeBindFailure
+
+        pod = self._pod(task)
+        with self._store._lock:
+            for claim, _mount in pod.volumes:
+                rec = self._store.pvcs.get(f"{pod.namespace}/{claim}")
+                if rec is None:
+                    raise VolumeBindFailure(
+                        f"claim {pod.namespace}/{claim} not found for "
+                        f"{pod.name}"
+                    )
+                if rec["phase"] == "Pending":
+                    # WaitForFirstConsumer: the claim provisions on the
+                    # node the scheduler picked.
+                    rec["node"] = hostname
+                elif rec["node"] not in (None, hostname):
+                    raise VolumeBindFailure(
+                        f"claim {pod.namespace}/{claim} is bound to "
+                        f"{rec['node']}, pod placed on {hostname}"
+                    )
+
+    def bind_volumes(self, task) -> None:
+        pod = self._pod(task)
+        with self._store._lock:
+            for claim, _mount in pod.volumes:
+                rec = self._store.pvcs.get(f"{pod.namespace}/{claim}")
+                if rec is not None:
+                    rec["phase"] = "Bound"
+        if hasattr(task, "volume_ready"):
+            task.volume_ready = True

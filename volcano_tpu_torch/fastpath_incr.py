@@ -1,0 +1,576 @@
+"""Incremental host lanes: persistent cycle aggregates + dirty-set derive.
+
+With the device solve sharded (mesh) and pipelined, the cycle floor at
+north star moved to the HOST lanes — and every one of them was a
+from-scratch full-table rebuild:
+``FastCycle.derive()`` re-ran ``np.add.at``/``bincount`` reductions over
+all 100k pod rows each cycle even when a steady-state cycle mutated a
+few hundred.  This module makes the host side incremental the way the
+device side already is (``ops/devsnap.py`` delta scatters):
+
+- The store mirror records a per-cycle **dirty set** of pod rows whose
+  dynamic state (status / node / job / alive) changed since the last
+  derive (``StoreMirror.mark_pods_dirty``), driven by the same writers
+  that already bump ``mutation_seq``.
+- ``CycleAggregates`` keeps the cycle's aggregate planes **persistent**
+  — ``n_used``/``n_releasing``/``n_ntasks``, the per-(job x status)
+  count table behind the eight job counters, ``j_alloc_res``/
+  ``j_pending_res``, and the resident mask — and refreshes them with
+  **subtract-old / add-new delta scatters** over only the dirty rows.
+  The shadow columns snapshot the dynamic state as of the last derive,
+  so "old" contributions are recomputed exactly, and rows whose shadow
+  equals their live state (the steady-state bench's bind-then-re-pend
+  churn) contribute nothing and cost nothing beyond a vector compare.
+- A **proven full-rebuild fallback** covers everything the delta path
+  cannot: node-table epoch churn (node liveness participates in the
+  resident predicate), mirror compaction (rows renumber), dirty-set
+  overflow past ``VOLCANO_TPU_DIRTY_CAP``, bulk resyncs, and
+  ``VOLCANO_TPU_INCREMENTAL=0``.
+
+Exactness: the aggregate planes accumulate in float64.  Resource
+quantities are integral (milli-CPU, bytes — the Kubernetes model), and
+per-node / per-job sums stay far below 2^53, so every add/subtract is
+exact integer arithmetic in the float64 domain — the delta-refreshed
+planes are **bit-for-bit equal** to a from-scratch rebuild, which is
+what the randomized-churn harness (tests/test_incremental.py) asserts
+and ``VOLCANO_TPU_INCR_VERIFY=1`` re-checks on every delta derive.
+
+Agreement with the pipelined staleness guard (``pipeline.py``): every
+mark event advances ``mirror.dirty_seq`` and every writer that marks
+also bumps ``mutation_seq`` (or ``epoch``/``compact_gen``), so a guard
+that sees an unchanged ``mutation_seq`` is guaranteed the dirty set
+recorded no pod-state change during the overlap — the two mechanisms
+can never disagree on what "changed" means.
+"""
+
+from __future__ import annotations
+
+import logging
+import os
+from typing import List, Optional, Tuple
+
+import numpy as np
+
+from .api import TaskStatus
+
+log = logging.getLogger(__name__)
+
+F64 = np.float64
+I = np.int32
+
+# ---------------------------------------------------------------- status
+
+# Compact status-class columns: one per TaskStatus flag value, in enum
+# order, plus a trailing "unmapped" bucket (never populated by
+# construction — p_status only ever holds ``int(pod.task_status())`` —
+# but a defensive landing spot beats silent aliasing).
+STATUS_VALUES: Tuple[int, ...] = tuple(int(s) for s in TaskStatus)
+N_STATUS = len(STATUS_VALUES)
+_LUT_SIZE = 1024
+_STATUS_CODE = np.full(_LUT_SIZE, N_STATUS, np.int64)
+for _i, _v in enumerate(STATUS_VALUES):
+    _STATUS_CODE[_v] = _i
+
+_ST_PENDING = int(TaskStatus.Pending)
+_ST_RELEASING = int(TaskStatus.Releasing)
+_ALLOCATED = (TaskStatus.Bound, TaskStatus.Binding, TaskStatus.Running,
+              TaskStatus.Allocated)
+_IS_ALLOC = np.zeros(_LUT_SIZE, bool)
+for _v in _ALLOCATED:
+    _IS_ALLOC[int(_v)] = True
+_IS_TERM = np.zeros(_LUT_SIZE, bool)
+_IS_TERM[int(TaskStatus.Succeeded)] = True
+_IS_TERM[int(TaskStatus.Failed)] = True
+
+COL = {int(s): i for i, s in enumerate(TaskStatus)}
+ALLOC_COLS = [COL[int(v)] for v in _ALLOCATED]
+
+
+def _codes(status: np.ndarray) -> np.ndarray:
+    return _STATUS_CODE[np.clip(status.astype(np.int64), 0, _LUT_SIZE - 1)]
+
+
+def incremental_on() -> bool:
+    return os.environ.get("VOLCANO_TPU_INCREMENTAL", "1") != "0"
+
+
+def verify_on() -> bool:
+    return os.environ.get("VOLCANO_TPU_INCR_VERIFY", "0") == "1"
+
+
+def _grow2(a: np.ndarray, n: int) -> np.ndarray:
+    """Grow the leading axis to ``n`` with zero fill (exact shape — the
+    job/pod axes are compared against table sizes, not capacities)."""
+    if n <= len(a):
+        return a
+    out = np.zeros((n, *a.shape[1:]), a.dtype)
+    out[:len(a)] = a
+    return out
+
+
+class CycleAggregates:
+    """Persistent derive-time aggregates over the store mirror.
+
+    One instance per mirror (``aggregates_of``); every method runs on
+    the cycle thread under the store lock (``FastCycle`` class-holds).
+    The cycle works on COPIES of these planes — its in-cycle mutations
+    (commit, unbind, evictions) reach the mirror's dynamic columns and
+    mark rows dirty, and the next ``refresh`` reconciles them here.
+    """
+
+    # Reads/writes mirror dirty state; the cycle entry point holds the
+    # store lock for the whole cycle.
+    # vclint: class-holds: _lock
+
+    __slots__ = (
+        "key", "Pn", "Jn",
+        "n_used", "n_releasing", "n_ntasks", "resident",
+        "js_counts", "j_empty_pending", "j_alloc_res", "j_pending_res",
+        "sh_status", "sh_node", "sh_job", "sh_alive",
+        "last_mode", "delta_rows", "full_reason", "last_dirty_nodes",
+    )
+
+    def __init__(self):
+        # key = (node_liveness_gen, compact_gen, Nn, R): any component
+        # moving voids the delta path — node LIVENESS participates in
+        # the resident predicate (and is the only node property the
+        # aggregates read, so label/capacity edits and content-identical
+        # node re-syncs keep the delta path alive), compaction renumbers
+        # rows (compact_gen), and the plane shapes bind Nn/R.
+        self.key: Optional[tuple] = None
+        self.Pn = 0
+        self.Jn = 0
+        self.n_used: Optional[np.ndarray] = None
+        self.n_releasing: Optional[np.ndarray] = None
+        self.n_ntasks: Optional[np.ndarray] = None
+        self.resident: Optional[np.ndarray] = None
+        self.js_counts: Optional[np.ndarray] = None
+        self.j_empty_pending: Optional[np.ndarray] = None
+        self.j_alloc_res: Optional[np.ndarray] = None
+        self.j_pending_res: Optional[np.ndarray] = None
+        # Dynamic pod columns as of the last refresh (the "old" side of
+        # subtract-old/add-new).
+        self.sh_status = np.zeros(0, np.int16)
+        self.sh_node = np.zeros(0, I)
+        self.sh_job = np.zeros(0, I)
+        self.sh_alive = np.zeros(0, bool)
+        self.last_mode = ""
+        self.delta_rows = 0
+        self.full_reason = ""
+        # Node rows whose derive-visible dynamic state changed in the
+        # LAST delta refresh (old + new node of every truly-changed
+        # dirty row), or None after a full rebuild — the device-lane
+        # warm-shortlist diff (ops/devincr.py) accumulates these
+        # between solves.
+        self.last_dirty_nodes: Optional[np.ndarray] = None
+
+    # ------------------------------------------------------------ refresh
+
+    def refresh(self, m, Pn: int, Nn: int, R: int,
+                n_alive: np.ndarray) -> str:
+        """Bring the persistent planes up to the mirror's current state.
+        Returns the mode taken: ``"delta"`` or ``"full"``."""
+        from .metrics import metrics
+
+        key = (m.node_liveness_gen, m.compact_gen, Nn, R)
+        mode = "full"
+        rows = None
+        if not incremental_on():
+            self.full_reason = "disabled"
+            m.consume_pod_dirty(Pn)
+        elif self.key != key or self.n_used is None:
+            self.full_reason = "key-churn" if self.key is not None \
+                else "first-derive"
+            m.consume_pod_dirty(Pn)
+        else:
+            rows = m.consume_pod_dirty(Pn)
+            if rows is None:
+                self.full_reason = "dirty-overflow"
+            else:
+                mode = "delta"
+        if mode == "delta":
+            self._apply_delta(m, Pn, Nn, R, n_alive, rows)
+            self.full_reason = ""
+            if verify_on():
+                self._verify(m, Pn, Nn, R, n_alive)
+        else:
+            self._rebuild(m, Pn, Nn, R, n_alive)
+            self.key = key
+        self.last_mode = mode
+        metrics.host_incremental_derives.inc(mode=mode)
+        return mode
+
+    # ------------------------------------------------------- full rebuild
+
+    def _rebuild(self, m, Pn: int, Nn: int, R: int,
+                 n_alive: np.ndarray) -> None:
+        (self.resident, self.n_used, self.n_releasing, self.n_ntasks,
+         self.js_counts, self.j_empty_pending, self.j_alloc_res,
+         self.j_pending_res) = _build_aggregates(m, Pn, Nn, R, n_alive)
+        self.Pn = Pn
+        self.Jn = len(m.j_uid)
+        self.sh_status = m.p_status[:Pn].copy()
+        self.sh_node = m.p_node[:Pn].copy()
+        self.sh_job = m.p_job[:Pn].copy()
+        self.sh_alive = m.p_alive[:Pn].copy()
+        self.delta_rows = 0
+        self.last_dirty_nodes = None
+
+    # --------------------------------------------------------- delta path
+
+    def _apply_delta(self, m, Pn: int, Nn: int, R: int,
+                     n_alive: np.ndarray, rows: np.ndarray) -> None:
+        """Subtract each truly-changed dirty row's old contribution
+        (from the shadow columns) and add its new one (from the live
+        columns), then re-anchor the shadow for those rows."""
+        Jn = len(m.j_uid)
+        if Jn > self.Jn:
+            self.js_counts = _grow2(self.js_counts, Jn)
+            self.j_empty_pending = _grow2(self.j_empty_pending, Jn)
+            self.j_alloc_res = _grow2(self.j_alloc_res, Jn)
+            self.j_pending_res = _grow2(self.j_pending_res, Jn)
+        if Pn > self.Pn:
+            self.resident = _grow2(self.resident, Pn)
+            self.sh_status = _grow2(self.sh_status, Pn)
+            self.sh_node = _grow2(self.sh_node, Pn)
+            self.sh_job = _grow2(self.sh_job, Pn)
+            self.sh_alive = _grow2(self.sh_alive, Pn)
+            # New rows: "no row" semantics — alive False, node/job -1.
+            self.sh_node[self.Pn:Pn] = -1
+            self.sh_job[self.Pn:Pn] = -1
+        self.Pn, self.Jn = Pn, Jn
+        if not len(rows):
+            self.delta_rows = 0
+            self.last_dirty_nodes = np.zeros(0, np.int64)
+            return
+        st_o = self.sh_status[rows]
+        nd_o = self.sh_node[rows]
+        jb_o = self.sh_job[rows]
+        al_o = self.sh_alive[rows]
+        st_n = m.p_status[rows]
+        nd_n = m.p_node[rows]
+        jb_n = m.p_job[rows]
+        al_n = m.p_alive[rows]
+        ch = ((st_o != st_n) | (nd_o != nd_n) | (jb_o != jb_n)
+              | (al_o != al_n))
+        self.delta_rows = int(np.count_nonzero(ch))
+        if not ch.any():
+            self.last_dirty_nodes = np.zeros(0, np.int64)
+            return
+        # Old + new node of every truly-changed row: exactly the node
+        # rows whose n_used/n_releasing/n_ntasks/ports contributions
+        # moved this refresh (the warm-shortlist diff set).
+        nds = np.concatenate(
+            [nd_o[ch].astype(np.int64), nd_n[ch].astype(np.int64)]
+        )
+        self.last_dirty_nodes = np.unique(nds[nds >= 0])
+        rows_c = rows[ch]
+        be = m.p_be[rows_c]
+        # One static-spec request gather serves both sides (specs are
+        # immutable per row — a spec change tombstones and re-adds).
+        er, si, v = m.c_req.gather(rows_c)
+        v = v.astype(F64)
+        self._scatter_side(Nn, n_alive, st_o[ch], nd_o[ch], jb_o[ch],
+                           al_o[ch], be, er, si, v, -1)
+        res_n = self._scatter_side(Nn, n_alive, st_n[ch], nd_n[ch],
+                                   jb_n[ch], al_n[ch], be, er, si, v, +1)
+        self.resident[rows_c] = res_n
+        self.sh_status[rows_c] = st_n[ch]
+        self.sh_node[rows_c] = nd_n[ch]
+        self.sh_job[rows_c] = jb_n[ch]
+        self.sh_alive[rows_c] = al_n[ch]
+
+    def _scatter_side(self, Nn: int, n_alive: np.ndarray,
+                      st: np.ndarray, nd: np.ndarray, jb: np.ndarray,
+                      al: np.ndarray, be: np.ndarray, er: np.ndarray,
+                      si: np.ndarray, v: np.ndarray,
+                      sign: int) -> np.ndarray:
+        """Apply one side (old = -1, new = +1) of the delta scatters.
+        Returns the side's resident mask (the caller persists the new
+        side's).
+
+        All scatters are bincounts over flattened indices: np.add.at at
+        large changed-row counts costs ~1 us/element, and the f64 sums
+        stay exact (integral quantities), so the bincount matrices add
+        the identical values."""
+        R = self.n_used.shape[1]
+        node_ok = nd >= 0
+        if Nn:
+            node_ok &= np.where(
+                nd >= 0, n_alive[np.clip(nd, 0, Nn - 1)], False
+            )
+        term = _IS_TERM[np.clip(st.astype(np.int64), 0, _LUT_SIZE - 1)]
+        res = al & node_ok & ~term
+        rel = res & (st == _ST_RELEASING)
+
+        def plane(mask_rows):
+            sel = mask_rows[er]
+            if not sel.any():
+                return None
+            return np.bincount(
+                nd[er][sel].astype(np.int64) * R + si[sel],
+                weights=v[sel], minlength=Nn * R,
+            ).reshape(Nn, R)
+
+        if res.any():
+            add = plane(res)
+            if add is not None:
+                self.n_used += sign * add
+            add = plane(rel)
+            if add is not None:
+                self.n_releasing += sign * add
+            self.n_ntasks += sign * np.bincount(
+                nd[res], minlength=Nn
+            )[:Nn]
+        valid = al & (jb >= 0)
+        if valid.any():
+            Jn = len(self.js_counts)
+            W = self.js_counts.shape[1]
+            codes = _codes(st[valid])
+            self.js_counts += sign * np.bincount(
+                jb[valid].astype(np.int64) * W + codes,
+                minlength=Jn * W,
+            ).reshape(Jn, W)
+            pend = valid & (st == _ST_PENDING)
+            pb = pend & be
+            if pb.any():
+                self.j_empty_pending += sign * np.bincount(
+                    jb[pb], minlength=Jn
+                )[:Jn]
+            alloc = valid & _IS_ALLOC[
+                np.clip(st.astype(np.int64), 0, _LUT_SIZE - 1)
+            ]
+
+            def jplane(mask_rows):
+                sel = mask_rows[er]
+                if not sel.any():
+                    return None
+                return np.bincount(
+                    jb[er][sel].astype(np.int64) * R + si[sel],
+                    weights=v[sel], minlength=Jn * R,
+                ).reshape(Jn, R)
+
+            add = jplane(alloc)
+            if add is not None:
+                self.j_alloc_res += sign * add
+            add = jplane(pend)
+            if add is not None:
+                self.j_pending_res += sign * add
+        return res
+
+    # ----------------------------------------------------- close-time view
+
+    def live_status_counts(self, m, Pn: int) -> np.ndarray:
+        """The per-(job x status-class) count table adjusted to LIVE
+        mirror state: the derive-time table plus deltas for rows the
+        cycle itself has dirtied since (commit binds, evictions) — read
+        WITHOUT consuming the dirty set.  Falls back to a full scan when
+        tracking overflowed mid-cycle."""
+        if (self.js_counts is None or m._pod_dirty_overflow
+                or Pn > self.Pn or len(m.j_uid) > self.Jn):
+            return _scan_status_counts(m, Pn, len(m.j_uid))
+        counts = self.js_counts.copy()
+        rows = np.flatnonzero(m._pod_dirty_mask[:Pn])
+        if not len(rows):
+            return counts
+        Jn, W = counts.shape
+        st_o, jb_o, al_o = (self.sh_status[rows], self.sh_job[rows],
+                            self.sh_alive[rows])
+        st_n, jb_n, al_n = (m.p_status[rows], m.p_job[rows],
+                            m.p_alive[rows])
+        for st, jb, al, sign in ((st_o, jb_o, al_o, -1),
+                                 (st_n, jb_n, al_n, +1)):
+            valid = al & (jb >= 0)
+            if valid.any():
+                counts += sign * np.bincount(
+                    jb[valid].astype(np.int64) * W + _codes(st[valid]),
+                    minlength=Jn * W,
+                ).reshape(Jn, W)
+        return counts
+
+    # ----------------------------------------------------------- verifier
+
+    def _verify(self, m, Pn: int, Nn: int, R: int,
+                n_alive: np.ndarray) -> None:
+        """VOLCANO_TPU_INCR_VERIFY=1: assert the delta-refreshed planes
+        are bit-for-bit equal to a from-scratch rebuild (the churn
+        harness's runtime guard)."""
+        (resident, used, rel, ntasks, counts, empty, alloc,
+         pending) = _build_aggregates(m, Pn, Nn, R, n_alive)
+        pairs = (
+            ("resident", resident, self.resident[:Pn]),
+            ("n_used", used, self.n_used),
+            ("n_releasing", rel, self.n_releasing),
+            ("n_ntasks", ntasks, self.n_ntasks),
+            ("js_counts", counts, self.js_counts),
+            ("j_empty_pending", empty, self.j_empty_pending),
+            ("j_alloc_res", alloc, self.j_alloc_res),
+            ("j_pending_res", pending, self.j_pending_res),
+        )
+        for name, want, got in pairs:
+            if not np.array_equal(want, got):
+                bad = int(np.count_nonzero(
+                    np.asarray(want) != np.asarray(got)))
+                raise AssertionError(
+                    f"incremental derive diverged from full rebuild: "
+                    f"{name} differs in {bad} cells "
+                    f"(delta_rows={self.delta_rows})"
+                )
+
+
+def _build_aggregates(m, Pn: int, Nn: int, R: int, n_alive: np.ndarray):
+    """From-scratch aggregate build — the single source of truth both
+    the full-rebuild refresh and the verifier use, so "fallback" and
+    "reference" can never diverge from each other."""
+    status = m.p_status[:Pn]
+    alive = m.p_alive[:Pn]
+    node = m.p_node[:Pn]
+    job = m.p_job[:Pn]
+    Jn = len(m.j_uid)
+    node_ok = node >= 0
+    if Nn:
+        node_ok &= np.where(
+            node >= 0, n_alive[np.clip(node, 0, Nn - 1)], False
+        )
+    term = _IS_TERM[np.clip(status.astype(np.int64), 0, _LUT_SIZE - 1)]
+    resident = alive & node_ok & ~term
+    releasing_m = resident & (status == _ST_RELEASING)
+    def req_scatter(rows, targets, n_t):
+        """[n_t, R] f64 bincount of the rows' requests grouped by
+        ``targets[row]`` (node or job axis); exact for the integral
+        quantities and far cheaper than np.add.at at 100k rows."""
+        if not len(rows):
+            return np.zeros((n_t, R), F64)
+        er, si, v = m.c_req.gather(rows)
+        return np.bincount(
+            targets[rows][er].astype(np.int64) * R + si,
+            weights=v.astype(F64), minlength=n_t * R,
+        ).reshape(n_t, R)
+
+    rows_res = np.flatnonzero(resident)
+    used = req_scatter(rows_res, node, Nn)
+    rel = req_scatter(np.flatnonzero(releasing_m), node, Nn)
+    ntasks = (np.bincount(node[rows_res], minlength=Nn)[:Nn]
+              if len(rows_res) else np.zeros(Nn, np.int64))
+    counts = _scan_status_counts(m, Pn, Jn)
+    valid = alive & (job >= 0)
+    pend = valid & (status == _ST_PENDING)
+    pb = np.flatnonzero(pend & m.p_be[:Pn])
+    empty = (np.bincount(job[pb], minlength=Jn).astype(np.int64)
+             if len(pb) else np.zeros(Jn, np.int64))
+    alloc_res = req_scatter(
+        np.flatnonzero(valid & _IS_ALLOC[
+            np.clip(status.astype(np.int64), 0, _LUT_SIZE - 1)
+        ]), job, Jn)
+    pending_res = req_scatter(np.flatnonzero(pend), job, Jn)
+    return (resident, used, rel, ntasks, counts, empty, alloc_res,
+            pending_res)
+
+
+def _scan_status_counts(m, Pn: int, Jn: int) -> np.ndarray:
+    """[Jn, N_STATUS + 1] per-(job x status-class) counts over live rows
+    with a job link — the compact replacement for derive's combined
+    (job, raw-status) bincount AND close's ``_ensure_status_counts``
+    scan (one table serves both)."""
+    status = m.p_status[:Pn]
+    valid = np.flatnonzero(m.p_alive[:Pn] & (m.p_job[:Pn] >= 0))
+    W = N_STATUS + 1
+    if not len(valid):
+        return np.zeros((Jn, W), np.int64)
+    job = m.p_job[:Pn][valid].astype(np.int64)
+    codes = _codes(status[valid])
+    return np.bincount(job * W + codes,
+                       minlength=Jn * W).reshape(Jn, W)
+
+
+def aggregates_of(m) -> CycleAggregates:
+    """The mirror's persistent aggregates (created on first use)."""
+    aggr = getattr(m, "_cycle_aggr", None)
+    if aggr is None:
+        aggr = m._cycle_aggr = CycleAggregates()
+    return aggr
+
+
+# ===================================================== ordering merge
+
+def rank_from_cols(cols_primary_first: List[np.ndarray],
+                   cache: Optional[tuple], max_merge_frac: float = 0.25):
+    """[n] rank array for the total order the key columns define
+    (primary first; the LAST column must be a unique tie-break so the
+    order is total), re-lexsorting only rows whose key columns changed
+    vs the cached order and MERGING them back in (order lane).
+
+    Returns ``(rank, cache')`` where ``cache'`` is passed back next
+    call.  With an intact cache and no changed rows this costs a few
+    vector compares; with ``k`` changed rows it costs one k-row lexsort
+    plus a vectorized lexicographic binary search (log2(n) passes over
+    the column set); past ``max_merge_frac`` it falls back to the full
+    lexsort.  The produced rank is IDENTICAL to the full lexsort's in
+    every case — keys are unique, so the total order does not depend on
+    how it was computed (asserted by the churn harness)."""
+    n = len(cols_primary_first[0])
+    if cache is not None:
+        c_cols, c_order, c_rank = cache
+        if (len(c_cols) != len(cols_primary_first)
+                or len(c_order) != n):
+            cache = None
+    if cache is None:
+        return _full_rank(cols_primary_first)
+    changed = np.zeros(n, bool)
+    for a, b in zip(c_cols, cols_primary_first):
+        if a.dtype != b.dtype:
+            return _full_rank(cols_primary_first)
+        changed |= a != b
+    k = int(np.count_nonzero(changed))
+    if k == 0:
+        return c_rank, (cols_primary_first, c_order, c_rank)
+    if k > max(8, int(n * max_merge_frac)):
+        return _full_rank(cols_primary_first)
+    base_seq = c_order[~changed[c_order]]
+    ins_rows = np.flatnonzero(changed)
+    # Sort the changed rows by their NEW keys (small lexsort; lexsort
+    # wants the primary key LAST).
+    ins_order = np.lexsort(tuple(
+        col[ins_rows] for col in reversed(cols_primary_first)
+    ))
+    ins_rows = ins_rows[ins_order]
+    pos = _lex_searchsorted(cols_primary_first, base_seq, ins_rows)
+    order = np.insert(base_seq, pos, ins_rows)
+    rank = np.empty(n, np.int64)
+    rank[order] = np.arange(n)
+    return rank, (cols_primary_first, order, rank)
+
+
+def _full_rank(cols_primary_first: List[np.ndarray]):
+    order = np.lexsort(tuple(reversed(cols_primary_first)))
+    rank = np.empty(len(order), np.int64)
+    rank[order] = np.arange(len(order))
+    return rank, (cols_primary_first, order, rank)
+
+
+def _lex_searchsorted(cols: List[np.ndarray], base_seq: np.ndarray,
+                      ins_rows: np.ndarray) -> np.ndarray:
+    """Insertion positions of ``ins_rows`` into the key-sorted
+    ``base_seq`` under the primary-first lexicographic key — a
+    vectorized binary search (keys are unique across rows, so left/right
+    bisection are the same position)."""
+    m = len(ins_rows)
+    lo = np.zeros(m, np.int64)
+    hi = np.full(m, len(base_seq), np.int64)
+    if not len(base_seq):
+        return lo
+    while True:
+        active = lo < hi
+        if not active.any():
+            return lo
+        mid = (lo + hi) // 2
+        probe = base_seq[np.clip(mid, 0, len(base_seq) - 1)]
+        less = np.zeros(m, bool)      # key(probe) < key(ins)
+        decided = np.zeros(m, bool)
+        for col in cols:
+            a = col[probe]
+            b = col[ins_rows]
+            less |= ~decided & (a < b)
+            decided |= a != b
+        lo = np.where(active & less, mid + 1, lo)
+        hi = np.where(active & ~less, mid, hi)

@@ -1,0 +1,218 @@
+"""Device-resident snapshot planes with delta uploads.
+
+The counterpart of the JAX package's ``ops/devsnap.py``.  Most node-side
+solver planes -- allocatable capacity, max-task counts, readiness,
+label/taint bit planes, the node-class id plane -- change only when the
+NODE table changes (the mirror's epoch key), not per cycle.
+``DeviceSnapshot`` keeps one persistent tensor per plane on the store's
+device, keyed by the mirror epoch + plane shapes:
+
+- key unchanged -> the cached tensors go straight to the solve: zero
+  upload, zero host copy;
+- epoch advanced with shapes intact -> only the rows the mirror recorded
+  dirty (``StoreMirror.node_delta_rows``) are uploaded and written into
+  the persistent tensor in place by the ``scatter_rows`` kernel
+  (``ops/kernels.py``), chunked under the staging budget;
+- shape changed / delta unprovable -> full re-upload.
+
+Only ``scatter_rows`` writes a resident plane; the solve reads them (its
+per-cycle state -- idle, pod counts, queue allocations -- lives in fresh
+tensors).  The JAX package padded each delta to a power of two with
+duplicate rows so one compiled scatter served many lengths; the port
+passes the unique row list.
+
+One snapshot lives per store (``store.device_snapshot``), created by the
+fast path on first use.  The mesh-sharded placement is not ported
+(ROADMAP.md, queue 1: multi-GPU).
+"""
+
+from __future__ import annotations
+
+import os
+from typing import Callable, Dict, Optional, Tuple
+
+import numpy as np
+import torch
+
+from ..device import to_tensor
+from . import kernels
+
+# Above this fraction of rows dirty, a full re-upload beats the scatter.
+DELTA_MAX_FRACTION = 0.25
+
+
+def budget_bytes() -> int:
+    """Per-scatter host-staging budget for delta uploads
+    (``VOLCANO_TPU_DEVSNAP_BUDGET_MB``, default 256 MB): each plane's
+    delta values are built and uploaded in chunks under it, so a churn
+    burst peaks at one chunk of staging memory per plane."""
+    try:
+        mb = float(os.environ.get("VOLCANO_TPU_DEVSNAP_BUDGET_MB", 256))
+    except ValueError:
+        mb = 256.0
+    # Fractional MB are accepted so tests can force the chunked path at
+    # toy shapes; the 4 KB floor keeps a typo'd value from degenerating
+    # to row-at-a-time scatters.
+    return max(4096, int(mb * 1_000_000))
+
+
+def _chunk_rows_for(row_nbytes: int) -> int:
+    """Rows per delta-scatter chunk under the budget (a power of two, as
+    the JAX package sizes them, so both packages chunk alike)."""
+    rows = max(1, budget_bytes() // max(1, row_nbytes))
+    p = 1
+    while p * 2 <= rows:
+        p *= 2
+    return p
+
+
+class DeviceSnapshot:
+    """Persistent per-device plane set for one store (see module doc)."""
+
+    def __init__(self, device: torch.device):
+        self.device = torch.device(device)
+        # name -> tensor, all planes sharing self._key.
+        self._planes: Dict[str, torch.Tensor] = {}
+        self._key: Optional[Tuple] = None
+        # Two-phase class tables ([C, *], tiny), content-addressed.
+        self._cls_planes: Dict[str, torch.Tensor] = {}
+        self._cls_key: Optional[Tuple] = None
+        # Telemetry: full vs delta vs hit counts.
+        self.full_uploads = 0
+        self.delta_uploads = 0
+        self.hits = 0
+        self.class_uploads = 0
+        self.class_hits = 0
+        # Extra scatter passes taken because a delta exceeded the
+        # per-scatter staging budget (see budget_bytes).
+        self.delta_chunks = 0
+
+    def _put_plane(self, a: np.ndarray) -> torch.Tensor:
+        return to_tensor(np.ascontiguousarray(a), self.device)
+
+    def _scatter(self, name: str, rows: np.ndarray, vals) -> None:
+        plane = self._planes[name]
+        vals = np.ascontiguousarray(vals)
+        if vals.dtype == np.uint32:
+            vals = vals.view(np.int32)
+        if vals.shape != (len(rows), *plane.shape[1:]):
+            raise ValueError(f"delta of plane {name}: {vals.shape} rows "
+                             f"for a {tuple(plane.shape)} plane")
+        kernels.scatter_rows(
+            plane, to_tensor(rows.astype(np.int32), self.device),
+            to_tensor(vals, self.device))
+
+    # Called only from FastCycle._solve_inputs, inside the cycle's
+    # ``with store._lock`` -- the mirror delta reads and resets below
+    # mutate store-guarded state.
+    def node_planes(self, m, key: Tuple,
+                    build: Dict[str, Callable[..., np.ndarray]]):
+        """Return ``{name: tensor}`` for the node-side planes.
+
+        ``key`` is ``(epoch, shape components...)`` with the epoch FIRST;
+        ``build[name](rows)`` returns the full padded host plane when
+        ``rows`` is None, or just those rows' values for a delta scatter
+        (only called on upload -- a key hit touches no host memory).  All
+        planes move together under one key."""
+        if self._key == key and self._planes.keys() == build.keys():
+            self.hits += 1
+            return self._planes
+        delta_rows = None
+        if (
+            self._key is not None
+            and self._key[1:] == key[1:]
+            and self._planes.keys() == build.keys()
+        ):
+            delta_rows = m.node_delta_rows(self._key[0])
+            n_rows = key[1] if len(key) > 1 else 0
+            if delta_rows is not None and (
+                len(delta_rows) == 0
+                or len(delta_rows) > max(1, int(n_rows))
+                * DELTA_MAX_FRACTION
+            ):
+                delta_rows = None if len(delta_rows) else delta_rows
+        if delta_rows is not None and len(delta_rows) == 0:
+            # Epoch moved but no node rows recorded dirty: planes are
+            # current.
+            m.reset_node_delta()
+            self._key = key
+            self.hits += 1
+            return self._planes
+        if delta_rows is not None:
+            delta_rows = np.unique(np.asarray(delta_rows, np.int64))
+            n_plane = int(next(iter(self._planes.values())).shape[0])
+            if delta_rows[0] < 0 or delta_rows[-1] >= n_plane:
+                raise ValueError(
+                    f"node delta rows outside [0, {n_plane}): "
+                    f"{delta_rows[0]}..{delta_rows[-1]}")
+            for name, fn in build.items():
+                # One-row probe sizes the plane's delta chunks (and
+                # detects the delta-unprovable answer) without
+                # materializing the full values array first.
+                probe = fn(delta_rows[:1])
+                if probe is None:
+                    # Plane-level delta unprovable (class ids after the
+                    # class SET changed): re-upload just this plane.
+                    self._planes[name] = self._put_plane(
+                        np.asarray(fn(None)))
+                    continue
+                row_nb = max(1, np.asarray(probe).nbytes)
+                chunk = _chunk_rows_for(row_nb)
+                n_chunks = 0
+                for lo in range(0, len(delta_rows), chunk):
+                    crows = delta_rows[lo:lo + chunk]
+                    vals = (probe if len(crows) == 1 and lo == 0
+                            else fn(crows))
+                    self._scatter(name, crows, np.asarray(vals))
+                    n_chunks += 1
+                self.delta_chunks += max(0, n_chunks - 1)
+            m.reset_node_delta()
+            self._key = key
+            self.delta_uploads += 1
+            return self._planes
+        self._planes = {
+            name: self._put_plane(np.asarray(fn(None)))
+            for name, fn in build.items()
+        }
+        m.reset_node_delta()
+        self._key = key
+        self.full_uploads += 1
+        return self._planes
+
+    def resident_bytes(self) -> int:
+        """Device-resident footprint: the sum of every plane's (and class
+        table's) bytes."""
+        return sum(int(t.numel() * t.element_size())
+                   for group in (self._planes, self._cls_planes)
+                   for t in group.values())
+
+    def class_tables(self, key: Tuple,
+                     build: Dict[str, Callable[[], np.ndarray]]):
+        """Device-resident node-class tables for the two-phase solve
+        ([C, *] rows), content-addressed: epoch churn that leaves the
+        class SET intact re-uploads nothing.  The [N] ``class_id`` plane
+        rides ``node_planes``' delta machinery instead."""
+        if self._cls_key == key:
+            self.class_hits += 1
+            return self._cls_planes
+        self._cls_planes = {
+            name: self._put_plane(np.asarray(fn()))
+            for name, fn in build.items()
+        }
+        self._cls_key = key
+        self.class_uploads += 1
+        return self._cls_planes
+
+
+def for_store(store, device, mesh=None) -> DeviceSnapshot:
+    """The store's snapshot on ``device``, created on first use; a
+    snapshot on another device is replaced wholesale."""
+    if mesh is not None:
+        from ..cache.store import not_ported
+
+        raise not_ported("the mesh-sharded device snapshot", "multi-GPU")
+    device = torch.device(device)
+    snap = getattr(store, "device_snapshot", None)
+    if snap is None or snap.device != device:
+        snap = store.device_snapshot = DeviceSnapshot(device)
+    return snap

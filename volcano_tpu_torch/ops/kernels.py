@@ -1,11 +1,14 @@
-"""The wave solve's four hand-written CUDA kernels, their loader, and their
-plain PyTorch versions.
+"""The wave solve's and the device-incremental lane's hand-written CUDA
+kernels, their loader, and their plain PyTorch versions.
 
 =====================  ===================================================
 wrapper                replaces (JAX package)
 =====================  ===================================================
 ``coarse_shortlist``   ``ops/wave.py:_coarse_shortlist`` (:547) with
-                       ``_class_static`` (:285) and ``_topk_nodes`` (:498)
+                       ``_class_static`` (:285) and ``_topk_nodes`` (:498);
+                       ``n_blocks`` gives its ``with_cand`` form (per-block
+                       top-k + ``_merge_block_cands``, :449), ``stat`` its
+                       ``static_ext`` form
 ``rank_candidates``    ``live_parts_sl`` + ``rank_shortlist`` (:1302,
                        :1376); on all N nodes the fallback's ``live_parts``
                        + ``rank_nodes`` (:1192, :1277)
@@ -13,6 +16,9 @@ wrapper                replaces (JAX package)
                        acceptance (:1660-2003)
 ``apply_commit``       the sub-round apply (:2013-2021, :2125-2131) and the
                        final gang discard (:2262-2274)
+``static_planes``      ``ops/wave.py:_static_planes`` (:347)
+``warm_shortlist``     ``ops/wave.py:_warm_shortlist`` (:721)
+``scatter_rows``       ``ops/devsnap.py:_scatter_rows`` (:82)
 =====================  ===================================================
 
 Each wrapper takes its inputs as tensors.  On CPU tensors it runs the
@@ -54,6 +60,9 @@ LAUNCHES = {
     "rank_candidates": 0,
     "walk_accept": 0,
     "apply_commit": 0,
+    "static_planes": 0,
+    "warm_shortlist": 0,
+    "scatter_rows": 0,
 }
 
 # Where each kernel's source lives and which JAX code it replaces
@@ -63,15 +72,22 @@ KERNEL_SOURCES = {
     "rank_candidates": "volcano_tpu_torch/csrc/rank_candidates.cu",
     "walk_accept": "volcano_tpu_torch/csrc/walk_accept.cu",
     "apply_commit": "volcano_tpu_torch/csrc/apply_commit.cu",
+    "static_planes": "volcano_tpu_torch/csrc/coarse_shortlist.cu",
+    "warm_shortlist": "volcano_tpu_torch/csrc/warm_shortlist.cu",
+    "scatter_rows": "volcano_tpu_torch/csrc/scatter_rows.cu",
 }
 REPLACES = {
     "coarse_shortlist": "volcano_tpu/ops/wave.py:547",
     "rank_candidates": "volcano_tpu/ops/wave.py:1376",
     "walk_accept": "volcano_tpu/ops/wave.py:1660",
     "apply_commit": "volcano_tpu/ops/wave.py:2013",
+    "static_planes": "volcano_tpu/ops/wave.py:347",
+    "warm_shortlist": "volcano_tpu/ops/wave.py:721",
+    "scatter_rows": "volcano_tpu/ops/devsnap.py:82",
 }
 
 MAX_R = 16  # csrc/common.cuh kMaxR
+MAX_SMEM = 232_448  # shared memory one block may use on Hopper
 
 # Optional input capture: when a dict, each wrapper stores clones of the
 # inputs of its first kernel launch under its name (chip_smoke.py replays
@@ -98,7 +114,7 @@ def _capture(name: str, **inputs) -> None:
 _CSRC = Path(__file__).resolve().parent.parent / "csrc"
 _BUILD = _CSRC / "_build"
 _SOURCES = ("coarse_shortlist.cu", "rank_candidates.cu", "walk_accept.cu",
-            "apply_commit.cu")
+            "apply_commit.cu", "warm_shortlist.cu", "scatter_rows.cu")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-O3",
               "-fmad=false", "-std=c++17", "-Xcompiler", "-fPIC")
 BUILD_SECONDS: Optional[float] = None
@@ -164,11 +180,19 @@ def build() -> Path:
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
+_L = ctypes.c_int64
 _SIGS = {
     "vtt_coarse_shortlist": [_P, _P, _I, _I, _P, _I, _P, _I, _P, _P, _I, _P,
                              _I, _P, _P, _P, _P, _P, _I, _P, _P, _P, _P, _I,
-                             _P, _P, _P, _F, _F, _F, _F, _F, _I, _I, _P, _P,
-                             _P, _P, _P],
+                             _P, _P, _P, _F, _F, _F, _F, _F, _I, _I, _I, _P,
+                             _P, _P, _P, _P],
+    "vtt_static_planes": [_I, _P, _I, _P, _I, _P, _P, _I, _P, _I, _P, _P,
+                          _P, _P, _I, _F, _I, _P, _P, _P],
+    "vtt_block_shortlist": [_I, _P, _P, _I, _I, _P, _P, _I, _P, _P, _P, _P,
+                            _P, _P, _P, _P, _F, _F, _F, _F, _P, _I, _I, _I,
+                            _I, _I, _P, _P, _P, _P, _P, _P, _P],
+    "vtt_block_shortlist_smem": [_I, _I],
+    "vtt_scatter_rows": [_P, _P, _P, _I, _L, _P],
     "vtt_rank_candidates": [_P, _I, _P, _I, _P, _P, _I, _P, _P, _P, _I, _P,
                             _P, _P, _P, _P, _P, _P, _F, _F, _F, _F, _I, _P,
                             _P, _P, _P, _P, _P],
@@ -268,63 +292,60 @@ def class_static_plain(sel_bits, aff_bits, aff_terms, tol_bits, pref_bits,
     return ok, naff * acc
 
 
-def _coarse_plain(req, init_req, stat_ok, stat_score, cls_id, idle, alloc,
-                  ntasks, max_tasks, eps, scalar_slot, weights, S):
-    feas = stat_ok[:, cls_id.long()]
-    static_score = stat_score[:, cls_id.long()]
+def _masked_plain(req, init_req, stat_ok, stat_score, cid, idle, alloc,
+                  ntasks, max_tasks, eps, scalar_slot, weights):
+    """[U, M] solve-start scores of node rows whose planes are given
+    (``cid`` their class ids), NEG where infeasible -- the coarse body
+    (wave.py:640-664) without ports and inter-pod terms."""
+    cid = cid.long()
+    feas = stat_ok[:, cid]
+    static_score = stat_score[:, cid]
     fit = less_equal(init_req[:, None, :], idle[None, :, :], eps, scalar_slot)
     pods_ok = (max_tasks <= 0) | (ntasks < max_tasks)
     feas = feas & fit & pods_ok[None, :]
     score = node_score(req[:, None, :], alloc[None], idle[None], weights)
     score = score + static_score
-    masked = torch.where(feas, score, torch.full_like(score, NEG))
+    return torch.where(feas, score, torch.full_like(score, NEG))
+
+
+def _coarse_plain(req, init_req, stat_ok, stat_score, cls_id, idle, alloc,
+                  ntasks, max_tasks, eps, scalar_slot, weights, S):
+    masked = _masked_plain(req, init_req, stat_ok, stat_score, cls_id, idle,
+                           alloc, ntasks, max_tasks, eps, scalar_slot,
+                           weights)
     idx = _select_desc(masked, S)
     return torch.sort(idx, dim=1).values.to(torch.int32)
 
 
-def coarse_shortlist(prof, cls, idle, alloc, ntasks, max_tasks, eps,
-                     scalar_slot, weights, S: int, has_taints: bool,
-                     plain: bool = False):
-    """Phase 1: ``(shortlist [U, S] int32 ascending ids, stat_ok [U, C]
-    bool, stat_score [U, C] f32)``.
+def _block_rank_plain(masked, block_ids, nlb: int, klb: int):
+    """Per-block top-``klb`` of ``masked`` [U, nb * nlb] (the rows of
+    blocks ``block_ids``, in that order) in rank order:
+    ``(cand_s, cand_i [U, nb, klb])`` with global node ids."""
+    U = masked.shape[0]
+    nb = block_ids.shape[0]
+    vals, order = torch.sort(masked.reshape(U, nb, nlb), dim=2,
+                             descending=True, stable=True)
+    gid = order[:, :, :klb] + (block_ids.long() * nlb)[None, :, None]
+    return vals[:, :, :klb].contiguous(), gid.to(torch.int32)
 
-    ``prof`` is a ``SolveProfiles`` of tensors (bit planes as int32),
-    ``cls`` a ``NodeClasses`` of tensors.  ``stat_ok``/``stat_score`` are
-    the per-(profile, class) static planes phase 2 reuses: rows compute
-    independently, so gathering a wave's rows equals evaluating them per
-    wave (the JAX package's static_ext contract)."""
-    naff = float(weights.node_affinity_weight)
-    if not _on_card(plain, idle, prof.req, cls.class_id):
-        ok, score = class_static_plain(
-            prof.sel_bits, prof.aff_bits, prof.aff_terms, prof.tol_bits,
-            prof.pref_bits, prof.pref_w, cls.label_bits, cls.taint_bits,
-            cls.ready, naff, has_taints,
-        )
-        sl = _coarse_plain(prof.req, prof.init_req, ok, score, cls.class_id,
-                           idle, alloc, ntasks, max_tasks, eps, scalar_slot,
-                           weights, S)
-        return sl, ok, score
-    U, R = prof.req.shape
-    N = idle.shape[0]
-    C = cls.ready.shape[0]
-    if R > MAX_R:
-        raise ValueError(f"{R} resource slots exceed the kernels' {MAX_R}")
-    if not 1 <= S <= N:
-        raise ValueError(f"shortlist size {S} outside [1, {N}]")
+
+def _merge_plain(cand_s, cand_i, S: int):
+    """Top-``S`` over the [U, B * klb] candidate positions (ties to the
+    lower position), ids sorted ascending (``_merge_block_cands`` + the
+    ascending sort)."""
+    U = cand_s.shape[0]
+    pos = _select_desc(cand_s.reshape(U, -1), S)
+    ids = torch.gather(cand_i.reshape(U, -1), 1, pos)
+    return torch.sort(ids, dim=1).values.to(torch.int32)
+
+
+def _prof_args(prof, cls, idle, alloc, ntasks, max_tasks, eps, scalar_slot,
+               weights, stat=None):
     f32, i32, u8 = torch.float32, torch.int32, torch.bool
-    args = dict(
+    a = dict(
         req=_req(prof.req, f32, "req"),
         init_req=_req(prof.init_req, f32, "init_req"),
-        sel_bits=_req(prof.sel_bits, i32, "sel_bits"),
-        aff_bits=_req(prof.aff_bits, i32, "aff_bits"),
-        aff_terms=_req(prof.aff_terms, i32, "aff_terms"),
-        tol_bits=_req(prof.tol_bits, i32, "tol_bits"),
-        pref_bits=_req(prof.pref_bits, i32, "pref_bits"),
-        pref_w=_req(prof.pref_w, f32, "pref_w"),
         cls_id=_req(cls.class_id, i32, "class_id"),
-        cls_label=_req(cls.label_bits, i32, "cls.label_bits"),
-        cls_taint=_req(cls.taint_bits, i32, "cls.taint_bits"),
-        cls_ready=_req(cls.ready, u8, "cls.ready"),
         idle=_req(idle, f32, "idle"), alloc=_req(alloc, f32, "alloc"),
         ntasks=_req(ntasks, i32, "ntasks"),
         max_tasks=_req(max_tasks, i32, "max_tasks"),
@@ -332,33 +353,303 @@ def coarse_shortlist(prof, cls, idle, alloc, ntasks, max_tasks, eps,
         scalar_slot=_req(scalar_slot, u8, "scalar_slot"),
         bres=_req(weights.binpack_res, f32, "binpack_res"),
     )
-    if (args["cls_taint"].shape[1] != args["tol_bits"].shape[1]
-            or args["cls_label"].shape[1] != args["sel_bits"].shape[1]
-            or args["cls_id"].shape[0] != N or alloc.shape != idle.shape):
-        raise ValueError("coarse_shortlist: inconsistent input shapes")
-    _capture("coarse_shortlist", weights=weights, S=S,
-             has_taints=has_taints, **args)
+    if stat is None:
+        a.update(
+            sel_bits=_req(prof.sel_bits, i32, "sel_bits"),
+            aff_bits=_req(prof.aff_bits, i32, "aff_bits"),
+            aff_terms=_req(prof.aff_terms, i32, "aff_terms"),
+            tol_bits=_req(prof.tol_bits, i32, "tol_bits"),
+            pref_bits=_req(prof.pref_bits, i32, "pref_bits"),
+            pref_w=_req(prof.pref_w, f32, "pref_w"),
+            cls_label=_req(cls.label_bits, i32, "cls.label_bits"),
+            cls_taint=_req(cls.taint_bits, i32, "cls.taint_bits"),
+            cls_ready=_req(cls.ready, u8, "cls.ready"),
+        )
+    else:
+        a.update(stat_ok=_req(stat[0], u8, "stat_ok"),
+                 stat_score=_req(stat[1], f32, "stat_score"))
+    N = idle.shape[0]
+    R = prof.req.shape[1]
+    if R > MAX_R:
+        raise ValueError(f"{R} resource slots exceed the kernels' {MAX_R}")
+    if a["cls_id"].shape[0] != N or alloc.shape != idle.shape:
+        raise ValueError("coarse_shortlist: inconsistent node shapes")
+    return a
+
+
+def _block_geometry(N: int, B: int, S: int):
+    if B < 1 or N % B:
+        raise ValueError(f"{B} blocks do not divide {N} node rows")
+    nlb = N // B
+    klb = min(S, nlb)
+    if not 1 <= S <= B * klb:
+        raise ValueError(f"shortlist size {S} outside [1, {B * klb}]")
+    smem = load().vtt_block_shortlist_smem(nlb, S)
+    if smem > MAX_SMEM:
+        raise ValueError(f"blocks of {nlb} rows / shortlists of {S} need "
+                         f"{smem} bytes of shared memory")
+    return nlb, klb
+
+
+def _launch_block_shortlist(a, stat_ok, stat_score, weights, db, B, nlb,
+                            klb, S, old, cand_s, cand_i):
+    U, R = a["req"].shape
+    C = stat_ok.shape[1]
+    dev = a["idle"].device
+    keys = torch.empty((U, B * klb), dtype=torch.int64, device=dev)
+    out = torch.empty((U, S), dtype=torch.int32, device=dev)
+    rc = load().vtt_block_shortlist(
+        int(db is None), _ptr(a["req"]), _ptr(a["init_req"]), U, R,
+        _ptr(stat_ok), _ptr(stat_score), C, _ptr(a["cls_id"]),
+        _ptr(a["idle"]), _ptr(a["alloc"]), _ptr(a["ntasks"]),
+        _ptr(a["max_tasks"]), _ptr(a["eps"]), _ptr(a["scalar_slot"]),
+        _ptr(a["bres"]), *_weights(weights), _ptr(db),
+        0 if db is None else int(db.shape[0]), B, nlb, klb, S,
+        _ptr(old[0] if old else None), _ptr(old[1] if old else None),
+        _ptr(cand_s), _ptr(cand_i), _ptr(keys), _ptr(out), _stream(),
+    )
+    return rc, out
+
+
+def coarse_shortlist(prof, cls, idle, alloc, ntasks, max_tasks, eps,
+                     scalar_slot, weights, S: int, has_taints: bool,
+                     stat=None, n_blocks: int = 0, plain: bool = False):
+    """Phase 1: ``(shortlist [U, S] int32 ascending ids, stat_ok [U, C]
+    bool, stat_score [U, C] f32)``, plus ``(cand_s [U, B, klb] f32,
+    cand_i [U, B, klb] int32)`` when ``n_blocks`` (B) is given.
+
+    ``prof`` is a ``SolveProfiles`` of tensors (bit planes as int32),
+    ``cls`` a ``NodeClasses`` of tensors.  ``stat_ok``/``stat_score`` are
+    the per-(profile, class) static planes phase 2 reuses: rows compute
+    independently, so gathering a wave's rows equals evaluating them per
+    wave (the JAX package's static_ext contract).  ``stat``, a pair of
+    such planes, is taken as given instead of evaluated (``static_ext``).
+    ``n_blocks`` selects per node block (B ascending-id blocks of N / B
+    rows, top ``klb = min(S, N / B)`` each, in rank order) and merges the
+    winners (``with_cand``): the same shortlist, and the per-block
+    candidates a later ``warm_shortlist`` patches."""
+    naff = float(weights.node_affinity_weight)
+    if not _on_card(plain, idle, prof.req, cls.class_id):
+        if stat is None:
+            ok, score = class_static_plain(
+                prof.sel_bits, prof.aff_bits, prof.aff_terms,
+                prof.tol_bits, prof.pref_bits, prof.pref_w, cls.label_bits,
+                cls.taint_bits, cls.ready, naff, has_taints,
+            )
+        else:
+            ok, score = stat
+        if not n_blocks:
+            sl = _coarse_plain(prof.req, prof.init_req, ok, score,
+                               cls.class_id, idle, alloc, ntasks, max_tasks,
+                               eps, scalar_slot, weights, S)
+            return sl, ok, score
+        N = idle.shape[0]
+        nlb = N // n_blocks
+        klb = min(S, nlb)
+        masked = _masked_plain(prof.req, prof.init_req, ok, score,
+                               cls.class_id, idle, alloc, ntasks, max_tasks,
+                               eps, scalar_slot, weights)
+        cand_s, cand_i = _block_rank_plain(
+            masked, torch.arange(n_blocks, device=idle.device), nlb, klb)
+        return (_merge_plain(cand_s, cand_i, S), ok, score, cand_s, cand_i)
+    U, R = prof.req.shape
+    N = idle.shape[0]
+    C = cls.ready.shape[0] if stat is None else stat[0].shape[1]
+    if not 1 <= S <= N:
+        raise ValueError(f"shortlist size {S} outside [1, {N}]")
+    a = _prof_args(prof, cls, idle, alloc, ntasks, max_tasks, eps,
+                   scalar_slot, weights, stat)
+    if stat is None and (
+            a["cls_taint"].shape[1] != a["tol_bits"].shape[1]
+            or a["cls_label"].shape[1] != a["sel_bits"].shape[1]):
+        raise ValueError("coarse_shortlist: inconsistent bit-plane widths")
+    if stat is not None and (a["stat_ok"].shape != (U, C)
+                             or a["stat_score"].shape != (U, C)):
+        raise ValueError("coarse_shortlist: static planes are not [U, C]")
+    _capture("coarse_shortlist", weights=weights, S=S, has_taints=has_taints,
+             n_blocks=n_blocks, C=C, **a)
     dev = idle.device
-    stat_ok = torch.empty((U, C), dtype=torch.bool, device=dev)
-    stat_score = torch.empty((U, C), dtype=f32, device=dev)
+    if stat is None:
+        stat_ok = torch.empty((U, C), dtype=torch.bool, device=dev)
+        stat_score = torch.empty((U, C), dtype=torch.float32, device=dev)
+    else:
+        stat_ok, stat_score = a["stat_ok"], a["stat_score"]
+    if n_blocks:
+        nlb, klb = _block_geometry(N, n_blocks, S)
+        if stat is None:
+            _launch_static(a, U, C, naff, has_taints, stat_ok, stat_score)
+        cand_s = torch.empty((U, n_blocks, klb), dtype=torch.float32,
+                             device=dev)
+        cand_i = torch.empty((U, n_blocks, klb), dtype=torch.int32,
+                             device=dev)
+        rc, out = _launch_block_shortlist(
+            a, stat_ok, stat_score, weights, None, n_blocks, nlb, klb, S,
+            None, cand_s, cand_i)
+        _check(rc, "coarse_shortlist")
+        LAUNCHES["coarse_shortlist"] += 1
+        return out, stat_ok, stat_score, cand_s, cand_i
     keys = torch.empty((U, N), dtype=torch.int64, device=dev)
-    out = torch.empty((U, S), dtype=i32, device=dev)
-    a = args
+    out = torch.empty((U, S), dtype=torch.int32, device=dev)
+    z = torch.zeros(1, dtype=torch.int32, device=dev)
+    g = (lambda k: a.get(k, z))
     rc = load().vtt_coarse_shortlist(
-        _ptr(a["req"]), _ptr(a["init_req"]), U, R, _ptr(a["sel_bits"]),
-        a["sel_bits"].shape[1], _ptr(a["aff_bits"]), a["aff_bits"].shape[1],
-        _ptr(a["aff_terms"]), _ptr(a["tol_bits"]), a["tol_bits"].shape[1],
-        _ptr(a["pref_bits"]), a["pref_bits"].shape[1], _ptr(a["pref_w"]),
-        _ptr(a["cls_id"]), _ptr(a["cls_label"]), _ptr(a["cls_taint"]),
-        _ptr(a["cls_ready"]), C, _ptr(a["idle"]), _ptr(a["alloc"]),
-        _ptr(a["ntasks"]), _ptr(a["max_tasks"]), N, _ptr(a["eps"]),
-        _ptr(a["scalar_slot"]), _ptr(a["bres"]), *_weights(weights), naff,
-        int(bool(has_taints)), S, _ptr(stat_ok), _ptr(stat_score),
-        _ptr(keys), _ptr(out), _stream(),
+        _ptr(a["req"]), _ptr(a["init_req"]), U, R, _ptr(g("sel_bits")),
+        g("sel_bits").shape[-1] if stat is None else 0, _ptr(g("aff_bits")),
+        g("aff_bits").shape[1] if stat is None else 0, _ptr(g("aff_terms")),
+        _ptr(g("tol_bits")), g("tol_bits").shape[-1] if stat is None else 0,
+        _ptr(g("pref_bits")), g("pref_bits").shape[1] if stat is None else 0,
+        _ptr(g("pref_w")), _ptr(a["cls_id"]), _ptr(g("cls_label")),
+        _ptr(g("cls_taint")), _ptr(g("cls_ready")), C, _ptr(a["idle"]),
+        _ptr(a["alloc"]), _ptr(a["ntasks"]), _ptr(a["max_tasks"]), N,
+        _ptr(a["eps"]), _ptr(a["scalar_slot"]), _ptr(a["bres"]),
+        *_weights(weights), naff, int(bool(has_taints)), S,
+        int(stat is not None), _ptr(stat_ok), _ptr(stat_score), _ptr(keys),
+        _ptr(out), _stream(),
     )
     _check(rc, "coarse_shortlist")
     LAUNCHES["coarse_shortlist"] += 1
     return out, stat_ok, stat_score
+
+
+# ------------------------------------------------------- static_planes
+
+def _launch_static(a, U, C, naff, has_taints, stat_ok, stat_score) -> int:
+    rc = load().vtt_static_planes(
+        U, _ptr(a["sel_bits"]), a["sel_bits"].shape[1], _ptr(a["aff_bits"]),
+        a["aff_bits"].shape[1], _ptr(a["aff_terms"]), _ptr(a["tol_bits"]),
+        a["tol_bits"].shape[1], _ptr(a["pref_bits"]),
+        a["pref_bits"].shape[1], _ptr(a["pref_w"]), _ptr(a["cls_label"]),
+        _ptr(a["cls_taint"]), _ptr(a["cls_ready"]), C, naff,
+        int(bool(has_taints)), _ptr(stat_ok), _ptr(stat_score), _stream(),
+    )
+    _check(rc, "static_planes")
+    return rc
+
+
+def static_planes(prof, cls, naff: float, has_taints: bool,
+                  plain: bool = False):
+    """The [U, C] static planes ``(ok bool, score f32)`` of every profile
+    row against every node class (wave.py:347 ``_static_planes``): the
+    device-incremental lane's persistent planes."""
+    if not _on_card(plain, prof.sel_bits, cls.ready):
+        return class_static_plain(
+            prof.sel_bits, prof.aff_bits, prof.aff_terms, prof.tol_bits,
+            prof.pref_bits, prof.pref_w, cls.label_bits, cls.taint_bits,
+            cls.ready, float(naff), has_taints)
+    f32, i32, u8 = torch.float32, torch.int32, torch.bool
+    a = dict(
+        sel_bits=_req(prof.sel_bits, i32, "sel_bits"),
+        aff_bits=_req(prof.aff_bits, i32, "aff_bits"),
+        aff_terms=_req(prof.aff_terms, i32, "aff_terms"),
+        tol_bits=_req(prof.tol_bits, i32, "tol_bits"),
+        pref_bits=_req(prof.pref_bits, i32, "pref_bits"),
+        pref_w=_req(prof.pref_w, f32, "pref_w"),
+        cls_label=_req(cls.label_bits, i32, "cls.label_bits"),
+        cls_taint=_req(cls.taint_bits, i32, "cls.taint_bits"),
+        cls_ready=_req(cls.ready, u8, "cls.ready"),
+    )
+    U = a["sel_bits"].shape[0]
+    C = a["cls_ready"].shape[0]
+    if (a["cls_taint"].shape[1] != a["tol_bits"].shape[1]
+            or a["cls_label"].shape[1] != a["sel_bits"].shape[1]
+            or a["aff_bits"].shape[0] != U or a["pref_w"].shape[0] != U):
+        raise ValueError("static_planes: inconsistent input shapes")
+    _capture("static_planes", naff=float(naff), has_taints=has_taints, **a)
+    dev = a["sel_bits"].device
+    ok = torch.empty((U, C), dtype=u8, device=dev)
+    score = torch.empty((U, C), dtype=f32, device=dev)
+    _launch_static(a, U, C, float(naff), has_taints, ok, score)
+    LAUNCHES["static_planes"] += 1
+    return ok, score
+
+
+# ------------------------------------------------------ warm_shortlist
+
+def _warm_plain(req, init_req, stat_ok, stat_score, cls_id, idle, alloc,
+                ntasks, max_tasks, eps, scalar_slot, weights, db, cand_s,
+                cand_i, S):
+    B, klb = cand_s.shape[1], cand_s.shape[2]
+    nlb = idle.shape[0] // B
+    dbl = db.long()
+    rows = (dbl[:, None] * nlb
+            + torch.arange(nlb, device=idle.device)[None, :]).reshape(-1)
+    masked = _masked_plain(req, init_req, stat_ok, stat_score, cls_id[rows],
+                           idle[rows], alloc[rows], ntasks[rows],
+                           max_tasks[rows], eps, scalar_slot, weights)
+    s_new, i_new = _block_rank_plain(masked, db, nlb, klb)
+    cs = cand_s.clone()
+    ci = cand_i.clone()
+    cs[:, dbl] = s_new
+    ci[:, dbl] = i_new
+    return _merge_plain(cs, ci, S), cs, ci
+
+
+def warm_shortlist(prof, cls_id, stat_ok, stat_score, idle, alloc, ntasks,
+                   max_tasks, eps, scalar_slot, weights, db, cand_s, cand_i,
+                   S: int, plain: bool = False):
+    """Warm-started shortlists (wave.py:721 ``_warm_shortlist``):
+    re-rank only the node blocks ``db`` ([ndb] int32, unique block ids),
+    keep every other block's candidates from ``cand_s``/``cand_i``
+    ([U, B, klb]), merge the winners.  Returns ``(shortlist [U, S] int32
+    ascending ids, cand_s, cand_i)``; the candidates are new tensors (the
+    inputs are never written)."""
+    if not _on_card(plain, idle, prof.req, db, cand_s):
+        return _warm_plain(prof.req, prof.init_req, stat_ok, stat_score,
+                           cls_id, idle, alloc, ntasks, max_tasks, eps,
+                           scalar_slot, weights, db, cand_s, cand_i, S)
+    from .nodeclass import NodeClasses
+
+    U, B, klb = cand_s.shape
+    N = idle.shape[0]
+    a = _prof_args(prof, NodeClasses(cls_id, None, None, None), idle, alloc,
+                   ntasks, max_tasks, eps, scalar_slot, weights,
+                   (stat_ok, stat_score))
+    db = _req(db, torch.int32, "db")
+    cand_s = _req(cand_s, torch.float32, "cand_s")
+    cand_i = _req(cand_i, torch.int32, "cand_i")
+    nlb, klb_want = _block_geometry(N, B, S)
+    if (klb != klb_want or cand_i.shape != cand_s.shape
+            or a["req"].shape[0] != U or stat_ok.shape[0] != U
+            or db.dim() != 1 or not 1 <= db.shape[0] <= B):
+        raise ValueError("warm_shortlist: inconsistent input shapes")
+    _capture("warm_shortlist", weights=weights, S=S, db=db, cand_s=cand_s,
+             cand_i=cand_i, **a)
+    dev = idle.device
+    new_s = torch.empty_like(cand_s)
+    new_i = torch.empty_like(cand_i)
+    rc, out = _launch_block_shortlist(
+        a, a["stat_ok"], a["stat_score"], weights, db, B, nlb, klb, S,
+        (cand_s, cand_i), new_s, new_i)
+    _check(rc, "warm_shortlist")
+    LAUNCHES["warm_shortlist"] += 1
+    return out, new_s, new_i
+
+
+# -------------------------------------------------------- scatter_rows
+
+def scatter_rows(buf: torch.Tensor, rows: torch.Tensor, vals: torch.Tensor,
+                 plain: bool = False) -> None:
+    """``buf[rows] = vals`` in place along the leading axis
+    (devsnap.py:82 ``_scatter_rows``).  ``rows`` [k] int32 must be unique
+    and lie in ``[0, buf.shape[0])``; the caller checks that where the
+    rows come from."""
+    if not _on_card(plain, buf, rows, vals):
+        buf[rows.long()] = vals
+        return
+    _req(buf, buf.dtype, "buf")
+    _req(rows, torch.int32, "rows")
+    _req(vals, buf.dtype, "vals")
+    k = rows.shape[0]
+    if rows.dim() != 1 or vals.shape != (k, *buf.shape[1:]):
+        raise ValueError("scatter_rows: vals must be [len(rows), *row]")
+    if k == 0:
+        return
+    _capture("scatter_rows", buf=buf, rows=rows, vals=vals)
+    row_bytes = buf[0].numel() * buf.element_size()
+    rc = load().vtt_scatter_rows(_ptr(buf), _ptr(rows), _ptr(vals), k,
+                                 row_bytes, _stream())
+    _check(rc, "scatter_rows")
+    LAUNCHES["scatter_rows"] += 1
 
 
 # ----------------------------------------------------- rank_candidates

@@ -22,12 +22,13 @@ This module runs the same computation:
 Supported: node selectors, required and preferred node affinity (through
 the static class planes), taints and tolerations, pod-slot limits,
 queue-overuse gating, compacted and identity node classes, the
-shortlist-exhaustion fallback rescore, the gang discard.  Host ports,
-inter-pod affinity and spread, releasing / pipelined capacity, custom
-plugin masks and scores, a topology node bias, mesh sharding, the
-device-incremental cache and ``VOLCANO_TPU_TWOPHASE=0`` raise
-``NotImplementedError``: the port never computes a different answer for
-them.
+shortlist-exhaustion fallback rescore, the gang discard, device-resident
+node planes and the device-incremental lane (``devincr``: persistent
+static planes, warm-started shortlists).  Host ports, inter-pod affinity
+and spread, releasing / pipelined capacity, custom plugin masks and
+scores, a topology node bias, mesh sharding and
+``VOLCANO_TPU_TWOPHASE=0`` raise ``NotImplementedError``: the port never
+computes a different answer for them.
 """
 
 from __future__ import annotations
@@ -805,8 +806,17 @@ def solve_wave(
     result (wave.py:2674), plus:
 
     ``device``: where the solve runs -- the card unless the caller passes
-    ``device="cpu"`` (without a card the default raises).  Inputs may be
-    numpy arrays or tensors anywhere; the host prep reads them as numpy.
+    ``device="cpu"`` (without a card the default raises).  Task, job,
+    queue and affinity inputs are read as numpy.  Node planes are taken as
+    given: numpy planes upload, tensors already on ``device`` (a
+    device-resident snapshot) are used in place and never copied back; the
+    host flags the prep needs come from ``taint_any`` / ``node_classes``
+    or from host arrays, and any flag read off a device tensor counts in
+    ``LAST_TWOPHASE["host_reads"]``.
+
+    ``devincr``: an ``ops.devincr.DeviceIncremental`` primed by
+    ``begin_solve`` -- its persistent static planes and warm shortlists
+    replace the direct coarse pass, with identical results.
 
     ``plain``: run the kernels' plain PyTorch versions on the card.  Only
     the kernel-versus-plain comparison of ``chip_smoke.py`` sets it; on CPU
@@ -821,20 +831,30 @@ def solve_wave(
     if mesh_shards and int(mesh_shards) > 1:
         raise _unsupported("mesh sharding (mesh_shards > 1)",
                            "queue 2, multi-GPU")
-    if devincr is not None:
-        raise _unsupported("the device-incremental cache (devincr)",
-                           "queue 2, devincr")
     if extra_ok is not None:
         raise _unsupported("custom predicate masks (extra_ok)",
-                           "queue 2, the cycle drivers")
+                           "queue 1, the object session")
     if extra_score is not None:
         raise _unsupported("custom node scores (extra_score)",
-                           "queue 2, the cycle drivers")
+                           "queue 1, the object session")
     if not _two_phase_on():
         raise _unsupported("the single-phase solve (VOLCANO_TPU_TWOPHASE=0)",
                            "queue 2, ports/affinity/future")
     t_start = _time.perf_counter()
-    nodes = SolveNodes(*[_np(a) for a in nodes])
+    # Node planes are taken as given: numpy planes upload, tensors (the
+    # fast path's device-resident snapshot) are used where they lie and
+    # are never read back.  Host flags come from host arrays or from the
+    # caller (taint_any, node_classes); a flag that has to be read off a
+    # device tensor is counted in LAST_TWOPHASE["host_reads"].
+    host_reads = 0
+
+    def host_any(a) -> bool:
+        nonlocal host_reads
+        if isinstance(a, torch.Tensor) and a.device.type != "cpu":
+            host_reads += 1
+            return bool(a.any())
+        return bool(_np(a).any())
+
     tasks = SolveTasks(*[_np(a) for a in tasks])
     jobs = SolveJobs(*[_np(a) for a in jobs])
     queues = SolveQueues(*[_np(a) for a in queues])
@@ -879,8 +899,8 @@ def solve_wave(
             or cnt0_any
         ),
         (bool(taint_any) if taint_any is not None
-         else bool(_np(nodes.taint_bits).any())),
-        bool(_np(nodes.releasing).any() or _np(nodes.pipelined).any()),
+         else host_any(nodes.taint_bits)),
+        host_any(nodes.releasing) or host_any(nodes.pipelined),
         bool((_np(queues.deserved) < 1.0e38).any()),
         False,
         False,
@@ -895,15 +915,22 @@ def solve_wave(
                            "queue 2, ports/affinity/future")
     N_in = int(nodes.idle.shape[0])
     if node_classes is None and _nodeclass_on():
-        node_classes = _host_node_classes(nodes)
+        planes = (nodes.label_bits, nodes.taint_bits, nodes.ready,
+                  nodes.allocatable, nodes.max_tasks)
+        host_reads += sum(isinstance(a, torch.Tensor)
+                          and a.device.type != "cpu" for a in planes)
+        node_classes = _host_node_classes(
+            nodes._replace(**{f: _np(getattr(nodes, f)) for f in (
+                "label_bits", "taint_bits", "ready", "allocatable",
+                "max_tasks")}))
     cls_identity = node_classes is None
     sl_k = shortlist_size(N_in)
 
     # Device placement.  Bit planes travel as int32 (same bits).
     nodes_t = tree_to(nodes, dev)
     prof_t = tree_to(profiles, dev)
-    cls_t = None if cls_identity else tree_to(
-        NodeClasses(*[_np(a) for a in node_classes]), dev)
+    cls_t = _identity_classes(nodes_t) if cls_identity else tree_to(
+        NodeClasses(*node_classes), dev)
     weights_t = ScoreWeights(
         binpack_weight=float(weights.binpack_weight),
         binpack_res=to_tensor(np.asarray(_np(weights.binpack_res),
@@ -928,10 +955,22 @@ def solve_wave(
     t_prep = _time.perf_counter() - t_start
 
     t0 = _time.perf_counter()
-    sl, stat_ok, stat_score = _coarse_shortlist(
-        nodes_t, prof_t, cls_t, weights_t, eps_t, slot_t, sl_k, features,
-        plain=plain,
-    )
+    dv = devincr
+    # Device-incremental lane: persistent [U, C] static planes and
+    # warm-started shortlists, bit-identical to the direct pass (None
+    # without a static key from begin_solve).
+    stat = None if dv is None else dv.static_planes(
+        prof_t, cls_t, weights_t.node_affinity_weight,
+        has_taints=features[2], cls_identity=cls_identity, plain=plain)
+    if stat is not None:
+        sl = dv.shortlist(nodes_t, prof_t, cls_t, weights_t, eps_t, slot_t,
+                          sl_k, features, cls_identity, stat, plain=plain)
+        stat_ok, stat_score = stat
+    else:
+        sl, stat_ok, stat_score = _coarse_shortlist(
+            nodes_t, prof_t, cls_t, weights_t, eps_t, slot_t, sl_k,
+            features, plain=plain,
+        )
     _sync(dev)
     t_coarse = _time.perf_counter() - t0
     t0 = _time.perf_counter()
@@ -955,7 +994,11 @@ def solve_wave(
         "compacted_classes": not cls_identity,
         "waves": n_waves,
         "syncs": syncs,
+        "host_reads": host_reads,
+        "devincr": dv.solve_info() if dv is not None else None,
     })
+    if dv is not None:
+        dv.end_solve()
     if pad:
         res = res._replace(
             assigned=res.assigned[:P], pipelined=res.pipelined[:P]
