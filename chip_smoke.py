@@ -738,28 +738,48 @@ def run_cycle(label, store, n_pods, steady=5, n_update=100, trace=False):
     from volcano_tpu_torch.framework import DEPLOYED_SCHEDULER_CONF
     from volcano_tpu_torch.scheduler import Scheduler
 
+    from volcano_tpu_torch.ops import wave as wave_mod
+
     sched = Scheduler(store, conf_str=DEPLOYED_SCHEDULER_CONF)
     stats = {"cycles": []}
     records = []
+    # Device planes each solve of the running cycle read back to the host
+    # (LAST_TWOPHASE["host_reads"], read after every solve_wave call).
+    solve_reads = []
+    solve_wave = wave_mod.solve_wave
+
+    def counted_solve(*a, **kw):
+        out = solve_wave(*a, **kw)
+        solve_reads.append(wave_mod.LAST_TWOPHASE.get("host_reads"))
+        return out
 
     def cycle(kind):
-        from volcano_tpu_torch.ops.wave import LAST_TWOPHASE
-
-        t0 = time.perf_counter()
-        sched.run_once()
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
+        solve_reads.clear()
+        wave_mod.solve_wave = counted_solve
+        try:
+            t0 = time.perf_counter()
+            sched.run_once()
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        finally:
+            wave_mod.solve_wave = solve_wave
         inv = cycle_invariants(store, n_pods)
         snap = store.device_snapshot
         rec = {"kind": kind, "wall_s": wall, "lanes_ms": _lanes(store),
-               "devincr": LAST_TWOPHASE.get("devincr"),
+               "devincr": wave_mod.LAST_TWOPHASE.get("devincr"),
                "devsnap": None if snap is None else [
                    snap.full_uploads, snap.delta_uploads, snap.hits],
-               **inv}
+               "host_reads": list(solve_reads), **inv}
         stats["cycles"].append(rec)
         _log(f"[{label}] {kind} cycle {wall:.4f} s devincr "
              f"{json.dumps(rec['devincr'])} devsnap(full,delta,hits) "
-             f"{rec['devsnap']} lanes(ms) {json.dumps(rec['lanes_ms'])}")
+             f"{rec['devsnap']} host reads per solve {rec['host_reads']} "
+             f"lanes(ms) {json.dumps(rec['lanes_ms'])}")
+        if kind == "cold" and not solve_reads:
+            raise AssertionError(f"[{label}] the cold cycle ran no solve")
+        if any(r != 0 for r in solve_reads):
+            raise AssertionError(f"[{label}] {kind} cycle: a solve read "
+                                 f"device planes back: {solve_reads}")
         records.append((dict(store.binder.binds),
                         {u: pg.status.phase
                          for u, pg in sorted(store.pod_groups.items())},
@@ -777,7 +797,15 @@ def run_cycle(label, store, n_pods, steady=5, n_update=100, trace=False):
         raise AssertionError(f"[{label}] no warm shortlist / static hit: "
                              f"{dv.counts} hits {dv.static_hits}")
     if trace:
-        stats["profile"] = profile_device(sched.run_once)
+        solve_reads.clear()
+        wave_mod.solve_wave = counted_solve
+        try:
+            stats["profile"] = profile_device(sched.run_once)
+        finally:
+            wave_mod.solve_wave = solve_wave
+        if any(r != 0 for r in solve_reads):
+            raise AssertionError(f"[{label}] traced cycle: a solve read "
+                                 f"device planes back: {solve_reads}")
         cycle_invariants(store, n_pods)
     full_before = dv.counts["full"] if dv is not None else 0
     m = store.mirror
@@ -953,10 +981,6 @@ def main() -> int:
     missing = [k for k, v in cyc_launches.items() if v == 0]
     if missing:
         raise AssertionError(f"[cycle] kernels never launched: {missing}")
-    from volcano_tpu_torch.ops.wave import LAST_TWOPHASE
-
-    if LAST_TWOPHASE.get("host_reads") != 0:
-        raise AssertionError("[cycle] the solve read device planes back")
     cprof = cyc_stats.pop("profile")
     _log(f"[cycle] {json.dumps(cyc_stats)}")
     if cprof:

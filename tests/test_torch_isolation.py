@@ -231,6 +231,14 @@ CYCLE_NOT_PORTED = {
         "configurations:\n- name: allocate\n  arguments:\n"
         "    solver: seq\n")),
     "pipeline": (_set("pipeline", True), _conf()),
+    "inter-pod affinity": (lambda: _store_with(affinity=[AffinityTerm(
+        match_labels={"app": "g"}, topology_key="zone")]), _conf()),
+    "anti-affinity": (lambda: _store_with(anti_affinity=[AffinityTerm(
+        match_labels={"app": "g"})]), _conf()),
+    "preferred affinity": (lambda: _store_with(preferred_affinity=[(
+        AffinityTerm(match_labels={"app": "g"}), 5)]), _conf()),
+    "spread": (lambda: _store_with(topology_spread=[("zone", 5)]),
+               _conf()),
 }
 
 
@@ -255,3 +263,53 @@ def test_store_slots_not_ported_raise(attr, value):
         setattr(store, attr, value)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         store.evict(None, "test")
+
+
+def test_unsupported_conf_raises_on_first_load():
+    """A conf the parser does not read raises from the first cycle: it is
+    never swapped for the default conf."""
+    from volcano_tpu_torch.scheduler import Scheduler
+
+    store = _cycle_store()
+    sched = Scheduler(store, conf_str=_conf() + "shuffle: true\n",
+                      device="cpu")
+    with pytest.raises(ValueError, match="unknown keys"):
+        sched.run_once()
+    assert not store.binder.binds
+
+
+def test_conf_hot_reload_keeps_last_good(tmp_path):
+    """After a conf has parsed, a broken reload keeps the last good one."""
+    from volcano_tpu_torch.scheduler import Scheduler
+
+    path = tmp_path / "conf.yaml"
+    path.write_text(_conf())
+    store = _cycle_store()
+    sched = Scheduler(store, conf_path=str(path), device="cpu")
+    sched.run_once()
+    first = len(store.binder.binds)
+    assert first
+    path.write_text(_conf() + "shuffle: true\n")
+    assert sched._load_conf() is sched._last_conf
+    sched.run_once()
+    assert len(store.binder.binds) == first
+
+
+def test_run_and_stop_loop():
+    """``run`` starts the periodic loop, which binds the pending pods;
+    ``stop`` joins it and a second ``run`` restarts it."""
+    import time
+
+    from volcano_tpu_torch.scheduler import Scheduler
+
+    store = _cycle_store()
+    sched = Scheduler(store, conf_str=_conf(), schedule_period=0.01,
+                      device="cpu")
+    for _ in range(2):
+        sched.run()
+        deadline = time.time() + 60
+        while not store.binder.binds and time.time() < deadline:
+            time.sleep(0.01)
+        sched.stop()
+        assert sched._thread is None
+    assert len(store.binder.binds) == 8

@@ -28,7 +28,8 @@ backfill}, plugins within ``FAST_PLUGINS`` (the eight built-ins), and the
 wave solver.  The JAX package's other lanes raise ``NotImplementedError``
 here, naming their ROADMAP.md item, before the cycle mutates anything:
 preempt / reclaim (eviction), rebalance, pipelined sessions, the remote
-solver, the device mesh, shards, and fabric topology constraints.
+solver and the device mesh.  Fabric topology constraints and inter-pod
+affinity or spread terms raise when allocate meets them.
 """
 
 from __future__ import annotations
@@ -52,7 +53,7 @@ from .api.resource import (
     MIN_MILLI_SCALAR,
     Resource,
 )
-from .arrays.affinity import AffinityArgs, empty_affinity
+from .arrays.affinity import empty_affinity
 from .cache.store import not_ported as _not_ported
 from .device import resolve_device
 from .framework.arguments import Arguments, get_action_args
@@ -194,12 +195,10 @@ class FastCycle:
     # ``with store._lock``, so every method below runs with the store
     # lock held.
 
-    def __init__(self, store, conf, shard=None, device=None):
+    def __init__(self, store, conf, device=None):
         self.store = store
         self.conf = conf
         self.m = store.mirror
-        if shard is not None:
-            raise _not_ported("the sharded control plane", "shards")
         self.uid = f"ssn-{next(_session_counter)}"
         # Where the solve and the device-resident snapshot live: the card
         # unless the caller (Scheduler(device=...)) says otherwise.
@@ -1170,64 +1169,53 @@ class FastCycle:
             # re-derive a SUBSET of round 1's pending set.
             self.stats["considered"] = max(
                 int(self.stats["considered"]), len(task_rows))
-            progress_any = False
-            never_any = False
-            chunks = list(self._solve_chunks(solve_jobs, task_rows))
-            for cjobs, crows in chunks:
-                with tracer.span("encode", lanes=lanes):
-                    inputs, pid, profiles, ncls = self._solve_inputs(
-                        cjobs, crows, slim=True)
-                # Device-incremental context: single-chunk solves only
-                # (chunked solves interleave commits, so each chunk would
-                # need its own proof).
-                dv = None
-                if len(chunks) == 1:
-                    dv = self._devincr_prepare(inputs)
-                    self._last_encode_token = (
-                        self._null_delta_token(solver, rounds)
-                        if dv_store is not None else None)
-                t0 = time.perf_counter()
-                result = solve_wave(*inputs, pid=pid, profiles=profiles,
-                                    taint_any=self._taint_any,
-                                    node_classes=ncls, devincr=dv,
-                                    device=self.device)
-                self._record_twophase_lanes()
-                # Commit prep that does not need the assignments.
-                req_gather = self.m.c_req.gather(crows)
-                self._obj_arrays()
-                # One device->host copy for the five results the commit
-                # reads (assignment, never-ready and fit-failed flags, the
-                # two shortlist-fallback counters).
-                P = len(crows)
-                J = int(result.never_ready.shape[0])
-                packed = torch.cat([
-                    result.assigned.reshape(-1).to(torch.int32),
-                    result.never_ready.reshape(-1).to(torch.int32),
-                    result.fit_failed.reshape(-1).to(torch.int32),
-                    result.fb_exhausted.reshape(1).to(torch.int32),
-                    result.fb_affinity.reshape(1).to(torch.int32),
-                ]).cpu().numpy()
-                assigned = packed[:P].astype(np.int64)
-                never_ready = packed[P:P + J].astype(bool)
-                fit_failed = packed[P + J:P + 2 * J].astype(bool)
-                self._count_shortlist_fb(int(packed[P + 2 * J]),
-                                         int(packed[P + 2 * J + 1]))
-                dt_dev = time.perf_counter() - t0
-                lanes["device"] = lanes.get("device", 0.0) + dt_dev
-                metrics.device_solve_latency.observe(dt_dev * 1e3)
-                tracer.event("device_solve", "device",
-                             time.perf_counter_ns() - int(dt_dev * 1e9),
-                             int(dt_dev * 1e9), tid="cycle",
-                             args={"rows": len(crows)})
-                with tracer.span("commit", lanes=lanes):
-                    progress = self._commit(
-                        cjobs, crows, assigned, never_ready, fit_failed,
-                        req_gather,
-                    )
-                progress_any |= progress
-                never_any |= bool(never_ready.any())
-            retry = never_any and progress_any
-            if not progress_any:
+            with tracer.span("encode", lanes=lanes):
+                inputs, pid, profiles, ncls = self._solve_inputs(
+                    solve_jobs, task_rows, slim=True)
+            dv = self._devincr_prepare(inputs)
+            self._last_encode_token = (
+                self._null_delta_token(solver, rounds)
+                if dv_store is not None else None)
+            t0 = time.perf_counter()
+            result = solve_wave(*inputs, pid=pid, profiles=profiles,
+                                taint_any=self._taint_any,
+                                node_classes=ncls, devincr=dv,
+                                device=self.device)
+            self._record_twophase_lanes()
+            # Commit prep that does not need the assignments.
+            req_gather = self.m.c_req.gather(task_rows)
+            self._obj_arrays()
+            # One device->host copy for the five results the commit reads
+            # (assignment, never-ready and fit-failed flags, the two
+            # shortlist-fallback counters).
+            P = len(task_rows)
+            J = int(result.never_ready.shape[0])
+            packed = torch.cat([
+                result.assigned.reshape(-1).to(torch.int32),
+                result.never_ready.reshape(-1).to(torch.int32),
+                result.fit_failed.reshape(-1).to(torch.int32),
+                result.fb_exhausted.reshape(1).to(torch.int32),
+                result.fb_affinity.reshape(1).to(torch.int32),
+            ]).cpu().numpy()
+            assigned = packed[:P].astype(np.int64)
+            never_ready = packed[P:P + J].astype(bool)
+            fit_failed = packed[P + J:P + 2 * J].astype(bool)
+            self._count_shortlist_fb(int(packed[P + 2 * J]),
+                                     int(packed[P + 2 * J + 1]))
+            dt_dev = time.perf_counter() - t0
+            lanes["device"] = lanes.get("device", 0.0) + dt_dev
+            metrics.device_solve_latency.observe(dt_dev * 1e3)
+            tracer.event("device_solve", "device",
+                         time.perf_counter_ns() - int(dt_dev * 1e9),
+                         int(dt_dev * 1e9), tid="cycle",
+                         args={"rows": len(task_rows)})
+            with tracer.span("commit", lanes=lanes):
+                progress = self._commit(
+                    solve_jobs, task_rows, assigned, never_ready,
+                    fit_failed, req_gather,
+                )
+            retry = bool(never_ready.any()) and progress
+            if not progress:
                 break
         if dv_store is not None:
             # Persist the skip proof iff nothing mutated after the last
@@ -1262,35 +1250,11 @@ class FastCycle:
         ])
         return np.unique(nds[nds >= 0])
 
-    # Affinity count tables past this size are not content-hashed per
-    # solve; warm shortlists simply disable (full re-rank — today's
-    # behavior) there.  8 MB ≈ 8 ms of blake2b worst case on the cycle
-    # thread, a bounded fraction of the warm win; beyond it the hash
-    # itself would eat the saving.  Env-overridable
-    # (VOLCANO_TPU_DEVINCR_CNT0_HASH_MAX, bytes): at the 100k-node
-    # tier the [E, D] pair outgrows 8 MB while the warm win ALSO grows
-    # with N, so deployments whose device lane dwarfs the hash cost
-    # raise the cap instead of silently losing warm shortlists at the
-    # exact scale they matter most.
-    _DEVINCR_CNT0_HASH_MAX = 8_000_000
-
-    @staticmethod
-    def _devincr_cnt0_hash_max() -> int:
-        raw = os.environ.get("VOLCANO_TPU_DEVINCR_CNT0_HASH_MAX")
-        if raw:
-            try:
-                return max(0, int(raw))
-            except ValueError:
-                pass
-        return FastCycle._DEVINCR_CNT0_HASH_MAX
-
     def _devincr_prepare(self, inputs):
         """Assemble the device-incremental cache keys + dirty superset
         for the solve about to run.  Returns the store's
         DeviceIncremental primed via ``begin_solve``, or None when the
         lane is off."""
-        import hashlib
-
         from .ops import devincr as _dvm
         from .ops import wave as _wave_mod
 
@@ -1310,20 +1274,10 @@ class FastCycle:
         cls_tok = self._cls_sig or f"identity-{m.epoch}"
         static_key = (cls_tok, int(gen), wt, int(self._solve_np),
                       self.R)
-        aff = inputs[7]
-        cnt0 = np.asarray(aff.cnt0)
-        warm_key = None
-        if cnt0.nbytes <= self._devincr_cnt0_hash_max():
-            if cnt0.any():
-                h = hashlib.blake2b(digest_size=16)
-                h.update(repr(cnt0.shape).encode())
-                h.update(np.ascontiguousarray(cnt0).tobytes())
-                cnt0_tok = h.hexdigest()
-            else:
-                cnt0_tok = f"z{cnt0.shape}"
-            warm_key = (static_key, int(m.epoch),
-                        int(m.node_liveness_gen), int(m.compact_gen),
-                        self.Nn, cnt0_tok)
+        # The encode refuses affinity terms, so the affinity counts are
+        # always zero and stay out of the key.
+        warm_key = (static_key, int(m.epoch), int(m.node_liveness_gen),
+                    int(m.compact_gen), self.Nn)
         dv = self.store._devincr_cache
         if dv is None:
             dv = _dvm.of_store(self.store)
@@ -1369,106 +1323,6 @@ class FastCycle:
         if self.Jn == 0 or not m.j_topo[:self.Jn].any():
             return False
         return _has_fabric(m)
-
-    def _solve_chunks(self, solve_jobs: List[int], task_rows: np.ndarray):
-        """Split one solve call at job boundaries when the affinity count
-        tensors would blow the device-memory budget.
-
-        The solver carries two dense [E, D] int32 count tensors; at
-        hyperscale with hostname-domain terms (50k nodes, 12k+ terms)
-        that is tens of GB.  Terms active per chunk shrink with the
-        chunk's job population, so solving in job-aligned chunks with a
-        host commit in between bounds the footprint — and later chunks
-        legitimately see earlier chunks' placements (the same state the
-        reference's sequential walk would show them)."""
-        m = self.m
-        raw = os.environ.get("VOLCANO_TPU_AFF_BUDGET_MB", "1024")
-        try:
-            budget = float(raw) * 1e6
-        except ValueError:
-            budget = float("nan")
-        if not (0 < budget < float("inf")):  # catches NaN, 0, negatives
-            if raw != "1024":
-                log.warning(
-                    "VOLCANO_TPU_AFF_BUDGET_MB=%r is not a positive "
-                    "number; using 1024", raw,
-                )
-            budget = 1024e6
-        # Footprint scales with the terms the PENDING rows actually touch
-        # (the solver compacts [E, D] to active terms), not the mirror's
-        # full interned term table.
-        er_a, ei_a = m.c_ip_aff.gather(task_rows)
-        er_n, ei_n = m.c_ip_anti.gather(task_rows)
-        er_s, ei_s, _ = m.c_ip_soft.gather(task_rows)
-        refs_row = np.concatenate([er_a, er_n, er_s])
-        refs_term = np.concatenate([ei_a, ei_n, ei_s])
-        from .ops.wave import bucket_pow2
-
-        E = len(np.unique(refs_term)) if len(refs_term) else 0
-        # Force domain interning BEFORE sizing (only when terms exist —
-        # plain workloads skip the O(N x K) interning walk): the domain
-        # table fills lazily in node_dom() (hostname domains intern per
-        # node row), so a fresh store's first budget decision otherwise
-        # sees D=1, estimates the count tensors at ~0.1 MB, and never
-        # chunks.
-        if E:
-            m.node_dom()
-        D = max(1, len(m.domains))
-        # Two int32 [Ep, D] tensors; budget against the solver's actual
-        # padded bucket (headroom + pow2 round-up reaches 2.5x raw).
-        cost = float(bucket_pow2(E, floor=1)) * D * 8.0 if E else 0.0
-        if cost <= budget or len(solve_jobs) <= 1:
-            if cost > budget:
-                log.warning(
-                    "affinity count tensors ~%.0f MB exceed the %.0f MB "
-                    "budget but a single job cannot be split",
-                    cost / 1e6, budget / 1e6,
-                )
-            yield solve_jobs, task_rows
-            return
-        order = np.argsort(refs_row, kind="stable")
-        refs_row = refs_row[order]
-        refs_term = refs_term[order]
-        # 2x factor: each chunk's term count re-pads to the next pow2
-        # bucket (worst case ~2x its raw share), so splitting at the
-        # raw cost alone leaves per-chunk tensors over budget.
-        n_chunks = min(int(np.ceil(cost * 2.0 / budget)), len(solve_jobs))
-        target = max(1, int(np.ceil(len(task_rows) / n_chunks)))
-        jr = self.jobr[task_rows]
-        # Job segment boundaries in the job-contiguous task_rows.
-        seg_starts = np.flatnonzero(
-            np.concatenate(([True], jr[1:] != jr[:-1]))
-        )
-        seg_ends = np.concatenate((seg_starts[1:], [len(task_rows)]))
-
-        def emit(cjobs, lo, hi):
-            i0, i1 = np.searchsorted(refs_row, [lo, hi])
-            e_chunk = len(np.unique(refs_term[i0:i1]))
-            padded = (
-                bucket_pow2(e_chunk, floor=1) * D * 8.0 if e_chunk else 0.0
-            )
-            if padded > budget:
-                log.warning(
-                    "solve chunk of %d jobs still carries ~%.0f MB of "
-                    "affinity count tensors (budget %.0f MB)",
-                    len(cjobs), padded / 1e6, budget / 1e6,
-                )
-            return cjobs, task_rows[lo:hi]
-
-        chunk_jobs: List[int] = []
-        lo = 0
-        hi = 0
-        ji = 0
-        for s, e in zip(seg_starts, seg_ends):
-            hi = int(e)
-            chunk_jobs.append(solve_jobs[ji])
-            ji += 1
-            if hi - lo >= target and ji < len(solve_jobs):
-                yield emit(chunk_jobs, lo, hi)
-                chunk_jobs = []
-                lo = hi
-        if hi > lo or chunk_jobs:
-            yield emit(chunk_jobs, lo, hi)
 
     def _schedulable_rows(self) -> List[int]:
         m = self.m
@@ -2134,62 +1988,29 @@ class FastCycle:
             len(m.ports), len(m.topo_keys), len(m.domains),
         )
 
-    def _term_cnt0(self, active_members: List[np.ndarray],
-                   term_key: np.ndarray, Ep: int) -> np.ndarray:
-        """[Ep, D] resident-member counts per domain for the active
-        terms — the only piece of the affinity encoding that moves with
-        pod placement, so it is recomputed each cycle even on an encode
-        cache hit (the membership structures it walks are cached)."""
-        m = self.m
-        D = max(1, len(m.domains))
-        cnt0 = np.zeros((Ep, D), I)
-        node = m.p_node[:self.Pn]
-        node_dom_raw = m.node_dom()
-        for le, members in enumerate(active_members):
-            if not len(members):
-                continue
-            residents = members[self.resident[members]]
-            if len(residents):
-                dom = node_dom_raw[node[residents], term_key[le]]
-                dom = dom[dom >= 0]
-                if len(dom):
-                    np.add.at(cnt0[le], dom, 1)
-        return cnt0
-
     def _affinity_and_profiles(self, task_rows: np.ndarray, tasks,
                                Np: int):
-        """Affinity inputs + refined profile ids + SolveProfiles, all at
-        profile granularity — nothing dense in [P, E] is ever built.
+        """Affinity inputs + profile ids + SolveProfiles, all at profile
+        granularity.  The port's solve has no inter-pod affinity or spread
+        lane yet, so a pending task that references a term raises here;
+        the affinity inputs are the empty ones.
 
-        - Active-term compaction: only terms some pending task is involved
-          with enter the solve; inactive terms cannot influence it (their
-          counts are neither gated on nor scored).
-        - Profile refinement: store-interned profile ids split wherever
-          per-cycle term membership differs within a profile (a sibling's
-          topology-spread term matches every pod of the job).  Membership
-          hashes are accumulated sparsely from the term member lists; the
-          collision probability of the two independent 20-bit-coefficient
-          hashes is ~2^-40 per pair.
-        - Incremental (encode lane): on the wave path the whole
-          profile/affinity encoding is a pure function of the task-row
-          content and the append-only static dictionaries, so it is
-          cached on the store and reused when both match — only the
-          per-domain resident counts (``_term_cnt0``) and the padded
-          node-domain plane rebuild each cycle.
-        """
-        from .ops.wave import SolveProfiles
-
+        Incremental (encode lane): on the wave path the profile encoding
+        is a pure function of the task-row content and the append-only
+        static dictionaries, so it is cached on the store and reused when
+        both match."""
         m = self.m
         P = len(task_rows)
 
-        # Profile content generation: a monotone token that
-        # moves whenever the profile/affinity encoding is (re)built —
-        # an encode-cache hit keeps it, so the device-incremental lane
-        # can key its persistent [U, C] static planes and warm
-        # shortlists on "the same profile rows as last solve".  Any
-        # rebuild (even one producing identical content) bumps it:
-        # conservative, the caches just recompute once.
+        # Profile content generation: a monotone token that moves
+        # whenever the profile encoding is (re)built -- an encode-cache
+        # hit keeps it, so the device-incremental lane can key its
+        # persistent [U, C] static planes and warm shortlists on "the
+        # same profile rows as last solve".  Any rebuild (even one
+        # producing identical content) bumps it: conservative, the caches
+        # just recompute once.
         self._profile_gen = None
+        aff = empty_affinity(Np, 1)
 
         if tasks is None and getattr(self, "_incr", True):
             cached = getattr(self.store, "_encode_cache", None)
@@ -2198,190 +2019,32 @@ class FastCycle:
                     and np.array_equal(cached["task_rows"], task_rows)):
                 self._profile_gen = cached.get("gen")
                 self._pid_out = cached["pid"]
-                E = cached["E"]
-                K = max(1, len(m.topo_keys))
-                if E == 0:
-                    return (empty_affinity(Np, 1), cached["pid"],
-                            cached["profiles"])
-                term_key = cached["term_key"]
-                Ep = cached["Ep"]
-                cnt0 = self._term_cnt0(cached["members"], term_key, Ep)
-                node_dom_raw = m.node_dom()
-                node_dom = np.full((Np, K), -1, I)
-                node_dom[:len(node_dom_raw)] = node_dom_raw
-                aff = AffinityArgs(
-                    node_dom=node_dom,
-                    term_key=term_key,
-                    cnt0=cnt0,
-                    t_req_aff=np.zeros((1, Ep), bool),
-                    t_req_anti=np.zeros((1, Ep), bool),
-                    t_matches=np.zeros((1, Ep), bool),
-                    t_soft=np.zeros((1, Ep), F),
-                )
                 return aff, cached["pid"], cached["profiles"]
 
+        if (len(m.c_ip_aff.gather(task_rows)[1])
+                or len(m.c_ip_anti.gather(task_rows)[1])
+                or len(m.c_ip_soft.gather(task_rows)[1])):
+            raise _not_ported("inter-pod affinity and spread",
+                              "ports, inter-pod affinity and future "
+                              "capacity")
         pid_raw = m.p_prof[task_rows].astype(np.int64)
-
-        # ---- active terms: union of pending tasks' involvement ----------
-        er_a, ei_a = m.c_ip_aff.gather(task_rows)
-        er_n, ei_n = m.c_ip_anti.gather(task_rows)
-        er_s, ei_s, ev_s = m.c_ip_soft.gather(task_rows)
-        active = np.unique(np.concatenate([ei_a, ei_n, ei_s]))
-        E = len(active)
         gen = getattr(self.store, "_encode_gen", 0) + 1
         self.store._encode_gen = gen
         self._profile_gen = gen
-        if E == 0:
-            aff = empty_affinity(Np, 1)
-            profiles = self._profiles_from_rows(
-                tasks, task_rows, pid_raw, None, aff, P
-            )
-            if tasks is None and getattr(self, "_incr", True):
-                self.store._encode_cache = {
-                    "key": self._encode_cache_key(P),
-                    "task_rows": task_rows.copy(),
-                    "pid": self._pid_out, "E": 0,
-                    "profiles": profiles, "gen": gen,
-                }
-            return aff, self._pid_out, profiles
-
-        # Renumber active terms by first reference in task order so each
-        # wave's terms form a narrow window (the solver slices every
-        # [*, E] tensor to that window — wave.py _term_windows).
-        local = np.full(self.Pn, -1, np.int64)
-        local[task_rows] = np.arange(P)
-        first_ref = np.full(len(m.terms), P, np.int64)
-        if len(ei_a):
-            np.minimum.at(first_ref, ei_a, er_a)
-        if len(ei_n):
-            np.minimum.at(first_ref, ei_n, er_n)
-        if len(ei_s):
-            np.minimum.at(first_ref, ei_s, er_s)
-        for e in active:
-            members = np.asarray(m.term_members[int(e)], np.int64)
-            if len(members):
-                loc = local[members[members < self.Pn]]
-                loc = loc[loc >= 0]
-                if len(loc):
-                    first_ref[e] = min(first_ref[e], int(loc.min()))
-        active = active[np.argsort(first_ref[active], kind="stable")]
-
-        term_local = np.full(len(m.terms), -1, np.int64)
-        term_local[active] = np.arange(E)
-        from .ops.wave import bucket_pow2
-
-        Ep = bucket_pow2(E, floor=1)
-
-        # ---- sparse membership hash + per-term local membership ---------
-        rng = np.random.RandomState(0x7A5E)
-        coef = rng.randint(1, 1 << 20, size=(E, 2)).astype(np.int64)
-        h1 = np.zeros(P, np.int64)
-        h2 = np.zeros(P, np.int64)
-        member_locs: List[np.ndarray] = []
-        active_members: List[np.ndarray] = []
-        node_dom_raw = m.node_dom()
-        K = max(1, len(m.topo_keys))
-        term_key = np.zeros((Ep,), I)
-        for le in range(E):
-            e = int(active[le])
-            _sel, key, _ns = m.term_info[e]
-            term_key[le] = m.topo_keys.index.get(key, 0)
-            members = np.asarray(m.term_members[e], np.int64)
-            members = members[members < self.Pn] if len(members) else members
-            active_members.append(members)
-            if len(members):
-                loc = local[members]
-                loc = loc[loc >= 0]
-                if len(loc):
-                    h1[loc] += coef[le, 0]
-                    h2[loc] += coef[le, 1]
-                member_locs.append(loc)
-            else:
-                member_locs.append(np.zeros(0, np.int64))
-        cnt0 = self._term_cnt0(active_members, term_key, Ep)
-
-        combo = (
-            pid_raw * np.int64(1_000_003)
-            + h1 * np.int64(8191)
-            + h2
-        )
-        profiles = self._profiles_from_rows(
-            tasks, task_rows, combo, (member_locs, term_local, Ep,
-                                      er_a, ei_a, er_n, ei_n,
-                                      er_s, ei_s, ev_s, pid_raw), None, P
-        )
-        node_dom = np.full((Np, K), -1, I)
-        node_dom[:len(node_dom_raw)] = node_dom_raw
-        aff = AffinityArgs(
-            node_dom=node_dom,
-            term_key=term_key,
-            cnt0=cnt0,
-            t_req_aff=np.zeros((1, Ep), bool),
-            t_req_anti=np.zeros((1, Ep), bool),
-            t_matches=np.zeros((1, Ep), bool),
-            t_soft=np.zeros((1, Ep), F),
-        )
+        profiles = self._profiles_from_rows(tasks, task_rows, pid_raw)
         if tasks is None and getattr(self, "_incr", True):
             self.store._encode_cache = {
                 "key": self._encode_cache_key(P),
                 "task_rows": task_rows.copy(),
-                "pid": self._pid_out, "E": E, "Ep": Ep,
-                "term_key": term_key, "members": active_members,
+                "pid": self._pid_out,
                 "profiles": profiles, "gen": gen,
             }
         return aff, self._pid_out, profiles
 
-    def _verify_membership_grouping(self, pid, u, combo, term_parts, P):
-        """Hash-collision guard: every task's term-membership set must
-        equal its profile representative's (the coefficients are fixed per
-        process, so an unchecked collision would repeat every cycle).
-        Sparse O(memberships) check; exact regrouping on mismatch."""
-        (member_locs, _tl, _Ep, _ea, _eia, _en, _ein, _es, _eis, _evs,
-         pid_raw) = term_parts
-        if not any(len(loc) for loc in member_locs):
-            return pid, u
-        t_all = np.concatenate([loc for loc in member_locs if len(loc)])
-        e_all = np.concatenate([
-            np.full(len(loc), le, np.int64)
-            for le, loc in enumerate(member_locs) if len(loc)
-        ])
-        order = np.lexsort((e_all, t_all))
-        pt, pe = t_all[order], e_all[order]
-        counts = np.bincount(pt, minlength=P)
-        offs = np.concatenate(([0], np.cumsum(counts)))
-        rep = u[pid]
-        ok = bool((counts == counts[rep]).all())
-        if ok:
-            sel = np.flatnonzero(counts > 0)
-            if len(sel):
-                lens = counts[sel]
-                cum = np.concatenate(([0], np.cumsum(lens)[:-1]))
-                base = np.arange(int(lens.sum())) - np.repeat(cum, lens)
-                pos_t = base + np.repeat(offs[sel], lens)
-                pos_r = base + np.repeat(offs[rep[sel]], lens)
-                ok = bool((pe[pos_t] == pe[pos_r]).all())
-        if ok:
-            return pid, u
-        log.warning("profile membership hash collision; exact regrouping")
-        keys = {}
-        pid2 = np.zeros(P, np.int64)
-        u2 = []
-        for t in range(P):
-            key = (int(pid_raw[t]),
-                   tuple(pe[offs[t]:offs[t + 1]].tolist()))
-            got = keys.get(key)
-            if got is None:
-                got = len(u2)
-                keys[key] = got
-                u2.append(t)
-            pid2[t] = got
-        return pid2, np.asarray(u2, np.int64)
-
     def _profiles_from_rows(self, tasks, task_rows: np.ndarray,
-                            combo: np.ndarray, term_parts, aff_empty,
-                            P: int):
+                            combo: np.ndarray):
         """Renumber combo ids by first occurrence and gather one profile
-        row per distinct id (plus sparse [U, E] term columns)."""
+        row per distinct id."""
         from .ops.wave import SolveProfiles
 
         _, first, inv = np.unique(combo, return_index=True,
@@ -2391,10 +2054,6 @@ class FastCycle:
         rank[order] = np.arange(len(order))
         pid = rank[inv]
         u = first[order]  # local first-occurrence row per profile
-        if term_parts is not None:
-            pid, u = self._verify_membership_grouping(
-                pid, u, combo, term_parts, P
-            )
         self._pid_out = pid
         U = len(u)
 
@@ -2419,43 +2078,10 @@ class FastCycle:
                              tasks.aff_terms, tasks.tol_bits,
                              tasks.pref_bits, tasks.pref_w)
 
-        if term_parts is None:
-            Ep = 1
-            u_req_aff = np.zeros((U, 1), bool)
-            u_req_anti = np.zeros((U, 1), bool)
-            u_matches = np.zeros((U, 1), bool)
-            u_soft = np.zeros((U, 1), F)
-        else:
-            (member_locs, term_local, Ep, er_a, ei_a, er_n, ei_n,
-             er_s, ei_s, ev_s, _pid_raw) = term_parts
-            u_index = np.full(P, -1, np.int64)
-            u_index[u] = np.arange(U)
-            u_req_aff = np.zeros((U, Ep), bool)
-            u_req_anti = np.zeros((U, Ep), bool)
-            u_matches = np.zeros((U, Ep), bool)
-            u_soft = np.zeros((U, Ep), F)
-            for le, loc in enumerate(member_locs):
-                if len(loc):
-                    sel = u_index[loc]
-                    sel = sel[sel >= 0]
-                    if len(sel):
-                        u_matches[sel, le] = True
-
-            def scatter(er, ei, out, val=None):
-                ur = u_index[er]
-                keep = ur >= 0
-                lei = term_local[ei[keep]]
-                urk = ur[keep]
-                ok = lei >= 0
-                if val is None:
-                    out[urk[ok], lei[ok]] = True
-                else:
-                    np.add.at(out, (urk[ok], lei[ok]), val[keep][ok])
-
-            scatter(er_a, ei_a, u_req_aff)
-            scatter(er_n, ei_n, u_req_anti)
-            scatter(er_s, ei_s, u_soft, val=ev_s)
-
+        u_req_aff = np.zeros((U, 1), bool)
+        u_req_anti = np.zeros((U, 1), bool)
+        u_matches = np.zeros((U, 1), bool)
+        u_soft = np.zeros((U, 1), F)
         (f_req, f_init_req, f_ports, f_sel, f_affb, f_afft, f_tol,
          f_prefb, f_prefw) = rows_by_field
         return SolveProfiles(
@@ -3304,11 +2930,11 @@ def _has_fabric(m) -> bool:
     return False
 
 
-def run_cycle_fast(store, conf, shard=None, device=None) -> bool:
+def run_cycle_fast(store, conf, device=None) -> bool:
     """Run one scheduling cycle on the fast path; False = not eligible.
     Lanes of the JAX fast path the port does not run raise
     ``NotImplementedError`` before anything is mutated."""
-    cycle = FastCycle(store, conf, shard=shard, device=device)
+    cycle = FastCycle(store, conf, device=device)
     if not cycle.eligible():
         return False
     cycle.check_ported()

@@ -49,33 +49,11 @@ def devincr_on() -> bool:
     return os.environ.get("VOLCANO_TPU_DEVINCR", "1") != "0"
 
 
-def warm_blocks() -> int:
-    """Node-axis block count of the warm-shortlist candidates (pow2,
-    ``VOLCANO_TPU_WARM_BLOCKS``, default 16)."""
-    try:
-        b = int(os.environ.get("VOLCANO_TPU_WARM_BLOCKS", 16))
-    except ValueError:
-        b = 16
-    p = 1
-    while p * 2 <= max(1, b):
-        p *= 2
-    return p
-
-
-def warm_block_rows() -> int:
-    """Upper bound on node rows per warm block (pow2,
-    ``VOLCANO_TPU_WARM_BLOCK_ROWS``, default 8192): at large node counts
-    the block count grows instead, so one dirty node re-ranks a bounded
-    number of rows."""
-    try:
-        r = int(os.environ.get("VOLCANO_TPU_WARM_BLOCK_ROWS", 8192))
-    except ValueError:
-        r = 8192
-    p = 1
-    while p * 2 <= max(1, r):
-        p *= 2
-    return p
-
+# Node-axis block count of the warm-shortlist candidates, and the most
+# node rows a block holds: past 16 x 8192 rows the block count grows
+# instead, so one dirty node re-ranks a bounded number of rows.
+WARM_BLOCKS = 16
+WARM_BLOCK_ROWS = 8192
 
 # Past this fraction of blocks dirty, a full re-rank beats the warm pass
 # (and seeds fresh candidates anyway).
@@ -84,9 +62,8 @@ WARM_MAX_BLOCK_FRACTION = 0.5
 
 def block_geometry(N: int, sl_k: int) -> Tuple[int, int, int]:
     """(B, nlb, klb) of the warm candidates for an N-row node axis."""
-    B = warm_blocks()
-    max_rows = warm_block_rows()
-    while N % (B * 2) == 0 and N // B > max_rows:
+    B = WARM_BLOCKS
+    while N % (B * 2) == 0 and N // B > WARM_BLOCK_ROWS:
         B *= 2
     B = min(B, N)
     while N % B:

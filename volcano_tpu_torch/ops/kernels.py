@@ -427,8 +427,12 @@ def coarse_shortlist(prof, cls, idle, alloc, ntasks, max_tasks, eps,
     ``n_blocks`` selects per node block (B ascending-id blocks of N / B
     rows, top ``klb = min(S, N / B)`` each, in rank order) and merges the
     winners (``with_cand``): the same shortlist, and the per-block
-    candidates a later ``warm_shortlist`` patches."""
+    candidates a later ``warm_shortlist`` patches.  It needs ``stat``
+    (``static_planes`` builds the planes it reads)."""
     naff = float(weights.node_affinity_weight)
+    if n_blocks and stat is None:
+        raise ValueError("coarse_shortlist: n_blocks needs the static "
+                         "planes (stat)")
     if not _on_card(plain, idle, prof.req, cls.class_id):
         if stat is None:
             ok, score = class_static_plain(
@@ -476,8 +480,6 @@ def coarse_shortlist(prof, cls, idle, alloc, ntasks, max_tasks, eps,
         stat_ok, stat_score = a["stat_ok"], a["stat_score"]
     if n_blocks:
         nlb, klb = _block_geometry(N, n_blocks, S)
-        if stat is None:
-            _launch_static(a, U, C, naff, has_taints, stat_ok, stat_score)
         cand_s = torch.empty((U, n_blocks, klb), dtype=torch.float32,
                              device=dev)
         cand_i = torch.empty((U, n_blocks, klb), dtype=torch.int32,
@@ -513,19 +515,6 @@ def coarse_shortlist(prof, cls, idle, alloc, ntasks, max_tasks, eps,
 
 # ------------------------------------------------------- static_planes
 
-def _launch_static(a, U, C, naff, has_taints, stat_ok, stat_score) -> int:
-    rc = load().vtt_static_planes(
-        U, _ptr(a["sel_bits"]), a["sel_bits"].shape[1], _ptr(a["aff_bits"]),
-        a["aff_bits"].shape[1], _ptr(a["aff_terms"]), _ptr(a["tol_bits"]),
-        a["tol_bits"].shape[1], _ptr(a["pref_bits"]),
-        a["pref_bits"].shape[1], _ptr(a["pref_w"]), _ptr(a["cls_label"]),
-        _ptr(a["cls_taint"]), _ptr(a["cls_ready"]), C, naff,
-        int(bool(has_taints)), _ptr(stat_ok), _ptr(stat_score), _stream(),
-    )
-    _check(rc, "static_planes")
-    return rc
-
-
 def static_planes(prof, cls, naff: float, has_taints: bool,
                   plain: bool = False):
     """The [U, C] static planes ``(ok bool, score f32)`` of every profile
@@ -558,7 +547,15 @@ def static_planes(prof, cls, naff: float, has_taints: bool,
     dev = a["sel_bits"].device
     ok = torch.empty((U, C), dtype=u8, device=dev)
     score = torch.empty((U, C), dtype=f32, device=dev)
-    _launch_static(a, U, C, float(naff), has_taints, ok, score)
+    rc = load().vtt_static_planes(
+        U, _ptr(a["sel_bits"]), a["sel_bits"].shape[1], _ptr(a["aff_bits"]),
+        a["aff_bits"].shape[1], _ptr(a["aff_terms"]), _ptr(a["tol_bits"]),
+        a["tol_bits"].shape[1], _ptr(a["pref_bits"]),
+        a["pref_bits"].shape[1], _ptr(a["pref_w"]), _ptr(a["cls_label"]),
+        _ptr(a["cls_taint"]), _ptr(a["cls_ready"]), C, float(naff),
+        int(bool(has_taints)), _ptr(ok), _ptr(score), _stream(),
+    )
+    _check(rc, "static_planes")
     LAUNCHES["static_planes"] += 1
     return ok, score
 

@@ -4,7 +4,8 @@
 Every ``schedule_period`` (default 1 s): re-read the conf (hot reload,
 scheduler.go:77,89-106), run one fast-path cycle over the store's array
 mirror (``fastpath.run_cycle_fast``: enqueue, allocate on the device,
-backfill, close).  Conf parsing failures keep the last good conf.
+backfill, close).  A conf that fails to parse on a hot reload keeps the
+last good conf; with no good conf yet, the error propagates.
 
 The fast path is the only path.  A conf the fast path cannot run (custom
 plugins or actions, the sequential solver) raises ``NotImplementedError``
@@ -38,23 +39,18 @@ class Scheduler:
         conf_path: Optional[str] = None,
         conf_str: Optional[str] = None,
         schedule_period: float = 1.0,
-        gate=None,
         device=None,
     ):
         self.store = store
         self.conf_path = conf_path
         self.conf_str = conf_str
         self.schedule_period = schedule_period
-        # Optional leadership gate: the periodic loop skips cycles while
-        # it returns False.
-        self.gate = gate
         self.device = resolve_device(device)
         store.device = self.device
         self._stop = threading.Event()
         self._lifecycle_lock = threading.Lock()
         self._thread: Optional[threading.Thread] = None
         self._last_conf = None
-        self._consecutive_failures = 0
 
     # --------------------------------------------------------------- config
 
@@ -72,10 +68,10 @@ class Scheduler:
         try:
             conf = parse_scheduler_conf(conf_str)
         except Exception:
+            if self._last_conf is None:
+                raise
             log.exception("Failed to parse scheduler conf; keeping last")
-            if self._last_conf is not None:
-                return self._last_conf
-            conf = parse_scheduler_conf(DEFAULT_SCHEDULER_CONF)
+            return self._last_conf
         self._last_conf = conf
         return conf
 
@@ -123,12 +119,6 @@ class Scheduler:
             self._thread = threading.Thread(target=self._loop, daemon=True)
             self._thread.start()
 
-    # Consecutive failed cycles before healthy() reports False.
-    UNHEALTHY_AFTER = 3
-
-    def healthy(self) -> bool:
-        return self._consecutive_failures < self.UNHEALTHY_AFTER
-
     # Full (gen-2) garbage collections run between periods every N cycles.
     GC_FULL_EVERY = 120
 
@@ -137,18 +127,12 @@ class Scheduler:
         while not self._stop.is_set():
             t0 = time.time()
             try:
-                if self.gate is None or self.gate():
-                    self.run_once()
-                    self._consecutive_failures = 0
-                    cycles += 1
-                    if cycles % self.GC_FULL_EVERY == 0:
-                        gc.collect()
-                else:
-                    self._consecutive_failures = 0
+                self.run_once()
+                cycles += 1
+                if cycles % self.GC_FULL_EVERY == 0:
+                    gc.collect()
             except Exception:
-                self._consecutive_failures += 1
-                log.exception("Scheduling cycle failed (%d consecutive)",
-                              self._consecutive_failures)
+                log.exception("Scheduling cycle failed")
             elapsed = time.time() - t0
             self._stop.wait(max(self.schedule_period - elapsed, 0.0))
 
