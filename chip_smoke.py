@@ -6,7 +6,7 @@ Run from the repository root on a machine with one CUDA card:
 
     python3 chip_smoke.py
 
-It builds the seven CUDA kernels of ``volcano_tpu_torch/csrc`` (six
+It builds the eight CUDA kernels of ``volcano_tpu_torch/csrc`` (seven
 sources, one nvcc each, started together) and then runs these phases, each
 of which raises (and the script exits non-zero) when a check fails:
 
@@ -39,7 +39,24 @@ of which raises (and the script exits non-zero) when a check fails:
    device-incremental lane and the device snapshot on, then off; binds,
    PodGroup phases and mirror states identical;
 8. every kernel of the cycle against its plain version on its captured
-   inputs, timed as in 4 (``scatter_rows`` beside ``index_copy_``).
+   inputs, timed as in 4 (``scatter_rows`` beside ``index_copy_``);
+9. reclaim (BASELINE config 4): ``preempt_cluster(10,000 nodes, 4 fillers
+   a node, 20,000 pending pods in gangs of 4)`` under the preempt + reclaim
+   conf, ``ClusterSimulator(grace_steps=2)`` stepped after every cycle: a
+   reclaim wave a cycle, its victims Releasing through the grace window
+   (future-branch solves), restored as Pending after it;
+10. preempt: ``priority_tier_workload(10,000 workers, a 5,000-task serving
+   gang)`` with ``VOLCANO_TPU_EVICT_CAP=10000``: one wave of 5,000 victims,
+   the gang pipelined onto their releasing capacity, then bound within 24
+   cycles, 5,000 evictions and 5,000 restores.
+   After every cycle of 9 and 10: no node over its allocatable (Releasing
+   pods still charged), gangs whole, the pod count unchanged (every
+   deleted victim came back as one restored pod), no device plane read
+   back by any solve (what-if solves included); at least one future-branch
+   solve per phase; launch counts zeroed before each phase and read after;
+11. ``victim_scores`` in both modes and the five solve kernels on inputs
+   captured from future-branch solves, against their plain versions, timed
+   as in 4.
 
 Output: the card's name and power limit, versions, build time, per-phase
 lines with the cycles' lane times, one ``{"kernels": [...]}`` line and,
@@ -230,8 +247,27 @@ def _nbytes(*tensors) -> int:
 def _clone(cap: dict) -> dict:
     import torch
 
-    return {k: (v.clone() if isinstance(v, torch.Tensor) else v)
-            for k, v in cap.items()}
+    from volcano_tpu_torch.ops.kernels import Future
+
+    def clone(v):
+        if isinstance(v, torch.Tensor):
+            return v.clone()
+        if isinstance(v, Future):
+            return Future(*[None if t is None else t.clone() for t in v])
+        return v
+
+    return {k: clone(v) for k, v in cap.items()}
+
+
+def _future_bytes(cap: dict, rows: int) -> int:
+    """Bytes of the releasing-capacity planes a kernel reads at ``rows``
+    distinct node rows (0 without them)."""
+    fut = cap.get("future")
+    if fut is None:
+        return 0
+    R = fut.rel.shape[1]
+    planes = 2 + (fut.pxe is not None)
+    return rows * (planes * R * 4 + (4 if fut.pip_ntasks is not None else 0))
 
 
 def _kernel_fn(name, c, plain):
@@ -262,7 +298,7 @@ def _kernel_fn(name, c, plain):
             prof, cls, c["idle"], c["alloc"], c["ntasks"], c["max_tasks"],
             c["eps"], c["scalar_slot"], c["weights"], c["S"],
             c["has_taints"], stat=stat, n_blocks=c["n_blocks"],
-            plain=plain))
+            future=c.get("future"), plain=plain))
     if name == "static_planes":
         z = torch.zeros(1, dtype=torch.float32, device=c["sel_bits"].device)
         prof = SolveProfiles(
@@ -285,7 +321,7 @@ def _kernel_fn(name, c, plain):
             prof, c["cls_id"], c["stat_ok"], c["stat_score"], c["idle"],
             c["alloc"], c["ntasks"], c["max_tasks"], c["eps"],
             c["scalar_slot"], c["weights"], c["db"], c["cand_s"],
-            c["cand_i"], c["S"], plain=plain))
+            c["cand_i"], c["S"], future=c.get("future"), plain=plain))
     if name == "scatter_rows":
         def scatter():
             kernels.scatter_rows(c["buf"], c["rows"], c["vals"],
@@ -297,19 +333,26 @@ def _kernel_fn(name, c, plain):
             c["rows"], c["cand"], c["ok_w"], c["score_w"], c["cls_id"],
             c["p_req"], c["p_init_req"], c["idle"], c["alloc"], c["ntasks"],
             c["max_tasks"], c["eps"], c["scalar_slot"], c["weights"], c["K"],
-            plain=plain))
+            future=c.get("future"), plain=plain))
     if name == "walk_accept":
-        return lambda: tuple(kernels.walk_accept(
+        return lambda: tuple(x for x in kernels.walk_accept(
             c["ranked"], c["feas_k"], c["p_req"], c["p_init_req"],
             c["pid_l"], c["cand_s"], c["any_feas"], c["grp"], c["idle"],
             c["ntasks"], c["max_tasks"], c["eps"], c["scalar_slot"],
-            plain=plain))
+            future=c.get("future"), plain=plain) if x is not None)
     if name == "apply_commit":
         dev = c["idle"].device
-        scratch = (torch.zeros(c["idle"].shape, dtype=torch.float64,
-                               device=dev),
-                   torch.zeros(c["q_alloc"].shape, dtype=torch.float64,
-                               device=dev))
+
+        def zeros_like(*planes):
+            return tuple(torch.zeros(c[k].shape, dtype=torch.float64,
+                                     device=dev) for k in planes)
+
+        scratch = zeros_like("idle", "q_alloc")
+        pip = None
+        if "pipe" in c:
+            pip = {k: c[k] for k in ("pip_extra", "pip_ntasks", "q_pip",
+                                     "pipelined")}
+            pip["scratch"] = zeros_like("pip_extra", "q_pip")
 
         def call():
             kernels.apply_commit(
@@ -317,10 +360,18 @@ def _kernel_fn(name, c, plain):
                 c["idle"], c["q_alloc"], mode=c["mode"],
                 idle_sign=c["idle_sign"], jw=c.get("jw"),
                 ntasks=c.get("ntasks"), alloc_l=c.get("alloc_l"),
-                assigned=c["assigned"], scratch=scratch, plain=plain)
-            return tuple(c[k] for k in ("idle", "q_alloc", "ntasks",
-                                        "alloc_l", "assigned") if k in c)
+                assigned=c["assigned"], scratch=scratch,
+                pipe=c.get("pipe"), pip=pip, plain=plain)
+            return tuple(c[k] for k in (
+                "idle", "q_alloc", "ntasks", "alloc_l", "assigned",
+                "pip_extra", "pip_ntasks", "q_pip", "pipelined") if k in c)
         return call
+    if name == "victim_scores":
+        return lambda: tuple(kernels.victim_scores(
+            c["v_ok"], c["v_jprio"], c["v_crank"], c["v_tie"], c["v_queue"],
+            c["v_node"], c["v_req"], c["p_prio"], c["p_queue"], c["q_alloc"],
+            c["q_deserved"], c["q_reclaimable"], c["mode"], c["n_nodes"],
+            plain=plain))
     raise KeyError(name)
 
 
@@ -344,9 +395,9 @@ def _work(name, cap, outs):
     out_bytes = _nbytes(*outs)
     if name == "coarse_shortlist":
         ins = [v for v in cap.values() if isinstance(v, torch.Tensor)]
-        nbytes = _nbytes(*ins) + out_bytes
         U, R = cap["req"].shape
         N = cap["idle"].shape[0]
+        nbytes = _nbytes(*ins) + out_bytes + _future_bytes(cap, N)
         C = cap["C"]
         ops = U * N * (25 + 12 * R)
         if "sel_bits" in cap:
@@ -374,7 +425,8 @@ def _work(name, cap, outs):
         nbytes = (rows * (2 * R * 4 + 3 * 4)
                   + _nbytes(cap["req"], cap["init_req"], cap["stat_ok"],
                             cap["stat_score"], cap["db"])
-                  + (B - ndb) * U * klb * 8 + out_bytes)
+                  + (B - ndb) * U * klb * 8 + out_bytes
+                  + _future_bytes(cap, rows))
         ops = U * rows * (25 + 12 * R) + U * B * klb
     elif name == "scatter_rows":
         nbytes = _nbytes(cap["rows"]) + 2 * _nbytes(cap["vals"])
@@ -392,7 +444,8 @@ def _work(name, cap, outs):
         # Per distinct node: idle and alloc rows, class, pod slots.
         node_b = D * (2 * R * 4 + 3 * 4)
         prof_b = M * (2 * R * 4 + C * 5 + 4)
-        nbytes = cand_b + node_b + prof_b + R * 9 + out_bytes
+        nbytes = (cand_b + node_b + prof_b + R * 9 + out_bytes
+                  + _future_bytes(cap, D))
         ops = M * L * (25 + 12 * R)
     elif name == "walk_accept":
         W = cap["pid_l"].shape[0]
@@ -402,7 +455,7 @@ def _work(name, cap, outs):
         # chosen nodes are among them.
         D = _distinct(cap["ranked"])
         nbytes = (UM * K * 5 + D * (R * 4 + 8) + UM * (2 * R * 4 + UM)
-                  + W * 6 + R * 5 + out_bytes)
+                  + W * 6 + R * 5 + out_bytes + _future_bytes(cap, D))
         lw = max(1, math.ceil(math.log2(W)))
         ops = (UM * K * (2 * R + 4)  # per-candidate capacity and mask
                + UM * K  # its running sum along the ranking
@@ -411,14 +464,27 @@ def _work(name, cap, outs):
                + W * lw  # sort by (choice, task)
                + W * (R + 1)  # segmented same-node prefix
                + W * (3 * R + 2))  # idle fit and pod slots
+    elif name == "victim_scores":
+        # Every input read once, every output written once; the float work
+        # is the queue shares' divisions and the evictable sums.
+        ins = [v for v in cap.values() if isinstance(v, torch.Tensor)]
+        nbytes = _nbytes(*ins) + out_bytes
+        V, R = cap["v_req"].shape
+        ops = cap["q_alloc"].numel() * 2 + V * (R + 2)
     else:
         T = cap["node"].shape[0]
         R = cap["rows"].shape[1]
-        ops = int(cap["mask"].sum()) * 2 * R
+        touched = int(cap["mask"].sum())
+        if "pipe" in cap:
+            touched += int(cap["pipe"].sum())
+            nbytes_pipe = _nbytes(cap["pipe"])
+        else:
+            nbytes_pipe = 0
+        ops = touched * 2 * R
         # Only the touched rows of the state are read and written.
         nbytes = _nbytes(cap["node"], cap["mask"], cap["row_idx"],
-                         cap["qidx"]) + int(cap["mask"].sum()) * R * 4 * 4 \
-            + T * 4
+                         cap["qidx"]) + touched * R * 4 * 4 + T * 4 \
+            + nbytes_pipe
     return nbytes, ops
 
 
@@ -534,6 +600,9 @@ KERNEL_FUNCS = {
     "static_planes": ("class_static_kernel<1>",),
     "warm_shortlist": ("block_rank_kernel<false>", "merge_kernel<false>"),
     "scatter_rows": ("scatter_rows_kernel",),
+    "victim_scores": ("share_kernel", "key_kernel", "bitonic_tile_kernel",
+                      "bitonic_global_kernel", "order_kernel",
+                      "zero_kernel", "evictable_kernel"),
 }
 
 
@@ -587,6 +656,9 @@ def profile_device(fn) -> dict:
 # The kernels of the solve path (solve_args_from_store -> solve_wave).
 SOLVE_KERNELS = ("coarse_shortlist", "rank_candidates", "walk_accept",
                  "apply_commit")
+# The kernels of the north-star cycle (phase 6).
+CYCLE_KERNELS = SOLVE_KERNELS + ("static_planes", "warm_shortlist",
+                                 "scatter_rows")
 
 
 def run_phase(label, store_fn, deserved=None, timed=0):
@@ -888,6 +960,292 @@ def lanes_on_off(n_nodes, n_pods):
          f"phases and mirror states identical with the lanes on and off")
 
 
+# ------------------------------------------------- preempt and reclaim
+
+# BASELINE config 4's conf (bench.py CONF_PREEMPT) and the preempt conf of
+# bench.py config_preempt.
+CONF_PREEMPT = """
+actions: "enqueue, allocate, preempt, reclaim, backfill"
+tiers:
+- plugins:
+  - name: priority
+  - name: gang
+  - name: conformance
+- plugins:
+  - name: drf
+  - name: predicates
+  - name: proportion
+  - name: nodeorder
+  - name: binpack
+"""
+CONF_PREEMPT_ONLY = """
+actions: "enqueue, allocate, preempt"
+tiers:
+- plugins:
+  - name: priority
+  - name: gang
+  - name: conformance
+- plugins:
+  - name: drf
+  - name: predicates
+  - name: proportion
+  - name: nodeorder
+"""
+
+# The kernels the two eviction paths launch (no node-table change, so no
+# devsnap delta scatter; warm shortlists when the dirty set allows).
+EVICT_KERNELS = ("victim_scores", "coarse_shortlist", "static_planes",
+                 "rank_candidates", "walk_accept", "apply_commit")
+FUTURE_KERNELS = ("coarse_shortlist", "warm_shortlist", "rank_candidates",
+                  "walk_accept", "apply_commit")
+ALLOCATED = (2, 8, 16, 32)  # TaskStatus Allocated, Binding, Bound, Running
+ST_RELEASING = 64  # TaskStatus.Releasing
+
+
+def evict_invariants(store, n_pods: int) -> dict:
+    """No node over its allocatable or pod slots, Releasing pods still
+    charged (exact: whole-CPU and whole-GiB requests); gangs whole (a job's
+    allocated pods are 0 or at least min_available); the pod count
+    unchanged: every deleted victim came back as one restored pod."""
+    import numpy as np
+
+    m = store.mirror
+    Pn, Nn = m.n_pods, m.n_nodes
+    alive = m.p_alive[:Pn]
+    st = m.p_status[:Pn]
+    if len(store.pods) != n_pods or int(alive.sum()) != n_pods:
+        raise AssertionError(f"{len(store.pods)} pods, {n_pods} expected: "
+                             f"a victim was lost or doubled")
+    charged = alive & (np.isin(st, ALLOCATED) | (st == ST_RELEASING))
+    rows = np.flatnonzero(charged & (m.p_node[:Pn] >= 0))
+    R = 2 + len(m.scalar_slots)
+    alloc = np.zeros((Nn, R), np.float64)
+    er, si, v = m.c_n_alloc.gather(m.node_csr_rows(np.arange(Nn)))
+    alloc[er, si] = v
+    use = np.zeros((Nn, R), np.float64)
+    er, si, v = m.c_req.gather(rows)
+    np.add.at(use, (m.p_node[rows][er].astype(np.int64), si), v)
+    if (use > alloc).any():
+        raise AssertionError("a node holds more than its allocatable")
+    cnt = np.bincount(m.p_node[rows], minlength=Nn)
+    mt = m.n_maxtasks[:Nn]
+    if ((mt > 0) & (cnt > mt)).any():
+        raise AssertionError("pod slots exceeded")
+    Jn = len(m.j_uid)
+    arows = np.flatnonzero(alive & np.isin(st, ALLOCATED)
+                           & (m.p_job[:Pn] >= 0))
+    per_job = np.bincount(m.p_job[arows], minlength=Jn)
+    if ((per_job > 0) & (per_job < m.j_minav[:Jn])).any():
+        raise AssertionError("a gang is bound below min_available")
+    return {"allocated": int(len(arows)),
+            "releasing": int((alive & (st == ST_RELEASING)).sum())}
+
+
+def run_evict_phase(label, store, conf, grace, cycles, until=None):
+    """``Scheduler(store).run_once()`` then ``ClusterSimulator.step()``,
+    ``cycles`` times (or until ``until(store)`` holds), with the checks of
+    ``evict_invariants`` and zero host reads after every solve.  Captures
+    ``victim_scores``' inputs per mode and, from future-branch solves, the
+    inputs of each solve kernel's first launch.  Returns (stats, launches,
+    victim captures, future captures)."""
+    import torch
+
+    from volcano_tpu_torch.metrics import metrics
+    from volcano_tpu_torch.ops import kernels
+    from volcano_tpu_torch.ops import wave as wave_mod
+    from volcano_tpu_torch.scheduler import Scheduler
+    from volcano_tpu_torch.sim import ClusterSimulator
+
+    n_pods = len(store.pods)
+    sched = Scheduler(store, conf_str=conf)
+    sim = ClusterSimulator(store, grace_steps=grace)
+    solve_wave = wave_mod.solve_wave
+    victim_fn = kernels.victim_scores
+    solves = []  # (host reads, future branch) per solve
+    vs_caps, fut_caps = {}, {}
+
+    def counted_solve(*a, **kw):
+        future = bool(a[0].releasing.any())  # host planes from the cycle
+        if future and len(fut_caps) < len(FUTURE_KERNELS):
+            kernels.CAPTURE = {}
+        try:
+            out = solve_wave(*a, **kw)
+        finally:
+            if kernels.CAPTURE is not None:
+                for k, v in kernels.CAPTURE.items():
+                    if k in FUTURE_KERNELS and k not in fut_caps:
+                        fut_caps[k] = v
+                kernels.CAPTURE = None
+        info = wave_mod.LAST_TWOPHASE
+        if bool(info.get("future")) != future:
+            raise AssertionError(f"[{label}] future branch flag disagrees "
+                                 "with the releasing plane")
+        solves.append((info.get("host_reads"), future))
+        return out
+
+    def capturing_victims(*a, **kw):
+        mode = int(a[12])
+        if mode not in vs_caps and a[0].is_cuda:
+            kernels.CAPTURE = {}
+            try:
+                out = victim_fn(*a, **kw)
+                vs_caps[mode] = kernels.CAPTURE["victim_scores"]
+            finally:
+                kernels.CAPTURE = None
+            return out
+        return victim_fn(*a, **kw)
+
+    plans0 = dict(metrics.whatif_plans.data)
+    evict0 = sum(metrics.preempt_evictions.data.values())
+    stats = {"cycles": []}
+    kernels.reset_launches()
+    wave_mod.solve_wave = counted_solve
+    kernels.victim_scores = capturing_victims
+    try:
+        for c in range(cycles):
+            solves.clear()
+            t0 = time.perf_counter()
+            sched.run_once()
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            inv = evict_invariants(store, n_pods)
+            if any(r != 0 for r, _f in solves):
+                raise AssertionError(f"[{label}] cycle {c}: a solve read "
+                                     f"device planes back: {solves}")
+            led = store.migrations
+            rec = {"cycle": c, "wall_s": wall, "lanes_ms": _lanes(store),
+                   "solves": len(solves),
+                   "future_solves": sum(f for _r, f in solves),
+                   "plans": 0 if led is None else led.committed_plans,
+                   "restored": 0 if led is None else led.restored_pods,
+                   **inv}
+            stats["cycles"].append(rec)
+            _log(f"[{label}] cycle {c} {wall:.4f} s {json.dumps(rec)}")
+            sim.step()
+            evict_invariants(store, n_pods)
+            if until is not None and until(store):
+                break
+    finally:
+        wave_mod.solve_wave = solve_wave
+        kernels.victim_scores = victim_fn
+    launches = dict(kernels.LAUNCHES)
+    _log(f"[{label}] launches {json.dumps(launches)}")
+    missing = [k for k in EVICT_KERNELS if launches[k] == 0]
+    if missing:
+        raise AssertionError(f"[{label}] kernels never launched: {missing}")
+    stats["future_solves"] = sum(r["future_solves"] for r in stats["cycles"])
+    if stats["future_solves"] < 1:
+        raise AssertionError(f"[{label}] no solve ran the future branch")
+    stats["whatif_plans"] = {
+        "/".join(v for _k, v in key): n - plans0.get(key, 0.0)
+        for key, n in metrics.whatif_plans.data.items()
+        if n != plans0.get(key, 0.0)}
+    stats["evictions"] = sum(metrics.preempt_evictions.data.values()) - evict0
+    return stats, launches, vs_caps, fut_caps
+
+
+def _summary(stats: dict) -> dict:
+    return {k: v for k, v in stats.items() if k != "cycles"}
+
+
+def evict_phases():
+    """Phases 9-11: the reclaim and preempt paths at 10,000 nodes, then
+    ``victim_scores`` (both modes) and the solve kernels on future-branch
+    inputs against their plain versions.  Returns (the victim_scores rows,
+    one per mode; the future-branch rows of the solve kernels)."""
+    import os
+
+    from volcano_tpu_torch.cache import ClusterStore, FakeBinder, FakeEvictor
+    from volcano_tpu_torch.sim import ClusterSimulator
+    from volcano_tpu_torch.synth import preempt_cluster
+
+    os.environ["VOLCANO_TPU_EVICT_DEVICE"] = "1"
+    # 9. reclaim: BASELINE config 4 at its full size.
+    t0 = time.perf_counter()
+    store = preempt_cluster(n_nodes=10000, fill_per_node=4, n_pending=20000,
+                            gang_size=4, seed=0)
+    _log(f"[reclaim] cluster {time.perf_counter() - t0:.3f} s, "
+         f"{len(store.pods)} pods")
+    os.environ.pop("VOLCANO_TPU_EVICT_CAP", None)
+    rstats, rlaunch, rvs, rfut = run_evict_phase(
+        "reclaim", store, CONF_PREEMPT, grace=2, cycles=6)
+    bound = sum(1 for p in store.pods.values()
+                if p.name.startswith("hi-") and p.node_name)
+    rstats["hi_bound"] = bound
+    if bound < 4 or rstats["whatif_plans"].get("reclaim/committed", 0) < 1:
+        raise AssertionError(f"[reclaim] no reclaimed gang bound: {rstats}")
+    _log(f"[reclaim] {json.dumps(_summary(rstats))}")
+    store.close()
+
+    # 10. preempt: bench.py config_preempt at 10,000 workers.
+    os.environ["VOLCANO_TPU_EVICT_CAP"] = "10000"
+    try:
+        store = ClusterStore(binder=FakeBinder(), evictor=FakeEvictor())
+        t0 = time.perf_counter()
+        ClusterSimulator.priority_tier_workload(store, workers=10000,
+                                                serving_tasks=5000)
+        _log(f"[preempt] cluster {time.perf_counter() - t0:.3f} s, "
+             f"{len(store.pods)} pods")
+
+        def serving_bound(st):
+            return sum(1 for p in st.pods.values()
+                       if p.name.startswith("serving-") and p.node_name) \
+                >= 5000
+
+        pstats, plaunch, pvs, pfut = run_evict_phase(
+            "preempt", store, CONF_PREEMPT_ONLY, grace=2, cycles=24,
+            until=serving_bound)
+    finally:
+        os.environ.pop("VOLCANO_TPU_EVICT_CAP", None)
+    restored = sum(1 for uid in store.pods if "-mig" in uid)
+    pstats["restored"] = restored
+    pstats["serving_bound"] = serving_bound(store)
+    _log(f"[preempt] {json.dumps(_summary(pstats))}")
+    if not pstats["serving_bound"]:
+        raise AssertionError("[preempt] the serving gang did not bind in 24 "
+                             "cycles")
+    if pstats["evictions"] != 5000 or restored != 5000:
+        raise AssertionError(f"[preempt] {pstats['evictions']} evictions, "
+                             f"{restored} restores; 5000 each expected")
+    store.close()
+
+    # 11. the kernels on the eviction paths' inputs.
+    from volcano_tpu_torch.ops import kernels
+
+    if 0 not in rvs or 1 not in rvs:
+        raise AssertionError("[kernels:evict] victim_scores not captured "
+                             f"in both modes: {sorted(rvs)}")
+    launches = {k: rlaunch[k] + plaunch[k] for k in rlaunch}
+    rows = []
+    for mode, cap in sorted(rvs.items()):
+        row = replay_kernels({"victim_scores": cap}, launches,
+                             names=["victim_scores"])[0]
+        row["mode"] = ("preempt", "reclaim")[mode]
+        row["V"] = int(cap["v_req"].shape[0])
+        rows.append(row)
+        _log(f"[kernels:evict] victim_scores ({row['mode']}, V={row['V']}):"
+             f" {row['ms']:.4f} ms/launch, plain {row['plain_ms']:.4f} ms, "
+             f"bound {row['bound_ms']:.6f} ms ({row['bound_by']}), "
+             f"launches {row['launches']}, max_abs_err {row['max_abs_err']}")
+    fut = dict(pfut)
+    fut.update(rfut)
+    missing = [k for k in FUTURE_KERNELS if k not in fut]
+    _log(f"[kernels:future] captured from future-branch solves: "
+         f"{sorted(fut)}; not launched by one: {missing}")
+    future_rows = replay_kernels(fut, launches,
+                                 names=[k for k in FUTURE_KERNELS if k in fut])
+    for r in future_rows:
+        _log(f"[kernels:future] {r['name']}: {r['ms']:.4f} ms/launch, plain "
+             f"{r['plain_ms']:.4f} ms, bound {r['bound_ms']:.6f} ms "
+             f"({r['bound_by']}), max_abs_err {r['max_abs_err']}")
+    for k in ("coarse_shortlist", "rank_candidates", "walk_accept",
+              "apply_commit"):
+        if k not in fut:
+            raise AssertionError(f"[kernels:future] {k} never ran in a "
+                                 "future-branch solve")
+    return rows, future_rows
+
+
 def main() -> int:
     import torch
 
@@ -978,7 +1336,7 @@ def main() -> int:
     cyc_launches = dict(kernels.LAUNCHES)
     cyc_captured, kernels.CAPTURE = kernels.CAPTURE, None
     _log(f"[cycle] launches {json.dumps(cyc_launches)}")
-    missing = [k for k, v in cyc_launches.items() if v == 0]
+    missing = [k for k in CYCLE_KERNELS if cyc_launches[k] == 0]
     if missing:
         raise AssertionError(f"[cycle] kernels never launched: {missing}")
     cprof = cyc_stats.pop("profile")
@@ -999,7 +1357,7 @@ def main() -> int:
     lanes_on_off(1000, 10000)
 
     # 8. every kernel of the cycle against its plain version, timed.
-    rows = replay_kernels(cyc_captured, cyc_launches)
+    rows = replay_kernels(cyc_captured, cyc_launches, names=CYCLE_KERNELS)
     by_solve = {r["name"]: r for r in solve_rows}
     for r in rows:
         if cprof:
@@ -1014,6 +1372,21 @@ def main() -> int:
              f"{r['wrapper_ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, "
              f"library {r['library_ms']}, bound {r['bound_ms']:.6f} ms "
              f"({r['bound_by']}), launches {r['launches']}")
+
+    # 9-11. the reclaim and preempt paths; victim_scores and the solve
+    # kernels on their inputs.
+    vs_rows, future_rows = evict_phases()
+    by_name = {r["name"]: r for r in rows}
+    for r in future_rows:
+        by_name[r["name"]]["future"] = {k: r[k] for k in (
+            "ms", "plain_ms", "bound_ms", "bound_by", "max_abs_err",
+            "wrapper_ms", "queued", "bytes", "ops")}
+    vs = dict(vs_rows[-1])
+    vs["modes"] = [{k: r[k] for k in ("mode", "V", "ms", "plain_ms",
+                                       "bound_ms", "max_abs_err", "bytes")}
+                   for r in vs_rows]
+    vs["max_abs_err"] = max(r["max_abs_err"] for r in vs_rows)
+    rows.append(vs)
 
     print(json.dumps({"kernels": rows}), flush=True)
     print(card, flush=True)

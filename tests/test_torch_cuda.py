@@ -223,3 +223,111 @@ def test_resident_planes_byte_equal_across_a_solve(cuda):
         assert torch.equal(v, snap._planes[k]), k
     for k, v in cls_before.items():
         assert torch.equal(v, snap._cls_planes[k]), k
+
+
+def _victim_case(seed, V, N=64, Q=4, R=3):
+    rng = np.random.RandomState(seed)
+    crank = np.argsort(np.argsort(rng.rand(V))).astype(np.int32)
+    v_req = np.zeros((V, R), np.float32)
+    v_req[:, 0] = rng.uniform(0.0, 3.0, V)
+    v_req[:, 1] = rng.randint(1, 5000, V) * 1.0e6  # not powers of two
+    v_req[rng.rand(V, R) < 0.2] = 0.0
+    q_des = rng.uniform(1.0, 6.0, (Q, R)).astype(np.float32)
+    q_des[rng.rand(Q, R) < 0.3] = 3.0e38
+    return dict(
+        v_ok=rng.rand(V) > 0.2, v_jprio=rng.randint(0, 4, V).astype(np.int32),
+        v_crank=crank, v_tie=np.arange(V, dtype=np.int32),
+        v_queue=rng.randint(-1, Q, V).astype(np.int32),
+        v_node=rng.randint(0, N, V).astype(np.int32), v_req=v_req,
+        q_alloc=rng.uniform(0.0, 8.0, (Q, R)).astype(np.float32),
+        q_deserved=q_des, q_reclaimable=rng.rand(Q) > 0.3)
+
+
+@pytest.mark.parametrize("V", [50, 1024, 3000])
+@pytest.mark.parametrize("mode", [0, 1])
+def test_victim_scores_kernel_equals_plain(cuda, mode, V):
+    """One tile, exactly one tile, and a sort with global passes; both
+    modes; every output identical to the plain version (evictable bit for
+    bit: both add a node's rows in victim-index order in float32)."""
+    c = {k: torch.from_numpy(np.ascontiguousarray(v)).to(cuda)
+         for k, v in _victim_case(V + mode, V).items()}
+    args = (c["v_ok"], c["v_jprio"], c["v_crank"], c["v_tie"], c["v_queue"],
+            c["v_node"], c["v_req"], 2, 1, c["q_alloc"], c["q_deserved"],
+            c["q_reclaimable"], mode, 64)
+    before = kernels.LAUNCHES["victim_scores"]
+    got = kernels.victim_scores(*args)
+    want = kernels.victim_scores(*args, plain=True)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["victim_scores"] == before + 1
+    for g, w in zip(got, want):
+        assert g.dtype == w.dtype and torch.equal(g, w)
+    assert got[0].any() and not got[0].all()
+
+
+def test_future_solve_on_card_equals_plain_and_cpu(cuda):
+    """A solve with releasing capacity: the kernels' future branch on the
+    card equals the plain versions and the CPU."""
+    store = synthetic_cluster(n_nodes=48, n_pods=320, gang_size=4, n_queues=2,
+                              seed=3)
+    results = []
+    for dev in (None, "cpu"):
+        args, _ = solve_args_from_store(store, device=dev)
+        nodes = args[0]
+        rel = torch.floor(nodes.idle / 2000.0) * 1000.0
+        rel[:, 1:] = 0.0
+        nodes = nodes._replace(idle=nodes.idle - rel, releasing=rel,
+                               pipelined=torch.zeros_like(rel))
+        args = (nodes,) + args[1:]
+        kw = {} if dev is None else {"device": "cpu"}
+        results.append(interop.result_to_numpy(solve_wave(*args, wave=64,
+                                                          **kw)))
+        if dev is None:
+            results.append(interop.result_to_numpy(
+                solve_wave(*args, wave=64, plain=True)))
+    k, p, c = results
+    _same(k, p)
+    _same(k, c)
+    assert (k.pipelined >= 0).any()
+
+
+def test_preempt_cycles_on_card_equal_cpu(cuda, monkeypatch):
+    """The preempt lane on the card (victim_scores, the what-if solve, the
+    future-branch solves while the victims terminate) equals the CPU run
+    cycle by cycle."""
+    from test_torch_fixtures import mirror_state
+
+    from volcano_tpu_torch.cache import ClusterStore, FakeBinder, FakeEvictor
+    from volcano_tpu_torch.scheduler import Scheduler
+    from volcano_tpu_torch.sim import ClusterSimulator
+
+    monkeypatch.setenv("VOLCANO_TPU_EVICT_DEVICE", "1")
+    conf = ('actions: "enqueue, allocate, preempt"\ntiers:\n- plugins:\n'
+            '  - name: priority\n  - name: gang\n  - name: conformance\n'
+            '- plugins:\n  - name: drf\n  - name: predicates\n'
+            '  - name: proportion\n  - name: nodeorder\n')
+
+    def run(device):
+        import itertools
+
+        import volcano_tpu_torch.api.spec as spec
+
+        spec._uid_counter = itertools.count(1)
+        spec._ts_counter = itertools.count(1)
+        store = ClusterStore(binder=FakeBinder(), evictor=FakeEvictor())
+        ClusterSimulator.priority_tier_workload(store, workers=8,
+                                                serving_tasks=4)
+        sched = Scheduler(store, conf_str=conf, device=device)
+        sim = ClusterSimulator(store, grace_steps=2)
+        out = []
+        for _ in range(8):
+            sched.run_once()
+            out.append((sorted(store.binder.binds.items()),
+                        list(store.evictor.evicts), mirror_state(store)))
+            sim.step()
+        return out
+
+    kernels.reset_launches()
+    card = run(None)
+    launched = dict(kernels.LAUNCHES)
+    assert card == run("cpu")
+    assert launched["victim_scores"] > 0 and launched["walk_accept"] > 0

@@ -13,6 +13,7 @@
 """
 
 import ast
+import collections
 import os
 import subprocess
 import sys
@@ -121,13 +122,6 @@ def _args(**pod_extra):
     return solve_args_from_store(_store_with(**pod_extra), device="cpu")[0]
 
 
-def _with_releasing(args):
-    nodes = args[0]
-    rel = nodes.releasing.clone()
-    rel[0, 0] = 1000.0
-    return (nodes._replace(releasing=rel),) + args[1:]
-
-
 UNSUPPORTED = {
     "host ports": (lambda: _args(host_ports=[8080]), {}),
     "inter-pod affinity": (lambda: _args(affinity=[AffinityTerm(
@@ -135,7 +129,6 @@ UNSUPPORTED = {
     "anti-affinity": (lambda: _args(anti_affinity=[AffinityTerm(
         match_labels={"app": "g"})]), {}),
     "spread": (lambda: _args(topology_spread=[("zone", 5)]), {}),
-    "releasing capacity": (lambda: _with_releasing(_args()), {}),
     "extra_ok": (_args, {"extra_ok": np.ones((2, 8), bool)}),
     "extra_score": (_args, {"extra_score": np.zeros((2, 8), np.float32)}),
     "node_bias": (_args, {"node_bias": np.zeros(8, np.float32)}),
@@ -167,6 +160,21 @@ Scheduler(store, conf_str=DEPLOYED_SCHEDULER_CONF, device="cpu").run_once()
 assert len(store.binder.binds) == 32, store.binder.binds
 assert store.device_snapshot.full_uploads == 1
 assert store._devincr_cache.counts["full"] == 1
+import os
+os.environ["VOLCANO_TPU_EVICT_DEVICE"] = "1"
+from volcano_tpu_torch.sim import ClusterSimulator
+from volcano_tpu_torch.synth import preempt_cluster
+store = preempt_cluster(n_nodes=4, n_pending=8)
+sched = Scheduler(store, conf_str=(
+    'actions: "enqueue, allocate, preempt, reclaim, backfill"\n'
+    'tiers:\n- plugins:\n  - name: priority\n  - name: gang\n'
+    '  - name: conformance\n- plugins:\n  - name: drf\n'
+    '  - name: predicates\n  - name: proportion\n'), device="cpu")
+sim = ClusterSimulator(store, grace_steps=1)
+for _ in range(3):
+    sched.run_once()
+    sim.step()
+assert store.migrations.committed_plans >= 1
 assert not any(k.split(".")[0] in ("jax", "jaxlib", "volcano_tpu", "yaml")
                for k in sys.modules)
 print("ok")
@@ -222,6 +230,8 @@ def _set(attr, value):
 
 
 CYCLE_NOT_PORTED = {
+    # The device-native preempt / reclaim lanes run; the host victim walk
+    # they replace (VOLCANO_TPU_EVICT_DEVICE=0, set below) does not.
     "preempt": (_cycle_store, _conf("enqueue, allocate, preempt")),
     "reclaim": (_cycle_store, _conf("allocate, reclaim")),
     "rebalance": (_cycle_store, _conf("allocate, rebalance")),
@@ -242,13 +252,21 @@ CYCLE_NOT_PORTED = {
 }
 
 
+# The ROADMAP.md queue 1 item each case's error must name.
+_ITEM = collections.defaultdict(str, preempt="host victim walk",
+                                reclaim="host victim walk",
+                                rebalance="rebalance")
+
+
 @pytest.mark.parametrize("what", sorted(CYCLE_NOT_PORTED))
-def test_cycle_lanes_not_ported_raise(what):
+def test_cycle_lanes_not_ported_raise(what, monkeypatch):
     from volcano_tpu_torch.scheduler import Scheduler
 
+    monkeypatch.setenv("VOLCANO_TPU_EVICT_DEVICE", "0")
     make, conf = CYCLE_NOT_PORTED[what]
     store = make()
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(NotImplementedError,
+                       match=rf"ROADMAP\.md, queue 1: .*{_ITEM[what]}"):
         Scheduler(store, conf_str=conf, device="cpu").run_once()
     assert not store.binder.binds
 

@@ -11,16 +11,20 @@ from.
 What the port's fast cycle needs is here: the mirror, pod / node /
 PodGroup / queue handlers, the bind path onto the binder (synchronous;
 failures re-enter Pending with backoff through ``drain_bind_failures``),
-the event trails the cycle writes, PodGroup status write-back, the claim
-registry the volume gate reads, and the cycle's cache slots
-(``cycle_feed``, ``_devincr_cache``, ``device_snapshot``).
+the evictor the preempt / reclaim lanes flush to, the migration ledger
+(``migrations``: ``delete_pod`` restores a terminating eviction victim as a
+fresh Pending pod), the event trails the cycle writes, PodGroup status
+write-back, the claim registry the volume gate reads, and the cycle's cache
+slots (``cycle_feed``, ``_devincr_cache``, ``device_snapshot``, the what-if
+streak and backoff maps).
 
 Not ported yet (ROADMAP.md, queue 1, "the fast path's remaining lanes"):
 asynchronous bind dispatch (``async_bind``), the remote solver
 (``remote_solver``), the device mesh (``solve_mesh``), persistence / HA,
-eviction (``evict``), the controller-plane records, and the journey,
-audit, SLO and lockdep hooks.  Setting one of the slots, or calling
-``evict``, raises ``NotImplementedError``.
+the object path's eviction (``evict``; the fast lanes flush through
+``evictor``), the controller-plane records, and the journey, audit, SLO
+and lockdep hooks.  Setting one of the slots, or calling ``evict``, raises
+``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -53,7 +57,9 @@ from ..api import (
 from .interface import (
     Binder,
     BindFailure,
+    Evictor,
     FakeBinder,
+    FakeEvictor,
     FakeStatusUpdater,
     StatusUpdater,
     VolumeBinder,
@@ -82,6 +88,7 @@ class ClusterStore:
     def __init__(
         self,
         binder: Optional[Binder] = None,
+        evictor: Optional[Evictor] = None,
         status_updater: Optional[StatusUpdater] = None,
         volume_binder: Optional[VolumeBinder] = None,
         default_queue: str = DEFAULT_QUEUE,
@@ -106,6 +113,7 @@ class ClusterStore:
         self.pvcs: Dict[str, Dict[str, object]] = {}
 
         self.binder: Binder = binder or FakeBinder()
+        self.evictor: Evictor = evictor or FakeEvictor()
         self.status_updater: StatusUpdater = (
             status_updater or FakeStatusUpdater())
         self.volume_binder: VolumeBinder = (
@@ -152,6 +160,17 @@ class ClusterStore:
         # Pipelined sessions are not ported: False (the default) is the
         # only value the cycle accepts.
         self.pipeline = None
+        # Parked what-if plan of a pipelined session: with pipelining
+        # refused it stays None, and the evict lanes plan every cycle.
+        self._inflight_plan = None
+        # Migration ledger (actions/rebalance.py MigrationLedger), attached
+        # by the first committed eviction wave; delete_pod restores
+        # terminating victims through it.
+        self.migrations = None
+        # Per-(action, gang uid) starvation streaks and rejection backoffs
+        # of the evict lanes (whatif.update_streaks / set_backoff).
+        self._whatif_streaks: Dict[tuple, int] = {}
+        self._whatif_backoff: Dict[tuple, int] = {}
         # Where the cycle's solve runs: the card unless set to "cpu"
         # (Scheduler(store, device=...) sets it).
         self.device = None
@@ -516,6 +535,10 @@ class ClusterStore:
             self.mirror.remove_pod(pod.uid)
             self.mirror.maybe_compact()
             self._notify("Pod", "delete", pod)
+            if self.migrations is not None and old is not None:
+                # A terminating eviction victim restores as a fresh
+                # Pending pod (add_pod re-enters the re-entrant lock).
+                self.migrations.pod_deleted(self, old)
 
     # -------------------------------------------------------- node handlers
 
@@ -717,7 +740,8 @@ class ClusterStore:
             self._notify("Pod", "bind", pod)
 
     def evict(self, task: TaskInfo, reason: str) -> None:
-        raise not_ported("eviction (evict)", "preempt/reclaim")
+        raise not_ported("the object path's eviction (evict)",
+                         "the host victim walk")
 
     def update_job_status(self, job: JobInfo) -> JobInfo:
         """Write PodGroup status back (interface.go UpdateJobStatus +

@@ -6,6 +6,11 @@
 // alloc_cnt / assigned updates of :2125-2131) and the final gang discard
 // (wave.py:2262-2274: idle and q_alloc give back the requests of every
 // task of a job that never reached min_available; assigned goes to -1).
+// With releasing capacity a commit also takes the sub-round's pipelined
+// acceptances (`pipe`, the has_future branch of wave.py:2023-2031 and
+// :2131): pip_extra and q_pip grow by their requests, pip_ntasks by one,
+// `pipelined` records the node.  alloc_cnt counts allocations only
+// (:2125-2129), and the discard leaves pipelined rows alone (:2262-2272).
 //
 // No float atomicAdd whose order could change a float sum: requests are
 // gathered per node and per queue in double (`accumulate_kernel`; request
@@ -23,25 +28,38 @@
 
 namespace {
 
+__device__ __forceinline__ void add_row(double* node_acc, double* queue_acc,
+                                        const float* rq, int n, int q, int R,
+                                        double node_sign, double queue_sign) {
+  for (int s = 0; s < R; ++s) {
+    const double v = static_cast<double>(rq[s]);
+    if (v != 0.0) {
+      atomicAdd(&node_acc[static_cast<int64_t>(n) * R + s], node_sign * v);
+      atomicAdd(&queue_acc[static_cast<int64_t>(q) * R + s], queue_sign * v);
+    }
+  }
+}
+
 __global__ void __launch_bounds__(256) accumulate_kernel(
     const int32_t* node, const uint8_t* mask, const float* rows,
     const int32_t* row_idx, const int32_t* qidx, int T, int R,
     float idle_sign, int mode, const int32_t* jw, int32_t* ntasks,
-    int32_t* alloc_l, int32_t* assigned, double* idle_acc, double* q_acc) {
+    int32_t* alloc_l, int32_t* assigned, double* idle_acc, double* q_acc,
+    const uint8_t* pipe, int32_t* pip_ntasks, int32_t* pipelined,
+    double* pxe_acc, double* qp_acc) {
   const int t = blockIdx.x * blockDim.x + threadIdx.x;
-  if (t >= T || !mask[t]) return;
+  if (t >= T) return;
   const int n = node[t];
   const float* rq = rows + static_cast<int64_t>(row_idx[t]) * R;
   const int q = qidx[t];
-  for (int s = 0; s < R; ++s) {
-    const double v = static_cast<double>(rq[s]);
-    if (v != 0.0) {
-      atomicAdd(&idle_acc[static_cast<int64_t>(n) * R + s],
-                static_cast<double>(idle_sign) * v);
-      atomicAdd(&q_acc[static_cast<int64_t>(q) * R + s],
-                -static_cast<double>(idle_sign) * v);
-    }
+  if (pipe && pipe[t]) {
+    add_row(pxe_acc, qp_acc, rq, n, q, R, 1.0, 1.0);
+    atomicAdd(&pip_ntasks[n], 1);
+    pipelined[t] = n;
   }
+  if (!mask[t]) return;
+  add_row(idle_acc, q_acc, rq, n, q, R, static_cast<double>(idle_sign),
+          -static_cast<double>(idle_sign));
   if (mode == 0) {
     atomicAdd(&ntasks[n], 1);
     atomicAdd(&alloc_l[jw[t]], 1);
@@ -51,8 +69,9 @@ __global__ void __launch_bounds__(256) accumulate_kernel(
   }
 }
 
-__global__ void __launch_bounds__(256) write_kernel(float* idle, int64_t nidle, double* idle_acc,
-                             float* q_alloc, int64_t nq, double* q_acc) {
+__global__ void __launch_bounds__(256) write_kernel(
+    float* idle, int64_t nidle, double* idle_acc, float* q_alloc, int64_t nq,
+    double* q_acc) {
   const int64_t i = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
   if (i < nidle) {
     const double tot = idle_acc[i];
@@ -72,11 +91,14 @@ __global__ void __launch_bounds__(256) write_kernel(float* idle, int64_t nidle, 
 
 }  // namespace
 
+// `pipe` null: no pipelined acceptances (the pip_* pointers are unused).
 extern "C" int vtt_apply_commit(
     const void* node, const void* mask, const void* rows, const void* row_idx,
     const void* qidx, int T, int R, float idle_sign, int mode, const void* jw,
     void* idle, int N, void* q_alloc, int Q, void* ntasks, void* alloc_l,
-    void* assigned, void* idle_acc, void* q_acc, void* stream) {
+    void* assigned, void* idle_acc, void* q_acc, const void* pipe,
+    void* pip_extra, void* pip_ntasks, void* q_pip, void* pipelined,
+    void* pxe_acc, void* qp_acc, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const int threads = 256;
   if (T > 0) {
@@ -86,17 +108,25 @@ extern "C" int vtt_apply_commit(
         static_cast<const int32_t*>(qidx), T, R, idle_sign, mode,
         static_cast<const int32_t*>(jw), static_cast<int32_t*>(ntasks),
         static_cast<int32_t*>(alloc_l), static_cast<int32_t*>(assigned),
-        static_cast<double*>(idle_acc), static_cast<double*>(q_acc));
+        static_cast<double*>(idle_acc), static_cast<double*>(q_acc),
+        static_cast<const uint8_t*>(pipe), static_cast<int32_t*>(pip_ntasks),
+        static_cast<int32_t*>(pipelined), static_cast<double*>(pxe_acc),
+        static_cast<double*>(qp_acc));
     cudaError_t err = cudaGetLastError();
     if (err != cudaSuccess) return static_cast<int>(err);
   }
   const int64_t nidle = static_cast<int64_t>(N) * R;
   const int64_t nq = static_cast<int64_t>(Q) * R;
-  const int64_t total = nidle + nq;
-  write_kernel<<<static_cast<int>((total + threads - 1) / threads), threads, 0,
-                 st>>>(static_cast<float*>(idle), nidle,
-                       static_cast<double*>(idle_acc),
-                       static_cast<float*>(q_alloc), nq,
-                       static_cast<double*>(q_acc));
+  const int blocks = static_cast<int>((nidle + nq + threads - 1) / threads);
+  write_kernel<<<blocks, threads, 0, st>>>(
+      static_cast<float*>(idle), nidle, static_cast<double*>(idle_acc),
+      static_cast<float*>(q_alloc), nq, static_cast<double*>(q_acc));
+  if (pipe) {
+    cudaError_t err = cudaGetLastError();
+    if (err != cudaSuccess) return static_cast<int>(err);
+    write_kernel<<<blocks, threads, 0, st>>>(
+        static_cast<float*>(pip_extra), nidle, static_cast<double*>(pxe_acc),
+        static_cast<float*>(q_pip), nq, static_cast<double*>(qp_acc));
+  }
   return static_cast<int>(cudaGetLastError());
 }

@@ -18,6 +18,9 @@
 // jax.lax.top_k tie-break), radix-selects the S-th key, and writes the
 // selected ids in ascending id order with a block prefix sum over the
 // selection mask, so the sorted output the solve needs comes for free.
+// With releasing capacity (`rel`/`pip` given: the JAX has_future branch)
+// the fit test reads the solve-start FutureIdle fi0 = (idle + releasing) -
+// pipelined (wave.py:608-609); the score keeps the live idle.
 //
 // Bound: at 10k nodes x 64 profile rows the pass reads under a megabyte
 // (node planes once per block from L2) and does ~40 float operations per
@@ -90,10 +93,10 @@ __global__ void __launch_bounds__(256) class_static_kernel(
 __global__ void __launch_bounds__(1024) shortlist_kernel(
     const float* req, const float* init_req, int R, const uint8_t* stat_ok,
     const float* stat_score, const int32_t* cls_id, int C,
-    const float* idle, const float* alloc, const int32_t* ntasks,
-    const int32_t* max_tasks, int N, const float* eps,
-    const uint8_t* scalar_slot, const float* bres, Weights w, int S,
-    uint64_t* keys_scratch, int32_t* out) {
+    const float* idle, const float* rel, const float* pip,
+    const float* alloc, const int32_t* ntasks, const int32_t* max_tasks,
+    int N, const float* eps, const uint8_t* scalar_slot, const float* bres,
+    Weights w, int S, uint64_t* keys_scratch, int32_t* out) {
   __shared__ int hist[256];
   __shared__ int bcast[2];
   __shared__ int warp_sums[32];
@@ -106,9 +109,11 @@ __global__ void __launch_bounds__(1024) shortlist_kernel(
     const int c = cls_id[n];
     const float* id = idle + static_cast<int64_t>(n) * R;
     const float* al = alloc + static_cast<int64_t>(n) * R;
+    float fi0[vtt::kMaxR];
+    vtt::future_idle(idle, rel, pip, nullptr, n, R, fi0);
     const bool pods_ok = max_tasks[n] <= 0 || ntasks[n] < max_tasks[n];
     const bool feas = stat_ok[static_cast<int64_t>(u) * C + c] != 0 &&
-                      vtt::less_equal(irq, id, eps, scalar_slot, R) &&
+                      vtt::less_equal(irq, fi0, eps, scalar_slot, R) &&
                       pods_ok;
     const float score = vtt::node_score(rq, al, id, bres, R, w) +
                         stat_score[static_cast<int64_t>(u) * C + c];
@@ -151,7 +156,8 @@ extern "C" int vtt_coarse_shortlist(
     const void* tol_bits, int TW, const void* pref_bits, int AP,
     const void* pref_w, const void* cls_id, const void* cls_label,
     const void* cls_taint, const void* cls_ready, int C, const void* idle,
-    const void* alloc, const void* ntasks, const void* max_tasks, int N,
+    const void* rel, const void* pip, const void* alloc, const void* ntasks,
+    const void* max_tasks, int N,
     const void* eps, const void* scalar_slot, const void* bres, float bw,
     float lw, float mw, float balw, float naff, int has_taints, int S,
     int static_ext, void* stat_ok, void* stat_score, void* keys_scratch,
@@ -181,7 +187,8 @@ extern "C" int vtt_coarse_shortlist(
       static_cast<const uint8_t*>(stat_ok),
       static_cast<const float*>(stat_score),
       static_cast<const int32_t*>(cls_id), C,
-      static_cast<const float*>(idle), static_cast<const float*>(alloc),
+      static_cast<const float*>(idle), static_cast<const float*>(rel),
+      static_cast<const float*>(pip), static_cast<const float*>(alloc),
       static_cast<const int32_t*>(ntasks),
       static_cast<const int32_t*>(max_tasks), N,
       static_cast<const float*>(eps),

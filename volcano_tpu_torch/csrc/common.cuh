@@ -40,6 +40,29 @@ __device__ __forceinline__ bool less_equal(const float* l, const float* r,
   return true;
 }
 
+// FutureIdle of node n (ops/wave.py:609, :1207, :1316, :1661): ((idle +
+// releasing) - pipelined) - pip_extra, each operation rounded on its own,
+// left to right.  `rel` null: no releasing capacity, the plain idle (the
+// JAX solve's has_future=False branch); `pxe` null: no in-solve pipelined
+// charge (the solve-start planes of the shortlist passes).  `rel`, `pip`
+// and `pxe` are [N, R] planes.
+__device__ __forceinline__ void future_idle(const float* idle,
+                                            const float* rel,
+                                            const float* pip,
+                                            const float* pxe, int64_t n,
+                                            int R, float* out) {
+  const int64_t o = n * R;
+  for (int s = 0; s < R; ++s) {
+    float v = idle[o + s];
+    if (rel) {
+      v = v + rel[o + s];
+      v = v - pip[o + s];
+      if (pxe) v = v - pxe[o + s];
+    }
+    out[s] = v;
+  }
+}
+
 // ops/scoring.py node_score: binpack + least-requested + most-requested +
 // balanced, used = allocatable - idle.  Sums over slots run left to right.
 __device__ __forceinline__ float node_score(const float* req,

@@ -3,12 +3,16 @@
 // Replaces `live_parts_sl` + `rank_shortlist` of the JAX package's
 // `_solve_wave` (volcano_tpu/ops/wave.py:1302, :1376) and, on all N nodes,
 // the shortlist-exhaustion fallback's `live_parts` + `rank_nodes`
-// (wave.py:1192, :1277, used at :1450-1512) -- without ports, inter-pod
-// affinity or releasing capacity, which the port rejects up front.
+// (wave.py:1192, :1277, used at :1450-1512) -- without ports or inter-pod
+// affinity, which the port rejects up front.
 //
 // One block per ranked profile row.  Each candidate (a shortlist id, or
 // every node) gets its live feasibility (static class verdict, fit of the
 // init request against the live idle, pod slots) and its live score
+// (with releasing capacity, the has_future branch of wave.py:1205-1218 and
+// :1314-1322: the fit reads FutureIdle = ((idle + releasing) - pipelined)
+// - pip_extra and the pod slots count ntasks + pip_ntasks; the score keeps
+// the live idle)
 // (node_score + static score, NEG when infeasible) as a 64-bit key
 // (score descending, candidate position ascending: shortlists hold
 // ascending node ids, so this is jax.lax.top_k's lowest-node-id tie-break).
@@ -29,8 +33,10 @@ namespace {
 __global__ void __launch_bounds__(512) rank_kernel(
     const int32_t* rows, const int32_t* cand, int L, const uint8_t* ok_w,
     const float* score_w, int C, const int32_t* cls_id, const float* p_req,
-    const float* p_init_req, int R, const float* idle, const float* alloc,
-    const int32_t* ntasks, const int32_t* max_tasks, const float* eps,
+    const float* p_init_req, int R, const float* idle, const float* rel,
+    const float* pip, const float* pxe, const int32_t* pip_ntasks,
+    const float* alloc, const int32_t* ntasks, const int32_t* max_tasks,
+    const float* eps,
     const uint8_t* scalar_slot, const float* bres, Weights w, int K,
     uint64_t* keys_scratch, uint8_t* feas_scratch, int32_t* out_ranked,
     uint8_t* out_feas, uint8_t* out_pany) {
@@ -56,9 +62,12 @@ __global__ void __launch_bounds__(512) rank_kernel(
     const int c = cls_id[n];
     const float* id = idle + static_cast<int64_t>(n) * R;
     const float* al = alloc + static_cast<int64_t>(n) * R;
-    const bool pods_ok = max_tasks[n] <= 0 || ntasks[n] < max_tasks[n];
+    float fi[vtt::kMaxR];
+    vtt::future_idle(idle, rel, pip, pxe, n, R, fi);
+    const int nt = ntasks[n] + (pip_ntasks ? pip_ntasks[n] : 0);
+    const bool pods_ok = max_tasks[n] <= 0 || nt < max_tasks[n];
     const bool feas = ok_w[static_cast<int64_t>(u) * C + c] != 0 &&
-                      vtt::less_equal(irq, id, eps, scalar_slot, R) &&
+                      vtt::less_equal(irq, fi, eps, scalar_slot, R) &&
                       pods_ok;
     const float score = vtt::node_score(rq, al, id, bres, R, w) +
                         score_w[static_cast<int64_t>(u) * C + c];
@@ -93,7 +102,9 @@ __global__ void __launch_bounds__(512) rank_kernel(
 extern "C" int vtt_rank_candidates(
     const void* rows, int M, const void* cand, int L, const void* ok_w,
     const void* score_w, int C, const void* cls_id, const void* p_req,
-    const void* p_init_req, int R, const void* idle, const void* alloc,
+    const void* p_init_req, int R, const void* idle, const void* rel,
+    const void* pip, const void* pxe, const void* pip_ntasks,
+    const void* alloc,
     const void* ntasks, const void* max_tasks, const void* eps,
     const void* scalar_slot, const void* bres, float bw, float lw, float mw,
     float balw, int K, void* keys_scratch, void* feas_scratch,
@@ -112,7 +123,10 @@ extern "C" int vtt_rank_candidates(
       static_cast<const uint8_t*>(ok_w), static_cast<const float*>(score_w), C,
       static_cast<const int32_t*>(cls_id), static_cast<const float*>(p_req),
       static_cast<const float*>(p_init_req), R,
-      static_cast<const float*>(idle), static_cast<const float*>(alloc),
+      static_cast<const float*>(idle), static_cast<const float*>(rel),
+      static_cast<const float*>(pip), static_cast<const float*>(pxe),
+      static_cast<const int32_t*>(pip_ntasks),
+      static_cast<const float*>(alloc),
       static_cast<const int32_t*>(ntasks),
       static_cast<const int32_t*>(max_tasks), static_cast<const float*>(eps),
       static_cast<const uint8_t*>(scalar_slot),

@@ -2,8 +2,12 @@
 // in-order acceptance.
 //
 // Replaces one pass of the JAX package's sub-round body `sub_body`
-// (volcano_tpu/ops/wave.py:1660-2003) for solves without host ports,
-// inter-pod affinity or releasing capacity:
+// (volcano_tpu/ops/wave.py:1660-2003) for solves without host ports or
+// inter-pod affinity.  With releasing capacity (`rel` given: the JAX
+// has_future branch) the walk reads FutureIdle = ((idle + releasing) -
+// pipelined) - pip_extra (wave.py:1659-1662), pod slots count ntasks +
+// pip_ntasks, and a task that fits the future idle but not the live idle is
+// accepted as pipelined (`acc_pipe`, wave.py:1997-2003):
 //
 //  1. per ranked node: copies of the profile that still fit,
 //     c[u,k] = min(floor(min_r idle/req), max_tasks - ntasks), 0 where the
@@ -15,7 +19,7 @@
 //     overflow flag;
 //  3. per task: the requests and count of the strictly-earlier live tasks
 //     that chose the same node (the TPU's `tril` matmul), then the idle and
-//     pod-slot checks that give `acc_alloc`.
+//     pod-slot checks that give `acc_alloc` (and `acc_pipe`).
 //
 // The prefix requests are summed in double: request values are integers in
 // milli-units and bytes, so the sums are exact and independent of order
@@ -34,14 +38,17 @@ __global__ void __launch_bounds__(1024) walk_accept_kernel(
     const int32_t* ranked, const uint8_t* feas_k, int UM, int K,
     const float* p_req, const float* p_init_req, int R, const int32_t* pid_l,
     const uint8_t* cand_s, const uint8_t* any_feas, const uint8_t* grp,
-    int W, const float* idle, const int32_t* ntasks, const int32_t* max_tasks,
-    int N, const float* eps, const uint8_t* scalar_slot, float* cumcap,
-    uint8_t* live, int32_t* out_choice, uint8_t* out_acc) {
+    int W, const float* idle, const float* rel, const float* pip,
+    const float* pxe, const int32_t* pip_ntasks, const int32_t* ntasks,
+    const int32_t* max_tasks, int N, const float* eps,
+    const uint8_t* scalar_slot, float* cumcap, uint8_t* live,
+    int32_t* out_choice, uint8_t* out_acc, uint8_t* out_pipe) {
   // 1. live capacity of every ranked node, then its running sum.
   for (int idx = threadIdx.x; idx < UM * K; idx += blockDim.x) {
     const int u = idx / K;
     const int n = ranked[idx];
-    const float* id = idle + static_cast<int64_t>(n) * R;
+    float id[vtt::kMaxR];
+    vtt::future_idle(idle, rel, pip, pxe, n, R, id);
     const float* rq = p_req + static_cast<int64_t>(u) * R;
     float c_res = INFINITY;
     for (int s = 0; s < R; ++s) {
@@ -51,8 +58,8 @@ __global__ void __launch_bounds__(1024) walk_accept_kernel(
     }
     c_res = fminf(fmaxf(c_res, 0.0f), vtt::kBig);
     const int mt = max_tasks[n];
-    const float c_pods =
-        mt > 0 ? static_cast<float>(mt - ntasks[n]) : vtt::kBig;
+    const int nt = ntasks[n] + (pip_ntasks ? pip_ntasks[n] : 0);
+    const float c_pods = mt > 0 ? static_cast<float>(mt - nt) : vtt::kBig;
     cumcap[idx] = feas_k[idx] ? fminf(floorf(c_res), c_pods) : 0.0f;
   }
   __syncthreads();
@@ -101,9 +108,18 @@ __global__ void __launch_bounds__(1024) walk_accept_kernel(
     for (int s = 0; s < R; ++s) need[s] = irq[s] + static_cast<float>(cum[s]);
     const bool fits_idle = vtt::less_equal(
         need, idle + static_cast<int64_t>(ch) * R, eps, scalar_slot, R);
+    bool fits_fut = false;
+    if (rel) {
+      float fut[vtt::kMaxR];
+      vtt::future_idle(idle, rel, pip, pxe, ch, R, fut);
+      fits_fut = vtt::less_equal(need, fut, eps, scalar_slot, R);
+    }
     const int mt = max_tasks[ch];
-    const bool pods_fit = mt <= 0 || ntasks[ch] + cnt < mt;
-    out_acc[t] = (live[t] && pods_fit && fits_idle) ? 1 : 0;
+    const int nt = ntasks[ch] + (pip_ntasks ? pip_ntasks[ch] : 0);
+    const bool pods_fit = mt <= 0 || nt + cnt < mt;
+    const bool clean = live[t] && pods_fit;
+    out_acc[t] = (clean && fits_idle) ? 1 : 0;
+    if (out_pipe) out_pipe[t] = (clean && !fits_idle && fits_fut) ? 1 : 0;
   }
 }
 
@@ -113,19 +129,24 @@ extern "C" int vtt_walk_accept(
     const void* ranked, const void* feas_k, int UM, int K, const void* p_req,
     const void* p_init_req, int R, const void* pid_l, const void* cand_s,
     const void* any_feas, const void* grp, int W, const void* idle,
+    const void* rel, const void* pip, const void* pxe, const void* pip_ntasks,
     const void* ntasks, const void* max_tasks, int N, const void* eps,
     const void* scalar_slot, void* cumcap, void* live, void* out_choice,
-    void* out_acc, void* stream) {
+    void* out_acc, void* out_pipe, void* stream) {
   walk_accept_kernel<<<1, 1024, 0, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const int32_t*>(ranked), static_cast<const uint8_t*>(feas_k),
       UM, K, static_cast<const float*>(p_req),
       static_cast<const float*>(p_init_req), R,
       static_cast<const int32_t*>(pid_l), static_cast<const uint8_t*>(cand_s),
       static_cast<const uint8_t*>(any_feas), static_cast<const uint8_t*>(grp),
-      W, static_cast<const float*>(idle), static_cast<const int32_t*>(ntasks),
+      W, static_cast<const float*>(idle), static_cast<const float*>(rel),
+      static_cast<const float*>(pip), static_cast<const float*>(pxe),
+      static_cast<const int32_t*>(pip_ntasks),
+      static_cast<const int32_t*>(ntasks),
       static_cast<const int32_t*>(max_tasks), N,
       static_cast<const float*>(eps), static_cast<const uint8_t*>(scalar_slot),
       static_cast<float*>(cumcap), static_cast<uint8_t*>(live),
-      static_cast<int32_t*>(out_choice), static_cast<uint8_t*>(out_acc));
+      static_cast<int32_t*>(out_choice), static_cast<uint8_t*>(out_acc),
+      static_cast<uint8_t*>(out_pipe));
   return static_cast<int>(cudaGetLastError());
 }

@@ -12,8 +12,10 @@
 // block copies its previous candidates; a dirty one scores its nlb node
 // rows (static class verdict and score, init-request fit against idle, pod
 // slots, node_score -- the same arithmetic as coarse_shortlist's main
-// pass), builds the unique 64-bit keys (score descending, local row
-// ascending: the jax.lax.top_k tie-break), bitonic-sorts them in shared
+// pass; with releasing capacity the fit reads fi0 = (idle + releasing) -
+// pipelined, wave.py:763-768), builds the unique 64-bit keys (score
+// descending, local row ascending: the jax.lax.top_k tie-break),
+// bitonic-sorts them in shared
 // memory and writes the top klb in rank order.  Masked (infeasible) rows
 // carry NEG and rank like any score, so a block with fewer than klb
 // feasible rows fills with NEG at its lowest rows, as top_k does.
@@ -40,7 +42,8 @@ template <bool kCold>
 __global__ void __launch_bounds__(1024) block_rank_kernel(
     const float* req, const float* init_req, int R, const uint8_t* stat_ok,
     const float* stat_score, int C, const int32_t* cls_id,
-    const float* idle, const float* alloc, const int32_t* ntasks,
+    const float* idle, const float* rel, const float* pip,
+    const float* alloc, const int32_t* ntasks,
     const int32_t* max_tasks, const float* eps, const uint8_t* scalar_slot,
     const float* bres, Weights w, const int32_t* db, int ndb, int B,
     int nlb, int klb, int npow2, const float* old_s, const int32_t* old_i,
@@ -70,9 +73,11 @@ __global__ void __launch_bounds__(1024) block_rank_kernel(
       const int c = cls_id[n];
       const float* id = idle + static_cast<int64_t>(n) * R;
       const float* al = alloc + static_cast<int64_t>(n) * R;
+      float fi0[vtt::kMaxR];
+      vtt::future_idle(idle, rel, pip, nullptr, n, R, fi0);
       const bool pods_ok = max_tasks[n] <= 0 || ntasks[n] < max_tasks[n];
       const bool feas = stat_ok[static_cast<int64_t>(u) * C + c] != 0 &&
-                        vtt::less_equal(irq, id, eps, scalar_slot, R) &&
+                        vtt::less_equal(irq, fi0, eps, scalar_slot, R) &&
                         pods_ok;
       const float score = vtt::node_score(rq, al, id, bres, R, w) +
                           stat_score[static_cast<int64_t>(u) * C + c];
@@ -186,7 +191,8 @@ int pow2_at_least(int n) {
 template <bool kCold>
 int launch(const float* req, const float* init_req, int U, int R,
            const uint8_t* stat_ok, const float* stat_score, int C,
-           const int32_t* cls_id, const float* idle, const float* alloc,
+           const int32_t* cls_id, const float* idle, const float* rel,
+           const float* pip, const float* alloc,
            const int32_t* ntasks, const int32_t* max_tasks,
            const float* eps, const uint8_t* scalar_slot, const float* bres,
            Weights w, const int32_t* db, int ndb, int B, int nlb, int klb,
@@ -201,7 +207,8 @@ int launch(const float* req, const float* init_req, int U, int R,
       static_cast<int>(rank_smem));
   if (err != cudaSuccess) return static_cast<int>(err);
   block_rank_kernel<kCold><<<dim3(B, U), 1024, rank_smem, st>>>(
-      req, init_req, R, stat_ok, stat_score, C, cls_id, idle, alloc, ntasks,
+      req, init_req, R, stat_ok, stat_score, C, cls_id, idle, rel, pip,
+      alloc, ntasks,
       max_tasks, eps, scalar_slot, bres, w, db, ndb, B, nlb, klb, npow2,
       old_s, old_i, cand_s, cand_i);
   err = cudaGetLastError();
@@ -232,10 +239,10 @@ extern "C" int vtt_block_shortlist_smem(int nlb, int S) {
 extern "C" int vtt_block_shortlist(
     int cold, const void* req, const void* init_req, int U, int R,
     const void* stat_ok, const void* stat_score, int C, const void* cls_id,
-    const void* idle, const void* alloc, const void* ntasks,
-    const void* max_tasks, const void* eps, const void* scalar_slot,
-    const void* bres, float bw, float lw, float mw, float balw,
-    const void* db, int ndb, int B, int nlb, int klb, int S,
+    const void* idle, const void* rel, const void* pip, const void* alloc,
+    const void* ntasks, const void* max_tasks, const void* eps,
+    const void* scalar_slot, const void* bres, float bw, float lw, float mw,
+    float balw, const void* db, int ndb, int B, int nlb, int klb, int S,
     const void* old_s, const void* old_i, void* cand_s, void* cand_i,
     void* keys_scratch, void* out, void* stream) {
   Weights w{bw, lw, mw, balw};
@@ -246,7 +253,8 @@ extern "C" int vtt_block_shortlist(
            static_cast<const uint8_t*>(stat_ok),
            static_cast<const float*>(stat_score), C,
            static_cast<const int32_t*>(cls_id),
-           static_cast<const float*>(idle), static_cast<const float*>(alloc),
+           static_cast<const float*>(idle), static_cast<const float*>(rel),
+           static_cast<const float*>(pip), static_cast<const float*>(alloc),
            static_cast<const int32_t*>(ntasks),
            static_cast<const int32_t*>(max_tasks),
            static_cast<const float*>(eps),

@@ -23,13 +23,20 @@ session close -- over the store's incremental array mirror
   (``framework/framework.go`` jobStatus) and the gang plugin's
   OnSessionClose conditions (``gang.go:140-183``).
 
-Eligibility (``eligible()``): actions within {enqueue, allocate,
-backfill}, plugins within ``FAST_PLUGINS`` (the eight built-ins), and the
-wave solver.  The JAX package's other lanes raise ``NotImplementedError``
-here, naming their ROADMAP.md item, before the cycle mutates anything:
-preempt / reclaim (eviction), rebalance, pipelined sessions, the remote
-solver and the device mesh.  Fabric topology constraints and inter-pod
-affinity or spread terms raise when allocate meets them.
+The preempt and reclaim actions run the device-native lanes of the
+what-if engine (``whatif.py``: victims ranked by the ``victim_scores``
+kernel, the wave proven by a what-if solve, evictions committed through
+``fastpath_evict.EvictState`` and flushed to the store's evictor before the
+session closes); the victims stay Releasing through their grace window,
+and every later solve reads their capacity as future idle.
+
+Eligibility (``eligible()``): actions within ``FAST_ACTIONS``, plugins
+within ``FAST_PLUGINS`` (the eight built-ins), and the wave solver.  The
+JAX package's other lanes raise ``NotImplementedError`` here, naming their
+ROADMAP.md item, before the cycle mutates anything: rebalance, the host
+victim walk (``VOLCANO_TPU_EVICT_DEVICE=0``), pipelined sessions, the
+remote solver and the device mesh.  Fabric topology constraints and
+inter-pod affinity or spread terms raise when allocate meets them.
 """
 
 from __future__ import annotations
@@ -182,14 +189,17 @@ class _JobProxy:
 # Actions of the JAX package's fast path that the port does not run yet,
 # with the ROADMAP.md item that ports them.
 _NOT_PORTED_ACTIONS = {
-    "preempt": "preempt/reclaim",
-    "reclaim": "preempt/reclaim",
     "rebalance": "rebalance",
 }
+# The evict lanes the port runs (device-native, whatif.py).
+_EVICT_ACTIONS = ("preempt", "reclaim")
 
 
 class FastCycle:
     """One vectorized scheduling cycle over the store mirror."""
+
+    # Passes a gang sits out after a rejected eviction plan.
+    REBALANCE_REJECT_BACKOFF = 8
 
     # The single entry point (run_cycle_fast) wraps the whole cycle in
     # ``with store._lock``, so every method below runs with the store
@@ -237,10 +247,16 @@ class FastCycle:
     def check_ported(self) -> None:
         """Raise for the JAX fast path's lanes the port does not run, up
         front, before the cycle mutates anything."""
+        from .whatif import evict_device_enabled
+
         for name in self.action_names:
             if name in _NOT_PORTED_ACTIONS:
                 raise _not_ported(f"the {name} action",
                                   _NOT_PORTED_ACTIONS[name])
+            if name in _EVICT_ACTIONS and not evict_device_enabled():
+                raise _not_ported(
+                    f"the host victim walk of the {name} action "
+                    "(VOLCANO_TPU_EVICT_DEVICE=0)", "the host victim walk")
         if self._pipeline_on:
             raise _not_ported("pipelined sessions (store.pipeline)",
                               "the fast path's remaining lanes")
@@ -759,6 +775,7 @@ class FastCycle:
             self.derive()
             self._proportion()
         self.new_conditions: Dict[int, PodGroupCondition] = {}
+        self._evictor = None
         try:
             # Workload-injection seam (steady-state loops): new work
             # "arrives" after the derive and before the actions.
@@ -767,7 +784,8 @@ class FastCycle:
                 with tracer.span("feed", lanes=self.lanes):
                     feed(self)
             for name in self.action_names:
-                lane = name if name in ("enqueue", "backfill") else None
+                lane = (name if name in ("enqueue", "backfill")
+                        + _EVICT_ACTIONS else None)
                 with metrics.action_timer(name), tracer.span(
                         f"action:{name}", cat="action",
                         lanes=(self.lanes if lane else None),
@@ -781,11 +799,21 @@ class FastCycle:
                             # Backfill bound BestEffort rows directly in
                             # the mirror.
                             self.m.mutation_seq += 1
+                    elif name in _EVICT_ACTIONS:
+                        # Device-native lane: plan victims with the
+                        # victim_scores kernel, prove the wave with a
+                        # what-if solve, commit -- the engine stamps the
+                        # mutation counter itself iff it evicts.
+                        from . import whatif
+
+                        whatif.run_evict_action(self, name)
         except BaseException:
             # A failed cycle may leave uncommitted status mutations in the
             # mirror; re-derive dynamic state from the pod records.
             self.m.resync_status(self.store.pods)
             raise
+        if self._evictor is not None:
+            self._evictor.flush()
         with tracer.span("close", lanes=self.lanes):
             self._close()
         store.last_cycle_lanes = dict(self.lanes)
@@ -817,6 +845,7 @@ class FastCycle:
             epoch_at_dispatch=st["epoch_at_dispatch"],
             epoch_at_commit=st["epoch_at_commit"],
             device_events=list(st["device_events"]),
+            whatif=st.get("whatif"),
             error=type(err).__name__ if err is not None else None,
             spans=self.tracer.drain(),
         ))
@@ -880,6 +909,15 @@ class FastCycle:
                 "device_fine", "device", now - int(fine * 1e9),
                 int(fine * 1e9), tid="cycle",
             )
+
+    def _evict_machinery(self):
+        """The cycle's eviction state, built on the first eviction."""
+        self._flush_aggr()
+        if self._evictor is None:
+            from .fastpath_evict import EvictState
+
+            self._evictor = EvictState(self)
+        return self._evictor
 
     # ------------------------------------------------------------- enqueue
 

@@ -183,11 +183,12 @@ class DeviceIncremental:
 
     def shortlist(self, nodes, prof, cls, weights, eps, scalar_slot,
                   sl_k: int, features: tuple, cls_identity: bool, stat,
-                  plain: bool = False):
+                  future=None, plain: bool = False):
         """The solve's [U, sl_k] shortlists: warm-started when the warm
         key held and the dirty-block fraction is low, full re-rank
         (seeding fresh candidates) otherwise.  Bit-identical to the
-        direct coarse pass either way."""
+        direct coarse pass either way.  ``future``: the releasing-capacity
+        planes the fit reads (``kernels.Future``), None without them."""
         N = int(nodes.idle.shape[0])
         U = int(prof.req.shape[0])
         B, nlb, klb = block_geometry(N, sl_k)
@@ -217,7 +218,7 @@ class DeviceIncremental:
                     prof, cls.class_id, stat[0], stat[1], nodes.idle,
                     nodes.allocatable, nodes.ntasks, nodes.max_tasks, eps,
                     scalar_slot, weights, db_t, cand_s, cand_i, int(sl_k),
-                    plain=plain,
+                    future=future, plain=plain,
                 )
                 self._cand = (cand_s, cand_i, sl)
                 self.last_mode = "warm"
@@ -229,7 +230,7 @@ class DeviceIncremental:
             prof, cls, nodes.idle, nodes.allocatable, nodes.ntasks,
             nodes.max_tasks, eps, scalar_slot, weights, int(sl_k),
             has_taints=bool(features[2]), stat=stat, n_blocks=B,
-            plain=plain,
+            future=future, plain=plain,
         )
         self._cand = (cand_s, cand_i, sl)
         self._warm_key = key

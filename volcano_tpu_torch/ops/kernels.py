@@ -19,6 +19,7 @@ wrapper                replaces (JAX package)
 ``static_planes``      ``ops/wave.py:_static_planes`` (:347)
 ``warm_shortlist``     ``ops/wave.py:_warm_shortlist`` (:721)
 ``scatter_rows``       ``ops/devsnap.py:_scatter_rows`` (:82)
+``victim_scores``      ``ops/victim.py:victim_scores`` (:82)
 =====================  ===================================================
 
 Each wrapper takes its inputs as tensors.  On CPU tensors it runs the
@@ -27,6 +28,11 @@ current stream) or raises -- there is no fallback.  ``plain=True`` forces
 the plain version on the card; only ``chip_smoke.py`` asks for it, to hold
 the two against each other.  ``LAUNCHES`` counts kernel launches, one per
 wrapper call that launched its kernel.
+
+The five solve kernels take ``future``, a ``Future`` of the releasing
+capacity planes: the JAX solve's has_future branch, where a fit reads
+FutureIdle = ((idle + releasing) - pipelined) - pip_extra and pod slots
+count ntasks + pip_ntasks (``None``: no releasing capacity).
 
 The sources live in ``volcano_tpu_torch/csrc`` and build at first use with
 ``nvcc -gencode arch=compute_90a,code=sm_90a -O3 -fmad=false`` into one
@@ -47,7 +53,7 @@ import subprocess
 import threading
 import time
 from pathlib import Path
-from typing import Optional
+from typing import NamedTuple, Optional
 
 import torch
 
@@ -63,6 +69,7 @@ LAUNCHES = {
     "static_planes": 0,
     "warm_shortlist": 0,
     "scatter_rows": 0,
+    "victim_scores": 0,
 }
 
 # Where each kernel's source lives and which JAX code it replaces
@@ -75,6 +82,7 @@ KERNEL_SOURCES = {
     "static_planes": "volcano_tpu_torch/csrc/coarse_shortlist.cu",
     "warm_shortlist": "volcano_tpu_torch/csrc/warm_shortlist.cu",
     "scatter_rows": "volcano_tpu_torch/csrc/scatter_rows.cu",
+    "victim_scores": "volcano_tpu_torch/csrc/victim_scores.cu",
 }
 REPLACES = {
     "coarse_shortlist": "volcano_tpu/ops/wave.py:547",
@@ -84,6 +92,7 @@ REPLACES = {
     "static_planes": "volcano_tpu/ops/wave.py:347",
     "warm_shortlist": "volcano_tpu/ops/wave.py:721",
     "scatter_rows": "volcano_tpu/ops/devsnap.py:82",
+    "victim_scores": "volcano_tpu/ops/victim.py:82",
 }
 
 MAX_R = 16  # csrc/common.cuh kMaxR
@@ -103,10 +112,14 @@ def reset_launches() -> None:
 def _capture(name: str, **inputs) -> None:
     if CAPTURE is None or name in CAPTURE:
         return
-    CAPTURE[name] = {
-        k: (v.clone() if isinstance(v, torch.Tensor) else v)
-        for k, v in inputs.items()
-    }
+    def clone(v):
+        if isinstance(v, torch.Tensor):
+            return v.clone()
+        if isinstance(v, Future):
+            return Future(*[None if t is None else t.clone() for t in v])
+        return v
+
+    CAPTURE[name] = {k: clone(v) for k, v in inputs.items()}
 
 
 # --------------------------------------------------------------- loader
@@ -114,7 +127,8 @@ def _capture(name: str, **inputs) -> None:
 _CSRC = Path(__file__).resolve().parent.parent / "csrc"
 _BUILD = _CSRC / "_build"
 _SOURCES = ("coarse_shortlist.cu", "rank_candidates.cu", "walk_accept.cu",
-            "apply_commit.cu", "warm_shortlist.cu", "scatter_rows.cu")
+            "apply_commit.cu", "warm_shortlist.cu", "scatter_rows.cu",
+            "victim_scores.cu")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-O3",
               "-fmad=false", "-std=c++17", "-Xcompiler", "-fPIC")
 BUILD_SECONDS: Optional[float] = None
@@ -183,23 +197,28 @@ _F = ctypes.c_float
 _L = ctypes.c_int64
 _SIGS = {
     "vtt_coarse_shortlist": [_P, _P, _I, _I, _P, _I, _P, _I, _P, _P, _I, _P,
-                             _I, _P, _P, _P, _P, _P, _I, _P, _P, _P, _P, _I,
-                             _P, _P, _P, _F, _F, _F, _F, _F, _I, _I, _I, _P,
-                             _P, _P, _P, _P],
+                             _I, _P, _P, _P, _P, _P, _I, _P, _P, _P, _P, _P,
+                             _P, _I, _P, _P, _P, _F, _F, _F, _F, _F, _I, _I,
+                             _I, _P, _P, _P, _P, _P],
     "vtt_static_planes": [_I, _P, _I, _P, _I, _P, _P, _I, _P, _I, _P, _P,
                           _P, _P, _I, _F, _I, _P, _P, _P],
     "vtt_block_shortlist": [_I, _P, _P, _I, _I, _P, _P, _I, _P, _P, _P, _P,
-                            _P, _P, _P, _P, _F, _F, _F, _F, _P, _I, _I, _I,
-                            _I, _I, _P, _P, _P, _P, _P, _P, _P],
+                            _P, _P, _P, _P, _P, _P, _F, _F, _F, _F, _P, _I,
+                            _I, _I, _I, _I, _P, _P, _P, _P, _P, _P, _P],
     "vtt_block_shortlist_smem": [_I, _I],
     "vtt_scatter_rows": [_P, _P, _P, _I, _L, _P],
     "vtt_rank_candidates": [_P, _I, _P, _I, _P, _P, _I, _P, _P, _P, _I, _P,
-                            _P, _P, _P, _P, _P, _P, _F, _F, _F, _F, _I, _P,
-                            _P, _P, _P, _P, _P],
+                            _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _F, _F,
+                            _F, _F, _I, _P, _P, _P, _P, _P, _P],
     "vtt_walk_accept": [_P, _P, _I, _I, _P, _P, _I, _P, _P, _P, _P, _I, _P,
-                        _P, _P, _I, _P, _P, _P, _P, _P, _P, _P],
+                        _P, _P, _P, _P, _P, _P, _I, _P, _P, _P, _P, _P, _P,
+                        _P, _P],
     "vtt_apply_commit": [_P, _P, _P, _P, _P, _I, _I, _F, _I, _P, _P, _I, _P,
-                         _I, _P, _P, _P, _P, _P, _P],
+                         _I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
+                         _P],
+    "vtt_victim_scores": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P, _P,
+                          _P, _I, _I, _I, _I, _P, _P, _P, _P, _P, _P, _P, _P,
+                          _P],
 }
 
 
@@ -252,6 +271,55 @@ def _weights(weights):
             float(weights.most_req_weight), float(weights.balanced_weight))
 
 
+class Future(NamedTuple):
+    """Releasing-capacity planes of a solve (the JAX has_future branch):
+    ``rel`` releasing and ``pip`` pipelined capacity at solve start, ``pxe``
+    the in-solve pipelined charge (pip_extra), all [N, R] f32, and
+    ``pip_ntasks`` [N] int32.  The shortlist passes read solve-start state
+    and take ``pxe`` / ``pip_ntasks`` as None."""
+
+    rel: torch.Tensor
+    pip: torch.Tensor
+    pxe: Optional[torch.Tensor] = None
+    pip_ntasks: Optional[torch.Tensor] = None
+
+
+def future_idle(idle, future: Optional[Future]):
+    """FutureIdle, ((idle + releasing) - pipelined) - pip_extra, left to
+    right (wave.py:609, :1207, :1661); the plain idle without ``future``."""
+    if future is None:
+        return idle
+    fi = (idle + future.rel) - future.pip
+    return fi if future.pxe is None else fi - future.pxe
+
+
+def _total_ntasks(ntasks, future: Optional[Future]):
+    if future is None or future.pip_ntasks is None:
+        return ntasks
+    return ntasks + future.pip_ntasks
+
+
+def _future_args(future: Optional[Future], idle, ntasks, name: str):
+    """The four pointers of ``future`` after the shape and type checks
+    (null pointers without it)."""
+    if future is None:
+        return (None, None, None, None)
+    f32 = torch.float32
+    planes = [_req(future.rel, f32, f"{name} releasing"),
+              _req(future.pip, f32, f"{name} pipelined")]
+    if future.pxe is not None:
+        planes.append(_req(future.pxe, f32, f"{name} pip_extra"))
+    if any(t.shape != idle.shape for t in planes):
+        raise ValueError(f"{name}: future planes are not [N, R]")
+    pnt = future.pip_ntasks
+    if pnt is not None:
+        _req(pnt, torch.int32, f"{name} pip_ntasks")
+        if pnt.shape != ntasks.shape:
+            raise ValueError(f"{name}: pip_ntasks is not [N]")
+    return (_ptr(future.rel), _ptr(future.pip), _ptr(future.pxe),
+            _ptr(pnt))
+
+
 # ------------------------------------------------- selection (plain)
 
 def _select_desc(masked: torch.Tensor, k: int) -> torch.Tensor:
@@ -293,14 +361,16 @@ def class_static_plain(sel_bits, aff_bits, aff_terms, tol_bits, pref_bits,
 
 
 def _masked_plain(req, init_req, stat_ok, stat_score, cid, idle, alloc,
-                  ntasks, max_tasks, eps, scalar_slot, weights):
+                  ntasks, max_tasks, eps, scalar_slot, weights, fi0=None):
     """[U, M] solve-start scores of node rows whose planes are given
     (``cid`` their class ids), NEG where infeasible -- the coarse body
-    (wave.py:640-664) without ports and inter-pod terms."""
+    (wave.py:640-664) without ports and inter-pod terms.  ``fi0`` is the
+    solve-start FutureIdle the fit reads (``idle`` when None)."""
     cid = cid.long()
     feas = stat_ok[:, cid]
     static_score = stat_score[:, cid]
-    fit = less_equal(init_req[:, None, :], idle[None, :, :], eps, scalar_slot)
+    fi0 = idle if fi0 is None else fi0
+    fit = less_equal(init_req[:, None, :], fi0[None, :, :], eps, scalar_slot)
     pods_ok = (max_tasks <= 0) | (ntasks < max_tasks)
     feas = feas & fit & pods_ok[None, :]
     score = node_score(req[:, None, :], alloc[None], idle[None], weights)
@@ -309,10 +379,10 @@ def _masked_plain(req, init_req, stat_ok, stat_score, cid, idle, alloc,
 
 
 def _coarse_plain(req, init_req, stat_ok, stat_score, cls_id, idle, alloc,
-                  ntasks, max_tasks, eps, scalar_slot, weights, S):
+                  ntasks, max_tasks, eps, scalar_slot, weights, S, fi0=None):
     masked = _masked_plain(req, init_req, stat_ok, stat_score, cls_id, idle,
                            alloc, ntasks, max_tasks, eps, scalar_slot,
-                           weights)
+                           weights, fi0)
     idx = _select_desc(masked, S)
     return torch.sort(idx, dim=1).values.to(torch.int32)
 
@@ -392,7 +462,7 @@ def _block_geometry(N: int, B: int, S: int):
 
 
 def _launch_block_shortlist(a, stat_ok, stat_score, weights, db, B, nlb,
-                            klb, S, old, cand_s, cand_i):
+                            klb, S, old, cand_s, cand_i, fut_ptrs):
     U, R = a["req"].shape
     C = stat_ok.shape[1]
     dev = a["idle"].device
@@ -401,7 +471,8 @@ def _launch_block_shortlist(a, stat_ok, stat_score, weights, db, B, nlb,
     rc = load().vtt_block_shortlist(
         int(db is None), _ptr(a["req"]), _ptr(a["init_req"]), U, R,
         _ptr(stat_ok), _ptr(stat_score), C, _ptr(a["cls_id"]),
-        _ptr(a["idle"]), _ptr(a["alloc"]), _ptr(a["ntasks"]),
+        _ptr(a["idle"]), fut_ptrs[0], fut_ptrs[1], _ptr(a["alloc"]),
+        _ptr(a["ntasks"]),
         _ptr(a["max_tasks"]), _ptr(a["eps"]), _ptr(a["scalar_slot"]),
         _ptr(a["bres"]), *_weights(weights), _ptr(db),
         0 if db is None else int(db.shape[0]), B, nlb, klb, S,
@@ -413,7 +484,8 @@ def _launch_block_shortlist(a, stat_ok, stat_score, weights, db, B, nlb,
 
 def coarse_shortlist(prof, cls, idle, alloc, ntasks, max_tasks, eps,
                      scalar_slot, weights, S: int, has_taints: bool,
-                     stat=None, n_blocks: int = 0, plain: bool = False):
+                     stat=None, n_blocks: int = 0, future=None,
+                     plain: bool = False):
     """Phase 1: ``(shortlist [U, S] int32 ascending ids, stat_ok [U, C]
     bool, stat_score [U, C] f32)``, plus ``(cand_s [U, B, klb] f32,
     cand_i [U, B, klb] int32)`` when ``n_blocks`` (B) is given.
@@ -428,7 +500,9 @@ def coarse_shortlist(prof, cls, idle, alloc, ntasks, max_tasks, eps,
     rows, top ``klb = min(S, N / B)`` each, in rank order) and merges the
     winners (``with_cand``): the same shortlist, and the per-block
     candidates a later ``warm_shortlist`` patches.  It needs ``stat``
-    (``static_planes`` builds the planes it reads)."""
+    (``static_planes`` builds the planes it reads).  With ``future`` (its
+    ``rel`` and ``pip``) the fit reads fi0 = (idle + releasing) -
+    pipelined (wave.py:608-609)."""
     naff = float(weights.node_affinity_weight)
     if n_blocks and stat is None:
         raise ValueError("coarse_shortlist: n_blocks needs the static "
@@ -442,17 +516,18 @@ def coarse_shortlist(prof, cls, idle, alloc, ntasks, max_tasks, eps,
             )
         else:
             ok, score = stat
+        fi0 = future_idle(idle, future)
         if not n_blocks:
             sl = _coarse_plain(prof.req, prof.init_req, ok, score,
                                cls.class_id, idle, alloc, ntasks, max_tasks,
-                               eps, scalar_slot, weights, S)
+                               eps, scalar_slot, weights, S, fi0)
             return sl, ok, score
         N = idle.shape[0]
         nlb = N // n_blocks
         klb = min(S, nlb)
         masked = _masked_plain(prof.req, prof.init_req, ok, score,
                                cls.class_id, idle, alloc, ntasks, max_tasks,
-                               eps, scalar_slot, weights)
+                               eps, scalar_slot, weights, fi0)
         cand_s, cand_i = _block_rank_plain(
             masked, torch.arange(n_blocks, device=idle.device), nlb, klb)
         return (_merge_plain(cand_s, cand_i, S), ok, score, cand_s, cand_i)
@@ -470,8 +545,9 @@ def coarse_shortlist(prof, cls, idle, alloc, ntasks, max_tasks, eps,
     if stat is not None and (a["stat_ok"].shape != (U, C)
                              or a["stat_score"].shape != (U, C)):
         raise ValueError("coarse_shortlist: static planes are not [U, C]")
+    fut = _future_args(future, idle, ntasks, "coarse_shortlist")
     _capture("coarse_shortlist", weights=weights, S=S, has_taints=has_taints,
-             n_blocks=n_blocks, C=C, **a)
+             n_blocks=n_blocks, C=C, future=future, **a)
     dev = idle.device
     if stat is None:
         stat_ok = torch.empty((U, C), dtype=torch.bool, device=dev)
@@ -486,7 +562,7 @@ def coarse_shortlist(prof, cls, idle, alloc, ntasks, max_tasks, eps,
                              device=dev)
         rc, out = _launch_block_shortlist(
             a, stat_ok, stat_score, weights, None, n_blocks, nlb, klb, S,
-            None, cand_s, cand_i)
+            None, cand_s, cand_i, fut)
         _check(rc, "coarse_shortlist")
         LAUNCHES["coarse_shortlist"] += 1
         return out, stat_ok, stat_score, cand_s, cand_i
@@ -502,7 +578,8 @@ def coarse_shortlist(prof, cls, idle, alloc, ntasks, max_tasks, eps,
         _ptr(g("pref_bits")), g("pref_bits").shape[1] if stat is None else 0,
         _ptr(g("pref_w")), _ptr(a["cls_id"]), _ptr(g("cls_label")),
         _ptr(g("cls_taint")), _ptr(g("cls_ready")), C, _ptr(a["idle"]),
-        _ptr(a["alloc"]), _ptr(a["ntasks"]), _ptr(a["max_tasks"]), N,
+        fut[0], fut[1], _ptr(a["alloc"]), _ptr(a["ntasks"]),
+        _ptr(a["max_tasks"]), N,
         _ptr(a["eps"]), _ptr(a["scalar_slot"]), _ptr(a["bres"]),
         *_weights(weights), naff, int(bool(has_taints)), S,
         int(stat is not None), _ptr(stat_ok), _ptr(stat_score), _ptr(keys),
@@ -564,7 +641,7 @@ def static_planes(prof, cls, naff: float, has_taints: bool,
 
 def _warm_plain(req, init_req, stat_ok, stat_score, cls_id, idle, alloc,
                 ntasks, max_tasks, eps, scalar_slot, weights, db, cand_s,
-                cand_i, S):
+                cand_i, S, future=None):
     B, klb = cand_s.shape[1], cand_s.shape[2]
     nlb = idle.shape[0] // B
     dbl = db.long()
@@ -572,7 +649,8 @@ def _warm_plain(req, init_req, stat_ok, stat_score, cls_id, idle, alloc,
             + torch.arange(nlb, device=idle.device)[None, :]).reshape(-1)
     masked = _masked_plain(req, init_req, stat_ok, stat_score, cls_id[rows],
                            idle[rows], alloc[rows], ntasks[rows],
-                           max_tasks[rows], eps, scalar_slot, weights)
+                           max_tasks[rows], eps, scalar_slot, weights,
+                           future_idle(idle, future)[rows])
     s_new, i_new = _block_rank_plain(masked, db, nlb, klb)
     cs = cand_s.clone()
     ci = cand_i.clone()
@@ -583,17 +661,19 @@ def _warm_plain(req, init_req, stat_ok, stat_score, cls_id, idle, alloc,
 
 def warm_shortlist(prof, cls_id, stat_ok, stat_score, idle, alloc, ntasks,
                    max_tasks, eps, scalar_slot, weights, db, cand_s, cand_i,
-                   S: int, plain: bool = False):
+                   S: int, future=None, plain: bool = False):
     """Warm-started shortlists (wave.py:721 ``_warm_shortlist``):
     re-rank only the node blocks ``db`` ([ndb] int32, unique block ids),
     keep every other block's candidates from ``cand_s``/``cand_i``
     ([U, B, klb]), merge the winners.  Returns ``(shortlist [U, S] int32
     ascending ids, cand_s, cand_i)``; the candidates are new tensors (the
-    inputs are never written)."""
+    inputs are never written).  ``future`` as in ``coarse_shortlist``
+    (wave.py:763-768)."""
     if not _on_card(plain, idle, prof.req, db, cand_s):
         return _warm_plain(prof.req, prof.init_req, stat_ok, stat_score,
                            cls_id, idle, alloc, ntasks, max_tasks, eps,
-                           scalar_slot, weights, db, cand_s, cand_i, S)
+                           scalar_slot, weights, db, cand_s, cand_i, S,
+                           future)
     from .nodeclass import NodeClasses
 
     U, B, klb = cand_s.shape
@@ -609,14 +689,15 @@ def warm_shortlist(prof, cls_id, stat_ok, stat_score, idle, alloc, ntasks,
             or a["req"].shape[0] != U or stat_ok.shape[0] != U
             or db.dim() != 1 or not 1 <= db.shape[0] <= B):
         raise ValueError("warm_shortlist: inconsistent input shapes")
+    fut = _future_args(future, idle, ntasks, "warm_shortlist")
     _capture("warm_shortlist", weights=weights, S=S, db=db, cand_s=cand_s,
-             cand_i=cand_i, **a)
+             cand_i=cand_i, future=future, **a)
     dev = idle.device
     new_s = torch.empty_like(cand_s)
     new_i = torch.empty_like(cand_i)
     rc, out = _launch_block_shortlist(
         a, a["stat_ok"], a["stat_score"], weights, db, B, nlb, klb, S,
-        (cand_s, cand_i), new_s, new_i)
+        (cand_s, cand_i), new_s, new_i, fut)
     _check(rc, "warm_shortlist")
     LAUNCHES["warm_shortlist"] += 1
     return out, new_s, new_i
@@ -652,7 +733,8 @@ def scatter_rows(buf: torch.Tensor, rows: torch.Tensor, vals: torch.Tensor,
 # ----------------------------------------------------- rank_candidates
 
 def _rank_plain(rows, cand, ok_w, score_w, cls_id, p_req, p_init_req, idle,
-                alloc, ntasks, max_tasks, eps, scalar_slot, weights, K):
+                alloc, ntasks, max_tasks, eps, scalar_slot, weights, K,
+                future=None):
     rows_l = rows.long()
     if cand is None:
         nodes = torch.arange(idle.shape[0], device=idle.device)[None, :]
@@ -663,9 +745,10 @@ def _rank_plain(rows, cand, ok_w, score_w, cls_id, p_req, p_init_req, idle,
     ok = torch.gather(ok_w[rows_l], 1, cid)
     sscore = torch.gather(score_w[rows_l], 1, cid)
     idle_c = idle[nodes]  # [M, L, R]
-    fit = less_equal(p_init_req[rows_l][:, None, :], idle_c, eps, scalar_slot)
+    fit = less_equal(p_init_req[rows_l][:, None, :],
+                     future_idle(idle, future)[nodes], eps, scalar_slot)
     mt = max_tasks[nodes]
-    pods_ok = (mt <= 0) | (ntasks[nodes] < mt)
+    pods_ok = (mt <= 0) | (_total_ntasks(ntasks, future)[nodes] < mt)
     feas = ok & fit & pods_ok
     score = node_score(p_req[rows_l][:, None, :], alloc[nodes], idle_c,
                        weights) + sscore
@@ -677,16 +760,19 @@ def _rank_plain(rows, cand, ok_w, score_w, cls_id, p_req, p_init_req, idle,
 
 def rank_candidates(rows, cand, ok_w, score_w, cls_id, p_req, p_init_req,
                     idle, alloc, ntasks, max_tasks, eps, scalar_slot,
-                    weights, K: int, plain: bool = False):
+                    weights, K: int, future=None, plain: bool = False):
     """Live top-K of the wave profile rows ``rows`` ([M] int32 into the
     wave's [UM] rows).  ``cand`` is [UM, L] candidate node ids (a profile's
     ascending shortlist) or None for all N nodes.  ``ok_w``/``score_w`` are
-    the wave rows of the static [U, C] planes.  Returns ``(ranked [M, K]
-    int32 node ids in rank order, feas_k [M, K] bool, p_any [M] bool)``."""
+    the wave rows of the static [U, C] planes.  With ``future`` the fit
+    reads FutureIdle and pod slots count ntasks + pip_ntasks (wave.py:
+    1205-1218, 1314-1322); the score keeps the live idle.  Returns
+    ``(ranked [M, K] int32 node ids in rank order, feas_k [M, K] bool,
+    p_any [M] bool)``."""
     if not _on_card(plain, idle, p_req, rows):
         return _rank_plain(rows, cand, ok_w, score_w, cls_id, p_req,
                            p_init_req, idle, alloc, ntasks, max_tasks, eps,
-                           scalar_slot, weights, K)
+                           scalar_slot, weights, K, future)
     M = rows.shape[0]
     N, R = idle.shape
     L = N if cand is None else cand.shape[1]
@@ -721,7 +807,8 @@ def rank_candidates(rows, cand, ok_w, score_w, cls_id, p_req, p_init_req,
             or (cand is not None and cand.shape[0] != UM)
             or cls_id.shape[0] != N or alloc.shape != idle.shape):
         raise ValueError("rank_candidates: inconsistent input shapes")
-    _capture("rank_candidates", weights=weights, K=K, **a)
+    fut = _future_args(future, idle, ntasks, "rank_candidates")
+    _capture("rank_candidates", weights=weights, K=K, future=future, **a)
     dev = idle.device
     ranked = torch.empty((M, K), dtype=i32, device=dev)
     feas_k = torch.empty((M, K), dtype=u8, device=dev)
@@ -731,7 +818,7 @@ def rank_candidates(rows, cand, ok_w, score_w, cls_id, p_req, p_init_req,
     rc = load().vtt_rank_candidates(
         _ptr(a["rows"]), M, _ptr(a["cand"]), L, _ptr(a["ok_w"]),
         _ptr(a["score_w"]), a["ok_w"].shape[1], _ptr(a["cls_id"]),
-        _ptr(a["p_req"]), _ptr(a["p_init_req"]), R, _ptr(a["idle"]),
+        _ptr(a["p_req"]), _ptr(a["p_init_req"]), R, _ptr(a["idle"]), *fut,
         _ptr(a["alloc"]), _ptr(a["ntasks"]), _ptr(a["max_tasks"]),
         _ptr(a["eps"]), _ptr(a["scalar_slot"]), _ptr(bres),
         *_weights(weights), K, _ptr(keys), _ptr(feas_s), _ptr(ranked),
@@ -764,20 +851,22 @@ def _exclusive_segment_sum(key, vals):
 
 
 def _walk_plain(ranked, feas_k, p_req, p_init_req, pid_l, cand_s, any_feas,
-                grp, idle, ntasks, max_tasks, eps, scalar_slot):
+                grp, idle, ntasks, max_tasks, eps, scalar_slot, future=None):
     UM, K = ranked.shape
     N = idle.shape[0]
     W = pid_l.shape[0]
     big = torch.tensor(1.0e9, dtype=torch.float32, device=idle.device)
     rk = ranked.long()
-    walk = idle[rk]  # [UM, K, R]
+    fi = future_idle(idle, future)
+    nt = _total_ntasks(ntasks, future)
+    walk = fi[rk]  # [UM, K, R]
     req = p_req[:, None, :]
     per = torch.where(req > 0, walk / torch.clamp(req, min=1e-9),
                       torch.full_like(walk, float("inf")))
     c_res = torch.clamp(per.min(dim=-1).values, min=0.0)
     c_res = torch.minimum(c_res, big)
     mt = max_tasks[rk]
-    c_pods = torch.where(mt > 0, (mt - ntasks[rk]).to(torch.float32), big)
+    c_pods = torch.where(mt > 0, (mt - nt[rk]).to(torch.float32), big)
     c = torch.where(feas_k, torch.minimum(torch.floor(c_res), c_pods),
                     torch.zeros_like(c_res))
     cumcap = torch.cumsum(c, dim=1)
@@ -799,24 +888,31 @@ def _walk_plain(ranked, feas_k, p_req, p_init_req, pid_l, cand_s, any_feas,
     R = p_req.shape[1]
     cum_req = pre[:, :R].to(torch.float32)
     cum_cnt = pre[:, R].round().to(torch.int32)
-    fits_idle = less_equal(p_init_req[pl] + cum_req, idle[choice], eps,
-                           scalar_slot)
+    need = p_init_req[pl] + cum_req
+    fits_idle = less_equal(need, idle[choice], eps, scalar_slot)
     mt_c = max_tasks[choice]
-    pods_fit = (mt_c <= 0) | (ntasks[choice] + cum_cnt < mt_c)
-    return choice.to(torch.int32), live & pods_fit & fits_idle
+    clean = live & ((mt_c <= 0) | (nt[choice] + cum_cnt < mt_c))
+    pipe = None
+    if future is not None:
+        fits_fut = less_equal(need, fi[choice], eps, scalar_slot)
+        pipe = clean & ~fits_idle & fits_fut
+    return choice.to(torch.int32), clean & fits_idle, pipe
 
 
 def walk_accept(ranked, feas_k, p_req, p_init_req, pid_l, cand_s, any_feas,
-                grp, idle, ntasks, max_tasks, eps, scalar_slot,
+                grp, idle, ntasks, max_tasks, eps, scalar_slot, future=None,
                 plain: bool = False):
-    """One sub-round without ports, affinity or releasing capacity:
-    ``(choice [W] int32, acc_alloc [W] bool)``.  ``pid_l`` is each task's
-    row in the wave's [UM] profile list, ``grp`` the [UM, UM] contention
-    groups."""
+    """One sub-round without ports or affinity: ``(choice [W] int32,
+    acc_alloc [W] bool, acc_pipe [W] bool or None)``.  ``pid_l`` is each
+    task's row in the wave's [UM] profile list, ``grp`` the [UM, UM]
+    contention groups.  With ``future`` the walk reads FutureIdle, pod
+    slots count ntasks + pip_ntasks, and a task that fits the future idle
+    but not the live idle is accepted as pipelined (wave.py:1997-2003);
+    without it ``acc_pipe`` is None."""
     if not _on_card(plain, idle, ranked, pid_l):
         return _walk_plain(ranked, feas_k, p_req, p_init_req, pid_l, cand_s,
                            any_feas, grp, idle, ntasks, max_tasks, eps,
-                           scalar_slot)
+                           scalar_slot, future)
     UM, K = ranked.shape
     N, R = idle.shape
     W = pid_l.shape[0]
@@ -838,40 +934,60 @@ def walk_accept(ranked, feas_k, p_req, p_init_req, pid_l, cand_s, any_feas,
             or p_init_req.shape != (UM, R) or grp.shape != (UM, UM)
             or cand_s.shape != (W,) or any_feas.shape != (W,)):
         raise ValueError("walk_accept: inconsistent input shapes")
-    _capture("walk_accept", **a)
+    fut = _future_args(future, idle, ntasks, "walk_accept")
+    _capture("walk_accept", future=future, **a)
     dev = idle.device
     cumcap = torch.empty((UM, K), dtype=f32, device=dev)
     live = torch.empty((W,), dtype=u8, device=dev)
     choice = torch.empty((W,), dtype=i32, device=dev)
     acc = torch.empty((W,), dtype=u8, device=dev)
+    pipe = None if future is None else torch.empty((W,), dtype=u8, device=dev)
     rc = load().vtt_walk_accept(
         _ptr(a["ranked"]), _ptr(a["feas_k"]), UM, K, _ptr(a["p_req"]),
         _ptr(a["p_init_req"]), R, _ptr(a["pid_l"]), _ptr(a["cand_s"]),
-        _ptr(a["any_feas"]), _ptr(a["grp"]), W, _ptr(a["idle"]),
+        _ptr(a["any_feas"]), _ptr(a["grp"]), W, _ptr(a["idle"]), *fut,
         _ptr(a["ntasks"]), _ptr(a["max_tasks"]), N, _ptr(a["eps"]),
         _ptr(a["scalar_slot"]), _ptr(cumcap), _ptr(live), _ptr(choice),
-        _ptr(acc), _stream(),
+        _ptr(acc), _ptr(pipe), _stream(),
     )
     _check(rc, "walk_accept")
     LAUNCHES["walk_accept"] += 1
-    return choice, acc
+    return choice, acc, pipe
 
 
 # -------------------------------------------------------- apply_commit
 
-def _apply_plain(node, mask, rows, row_idx, qidx, idle_sign, mode, jw, idle,
-                 q_alloc, ntasks, alloc_l, assigned):
-    sel = mask.nonzero().squeeze(1)
+def _add_rows(node_plane, queue_plane, sel, node, rows, row_idx, qidx,
+              node_sign, queue_sign):
+    """Add the selected tasks' requests to a node plane and a queue plane:
+    summed per row in float64 (exact for integer requests), each touched
+    row rounded and added once."""
     n = node.long()[sel]
     v = rows[row_idx.long()[sel]].double()
-    acc_n = torch.zeros(idle.shape, dtype=torch.float64, device=idle.device)
-    acc_n.index_add_(0, n, float(idle_sign) * v)
-    acc_q = torch.zeros(q_alloc.shape, dtype=torch.float64,
-                        device=idle.device)
-    acc_q.index_add_(0, qidx.long()[sel], -float(idle_sign) * v)
-    for state, tot in ((idle, acc_n), (q_alloc, acc_q)):
+    acc_n = torch.zeros(node_plane.shape, dtype=torch.float64,
+                        device=node_plane.device)
+    acc_n.index_add_(0, n, node_sign * v)
+    acc_q = torch.zeros(queue_plane.shape, dtype=torch.float64,
+                        device=node_plane.device)
+    acc_q.index_add_(0, qidx.long()[sel], queue_sign * v)
+    for state, tot in ((node_plane, acc_n), (queue_plane, acc_q)):
         touched = tot != 0
         state[touched] = state[touched] + tot[touched].to(torch.float32)
+
+
+def _apply_plain(node, mask, rows, row_idx, qidx, idle_sign, mode, jw, idle,
+                 q_alloc, ntasks, alloc_l, assigned, pipe=None, pip=None):
+    if pipe is not None:
+        psel = pipe.nonzero().squeeze(1)
+        _add_rows(pip["pip_extra"], pip["q_pip"], psel, node, rows, row_idx,
+                  qidx, 1.0, 1.0)
+        pip["pip_ntasks"].index_add_(
+            0, node.long()[psel], torch.ones_like(psel, dtype=torch.int32))
+        pip["pipelined"][psel] = node[psel]
+    sel = mask.nonzero().squeeze(1)
+    n = node.long()[sel]
+    _add_rows(idle, q_alloc, sel, node, rows, row_idx, qidx,
+              float(idle_sign), -float(idle_sign))
     if mode == 0:
         one = torch.ones_like(n, dtype=torch.int32)
         ntasks.index_add_(0, n, one)
@@ -883,17 +999,23 @@ def _apply_plain(node, mask, rows, row_idx, qidx, idle_sign, mode, jw, idle,
 
 def apply_commit(node, mask, rows, row_idx, qidx, idle, q_alloc, *,
                  mode: int, idle_sign: float, scratch, jw=None,
-                 ntasks=None, alloc_l=None, assigned=None,
-                 plain: bool = False) -> None:
+                 ntasks=None, alloc_l=None, assigned=None, pipe=None,
+                 pip=None, plain: bool = False) -> None:
     """Commit (``mode=0``: idle -= req, ntasks += 1, q_alloc += req,
     alloc_l[jw] += 1, assigned = node) or discard (``mode=1``: idle +=
     req, q_alloc -= req, assigned = -1) the tasks where ``mask`` holds,
     in place.  Task t's request is ``rows[row_idx[t]]``, its queue
     ``qidx[t]``.  ``scratch`` is the pair of zeroed float64 accumulators
-    ``([N, R], [Q, R])`` the kernel leaves zeroed again."""
+    ``([N, R], [Q, R])`` the kernel leaves zeroed again.
+
+    ``pipe`` (mode 0, with releasing capacity): the tasks accepted as
+    pipelined this sub-round; ``pip`` then holds the planes they charge,
+    in place -- ``pip_extra`` [N, R] and ``q_pip`` [Q, R] += req,
+    ``pip_ntasks`` [N] += 1, ``pipelined`` [T] = node -- and ``scratch``,
+    its own pair of float64 accumulators."""
     if not _on_card(plain, idle, node, mask):
         _apply_plain(node, mask, rows, row_idx, qidx, idle_sign, mode, jw,
-                     idle, q_alloc, ntasks, alloc_l, assigned)
+                     idle, q_alloc, ntasks, alloc_l, assigned, pipe, pip)
         return
     N, R = idle.shape
     Q = q_alloc.shape[0]
@@ -918,13 +1040,156 @@ def apply_commit(node, mask, rows, row_idx, qidx, idle, q_alloc, *,
             or assigned.shape != (T,) or rows.shape[1] != R
             or (mode == 0 and (jw.shape != (T,) or ntasks.shape != (N,)))):
         raise ValueError("apply_commit: inconsistent input shapes")
-    _capture("apply_commit", mode=mode, idle_sign=idle_sign, **a)
+    pp = [None] * 7
+    if pipe is not None:
+        if mode != 0:
+            raise ValueError("apply_commit: pipelined tasks need mode 0")
+        pxe_acc, qp_acc = pip["scratch"]
+        pp = [_req(pipe, u8, "pipe"),
+              _req(pip["pip_extra"], f32, "pip_extra"),
+              _req(pip["pip_ntasks"], i32, "pip_ntasks"),
+              _req(pip["q_pip"], f32, "q_pip"),
+              _req(pip["pipelined"], i32, "pipelined"),
+              _req(pxe_acc, torch.float64, "pip_extra scratch"),
+              _req(qp_acc, torch.float64, "q_pip scratch")]
+        if (pp[0].shape != (T,) or pp[1].shape != (N, R)
+                or pp[2].shape != (N,) or pp[3].shape != (Q, R)
+                or pp[4].shape != (T,) or pp[5].shape != (N, R)
+                or pp[6].shape != (Q, R)):
+            raise ValueError("apply_commit: inconsistent pipelined shapes")
+    _capture("apply_commit", mode=mode, idle_sign=idle_sign,
+             **a, **({} if pipe is None else dict(
+                 pipe=pp[0], pip_extra=pp[1], pip_ntasks=pp[2], q_pip=pp[3],
+                 pipelined=pp[4])))
     rc = load().vtt_apply_commit(
         _ptr(a["node"]), _ptr(a["mask"]), _ptr(a["rows"]), _ptr(a["row_idx"]),
         _ptr(a["qidx"]), T, R, float(idle_sign), int(mode), _ptr(a.get("jw")),
         _ptr(a["idle"]), N, _ptr(a["q_alloc"]), Q, _ptr(a.get("ntasks")),
         _ptr(a.get("alloc_l")), _ptr(a["assigned"]), _ptr(idle_acc),
-        _ptr(q_acc), _stream(),
+        _ptr(q_acc), *[_ptr(t) for t in pp], _stream(),
     )
     _check(rc, "apply_commit")
     LAUNCHES["apply_commit"] += 1
+
+
+# ------------------------------------------------------- victim_scores
+
+PREEMPT = 0
+RECLAIM = 1
+DESERVED_UNCAPPED = 1.0e30
+SHARE_TOL = 1e-6
+
+
+def _queue_share_plain(q_alloc, q_des):
+    capped = q_des < DESERVED_UNCAPPED
+    ratio = torch.where(capped, q_alloc / torch.clamp(q_des, min=1e-9),
+                        torch.zeros_like(q_alloc))
+    return ratio.max(dim=-1).values
+
+
+def _victim_plain(v_ok, v_jprio, v_crank, v_tie, v_queue, v_node, v_req,
+                  p_prio, p_queue, q_alloc, q_des, q_rec, mode, N):
+    Q = q_alloc.shape[0]
+    q_share = _queue_share_plain(q_alloc, q_des)
+    vq = v_queue.long().clamp(0, Q - 1)
+    same_q = v_queue == p_queue
+    ok = v_ok.bool()
+    if mode == PREEMPT:
+        eligible = ok & same_q & (v_jprio < p_prio)
+    else:
+        overused = q_share[vq] > torch.tensor(1.0 + SHARE_TOL,
+                                              dtype=torch.float32)
+        eligible = ok & ~same_q & q_rec.bool()[vq] & overused
+    big = torch.iinfo(torch.int32).max
+    prio_key = torch.where(eligible, v_jprio.to(torch.int64),
+                           torch.full_like(v_jprio, big, dtype=torch.int64))
+    # lexsort((tie, -crank, prio_key, ineligible)): stable sorts, least
+    # significant key first.
+    order = torch.arange(v_ok.shape[0], device=v_ok.device)
+    for key in (v_tie.to(torch.int64), -v_crank.to(torch.int64), prio_key,
+                (~eligible).to(torch.int64)):
+        order = order[torch.sort(key[order], stable=True).indices]
+    # Scatter-add of the eligible requests per node, in victim-index order
+    # and in f32 (the order XLA's CPU scatter adds in): the k-th victim of
+    # every node is added in round k.
+    node = v_node.long().clamp(0, N - 1)
+    vals = torch.where(eligible[:, None], v_req, torch.zeros_like(v_req))
+    by_node = torch.sort(node, stable=True).indices
+    sn = node[by_node]
+    start = torch.ones_like(sn, dtype=torch.bool)
+    start[1:] = sn[1:] != sn[:-1]
+    pos = torch.arange(sn.shape[0], device=sn.device)
+    seg0 = torch.cummax(torch.where(start, pos, torch.zeros_like(pos)),
+                        dim=0).values
+    rank = pos - seg0
+    evictable = torch.zeros((N, v_req.shape[1]), dtype=torch.float32,
+                            device=v_req.device)
+    for k in range(int(rank.max()) + 1 if rank.numel() else 0):
+        sel = by_node[rank == k]
+        evictable[node[sel]] = evictable[node[sel]] + vals[sel]
+    return eligible, order.to(torch.int32), evictable, q_share
+
+
+def victim_scores(v_ok, v_jprio, v_crank, v_tie, v_queue, v_node, v_req,
+                  p_prio: int, p_queue: int, q_alloc, q_deserved,
+                  q_reclaimable, mode: int, n_nodes: int,
+                  plain: bool = False):
+    """Victim eligibility, eviction order, evictable plane and queue shares
+    (ops/victim.py:82 ``victim_scores``) over V unpadded victim rows:
+    ``(eligible [V] bool, order [V] int32, evictable [n_nodes, R] f32,
+    q_share [Q] f32)``.  ``v_ok``/``q_reclaimable`` bool, ``v_jprio``,
+    ``v_crank`` (a permutation of 0..V-1), ``v_tie``, ``v_queue``,
+    ``v_node`` int32 [V], ``v_req`` [V, R] f32, ``q_alloc``/``q_deserved``
+    [Q, R] f32; ``mode`` 0 preempt, 1 reclaim.  ``order`` equals the JAX
+    function's ``order[:V]``: the JAX caller pads V to a power of two with
+    ineligible rows of crank 0 and tie >= V, which sort after every real
+    row."""
+    if not _on_card(plain, v_req, q_alloc, v_ok):
+        return _victim_plain(v_ok, v_jprio, v_crank, v_tie, v_queue, v_node,
+                             v_req, int(p_prio), int(p_queue), q_alloc,
+                             q_deserved, q_reclaimable, int(mode),
+                             int(n_nodes))
+    f32, i32, u8 = torch.float32, torch.int32, torch.bool
+    a = dict(
+        v_ok=_req(v_ok, u8, "v_ok"), v_jprio=_req(v_jprio, i32, "v_jprio"),
+        v_crank=_req(v_crank, i32, "v_crank"),
+        v_tie=_req(v_tie, i32, "v_tie"),
+        v_queue=_req(v_queue, i32, "v_queue"),
+        v_node=_req(v_node, i32, "v_node"), v_req=_req(v_req, f32, "v_req"),
+        q_alloc=_req(q_alloc, f32, "q_alloc"),
+        q_deserved=_req(q_deserved, f32, "q_deserved"),
+        q_reclaimable=_req(q_reclaimable, u8, "q_reclaimable"),
+    )
+    V, R = v_req.shape
+    Q = q_alloc.shape[0]
+    N = int(n_nodes)
+    if R > MAX_R:
+        raise ValueError(f"{R} resource slots exceed the kernels' {MAX_R}")
+    if (V < 1 or N < 1 or Q < 1 or V >= 1 << 30
+            or any(a[k].shape != (V,) for k in (
+                "v_ok", "v_jprio", "v_crank", "v_tie", "v_queue", "v_node"))
+            or q_deserved.shape != (Q, R)
+            or q_reclaimable.shape != (Q,)):
+        raise ValueError("victim_scores: inconsistent input shapes")
+    _capture("victim_scores", p_prio=int(p_prio), p_queue=int(p_queue),
+             mode=int(mode), n_nodes=N, **a)
+    dev = v_req.device
+    Vp = 1024
+    while Vp < V:
+        Vp *= 2
+    keys = [torch.empty(Vp, dtype=torch.int64, device=dev) for _ in range(4)]
+    eligible = torch.empty(V, dtype=u8, device=dev)
+    order = torch.empty(V, dtype=i32, device=dev)
+    evictable = torch.empty((N, R), dtype=f32, device=dev)
+    q_share = torch.empty(Q, dtype=f32, device=dev)
+    rc = load().vtt_victim_scores(
+        _ptr(a["v_ok"]), _ptr(a["v_jprio"]), _ptr(a["v_crank"]),
+        _ptr(a["v_tie"]), _ptr(a["v_queue"]), _ptr(a["v_node"]),
+        _ptr(a["v_req"]), V, R, int(p_prio), int(p_queue),
+        _ptr(a["q_alloc"]), _ptr(a["q_deserved"]), _ptr(a["q_reclaimable"]),
+        Q, int(mode), N, Vp, *[_ptr(k) for k in keys], _ptr(eligible),
+        _ptr(order), _ptr(evictable), _ptr(q_share), _stream(),
+    )
+    _check(rc, "victim_scores")
+    LAUNCHES["victim_scores"] += 1
+    return eligible, order, evictable, q_share

@@ -23,12 +23,15 @@ Supported: node selectors, required and preferred node affinity (through
 the static class planes), taints and tolerations, pod-slot limits,
 queue-overuse gating, compacted and identity node classes, the
 shortlist-exhaustion fallback rescore, the gang discard, device-resident
-node planes and the device-incremental lane (``devincr``: persistent
-static planes, warm-started shortlists).  Host ports, inter-pod affinity
-and spread, releasing / pipelined capacity, custom plugin masks and
-scores, a topology node bias, mesh sharding and
-``VOLCANO_TPU_TWOPHASE=0`` raise ``NotImplementedError``: the port never
-computes a different answer for them.
+node planes, the device-incremental lane (``devincr``: persistent static
+planes, warm-started shortlists) and releasing / pipelined capacity (the
+JAX ``has_future`` branch: fits read FutureIdle = ((idle + releasing) -
+pipelined) - pip_extra, tasks that fit only the future idle are accepted as
+pipelined and charge ``pip_extra`` / ``pip_ntasks`` / ``q_pip``).  Host
+ports, inter-pod affinity and spread, custom plugin masks and scores, a
+topology node bias, mesh sharding and ``VOLCANO_TPU_TWOPHASE=0`` raise
+``NotImplementedError``: the port never computes a different answer for
+them.
 """
 
 from __future__ import annotations
@@ -99,7 +102,8 @@ def shortlist_size(n: int) -> int:
 # Telemetry of the most recent solve on this host: prep_s, coarse_s,
 # fine_s (host wall seconds, each ending in a device sync), shortlist
 # (U, S), n_nodes, compacted_classes, syncs (host reads of loop
-# conditions).
+# conditions), host_reads (device planes read back), future (the
+# releasing-capacity branch ran).
 LAST_TWOPHASE: dict = {"enabled": False}
 
 
@@ -124,18 +128,23 @@ class SolveProfiles(NamedTuple):
 
 
 class GState(NamedTuple):
-    """Cluster state threaded through waves and attempts (the fields this
-    slice carries; ports, affinity counts and pipelining arrive with their
-    features)."""
+    """Cluster state threaded through waves and attempts (the fields the
+    port carries; ports and affinity counts arrive with their features).
+    The ``pip_*`` / ``q_pip`` / ``pipelined`` fields move only with
+    releasing capacity."""
 
     idle: object  # [N, R]
+    pip_extra: object  # [N, R]
     ntasks: object  # [N] int32
+    pip_ntasks: object  # [N] int32
     q_alloc: object  # [Q, R]
+    q_pip: object  # [Q, R]
     alloc_cnt: object  # [JP] int32
     fit_failed: object  # [JP] bool
     job_skip: object  # [JP] bool (fit abort OR overuse skip)
     job_overskip: object  # [JP] bool (skipped for overuse only)
     assigned: object  # [P] int32
+    pipelined: object  # [P] int32
 
 
 def _np(a):
@@ -506,10 +515,11 @@ def _identity_classes(nodes: SolveNodes) -> NodeClasses:
 def _coarse_shortlist(nodes: SolveNodes, prof: SolveProfiles,
                       cls: Optional[NodeClasses], weights: ScoreWeights,
                       eps, scalar_slot, sl_k: int, features: tuple,
-                      plain: bool = False):
+                      future=None, plain: bool = False):
     """Phase 1 (wave.py:547): ``(shortlists [U, sl_k] int32 ascending node
     ids, stat_ok [U, C] bool, stat_score [U, C] f32)``.  ``cls`` None means
-    identity classes.  Masks and scores are evaluated at solve-start state;
+    identity classes.  Masks and scores are evaluated at solve-start state
+    (with ``future``, the fit reads fi0 = (idle + releasing) - pipelined);
     the selection keeps each profile's top ``sl_k`` by (score desc, node id
     asc)."""
     if cls is None:
@@ -517,8 +527,24 @@ def _coarse_shortlist(nodes: SolveNodes, prof: SolveProfiles,
     return kernels.coarse_shortlist(
         prof, cls, nodes.idle, nodes.allocatable, nodes.ntasks,
         nodes.max_tasks, eps, scalar_slot, weights, sl_k,
-        has_taints=bool(features[2]), plain=plain,
+        has_taints=bool(features[2]), future=future, plain=plain,
     )
+
+
+def _future_planes(nodes: SolveNodes, features: tuple):
+    """The solve-start releasing-capacity planes as a ``kernels.Future``
+    (``releasing`` / ``pipelined`` broadcast to [N, R]: the caller may pass
+    a [1, R] dummy, wave.py:764-768), or None without releasing capacity."""
+    if not features[3]:
+        return None
+    N, R = nodes.idle.shape
+
+    def full(a):
+        a = a.to(torch.float32)
+        return a.expand(N, R).contiguous() if a.shape[0] != N else \
+            a.contiguous()
+
+    return kernels.Future(full(nodes.releasing), full(nodes.pipelined))
 
 
 def _wave_host_index(job, real, pid, wave_prof, queue, J: int, W: int):
@@ -553,13 +579,17 @@ def _solve_wave(nodes: SolveNodes, jobs: SolveJobs,
                 prof: SolveProfiles, pid, wave_prof: np.ndarray,
                 cls: Optional[NodeClasses], shortlists, stat_ok, stat_score,
                 host: dict, wave: int, n_waves: int, features: tuple,
-                fb_cap: int = 0, plain: bool = False) -> AllocResult:
+                fb_cap: int = 0, future0=None,
+                plain: bool = False) -> AllocResult:
     """Phase 2 (wave.py:860) for the features this slice supports.
 
     ``host`` carries the numpy task/job columns the loops index with
     (``job``, ``real``, ``pid``, ``queue``); the device tensors carry the
-    state.  Every loop condition is one host read."""
+    state.  Every loop condition is one host read.  ``future0``: the
+    solve-start releasing-capacity planes (``_future_planes``), None
+    without releasing capacity."""
     has_overuse = bool(features[4])
+    has_future = future0 is not None
     dev = nodes.idle.device
     N, R = nodes.idle.shape
     P = int(host["real"].shape[0])
@@ -589,19 +619,33 @@ def _solve_wave(nodes: SolveNodes, jobs: SolveJobs,
 
     job_seen = torch.zeros(JP, dtype=torch.bool, device=dev)
     job_seen[tjob[real]] = True
+    # The solve never writes through its inputs: every state plane is a
+    # fresh copy (apply_commit updates them in place).
     st = GState(
         idle=nodes.idle.clone(),
+        pip_extra=torch.zeros((N, R), dtype=torch.float32, device=dev),
         ntasks=nodes.ntasks.clone(),
+        pip_ntasks=torch.zeros(N, dtype=i32, device=dev),
         q_alloc=queues.allocated.clone(),
+        q_pip=torch.zeros((Q, R), dtype=torch.float32, device=dev),
         alloc_cnt=torch.zeros(JP, dtype=i32, device=dev),
         fit_failed=torch.zeros(JP, dtype=torch.bool, device=dev),
         job_skip=torch.zeros(JP, dtype=torch.bool, device=dev),
         job_overskip=torch.zeros(JP, dtype=torch.bool, device=dev),
         assigned=torch.full((P,), -1, dtype=i32, device=dev),
+        pipelined=torch.full((P,), -1, dtype=i32, device=dev),
     )
     # float64 accumulators of apply_commit, kept zeroed between calls.
     scratch = (torch.zeros((N, R), dtype=torch.float64, device=dev),
                torch.zeros((Q, R), dtype=torch.float64, device=dev))
+    # The live future planes: the in-solve pipelined charges ride along.
+    fut = None
+    pip_scratch = None
+    if has_future:
+        fut = kernels.Future(future0.rel, future0.pip, st.pip_extra,
+                             st.pip_ntasks)
+        pip_scratch = (torch.zeros((N, R), dtype=torch.float64, device=dev),
+                       torch.zeros((Q, R), dtype=torch.float64, device=dev))
     t_idx = torch.arange(W, device=dev)
     all_rows = torch.arange(UM, dtype=i32, device=dev)
     TOPOV = min(16, K)
@@ -633,6 +677,11 @@ def _solve_wave(nodes: SolveNodes, jobs: SolveJobs,
         skip_l = st.job_skip[jwin].clone()
         over_l = st.job_overskip[jwin].clone()
         assigned_w = torch.full((W,), -1, dtype=i32, device=dev)
+        pipelined_w = torch.full((W,), -1, dtype=i32, device=dev)
+        pip = None if not has_future else {
+            "pip_extra": st.pip_extra, "pip_ntasks": st.pip_ntasks,
+            "q_pip": st.q_pip, "pipelined": pipelined_w,
+            "scratch": pip_scratch}
         done = ~real_w
         it = 0
         stalled = False
@@ -644,9 +693,11 @@ def _solve_wave(nodes: SolveNodes, jobs: SolveJobs,
                 break
             skip_l0 = skip_l.clone()
             if has_overuse:
-                # Queue-overuse gating at each job's first task (live q).
+                # Queue-overuse gating at each job's first task (live q,
+                # pipelined charges included: wave.py:1424).
                 gate = is_first_w & ~done
-                overused = ~less_equal(st.q_alloc[qidx.long()],
+                q_tot = st.q_alloc + st.q_pip if has_future else st.q_alloc
+                overused = ~less_equal(q_tot[qidx.long()],
                                        queues.deserved[qidx.long()],
                                        eps, scalar_slot)
                 gate_over = gate & overused & real_w
@@ -660,7 +711,8 @@ def _solve_wave(nodes: SolveNodes, jobs: SolveJobs,
             ranked, feas_k, p_any = kernels.rank_candidates(
                 all_rows, sl_w, ok_w, score_w, cls.class_id, p_req,
                 p_init_req, st.idle, nodes.allocatable, st.ntasks,
-                nodes.max_tasks, eps, scalar_slot, weights, K, plain=plain,
+                nodes.max_tasks, eps, scalar_slot, weights, K, future=fut,
+                plain=plain,
             )
             # Shortlist exhaustion -> full-N rescore of the affected
             # profiles only (wave.py:1450-1512).
@@ -677,7 +729,7 @@ def _solve_wave(nodes: SolveNodes, jobs: SolveJobs,
                     rows_x, None, ok_w, score_w, cls.class_id, p_req,
                     p_init_req, st.idle, nodes.allocatable, st.ntasks,
                     nodes.max_tasks, eps, scalar_slot, weights, K,
-                    plain=plain,
+                    future=fut, plain=plain,
                 )
                 rx = rows_x.long()
                 ranked[rx] = r_f
@@ -708,21 +760,23 @@ def _solve_wave(nodes: SolveNodes, jobs: SolveJobs,
             go = bool((cand & ~done_sub & ~aborted).any())
             while go and subs < SUBROUNDS:
                 cand_s = cand & ~done_sub & ~aborted
-                choice, acc = kernels.walk_accept(
+                choice, acc, acc_pipe = kernels.walk_accept(
                     ranked, feas_k, p_req, p_init_req, pid_l, cand_s,
                     any_feasible, grp, st.idle, st.ntasks, nodes.max_tasks,
-                    eps, scalar_slot, plain=plain,
+                    eps, scalar_slot, future=fut, plain=plain,
                 )
                 kernels.apply_commit(
                     choice, acc, p_req, pid_l, qidx, st.idle, st.q_alloc,
                     mode=0, idle_sign=-1.0, jw=jw, ntasks=st.ntasks,
                     alloc_l=alloc_l, assigned=assigned_w, scratch=scratch,
-                    plain=plain,
+                    pipe=acc_pipe, pip=pip, plain=plain,
                 )
-                done_sub = done_sub | acc
+                resolved = acc if acc_pipe is None else acc | acc_pipe
+                done_sub = done_sub | resolved
                 subs += 1
                 syncs += 1
-                go = bool(acc.any() & (cand & ~done_sub & ~aborted).any())
+                go = bool(resolved.any()
+                          & (cand & ~done_sub & ~aborted).any())
 
             fit_upd = torch.zeros(W, dtype=torch.bool, device=dev)
             fit_upd[jw_l[no_node & real_w]] = True
@@ -741,8 +795,11 @@ def _solve_wave(nodes: SolveNodes, jobs: SolveJobs,
         st.job_skip[jwin] = skip_l
         st.job_overskip[jwin] = over_l
         st.assigned[sl] = assigned_w
+        st.pipelined[sl] = pipelined_w
 
     # ---- gang commit/discard (stmt.Discard, wave.py:2262-2274) ----------
+    # Readiness counts allocations only, and the discard leaves pipelined
+    # rows alone (wave.py:2262-2272).
     min_av_p = torch.cat([jobs.min_available.to(i32),
                           torch.full((W,), 1 << 30, dtype=i32, device=dev)])
     ready_base_p = torch.cat([jobs.ready_base.to(i32),
@@ -756,7 +813,7 @@ def _solve_wave(nodes: SolveNodes, jobs: SolveJobs,
         idle_sign=1.0, assigned=st.assigned, scratch=scratch, plain=plain,
     )
     assigned = st.assigned
-    pipelined = torch.full((P,), -1, dtype=i32, device=dev)
+    pipelined = st.pipelined
     if N <= 32000:
         # Node indices fit int16 whenever N does (wave.py:2275).
         assigned = assigned.to(torch.int16)
@@ -768,7 +825,7 @@ def _solve_wave(nodes: SolveNodes, jobs: SolveJobs,
         never_ready=never_ready_p[:J],
         fit_failed=st.fit_failed[:J],
         idle=st.idle,
-        q_alloc=st.q_alloc + torch.zeros_like(st.q_alloc),
+        q_alloc=st.q_alloc + st.q_pip,
         iters=torch.tensor(iters, dtype=i32, device=dev),
         fb_exhausted=torch.tensor(fb_exhausted, dtype=i32, device=dev),
         fb_affinity=torch.tensor(0, dtype=i32, device=dev),
@@ -839,7 +896,7 @@ def solve_wave(
                            "queue 1, the object session")
     if not _two_phase_on():
         raise _unsupported("the single-phase solve (VOLCANO_TPU_TWOPHASE=0)",
-                           "queue 2, ports/affinity/future")
+                           "queue 1, ports and inter-pod affinity")
     t_start = _time.perf_counter()
     # Node planes are taken as given: numpy planes upload, tensors (the
     # fast path's device-resident snapshot) are used where they lie and
@@ -906,13 +963,11 @@ def solve_wave(
         False,
     )
     if features[0]:
-        raise _unsupported("host ports", "queue 2, ports/affinity/future")
+        raise _unsupported("host ports",
+                           "queue 1, ports and inter-pod affinity")
     if features[1]:
         raise _unsupported("inter-pod affinity and spread",
-                           "queue 2, ports/affinity/future")
-    if features[3]:
-        raise _unsupported("releasing or pipelined capacity",
-                           "queue 2, ports/affinity/future")
+                           "queue 1, ports and inter-pod affinity")
     N_in = int(nodes.idle.shape[0])
     if node_classes is None and _nodeclass_on():
         planes = (nodes.label_bits, nodes.taint_bits, nodes.ready,
@@ -962,14 +1017,16 @@ def solve_wave(
     stat = None if dv is None else dv.static_planes(
         prof_t, cls_t, weights_t.node_affinity_weight,
         has_taints=features[2], cls_identity=cls_identity, plain=plain)
+    future0 = _future_planes(nodes_t, features)
     if stat is not None:
         sl = dv.shortlist(nodes_t, prof_t, cls_t, weights_t, eps_t, slot_t,
-                          sl_k, features, cls_identity, stat, plain=plain)
+                          sl_k, features, cls_identity, stat,
+                          future=future0, plain=plain)
         stat_ok, stat_score = stat
     else:
         sl, stat_ok, stat_score = _coarse_shortlist(
             nodes_t, prof_t, cls_t, weights_t, eps_t, slot_t, sl_k,
-            features, plain=plain,
+            features, future=future0, plain=plain,
         )
     _sync(dev)
     t_coarse = _time.perf_counter() - t0
@@ -978,7 +1035,7 @@ def solve_wave(
         nodes_t, jobs_t, queues_t, weights_t, eps_t, slot_t, prof_t,
         pid_t, wave_prof, cls_t, sl, stat_ok, stat_score, host,
         wave=wave, n_waves=n_waves, features=features,
-        fb_cap=_fallback_cap(), plain=plain,
+        fb_cap=_fallback_cap(), future0=future0, plain=plain,
     )
     _sync(dev)
     t_fine = _time.perf_counter() - t0
@@ -995,6 +1052,8 @@ def solve_wave(
         "waves": n_waves,
         "syncs": syncs,
         "host_reads": host_reads,
+        # The solve ran the releasing-capacity (has_future) branch.
+        "future": future0 is not None,
         "devincr": dv.solve_info() if dv is not None else None,
     })
     if dv is not None:

@@ -2,7 +2,9 @@
 
 The counterpart of the JAX package's ``synth.py``: ``synthetic_cluster``
 draws the same cluster from the same seed (identical
-``np.random.default_rng(seed)`` draws), and ``solve_args_from_store``
+``np.random.default_rng(seed)`` draws), ``preempt_cluster`` builds the
+oversubscribed-queue cluster of BASELINE config 4, and
+``solve_args_from_store``
 encodes a store snapshot into the positional args of ``ops.wave.solve_wave``
 as tensors on the chosen device.
 """
@@ -116,6 +118,74 @@ def synthetic_cluster(
             )
             pods_made += 1
         g += 1
+    return store
+
+
+def preempt_cluster(
+    n_nodes: int = 10000,
+    fill_per_node: int = 4,
+    n_pending: int = 20000,
+    gang_size: int = 4,
+    node_cpu: str = "64",
+    node_mem: str = "256Gi",
+    seed: int = 0,
+) -> ClusterStore:
+    """BASELINE config 4: oversubscribed queues with PriorityClass.
+
+    A weight-1 "victim" queue holds running low-priority gangs filling
+    ``fill_per_node`` x 16-cpu slots per node (all of a 64-cpu node); a
+    weight-9 "premium" queue holds pending high-priority gangs that only fit
+    by reclaiming from the victim queue (cross-queue) or preempting
+    low-priority jobs (in-queue).
+    """
+    from .api import PodPhase, PriorityClass
+
+    store = ClusterStore()
+    store.add_priority_class(PriorityClass(name="low", value=100))
+    store.add_priority_class(PriorityClass(name="high", value=10000))
+    store.add_queue(Queue(name="victim", weight=1))
+    store.add_queue(Queue(name="premium", weight=9))
+    for i in range(n_nodes):
+        store.add_node(
+            Node(
+                name=f"node-{i:06d}",
+                allocatable={"cpu": node_cpu, "memory": node_mem, "pods": 256},
+            )
+        )
+    # Running low-priority filler gangs, one per node slot.
+    g = 0
+    for i in range(n_nodes):
+        for s in range(fill_per_node):
+            pg = PodGroup(name=f"filler-{g:07d}", min_member=1,
+                          queue="victim")
+            store.add_pod_group(pg)
+            store.add_pod(
+                Pod(
+                    name=f"filler-{g:07d}-0",
+                    annotations={GROUP_NAME_ANNOTATION: pg.name},
+                    containers=[{"cpu": "16", "memory": "48Gi"}],
+                    phase=PodPhase.Running,
+                    node_name=f"node-{i:06d}",
+                    priority_class="low",
+                    priority=100,
+                )
+            )
+            g += 1
+    # Pending high-priority gangs in the premium queue.
+    for j in range(n_pending // gang_size):
+        pg = PodGroup(name=f"hi-{j:06d}", min_member=gang_size,
+                      queue="premium")
+        store.add_pod_group(pg)
+        for k in range(gang_size):
+            store.add_pod(
+                Pod(
+                    name=f"hi-{j:06d}-{k}",
+                    annotations={GROUP_NAME_ANNOTATION: pg.name},
+                    containers=[{"cpu": "8", "memory": "16Gi"}],
+                    priority_class="high",
+                    priority=10000,
+                )
+            )
     return store
 
 
