@@ -6,7 +6,7 @@ Run from the repository root on a machine with one CUDA card:
 
     python3 chip_smoke.py
 
-It builds the eight CUDA kernels of ``volcano_tpu_torch/csrc`` (seven
+It builds the eleven CUDA kernels of ``volcano_tpu_torch/csrc`` (nine
 sources, one nvcc each, started together) and then runs these phases, each
 of which raises (and the script exits non-zero) when a check fails:
 
@@ -56,7 +56,25 @@ of which raises (and the script exits non-zero) when a check fails:
    solve per phase; launch counts zeroed before each phase and read after;
 11. ``victim_scores`` in both modes and the five solve kernels on inputs
    captured from future-branch solves, against their plain versions, timed
-   as in 4.
+   as in 4;
+12. rebalance: bench.py ``config_rebalance`` at 5,000 workers (10,000
+   nodes, 5,000 stranded 3-cpu fillers placed by a set-up cycle, a
+   2,500-task whole-node gang) under ``REBALANCE_SCHEDULER_CONF`` with
+   ``VOLCANO_TPU_REBALANCE_DRAIN_CAP=5000``, grace 2, at most 8 cycles: the
+   gang bound, every filler bound again, evictions equal to restores, no
+   pod lost; the plan cycle traced (device idle share);
+13. topology: ``fabric_cluster(16 racks x 8 slices x 64 nodes, a 128-task
+   require-contiguous gang)``, 8,192 nodes in 128 blocks: cycle 0 gates
+   the gang and commits one plan (traced), and the gang ends bound inside
+   exactly one block with all 256 fillers bound again;
+14. prefer-contiguous: the same fabric binds the gang on cycle 0, through
+   a biased ranking;
+   after every cycle of 12-14 the checks of 9-10, the what-if engine's
+   plan and what-if-solve spans printed with the lanes; launch counts
+   zeroed before each phase and read after, each phase's kernels required;
+15. ``frag_scores``, ``gang_block_fit``, ``fabric_frag`` and the biased
+   ``rank_candidates`` on their captured inputs against their plain
+   versions, timed as in 4.
 
 Output: the card's name and power limit, versions, build time, per-phase
 lines with the cycles' lane times, one ``{"kernels": [...]}`` line and,
@@ -333,7 +351,7 @@ def _kernel_fn(name, c, plain):
             c["rows"], c["cand"], c["ok_w"], c["score_w"], c["cls_id"],
             c["p_req"], c["p_init_req"], c["idle"], c["alloc"], c["ntasks"],
             c["max_tasks"], c["eps"], c["scalar_slot"], c["weights"], c["K"],
-            future=c.get("future"), plain=plain))
+            future=c.get("future"), bias=c.get("bias"), plain=plain))
     if name == "walk_accept":
         return lambda: tuple(x for x in kernels.walk_accept(
             c["ranked"], c["feas_k"], c["p_req"], c["p_init_req"],
@@ -372,6 +390,18 @@ def _kernel_fn(name, c, plain):
             c["v_node"], c["v_req"], c["p_prio"], c["p_queue"], c["q_alloc"],
             c["q_deserved"], c["q_reclaimable"], c["mode"], c["n_nodes"],
             plain=plain))
+    if name == "frag_scores":
+        return lambda: tuple(kernels.frag_scores(
+            c["idle"], c["alloc"], c["ready"], c["evictable"], c["prof_req"],
+            c["eps"], plain=plain))
+    if name == "gang_block_fit":
+        return lambda: tuple(kernels.gang_block_fit(
+            c["idle"], c["ready"], c["ntasks"], c["max_tasks"],
+            c["block_id"], c["prof_req"], c["prof_cnt"], c["eps"],
+            c["n_blocks"], plain=plain))
+    if name == "fabric_frag":
+        return lambda: (kernels.fabric_frag(c["cfit"], c["whole"],
+                                            c["prof_cnt"], plain=plain),)
     raise KeyError(name)
 
 
@@ -441,8 +471,10 @@ def _work(name, cap, outs):
         else:
             cand = cap["cand"][rows]
             L, D, cand_b = cand.shape[1], _distinct(cand), _nbytes(cand)
-        # Per distinct node: idle and alloc rows, class, pod slots.
-        node_b = D * (2 * R * 4 + 3 * 4)
+        # Per distinct node: idle and alloc rows, class, pod slots (and
+        # the bias, when given).
+        node_b = D * (2 * R * 4 + 3 * 4 + (4 if cap.get("bias") is not None
+                                           else 0))
         prof_b = M * (2 * R * 4 + C * 5 + 4)
         nbytes = (cand_b + node_b + prof_b + R * 9 + out_bytes
                   + _future_bytes(cap, D))
@@ -471,6 +503,30 @@ def _work(name, cap, outs):
         nbytes = _nbytes(*ins) + out_bytes
         V, R = cap["v_req"].shape
         ops = cap["q_alloc"].numel() * 2 + V * (R + 2)
+    elif name == "frag_scores":
+        # Every input read once, every output written once; per node two
+        # fit counts (add, divide, floor, min per profile and slot), the
+        # freed plane's add and the idle fraction (divide, clip, add).
+        ins = [v for v in cap.values() if isinstance(v, torch.Tensor)]
+        nbytes = _nbytes(*ins) + out_bytes
+        N, R = cap["idle"].shape
+        U = cap["prof_req"].shape[0]
+        ops = N * (2 * U * R * 4 + R + 4 * R)
+    elif name == "gang_block_fit":
+        # Every input read once, the [B, U] counts and the [B] planes
+        # written once; per node and profile the fit (4 per slot) and one
+        # add into its block, per block and profile a compare, a min and
+        # an add.
+        ins = [v for v in cap.values() if isinstance(v, torch.Tensor)]
+        nbytes = _nbytes(*ins) + out_bytes
+        N, R = cap["idle"].shape
+        U = cap["prof_req"].shape[0]
+        ops = N * U * (4 * R + 3) + cap["n_blocks"] * U * 3
+    elif name == "fabric_frag":
+        ins = [v for v in cap.values() if isinstance(v, torch.Tensor)]
+        nbytes = _nbytes(*ins) + out_bytes
+        B, U = cap["cfit"].shape
+        ops = B * (2 * U + 1) + U
     else:
         T = cap["node"].shape[0]
         R = cap["rows"].shape[1]
@@ -603,6 +659,9 @@ KERNEL_FUNCS = {
     "victim_scores": ("share_kernel", "key_kernel", "bitonic_tile_kernel",
                       "bitonic_global_kernel", "order_kernel",
                       "zero_kernel", "evictable_kernel"),
+    "frag_scores": ("frag_scores_kernel",),
+    "gang_block_fit": ("node_cap_kernel", "block_fit_kernel"),
+    "fabric_frag": ("fabric_frag_kernel",),
 }
 
 
@@ -1041,13 +1100,20 @@ def evict_invariants(store, n_pods: int) -> dict:
             "releasing": int((alive & (st == ST_RELEASING)).sum())}
 
 
-def run_evict_phase(label, store, conf, grace, cycles, until=None):
+def run_evict_phase(label, store, conf, grace, cycles, until=None,
+                    need=EVICT_KERNELS, require_future=True, extra=None,
+                    profile_cycle=None):
     """``Scheduler(store).run_once()`` then ``ClusterSimulator.step()``,
     ``cycles`` times (or until ``until(store)`` holds), with the checks of
-    ``evict_invariants`` and zero host reads after every solve.  Captures
-    ``victim_scores``' inputs per mode and, from future-branch solves, the
-    inputs of each solve kernel's first launch.  Returns (stats, launches,
-    victim captures, future captures)."""
+    ``evict_invariants`` and zero host reads after every solve; the kernels
+    ``need`` must have launched, and (``require_future``) one solve must
+    have run the future branch.  ``extra(store)`` adds fields to each
+    cycle's record, which also carries the what-if engine's spans (plan and
+    what-if solve, ms); cycle ``profile_cycle`` runs under
+    ``profile_device`` (its device busy time and idle share).  Captures ``victim_scores``' inputs per mode and, from
+    future-branch solves, the inputs of each solve kernel's first launch;
+    other launches go to ``kernels.CAPTURE`` when the caller set it.
+    Returns (stats, launches, victim captures, future captures)."""
     import torch
 
     from volcano_tpu_torch.metrics import metrics
@@ -1066,16 +1132,19 @@ def run_evict_phase(label, store, conf, grace, cycles, until=None):
 
     def counted_solve(*a, **kw):
         future = bool(a[0].releasing.any())  # host planes from the cycle
+        outer = kernels.CAPTURE
         if future and len(fut_caps) < len(FUTURE_KERNELS):
             kernels.CAPTURE = {}
         try:
             out = solve_wave(*a, **kw)
         finally:
-            if kernels.CAPTURE is not None:
+            if kernels.CAPTURE is not outer:
                 for k, v in kernels.CAPTURE.items():
                     if k in FUTURE_KERNELS and k not in fut_caps:
                         fut_caps[k] = v
-                kernels.CAPTURE = None
+                    if outer is not None:
+                        outer.setdefault(k, v)
+                kernels.CAPTURE = outer
         info = wave_mod.LAST_TWOPHASE
         if bool(info.get("future")) != future:
             raise AssertionError(f"[{label}] future branch flag disagrees "
@@ -1086,17 +1155,19 @@ def run_evict_phase(label, store, conf, grace, cycles, until=None):
     def capturing_victims(*a, **kw):
         mode = int(a[12])
         if mode not in vs_caps and a[0].is_cuda:
+            outer = kernels.CAPTURE
             kernels.CAPTURE = {}
             try:
                 out = victim_fn(*a, **kw)
                 vs_caps[mode] = kernels.CAPTURE["victim_scores"]
             finally:
-                kernels.CAPTURE = None
+                kernels.CAPTURE = outer
             return out
         return victim_fn(*a, **kw)
 
     plans0 = dict(metrics.whatif_plans.data)
     evict0 = sum(metrics.preempt_evictions.data.values())
+    reb0 = sum(metrics.rebalance_evictions.data.values())
     stats = {"cycles": []}
     kernels.reset_launches()
     wave_mod.solve_wave = counted_solve
@@ -1104,10 +1175,17 @@ def run_evict_phase(label, store, conf, grace, cycles, until=None):
     try:
         for c in range(cycles):
             solves.clear()
+            prof = None
             t0 = time.perf_counter()
-            sched.run_once()
+            if c == profile_cycle:
+                prof = profile_device(sched.run_once)
+            else:
+                sched.run_once()
             torch.cuda.synchronize()
             wall = time.perf_counter() - t0
+            if prof:
+                # The traced call alone, without the profiler's set-up.
+                wall = prof["wall_ms"] / 1e3
             inv = evict_invariants(store, n_pods)
             if any(r != 0 for r, _f in solves):
                 raise AssertionError(f"[{label}] cycle {c}: a solve read "
@@ -1118,7 +1196,20 @@ def run_evict_phase(label, store, conf, grace, cycles, until=None):
                    "future_solves": sum(f for _r, f in solves),
                    "plans": 0 if led is None else led.committed_plans,
                    "restored": 0 if led is None else led.restored_pods,
-                   **inv}
+                   **inv, **(extra(store) if extra else {})}
+            spans = {}
+            for sp in store.flight.last().spans:
+                if sp.cat in ("rebalance", "whatif"):
+                    spans[sp.name] = spans.get(sp.name, 0.0) + sp.dur_ns / 1e6
+            rec["spans_ms"] = spans
+            if prof is not None:
+                rec["profile"] = ({
+                    "traced_wall_ms": prof["wall_ms"],
+                    "device_busy_ms": prof["busy_ms"],
+                    "idle_share": 1.0 - prof["busy_ms"] / prof["wall_ms"],
+                    "kernels_ms": {k: v for k, v in prof["kernels_ms"].items()
+                                   if v}} if prof else
+                    "no device events in the trace")
             stats["cycles"].append(rec)
             _log(f"[{label}] cycle {c} {wall:.4f} s {json.dumps(rec)}")
             sim.step()
@@ -1130,17 +1221,19 @@ def run_evict_phase(label, store, conf, grace, cycles, until=None):
         kernels.victim_scores = victim_fn
     launches = dict(kernels.LAUNCHES)
     _log(f"[{label}] launches {json.dumps(launches)}")
-    missing = [k for k in EVICT_KERNELS if launches[k] == 0]
+    missing = [k for k in need if launches[k] == 0]
     if missing:
         raise AssertionError(f"[{label}] kernels never launched: {missing}")
     stats["future_solves"] = sum(r["future_solves"] for r in stats["cycles"])
-    if stats["future_solves"] < 1:
+    if require_future and stats["future_solves"] < 1:
         raise AssertionError(f"[{label}] no solve ran the future branch")
     stats["whatif_plans"] = {
         "/".join(v for _k, v in key): n - plans0.get(key, 0.0)
         for key, n in metrics.whatif_plans.data.items()
         if n != plans0.get(key, 0.0)}
     stats["evictions"] = sum(metrics.preempt_evictions.data.values()) - evict0
+    stats["rebalance_evictions"] = (
+        sum(metrics.rebalance_evictions.data.values()) - reb0)
     return stats, launches, vs_caps, fut_caps
 
 
@@ -1244,6 +1337,223 @@ def evict_phases():
             raise AssertionError(f"[kernels:future] {k} never ran in a "
                                  "future-branch solve")
     return rows, future_rows
+
+
+# ------------------------------------------- rebalance and fabric topology
+
+# The kernels each phase's main path must launch.
+REBALANCE_KERNELS = ("frag_scores", "coarse_shortlist", "rank_candidates",
+                     "walk_accept", "apply_commit")
+TOPOLOGY_KERNELS = REBALANCE_KERNELS + ("gang_block_fit", "fabric_frag")
+PREFER_KERNELS = ("gang_block_fit", "coarse_shortlist", "rank_candidates",
+                  "walk_accept", "apply_commit")
+
+
+def rebalance_store(workers: int):
+    """bench.py config_rebalance's cluster: ``workers`` 4-cpu worker nodes,
+    as many 3-cpu spill nodes, and one single-member 3-cpu filler gang per
+    worker (pending; the set-up cycle places them)."""
+    from volcano_tpu_torch.api import (GROUP_NAME_ANNOTATION, Node, Pod,
+                                       PodGroup, PriorityClass)
+    from volcano_tpu_torch.cache import ClusterStore, FakeBinder
+
+    store = ClusterStore(binder=FakeBinder())
+    store.add_priority_class(PriorityClass(name="bench-high", value=100))
+    for i in range(workers):
+        store.add_node(Node(name=f"w{i}", allocatable={
+            "cpu": "4", "memory": "16Gi", "pods": 110}))
+        store.add_node(Node(name=f"s{i}", allocatable={
+            "cpu": "3", "memory": "16Gi", "pods": 110}))
+    for i in range(workers):
+        store.add_pod_group(PodGroup(name=f"bf{i}", min_member=1))
+        store.add_pod(Pod(
+            name=f"bfill{i}", annotations={GROUP_NAME_ANNOTATION: f"bf{i}"},
+            containers=[{"cpu": "3", "memory": "1Gi"}]))
+    return store
+
+
+def add_bench_gang(store, gang: int) -> None:
+    """config_rebalance's high-priority gang of whole-worker tasks."""
+    from volcano_tpu_torch.api import GROUP_NAME_ANNOTATION, Pod, PodGroup
+
+    store.add_pod_group(PodGroup(name="benchgang", min_member=gang,
+                                 priority_class="bench-high"))
+    for i in range(gang):
+        store.add_pod(Pod(
+            name=f"bg{i}", annotations={GROUP_NAME_ANNOTATION: "benchgang"},
+            containers=[{"cpu": "4", "memory": "1Gi"}]))
+
+
+def _bound(store, prefix: str) -> int:
+    return sum(1 for p in store.pods.values()
+               if p.name.startswith(prefix) and p.node_name)
+
+
+def _gang_blocks(store) -> int:
+    """Distinct fabric blocks (rack, slice) the fabric gang is bound in."""
+    from volcano_tpu_torch.api import FABRIC_RACK, FABRIC_SLICE
+
+    m = store.mirror
+    blocks = set()
+    for p in store.pods.values():
+        if p.name.startswith("fabgang-") and p.node_name:
+            labels = m.node_objs[m.n_row[p.node_name]].labels
+            blocks.add((labels[FABRIC_RACK], labels[FABRIC_SLICE]))
+    return len(blocks)
+
+
+def _replay_rows(caps: dict, launches: dict, label: str, names) -> list:
+    missing = [k for k in names if k not in caps]
+    if missing:
+        raise AssertionError(f"[kernels:{label}] never captured: {missing}")
+    rows = []
+    for name in names:
+        key = name.split(":")[0]
+        row = replay_kernels({key: caps[name]}, launches, names=[key])[0]
+        rows.append(row)
+        _log(f"[kernels:{label}] {name}: {row['ms']:.4f} ms/launch, plain "
+             f"{row['plain_ms']:.4f} ms, bound {row['bound_ms']:.6f} ms "
+             f"({row['bound_by']}), launches {row['launches']}, "
+             f"max_abs_err {row['max_abs_err']}")
+    return rows
+
+
+def rebalance_phases(workers=5000, racks=16, slices_per_rack=8,
+                     nodes_per_slice=64):
+    """Phases 12-15: the rebalance lane at 2 x ``workers`` nodes, the fabric
+    topology path at racks x slices_per_rack blocks of nodes_per_slice
+    nodes (require- and prefer-contiguous, a gang of 2 x nodes_per_slice
+    tasks), then ``frag_scores``, ``gang_block_fit``, ``fabric_frag`` and
+    the biased ``rank_candidates`` on their captured inputs against their
+    plain versions.  Returns (the three new kernels' rows, the biased
+    rank_candidates row)."""
+    import os
+
+    from volcano_tpu_torch.cache import FakeBinder
+    from volcano_tpu_torch.framework import REBALANCE_SCHEDULER_CONF
+    from volcano_tpu_torch.ops import kernels
+    from volcano_tpu_torch.scheduler import Scheduler
+    from volcano_tpu_torch.sim import ClusterSimulator
+    from volcano_tpu_torch.synth import fabric_cluster
+
+    conf = REBALANCE_SCHEDULER_CONF
+    # 12. rebalance: bench.py config_rebalance at 5,000 workers (10,000
+    # nodes, 5,000 fillers, a 2,500-task whole-node gang).
+    gang = workers // 2
+    os.environ["VOLCANO_TPU_REBALANCE_DRAIN_CAP"] = str(workers)
+    try:
+        t0 = time.perf_counter()
+        store = rebalance_store(workers)
+        # Set-up: the fillers are placed and start Running, then the gang
+        # arrives.
+        Scheduler(store, conf_str=conf).run_once()
+        ClusterSimulator(store, grace_steps=2).step()
+        if _bound(store, "bfill") != workers:
+            raise AssertionError("[rebalance] set-up left fillers pending")
+        add_bench_gang(store, gang)
+        _log(f"[rebalance] cluster + set-up cycle "
+             f"{time.perf_counter() - t0:.3f} s, {len(store.pods)} pods")
+
+        def converged(st):
+            return (_bound(st, "bg") >= gang
+                    and _bound(st, "bfill") == workers)
+
+        kernels.CAPTURE = {}
+        rstats, rlaunch, _vs, _fut = run_evict_phase(
+            "rebalance", store, conf, grace=2, cycles=8, until=converged,
+            need=REBALANCE_KERNELS, require_future=False, profile_cycle=0,
+            extra=lambda st: {"gang_bound": _bound(st, "bg"),
+                              "fillers_bound": _bound(st, "bfill")})
+        rcaps, kernels.CAPTURE = kernels.CAPTURE, None
+    finally:
+        os.environ.pop("VOLCANO_TPU_REBALANCE_DRAIN_CAP", None)
+    led = store.migrations
+    rstats.update(gang_bound=_bound(store, "bg"),
+                  fillers_bound=_bound(store, "bfill"),
+                  fillers=sum(1 for p in store.pods.values()
+                              if p.name.startswith("bfill")),
+                  evicted=len(store.evictor.evicts),
+                  restored=0 if led is None else led.restored_pods,
+                  committed_plans=0 if led is None else led.committed_plans)
+    _log(f"[rebalance] {json.dumps(_summary(rstats))}")
+    if not converged(store) or rstats["fillers"] != workers:
+        raise AssertionError(f"[rebalance] did not converge: "
+                             f"{_summary(rstats)}")
+    if (rstats["committed_plans"] < 1 or rstats["evicted"] < 1
+            or rstats["evicted"] != rstats["restored"]
+            or rstats["rebalance_evictions"] != rstats["evicted"]):
+        raise AssertionError(f"[rebalance] evictions and restores differ: "
+                             f"{_summary(rstats)}")
+    store.close()
+
+    # 13. topology: a fragmented fabric of 128 blocks of 64 nodes, a
+    # 128-task require-contiguous gang no block can host before a drain
+    # (two fillers strand two nodes of every block).
+    n_gang = 2 * nodes_per_slice
+    n_fill = 2 * racks * slices_per_rack
+
+    def fabric(topology):
+        t0 = time.perf_counter()
+        st = fabric_cluster(racks=racks, slices_per_rack=slices_per_rack,
+                            nodes_per_slice=nodes_per_slice,
+                            gang_tasks=n_gang, topology=topology,
+                            binder=FakeBinder())
+        _log(f"[topology] {topology} cluster {time.perf_counter() - t0:.3f}"
+             f" s, {len(st.nodes)} nodes, {len(st.pods)} pods")
+        return st
+
+    def fabric_extra(st):
+        return {"gang_bound": _bound(st, "fabgang-"),
+                "gated": "default/fabgang" in st._topo_gated,
+                "gang_blocks": _gang_blocks(st),
+                "fillers_bound": _bound(st, "filler-")}
+
+    store = fabric("require-contiguous")
+    kernels.CAPTURE = {}
+    tstats, tlaunch, _vs, _fut = run_evict_phase(
+        "topology", store, conf, grace=2, cycles=12,
+        until=lambda st: _bound(st, "fabgang-") >= n_gang,
+        need=TOPOLOGY_KERNELS, require_future=False, extra=fabric_extra,
+        profile_cycle=0)
+    tcaps, kernels.CAPTURE = kernels.CAPTURE, None
+    c0 = tstats["cycles"][0]
+    led = store.migrations
+    tstats.update(fabric_extra(store), evicted=len(store.evictor.evicts),
+                  restored=0 if led is None else led.restored_pods)
+    _log(f"[topology] {json.dumps(_summary(tstats))}")
+    if not (c0["gated"] and c0["gang_bound"] == 0 and c0["plans"] == 1):
+        raise AssertionError(f"[topology] cycle 0 did not pregate the gang "
+                             f"and commit one plan: {c0}")
+    if (tstats["gang_bound"] != n_gang or tstats["gang_blocks"] != 1
+            or tstats["fillers_bound"] != n_fill
+            or tstats["evicted"] != tstats["restored"]):
+        raise AssertionError(f"[topology] gang not bound in one block with "
+                             f"every filler re-bound: {_summary(tstats)}")
+    store.close()
+
+    # 14. prefer-contiguous: the same fabric binds the gang on cycle 0,
+    # steered by the solve's node bias.
+    store = fabric("prefer-contiguous")
+    kernels.CAPTURE = {}
+    pstats, plaunch, _vs, _fut = run_evict_phase(
+        "topology:prefer", store, conf, grace=2, cycles=1,
+        need=PREFER_KERNELS, require_future=False, extra=fabric_extra)
+    pcaps, kernels.CAPTURE = kernels.CAPTURE, None
+    _log(f"[topology:prefer] {json.dumps(_summary(pstats))}")
+    if pstats["cycles"][0]["gang_bound"] != n_gang:
+        raise AssertionError("[topology:prefer] gang not bound on cycle 0")
+    if "rank_candidates:bias" not in pcaps:
+        raise AssertionError("[topology:prefer] no biased ranking launched")
+    store.close()
+
+    # 15. the new kernels and the biased ranking on their inputs.
+    launches = {k: rlaunch[k] + tlaunch[k] + plaunch[k] for k in rlaunch}
+    rows = _replay_rows(rcaps, launches, "rebalance", ["frag_scores"])
+    rows += _replay_rows(tcaps, launches, "topology",
+                         ["gang_block_fit", "fabric_frag"])
+    bias_row = _replay_rows(tcaps, launches, "topology",
+                            ["rank_candidates:bias"])[0]
+    return rows, bias_row
 
 
 def main() -> int:
@@ -1387,6 +1697,14 @@ def main() -> int:
                    for r in vs_rows]
     vs["max_abs_err"] = max(r["max_abs_err"] for r in vs_rows)
     rows.append(vs)
+
+    # 12-15. the rebalance lane and the fabric topology path; the three
+    # new kernels and the biased ranking on their inputs.
+    reb_rows, bias_row = rebalance_phases()
+    by_name["rank_candidates"]["bias"] = {k: bias_row[k] for k in (
+        "ms", "plain_ms", "bound_ms", "bound_by", "max_abs_err",
+        "wrapper_ms", "queued", "bytes", "ops")}
+    rows.extend(reb_rows)
 
     print(json.dumps({"kernels": rows}), flush=True)
     print(card, flush=True)

@@ -331,3 +331,130 @@ def test_preempt_cycles_on_card_equal_cpu(cuda, monkeypatch):
     launched = dict(kernels.LAUNCHES)
     assert card == run("cpu")
     assert launched["victim_scores"] > 0 and launched["walk_accept"] > 0
+
+
+def _tensors(case, device):
+    return {k: torch.from_numpy(np.ascontiguousarray(v)).to(device)
+            if isinstance(v, np.ndarray) else v for k, v in case.items()}
+
+
+@pytest.mark.parametrize("seed", range(6))
+def test_frag_scores_kernel_equals_plain(cuda, seed):
+    """frag_scores on 3,000-odd nodes, R = 3..5, half the seeds with rows
+    past the int32 range: every output identical to the plain version
+    (frag bit for bit: the same operations in the same order)."""
+    from test_torch_fixtures import frag_case
+
+    overflow = seed % 2 == 0
+    c = _tensors(frag_case(seed, N=3000 + seed, R=3 + seed % 3,
+                           overflow=overflow), cuda)
+    args = (c["idle"], c["alloc"], c["ready"], c["evictable"],
+            c["prof_req"], c["eps"])
+    before = kernels.LAUNCHES["frag_scores"]
+    got = kernels.frag_scores(*args)
+    want = kernels.frag_scores(*args, plain=True)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["frag_scores"] == before + 1
+    for g, w in zip(got, want):
+        assert g.dtype == w.dtype and torch.equal(g, w)
+    assert bool((got[0] > 0).any())
+    assert (int(got[1].max()) == 2 ** 31 - 1) == overflow
+
+
+@pytest.mark.parametrize("seed", range(6))
+def test_gang_block_fit_and_fabric_frag_equal_plain(cuda, seed):
+    """gang_block_fit (blockless rows, pod-slot caps, padded profiles) and
+    fabric_frag on its output: identical to the plain versions (integer
+    sums are exact in any order)."""
+    from test_torch_fixtures import block_fit_case
+
+    c = _tensors(block_fit_case(seed, N=5000 + seed, R=3 + seed % 3,
+                                n_blocks=64), cuda)
+    args = (c["idle"], c["ready"], c["ntasks"], c["max_tasks"],
+            c["block_id"], c["prof_req"], c["prof_cnt"], c["eps"],
+            c["n_blocks"])
+    before = dict(kernels.LAUNCHES)
+    got = kernels.gang_block_fit(*args)
+    want = kernels.gang_block_fit(*args, plain=True)
+    frag = kernels.fabric_frag(got[0], got[1], c["prof_cnt"])
+    frag_p = kernels.fabric_frag(got[0], got[1], c["prof_cnt"], plain=True)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["gang_block_fit"] == before["gang_block_fit"] + 1
+    assert kernels.LAUNCHES["fabric_frag"] == before["fabric_frag"] + 1
+    for g, w in zip(list(got) + [frag], list(want) + [frag_p]):
+        assert g.dtype == w.dtype and torch.equal(g, w)
+    assert bool(got[1].any()) and not bool(got[1].all())
+
+
+@pytest.mark.parametrize("make,wave", [
+    (lambda: synthetic_cluster(n_nodes=64, n_pods=512, gang_size=4,
+                               n_queues=2, zones=4, seed=1), 128),
+    (lambda: one_node_gang(volcano_tpu_torch, cpu="4"), 8),
+])
+def test_card_solve_with_node_bias_equals_plain_and_cpu(cuda, make, wave):
+    """A solve with a node-order bias (both rank_candidates modes: the
+    shortlist ranking and the full-N fallback of the one-node gang) equals
+    the plain versions and the CPU, and differs from the biasless solve."""
+    store = make()
+    a_gpu, _ = solve_args_from_store(store, binpack=True, nodeorder=True)
+    a_cpu, _ = solve_args_from_store(store, binpack=True, nodeorder=True,
+                                     device="cpu")
+    N = int(a_cpu[0].idle.shape[0])
+    bias = np.zeros(N, np.float32)
+    bias[np.random.RandomState(5).rand(N) < 0.3] = 7.5
+    kernels.CAPTURE = {}
+    try:
+        k = interop.result_to_numpy(solve_wave(*a_gpu, bias, wave=wave))
+        assert "rank_candidates:bias" in kernels.CAPTURE
+    finally:
+        kernels.CAPTURE = None
+    p = interop.result_to_numpy(solve_wave(*a_gpu, bias, wave=wave,
+                                           plain=True))
+    c = interop.result_to_numpy(solve_wave(*a_cpu, bias, wave=wave,
+                                           device="cpu"))
+    _same(k, p)
+    _same(k, c)
+
+
+def test_rebalance_and_topology_cycles_on_card_equal_cpu(cuda, monkeypatch):
+    """The rebalance lane and the fabric hooks on the card (frag_scores,
+    gang_block_fit, fabric_frag, the biased what-if and live solves) equal
+    the CPU run cycle by cycle on the require-contiguous fabric."""
+    import itertools
+
+    from test_torch_fixtures import mirror_state
+
+    import volcano_tpu_torch.api.spec as spec
+    from volcano_tpu_torch.cache import FakeBinder
+    from volcano_tpu_torch.framework import REBALANCE_SCHEDULER_CONF
+    from volcano_tpu_torch.scheduler import Scheduler
+    from volcano_tpu_torch.sim import ClusterSimulator
+    from volcano_tpu_torch.synth import fabric_cluster
+
+    monkeypatch.setenv("VOLCANO_TPU_REBALANCE_DRAIN_CAP", "64")
+
+    def run(device):
+        spec._uid_counter = itertools.count(1)
+        spec._ts_counter = itertools.count(1)
+        store = fabric_cluster(binder=FakeBinder())
+        sched = Scheduler(store, conf_str=REBALANCE_SCHEDULER_CONF,
+                          device=device)
+        sim = ClusterSimulator(store, grace_steps=2)
+        out = []
+        for _ in range(6):
+            sched.run_once()
+            out.append((sorted(store.binder.binds.items()),
+                        list(store.evictor.evicts), mirror_state(store),
+                        store.flight.last().rebalance))
+            sim.step()
+        return out
+
+    kernels.reset_launches()
+    card = run(None)
+    launched = dict(kernels.LAUNCHES)
+    assert card == run("cpu")
+    for k in ("frag_scores", "gang_block_fit", "fabric_frag",
+              "rank_candidates"):
+        assert launched[k] > 0, launched
+    assert sum(k.startswith("default/fabgang-")
+               for k, _node in card[-1][0]) == 32

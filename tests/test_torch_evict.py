@@ -205,9 +205,9 @@ tiers:
   - name: nodeorder
 """
 
-# The shared-ledger case of tests/test_whatif_preempt.py with the two
-# engine actions the port runs (the rebalance lane is not ported): preempt
-# and reclaim share one ledger and one disruption-budget pool.
+# The shared-ledger case of tests/test_whatif_preempt.py with preempt and
+# reclaim sharing one ledger and one disruption-budget pool (preempt and
+# rebalance sharing it: tests/test_torch_rebalance.py).
 SHARED_CONF = """
 actions: "enqueue, allocate, backfill, preempt, reclaim"
 tiers:

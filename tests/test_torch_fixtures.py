@@ -323,3 +323,61 @@ def churn(api, store, rng, step):
             annotations={api.GROUP_NAME_ANNOTATION: name},
             containers=[{"cpu": "2", "memory": "2Gi"}],
         ))
+
+
+def frag_case(seed, N=300, U=8, R=3, overflow=False):
+    """Random planes for ``frag_scores``: memory in multiples of 10^6 bytes
+    (not powers of two), not-ready rows, rows with zero-allocatable slots,
+    all-zero (padding) profile rows, a profile that requests only one slot,
+    and, with ``overflow``, rows whose idle over a tiny request overflows
+    int32 (2^31 and more gang tasks; XLA's convert saturates)."""
+    rng = np.random.RandomState(seed)
+    alloc = np.zeros((N, R), np.float32)
+    alloc[:, 0] = rng.choice([0.0, 4000.0, 8000.0, 64000.0], N)
+    alloc[:, 1] = rng.randint(0, 64, N) * 1.0e9
+    alloc[:, 2:] = rng.randint(0, 8, (N, R - 2))
+    idle = (alloc * rng.uniform(0.0, 1.0, (N, R))).astype(np.float32)
+    idle[:, 0] = np.floor(idle[:, 0] / 500.0) * 500.0
+    idle[:, 1] = np.floor(idle[:, 1] / 1.0e6) * 1.0e6
+    idle[rng.rand(N) < 0.1] = 0.0
+    ev = np.zeros((N, R), np.float32)
+    ev[:, 0] = rng.choice([0.0, 1000.0, 3000.0], N)
+    ev[:, 1] = rng.randint(0, 4, N) * 1.0e9
+    ready = rng.rand(N) > 0.15
+    req = np.zeros((U, R), np.float32)
+    k = max(1, U // 2)
+    req[:k, 0] = rng.choice([500.0, 1000.0, 2000.0, 4000.0], k)
+    req[:k, 1] = rng.randint(1, 8, k) * 1.0e9
+    if U > 2:
+        req[k - 1, 0] = 0.0  # requests memory only
+    eps = np.array([10.0, 1.0] + [0.01] * (R - 2), np.float32)
+    if overflow:
+        # A profile requesting every slot just above eps, and rows of tens
+        # of GiB (and as many CPUs and scalars) over it: 2^31 and more
+        # tasks per slot, so the min over slots overflows int32 too.
+        eps[:] = [0.01, 1.0] + [0.001] * (R - 2)
+        req[0] = [0.02, 2.0] + [0.002] * (R - 2)
+        big = rng.choice(N, 5, replace=False)
+        idle[big] = [1.0e8, 6.4e10] + [1.0e7] * (R - 2)
+        alloc[big] = idle[big]
+    return dict(idle=idle, alloc=alloc, ready=ready, evictable=ev,
+                prof_req=req, eps=eps)
+
+
+def block_fit_case(seed, N=400, U=4, R=3, n_blocks=16):
+    """Random planes for ``gang_block_fit``: block ids with -1 (blockless)
+    rows, max_tasks > 0 on some nodes, not-ready nodes and all-zero
+    (padding) profile rows with count 0."""
+    rng = np.random.RandomState(seed)
+    c = frag_case(seed, N=N, U=U, R=R)
+    c["prof_req"][0] = [1000.0, 1.0e9] + [0.0] * (R - 2)
+    real = max(1, U // 2)
+    cnt = np.zeros(U, np.int32)
+    cnt[:real] = rng.randint(1, 40, real)
+    max_tasks = np.where(rng.rand(N) < 0.5, rng.randint(1, 6, N),
+                         0).astype(np.int32)
+    ntasks = rng.randint(0, 6, N).astype(np.int32)
+    block = rng.randint(-1, n_blocks - 2, N).astype(np.int32)
+    return dict(idle=c["idle"], ready=c["ready"], ntasks=ntasks,
+                max_tasks=max_tasks, block_id=block, prof_req=c["prof_req"],
+                prof_cnt=cnt, eps=c["eps"], n_blocks=n_blocks)

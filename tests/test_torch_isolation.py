@@ -7,9 +7,11 @@
 (c) Without CUDA, the default-device entry points raise.
 (d) Every unsupported feature raises ``NotImplementedError``.
 (e) The same for the scheduler cycle: it runs with ``jax``, ``volcano_tpu``
-    and ``yaml`` unimportable, no module imports ``yaml``, the default
-    device raises without CUDA, and the JAX fast path's lanes the port does
-    not run raise ``NotImplementedError`` naming their ROADMAP.md item.
+    and ``yaml`` unimportable (preempt / reclaim and the rebalance lane on a
+    fabric included), no module imports ``yaml``, the default device raises
+    without CUDA, and the JAX fast path's lanes the port does not run raise
+    ``NotImplementedError`` naming their ROADMAP.md item; the rebalance
+    lane, which ignores the host-walk switch, runs under it.
 """
 
 import ast
@@ -131,7 +133,6 @@ UNSUPPORTED = {
     "spread": (lambda: _args(topology_spread=[("zone", 5)]), {}),
     "extra_ok": (_args, {"extra_ok": np.ones((2, 8), bool)}),
     "extra_score": (_args, {"extra_score": np.zeros((2, 8), np.float32)}),
-    "node_bias": (_args, {"node_bias": np.zeros(8, np.float32)}),
     "mesh_shards": (_args, {"mesh_shards": 2}),
 }
 
@@ -175,6 +176,19 @@ for _ in range(3):
     sched.run_once()
     sim.step()
 assert store.migrations.committed_plans >= 1
+from volcano_tpu_torch.cache import FakeBinder
+from volcano_tpu_torch.framework import REBALANCE_SCHEDULER_CONF
+from volcano_tpu_torch.synth import fabric_cluster
+os.environ["VOLCANO_TPU_REBALANCE_DRAIN_CAP"] = "64"
+store = fabric_cluster(binder=FakeBinder())
+sched = Scheduler(store, conf_str=REBALANCE_SCHEDULER_CONF, device="cpu")
+sim = ClusterSimulator(store, grace_steps=2)
+for _ in range(5):
+    sched.run_once()
+    sim.step()
+assert store.migrations.committed_plans == 1
+assert sum(1 for p in store.pods.values()
+           if p.name.startswith("fabgang") and p.node_name) == 32
 assert not any(k.split(".")[0] in ("jax", "jaxlib", "volcano_tpu", "yaml")
                for k in sys.modules)
 print("ok")
@@ -234,7 +248,6 @@ CYCLE_NOT_PORTED = {
     # they replace (VOLCANO_TPU_EVICT_DEVICE=0, set below) does not.
     "preempt": (_cycle_store, _conf("enqueue, allocate, preempt")),
     "reclaim": (_cycle_store, _conf("allocate, reclaim")),
-    "rebalance": (_cycle_store, _conf("allocate, rebalance")),
     "custom plugin": (_cycle_store, _conf(extra_plugin="  - name: mine\n")),
     "unknown action": (_cycle_store, _conf("allocate, shuffle")),
     "sequential solver": (_cycle_store, _conf() + (
@@ -254,8 +267,7 @@ CYCLE_NOT_PORTED = {
 
 # The ROADMAP.md queue 1 item each case's error must name.
 _ITEM = collections.defaultdict(str, preempt="host victim walk",
-                                reclaim="host victim walk",
-                                rebalance="rebalance")
+                                reclaim="host victim walk")
 
 
 @pytest.mark.parametrize("what", sorted(CYCLE_NOT_PORTED))
@@ -269,6 +281,24 @@ def test_cycle_lanes_not_ported_raise(what, monkeypatch):
                        match=rf"ROADMAP\.md, queue 1: .*{_ITEM[what]}"):
         Scheduler(store, conf_str=conf, device="cpu").run_once()
     assert not store.binder.binds
+
+
+def test_rebalance_runs_with_host_victim_walk_selected(monkeypatch):
+    """VOLCANO_TPU_EVICT_DEVICE=0 selects the preempt / reclaim host walk,
+    which the port does not run; the rebalance lane ignores the switch (as
+    the JAX package's does) and plans, proves and commits under it."""
+    from volcano_tpu_torch.cache import FakeBinder
+    from volcano_tpu_torch.framework import REBALANCE_SCHEDULER_CONF
+    from volcano_tpu_torch.scheduler import Scheduler
+    from volcano_tpu_torch.synth import fabric_cluster
+
+    monkeypatch.setenv("VOLCANO_TPU_EVICT_DEVICE", "0")
+    monkeypatch.setenv("VOLCANO_TPU_REBALANCE_DRAIN_CAP", "64")
+    store = fabric_cluster(binder=FakeBinder())
+    Scheduler(store, conf_str=REBALANCE_SCHEDULER_CONF,
+              device="cpu").run_once()
+    assert store.migrations.committed_plans == 1
+    assert sum(p.deleting for p in store.pods.values()) == 2
 
 
 @pytest.mark.parametrize("attr,value", [

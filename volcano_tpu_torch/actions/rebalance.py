@@ -1,10 +1,15 @@
-"""The what-if engine's shared migration state: disruption budgets and the
-migration ledger.
+"""Rebalance action: gang-aware defragmentation with disruption budgets.
 
-The counterpart of the part of the JAX package's ``actions/rebalance.py``
-that the preempt and reclaim lanes share with rebalance (the rebalance lane
-itself is not ported yet: ROADMAP.md, queue 1, "rebalance"):
+The counterpart of the JAX package's ``actions/rebalance.py``.  The lane
+itself is the fast path's ``FastCycle._rebalance`` (plan with the
+``frag_scores`` kernel, prove with a what-if ``solve_wave`` over the
+hypothetically drained cluster, commit evictions through the what-if
+engine); this module holds its switches and the migration state every
+what-if engine action (rebalance, preempt, reclaim) shares:
 
+- ``rebalance_enabled`` / ``drain_cap`` -- the lane's kill switch
+  (``VOLCANO_TPU_REBALANCE``) and the most nodes one plan may drain
+  (``VOLCANO_TPU_REBALANCE_DRAIN_CAP``);
 - ``MigrationLedger`` -- the store-attached record of in-flight evictions
   (``store.migrations``), shared by every what-if engine action; entries
   carry the evicting ``action`` and the beneficiary gang.  When an evicted
@@ -29,6 +34,17 @@ def _env_int(name: str, default: int) -> int:
         return int(os.environ.get(name, default))
     except ValueError:
         return default
+
+
+def rebalance_enabled() -> bool:
+    """Master switch (the action string is the real opt-in; this kills the
+    lane without a config rollout)."""
+    return os.environ.get("VOLCANO_TPU_REBALANCE", "1") != "0"
+
+
+def drain_cap() -> int:
+    """Max nodes one plan may hypothetically drain."""
+    return max(1, _env_int("VOLCANO_TPU_REBALANCE_DRAIN_CAP", 32))
 
 
 def min_gain() -> int:
@@ -168,6 +184,15 @@ class MigrationLedger:
                 if self._done(store, e)]
         for uid in done:
             del self.entries[uid]
+
+    def active(self, store, action: Optional[str] = None) -> bool:
+        """True while any migration (of ``action``, when given) is
+        incomplete: the rebalance lane runs one wave at a time, and a
+        preempted pod that stays Pending must not wedge that gate."""
+        self.prune(store)
+        if action is None:
+            return bool(self.entries)
+        return any(e.action == action for e in self.entries.values())
 
     def disrupted(self, store, group_uid: str) -> int:
         """Victims of the group still unavailable (evicted / terminating

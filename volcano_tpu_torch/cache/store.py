@@ -171,6 +171,13 @@ class ClusterStore:
         # of the evict lanes (whatif.update_streaks / set_backoff).
         self._whatif_streaks: Dict[tuple, int] = {}
         self._whatif_backoff: Dict[tuple, int] = {}
+        # The rebalance lane's own per-gang-uid streaks and rejection
+        # backoffs (FastCycle._find_starved_gang), and the require-
+        # contiguous gangs the topology pregate holds out of the solve
+        # (counted on the gating transition only).
+        self._rebalance_streaks: Dict[str, int] = {}
+        self._rebalance_backoff: Dict[str, int] = {}
+        self._topo_gated: set = set()
         # Where the cycle's solve runs: the card unless set to "cpu"
         # (Scheduler(store, device=...) sets it).
         self.device = None

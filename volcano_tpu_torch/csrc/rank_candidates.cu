@@ -13,8 +13,9 @@
 // :1314-1322: the fit reads FutureIdle = ((idle + releasing) - pipelined)
 // - pip_extra and the pod slots count ntasks + pip_ntasks; the score keeps
 // the live idle)
-// (node_score + static score, NEG when infeasible) as a 64-bit key
-// (score descending, candidate position ascending: shortlists hold
+// (node_score + static score, NEG when infeasible; the static score takes
+// the fabric topology's [N] node-order bias when one is given) as a 64-bit
+// key (score descending, candidate position ascending: shortlists hold
 // ascending node ids, so this is jax.lax.top_k's lowest-node-id tie-break).
 // A radix select finds the K-th key; the K winners are ordered by counting,
 // for each, the winners with a larger key.  Outputs: the top-K node ids in
@@ -32,7 +33,8 @@ namespace {
 
 __global__ void __launch_bounds__(512) rank_kernel(
     const int32_t* rows, const int32_t* cand, int L, const uint8_t* ok_w,
-    const float* score_w, int C, const int32_t* cls_id, const float* p_req,
+    const float* score_w, const float* bias, int C, const int32_t* cls_id,
+    const float* p_req,
     const float* p_init_req, int R, const float* idle, const float* rel,
     const float* pip, const float* pxe, const int32_t* pip_ntasks,
     const float* alloc, const int32_t* ntasks, const int32_t* max_tasks,
@@ -69,8 +71,12 @@ __global__ void __launch_bounds__(512) rank_kernel(
     const bool feas = ok_w[static_cast<int64_t>(u) * C + c] != 0 &&
                       vtt::less_equal(irq, fi, eps, scalar_slot, R) &&
                       pods_ok;
-    const float score = vtt::node_score(rq, al, id, bres, R, w) +
-                        score_w[static_cast<int64_t>(u) * C + c];
+    // The topology bias joins the static score before the live score
+    // does (wave.py:1179, :1288), and only when one is given: -0.0 + 0.0
+    // would flip a sign bit of a biasless solve.
+    float stat = score_w[static_cast<int64_t>(u) * C + c];
+    if (bias) stat = stat + bias[n];
+    const float score = vtt::node_score(rq, al, id, bres, R, w) + stat;
     keys[i] = vtt::make_key(feas ? score : vtt::kNeg, static_cast<uint32_t>(i));
     feas_row[i] = feas ? 1 : 0;
     local_any |= feas ? 1 : 0;
@@ -101,7 +107,8 @@ __global__ void __launch_bounds__(512) rank_kernel(
 
 extern "C" int vtt_rank_candidates(
     const void* rows, int M, const void* cand, int L, const void* ok_w,
-    const void* score_w, int C, const void* cls_id, const void* p_req,
+    const void* score_w, const void* bias, int C, const void* cls_id,
+    const void* p_req,
     const void* p_init_req, int R, const void* idle, const void* rel,
     const void* pip, const void* pxe, const void* pip_ntasks,
     const void* alloc,
@@ -120,7 +127,8 @@ extern "C" int vtt_rank_candidates(
   Weights w{bw, lw, mw, balw};
   rank_kernel<<<M, 512, smem, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const int32_t*>(rows), static_cast<const int32_t*>(cand), L,
-      static_cast<const uint8_t*>(ok_w), static_cast<const float*>(score_w), C,
+      static_cast<const uint8_t*>(ok_w), static_cast<const float*>(score_w),
+      static_cast<const float*>(bias), C,
       static_cast<const int32_t*>(cls_id), static_cast<const float*>(p_req),
       static_cast<const float*>(p_init_req), R,
       static_cast<const float*>(idle), static_cast<const float*>(rel),

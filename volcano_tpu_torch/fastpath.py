@@ -28,15 +28,28 @@ what-if engine (``whatif.py``: victims ranked by the ``victim_scores``
 kernel, the wave proven by a what-if solve, evictions committed through
 ``fastpath_evict.EvictState`` and flushed to the store's evictor before the
 session closes); the victims stay Releasing through their grace window,
-and every later solve reads their capacity as future idle.
+and every later solve reads their capacity as future idle.  The rebalance
+action (``_rebalance``) drains fragmented nodes for a starved gang: nodes
+scored by the ``frag_scores`` kernel, the drain set proven by a what-if
+solve in which the victims re-place too, committed through the same
+engine.
+
+Fabric topology (``ops/topology.py``, kernels ``gang_block_fit`` and
+``fabric_frag``): a ``require-contiguous`` gang that no fabric block can
+host whole sits the solve out (``_topology_pregate``, drop reason
+``topology-infeasible``) until a rebalance wave frees one; the solve's
+node-order bias steers a constrained gang onto its block
+(``_topo_node_bias``), and a scattered placement of a required gang is
+vetoed before commit (``_topology_gate``).
 
 Eligibility (``eligible()``): actions within ``FAST_ACTIONS``, plugins
 within ``FAST_PLUGINS`` (the eight built-ins), and the wave solver.  The
 JAX package's other lanes raise ``NotImplementedError`` here, naming their
-ROADMAP.md item, before the cycle mutates anything: rebalance, the host
-victim walk (``VOLCANO_TPU_EVICT_DEVICE=0``), pipelined sessions, the
-remote solver and the device mesh.  Fabric topology constraints and
-inter-pod affinity or spread terms raise when allocate meets them.
+ROADMAP.md item, before the cycle mutates anything: the host victim walk
+(``VOLCANO_TPU_EVICT_DEVICE=0``, for preempt and reclaim; the rebalance
+lane ignores the switch, as the JAX package's does), pipelined sessions,
+the remote solver and the device mesh.  Inter-pod affinity or spread terms
+raise when allocate meets them.
 """
 
 from __future__ import annotations
@@ -50,6 +63,7 @@ import numpy as np
 import torch
 
 from .api import (
+    TOPOLOGY_REQUIRE,
     PodGroupCondition,
     PodGroupPhase,
     TaskStatus,
@@ -76,8 +90,7 @@ log = logging.getLogger(__name__)
 F = np.float32
 I = np.int32
 
-# The JAX package's fast-path actions; those the port does not run yet
-# raise in FastCycle.check_ported (see _NOT_PORTED_ACTIONS).
+# The JAX package's fast-path actions, all of which the port runs.
 FAST_ACTIONS = {"enqueue", "allocate", "backfill", "preempt", "reclaim",
                 "rebalance"}
 FAST_PLUGINS = {
@@ -186,11 +199,6 @@ class _JobProxy:
         self.queue = queue
         self.key = key
 
-# Actions of the JAX package's fast path that the port does not run yet,
-# with the ROADMAP.md item that ports them.
-_NOT_PORTED_ACTIONS = {
-    "rebalance": "rebalance",
-}
 # The evict lanes the port runs (device-native, whatif.py).
 _EVICT_ACTIONS = ("preempt", "reclaim")
 
@@ -198,7 +206,13 @@ _EVICT_ACTIONS = ("preempt", "reclaim")
 class FastCycle:
     """One vectorized scheduling cycle over the store mirror."""
 
-    # Passes a gang sits out after a rejected eviction plan.
+    # Pipelined cycles see starvation one commit behind, so a gang must
+    # stay starved this many consecutive rebalance passes before a plan
+    # forms there (the port refuses pipelined sessions: one pass).
+    REBALANCE_STREAK_PIPELINED = 2
+    # Passes a gang sits out after a rejected eviction plan: a gang whose
+    # what-if keeps failing must not re-pay the kernel and the what-if
+    # every cycle.
     REBALANCE_REJECT_BACKOFF = 8
 
     # The single entry point (run_cycle_fast) wraps the whole cycle in
@@ -250,9 +264,6 @@ class FastCycle:
         from .whatif import evict_device_enabled
 
         for name in self.action_names:
-            if name in _NOT_PORTED_ACTIONS:
-                raise _not_ported(f"the {name} action",
-                                  _NOT_PORTED_ACTIONS[name])
             if name in _EVICT_ACTIONS and not evict_device_enabled():
                 raise _not_ported(
                     f"the host victim walk of the {name} action "
@@ -784,7 +795,7 @@ class FastCycle:
                 with tracer.span("feed", lanes=self.lanes):
                     feed(self)
             for name in self.action_names:
-                lane = (name if name in ("enqueue", "backfill")
+                lane = (name if name in ("enqueue", "backfill", "rebalance")
                         + _EVICT_ACTIONS else None)
                 with metrics.action_timer(name), tracer.span(
                         f"action:{name}", cat="action",
@@ -807,6 +818,11 @@ class FastCycle:
                         from . import whatif
 
                         whatif.run_evict_action(self, name)
+                    elif name == "rebalance":
+                        # Defragmentation planner: a committed plan evicts
+                        # through the what-if engine and stamps the
+                        # mutation counter itself.
+                        self._rebalance()
         except BaseException:
             # A failed cycle may leave uncommitted status mutations in the
             # mirror; re-derive dynamic state from the pod records.
@@ -845,6 +861,7 @@ class FastCycle:
             epoch_at_dispatch=st["epoch_at_dispatch"],
             epoch_at_commit=st["epoch_at_commit"],
             device_events=list(st["device_events"]),
+            rebalance=st.get("rebalance"),
             whatif=st.get("whatif"),
             error=type(err).__name__ if err is not None else None,
             spans=self.tracer.drain(),
@@ -1200,9 +1217,13 @@ class FastCycle:
             if prep is None:
                 break
             solve_jobs, task_rows = prep
-            if self._topo_active():
-                raise _not_ported("fabric topology constraints",
-                                  "topology")
+            # Require-contiguous gangs with no whole-gang fabric block sit
+            # the solve out (drop reason topology-infeasible) instead of
+            # scattering.
+            solve_jobs, task_rows = self._topology_pregate(
+                solve_jobs, task_rows)
+            if not len(task_rows):
+                break
             # Distinct rows entering solves this cycle: retry rounds
             # re-derive a SUBSET of round 1's pending set.
             self.stats["considered"] = max(
@@ -1236,6 +1257,9 @@ class FastCycle:
                 result.fb_affinity.reshape(1).to(torch.int32),
             ]).cpu().numpy()
             assigned = packed[:P].astype(np.int64)
+            # Fabric gate: require-contiguous gangs scattered across blocks
+            # are vetoed before the commit.
+            assigned = self._topology_gate(task_rows, assigned)
             never_ready = packed[P:P + J].astype(bool)
             fit_failed = packed[P + J:P + 2 * J].astype(bool)
             self._count_shortlist_fb(int(packed[P + 2 * J]),
@@ -1348,19 +1372,431 @@ class FastCycle:
             tuple(self.action_names), tuple(sorted(self.plugin_opts)),
         )
 
-    # ------------------------------------------------------ topology gate
+    # ------------------------------------------------------ topology gates
 
     def _topo_active(self) -> bool:
-        """The JAX package's master gate of every fabric-topology hook:
-        the kill switch is up, at least one job carries a constraint, and
-        the cluster has fabric-labeled nodes.  The port runs no topology
-        lane, so the caller raises when it holds."""
-        if os.environ.get("VOLCANO_TPU_TOPOLOGY", "1") == "0":
+        """Master gate of every fabric-topology hook: the kill switch is
+        up, at least one job carries a constraint, and the cluster has
+        fabric-labeled nodes (epoch-cached).  Otherwise every hook is a
+        no-op and the solve inputs are what they are without topology."""
+        from .ops import topology as topo
+
+        if not topo.topology_on():
             return False
         m = self.m
         if self.Jn == 0 or not m.j_topo[:self.Jn].any():
             return False
-        return _has_fabric(m)
+        return topo.has_fabric(m)
+
+    def _padN(self, a, fill=0):
+        """``a`` padded along the node axis to the solve's pow2 bucket."""
+        out = np.full((_pow2(max(self.Nn, 1)), *a.shape[1:]), fill, a.dtype)
+        out[:len(a)] = a
+        return out
+
+    def _topo_block_fit(self, jrow: int):
+        """Per-fabric-block whole-gang fit of job ``jrow``'s pending tasks
+        (``ops/topology.gang_block_fit`` on the cycle's device, fetched in
+        one copy), or None when the gang has nothing pending.  A dict with
+        the padded [Np] block-id plane, the per-block cfit / whole / score
+        (padding rows sliced off) and the profile counts."""
+        from .ops import topology as topo
+
+        m = self.m
+        _, block, n_blocks = topo.fabric_planes(m)
+        if n_blocks == 0:
+            return None
+        Pn = self.Pn
+        pend = np.flatnonzero(
+            m.p_alive[:Pn] & (m.p_status[:Pn] == ST_PENDING)
+            & ~m.p_be[:Pn] & (self.jobr == jrow)
+        )
+        if not len(pend):
+            return None
+        # Distinct profiles of the gang's pending tasks (first-occurrence
+        # order) -> [Up, R] init-request table + per-profile counts.
+        _, first, counts = np.unique(
+            m.p_prof[pend], return_index=True, return_counts=True
+        )
+        order = np.argsort(first)
+        urows = pend[first[order]]
+        counts = counts[order]
+        Up = _pow2(max(len(urows), 1), 4)
+        prof_req = np.zeros((Up, self.R), F)
+        er, si, v = m.c_init_req.gather(urows)
+        prof_req[er, si] = v
+        prof_cnt = np.zeros((Up,), I)
+        prof_cnt[:len(urows)] = counts
+        bid = self._padN(block[:self.Nn], -1)
+        # Block rows in a pow2 bucket, as the JAX callers pad them.
+        Bp = _pow2(max(n_blocks, 1), 4)
+        bf = topo.gang_block_fit(
+            self._padN(self.n_idle.astype(F)), self._padN(self.n_ready),
+            self._padN(self.n_ntasks), self._padN(self.n_maxtasks), bid,
+            prof_req, prof_cnt, self.eps, n_blocks=Bp, device=self.device,
+        )
+        packed = torch.cat([
+            bf.cfit.reshape(-1), bf.whole.to(torch.int32),
+            bf.score.view(torch.int32),
+        ]).cpu().numpy()
+        cfit = packed[:Bp * Up].reshape(Bp, Up)
+        whole = packed[Bp * Up:Bp * Up + Bp].astype(bool)
+        score = packed[Bp * Up + Bp:].view(F)
+        return {
+            "block": bid, "n_blocks": n_blocks,
+            "cfit": cfit[:n_blocks], "whole": whole[:n_blocks],
+            "score": score[:n_blocks], "prof_cnt": prof_cnt,
+        }
+
+    def _topology_pregate(self, solve_jobs: List[int],
+                          task_rows: np.ndarray):
+        """Require-contiguous gate ahead of the solve: a gang no fabric
+        block can host WHOLE is excluded from the solve inputs (drop
+        reason ``topology-infeasible``, counted on the gating transition)
+        instead of scattering across blocks.  The starvation this creates
+        is what the rebalance lane's fabric-defrag targeting relieves."""
+        if not self._topo_active():
+            return solve_jobs, task_rows
+        m = self.m
+        jt = m.j_topo
+        req_jobs = [j for j in solve_jobs if jt[j] == TOPOLOGY_REQUIRE]
+        if not req_jobs:
+            return solve_jobs, task_rows
+        gated = self.store._topo_gated
+        drop: List[int] = []
+        for j in req_jobs:
+            tf = self._topo_block_fit(j)
+            if tf is None:
+                continue
+            uid = m.j_uid[j]
+            if tf["whole"].any():
+                gated.discard(uid)
+                continue
+            drop.append(j)
+            if uid not in gated:
+                # Transition accounting only: the gang re-gates every
+                # cycle until the fabric changes.
+                gated.add(uid)
+                metrics.topology_placements.inc(outcome="infeasible")
+                log.info(
+                    "gang %s requires contiguous placement but no "
+                    "fabric block can host it whole; held out of the "
+                    "solve (topology-infeasible)", uid,
+                )
+        if not drop:
+            return solve_jobs, task_rows
+        dropset = np.zeros(self.Jn, bool)
+        dropset[drop] = True
+        task_rows = task_rows[~dropset[self.jobr[task_rows]]]
+        solve_jobs = [j for j in solve_jobs if not dropset[j]]
+        return solve_jobs, task_rows
+
+    def _topo_node_bias(self, solve_jobs, n_pad: int):
+        """[n_pad] f32 node-order bias steering the FIRST constrained gang
+        of the solve toward its selected fabric block
+        (``ops/topology.contig_bias``), or None when no constraint is live
+        -- the solve then adds nothing."""
+        from .ops import topology as topo
+
+        if not self._topo_active():
+            return None
+        jt = self.m.j_topo
+        target = next((int(j) for j in solve_jobs if jt[j]), None)
+        if target is None:
+            return None
+        tf = self._topo_block_fit(target)
+        if tf is None:
+            return None
+        sel = topo.select_block(
+            tf["whole"], tf["score"],
+            require=int(jt[target]) == TOPOLOGY_REQUIRE,
+        )
+        if sel < 0:
+            return None
+        bias = topo.contig_bias(tf["block"], sel, n_pad)
+        return bias if bias.any() else None
+
+    def _topology_gate(self, task_rows: np.ndarray,
+                       assigned: np.ndarray) -> np.ndarray:
+        """Post-solve fabric gate: each constrained gang's placement
+        outcome by the block span of its assigned rows.  A
+        ``require-contiguous`` gang spanning more than one block (or
+        landing off-fabric) is vetoed wholesale -- its rows drop to -1
+        under ``topology-infeasible`` before any commit (``gang_block_fit``
+        is a per-profile upper bound; this is the exact enforcer).  Passing
+        gangs count as ``contiguous`` or ``scattered``."""
+        from .ops import topology as topo
+
+        if not len(task_rows) or not self._topo_active():
+            return assigned
+        m = self.m
+        jt = m.j_topo
+        jobr_rows = self.jobr[task_rows]
+        topo_jobs = [int(j) for j in np.unique(jobr_rows)
+                     if j >= 0 and jt[j]]
+        if not topo_jobs:
+            return assigned
+        _, block, _ = topo.fabric_planes(m)
+        blk = np.full((max(self.Nn, 1),), -1, I)
+        blk[:self.Nn] = block[:self.Nn]
+        assigned = np.asarray(assigned).copy()
+        veto = np.zeros(len(task_rows), bool)
+        for j in topo_jobs:
+            rows_mask = ((jobr_rows == j) & (assigned >= 0)
+                         & (assigned < self.Nn))
+            if not rows_mask.any():
+                continue
+            bsel = np.unique(blk[assigned[rows_mask]])
+            contiguous = bool(len(bsel) == 1 and bsel[0] >= 0)
+            if jt[j] == TOPOLOGY_REQUIRE and not contiguous:
+                veto |= (jobr_rows == j) & (assigned >= 0)
+                metrics.topology_placements.inc(outcome="infeasible")
+            else:
+                metrics.topology_placements.inc(
+                    outcome="contiguous" if contiguous else "scattered"
+                )
+        if veto.any():
+            assigned[veto] = -1
+            self._count_drops({"topology-infeasible":
+                               int(np.count_nonzero(veto))})
+        return assigned
+
+    def _count_drops(self, reasons: Dict[str, int]) -> None:
+        """Fold drop counts into the cycle stats and the per-reason
+        counter series."""
+        st = self.stats
+        dr = st["drop_reasons"]
+        for reason, n in reasons.items():
+            n = int(n)
+            if n <= 0:
+                continue
+            dr[reason] = dr.get(reason, 0) + n
+            metrics.pipeline_stale_drops.inc(n, reason=reason)
+            st["dropped"] = int(st["dropped"]) + n
+
+    # ----------------------------------------------------------- rebalance
+
+    def _rebalance(self) -> None:
+        """Gang-aware defragmentation lane.
+
+        Picks the most-starved schedulable gang, scores per-node
+        fragmentation against its profile table (the ``frag_scores``
+        kernel, over the planes the solve reads), selects a bounded drain
+        set under per-PodGroup disruption budgets, and proves the
+        migration with a what-if ``solve_wave`` over the hypothetically
+        drained cluster, the victims re-entered as pending beside the gang.
+        The plan commits -- victims evicted through the what-if engine,
+        restores registered with the migration ledger -- only when the
+        gang reaches ready AND every victim re-places."""
+        from . import whatif
+        from .actions.rebalance import rebalance_enabled
+
+        store = self.store
+        if not rebalance_enabled():
+            return
+        ledger = store.migrations
+        if ledger is not None and ledger.active(store, "rebalance"):
+            # One rebalance wave at a time (preempt / reclaim entries
+            # share the ledger but must not wedge this lane).
+            return
+        if store._inflight_plan is not None:
+            return
+        jrow = self._find_starved_gang()
+        if jrow is None:
+            return
+        plan = self._plan_rebalance(jrow)
+        if plan is None:
+            return
+        whatif.dispatch_plan(self, plan)
+
+    def _find_starved_gang(self) -> Optional[int]:
+        """Most-starved schedulable gang (largest min_available shortfall,
+        lowest row tie-break) whose starvation has lasted long enough and
+        that is not backing off after a rejected plan."""
+        from .whatif import _starved_candidates
+
+        m = self.m
+        streaks = self.store._rebalance_streaks
+        if not len(self.session_jobs):
+            streaks.clear()
+            return None
+        cand = _starved_candidates(self)
+        uids = {m.j_uid[int(r)] for r in cand}
+        for uid in list(streaks):
+            if uid not in uids:
+                del streaks[uid]
+        for uid in uids:
+            streaks[uid] = streaks.get(uid, 0) + 1
+        # Rejection cooldown; leaving the starved set clears the slate.
+        backoff = self.store._rebalance_backoff
+        for uid in list(backoff):
+            if uid not in uids:
+                del backoff[uid]
+            elif backoff[uid] > 0:
+                backoff[uid] -= 1
+        if not len(cand):
+            return None
+        need_streak = (self.REBALANCE_STREAK_PIPELINED
+                       if self._pipeline_on else 1)
+        need = (m.j_minav[cand] - self.j_ready_base[cand]).astype(np.int64)
+        for r in cand[np.lexsort((cand, -need))]:
+            uid = m.j_uid[int(r)]
+            if streaks.get(uid, 0) >= need_streak \
+                    and backoff.get(uid, 0) <= 0:
+                return int(r)
+        return None
+
+    def _plan_rebalance(self, jrow: int):
+        """Score fragmentation and select a drain set for one starved
+        gang; a ``whatif.WhatIfPlan`` (action "rebalance", victims
+        re-solved) or None."""
+        from . import whatif
+        from .actions.rebalance import drain_cap
+        from .ops.rebalance import frag_scores, select_drain_set
+
+        m = self.m
+        Pn = self.Pn
+        with self.tracer.span("rebalance_plan", cat="rebalance",
+                              args={"gang": m.j_uid[jrow]}):
+            need = int(m.j_minav[jrow] - self.j_ready_base[jrow])
+            if need <= 0:
+                return None
+            pend = np.flatnonzero(
+                m.p_alive[:Pn] & (m.p_status[:Pn] == ST_PENDING)
+                & ~m.p_be[:Pn] & (self.jobr == jrow)
+            )
+            if not len(pend):
+                return None
+            # The gang's pending rows by creation and its deduplicated,
+            # pow2-padded [Up, R] profile table (all-zero rows inert).
+            gang_rows, prof_req = whatif._gang_profile_table(self, pend)
+            # Migratable victims: Running residents with requests, not
+            # critical, without inter-pod terms, never the gang itself.
+            vict = whatif._victim_base(self, jrow)
+            # Node axis padded to the solve's pow2 bucket; padded rows are
+            # not ready (frag 0) and hold nothing (fit 0).
+            Np = _pow2(max(self.Nn, 1))
+            evictable = np.zeros((Np, self.R), F)
+            vnode = np.zeros(0, np.int64)
+            if len(vict):
+                vnode = m.p_node[:Pn][vict].astype(np.int64)
+                er, si, v = m.c_req.gather(vict)
+                np.add.at(evictable, (vnode[er], si), v)
+            fs = frag_scores(
+                self._padN(self.n_idle.astype(F)),
+                self._padN(self.n_alloc.astype(F)),
+                self._padN(self.n_ready), evictable, prof_req, self.eps,
+                device=self.device,
+            )
+            # One device -> host copy of the three planes.
+            Nn = self.Nn
+            packed = torch.cat([
+                fs.frag.view(torch.int32), fs.fit_now, fs.fit_freed,
+            ]).cpu().numpy()
+            frag = packed[:Nn].view(F)
+            fit_now = packed[Np:Np + Nn]
+            fit_freed = packed[2 * Np:2 * Np + Nn]
+            alive = self.n_alive
+            frag_mean = (float(frag[alive].mean())
+                         if alive.any() else 0.0)
+            metrics.rebalance_frag_score.set(frag_mean)
+            # Fabric-defrag targeting: for a gang with a topology
+            # constraint the drain set concentrates on ONE target block --
+            # the block whose drains free the most gang capacity -- so the
+            # wave assembles a whole block instead of shaving capacity
+            # evenly across the fabric.  Outside the target block the gain
+            # and frag signals are zeroed.
+            if m.j_topo[jrow] and self._topo_active():
+                from .ops import topology as topo
+
+                tf = self._topo_block_fit(jrow)
+                if tf is not None:
+                    frag_b = topo.fabric_frag(
+                        tf["cfit"], tf["whole"], tf["prof_cnt"],
+                        device=self.device).cpu().numpy()
+                    metrics.topology_frag_score.set(
+                        float(frag_b.mean()) if len(frag_b) else 0.0)
+                    blk = tf["block"][:Nn]
+                    nb = tf["n_blocks"]
+                    total_need = int(np.sum(tf["prof_cnt"]))
+                    freed_sum = np.zeros(nb + 1, np.float64)
+                    np.add.at(freed_sum,
+                              np.where(blk >= 0, blk, nb), fit_freed)
+                    freed_sum = freed_sum[:nb]
+                    if (nb and total_need > 0
+                            and freed_sum.max() >= total_need):
+                        target = int(np.argmax(freed_sum))
+                        on_blk = blk == target
+                        # The wave only has to close the target block's
+                        # SHORTFALL: its standing free capacity already
+                        # counts toward the gang.
+                        short = int(np.maximum(
+                            np.asarray(tf["prof_cnt"], np.int64)
+                            - np.asarray(tf["cfit"][target], np.int64),
+                            0).sum())
+                        if short <= 0:
+                            # Block already whole: the pregate lifts next
+                            # cycle; nothing to drain.
+                            return None
+                        need = short
+                        frag = np.where(on_blk, frag, 0.0)
+                        fit_freed = np.where(on_blk, fit_freed, fit_now)
+                    elif m.j_topo[jrow] == TOPOLOGY_REQUIRE:
+                        # No block gains enough from any drain: no wave
+                        # can make this gang contiguous.
+                        whatif.count_plan(
+                            self, "rebalance", "rejected-topology",
+                            gang=m.j_uid[jrow], need=need,
+                        )
+                        whatif.set_backoff(self.store, "rebalance",
+                                           m.j_uid[jrow],
+                                           self.REBALANCE_REJECT_BACKOFF)
+                        return None
+            # Per-node victim lists only for drain CANDIDATES (fragmented
+            # nodes whose drain gains capacity), so the Python walk is
+            # bounded by the hotspots, not the Running population.
+            victims_by_node: List[List[int]] = [[] for _ in range(Nn)]
+            victim_group: Dict[int, str] = {}
+            if len(vict):
+                cand_mask = (fit_freed > fit_now) & (frag > 0.0)
+                on_cand = cand_mask[vnode]
+                for row, n in zip(vict[on_cand].tolist(),
+                                  vnode[on_cand].tolist()):
+                    victims_by_node[n].append(row)
+                    victim_group[row] = m.j_uid[int(self.jobr[row])]
+            # Remaining per-group disruption budget after waves in flight.
+            budget_left = whatif._budget_left(self, victim_group.values())
+            nodes, budget_blocked = select_drain_set(
+                frag, fit_now, fit_freed, need, victims_by_node,
+                victim_group, budget_left, drain_cap(),
+            )
+            if not nodes:
+                if budget_blocked:
+                    whatif.count_plan(
+                        self, "rebalance", "rejected-budget",
+                        gang=m.j_uid[jrow],
+                        need=need, frag=round(frag_mean, 4),
+                    )
+                # Cooldown either way: no drain set can form until the
+                # cluster moves.
+                whatif.set_backoff(self.store, "rebalance", m.j_uid[jrow],
+                                   self.REBALANCE_REJECT_BACKOFF)
+                return None
+            victim_rows = np.asarray(
+                [r for n in nodes for r in victims_by_node[n]], np.int64)
+            budgets: Dict[str, int] = {}
+            for r in victim_rows.tolist():
+                g = victim_group[r]
+                budgets[g] = budgets.get(g, 0) + 1
+            return whatif.WhatIfPlan(
+                action="rebalance",
+                gang_job=int(jrow), gang_uid=m.j_uid[jrow],
+                gang_rows=gang_rows, victim_rows=victim_rows,
+                victim_jobs=self.jobr[victim_rows].astype(np.int64),
+                drain_nodes=np.asarray(nodes, np.int64), need=need,
+                frag_before=frag_mean, budgets=budgets,
+                resolve_victims=True,
+            )
 
     def _schedulable_rows(self) -> List[int]:
         m = self.m
@@ -2003,6 +2439,12 @@ class FastCycle:
         self._solve_np = Np
         solve_args = (nodes, tasks, jobs, queues, weights, self.eps,
                       self.scalar_slot, aff)
+        if slim:
+            # Topology node-order bias, the 9th solve argument, appended
+            # only while a fabric constraint is live.
+            bias = self._topo_node_bias(solve_jobs, Np)
+            if bias is not None:
+                solve_args = solve_args + (bias,)
         return (
             solve_args,
             pid,
@@ -2950,22 +3392,6 @@ class FastCycle:
                 f"{unready}/{total} tasks in gang unschedulable: {fit}"
             )
         return msg
-
-
-def _has_fabric(m) -> bool:
-    """True when a live node carries a complete fabric block coordinate
-    (rack and slice labels; the JAX package's ``ops/topology.has_fabric``)."""
-    from .api.spec import FABRIC_LEVELS
-
-    for ni in range(len(m.n_name)):
-        if not m.n_alive[ni]:
-            continue
-        node = m.node_objs[ni]
-        labels = getattr(node, "labels", None) if node is not None else None
-        if (labels and labels.get(FABRIC_LEVELS[0]) is not None
-                and labels.get(FABRIC_LEVELS[1]) is not None):
-            return True
-    return False
 
 
 def run_cycle_fast(store, conf, device=None) -> bool:

@@ -179,6 +179,9 @@ class EvictState:
             if by_action:
                 from .metrics import metrics
 
+                n_reb = by_action.pop("rebalance", 0)
+                if n_reb:
+                    metrics.rebalance_evictions.inc(n_reb)
                 for a, n in by_action.items():
                     metrics.preempt_evictions.inc(n, action=a)
         store.record_events_deferred(events)

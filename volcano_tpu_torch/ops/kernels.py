@@ -20,6 +20,9 @@ wrapper                replaces (JAX package)
 ``warm_shortlist``     ``ops/wave.py:_warm_shortlist`` (:721)
 ``scatter_rows``       ``ops/devsnap.py:_scatter_rows`` (:82)
 ``victim_scores``      ``ops/victim.py:victim_scores`` (:82)
+``frag_scores``        ``ops/rebalance.py:frag_scores`` (:61)
+``gang_block_fit``     ``ops/topology.py:gang_block_fit`` (:179)
+``fabric_frag``        ``ops/topology.py:fabric_frag`` (:240)
 =====================  ===================================================
 
 Each wrapper takes its inputs as tensors.  On CPU tensors it runs the
@@ -70,6 +73,9 @@ LAUNCHES = {
     "warm_shortlist": 0,
     "scatter_rows": 0,
     "victim_scores": 0,
+    "frag_scores": 0,
+    "gang_block_fit": 0,
+    "fabric_frag": 0,
 }
 
 # Where each kernel's source lives and which JAX code it replaces
@@ -83,6 +89,9 @@ KERNEL_SOURCES = {
     "warm_shortlist": "volcano_tpu_torch/csrc/warm_shortlist.cu",
     "scatter_rows": "volcano_tpu_torch/csrc/scatter_rows.cu",
     "victim_scores": "volcano_tpu_torch/csrc/victim_scores.cu",
+    "frag_scores": "volcano_tpu_torch/csrc/frag_scores.cu",
+    "gang_block_fit": "volcano_tpu_torch/csrc/topology.cu",
+    "fabric_frag": "volcano_tpu_torch/csrc/topology.cu",
 }
 REPLACES = {
     "coarse_shortlist": "volcano_tpu/ops/wave.py:547",
@@ -93,6 +102,9 @@ REPLACES = {
     "warm_shortlist": "volcano_tpu/ops/wave.py:721",
     "scatter_rows": "volcano_tpu/ops/devsnap.py:82",
     "victim_scores": "volcano_tpu/ops/victim.py:82",
+    "frag_scores": "volcano_tpu/ops/rebalance.py:61",
+    "gang_block_fit": "volcano_tpu/ops/topology.py:179",
+    "fabric_frag": "volcano_tpu/ops/topology.py:240",
 }
 
 MAX_R = 16  # csrc/common.cuh kMaxR
@@ -128,7 +140,7 @@ _CSRC = Path(__file__).resolve().parent.parent / "csrc"
 _BUILD = _CSRC / "_build"
 _SOURCES = ("coarse_shortlist.cu", "rank_candidates.cu", "walk_accept.cu",
             "apply_commit.cu", "warm_shortlist.cu", "scatter_rows.cu",
-            "victim_scores.cu")
+            "victim_scores.cu", "frag_scores.cu", "topology.cu")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-O3",
               "-fmad=false", "-std=c++17", "-Xcompiler", "-fPIC")
 BUILD_SECONDS: Optional[float] = None
@@ -207,9 +219,9 @@ _SIGS = {
                             _I, _I, _I, _I, _P, _P, _P, _P, _P, _P, _P],
     "vtt_block_shortlist_smem": [_I, _I],
     "vtt_scatter_rows": [_P, _P, _P, _I, _L, _P],
-    "vtt_rank_candidates": [_P, _I, _P, _I, _P, _P, _I, _P, _P, _P, _I, _P,
-                            _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _F, _F,
-                            _F, _F, _I, _P, _P, _P, _P, _P, _P],
+    "vtt_rank_candidates": [_P, _I, _P, _I, _P, _P, _P, _I, _P, _P, _P, _I,
+                            _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _F,
+                            _F, _F, _F, _I, _P, _P, _P, _P, _P, _P],
     "vtt_walk_accept": [_P, _P, _I, _I, _P, _P, _I, _P, _P, _P, _P, _I, _P,
                         _P, _P, _P, _P, _P, _P, _I, _P, _P, _P, _P, _P, _P,
                         _P, _P],
@@ -219,6 +231,10 @@ _SIGS = {
     "vtt_victim_scores": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P, _P,
                           _P, _I, _I, _I, _I, _P, _P, _P, _P, _P, _P, _P, _P,
                           _P],
+    "vtt_frag_scores": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _P, _P, _P, _P],
+    "vtt_gang_block_fit": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
+                           _P, _P, _P, _P],
+    "vtt_fabric_frag": [_P, _P, _P, _I, _I, _P, _P],
 }
 
 
@@ -734,7 +750,7 @@ def scatter_rows(buf: torch.Tensor, rows: torch.Tensor, vals: torch.Tensor,
 
 def _rank_plain(rows, cand, ok_w, score_w, cls_id, p_req, p_init_req, idle,
                 alloc, ntasks, max_tasks, eps, scalar_slot, weights, K,
-                future=None):
+                future=None, bias=None):
     rows_l = rows.long()
     if cand is None:
         nodes = torch.arange(idle.shape[0], device=idle.device)[None, :]
@@ -744,6 +760,8 @@ def _rank_plain(rows, cand, ok_w, score_w, cls_id, p_req, p_init_req, idle,
     cid = cls_id.long()[nodes]
     ok = torch.gather(ok_w[rows_l], 1, cid)
     sscore = torch.gather(score_w[rows_l], 1, cid)
+    if bias is not None:
+        sscore = sscore + bias[nodes]
     idle_c = idle[nodes]  # [M, L, R]
     fit = less_equal(p_init_req[rows_l][:, None, :],
                      future_idle(idle, future)[nodes], eps, scalar_slot)
@@ -760,19 +778,23 @@ def _rank_plain(rows, cand, ok_w, score_w, cls_id, p_req, p_init_req, idle,
 
 def rank_candidates(rows, cand, ok_w, score_w, cls_id, p_req, p_init_req,
                     idle, alloc, ntasks, max_tasks, eps, scalar_slot,
-                    weights, K: int, future=None, plain: bool = False):
+                    weights, K: int, future=None, bias=None,
+                    plain: bool = False):
     """Live top-K of the wave profile rows ``rows`` ([M] int32 into the
     wave's [UM] rows).  ``cand`` is [UM, L] candidate node ids (a profile's
     ascending shortlist) or None for all N nodes.  ``ok_w``/``score_w`` are
     the wave rows of the static [U, C] planes.  With ``future`` the fit
     reads FutureIdle and pod slots count ntasks + pip_ntasks (wave.py:
-    1205-1218, 1314-1322); the score keeps the live idle.  Returns
+    1205-1218, 1314-1322); the score keeps the live idle.  ``bias`` ([N]
+    f32, the fabric topology's node-order bias) joins the static score
+    before the live score does: node_score + (static + bias) (wave.py:1179,
+    :1288); without it nothing is added.  Returns
     ``(ranked [M, K] int32 node ids in rank order, feas_k [M, K] bool,
     p_any [M] bool)``."""
     if not _on_card(plain, idle, p_req, rows):
         return _rank_plain(rows, cand, ok_w, score_w, cls_id, p_req,
                            p_init_req, idle, alloc, ntasks, max_tasks, eps,
-                           scalar_slot, weights, K, future)
+                           scalar_slot, weights, K, future, bias)
     M = rows.shape[0]
     N, R = idle.shape
     L = N if cand is None else cand.shape[1]
@@ -799,16 +821,20 @@ def rank_candidates(rows, cand, ok_w, score_w, cls_id, p_req, p_init_req,
         max_tasks=_req(max_tasks, i32, "max_tasks"),
         eps=_req(eps, f32, "eps"),
         scalar_slot=_req(scalar_slot, u8, "scalar_slot"),
+        bias=None if bias is None else _req(bias, f32, "bias"),
     )
     bres = _req(weights.binpack_res, f32, "binpack_res")
     UM = p_req.shape[0]
     if (ok_w.shape[0] != UM or score_w.shape != ok_w.shape
             or p_init_req.shape != p_req.shape
             or (cand is not None and cand.shape[0] != UM)
-            or cls_id.shape[0] != N or alloc.shape != idle.shape):
+            or cls_id.shape[0] != N or alloc.shape != idle.shape
+            or (bias is not None and bias.shape != (N,))):
         raise ValueError("rank_candidates: inconsistent input shapes")
     fut = _future_args(future, idle, ntasks, "rank_candidates")
-    _capture("rank_candidates", weights=weights, K=K, future=future, **a)
+    # A biased launch is captured apart (chip_smoke.py replays both).
+    _capture("rank_candidates" + ("" if bias is None else ":bias"),
+             weights=weights, K=K, future=future, **a)
     dev = idle.device
     ranked = torch.empty((M, K), dtype=i32, device=dev)
     feas_k = torch.empty((M, K), dtype=u8, device=dev)
@@ -817,7 +843,8 @@ def rank_candidates(rows, cand, ok_w, score_w, cls_id, p_req, p_init_req,
     feas_s = torch.empty((M, L), dtype=u8, device=dev)
     rc = load().vtt_rank_candidates(
         _ptr(a["rows"]), M, _ptr(a["cand"]), L, _ptr(a["ok_w"]),
-        _ptr(a["score_w"]), a["ok_w"].shape[1], _ptr(a["cls_id"]),
+        _ptr(a["score_w"]), _ptr(a["bias"]), a["ok_w"].shape[1],
+        _ptr(a["cls_id"]),
         _ptr(a["p_req"]), _ptr(a["p_init_req"]), R, _ptr(a["idle"]), *fut,
         _ptr(a["alloc"]), _ptr(a["ntasks"]), _ptr(a["max_tasks"]),
         _ptr(a["eps"]), _ptr(a["scalar_slot"]), _ptr(bres),
@@ -1193,3 +1220,203 @@ def victim_scores(v_ok, v_jprio, v_crank, v_tie, v_queue, v_node, v_req,
     _check(rc, "victim_scores")
     LAUNCHES["victim_scores"] += 1
     return eligible, order, evictable, q_share
+
+
+# --------------------------------------------------------- frag_scores
+
+_FIT_INERT = float(2 ** 30)  # a slot the profile does not request
+
+
+def _fit_to_i32(x: torch.Tensor) -> torch.Tensor:
+    """Non-negative f32 fit counts -> int32 as XLA converts them (and
+    ``__float2int_rz``): past INT32_MAX they saturate, where torch's own
+    cast is undefined."""
+    out = x.clamp(max=2147483520.0).to(torch.int32)
+    return torch.where(x >= 2.0 ** 31, torch.full_like(out, 2 ** 31 - 1),
+                       out)
+
+
+def _profile_counts(plane, req, eps):
+    """[N, U] f32: per (node, profile) the min over requested slots of
+    floor((plane + eps) / max(req, 1e-9)), 2^30 for a slot not requested,
+    0 for a profile that requests nothing."""
+    requested = req > eps[None, :]  # [U, R]
+    per = torch.floor((plane[:, None, :] + eps[None, None, :])
+                      / torch.clamp(req, min=1e-9)[None])
+    per = torch.where(requested[None], per, torch.full_like(per, _FIT_INERT))
+    cnt = per.min(dim=-1).values
+    return torch.where(requested.any(dim=-1)[None, :], cnt,
+                       torch.zeros_like(cnt))
+
+
+def _frag_plain(idle, alloc, ready, evictable, prof_req, eps):
+    def fit_of(plane):
+        cnt = _profile_counts(plane, prof_req, eps)
+        return _fit_to_i32(torch.clamp(cnt, min=0.0).max(dim=-1).values)
+
+    fit_now = fit_of(idle)
+    fit_freed = fit_of(idle + evictable)
+    provisioned = alloc > eps[None, :]
+    frac = torch.where(
+        provisioned,
+        torch.clamp(idle / torch.clamp(alloc, min=1e-9), 0.0, 1.0),
+        torch.zeros_like(idle))
+    # Summed left to right from 0 (XLA's CPU order for the short R axis).
+    acc = torch.zeros(idle.shape[0], dtype=torch.float32,
+                      device=idle.device)
+    for s in range(idle.shape[1]):
+        acc = acc + frac[:, s]
+    nprov = torch.clamp(provisioned.sum(dim=-1), min=1).to(torch.float32)
+    has_idle = (idle > eps[None, :]).any(dim=-1)
+    frag = torch.where(ready & has_idle & (fit_now == 0), acc / nprov,
+                       torch.zeros_like(acc))
+    return frag, fit_now, fit_freed
+
+
+def frag_scores(idle, alloc, ready, evictable, prof_req, eps,
+                plain: bool = False):
+    """Fragmentation planes of one starved gang (ops/rebalance.py:61
+    ``frag_scores``): ``idle``/``alloc``/``evictable`` [N, R] f32,
+    ``ready`` [N] bool, ``prof_req`` [U, R] f32 (all-zero rows inert),
+    ``eps`` [R] f32 -> ``(frag [N] f32, fit_now [N] int32, fit_freed [N]
+    int32)``."""
+    if not _on_card(plain, idle, alloc, prof_req):
+        return _frag_plain(idle, alloc, ready, evictable, prof_req, eps)
+    f32 = torch.float32
+    a = dict(idle=_req(idle, f32, "idle"), alloc=_req(alloc, f32, "alloc"),
+             ready=_req(ready, torch.bool, "ready"),
+             evictable=_req(evictable, f32, "evictable"),
+             prof_req=_req(prof_req, f32, "prof_req"),
+             eps=_req(eps, f32, "eps"))
+    N, R = idle.shape
+    U = prof_req.shape[0]
+    if R > MAX_R:
+        raise ValueError(f"{R} resource slots exceed the kernels' {MAX_R}")
+    if (alloc.shape != idle.shape or evictable.shape != idle.shape
+            or ready.shape != (N,) or prof_req.shape != (U, R)
+            or eps.shape != (R,)):
+        raise ValueError("frag_scores: inconsistent input shapes")
+    _capture("frag_scores", **a)
+    dev = idle.device
+    frag = torch.empty(N, dtype=f32, device=dev)
+    fit_now = torch.empty(N, dtype=torch.int32, device=dev)
+    fit_freed = torch.empty(N, dtype=torch.int32, device=dev)
+    rc = load().vtt_frag_scores(
+        _ptr(a["idle"]), _ptr(a["alloc"]), _ptr(a["ready"]),
+        _ptr(a["evictable"]), _ptr(a["prof_req"]), _ptr(a["eps"]), N, U, R,
+        _ptr(frag), _ptr(fit_now), _ptr(fit_freed), _stream())
+    _check(rc, "frag_scores")
+    LAUNCHES["frag_scores"] += 1
+    return frag, fit_now, fit_freed
+
+
+# --------------------------------------------- gang_block_fit, fabric_frag
+
+def _block_fit_plain(idle, ready, ntasks, max_tasks, block_id, prof_req,
+                     prof_cnt, eps, n_blocks):
+    cap = _profile_counts(idle, prof_req, eps)
+    cap = torch.clamp(cap, 0.0, _FIT_INERT)
+    slots_left = torch.where(
+        max_tasks > 0, torch.clamp(max_tasks - ntasks, min=0).to(torch.float32),
+        torch.full_like(idle[:, 0], _FIT_INERT))
+    cap = torch.minimum(cap, slots_left[:, None])
+    cap = torch.where(ready[:, None], cap, torch.zeros_like(cap))
+    cap = cap.to(torch.int32)
+    # Segment sum; blockless rows land in the trash row n_blocks, rows past
+    # it are dropped (XLA's out-of-range scatter).
+    seg = torch.where(block_id >= 0, block_id,
+                      torch.full_like(block_id, n_blocks)).long()
+    keep = seg <= n_blocks
+    cfit = torch.zeros((n_blocks + 1, cap.shape[1]), dtype=torch.int32,
+                       device=idle.device)
+    cfit.index_add_(0, seg[keep], cap[keep])
+    cfit = cfit[:n_blocks]
+    cnt = prof_cnt.to(torch.int32)
+    whole = (cfit >= cnt[None, :]).all(dim=-1)
+    part = torch.minimum(cfit, cnt[None, :]).to(torch.float32)
+    score = torch.zeros(n_blocks, dtype=torch.float32, device=idle.device)
+    for u in range(part.shape[1]):
+        score = score + part[:, u]
+    return cfit, whole, score
+
+
+def gang_block_fit(idle, ready, ntasks, max_tasks, block_id, prof_req,
+                   prof_cnt, eps, n_blocks: int, plain: bool = False):
+    """Whole-gang fit per fabric block (ops/topology.py:179
+    ``gang_block_fit``): ``idle`` [N, R] f32, ``ready`` [N] bool,
+    ``ntasks``/``max_tasks``/``block_id`` [N] int32 (block -1: blockless),
+    ``prof_req`` [U, R] f32, ``prof_cnt`` [U] int32, ``eps`` [R] f32, over
+    ``n_blocks`` block rows -> ``(cfit [n_blocks, U] int32, whole
+    [n_blocks] bool, score [n_blocks] f32)``."""
+    B = int(n_blocks)
+    if not _on_card(plain, idle, prof_req, block_id):
+        return _block_fit_plain(idle, ready, ntasks, max_tasks, block_id,
+                                prof_req, prof_cnt, eps, B)
+    f32, i32 = torch.float32, torch.int32
+    a = dict(idle=_req(idle, f32, "idle"),
+             ready=_req(ready, torch.bool, "ready"),
+             ntasks=_req(ntasks, i32, "ntasks"),
+             max_tasks=_req(max_tasks, i32, "max_tasks"),
+             block_id=_req(block_id, i32, "block_id"),
+             prof_req=_req(prof_req, f32, "prof_req"),
+             prof_cnt=_req(prof_cnt, i32, "prof_cnt"),
+             eps=_req(eps, f32, "eps"))
+    N, R = idle.shape
+    U = prof_req.shape[0]
+    if R > MAX_R:
+        raise ValueError(f"{R} resource slots exceed the kernels' {MAX_R}")
+    if (B < 1 or any(a[k].shape != (N,) for k in (
+            "ready", "ntasks", "max_tasks", "block_id"))
+            or prof_req.shape != (U, R) or prof_cnt.shape != (U,)
+            or eps.shape != (R,)):
+        raise ValueError("gang_block_fit: inconsistent input shapes")
+    _capture("gang_block_fit", n_blocks=B, **a)
+    dev = idle.device
+    cfit = torch.zeros((B + 1, U), dtype=i32, device=dev)
+    whole = torch.empty(B, dtype=torch.bool, device=dev)
+    score = torch.empty(B, dtype=f32, device=dev)
+    rc = load().vtt_gang_block_fit(
+        _ptr(a["idle"]), _ptr(a["ready"]), _ptr(a["ntasks"]),
+        _ptr(a["max_tasks"]), _ptr(a["block_id"]), _ptr(a["prof_req"]),
+        _ptr(a["prof_cnt"]), _ptr(a["eps"]), N, U, R, B, _ptr(cfit),
+        _ptr(whole), _ptr(score), _stream())
+    _check(rc, "gang_block_fit")
+    LAUNCHES["gang_block_fit"] += 1
+    return cfit[:B], whole, score
+
+
+def _fabric_frag_plain(cfit, whole, prof_cnt):
+    cnt = prof_cnt.to(torch.float32)
+    need = torch.zeros((), dtype=torch.float32, device=cnt.device)
+    for u in range(cnt.shape[0]):
+        need = need + cnt[u]
+    need = torch.clamp(need, min=1.0)
+    part = torch.minimum(cfit.to(torch.float32), cnt[None, :])
+    acc = torch.zeros(cfit.shape[0], dtype=torch.float32, device=cnt.device)
+    for u in range(cfit.shape[1]):
+        acc = acc + part[:, u]
+    return torch.where(whole, torch.zeros_like(acc), acc / need)
+
+
+def fabric_frag(cfit, whole, prof_cnt, plain: bool = False):
+    """Stranded-partial-block score (ops/topology.py:240 ``fabric_frag``):
+    ``cfit`` [B, U] int32, ``whole`` [B] bool, ``prof_cnt`` [U] int32 ->
+    ``[B]`` f32, 0 on a whole block, else sum_u min(cfit, cnt) / max(sum
+    cnt, 1)."""
+    if not _on_card(plain, cfit, whole, prof_cnt):
+        return _fabric_frag_plain(cfit, whole, prof_cnt)
+    i32 = torch.int32
+    a = dict(cfit=_req(cfit, i32, "cfit"),
+             whole=_req(whole, torch.bool, "whole"),
+             prof_cnt=_req(prof_cnt, i32, "prof_cnt"))
+    B, U = cfit.shape
+    if whole.shape != (B,) or prof_cnt.shape != (U,):
+        raise ValueError("fabric_frag: inconsistent input shapes")
+    _capture("fabric_frag", **a)
+    out = torch.empty(B, dtype=torch.float32, device=cfit.device)
+    rc = load().vtt_fabric_frag(_ptr(a["cfit"]), _ptr(a["whole"]),
+                                _ptr(a["prof_cnt"]), B, U, _ptr(out),
+                                _stream())
+    _check(rc, "fabric_frag")
+    LAUNCHES["fabric_frag"] += 1
+    return out

@@ -27,11 +27,12 @@ node planes, the device-incremental lane (``devincr``: persistent static
 planes, warm-started shortlists) and releasing / pipelined capacity (the
 JAX ``has_future`` branch: fits read FutureIdle = ((idle + releasing) -
 pipelined) - pip_extra, tasks that fit only the future idle are accepted as
-pipelined and charge ``pip_extra`` / ``pip_ntasks`` / ``q_pip``).  Host
-ports, inter-pod affinity and spread, custom plugin masks and scores, a
-topology node bias, mesh sharding and ``VOLCANO_TPU_TWOPHASE=0`` raise
-``NotImplementedError``: the port never computes a different answer for
-them.
+pipelined and charge ``pip_extra`` / ``pip_ntasks`` / ``q_pip``) and the
+fabric topology's node-order bias (``node_bias``: added to every profile's
+static score in phase 2's rankings, never in phase 1).  Host ports,
+inter-pod affinity and spread, custom plugin masks and scores, mesh
+sharding and ``VOLCANO_TPU_TWOPHASE=0`` raise ``NotImplementedError``: the
+port never computes a different answer for them.
 """
 
 from __future__ import annotations
@@ -579,7 +580,7 @@ def _solve_wave(nodes: SolveNodes, jobs: SolveJobs,
                 prof: SolveProfiles, pid, wave_prof: np.ndarray,
                 cls: Optional[NodeClasses], shortlists, stat_ok, stat_score,
                 host: dict, wave: int, n_waves: int, features: tuple,
-                fb_cap: int = 0, future0=None,
+                fb_cap: int = 0, future0=None, bias=None,
                 plain: bool = False) -> AllocResult:
     """Phase 2 (wave.py:860) for the features this slice supports.
 
@@ -587,7 +588,8 @@ def _solve_wave(nodes: SolveNodes, jobs: SolveJobs,
     (``job``, ``real``, ``pid``, ``queue``); the device tensors carry the
     state.  Every loop condition is one host read.  ``future0``: the
     solve-start releasing-capacity planes (``_future_planes``), None
-    without releasing capacity."""
+    without releasing capacity.  ``bias``: the [N] node-order bias both
+    rankings add to the static score (wave.py:1170-1179), or None."""
     has_overuse = bool(features[4])
     has_future = future0 is not None
     dev = nodes.idle.device
@@ -712,7 +714,7 @@ def _solve_wave(nodes: SolveNodes, jobs: SolveJobs,
                 all_rows, sl_w, ok_w, score_w, cls.class_id, p_req,
                 p_init_req, st.idle, nodes.allocatable, st.ntasks,
                 nodes.max_tasks, eps, scalar_slot, weights, K, future=fut,
-                plain=plain,
+                bias=bias, plain=plain,
             )
             # Shortlist exhaustion -> full-N rescore of the affected
             # profiles only (wave.py:1450-1512).
@@ -729,7 +731,7 @@ def _solve_wave(nodes: SolveNodes, jobs: SolveJobs,
                     rows_x, None, ok_w, score_w, cls.class_id, p_req,
                     p_init_req, st.idle, nodes.allocatable, st.ntasks,
                     nodes.max_tasks, eps, scalar_slot, weights, K,
-                    future=fut, plain=plain,
+                    future=fut, bias=bias, plain=plain,
                 )
                 rx = rows_x.long()
                 ranked[rx] = r_f
@@ -871,6 +873,12 @@ def solve_wave(
     or from host arrays, and any flag read off a device tensor counts in
     ``LAST_TWOPHASE["host_reads"]``.
 
+    ``node_bias``: the [N] f32 fabric-topology node-order bias
+    (``ops/topology.contig_bias``), added to every profile's static score
+    in the live rankings (shortlist and full-N fallback) and nowhere in
+    phase 1, as the JAX solve folds it (wave.py:1170-1179); None adds
+    nothing.
+
     ``devincr``: an ``ops.devincr.DeviceIncremental`` primed by
     ``begin_solve`` -- its persistent static planes and warm shortlists
     replace the direct coarse pass, with identical results.
@@ -882,9 +890,6 @@ def solve_wave(
     The result's tensors live on ``device``.
     """
     dev = resolve_device(device)
-    if node_bias is not None:
-        raise _unsupported("a topology node bias (node_bias)",
-                           "queue 2, topology")
     if mesh_shards and int(mesh_shards) > 1:
         raise _unsupported("mesh sharding (mesh_shards > 1)",
                            "queue 2, multi-GPU")
@@ -999,6 +1004,12 @@ def solve_wave(
     slot_t = to_tensor(np.asarray(_np(scalar_slot), bool), dev)
     jobs_t = tree_to(jobs, dev)
     queues_t = tree_to(queues, dev)
+    bias_t = None
+    if node_bias is not None:
+        bias_t = to_tensor(np.asarray(_np(node_bias), np.float32), dev)
+        if tuple(bias_t.shape) != (N_in,):
+            raise ValueError(f"node_bias is {tuple(bias_t.shape)}, "
+                             f"not [{N_in}]")
     pid_t = to_tensor(pid.astype(np.int32), dev)
     host = {
         "job": tasks.job.astype(np.int64),
@@ -1035,7 +1046,7 @@ def solve_wave(
         nodes_t, jobs_t, queues_t, weights_t, eps_t, slot_t, prof_t,
         pid_t, wave_prof, cls_t, sl, stat_ok, stat_score, host,
         wave=wave, n_waves=n_waves, features=features,
-        fb_cap=_fallback_cap(), future0=future0, plain=plain,
+        fb_cap=_fallback_cap(), future0=future0, bias=bias_t, plain=plain,
     )
     _sync(dev)
     t_fine = _time.perf_counter() - t0

@@ -3,8 +3,9 @@
 The counterpart of the JAX package's ``synth.py``: ``synthetic_cluster``
 draws the same cluster from the same seed (identical
 ``np.random.default_rng(seed)`` draws), ``preempt_cluster`` builds the
-oversubscribed-queue cluster of BASELINE config 4, and
-``solve_args_from_store``
+oversubscribed-queue cluster of BASELINE config 4, ``fabric_cluster`` a
+fragmented fabric of labeled blocks (``fabric_labels``) with a pending
+topology-constrained gang, and ``solve_args_from_store``
 encodes a store snapshot into the positional args of ``ops.wave.solve_wave``
 as tensors on the chosen device.
 """
@@ -16,6 +17,9 @@ from typing import Optional, Sequence, Tuple
 import numpy as np
 
 from .api import (
+    FABRIC_HOST,
+    FABRIC_RACK,
+    FABRIC_SLICE,
     GROUP_NAME_ANNOTATION,
     Node,
     Pod,
@@ -25,6 +29,28 @@ from .api import (
 )
 from .arrays import encode_cluster
 from .cache import ClusterStore
+
+
+def fabric_labels(
+    i: int,
+    *,
+    nodes_per_host: int = 2,
+    hosts_per_slice: int = 8,
+    slices_per_rack: int = 4,
+) -> dict:
+    """Deterministic fabric-coordinate labels for node index ``i``: the
+    flat index mapped onto a rack / slice / host hierarchy (nodes_per_host
+    per host board, hosts_per_slice hosts per slice, slices_per_rack slices
+    per rack).  Slice and host ids are global, so every (rack, slice) pair
+    the mirror interns is one physical slice."""
+    host = i // max(nodes_per_host, 1)
+    slc = host // max(hosts_per_slice, 1)
+    rack = slc // max(slices_per_rack, 1)
+    return {
+        FABRIC_RACK: f"rack-{rack}",
+        FABRIC_SLICE: f"slice-{slc}",
+        FABRIC_HOST: f"host-{host}",
+    }
 
 
 def synthetic_cluster(
@@ -118,6 +144,90 @@ def synthetic_cluster(
             )
             pods_made += 1
         g += 1
+    return store
+
+
+def fabric_cluster(
+    racks: int = 2,
+    slices_per_rack: int = 2,
+    nodes_per_slice: int = 16,
+    hosts_per_slice: int = 8,
+    node_cpu: str = "4",
+    node_mem: str = "16Gi",
+    filler_cpu: str = "3",
+    filler_mem: str = "1Gi",
+    fillers_per_slice: int = 2,
+    gang_tasks: int = 32,
+    gang_cpu: str = "2",
+    gang_mem: str = "1Gi",
+    topology: str = "require-contiguous",
+    binder=None,
+) -> ClusterStore:
+    """A fragmented fabric no single block can host the gang on.
+
+    ``racks x slices_per_rack`` slices of ``nodes_per_slice`` nodes, labeled
+    by ``fabric_labels``.  The first ``fillers_per_slice`` nodes of every
+    slice run a single-member filler (its own PodGroup, so disruption
+    budgets bite per filler) sized to strand its node for the gang's
+    profile; the pending gang carries the ``topology`` constraint.
+
+    At the defaults each slice has 14 free 4-cpu nodes, 28 two-cpu task
+    slots < 32, so a require-contiguous 32-task gang fits no block while
+    the free capacity (4 x 28 = 112) would place it scattered; draining
+    one slice's two fillers frees the whole 16-node block, and the fillers
+    re-place on any other slice.
+    """
+    from .api import PodPhase, PriorityClass
+
+    store = ClusterStore(binder=binder)
+    store.add_priority_class(PriorityClass(name="fabric-high", value=100))
+    nodes_per_host = max(nodes_per_slice // max(hosts_per_slice, 1), 1)
+    n_nodes = racks * slices_per_rack * nodes_per_slice
+    for i in range(n_nodes):
+        store.add_node(
+            Node(
+                name=f"fab-{i:04d}",
+                allocatable={"cpu": node_cpu, "memory": node_mem,
+                             "pods": 110},
+                labels=fabric_labels(
+                    i,
+                    nodes_per_host=nodes_per_host,
+                    hosts_per_slice=hosts_per_slice,
+                    slices_per_rack=slices_per_rack,
+                ),
+            )
+        )
+    # Running fillers on the first fillers_per_slice nodes of every slice,
+    # pre-bound so the fragmentation is deterministic.
+    f = 0
+    for s in range(racks * slices_per_rack):
+        for k in range(fillers_per_slice):
+            ni = s * nodes_per_slice + k
+            store.add_pod_group(PodGroup(name=f"filler-{f:04d}",
+                                         min_member=1))
+            store.add_pod(
+                Pod(
+                    name=f"filler-{f:04d}-0",
+                    annotations={GROUP_NAME_ANNOTATION: f"filler-{f:04d}"},
+                    containers=[{"cpu": filler_cpu, "memory": filler_mem}],
+                    phase=PodPhase.Running,
+                    node_name=f"fab-{ni:04d}",
+                )
+            )
+            f += 1
+    pg = PodGroup(name="fabgang", min_member=gang_tasks,
+                  topology=topology, priority_class="fabric-high")
+    store.add_pod_group(pg)
+    for k in range(gang_tasks):
+        store.add_pod(
+            Pod(
+                name=f"fabgang-{k:03d}",
+                annotations={GROUP_NAME_ANNOTATION: pg.name},
+                containers=[{"cpu": gang_cpu, "memory": gang_mem}],
+                priority_class="fabric-high",
+                priority=100,
+            )
+        )
     return store
 
 

@@ -15,6 +15,10 @@ mutates nothing until commit, so rejecting one is free.
 - ``reclaim`` -- a gang in an under-deserved queue drains victims from
   OTHER queues that are reclaimable and over their deserved share, never
   below deserved.
+- ``rebalance`` -- drain fragmented nodes (``FastCycle._plan_rebalance``
+  picks them with the ``frag_scores`` kernel); the victims re-enter the
+  what-if solve beside the gang, and the plan commits only when every
+  victim re-places too.
 
 The what-if solve runs on the cycle's device with no device-incremental
 state (it neither builds nor reuses static planes or warm shortlists and
@@ -66,9 +70,10 @@ def evict_cap() -> int:
 class WhatIfPlan(NamedTuple):
     """One hypothetical eviction wave.  The preempt and reclaim lanes
     solve the gang alone (``resolve_victims`` False): victims restore as
-    Pending and wait."""
+    Pending and wait.  Rebalance re-solves its victims beside the gang
+    (``resolve_victims`` True)."""
 
-    action: str                  # "preempt" | "reclaim"
+    action: str                  # "preempt" | "reclaim" | "rebalance"
     gang_job: int                # mirror job row of the starved gang
     gang_uid: str                # its PodGroup uid (events / ledger)
     gang_rows: np.ndarray        # [G] pending mirror rows entering the solve
@@ -270,7 +275,7 @@ def commit_plan(cyc, plan: WhatIfPlan, victim_rows: np.ndarray,
             return
     st = cyc._evict_machinery()
     events = []
-    reason = plan.action.capitalize()
+    reason = plan.action.capitalize()  # Preempt, Reclaim, Rebalance
     for row, tgt in zip(victim_rows.tolist(), victim_nodes.tolist()):
         st.evict(int(row))
         st.evicted_rows.append(int(row))
@@ -302,14 +307,22 @@ def commit_plan(cyc, plan: WhatIfPlan, victim_rows: np.ndarray,
 def count_plan(cyc, action: str, outcome: str, **info) -> None:
     """Fold a plan outcome into the counter series and the cycle's
     flight-recorder accounting; an earlier outcome of the same cycle is
-    kept under ``prior``."""
+    kept under ``prior``.  Rebalance keeps its own
+    ``volcano_rebalance_plans_total`` series and flight-record slot beside
+    the engine-wide ones."""
     metrics.whatif_plans.inc(action=action, outcome=outcome)
-    d = {"action": action, "outcome": outcome}
+    if action == "rebalance":
+        metrics.rebalance_plans.inc(outcome=outcome)
+        key = "rebalance"
+        d = {"outcome": outcome}
+    else:
+        key = "whatif"
+        d = {"action": action, "outcome": outcome}
     d.update(info)
-    existing = cyc.stats.get("whatif")
+    existing = cyc.stats.get(key)
     if existing is not None:
         d["prior"] = existing.pop("prior", []) + [existing]
-    cyc.stats["whatif"] = d
+    cyc.stats[key] = d
 
 
 # --------------------------------------------------- streaks / backoffs
@@ -337,6 +350,11 @@ def update_streaks(store, action: str, uids) -> Tuple[dict, dict]:
 
 
 def set_backoff(store, action: str, uid: str, passes: int) -> None:
+    if action == "rebalance":
+        # The rebalance lane keeps its own per-uid map (cleared by its own
+        # streak bookkeeping, FastCycle._find_starved_gang).
+        store._rebalance_backoff[uid] = passes
+        return
     store._whatif_backoff[(action, uid)] = passes
 
 
