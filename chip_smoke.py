@@ -6,7 +6,7 @@ Run from the repository root on a machine with one CUDA card:
 
     python3 chip_smoke.py
 
-It builds the eleven CUDA kernels of ``volcano_tpu_torch/csrc`` (nine
+It builds the fifteen CUDA kernels of ``volcano_tpu_torch/csrc`` (twelve
 sources, one nvcc each, started together) and then runs these phases, each
 of which raises (and the script exits non-zero) when a check fails:
 
@@ -74,7 +74,33 @@ of which raises (and the script exits non-zero) when a check fails:
    zeroed before each phase and read after, each phase's kernels required;
 15. ``frag_scores``, ``gang_block_fit``, ``fabric_frag`` and the biased
    ``rank_candidates`` on their captured inputs against their plain
-   versions, timed as in 4.
+   versions, timed as in 4;
+16. affinity: BASELINE config 5 (bench.py ``config_5``: gangs of 8, 16
+   zones, 5% required zone affinity, 5% required hostname anti-affinity,
+   10% zone spread) at 10,000 nodes x 100,000 pods under CONF_BASE through
+   ``run_once()``: one cold cycle (the count and profile tables shipped
+   sparse and scattered on the card), 5 steady cycles re-pending the pods
+   on nodes 0-63 (nonzero resident counts, encode-cache hits), one traced
+   steady cycle (device idle share); launch counts zeroed before and read
+   after, ``scatter_cnt0``, ``scatter_profile_tables``, ``aff_live`` and
+   ``aff_filter`` required; after every cycle every pod bound, no node
+   over capacity, gangs whole, every zone-affine gang in one zone, every
+   anti-affine gang on distinct nodes, no host port twice on a node, no
+   device plane read back;
+17. affinity:small: the same mix at 1,000 x 10,000 with host ports on 10%
+   of the gangs: 8 steady cycles (a warm shortlist on nonzero counts
+   required), and on a second store a release (the pods of nodes 0-63
+   terminating, 16 gangs selecting those nodes: pipelined tasks and
+   pipelined ports); each run on the card against the CPU (plain
+   versions: binds, PodGroup phases, mirror states and fallback counters
+   identical) and with the lanes on against off;
+18. affinity:chunks: the 1,000 x 10,000 store with
+   ``VOLCANO_TPU_AFF_BUDGET_MB=2``: the cold cycle solves in at least 4
+   job-aligned chunks; card against CPU;
+19. the four affinity kernels, and the extended ``coarse_shortlist``,
+   ``rank_candidates``, ``walk_accept``, ``apply_commit`` and
+   ``warm_shortlist`` on affinity inputs, against their plain versions,
+   timed as in 4 (``scatter_cnt0`` beside ``index_put_``).
 
 Output: the card's name and power limit, versions, build time, per-phase
 lines with the cycles' lane times, one ``{"kernels": [...]}`` line and,
@@ -265,16 +291,28 @@ def _nbytes(*tensors) -> int:
 def _clone(cap: dict) -> dict:
     import torch
 
-    from volcano_tpu_torch.ops.kernels import Future
-
     def clone(v):
         if isinstance(v, torch.Tensor):
             return v.clone()
-        if isinstance(v, Future):
-            return Future(*[None if t is None else t.clone() for t in v])
+        if isinstance(v, tuple):
+            return type(v)(*[clone(t) for t in v]) if hasattr(
+                v, "_fields") else tuple(clone(t) for t in v)
         return v
 
     return {k: clone(v) for k, v in cap.items()}
+
+
+def _tensors(*vals) -> list:
+    """The tensors of ``vals``, tuples (NamedTuples too) flattened."""
+    import torch
+
+    out = []
+    for v in vals:
+        if isinstance(v, torch.Tensor):
+            out.append(v)
+        elif isinstance(v, tuple):
+            out.extend(_tensors(*v))
+    return out
 
 
 def _future_bytes(cap: dict, rows: int) -> int:
@@ -295,7 +333,7 @@ def _kernel_fn(name, c, plain):
     timed region."""
     import torch
 
-    from volcano_tpu_torch.ops import kernels
+    from volcano_tpu_torch.ops import affkernels, kernels
     from volcano_tpu_torch.ops.nodeclass import NodeClasses
     from volcano_tpu_torch.ops.wave import SolveProfiles
 
@@ -316,7 +354,8 @@ def _kernel_fn(name, c, plain):
             prof, cls, c["idle"], c["alloc"], c["ntasks"], c["max_tasks"],
             c["eps"], c["scalar_slot"], c["weights"], c["S"],
             c["has_taints"], stat=stat, n_blocks=c["n_blocks"],
-            future=c.get("future"), plain=plain))
+            future=c.get("future"), ports=c.get("ports"), aff=c.get("aff"),
+            plain=plain))
     if name == "static_planes":
         z = torch.zeros(1, dtype=torch.float32, device=c["sel_bits"].device)
         prof = SolveProfiles(
@@ -339,7 +378,8 @@ def _kernel_fn(name, c, plain):
             prof, c["cls_id"], c["stat_ok"], c["stat_score"], c["idle"],
             c["alloc"], c["ntasks"], c["max_tasks"], c["eps"],
             c["scalar_slot"], c["weights"], c["db"], c["cand_s"],
-            c["cand_i"], c["S"], future=c.get("future"), plain=plain))
+            c["cand_i"], c["S"], future=c.get("future"),
+            ports=c.get("ports"), aff=c.get("aff"), plain=plain))
     if name == "scatter_rows":
         def scatter():
             kernels.scatter_rows(c["buf"], c["rows"], c["vals"],
@@ -351,13 +391,42 @@ def _kernel_fn(name, c, plain):
             c["rows"], c["cand"], c["ok_w"], c["score_w"], c["cls_id"],
             c["p_req"], c["p_init_req"], c["idle"], c["alloc"], c["ntasks"],
             c["max_tasks"], c["eps"], c["scalar_slot"], c["weights"], c["K"],
-            future=c.get("future"), bias=c.get("bias"), plain=plain))
+            future=c.get("future"), bias=c.get("bias"), ports=c.get("ports"),
+            aff=c.get("aff"), plain=plain))
     if name == "walk_accept":
-        return lambda: tuple(x for x in kernels.walk_accept(
-            c["ranked"], c["feas_k"], c["p_req"], c["p_init_req"],
-            c["pid_l"], c["cand_s"], c["any_feas"], c["grp"], c["idle"],
-            c["ntasks"], c["max_tasks"], c["eps"], c["scalar_slot"],
-            future=c.get("future"), plain=plain) if x is not None)
+        live = torch.empty(c["pid_l"].shape, dtype=torch.bool,
+                           device=c["pid_l"].device)
+
+        def walk():
+            out = kernels.walk_accept(
+                c["ranked"], c["feas_k"], c["p_req"], c["p_init_req"],
+                c["pid_l"], c["cand_s"], c["any_feas"], c["grp"],
+                c["idle"], c["ntasks"], c["max_tasks"], c["eps"],
+                c["scalar_slot"], future=c.get("future"),
+                ports=c.get("ports"), self_anti=c.get("self_anti"),
+                live_out=live, plain=plain)
+            return tuple(x for x in out if x is not None) + (live,)
+        return walk
+    if name == "scatter_cnt0":
+        return lambda: (affkernels.scatter_cnt0(
+            c["rows"], c["cols"], c["vals"], c["e"], c["d"], plain=plain),)
+    if name == "scatter_profile_tables":
+        return lambda: tuple(affkernels.scatter_profile_tables(
+            c["rows"], c["cols"], c["flags"], c["soft"], c["u"], c["e"],
+            plain=plain))
+    if name == "aff_live":
+        return lambda: tuple(affkernels.aff_live(
+            c["rows"], c["cand"], c["terms"], c["at"], plain=plain))
+    if name == "aff_filter":
+        gm = torch.full(tuple(c["at"].cnt_a.shape), c["W"],
+                        dtype=torch.int32, device=c["acc"].device)
+
+        def filt():
+            affkernels.aff_filter(c["choice"], c["live"], c["pid_l"],
+                                  c["at"], c["acc"], c["pipe"], gm=gm,
+                                  plain=plain)
+            return tuple(x for x in (c["acc"], c["pipe"]) if x is not None)
+        return filt
     if name == "apply_commit":
         dev = c["idle"].device
 
@@ -379,10 +448,15 @@ def _kernel_fn(name, c, plain):
                 idle_sign=c["idle_sign"], jw=c.get("jw"),
                 ntasks=c.get("ntasks"), alloc_l=c.get("alloc_l"),
                 assigned=c["assigned"], scratch=scratch,
-                pipe=c.get("pipe"), pip=pip, plain=plain)
+                pipe=c.get("pipe"), pip=pip, ports=c.get("ports"),
+                counts=c.get("counts"), plain=plain)
+            extra = _tensors(
+                *[x for x in (c.get("ports"), c.get("counts")) if x])
             return tuple(c[k] for k in (
                 "idle", "q_alloc", "ntasks", "alloc_l", "assigned",
-                "pip_extra", "pip_ntasks", "q_pip", "pipelined") if k in c)
+                "pip_extra", "pip_ntasks", "q_pip", "pipelined")
+                if k in c) + tuple(
+                t for t in extra if t.dtype == torch.int32 and t.dim() == 2)
         return call
     if name == "victim_scores":
         return lambda: tuple(kernels.victim_scores(
@@ -427,7 +501,8 @@ def _work(name, cap, outs):
         ins = [v for v in cap.values() if isinstance(v, torch.Tensor)]
         U, R = cap["req"].shape
         N = cap["idle"].shape[0]
-        nbytes = _nbytes(*ins) + out_bytes + _future_bytes(cap, N)
+        nbytes = (_nbytes(*ins) + out_bytes + _future_bytes(cap, N)
+                   + _nbytes(*_tensors(cap.get("ports"), cap.get("aff"))))
         C = cap["C"]
         ops = U * N * (25 + 12 * R)
         if "sel_bits" in cap:
@@ -456,7 +531,11 @@ def _work(name, cap, outs):
                   + _nbytes(cap["req"], cap["init_req"], cap["stat_ok"],
                             cap["stat_score"], cap["db"])
                   + (B - ndb) * U * klb * 8 + out_bytes
-                  + _future_bytes(cap, rows))
+                  + _future_bytes(cap, rows)
+                  + _nbytes(*_tensors(cap.get("aff"))))
+        if cap.get("ports") is not None:
+            pw = cap["ports"].prof.shape[1]
+            nbytes += U * pw * 4 + rows * pw * 4
         ops = U * rows * (25 + 12 * R) + U * B * klb
     elif name == "scatter_rows":
         nbytes = _nbytes(cap["rows"]) + 2 * _nbytes(cap["vals"])
@@ -477,7 +556,12 @@ def _work(name, cap, outs):
                                            else 0))
         prof_b = M * (2 * R * 4 + C * 5 + 4)
         nbytes = (cand_b + node_b + prof_b + R * 9 + out_bytes
-                  + _future_bytes(cap, D))
+                  + _future_bytes(cap, D)
+                  + _nbytes(*_tensors(cap.get("aff"))))
+        if cap.get("ports") is not None:
+            pt = cap["ports"]
+            pw = pt.prof.shape[1]
+            nbytes += M * pw * 4 + D * pw * 4 * (1 + (pt.pip is not None))
         ops = M * L * (25 + 12 * R)
     elif name == "walk_accept":
         W = cap["pid_l"].shape[0]
@@ -487,7 +571,12 @@ def _work(name, cap, outs):
         # chosen nodes are among them.
         D = _distinct(cap["ranked"])
         nbytes = (UM * K * 5 + D * (R * 4 + 8) + UM * (2 * R * 4 + UM)
-                  + W * 6 + R * 5 + out_bytes + _future_bytes(cap, D))
+                  + W * 6 + R * 5 + out_bytes + _future_bytes(cap, D)
+                  + _nbytes(*_tensors(cap.get("self_anti"))))
+        if cap.get("ports") is not None:
+            pt = cap["ports"]
+            pw = pt.prof.shape[1]
+            nbytes += UM * pw * 4 + D * pw * 4 * (1 + (pt.pip is not None))
         lw = max(1, math.ceil(math.log2(W)))
         ops = (UM * K * (2 * R + 4)  # per-candidate capacity and mask
                + UM * K  # its running sum along the ranking
@@ -496,6 +585,49 @@ def _work(name, cap, outs):
                + W * lw  # sort by (choice, task)
                + W * (R + 1)  # segmented same-node prefix
                + W * (3 * R + 2))  # idle fit and pod slots
+    elif name in ("scatter_cnt0", "scatter_profile_tables"):
+        # The entries read once, the dense tables written once; one add
+        # (four for the flag planes and the soft table) per entry.
+        k = cap["rows"].numel()
+        ins = [v for v in cap.values() if isinstance(v, torch.Tensor)]
+        nbytes = _nbytes(*ins) + out_bytes
+        ops = k * (1 if name == "scatter_cnt0" else 4)
+    elif name == "aff_live":
+        # The listed terms' count rows (the totals need whole rows), their
+        # keys, the listed table entries, the candidates' domain rows, the
+        # row / candidate / term lists, and the two planes written.
+        at = cap["at"]
+        rows = cap["rows"].long()
+        M = rows.numel()
+        lists = cap["terms"].long()
+        valid = lists >= 0
+        used = torch.unique(lists[valid]).numel()
+        D = at.cnt_a.shape[1]
+        cand = cap["cand"]
+        N, K = at.node_dom.shape
+        if cand is None:
+            nodes = N
+        elif cand.dim() == 1:
+            nodes = _distinct(cand)
+        else:
+            nodes = _distinct(cand[rows])
+        entries = int(valid.sum()) * (1 if lists.shape[0] == M else M)
+        nbytes = (used * D * 4 * (1 + (at.cnt_p is not None)) + used * 4
+                  + entries * 7 + nodes * K * 4
+                  + _nbytes(cap["rows"], cand, cap["terms"]) + out_bytes)
+        L = outs[0].shape[1]
+        ops = entries * L * 6 + used * D
+    elif name == "aff_filter":
+        at = cap["at"]
+        E, D = at.cnt_a.shape
+        W = cap["W"]
+        UM = at.t_req_aff.shape[0]
+        K = at.node_dom.shape[1]
+        nbytes = (E * D * 4 * (1 + (at.cnt_p is not None)) + E * 4
+                  + UM * E * 3 + _distinct(cap["choice"]) * K * 4
+                  + _nbytes(cap["choice"], cap["live"], cap["pid_l"])
+                  + 2 * out_bytes)
+        ops = E * D + W * E * 8
     elif name == "victim_scores":
         # Every input read once, every output written once; the float work
         # is the queue shares' divisions and the evictable sums.
@@ -541,6 +673,16 @@ def _work(name, cap, outs):
         nbytes = _nbytes(cap["node"], cap["mask"], cap["row_idx"],
                          cap["qidx"]) + touched * R * 4 * 4 + T * 4 \
             + nbytes_pipe
+        if cap.get("ports") is not None:
+            # Each touched task's port words read, its node's written.
+            nbytes += touched * cap["ports"].prof.shape[1] * 4 * 3
+        if cap.get("counts") is not None:
+            # Its profile's match row and domain row read, one count cell
+            # read and written per match.
+            cw = cap["counts"]
+            E = cw.cnt_a.shape[0]
+            nbytes += touched * (E + cw.node_dom.shape[1] * 4 + E * 8)
+            ops += touched * E
     return nbytes, ops
 
 
@@ -578,6 +720,13 @@ def _library_fn(name, c):
     if name == "scatter_rows":
         rows = c["rows"].long()
         return lambda: c["buf"].index_copy_(0, rows, c["vals"])
+    if name == "scatter_cnt0":
+        import torch
+
+        idx = (c["rows"].long(), c["cols"].long())
+        out = torch.zeros((c["e"], c["d"]), dtype=torch.int32,
+                          device=c["vals"].device)
+        return lambda: out.index_put_(idx, c["vals"], accumulate=True)
     return None
 
 
@@ -662,6 +811,11 @@ KERNEL_FUNCS = {
     "frag_scores": ("frag_scores_kernel",),
     "gang_block_fit": ("node_cap_kernel", "block_fit_kernel"),
     "fabric_frag": ("fabric_frag_kernel",),
+    "scatter_cnt0": ("scatter_cnt0_kernel",),
+    "scatter_profile_tables": ("scatter_flags_kernel",
+                               "flags_to_bool_kernel"),
+    "aff_live": ("aff_live_kernel", "count_totals_kernel"),
+    "aff_filter": ("aff_filter_kernel",),
 }
 
 
@@ -1062,19 +1216,28 @@ ST_RELEASING = 64  # TaskStatus.Releasing
 
 
 def evict_invariants(store, n_pods: int) -> dict:
-    """No node over its allocatable or pod slots, Releasing pods still
-    charged (exact: whole-CPU and whole-GiB requests); gangs whole (a job's
-    allocated pods are 0 or at least min_available); the pod count
-    unchanged: every deleted victim came back as one restored pod."""
+    """The checks of ``held_invariants``; the pod count unchanged: every
+    deleted victim came back as one restored pod."""
+    m = store.mirror
+    alive = m.p_alive[:m.n_pods]
+    if len(store.pods) != n_pods or int(alive.sum()) != n_pods:
+        raise AssertionError(f"{len(store.pods)} pods, {n_pods} expected: "
+                             f"a victim was lost or doubled")
+    return held_invariants(store)[0]
+
+
+def held_invariants(store, split=()):
+    """On the pods that hold capacity (allocated, bound, running and
+    Releasing): no node over its allocatable or pod slots (exact: whole-CPU
+    and whole-GiB requests); gangs whole (a job's allocated pods are 0 or
+    at least min_available), except the job rows ``split``.  Returns
+    (counts, the held rows)."""
     import numpy as np
 
     m = store.mirror
     Pn, Nn = m.n_pods, m.n_nodes
     alive = m.p_alive[:Pn]
     st = m.p_status[:Pn]
-    if len(store.pods) != n_pods or int(alive.sum()) != n_pods:
-        raise AssertionError(f"{len(store.pods)} pods, {n_pods} expected: "
-                             f"a victim was lost or doubled")
     charged = alive & (np.isin(st, ALLOCATED) | (st == ST_RELEASING))
     rows = np.flatnonzero(charged & (m.p_node[:Pn] >= 0))
     R = 2 + len(m.scalar_slots)
@@ -1094,10 +1257,12 @@ def evict_invariants(store, n_pods: int) -> dict:
     arows = np.flatnonzero(alive & np.isin(st, ALLOCATED)
                            & (m.p_job[:Pn] >= 0))
     per_job = np.bincount(m.p_job[arows], minlength=Jn)
-    if ((per_job > 0) & (per_job < m.j_minav[:Jn])).any():
+    partial = (per_job > 0) & (per_job < m.j_minav[:Jn])
+    partial[list(split)] = False
+    if partial.any():
         raise AssertionError("a gang is bound below min_available")
     return {"allocated": int(len(arows)),
-            "releasing": int((alive & (st == ST_RELEASING)).sum())}
+            "releasing": int((alive & (st == ST_RELEASING)).sum())}, rows
 
 
 def run_evict_phase(label, store, conf, grace, cycles, until=None,
@@ -1555,6 +1720,388 @@ def rebalance_phases(workers=5000, racks=16, slices_per_rack=8,
                             ["rank_candidates:bias"])[0]
     return rows, bias_row
 
+# ------------------------------------------- inter-pod affinity (config 5)
+
+# bench.py CONF_BASE: BASELINE config 5's conf.
+CONF_BASE = """
+actions: "enqueue, allocate, backfill"
+tiers:
+- plugins:
+  - name: priority
+  - name: gang
+- plugins:
+  - name: drf
+  - name: predicates
+  - name: proportion
+  - name: nodeorder
+  - name: binpack
+"""
+# The kernels the config-5 cycle must launch.
+AFF_KERNELS = ("coarse_shortlist", "static_planes", "rank_candidates",
+               "walk_accept", "apply_commit", "scatter_cnt0",
+               "scatter_profile_tables", "aff_live", "aff_filter")
+# Captured launches replayed against their plain versions: the four new
+# kernels and the extended ones on affinity inputs.
+AFF_REPLAY = ("scatter_cnt0", "scatter_profile_tables", "aff_live",
+              "aff_filter", "coarse_shortlist:aff", "rank_candidates:aff",
+              "walk_accept:aff", "apply_commit:aff", "warm_shortlist:aff")
+HOSTNAME = "kubernetes.io/hostname"
+
+
+def config5_cluster(n_nodes, n_pods, ports=0.0, seed=0):
+    """bench.py config_5's store (synthetic_cluster with gangs of 8, 16
+    zones, 5% required zone affinity, 5% required hostname anti-affinity,
+    10% zone spread), the uid counters reset; ``ports`` gives that share
+    of gangs host ports."""
+    return _fresh_cluster(n_nodes=n_nodes, n_pods=n_pods, gang_size=8,
+                          zones=16, affinity_fraction=0.05,
+                          anti_affinity_fraction=0.05, spread_fraction=0.1,
+                          host_port_fraction=ports, seed=seed)
+
+
+def aff_invariants(store, split=()) -> dict:
+    """``held_invariants`` (``split``: the job rows whose members a feed
+    unbound or deleted -- their re-placement competes with other pending
+    gangs, as it does in the JAX package); every bound
+    required-zone-affinity gang in one zone; every bound hostname
+    anti-affinity gang on distinct nodes; no node with two held pods
+    asking for one host port."""
+    import numpy as np
+
+    from volcano_tpu_torch.api import GROUP_NAME_ANNOTATION
+
+    m = store.mirror
+    st = m.p_status[:m.n_pods]
+    counts, rows = held_invariants(store, split)
+    zone_gangs = anti_gangs = 0
+    by_gang = {}
+    port_use = set()
+    for r in rows.tolist():
+        pod = store.pods.get(m.p_uid[r])
+        if pod is None:
+            continue
+        node = m.p_node_name[r]
+        for port in pod.host_ports:
+            if (node, port) in port_use:
+                raise AssertionError(f"host port {port} twice on {node}")
+            port_use.add((node, port))
+        if np.isin(st[r], ALLOCATED):
+            by_gang.setdefault(pod.annotations.get(
+                GROUP_NAME_ANNOTATION, ""), []).append((pod, node))
+    for members in by_gang.values():
+        pod = members[0][0]
+        nodes = [n for _p, n in members]
+        if any(t.topology_key == "zone" for t in pod.affinity):
+            zone_gangs += 1
+            zs = {m.node_objs[m.n_row[n]].labels.get("zone") for n in nodes}
+            if len(zs) != 1:
+                raise AssertionError(f"zone-affine gang across zones {zs}")
+        if any(t.topology_key == HOSTNAME for t in pod.anti_affinity):
+            anti_gangs += 1
+            if len(set(nodes)) != len(nodes):
+                raise AssertionError("anti-affine gang shares a node")
+    return {**counts, "zone_gangs": zone_gangs, "anti_gangs": anti_gangs,
+            "ports_held": len(port_use)}
+
+
+def run_aff_cycles(label, store, steady=5, trace=False, device=None,
+                   release=None, repend=range(64), all_bound=False):
+    """``Scheduler(store).run_once()`` under CONF_BASE: one cold cycle,
+    ``steady`` cycles re-pending the pods on the nodes ``repend``,
+    optionally one traced steady cycle; ``release(store)`` (when given)
+    runs after the steady cycles, and three more cycles follow, each
+    followed by a kubelet tick (grace 1: the Releasing pods go after the
+    second).  The feed leaves the re-pended pods' records as they were
+    (``FastCycle._unbind_rows``), so a release, which edits pod records,
+    runs on a store without steady cycles.  After every cycle:
+    ``aff_invariants``, with ``all_bound`` also ``cycle_invariants``
+    (every pod bound, every PodGroup Running), and zero host reads per
+    solve.  Returns (stats, per-cycle records)."""
+    import numpy as np
+    import torch
+
+    from volcano_tpu_torch.ops import wave as wave_mod
+    from volcano_tpu_torch.scheduler import Scheduler
+    from volcano_tpu_torch.sim import ClusterSimulator
+
+    sched = Scheduler(store, conf_str=CONF_BASE, device=device)
+    sim = None
+    solve_wave = wave_mod.solve_wave
+    solves = []
+    stats = {"cycles": []}
+    records = []
+    n_pods = len(store.pods)
+    split = set()  # job rows the feed or the release split
+
+    def feed(fc):
+        m = fc.m
+        rows = np.flatnonzero((m.p_status[:fc.Pn] == ST_BOUND)
+                              & m.p_alive[:fc.Pn])
+        sel = rows[np.isin(m.p_node[rows], list(repend))]
+        if len(sel):
+            split.update(m.p_job[sel].tolist())
+            fc._unbind_rows(sel)
+
+    def counted_solve(*a, **kw):
+        out = solve_wave(*a, **kw)
+        info = wave_mod.LAST_TWOPHASE
+        solves.append({k: info.get(k) for k in (
+            "host_reads", "future", "ports", "affinity", "cnt0_any",
+            "sparse", "devincr")})
+        solves[-1]["fb"] = [int(out.fb_exhausted), int(out.fb_affinity)]
+        solves[-1]["pipelined"] = int((out.pipelined >= 0).sum())
+        return out
+
+    def cycle(kind):
+        solves.clear()
+        wave_mod.solve_wave = counted_solve
+        try:
+            t0 = time.perf_counter()
+            sched.run_once()
+            if device is None:
+                torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        finally:
+            wave_mod.solve_wave = solve_wave
+        inv = aff_invariants(store, split)
+        if all_bound:
+            inv.update(cycle_invariants(store, n_pods))
+        rec = {"kind": kind, "wall_s": wall, "lanes_ms": _lanes(store),
+               "solves": [dict(x) for x in solves], **inv}
+        stats["cycles"].append(rec)
+        _log(f"[{label}] {kind} cycle {wall:.4f} s "
+             f"{json.dumps({k: v for k, v in rec.items() if k != 'kind'})}")
+        if any(x["host_reads"] != 0 for x in solves):
+            raise AssertionError(f"[{label}] {kind} cycle: a solve read "
+                                 f"device planes back")
+        records.append((dict(store.binder.binds),
+                        {u: pg.status.phase
+                         for u, pg in sorted(store.pod_groups.items())},
+                        _mirror_state(store),
+                        [x["fb"] for x in solves]))
+        if sim is not None:
+            sim.step()
+
+    cycle("cold")
+    if not stats["cycles"][0]["solves"]:
+        raise AssertionError(f"[{label}] the cold cycle ran no solve")
+    store.cycle_feed = feed
+    for _ in range(steady):
+        cycle("steady")
+    if trace:
+        solves.clear()
+        wave_mod.solve_wave = counted_solve
+        try:
+            prof = profile_device(sched.run_once)
+        finally:
+            wave_mod.solve_wave = solve_wave
+        if any(x["host_reads"] != 0 for x in solves):
+            raise AssertionError(f"[{label}] traced cycle read planes back")
+        aff_invariants(store, split)
+        if all_bound:
+            cycle_invariants(store, n_pods)
+        stats["profile"] = prof
+    if release is not None:
+        store.cycle_feed = None
+        split.update(release(store))
+        all_bound = False
+        sim = ClusterSimulator(store, grace_steps=1)
+        for _ in range(3):
+            cycle("release")
+    return stats, records
+
+
+def _release(store):
+    """Releasing capacity for the future branch: the pods on nodes 0-63
+    (the fullest: binpack fills the low rows first) start terminating
+    (Releasing), those nodes gain the label pool=release, and 16 gangs of
+    8 four-CPU pods selecting that label arrive -- every fourth with host
+    port 8080, every third zone-affine to itself -- so they fit only the
+    releasing capacity and are pipelined.  Returns the job rows whose
+    members terminate."""
+    import dataclasses
+
+    from volcano_tpu_torch.api import (GROUP_NAME_ANNOTATION, AffinityTerm,
+                                       Pod, PodGroup)
+
+    m = store.mirror
+    rows = [r for r in range(m.n_pods)
+            if m.p_alive[r] and 0 <= m.p_node[r] < 64
+            and int(m.p_status[r]) in ALLOCATED]
+    for r in rows:
+        store.update_pod(dataclasses.replace(store.pods[m.p_uid[r]],
+                                             deleting=True))
+    jobs = {int(m.p_job[r]) for r in rows}
+    for row in range(64):
+        node = m.node_objs[row]
+        store.update_node(dataclasses.replace(
+            node, labels={**node.labels, "pool": "release"}))
+    for g in range(16):
+        name = f"late-{g:02d}"
+        store.add_pod_group(PodGroup(name=name, min_member=8))
+        aff = ([AffinityTerm(match_labels={"app": name}, topology_key="zone")]
+               if g % 3 == 0 else [])
+        for k in range(8):
+            store.add_pod(Pod(
+                name=f"{name}-{k}", labels={"app": name},
+                annotations={GROUP_NAME_ANNOTATION: name},
+                containers=[{"cpu": "4", "memory": "4Gi"}], affinity=aff,
+                node_selector={"pool": "release"},
+                host_ports=[8080] if g % 4 == 0 else []))
+    return jobs
+
+
+def affinity_phases(big=(10000, 100000), mid=(1000, 10000),
+                    chunk_budget_mb="2", expect_sparse=True):
+    """Phases 16-19: BASELINE config 5 through ``run_once()`` at 10,000 x
+    100,000 (cold, 5 steady, one traced); the same mix at 1,000 x 10,000
+    with host ports and releasing capacity, card against CPU and lanes on
+    against off; the 1,000 x 10,000 store in job-aligned chunks, card
+    against CPU; then the four new kernels and the extended ones on their
+    captured affinity inputs against their plain versions.  Returns the
+    kernel rows and the affinity rows of the extended kernels."""
+    import os
+
+    from volcano_tpu_torch.ops import kernels
+
+    # 16. config 5 at 10,000 x 100,000.
+    t0 = time.perf_counter()
+    store = config5_cluster(*big)
+    _log(f"[affinity] cluster {time.perf_counter() - t0:.3f} s, "
+         f"{len(store.pods)} pods")
+    kernels.CAPTURE = {}
+    kernels.reset_launches()
+    astats, _rec = run_aff_cycles("affinity", store, steady=5, trace=True,
+                                  all_bound=True)
+    launches = dict(kernels.LAUNCHES)
+    caps, kernels.CAPTURE = kernels.CAPTURE, None
+    _log(f"[affinity] launches {json.dumps(launches)}")
+    missing = [k for k in AFF_KERNELS if launches[k] == 0]
+    if missing:
+        raise AssertionError(f"[affinity] kernels never launched: {missing}")
+    c0 = astats["cycles"][0]
+    if expect_sparse and not any(tuple(x["sparse"]) == (True, True)
+                                 for x in c0["solves"]):
+        raise AssertionError("[affinity] the cold solve shipped dense tables")
+    if not any(x["cnt0_any"] for c in astats["cycles"][1:]
+               for x in c["solves"]):
+        raise AssertionError("[affinity] no steady solve read resident "
+                             "counts")
+    prof = astats.pop("profile")
+    if prof:
+        _log(f"[affinity] traced steady cycle: device busy "
+             f"{prof['busy_ms']:.3f} ms of {prof['wall_ms']:.3f} ms wall, "
+             f"device idle share "
+             f"{100.0 * (1 - prof['busy_ms'] / prof['wall_ms']):.2f}%, "
+             f"kernels(ms) {json.dumps(prof['kernels_ms'])}, top "
+             f"{json.dumps(prof['top'])}")
+    else:
+        _log("[affinity] traced steady cycle: no device events in the "
+             "trace (idle share not measured)")
+    store.close()
+
+    # 17. 1,000 x 10,000 with host ports and releasing capacity: the card
+    # against the CPU (plain versions), lanes on against lanes off.
+    def small(device, lanes=True, release=False):
+        saved = {k: os.environ.get(k) for k in ("VOLCANO_TPU_DEVINCR",
+                                                "VOLCANO_TPU_DEVSNAP")}
+        if not lanes:
+            os.environ.update({k: "0" for k in saved})
+        try:
+            st = config5_cluster(*mid, ports=0.1)
+            stats, rec = run_aff_cycles(
+                f"affinity:small:{device or 'cuda'}"
+                f"{'' if lanes else ':lanes-off'}"
+                f"{':release' if release else ''}", st,
+                steady=0 if release else 8, device=device,
+                release=_release if release else None, repend=range(16))
+            dv = st._devincr_cache
+            st.close()
+            return stats, rec, None if dv is None else dict(dv.counts)
+        finally:
+            for k, v in saved.items():
+                if v is None:
+                    os.environ.pop(k, None)
+                else:
+                    os.environ[k] = v
+
+    kernels.CAPTURE = {}
+    kernels.reset_launches()
+    s_card, r_card, dv_counts = small(None)
+    x_card, rx_card, _ = small(None, release=True)
+    small_launches = dict(kernels.LAUNCHES)
+    small_caps, kernels.CAPTURE = kernels.CAPTURE, None
+    for k, v in small_caps.items():
+        caps.setdefault(k, v)
+    _s_cpu, r_cpu, _ = small("cpu")
+    _x_cpu, rx_cpu, _ = small("cpu", release=True)
+    _same_records("affinity:small", r_card, r_cpu, "card vs CPU")
+    _same_records("affinity:small", rx_card, rx_cpu, "card vs CPU, release")
+    _s_off, r_off, _ = small(None, lanes=False)
+    _x_off, rx_off, _ = small(None, lanes=False, release=True)
+    # The lanes' null-delta skip drops solves, so only the outcome is
+    # compared there.
+    _same_records("affinity:small", r_card, r_off, "lanes on vs off",
+                  fields=3)
+    _same_records("affinity:small", rx_card, rx_off,
+                  "lanes on vs off, release", fields=3)
+    solves = [x for c in s_card["cycles"] + x_card["cycles"]
+              for x in c["solves"]]
+    if not any(x["future"] for x in solves):
+        raise AssertionError("[affinity:small] no future-branch solve")
+    if not any(x["ports"] for x in solves):
+        raise AssertionError("[affinity:small] no solve with host ports")
+    warm_cnt0 = [x for x in solves if x["cnt0_any"] and x["devincr"]
+                 and x["devincr"]["mode"] == "warm"]
+    if not warm_cnt0:
+        raise AssertionError("[affinity:small] no warm shortlist on "
+                             "nonzero counts (the cnt0-hash warm key)")
+    if not any(x["pipelined"] for c in x_card["cycles"]
+               for x in c["solves"]):
+        raise AssertionError("[affinity:small] nothing pipelined")
+    _log(f"[affinity:small] card = CPU and lanes on = off over "
+         f"{len(r_card)} cycles; devincr {dv_counts}; warm solves on "
+         f"nonzero counts {len(warm_cnt0)}; launches "
+         f"{json.dumps(small_launches)}")
+
+    # 18. the 1,000 x 10,000 store in >= 4 job-aligned chunks.
+    os.environ["VOLCANO_TPU_AFF_BUDGET_MB"] = chunk_budget_mb
+    try:
+        def chunks(device):
+            st = config5_cluster(*mid)
+            stats, rec = run_aff_cycles(
+                f"affinity:chunks:{device or 'cuda'}", st, steady=1,
+                device=device)
+            st.close()
+            return stats, rec
+        c_card, rc_card = chunks(None)
+        _c_cpu, rc_cpu = chunks("cpu")
+    finally:
+        os.environ.pop("VOLCANO_TPU_AFF_BUDGET_MB", None)
+    n_chunks = len(c_card["cycles"][0]["solves"])
+    if n_chunks < 4:
+        raise AssertionError(f"[affinity:chunks] {n_chunks} chunks, not >= 4")
+    _same_records("affinity:chunks", rc_card, rc_cpu, "card vs CPU")
+    _log(f"[affinity:chunks] cold cycle in {n_chunks} chunks; card = CPU")
+
+    # 19. the kernels on their captured affinity inputs.
+    total = {k: launches[k] + small_launches[k] for k in launches}
+    rows = _replay_rows(caps, total, "affinity", AFF_REPLAY[:4])
+    ext = _replay_rows(caps, total, "affinity", AFF_REPLAY[4:])
+    return rows, ext, astats
+
+
+def _same_records(label, a, b, what, fields=4):
+    if len(a) != len(b):
+        raise AssertionError(f"[{label}] {what}: cycle counts differ")
+    for i, (x, y) in enumerate(zip(a, b)):
+        for name, p, q in list(zip(("binds", "phases", "mirror", "fb"),
+                                   x, y))[:fields]:
+            if p != q:
+                raise AssertionError(f"[{label}] {what}: cycle {i} {name} "
+                                     f"differ" + (f": {p} != {q}"
+                                                  if name == "fb" else ""))
+
 
 def main() -> int:
     import torch
@@ -1705,6 +2252,14 @@ def main() -> int:
         "ms", "plain_ms", "bound_ms", "bound_by", "max_abs_err",
         "wrapper_ms", "queued", "bytes", "ops")}
     rows.extend(reb_rows)
+
+    # 16-19. BASELINE config 5 through run_once(); the affinity kernels.
+    aff_rows, ext_rows, _astats = affinity_phases()
+    for r in ext_rows:
+        by_name[r["name"]]["affinity"] = {k: r[k] for k in (
+            "launches", "ms", "plain_ms", "bound_ms", "bound_by",
+            "max_abs_err", "wrapper_ms", "queued", "bytes", "ops")}
+    rows.extend(aff_rows)
 
     print(json.dumps({"kernels": rows}), flush=True)
     print(card, flush=True)

@@ -1,0 +1,177 @@
+"""The kernels' ctypes bindings, checked without a card.
+
+The CUDA sources build only on the card's machine, and ctypes checks a
+call only against the argument types the loader declares.  So:
+
+1. every ``extern "C"`` entry of ``volcano_tpu_torch/csrc/*.cu`` has a
+   declaration in ``ops/kernels._SIGS`` with the same parameter types, in
+   order (pointers ``c_void_p``, ``int`` ``c_int``, ``int64_t``
+   ``c_int64``, ``float`` ``c_float``), and nothing else is declared;
+2. each wrapper, forced down its card path with a stand-in library that
+   checks every call against those declarations, passes one argument of
+   the declared kind per parameter -- for the affinity kernels and for
+   the solve kernels with their port and count arguments.
+"""
+
+import ctypes
+import re
+from pathlib import Path
+
+import pytest
+import torch
+
+from test_torch_fixtures import shortlist_case, shortlist_tensors
+
+from volcano_tpu_torch.ops import affkernels, kernels
+
+CSRC = Path(kernels.__file__).resolve().parent.parent / "csrc"
+KINDS = {ctypes.c_void_p: "p", ctypes.c_int: "i", ctypes.c_int64: "l",
+         ctypes.c_float: "f"}
+
+
+def _prototypes():
+    out = {}
+    for f in sorted(CSRC.glob("*.cu")):
+        text = f.read_text()
+        for m in re.finditer(r'extern "C" int (vtt_\w+)\((.*?)\)\s*\{', text,
+                             re.S):
+            kinds = []
+            for p in (x.strip() for x in m.group(2).split(",")):
+                if "*" in p:
+                    kinds.append("p")
+                elif p.startswith("int64_t"):
+                    kinds.append("l")
+                elif p.startswith("int"):
+                    kinds.append("i")
+                elif p.startswith("float"):
+                    kinds.append("f")
+                else:
+                    raise AssertionError(f"{f.name}: parameter {p!r}")
+            out[m.group(1)] = kinds
+    return out
+
+
+def test_declarations_match_the_c_prototypes():
+    protos = _prototypes()
+    assert set(protos) == set(kernels._SIGS)
+    for name, kinds in protos.items():
+        assert [KINDS[t] for t in kernels._SIGS[name]] == kinds, name
+
+
+class _Lib:
+    """Stands in for the built library: checks each call's arguments
+    against the declaration and records the entry."""
+
+    def __init__(self):
+        self.calls = []
+
+    def __getattr__(self, name):
+        decl = kernels._SIGS[name]
+
+        def call(*args):
+            assert len(args) == len(decl), (name, len(args), len(decl))
+            for i, (a, t) in enumerate(zip(args, decl)):
+                if t is ctypes.c_void_p:
+                    assert a is None or isinstance(a, ctypes.c_void_p), \
+                        (name, i, a)
+                elif t is ctypes.c_float:
+                    assert isinstance(a, float), (name, i, a)
+                else:
+                    assert isinstance(a, int) and not isinstance(a, bool), \
+                        (name, i, a)
+            self.calls.append(name)
+            return 1024 if name == "vtt_block_shortlist_smem" else 0
+        return call
+
+
+@pytest.fixture
+def fake_card(monkeypatch):
+    lib = _Lib()
+    for mod in (kernels, affkernels):
+        monkeypatch.setattr(mod, "load", lambda: lib)
+        monkeypatch.setattr(mod, "_on_card", lambda plain, *t: True)
+        monkeypatch.setattr(mod, "_stream", lambda: ctypes.c_void_p(0))
+    return lib
+
+
+I32, F32, B8 = torch.int32, torch.float32, torch.bool
+
+
+def _z(*shape, dtype=I32):
+    return torch.zeros(shape, dtype=dtype)
+
+
+def _terms(U, E, D, N, K):
+    return affkernels.AffTerms(_z(N, K), _z(E), _z(E, D), _z(E, D),
+                               _z(U, E, dtype=B8), _z(U, E, dtype=B8),
+                               _z(U, E, dtype=B8), _z(U, E, dtype=F32))
+
+
+def test_affinity_wrappers_match_their_entries(fake_card):
+    U, E, D, N, K, W = 8, 5, 6, 32, 2, 16
+    at = _terms(U, E, D, N, K)
+    affkernels.scatter_cnt0(_z(4), _z(4), _z(4), E, D)
+    affkernels.scatter_profile_tables(_z(4), _z(4), _z(4, dtype=torch.int8),
+                                      _z(4, dtype=F32), U, E)
+    rows = torch.arange(U, dtype=I32)
+    for cand in (None, _z(10), _z(U, 7)):
+        affkernels.aff_live(rows, cand, _z(1, E), at)
+    affkernels.aff_live(rows, None, _z(U, 3), at)
+    affkernels.aff_filter(_z(W), _z(W, dtype=B8), _z(W), at,
+                          _z(W, dtype=B8), _z(W, dtype=B8), gm=_z(E, D))
+    assert fake_card.calls == (["vtt_scatter_cnt0",
+                                "vtt_scatter_profile_tables"]
+                               + ["vtt_aff_live"] * 4 + ["vtt_aff_filter"])
+
+
+def test_solve_wrappers_with_ports_and_counts_match(fake_card):
+    U, N, R, PW, UM, W, S = 8, 32, 3, 2, 4, 16, 8
+    prof, cls, nodes, weights, eps, slot = shortlist_tensors(
+        shortlist_case(0, U=U, N=N), "cpu")
+    args = (nodes["idle"], nodes["alloc"], nodes["ntasks"],
+            nodes["max_tasks"], eps, slot, weights)
+    C = cls.ready.shape[0]
+    stat = (_z(U, C, dtype=B8), _z(U, C, dtype=F32))
+    ports = kernels.Ports(_z(U, PW), _z(N, PW))
+    aff = (_z(U, N, dtype=B8), _z(U, N, dtype=F32))
+    kernels.coarse_shortlist(prof, cls, *args, 4, True, ports=ports,
+                             aff=aff)
+    kernels.coarse_shortlist(prof, cls, *args, 4, True, stat=stat,
+                             n_blocks=4, ports=ports, aff=aff)
+    kernels.warm_shortlist(prof, cls.class_id, *stat, *args,
+                           torch.tensor([1], dtype=I32),
+                           _z(U, 4, 4, dtype=F32), _z(U, 4, 4), 4,
+                           ports=ports, aff=(_z(U, 8, dtype=B8),
+                                             _z(U, 8, dtype=F32)))
+    p_req, p_init = prof.req[:UM].contiguous(), prof.init_req[:UM].contiguous()
+    pw = kernels.Ports(_z(UM, PW), _z(N, PW), _z(N, PW))
+    kernels.rank_candidates(
+        torch.arange(UM, dtype=I32), _z(UM, S), stat[0][:UM].contiguous(),
+        stat[1][:UM].contiguous(), cls.class_id, p_req, p_init, *args[:6],
+        weights, 4, ports=pw, aff=(_z(UM, S, dtype=B8),
+                                   _z(UM, S, dtype=F32)))
+    fut = kernels.Future(_z(N, R, dtype=F32), _z(N, R, dtype=F32),
+                         _z(N, R, dtype=F32), _z(N))
+    kernels.walk_accept(_z(UM, 4), _z(UM, 4, dtype=B8), p_req, p_init,
+                        _z(W), _z(W, dtype=B8), _z(W, dtype=B8),
+                        _z(UM, UM, dtype=B8), nodes["idle"],
+                        nodes["ntasks"], nodes["max_tasks"], eps, slot,
+                        future=fut, ports=pw, self_anti=_z(UM, dtype=B8),
+                        live_out=_z(W, dtype=B8))
+    f64 = torch.float64
+    counts = _terms(UM, 5, 6, N, 2)
+    kernels.apply_commit(
+        _z(W), _z(W, dtype=B8), p_req, _z(W), _z(W), nodes["idle"],
+        _z(2, R, dtype=F32), mode=0, idle_sign=-1.0,
+        scratch=(_z(N, R, dtype=f64), _z(2, R, dtype=f64)), jw=_z(W),
+        ntasks=nodes["ntasks"], alloc_l=_z(W), assigned=_z(W),
+        pipe=_z(W, dtype=B8),
+        pip={"pip_extra": _z(N, R, dtype=F32), "pip_ntasks": _z(N),
+             "q_pip": _z(2, R, dtype=F32), "pipelined": _z(W),
+             "scratch": (_z(N, R, dtype=f64), _z(2, R, dtype=f64))},
+        ports=pw, counts=counts)
+    assert fake_card.calls == [
+        "vtt_coarse_shortlist", "vtt_block_shortlist_smem",
+        "vtt_block_shortlist", "vtt_block_shortlist_smem",
+        "vtt_block_shortlist", "vtt_rank_candidates", "vtt_walk_accept",
+        "vtt_apply_commit"]

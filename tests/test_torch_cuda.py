@@ -458,3 +458,210 @@ def test_rebalance_and_topology_cycles_on_card_equal_cpu(cuda, monkeypatch):
         assert launched[k] > 0, launched
     assert sum(k.startswith("default/fabgang-")
                for k, _node in card[-1][0]) == 32
+
+
+# ------------------------------------------------- inter-pod affinity
+
+def _aff_case(seed, dev, U=24, E=12, D=40, N=200, K=2, cnt_density=0.2,
+              with_pip=True):
+    """Random affinity tables: counts with real entries (some terms with
+    none, so the self-match rule has both outcomes), domain-less nodes,
+    and integer soft weights 5 and 10 of both signs."""
+    from volcano_tpu_torch.ops.affkernels import AffTerms
+
+    rng = np.random.RandomState(seed)
+    nd = rng.randint(-1, D, (N, K)).astype(np.int32)
+    tk = rng.randint(0, K, E).astype(np.int32)
+    cnt = np.where(rng.rand(E, D) < cnt_density,
+                   rng.randint(1, 4, (E, D)), 0).astype(np.int32)
+    cnt[rng.rand(E) < 0.3] = 0
+    pip = (np.where(rng.rand(E, D) < 0.05, 1, 0).astype(np.int32)
+           if with_pip else None)
+    soft = (rng.choice([0.0, 5.0, -5.0, 10.0, -10.0], (U, E))
+            * (rng.rand(U, E) < 0.3)).astype(np.float32)
+
+    def t(a):
+        return None if a is None else torch.from_numpy(a).to(dev)
+
+    return AffTerms(t(nd), t(tk), t(cnt), t(pip),
+                    t(rng.rand(U, E) < 0.15), t(rng.rand(U, E) < 0.15),
+                    t(rng.rand(U, E) < 0.3), t(soft))
+
+
+@pytest.mark.parametrize("k,shape", [(16, (8, 9)), (1024, (513, 300)),
+                                     (4096, (4097, 2000))])
+def test_aff_tables_equal_plain(cuda, k, shape):
+    """scatter_cnt0 (against its plain version and one index_put_) and
+    scatter_profile_tables, with padded entries adding 0 at (0, 0)."""
+    from volcano_tpu_torch.ops import affkernels
+
+    e, d = shape
+    rng = np.random.RandomState(k)
+    real = k // 2
+    cells = rng.choice(e * d, real, replace=False)
+    rows = np.concatenate([cells // d, np.zeros(k - real, np.int64)])
+    cols = np.concatenate([cells % d, np.zeros(k - real, np.int64)])
+    vals = np.concatenate([rng.randint(1, 50, real),
+                           np.zeros(k - real, np.int64)]).astype(np.int32)
+    flags = np.concatenate([rng.randint(0, 8, real),
+                            np.zeros(k - real, np.int64)]).astype(np.int8)
+    soft = np.concatenate([rng.choice([5.0, -5.0, 10.0, -10.0, 0.0], real),
+                           np.zeros(k - real)]).astype(np.float32)
+    r = torch.from_numpy(rows.astype(np.int32)).to(cuda)
+    c = torch.from_numpy(cols.astype(np.int32)).to(cuda)
+    v = torch.from_numpy(vals).to(cuda)
+    before = dict(kernels.LAUNCHES)
+    got = affkernels.scatter_cnt0(r, c, v, e, d)
+    want = affkernels.scatter_cnt0(r, c, v, e, d, plain=True)
+    _equal(got, want, "cnt0")
+    lib = torch.zeros((e, d), dtype=torch.int32, device=cuda)
+    lib.index_put_((r.long(), c.long()), v, accumulate=True)
+    _equal(got, lib, "cnt0 vs index_put_")
+    f = torch.from_numpy(flags).to(cuda)
+    s = torch.from_numpy(soft).to(cuda)
+    got = affkernels.scatter_profile_tables(r, c, f, s, e, d)
+    want = affkernels.scatter_profile_tables(r, c, f, s, e, d, plain=True)
+    for a, b, what in zip(got, want, ("aff", "anti", "match", "soft")):
+        _equal(a, b, what)
+    assert kernels.LAUNCHES["scatter_cnt0"] == before["scatter_cnt0"] + 1
+    assert (kernels.LAUNCHES["scatter_profile_tables"]
+            == before["scatter_profile_tables"] + 1)
+
+
+@pytest.mark.parametrize("seed", [0, 1])
+@pytest.mark.parametrize("mode", ["all", "shared", "rows"])
+def test_aff_live_equals_plain(cuda, seed, mode):
+    from volcano_tpu_torch.ops import affkernels
+
+    at = _aff_case(seed, cuda)
+    U, E = at.t_req_aff.shape
+    N = at.node_dom.shape[0]
+    g = torch.Generator().manual_seed(seed)
+    rows = torch.randperm(U, generator=g)[:U - 3].to(torch.int32).to(cuda)
+    cand = {"all": None,
+            "shared": torch.randperm(N, generator=g)[:77],
+            "rows": torch.randint(0, N, (U, 33), generator=g)}[mode]
+    if cand is not None:
+        cand = cand.to(torch.int32).to(cuda)
+    terms_all = torch.arange(E, dtype=torch.int32, device=cuda)[None]
+    # Per-row lists: each row's nonzero columns, -1 padded.
+    iom = (at.t_req_aff | at.t_req_anti | at.t_matches
+           | (at.t_soft != 0))[rows.long()].cpu().numpy()
+    lists = np.full((len(iom), E), -1, np.int32)
+    for i, row in enumerate(iom):
+        nz = np.flatnonzero(row)
+        lists[i, :len(nz)] = nz
+    for terms in (terms_all, torch.from_numpy(lists).to(cuda)):
+        got = affkernels.aff_live(rows, cand, terms, at)
+        want = affkernels.aff_live(rows, cand, terms, at, plain=True)
+        _equal(got[0], want[0], "ok")
+        _equal(got[1], want[1], "soft")
+    a = affkernels.aff_live(rows, cand, terms_all, at)
+    b = affkernels.aff_live(rows, cand, torch.from_numpy(lists).to(cuda), at)
+    _equal(a[0], b[0], "ok: own terms vs all")
+    _equal(a[1], b[1], "soft: own terms vs all")
+
+
+@pytest.mark.parametrize("W,nodes", [(64, 200), (512, 48), (2048, 300)])
+def test_aff_filter_equals_plain(cuda, W, nodes):
+    """The filter on random choices; W = 512 on 48 nodes gives more than
+    256 live givers in one sub-round (the JAX GCAP overflow form)."""
+    from volcano_tpu_torch.ops import affkernels
+
+    at = _aff_case(W, cuda, U=16, N=nodes)
+    U, E = at.t_req_aff.shape
+    g = torch.Generator().manual_seed(W)
+    choice = torch.randint(0, nodes, (W,), generator=g).to(torch.int32)
+    live = torch.rand(W, generator=g) < 0.8
+    pid_l = torch.randint(0, U, (W,), generator=g).to(torch.int32)
+    acc = live & (torch.rand(W, generator=g) < 0.7)
+    pipe = live & ~acc & (torch.rand(W, generator=g) < 0.5)
+    choice, live, pid_l, acc, pipe = (x.to(cuda) for x in (
+        choice, live, pid_l, acc, pipe))
+    givers = (at.t_matches[pid_l.long()].any(dim=1) & live).sum()
+    if W == 512:
+        assert int(givers) > 256
+    gm = torch.full(tuple(at.cnt_a.shape), W, dtype=torch.int32,
+                    device=cuda)
+    a_k, p_k = acc.clone(), pipe.clone()
+    affkernels.aff_filter(choice, live, pid_l, at, a_k, p_k, gm=gm)
+    a_p, p_p = acc.clone(), pipe.clone()
+    affkernels.aff_filter(choice, live, pid_l, at, a_p, p_p, gm=gm,
+                          plain=True)
+    _equal(a_k, a_p, "acc")
+    _equal(p_k, p_p, "pipe")
+    assert bool((gm == W).all()), "the kernel must leave gm at W"
+    assert bool((a_k != acc).any()), "the case filters nothing"
+
+
+def _aff_store_case(name):
+    from test_torch_fixtures import affinity_store
+
+    if name == "small":
+        return affinity_store(volcano_tpu_torch, seed=1), 16
+    if name == "dense":
+        return affinity_store(volcano_tpu_torch, n_nodes=16, n_gangs=40,
+                              gang_size=6, seed=2), 64
+    if name == "givers":
+        # One 512-task wave of self zone-affine gangs: > 256 givers.
+        return affinity_store(volcano_tpu_torch, n_nodes=64, n_gangs=8,
+                              gang_size=64, mix=("aff",), seed=3,
+                              node_cpu="32"), 512
+    return synthetic_cluster(n_nodes=256, n_pods=2048, gang_size=8,
+                             zones=16, affinity_fraction=0.05,
+                             anti_affinity_fraction=0.05,
+                             spread_fraction=0.1, seed=0), 256
+
+
+@pytest.mark.parametrize("sparse", [False, True])
+@pytest.mark.parametrize("name", ["small", "dense", "givers", "config5"])
+def test_affinity_solve_equals_plain_and_cpu(cuda, monkeypatch, name,
+                                             sparse):
+    """Host ports and inter-pod terms through the whole solve: the kernels
+    (extended rank / walk / apply, aff_live, aff_filter, and with both
+    sparse thresholds at 0 the two table scatters) equal the plain
+    versions on the card and the CPU run."""
+    import volcano_tpu_torch.ops.wave as tw
+
+    if sparse:
+        monkeypatch.setattr(tw, "CNT0_SPARSE_MIN", 0)
+        monkeypatch.setattr(tw, "PROF_SPARSE_MIN", 0)
+    store, wave = _aff_store_case(name)
+    k, p, c, launched = _solve_three_ways(store, wave)
+    _same(k, p)
+    _same(k, c)
+    for kn in ("aff_live", "aff_filter", "rank_candidates", "walk_accept",
+               "apply_commit"):
+        assert launched[kn] > 0, (kn, launched)
+    if sparse:
+        assert launched["scatter_cnt0"] == 1
+        assert launched["scatter_profile_tables"] == 1
+    assert int((k.assigned >= 0).sum()) > 0
+
+
+def test_affinity_future_ports_equal_plain_and_cpu(cuda):
+    """Releasing capacity with host ports and terms: pipelined tasks
+    charge pip_nport and cw_p; the card equals the plain versions and the
+    CPU."""
+    from test_torch_fixtures import affinity_store
+
+    store = affinity_store(volcano_tpu_torch, n_nodes=16, n_gangs=30,
+                           gang_size=4, seed=5)
+    from volcano_tpu_torch.device import tree_to
+
+    args, _ = solve_args_from_store(store, binpack=True, nodeorder=True,
+                                    device="cpu")
+    n = args[0]
+    idle = n.idle.clone()
+    rel = torch.zeros_like(idle)
+    rel[::2] = idle[::2]
+    idle[::2] = 0.0
+    args = (n._replace(idle=idle, releasing=rel),) + tuple(args[1:])
+    out = []
+    for dev, plain in (("cuda", False), ("cuda", True), ("cpu", False)):
+        a = tuple(tree_to(x, torch.device(dev)) for x in args)
+        out.append(interop.result_to_numpy(
+            solve_wave(*a, wave=32, device=dev, plain=plain)))
+    _same(out[0], out[1])
+    _same(out[0], out[2])
+    assert int((out[0].pipelined >= 0).sum()) > 0

@@ -483,3 +483,60 @@ def test_twin_evictor_failures(device_lane):
     first = next(t for t in got if t["evictions"])
     assert first["ledger"][2] and len(first["ledger"][2]) == len(
         first["evictions"])
+
+
+def _affinity_shared_store(pkg, evictor=None):
+    """The shared-ledger cluster with host ports and inter-pod terms: the
+    fillers and the serving gang ask for host port 9000, the serving gang
+    is hostname anti-affine to itself and the big gang spreads over
+    zones; the what-if solves of the preempt waves carry both."""
+    api = pkg.api
+    store = _store(pkg, evictor)
+    store.add_priority_class(api.PriorityClass(name="serve", value=1000))
+    store.add_priority_class(api.PriorityClass(name="batch", value=10))
+    for i in range(6):
+        store.add_node(api.Node(name=f"w{i}", allocatable={
+            "cpu": "4", "memory": "16Gi", "pods": 110},
+            labels={"zone": f"z{i % 2}"}))
+        store.add_node(api.Node(name=f"s{i}", allocatable={
+            "cpu": "3", "memory": "16Gi", "pods": 110},
+            labels={"zone": f"z{i % 2}"}))
+    store.add_pod_group(api.PodGroup(name="fill", min_member=1,
+                                     max_unavailable=2,
+                                     priority_class="batch"))
+    for i in range(6):
+        store.add_pod(api.Pod(
+            name=f"fill{i}", annotations={api.GROUP_NAME_ANNOTATION: "fill"},
+            containers=[{"cpu": "3", "memory": "1Gi"}], host_ports=[9000],
+            phase=api.PodPhase.Running, node_name=f"w{i}", priority=10))
+    store.add_pod_group(api.PodGroup(name="serving", min_member=2,
+                                     priority_class="serve"))
+    for i in range(2):
+        store.add_pod(api.Pod(
+            name=f"serving-{i}", labels={"app": "serving"},
+            annotations={api.GROUP_NAME_ANNOTATION: "serving"},
+            containers=[{"cpu": "4", "memory": "1Gi"}], priority=1000,
+            host_ports=[9000], anti_affinity=[api.AffinityTerm(
+                match_labels={"app": "serving"})]))
+    store.add_pod_group(api.PodGroup(name="big", min_member=2))
+    for i in range(2):
+        store.add_pod(api.Pod(
+            name=f"big-{i}", annotations={api.GROUP_NAME_ANNOTATION: "big"},
+            containers=[{"cpu": "4", "memory": "1Gi"}],
+            topology_spread=[("zone", 10)]))
+    return store
+
+
+def test_twin_preempt_with_ports_and_affinity(device_lane):
+    """The what-if engine with host ports and inter-pod terms: the plan
+    solve frees the victims' ports and counts (the resident set is
+    patched before the encode), equal to the JAX package per cycle; the
+    serving gang binds on two nodes."""
+    args = (_affinity_shared_store, SHARED_CONF, 1, 12)
+    want = _twin(volcano_tpu, *args)
+    got = _twin(volcano_tpu_torch, *args)
+    _assert_twins(want, got)
+    assert any(t["evictions"] for t in got)
+    serving = {v for k, v in got[-1]["binds"].items()
+               if k.startswith("default/serving-")}
+    assert len(serving) == 2

@@ -381,3 +381,78 @@ def block_fit_case(seed, N=400, U=4, R=3, n_blocks=16):
     return dict(idle=c["idle"], ready=c["ready"], ntasks=ntasks,
                 max_tasks=max_tasks, block_id=block, prof_req=c["prof_req"],
                 prof_cnt=cnt, eps=c["eps"], n_blocks=n_blocks)
+
+
+def affinity_store(pkg, n_nodes=32, n_gangs=24, gang_size=4, zones=4,
+                   seed=0, ports=True, residents=2, pod_cpu=("1", "2"),
+                   node_cpu="16", mix=("aff", "anti", "res_aff", "res_anti",
+                                       "prefer", "spread", "plain")):
+    """BASELINE config 5's inter-pod mix at a small size, with the cases
+    the count machinery has to get right: ``residents`` running pods per
+    app ``res-k`` (k < 3) on fixed nodes (real count-table entries, a
+    host port 9000 on every other one), every seventh node without a zone
+    label (domain -1), and pending gangs cycling through ``mix``: required
+    zone affinity to their own app (the self-match rule), required
+    hostname anti-affinity to their own app, required zone affinity /
+    hostname anti-affinity to a resident app, preferred zone affinity to a
+    resident app (weight 5), zone spread (weight 10), none.  With
+    ``ports`` every third gang asks for host port 8080 (and every sixth
+    also 9000)."""
+    api = pkg.api
+    rng = np.random.default_rng(seed)
+    store = pkg.cache.ClusterStore()
+    for i in range(n_nodes):
+        labels = {} if i % 7 == 6 else {"zone": f"z{i % zones}"}
+        store.add_node(api.Node(name=f"n{i:03d}",
+                                allocatable={"cpu": node_cpu,
+                                             "memory": "64Gi",
+                                             "pods": 110},
+                                labels=labels))
+    for k in range(3):
+        pg = api.PodGroup(name=f"res-{k}", min_member=1, queue="default")
+        store.add_pod_group(pg)
+        for r in range(residents):
+            node = (5 * k + 3 * r) % n_nodes
+            store.add_pod(api.Pod(
+                name=f"res-{k}-{r}", labels={"app": f"res-{k}"},
+                annotations={api.GROUP_NAME_ANNOTATION: f"res-{k}"},
+                containers=[{"cpu": "1", "memory": "1Gi"}],
+                node_name=f"n{node:03d}", phase="Running",
+                host_ports=[9000] if ports and r % 2 == 0 else [],
+            ))
+    zone = "zone"
+    host = "kubernetes.io/hostname"
+    for g in range(n_gangs):
+        name = f"g{g:03d}"
+        kind = mix[g % len(mix)]
+        res = f"res-{g % 3}"
+        extra = {}
+        if kind == "aff":
+            extra["affinity"] = [api.AffinityTerm(
+                match_labels={"app": name}, topology_key=zone)]
+        elif kind == "anti":
+            extra["anti_affinity"] = [api.AffinityTerm(
+                match_labels={"app": name}, topology_key=host)]
+        elif kind == "res_aff":
+            extra["affinity"] = [api.AffinityTerm(
+                match_labels={"app": res}, topology_key=zone)]
+        elif kind == "res_anti":
+            extra["anti_affinity"] = [api.AffinityTerm(
+                match_labels={"app": res}, topology_key=host)]
+        elif kind == "prefer":
+            extra["preferred_affinity"] = [(api.AffinityTerm(
+                match_labels={"app": res}, topology_key=zone), 5)]
+        elif kind == "spread":
+            extra["topology_spread"] = [(zone, 10)]
+        if ports and g % 3 == 0:
+            extra["host_ports"] = [8080] + ([9000] if g % 6 == 0 else [])
+        pg = api.PodGroup(name=name, min_member=gang_size, queue="default")
+        store.add_pod_group(pg)
+        cpu = str(rng.choice(list(pod_cpu)))
+        for k in range(gang_size):
+            store.add_pod(api.Pod(
+                name=f"{name}-{k}", labels={"app": name},
+                annotations={api.GROUP_NAME_ANNOTATION: name},
+                containers=[{"cpu": cpu, "memory": "2Gi"}], **extra,
+            ))
+    return store

@@ -5,13 +5,16 @@
 (b) No module of the port, and not ``chip_smoke.py``, imports ``jax`` or
     anything of ``volcano_tpu``.
 (c) Without CUDA, the default-device entry points raise.
-(d) Every unsupported feature raises ``NotImplementedError``.
+(d) Every unsupported feature raises ``NotImplementedError``; host ports,
+    inter-pod affinity, anti-affinity and spread, which the port runs, give
+    the JAX package's placements on the same small stores.
 (e) The same for the scheduler cycle: it runs with ``jax``, ``volcano_tpu``
     and ``yaml`` unimportable (preempt / reclaim and the rebalance lane on a
     fabric included), no module imports ``yaml``, the default device raises
     without CUDA, and the JAX fast path's lanes the port does not run raise
     ``NotImplementedError`` naming their ROADMAP.md item; the rebalance
-    lane, which ignores the host-walk switch, runs under it.
+    lane, which ignores the host-walk switch, runs under it; a cycle with
+    inter-pod terms binds what the JAX package's cycle binds.
 """
 
 import ast
@@ -26,9 +29,8 @@ import pytest
 import torch
 
 import volcano_tpu_torch
-from volcano_tpu_torch.api import (GROUP_NAME_ANNOTATION, AffinityTerm, Node,
-                                   Pod, PodGroup)
-from volcano_tpu_torch.cache import ClusterStore
+import volcano_tpu_torch.api
+import volcano_tpu_torch.cache
 from volcano_tpu_torch.ops import wave as port_wave
 from volcano_tpu_torch.synth import solve_args_from_store, synthetic_cluster
 
@@ -105,18 +107,19 @@ def test_default_device_raises_without_cuda(monkeypatch):
         port_wave.solve_wave(*args, device="cuda")
 
 
-def _store_with(**pod_extra):
-    store = ClusterStore()
+def _store_with(pkg=volcano_tpu_torch, **pod_extra):
+    api = pkg.api
+    store = pkg.cache.ClusterStore()
     for i in range(4):
-        store.add_node(Node(name=f"n{i}",
-                            allocatable={"cpu": "8", "memory": "16Gi"},
-                            labels={"zone": f"z{i % 2}"}))
-    store.add_pod_group(PodGroup(name="g", min_member=2))
+        store.add_node(api.Node(name=f"n{i}",
+                                allocatable={"cpu": "8", "memory": "16Gi"},
+                                labels={"zone": f"z{i % 2}"}))
+    store.add_pod_group(api.PodGroup(name="g", min_member=2))
     for k in range(2):
-        store.add_pod(Pod(name=f"g-{k}", labels={"app": "g"},
-                          annotations={GROUP_NAME_ANNOTATION: "g"},
-                          containers=[{"cpu": "1", "memory": "1Gi"}],
-                          **pod_extra))
+        store.add_pod(api.Pod(name=f"g-{k}", labels={"app": "g"},
+                              annotations={api.GROUP_NAME_ANNOTATION: "g"},
+                              containers=[{"cpu": "1", "memory": "1Gi"}],
+                              **pod_extra))
     return store
 
 
@@ -124,13 +127,49 @@ def _args(**pod_extra):
     return solve_args_from_store(_store_with(**pod_extra), device="cpu")[0]
 
 
+# Pod fields of the features the port runs, built from either package's
+# api: each case's store goes through both packages' encode and solve.
+PORTED = {
+    "host ports": lambda api: dict(host_ports=[8080]),
+    "inter-pod affinity": lambda api: dict(affinity=[api.AffinityTerm(
+        match_labels={"app": "g"}, topology_key="zone")]),
+    "anti-affinity": lambda api: dict(anti_affinity=[api.AffinityTerm(
+        match_labels={"app": "g"})]),
+    "spread": lambda api: dict(topology_spread=[("zone", 5)]),
+}
+
+
+@pytest.mark.parametrize("what", sorted(PORTED))
+def test_ported_features_match_jax(what):
+    """Each store goes through the JAX package's encode and solve and the
+    port's own; the results are equal field by field (exact: every sum
+    is of whole CPUs and GiB), and the gang places whole."""
+    import volcano_tpu
+    import volcano_tpu.api
+    from volcano_tpu.ops.wave import solve_wave as jax_solve_wave
+    from volcano_tpu.synth import solve_args_from_store as jax_args
+
+    from volcano_tpu_torch import interop
+
+    jargs = jax_args(_store_with(volcano_tpu,
+                                 **PORTED[what](volcano_tpu.api)))[0]
+    jr = jax_solve_wave(*jargs, wave=8)
+    tr = interop.result_to_numpy(port_wave.solve_wave(
+        *_args(**PORTED[what](volcano_tpu_torch.api)), wave=8,
+        device="cpu"))
+    for f in ("assigned", "pipelined", "never_ready", "fit_failed", "idle",
+              "q_alloc", "iters", "fb_exhausted", "fb_affinity"):
+        assert np.array_equal(np.asarray(getattr(jr, f)),
+                              np.asarray(getattr(tr, f))), f
+    placed = np.asarray(tr.assigned)[:2]
+    assert (placed >= 0).all()
+    if what in ("host ports", "anti-affinity"):
+        assert placed[0] != placed[1]
+    if what == "inter-pod affinity":
+        assert placed[0] % 2 == placed[1] % 2  # one zone
+
+
 UNSUPPORTED = {
-    "host ports": (lambda: _args(host_ports=[8080]), {}),
-    "inter-pod affinity": (lambda: _args(affinity=[AffinityTerm(
-        match_labels={"app": "g"}, topology_key="zone")]), {}),
-    "anti-affinity": (lambda: _args(anti_affinity=[AffinityTerm(
-        match_labels={"app": "g"})]), {}),
-    "spread": (lambda: _args(topology_spread=[("zone", 5)]), {}),
     "extra_ok": (_args, {"extra_ok": np.ones((2, 8), bool)}),
     "extra_score": (_args, {"extra_score": np.zeros((2, 8), np.float32)}),
     "mesh_shards": (_args, {"mesh_shards": 2}),
@@ -254,14 +293,6 @@ CYCLE_NOT_PORTED = {
         "configurations:\n- name: allocate\n  arguments:\n"
         "    solver: seq\n")),
     "pipeline": (_set("pipeline", True), _conf()),
-    "inter-pod affinity": (lambda: _store_with(affinity=[AffinityTerm(
-        match_labels={"app": "g"}, topology_key="zone")]), _conf()),
-    "anti-affinity": (lambda: _store_with(anti_affinity=[AffinityTerm(
-        match_labels={"app": "g"})]), _conf()),
-    "preferred affinity": (lambda: _store_with(preferred_affinity=[(
-        AffinityTerm(match_labels={"app": "g"}), 5)]), _conf()),
-    "spread": (lambda: _store_with(topology_spread=[("zone", 5)]),
-               _conf()),
 }
 
 
@@ -281,6 +312,34 @@ def test_cycle_lanes_not_ported_raise(what, monkeypatch):
                        match=rf"ROADMAP\.md, queue 1: .*{_ITEM[what]}"):
         Scheduler(store, conf_str=conf, device="cpu").run_once()
     assert not store.binder.binds
+
+
+CYCLE_PORTED = {
+    "inter-pod affinity": PORTED["inter-pod affinity"],
+    "anti-affinity": PORTED["anti-affinity"],
+    "preferred affinity": lambda api: dict(preferred_affinity=[(
+        api.AffinityTerm(match_labels={"app": "g"}), 5)]),
+    "spread": PORTED["spread"],
+}
+
+
+@pytest.mark.parametrize("what", sorted(CYCLE_PORTED))
+def test_cycle_affinity_matches_jax(what):
+    """A cycle over a store whose gang carries inter-pod terms binds on
+    the port what it binds on the JAX package, and the gang runs."""
+    import volcano_tpu
+    import volcano_tpu.api
+    from volcano_tpu.scheduler import Scheduler as JaxScheduler
+
+    from volcano_tpu_torch.scheduler import Scheduler
+
+    jstore = _store_with(volcano_tpu, **CYCLE_PORTED[what](volcano_tpu.api))
+    jstore.pipeline = False
+    JaxScheduler(jstore, conf_str=_conf()).run_once()
+    store = _store_with(**CYCLE_PORTED[what](volcano_tpu_torch.api))
+    Scheduler(store, conf_str=_conf(), device="cpu").run_once()
+    assert len(store.binder.binds) == 2
+    assert dict(store.binder.binds) == dict(jstore.binder.binds)
 
 
 def test_rebalance_runs_with_host_victim_walk_selected(monkeypatch):

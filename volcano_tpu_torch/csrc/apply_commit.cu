@@ -22,6 +22,14 @@
 // bit; the JAX scatter order is unspecified (wave.py:2271), so beyond
 // that neither side is the reference.
 //
+// With host ports a commit ORs the task's port words into the node's used
+// ports (`nport`; a pipelined task's into `pip_nport`), integer atomics
+// (wave.py:2031-2042).  With inter-pod terms it adds one to the wave's
+// count window at (e, node_dom[node, term_key[e]]) for every window term
+// e the task's profile matches where the node has a domain -- `cw_a` for
+// a commit, `cw_p` for a pipelined task -- as int32 atomics
+// (wave.py:2043-2130).
+//
 // Bound: reads T task rows and writes the touched N x R rows; a few tens
 // of KB per sub-round, microseconds.
 #include "common.cuh"
@@ -40,22 +48,50 @@ __device__ __forceinline__ void add_row(double* node_acc, double* queue_acc,
   }
 }
 
+__device__ __forceinline__ void or_ports(uint32_t* plane,
+                                         const uint32_t* ports, int u, int n,
+                                         int PW) {
+  for (int w = 0; w < PW; ++w) {
+    const uint32_t bits = ports[static_cast<int64_t>(u) * PW + w];
+    if (bits) atomicOr(&plane[static_cast<int64_t>(n) * PW + w], bits);
+  }
+}
+
+__device__ __forceinline__ void add_counts(int32_t* cw,
+                                           const int32_t* node_dom, int K,
+                                           const int32_t* term_key,
+                                           const uint8_t* t_match, int u,
+                                           int n, int EW, int D) {
+  const int32_t* nd = node_dom + static_cast<int64_t>(n) * K;
+  for (int e = 0; e < EW; ++e) {
+    if (!t_match[static_cast<int64_t>(u) * EW + e]) continue;
+    const int dom = nd[term_key[e]];
+    if (dom >= 0) atomicAdd(&cw[static_cast<int64_t>(e) * D + dom], 1);
+  }
+}
+
 __global__ void __launch_bounds__(256) accumulate_kernel(
     const int32_t* node, const uint8_t* mask, const float* rows,
     const int32_t* row_idx, const int32_t* qidx, int T, int R,
     float idle_sign, int mode, const int32_t* jw, int32_t* ntasks,
     int32_t* alloc_l, int32_t* assigned, double* idle_acc, double* q_acc,
     const uint8_t* pipe, int32_t* pip_ntasks, int32_t* pipelined,
-    double* pxe_acc, double* qp_acc) {
+    double* pxe_acc, double* qp_acc, const uint32_t* ports, int PW,
+    uint32_t* nport, uint32_t* pip_nport, const int32_t* node_dom, int K,
+    const int32_t* term_key, const uint8_t* t_match, int EW, int D,
+    int32_t* cw_a, int32_t* cw_p) {
   const int t = blockIdx.x * blockDim.x + threadIdx.x;
   if (t >= T) return;
   const int n = node[t];
   const float* rq = rows + static_cast<int64_t>(row_idx[t]) * R;
   const int q = qidx[t];
+  const int u = row_idx[t];
   if (pipe && pipe[t]) {
     add_row(pxe_acc, qp_acc, rq, n, q, R, 1.0, 1.0);
     atomicAdd(&pip_ntasks[n], 1);
     pipelined[t] = n;
+    if (ports) or_ports(pip_nport, ports, u, n, PW);
+    if (cw_p) add_counts(cw_p, node_dom, K, term_key, t_match, u, n, EW, D);
   }
   if (!mask[t]) return;
   add_row(idle_acc, q_acc, rq, n, q, R, static_cast<double>(idle_sign),
@@ -64,6 +100,8 @@ __global__ void __launch_bounds__(256) accumulate_kernel(
     atomicAdd(&ntasks[n], 1);
     atomicAdd(&alloc_l[jw[t]], 1);
     assigned[t] = n;
+    if (ports) or_ports(nport, ports, u, n, PW);
+    if (cw_a) add_counts(cw_a, node_dom, K, term_key, t_match, u, n, EW, D);
   } else {
     assigned[t] = -1;
   }
@@ -98,7 +136,10 @@ extern "C" int vtt_apply_commit(
     void* idle, int N, void* q_alloc, int Q, void* ntasks, void* alloc_l,
     void* assigned, void* idle_acc, void* q_acc, const void* pipe,
     void* pip_extra, void* pip_ntasks, void* q_pip, void* pipelined,
-    void* pxe_acc, void* qp_acc, void* stream) {
+    void* pxe_acc, void* qp_acc, const void* ports, int PW, void* nport,
+    void* pip_nport, const void* node_dom, int K, const void* term_key,
+    const void* t_match, int EW, int D, void* cw_a, void* cw_p,
+    void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const int threads = 256;
   if (T > 0) {
@@ -111,7 +152,12 @@ extern "C" int vtt_apply_commit(
         static_cast<double*>(idle_acc), static_cast<double*>(q_acc),
         static_cast<const uint8_t*>(pipe), static_cast<int32_t*>(pip_ntasks),
         static_cast<int32_t*>(pipelined), static_cast<double*>(pxe_acc),
-        static_cast<double*>(qp_acc));
+        static_cast<double*>(qp_acc), static_cast<const uint32_t*>(ports),
+        PW, static_cast<uint32_t*>(nport), static_cast<uint32_t*>(pip_nport),
+        static_cast<const int32_t*>(node_dom), K,
+        static_cast<const int32_t*>(term_key),
+        static_cast<const uint8_t*>(t_match), EW, D,
+        static_cast<int32_t*>(cw_a), static_cast<int32_t*>(cw_p));
     cudaError_t err = cudaGetLastError();
     if (err != cudaSuccess) return static_cast<int>(err);
   }

@@ -20,7 +20,11 @@
 // selection mask, so the sorted output the solve needs comes for free.
 // With releasing capacity (`rel`/`pip` given: the JAX has_future branch)
 // the fit test reads the solve-start FutureIdle fi0 = (idle + releasing) -
-// pipelined (wave.py:608-609); the score keeps the live idle.
+// pipelined (wave.py:608-609); the score keeps the live idle.  With host
+// ports a node whose solve-start ports share a bit with the profile's is
+// dropped (wave.py:650-653); with inter-pod terms on nonzero solve-start
+// counts, aff_live's [U, N] planes mask the node and add the soft score
+// after the static one (wave.py:655-660).
 //
 // Bound: at 10k nodes x 64 profile rows the pass reads under a megabyte
 // (node planes once per block from L2) and does ~40 float operations per
@@ -96,7 +100,9 @@ __global__ void __launch_bounds__(1024) shortlist_kernel(
     const float* idle, const float* rel, const float* pip,
     const float* alloc, const int32_t* ntasks, const int32_t* max_tasks,
     int N, const float* eps, const uint8_t* scalar_slot, const float* bres,
-    Weights w, int S, uint64_t* keys_scratch, int32_t* out) {
+    Weights w, int S, uint64_t* keys_scratch, int32_t* out,
+    const uint32_t* ports, int PW, const uint32_t* nports,
+    const uint8_t* aff_ok, const float* aff_soft) {
   __shared__ int hist[256];
   __shared__ int bcast[2];
   __shared__ int warp_sums[32];
@@ -112,11 +118,16 @@ __global__ void __launch_bounds__(1024) shortlist_kernel(
     float fi0[vtt::kMaxR];
     vtt::future_idle(idle, rel, pip, nullptr, n, R, fi0);
     const bool pods_ok = max_tasks[n] <= 0 || ntasks[n] < max_tasks[n];
-    const bool feas = stat_ok[static_cast<int64_t>(u) * C + c] != 0 &&
-                      vtt::less_equal(irq, fi0, eps, scalar_slot, R) &&
-                      pods_ok;
-    const float score = vtt::node_score(rq, al, id, bres, R, w) +
-                        stat_score[static_cast<int64_t>(u) * C + c];
+    const int64_t ai = static_cast<int64_t>(u) * N + n;
+    const bool feas =
+        stat_ok[static_cast<int64_t>(u) * C + c] != 0 &&
+        vtt::less_equal(irq, fi0, eps, scalar_slot, R) && pods_ok &&
+        !(ports && vtt::ports_clash(ports + static_cast<int64_t>(u) * PW,
+                                    nports, nullptr, n, PW)) &&
+        !(aff_ok && !aff_ok[ai]);
+    float score = vtt::node_score(rq, al, id, bres, R, w) +
+                  stat_score[static_cast<int64_t>(u) * C + c];
+    if (aff_soft) score = score + aff_soft[ai];
     keys[n] = vtt::make_key(feas ? score : vtt::kNeg, static_cast<uint32_t>(n));
   }
   __syncthreads();
@@ -161,7 +172,8 @@ extern "C" int vtt_coarse_shortlist(
     const void* eps, const void* scalar_slot, const void* bres, float bw,
     float lw, float mw, float balw, float naff, int has_taints, int S,
     int static_ext, void* stat_ok, void* stat_score, void* keys_scratch,
-    void* out, void* stream) {
+    void* out, const void* ports, int PW, const void* nports,
+    const void* aff_ok, const void* aff_soft, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const int64_t pairs = static_cast<int64_t>(U) * C;
   const int threads = 256;
@@ -194,7 +206,11 @@ extern "C" int vtt_coarse_shortlist(
       static_cast<const float*>(eps),
       static_cast<const uint8_t*>(scalar_slot),
       static_cast<const float*>(bres), w, S,
-      static_cast<uint64_t*>(keys_scratch), static_cast<int32_t*>(out));
+      static_cast<uint64_t*>(keys_scratch), static_cast<int32_t*>(out),
+      static_cast<const uint32_t*>(ports), PW,
+      static_cast<const uint32_t*>(nports),
+      static_cast<const uint8_t*>(aff_ok),
+      static_cast<const float*>(aff_soft));
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -116,6 +116,21 @@ __device__ __forceinline__ float node_score(const float* req,
   return s;
 }
 
+// Host ports: does the profile's port word row `asked` share a bit with
+// node n's used ports (the allocated plane `used`, OR the pipelined plane
+// `used_pip` when given)?  [N, PW] planes of uint32 words.
+__device__ __forceinline__ bool ports_clash(const uint32_t* asked,
+                                            const uint32_t* used,
+                                            const uint32_t* used_pip,
+                                            int64_t n, int PW) {
+  for (int w = 0; w < PW; ++w) {
+    uint32_t u = used[n * PW + w];
+    if (used_pip) u |= used_pip[n * PW + w];
+    if (asked[w] & u) return true;
+  }
+  return false;
+}
+
 // Selection key: (score descending, position ascending), the tie-break of
 // jax.lax.top_k and of a stable descending sort.  -0.0 ranks as +0.0.
 __device__ __forceinline__ uint64_t make_key(float score, uint32_t pos) {

@@ -3,8 +3,7 @@
 // Replaces `live_parts_sl` + `rank_shortlist` of the JAX package's
 // `_solve_wave` (volcano_tpu/ops/wave.py:1302, :1376) and, on all N nodes,
 // the shortlist-exhaustion fallback's `live_parts` + `rank_nodes`
-// (wave.py:1192, :1277, used at :1450-1512) -- without ports or inter-pod
-// affinity, which the port rejects up front.
+// (wave.py:1192, :1277, used at :1450-1512).
 //
 // One block per ranked profile row.  Each candidate (a shortlist id, or
 // every node) gets its live feasibility (static class verdict, fit of the
@@ -17,6 +16,12 @@
 // the fabric topology's [N] node-order bias when one is given) as a 64-bit
 // key (score descending, candidate position ascending: shortlists hold
 // ascending node ids, so this is jax.lax.top_k's lowest-node-id tie-break).
+// With host ports a candidate whose used ports (allocated | pipelined)
+// share a bit with the profile's is infeasible (wave.py:1222-1227,
+// :1329-1334); with inter-pod terms the row's affinity planes (aff_live's
+// verdict and soft score, [M, L] in row-and-candidate order) mask the
+// candidate and add the soft score after the static one, (node_score +
+// static) + soft (wave.py:1385-1389).
 // A radix select finds the K-th key; the K winners are ordered by counting,
 // for each, the winners with a larger key.  Outputs: the top-K node ids in
 // rank order, their feasibility, and whether any candidate was feasible.
@@ -41,7 +46,9 @@ __global__ void __launch_bounds__(512) rank_kernel(
     const float* eps,
     const uint8_t* scalar_slot, const float* bres, Weights w, int K,
     uint64_t* keys_scratch, uint8_t* feas_scratch, int32_t* out_ranked,
-    uint8_t* out_feas, uint8_t* out_pany) {
+    uint8_t* out_feas, uint8_t* out_pany, const uint32_t* ports, int PW,
+    const uint32_t* nport, const uint32_t* pip_nport, const uint8_t* aff_ok,
+    const float* aff_soft) {
   extern __shared__ uint64_t sel_key[];  // [K]
   __shared__ int hist[256];
   __shared__ int bcast[2];
@@ -68,15 +75,20 @@ __global__ void __launch_bounds__(512) rank_kernel(
     vtt::future_idle(idle, rel, pip, pxe, n, R, fi);
     const int nt = ntasks[n] + (pip_ntasks ? pip_ntasks[n] : 0);
     const bool pods_ok = max_tasks[n] <= 0 || nt < max_tasks[n];
-    const bool feas = ok_w[static_cast<int64_t>(u) * C + c] != 0 &&
-                      vtt::less_equal(irq, fi, eps, scalar_slot, R) &&
-                      pods_ok;
+    const int64_t ai = static_cast<int64_t>(b) * L + i;
+    const bool feas =
+        ok_w[static_cast<int64_t>(u) * C + c] != 0 &&
+        vtt::less_equal(irq, fi, eps, scalar_slot, R) && pods_ok &&
+        !(ports && vtt::ports_clash(ports + static_cast<int64_t>(u) * PW,
+                                    nport, pip_nport, n, PW)) &&
+        !(aff_ok && !aff_ok[ai]);
     // The topology bias joins the static score before the live score
     // does (wave.py:1179, :1288), and only when one is given: -0.0 + 0.0
     // would flip a sign bit of a biasless solve.
     float stat = score_w[static_cast<int64_t>(u) * C + c];
     if (bias) stat = stat + bias[n];
-    const float score = vtt::node_score(rq, al, id, bres, R, w) + stat;
+    float score = vtt::node_score(rq, al, id, bres, R, w) + stat;
+    if (aff_soft) score = score + aff_soft[ai];
     keys[i] = vtt::make_key(feas ? score : vtt::kNeg, static_cast<uint32_t>(i));
     feas_row[i] = feas ? 1 : 0;
     local_any |= feas ? 1 : 0;
@@ -115,7 +127,9 @@ extern "C" int vtt_rank_candidates(
     const void* ntasks, const void* max_tasks, const void* eps,
     const void* scalar_slot, const void* bres, float bw, float lw, float mw,
     float balw, int K, void* keys_scratch, void* feas_scratch,
-    void* out_ranked, void* out_feas, void* out_pany, void* stream) {
+    void* out_ranked, void* out_feas, void* out_pany, const void* ports,
+    int PW, const void* nport, const void* pip_nport, const void* aff_ok,
+    const void* aff_soft, void* stream) {
   if (M == 0) return 0;
   const size_t smem = static_cast<size_t>(K) * sizeof(uint64_t);
   if (smem > 48 * 1024) {
@@ -141,6 +155,11 @@ extern "C" int vtt_rank_candidates(
       static_cast<const float*>(bres), w, K,
       static_cast<uint64_t*>(keys_scratch),
       static_cast<uint8_t*>(feas_scratch), static_cast<int32_t*>(out_ranked),
-      static_cast<uint8_t*>(out_feas), static_cast<uint8_t*>(out_pany));
+      static_cast<uint8_t*>(out_feas), static_cast<uint8_t*>(out_pany),
+      static_cast<const uint32_t*>(ports), PW,
+      static_cast<const uint32_t*>(nport),
+      static_cast<const uint32_t*>(pip_nport),
+      static_cast<const uint8_t*>(aff_ok),
+      static_cast<const float*>(aff_soft));
   return static_cast<int>(cudaGetLastError());
 }

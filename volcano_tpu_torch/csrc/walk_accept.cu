@@ -2,12 +2,13 @@
 // in-order acceptance.
 //
 // Replaces one pass of the JAX package's sub-round body `sub_body`
-// (volcano_tpu/ops/wave.py:1660-2003) for solves without host ports or
-// inter-pod affinity.  With releasing capacity (`rel` given: the JAX
-// has_future branch) the walk reads FutureIdle = ((idle + releasing) -
-// pipelined) - pip_extra (wave.py:1659-1662), pod slots count ntasks +
-// pip_ntasks, and a task that fits the future idle but not the live idle is
-// accepted as pipelined (`acc_pipe`, wave.py:1997-2003):
+// (volcano_tpu/ops/wave.py:1660-2003), up to the inter-pod affinity
+// filter (aff_filter.cu, applied to its outputs).  With releasing
+// capacity (`rel` given: the JAX has_future branch) the walk reads
+// FutureIdle = ((idle + releasing) - pipelined) - pip_extra
+// (wave.py:1659-1662), pod slots count ntasks + pip_ntasks, and a task that
+// fits the future idle but not the live idle is accepted as pipelined
+// (`acc_pipe`, wave.py:1997-2003):
 //
 //  1. per ranked node: copies of the profile that still fit,
 //     c[u,k] = min(floor(min_r idle/req), max_tasks - ntasks), 0 where the
@@ -20,6 +21,12 @@
 //  3. per task: the requests and count of the strictly-earlier live tasks
 //     that chose the same node (the TPU's `tril` matmul), then the idle and
 //     pod-slot checks that give `acc_alloc` (and `acc_pipe`).
+//
+// With host ports a task also fails when an earlier live task on the same
+// node asks for one of its ports, or its node already uses one (allocated
+// | pipelined; wave.py:1735-1747).  A profile anti-affine to its own
+// labels (`self_anti`) holds at most one copy per ranked node in step 1
+// (wave.py:1690-1696).
 //
 // The prefix requests are summed in double: request values are integers in
 // milli-units and bytes, so the sums are exact and independent of order
@@ -42,7 +49,9 @@ __global__ void __launch_bounds__(1024) walk_accept_kernel(
     const float* pxe, const int32_t* pip_ntasks, const int32_t* ntasks,
     const int32_t* max_tasks, int N, const float* eps,
     const uint8_t* scalar_slot, float* cumcap, uint8_t* live,
-    int32_t* out_choice, uint8_t* out_acc, uint8_t* out_pipe) {
+    int32_t* out_choice, uint8_t* out_acc, uint8_t* out_pipe,
+    const uint32_t* ports, int PW, const uint32_t* nport,
+    const uint32_t* pip_nport, const uint8_t* self_anti) {
   // 1. live capacity of every ranked node, then its running sum.
   for (int idx = threadIdx.x; idx < UM * K; idx += blockDim.x) {
     const int u = idx / K;
@@ -60,7 +69,9 @@ __global__ void __launch_bounds__(1024) walk_accept_kernel(
     const int mt = max_tasks[n];
     const int nt = ntasks[n] + (pip_ntasks ? pip_ntasks[n] : 0);
     const float c_pods = mt > 0 ? static_cast<float>(mt - nt) : vtt::kBig;
-    cumcap[idx] = feas_k[idx] ? fminf(floorf(c_res), c_pods) : 0.0f;
+    float c = feas_k[idx] ? fminf(floorf(c_res), c_pods) : 0.0f;
+    if (self_anti && self_anti[u]) c = fminf(c, 1.0f);
+    cumcap[idx] = c;
   }
   __syncthreads();
   for (int u = threadIdx.x; u < UM; u += blockDim.x) {
@@ -96,13 +107,24 @@ __global__ void __launch_bounds__(1024) walk_accept_kernel(
     double cum[vtt::kMaxR];
     for (int s = 0; s < R; ++s) cum[s] = 0.0;
     int cnt = 0;
+    bool port_conf = false;
+    const uint32_t* my_ports =
+        ports ? ports + static_cast<int64_t>(pid_l[t]) * PW : nullptr;
     for (int t2 = 0; t2 < t; ++t2) {
       if (live[t2] && out_choice[t2] == ch) {
         const float* rq2 = p_req + static_cast<int64_t>(pid_l[t2]) * R;
         for (int s = 0; s < R; ++s) cum[s] += static_cast<double>(rq2[s]);
         ++cnt;
+        if (my_ports) {
+          const uint32_t* p2 = ports + static_cast<int64_t>(pid_l[t2]) * PW;
+          for (int w = 0; w < PW; ++w) {
+            if (my_ports[w] & p2[w]) port_conf = true;
+          }
+        }
       }
     }
+    const bool port_live =
+        my_ports && vtt::ports_clash(my_ports, nport, pip_nport, ch, PW);
     const float* irq = p_init_req + static_cast<int64_t>(pid_l[t]) * R;
     float need[vtt::kMaxR];
     for (int s = 0; s < R; ++s) need[s] = irq[s] + static_cast<float>(cum[s]);
@@ -117,7 +139,7 @@ __global__ void __launch_bounds__(1024) walk_accept_kernel(
     const int mt = max_tasks[ch];
     const int nt = ntasks[ch] + (pip_ntasks ? pip_ntasks[ch] : 0);
     const bool pods_fit = mt <= 0 || nt + cnt < mt;
-    const bool clean = live[t] && pods_fit;
+    const bool clean = live[t] && pods_fit && !port_conf && !port_live;
     out_acc[t] = (clean && fits_idle) ? 1 : 0;
     if (out_pipe) out_pipe[t] = (clean && !fits_idle && fits_fut) ? 1 : 0;
   }
@@ -132,7 +154,9 @@ extern "C" int vtt_walk_accept(
     const void* rel, const void* pip, const void* pxe, const void* pip_ntasks,
     const void* ntasks, const void* max_tasks, int N, const void* eps,
     const void* scalar_slot, void* cumcap, void* live, void* out_choice,
-    void* out_acc, void* out_pipe, void* stream) {
+    void* out_acc, void* out_pipe, const void* ports, int PW,
+    const void* nport, const void* pip_nport, const void* self_anti,
+    void* stream) {
   walk_accept_kernel<<<1, 1024, 0, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const int32_t*>(ranked), static_cast<const uint8_t*>(feas_k),
       UM, K, static_cast<const float*>(p_req),
@@ -147,6 +171,9 @@ extern "C" int vtt_walk_accept(
       static_cast<const float*>(eps), static_cast<const uint8_t*>(scalar_slot),
       static_cast<float*>(cumcap), static_cast<uint8_t*>(live),
       static_cast<int32_t*>(out_choice), static_cast<uint8_t*>(out_acc),
-      static_cast<uint8_t*>(out_pipe));
+      static_cast<uint8_t*>(out_pipe), static_cast<const uint32_t*>(ports),
+      PW, static_cast<const uint32_t*>(nport),
+      static_cast<const uint32_t*>(pip_nport),
+      static_cast<const uint8_t*>(self_anti));
   return static_cast<int>(cudaGetLastError());
 }

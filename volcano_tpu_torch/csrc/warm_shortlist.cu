@@ -13,7 +13,11 @@
 // rows (static class verdict and score, init-request fit against idle, pod
 // slots, node_score -- the same arithmetic as coarse_shortlist's main
 // pass; with releasing capacity the fit reads fi0 = (idle + releasing) -
-// pipelined, wave.py:763-768), builds the unique 64-bit keys (score
+// pipelined, wave.py:763-768; with host ports a node whose solve-start
+// ports clash is infeasible, wave.py:790-793; with inter-pod terms on
+// nonzero counts aff_live's planes for the block's rows mask the row and
+// add the soft score after the static one, wave.py:800-812), builds the
+// unique 64-bit keys (score
 // descending, local row ascending: the jax.lax.top_k tie-break),
 // bitonic-sorts them in shared
 // memory and writes the top klb in rank order.  Masked (infeasible) rows
@@ -47,7 +51,9 @@ __global__ void __launch_bounds__(1024) block_rank_kernel(
     const int32_t* max_tasks, const float* eps, const uint8_t* scalar_slot,
     const float* bres, Weights w, const int32_t* db, int ndb, int B,
     int nlb, int klb, int npow2, const float* old_s, const int32_t* old_i,
-    float* cand_s, int32_t* cand_i) {
+    float* cand_s, int32_t* cand_i, const uint32_t* ports, int PW,
+    const uint32_t* nports, const uint8_t* aff_ok, const float* aff_soft,
+    int Ma) {
   extern __shared__ uint64_t smem[];
   uint64_t* keys = smem;                                  // [npow2]
   float* scores = reinterpret_cast<float*>(smem + npow2);  // [nlb]
@@ -55,8 +61,16 @@ __global__ void __launch_bounds__(1024) block_rank_kernel(
   const int u = blockIdx.y;
   const int64_t cbase = (static_cast<int64_t>(u) * B + b) * klb;
   bool dirty = kCold;
+  // The block's position in the dirty list: its rows' offset in the
+  // affinity planes ([U, Ma], Ma = ndb * nlb; every block when cold).
+  int pos = b;
   if (!kCold) {
-    for (int i = 0; i < ndb; ++i) dirty = dirty || db[i] == b;
+    for (int i = 0; i < ndb; ++i) {
+      if (!dirty && db[i] == b) {
+        dirty = true;
+        pos = i;
+      }
+    }
   }
   if (!dirty) {
     for (int r = threadIdx.x; r < klb; r += blockDim.x) {
@@ -76,11 +90,17 @@ __global__ void __launch_bounds__(1024) block_rank_kernel(
       float fi0[vtt::kMaxR];
       vtt::future_idle(idle, rel, pip, nullptr, n, R, fi0);
       const bool pods_ok = max_tasks[n] <= 0 || ntasks[n] < max_tasks[n];
-      const bool feas = stat_ok[static_cast<int64_t>(u) * C + c] != 0 &&
-                        vtt::less_equal(irq, fi0, eps, scalar_slot, R) &&
-                        pods_ok;
-      const float score = vtt::node_score(rq, al, id, bres, R, w) +
-                          stat_score[static_cast<int64_t>(u) * C + c];
+      const int64_t ai =
+          static_cast<int64_t>(u) * Ma + static_cast<int64_t>(pos) * nlb + l;
+      const bool feas =
+          stat_ok[static_cast<int64_t>(u) * C + c] != 0 &&
+          vtt::less_equal(irq, fi0, eps, scalar_slot, R) && pods_ok &&
+          !(ports && vtt::ports_clash(ports + static_cast<int64_t>(u) * PW,
+                                      nports, nullptr, n, PW)) &&
+          !(aff_ok && !aff_ok[ai]);
+      float score = vtt::node_score(rq, al, id, bres, R, w) +
+                    stat_score[static_cast<int64_t>(u) * C + c];
+      if (aff_soft) score = score + aff_soft[ai];
       const float masked = feas ? score : vtt::kNeg;
       scores[l] = masked;
       keys[l] = vtt::make_key(masked, static_cast<uint32_t>(l));
@@ -198,6 +218,8 @@ int launch(const float* req, const float* init_req, int U, int R,
            Weights w, const int32_t* db, int ndb, int B, int nlb, int klb,
            int S, const float* old_s, const int32_t* old_i, float* cand_s,
            int32_t* cand_i, uint64_t* keys_scratch, int32_t* out,
+           const uint32_t* ports, int PW, const uint32_t* nports,
+           const uint8_t* aff_ok, const float* aff_soft, int Ma,
            cudaStream_t st) {
   const int npow2 = pow2_at_least(nlb);
   const size_t rank_smem = static_cast<size_t>(npow2) * sizeof(uint64_t) +
@@ -210,7 +232,7 @@ int launch(const float* req, const float* init_req, int U, int R,
       req, init_req, R, stat_ok, stat_score, C, cls_id, idle, rel, pip,
       alloc, ntasks,
       max_tasks, eps, scalar_slot, bres, w, db, ndb, B, nlb, klb, npow2,
-      old_s, old_i, cand_s, cand_i);
+      old_s, old_i, cand_s, cand_i, ports, PW, nports, aff_ok, aff_soft, Ma);
   err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
   const int spow2 = pow2_at_least(S);
@@ -244,7 +266,9 @@ extern "C" int vtt_block_shortlist(
     const void* scalar_slot, const void* bres, float bw, float lw, float mw,
     float balw, const void* db, int ndb, int B, int nlb, int klb, int S,
     const void* old_s, const void* old_i, void* cand_s, void* cand_i,
-    void* keys_scratch, void* out, void* stream) {
+    void* keys_scratch, void* out, const void* ports, int PW,
+    const void* nports, const void* aff_ok, const void* aff_soft, int Ma,
+    void* stream) {
   Weights w{bw, lw, mw, balw};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   auto f = cold ? launch<true> : launch<false>;
@@ -265,5 +289,8 @@ extern "C" int vtt_block_shortlist(
            static_cast<const int32_t*>(old_i), static_cast<float*>(cand_s),
            static_cast<int32_t*>(cand_i),
            static_cast<uint64_t*>(keys_scratch), static_cast<int32_t*>(out),
-           st);
+           static_cast<const uint32_t*>(ports), PW,
+           static_cast<const uint32_t*>(nports),
+           static_cast<const uint8_t*>(aff_ok),
+           static_cast<const float*>(aff_soft), Ma, st);
 }

@@ -41,7 +41,7 @@ from typing import Optional, Tuple
 import numpy as np
 import torch
 
-from . import kernels
+from . import affkernels, kernels
 
 
 def devincr_on() -> bool:
@@ -183,18 +183,26 @@ class DeviceIncremental:
 
     def shortlist(self, nodes, prof, cls, weights, eps, scalar_slot,
                   sl_k: int, features: tuple, cls_identity: bool, stat,
-                  future=None, plain: bool = False):
+                  future=None, ports=None, aff1=None, plain: bool = False):
         """The solve's [U, sl_k] shortlists: warm-started when the warm
         key held and the dirty-block fraction is low, full re-rank
         (seeding fresh candidates) otherwise.  Bit-identical to the
         direct coarse pass either way.  ``future``: the releasing-capacity
-        planes the fit reads (``kernels.Future``), None without them."""
+        planes the fit reads (``kernels.Future``), None without them;
+        ``ports`` the solve-start port planes; ``aff1`` the solve-start
+        affinity inputs (``wave.Phase1Aff``, None when no resident pod
+        matches a term).  The warm key the caller passed covers the count
+        table's content (its hash), so the clean blocks' candidates were
+        ranked on the same counts."""
         N = int(nodes.idle.shape[0])
         U = int(prof.req.shape[0])
+        dev = nodes.idle.device
         B, nlb, klb = block_geometry(N, sl_k)
         meta = (U, N, B, klb, int(sl_k), tuple(features),
-                bool(cls_identity), stat is not None,
-                str(nodes.idle.device))
+                aff1 is not None, bool(cls_identity), stat is not None,
+                str(dev))
+        rows_u = (None if aff1 is None
+                  else torch.arange(U, dtype=torch.int32, device=dev))
         key = ((self._pend_warm, meta)
                if self._pend_warm is not None else None)
         dirty = self._pend_dirty
@@ -213,12 +221,20 @@ class DeviceIncremental:
                 return self._cand[2]
             if len(db) <= max(1, int(B * WARM_MAX_BLOCK_FRACTION)):
                 cand_s, cand_i, _sl = self._cand
-                db_t = torch.from_numpy(db).to(nodes.idle.device)
+                db_t = torch.from_numpy(db).to(dev)
+                aff = None
+                if aff1 is not None:
+                    # The dirty blocks' node rows, in db order.
+                    drows = (db_t.long()[:, None] * nlb + torch.arange(
+                        nlb, device=dev)[None, :]).reshape(-1)
+                    aff = affkernels.aff_live(
+                        rows_u, drows.to(torch.int32), aff1.terms, aff1.at,
+                        plain=plain)
                 sl, cand_s, cand_i = kernels.warm_shortlist(
                     prof, cls.class_id, stat[0], stat[1], nodes.idle,
                     nodes.allocatable, nodes.ntasks, nodes.max_tasks, eps,
                     scalar_slot, weights, db_t, cand_s, cand_i, int(sl_k),
-                    future=future, plain=plain,
+                    future=future, ports=ports, aff=aff, plain=plain,
                 )
                 self._cand = (cand_s, cand_i, sl)
                 self.last_mode = "warm"
@@ -226,11 +242,13 @@ class DeviceIncremental:
                 self.counts["warm"] += 1
                 return sl
         # Full re-rank -- also seeds the candidates for the next solve.
+        aff = None if aff1 is None else affkernels.aff_live(
+            rows_u, None, aff1.terms, aff1.at, plain=plain)
         sl, _ok, _sc, cand_s, cand_i = kernels.coarse_shortlist(
             prof, cls, nodes.idle, nodes.allocatable, nodes.ntasks,
             nodes.max_tasks, eps, scalar_slot, weights, int(sl_k),
             has_taints=bool(features[2]), stat=stat, n_blocks=B,
-            future=future, plain=plain,
+            future=future, ports=ports, aff=aff, plain=plain,
         )
         self._cand = (cand_s, cand_i, sl)
         self._warm_key = key

@@ -25,6 +25,10 @@ wrapper                replaces (JAX package)
 ``fabric_frag``        ``ops/topology.py:fabric_frag`` (:240)
 =====================  ===================================================
 
+The inter-pod affinity kernels (``scatter_cnt0``, ``scatter_profile_tables``,
+``aff_live``, ``aff_filter``) have their wrappers in ``ops/affkernels.py``
+and share this module's loader, launch counts and capture.
+
 Each wrapper takes its inputs as tensors.  On CPU tensors it runs the
 kernel's plain version; on CUDA tensors it launches the kernel (on torch's
 current stream) or raises -- there is no fallback.  ``plain=True`` forces
@@ -76,6 +80,10 @@ LAUNCHES = {
     "frag_scores": 0,
     "gang_block_fit": 0,
     "fabric_frag": 0,
+    "scatter_cnt0": 0,
+    "scatter_profile_tables": 0,
+    "aff_live": 0,
+    "aff_filter": 0,
 }
 
 # Where each kernel's source lives and which JAX code it replaces
@@ -92,6 +100,10 @@ KERNEL_SOURCES = {
     "frag_scores": "volcano_tpu_torch/csrc/frag_scores.cu",
     "gang_block_fit": "volcano_tpu_torch/csrc/topology.cu",
     "fabric_frag": "volcano_tpu_torch/csrc/topology.cu",
+    "scatter_cnt0": "volcano_tpu_torch/csrc/aff_tables.cu",
+    "scatter_profile_tables": "volcano_tpu_torch/csrc/aff_tables.cu",
+    "aff_live": "volcano_tpu_torch/csrc/aff_live.cu",
+    "aff_filter": "volcano_tpu_torch/csrc/aff_filter.cu",
 }
 REPLACES = {
     "coarse_shortlist": "volcano_tpu/ops/wave.py:547",
@@ -105,6 +117,10 @@ REPLACES = {
     "frag_scores": "volcano_tpu/ops/rebalance.py:61",
     "gang_block_fit": "volcano_tpu/ops/topology.py:179",
     "fabric_frag": "volcano_tpu/ops/topology.py:240",
+    "scatter_cnt0": "volcano_tpu/ops/wave.py:2296",
+    "scatter_profile_tables": "volcano_tpu/ops/wave.py:2301",
+    "aff_live": "volcano_tpu/ops/wave.py:1229",
+    "aff_filter": "volcano_tpu/ops/wave.py:1749",
 }
 
 MAX_R = 16  # csrc/common.cuh kMaxR
@@ -127,8 +143,8 @@ def _capture(name: str, **inputs) -> None:
     def clone(v):
         if isinstance(v, torch.Tensor):
             return v.clone()
-        if isinstance(v, Future):
-            return Future(*[None if t is None else t.clone() for t in v])
+        if isinstance(v, tuple) and hasattr(v, "_fields"):
+            return type(v)(*[clone(t) for t in v])
         return v
 
     CAPTURE[name] = {k: clone(v) for k, v in inputs.items()}
@@ -140,7 +156,8 @@ _CSRC = Path(__file__).resolve().parent.parent / "csrc"
 _BUILD = _CSRC / "_build"
 _SOURCES = ("coarse_shortlist.cu", "rank_candidates.cu", "walk_accept.cu",
             "apply_commit.cu", "warm_shortlist.cu", "scatter_rows.cu",
-            "victim_scores.cu", "frag_scores.cu", "topology.cu")
+            "victim_scores.cu", "frag_scores.cu", "topology.cu",
+            "aff_tables.cu", "aff_live.cu", "aff_filter.cu")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-O3",
               "-fmad=false", "-std=c++17", "-Xcompiler", "-fPIC")
 BUILD_SECONDS: Optional[float] = None
@@ -211,23 +228,25 @@ _SIGS = {
     "vtt_coarse_shortlist": [_P, _P, _I, _I, _P, _I, _P, _I, _P, _P, _I, _P,
                              _I, _P, _P, _P, _P, _P, _I, _P, _P, _P, _P, _P,
                              _P, _I, _P, _P, _P, _F, _F, _F, _F, _F, _I, _I,
-                             _I, _P, _P, _P, _P, _P],
+                             _I, _P, _P, _P, _P, _P, _I, _P, _P, _P, _P],
     "vtt_static_planes": [_I, _P, _I, _P, _I, _P, _P, _I, _P, _I, _P, _P,
                           _P, _P, _I, _F, _I, _P, _P, _P],
     "vtt_block_shortlist": [_I, _P, _P, _I, _I, _P, _P, _I, _P, _P, _P, _P,
                             _P, _P, _P, _P, _P, _P, _F, _F, _F, _F, _P, _I,
-                            _I, _I, _I, _I, _P, _P, _P, _P, _P, _P, _P],
+                            _I, _I, _I, _I, _P, _P, _P, _P, _P, _P, _P, _I,
+                            _P, _P, _P, _I, _P],
     "vtt_block_shortlist_smem": [_I, _I],
     "vtt_scatter_rows": [_P, _P, _P, _I, _L, _P],
     "vtt_rank_candidates": [_P, _I, _P, _I, _P, _P, _P, _I, _P, _P, _P, _I,
                             _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _F,
-                            _F, _F, _F, _I, _P, _P, _P, _P, _P, _P],
-    "vtt_walk_accept": [_P, _P, _I, _I, _P, _P, _I, _P, _P, _P, _P, _I, _P,
-                        _P, _P, _P, _P, _P, _P, _I, _P, _P, _P, _P, _P, _P,
-                        _P, _P],
+                            _F, _F, _F, _I, _P, _P, _P, _P, _P, _P, _I, _P,
+                            _P, _P, _P, _P],
+    "vtt_walk_accept": [_P, _P, _I, _I, _P, _P, _I, _P, _P, _P, _P, _I, _P, _P,
+                        _P, _P, _P, _P, _P, _I, _P, _P, _P, _P, _P, _P, _P, _P,
+                        _I, _P, _P, _P, _P],
     "vtt_apply_commit": [_P, _P, _P, _P, _P, _I, _I, _F, _I, _P, _P, _I, _P,
                          _I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
-                         _P],
+                         _P, _I, _P, _P, _P, _I, _P, _P, _I, _I, _P, _P, _P],
     "vtt_victim_scores": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P, _P,
                           _P, _I, _I, _I, _I, _P, _P, _P, _P, _P, _P, _P, _P,
                           _P],
@@ -235,6 +254,13 @@ _SIGS = {
     "vtt_gang_block_fit": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
                            _P, _P, _P, _P],
     "vtt_fabric_frag": [_P, _P, _P, _I, _I, _P, _P],
+    "vtt_scatter_cnt0": [_P, _P, _P, _I, _I, _I, _P, _P],
+    "vtt_scatter_profile_tables": [_P, _P, _P, _P, _I, _I, _I, _P, _P, _P,
+                                   _P, _P],
+    "vtt_aff_live": [_P, _I, _P, _I, _I, _P, _I, _I, _P, _I, _P, _P, _P, _I,
+                     _I, _P, _P, _P, _P, _I, _P, _P, _P, _P],
+    "vtt_aff_filter": [_P, _P, _P, _I, _P, _I, _P, _P, _P, _I, _I, _P, _P,
+                       _P, _I, _P, _P, _P, _P, _P],
 }
 
 
@@ -336,6 +362,57 @@ def _future_args(future: Optional[Future], idle, ntasks, name: str):
             _ptr(pnt))
 
 
+class Ports(NamedTuple):
+    """Host-port bit planes of a solve (uint32 words as int32): ``prof``
+    the [U, PW] ports each profile row asks for, ``node`` the [N, PW]
+    ports in use per node, ``pip`` those charged by pipelined tasks (or
+    None).  A row asking for no port never clashes."""
+
+    prof: torch.Tensor
+    node: torch.Tensor
+    pip: Optional[torch.Tensor] = None
+
+
+def _ports_ok_plain(pp, used):
+    """``pp`` [M, PW] asked ports, ``used`` [M, L, PW] used ports at each
+    candidate -> [M, L] no clash (wave.py:650-653, :1222-1227)."""
+    has = (pp != 0).any(dim=-1)
+    clash = ((pp[:, None, :] & used) != 0).any(dim=-1)
+    return ~has[:, None] | ~clash
+
+
+def _used_ports(ports: "Ports"):
+    return ports.node if ports.pip is None else ports.node | ports.pip
+
+
+def _ports_args(ports: Optional["Ports"], U: int, N: int, name: str):
+    """(prof, PW, node, pip) pointers after the checks (nulls without
+    ports)."""
+    if ports is None:
+        return (None, 0, None, None)
+    i32 = torch.int32
+    pp = _req(ports.prof, i32, f"{name} profile ports")
+    nb = _req(ports.node, i32, f"{name} node ports")
+    pw = pp.shape[1]
+    if pp.shape != (U, pw) or nb.shape != (N, pw) or (
+            ports.pip is not None
+            and _req(ports.pip, i32, f"{name} pipelined ports").shape
+            != (N, pw)):
+        raise ValueError(f"{name}: inconsistent port plane shapes")
+    return (_ptr(pp), pw, _ptr(nb), _ptr(ports.pip))
+
+
+def _aff_planes(aff, M: int, L: int, name: str):
+    """(ok, soft) pointers of the [M, L] affinity planes (nulls without)."""
+    if aff is None:
+        return (None, None)
+    ok = _req(aff[0], torch.bool, f"{name} aff_ok")
+    soft = _req(aff[1], torch.float32, f"{name} aff_soft")
+    if ok.shape != (M, L) or soft.shape != (M, L):
+        raise ValueError(f"{name}: affinity planes are not [{M}, {L}]")
+    return (_ptr(ok), _ptr(soft))
+
+
 # ------------------------------------------------- selection (plain)
 
 def _select_desc(masked: torch.Tensor, k: int) -> torch.Tensor:
@@ -377,11 +454,15 @@ def class_static_plain(sel_bits, aff_bits, aff_terms, tol_bits, pref_bits,
 
 
 def _masked_plain(req, init_req, stat_ok, stat_score, cid, idle, alloc,
-                  ntasks, max_tasks, eps, scalar_slot, weights, fi0=None):
+                  ntasks, max_tasks, eps, scalar_slot, weights, fi0=None,
+                  ports=None, aff=None):
     """[U, M] solve-start scores of node rows whose planes are given
     (``cid`` their class ids), NEG where infeasible -- the coarse body
-    (wave.py:640-664) without ports and inter-pod terms.  ``fi0`` is the
-    solve-start FutureIdle the fit reads (``idle`` when None)."""
+    (wave.py:640-664).  ``fi0`` is the solve-start FutureIdle the fit
+    reads (``idle`` when None); ``ports`` a ``Ports`` whose ``node`` plane
+    holds these rows; ``aff`` the rows' (ok, soft) affinity planes: the
+    verdict joins the mask and the soft score joins after the static one,
+    (node_score + static) + soft."""
     cid = cid.long()
     feas = stat_ok[:, cid]
     static_score = stat_score[:, cid]
@@ -389,16 +470,24 @@ def _masked_plain(req, init_req, stat_ok, stat_score, cid, idle, alloc,
     fit = less_equal(init_req[:, None, :], fi0[None, :, :], eps, scalar_slot)
     pods_ok = (max_tasks <= 0) | (ntasks < max_tasks)
     feas = feas & fit & pods_ok[None, :]
+    if ports is not None:
+        U = ports.prof.shape[0]
+        feas = feas & _ports_ok_plain(
+            ports.prof, ports.node[None].expand(U, -1, -1))
     score = node_score(req[:, None, :], alloc[None], idle[None], weights)
     score = score + static_score
+    if aff is not None:
+        feas = feas & aff[0]
+        score = score + aff[1]
     return torch.where(feas, score, torch.full_like(score, NEG))
 
 
 def _coarse_plain(req, init_req, stat_ok, stat_score, cls_id, idle, alloc,
-                  ntasks, max_tasks, eps, scalar_slot, weights, S, fi0=None):
+                  ntasks, max_tasks, eps, scalar_slot, weights, S, fi0=None,
+                  ports=None, aff=None):
     masked = _masked_plain(req, init_req, stat_ok, stat_score, cls_id, idle,
                            alloc, ntasks, max_tasks, eps, scalar_slot,
-                           weights, fi0)
+                           weights, fi0, ports, aff)
     idx = _select_desc(masked, S)
     return torch.sort(idx, dim=1).values.to(torch.int32)
 
@@ -478,9 +567,14 @@ def _block_geometry(N: int, B: int, S: int):
 
 
 def _launch_block_shortlist(a, stat_ok, stat_score, weights, db, B, nlb,
-                            klb, S, old, cand_s, cand_i, fut_ptrs):
+                            klb, S, old, cand_s, cand_i, fut_ptrs, ports,
+                            aff):
     U, R = a["req"].shape
     C = stat_ok.shape[1]
+    N = a["idle"].shape[0]
+    Ma = N if db is None else int(db.shape[0]) * nlb
+    pp = _ports_args(ports, U, N, "block_shortlist")
+    ap = _aff_planes(aff, U, Ma, "block_shortlist")
     dev = a["idle"].device
     keys = torch.empty((U, B * klb), dtype=torch.int64, device=dev)
     out = torch.empty((U, S), dtype=torch.int32, device=dev)
@@ -493,7 +587,8 @@ def _launch_block_shortlist(a, stat_ok, stat_score, weights, db, B, nlb,
         _ptr(a["bres"]), *_weights(weights), _ptr(db),
         0 if db is None else int(db.shape[0]), B, nlb, klb, S,
         _ptr(old[0] if old else None), _ptr(old[1] if old else None),
-        _ptr(cand_s), _ptr(cand_i), _ptr(keys), _ptr(out), _stream(),
+        _ptr(cand_s), _ptr(cand_i), _ptr(keys), _ptr(out), *pp[:3], *ap, Ma,
+        _stream(),
     )
     return rc, out
 
@@ -501,7 +596,7 @@ def _launch_block_shortlist(a, stat_ok, stat_score, weights, db, B, nlb,
 def coarse_shortlist(prof, cls, idle, alloc, ntasks, max_tasks, eps,
                      scalar_slot, weights, S: int, has_taints: bool,
                      stat=None, n_blocks: int = 0, future=None,
-                     plain: bool = False):
+                     ports=None, aff=None, plain: bool = False):
     """Phase 1: ``(shortlist [U, S] int32 ascending ids, stat_ok [U, C]
     bool, stat_score [U, C] f32)``, plus ``(cand_s [U, B, klb] f32,
     cand_i [U, B, klb] int32)`` when ``n_blocks`` (B) is given.
@@ -518,7 +613,12 @@ def coarse_shortlist(prof, cls, idle, alloc, ntasks, max_tasks, eps,
     candidates a later ``warm_shortlist`` patches.  It needs ``stat``
     (``static_planes`` builds the planes it reads).  With ``future`` (its
     ``rel`` and ``pip``) the fit reads fi0 = (idle + releasing) -
-    pipelined (wave.py:608-609)."""
+    pipelined (wave.py:608-609).  ``ports`` (a ``Ports``: the profile
+    rows' asked ports and the nodes' solve-start ports) drops clashing
+    nodes (wave.py:650-653); ``aff`` (``aff_live``'s [U, N] planes on
+    the solve-start counts) masks required-affinity and anti-affinity
+    violations and adds the soft score after the static one (wave.py:
+    655-660)."""
     naff = float(weights.node_affinity_weight)
     if n_blocks and stat is None:
         raise ValueError("coarse_shortlist: n_blocks needs the static "
@@ -536,14 +636,14 @@ def coarse_shortlist(prof, cls, idle, alloc, ntasks, max_tasks, eps,
         if not n_blocks:
             sl = _coarse_plain(prof.req, prof.init_req, ok, score,
                                cls.class_id, idle, alloc, ntasks, max_tasks,
-                               eps, scalar_slot, weights, S, fi0)
+                               eps, scalar_slot, weights, S, fi0, ports, aff)
             return sl, ok, score
         N = idle.shape[0]
         nlb = N // n_blocks
         klb = min(S, nlb)
         masked = _masked_plain(prof.req, prof.init_req, ok, score,
                                cls.class_id, idle, alloc, ntasks, max_tasks,
-                               eps, scalar_slot, weights, fi0)
+                               eps, scalar_slot, weights, fi0, ports, aff)
         cand_s, cand_i = _block_rank_plain(
             masked, torch.arange(n_blocks, device=idle.device), nlb, klb)
         return (_merge_plain(cand_s, cand_i, S), ok, score, cand_s, cand_i)
@@ -562,8 +662,10 @@ def coarse_shortlist(prof, cls, idle, alloc, ntasks, max_tasks, eps,
                              or a["stat_score"].shape != (U, C)):
         raise ValueError("coarse_shortlist: static planes are not [U, C]")
     fut = _future_args(future, idle, ntasks, "coarse_shortlist")
-    _capture("coarse_shortlist", weights=weights, S=S, has_taints=has_taints,
-             n_blocks=n_blocks, C=C, future=future, **a)
+    _capture("coarse_shortlist" + ("" if aff is None else ":aff"),
+             weights=weights, S=S, has_taints=has_taints,
+             n_blocks=n_blocks, C=C, future=future, ports=ports, aff=aff,
+             **a)
     dev = idle.device
     if stat is None:
         stat_ok = torch.empty((U, C), dtype=torch.bool, device=dev)
@@ -578,7 +680,7 @@ def coarse_shortlist(prof, cls, idle, alloc, ntasks, max_tasks, eps,
                              device=dev)
         rc, out = _launch_block_shortlist(
             a, stat_ok, stat_score, weights, None, n_blocks, nlb, klb, S,
-            None, cand_s, cand_i, fut)
+            None, cand_s, cand_i, fut, ports, aff)
         _check(rc, "coarse_shortlist")
         LAUNCHES["coarse_shortlist"] += 1
         return out, stat_ok, stat_score, cand_s, cand_i
@@ -586,6 +688,8 @@ def coarse_shortlist(prof, cls, idle, alloc, ntasks, max_tasks, eps,
     out = torch.empty((U, S), dtype=torch.int32, device=dev)
     z = torch.zeros(1, dtype=torch.int32, device=dev)
     g = (lambda k: a.get(k, z))
+    pp = _ports_args(ports, U, N, "coarse_shortlist")
+    ap = _aff_planes(aff, U, N, "coarse_shortlist")
     rc = load().vtt_coarse_shortlist(
         _ptr(a["req"]), _ptr(a["init_req"]), U, R, _ptr(g("sel_bits")),
         g("sel_bits").shape[-1] if stat is None else 0, _ptr(g("aff_bits")),
@@ -599,7 +703,7 @@ def coarse_shortlist(prof, cls, idle, alloc, ntasks, max_tasks, eps,
         _ptr(a["eps"]), _ptr(a["scalar_slot"]), _ptr(a["bres"]),
         *_weights(weights), naff, int(bool(has_taints)), S,
         int(stat is not None), _ptr(stat_ok), _ptr(stat_score), _ptr(keys),
-        _ptr(out), _stream(),
+        _ptr(out), *pp[:3], *ap, _stream(),
     )
     _check(rc, "coarse_shortlist")
     LAUNCHES["coarse_shortlist"] += 1
@@ -657,7 +761,7 @@ def static_planes(prof, cls, naff: float, has_taints: bool,
 
 def _warm_plain(req, init_req, stat_ok, stat_score, cls_id, idle, alloc,
                 ntasks, max_tasks, eps, scalar_slot, weights, db, cand_s,
-                cand_i, S, future=None):
+                cand_i, S, future=None, ports=None, aff=None):
     B, klb = cand_s.shape[1], cand_s.shape[2]
     nlb = idle.shape[0] // B
     dbl = db.long()
@@ -666,7 +770,9 @@ def _warm_plain(req, init_req, stat_ok, stat_score, cls_id, idle, alloc,
     masked = _masked_plain(req, init_req, stat_ok, stat_score, cls_id[rows],
                            idle[rows], alloc[rows], ntasks[rows],
                            max_tasks[rows], eps, scalar_slot, weights,
-                           future_idle(idle, future)[rows])
+                           future_idle(idle, future)[rows],
+                           None if ports is None else ports._replace(
+                               node=ports.node[rows]), aff)
     s_new, i_new = _block_rank_plain(masked, db, nlb, klb)
     cs = cand_s.clone()
     ci = cand_i.clone()
@@ -677,19 +783,22 @@ def _warm_plain(req, init_req, stat_ok, stat_score, cls_id, idle, alloc,
 
 def warm_shortlist(prof, cls_id, stat_ok, stat_score, idle, alloc, ntasks,
                    max_tasks, eps, scalar_slot, weights, db, cand_s, cand_i,
-                   S: int, future=None, plain: bool = False):
+                   S: int, future=None, ports=None, aff=None,
+                   plain: bool = False):
     """Warm-started shortlists (wave.py:721 ``_warm_shortlist``):
     re-rank only the node blocks ``db`` ([ndb] int32, unique block ids),
     keep every other block's candidates from ``cand_s``/``cand_i``
     ([U, B, klb]), merge the winners.  Returns ``(shortlist [U, S] int32
     ascending ids, cand_s, cand_i)``; the candidates are new tensors (the
-    inputs are never written).  ``future`` as in ``coarse_shortlist``
-    (wave.py:763-768)."""
+    inputs are never written).  ``future`` and ``ports`` as in
+    ``coarse_shortlist`` (wave.py:763-768, :790-793); ``aff`` the
+    affinity planes of the dirty blocks' rows ([U, ndb * nlb], blocks in
+    ``db`` order, wave.py:777-812)."""
     if not _on_card(plain, idle, prof.req, db, cand_s):
         return _warm_plain(prof.req, prof.init_req, stat_ok, stat_score,
                            cls_id, idle, alloc, ntasks, max_tasks, eps,
                            scalar_slot, weights, db, cand_s, cand_i, S,
-                           future)
+                           future, ports, aff)
     from .nodeclass import NodeClasses
 
     U, B, klb = cand_s.shape
@@ -706,14 +815,15 @@ def warm_shortlist(prof, cls_id, stat_ok, stat_score, idle, alloc, ntasks,
             or db.dim() != 1 or not 1 <= db.shape[0] <= B):
         raise ValueError("warm_shortlist: inconsistent input shapes")
     fut = _future_args(future, idle, ntasks, "warm_shortlist")
-    _capture("warm_shortlist", weights=weights, S=S, db=db, cand_s=cand_s,
-             cand_i=cand_i, future=future, **a)
+    _capture("warm_shortlist" + ("" if aff is None else ":aff"),
+             weights=weights, S=S, db=db, cand_s=cand_s, cand_i=cand_i,
+             future=future, ports=ports, aff=aff, **a)
     dev = idle.device
     new_s = torch.empty_like(cand_s)
     new_i = torch.empty_like(cand_i)
     rc, out = _launch_block_shortlist(
         a, a["stat_ok"], a["stat_score"], weights, db, B, nlb, klb, S,
-        (cand_s, cand_i), new_s, new_i, fut)
+        (cand_s, cand_i), new_s, new_i, fut, ports, aff)
     _check(rc, "warm_shortlist")
     LAUNCHES["warm_shortlist"] += 1
     return out, new_s, new_i
@@ -750,7 +860,7 @@ def scatter_rows(buf: torch.Tensor, rows: torch.Tensor, vals: torch.Tensor,
 
 def _rank_plain(rows, cand, ok_w, score_w, cls_id, p_req, p_init_req, idle,
                 alloc, ntasks, max_tasks, eps, scalar_slot, weights, K,
-                future=None, bias=None):
+                future=None, bias=None, ports=None, aff=None):
     rows_l = rows.long()
     if cand is None:
         nodes = torch.arange(idle.shape[0], device=idle.device)[None, :]
@@ -768,8 +878,14 @@ def _rank_plain(rows, cand, ok_w, score_w, cls_id, p_req, p_init_req, idle,
     mt = max_tasks[nodes]
     pods_ok = (mt <= 0) | (_total_ntasks(ntasks, future)[nodes] < mt)
     feas = ok & fit & pods_ok
+    if ports is not None:
+        feas = feas & _ports_ok_plain(ports.prof[rows_l],
+                                      _used_ports(ports)[nodes])
     score = node_score(p_req[rows_l][:, None, :], alloc[nodes], idle_c,
                        weights) + sscore
+    if aff is not None:
+        feas = feas & aff[0]
+        score = score + aff[1]
     masked = torch.where(feas, score, torch.full_like(score, NEG))
     pos = _select_desc(masked, K)
     ranked = torch.gather(nodes, 1, pos).to(torch.int32)
@@ -778,8 +894,8 @@ def _rank_plain(rows, cand, ok_w, score_w, cls_id, p_req, p_init_req, idle,
 
 def rank_candidates(rows, cand, ok_w, score_w, cls_id, p_req, p_init_req,
                     idle, alloc, ntasks, max_tasks, eps, scalar_slot,
-                    weights, K: int, future=None, bias=None,
-                    plain: bool = False):
+                    weights, K: int, future=None, bias=None, ports=None,
+                    aff=None, plain: bool = False):
     """Live top-K of the wave profile rows ``rows`` ([M] int32 into the
     wave's [UM] rows).  ``cand`` is [UM, L] candidate node ids (a profile's
     ascending shortlist) or None for all N nodes.  ``ok_w``/``score_w`` are
@@ -788,13 +904,18 @@ def rank_candidates(rows, cand, ok_w, score_w, cls_id, p_req, p_init_req,
     1205-1218, 1314-1322); the score keeps the live idle.  ``bias`` ([N]
     f32, the fabric topology's node-order bias) joins the static score
     before the live score does: node_score + (static + bias) (wave.py:1179,
-    :1288); without it nothing is added.  Returns
+    :1288); without it nothing is added.  ``ports`` (a ``Ports`` of the
+    wave's [UM, PW] profile ports and the live node planes) drops nodes
+    whose used ports (allocated | pipelined) clash (wave.py:1222-1227,
+    :1329-1334); ``aff`` ([M, L] ok / soft planes of ``aff_live``, row b
+    for ``rows[b]``) masks the affinity verdict and adds the soft score
+    after the static one (wave.py:1385-1389).  Returns
     ``(ranked [M, K] int32 node ids in rank order, feas_k [M, K] bool,
     p_any [M] bool)``."""
     if not _on_card(plain, idle, p_req, rows):
         return _rank_plain(rows, cand, ok_w, score_w, cls_id, p_req,
                            p_init_req, idle, alloc, ntasks, max_tasks, eps,
-                           scalar_slot, weights, K, future, bias)
+                           scalar_slot, weights, K, future, bias, ports, aff)
     M = rows.shape[0]
     N, R = idle.shape
     L = N if cand is None else cand.shape[1]
@@ -832,9 +953,13 @@ def rank_candidates(rows, cand, ok_w, score_w, cls_id, p_req, p_init_req,
             or (bias is not None and bias.shape != (N,))):
         raise ValueError("rank_candidates: inconsistent input shapes")
     fut = _future_args(future, idle, ntasks, "rank_candidates")
-    # A biased launch is captured apart (chip_smoke.py replays both).
-    _capture("rank_candidates" + ("" if bias is None else ":bias"),
-             weights=weights, K=K, future=future, **a)
+    pp = _ports_args(ports, UM, N, "rank_candidates")
+    ap = _aff_planes(aff, M, L, "rank_candidates")
+    # A biased launch and one with affinity planes are captured apart
+    # (chip_smoke.py replays each).
+    _capture("rank_candidates" + ("" if bias is None else ":bias")
+             + ("" if aff is None else ":aff"),
+             weights=weights, K=K, future=future, ports=ports, aff=aff, **a)
     dev = idle.device
     ranked = torch.empty((M, K), dtype=i32, device=dev)
     feas_k = torch.empty((M, K), dtype=u8, device=dev)
@@ -849,7 +974,7 @@ def rank_candidates(rows, cand, ok_w, score_w, cls_id, p_req, p_init_req,
         _ptr(a["alloc"]), _ptr(a["ntasks"]), _ptr(a["max_tasks"]),
         _ptr(a["eps"]), _ptr(a["scalar_slot"]), _ptr(bres),
         *_weights(weights), K, _ptr(keys), _ptr(feas_s), _ptr(ranked),
-        _ptr(feas_k), _ptr(p_any), _stream(),
+        _ptr(feas_k), _ptr(p_any), *pp, *ap, _stream(),
     )
     _check(rc, "rank_candidates")
     LAUNCHES["rank_candidates"] += 1
@@ -878,7 +1003,8 @@ def _exclusive_segment_sum(key, vals):
 
 
 def _walk_plain(ranked, feas_k, p_req, p_init_req, pid_l, cand_s, any_feas,
-                grp, idle, ntasks, max_tasks, eps, scalar_slot, future=None):
+                grp, idle, ntasks, max_tasks, eps, scalar_slot, future=None,
+                ports=None, self_anti=None, live_out=None):
     UM, K = ranked.shape
     N = idle.shape[0]
     W = pid_l.shape[0]
@@ -896,6 +1022,10 @@ def _walk_plain(ranked, feas_k, p_req, p_init_req, pid_l, cand_s, any_feas,
     c_pods = torch.where(mt > 0, (mt - nt[rk]).to(torch.float32), big)
     c = torch.where(feas_k, torch.minimum(torch.floor(c_res), c_pods),
                     torch.zeros_like(c_res))
+    if self_anti is not None:
+        # A profile anti-affine to its own labels takes one copy per node
+        # (wave.py:1690-1696).
+        c = torch.where(self_anti[:, None], torch.clamp(c, max=1.0), c)
     cumcap = torch.cumsum(c, dim=1)
     # m: earlier remaining candidates of my contention group.
     pl = pid_l.long()
@@ -919,6 +1049,19 @@ def _walk_plain(ranked, feas_k, p_req, p_init_req, pid_l, cand_s, any_feas,
     fits_idle = less_equal(need, idle[choice], eps, scalar_slot)
     mt_c = max_tasks[choice]
     clean = live & ((mt_c <= 0) | (nt[choice] + cum_cnt < mt_c))
+    if ports is not None:
+        # Pair clash with an earlier live task on the same node, and the
+        # live clash against the used ports (wave.py:1735-1747).
+        pw = ports.prof[pl]  # [W, PW]
+        tril = torch.ones((W, W), dtype=torch.bool,
+                          device=idle.device).tril(-1)
+        same = (choice[:, None] == choice[None, :]) & tril & live[None, :]
+        pair = ((pw[:, None, :] & pw[None, :, :]) != 0).any(dim=-1)
+        port_conf = (same & pair).any(dim=1)
+        port_live = ((pw & _used_ports(ports)[choice]) != 0).any(dim=1)
+        clean = clean & ~port_conf & ~port_live
+    if live_out is not None:
+        live_out.copy_(live)
     pipe = None
     if future is not None:
         fits_fut = less_equal(need, fi[choice], eps, scalar_slot)
@@ -928,18 +1071,25 @@ def _walk_plain(ranked, feas_k, p_req, p_init_req, pid_l, cand_s, any_feas,
 
 def walk_accept(ranked, feas_k, p_req, p_init_req, pid_l, cand_s, any_feas,
                 grp, idle, ntasks, max_tasks, eps, scalar_slot, future=None,
+                ports=None, self_anti=None, live_out=None,
                 plain: bool = False):
-    """One sub-round without ports or affinity: ``(choice [W] int32,
-    acc_alloc [W] bool, acc_pipe [W] bool or None)``.  ``pid_l`` is each
-    task's row in the wave's [UM] profile list, ``grp`` the [UM, UM]
-    contention groups.  With ``future`` the walk reads FutureIdle, pod
-    slots count ntasks + pip_ntasks, and a task that fits the future idle
-    but not the live idle is accepted as pipelined (wave.py:1997-2003);
-    without it ``acc_pipe`` is None."""
+    """One sub-round's walk and acceptance before the affinity filter:
+    ``(choice [W] int32, acc_alloc [W] bool, acc_pipe [W] bool or
+    None)``.  ``ports`` (a ``Ports`` of the wave's profile ports and the
+    live node planes) rejects a task whose ports clash with an earlier
+    live task's on the same node or with the node's used ports;
+    ``self_anti`` ([UM] bool: the profile is anti-affine to its own
+    labels) caps its walk at one copy per node; ``live_out`` ([W] bool)
+    receives the walk's live flags (the affinity filter's giver mask).
+    ``pid_l`` is each task's row in the wave's [UM] profile list, ``grp``
+    the [UM, UM] contention groups.  With ``future`` the walk reads
+    FutureIdle, pod slots count ntasks + pip_ntasks, and a task that fits
+    the future idle but not the live idle is accepted as pipelined
+    (wave.py:1997-2003); without it ``acc_pipe`` is None."""
     if not _on_card(plain, idle, ranked, pid_l):
         return _walk_plain(ranked, feas_k, p_req, p_init_req, pid_l, cand_s,
                            any_feas, grp, idle, ntasks, max_tasks, eps,
-                           scalar_slot, future)
+                           scalar_slot, future, ports, self_anti, live_out)
     UM, K = ranked.shape
     N, R = idle.shape
     W = pid_l.shape[0]
@@ -962,10 +1112,20 @@ def walk_accept(ranked, feas_k, p_req, p_init_req, pid_l, cand_s, any_feas,
             or cand_s.shape != (W,) or any_feas.shape != (W,)):
         raise ValueError("walk_accept: inconsistent input shapes")
     fut = _future_args(future, idle, ntasks, "walk_accept")
-    _capture("walk_accept", future=future, **a)
+    pp = _ports_args(ports, UM, N, "walk_accept")
+    if self_anti is not None and _req(self_anti, u8,
+                                      "self_anti").shape != (UM,):
+        raise ValueError("walk_accept: self_anti is not [UM]")
+    _capture("walk_accept" + ("" if ports is None and self_anti is None
+                              else ":aff"),
+             future=future, ports=ports, self_anti=self_anti, **a)
     dev = idle.device
     cumcap = torch.empty((UM, K), dtype=f32, device=dev)
-    live = torch.empty((W,), dtype=u8, device=dev)
+    if live_out is not None and (_req(live_out, u8, "live_out").shape
+                                 != (W,)):
+        raise ValueError("walk_accept: live_out is not [W]")
+    live = (live_out if live_out is not None
+            else torch.empty((W,), dtype=u8, device=dev))
     choice = torch.empty((W,), dtype=i32, device=dev)
     acc = torch.empty((W,), dtype=u8, device=dev)
     pipe = None if future is None else torch.empty((W,), dtype=u8, device=dev)
@@ -975,7 +1135,7 @@ def walk_accept(ranked, feas_k, p_req, p_init_req, pid_l, cand_s, any_feas,
         _ptr(a["any_feas"]), _ptr(a["grp"]), W, _ptr(a["idle"]), *fut,
         _ptr(a["ntasks"]), _ptr(a["max_tasks"]), N, _ptr(a["eps"]),
         _ptr(a["scalar_slot"]), _ptr(cumcap), _ptr(live), _ptr(choice),
-        _ptr(acc), _ptr(pipe), _stream(),
+        _ptr(acc), _ptr(pipe), *pp, _ptr(self_anti), _stream(),
     )
     _check(rc, "walk_accept")
     LAUNCHES["walk_accept"] += 1
@@ -1002,8 +1162,39 @@ def _add_rows(node_plane, queue_plane, sel, node, rows, row_idx, qidx,
         state[touched] = state[touched] + tot[touched].to(torch.float32)
 
 
+def _or_rows(plane, nodes, bits):
+    """plane[nodes[i]] |= bits[i] for int32 bit words, duplicates allowed
+    (OR is order-free)."""
+    if not nodes.numel():
+        return
+    sh = torch.arange(32, dtype=torch.int32, device=plane.device)
+    b = (bits[:, :, None] >> sh) & 1  # [S, PW, 32]
+    acc = torch.zeros((plane.shape[0], *b.shape[1:]), dtype=torch.int32,
+                      device=plane.device)
+    acc.scatter_reduce_(0, nodes.long()[:, None, None].expand_as(b), b,
+                        reduce="amax")
+    # Distinct bits: the int32 sum carries nothing, so it is the word.
+    plane |= (acc << sh).sum(dim=-1).to(torch.int32)
+
+
+def _count_rows(cw, counts, nodes, rows):
+    """cw[e, node_dom[n, term_key[e]]] += 1 for every task (n = nodes[i],
+    its profile rows[i]) whose profile matches term e, where the node has
+    a domain (wave.py:2043-2130)."""
+    if not nodes.numel():
+        return
+    E, D = cw.shape
+    dw = counts.node_dom.long()[nodes.long()[:, None],
+                                counts.term_key.long()[None, :]]
+    inc = counts.t_matches[rows.long()] & (dw >= 0)
+    key = torch.arange(E, device=cw.device)[None, :] * D + dw.clamp(min=0)
+    cw.view(-1).index_add_(0, key[inc], torch.ones_like(
+        key[inc], dtype=torch.int32))
+
+
 def _apply_plain(node, mask, rows, row_idx, qidx, idle_sign, mode, jw, idle,
-                 q_alloc, ntasks, alloc_l, assigned, pipe=None, pip=None):
+                 q_alloc, ntasks, alloc_l, assigned, pipe=None, pip=None,
+                 ports=None, counts=None):
     if pipe is not None:
         psel = pipe.nonzero().squeeze(1)
         _add_rows(pip["pip_extra"], pip["q_pip"], psel, node, rows, row_idx,
@@ -1011,6 +1202,10 @@ def _apply_plain(node, mask, rows, row_idx, qidx, idle_sign, mode, jw, idle,
         pip["pip_ntasks"].index_add_(
             0, node.long()[psel], torch.ones_like(psel, dtype=torch.int32))
         pip["pipelined"][psel] = node[psel]
+        if ports is not None:
+            _or_rows(ports.pip, node[psel], ports.prof[row_idx.long()[psel]])
+        if counts is not None:
+            _count_rows(counts.cnt_p, counts, node[psel], row_idx[psel])
     sel = mask.nonzero().squeeze(1)
     n = node.long()[sel]
     _add_rows(idle, q_alloc, sel, node, rows, row_idx, qidx,
@@ -1020,6 +1215,10 @@ def _apply_plain(node, mask, rows, row_idx, qidx, idle_sign, mode, jw, idle,
         ntasks.index_add_(0, n, one)
         alloc_l.index_add_(0, jw.long()[sel], one)
         assigned[sel] = node[sel]
+        if ports is not None:
+            _or_rows(ports.node, node[sel], ports.prof[row_idx.long()[sel]])
+        if counts is not None:
+            _count_rows(counts.cnt_a, counts, node[sel], row_idx[sel])
     else:
         assigned[sel] = -1
 
@@ -1027,7 +1226,8 @@ def _apply_plain(node, mask, rows, row_idx, qidx, idle_sign, mode, jw, idle,
 def apply_commit(node, mask, rows, row_idx, qidx, idle, q_alloc, *,
                  mode: int, idle_sign: float, scratch, jw=None,
                  ntasks=None, alloc_l=None, assigned=None, pipe=None,
-                 pip=None, plain: bool = False) -> None:
+                 pip=None, ports=None, counts=None,
+                 plain: bool = False) -> None:
     """Commit (``mode=0``: idle -= req, ntasks += 1, q_alloc += req,
     alloc_l[jw] += 1, assigned = node) or discard (``mode=1``: idle +=
     req, q_alloc -= req, assigned = -1) the tasks where ``mask`` holds,
@@ -1039,10 +1239,20 @@ def apply_commit(node, mask, rows, row_idx, qidx, idle, q_alloc, *,
     pipelined this sub-round; ``pip`` then holds the planes they charge,
     in place -- ``pip_extra`` [N, R] and ``q_pip`` [Q, R] += req,
     ``pip_ntasks`` [N] += 1, ``pipelined`` [T] = node -- and ``scratch``,
-    its own pair of float64 accumulators."""
+    its own pair of float64 accumulators.
+
+    Mode 0 only: ``ports`` (a ``Ports``: ``prof`` the [UM, PW] ports of
+    the rows ``row_idx`` indexes) ORs each committed task's ports into
+    ``ports.node`` at its node, a pipelined task's into ``ports.pip``
+    (wave.py:2031-2042); ``counts`` (an ``affkernels.AffTerms`` of the
+    wave's window) adds one to ``cnt_a`` -- ``cnt_p`` for a pipelined
+    task -- at (e, node_dom[node, term_key[e]]) for every window term e
+    its profile matches where the node has a domain (wave.py:2043-2130),
+    as int32 atomics."""
     if not _on_card(plain, idle, node, mask):
         _apply_plain(node, mask, rows, row_idx, qidx, idle_sign, mode, jw,
-                     idle, q_alloc, ntasks, alloc_l, assigned, pipe, pip)
+                     idle, q_alloc, ntasks, alloc_l, assigned, pipe, pip,
+                     ports, counts)
         return
     N, R = idle.shape
     Q = q_alloc.shape[0]
@@ -1084,7 +1294,30 @@ def apply_commit(node, mask, rows, row_idx, qidx, idle, q_alloc, *,
                 or pp[4].shape != (T,) or pp[5].shape != (N, R)
                 or pp[6].shape != (Q, R)):
             raise ValueError("apply_commit: inconsistent pipelined shapes")
-    _capture("apply_commit", mode=mode, idle_sign=idle_sign,
+    if mode != 0 and (ports is not None or counts is not None):
+        raise ValueError("apply_commit: ports and counts need mode 0")
+    UM = rows.shape[0]
+    po = _ports_args(ports, UM, N, "apply_commit")
+    if ports is not None and pipe is not None and ports.pip is None:
+        raise ValueError("apply_commit: pipelined tasks need ports.pip")
+    co = (None, 0, None, None, 0, 0, None, None)
+    if counts is not None:
+        i32c = torch.int32
+        Ew, Dw = counts.cnt_a.shape
+        nd = _req(counts.node_dom, i32c, "node_dom")
+        if (_req(counts.term_key, i32c, "term_key").shape != (Ew,)
+                or _req(counts.t_matches, u8, "t_matches").shape
+                != (UM, Ew) or nd.shape[0] != N
+                or (pipe is not None and (counts.cnt_p is None or _req(
+                    counts.cnt_p, i32c, "cnt_p").shape != (Ew, Dw)))):
+            raise ValueError("apply_commit: inconsistent count shapes")
+        _req(counts.cnt_a, i32c, "cnt_a")
+        co = (_ptr(nd), nd.shape[1], _ptr(counts.term_key),
+              _ptr(counts.t_matches), Ew, Dw, _ptr(counts.cnt_a),
+              _ptr(counts.cnt_p) if pipe is not None else None)
+    _capture("apply_commit" + ("" if ports is None and counts is None
+                               else ":aff"),
+             mode=mode, idle_sign=idle_sign, ports=ports, counts=counts,
              **a, **({} if pipe is None else dict(
                  pipe=pp[0], pip_extra=pp[1], pip_ntasks=pp[2], q_pip=pp[3],
                  pipelined=pp[4])))
@@ -1093,7 +1326,7 @@ def apply_commit(node, mask, rows, row_idx, qidx, idle, q_alloc, *,
         _ptr(a["qidx"]), T, R, float(idle_sign), int(mode), _ptr(a.get("jw")),
         _ptr(a["idle"]), N, _ptr(a["q_alloc"]), Q, _ptr(a.get("ntasks")),
         _ptr(a.get("alloc_l")), _ptr(a["assigned"]), _ptr(idle_acc),
-        _ptr(q_acc), *[_ptr(t) for t in pp], _stream(),
+        _ptr(q_acc), *[_ptr(t) for t in pp], *po, *co, _stream(),
     )
     _check(rc, "apply_commit")
     LAUNCHES["apply_commit"] += 1

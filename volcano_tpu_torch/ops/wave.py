@@ -7,14 +7,20 @@ a capacity walk with in-order prefix acceptance, queue-overuse gating at a
 job's first task, fit-failure aborts, and one vectorized gang discard).
 This module runs the same computation:
 
-1. host prep in numpy, copied byte for byte from ``wave.py:2316-2673``
-   (profile dedup with first-occurrence ``pid`` numbering, padding, wave
-   profile lists, node classes);
+1. host prep in numpy, copied byte for byte from ``wave.py:2316-2673`` and
+   ``:2780-2960`` (profile dedup with first-occurrence ``pid`` numbering,
+   padding, wave profile lists, per-wave term windows, node classes); past
+   ``CNT0_SPARSE_MIN`` / ``PROF_SPARSE_MIN`` the affinity count table and
+   the profile-term tables ship as sparse entries and are rebuilt on the
+   device (kernels ``scatter_cnt0``, ``scatter_profile_tables``);
 2. phase 1, ``_coarse_shortlist``: static (profile x class) planes and each
    profile's top-S shortlist over all nodes (kernel ``coarse_shortlist``);
 3. phase 2, ``_solve_wave``: the wave / attempt / sub-round loops of
    ``wave.py:2260, 2225, 2151`` as Python loops around the kernels
-   ``rank_candidates``, ``walk_accept`` and ``apply_commit``.  The loop
+   ``rank_candidates``, ``walk_accept`` and ``apply_commit``, with
+   ``aff_live`` (the affinity verdicts and soft scores on the wave's
+   count window) and ``aff_filter`` (the sub-round's live affinity
+   recheck and pair conflicts) on waves that carry terms.  The loop
    conditions are read on the host, one sync per iteration;
 4. the gang discard (``apply_commit`` again) and the int16 narrowing of the
    result.
@@ -29,10 +35,16 @@ JAX ``has_future`` branch: fits read FutureIdle = ((idle + releasing) -
 pipelined) - pip_extra, tasks that fit only the future idle are accepted as
 pipelined and charge ``pip_extra`` / ``pip_ntasks`` / ``q_pip``) and the
 fabric topology's node-order bias (``node_bias``: added to every profile's
-static score in phase 2's rankings, never in phase 1).  Host ports,
-inter-pod affinity and spread, custom plugin masks and scores, mesh
-sharding and ``VOLCANO_TPU_TWOPHASE=0`` raise ``NotImplementedError``: the
-port never computes a different answer for them.
+static score in phase 2's rankings, never in phase 1), host ports (a
+clash against the nodes' used ports in every ranking, pair clashes within
+a sub-round), and inter-pod affinity, anti-affinity and soft terms
+(preferred affinity, topology spread) through the per-(term, domain)
+count tables of ``arrays/affinity.py``: phase 1 reads the solve-start
+counts, phase 2 each wave's window of them, updated as tasks commit.
+Custom plugin masks and scores, mesh sharding and
+``VOLCANO_TPU_TWOPHASE=0`` raise ``NotImplementedError``: the port never
+computes a different answer for them.  So does ``VOLCANO_TPU_AFF_STEER``
+(the JAX package's off-by-default live steering).
 """
 
 from __future__ import annotations
@@ -46,7 +58,8 @@ import torch
 
 from ..arrays.affinity import AffinityArgs
 from ..device import resolve_device, to_numpy, to_tensor, tree_to
-from . import kernels
+from . import affkernels, kernels
+from .affkernels import AffTerms
 from .allocate import (AllocResult, SolveJobs, SolveNodes, SolveQueues,
                        SolveTasks)
 from .nodeclass import NodeClasses
@@ -67,6 +80,15 @@ DEFAULT_WAVE = _env_int("VOLCANO_TPU_WAVE", 2048)
 TOPK = _env_int("VOLCANO_TPU_TOPK", 256)
 # In-attempt re-walk rounds for conflict losers.
 SUBROUNDS = _env_int("VOLCANO_TPU_SUBROUNDS", 4)
+# cnt0 tables above this element count ship as sparse entries and are
+# scattered on the device (tests lower it to force the sparse path).
+CNT0_SPARSE_MIN = 4_000_000
+# Same for the profile-term tables ([U, Ep]): past this element count the
+# four tables ship as one sparse entry list.
+PROF_SPARSE_MIN = _env_int("VOLCANO_TPU_PROF_SPARSE_MIN", 1_000_000)
+# The JAX package's live affinity steering inside sub-rounds (off by
+# default there); the port does not run it.
+AFF_STEER = _env_int("VOLCANO_TPU_AFF_STEER", 0)
 
 
 def _two_phase_on() -> bool:
@@ -516,20 +538,55 @@ def _identity_classes(nodes: SolveNodes) -> NodeClasses:
 def _coarse_shortlist(nodes: SolveNodes, prof: SolveProfiles,
                       cls: Optional[NodeClasses], weights: ScoreWeights,
                       eps, scalar_slot, sl_k: int, features: tuple,
-                      future=None, plain: bool = False):
+                      future=None, ports=None, aff1=None,
+                      plain: bool = False):
     """Phase 1 (wave.py:547): ``(shortlists [U, sl_k] int32 ascending node
     ids, stat_ok [U, C] bool, stat_score [U, C] f32)``.  ``cls`` None means
     identity classes.  Masks and scores are evaluated at solve-start state
-    (with ``future``, the fit reads fi0 = (idle + releasing) - pipelined);
-    the selection keeps each profile's top ``sl_k`` by (score desc, node id
-    asc)."""
+    (with ``future``, the fit reads fi0 = (idle + releasing) - pipelined;
+    ``ports`` the solve-start port planes; ``aff1`` the solve-start
+    affinity inputs, ``Phase1Aff``); the selection keeps each profile's
+    top ``sl_k`` by (score desc, node id asc)."""
     if cls is None:
         cls = _identity_classes(nodes)
+    aff = None
+    if aff1 is not None:
+        U = int(prof.req.shape[0])
+        rows = torch.arange(U, dtype=torch.int32, device=nodes.idle.device)
+        aff = affkernels.aff_live(rows, None, aff1.terms, aff1.at,
+                                  plain=plain)
     return kernels.coarse_shortlist(
         prof, cls, nodes.idle, nodes.allocatable, nodes.ntasks,
         nodes.max_tasks, eps, scalar_slot, weights, sl_k,
-        has_taints=bool(features[2]), future=future, plain=plain,
+        has_taints=bool(features[2]), future=future, ports=ports, aff=aff,
+        plain=plain,
     )
+
+
+class Phase1Aff(NamedTuple):
+    """Phase 1's affinity inputs: the solve-start counts and the whole
+    profile tables (``at``), and each profile row's term columns
+    (``terms`` [U, T] int32, -1 padded) -- the columns where one of its
+    four table entries is nonzero, the only ones its verdict and score
+    read.  Phase 1 reads them only when some resident pod matches a term
+    (``cnt0_any``): with all-zero counts every verdict and score is
+    uniform per profile and cannot change a shortlist (wave.py:586-592)."""
+
+    at: AffTerms
+    terms: torch.Tensor
+
+
+def _profile_term_lists(iom: np.ndarray) -> np.ndarray:
+    """[U, T] int32 term columns per profile row (ascending, -1 padded,
+    T >= 1) from the [U, E] nonzero union of the profile tables."""
+    ur, ec = np.nonzero(iom)
+    U = iom.shape[0]
+    counts = np.bincount(ur, minlength=U)
+    T = max(1, int(counts.max()) if len(counts) else 1)
+    out = np.full((U, T), -1, np.int32)
+    start = np.concatenate(([0], np.cumsum(counts)[:-1]))
+    out[ur, np.arange(len(ur)) - start[ur]] = ec
+    return out
 
 
 def _future_planes(nodes: SolveNodes, features: tuple):
@@ -580,18 +637,33 @@ def _solve_wave(nodes: SolveNodes, jobs: SolveJobs,
                 prof: SolveProfiles, pid, wave_prof: np.ndarray,
                 cls: Optional[NodeClasses], shortlists, stat_ok, stat_score,
                 host: dict, wave: int, n_waves: int, features: tuple,
-                fb_cap: int = 0, future0=None, bias=None,
+                fb_cap: int = 0, future0=None, bias=None, aff=None,
+                wave_terms: Optional[np.ndarray] = None,
+                terms_disjoint: bool = True,
                 plain: bool = False) -> AllocResult:
-    """Phase 2 (wave.py:860) for the features this slice supports.
+    """Phase 2 (wave.py:860).
 
     ``host`` carries the numpy task/job columns the loops index with
     (``job``, ``real``, ``pid``, ``queue``); the device tensors carry the
     state.  Every loop condition is one host read.  ``future0``: the
     solve-start releasing-capacity planes (``_future_planes``), None
     without releasing capacity.  ``bias``: the [N] node-order bias both
-    rankings add to the static score (wave.py:1170-1179), or None."""
+    rankings add to the static score (wave.py:1170-1179), or None.
+
+    With host ports (``features[0]``) the state carries the used-port
+    planes ``nport`` / ``pip_nport``; with affinity (``features[1]``)
+    ``aff`` holds the device ``node_dom``, ``term_key`` and ``cnt0`` (its
+    last row the dummy term), ``wave_terms`` [NW, EW] each wave's term
+    columns (padded with the dummy) and ``terms_disjoint`` whether no two
+    waves share a term: then every wave reads its window straight from
+    ``cnt0`` and nothing is written back (wave.py:2181-2236).  A wave
+    whose window is all dummy neither reads nor changes a count, so its
+    attempts skip the affinity kernels: the planes they would give are
+    all-feasible and zero-scored."""
     has_overuse = bool(features[4])
     has_future = future0 is not None
+    has_ports = bool(features[0])
+    has_aff = bool(features[1])
     dev = nodes.idle.device
     N, R = nodes.idle.shape
     P = int(host["real"].shape[0])
@@ -653,8 +725,25 @@ def _solve_wave(nodes: SolveNodes, jobs: SolveJobs,
     TOPOV = min(16, K)
     iters = 0
     fb_exhausted = 0
+    fb_affinity = 0
     fb_rounds = 0
     syncs = 0
+    if has_ports:
+        # Used host ports per node (wave.py:947-948): committed and
+        # pipelined tasks' ports, OR-ed in by apply_commit.
+        nport = nodes.ports.clone()
+        pip_nport = torch.zeros_like(nport) if has_future else None
+    if has_aff:
+        dummy = int(aff.cnt0.shape[0]) - 1
+        D = int(aff.cnt0.shape[1])
+        EW = int(wave_terms.shape[1])
+        cnt0_i = aff.cnt0
+        if not terms_disjoint:
+            cnt_alloc = cnt0_i.clone()
+            cnt_pip = torch.zeros_like(cnt0_i)
+        # aff_filter's earliest-giver scratch, kept at W between calls.
+        gm = torch.full((EW, D), W, dtype=i32, device=dev)
+        all_terms = torch.arange(EW, dtype=i32, device=dev)[None, :]
 
     for w in range(n_waves):
         sl = slice(w * W, (w + 1) * W)
@@ -673,6 +762,40 @@ def _solve_wave(nodes: SolveNodes, jobs: SolveJobs,
         ok_w = stat_ok[pids].contiguous()
         score_w = stat_score[pids].contiguous()
         sl_w = shortlists[pids].contiguous()
+        ports_w = None
+        if has_ports:
+            ports_w = kernels.Ports(prof.ports[pids].contiguous(), nport,
+                                    pip_nport)
+        at_w = None
+        self_anti = None
+        prof_req_terms = None
+        if has_aff:
+            wt_h = wave_terms[w]
+            wt = torch.from_numpy(wt_h.astype(np.int64)).to(dev)
+
+            def cols(t):
+                return t[pids][:, wt].contiguous()
+
+            p_aff = cols(prof.t_req_aff)
+            p_anti = cols(prof.t_req_anti)
+            p_match = cols(prof.t_matches)
+            # Profiles with required terms: their fallback rescores count
+            # as fb_affinity (wave.py:1437-1441).
+            prof_req_terms = (p_aff | p_anti).any(dim=1)
+            if bool((wt_h != dummy).any()):
+                # The wave's count window (wave.py:2181-2190).
+                if terms_disjoint:
+                    cw_a = cnt0_i[wt]
+                    cw_p = torch.zeros_like(cw_a) if has_future else None
+                else:
+                    cw_a = cnt_alloc[wt]
+                    cw_p = cnt_pip[wt] if has_future else None
+                at_w = AffTerms(aff.node_dom, aff.term_key[wt].contiguous(),
+                                cw_a, cw_p, p_aff, p_anti, p_match,
+                                cols(prof.t_soft))
+                # Self anti-affine profiles walk one copy per node
+                # (wave.py:1690-1696).
+                self_anti = (p_anti & p_match).any(dim=1)
 
         alloc_l = st.alloc_cnt[jwin].clone()
         fitf_l = st.fit_failed[jwin].clone()
@@ -710,11 +833,16 @@ def _solve_wave(nodes: SolveNodes, jobs: SolveJobs,
             skip_t = skip_l[jw_l] & real_w
             cand = ~done & ~skip_t
 
+            # The affinity planes at shortlist width, on the live window
+            # (the JAX attempt cache recomputes them only after a count
+            # changed: the same values).
+            aff_sl = None if at_w is None else affkernels.aff_live(
+                all_rows, sl_w, all_terms, at_w, plain=plain)
             ranked, feas_k, p_any = kernels.rank_candidates(
                 all_rows, sl_w, ok_w, score_w, cls.class_id, p_req,
                 p_init_req, st.idle, nodes.allocatable, st.ntasks,
                 nodes.max_tasks, eps, scalar_slot, weights, K, future=fut,
-                bias=bias, plain=plain,
+                bias=bias, ports=ports_w, aff=aff_sl, plain=plain,
             )
             # Shortlist exhaustion -> full-N rescore of the affected
             # profiles only (wave.py:1450-1512).
@@ -727,17 +855,24 @@ def _solve_wave(nodes: SolveNodes, jobs: SolveJobs,
                 need_fb = need_fb and fb_rounds < fb_cap
             if need_fb:
                 rows_x = exhausted.nonzero().squeeze(1).to(i32)
+                # Fresh full-N affinity planes (wave.py:1455-1470).
+                aff_fb = None if at_w is None else affkernels.aff_live(
+                    rows_x, None, all_terms, at_w, plain=plain)
                 r_f, f_f, a_f = kernels.rank_candidates(
                     rows_x, None, ok_w, score_w, cls.class_id, p_req,
                     p_init_req, st.idle, nodes.allocatable, st.ntasks,
                     nodes.max_tasks, eps, scalar_slot, weights, K,
-                    future=fut, bias=bias, plain=plain,
+                    future=fut, bias=bias, ports=ports_w, aff=aff_fb,
+                    plain=plain,
                 )
                 rx = rows_x.long()
                 ranked[rx] = r_f
                 feas_k[rx] = f_f
                 p_any[rx] = a_f
-                fb_exhausted += int(rows_x.shape[0])
+                n_aff = (0 if prof_req_terms is None
+                         else int(prof_req_terms[rx].sum()))
+                fb_exhausted += int(rows_x.shape[0]) - n_aff
+                fb_affinity += n_aff
                 fb_rounds += 1
 
             any_feasible = p_any[pl]
@@ -762,16 +897,23 @@ def _solve_wave(nodes: SolveNodes, jobs: SolveJobs,
             go = bool((cand & ~done_sub & ~aborted).any())
             while go and subs < SUBROUNDS:
                 cand_s = cand & ~done_sub & ~aborted
+                live = None if at_w is None else torch.empty(
+                    W, dtype=torch.bool, device=dev)
                 choice, acc, acc_pipe = kernels.walk_accept(
                     ranked, feas_k, p_req, p_init_req, pid_l, cand_s,
                     any_feasible, grp, st.idle, st.ntasks, nodes.max_tasks,
-                    eps, scalar_slot, future=fut, plain=plain,
+                    eps, scalar_slot, future=fut, ports=ports_w,
+                    self_anti=self_anti, live_out=live, plain=plain,
                 )
+                if at_w is not None:
+                    affkernels.aff_filter(choice, live, pid_l, at_w, acc,
+                                          acc_pipe, gm=gm, plain=plain)
                 kernels.apply_commit(
                     choice, acc, p_req, pid_l, qidx, st.idle, st.q_alloc,
                     mode=0, idle_sign=-1.0, jw=jw, ntasks=st.ntasks,
                     alloc_l=alloc_l, assigned=assigned_w, scratch=scratch,
-                    pipe=acc_pipe, pip=pip, plain=plain,
+                    pipe=acc_pipe, pip=pip, ports=ports_w, counts=at_w,
+                    plain=plain,
                 )
                 resolved = acc if acc_pipe is None else acc | acc_pipe
                 done_sub = done_sub | resolved
@@ -792,6 +934,12 @@ def _solve_wave(nodes: SolveNodes, jobs: SolveJobs,
             it += max(subs, 1)
 
         iters += it
+        if at_w is not None and not terms_disjoint:
+            # Window write-back: real rows are unique in the window, the
+            # repeated dummy rows hold zeros (wave.py:2226-2236).
+            cnt_alloc[wt] = at_w.cnt_a
+            if has_future:
+                cnt_pip[wt] = at_w.cnt_p
         st.alloc_cnt[jwin] = alloc_l
         st.fit_failed[jwin] = fitf_l
         st.job_skip[jwin] = skip_l
@@ -830,7 +978,7 @@ def _solve_wave(nodes: SolveNodes, jobs: SolveJobs,
         q_alloc=st.q_alloc + st.q_pip,
         iters=torch.tensor(iters, dtype=i32, device=dev),
         fb_exhausted=torch.tensor(fb_exhausted, dtype=i32, device=dev),
-        fb_affinity=torch.tensor(0, dtype=i32, device=dev),
+        fb_affinity=torch.tensor(fb_affinity, dtype=i32, device=dev),
     )
 
 
@@ -951,7 +1099,14 @@ def solve_wave(
         profiles, pid, _ep, _sp = _profile_tasks(tasks, aff)
     profiles = _pad_profiles_rows(profiles)
     wave_prof = _wave_profiles(pid, n_waves, wave)
-    cnt0_any = bool(_np(aff.cnt0).any())
+    cnt0_host = _np(aff.cnt0)
+    cnt0_sparse = cnt0_host.size > CNT0_SPARSE_MIN
+    if cnt0_sparse:
+        # One scan serves both the feature bit and the sparse extraction.
+        rows_nz, cols_nz = np.nonzero(cnt0_host)
+        cnt0_any = bool(len(rows_nz))
+    else:
+        cnt0_any = bool(cnt0_host.any())
     features = (
         bool(_np(profiles.ports).any()),
         bool(
@@ -967,12 +1122,56 @@ def solve_wave(
         False,
         False,
     )
-    if features[0]:
-        raise _unsupported("host ports",
+    if features[1] and AFF_STEER:
+        raise _unsupported("live affinity steering (VOLCANO_TPU_AFF_STEER)",
                            "queue 1, ports and inter-pod affinity")
-    if features[1]:
-        raise _unsupported("inter-pod affinity and spread",
-                           "queue 1, ports and inter-pod affinity")
+    prof_sparse = _np(profiles.t_req_aff).size > PROF_SPARSE_MIN
+    profiles, aff, wave_terms, _ew, prof_iom, terms_disjoint = (
+        _term_windows(profiles, aff, pid, wave_prof, n_waves,
+                      skip_cnt0=cnt0_sparse, skip_prof=prof_sparse))
+    if prof_sparse:
+        # Past the threshold the four tables ship as their nonzero entries
+        # and are rebuilt on the device at the dummy-extended width
+        # (wave.py:2858-2905): the dummy column is all-zero, so the entry
+        # set is the same.
+        t_aff_h = _np(profiles.t_req_aff)
+        ur, ec = np.nonzero(prof_iom)
+        flags = (
+            t_aff_h[ur, ec].astype(np.int8)
+            | (_np(profiles.t_req_anti)[ur, ec].astype(np.int8) << 1)
+            | (_np(profiles.t_matches)[ur, ec].astype(np.int8) << 2)
+        )
+        soft_vals = _np(profiles.t_soft)[ur, ec].astype(np.float32)
+        k = bucket_pow2(len(ur), floor=16)
+        ppad = k - len(ur)
+        # Padded entries add flags 0 and +0.0 at (0, 0).
+        ur = np.concatenate([ur, np.zeros(ppad, np.int64)])
+        ec = np.concatenate([ec, np.zeros(ppad, np.int64)])
+        flags = np.concatenate([flags, np.zeros(ppad, np.int8)])
+        soft_vals = np.concatenate([soft_vals, np.zeros(ppad, np.float32)])
+        d_aff, d_anti, d_mat, d_soft = affkernels.scatter_profile_tables(
+            to_tensor(ur.astype(np.int32), dev),
+            to_tensor(ec.astype(np.int32), dev), to_tensor(flags, dev),
+            to_tensor(soft_vals, dev), t_aff_h.shape[0],
+            t_aff_h.shape[1] + 1, plain=plain)
+        profiles = profiles._replace(t_req_aff=d_aff, t_req_anti=d_anti,
+                                     t_matches=d_mat, t_soft=d_soft)
+    if cnt0_sparse:
+        # Large [Ep, D] count tables ship as their resident entries and are
+        # scattered on the device into the dummy-extended shape
+        # (wave.py:2906-2930).
+        vals_nz = cnt0_host[rows_nz, cols_nz].astype(np.int32)
+        k = bucket_pow2(len(rows_nz), floor=16)
+        cpad = k - len(rows_nz)
+        # Padded entries add 0 to cell (0, 0): a no-op.
+        rows_nz = np.concatenate([rows_nz, np.zeros(cpad, np.int64)])
+        cols_nz = np.concatenate([cols_nz, np.zeros(cpad, np.int64)])
+        vals_nz = np.concatenate([vals_nz, np.zeros(cpad, np.int32)])
+        aff = aff._replace(cnt0=affkernels.scatter_cnt0(
+            to_tensor(rows_nz.astype(np.int32), dev),
+            to_tensor(cols_nz.astype(np.int32), dev),
+            to_tensor(vals_nz, dev), cnt0_host.shape[0] + 1,
+            cnt0_host.shape[1], plain=plain))
     N_in = int(nodes.idle.shape[0])
     if node_classes is None and _nodeclass_on():
         planes = (nodes.label_bits, nodes.taint_bits, nodes.ready,
@@ -1011,6 +1210,24 @@ def solve_wave(
             raise ValueError(f"node_bias is {tuple(bias_t.shape)}, "
                              f"not [{N_in}]")
     pid_t = to_tensor(pid.astype(np.int32), dev)
+    aff_t = None
+    aff1 = None
+    ports1 = None
+    if features[0]:
+        ports1 = kernels.Ports(prof_t.ports, nodes_t.ports)
+    if features[1]:
+        aff_t = AffinityArgs(
+            node_dom=to_tensor(np.asarray(_np(aff.node_dom), np.int32), dev),
+            term_key=to_tensor(np.asarray(_np(aff.term_key), np.int32),
+                               dev),
+            cnt0=to_tensor(aff.cnt0, dev).to(torch.int32),
+            t_req_aff=None, t_req_anti=None, t_matches=None, t_soft=None)
+        if cnt0_any:
+            aff1 = Phase1Aff(
+                AffTerms(aff_t.node_dom, aff_t.term_key, aff_t.cnt0, None,
+                         prof_t.t_req_aff, prof_t.t_req_anti,
+                         prof_t.t_matches, prof_t.t_soft),
+                to_tensor(_profile_term_lists(prof_iom), dev))
     host = {
         "job": tasks.job.astype(np.int64),
         "real": tasks.real.astype(bool),
@@ -1032,12 +1249,13 @@ def solve_wave(
     if stat is not None:
         sl = dv.shortlist(nodes_t, prof_t, cls_t, weights_t, eps_t, slot_t,
                           sl_k, features, cls_identity, stat,
-                          future=future0, plain=plain)
+                          future=future0, ports=ports1, aff1=aff1,
+                          plain=plain)
         stat_ok, stat_score = stat
     else:
         sl, stat_ok, stat_score = _coarse_shortlist(
             nodes_t, prof_t, cls_t, weights_t, eps_t, slot_t, sl_k,
-            features, future=future0, plain=plain,
+            features, future=future0, ports=ports1, aff1=aff1, plain=plain,
         )
     _sync(dev)
     t_coarse = _time.perf_counter() - t0
@@ -1046,7 +1264,8 @@ def solve_wave(
         nodes_t, jobs_t, queues_t, weights_t, eps_t, slot_t, prof_t,
         pid_t, wave_prof, cls_t, sl, stat_ok, stat_score, host,
         wave=wave, n_waves=n_waves, features=features,
-        fb_cap=_fallback_cap(), future0=future0, bias=bias_t, plain=plain,
+        fb_cap=_fallback_cap(), future0=future0, bias=bias_t, aff=aff_t,
+        wave_terms=wave_terms, terms_disjoint=terms_disjoint, plain=plain,
     )
     _sync(dev)
     t_fine = _time.perf_counter() - t0
@@ -1065,6 +1284,12 @@ def solve_wave(
         "host_reads": host_reads,
         # The solve ran the releasing-capacity (has_future) branch.
         "future": future0 is not None,
+        # Host ports, inter-pod terms, and whether phase 1 read counts.
+        "ports": bool(features[0]),
+        "affinity": bool(features[1]),
+        "cnt0_any": cnt0_any,
+        "sparse": (bool(cnt0_sparse), bool(prof_sparse)),
+        "terms_disjoint": bool(terms_disjoint),
         "devincr": dv.solve_info() if dv is not None else None,
     })
     if dv is not None:

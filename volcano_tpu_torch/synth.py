@@ -69,6 +69,7 @@ def synthetic_cluster(
     spread_fraction: float = 0.0,
     queue_weights: Optional[Sequence[int]] = None,
     gang_sizes: Optional[Sequence[int]] = None,
+    host_port_fraction: float = 0.0,
 ) -> ClusterStore:
     """A cluster of identical nodes and gang jobs with mixed pod sizes.
 
@@ -79,10 +80,15 @@ def synthetic_cluster(
     (BASELINE config 5's inter-pod affinity / topology-spread mix).
     ``gang_sizes`` draws each gang's size from the sequence (config 3's
     mixed TF/MPI shapes) instead of the fixed ``gang_size``.
+    ``host_port_fraction`` gives that share of gangs a host port, 8000 +
+    (gang index mod 16), a quarter of them also 9090, drawn from a second
+    generator so the cluster is otherwise the one the same seed builds
+    without ports.
     """
     from .api import AffinityTerm
 
     rng = np.random.default_rng(seed)
+    port_rng = np.random.default_rng([seed, 1])
     store = ClusterStore()
     for i in range(n_nodes):
         labels = {}
@@ -130,6 +136,10 @@ def synthetic_cluster(
         elif zones > 0 and r < (affinity_fraction + anti_affinity_fraction
                                 + spread_fraction):
             spread = [("zone", 10)]
+        ports = []
+        if host_port_fraction > 0 and port_rng.random() < host_port_fraction:
+            ports = ([8000 + g % 16]
+                     + ([9090] if port_rng.random() < 0.25 else []))
         for k in range(size):
             store.add_pod(
                 Pod(
@@ -140,6 +150,7 @@ def synthetic_cluster(
                     affinity=affinity or [],
                     anti_affinity=anti_affinity or [],
                     topology_spread=spread or [],
+                    host_ports=ports,
                 )
             )
             pods_made += 1
