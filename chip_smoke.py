@@ -6,7 +6,7 @@ Run from the repository root on a machine with one CUDA card:
 
     python3 chip_smoke.py
 
-It builds the fifteen CUDA kernels of ``volcano_tpu_torch/csrc`` (twelve
+It builds the sixteen CUDA kernels of ``volcano_tpu_torch/csrc`` (thirteen
 sources, one nvcc each, started together) and then runs these phases, each
 of which raises (and the script exits non-zero) when a check fails:
 
@@ -100,7 +100,24 @@ of which raises (and the script exits non-zero) when a check fails:
 19. the four affinity kernels, and the extended ``coarse_shortlist``,
    ``rank_candidates``, ``walk_accept``, ``apply_commit`` and
    ``warm_shortlist`` on affinity inputs, against their plain versions,
-   timed as in 4 (``scatter_cnt0`` beside ``index_put_``).
+   timed as in 4 (``scatter_cnt0`` beside ``index_put_``);
+20. object: BASELINE config 2 (bench.py ``config_2``: 1,000 nodes x 10,000
+   pods, gangs of 4) under CONF_BASE with ``VOLCANO_TPU_FASTPATH=0``: three
+   object-session cycles (open, the conf's actions, close; the pods of
+   nodes 0-63 re-pended before each later cycle), on the card and on the
+   CPU: binds, PodGroup phases and mirror states identical every cycle,
+   ``cycle_invariants`` after every cycle, a flight record with path
+   "object", the lanes printed; the wave solve's kernels required;
+21. seq: the same under ``solver: seq``: ``seq_solve`` required, card
+   against CPU, and the kernel against its plain version on the inputs of
+   its first launch, timed as in 4;
+22. seq:north-star: the solve args of 2 through the sequential solve on
+   the card: one launch, its wall time, the invariants of 2;
+23. custom: the config-2 store with a device-mask plugin (a fifth of the
+   nodes vetoed per gang) and a batch scorer (three nodes a task), under
+   the wave and the sequential solver, card against CPU, every bind on an
+   allowed node; ``coarse_shortlist`` and ``rank_candidates`` on their
+   custom-plugin inputs against their plain versions, timed as in 4.
 
 Output: the card's name and power limit, versions, build time, per-phase
 lines with the cycles' lane times, one ``{"kernels": [...]}`` line and,
@@ -259,10 +276,12 @@ def check_invariants(args, res) -> dict:
         raise AssertionError("gang committed below min_available")
     if (per_job[: never.shape[0]][never] > 0).any():
         raise AssertionError("discarded job left an allocation")
-    return {"pods_bound": int(on.size),
-            "jobs_discarded": int(never.sum()),
-            "iters": int(to_numpy(res.iters)),
-            "fb_exhausted": int(to_numpy(res.fb_exhausted))}
+    out = {"pods_bound": int(on.size), "jobs_discarded": int(never.sum())}
+    # The wave solve's diagnostics (the sequential solve has none).
+    for f in ("iters", "fb_exhausted"):
+        if getattr(res, f) is not None:
+            out[f] = int(to_numpy(getattr(res, f)))
+    return out
 
 
 def same_result(a, b, what: str) -> None:
@@ -355,7 +374,7 @@ def _kernel_fn(name, c, plain):
             c["eps"], c["scalar_slot"], c["weights"], c["S"],
             c["has_taints"], stat=stat, n_blocks=c["n_blocks"],
             future=c.get("future"), ports=c.get("ports"), aff=c.get("aff"),
-            plain=plain))
+            extra=c.get("extra"), plain=plain))
     if name == "static_planes":
         z = torch.zeros(1, dtype=torch.float32, device=c["sel_bits"].device)
         prof = SolveProfiles(
@@ -392,7 +411,8 @@ def _kernel_fn(name, c, plain):
             c["p_req"], c["p_init_req"], c["idle"], c["alloc"], c["ntasks"],
             c["max_tasks"], c["eps"], c["scalar_slot"], c["weights"], c["K"],
             future=c.get("future"), bias=c.get("bias"), ports=c.get("ports"),
-            aff=c.get("aff"), plain=plain))
+            aff=c.get("aff"), extra=c.get("extra"), pids=c.get("pids"),
+            plain=plain))
     if name == "walk_accept":
         live = torch.empty(c["pid_l"].shape, dtype=torch.bool,
                            device=c["pid_l"].device)
@@ -476,6 +496,13 @@ def _kernel_fn(name, c, plain):
     if name == "fabric_frag":
         return lambda: (kernels.fabric_frag(c["cfit"], c["whole"],
                                             c["prof_cnt"], plain=plain),)
+    if name == "seq_solve":
+        from volcano_tpu_torch.ops.allocate import LAST_SEQ
+
+        def call():
+            res = kernels.seq_solve(c["x"], c["weights"], plain=plain)
+            return tuple(res[:6]) + (LAST_SEQ["alloc_cnt"],)
+        return call
     raise KeyError(name)
 
 
@@ -502,7 +529,8 @@ def _work(name, cap, outs):
         U, R = cap["req"].shape
         N = cap["idle"].shape[0]
         nbytes = (_nbytes(*ins) + out_bytes + _future_bytes(cap, N)
-                   + _nbytes(*_tensors(cap.get("ports"), cap.get("aff"))))
+                   + _nbytes(*_tensors(cap.get("ports"), cap.get("aff"),
+                                       cap.get("extra"))))
         C = cap["C"]
         ops = U * N * (25 + 12 * R)
         if "sel_bits" in cap:
@@ -558,6 +586,12 @@ def _work(name, cap, outs):
         nbytes = (cand_b + node_b + prof_b + R * 9 + out_bytes
                   + _future_bytes(cap, D)
                   + _nbytes(*_tensors(cap.get("aff"))))
+        ex = cap.get("extra")
+        if ex is not None:
+            # The custom plugins' verdict and score at each row's
+            # candidates, and the rows' profile ids.
+            nbytes += M * L * ((ex.ok is not None) + 4 * (
+                ex.score is not None)) + M * 4
         if cap.get("ports") is not None:
             pt = cap["ports"]
             pw = pt.prof.shape[1]
@@ -659,6 +693,21 @@ def _work(name, cap, outs):
         nbytes = _nbytes(*ins) + out_bytes
         B, U = cap["cfit"].shape
         ops = B * (2 * U + 1) + U
+    elif name == "seq_solve":
+        # Every input read once, every output written once.  The work is
+        # the rows the solve scored against every node, exactly: each row
+        # it allocated (a discarded job's too: the per-job allocation
+        # counts, the last output), each row it pipelined and each job's
+        # failing row; per (row, node) the score (~25 + 8 per slot), the
+        # FutureIdle fit (7 per slot) and the predicates (~10).
+        x = cap["x"]
+        nbytes = _nbytes(*_tensors(x)) + _nbytes(*outs[:6])
+        _assigned, pipelined, _never, failed = outs[:4]
+        alloc_cnt = outs[6]
+        scored = int(alloc_cnt.sum()) + int((pipelined >= 0).sum()) \
+            + int(failed.sum())
+        N, R = x.idle.shape
+        ops = scored * N * (35 + 15 * R)
     else:
         T = cap["node"].shape[0]
         R = cap["rows"].shape[1]
@@ -816,6 +865,7 @@ KERNEL_FUNCS = {
                                "flags_to_bool_kernel"),
     "aff_live": ("aff_live_kernel", "count_totals_kernel"),
     "aff_filter": ("aff_filter_kernel",),
+    "seq_solve": ("seq_solve_kernel",),
 }
 
 
@@ -2091,6 +2141,234 @@ def affinity_phases(big=(10000, 100000), mid=(1000, 10000),
     return rows, ext, astats
 
 
+# ------------------------------------------------- the object session
+
+CONF_SEQ = CONF_BASE + """configurations:
+- name: allocate
+  arguments:
+    solver: seq
+"""
+# A custom device-mask plugin and a custom batch scorer ([custom]).
+CONF_CUSTOM = CONF_BASE.replace("  - name: gang\n", (
+    "  - name: gang\n  - name: chip-mask\n  - name: chip-scorer\n"))
+CONFIG2 = dict(n_nodes=1000, n_pods=10000, gang_size=4, seed=0)
+OBJECT_KERNELS = SOLVE_KERNELS
+
+
+def _num(name: str) -> int:
+    """The last number in a name (its length when it has none)."""
+    import re
+
+    digits = re.findall(r"\d+", name)
+    return int(digits[-1]) if digits else len(name)
+
+
+class ChipMask:
+    """A device-mask plugin: a task of gang g may not use node n when
+    (n + g) % 5 == 0 (a fifth of the nodes vetoed, per gang)."""
+
+    name = "chip-mask"
+
+    def __init__(self, arguments=None):
+        pass
+
+    @staticmethod
+    def allowed(task_job: str, node_name: str) -> bool:
+        return (_num(node_name) + _num(task_job)) % 5 != 0
+
+    def on_session_open(self, ssn):
+        import numpy as np
+
+        def mask(cluster, pending, node_names):
+            g = np.array([_num(t.job) for t in pending], np.int64)
+            n = np.array([_num(nm) for nm in node_names], np.int64)
+            return (n[None, :] + g[:, None]) % 5 != 0
+
+        ssn.add_device_mask_fn(self.name, mask)
+
+    def on_session_close(self, ssn):
+        pass
+
+
+class ChipScorer:
+    """A custom batch scorer: each task scores three nodes (by its gang
+    number); every other node scores nothing."""
+
+    name = "chip-scorer"
+
+    def __init__(self, arguments=None):
+        pass
+
+    def on_session_open(self, ssn):
+        def batch(task, nodes):
+            g = _num(task.job)
+            return {nodes[(7 * g + 3 * k) % len(nodes)].name: 5.0 - 2 * k
+                    for k in range(3)}
+
+        ssn.add_batch_node_order_fn(self.name, batch)
+
+    def on_session_close(self, ssn):
+        pass
+
+
+def _repend_nodes(store, n_nodes: int) -> int:
+    """Return the pods bound to the first ``n_nodes`` nodes to Pending
+    through the store (the object session's steady-state workload)."""
+    import copy
+
+    names = {store.mirror.node_objs[r].name for r in range(n_nodes)}
+    pods = [p for p in store.pods.values() if p.node_name in names]
+    for pod in pods:
+        p = copy.copy(pod)
+        p.node_name = None
+        store.update_pod(p)
+    return len(pods)
+
+
+def object_cycles(label, conf, device, cycles=3, check_binds=None):
+    """``cycles`` object-session cycles of ``Scheduler(store).run_once()``
+    on BASELINE config 2 (``synthetic_cluster(1,000 nodes, 10,000 pods,
+    gangs of 4)``, uids reset), the pods of nodes 0-63 re-pended before
+    each later cycle.  After every cycle: a flight record with path
+    "object" and no error, ``cycle_invariants``, and ``check_binds`` (when
+    given) on the store.  Returns (per-cycle (binds, phases, mirror),
+    per-cycle stats)."""
+    import torch
+
+    from volcano_tpu_torch.scheduler import Scheduler
+
+    t0 = time.perf_counter()
+    store = _fresh_cluster(**CONFIG2)
+    build_s = time.perf_counter() - t0
+    sched = Scheduler(store, conf_str=conf, device=device)
+    records, stats = [], []
+    for c in range(cycles):
+        repended = _repend_nodes(store, 64) if c else 0
+        t0 = time.perf_counter()
+        sched.run_once()
+        if device != "cpu":
+            torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        rec = store.flight.last()
+        if rec.path != "object" or rec.error is not None:
+            raise AssertionError(f"[{label}] cycle {c} ran {rec.path}, "
+                                 f"error {rec.error}")
+        inv = cycle_invariants(store, CONFIG2["n_pods"])
+        if check_binds is not None:
+            check_binds(store)
+        lanes = {k: round(v * 1e3, 3) for k, v in sorted(rec.lanes.items())}
+        stats.append({"cycle": c, "wall_s": wall, "repended": repended,
+                      "lanes_ms": lanes, **inv})
+        records.append((dict(store.binder.binds),
+                        {u: pg.status.phase
+                         for u, pg in sorted(store.pod_groups.items())},
+                        _mirror_state(store)))
+        _log(f"[{label}] {device or 'card'} cycle {c}: {wall:.4f} s (build "
+             f"{build_s:.3f} s), re-pended {repended}, lanes(ms) "
+             f"{json.dumps(lanes)}")
+    return records, stats
+
+
+def _card_and_cpu(label, conf, kernels_needed, check_binds=None):
+    """``object_cycles`` on the card (launch counts zeroed just before and
+    read just after, inputs captured) and on the CPU: binds, phases and
+    mirror states identical every cycle.  Returns (card stats, launches,
+    captured inputs)."""
+    from volcano_tpu_torch.ops import kernels
+
+    kernels.CAPTURE = {}
+    kernels.reset_launches()
+    card, stats = object_cycles(label, conf, None, check_binds=check_binds)
+    launches = dict(kernels.LAUNCHES)
+    captured, kernels.CAPTURE = kernels.CAPTURE, None
+    _log(f"[{label}] launches {json.dumps(launches)}")
+    missing = [k for k in kernels_needed if launches[k] == 0]
+    if missing:
+        raise AssertionError(f"[{label}] kernels never launched: {missing}")
+    cpu, _ = object_cycles(label, conf, "cpu")
+    _same_records(label, card, cpu, "card vs CPU", fields=3)
+    _log(f"[{label}] card equals CPU: {len(card)} cycles, binds, phases "
+         f"and mirror states identical")
+    return stats, launches, captured
+
+
+def _allowed_binds(store) -> None:
+    """Every pod bound on a node the chip-mask plugin allows its gang."""
+    from volcano_tpu_torch.api import GROUP_NAME_ANNOTATION
+
+    for p in store.pods.values():
+        if p.node_name and not ChipMask.allowed(
+                p.annotations[GROUP_NAME_ANNOTATION], p.node_name):
+            raise AssertionError(f"[custom] {p.name} bound to vetoed node "
+                                 f"{p.node_name}")
+
+
+def object_phases(ns_args):
+    """Phases 20-23: the object session on BASELINE config 2 (wave solver,
+    ``VOLCANO_TPU_FASTPATH=0``), under ``solver: seq``, with custom
+    plugins under both solvers, and the sequential solve of the north-star
+    args on the card.  Returns (the seq_solve row, the coarse_shortlist
+    and rank_candidates rows on custom-plugin inputs)."""
+    import os
+
+    import torch
+
+    from volcano_tpu_torch.framework import register_plugin_builder
+    from volcano_tpu_torch.ops import kernels
+    from volcano_tpu_torch.ops.allocate import solve
+
+    # 20. [object]: the switched-off fast path runs the object session.
+    saved = os.environ.get("VOLCANO_TPU_FASTPATH")
+    os.environ["VOLCANO_TPU_FASTPATH"] = "0"
+    try:
+        _card_and_cpu("object", CONF_BASE, OBJECT_KERNELS)
+    finally:
+        if saved is None:
+            os.environ.pop("VOLCANO_TPU_FASTPATH", None)
+        else:
+            os.environ["VOLCANO_TPU_FASTPATH"] = saved
+
+    # 21. [seq]: the sequential solver; its kernel against the plain
+    # version on the inputs of its first launch.
+    _s, seq_launches, seq_cap = _card_and_cpu("seq", CONF_SEQ,
+                                              ("seq_solve",))
+    seq_row = replay_kernels(seq_cap, seq_launches, reps=1,
+                             names=["seq_solve"])[0]
+    _log(f"[kernels:seq] seq_solve: {seq_row['ms']:.4f} ms/launch, plain "
+         f"{seq_row['plain_ms']:.4f} ms, bound {seq_row['bound_ms']:.6f} ms "
+         f"({seq_row['bound_by']}), launches {seq_row['launches']}, "
+         f"max_abs_err {seq_row['max_abs_err']}")
+
+    # 22. [seq:north-star]: the [main] solve args through the sequential
+    # solve on the card (its plain replay is [seq]'s).
+    kernels.reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res = solve(*ns_args)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    if kernels.LAUNCHES["seq_solve"] != 1:
+        raise AssertionError("[seq:north-star] seq_solve did not launch "
+                             "once")
+    inv = check_invariants(ns_args, res)
+    seq_row["north_star"] = {"wall_s": wall, **inv}
+    _log(f"[seq:north-star] 10,000 x 100,000 sequential solve {wall:.4f} "
+         f"s, pods bound {inv['pods_bound']}, jobs discarded "
+         f"{inv['jobs_discarded']}")
+
+    # 23. [custom]: a device-mask plugin and a batch scorer, under the wave
+    # and the sequential solver.
+    register_plugin_builder(ChipMask.name, ChipMask)
+    register_plugin_builder(ChipScorer.name, ChipScorer)
+    _s, cus_launches, cus_cap = _card_and_cpu(
+        "custom", CONF_CUSTOM, OBJECT_KERNELS, check_binds=_allowed_binds)
+    extra_rows = _replay_rows(cus_cap, cus_launches, "custom", (
+        "coarse_shortlist:extra", "rank_candidates:extra"))
+    _card_and_cpu("custom:seq", CONF_CUSTOM + CONF_SEQ[len(CONF_BASE):],
+                  ("seq_solve",), check_binds=_allowed_binds)
+    return seq_row, extra_rows
+
+
 def _same_records(label, a, b, what, fields=4):
     if len(a) != len(b):
         raise AssertionError(f"[{label}] {what}: cycle counts differ")
@@ -2173,6 +2451,10 @@ def main() -> int:
     else:
         _log("[main] traced solve: no device events in the trace "
              "(device time per solve not measured)")
+
+    # The [main] solve args, kept for the sequential solve of phase 22.
+    ns_args, _ = solve_args_from_store(ns_store, binpack=True,
+                                       nodeorder=True)
 
     # 5. features: taints, selectors, node affinity, finite deserved.
     gib = float(2 ** 30)
@@ -2260,6 +2542,16 @@ def main() -> int:
             "launches", "ms", "plain_ms", "bound_ms", "bound_by",
             "max_abs_err", "wrapper_ms", "queued", "bytes", "ops")}
     rows.extend(aff_rows)
+
+    # 20-23. the object session: config 2 with the fast path off, the
+    # sequential solver (seq_solve), its north-star solve, custom plugins.
+    seq_row, extra_rows = object_phases(ns_args)
+    del ns_args
+    for r in extra_rows:
+        by_name[r["name"]]["extra"] = {k: r[k] for k in (
+            "launches", "ms", "plain_ms", "bound_ms", "bound_by",
+            "max_abs_err", "wrapper_ms", "queued", "bytes", "ops")}
+    rows.append(seq_row)
 
     print(json.dumps({"kernels": rows}), flush=True)
     print(card, flush=True)

@@ -175,3 +175,37 @@ def test_solve_wrappers_with_ports_and_counts_match(fake_card):
         "vtt_block_shortlist", "vtt_block_shortlist_smem",
         "vtt_block_shortlist", "vtt_rank_candidates", "vtt_walk_accept",
         "vtt_apply_commit"]
+
+
+def test_seq_solve_and_extra_planes_match_their_entries(fake_card):
+    """seq_solve's 75 arguments, and the custom-plugin planes of
+    coarse_shortlist and rank_candidates."""
+    from test_torch_fixtures import seq_extra, seq_store
+
+    from volcano_tpu_torch.ops.allocate import seq_inputs
+    from volcano_tpu_torch.synth import solve_args_from_store
+
+    import volcano_tpu_torch
+
+    args, _ = solve_args_from_store(
+        seq_store(volcano_tpu_torch, "affinity", 1), device="cpu")
+    ok, score = seq_extra(args, 0)
+    for kw in ({}, {"extra_ok": ok, "extra_score": score}):
+        x = seq_inputs(*args, kw.get("extra_ok"), kw.get("extra_score"),
+                       torch.device("cpu"))
+        kernels.seq_solve(x, args[4])
+    U, N, UM, S = 8, 32, 4, 8
+    prof, cls, nodes, weights, eps, slot = shortlist_tensors(
+        shortlist_case(0, U=U, N=N), "cpu")
+    a = (nodes["idle"], nodes["alloc"], nodes["ntasks"], nodes["max_tasks"],
+         eps, slot, weights)
+    ex = kernels.Extra(_z(U, N, dtype=B8), _z(U, N, dtype=F32))
+    kernels.coarse_shortlist(prof, cls, *a, 4, True, extra=ex)
+    C = cls.ready.shape[0]
+    kernels.rank_candidates(
+        torch.arange(UM, dtype=I32), _z(UM, S), _z(UM, C, dtype=B8),
+        _z(UM, C, dtype=F32), cls.class_id, prof.req[:UM].contiguous(),
+        prof.init_req[:UM].contiguous(), *a[:6], weights, 4,
+        extra=kernels.Extra(None, ex.score), pids=_z(UM))
+    assert fake_card.calls == ["vtt_seq_solve"] * 2 + [
+        "vtt_coarse_shortlist", "vtt_rank_candidates"]

@@ -665,3 +665,156 @@ def test_affinity_future_ports_equal_plain_and_cpu(cuda):
     _same(out[0], out[1])
     _same(out[0], out[2])
     assert int((out[0].pipelined >= 0).sum()) > 0
+
+
+# ------------------------------------------------------------- seq_solve
+
+def _seq_cases():
+    from test_torch_fixtures import SEQ_CASES
+
+    return ([(n, 0) for n in SEQ_CASES] + [("affinity", s) for s in range(3)]
+            + [("random", s) for s in range(4)])
+
+
+def _seq_three_ways(store, extra_seed=None):
+    """``ops.allocate.solve`` as the kernel, as the plain version on the
+    card and on the CPU; the kernel's launch count."""
+    from test_torch_fixtures import seq_extra
+    from volcano_tpu_torch.ops.allocate import LAST_SEQ, solve
+
+    a_gpu, _ = solve_args_from_store(store, binpack=True, nodeorder=True)
+    a_cpu, _ = solve_args_from_store(store, binpack=True, nodeorder=True,
+                                     device="cpu")
+    kw = {}
+    if extra_seed is not None:
+        ok, score = seq_extra(a_cpu, extra_seed)
+        kw = dict(extra_ok=ok, extra_score=score)
+    kernels.reset_launches()
+    k = interop.result_to_numpy(solve(*a_gpu, **kw))
+    launched = kernels.LAUNCHES["seq_solve"]
+    k_cnt = LAST_SEQ["alloc_cnt"].cpu()
+    p = interop.result_to_numpy(solve(*a_gpu, plain=True, **kw))
+    # The per-job allocation counts (a work count's input) agree too.
+    assert torch.equal(k_cnt, LAST_SEQ["alloc_cnt"].cpu())
+    c = interop.result_to_numpy(solve(*a_cpu, device="cpu", **kw))
+    return k, p, c, launched
+
+
+def _same_bits(a, b):
+    for f in ("assigned", "pipelined", "never_ready", "fit_failed", "idle",
+              "q_alloc"):
+        x, y = np.asarray(getattr(a, f)), np.asarray(getattr(b, f))
+        assert x.dtype == y.dtype and x.shape == y.shape, f
+        if x.dtype == np.float32:
+            x, y = x.view(np.uint32), y.view(np.uint32)
+        assert np.array_equal(x, y), f
+
+
+@pytest.mark.parametrize("name,seed", _seq_cases())
+def test_seq_solve_kernel_equals_plain_and_cpu(cuda, name, seed):
+    """seq_solve on the card equals its plain version on the card and on
+    the CPU bit for bit: one launch per solve."""
+    from test_torch_fixtures import seq_store
+
+    k, p, c, launched = _seq_three_ways(seq_store(volcano_tpu_torch, name,
+                                                  seed))
+    _same_bits(k, p)
+    _same_bits(k, c)
+    assert launched == 1
+
+
+@pytest.mark.parametrize("seed", range(3))
+def test_seq_solve_with_extra_planes_equals_plain(cuda, seed):
+    from test_torch_fixtures import seq_store
+
+    k, p, c, launched = _seq_three_ways(
+        seq_store(volcano_tpu_torch, "random", seed), extra_seed=seed)
+    _same_bits(k, p)
+    _same_bits(k, c)
+    assert launched == 1
+
+
+def test_seq_solve_synthetic_cluster_equals_plain(cuda):
+    """A gang cluster at a few thousand tasks (many nodes a thread)."""
+    k, p, c, launched = _seq_three_ways(synthetic_cluster(
+        n_nodes=1500, n_pods=3000, gang_size=4, n_queues=2, zones=4,
+        seed=3))
+    _same_bits(k, p)
+    _same_bits(k, c)
+    assert int((k.assigned >= 0).sum()) > 0
+
+
+# ----------------------------------------- extra planes in the rankings
+
+def _extra_planes(U, N, dev, seed, veto=0.3):
+    g = torch.Generator().manual_seed(seed)
+    ok = torch.rand((U, N), generator=g) >= veto
+    score = torch.randint(-2, 3, (U, N), generator=g).to(torch.float32)
+    return kernels.Extra(ok.to(dev), score.to(dev))
+
+
+@pytest.mark.parametrize("kind", ["mixed", "ties"])
+def test_coarse_and_rank_with_extra_planes_equal_plain(cuda, kind):
+    """coarse_shortlist and rank_candidates with custom-plugin planes (ties
+    from integer scores, vetoes) equal their plain versions; all-feasible
+    verdicts without scores give the results without planes."""
+    from test_torch_fixtures import shortlist_case, shortlist_tensors
+
+    U, N, S = 64, 4096, 205
+    case = shortlist_case(11, U=U, N=N, kind=kind)
+    prof, cls, nd, w, eps, slot = shortlist_tensors(case, cuda)
+    args = (nd["idle"], nd["alloc"], nd["ntasks"], nd["max_tasks"], eps,
+            slot, w)
+    ex = _extra_planes(U, N, cuda, 3)
+    kernels.reset_launches()
+    out = kernels.coarse_shortlist(prof, cls, *args, S, True, extra=ex)
+    ref = kernels.coarse_shortlist(prof, cls, *args, S, True, extra=ex,
+                                   plain=True)
+    for a, b, what in zip(out, ref, ("sl", "ok", "sc")):
+        _equal(a, b, what)
+    base = kernels.coarse_shortlist(prof, cls, *args, S, True)
+    same = kernels.coarse_shortlist(
+        prof, cls, *args, S, True,
+        extra=kernels.Extra(torch.ones_like(ex.ok), None))
+    _equal(base[0], same[0], "all-feasible planes changed the shortlist")
+    assert not torch.equal(out[0], base[0])
+    # A wave of UM rows of profiles pids, on the shortlists and on all N.
+    UM, K = 16, 32
+    pids = torch.arange(0, 2 * UM, 2, dtype=torch.int32, device=cuda)
+    pl = pids.long()
+    ok_w, sc_w = out[1][pl].contiguous(), out[2][pl].contiguous()
+    rows = torch.arange(UM, dtype=torch.int32, device=cuda)
+    bias = torch.linspace(-1.0, 1.0, N, device=cuda)
+    for cand in (out[0][pl].contiguous(), None):
+        for b in (None, bias):
+            r = kernels.rank_candidates(
+                rows, cand, ok_w, sc_w, cls.class_id,
+                prof.req[pl].contiguous(), prof.init_req[pl].contiguous(),
+                *args[:6], w, K, bias=b, extra=ex, pids=pids)
+            rp = kernels.rank_candidates(
+                rows, cand, ok_w, sc_w, cls.class_id,
+                prof.req[pl].contiguous(), prof.init_req[pl].contiguous(),
+                *args[:6], w, K, bias=b, extra=ex, pids=pids, plain=True)
+            for a, bb, what in zip(r, rp, ("ranked", "feas", "any")):
+                _equal(a, bb, what)
+    assert kernels.LAUNCHES["rank_candidates"] == 4
+
+
+def test_card_solve_with_extra_planes_equals_plain_and_cpu(cuda):
+    from test_torch_fixtures import seq_extra
+
+    store = synthetic_cluster(n_nodes=96, n_pods=700, gang_size=4,
+                              n_queues=2, zones=4, seed=5)
+    a_gpu, _ = solve_args_from_store(store, binpack=True, nodeorder=True)
+    a_cpu, _ = solve_args_from_store(store, binpack=True, nodeorder=True,
+                                     device="cpu")
+    ok, score = seq_extra(a_cpu, 4)
+    kw = dict(extra_ok=ok, extra_score=score, wave=128)
+    kernels.reset_launches()
+    k = interop.result_to_numpy(solve_wave(*a_gpu, **kw))
+    launched = dict(kernels.LAUNCHES)
+    p = interop.result_to_numpy(solve_wave(*a_gpu, plain=True, **kw))
+    c = interop.result_to_numpy(solve_wave(*a_cpu, device="cpu", **kw))
+    _same(k, p)
+    _same(k, c)
+    assert launched["coarse_shortlist"] and launched["rank_candidates"]

@@ -456,3 +456,198 @@ def affinity_store(pkg, n_nodes=32, n_gangs=24, gang_size=4, zones=4,
                 containers=[{"cpu": cpu, "memory": "2Gi"}], **extra,
             ))
     return store
+
+
+# ------------------------------------------------ sequential-solve stores
+
+SEQ_CASES = ("plain fit", "gang discard", "fit failure", "releasing",
+             "host ports", "taints selectors node affinity")
+SEQ_ZONES = ("zone-a", "zone-b", "zone-c")
+
+
+def seq_store(pkg, name, seed=0):
+    """The sequential-solve stores (test_ops.py / test_affinity.py /
+    test_oracle_parity.py shapes), built from either package's api.
+    ``name`` is one of SEQ_CASES, "affinity" or "random" (both seeded)."""
+    api = pkg.api
+    store = pkg.cache.ClusterStore()
+
+    def node(nm, cpu="8", mem="16Gi", pods=32, labels=None, taints=()):
+        store.add_node(api.Node(name=nm, allocatable={
+            "cpu": cpu, "memory": mem, "pods": pods},
+            labels=dict(labels or {}), taints=list(taints)))
+
+    def pod(nm, cpu="1", mem="1Gi", **kw):
+        return api.Pod(name=nm, containers=[{"cpu": cpu, "memory": mem}],
+                       **kw)
+
+    def gang(g, pods, min_member=None, queue="default"):
+        if queue != "default" and queue not in store.queues:
+            store.add_queue(api.Queue(name=queue, weight=1))
+        store.add_pod_group(api.PodGroup(
+            name=g, min_member=min_member or len(pods), queue=queue))
+        for p in pods:
+            p.annotations = {**(p.annotations or {}),
+                             api.GROUP_NAME_ANNOTATION: g}
+            store.add_pod(p)
+
+    def resident(nm, node_name, cpu="1", **kw):
+        store.add_pod(api.Pod(name=nm, node_name=node_name,
+                              phase=api.PodPhase.Running,
+                              containers=[{"cpu": cpu, "memory": "1Gi"}],
+                              **kw))
+
+    if name == "plain fit":
+        for i in range(4):
+            node(f"n{i}", cpu=str(4 + 2 * i))
+        for g in range(5):
+            gang(f"g{g}", [pod(f"g{g}-{k}", cpu=str(1 + k % 3))
+                           for k in range(3)])
+    elif name == "gang discard":
+        # The middle gang cannot reach min_member: its allocations roll
+        # back and the capacity goes to the gang after it.
+        node("n0", cpu="4")
+        node("n1", cpu="4")
+        gang("a", [pod("a0", cpu="2")])
+        gang("b", [pod(f"b{k}", cpu="3") for k in range(3)])
+        gang("c", [pod(f"c{k}", cpu="3") for k in range(2)])
+    elif name == "fit failure":
+        # b1 fits nowhere: the rest of gang b is aborted.
+        node("n0", cpu="4")
+        node("n1", cpu="2")
+        gang("b", [pod("b0", cpu="2"), pod("b1", cpu="16"),
+                   pod("b2", cpu="1")], min_member=1)
+        gang("c", [pod("c0", cpu="2")])
+    elif name == "releasing":
+        # Full nodes with releasing pods: the newcomers pipeline onto the
+        # future capacity, and pipelines survive a gang's rollback.
+        for i in range(3):
+            node(f"n{i}", cpu="4")
+        store.add_pod_group(api.PodGroup(name="old", min_member=1))
+        for i in range(3):
+            resident(f"v{i}", f"n{i}", cpu="3",
+                     annotations={api.GROUP_NAME_ANNOTATION: "old"})
+        for t in list(store.jobs["default/old"].tasks.values())[:2]:
+            store.evict(t, "test")
+        gang("new", [pod(f"p{k}", cpu="2") for k in range(3)],
+             min_member=2)
+        gang("tail", [pod("t0", cpu="1")])
+    elif name == "host ports":
+        for i in range(3):
+            node(f"n{i}")
+        resident("res", "n0", host_ports=[8080])
+        gang("web", [pod(f"w{k}", host_ports=[8080]) for k in range(4)],
+             min_member=1)
+        gang("db", [pod(f"d{k}", host_ports=[9090, 8080])
+                    for k in range(2)])
+    elif name == "taints selectors node affinity":
+        for i in range(6):
+            taints = ([api.Taint(key="dedicated", value="batch",
+                                 effect="NoSchedule")] if i % 3 == 1 else [])
+            node(f"n{i}", labels={"zone": SEQ_ZONES[i % 3],
+                                  "disk": "ssd" if i % 2 else "hdd"},
+                 taints=taints)
+        tol = [api.Toleration(key="dedicated", operator="Equal",
+                              value="batch", effect="NoSchedule")]
+        gang("sel", [pod(f"s{k}", node_selector={"disk": "ssd"})
+                     for k in range(3)])
+        gang("tol", [pod(f"t{k}", tolerations=tol) for k in range(3)])
+        gang("req", [pod(f"r{k}", required_node_affinity=[
+            {"zone": "zone-c"}, {"disk": "ssd", "zone": "zone-a"}])
+            for k in range(3)])
+        # Fractional preferred term scores (w / total * 10).
+        gang("pref", [pod(f"p{k}", preferred_node_affinity=[
+            ({"zone": "zone-b"}, 3), ({"disk": "ssd"}, 7),
+            ({"zone": "zone-a"}, 1)]) for k in range(4)])
+    elif name == "affinity":
+        # test_affinity.py's random mix (required affinity, anti-affinity,
+        # spread, preferred affinity, self-matching gangs), plus a node
+        # without the zone label (domain -1) and a resident match.
+        rng = np.random.default_rng(1000 + seed)
+        for z in SEQ_ZONES:
+            for i in range(int(rng.integers(1, 4))):
+                node(f"{z}-n{i}", cpu="16", mem="64Gi",
+                     labels={"zone": z})
+        node("bare", cpu="16", mem="64Gi")
+        resident("resident", f"{SEQ_ZONES[1]}-n0", labels={"app": "app-0"})
+        for g in range(int(rng.integers(3, 7))):
+            size = int(rng.integers(1, 5))
+            kind = int(rng.integers(0, 5))
+            pods = []
+            for k in range(size):
+                p = pod(f"g{g}-p{k}", cpu=str(int(rng.integers(1, 5))),
+                        mem=f"{int(rng.integers(1, 9))}Gi",
+                        labels={"app": f"app-{g}"})
+                term = api.AffinityTerm(
+                    match_labels={"app": f"app-{g}"},
+                    topology_key=("zone" if rng.random() < 0.5
+                                  else "kubernetes.io/hostname"))
+                if kind == 0:
+                    p.affinity = [term]
+                elif kind == 1:
+                    p.anti_affinity = [term]
+                elif kind == 2:
+                    p.topology_spread = [("zone", 100)]
+                elif kind == 3:
+                    p.preferred_affinity = [(term, 50)]
+                pods.append(p)
+            gang(f"g{g}", pods, min_member=int(rng.integers(1, size + 1)))
+    elif name == "random":
+        # test_oracle_parity.py's _random_store: heterogeneous nodes,
+        # labels, taints, host ports, selectors, gangs, several queues.
+        rng = np.random.default_rng(seed)
+        n_nodes = int(rng.integers(4, 24))
+        for i in range(n_nodes):
+            labels = {"zone": SEQ_ZONES[i % 3]}
+            if rng.random() < 0.3:
+                labels["disk"] = "ssd"
+            taints = []
+            if rng.random() < 0.25:
+                taints.append(api.Taint(key="dedicated", value="batch",
+                                        effect="NoSchedule"))
+            node(f"node-{i:03d}", cpu=str(int(rng.integers(4, 33))),
+                 mem=f"{int(rng.integers(8, 65))}Gi",
+                 pods=int(rng.integers(4, 64)), labels=labels,
+                 taints=taints)
+        for q in range(1, int(rng.integers(1, 4))):
+            store.add_queue(api.Queue(name=f"queue-{q}",
+                                      weight=int(rng.integers(1, 5))))
+        queues = ["default"] + [q for q in store.snapshot().queues
+                                if q != "default"]
+        for g in range(int(rng.integers(2, 14))):
+            size = int(rng.integers(1, 6))
+            min_member = int(rng.integers(1, size + 1))
+            q = str(rng.choice(queues))
+            pods = []
+            for k in range(size):
+                selector = {}
+                if rng.random() < 0.3:
+                    selector["zone"] = str(rng.choice(SEQ_ZONES))
+                tolerations = []
+                if rng.random() < 0.4:
+                    tolerations.append(api.Toleration(
+                        key="dedicated", operator="Equal", value="batch",
+                        effect="NoSchedule"))
+                ports = []
+                if rng.random() < 0.25:
+                    ports.append(int(rng.choice([8080, 9090, 9100])))
+                pods.append(pod(
+                    f"pg-{g:03d}-{k}", cpu=str(int(rng.integers(1, 9))),
+                    mem=f"{int(rng.integers(1, 17))}Gi",
+                    node_selector=selector, tolerations=tolerations,
+                    host_ports=ports, priority=int(rng.integers(0, 3))))
+            gang(f"pg-{g:03d}", pods, min_member=min_member, queue=q)
+    else:
+        raise KeyError(name)
+    return store
+
+
+def seq_extra(args, seed):
+    """[P, N] custom-plugin planes for a solve: verdicts (30% vetoes) and
+    scores with three decimals, from a numpy seed."""
+    P = np.asarray(args[1].req).shape[0]
+    N = np.asarray(args[0].idle).shape[0]
+    rng = np.random.default_rng(seed)
+    ok = rng.random((P, N)) < 0.7
+    score = np.round(rng.normal(0.0, 4.0, (P, N)), 3).astype(np.float32)
+    return ok, score

@@ -169,9 +169,47 @@ def test_ported_features_match_jax(what):
         assert placed[0] % 2 == placed[1] % 2  # one zone
 
 
+def _extra(kind, P, N):
+    """A custom plugin's [P, N] plane: node 0 vetoed, or scored up."""
+    if kind == "extra_ok":
+        ok = np.ones((P, N), bool)
+        ok[:, 0] = False
+        return ok
+    score = np.zeros((P, N), np.float32)
+    score[:, 3] = 50.0
+    return score
+
+
+@pytest.mark.parametrize("kind", ["extra_ok", "extra_score"])
+def test_custom_plugin_planes_match_jax(kind):
+    """The custom-plugin planes the object session hands the wave solve:
+    equal to the JAX package's, and they steer the gang."""
+    import volcano_tpu
+    from volcano_tpu.ops.wave import solve_wave as jax_solve_wave
+    from volcano_tpu.synth import solve_args_from_store as jax_args
+
+    from volcano_tpu_torch import interop
+
+    jargs = jax_args(_store_with(volcano_tpu))[0]
+    P, N = np.asarray(jargs[1].req).shape[0], np.asarray(
+        jargs[0].idle).shape[0]
+    kw = {kind: _extra(kind, P, N)}
+    jr = jax_solve_wave(*jargs, wave=8, **kw)
+    tr = interop.result_to_numpy(port_wave.solve_wave(
+        *_args(), wave=8, device="cpu", **kw))
+    for f in ("assigned", "pipelined", "never_ready", "fit_failed", "idle",
+              "q_alloc", "iters"):
+        assert np.array_equal(np.asarray(getattr(jr, f)),
+                              np.asarray(getattr(tr, f))), f
+    placed = np.asarray(tr.assigned)[:2]
+    assert (placed >= 0).all()
+    if kind == "extra_ok":
+        assert (placed != 0).all()
+    else:
+        assert (placed == 3).any()
+
+
 UNSUPPORTED = {
-    "extra_ok": (_args, {"extra_ok": np.ones((2, 8), bool)}),
-    "extra_score": (_args, {"extra_score": np.zeros((2, 8), np.float32)}),
     "mesh_shards": (_args, {"mesh_shards": 2}),
 }
 
@@ -287,11 +325,6 @@ CYCLE_NOT_PORTED = {
     # they replace (VOLCANO_TPU_EVICT_DEVICE=0, set below) does not.
     "preempt": (_cycle_store, _conf("enqueue, allocate, preempt")),
     "reclaim": (_cycle_store, _conf("allocate, reclaim")),
-    "custom plugin": (_cycle_store, _conf(extra_plugin="  - name: mine\n")),
-    "unknown action": (_cycle_store, _conf("allocate, shuffle")),
-    "sequential solver": (_cycle_store, _conf() + (
-        "configurations:\n- name: allocate\n  arguments:\n"
-        "    solver: seq\n")),
     "pipeline": (_set("pipeline", True), _conf()),
 }
 
@@ -312,6 +345,40 @@ def test_cycle_lanes_not_ported_raise(what, monkeypatch):
                        match=rf"ROADMAP\.md, queue 1: .*{_ITEM[what]}"):
         Scheduler(store, conf_str=conf, device="cpu").run_once()
     assert not store.binder.binds
+
+
+# Confs the fast path does not run, and the switched-off fast path: the
+# object session runs them, as the JAX Scheduler does.
+OBJECT_SESSION = {
+    "custom plugin": (_conf(extra_plugin="  - name: mine\n"), "1"),
+    "unknown action": (_conf("enqueue, allocate, shuffle"), "1"),
+    "sequential solver": (_conf() + (
+        "configurations:\n- name: allocate\n  arguments:\n"
+        "    solver: seq\n"), "1"),
+    "fastpath off": (_conf(), "0"),
+}
+
+
+@pytest.mark.parametrize("what", sorted(OBJECT_SESSION))
+def test_object_session_cases_match_jax(what, monkeypatch):
+    """Each case runs the object session on both packages (a flight
+    record with ``path == "object"``) and binds the same pods."""
+    import volcano_tpu.synth
+    from volcano_tpu.scheduler import Scheduler as JaxScheduler
+
+    from volcano_tpu_torch.scheduler import Scheduler
+
+    conf, fastpath = OBJECT_SESSION[what]
+    monkeypatch.setenv("VOLCANO_TPU_FASTPATH", fastpath)
+    jstore = volcano_tpu.synth.synthetic_cluster(n_nodes=4, n_pods=8,
+                                                 gang_size=2)
+    jstore.pipeline = False
+    JaxScheduler(jstore, conf_str=conf).run_once()
+    store = _cycle_store()
+    Scheduler(store, conf_str=conf, device="cpu").run_once()
+    assert store.flight.last().path == "object"
+    assert len(store.binder.binds) == 8
+    assert dict(store.binder.binds) == dict(jstore.binder.binds)
 
 
 CYCLE_PORTED = {
@@ -368,8 +435,30 @@ def test_store_slots_not_ported_raise(attr, value):
     store = _cycle_store()
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         setattr(store, attr, value)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        store.evict(None, "test")
+
+
+@pytest.mark.parametrize("fail", [False, True])
+def test_store_evict_marks_releasing_or_reverts(fail):
+    """The object session's eviction: the pod turns Releasing and reaches
+    the evictor; a failed dispatch reverts the record (cache.go:461-466)."""
+    from volcano_tpu_torch.cache import FakeEvictor
+
+    class Failing(FakeEvictor):
+        def evict(self, pod):
+            raise RuntimeError("evict refused")
+
+    store = _cycle_store()
+    store.evictor = Failing() if fail else FakeEvictor()
+    pod = next(iter(store.pods.values()))
+    task = store.jobs[next(iter(store.jobs))].tasks[pod.uid]
+    store.evict(task, "test")
+    assert store.pods[pod.uid].deleting is not fail
+    reason = "EvictFailed" if fail else "Evict"
+    assert any(e["reason"] == reason
+               for e in store.events_for(f"Pod/{pod.namespace}/{pod.name}"))
+    gone = type("Gone", (), {"uid": "no-such-pod"})()
+    with pytest.raises(KeyError):
+        store.evict(gone, "test")
 
 
 def test_unsupported_conf_raises_on_first_load():

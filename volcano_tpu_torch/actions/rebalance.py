@@ -25,8 +25,11 @@ what-if engine action (rebalance, preempt, reclaim) shares:
 from __future__ import annotations
 
 import copy
+import logging
 import os
 from typing import Dict, Optional
+
+log = logging.getLogger(__name__)
 
 
 def _env_int(name: str, default: int) -> int:
@@ -208,3 +211,29 @@ def ledger_of(store) -> MigrationLedger:
     if ledger is None:
         ledger = store.migrations = MigrationLedger()
     return ledger
+
+
+class RebalanceAction:
+    """Object-session registration for the ``rebalance`` action name.
+
+    The rebalance lane needs the array mirror, the profile tables and the
+    wave solver -- none of which exist on the object-session path.
+    Configurations that include ``rebalance`` with fast-path-eligible
+    plugins run it in ``FastCycle._rebalance``; on the object path the
+    action is a no-op (as in the reference, where defragmentation lives in
+    a separate descheduler, not the scheduler's action list).
+    """
+
+    name = "rebalance"
+
+    def initialize(self):
+        pass
+
+    def un_initialize(self):
+        pass
+
+    def execute(self, ssn) -> None:
+        log.debug(
+            "rebalance is a fast-path lane; the object-session path does "
+            "not implement it (session %s)", ssn.uid,
+        )

@@ -747,8 +747,39 @@ class ClusterStore:
             self._notify("Pod", "bind", pod)
 
     def evict(self, task: TaskInfo, reason: str) -> None:
-        raise not_ported("the object path's eviction (evict)",
-                         "the host victim walk")
+        """Evict task's pod (cache.go:439-489, synchronous): the object
+        session's preempt and reclaim evict through it."""
+        with self._lock:
+            pod = self.pods.get(task.uid)
+            if pod is None:
+                raise KeyError(f"unknown pod {task.uid}")
+            # Mark the cached pod as terminating: resources become
+            # Releasing.
+            pod = self._replace_pod(pod, deleting=True)
+            try:
+                self.evictor.evict(pod)
+            except Exception:
+                # Evict dispatch failed: the pod is NOT terminating.
+                # Revert the record (cache.go:461-466 resyncTask) and let
+                # the next cycle re-select victims.
+                pod = self._replace_pod(pod, deleting=False)
+                self.record_event(
+                    f"Pod/{pod.namespace}/{pod.name}", "EvictFailed",
+                    "evict dispatch failed; will retry",
+                )
+                self._notify("Pod", "update", pod)
+                return
+            self.record_event(
+                f"Pod/{pod.namespace}/{pod.name}", "Evict",
+                reason or "evicted by scheduler",
+            )
+            self._notify("Pod", "evict", pod)
+
+    def allocate_volumes(self, task: TaskInfo, hostname: str) -> None:
+        self.volume_binder.allocate_volumes(task, hostname)
+
+    def bind_volumes(self, task: TaskInfo) -> None:
+        self.volume_binder.bind_volumes(task)
 
     def update_job_status(self, job: JobInfo) -> JobInfo:
         """Write PodGroup status back (interface.go UpdateJobStatus +

@@ -24,7 +24,10 @@
 // ports a node whose solve-start ports share a bit with the profile's is
 // dropped (wave.py:650-653); with inter-pod terms on nonzero solve-start
 // counts, aff_live's [U, N] planes mask the node and add the soft score
-// after the static one (wave.py:655-660).
+// after the static one (wave.py:655-660).  A custom plugin's per-profile
+// [U, N] planes (`e_ok` verdicts, `e_score` scores; null when absent) are
+// ANDed into the static verdict and added to the static score before the
+// live score joins, node_score + (static + extra) (wave.py:642-645).
 //
 // Bound: at 10k nodes x 64 profile rows the pass reads under a megabyte
 // (node planes once per block from L2) and does ~40 float operations per
@@ -36,14 +39,6 @@
 using vtt::Weights;
 
 namespace {
-
-__device__ __forceinline__ bool subset(const uint32_t* row,
-                                       const uint32_t* table, int words) {
-  for (int w = 0; w < words; ++w) {
-    if (row[w] & ~table[w]) return false;
-  }
-  return true;
-}
 
 // kTag only separates the two callers' launches in a profiler trace
 // (0: inside coarse_shortlist, 1: the static_planes entry).
@@ -60,38 +55,16 @@ __global__ void __launch_bounds__(256) class_static_kernel(
   if (idx >= static_cast<int64_t>(U) * C) return;
   const int u = static_cast<int>(idx / C);
   const int c = static_cast<int>(idx % C);
-  const uint32_t* label = cls_label + static_cast<int64_t>(c) * LW;
-  bool ok = cls_ready[c] != 0 &&
-            subset(sel_bits + static_cast<int64_t>(u) * LW, label, LW);
-  const int nterms = aff_terms[u];
-  if (nterms != 0) {
-    bool any = false;
-    for (int a = 0; a < A && a < nterms; ++a) {
-      if (subset(aff_bits + (static_cast<int64_t>(u) * A + a) * LW, label,
-                 LW)) {
-        any = true;
-        break;
-      }
-    }
-    ok = ok && any;
-  }
-  if (has_taints) {
-    // A node taint bit the profile does not tolerate kills the pair.
-    const uint32_t* taint = cls_taint + static_cast<int64_t>(c) * TW;
-    const uint32_t* tol = tol_bits + static_cast<int64_t>(u) * TW;
-    for (int w = 0; w < TW; ++w) {
-      if (taint[w] & ~tol[w]) ok = false;
-    }
-  }
-  float acc = 0.0f;
-  for (int a = 0; a < AP; ++a) {
-    const bool m =
-        subset(pref_bits + (static_cast<int64_t>(u) * AP + a) * LW, label, LW);
-    const float term = (m ? 1.0f : 0.0f) * pref_w[static_cast<int64_t>(u) * AP + a];
-    acc = a == 0 ? term : acc + term;
-  }
-  stat_ok[idx] = ok ? 1 : 0;
-  stat_score[idx] = naff * acc;
+  const vtt::StaticPair s = vtt::static_pair(
+      cls_ready[c] != 0, cls_label + static_cast<int64_t>(c) * LW,
+      has_taints ? cls_taint + static_cast<int64_t>(c) * TW : nullptr, LW, TW,
+      sel_bits + static_cast<int64_t>(u) * LW,
+      aff_bits + static_cast<int64_t>(u) * A * LW, A, aff_terms[u],
+      tol_bits + static_cast<int64_t>(u) * TW,
+      pref_bits + static_cast<int64_t>(u) * AP * LW,
+      pref_w + static_cast<int64_t>(u) * AP, AP);
+  stat_ok[idx] = s.ok ? 1 : 0;
+  stat_score[idx] = naff * s.pref;
 }
 
 __global__ void __launch_bounds__(1024) shortlist_kernel(
@@ -102,7 +75,8 @@ __global__ void __launch_bounds__(1024) shortlist_kernel(
     int N, const float* eps, const uint8_t* scalar_slot, const float* bres,
     Weights w, int S, uint64_t* keys_scratch, int32_t* out,
     const uint32_t* ports, int PW, const uint32_t* nports,
-    const uint8_t* aff_ok, const float* aff_soft) {
+    const uint8_t* aff_ok, const float* aff_soft, const uint8_t* e_ok,
+    const float* e_score) {
   __shared__ int hist[256];
   __shared__ int bcast[2];
   __shared__ int warp_sums[32];
@@ -124,9 +98,10 @@ __global__ void __launch_bounds__(1024) shortlist_kernel(
         vtt::less_equal(irq, fi0, eps, scalar_slot, R) && pods_ok &&
         !(ports && vtt::ports_clash(ports + static_cast<int64_t>(u) * PW,
                                     nports, nullptr, n, PW)) &&
-        !(aff_ok && !aff_ok[ai]);
-    float score = vtt::node_score(rq, al, id, bres, R, w) +
-                  stat_score[static_cast<int64_t>(u) * C + c];
+        !(aff_ok && !aff_ok[ai]) && !(e_ok && !e_ok[ai]);
+    float stat = stat_score[static_cast<int64_t>(u) * C + c];
+    if (e_score) stat = stat + e_score[ai];
+    float score = vtt::node_score(rq, al, id, bres, R, w) + stat;
     if (aff_soft) score = score + aff_soft[ai];
     keys[n] = vtt::make_key(feas ? score : vtt::kNeg, static_cast<uint32_t>(n));
   }
@@ -173,7 +148,8 @@ extern "C" int vtt_coarse_shortlist(
     float lw, float mw, float balw, float naff, int has_taints, int S,
     int static_ext, void* stat_ok, void* stat_score, void* keys_scratch,
     void* out, const void* ports, int PW, const void* nports,
-    const void* aff_ok, const void* aff_soft, void* stream) {
+    const void* aff_ok, const void* aff_soft, const void* e_ok,
+    const void* e_score, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const int64_t pairs = static_cast<int64_t>(U) * C;
   const int threads = 256;
@@ -210,7 +186,9 @@ extern "C" int vtt_coarse_shortlist(
       static_cast<const uint32_t*>(ports), PW,
       static_cast<const uint32_t*>(nports),
       static_cast<const uint8_t*>(aff_ok),
-      static_cast<const float*>(aff_soft));
+      static_cast<const float*>(aff_soft),
+      static_cast<const uint8_t*>(e_ok),
+      static_cast<const float*>(e_score));
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -131,7 +131,59 @@ __device__ __forceinline__ bool ports_clash(const uint32_t* asked,
   return false;
 }
 
-// Selection key: (score descending, position ascending), the tie-break of
+// Is every bit of the `words`-word bitset `row` set in `table`?
+__device__ __forceinline__ bool subset(const uint32_t* row,
+                                       const uint32_t* table, int words) {
+  for (int w = 0; w < words; ++w) {
+    if (row[w] & ~table[w]) return false;
+  }
+  return true;
+}
+
+// The static verdict and the preferred-affinity sum of one (task or
+// profile row, node or node class) pair.  The row's bitsets: selector
+// `sel` [LW], node-affinity alternatives `aff` [A, LW] of which the first
+// `nterms` are real (none asked when 0), tolerations `tol` [TW], preferred
+// terms `pref` [AP, LW] with weights `pref_w` [AP]; the node's `label`
+// [LW] and `taint` [TW] (null: no taint test).  The verdict is ready AND
+// selector AND some alternative AND no untolerated taint; the sum is
+// sum_AP(match * pref_w) added left to right, as the JAX sum over AP.
+struct StaticPair {
+  bool ok;
+  float pref;
+};
+
+__device__ __forceinline__ StaticPair static_pair(
+    bool ready, const uint32_t* label, const uint32_t* taint, int LW,
+    int TW, const uint32_t* sel, const uint32_t* aff, int A, int nterms,
+    const uint32_t* tol, const uint32_t* pref, const float* pref_w,
+    int AP) {
+  bool ok = ready && subset(sel, label, LW);
+  if (ok && nterms != 0) {
+    bool any = false;
+    for (int a = 0; a < A && a < nterms; ++a) {
+      if (subset(aff + static_cast<int64_t>(a) * LW, label, LW)) {
+        any = true;
+        break;
+      }
+    }
+    ok = any;
+  }
+  if (taint) {
+    for (int w = 0; ok && w < TW; ++w) {
+      if (taint[w] & ~tol[w]) ok = false;
+    }
+  }
+  float acc = 0.0f;
+  for (int a = 0; a < AP; ++a) {
+    const bool m = subset(pref + static_cast<int64_t>(a) * LW, label, LW);
+    const float term = (m ? 1.0f : 0.0f) * pref_w[a];
+    acc = a == 0 ? term : acc + term;
+  }
+  return StaticPair{ok, acc};
+}
+
+// Selection key:(score descending, position ascending), the tie-break of
 // jax.lax.top_k and of a stable descending sort.  -0.0 ranks as +0.0.
 __device__ __forceinline__ uint64_t make_key(float score, uint32_t pos) {
   if (score == 0.0f) score = 0.0f;

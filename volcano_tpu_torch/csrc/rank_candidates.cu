@@ -21,7 +21,11 @@
 // :1329-1334); with inter-pod terms the row's affinity planes (aff_live's
 // verdict and soft score, [M, L] in row-and-candidate order) mask the
 // candidate and add the soft score after the static one, (node_score +
-// static) + soft (wave.py:1385-1389).
+// static) + soft (wave.py:1385-1389).  A custom plugin's per-profile
+// [U, N] planes (`e_ok` verdicts, `e_score` scores; null when absent) are
+// read at the row's profile, `pids[rows[b]]`: the verdict masks the
+// candidate and the score joins the static score before the bias does,
+// node_score + ((static + extra) + bias) (wave.py:1127-1139, :1165-1179).
 // A radix select finds the K-th key; the K winners are ordered by counting,
 // for each, the winners with a larger key.  Outputs: the top-K node ids in
 // rank order, their feasibility, and whether any candidate was feasible.
@@ -48,7 +52,8 @@ __global__ void __launch_bounds__(512) rank_kernel(
     uint64_t* keys_scratch, uint8_t* feas_scratch, int32_t* out_ranked,
     uint8_t* out_feas, uint8_t* out_pany, const uint32_t* ports, int PW,
     const uint32_t* nport, const uint32_t* pip_nport, const uint8_t* aff_ok,
-    const float* aff_soft) {
+    const float* aff_soft, const int32_t* pids, int EN, const uint8_t* e_ok,
+    const float* e_score) {
   extern __shared__ uint64_t sel_key[];  // [K]
   __shared__ int hist[256];
   __shared__ int bcast[2];
@@ -60,6 +65,7 @@ __global__ void __launch_bounds__(512) rank_kernel(
   const float* irq = p_init_req + static_cast<int64_t>(u) * R;
   uint64_t* keys = keys_scratch + static_cast<int64_t>(b) * L;
   uint8_t* feas_row = feas_scratch + static_cast<int64_t>(b) * L;
+  const int64_t erow = pids ? static_cast<int64_t>(pids[u]) * EN : 0;
   if (threadIdx.x == 0) {
     n_sel = 0;
     any_feas = 0;
@@ -81,11 +87,12 @@ __global__ void __launch_bounds__(512) rank_kernel(
         vtt::less_equal(irq, fi, eps, scalar_slot, R) && pods_ok &&
         !(ports && vtt::ports_clash(ports + static_cast<int64_t>(u) * PW,
                                     nport, pip_nport, n, PW)) &&
-        !(aff_ok && !aff_ok[ai]);
-    // The topology bias joins the static score before the live score
-    // does (wave.py:1179, :1288), and only when one is given: -0.0 + 0.0
-    // would flip a sign bit of a biasless solve.
+        !(aff_ok && !aff_ok[ai]) && !(e_ok && !e_ok[erow + n]);
+    // The custom score, then the topology bias, join the static score
+    // before the live score does (wave.py:1165-1179, :1288), each only
+    // when given: -0.0 + 0.0 would flip a sign bit of a plain solve.
     float stat = score_w[static_cast<int64_t>(u) * C + c];
+    if (e_score) stat = stat + e_score[erow + n];
     if (bias) stat = stat + bias[n];
     float score = vtt::node_score(rq, al, id, bres, R, w) + stat;
     if (aff_soft) score = score + aff_soft[ai];
@@ -129,7 +136,8 @@ extern "C" int vtt_rank_candidates(
     float balw, int K, void* keys_scratch, void* feas_scratch,
     void* out_ranked, void* out_feas, void* out_pany, const void* ports,
     int PW, const void* nport, const void* pip_nport, const void* aff_ok,
-    const void* aff_soft, void* stream) {
+    const void* aff_soft, const void* pids, int EN, const void* e_ok,
+    const void* e_score, void* stream) {
   if (M == 0) return 0;
   const size_t smem = static_cast<size_t>(K) * sizeof(uint64_t);
   if (smem > 48 * 1024) {
@@ -160,6 +168,9 @@ extern "C" int vtt_rank_candidates(
       static_cast<const uint32_t*>(nport),
       static_cast<const uint32_t*>(pip_nport),
       static_cast<const uint8_t*>(aff_ok),
-      static_cast<const float*>(aff_soft));
+      static_cast<const float*>(aff_soft),
+      static_cast<const int32_t*>(pids), EN,
+      static_cast<const uint8_t*>(e_ok),
+      static_cast<const float*>(e_score));
   return static_cast<int>(cudaGetLastError());
 }

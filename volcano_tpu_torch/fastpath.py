@@ -43,8 +43,9 @@ node-order bias steers a constrained gang onto its block
 vetoed before commit (``_topology_gate``).
 
 Eligibility (``eligible()``): actions within ``FAST_ACTIONS``, plugins
-within ``FAST_PLUGINS`` (the eight built-ins), and the wave solver.  The
-JAX package's other lanes raise ``NotImplementedError`` here, naming their
+within ``FAST_PLUGINS`` (the eight built-ins), and the wave solver; any
+other conf runs the object session (``scheduler.py``).  The JAX package's
+other lanes raise ``NotImplementedError`` here, naming their
 ROADMAP.md item, before the cycle mutates anything: the host victim walk
 (``VOLCANO_TPU_EVICT_DEVICE=0``, for preempt and reclaim; the rebalance
 lane ignores the switch, as the JAX package's does), pipelined sessions,

@@ -1,5 +1,4 @@
-"""Scheduler framework pieces the fast path needs: the conf schema and
-its parser, typed argument helpers, and the session constants."""
+"""Scheduling framework: session, statement, plugin host, configuration."""
 
 from .arguments import Arguments, get_action_args
 from .conf import (
@@ -12,7 +11,15 @@ from .conf import (
     Tier,
     parse_scheduler_conf,
 )
-from .framework import POD_GROUP_UNSCHEDULABLE
+from .framework import POD_GROUP_UNSCHEDULABLE, close_session, open_session
+from .plugins import (
+    get_action,
+    get_plugin_builder,
+    register_action,
+    register_plugin_builder,
+)
+from .session import Event, EventHandler, Session
+from .statement import Statement
 
 __all__ = [
     "Arguments",
@@ -26,4 +33,14 @@ __all__ = [
     "Tier",
     "parse_scheduler_conf",
     "POD_GROUP_UNSCHEDULABLE",
+    "close_session",
+    "open_session",
+    "get_action",
+    "get_plugin_builder",
+    "register_action",
+    "register_plugin_builder",
+    "Event",
+    "EventHandler",
+    "Session",
+    "Statement",
 ]

@@ -23,6 +23,8 @@ wrapper                replaces (JAX package)
 ``frag_scores``        ``ops/rebalance.py:frag_scores`` (:61)
 ``gang_block_fit``     ``ops/topology.py:gang_block_fit`` (:179)
 ``fabric_frag``        ``ops/topology.py:fabric_frag`` (:240)
+``seq_solve``          ``ops/allocate.py:solve`` (:201), the exact
+                       sequential allocate solve (one persistent block)
 =====================  ===================================================
 
 The inter-pod affinity kernels (``scatter_cnt0``, ``scatter_profile_tables``,
@@ -84,6 +86,7 @@ LAUNCHES = {
     "scatter_profile_tables": 0,
     "aff_live": 0,
     "aff_filter": 0,
+    "seq_solve": 0,
 }
 
 # Where each kernel's source lives and which JAX code it replaces
@@ -104,6 +107,7 @@ KERNEL_SOURCES = {
     "scatter_profile_tables": "volcano_tpu_torch/csrc/aff_tables.cu",
     "aff_live": "volcano_tpu_torch/csrc/aff_live.cu",
     "aff_filter": "volcano_tpu_torch/csrc/aff_filter.cu",
+    "seq_solve": "volcano_tpu_torch/csrc/seq_solve.cu",
 }
 REPLACES = {
     "coarse_shortlist": "volcano_tpu/ops/wave.py:547",
@@ -121,6 +125,7 @@ REPLACES = {
     "scatter_profile_tables": "volcano_tpu/ops/wave.py:2301",
     "aff_live": "volcano_tpu/ops/wave.py:1229",
     "aff_filter": "volcano_tpu/ops/wave.py:1749",
+    "seq_solve": "volcano_tpu/ops/allocate.py:201",
 }
 
 MAX_R = 16  # csrc/common.cuh kMaxR
@@ -157,7 +162,7 @@ _BUILD = _CSRC / "_build"
 _SOURCES = ("coarse_shortlist.cu", "rank_candidates.cu", "walk_accept.cu",
             "apply_commit.cu", "warm_shortlist.cu", "scatter_rows.cu",
             "victim_scores.cu", "frag_scores.cu", "topology.cu",
-            "aff_tables.cu", "aff_live.cu", "aff_filter.cu")
+            "aff_tables.cu", "aff_live.cu", "aff_filter.cu", "seq_solve.cu")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-O3",
               "-fmad=false", "-std=c++17", "-Xcompiler", "-fPIC")
 BUILD_SECONDS: Optional[float] = None
@@ -228,7 +233,8 @@ _SIGS = {
     "vtt_coarse_shortlist": [_P, _P, _I, _I, _P, _I, _P, _I, _P, _P, _I, _P,
                              _I, _P, _P, _P, _P, _P, _I, _P, _P, _P, _P, _P,
                              _P, _I, _P, _P, _P, _F, _F, _F, _F, _F, _I, _I,
-                             _I, _P, _P, _P, _P, _P, _I, _P, _P, _P, _P],
+                             _I, _P, _P, _P, _P, _P, _I, _P, _P, _P, _P,
+                             _P, _P],
     "vtt_static_planes": [_I, _P, _I, _P, _I, _P, _P, _I, _P, _I, _P, _P,
                           _P, _P, _I, _F, _I, _P, _P, _P],
     "vtt_block_shortlist": [_I, _P, _P, _I, _I, _P, _P, _I, _P, _P, _P, _P,
@@ -240,7 +246,7 @@ _SIGS = {
     "vtt_rank_candidates": [_P, _I, _P, _I, _P, _P, _P, _I, _P, _P, _P, _I,
                             _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _F,
                             _F, _F, _F, _I, _P, _P, _P, _P, _P, _P, _I, _P,
-                            _P, _P, _P, _P],
+                            _P, _P, _P, _P, _I, _P, _P, _P],
     "vtt_walk_accept": [_P, _P, _I, _I, _P, _P, _I, _P, _P, _P, _P, _I, _P, _P,
                         _P, _P, _P, _P, _P, _I, _P, _P, _P, _P, _P, _P, _P, _P,
                         _I, _P, _P, _P, _P],
@@ -261,6 +267,7 @@ _SIGS = {
                      _I, _P, _P, _P, _P, _I, _P, _P, _P, _P],
     "vtt_aff_filter": [_P, _P, _P, _I, _P, _I, _P, _P, _P, _I, _I, _P, _P,
                        _P, _I, _P, _P, _P, _P, _P],
+    "vtt_seq_solve": [_I] * 13 + [_P] * 29 + [_F] * 5 + [_P] * 28,
 }
 
 
@@ -373,6 +380,28 @@ class Ports(NamedTuple):
     pip: Optional[torch.Tensor] = None
 
 
+class Extra(NamedTuple):
+    """A custom plugin's per-profile [U, N] planes of a solve (the JAX
+    ``extra_prof`` / ``score_prof``): ``ok`` bool verdicts ANDed into
+    feasibility, ``score`` f32 added to the static score; either may be
+    None."""
+
+    ok: Optional[torch.Tensor] = None
+    score: Optional[torch.Tensor] = None
+
+
+def _extra_args(extra: Optional["Extra"], U: int, N: int, name: str):
+    """(ok, score) pointers after the checks (nulls without)."""
+    if extra is None:
+        return (None, None)
+    for t, dtype, what in ((extra.ok, torch.bool, "ok"),
+                           (extra.score, torch.float32, "score")):
+        if t is not None and _req(t, dtype, f"{name} extra {what}").shape \
+                != (U, N):
+            raise ValueError(f"{name}: extra {what} plane is not [{U}, {N}]")
+    return (_ptr(extra.ok), _ptr(extra.score))
+
+
 def _ports_ok_plain(pp, used):
     """``pp`` [M, PW] asked ports, ``used`` [M, L, PW] used ports at each
     candidate -> [M, L] no clash (wave.py:650-653, :1222-1227)."""
@@ -455,17 +484,23 @@ def class_static_plain(sel_bits, aff_bits, aff_terms, tol_bits, pref_bits,
 
 def _masked_plain(req, init_req, stat_ok, stat_score, cid, idle, alloc,
                   ntasks, max_tasks, eps, scalar_slot, weights, fi0=None,
-                  ports=None, aff=None):
+                  ports=None, aff=None, extra=None):
     """[U, M] solve-start scores of node rows whose planes are given
     (``cid`` their class ids), NEG where infeasible -- the coarse body
     (wave.py:640-664).  ``fi0`` is the solve-start FutureIdle the fit
     reads (``idle`` when None); ``ports`` a ``Ports`` whose ``node`` plane
     holds these rows; ``aff`` the rows' (ok, soft) affinity planes: the
     verdict joins the mask and the soft score joins after the static one,
-    (node_score + static) + soft."""
+    (node_score + static) + soft; ``extra`` the rows' custom-plugin planes
+    (``Extra``), the verdict joining the mask and the score the static one
+    (wave.py:642-645)."""
     cid = cid.long()
     feas = stat_ok[:, cid]
     static_score = stat_score[:, cid]
+    if extra is not None and extra.ok is not None:
+        feas = feas & extra.ok
+    if extra is not None and extra.score is not None:
+        static_score = static_score + extra.score
     fi0 = idle if fi0 is None else fi0
     fit = less_equal(init_req[:, None, :], fi0[None, :, :], eps, scalar_slot)
     pods_ok = (max_tasks <= 0) | (ntasks < max_tasks)
@@ -484,10 +519,10 @@ def _masked_plain(req, init_req, stat_ok, stat_score, cid, idle, alloc,
 
 def _coarse_plain(req, init_req, stat_ok, stat_score, cls_id, idle, alloc,
                   ntasks, max_tasks, eps, scalar_slot, weights, S, fi0=None,
-                  ports=None, aff=None):
+                  ports=None, aff=None, extra=None):
     masked = _masked_plain(req, init_req, stat_ok, stat_score, cls_id, idle,
                            alloc, ntasks, max_tasks, eps, scalar_slot,
-                           weights, fi0, ports, aff)
+                           weights, fi0, ports, aff, extra)
     idx = _select_desc(masked, S)
     return torch.sort(idx, dim=1).values.to(torch.int32)
 
@@ -596,7 +631,7 @@ def _launch_block_shortlist(a, stat_ok, stat_score, weights, db, B, nlb,
 def coarse_shortlist(prof, cls, idle, alloc, ntasks, max_tasks, eps,
                      scalar_slot, weights, S: int, has_taints: bool,
                      stat=None, n_blocks: int = 0, future=None,
-                     ports=None, aff=None, plain: bool = False):
+                     ports=None, aff=None, extra=None, plain: bool = False):
     """Phase 1: ``(shortlist [U, S] int32 ascending ids, stat_ok [U, C]
     bool, stat_score [U, C] f32)``, plus ``(cand_s [U, B, klb] f32,
     cand_i [U, B, klb] int32)`` when ``n_blocks`` (B) is given.
@@ -618,11 +653,18 @@ def coarse_shortlist(prof, cls, idle, alloc, ntasks, max_tasks, eps,
     nodes (wave.py:650-653); ``aff`` (``aff_live``'s [U, N] planes on
     the solve-start counts) masks required-affinity and anti-affinity
     violations and adds the soft score after the static one (wave.py:
-    655-660)."""
+    655-660).  ``extra`` (an ``Extra`` of [U, N] planes, the custom
+    plugins') ANDs its verdicts into the mask and adds its scores to the
+    static score, node_score + (static + extra) (wave.py:642-645); the
+    block form does not take it (the JAX package drops the
+    device-incremental lane for such solves)."""
     naff = float(weights.node_affinity_weight)
     if n_blocks and stat is None:
         raise ValueError("coarse_shortlist: n_blocks needs the static "
                          "planes (stat)")
+    if n_blocks and extra is not None:
+        raise ValueError("coarse_shortlist: the block form takes no "
+                         "custom-plugin planes")
     if not _on_card(plain, idle, prof.req, cls.class_id):
         if stat is None:
             ok, score = class_static_plain(
@@ -636,7 +678,8 @@ def coarse_shortlist(prof, cls, idle, alloc, ntasks, max_tasks, eps,
         if not n_blocks:
             sl = _coarse_plain(prof.req, prof.init_req, ok, score,
                                cls.class_id, idle, alloc, ntasks, max_tasks,
-                               eps, scalar_slot, weights, S, fi0, ports, aff)
+                               eps, scalar_slot, weights, S, fi0, ports, aff,
+                               extra)
             return sl, ok, score
         N = idle.shape[0]
         nlb = N // n_blocks
@@ -662,10 +705,12 @@ def coarse_shortlist(prof, cls, idle, alloc, ntasks, max_tasks, eps,
                              or a["stat_score"].shape != (U, C)):
         raise ValueError("coarse_shortlist: static planes are not [U, C]")
     fut = _future_args(future, idle, ntasks, "coarse_shortlist")
-    _capture("coarse_shortlist" + ("" if aff is None else ":aff"),
+    ep = _extra_args(extra, U, N, "coarse_shortlist")
+    _capture("coarse_shortlist" + ("" if aff is None else ":aff")
+             + ("" if extra is None else ":extra"),
              weights=weights, S=S, has_taints=has_taints,
              n_blocks=n_blocks, C=C, future=future, ports=ports, aff=aff,
-             **a)
+             extra=extra, **a)
     dev = idle.device
     if stat is None:
         stat_ok = torch.empty((U, C), dtype=torch.bool, device=dev)
@@ -703,7 +748,7 @@ def coarse_shortlist(prof, cls, idle, alloc, ntasks, max_tasks, eps,
         _ptr(a["eps"]), _ptr(a["scalar_slot"]), _ptr(a["bres"]),
         *_weights(weights), naff, int(bool(has_taints)), S,
         int(stat is not None), _ptr(stat_ok), _ptr(stat_score), _ptr(keys),
-        _ptr(out), *pp[:3], *ap, _stream(),
+        _ptr(out), *pp[:3], *ap, *ep, _stream(),
     )
     _check(rc, "coarse_shortlist")
     LAUNCHES["coarse_shortlist"] += 1
@@ -860,7 +905,8 @@ def scatter_rows(buf: torch.Tensor, rows: torch.Tensor, vals: torch.Tensor,
 
 def _rank_plain(rows, cand, ok_w, score_w, cls_id, p_req, p_init_req, idle,
                 alloc, ntasks, max_tasks, eps, scalar_slot, weights, K,
-                future=None, bias=None, ports=None, aff=None):
+                future=None, bias=None, ports=None, aff=None, extra=None,
+                pids=None):
     rows_l = rows.long()
     if cand is None:
         nodes = torch.arange(idle.shape[0], device=idle.device)[None, :]
@@ -870,6 +916,12 @@ def _rank_plain(rows, cand, ok_w, score_w, cls_id, p_req, p_init_req, idle,
     cid = cls_id.long()[nodes]
     ok = torch.gather(ok_w[rows_l], 1, cid)
     sscore = torch.gather(score_w[rows_l], 1, cid)
+    if extra is not None:
+        prow = pids.long()[rows_l]
+        if extra.ok is not None:
+            ok = ok & torch.gather(extra.ok[prow], 1, nodes)
+        if extra.score is not None:
+            sscore = sscore + torch.gather(extra.score[prow], 1, nodes)
     if bias is not None:
         sscore = sscore + bias[nodes]
     idle_c = idle[nodes]  # [M, L, R]
@@ -895,7 +947,7 @@ def _rank_plain(rows, cand, ok_w, score_w, cls_id, p_req, p_init_req, idle,
 def rank_candidates(rows, cand, ok_w, score_w, cls_id, p_req, p_init_req,
                     idle, alloc, ntasks, max_tasks, eps, scalar_slot,
                     weights, K: int, future=None, bias=None, ports=None,
-                    aff=None, plain: bool = False):
+                    aff=None, extra=None, pids=None, plain: bool = False):
     """Live top-K of the wave profile rows ``rows`` ([M] int32 into the
     wave's [UM] rows).  ``cand`` is [UM, L] candidate node ids (a profile's
     ascending shortlist) or None for all N nodes.  ``ok_w``/``score_w`` are
@@ -909,13 +961,20 @@ def rank_candidates(rows, cand, ok_w, score_w, cls_id, p_req, p_init_req,
     whose used ports (allocated | pipelined) clash (wave.py:1222-1227,
     :1329-1334); ``aff`` ([M, L] ok / soft planes of ``aff_live``, row b
     for ``rows[b]``) masks the affinity verdict and adds the soft score
-    after the static one (wave.py:1385-1389).  Returns
+    after the static one (wave.py:1385-1389).  ``extra`` (an ``Extra`` of
+    the solve's [U, N] custom-plugin planes) is read at each wave row's
+    profile ``pids`` ([UM] int32 into U): its verdict masks the candidate
+    and its score joins the static score before the bias, node_score +
+    ((static + extra) + bias) (wave.py:1127-1139, :1165-1179).  Returns
     ``(ranked [M, K] int32 node ids in rank order, feas_k [M, K] bool,
     p_any [M] bool)``."""
+    if extra is not None and pids is None:
+        raise ValueError("rank_candidates: extra planes need pids")
     if not _on_card(plain, idle, p_req, rows):
         return _rank_plain(rows, cand, ok_w, score_w, cls_id, p_req,
                            p_init_req, idle, alloc, ntasks, max_tasks, eps,
-                           scalar_slot, weights, K, future, bias, ports, aff)
+                           scalar_slot, weights, K, future, bias, ports, aff,
+                           extra, pids)
     M = rows.shape[0]
     N, R = idle.shape
     L = N if cand is None else cand.shape[1]
@@ -955,11 +1014,22 @@ def rank_candidates(rows, cand, ok_w, score_w, cls_id, p_req, p_init_req,
     fut = _future_args(future, idle, ntasks, "rank_candidates")
     pp = _ports_args(ports, UM, N, "rank_candidates")
     ap = _aff_planes(aff, M, L, "rank_candidates")
-    # A biased launch and one with affinity planes are captured apart
-    # (chip_smoke.py replays each).
+    EN = 0
+    ep = (None, None)
+    if extra is not None:
+        pids = _req(pids, i32, "pids")
+        EN = N
+        U_all = (extra.ok if extra.ok is not None else extra.score).shape[0]
+        ep = _extra_args(extra, U_all, N, "rank_candidates")
+        if pids.shape != (UM,):
+            raise ValueError("rank_candidates: pids is not [UM]")
+    # A biased launch, one with affinity planes and one with custom-plugin
+    # planes are captured apart (chip_smoke.py replays each).
     _capture("rank_candidates" + ("" if bias is None else ":bias")
-             + ("" if aff is None else ":aff"),
-             weights=weights, K=K, future=future, ports=ports, aff=aff, **a)
+             + ("" if aff is None else ":aff")
+             + ("" if extra is None else ":extra"),
+             weights=weights, K=K, future=future, ports=ports, aff=aff,
+             extra=extra, pids=pids if extra is not None else None, **a)
     dev = idle.device
     ranked = torch.empty((M, K), dtype=i32, device=dev)
     feas_k = torch.empty((M, K), dtype=u8, device=dev)
@@ -974,7 +1044,8 @@ def rank_candidates(rows, cand, ok_w, score_w, cls_id, p_req, p_init_req,
         _ptr(a["alloc"]), _ptr(a["ntasks"]), _ptr(a["max_tasks"]),
         _ptr(a["eps"]), _ptr(a["scalar_slot"]), _ptr(bres),
         *_weights(weights), K, _ptr(keys), _ptr(feas_s), _ptr(ranked),
-        _ptr(feas_k), _ptr(p_any), *pp, *ap, _stream(),
+        _ptr(feas_k), _ptr(p_any), *pp, *ap,
+        _ptr(pids if extra is not None else None), EN, *ep, _stream(),
     )
     _check(rc, "rank_candidates")
     LAUNCHES["rank_candidates"] += 1
@@ -1653,3 +1724,120 @@ def fabric_frag(cfit, whole, prof_cnt, plain: bool = False):
     _check(rc, "fabric_frag")
     LAUNCHES["fabric_frag"] += 1
     return out
+
+
+# ------------------------------------------------------------ seq_solve
+
+def seq_solve(x, weights, plain: bool = False):
+    """The exact sequential allocate solve (ops/allocate.py:201 ``solve``)
+    on ``x``, an ``ops.allocate.SeqInputs``: one launch of one persistent
+    block for the whole solve.  Returns an ``AllocResult`` of tensors on
+    the inputs' device (``assigned`` / ``pipelined`` [P] int32,
+    ``never_ready`` / ``fit_failed`` [J] bool, ``idle`` [N, R], ``q_alloc``
+    [Q, R] = allocated + pipelined)."""
+    from .allocate import LAST_SEQ, AllocResult, _solve_plain
+
+    if not _on_card(plain, x.idle, x.req, x.cnt0):
+        return _solve_plain(x, weights)
+    f32, i32, u8 = torch.float32, torch.int32, torch.bool
+    kinds = dict(
+        idle=f32, allocatable=f32, releasing=f32, pipelined=f32, ntasks=i32,
+        max_tasks=i32, nports=i32, ready=u8, label_bits=i32, taint_bits=i32,
+        req=f32, init_req=f32, job=i32, real=u8, ports=i32, sel_bits=i32,
+        aff_bits=i32, aff_terms=i32, tol_bits=i32, pref_bits=i32,
+        pref_w=f32, queue=i32, min_available=i32, ready_base=i32,
+        deserved=f32, q_alloc=f32, eps=f32, scalar_slot=u8, bres=f32,
+        node_dom=i32, term_key=i32, cnt0=i32, t_req_aff=u8, t_req_anti=u8,
+        t_matches=u8, t_soft=f32, extra_ok=u8, extra_score=f32)
+    for k, dtype in kinds.items():
+        v = getattr(x, k)
+        if v is not None:
+            _req(v, dtype, f"seq_solve {k}")
+    N, R = x.idle.shape
+    P = x.req.shape[0]
+    J = x.queue.shape[0]
+    Q = x.deserved.shape[0]
+    PW, LW, TW = x.nports.shape[1], x.label_bits.shape[1], \
+        x.taint_bits.shape[1]
+    A, AP = x.aff_bits.shape[1], x.pref_bits.shape[1]
+    K = x.node_dom.shape[1]
+    E, D = x.cnt0.shape
+    if R > MAX_R:
+        raise ValueError(f"{R} resource slots exceed the kernels' {MAX_R}")
+    if (any(getattr(x, k).shape != (N, R) for k in (
+            "allocatable", "releasing", "pipelined"))
+            or any(getattr(x, k).shape != (N,) for k in (
+                "ntasks", "max_tasks", "ready"))
+            or x.tol_bits.shape != (P, TW) or x.sel_bits.shape != (P, LW)
+            or x.ports.shape != (P, PW) or x.init_req.shape != (P, R)
+            or x.aff_bits.shape != (P, A, LW)
+            or x.pref_bits.shape != (P, AP, LW)
+            or x.pref_w.shape != (P, AP)
+            or any(getattr(x, k).shape != (P,) for k in (
+                "job", "real", "aff_terms"))
+            or any(getattr(x, k).shape != (J,) for k in (
+                "min_available", "ready_base"))
+            or x.q_alloc.shape != (Q, R) or x.deserved.shape != (Q, R)
+            or x.node_dom.shape[0] != N or x.term_key.shape != (E,)
+            or any(getattr(x, k).shape != (P, E) for k in (
+                "t_req_aff", "t_req_anti", "t_matches", "t_soft"))
+            or any(v is not None and v.shape != (P, N)
+                   for v in (x.extra_ok, x.extra_score))):
+        raise ValueError("seq_solve: inconsistent input shapes")
+    dev = x.idle.device
+    if P == 0:
+        # Nothing to place: the inputs' state is the result.
+        LAST_SEQ["alloc_cnt"] = torch.zeros(J, dtype=i32, device=dev)
+        return AllocResult(
+            assigned=torch.empty(0, dtype=i32, device=dev),
+            pipelined=torch.empty(0, dtype=i32, device=dev),
+            never_ready=torch.zeros(J, dtype=u8, device=dev),
+            fit_failed=torch.zeros(J, dtype=u8, device=dev),
+            idle=x.idle.clone(), q_alloc=x.q_alloc.clone())
+    if J == 0:
+        raise ValueError("seq_solve: task rows without jobs")
+    _capture("seq_solve", x=x, weights=weights)
+    idle = torch.empty_like(x.idle)
+    pxe = torch.empty_like(x.idle)
+    ntasks = torch.empty_like(x.ntasks)
+    pnt = torch.empty_like(x.ntasks)
+    nports = torch.empty_like(x.nports)
+    pports = torch.empty_like(x.nports)
+    cnt = torch.empty_like(x.cnt0)
+    tot = torch.empty(E, dtype=i32, device=dev)
+    q_alloc = torch.empty_like(x.q_alloc)
+    q_pip = torch.empty_like(x.q_alloc)
+    assigned = torch.empty(P, dtype=i32, device=dev)
+    pipelined = torch.empty(P, dtype=i32, device=dev)
+    alloc_cnt = torch.empty(J, dtype=i32, device=dev)
+    never_ready = torch.empty(J, dtype=u8, device=dev)
+    fit_failed = torch.empty(J, dtype=u8, device=dev)
+    rd_e = torch.empty(E, dtype=i32, device=dev)
+    rd_flag = torch.empty(E, dtype=torch.uint8, device=dev)
+    md_e = torch.empty(E, dtype=i32, device=dev)
+    rc = load().vtt_seq_solve(
+        N, R, PW, LW, TW, P, A, AP, J, Q, K, E, D,
+        _ptr(x.idle), _ptr(x.allocatable), _ptr(x.releasing),
+        _ptr(x.pipelined), _ptr(x.ntasks), _ptr(x.max_tasks),
+        _ptr(x.nports), _ptr(x.ready), _ptr(x.label_bits),
+        _ptr(x.taint_bits), _ptr(x.req), _ptr(x.init_req), _ptr(x.job),
+        _ptr(x.real), _ptr(x.ports), _ptr(x.sel_bits), _ptr(x.aff_bits),
+        _ptr(x.aff_terms), _ptr(x.tol_bits), _ptr(x.pref_bits),
+        _ptr(x.pref_w), _ptr(x.queue), _ptr(x.min_available),
+        _ptr(x.ready_base), _ptr(x.deserved), _ptr(x.q_alloc),
+        _ptr(x.eps), _ptr(x.scalar_slot), _ptr(x.bres),
+        *_weights(weights), float(weights.node_affinity_weight),
+        _ptr(x.node_dom), _ptr(x.term_key), _ptr(x.cnt0),
+        _ptr(x.t_req_aff), _ptr(x.t_req_anti), _ptr(x.t_matches),
+        _ptr(x.t_soft), _ptr(x.extra_ok), _ptr(x.extra_score),
+        _ptr(idle), _ptr(pxe), _ptr(ntasks), _ptr(pnt), _ptr(nports),
+        _ptr(pports), _ptr(cnt), _ptr(tot), _ptr(q_alloc), _ptr(q_pip),
+        _ptr(assigned), _ptr(pipelined), _ptr(alloc_cnt), _ptr(never_ready),
+        _ptr(fit_failed), _ptr(rd_e), _ptr(rd_flag), _ptr(md_e), _stream(),
+    )
+    _check(rc, "seq_solve")
+    LAUNCHES["seq_solve"] += 1
+    LAST_SEQ["alloc_cnt"] = alloc_cnt
+    return AllocResult(assigned=assigned, pipelined=pipelined,
+                       never_ready=never_ready, fit_failed=fit_failed,
+                       idle=idle, q_alloc=q_alloc)

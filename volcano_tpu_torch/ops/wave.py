@@ -538,15 +538,16 @@ def _identity_classes(nodes: SolveNodes) -> NodeClasses:
 def _coarse_shortlist(nodes: SolveNodes, prof: SolveProfiles,
                       cls: Optional[NodeClasses], weights: ScoreWeights,
                       eps, scalar_slot, sl_k: int, features: tuple,
-                      future=None, ports=None, aff1=None,
+                      future=None, ports=None, aff1=None, extra=None,
                       plain: bool = False):
     """Phase 1 (wave.py:547): ``(shortlists [U, sl_k] int32 ascending node
     ids, stat_ok [U, C] bool, stat_score [U, C] f32)``.  ``cls`` None means
     identity classes.  Masks and scores are evaluated at solve-start state
     (with ``future``, the fit reads fi0 = (idle + releasing) - pipelined;
     ``ports`` the solve-start port planes; ``aff1`` the solve-start
-    affinity inputs, ``Phase1Aff``); the selection keeps each profile's
-    top ``sl_k`` by (score desc, node id asc)."""
+    affinity inputs, ``Phase1Aff``; ``extra`` the custom plugins'
+    ``kernels.Extra`` planes); the selection keeps each profile's top
+    ``sl_k`` by (score desc, node id asc)."""
     if cls is None:
         cls = _identity_classes(nodes)
     aff = None
@@ -559,7 +560,7 @@ def _coarse_shortlist(nodes: SolveNodes, prof: SolveProfiles,
         prof, cls, nodes.idle, nodes.allocatable, nodes.ntasks,
         nodes.max_tasks, eps, scalar_slot, weights, sl_k,
         has_taints=bool(features[2]), future=future, ports=ports, aff=aff,
-        plain=plain,
+        extra=extra, plain=plain,
     )
 
 
@@ -639,7 +640,7 @@ def _solve_wave(nodes: SolveNodes, jobs: SolveJobs,
                 host: dict, wave: int, n_waves: int, features: tuple,
                 fb_cap: int = 0, future0=None, bias=None, aff=None,
                 wave_terms: Optional[np.ndarray] = None,
-                terms_disjoint: bool = True,
+                terms_disjoint: bool = True, extra=None,
                 plain: bool = False) -> AllocResult:
     """Phase 2 (wave.py:860).
 
@@ -659,7 +660,9 @@ def _solve_wave(nodes: SolveNodes, jobs: SolveJobs,
     ``cnt0`` and nothing is written back (wave.py:2181-2236).  A wave
     whose window is all dummy neither reads nor changes a count, so its
     attempts skip the affinity kernels: the planes they would give are
-    all-feasible and zero-scored."""
+    all-feasible and zero-scored.  ``extra``: the custom plugins' [U, N]
+    ``kernels.Extra`` planes, read by both rankings at each wave row's
+    profile (wave.py:1127-1139, :1165-1168)."""
     has_overuse = bool(features[4])
     has_future = future0 is not None
     has_ports = bool(features[0])
@@ -757,6 +760,7 @@ def _solve_wave(nodes: SolveNodes, jobs: SolveJobs,
         pl = pid_l.long()
         qidx = qidx_all[sl]
         pids = wave_prof_t[w]
+        pids_i = pids.to(i32) if extra is not None else None
         p_req = prof.req[pids].contiguous()
         p_init_req = prof.init_req[pids].contiguous()
         ok_w = stat_ok[pids].contiguous()
@@ -842,7 +846,8 @@ def _solve_wave(nodes: SolveNodes, jobs: SolveJobs,
                 all_rows, sl_w, ok_w, score_w, cls.class_id, p_req,
                 p_init_req, st.idle, nodes.allocatable, st.ntasks,
                 nodes.max_tasks, eps, scalar_slot, weights, K, future=fut,
-                bias=bias, ports=ports_w, aff=aff_sl, plain=plain,
+                bias=bias, ports=ports_w, aff=aff_sl, extra=extra,
+                pids=pids_i, plain=plain,
             )
             # Shortlist exhaustion -> full-N rescore of the affected
             # profiles only (wave.py:1450-1512).
@@ -863,7 +868,7 @@ def _solve_wave(nodes: SolveNodes, jobs: SolveJobs,
                     p_init_req, st.idle, nodes.allocatable, st.ntasks,
                     nodes.max_tasks, eps, scalar_slot, weights, K,
                     future=fut, bias=bias, ports=ports_w, aff=aff_fb,
-                    plain=plain,
+                    extra=extra, pids=pids_i, plain=plain,
                 )
                 rx = rows_x.long()
                 ranked[rx] = r_f
@@ -1031,6 +1036,14 @@ def solve_wave(
     ``begin_solve`` -- its persistent static planes and warm shortlists
     replace the direct coarse pass, with identical results.
 
+    ``extra_ok`` / ``extra_score``: a custom plugin's [P, N] verdicts and
+    scores (the object session's allocate action).  They split profiles
+    (``_profile_tasks``), and ``coarse_shortlist`` and both rankings read
+    them per profile: verdicts ANDed into feasibility, scores added to the
+    static score (wave.py:642-645, :1127-1139, :1165-1168).  Such a solve
+    computes its own profiles (``pid`` / ``profiles`` refused) and sits
+    ``devincr`` out, as the JAX solve does.
+
     ``plain``: run the kernels' plain PyTorch versions on the card.  Only
     the kernel-versus-plain comparison of ``chip_smoke.py`` sets it; on CPU
     tensors the plain versions run regardless.
@@ -1041,12 +1054,11 @@ def solve_wave(
     if mesh_shards and int(mesh_shards) > 1:
         raise _unsupported("mesh sharding (mesh_shards > 1)",
                            "queue 2, multi-GPU")
-    if extra_ok is not None:
-        raise _unsupported("custom predicate masks (extra_ok)",
-                           "queue 1, the object session")
-    if extra_score is not None:
-        raise _unsupported("custom node scores (extra_score)",
-                           "queue 1, the object session")
+    if (extra_ok is not None or extra_score is not None) and (
+            pid is not None or profiles is not None):
+        raise ValueError(
+            "extra_ok/extra_score require in-call profile computation"
+        )
     if not _two_phase_on():
         raise _unsupported("the single-phase solve (VOLCANO_TPU_TWOPHASE=0)",
                            "queue 1, ports and inter-pod affinity")
@@ -1076,6 +1088,16 @@ def solve_wave(
         tasks = _pad_tasks(tasks, pad)
         if profiles is None:
             aff = _pad_aff(aff, pad)
+        if extra_ok is not None:
+            extra_ok = np.concatenate([
+                _np(extra_ok).astype(bool),
+                np.ones((pad, _np(extra_ok).shape[1]), bool),
+            ])
+        if extra_score is not None:
+            extra_score = np.concatenate([
+                _np(extra_score).astype(np.float32),
+                np.zeros((pad, _np(extra_score).shape[1]), np.float32),
+            ])
     n_waves = (P + pad) // wave
     if profiles is not None and pid is not None:
         pid = np.asarray(_np(pid), np.int64)
@@ -1096,8 +1118,26 @@ def solve_wave(
             pid = np.concatenate([pid, np.full(pad, fresh, np.int64)])
         profiles, pid = _profiles_from_pid(tasks, aff, pid)
     else:
-        profiles, pid, _ep, _sp = _profile_tasks(tasks, aff)
+        profiles, pid, extra_prof, score_prof = _profile_tasks(
+            tasks, aff, extra_ok, extra_score)
+    u_before = int(profiles.req.shape[0])
     profiles = _pad_profiles_rows(profiles)
+    u_pad = int(profiles.req.shape[0]) - u_before
+    extra = None
+    if extra_ok is not None or extra_score is not None:
+        # The custom plugins' planes per profile row, padded rows
+        # all-feasible and zero-scored (wave.py:2786-2802).
+        if extra_ok is not None:
+            extra_prof = np.concatenate([
+                extra_prof.astype(bool),
+                np.ones((u_pad, extra_prof.shape[1]), bool)])
+        if extra_score is not None:
+            score_prof = np.concatenate([
+                score_prof, np.zeros((u_pad, score_prof.shape[1]),
+                                     np.float32)])
+        extra = kernels.Extra(
+            None if extra_ok is None else to_tensor(extra_prof, dev),
+            None if extra_score is None else to_tensor(score_prof, dev))
     wave_prof = _wave_profiles(pid, n_waves, wave)
     cnt0_host = _np(aff.cnt0)
     cnt0_sparse = cnt0_host.size > CNT0_SPARSE_MIN
@@ -1119,8 +1159,8 @@ def solve_wave(
          else host_any(nodes.taint_bits)),
         host_any(nodes.releasing) or host_any(nodes.pipelined),
         bool((_np(queues.deserved) < 1.0e38).any()),
-        False,
-        False,
+        extra_ok is not None,
+        extra_score is not None,
     )
     if features[1] and AFF_STEER:
         raise _unsupported("live affinity steering (VOLCANO_TPU_AFF_STEER)",
@@ -1238,7 +1278,10 @@ def solve_wave(
     t_prep = _time.perf_counter() - t_start
 
     t0 = _time.perf_counter()
-    dv = devincr
+    # Custom-plugin solves carry per-solve [U, N] planes the
+    # device-incremental lane's keys cannot cover: it sits them out, as in
+    # the JAX package (wave.py:2981-2985).
+    dv = devincr if extra is None else None
     # Device-incremental lane: persistent [U, C] static planes and
     # warm-started shortlists, bit-identical to the direct pass (None
     # without a static key from begin_solve).
@@ -1255,7 +1298,8 @@ def solve_wave(
     else:
         sl, stat_ok, stat_score = _coarse_shortlist(
             nodes_t, prof_t, cls_t, weights_t, eps_t, slot_t, sl_k,
-            features, future=future0, ports=ports1, aff1=aff1, plain=plain,
+            features, future=future0, ports=ports1, aff1=aff1, extra=extra,
+            plain=plain,
         )
     _sync(dev)
     t_coarse = _time.perf_counter() - t0
@@ -1265,7 +1309,8 @@ def solve_wave(
         pid_t, wave_prof, cls_t, sl, stat_ok, stat_score, host,
         wave=wave, n_waves=n_waves, features=features,
         fb_cap=_fallback_cap(), future0=future0, bias=bias_t, aff=aff_t,
-        wave_terms=wave_terms, terms_disjoint=terms_disjoint, plain=plain,
+        wave_terms=wave_terms, terms_disjoint=terms_disjoint, extra=extra,
+        plain=plain,
     )
     _sync(dev)
     t_fine = _time.perf_counter() - t0

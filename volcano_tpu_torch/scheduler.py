@@ -1,32 +1,43 @@
 """Scheduler loop: the per-period session loop
-(pkg/scheduler/scheduler.go), on the port's fast path.
+(pkg/scheduler/scheduler.go).
 
 Every ``schedule_period`` (default 1 s): re-read the conf (hot reload,
-scheduler.go:77,89-106), run one fast-path cycle over the store's array
-mirror (``fastpath.run_cycle_fast``: enqueue, allocate on the device,
-backfill, close).  A conf that fails to parse on a hot reload keeps the
-last good conf; with no good conf yet, the error propagates.
+scheduler.go:77,89-106) and run one cycle.  A conf the fast path can run
+(built-in plugins; enqueue / allocate / backfill / preempt / reclaim /
+rebalance; the wave solver) runs on the fast path over the store's array
+mirror (``fastpath.run_cycle_fast``).  Anything else -- custom plugins, an
+unknown action, ``solver: seq`` -- and every cycle while
+``VOLCANO_TPU_FASTPATH=0`` runs the object session (open a session, run the
+conf's actions, close it), as the JAX package's ``scheduler.py`` does.  A
+conf that fails to parse on a hot reload keeps the last good conf; with no
+good conf yet, the error propagates.
 
-The fast path is the only path.  A conf the fast path cannot run (custom
-plugins or actions, the sequential solver) raises ``NotImplementedError``
-naming the object session's ROADMAP.md item, and a cycle that fails
-propagates its error: there is no fallback to an object session.  The
-cycle runs on the card unless the scheduler is built with
-``device="cpu"``; without a card the default raises.
+A cycle that fails propagates its error: a fast-path failure does not fall
+back to the object session (the JAX package's ``VOLCANO_TPU_FALLBACK``
+fallback is not ported).  The cycle runs on the card unless the scheduler is
+built with ``device="cpu"``; without a card the default raises.
 """
 
 from __future__ import annotations
 
 import gc
 import logging
+import os
 import threading
 import time
 from pathlib import Path
 from typing import Optional
 
-from .cache.store import not_ported
+from . import actions as _actions  # noqa: F401  (registers actions)
+from . import plugins as _plugins  # noqa: F401  (registers plugins)
 from .device import resolve_device
-from .framework import DEFAULT_SCHEDULER_CONF, parse_scheduler_conf
+from .framework import (
+    DEFAULT_SCHEDULER_CONF,
+    close_session,
+    get_action,
+    open_session,
+    parse_scheduler_conf,
+)
 from .metrics import metrics
 
 log = logging.getLogger(__name__)
@@ -97,15 +108,71 @@ class Scheduler:
         from .fastpath import run_cycle_fast
 
         conf = self._load_conf()
+        action_names = [
+            a.strip() for a in conf.actions.split(",") if a.strip()
+        ]
         # Queued bind failures re-enter Pending (with backoff) before the
-        # cycle derives (cache.go errTasks resync).
+        # cycle derives or snapshots (cache.go errTasks resync).
         self.store.drain_bind_failures()
         with metrics.e2e_timer():
-            if not run_cycle_fast(self.store, conf, device=self.device):
-                raise not_ported(
-                    "the object session (custom plugins or actions, or the "
-                    "sequential solver), which this scheduler conf needs,",
-                    "the object session")
+            if self._fastpath_enabled() and run_cycle_fast(
+                    self.store, conf, device=self.device):
+                return
+            self._run_object_session(conf, action_names)
+
+    def _run_object_session(self, conf, action_names) -> None:
+        """One object-session cycle, traced and flight-recorded with
+        ``path="object"`` (the fast path records its own cycles)."""
+        from .obs.recorder import CycleRecord
+        from .obs.trace import tracer_of
+
+        tracer = tracer_of(self.store)
+        lanes = {}
+        t_wall = time.time()
+        t0 = time.perf_counter()
+        ssn = None
+        err = None
+        try:
+            with tracer.span("cycle", cat="object"):
+                with tracer.span("open", lanes=lanes):
+                    ssn = open_session(
+                        self.store, conf.tiers, conf.configurations
+                    )
+                try:
+                    for name in action_names:
+                        action = get_action(name)
+                        if action is None:
+                            log.warning("Unknown action %s", name)
+                            continue
+                        with metrics.action_timer(name), tracer.span(
+                                f"action:{name}", cat="action",
+                                lanes=lanes, lane=name):
+                            action.execute(ssn)
+                finally:
+                    with tracer.span("close", lanes=lanes):
+                        close_session(ssn)
+        except BaseException as e:
+            err = e
+            raise
+        finally:
+            flight = getattr(self.store, "flight", None)
+            if flight is not None:
+                flight.record(CycleRecord(
+                    session=getattr(ssn, "uid", ""), path="object",
+                    t_wall=t_wall,
+                    duration_s=time.perf_counter() - t0,
+                    lanes=lanes,
+                    error=type(err).__name__ if err is not None else None,
+                    spans=tracer.drain(),
+                ))
+            else:
+                tracer.drain()
+
+    @staticmethod
+    def _fastpath_enabled() -> bool:
+        """``VOLCANO_TPU_FASTPATH=0`` runs every cycle on the object
+        session."""
+        return os.environ.get("VOLCANO_TPU_FASTPATH", "1") != "0"
 
     # ----------------------------------------------------------------- loop
 
