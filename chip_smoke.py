@@ -86,7 +86,10 @@ of which raises (and the script exits non-zero) when a check fails:
    ``aff_filter`` required; after every cycle every pod bound, no node
    over capacity, gangs whole, every zone-affine gang in one zone, every
    anti-affine gang on distinct nodes, no host port twice on a node, no
-   device plane read back;
+   device plane read back; then the cold cycle again on a fresh store of
+   the same seed, traced: the device time of ``walk_accept`` and
+   ``aff_filter`` summed over it, and its share of the ``device_fine``
+   lane;
 17. affinity:small: the same mix at 1,000 x 10,000 with host ports on 10%
    of the gangs: 8 steady cycles (a warm shortlist on nonzero counts
    required), and on a second store a release (the pods of nodes 0-63
@@ -119,7 +122,9 @@ of which raises (and the script exits non-zero) when a check fails:
    allowed node; ``coarse_shortlist`` and ``rank_candidates`` on their
    custom-plugin inputs against their plain versions, timed as in 4.
 
-Output: the card's name and power limit, versions, build time, per-phase
+Output: the card's name and power limit, versions, build time, the
+registers, shared memory and spills of the kernels of ``PTXAS_SOURCES``
+(``nvcc -Xptxas -v``), per-phase
 lines with the cycles' lane times, one ``{"kernels": [...]}`` line and,
 last, one ``{"ok": true, "device": {...}}`` line.  Without CUDA, or
 without the package beside it, it exits non-zero and prints no result.
@@ -148,6 +153,56 @@ def _smi() -> str:
         capture_output=True, text=True, check=True,
     )
     return out.stdout.strip().splitlines()[0]
+
+
+# The sources whose kernels' registers, shared memory and spills
+# (`nvcc -Xptxas -v`) the run prints.
+PTXAS_SOURCES = ("walk_accept.cu", "aff_filter.cu")
+
+
+def ptxas_report(sources=PTXAS_SOURCES) -> dict:
+    """`nvcc -Xptxas -v` of ``sources`` with the kernels' build flags (one
+    nvcc each, started together, objects to the build directory): per
+    kernel function its registers, shared memory and spill bytes."""
+    import re
+
+    from volcano_tpu_torch.ops import kernels
+
+    # Mangled names hold the plain ones; the longest match wins.
+    names = sorted({f.split("<")[0] for fs in KERNEL_FUNCS.values()
+                    for f in fs}, key=len, reverse=True)
+    out_dir = kernels._BUILD
+    out_dir.mkdir(parents=True, exist_ok=True)
+    procs = [(src, subprocess.Popen(
+        [kernels._nvcc(), *kernels.NVCC_FLAGS, "-Xptxas", "-v", "-c",
+         str(kernels._CSRC / src), "-o", str(out_dir / f"ptxas_{src}.o")],
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
+        for src in sources]
+    outs = [(src, p.communicate()[0], p.returncode) for src, p in procs]
+    report = {}
+    for src, text, rc in outs:
+        if rc != 0:
+            raise RuntimeError(f"nvcc -Xptxas -v {src} failed:\n{text}")
+        fn = None
+        for line in text.splitlines():
+            m = re.search(r"Compiling entry function '(\w+)'", line)
+            if m:
+                fn = next((k for k in names if k in m.group(1)), m.group(1))
+                report[fn] = {"source": src}
+                continue
+            if fn is None:
+                continue
+            m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill "
+                          r"loads", line)
+            if m:
+                report[fn]["spill_bytes"] = [int(m.group(1)),
+                                             int(m.group(2))]
+            m = re.search(r"Used (\d+) registers", line)
+            if m:
+                report[fn]["registers"] = int(m.group(1))
+                sm = re.search(r"(\d+) bytes smem", line)
+                report[fn]["smem_bytes"] = int(sm.group(1)) if sm else 0
+    return report
 
 
 # ------------------------------------------------------------- clusters
@@ -444,7 +499,8 @@ def _kernel_fn(name, c, plain):
         def filt():
             affkernels.aff_filter(c["choice"], c["live"], c["pid_l"],
                                   c["at"], c["acc"], c["pipe"], gm=gm,
-                                  plain=plain)
+                                  term_req=c["term_req"],
+                                  prof_req=c["prof_req"], plain=plain)
             return tuple(x for x in (c["acc"], c["pipe"]) if x is not None)
         return filt
     if name == "apply_commit":
@@ -652,16 +708,22 @@ def _work(name, cap, outs):
         L = outs[0].shape[1]
         ops = entries * L * 6 + used * D
     elif name == "aff_filter":
+        # The required terms' count rows (their totals: no other term's
+        # is read), the term keys, the table entries, the chosen nodes'
+        # domain rows, the per-wave planes, the task vectors, and acc /
+        # pipe read and written.
         at = cap["at"]
         E, D = at.cnt_a.shape
         W = cap["W"]
         UM = at.t_req_aff.shape[0]
         K = at.node_dom.shape[1]
-        nbytes = (E * D * 4 * (1 + (at.cnt_p is not None)) + E * 4
+        used = int(cap["term_req"].sum())
+        nbytes = (used * D * 4 * (1 + (at.cnt_p is not None)) + E * 4
                   + UM * E * 3 + _distinct(cap["choice"]) * K * 4
-                  + _nbytes(cap["choice"], cap["live"], cap["pid_l"])
+                  + _nbytes(cap["choice"], cap["live"], cap["pid_l"],
+                            cap["term_req"], cap["prof_req"])
                   + 2 * out_bytes)
-        ops = E * D + W * E * 8
+        ops = used * D + W * E * 8
     elif name == "victim_scores":
         # Every input read once, every output written once; the float work
         # is the queue shares' divisions and the evictable sums.
@@ -849,7 +911,7 @@ KERNEL_FUNCS = {
     "coarse_shortlist": ("class_static_kernel<0>", "shortlist_kernel",
                          "block_rank_kernel<true>", "merge_kernel<true>"),
     "rank_candidates": ("rank_kernel",),
-    "walk_accept": ("walk_accept_kernel",),
+    "walk_accept": ("walk_choice_kernel", "walk_accept_kernel"),
     "apply_commit": ("accumulate_kernel", "write_kernel"),
     "static_planes": ("class_static_kernel<1>",),
     "warm_shortlist": ("block_rank_kernel<false>", "merge_kernel<false>"),
@@ -864,7 +926,8 @@ KERNEL_FUNCS = {
     "scatter_profile_tables": ("scatter_flags_kernel",
                                "flags_to_bool_kernel"),
     "aff_live": ("aff_live_kernel", "count_totals_kernel"),
-    "aff_filter": ("aff_filter_kernel",),
+    "aff_filter": ("aff_filter_init_kernel", "aff_filter_givers_kernel",
+                   "aff_filter_check_kernel", "aff_filter_reset_kernel"),
     "seq_solve": ("seq_solve_kernel",),
 }
 
@@ -2001,6 +2064,44 @@ def _release(store):
     return jobs
 
 
+def aff_cold_trace(big, cold_lanes) -> dict:
+    """The [affinity] cold cycle again, on a fresh store of the same seed
+    (the same decisions and kernel inputs), traced with ``torch.profiler``:
+    the device time of ``walk_accept`` and ``aff_filter`` summed over the
+    cycle, and its share of the cycle's ``device_fine`` lane (the traced
+    cycle's own, and the untraced cold cycle's ``cold_lanes``)."""
+    from volcano_tpu_torch.scheduler import Scheduler
+
+    t0 = time.perf_counter()
+    store = config5_cluster(*big)
+    build = time.perf_counter() - t0
+    prof = profile_device(Scheduler(store, conf_str=CONF_BASE).run_once)
+    aff_invariants(store)
+    inv = cycle_invariants(store, len(store.pods))
+    fine = _lanes(store).get("device_fine", 0.0)
+    store.close()
+    if not prof:
+        _log("[affinity:cold-trace] no device events in the trace (the "
+             "kernels' device time over the cold cycle not measured)")
+        return {}
+    km = prof["kernels_ms"]
+    both = km["walk_accept"] + km["aff_filter"]
+    out = {"walk_accept_ms": km["walk_accept"],
+           "aff_filter_ms": km["aff_filter"], "sum_ms": both,
+           "device_fine_ms": fine,
+           "untraced_device_fine_ms": cold_lanes.get("device_fine", 0.0),
+           "busy_ms": prof["busy_ms"], "wall_ms": prof["wall_ms"],
+           "cluster_s": build, "pods_bound": inv["pods_bound"]}
+    _log(f"[affinity:cold-trace] walk_accept + aff_filter device time over "
+         f"the cold cycle: {km['walk_accept']:.3f} + {km['aff_filter']:.3f}"
+         f" = {both:.3f} ms, {100.0 * both / max(fine, 1e-9):.2f}% of its "
+         f"device_fine {fine:.3f} ms "
+         f"({100.0 * both / max(out['untraced_device_fine_ms'], 1e-9):.2f}%"
+         f" of the untraced cold cycle's "
+         f"{out['untraced_device_fine_ms']:.3f} ms); {json.dumps(out)}")
+    return out
+
+
 def affinity_phases(big=(10000, 100000), mid=(1000, 10000),
                     chunk_budget_mb="2", expect_sparse=True):
     """Phases 16-19: BASELINE config 5 through ``run_once()`` at 10,000 x
@@ -2049,6 +2150,7 @@ def affinity_phases(big=(10000, 100000), mid=(1000, 10000),
         _log("[affinity] traced steady cycle: no device events in the "
              "trace (idle share not measured)")
     store.close()
+    astats["cold_trace"] = aff_cold_trace(big, c0["lanes_ms"])
 
     # 17. 1,000 x 10,000 with host ports and releasing capacity: the card
     # against the CPU (plain versions), lanes on against lanes off.
@@ -2403,6 +2505,7 @@ def main() -> int:
     kernels.load()
     _log(f"kernel build {time.perf_counter() - t0:.3f} s "
          f"(nvcc {kernels.BUILD_SECONDS:.3f} s)")
+    _log(f"ptxas {json.dumps(ptxas_report())}")
 
     # 1. small reference: the card against the CPU plain versions.
     store = synthetic_cluster(n_nodes=64, n_pods=512, gang_size=4,

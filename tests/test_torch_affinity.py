@@ -14,7 +14,8 @@ wave and against resident pods, ports with releasing capacity, more than
 256 givers in one sub-round (W = 512), wave-disjoint and shared term
 sets, both sparse-shipping thresholds forced in both packages, the JAX
 count reads through the domain one-hot and through the gather, and the
-JAX 2-D key form.
+JAX 2-D key form; one contention group on three hot nodes with host
+ports and self anti-affinity (the paths the walk kernel reorders).
 
 Twin ``Scheduler`` runs: BASELINE config 5's mix at 256 nodes x 2,048
 pods under CONF_BASE, 6 cycles with a feed re-pending the pods of nodes
@@ -202,6 +203,71 @@ def test_jax_two_d_keys(monkeypatch):
     monkeypatch.setenv("VOLCANO_TPU_KEYSPACE_MAX", "8")
     args, _ = _args(seed=4, n_gangs=30)
     _both(args, 64)
+
+
+def _hot_store(n_gangs=16, gang_size=6):
+    """Every gang's tasks fit only three hot nodes (100 GiB of memory a
+    task; nine small nodes hold 16 GiB): one contention group, tens of
+    tasks a node in one sub-round.  Every fourth gang asks for host port
+    8080 (min_member 1: one task a node binds), every fourth from the
+    second is anti-affine to its own app by hostname (min_member 2: one
+    copy a node), the rest are plain gangs of whole CPUs (min_member 6)."""
+    api = volcano_tpu.api
+    store = volcano_tpu.cache.ClusterStore()
+    for i in range(3):
+        store.add_node(api.Node(name=f"hot{i}", allocatable={
+            "cpu": "64", "memory": "2Ti", "pods": 110},
+            labels={"zone": "z0"}))
+    for i in range(9):
+        store.add_node(api.Node(name=f"small{i}", allocatable={
+            "cpu": "8", "memory": "16Gi", "pods": 110},
+            labels={"zone": f"z{1 + i % 2}"}))
+    host = "kubernetes.io/hostname"
+    for g in range(n_gangs):
+        name = f"g{g:03d}"
+        extra, min_member = {}, gang_size
+        if g % 4 == 0:
+            extra["host_ports"] = [8080]
+            min_member = 1
+        elif g % 4 == 1:
+            extra["anti_affinity"] = [api.AffinityTerm(
+                match_labels={"app": name}, topology_key=host)]
+            min_member = 2
+        store.add_pod_group(api.PodGroup(name=name, min_member=min_member,
+                                         queue="default"))
+        for k in range(gang_size):
+            store.add_pod(api.Pod(
+                name=f"{name}-{k}", labels={"app": name},
+                annotations={api.GROUP_NAME_ANNOTATION: name},
+                containers=[{"cpu": str(1 + g % 2), "memory": "100Gi"}],
+                **extra))
+    return store
+
+
+@pytest.mark.parametrize("wave", [64, 256])
+def test_hot_nodes_one_contention_group_with_ports_and_self_anti(wave):
+    """The paths the walk_accept kernel reorders, held here on the plain
+    reference: the JAX solve and the port's equal field for field (the
+    assignment vectors bit for bit) on one contention group packed onto
+    three hot nodes -- long same-node prefixes of byte-scale requests,
+    host-port clashes inside a sub-round, and self anti-affine profiles
+    capped at one copy a node."""
+    args, _ = jax_args(_hot_store(), binpack=True, nodeorder=True)
+    jr, tr = _both(args, wave)
+    assert tw.LAST_TWOPHASE["ports"] and tw.LAST_TWOPHASE["affinity"]
+    assigned = np.asarray(tr.assigned)
+    job = np.asarray(args[1].job)
+    placed = assigned >= 0
+    # 2 TiB / 100 GiB: 20 tasks a hot node, the small nodes hold none.
+    assert set(assigned[placed].tolist()) <= {0, 1, 2}
+    assert 40 <= int(placed.sum()) <= 60
+    ports = np.asarray(args[1].ports)[:, 0] != 0
+    for n in range(3):
+        assert int((ports & (assigned == n)).sum()) <= 1
+    for j in np.unique(job[placed]):
+        nodes = assigned[placed & (job == j)]
+        if j % 4 == 1:
+            assert len(nodes) == len(set(nodes.tolist())), (j, nodes)
 
 
 # ------------------------------------------------------- twin cycles

@@ -64,6 +64,7 @@ class _Lib:
 
     def __init__(self):
         self.calls = []
+        self.args = []
 
     def __getattr__(self, name):
         decl = kernels._SIGS[name]
@@ -80,6 +81,7 @@ class _Lib:
                     assert isinstance(a, int) and not isinstance(a, bool), \
                         (name, i, a)
             self.calls.append(name)
+            self.args.append(args)
             return 1024 if name == "vtt_block_shortlist_smem" else 0
         return call
 
@@ -118,7 +120,8 @@ def test_affinity_wrappers_match_their_entries(fake_card):
         affkernels.aff_live(rows, cand, _z(1, E), at)
     affkernels.aff_live(rows, None, _z(U, 3), at)
     affkernels.aff_filter(_z(W), _z(W, dtype=B8), _z(W), at,
-                          _z(W, dtype=B8), _z(W, dtype=B8), gm=_z(E, D))
+                          _z(W, dtype=B8), _z(W, dtype=B8), gm=_z(E, D),
+                          term_req=_z(E, dtype=B8), prof_req=_z(U, dtype=B8))
     assert fake_card.calls == (["vtt_scatter_cnt0",
                                 "vtt_scatter_profile_tables"]
                                + ["vtt_aff_live"] * 4 + ["vtt_aff_filter"])
@@ -209,3 +212,45 @@ def test_seq_solve_and_extra_planes_match_their_entries(fake_card):
         extra=kernels.Extra(None, ex.score), pids=_z(UM))
     assert fake_card.calls == ["vtt_seq_solve"] * 2 + [
         "vtt_coarse_shortlist", "vtt_rank_candidates"]
+
+
+@pytest.mark.parametrize("K,W,cumcap,sort", [(4, 16, False, False),
+                                             (12289, 16, True, False),
+                                             (4, 20000, False, True)])
+def test_walk_accept_scratch_past_shared_memory(fake_card, K, W, cumcap,
+                                                sort):
+    """walk_accept keeps its running capacities and sort keys in shared
+    memory and passes null scratches; past csrc/walk_accept.cu's limits
+    (a [UM, K] f32 row over 48 KB, 9 bytes per key of the power of two >=
+    W over 200 KB) it passes global ones of those sizes."""
+    UM, N, R = 4, 32, 3
+    prof, cls, nodes, weights, eps, slot = shortlist_tensors(
+        shortlist_case(0, U=UM, N=N), "cpu")
+    kernels.walk_accept(_z(UM, K), _z(UM, K, dtype=B8),
+                        prof.req[:UM].contiguous(),
+                        prof.init_req[:UM].contiguous(), _z(W),
+                        _z(W, dtype=B8), _z(W, dtype=B8),
+                        _z(UM, UM, dtype=B8), nodes["idle"],
+                        nodes["ntasks"], nodes["max_tasks"], eps, slot)
+    assert fake_card.calls == ["vtt_walk_accept"]
+    args = fake_card.args[0]
+    # (..., scalar_slot, cumcap, sort_scratch, live, ...)
+    assert (args[22] is not None) == cumcap
+    assert (args[23] is not None) == sort
+    assert args[24] is not None and args[25] is not None
+
+
+def test_aff_filter_needs_the_wave_planes(fake_card):
+    """On the card the filter takes term_req [E] and prof_req [UM] from
+    its caller; without them (or at other shapes) it raises and launches
+    nothing."""
+    U, E, D, N, K, W = 8, 5, 6, 32, 2, 16
+    at = _terms(U, E, D, N, K)
+    for planes in ({}, {"term_req": _z(E, dtype=B8)},
+                   {"term_req": _z(E + 1, dtype=B8),
+                    "prof_req": _z(U, dtype=B8)},
+                   {"term_req": _z(E), "prof_req": _z(U, dtype=B8)}):
+        with pytest.raises((ValueError, TypeError)):
+            affkernels.aff_filter(_z(W), _z(W, dtype=B8), _z(W), at,
+                                  _z(W, dtype=B8), gm=_z(E, D), **planes)
+    assert fake_card.calls == []

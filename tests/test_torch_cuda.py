@@ -562,36 +562,223 @@ def test_aff_live_equals_plain(cuda, seed, mode):
     _equal(a[1], b[1], "soft: own terms vs all")
 
 
-@pytest.mark.parametrize("W,nodes", [(64, 200), (512, 48), (2048, 300)])
-def test_aff_filter_equals_plain(cuda, W, nodes):
-    """The filter on random choices; W = 512 on 48 nodes gives more than
-    256 live givers in one sub-round (the JAX GCAP overflow form)."""
+AFF_FILTER_CASES = [(64, 200, 12, "mixed"), (512, 48, 12, "mixed"),
+                     (2048, 300, 12, "mixed"), (2048, 300, 12, "sparse"),
+                     (2048, 300, 12, "dense"), (2048, 300, 12, "domainless"),
+                     (2048, 300, 12, "selfmatch"), (2048, 300, 37, "mixed"),
+                     (1999, 300, 12, "mixed")]
+
+
+@pytest.mark.parametrize("W,nodes,E,kind", AFF_FILTER_CASES)
+def test_aff_filter_equals_plain(cuda, W, nodes, E, kind):
+    """The filter on random choices against its plain version: W = 512 on
+    48 nodes gives more than 256 live givers in one sub-round (the JAX
+    GCAP overflow form); sparse (a few accepted tasks) and dense (every
+    live task accepted or pipelined) involved sets; domain-less choices
+    (node_dom -1 on half the nodes); self-match rows (all-zero count
+    rows: totals 0); E = 37 (not a multiple of 32); W = 1,999 (not a power
+    of two).  gm must be left at W."""
     from volcano_tpu_torch.ops import affkernels
 
-    at = _aff_case(W, cuda, U=16, N=nodes)
-    U, E = at.t_req_aff.shape
-    g = torch.Generator().manual_seed(W)
+    seed = W if (E, kind) == (12, "mixed") else W + E + len(kind)
+    at = _aff_case(seed, cuda, U=16, E=E, N=nodes)
+    U = at.t_req_aff.shape[0]
+    if kind == "domainless":
+        nd = at.node_dom.clone()
+        nd[::2] = -1
+        at = at._replace(node_dom=nd)
+    if kind == "selfmatch":
+        at = at._replace(cnt_a=torch.zeros_like(at.cnt_a),
+                         cnt_p=torch.zeros_like(at.cnt_p))
+    g = torch.Generator().manual_seed(seed)
     choice = torch.randint(0, nodes, (W,), generator=g).to(torch.int32)
     live = torch.rand(W, generator=g) < 0.8
     pid_l = torch.randint(0, U, (W,), generator=g).to(torch.int32)
-    acc = live & (torch.rand(W, generator=g) < 0.7)
+    p_acc = {"sparse": 0.02, "dense": 1.0}.get(kind, 0.7)
+    acc = live & (torch.rand(W, generator=g) < p_acc)
     pipe = live & ~acc & (torch.rand(W, generator=g) < 0.5)
     choice, live, pid_l, acc, pipe = (x.to(cuda) for x in (
         choice, live, pid_l, acc, pipe))
     givers = (at.t_matches[pid_l.long()].any(dim=1) & live).sum()
     if W == 512:
         assert int(givers) > 256
+    term_req = (at.t_req_aff | at.t_req_anti).any(dim=0)
+    prof_req = (at.t_req_aff | at.t_req_anti).any(dim=1)
     gm = torch.full(tuple(at.cnt_a.shape), W, dtype=torch.int32,
                     device=cuda)
+    before = kernels.LAUNCHES["aff_filter"]
     a_k, p_k = acc.clone(), pipe.clone()
-    affkernels.aff_filter(choice, live, pid_l, at, a_k, p_k, gm=gm)
+    affkernels.aff_filter(choice, live, pid_l, at, a_k, p_k, gm=gm,
+                          term_req=term_req, prof_req=prof_req)
+    assert kernels.LAUNCHES["aff_filter"] == before + 1
     a_p, p_p = acc.clone(), pipe.clone()
     affkernels.aff_filter(choice, live, pid_l, at, a_p, p_p, gm=gm,
                           plain=True)
     _equal(a_k, a_p, "acc")
     _equal(p_k, p_p, "pipe")
     assert bool((gm == W).all()), "the kernel must leave gm at W"
-    assert bool((a_k != acc).any()), "the case filters nothing"
+    if kind != "sparse":
+        assert bool((a_k != acc).any()), "the case filters nothing"
+    # Without pipe, acc alone.
+    a_k, a_p = acc.clone(), acc.clone()
+    affkernels.aff_filter(choice, live, pid_l, at, a_k, gm=gm,
+                          term_req=term_req, prof_req=prof_req)
+    affkernels.aff_filter(choice, live, pid_l, at, a_p, gm=gm, plain=True)
+    _equal(a_k, a_p, "acc without pipe")
+    assert bool((gm == W).all())
+
+
+# ------------------------------------------------------------ walk_accept
+
+WALK_KINDS = ("one_group", "hot_nodes", "ties", "bytes", "ports",
+              "self_anti", "future", "sparse", "odd_w")
+
+
+def _walk_case(kind, UM, dev, W=2048, K=256, N=4096, R=4, seed=0):
+    """walk_accept's inputs at the north-star wave shape: base capacities
+    whole CPUs (milli) and GiB, a GPU-like scalar slot, pod slots with
+    some nodes over their max (a row that is not sorted), contention
+    groups at random; ``kind`` adds one hard case."""
+    rng = np.random.RandomState(seed + UM)
+    if kind == "odd_w":
+        W = 1999
+    gib = float(2 ** 30)
+    idle = np.stack([rng.randint(0, 64, N) * 1000.0,
+                     rng.randint(0, 256, N) * gib,
+                     rng.randint(0, 4, N).astype(np.float64),
+                     rng.randint(0, 100, N) * gib], 1)
+    ntasks = rng.randint(0, 30, N)
+    max_tasks = np.where(rng.rand(N) < 0.2, 0, rng.randint(20, 110, N))
+    max_tasks[:16] = 5  # ntasks > max_tasks: negative pod capacities
+    ranked = np.stack([rng.choice(N, K, replace=False) for _ in range(UM)])
+    feas = rng.rand(UM, K) < 0.9
+    req = np.stack([rng.randint(1, 4, UM) * 1000.0,
+                    rng.randint(1, 8, UM) * gib,
+                    (rng.rand(UM) < 0.3).astype(np.float64),
+                    np.zeros(UM)], 1)
+    init = req.copy()
+    init[::3, 0] += 1000.0
+    pid = rng.randint(0, UM, W)
+    cand = rng.rand(W) < 0.9
+    anyf = rng.rand(W) < 0.97
+    grp = (rng.rand(UM, UM) < 0.5) | np.eye(UM, dtype=bool)
+    eps = np.array([1.0, 1.0, 0.5, 1.0])
+    slot = np.array([False, False, True, False])
+    ports = fut = self_anti = None
+    if kind == "one_group":
+        grp[:] = True
+    elif kind == "hot_nodes":
+        hot = rng.choice(N, 3, replace=False)
+        cold = np.setdiff1d(np.arange(N), hot)
+        ranked = np.stack([np.concatenate(
+            [hot, rng.choice(cold, K - 3, replace=False)])
+            for _ in range(UM)])
+        feas[:, :3] = True
+        idle[hot] = [1.0e6, 1.0e4 * gib, 1.0e3, 1.0e4 * gib]
+        max_tasks[hot] = 0
+        grp[:] = True
+    elif kind == "ties":
+        # One or two copies a node: cumcap takes every integer, and each
+        # group rank m meets it.
+        max_tasks[:] = ntasks + rng.randint(1, 3, N)
+        idle[:, :2] *= 8
+    elif kind == "bytes":
+        req[:, 1] = rng.randint(100, 1000, UM) * 1.0e9
+        init[:, 1] = req[:, 1]
+        idle[:, 1] = rng.randint(1000, 4000, N) * 1.0e9
+    elif kind == "ports":
+        pw = 2
+        pp = np.zeros((UM, pw), np.int64)
+        for u in range(UM):
+            for b in rng.choice(40, rng.randint(1, 3), replace=False):
+                pp[u, b // 32] |= 1 << (b % 32)
+        used = np.where(rng.rand(N, pw) < 0.05,
+                        1 << rng.randint(0, 32, (N, pw)), 0)
+        ports = (pp, used, None)
+        grp[:] = True
+    elif kind == "self_anti":
+        self_anti = rng.rand(UM) < 0.5
+    elif kind == "future":
+        rel = np.stack([rng.randint(0, 16, N) * 1000.0,
+                        rng.randint(0, 64, N) * gib,
+                        rng.randint(0, 2, N).astype(np.float64),
+                        np.zeros(N)], 1)
+        pip = rel * (rng.rand(N, 1) < 0.3) * 0.5
+        pxe = np.where(rng.rand(N, 1) < 0.1, req[0] , 0.0)
+        idle[::2] = 0.0
+        fut = (rel, pip, pxe, rng.randint(0, 3, N))
+        pw = 1
+        pp = np.where(rng.rand(UM, pw) < 0.3, 1 << 3, 0)
+        ports = (pp, np.zeros((N, pw), np.int64),
+                 np.where(rng.rand(N, pw) < 0.1, 1 << 3, 0))
+    elif kind == "sparse":
+        cand = rng.rand(W) < 0.03
+
+    def t(a, dtype):
+        return torch.from_numpy(np.ascontiguousarray(a)).to(dtype).to(dev)
+
+    f32, i32, b8 = torch.float32, torch.int32, torch.bool
+    args = (t(ranked, i32), t(feas, b8), t(req, f32), t(init, f32),
+            t(pid, i32), t(cand, b8), t(anyf, b8), t(grp, b8), t(idle, f32),
+            t(ntasks, i32), t(max_tasks, i32), t(eps, f32), t(slot, b8))
+    kw = {}
+    if fut is not None:
+        kw["future"] = kernels.Future(t(fut[0], f32), t(fut[1], f32),
+                                      t(fut[2], f32), t(fut[3], i32))
+    if ports is not None:
+        kw["ports"] = kernels.Ports(
+            t(ports[0].astype(np.uint32).view(np.int32), i32),
+            t(ports[1].astype(np.uint32).view(np.int32), i32),
+            None if ports[2] is None else
+            t(ports[2].astype(np.uint32).view(np.int32), i32))
+    if self_anti is not None:
+        kw["self_anti"] = t(self_anti, b8)
+    return args, kw
+
+
+def _walk_both(args, kw):
+    W = args[4].shape[0]
+    dev = args[0].device
+    outs = []
+    for plain in (False, True):
+        live = torch.empty(W, dtype=torch.bool, device=dev)
+        out = kernels.walk_accept(*args, **kw, live_out=live, plain=plain)
+        outs.append([x for x in out if x is not None] + [live])
+    for a, b, what in zip(*outs, ("choice", "acc", "pipe", "live")):
+        _equal(a, b, what)
+    return outs[0]
+
+
+@pytest.mark.parametrize("kind", WALK_KINDS)
+@pytest.mark.parametrize("UM", [1, 16, 64])
+def test_walk_accept_equals_plain(cuda, UM, kind):
+    """walk_accept at W = 2,048 (1,999 for odd_w) and K = 256 against its
+    plain version: choice, acc_alloc, acc_pipe and the live flags
+    identical.  Cases: every profile in one contention group; every task
+    ranked onto the same 3 hot nodes (segments of hundreds); capacity ties
+    cumcap == m; byte-scale requests (1e11-1e12, the double sums);
+    clashing host ports; self anti-affine profiles; the releasing planes
+    (rel / pip / pxe, pipelined ports); a sparse cand_s; W not a power of
+    two."""
+    args, kw = _walk_case(kind, UM, cuda)
+    before = kernels.LAUNCHES["walk_accept"]
+    choice, acc, *rest = _walk_both(args, kw)
+    assert kernels.LAUNCHES["walk_accept"] == before + 1
+    live = rest[-1]
+    assert bool(live.any()) and bool(acc.any())
+    if kind in ("hot_nodes", "ports") and UM > 1:
+        assert bool((live & ~acc).any()), "nothing rejected"
+    if kind == "future":
+        assert bool(rest[0].any()), "nothing pipelined"
+
+
+@pytest.mark.parametrize("K,W,N", [(12289, 512, 16384), (256, 20000, 4096)])
+def test_walk_accept_global_scratch_equals_plain(cuda, K, W, N):
+    """Past the kernels' shared-memory limits -- a [UM, K] capacity row
+    over 48 KB, sort keys over 200 KB -- the same kernels run on global
+    scratch."""
+    args, kw = _walk_case("ties", 16, cuda, W=W, K=K, N=N)
+    _walk_both(args, kw)
 
 
 def _aff_store_case(name):

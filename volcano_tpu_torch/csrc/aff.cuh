@@ -26,12 +26,9 @@ __device__ __forceinline__ int32_t count_at(const int32_t* cnt_a,
 }
 
 // totals[e] = sum over the D domains of term e's counts (one block per
-// term).  With `t_aff` / `t_anti` given, term_req[e] = some of the U
-// table rows requires term e (affinity or anti-affinity).
+// term).
 __global__ void __launch_bounds__(256) count_totals_kernel(
-    const int32_t* cnt_a, const int32_t* cnt_p, int D, int32_t* totals,
-    const uint8_t* t_aff, const uint8_t* t_anti, int U, int E,
-    int32_t* term_req) {
+    const int32_t* cnt_a, const int32_t* cnt_p, int D, int32_t* totals) {
   __shared__ int32_t part[256];
   const int e = blockIdx.x;
   int32_t acc = 0;
@@ -46,17 +43,6 @@ __global__ void __launch_bounds__(256) count_totals_kernel(
     __syncthreads();
   }
   if (threadIdx.x == 0) totals[e] = part[0];
-  if (term_req) {
-    __shared__ int any;
-    if (threadIdx.x == 0) any = 0;
-    __syncthreads();
-    for (int u = threadIdx.x; u < U; u += blockDim.x) {
-      const int64_t c = static_cast<int64_t>(u) * E + e;
-      if (t_aff[c] || t_anti[c]) any = 1;
-    }
-    __syncthreads();
-    if (threadIdx.x == 0) term_req[e] = any;
-  }
 }
 
 }  // namespace

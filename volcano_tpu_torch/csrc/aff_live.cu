@@ -83,7 +83,7 @@ extern "C" int vtt_aff_live(
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   vtt::count_totals_kernel<<<E, 256, 0, st>>>(
       static_cast<const int32_t*>(cnt_a), static_cast<const int32_t*>(cnt_p),
-      D, static_cast<int32_t*>(totals), nullptr, nullptr, 0, E, nullptr);
+      D, static_cast<int32_t*>(totals));
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
   const int64_t work = static_cast<int64_t>(M) * L;

@@ -314,7 +314,8 @@ def _aff_filter_plain(choice, live, pid_l, at: AffTerms):
 
 
 def aff_filter(choice, live, pid_l, at: AffTerms, acc, pipe=None, *,
-               gm=None, plain: bool = False) -> None:
+               gm=None, term_req=None, prof_req=None,
+               plain: bool = False) -> None:
     """The sub-round's affinity filter (wave.py:1749-2000), applied in
     place to ``acc`` (and ``pipe``): a live task keeps its acceptance only
     if, at its choice node against the live window counts, every required
@@ -327,7 +328,11 @@ def aff_filter(choice, live, pid_l, at: AffTerms, acc, pipe=None, *,
 
     ``choice``, ``pid_l`` [W] int32; ``live``, ``acc``, ``pipe`` [W]
     bool; ``at`` the wave's window.  ``gm`` is the kernel's [E, D] int32
-    scratch, filled with W by the caller and left so."""
+    scratch, filled with W by the caller and left so.  The kernel takes the
+    window's constant planes from its caller, derived once per wave:
+    ``term_req`` [E] bool (some row requires term e: ``(at.t_req_aff |
+    at.t_req_anti).any(0)``) and ``prof_req`` [UM] bool (the row requires
+    some term: ``.any(1)``); the plain version derives its own."""
     if not _on_card(plain, choice, at.cnt_a, acc):
         filt = _aff_filter_plain(choice, live, pid_l, at)
         acc &= filt
@@ -349,16 +354,22 @@ def aff_filter(choice, live, pid_l, at: AffTerms, acc, pipe=None, *,
         raise ValueError("aff_filter: inconsistent task shapes")
     if gm is None or gm.dtype != torch.int32 or gm.shape != (E, D):
         raise ValueError("aff_filter: gm must be the [E, D] int32 scratch")
+    if (term_req is None or prof_req is None
+            or _req(term_req, u8, "term_req").shape != (E,)
+            or _req(prof_req, u8, "prof_req").shape != (UM,)):
+        raise ValueError("aff_filter: term_req [E] and prof_req [UM] "
+                         "bool planes are required")
     if W == 0:
         return
     _capture("aff_filter", choice=choice, live=live, pid_l=pid_l, at=at,
-             acc=acc, pipe=pipe, W=W)
+             acc=acc, pipe=pipe, W=W, term_req=term_req, prof_req=prof_req)
     dev = acc.device
-    scratch = torch.empty(3 * E, dtype=torch.int32, device=dev)
+    scratch = torch.empty(2 * E + 1 + W, dtype=torch.int32, device=dev)
     rc = load().vtt_aff_filter(
         _ptr(choice), _ptr(live), _ptr(pid_l), W, _ptr(at.node_dom), K,
         _ptr(at.term_key), _ptr(at.cnt_a), _ptr(at.cnt_p), E, D,
-        _ptr(at.t_req_aff), _ptr(at.t_req_anti), _ptr(at.t_matches), UM,
-        _ptr(gm), _ptr(scratch), _ptr(acc), _ptr(pipe), _stream())
+        _ptr(at.t_req_aff), _ptr(at.t_req_anti), _ptr(at.t_matches),
+        _ptr(term_req), _ptr(prof_req), _ptr(gm), _ptr(scratch), _ptr(acc),
+        _ptr(pipe), _stream())
     _check(rc, "aff_filter")
     LAUNCHES["aff_filter"] += 1

@@ -130,6 +130,9 @@ REPLACES = {
 
 MAX_R = 16  # csrc/common.cuh kMaxR
 MAX_SMEM = 232_448  # shared memory one block may use on Hopper
+WALK_SMEM = 48 * 1024  # csrc/walk_accept.cu kWalkSmem
+ACCEPT_SMEM = 200 * 1024  # csrc/walk_accept.cu kAccSmem
+ACCEPT_KEY_BYTES = 9  # csrc/walk_accept.cu kKeyBytes
 
 # Optional input capture: when a dict, each wrapper stores clones of the
 # inputs of its first kernel launch under its name (chip_smoke.py replays
@@ -249,7 +252,7 @@ _SIGS = {
                             _P, _P, _P, _P, _I, _P, _P, _P],
     "vtt_walk_accept": [_P, _P, _I, _I, _P, _P, _I, _P, _P, _P, _P, _I, _P, _P,
                         _P, _P, _P, _P, _P, _I, _P, _P, _P, _P, _P, _P, _P, _P,
-                        _I, _P, _P, _P, _P],
+                        _P, _I, _P, _P, _P, _P],
     "vtt_apply_commit": [_P, _P, _P, _P, _P, _I, _I, _F, _I, _P, _P, _I, _P,
                          _I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
                          _P, _I, _P, _P, _P, _I, _P, _P, _I, _I, _P, _P, _P],
@@ -266,7 +269,7 @@ _SIGS = {
     "vtt_aff_live": [_P, _I, _P, _I, _I, _P, _I, _I, _P, _I, _P, _P, _P, _I,
                      _I, _P, _P, _P, _P, _I, _P, _P, _P, _P],
     "vtt_aff_filter": [_P, _P, _P, _I, _P, _I, _P, _P, _P, _I, _I, _P, _P,
-                       _P, _I, _P, _P, _P, _P, _P],
+                       _P, _P, _P, _P, _P, _P, _P, _P],
     "vtt_seq_solve": [_I] * 13 + [_P] * 29 + [_F] * 5 + [_P] * 28,
 }
 
@@ -1191,7 +1194,14 @@ def walk_accept(ranked, feas_k, p_req, p_init_req, pid_l, cand_s, any_feas,
                               else ":aff"),
              future=future, ports=ports, self_anti=self_anti, **a)
     dev = idle.device
-    cumcap = torch.empty((UM, K), dtype=f32, device=dev)
+    # Scratch the kernels keep in shared memory up to csrc/walk_accept.cu's
+    # limits: the [UM, K] running capacities (48 KB a row) and the sort's
+    # keys and flags (9 bytes per key of the power of two >= W, 200 KB).
+    cumcap = (torch.empty((UM, K), dtype=f32, device=dev)
+              if K * 4 > WALK_SMEM else None)
+    sort_bytes = (1 << max(W - 1, 0).bit_length()) * ACCEPT_KEY_BYTES
+    sort_scratch = (torch.empty(sort_bytes, dtype=torch.uint8, device=dev)
+                    if sort_bytes > ACCEPT_SMEM else None)
     if live_out is not None and (_req(live_out, u8, "live_out").shape
                                  != (W,)):
         raise ValueError("walk_accept: live_out is not [W]")
@@ -1205,7 +1215,8 @@ def walk_accept(ranked, feas_k, p_req, p_init_req, pid_l, cand_s, any_feas,
         _ptr(a["p_init_req"]), R, _ptr(a["pid_l"]), _ptr(a["cand_s"]),
         _ptr(a["any_feas"]), _ptr(a["grp"]), W, _ptr(a["idle"]), *fut,
         _ptr(a["ntasks"]), _ptr(a["max_tasks"]), N, _ptr(a["eps"]),
-        _ptr(a["scalar_slot"]), _ptr(cumcap), _ptr(live), _ptr(choice),
+        _ptr(a["scalar_slot"]), _ptr(cumcap), _ptr(sort_scratch),
+        _ptr(live), _ptr(choice),
         _ptr(acc), _ptr(pipe), *pp, _ptr(self_anti), _stream(),
     )
     _check(rc, "walk_accept")

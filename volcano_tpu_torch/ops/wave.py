@@ -773,6 +773,7 @@ def _solve_wave(nodes: SolveNodes, jobs: SolveJobs,
         at_w = None
         self_anti = None
         prof_req_terms = None
+        term_req = None
         if has_aff:
             wt_h = wave_terms[w]
             wt = torch.from_numpy(wt_h.astype(np.int64)).to(dev)
@@ -797,6 +798,9 @@ def _solve_wave(nodes: SolveNodes, jobs: SolveJobs,
                 at_w = AffTerms(aff.node_dom, aff.term_key[wt].contiguous(),
                                 cw_a, cw_p, p_aff, p_anti, p_match,
                                 cols(prof.t_soft))
+                # The filter's constant planes, once per wave: the terms
+                # some row requires (the givers' terms).
+                term_req = (p_aff | p_anti).any(dim=0)
                 # Self anti-affine profiles walk one copy per node
                 # (wave.py:1690-1696).
                 self_anti = (p_anti & p_match).any(dim=1)
@@ -912,7 +916,9 @@ def _solve_wave(nodes: SolveNodes, jobs: SolveJobs,
                 )
                 if at_w is not None:
                     affkernels.aff_filter(choice, live, pid_l, at_w, acc,
-                                          acc_pipe, gm=gm, plain=plain)
+                                          acc_pipe, gm=gm, term_req=term_req,
+                                          prof_req=prof_req_terms,
+                                          plain=plain)
                 kernels.apply_commit(
                     choice, acc, p_req, pid_l, qidx, st.idle, st.q_alloc,
                     mode=0, idle_sign=-1.0, jw=jw, ntasks=st.ntasks,
@@ -1053,7 +1059,7 @@ def solve_wave(
     dev = resolve_device(device)
     if mesh_shards and int(mesh_shards) > 1:
         raise _unsupported("mesh sharding (mesh_shards > 1)",
-                           "queue 2, multi-GPU")
+                           "queue 1, multi-GPU")
     if (extra_ok is not None or extra_score is not None) and (
             pid is not None or profiles is not None):
         raise ValueError(
