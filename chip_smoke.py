@@ -17,13 +17,15 @@ of which raises (and the script exits non-zero) when a check fails:
    of 8, 16 zones, binpack + nodeorder scorers) through
    ``solve_args_from_store`` and ``solve_wave`` on the card; launch counts
    zeroed just before and read just after; invariants; the median wall
-   time of 3 more solves, and one solve traced with ``torch.profiler``;
+   time of 3 more solves, and one solve traced with ``torch.profiler``
+   (every kernel function's summed device time and launches);
 3. plain: the same solve with the plain PyTorch versions forced on the
    card; every result field must be identical;
 4. the solve path's kernels against their plain versions on the inputs of
    their first launch, timed with CUDA events around 20 back-to-back calls
    queued behind a sleep kernel (the wrappers' host work is reported
-   apart);
+   apart); ``rank_candidates`` also on its first fallback launch (all N
+   nodes);
 5. features: 1,000 nodes x 10,000 pods with taints, selectors, node
    affinity and finite deserved shares, kernels against plain versions;
 6. the cycle, the port's main path: ``Scheduler(store).run_once()`` with
@@ -86,10 +88,11 @@ of which raises (and the script exits non-zero) when a check fails:
    ``aff_filter`` required; after every cycle every pod bound, no node
    over capacity, gangs whole, every zone-affine gang in one zone, every
    anti-affine gang on distinct nodes, no host port twice on a node, no
-   device plane read back; then the cold cycle again on a fresh store of
-   the same seed, traced: the device time of ``walk_accept`` and
-   ``aff_filter`` summed over it, and its share of the ``device_fine``
-   lane;
+   device plane read back; ``aff_live``'s computing and gated launches
+   (the attempt cache); then the cold cycle again on a fresh store of the
+   same seed, traced: every kernel's device time and launches summed over
+   it (per wrapper and per CUDA function), ``aff_live``'s computing and
+   gated launches, and the kernels' share of the ``device_fine`` lane;
 17. affinity:small: the same mix at 1,000 x 10,000 with host ports on 10%
    of the gangs: 8 steady cycles (a warm shortlist on nonzero counts
    required), and on a second store a release (the pods of nodes 0-63
@@ -101,9 +104,11 @@ of which raises (and the script exits non-zero) when a check fails:
    ``VOLCANO_TPU_AFF_BUDGET_MB=2``: the cold cycle solves in at least 4
    job-aligned chunks; card against CPU;
 19. the four affinity kernels, and the extended ``coarse_shortlist``,
-   ``rank_candidates``, ``walk_accept``, ``apply_commit`` and
-   ``warm_shortlist`` on affinity inputs, against their plain versions,
-   timed as in 4 (``scatter_cnt0`` beside ``index_put_``);
+   ``rank_candidates`` (its shortlist and its fallback launch),
+   ``walk_accept``, ``apply_commit`` and ``warm_shortlist`` on affinity
+   inputs, against their plain versions, timed as in 4 (``scatter_cnt0``
+   beside ``index_put_``); ``aff_live`` again with its gate clear (a
+   cached attempt's launch: the buffers unchanged);
 20. object: BASELINE config 2 (bench.py ``config_2``: 1,000 nodes x 10,000
    pods, gangs of 4) under CONF_BASE with ``VOLCANO_TPU_FASTPATH=0``: three
    object-session cycles (open, the conf's actions, close; the pods of
@@ -157,7 +162,8 @@ def _smi() -> str:
 
 # The sources whose kernels' registers, shared memory and spills
 # (`nvcc -Xptxas -v`) the run prints.
-PTXAS_SOURCES = ("walk_accept.cu", "aff_filter.cu")
+PTXAS_SOURCES = ("rank_candidates.cu", "aff_live.cu", "walk_accept.cu",
+                 "aff_filter.cu")
 
 
 def ptxas_report(sources=PTXAS_SOURCES) -> dict:
@@ -491,7 +497,8 @@ def _kernel_fn(name, c, plain):
             plain=plain))
     if name == "aff_live":
         return lambda: tuple(affkernels.aff_live(
-            c["rows"], c["cand"], c["terms"], c["at"], plain=plain))
+            c["rows"], c["cand"], c["terms"], c["at"], gate=c.get("gate"),
+            out=c.get("out"), plain=plain))
     if name == "aff_filter":
         gm = torch.full(tuple(c["at"].cnt_a.shape), c["W"],
                         dtype=torch.int32, device=c["acc"].device)
@@ -910,7 +917,7 @@ def replay_kernels(captured: dict, launches: dict, reps: int = 20,
 KERNEL_FUNCS = {
     "coarse_shortlist": ("class_static_kernel<0>", "shortlist_kernel",
                          "block_rank_kernel<true>", "merge_kernel<true>"),
-    "rank_candidates": ("rank_kernel",),
+    "rank_candidates": ("rank_tile_kernel", "rank_merge_kernel"),
     "walk_accept": ("walk_choice_kernel", "walk_accept_kernel"),
     "apply_commit": ("accumulate_kernel", "write_kernel"),
     "static_planes": ("class_static_kernel<1>",),
@@ -971,10 +978,24 @@ def profile_device(fn) -> dict:
         for k, fs in KERNEL_FUNCS.items()
     }
     top = sorted(by_name, key=by_name.get, reverse=True)[:8]
+    # Every CUDA function of the port's kernels: [summed ms, launches].
+    funcs = {}
+    for n, ms in by_name.items():
+        for f in (f for fs in KERNEL_FUNCS.values() for f in fs if f in n):
+            acc = funcs.setdefault(f, [0.0, 0])
+            acc[0] += ms
+            acc[1] += count[n]
     return {"wall_ms": wall * 1e3, "busy_ms": busy / 1e3,
             "device_events": len(spans), "kernels_ms": per_kernel,
+            "funcs": funcs,
             "other_ms": sum(by_name.values()) - sum(per_kernel.values()),
             "top": [[k[:60], by_name[k], count[k]] for k in top]}
+
+
+def _traced_sums(prof: dict) -> str:
+    """The traced per-function device time and launches, largest first."""
+    rows = sorted(prof["funcs"].items(), key=lambda kv: -kv[1][0])
+    return ", ".join(f"{f} {ms:.3f} ms / {n}" for f, (ms, n) in rows)
 
 
 # --------------------------------------------------------------- main
@@ -1696,6 +1717,59 @@ def _replay_rows(caps: dict, launches: dict, label: str, names) -> list:
     return rows
 
 
+def aff_live_gated(cap: dict, reps: int = 20) -> dict:
+    """``aff_live`` on its captured inputs with the gate clear (a cached
+    attempt's launch): the kernel and the plain version must leave the
+    buffers as they were; timed as in ``replay_kernels``."""
+    import torch
+
+    c = _clone(cap)
+    dev = c["rows"].device
+    M = c["rows"].shape[0]
+    cand = c["cand"]
+    L = (c["at"].node_dom.shape[0] if cand is None
+         else cand.shape[0] if cand.dim() == 1 else cand.shape[1])
+    if c.get("out") is None:
+        c["out"] = (torch.ones((M, L), dtype=torch.bool, device=dev),
+                    torch.zeros((M, L), dtype=torch.float32, device=dev))
+    c["gate"] = torch.zeros(1, dtype=torch.bool, device=dev)
+    for plain in (False, True):
+        out = _kernel_fn("aff_live", _clone(c), plain)()
+        torch.cuda.synchronize()
+        if not all(torch.equal(a, b) for a, b in zip(out, c["out"])):
+            raise AssertionError(f"aff_live gated (plain={plain}) changed "
+                                 f"its buffers")
+    times = {}
+    for plain in (False, True, True, False):
+        fns = [_kernel_fn("aff_live", _clone(c), plain) for _ in range(reps)]
+        times.setdefault(plain, []).append(_device_ms(fns))
+    k_best, p_best = min(times[False]), min(times[True])
+    return {"ms": k_best[0], "plain_ms": p_best[0], "wrapper_ms": k_best[1],
+            "queued": k_best[2], "plain_queued": p_best[2],
+            "max_abs_err": 0.0}
+
+
+def first_shapes(caps: dict) -> dict:
+    """The first launches' shapes: ``rank_candidates`` (M rows, L
+    candidates, depth K) and ``aff_live`` (M rows, L candidates, T listed
+    terms, EW count rows, D domains, whether it was gated)."""
+    out = {}
+    for name, c in sorted(caps.items()):
+        if name.startswith("rank_candidates"):
+            L = c["idle"].shape[0] if c["cand"] is None else c["cand"].shape[1]
+            out[name] = {"M": int(c["rows"].shape[0]), "L": int(L),
+                         "K": int(c["K"])}
+        elif name == "aff_live":
+            cand = c["cand"]
+            L = (c["at"].node_dom.shape[0] if cand is None
+                 else cand.shape[0] if cand.dim() == 1 else cand.shape[1])
+            EW, D = c["at"].cnt_a.shape
+            out[name] = {"M": int(c["rows"].shape[0]), "L": int(L),
+                         "T": int(c["terms"].shape[1]), "EW": int(EW),
+                         "D": int(D), "gate": c.get("gate") is not None}
+    return out
+
+
 def rebalance_phases(workers=5000, racks=16, slices_per_rack=8,
                      nodes_per_slice=64):
     """Phases 12-15: the rebalance lane at 2 x ``workers`` nodes, the fabric
@@ -1857,7 +1931,8 @@ AFF_KERNELS = ("coarse_shortlist", "static_planes", "rank_candidates",
 # kernels and the extended ones on affinity inputs.
 AFF_REPLAY = ("scatter_cnt0", "scatter_profile_tables", "aff_live",
               "aff_filter", "coarse_shortlist:aff", "rank_candidates:aff",
-              "walk_accept:aff", "apply_commit:aff", "warm_shortlist:aff")
+              "rank_candidates:aff:fallback", "walk_accept:aff",
+              "apply_commit:aff", "warm_shortlist:aff")
 HOSTNAME = "kubernetes.io/hostname"
 
 
@@ -2067,15 +2142,21 @@ def _release(store):
 def aff_cold_trace(big, cold_lanes) -> dict:
     """The [affinity] cold cycle again, on a fresh store of the same seed
     (the same decisions and kernel inputs), traced with ``torch.profiler``:
-    the device time of ``walk_accept`` and ``aff_filter`` summed over the
-    cycle, and its share of the cycle's ``device_fine`` lane (the traced
-    cycle's own, and the untraced cold cycle's ``cold_lanes``)."""
+    every kernel's device time and launches summed over the cycle (per
+    wrapper and per CUDA function), ``aff_live``'s computing and gated
+    launches, and the kernels' share of the cycle's ``device_fine`` lane
+    (the traced cycle's own, and the untraced cold cycle's
+    ``cold_lanes``)."""
+    from volcano_tpu_torch.ops import kernels
     from volcano_tpu_torch.scheduler import Scheduler
 
     t0 = time.perf_counter()
     store = config5_cluster(*big)
     build = time.perf_counter() - t0
+    kernels.reset_launches()
     prof = profile_device(Scheduler(store, conf_str=CONF_BASE).run_once)
+    launches = dict(kernels.LAUNCHES)
+    computing = kernels.read_tally("aff_live")
     aff_invariants(store)
     inv = cycle_invariants(store, len(store.pods))
     fine = _lanes(store).get("device_fine", 0.0)
@@ -2085,20 +2166,23 @@ def aff_cold_trace(big, cold_lanes) -> dict:
              "kernels' device time over the cold cycle not measured)")
         return {}
     km = prof["kernels_ms"]
-    both = km["walk_accept"] + km["aff_filter"]
-    out = {"walk_accept_ms": km["walk_accept"],
-           "aff_filter_ms": km["aff_filter"], "sum_ms": both,
-           "device_fine_ms": fine,
-           "untraced_device_fine_ms": cold_lanes.get("device_fine", 0.0),
+    total = sum(km.values())
+    untraced = cold_lanes.get("device_fine", 0.0)
+    out = {"kernels_ms": km, "funcs": prof["funcs"], "launches": launches,
+           "aff_live_computing": computing,
+           "aff_live_gated": launches["aff_live"] - computing,
+           "kernels_sum_ms": total, "device_fine_ms": fine,
+           "untraced_device_fine_ms": untraced,
            "busy_ms": prof["busy_ms"], "wall_ms": prof["wall_ms"],
            "cluster_s": build, "pods_bound": inv["pods_bound"]}
-    _log(f"[affinity:cold-trace] walk_accept + aff_filter device time over "
-         f"the cold cycle: {km['walk_accept']:.3f} + {km['aff_filter']:.3f}"
-         f" = {both:.3f} ms, {100.0 * both / max(fine, 1e-9):.2f}% of its "
-         f"device_fine {fine:.3f} ms "
-         f"({100.0 * both / max(out['untraced_device_fine_ms'], 1e-9):.2f}%"
-         f" of the untraced cold cycle's "
-         f"{out['untraced_device_fine_ms']:.3f} ms); {json.dumps(out)}")
+    _log(f"[affinity:cold-trace] device time per kernel over the cold "
+         f"cycle (ms / launches): {_traced_sums(prof)}; aff_live launches "
+         f"{launches['aff_live']} = {computing} computing + "
+         f"{out['aff_live_gated']} gated; all kernels {total:.3f} ms, "
+         f"{100.0 * total / max(fine, 1e-9):.2f}% of its device_fine "
+         f"{fine:.3f} ms ({100.0 * total / max(untraced, 1e-9):.2f}% of "
+         f"the untraced cold cycle's {untraced:.3f} ms); "
+         f"{json.dumps(out)}")
     return out
 
 
@@ -2125,8 +2209,11 @@ def affinity_phases(big=(10000, 100000), mid=(1000, 10000),
     astats, _rec = run_aff_cycles("affinity", store, steady=5, trace=True,
                                   all_bound=True)
     launches = dict(kernels.LAUNCHES)
+    computing = kernels.read_tally("aff_live")
     caps, kernels.CAPTURE = kernels.CAPTURE, None
-    _log(f"[affinity] launches {json.dumps(launches)}")
+    _log(f"[affinity] launches {json.dumps(launches)}; aff_live "
+         f"{computing} computing + {launches['aff_live'] - computing} gated;"
+         f" first-launch shapes {json.dumps(first_shapes(caps))}")
     missing = [k for k in AFF_KERNELS if launches[k] == 0]
     if missing:
         raise AssertionError(f"[affinity] kernels never launched: {missing}")
@@ -2144,8 +2231,8 @@ def affinity_phases(big=(10000, 100000), mid=(1000, 10000),
              f"{prof['busy_ms']:.3f} ms of {prof['wall_ms']:.3f} ms wall, "
              f"device idle share "
              f"{100.0 * (1 - prof['busy_ms'] / prof['wall_ms']):.2f}%, "
-             f"kernels(ms) {json.dumps(prof['kernels_ms'])}, top "
-             f"{json.dumps(prof['top'])}")
+             f"kernels(ms) {json.dumps(prof['kernels_ms'])}, per function "
+             f"{_traced_sums(prof)}, top {json.dumps(prof['top'])}")
     else:
         _log("[affinity] traced steady cycle: no device events in the "
              "trace (idle share not measured)")
@@ -2182,6 +2269,7 @@ def affinity_phases(big=(10000, 100000), mid=(1000, 10000),
     s_card, r_card, dv_counts = small(None)
     x_card, rx_card, _ = small(None, release=True)
     small_launches = dict(kernels.LAUNCHES)
+    computing += kernels.read_tally("aff_live")
     small_caps, kernels.CAPTURE = kernels.CAPTURE, None
     for k, v in small_caps.items():
         caps.setdefault(k, v)
@@ -2239,7 +2327,15 @@ def affinity_phases(big=(10000, 100000), mid=(1000, 10000),
     # 19. the kernels on their captured affinity inputs.
     total = {k: launches[k] + small_launches[k] for k in launches}
     rows = _replay_rows(caps, total, "affinity", AFF_REPLAY[:4])
-    ext = _replay_rows(caps, total, "affinity", AFF_REPLAY[4:])
+    live = next(r for r in rows if r["name"] == "aff_live")
+    # The attempt cache: launches that computed the planes and launches
+    # the gate skipped (device counts), and a gated launch's time.
+    live["computing_launches"] = computing
+    live["gated_launches"] = total["aff_live"] - computing
+    live["gated"] = aff_live_gated(caps["aff_live"])
+    _log(f"[kernels:affinity] aff_live gated: {json.dumps(live['gated'])}")
+    ext = list(zip(AFF_REPLAY[4:], _replay_rows(caps, total, "affinity",
+                                                AFF_REPLAY[4:])))
     return rows, ext, astats
 
 
@@ -2530,8 +2626,12 @@ def main() -> int:
                                                timed=3)
     _log(f"[main] north-star solve median {main_stats['solve_s_median']:.4f}"
          f" s, pods bound {main_stats['pods_bound']}, card {card}")
+    _log(f"[main] first-launch shapes {json.dumps(first_shapes(captured))}")
     solve_names = SOLVE_KERNELS
     solve_rows = replay_kernels(captured, launches, names=solve_names)
+    # The first fallback launch (all N nodes: tiles and a merge).
+    fb_row = _replay_rows(captured, launches, "solve",
+                          ["rank_candidates:fallback"])[0]
     for r in solve_rows:
         _log(f"[kernels:solve] {r['name']}: {r['ms']:.4f} ms/launch on the "
              f"device (queued {r['queued']}), wrapper host "
@@ -2550,7 +2650,8 @@ def main() -> int:
              f"{prof['wall_ms']:.3f} ms wall; the four kernels "
              f"{kern:.3f} ms = {100.0 * kern / wall_ms:.2f}% of the median "
              f"untraced wall time {wall_ms:.3f} ms; device idle share "
-             f"{100.0 * (1 - prof['busy_ms'] / prof['wall_ms']):.2f}%")
+             f"{100.0 * (1 - prof['busy_ms'] / prof['wall_ms']):.2f}%; per "
+             f"function (ms / launches) {_traced_sums(prof)}")
     else:
         _log("[main] traced solve: no device events in the trace "
              "(device time per solve not measured)")
@@ -2633,6 +2734,9 @@ def main() -> int:
     # 12-15. the rebalance lane and the fabric topology path; the three
     # new kernels and the biased ranking on their inputs.
     reb_rows, bias_row = rebalance_phases()
+    by_name["rank_candidates"]["fallback"] = {k: fb_row[k] for k in (
+        "ms", "plain_ms", "bound_ms", "bound_by", "max_abs_err",
+        "wrapper_ms", "queued", "bytes", "ops")}
     by_name["rank_candidates"]["bias"] = {k: bias_row[k] for k in (
         "ms", "plain_ms", "bound_ms", "bound_by", "max_abs_err",
         "wrapper_ms", "queued", "bytes", "ops")}
@@ -2640,8 +2744,9 @@ def main() -> int:
 
     # 16-19. BASELINE config 5 through run_once(); the affinity kernels.
     aff_rows, ext_rows, _astats = affinity_phases()
-    for r in ext_rows:
-        by_name[r["name"]]["affinity"] = {k: r[k] for k in (
+    for cap, r in ext_rows:
+        key = "aff_fallback" if cap.endswith(":fallback") else "affinity"
+        by_name[r["name"]][key] = {k: r[k] for k in (
             "launches", "ms", "plain_ms", "bound_ms", "bound_by",
             "max_abs_err", "wrapper_ms", "queued", "bytes", "ops")}
     rows.extend(aff_rows)

@@ -240,6 +240,57 @@ def test_walk_accept_scratch_past_shared_memory(fake_card, K, W, cumcap,
     assert args[24] is not None and args[25] is not None
 
 
+@pytest.mark.parametrize("L,tiles", [(2048, 0), (2049, 3), (10016, 10)])
+def test_rank_candidates_scratch_past_the_sort_limit(fake_card, L, tiles):
+    """Up to csrc/rank_candidates.cu's one-block sort (2,048 candidates)
+    the three scratches are null; past it the wrapper passes the tiles'
+    top keys [M, T, min(K, 1,024)], the feasibility [M, L] and the tiles'
+    flags [M, T]."""
+    U, N, UM, K = 8, 10016, 4, 256
+    prof, cls, nodes, weights, eps, slot = shortlist_tensors(
+        shortlist_case(0, U=U, N=N), "cpu")
+    C = cls.ready.shape[0]
+    cand = None if L == N else _z(UM, L)
+    kernels.rank_candidates(
+        torch.arange(UM, dtype=I32), cand, _z(UM, C, dtype=B8),
+        _z(UM, C, dtype=F32), cls.class_id, prof.req[:UM].contiguous(),
+        prof.init_req[:UM].contiguous(), nodes["idle"], nodes["alloc"],
+        nodes["ntasks"], nodes["max_tasks"], eps, slot, weights, K)
+    assert fake_card.calls == ["vtt_rank_candidates"]
+    args = fake_card.args[0]
+    # (..., K, tile_keys, feas_scratch, any_scratch, out_ranked, ...)
+    assert args[27] == K
+    scratch = args[28:31]
+    assert all((a is None) == (tiles == 0) for a in scratch)
+    assert args[31] is not None
+
+
+def test_aff_live_passes_the_gate_and_the_tally(fake_card):
+    """aff_live hands the kernel the gate byte, the computing tally and
+    the caller's buffers (without a gate: null, the tally, fresh planes);
+    buffers of another shape raise before any launch."""
+    U, E, D, N, K = 8, 5, 9000, 32, 2
+    at = _terms(U, E, D, N, K)
+    rows = torch.arange(U, dtype=I32)
+    gate = _z(1, dtype=B8)
+    buf = (_z(U, 7, dtype=B8), _z(U, 7, dtype=F32))
+    got = affkernels.aff_live(rows, _z(U, 7), _z(1, E), at, gate=gate,
+                              out=buf)
+    assert got[0] is buf[0] and got[1] is buf[1]
+    affkernels.aff_live(rows, None, _z(1, E), at)
+    g, fresh = fake_card.args
+    # (..., t_soft, part, gate, computed, out_ok, out_soft, stream)
+    assert g[20].value == gate.data_ptr() and fresh[20] is None
+    tally = kernels.tally("aff_live", torch.device("cpu")).data_ptr()
+    assert g[21].value == tally and fresh[21].value == tally
+    assert g[22].value == buf[0].data_ptr()
+    assert g[23].value == buf[1].data_ptr()
+    with pytest.raises(ValueError):
+        affkernels.aff_live(rows, _z(U, 7), _z(1, E), at, gate=gate,
+                            out=(_z(U, 6, dtype=B8), _z(U, 6, dtype=F32)))
+    assert len(fake_card.calls) == 2
+
+
 def test_aff_filter_needs_the_wave_planes(fake_card):
     """On the card the filter takes term_req [E] and prof_req [UM] from
     its caller; without them (or at other shapes) it raises and launches

@@ -562,6 +562,59 @@ def test_aff_live_equals_plain(cuda, seed, mode):
     _equal(a[1], b[1], "soft: own terms vs all")
 
 
+@pytest.mark.parametrize("D", [10016, 9001])
+@pytest.mark.parametrize("mode", ["rows", "all"])
+def test_aff_live_gate_equals_plain(cuda, D, mode):
+    """aff_live with the attempt cache's gate, over a window whose rows
+    span several totals blocks (D > 4,096; 9,001 takes the unaligned,
+    scalar loads), with pipelined counts: a clear gate leaves the buffers
+    and the computing tally untouched (the launch still counts); a set
+    gate writes what the plain version writes; without a gate the planes
+    are the same.  Some terms have no match anywhere (the self-match
+    rule)."""
+    from volcano_tpu_torch.ops import affkernels
+
+    at = _aff_case(5, cuda, U=24, E=12, D=D, N=300, cnt_density=0.002)
+    at = at._replace(cnt_p=at.cnt_p * (at.cnt_a.sum(dim=1, keepdim=True)
+                                       > 0))
+    U, E = at.t_req_aff.shape
+    N = at.node_dom.shape[0]
+    assert bool(((at.cnt_a + at.cnt_p).sum(dim=1) == 0).any())
+    g = torch.Generator().manual_seed(D)
+    rows = torch.arange(U, dtype=torch.int32, device=cuda)
+    cand = None if mode == "all" else torch.randint(
+        0, N, (U, 500), generator=g).to(torch.int32).to(cuda)
+    L = N if cand is None else 500
+    terms = torch.arange(E, dtype=torch.int32, device=cuda)[None]
+    prior = (torch.rand((U, L), generator=g) < 0.5,
+             torch.randint(-3, 4, (U, L), generator=g).to(torch.float32))
+    want = affkernels.aff_live(rows, cand, terms, at, plain=True)
+    kernels.reset_launches()
+    for gate in (False, True):
+        buf = tuple(x.clone().to(cuda) for x in prior)
+        ref = tuple(x.clone().to(cuda) for x in prior)
+        gt = torch.tensor([gate], device=cuda)
+        got = affkernels.aff_live(rows, cand, terms, at, gate=gt, out=buf)
+        affkernels.aff_live(rows, cand, terms, at, gate=gt, out=ref,
+                            plain=True)
+        assert got[0] is buf[0] and got[1] is buf[1]
+        _equal(buf[0], ref[0], "ok")
+        _equal(buf[1], ref[1], "soft")
+        if gate:
+            _equal(buf[0], want[0], "ok vs fresh")
+            _equal(buf[1], want[1], "soft vs fresh")
+        else:
+            _equal(buf[0], prior[0].to(cuda), "ok untouched")
+            _equal(buf[1], prior[1].to(cuda), "soft untouched")
+    assert kernels.LAUNCHES["aff_live"] == 2
+    # The plain version's computing call counts too.
+    assert kernels.read_tally("aff_live") == 2
+    plain = affkernels.aff_live(rows, cand, terms, at)
+    _equal(plain[0], want[0], "ok without a gate")
+    _equal(plain[1], want[1], "soft without a gate")
+    assert bool(~want[0].all()) and bool((want[1] != 0).any())
+
+
 AFF_FILTER_CASES = [(64, 200, 12, "mixed"), (512, 48, 12, "mixed"),
                      (2048, 300, 12, "mixed"), (2048, 300, 12, "sparse"),
                      (2048, 300, 12, "dense"), (2048, 300, 12, "domainless"),
@@ -779,6 +832,121 @@ def test_walk_accept_global_scratch_equals_plain(cuda, K, W, N):
     scratch."""
     args, kw = _walk_case("ties", 16, cuda, W=W, K=K, N=N)
     _walk_both(args, kw)
+
+
+# ------------------------------------------------------ rank_candidates
+
+RANK_KINDS = ("mixed", "ties", "neg", "planes", "future")
+
+
+def _rank_case(kind, L, K, dev, N=None, M=12, UM=16, seed=0):
+    """rank_candidates' inputs: UM profile rows of ``shortlist_case``
+    profiles, M of them ranked (the first all-infeasible: static verdicts
+    all false), on [UM, L] ascending candidate lists or, with ``L`` None,
+    all N nodes.  ``kind``: "mixed"; "ties" (identical nodes, one class,
+    integer static scores: long runs of equal scores); "neg" (nine nodes
+    in ten without room); "planes" (a node bias, host ports, affinity
+    planes and custom-plugin planes, all with integer values); "future"
+    (releasing capacity with pipelined charges)."""
+    from test_torch_fixtures import shortlist_case
+
+    base = "mixed" if kind in ("planes", "future") else kind
+    N = N or max(2 * (L or 0), 4096)
+    c = shortlist_case(seed + L if L else seed, U=UM, N=N, kind=base)
+    rng = np.random.RandomState(seed + N)
+    C = c["cls_ready"].shape[0]
+    ok_w = rng.rand(UM, C) < 0.8
+    score_w = rng.randint(0, 3, (UM, C)).astype(np.float32)
+    rows = rng.permutation(UM)[:M].astype(np.int32)
+    ok_w[rows[0]] = False
+    cand = None
+    if L is not None:
+        cand = np.stack([np.sort(rng.choice(N, L, replace=False))
+                         for _ in range(UM)]).astype(np.int32)
+    Lr = N if L is None else L
+    gib = float(2 ** 30)
+
+    def t(a, dtype):
+        return torch.from_numpy(np.ascontiguousarray(a)).to(dtype).to(dev)
+
+    f32, i32, b8 = torch.float32, torch.int32, torch.bool
+    bw, lw, mw, balw, naff = c["weights"]
+    from volcano_tpu_torch.ops.scoring import ScoreWeights
+    w = ScoreWeights(binpack_weight=bw, binpack_res=t(c["binpack_res"], f32),
+                     least_req_weight=lw, most_req_weight=mw,
+                     balanced_weight=balw, node_affinity_weight=naff)
+    args = (t(rows, i32), None if cand is None else t(cand, i32),
+            t(ok_w, b8), t(score_w, f32), t(c["cls_id"], i32),
+            t(c["req"][:UM], f32), t(c["init_req"][:UM], f32),
+            t(c["idle"], f32), t(c["alloc"], f32), t(c["ntasks"], i32),
+            t(c["max_tasks"], i32), t(c["eps"], f32),
+            t(c["scalar_slot"], b8), w, K)
+    kw = {}
+    if kind == "planes":
+        kw["bias"] = t(rng.randint(-1, 2, N), f32)
+        pp = np.where(rng.rand(UM, 1) < 0.5, 1 << 3, 0)
+        kw["ports"] = kernels.Ports(
+            t(pp, i32), t(np.where(rng.rand(N, 1) < 0.2, 1 << 3, 0), i32),
+            t(np.where(rng.rand(N, 1) < 0.1, 1 << 3, 0), i32))
+        kw["aff"] = (t(rng.rand(M, Lr) < 0.9, b8),
+                     t(rng.choice([0.0, 5.0, -10.0], (M, Lr)), f32))
+        U_all = 2 * UM
+        kw["extra"] = kernels.Extra(t(rng.rand(U_all, N) < 0.8, b8),
+                                    t(rng.randint(-2, 3, (U_all, N)), f32))
+        kw["pids"] = t(rng.permutation(U_all)[:UM], i32)
+    elif kind == "future":
+        rel = np.stack([rng.randint(0, 16, N) * 1000.0,
+                        rng.randint(0, 64, N) * gib,
+                        rng.randint(0, 2, N).astype(np.float64)], 1)
+        pip = rel * (rng.rand(N, 1) < 0.3) * 0.5
+        pxe = np.where(rng.rand(N, 1) < 0.1, c["req"][0], 0.0)
+        kw["future"] = kernels.Future(t(rel, f32), t(pip, f32), t(pxe, f32),
+                                      t(rng.randint(0, 3, N), i32))
+    return args, kw
+
+
+def _rank_both(args, kw):
+    got = kernels.rank_candidates(*args, **kw)
+    want = kernels.rank_candidates(*args, **kw, plain=True)
+    for a, b, what in zip(got, want, ("ranked", "feas_k", "p_any")):
+        _equal(a, b, what)
+    return got
+
+
+RANK_SHAPES = [(300, 300), (500, 256), (2048, 256), (2049, 256),
+               (3073, 256), (5000, 1500), (None, 256)]
+
+
+@pytest.mark.parametrize("kind", RANK_KINDS)
+@pytest.mark.parametrize("L,K", RANK_SHAPES)
+def test_rank_candidates_equals_plain(cuda, kind, L, K):
+    """rank_candidates against its plain version: K = L (300); the
+    shortlist width (500); the one-block sort's limit (2,048) and one past
+    it (tiles and a merge); a last tile of one candidate (3,073); K over
+    the tile width (1,500 of 5,000: each tile keeps all of its keys); all N
+    nodes (10,016).  Row 0 is all-infeasible: p_any false, its K outputs
+    in position order."""
+    N = 10016 if L is None else None
+    args, kw = _rank_case(kind, L, K, cuda, N=N)
+    before = kernels.LAUNCHES["rank_candidates"]
+    ranked, feas_k, p_any = _rank_both(args, kw)
+    assert kernels.LAUNCHES["rank_candidates"] == before + 1
+    assert not bool(p_any[0]) and not bool(feas_k[0].any())
+    assert bool(p_any.any())
+    pos = ranked[0].long() if L is None else torch.searchsorted(
+        args[1][args[0][0].long()], ranked[0].contiguous()).long()
+    assert torch.equal(pos, torch.arange(K, device=cuda))
+
+
+@pytest.mark.parametrize("N", [100000, 120000])
+def test_rank_candidates_merge_past_shared_memory(cuda, N):
+    """All N nodes against the merge's shared memory (224 KB): at 100,000
+    nodes the 98 tiles' top keys (196 KB) fit it; at 120,000 the 118
+    tiles' (236 KB) do not, and the merge reads them from the global
+    scratch."""
+    for kind in ("mixed", "ties", "planes"):
+        args, kw = _rank_case(kind, None, 256, cuda, N=N, M=4)
+        _rank_both(args, kw)
 
 
 def _aff_store_case(name):

@@ -39,7 +39,9 @@ from typing import NamedTuple, Optional
 import torch
 
 from .kernels import (LAUNCHES, _capture, _check, _on_card, _ptr, _req,
-                      _stream, load)
+                      _stream, load, tally)
+
+AFF_TOTAL_CHUNK = 4096  # csrc/aff_live.cu kTotChunk
 
 
 class AffTerms(NamedTuple):
@@ -216,7 +218,8 @@ def _aff_live_plain(rows, cand, terms, at: AffTerms):
     return ~viol, soft
 
 
-def aff_live(rows, cand, terms, at: AffTerms, plain: bool = False):
+def aff_live(rows, cand, terms, at: AffTerms, plain: bool = False, *,
+             gate=None, out=None):
     """Required-affinity / anti-affinity verdicts and soft scores of the
     profile rows ``rows`` ([M] int32 into the tables' rows) at candidate
     nodes: ``cand`` None (all N nodes), [L] int32 (one node list shared
@@ -234,9 +237,28 @@ def aff_live(rows, cand, terms, at: AffTerms, plain: bool = False):
     score is sum_e t_soft[u, e] * cv[e] over the listed terms, left to
     right from +0.0 (integer products: exact below 2^24).
 
-    Returns ``(ok [M, L] bool, soft [M, L] f32)``."""
+    The attempt cache (wave.py:1368-1371): with ``gate`` (a [1] bool
+    tensor beside the counts) the planes are written into ``out`` (the
+    caller's [M, L] ``(ok, soft)`` buffers) only when the gate is set, and
+    ``out`` is left as it was when it is clear.  On the card the kernel
+    reads the gate itself (no host read); the plain version reads it on the
+    host.  Every computing call adds one to ``kernels.tally("aff_live")``
+    on the counts' device.
+
+    Returns ``(ok [M, L] bool, soft [M, L] f32)`` (``out`` when given)."""
+    if gate is not None and out is None:
+        raise ValueError("aff_live: a gate needs the out buffers")
+    dev = at.cnt_a.device
     if not _on_card(plain, rows, at.cnt_a, terms):
-        return _aff_live_plain(rows, cand, terms, at)
+        if gate is not None and not bool(gate[0]):
+            return out
+        tally("aff_live", dev).add_(1)
+        ok, soft = _aff_live_plain(rows, cand, terms, at)
+        if out is None:
+            return ok, soft
+        out[0].copy_(ok)
+        out[1].copy_(soft)
+        return out
     at = _check_terms(at, "aff_live")
     rows = _req(rows, torch.int32, "rows")
     terms = _req(terms, torch.int32, "terms")
@@ -255,19 +277,33 @@ def aff_live(rows, cand, terms, at: AffTerms, plain: bool = False):
     if (rows.dim() != 1 or terms.dim() != 2
             or terms.shape[0] not in (1, M) or terms.shape[1] < 1):
         raise ValueError("aff_live: inconsistent input shapes")
-    dev = at.cnt_a.device
-    ok = torch.empty((M, L), dtype=torch.bool, device=dev)
-    soft = torch.empty((M, L), dtype=torch.float32, device=dev)
+    if out is None:
+        ok = torch.empty((M, L), dtype=torch.bool, device=dev)
+        soft = torch.empty((M, L), dtype=torch.float32, device=dev)
+    else:
+        ok = _req(out[0], torch.bool, "aff_live out ok")
+        soft = _req(out[1], torch.float32, "aff_live out soft")
+        if ok.shape != (M, L) or soft.shape != (M, L):
+            raise ValueError(f"aff_live: out planes are not [{M}, {L}]")
+    if gate is not None and (_req(gate, torch.bool, "aff_live gate").shape
+                             != (1,)):
+        raise ValueError("aff_live: gate is not [1]")
     if M == 0 or L == 0:
         return ok, soft
-    _capture("aff_live", rows=rows, cand=cand, terms=terms, at=at)
-    totals = torch.empty(E, dtype=torch.int32, device=dev)
+    # The gate and the buffers' prior contents are captured too: a gated
+    # launch's replay compares "unchanged" against "unchanged".
+    _capture("aff_live", rows=rows, cand=cand, terms=terms, at=at,
+             gate=gate, out=None if out is None else (ok, soft))
+    # The totals' partial sums, one per (term row, AFF_TOTAL_CHUNK domains).
+    part = torch.empty(E * max(1, -(-D // AFF_TOTAL_CHUNK)),
+                       dtype=torch.int32, device=dev)
     rc = load().vtt_aff_live(
         _ptr(rows), M, _ptr(cand), mode, L, _ptr(terms),
         int(terms.shape[0] != 1), terms.shape[1], _ptr(at.node_dom), K,
         _ptr(at.term_key), _ptr(at.cnt_a), _ptr(at.cnt_p), E, D,
         _ptr(at.t_req_aff), _ptr(at.t_req_anti), _ptr(at.t_matches),
-        _ptr(at.t_soft), U, _ptr(totals), _ptr(ok), _ptr(soft), _stream())
+        _ptr(at.t_soft), _ptr(part), _ptr(gate),
+        _ptr(tally("aff_live", dev)), _ptr(ok), _ptr(soft), _stream())
     _check(rc, "aff_live")
     LAUNCHES["aff_live"] += 1
     return ok, soft

@@ -130,6 +130,9 @@ REPLACES = {
 
 MAX_R = 16  # csrc/common.cuh kMaxR
 MAX_SMEM = 232_448  # shared memory one block may use on Hopper
+RANK_SORT_MAX = 2048  # csrc/rank_candidates.cu kSortMax
+RANK_TILE = 1024  # csrc/rank_candidates.cu kTile
+RANK_MERGE_SMEM = 224 * 1024  # csrc/rank_candidates.cu kMergeSmem
 WALK_SMEM = 48 * 1024  # csrc/walk_accept.cu kWalkSmem
 ACCEPT_SMEM = 200 * 1024  # csrc/walk_accept.cu kAccSmem
 ACCEPT_KEY_BYTES = 9  # csrc/walk_accept.cu kKeyBytes
@@ -140,9 +143,32 @@ ACCEPT_KEY_BYTES = 9  # csrc/walk_accept.cu kKeyBytes
 CAPTURE: Optional[dict] = None
 
 
+# Counts a kernel keeps on the card itself, where the host cannot know
+# without a read: ``aff_live``'s computing calls (a gated call does no
+# work).  One int32 counter per (name, device), made at its first use after
+# a reset; the plain versions add to the same counters.
+TALLIES: dict = {}
+
+
 def reset_launches() -> None:
     for k in LAUNCHES:
         LAUNCHES[k] = 0
+    TALLIES.clear()
+
+
+def tally(name: str, dev) -> torch.Tensor:
+    """The [1] int32 counter ``name`` on device ``dev``."""
+    key = (name, str(dev))
+    t = TALLIES.get(key)
+    if t is None:
+        t = TALLIES[key] = torch.zeros(1, dtype=torch.int32, device=dev)
+    return t
+
+
+def read_tally(name: str) -> int:
+    """Counter ``name`` summed over devices (a host read: for reports and
+    tests, never inside a solve)."""
+    return sum(int(t[0]) for (n, _d), t in TALLIES.items() if n == name)
 
 
 def _capture(name: str, **inputs) -> None:
@@ -248,8 +274,8 @@ _SIGS = {
     "vtt_scatter_rows": [_P, _P, _P, _I, _L, _P],
     "vtt_rank_candidates": [_P, _I, _P, _I, _P, _P, _P, _I, _P, _P, _P, _I,
                             _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _F,
-                            _F, _F, _F, _I, _P, _P, _P, _P, _P, _P, _I, _P,
-                            _P, _P, _P, _P, _I, _P, _P, _P],
+                            _F, _F, _F, _I, _P, _P, _P, _P, _P, _P, _P, _I,
+                            _P, _P, _P, _P, _P, _I, _P, _P, _P],
     "vtt_walk_accept": [_P, _P, _I, _I, _P, _P, _I, _P, _P, _P, _P, _I, _P, _P,
                         _P, _P, _P, _P, _P, _I, _P, _P, _P, _P, _P, _P, _P, _P,
                         _P, _I, _P, _P, _P, _P],
@@ -267,7 +293,7 @@ _SIGS = {
     "vtt_scatter_profile_tables": [_P, _P, _P, _P, _I, _I, _I, _P, _P, _P,
                                    _P, _P],
     "vtt_aff_live": [_P, _I, _P, _I, _I, _P, _I, _I, _P, _I, _P, _P, _P, _I,
-                     _I, _P, _P, _P, _P, _I, _P, _P, _P, _P],
+                     _I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P],
     "vtt_aff_filter": [_P, _P, _P, _I, _P, _I, _P, _P, _P, _I, _I, _P, _P,
                        _P, _P, _P, _P, _P, _P, _P, _P],
     "vtt_seq_solve": [_I] * 13 + [_P] * 29 + [_F] * 5 + [_P] * 28,
@@ -989,6 +1015,9 @@ def rank_candidates(rows, cand, ok_w, score_w, cls_id, p_req, p_init_req,
                 torch.empty((0,), dtype=torch.bool, device=dev))
     if not 1 <= K <= L:
         raise ValueError(f"ranking depth {K} outside [1, {L}]")
+    if L > RANK_SORT_MAX and (8 << (K - 1).bit_length()) > RANK_MERGE_SMEM:
+        raise ValueError(f"ranking depth {K}: the merge's sort exceeds "
+                         f"shared memory")
     if R > MAX_R:
         raise ValueError(f"{R} resource slots exceed the kernels' {MAX_R}")
     f32, i32, u8 = torch.float32, torch.int32, torch.bool
@@ -1026,19 +1055,29 @@ def rank_candidates(rows, cand, ok_w, score_w, cls_id, p_req, p_init_req,
         ep = _extra_args(extra, U_all, N, "rank_candidates")
         if pids.shape != (UM,):
             raise ValueError("rank_candidates: pids is not [UM]")
-    # A biased launch, one with affinity planes and one with custom-plugin
-    # planes are captured apart (chip_smoke.py replays each).
+    # A biased launch, one with affinity planes, one with custom-plugin
+    # planes and one over all N nodes are captured apart (chip_smoke.py
+    # replays each).
     _capture("rank_candidates" + ("" if bias is None else ":bias")
              + ("" if aff is None else ":aff")
-             + ("" if extra is None else ":extra"),
+             + ("" if extra is None else ":extra")
+             + ("" if cand is not None else ":fallback"),
              weights=weights, K=K, future=future, ports=ports, aff=aff,
              extra=extra, pids=pids if extra is not None else None, **a)
     dev = idle.device
     ranked = torch.empty((M, K), dtype=i32, device=dev)
     feas_k = torch.empty((M, K), dtype=u8, device=dev)
     p_any = torch.empty((M,), dtype=u8, device=dev)
-    keys = torch.empty((M, L), dtype=torch.int64, device=dev)
-    feas_s = torch.empty((M, L), dtype=u8, device=dev)
+    # A row past RANK_SORT_MAX runs as tiles of RANK_TILE and a merge: the
+    # tiles' top keys, the feasibility by position and the tiles' flags.
+    scratch = (None, None, None)
+    if L > RANK_SORT_MAX:
+        T = -(-L // RANK_TILE)
+        scratch = (
+            torch.empty((M, T, min(K, RANK_TILE)), dtype=torch.int64,
+                        device=dev),
+            torch.empty((M, L), dtype=u8, device=dev),
+            torch.empty((M, T), dtype=u8, device=dev))
     rc = load().vtt_rank_candidates(
         _ptr(a["rows"]), M, _ptr(a["cand"]), L, _ptr(a["ok_w"]),
         _ptr(a["score_w"]), _ptr(a["bias"]), a["ok_w"].shape[1],
@@ -1046,7 +1085,7 @@ def rank_candidates(rows, cand, ok_w, score_w, cls_id, p_req, p_init_req,
         _ptr(a["p_req"]), _ptr(a["p_init_req"]), R, _ptr(a["idle"]), *fut,
         _ptr(a["alloc"]), _ptr(a["ntasks"]), _ptr(a["max_tasks"]),
         _ptr(a["eps"]), _ptr(a["scalar_slot"]), _ptr(bres),
-        *_weights(weights), K, _ptr(keys), _ptr(feas_s), _ptr(ranked),
+        *_weights(weights), K, *[_ptr(x) for x in scratch], _ptr(ranked),
         _ptr(feas_k), _ptr(p_any), *pp, *ap,
         _ptr(pids if extra is not None else None), EN, *ep, _stream(),
     )

@@ -19,7 +19,9 @@ This module runs the same computation:
    ``wave.py:2260, 2225, 2151`` as Python loops around the kernels
    ``rank_candidates``, ``walk_accept`` and ``apply_commit``, with
    ``aff_live`` (the affinity verdicts and soft scores on the wave's
-   count window) and ``aff_filter`` (the sub-round's live affinity
+   count window, kept across the wave's attempts and recomputed only
+   after a sub-round changed a count: JAX's attempt cache, gated by a
+   device byte) and ``aff_filter`` (the sub-round's live affinity
    recheck and pair conflicts) on waves that carry terms.  The loop
    conditions are read on the host, one sync per iteration;
 4. the gang discard (``apply_commit`` again) and the int16 narrowing of the
@@ -89,6 +91,10 @@ PROF_SPARSE_MIN = _env_int("VOLCANO_TPU_PROF_SPARSE_MIN", 1_000_000)
 # The JAX package's live affinity steering inside sub-rounds (off by
 # default there); the port does not run it.
 AFF_STEER = _env_int("VOLCANO_TPU_AFF_STEER", 0)
+# The attempt cache of the affinity planes (wave.py AFF_ACACHE): a live
+# wave's shortlist-width planes are recomputed only after a sub-round
+# changed a count.  Exact (the same values); 0 recomputes every attempt.
+AFF_ACACHE = _env_int("VOLCANO_TPU_AFF_ACACHE", 1)
 
 
 def _two_phase_on() -> bool:
@@ -731,6 +737,7 @@ def _solve_wave(nodes: SolveNodes, jobs: SolveJobs,
     fb_affinity = 0
     fb_rounds = 0
     syncs = 0
+    aff_attempts = 0
     if has_ports:
         # Used host ports per node (wave.py:947-948): committed and
         # pipelined tasks' ports, OR-ed in by apply_commit.
@@ -804,6 +811,17 @@ def _solve_wave(nodes: SolveNodes, jobs: SolveJobs,
                 # Self anti-affine profiles walk one copy per node
                 # (wave.py:1690-1696).
                 self_anti = (p_anti & p_match).any(dim=1)
+                # The attempt cache (wave.py:2186-2194): the planes live
+                # across the wave's attempts, (all-true, zeros) at first,
+                # and a device byte says whether a count changed since they
+                # were computed -- set for the first attempt.  The tasks
+                # that change a count when accepted: those matching a
+                # window term (wave.py:1567).
+                aff_c = (torch.ones((UM, S), dtype=torch.bool, device=dev),
+                         torch.zeros((UM, S), dtype=torch.float32,
+                                     device=dev))
+                aff_dirty = torch.ones(1, dtype=torch.bool, device=dev)
+                matches_any_t = p_match[pl].any(dim=1)
 
         alloc_l = st.alloc_cnt[jwin].clone()
         fitf_l = st.fit_failed[jwin].clone()
@@ -841,11 +859,16 @@ def _solve_wave(nodes: SolveNodes, jobs: SolveJobs,
             skip_t = skip_l[jw_l] & real_w
             cand = ~done & ~skip_t
 
-            # The affinity planes at shortlist width, on the live window
-            # (the JAX attempt cache recomputes them only after a count
-            # changed: the same values).
-            aff_sl = None if at_w is None else affkernels.aff_live(
-                all_rows, sl_w, all_terms, at_w, plain=plain)
+            # The affinity planes at shortlist width, on the live window,
+            # recomputed only while the dirty byte is set (wave.py:
+            # 1368-1371); without the cache every attempt recomputes.
+            aff_sl = None
+            if at_w is not None:
+                aff_sl = affkernels.aff_live(
+                    all_rows, sl_w, all_terms, at_w,
+                    gate=aff_dirty if AFF_ACACHE else None, out=aff_c,
+                    plain=plain)
+                aff_attempts += 1
             ranked, feas_k, p_any = kernels.rank_candidates(
                 all_rows, sl_w, ok_w, score_w, cls.class_id, p_req,
                 p_init_req, st.idle, nodes.allocatable, st.ntasks,
@@ -933,6 +956,12 @@ def _solve_wave(nodes: SolveNodes, jobs: SolveJobs,
                 go = bool(resolved.any()
                           & (cand & ~done_sub & ~aborted).any())
 
+            if at_w is not None and AFF_ACACHE:
+                # JAX's cnt_changed, OR-ed over this attempt's sub-rounds
+                # (wave.py:2115-2122): a task they accepted or pipelined
+                # matches a window term.  The next attempt's gate.
+                torch.any((done_sub & ~done) & matches_any_t, dim=0,
+                          keepdim=True, out=aff_dirty)
             fit_upd = torch.zeros(W, dtype=torch.bool, device=dev)
             fit_upd[jw_l[no_node & real_w]] = True
             fitf_l = fitf_l | fit_upd
@@ -980,6 +1009,7 @@ def _solve_wave(nodes: SolveNodes, jobs: SolveJobs,
         assigned = assigned.to(torch.int16)
         pipelined = pipelined.to(torch.int16)
     LAST_TWOPHASE["syncs"] = syncs
+    LAST_TWOPHASE["aff_attempts"] = aff_attempts
     return AllocResult(
         assigned=assigned,
         pipelined=pipelined,
@@ -1321,6 +1351,7 @@ def solve_wave(
     _sync(dev)
     t_fine = _time.perf_counter() - t0
     syncs = LAST_TWOPHASE.get("syncs", 0)
+    aff_attempts = LAST_TWOPHASE.get("aff_attempts", 0)
     LAST_TWOPHASE.clear()
     LAST_TWOPHASE.update({
         "enabled": True,
@@ -1332,6 +1363,9 @@ def solve_wave(
         "compacted_classes": not cls_identity,
         "waves": n_waves,
         "syncs": syncs,
+        # Attempts of live waves: the shortlist-width affinity calls
+        # (computing or, behind the attempt cache, gated).
+        "aff_attempts": aff_attempts,
         "host_reads": host_reads,
         # The solve ran the releasing-capacity (has_future) branch.
         "future": future0 is not None,
