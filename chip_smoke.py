@@ -108,7 +108,10 @@ of which raises (and the script exits non-zero) when a check fails:
    ``walk_accept``, ``apply_commit`` and ``warm_shortlist`` on affinity
    inputs, against their plain versions, timed as in 4 (``scatter_cnt0``
    beside ``index_put_``); ``aff_live`` again with its gate clear (a
-   cached attempt's launch: the buffers unchanged);
+   cached attempt's launch: the buffers unchanged); the cold cycle's
+   block-form ``coarse_shortlist`` launch (every profile row ranked per
+   node block and merged) as a kernels row of its own,
+   ``coarse_shortlist:cold``, with its shape (U, N, B, klb, S);
 20. object: BASELINE config 2 (bench.py ``config_2``: 1,000 nodes x 10,000
    pods, gangs of 4) under CONF_BASE with ``VOLCANO_TPU_FASTPATH=0``: three
    object-session cycles (open, the conf's actions, close; the pods of
@@ -163,7 +166,8 @@ def _smi() -> str:
 # The sources whose kernels' registers, shared memory and spills
 # (`nvcc -Xptxas -v`) the run prints.
 PTXAS_SOURCES = ("rank_candidates.cu", "aff_live.cu", "walk_accept.cu",
-                 "aff_filter.cu")
+                 "aff_filter.cu", "coarse_shortlist.cu",
+                 "warm_shortlist.cu", "apply_commit.cu")
 
 
 def ptxas_report(sources=PTXAS_SOURCES) -> dict:
@@ -512,17 +516,14 @@ def _kernel_fn(name, c, plain):
         return filt
     if name == "apply_commit":
         dev = c["idle"].device
-
-        def zeros_like(*planes):
-            return tuple(torch.zeros(c[k].shape, dtype=torch.float64,
-                                     device=dev) for k in planes)
-
-        scratch = zeros_like("idle", "q_alloc")
+        N, R = c["idle"].shape
+        Q = c["q_alloc"].shape[0]
+        scratch = kernels.commit_scratch(N, R, Q, dev)
         pip = None
         if "pipe" in c:
             pip = {k: c[k] for k in ("pip_extra", "pip_ntasks", "q_pip",
                                      "pipelined")}
-            pip["scratch"] = zeros_like("pip_extra", "q_pip")
+            pip["scratch"] = kernels.commit_scratch(N, R, Q, dev)
 
         def call():
             kernels.apply_commit(
@@ -532,7 +533,8 @@ def _kernel_fn(name, c, plain):
                 ntasks=c.get("ntasks"), alloc_l=c.get("alloc_l"),
                 assigned=c["assigned"], scratch=scratch,
                 pipe=c.get("pipe"), pip=pip, ports=c.get("ports"),
-                counts=c.get("counts"), plain=plain)
+                counts=c.get("counts"), match_terms=c.get("match_terms"),
+                plain=plain)
             extra = _tensors(
                 *[x for x in (c.get("ports"), c.get("counts")) if x])
             return tuple(c[k] for k in (
@@ -795,12 +797,19 @@ def _work(name, cap, outs):
             # Each touched task's port words read, its node's written.
             nbytes += touched * cap["ports"].prof.shape[1] * 4 * 3
         if cap.get("counts") is not None:
-            # Its profile's match row and domain row read, one count cell
-            # read and written per match.
+            # Each touched task's domain row read; per term its profile
+            # matches, the term id read and one count cell read and
+            # written.
             cw = cap["counts"]
-            E = cw.cnt_a.shape[0]
-            nbytes += touched * (E + cw.node_dom.shape[1] * 4 + E * 8)
-            ops += touched * E
+            rows = cap["row_idx"].long()
+            sel = cap["mask"].clone()
+            if "pipe" in cap:
+                sel |= cap["pipe"]
+            matches = int(cw.t_matches[rows[sel]].sum()) + (
+                int(cw.t_matches[rows[cap["mask"] & cap["pipe"]]].sum())
+                if "pipe" in cap else 0)
+            nbytes += touched * cw.node_dom.shape[1] * 4 + matches * 12
+            ops += matches
     return nbytes, ops
 
 
@@ -919,7 +928,7 @@ KERNEL_FUNCS = {
                          "block_rank_kernel<true>", "merge_kernel<true>"),
     "rank_candidates": ("rank_tile_kernel", "rank_merge_kernel"),
     "walk_accept": ("walk_choice_kernel", "walk_accept_kernel"),
-    "apply_commit": ("accumulate_kernel", "write_kernel"),
+    "apply_commit": ("commit_kernel",),
     "static_planes": ("class_static_kernel<1>",),
     "warm_shortlist": ("block_rank_kernel<false>", "merge_kernel<false>"),
     "scatter_rows": ("scatter_rows_kernel",),
@@ -2004,10 +2013,13 @@ def run_aff_cycles(label, store, steady=5, trace=False, device=None,
     runs on a store without steady cycles.  After every cycle:
     ``aff_invariants``, with ``all_bound`` also ``cycle_invariants``
     (every pod bound, every PodGroup Running), and zero host reads per
-    solve.  Returns (stats, per-cycle records)."""
+    solve.  Each cycle's record holds the launches it counted and the
+    captures it added (``kernels.CAPTURE``, when set).  Returns (stats,
+    per-cycle records)."""
     import numpy as np
     import torch
 
+    from volcano_tpu_torch.ops import kernels
     from volcano_tpu_torch.ops import wave as wave_mod
     from volcano_tpu_torch.scheduler import Scheduler
     from volcano_tpu_torch.sim import ClusterSimulator
@@ -2042,6 +2054,8 @@ def run_aff_cycles(label, store, steady=5, trace=False, device=None,
 
     def cycle(kind):
         solves.clear()
+        launched = dict(kernels.LAUNCHES)
+        captured = set(kernels.CAPTURE or ())
         wave_mod.solve_wave = counted_solve
         try:
             t0 = time.perf_counter()
@@ -2055,7 +2069,12 @@ def run_aff_cycles(label, store, steady=5, trace=False, device=None,
         if all_bound:
             inv.update(cycle_invariants(store, n_pods))
         rec = {"kind": kind, "wall_s": wall, "lanes_ms": _lanes(store),
-               "solves": [dict(x) for x in solves], **inv}
+               "solves": [dict(x) for x in solves],
+               "launches": {k: v - launched[k]
+                            for k, v in kernels.LAUNCHES.items()
+                            if v != launched[k]},
+               "captured": sorted(set(kernels.CAPTURE or ()) - captured),
+               **inv}
         stats["cycles"].append(rec)
         _log(f"[{label}] {kind} cycle {wall:.4f} s "
              f"{json.dumps({k: v for k, v in rec.items() if k != 'kind'})}")
@@ -2336,7 +2355,39 @@ def affinity_phases(big=(10000, 100000), mid=(1000, 10000),
     _log(f"[kernels:affinity] aff_live gated: {json.dumps(live['gated'])}")
     ext = list(zip(AFF_REPLAY[4:], _replay_rows(caps, total, "affinity",
                                                 AFF_REPLAY[4:])))
+    rows.append(cold_block_row(caps, astats))
     return rows, ext, astats
+
+
+def cold_block_row(caps: dict, astats: dict) -> dict:
+    """The config-5 cold cycle's block-form ``coarse_shortlist`` launch
+    (the ``[affinity]`` phase's cold cycle: every profile row of the cold
+    solve ranked per node block and merged) against its plain version,
+    timed as in ``replay_kernels``: a kernels row of its own,
+    ``coarse_shortlist:cold``, with its shape.  Its launches are those
+    the cold cycle counted; the cycle must launch the wrapper once, in
+    the block form, and capture that launch."""
+    c0 = astats["cycles"][0]
+    n = c0["launches"].get("coarse_shortlist", 0)
+    keys = [k for k in c0["captured"] if k.startswith("coarse_shortlist")]
+    if n != 1 or len(keys) != 1 or not caps[keys[0]]["n_blocks"]:
+        raise AssertionError(
+            f"[affinity] the cold cycle launched coarse_shortlist {n} "
+            f"times and captured {keys}: not one block-form launch")
+    cap = caps[keys[0]]
+    U = int(cap["req"].shape[0])
+    N = int(cap["idle"].shape[0])
+    B = int(cap["n_blocks"])
+    shape = {"U": U, "N": N, "B": B, "klb": min(int(cap["S"]), N // B),
+             "S": int(cap["S"])}
+    row = _replay_rows({"coarse_shortlist:cold": cap},
+                       {"coarse_shortlist": n}, "affinity",
+                       ["coarse_shortlist:cold"])[0]
+    row["name"] = "coarse_shortlist:cold"
+    row["shape"] = shape
+    _log(f"[kernels:affinity] coarse_shortlist:cold shape "
+         f"{json.dumps(shape)}")
+    return row
 
 
 # ------------------------------------------------- the object session

@@ -166,18 +166,37 @@ def test_solve_wrappers_with_ports_and_counts_match(fake_card):
     kernels.apply_commit(
         _z(W), _z(W, dtype=B8), p_req, _z(W), _z(W), nodes["idle"],
         _z(2, R, dtype=F32), mode=0, idle_sign=-1.0,
-        scratch=(_z(N, R, dtype=f64), _z(2, R, dtype=f64)), jw=_z(W),
+        scratch=kernels.commit_scratch(N, R, 2, "cpu"), jw=_z(W),
         ntasks=nodes["ntasks"], alloc_l=_z(W), assigned=_z(W),
         pipe=_z(W, dtype=B8),
         pip={"pip_extra": _z(N, R, dtype=F32), "pip_ntasks": _z(N),
              "q_pip": _z(2, R, dtype=F32), "pipelined": _z(W),
              "scratch": (_z(N, R, dtype=f64), _z(2, R, dtype=f64))},
-        ports=pw, counts=counts)
+        ports=pw, counts=counts,
+        match_terms=kernels.window_match_terms(counts.t_matches))
     assert fake_card.calls == [
         "vtt_coarse_shortlist", "vtt_block_shortlist_smem",
         "vtt_block_shortlist", "vtt_block_shortlist_smem",
         "vtt_block_shortlist", "vtt_rank_candidates", "vtt_walk_accept",
         "vtt_apply_commit"]
+
+
+def test_apply_commit_counts_need_match_terms(fake_card):
+    """On the card, apply_commit with window counts takes the per-wave
+    term lists (``window_match_terms``) from its caller and raises
+    without them, before any launch."""
+    N, R, UM, W = 32, 3, 4, 16
+    counts = _terms(UM, 5, 6, N, 2)
+    f64 = torch.float64
+    with pytest.raises(ValueError, match="match_terms"):
+        kernels.apply_commit(
+            _z(W), _z(W, dtype=B8), _z(UM, R, dtype=F32), _z(W), _z(W),
+            _z(N, R, dtype=F32), _z(2, R, dtype=F32), mode=0,
+            idle_sign=-1.0, scratch=(_z(N, R, dtype=f64),
+                                     _z(2, R, dtype=f64)),
+            jw=_z(W), ntasks=_z(N), alloc_l=_z(W), assigned=_z(W),
+            counts=counts)
+    assert fake_card.calls == []
 
 
 def test_seq_solve_and_extra_planes_match_their_entries(fake_card):
@@ -238,6 +257,36 @@ def test_walk_accept_scratch_past_shared_memory(fake_card, K, W, cumcap,
     assert (args[22] is not None) == cumcap
     assert (args[23] is not None) == sort
     assert args[24] is not None and args[25] is not None
+
+
+@pytest.mark.parametrize("N,B,S,scratch", [(1024, 0, 100, False),
+                                            (57344, 0, 100, False),
+                                            (57345, 0, 100, True),
+                                            (16384, 16, 819, False),
+                                            (65536, 16, 4096, True)])
+def test_shortlist_scratch_past_shared_memory(fake_card, N, B, S, scratch):
+    """coarse_shortlist keeps a row's 4-byte ordered scores in shared
+    memory up to kernels.COARSE_SMEM (57,344 nodes) and passes a null
+    scratch; past it an int32 [U, N] one.  The block form's merge keeps
+    its B * klb scores beside the S winners' keys up to
+    kernels.BLOCK_MERGE_SMEM, else it passes an int32 [U, B * klb]
+    scratch."""
+    U = 4
+    prof, cls, nodes, weights, eps, slot = shortlist_tensors(
+        shortlist_case(0, U=U, N=N), "cpu")
+    C = cls.ready.shape[0]
+    stat = (_z(U, C, dtype=B8), _z(U, C, dtype=F32)) if B else None
+    kernels.coarse_shortlist(prof, cls, nodes["idle"], nodes["alloc"],
+                             nodes["ntasks"], nodes["max_tasks"], eps, slot,
+                             weights, S, True, stat=stat, n_blocks=B)
+    entry = "vtt_block_shortlist" if B else "vtt_coarse_shortlist"
+    assert fake_card.calls[-1] == entry
+    args = fake_card.args[-1]
+    # (..., keys_scratch, out, ports, ...): the block form's scratch is its
+    # ninth argument from the end, the full row's its tenth.
+    keys = args[-9] if B else args[-10]
+    assert (keys is not None) == scratch
+    assert args[-8 if B else -9] is not None
 
 
 @pytest.mark.parametrize("L,tiles", [(2048, 0), (2049, 3), (10016, 10)])

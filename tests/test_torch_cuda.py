@@ -1173,3 +1173,221 @@ def test_card_solve_with_extra_planes_equals_plain_and_cpu(cuda):
     _same(k, p)
     _same(k, c)
     assert launched["coarse_shortlist"] and launched["rank_candidates"]
+
+
+# ------------------------------------- shortlist selection, apply_commit
+
+def _shortlist_inputs(kind, U, N, dev, seed=5):
+    """``shortlist_case`` on ``dev`` with ``kind`` "allneg" too (no node
+    has room: every score NEG, the selection by node id alone)."""
+    from test_torch_fixtures import shortlist_case, shortlist_tensors
+
+    case = shortlist_case(seed, U=U, N=N,
+                          kind="mixed" if kind == "allneg" else kind)
+    if kind == "allneg":
+        case["idle"][:] = 0.0
+    prof, cls, nd, w, eps, slot = shortlist_tensors(case, dev)
+    args = (nd["idle"], nd["alloc"], nd["ntasks"], nd["max_tasks"], eps,
+            slot, w)
+    return prof, cls, args
+
+
+@pytest.mark.parametrize("kind", ["mixed", "ties", "allneg"])
+@pytest.mark.parametrize("S", ["one", "mid", "all"])
+@pytest.mark.parametrize("N", [10016, 60000])
+def test_coarse_shortlist_full_row_equals_plain(cuda, N, S, kind):
+    """The full-row coarse_shortlist (no blocks) against its plain version:
+    a row's keys in shared memory (10,016 nodes) and past it (60,000
+    nodes, over kernels.COARSE_SMEM: the global scratch); S = 1, a middle
+    S and S = N; tie-heavy and all-NEG rows, where the select runs into
+    the node-id bytes."""
+    U = 8
+    assert (4 * N > kernels.COARSE_SMEM) == (N == 60000)
+    prof, cls, args = _shortlist_inputs(kind, U, N, cuda)
+    k = {"one": 1, "mid": 837, "all": N}[S]
+    kernels.reset_launches()
+    got = kernels.coarse_shortlist(prof, cls, *args, k, True)
+    want = kernels.coarse_shortlist(prof, cls, *args, k, True, plain=True)
+    for a, b, what in zip(got, want, ("sl", "ok", "sc")):
+        _equal(a, b, what)
+    assert kernels.LAUNCHES["coarse_shortlist"] == 1
+    if S == "all":
+        full = torch.arange(N, dtype=torch.int32, device=cuda)
+        assert torch.equal(got[0], full.expand(U, N))
+
+
+@pytest.mark.parametrize("kind", ["mixed", "ties", "neg", "allneg"])
+def test_block_shortlist_config5_rows_equal_plain(cuda, kind):
+    """The block form at a config-5-like width (2,050 profile rows -- the
+    last group of the ranking's four rows a block holds two -- 16,384
+    nodes in B = 16 blocks, S = 819: the cold cycle's launch) and a warm
+    pass with one dirty block, each against its plain version; the warm
+    pass equals a full re-rank.  "ties" and "allneg" give blocks whose
+    keys share one score (no sort)."""
+    U, N, B, S = 2050, 16384, 16, 819
+    prof, cls, args = _shortlist_inputs(kind, U, N, cuda, seed=9)
+    stat = kernels.static_planes(prof, cls, 1.0, True)
+    kernels.reset_launches()
+    cold = kernels.coarse_shortlist(prof, cls, *args, S, True, stat=stat,
+                                    n_blocks=B)
+    cold_p = kernels.coarse_shortlist(prof, cls, *args, S, True, stat=stat,
+                                      n_blocks=B, plain=True)
+    for a, b, what in zip(cold, cold_p, ("sl", "ok", "sc", "cs", "ci")):
+        _equal(a, b, what)
+    nlb = N // B
+    idle2 = args[0].clone()
+    idle2[5 * nlb:5 * nlb + nlb // 3] *= 0.25
+    args2 = (idle2,) + args[1:]
+    db = torch.tensor([5], dtype=torch.int32, device=cuda)
+    warm = kernels.warm_shortlist(prof, cls.class_id, *stat, *args2[:6],
+                                  args[6], db, cold[3], cold[4], S)
+    warm_p = kernels.warm_shortlist(prof, cls.class_id, *stat, *args2[:6],
+                                    args[6], db, cold[3], cold[4], S,
+                                    plain=True)
+    for a, b, what in zip(warm, warm_p, ("sl", "cs", "ci")):
+        _equal(a, b, what)
+    full = kernels.coarse_shortlist(prof, cls, *args2, S, True, stat=stat,
+                                    n_blocks=B, plain=True)
+    for a, b, what in zip(warm, (full[0], full[3], full[4]),
+                          ("sl", "cs", "ci")):
+        _equal(a, b, f"warm != full re-rank: {what}")
+    assert kernels.LAUNCHES["coarse_shortlist"] == 1
+    assert kernels.LAUNCHES["warm_shortlist"] == 1
+
+
+COMMIT_KINDS = ("mixed", "hot", "zone", "pipe", "discard", "empty",
+                "many_queues", "blocks")
+
+
+def _commit_case(kind, dev, N=4096, R=3, UM=16, T=2048, W=64, E=24, D=40,
+                 seed=0):
+    """apply_commit's inputs: T tasks of UM profile rows with integer
+    requests (milli-CPU, bytes, devices) on N nodes and Q queues.
+    ``kind``: "mixed" (random nodes, queues, jobs, 70% committed);
+    "hot" (every task on node 7 and queue 0); "zone" (window counts with
+    every node in one zone domain and every task on node 3, host ports);
+    "pipe" (pipelined tasks beside the commits, with ports and counts on
+    both planes); "discard" (mode 1: 40% of 20,000 tasks given back);
+    "empty" (T = 0); "many_queues" (1,000 queues: 3,000 queue slots to
+    write back); "blocks" (12,000 tasks on 50 nodes, pipelined ones, ports
+    and counts too: dozens of blocks adding to and claiming the same
+    rows)."""
+    from volcano_tpu_torch.ops.affkernels import AffTerms
+
+    rng = np.random.RandomState(seed + COMMIT_KINDS.index(kind))
+    T = {"empty": 0, "discard": 20000, "blocks": 12000}.get(kind, T)
+    Q = 1000 if kind == "many_queues" else 4
+    gib = float(2 ** 30)
+    rows = np.stack([rng.randint(1, 9, UM) * 250.0,
+                     rng.randint(1, 17, UM) * gib / 4,
+                     rng.randint(0, 2, UM).astype(np.float64)], 1)
+    node = rng.randint(0, N, T)
+    qidx = rng.randint(0, Q, T)
+    if kind == "hot":
+        node[:] = 7
+        qidx[:] = 0
+    if kind == "zone":
+        node[:] = 3
+    if kind == "blocks":
+        node = rng.randint(0, 50, T)
+    mask = rng.rand(T) < (0.4 if kind == "discard" else 0.7)
+    idle = np.stack([rng.randint(0, 65, N) * 1000.0,
+                     rng.randint(0, 257, N) * gib,
+                     rng.randint(0, 3, N).astype(np.float64)], 1)
+
+    def t(a, dtype):
+        return torch.from_numpy(np.ascontiguousarray(a)).to(dtype).to(dev)
+
+    f32, i32, b8 = torch.float32, torch.int32, torch.bool
+    args = (t(node, i32), t(mask, b8), t(rows, f32),
+            t(rng.randint(0, UM, T), i32), t(qidx, i32), t(idle, f32),
+            t(rng.randint(0, 50, (Q, R)) * 1000.0, f32))
+    kw = {"mode": 0, "idle_sign": -1.0,
+          "assigned": t(np.full(T, -1), i32)}
+    if kind == "discard":
+        kw.update(mode=1, idle_sign=1.0, assigned=t(
+            np.where(mask, node, -1), i32))
+        return args, kw
+    kw.update(jw=t(rng.randint(0, W, T), i32),
+              ntasks=t(rng.randint(0, 8, N), i32),
+              alloc_l=t(rng.randint(0, 4, W), i32))
+    if kind in ("zone", "pipe", "blocks"):
+        PW = 2
+        pp = rng.randint(0, 1 << 16, (UM, PW))
+        kw["ports"] = kernels.Ports(t(pp, i32), t(np.zeros((N, PW)), i32),
+                                    t(np.zeros((N, PW)), i32))
+        dom = rng.randint(-1, D, (N, 2))
+        if kind == "zone":
+            dom[:, 0] = 0
+        z = np.zeros((UM, E), bool)
+        kw["counts"] = AffTerms(
+            t(dom, i32), t(rng.randint(0, 2, E), i32),
+            t(rng.randint(0, 3, (E, D)), i32),
+            t(rng.randint(0, 3, (E, D)), i32), t(z, b8), t(z, b8),
+            t(rng.rand(UM, E) < 0.4, b8), t(z, f32))
+        kw["match_terms"] = kernels.window_match_terms(kw["counts"].t_matches)
+    if kind in ("pipe", "blocks"):
+        kw["pipe"] = t(~mask & (rng.rand(T) < 0.5), b8)
+        kw["pip"] = {"pip_extra": t(np.zeros((N, R)), f32),
+                     "pip_ntasks": t(np.zeros(N), i32),
+                     "q_pip": t(np.zeros((Q, R)), f32),
+                     "pipelined": t(np.full(T, -1), i32)}
+    return args, kw
+
+
+def _commit_state(args, kw):
+    """The tensors apply_commit updates, for comparing the two runs."""
+    out = list(args[5:7])
+    for k in ("ntasks", "alloc_l", "assigned"):
+        if kw.get(k) is not None:
+            out.append(kw[k])
+    if kw.get("pip") is not None:
+        out.extend(v for k, v in kw["pip"].items() if k != "scratch")
+    if kw.get("ports") is not None:
+        out.extend(x for x in kw["ports"] if x is not None)
+    if kw.get("counts") is not None:
+        out.extend(x for x in kw["counts"][2:4] if x is not None)
+    return out
+
+
+def _clone_commit(args, kw):
+    def c(v):
+        if isinstance(v, torch.Tensor):
+            return v.clone()
+        if isinstance(v, dict):
+            return {k: c(x) for k, x in v.items()}
+        if isinstance(v, tuple) and hasattr(v, "_fields"):
+            return type(v)(*[c(x) for x in v])
+        return v
+    return tuple(c(a) for a in args), {k: c(v) for k, v in kw.items()}
+
+
+@pytest.mark.parametrize("kind", COMMIT_KINDS)
+def test_apply_commit_equals_plain(cuda, kind):
+    """apply_commit (one launch) against its plain version on one state,
+    called twice in a row: every plane equal after each call, and the
+    float64 accumulators zeroed again."""
+    args, kw = _commit_case(kind, cuda)
+    N, R = args[5].shape
+    Q = args[6].shape[0]
+    k_args, k_kw = _clone_commit(args, kw)
+    p_args, p_kw = _clone_commit(args, kw)
+    scratch = kernels.commit_scratch(N, R, Q, cuda)
+    p_scratch = kernels.commit_scratch(N, R, Q, cuda)
+    for a in (k_kw, p_kw):
+        if a.get("pip") is not None:
+            a["pip"]["scratch"] = kernels.commit_scratch(N, R, Q, cuda)
+    kernels.reset_launches()
+    for call in range(2):
+        kernels.apply_commit(*k_args, scratch=scratch, **k_kw)
+        kernels.apply_commit(*p_args, scratch=p_scratch, plain=True, **p_kw)
+        for i, (a, b) in enumerate(zip(_commit_state(k_args, k_kw),
+                                       _commit_state(p_args, p_kw))):
+            _equal(a, b, f"call {call}: state {i}")
+        left = list(scratch)
+        if k_kw.get("pip") is not None:
+            left += list(k_kw["pip"]["scratch"])
+        assert all(not bool(x.any()) for x in left), f"call {call}: scratch"
+    assert kernels.LAUNCHES["apply_commit"] == 2
+    if kind != "empty":
+        assert not torch.equal(k_args[5], args[5])

@@ -14,10 +14,14 @@
 // words, exact by construction.
 //
 // Main pass (`shortlist_kernel`): one block per profile row scores all N
-// nodes into 64-bit keys (score descending, node id ascending: the
-// jax.lax.top_k tie-break), radix-selects the S-th key, and writes the
-// selected ids in ascending id order with a block prefix sum over the
-// selection mask, so the sorted output the solve needs comes for free.
+// nodes and keeps each score's 32 ordered bits (common.cuh score_ord) in
+// shared memory -- up to kRowSmem, 57,344 nodes; past that in a global
+// scratch row.  Joined with the node id they are unique 64-bit keys
+// (score descending, node id ascending: the jax.lax.top_k tie-break).
+// common.cuh's block_radix_select finds the S-th key (run-length
+// histograms, a parallel scan of the 256 bins, an early stop), and
+// block_compact_asc writes the selected ids in ascending id order (one
+// block barrier), so the sorted output the solve needs comes for free.
 // With releasing capacity (`rel`/`pip` given: the JAX has_future branch)
 // the fit test reads the solve-start FutureIdle fi0 = (idle + releasing) -
 // pipelined (wave.py:608-609); the score keeps the live idle.  With host
@@ -31,14 +35,52 @@
 //
 // Bound: at 10k nodes x 64 profile rows the pass reads under a megabyte
 // (node planes once per block from L2) and does ~40 float operations per
-// (profile, node) pair: microseconds on an H100.  The 8 radix passes over
-// each block's keys dominate; keys live in a global scratch row per block
-// that stays in L2.
+// (profile, node) pair: microseconds on an H100.  The radix passes over
+// each row's keys dominate; shared memory holds the keys, and a pass ends
+// the select as soon as the S-th key's bucket is taken whole.
 #include "common.cuh"
 
 using vtt::Weights;
 
 namespace {
+
+constexpr int kThreads = 512;
+// A row's 4-byte ordered scores stay in shared memory up to this size
+// (57,344 nodes); past it they go to the global scratch the wrapper
+// passes (ops/kernels.py COARSE_SMEM mirrors it).
+constexpr int kRowSmem = 224 * 1024;
+
+// Calls emit(slot, i) for every i < L with pred(i), slots 0, 1, ... in
+// ascending i, using the whole block (blockDim.x a multiple of 32, at
+// most 1,024).  Warp w scans the w-th contiguous segment of [0, L) twice
+// -- counting, then writing at its offset -- so the block synchronises
+// once.  `warp_cnt` is 32 ints of shared memory.
+template <typename Pred, typename Emit>
+__device__ void block_compact_asc(int L, Pred pred, Emit emit,
+                                  int* warp_cnt) {
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const int nwarps = blockDim.x >> 5;
+  const int seg = ((L + nwarps - 1) / nwarps + 31) & ~31;
+  const int lo = warp * seg;
+  const int hi = min(L, lo + seg);
+  int cnt = 0;
+  for (int base = lo; base < hi; base += 32) {
+    const int i = base + lane;
+    cnt += __popc(__ballot_sync(vtt::kFullMask, i < hi && pred(i)));
+  }
+  if (lane == 0) warp_cnt[warp] = cnt;
+  __syncthreads();
+  int slot = 0;
+  for (int w = 0; w < warp; ++w) slot += warp_cnt[w];
+  for (int base = lo; base < hi; base += 32) {
+    const int i = base + lane;
+    const bool sel = i < hi && pred(i);
+    const unsigned b = __ballot_sync(vtt::kFullMask, sel);
+    if (sel) emit(slot + __popc(b & ((1u << lane) - 1u)), i);
+    slot += __popc(b);
+  }
+}
 
 // kTag only separates the two callers' launches in a profiler trace
 // (0: inside coarse_shortlist, 1: the static_planes entry).
@@ -67,24 +109,23 @@ __global__ void __launch_bounds__(256) class_static_kernel(
   stat_score[idx] = naff * s.pref;
 }
 
-__global__ void __launch_bounds__(1024) shortlist_kernel(
+__global__ void __launch_bounds__(kThreads, 2) shortlist_kernel(
     const float* req, const float* init_req, int R, const uint8_t* stat_ok,
     const float* stat_score, const int32_t* cls_id, int C,
     const float* idle, const float* rel, const float* pip,
     const float* alloc, const int32_t* ntasks, const int32_t* max_tasks,
     int N, const float* eps, const uint8_t* scalar_slot, const float* bres,
-    Weights w, int S, uint64_t* keys_scratch, int32_t* out,
+    Weights w, int S, uint32_t* ord_scratch, int in_smem, int32_t* out,
     const uint32_t* ports, int PW, const uint32_t* nports,
     const uint8_t* aff_ok, const float* aff_soft, const uint8_t* e_ok,
     const float* e_score) {
-  __shared__ int hist[256];
-  __shared__ int bcast[2];
-  __shared__ int warp_sums[32];
-  __shared__ int base_s;
+  extern __shared__ uint32_t s_ord[];  // [N] when in_smem
+  __shared__ vtt::RadixSmem rs;
+  __shared__ int warp_cnt[32];
   const int u = blockIdx.x;
   const float* rq = req + static_cast<int64_t>(u) * R;
   const float* irq = init_req + static_cast<int64_t>(u) * R;
-  uint64_t* keys = keys_scratch + static_cast<int64_t>(u) * N;
+  uint32_t* ord = in_smem ? s_ord : ord_scratch + static_cast<int64_t>(u) * N;
   for (int n = threadIdx.x; n < N; n += blockDim.x) {
     const int c = cls_id[n];
     const float* id = idle + static_cast<int64_t>(n) * R;
@@ -99,39 +140,26 @@ __global__ void __launch_bounds__(1024) shortlist_kernel(
         !(ports && vtt::ports_clash(ports + static_cast<int64_t>(u) * PW,
                                     nports, nullptr, n, PW)) &&
         !(aff_ok && !aff_ok[ai]) && !(e_ok && !e_ok[ai]);
-    float stat = stat_score[static_cast<int64_t>(u) * C + c];
-    if (e_score) stat = stat + e_score[ai];
-    float score = vtt::node_score(rq, al, id, bres, R, w) + stat;
-    if (aff_soft) score = score + aff_soft[ai];
-    keys[n] = vtt::make_key(feas ? score : vtt::kNeg, static_cast<uint32_t>(n));
-  }
-  __syncthreads();
-  const uint64_t kth = vtt::block_select_kth(keys, N, S, hist, bcast);
-  // Ascending-id compaction of the S selected keys.
-  if (threadIdx.x == 0) base_s = 0;
-  __syncthreads();
-  const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
-  const int nwarps = (blockDim.x + 31) >> 5;
-  int32_t* row = out + static_cast<int64_t>(u) * S;
-  for (int start = 0; start < N; start += blockDim.x) {
-    const int n = start + threadIdx.x;
-    const bool sel = n < N && keys[n] >= kth;
-    const unsigned ballot = __ballot_sync(0xFFFFFFFFu, sel);
-    if (lane == 0) warp_sums[warp] = __popc(ballot);
-    __syncthreads();
-    int before = 0;
-    int total = 0;
-    for (int i = 0; i < nwarps; ++i) {
-      if (i < warp) before += warp_sums[i];
-      total += warp_sums[i];
+    // An infeasible node's key is NEG whatever it scores: no score.
+    float score = vtt::kNeg;
+    if (feas) {
+      float stat = stat_score[static_cast<int64_t>(u) * C + c];
+      if (e_score) stat = stat + e_score[ai];
+      score = vtt::node_score(rq, al, id, bres, R, w) + stat;
+      if (aff_soft) score = score + aff_soft[ai];
     }
-    const int pos = base_s + before + __popc(ballot & ((1u << lane) - 1u));
-    if (sel) row[pos] = n;
-    __syncthreads();
-    if (threadIdx.x == 0) base_s += total;
-    __syncthreads();
+    ord[n] = vtt::score_ord(score);
   }
+  __syncthreads();
+  auto key_at = [ord](int n) {
+    return vtt::pos_key(ord[n], static_cast<uint32_t>(n));
+  };
+  const uint64_t kth = vtt::block_radix_select(key_at, N, S, N, rs);
+  // The S selected node ids, ascending.
+  int32_t* row = out + static_cast<int64_t>(u) * S;
+  block_compact_asc(
+      N, [&](int n) { return key_at(n) >= kth; },
+      [row](int slot, int n) { row[slot] = n; }, warp_cnt);
 }
 
 }  // namespace
@@ -170,7 +198,19 @@ extern "C" int vtt_coarse_shortlist(
     if (err != cudaSuccess) return static_cast<int>(err);
   }
   Weights w{bw, lw, mw, balw};
-  shortlist_kernel<<<U, 1024, 0, st>>>(
+  const size_t row_bytes = static_cast<size_t>(N) * sizeof(uint32_t);
+  const int in_smem = row_bytes <= static_cast<size_t>(kRowSmem);
+  if (!in_smem && !keys_scratch) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const size_t smem = in_smem ? row_bytes : 0;
+  if (smem > 48 * 1024) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        shortlist_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        static_cast<int>(smem));
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
+  shortlist_kernel<<<U, kThreads, smem, st>>>(
       static_cast<const float*>(req), static_cast<const float*>(init_req), R,
       static_cast<const uint8_t*>(stat_ok),
       static_cast<const float*>(stat_score),
@@ -182,7 +222,8 @@ extern "C" int vtt_coarse_shortlist(
       static_cast<const float*>(eps),
       static_cast<const uint8_t*>(scalar_slot),
       static_cast<const float*>(bres), w, S,
-      static_cast<uint64_t*>(keys_scratch), static_cast<int32_t*>(out),
+      static_cast<uint32_t*>(keys_scratch), in_smem,
+      static_cast<int32_t*>(out),
       static_cast<const uint32_t*>(ports), PW,
       static_cast<const uint32_t*>(nports),
       static_cast<const uint8_t*>(aff_ok),

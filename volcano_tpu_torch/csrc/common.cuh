@@ -183,53 +183,208 @@ __device__ __forceinline__ StaticPair static_pair(
   return StaticPair{ok, acc};
 }
 
-// Selection key:(score descending, position ascending), the tie-break of
-// jax.lax.top_k and of a stable descending sort.  -0.0 ranks as +0.0.
-__device__ __forceinline__ uint64_t make_key(float score, uint32_t pos) {
+// Selection keys: (score descending, position ascending), the tie-break
+// of jax.lax.top_k and of a stable descending sort.  `score_ord` maps a
+// score to 32 bits that order as the scores do (-0.0 ranks as +0.0);
+// `pos_key` joins them with the position into a key unique per position.
+__device__ __forceinline__ uint32_t score_ord(float score) {
   if (score == 0.0f) score = 0.0f;
   const uint32_t bits = __float_as_uint(score);
-  const uint32_t ord = (bits & 0x80000000u) ? ~bits : (bits | 0x80000000u);
+  return (bits & 0x80000000u) ? ~bits : (bits | 0x80000000u);
+}
+
+__device__ __forceinline__ uint64_t pos_key(uint32_t ord, uint32_t pos) {
   return (static_cast<uint64_t>(ord) << 32) |
          static_cast<uint64_t>(0xFFFFFFFFu - pos);
 }
 
-// The k-th largest of L distinct keys (1 <= k <= L), by an 8-bit radix
-// select over the whole block.  `hist` is 256 ints of shared memory,
-// `bcast` two ints of shared memory.  Every thread returns the same key;
-// exactly k keys are >= it.
-__device__ inline uint64_t block_select_kth(const uint64_t* keys, int L, int k,
-                                     int* hist, int* bcast) {
+__device__ __forceinline__ uint64_t make_key(float score, uint32_t pos) {
+  return pos_key(score_ord(score), pos);
+}
+
+constexpr unsigned kFullMask = 0xFFFFFFFFu;
+
+// The register stages of a bitonic sort: a warp holds a 64-key chunk,
+// lane l its positions l (x0) and l + 32 (x1).  `desc0` / `desc1` say
+// whether the k-block of each position sorts descending.  Stage j = 32
+// compares the lane's own two keys; stages j = 16 .. 1 trade with the
+// lane j apart.  The lower position of a pair keeps the larger key in a
+// descending k-block.
+template <int kJ>
+__device__ __forceinline__ void chunk_stages(uint64_t& x0, uint64_t& x1,
+                                             bool desc0, bool desc1,
+                                             int lane) {
+#pragma unroll
+  for (int j = kJ; j > 0; j >>= 1) {
+    if (j == 32) {
+      if ((x0 < x1) == desc0) {
+        const uint64_t t = x0;
+        x0 = x1;
+        x1 = t;
+      }
+    } else {
+      const bool low = (lane & j) == 0;
+      const uint64_t y0 = __shfl_xor_sync(kFullMask, x0, j);
+      const uint64_t y1 = __shfl_xor_sync(kFullMask, x1, j);
+      if ((x0 < y0) == (low == desc0)) x0 = y0;
+      if ((x1 < y1) == (low == desc1)) x1 = y1;
+    }
+  }
+}
+
+// The register stages of k-block size kK (<= 64) for the chunk whose
+// lane holds positions p and p + 32.
+template <int kK>
+__device__ __forceinline__ void chunk_block(uint64_t& x0, uint64_t& x1,
+                                            int p, int lane) {
+  chunk_stages<kK / 2>(x0, x1, (p & kK) == 0, ((p + 32) & kK) == 0, lane);
+}
+
+// Sorts each of the `nseg` rows keys[g * P, (g + 1) * P) descending with
+// the whole block (P a power of two >= 64, blockDim.x a multiple of 32;
+// the caller has synchronised after writing the keys).  A bitonic
+// network: the stages that pair keys 64 or more apart run in shared
+// memory, one block barrier each for all rows; the stages under 64 apart
+// run in registers and warp shuffles (`chunk_stages`), so rows of 1,024
+// keys take 15 block barriers where a plain bitonic sort takes 55.
+__device__ inline void block_sort_desc(uint64_t* keys, int P, int nseg = 1) {
+  const int lane = threadIdx.x & 31;
+  const int nwarps = blockDim.x >> 5;
+  const int chunks = nseg * (P / 64);
+  // k = 2 .. 64: every stage inside a chunk.
+  for (int c = threadIdx.x >> 5; c < chunks; c += nwarps) {
+    const int p0 = (64 * c) & (P - 1);
+    uint64_t x0 = keys[64 * c + lane];
+    uint64_t x1 = keys[64 * c + 32 + lane];
+    chunk_block<2>(x0, x1, p0 + lane, lane);
+    chunk_block<4>(x0, x1, p0 + lane, lane);
+    chunk_block<8>(x0, x1, p0 + lane, lane);
+    chunk_block<16>(x0, x1, p0 + lane, lane);
+    chunk_block<32>(x0, x1, p0 + lane, lane);
+    chunk_block<64>(x0, x1, p0 + lane, lane);
+    keys[64 * c + lane] = x0;
+    keys[64 * c + 32 + lane] = x1;
+  }
+  __syncthreads();
+  for (int k = 128; k <= P; k <<= 1) {
+    for (int j = k >> 1; j >= 64; j >>= 1) {
+      for (int i = threadIdx.x; i < nseg * (P / 2); i += blockDim.x) {
+        const int lo = ((i & ~(j - 1)) << 1) | (i & (j - 1));
+        const int hi = lo + j;
+        const uint64_t x = keys[lo];
+        const uint64_t y = keys[hi];
+        if ((x < y) == ((lo & (P - 1) & k) == 0)) {
+          keys[lo] = y;
+          keys[hi] = x;
+        }
+      }
+      __syncthreads();
+    }
+    for (int c = threadIdx.x >> 5; c < chunks; c += nwarps) {
+      // k >= 64: one direction for the whole chunk.
+      const bool desc = (((64 * c) & (P - 1)) & k) == 0;
+      uint64_t x0 = keys[64 * c + lane];
+      uint64_t x1 = keys[64 * c + 32 + lane];
+      chunk_stages<32>(x0, x1, desc, desc, lane);
+      keys[64 * c + lane] = x0;
+      keys[64 * c + 32 + lane] = x1;
+    }
+    __syncthreads();
+  }
+}
+
+// Shared memory of `block_radix_select`.
+struct RadixSmem {
+  int hist[256];
+  int warp[8];
+  int pick[3];
+};
+
+// A threshold key T with exactly k of the L distinct keys key_at(0 ..
+// L - 1) at or above it (1 <= k <= L), each a pos_key of a position
+// below `pos_limit` (or the key 0, which never reaches the k-th place):
+// an 8-bit radix select, most significant byte first, over the whole
+// block (blockDim.x >= 256, a multiple of 32; the caller has synchronised
+// after writing what key_at reads).  Each pass builds a histogram of the
+// next byte of the keys under the prefix found so far and scans the 256
+// bins in parallel (warp shuffles, then the eight warp totals).  Warp w
+// reads the w-th contiguous segment of the keys, lane l every 32nd key of
+// it from l, and counts runs of one bin in a register, adding a run to
+// the shared histogram when its bin changes: keys that arrive sorted, or
+// in long runs of equal leading bytes (a row of identical nodes), cost a
+// few shared atomics a lane, not one a key on one hot bin.  A position
+// byte that no position below pos_limit sets is all ones in every key
+// under the prefix: its pass is skipped.  The select stops as soon as the
+// k-th key's bucket is taken whole: the keys >= the prefix (its lower
+// bytes zero) are then exactly the k largest.  Every thread returns the
+// same T.
+template <typename KeyAt>
+__device__ uint64_t block_radix_select(KeyAt key_at, int L, int k,
+                                       int pos_limit, RadixSmem& sm) {
+  const int tid = threadIdx.x;
+  const int lane = tid & 31;
+  const int warp = tid >> 5;
+  const int nwarps = blockDim.x >> 5;
+  const int seg = ((L + nwarps - 1) / nwarps + 31) & ~31;
+  const int lo = warp * seg;
+  const int hi = min(L, lo + seg);
   uint64_t prefix = 0;
   uint64_t mask = 0;
   int krem = k;
   for (int shift = 56; shift >= 0; shift -= 8) {
-    for (int i = threadIdx.x; i < 256; i += blockDim.x) hist[i] = 0;
+    if (shift < 32 && ((static_cast<uint32_t>(pos_limit) - 1u) >> shift) == 0) {
+      prefix |= static_cast<uint64_t>(0xFF) << shift;
+      mask |= static_cast<uint64_t>(0xFF) << shift;
+      continue;
+    }
+    for (int i = tid; i < 256; i += blockDim.x) sm.hist[i] = 0;
     __syncthreads();
-    for (int i = threadIdx.x; i < L; i += blockDim.x) {
-      const uint64_t key = keys[i];
-      if ((key & mask) == prefix) {
-        atomicAdd(&hist[(key >> shift) & 0xFF], 1);
+    int cur = -1;
+    int run = 0;
+    for (int i = lo + lane; i < hi; i += 32) {
+      const uint64_t key = key_at(i);
+      const int bin = (key & mask) == prefix
+                          ? static_cast<int>((key >> shift) & 0xFF)
+                          : -1;
+      if (bin != cur) {
+        if (cur >= 0) atomicAdd(&sm.hist[cur], run);
+        cur = bin;
+        run = 0;
+      }
+      ++run;
+    }
+    if (cur >= 0) atomicAdd(&sm.hist[cur], run);
+    __syncthreads();
+    // Thread t of the first 256 holds bin 255 - t: an inclusive scan over
+    // the threads counts the keys at or above each digit.
+    int h = 0;
+    int x = 0;
+    if (tid < 256) {
+      h = sm.hist[255 - tid];
+      x = h;
+#pragma unroll
+      for (int off = 1; off < 32; off <<= 1) {
+        const int y = __shfl_up_sync(kFullMask, x, off);
+        if (lane >= off) x += y;
+      }
+      if (lane == 31) sm.warp[warp] = x;
+    }
+    __syncthreads();
+    if (tid < 256) {
+      int incl = x;
+      for (int w = 0; w < warp; ++w) incl += sm.warp[w];
+      const int excl = incl - h;
+      if (excl < krem && krem <= incl) {
+        sm.pick[0] = 255 - tid;
+        sm.pick[1] = krem - excl;
+        sm.pick[2] = h;
       }
     }
     __syncthreads();
-    if (threadIdx.x == 0) {
-      int above = 0;
-      int digit = 0;
-      for (int b = 255; b >= 0; --b) {
-        if (above + hist[b] >= krem) {
-          digit = b;
-          break;
-        }
-        above += hist[b];
-      }
-      bcast[0] = digit;
-      bcast[1] = krem - above;
-    }
-    __syncthreads();
-    prefix |= static_cast<uint64_t>(bcast[0]) << shift;
+    prefix |= static_cast<uint64_t>(sm.pick[0]) << shift;
     mask |= static_cast<uint64_t>(0xFF) << shift;
-    krem = bcast[1];
-    __syncthreads();
+    krem = sm.pick[1];
+    if (sm.pick[2] == krem) break;
   }
   return prefix;
 }

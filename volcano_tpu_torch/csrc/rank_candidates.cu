@@ -33,19 +33,19 @@
 //
 //  - a row of at most kSortMax candidates (the per-attempt call on the
 //    shortlists, L = S ~ 500): one block of rank_tile_kernel keeps its keys
-//    in shared memory, padded to a power of two with the key 0 (below every
-//    real key, kNeg rows included), bitonic-sorts them (stages under 64
-//    apart inside a warp, ordered by a warp barrier) and writes the first
-//    K.  No selection pass at all;
+//    in shared memory, padded to a power of two (at least 64) with the key
+//    0 (below every real key, kNeg rows included), bitonic-sorts them
+//    (common.cuh block_sort_desc: stages under 64 apart in registers) and
+//    writes the first K.  No selection pass at all;
 //  - a longer row (the fallback over all N nodes, run for a few exhausted
 //    rows): its candidates are cut into tiles of kTile, one block each, so
 //    a handful of rows still spread over dozens of SMs.  Each block sorts
 //    its tile as above and keeps its top min(K, kTile) keys; then
 //    rank_merge_kernel, one block a row, finds the K-th largest of the
-//    tiles' keys by an 8-bit radix select -- each pass a warp-aggregated
-//    histogram and a parallel scan of the 256 bins (warp shuffles, then
-//    the eight warp totals), stopping as soon as the K-th key's bucket is
-//    taken whole -- and bitonic-sorts only the K selected keys.  The tiles'
+//    tiles' keys by common.cuh's block_radix_select (run-length
+//    histograms, a parallel scan of the 256 bins, an early stop once the
+//    K-th key's bucket is taken whole) and bitonic-sorts only the K
+//    selected keys.  The tiles'
 //    keys sit in shared memory while they fit (kMergeSmem), else the passes
 //    read them from the global scratch the wrapper passes.
 //  A per-tile top-K and a merge (as coarse_shortlist's block_rank_kernel +
@@ -69,7 +69,6 @@ constexpr int kThreads = 512;
 constexpr int kSortMax = 2048;  // a row up to this long sorts in one block
 constexpr int kTile = 1024;     // candidates per block of a longer row
 constexpr int kMergeSmem = 224 * 1024;  // the merge's dynamic shared memory
-constexpr unsigned kFull = 0xFFFFFFFFu;
 
 // Every input of one ranking, passed by value to both kernels.
 struct Rank {
@@ -136,41 +135,17 @@ __device__ __forceinline__ uint64_t candidate_key(const Rank& a, int b, int u,
   // The custom score, then the topology bias, join the static score
   // before the live score does (wave.py:1165-1179, :1288), each only
   // when given: -0.0 + 0.0 would flip a sign bit of a plain solve.
-  float stat = a.score_w[static_cast<int64_t>(u) * a.C + c];
-  if (a.e_score) stat = stat + a.e_score[erow + n];
-  if (a.bias) stat = stat + a.bias[n];
-  float score = vtt::node_score(rq, al, id, a.bres, a.R, a.w) + stat;
-  if (a.aff_soft) score = score + a.aff_soft[ai];
-  *feas_out = feas;
-  return vtt::make_key(feas ? score : vtt::kNeg, static_cast<uint32_t>(i));
-}
-
-// Sorts keys[0, P) descending with the whole block (P a power of two).  A
-// stage that pairs keys less than 64 apart stays inside each warp's
-// 64-key chunk (the same warp owns the chunk in every stage): a warp
-// barrier orders it.
-__device__ void block_sort_desc(uint64_t* keys, int P) {
-  for (int k = 2; k <= P; k <<= 1) {
-    for (int j = k >> 1; j > 0; j >>= 1) {
-      for (int i = threadIdx.x; i < P / 2; i += blockDim.x) {
-        const int lo = ((i & ~(j - 1)) << 1) | (i & (j - 1));
-        const int hi = lo + j;
-        const uint64_t x = keys[lo];
-        const uint64_t y = keys[hi];
-        if ((x < y) == ((lo & k) == 0)) {
-          keys[lo] = y;
-          keys[hi] = x;
-        }
-      }
-      if (j > 32) {
-        __syncthreads();
-      } else {
-        __syncwarp();
-      }
-    }
-    if (k >= 64) __syncthreads();
+  // An infeasible candidate's key is NEG whatever it scores: no score.
+  float score = vtt::kNeg;
+  if (feas) {
+    float stat = a.score_w[static_cast<int64_t>(u) * a.C + c];
+    if (a.e_score) stat = stat + a.e_score[erow + n];
+    if (a.bias) stat = stat + a.bias[n];
+    score = vtt::node_score(rq, al, id, a.bres, a.R, a.w) + stat;
+    if (a.aff_soft) score = score + a.aff_soft[ai];
   }
-  __syncthreads();
+  *feas_out = feas;
+  return vtt::make_key(score, static_cast<uint32_t>(i));
 }
 
 // The node id of candidate position `pos` of row u.
@@ -208,7 +183,7 @@ __global__ void __launch_bounds__(kThreads) rank_tile_kernel(
     any |= feas ? 1 : 0;
   }
   any = __syncthreads_or(any);
-  block_sort_desc(s_keys, TL);
+  vtt::block_sort_desc(s_keys, TL);
   if (T == 1) {
     for (int k = threadIdx.x; k < a.K; k += blockDim.x) {
       const int pos = key_pos(s_keys[k]);
@@ -234,15 +209,11 @@ __global__ void __launch_bounds__(kThreads) rank_merge_kernel(
     Rank a, int T, int Kt, const uint64_t* tile_keys, const uint8_t* feas_g,
     const uint8_t* any_g, int KP, int keys_in_smem) {
   extern __shared__ uint64_t s_dyn[];
-  __shared__ int hist[256];
-  __shared__ int s_warp[8];
-  __shared__ int s_pick[3];
+  __shared__ vtt::RadixSmem rs;
   __shared__ int n_sel;
   const int b = blockIdx.x;
   const int u = a.rows[b];
   const int tid = threadIdx.x;
-  const int lane = tid & 31;
-  const int warp = tid >> 5;
   const int C = T * Kt;
   uint64_t* sel = s_dyn;
   const uint64_t* keys = tile_keys + static_cast<int64_t>(b) * C;
@@ -253,65 +224,8 @@ __global__ void __launch_bounds__(kThreads) rank_merge_kernel(
   }
   if (tid == 0) n_sel = 0;
   __syncthreads();
-
-  // Radix select, most significant byte first: `prefix` holds the K-th
-  // largest key's bytes found so far, `krem` how many of the keys under
-  // that prefix are still to take.
-  uint64_t prefix = 0;
-  uint64_t mask = 0;
-  int krem = a.K;
-  for (int shift = 56; shift >= 0; shift -= 8) {
-    for (int i = tid; i < 256; i += blockDim.x) hist[i] = 0;
-    __syncthreads();
-    for (int base = 0; base < C; base += blockDim.x) {
-      const int i = base + tid;
-      int bin = -1;
-      if (i < C) {
-        const uint64_t key = keys[i];
-        if ((key & mask) == prefix) {
-          bin = static_cast<int>((key >> shift) & 0xFF);
-        }
-      }
-      // Equal bins of a warp add once.
-      const unsigned peers = __match_any_sync(kFull, bin);
-      if (bin >= 0 && lane == __ffs(peers) - 1) {
-        atomicAdd(&hist[bin], __popc(peers));
-      }
-    }
-    __syncthreads();
-    // Thread t of the first 256 holds bin 255 - t: an inclusive scan over
-    // the threads counts the keys at or above each digit.
-    int h = 0;
-    int x = 0;
-    if (tid < 256) {
-      h = hist[255 - tid];
-      x = h;
-#pragma unroll
-      for (int off = 1; off < 32; off <<= 1) {
-        const int y = __shfl_up_sync(kFull, x, off);
-        if (lane >= off) x += y;
-      }
-      if (lane == 31) s_warp[warp] = x;
-    }
-    __syncthreads();
-    if (tid < 256) {
-      int incl = x;
-      for (int w = 0; w < warp; ++w) incl += s_warp[w];
-      const int excl = incl - h;
-      if (excl < krem && krem <= incl) {
-        s_pick[0] = 255 - tid;
-        s_pick[1] = krem - excl;
-        s_pick[2] = h;
-      }
-    }
-    __syncthreads();
-    prefix |= static_cast<uint64_t>(s_pick[0]) << shift;
-    mask |= static_cast<uint64_t>(0xFF) << shift;
-    krem = s_pick[1];
-    // Every key of the K-th key's bucket is taken: the keys >= prefix
-    // (its lower bytes zero) are exactly the K winners.
-    if (s_pick[2] == krem) break;
-  }
+  const uint64_t prefix = vtt::block_radix_select(
+      [keys](int i) { return keys[i]; }, C, a.K, a.L, rs);
 
   for (int i = tid; i < C; i += blockDim.x) {
     const uint64_t key = keys[i];
@@ -319,7 +233,7 @@ __global__ void __launch_bounds__(kThreads) rank_merge_kernel(
   }
   for (int i = a.K + tid; i < KP; i += blockDim.x) sel[i] = 0;
   __syncthreads();
-  block_sort_desc(sel, KP);
+  vtt::block_sort_desc(sel, KP);
   for (int k = tid; k < a.K; k += blockDim.x) {
     const int pos = key_pos(sel[k]);
     a.out_ranked[static_cast<int64_t>(b) * a.K + k] = node_of(a, u, pos);
@@ -333,8 +247,9 @@ __global__ void __launch_bounds__(kThreads) rank_merge_kernel(
   }
 }
 
+// The power of two >= n, at least 64 (block_sort_desc's chunk).
 int pow2_at_least(int n) {
-  int p = 1;
+  int p = 64;
   while (p < n) p <<= 1;
   return p;
 }
@@ -401,7 +316,7 @@ extern "C" int vtt_rank_candidates(
          static_cast<uint8_t*>(out_feas),
          static_cast<uint8_t*>(out_pany)};
   const bool one = L <= kSortMax;
-  const int TL = one ? pow2_at_least(L) : kTile;
+  const int TL = one ? pow2_at_least(L) : kTile;  // >= 64: the sort's chunk
   const int T = one ? 1 : (L + kTile - 1) / kTile;
   const int Kt = K < TL ? K : TL;
   if (!one && (!tile_keys || !feas_scratch || !any_scratch)) {

@@ -130,6 +130,8 @@ REPLACES = {
 
 MAX_R = 16  # csrc/common.cuh kMaxR
 MAX_SMEM = 232_448  # shared memory one block may use on Hopper
+COARSE_SMEM = 224 * 1024  # csrc/coarse_shortlist.cu kRowSmem
+BLOCK_MERGE_SMEM = 200 * 1024  # csrc/warm_shortlist.cu kMergeSmem
 RANK_SORT_MAX = 2048  # csrc/rank_candidates.cu kSortMax
 RANK_TILE = 1024  # csrc/rank_candidates.cu kTile
 RANK_MERGE_SMEM = 224 * 1024  # csrc/rank_candidates.cu kMergeSmem
@@ -279,9 +281,10 @@ _SIGS = {
     "vtt_walk_accept": [_P, _P, _I, _I, _P, _P, _I, _P, _P, _P, _P, _I, _P, _P,
                         _P, _P, _P, _P, _P, _I, _P, _P, _P, _P, _P, _P, _P, _P,
                         _P, _I, _P, _P, _P, _P],
-    "vtt_apply_commit": [_P, _P, _P, _P, _P, _I, _I, _F, _I, _P, _P, _I, _P,
-                         _I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
-                         _P, _I, _P, _P, _P, _I, _P, _P, _I, _I, _P, _P, _P],
+    "vtt_apply_commit": [_P, _P, _P, _P, _P, _I, _I, _F, _I, _P, _P, _P,
+                         _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
+                         _P, _I, _P, _P, _P, _I, _P, _P, _I, _I, _P, _P,
+                         _P],
     "vtt_victim_scores": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P, _P,
                           _P, _I, _I, _I, _I, _P, _P, _P, _P, _P, _P, _P, _P,
                           _P],
@@ -640,7 +643,11 @@ def _launch_block_shortlist(a, stat_ok, stat_score, weights, db, B, nlb,
     pp = _ports_args(ports, U, N, "block_shortlist")
     ap = _aff_planes(aff, U, Ma, "block_shortlist")
     dev = a["idle"].device
-    keys = torch.empty((U, B * klb), dtype=torch.int64, device=dev)
+    # The merge's ordered scores: shared memory while they fit beside the
+    # S winners' keys (csrc/warm_shortlist.cu merge_smem), else global.
+    sel = 8 * max(64, 1 << (S - 1).bit_length())
+    keys = (None if sel + 4 * B * klb <= BLOCK_MERGE_SMEM
+            else torch.empty((U, B * klb), dtype=torch.int32, device=dev))
     out = torch.empty((U, S), dtype=torch.int32, device=dev)
     rc = load().vtt_block_shortlist(
         int(db is None), _ptr(a["req"]), _ptr(a["init_req"]), U, R,
@@ -758,7 +765,10 @@ def coarse_shortlist(prof, cls, idle, alloc, ntasks, max_tasks, eps,
         _check(rc, "coarse_shortlist")
         LAUNCHES["coarse_shortlist"] += 1
         return out, stat_ok, stat_score, cand_s, cand_i
-    keys = torch.empty((U, N), dtype=torch.int64, device=dev)
+    # A row's ordered scores: shared memory up to COARSE_SMEM, else a
+    # global scratch row.
+    keys = (None if 4 * N <= COARSE_SMEM
+            else torch.empty((U, N), dtype=torch.int32, device=dev))
     out = torch.empty((U, S), dtype=torch.int32, device=dev)
     z = torch.zeros(1, dtype=torch.int32, device=dev)
     g = (lambda k: a.get(k, z))
@@ -1344,17 +1354,36 @@ def _apply_plain(node, mask, rows, row_idx, qidx, idle_sign, mode, jw, idle,
         assigned[sel] = -1
 
 
+def window_match_terms(t_matches: torch.Tensor) -> torch.Tensor:
+    """[UM, EW] int32: each profile row's matched window terms (the True
+    columns of ``t_matches``) in ascending order, then -1 -- the term
+    lists ``apply_commit`` walks (built once per wave, on the device)."""
+    m = t_matches.to(torch.bool)
+    order = torch.sort((~m).to(torch.int8), dim=1, stable=True).indices
+    hit = torch.gather(m, 1, order)
+    return torch.where(hit, order, torch.full_like(order, -1)).to(
+        torch.int32).contiguous()
+
+
+def commit_scratch(N: int, R: int, Q: int, dev):
+    """``apply_commit``'s zeroed scratch: float64 accumulators [N, R] and
+    [Q, R] (one pair for the commits, another for pipelined charges)."""
+    return (torch.zeros((N, R), dtype=torch.float64, device=dev),
+            torch.zeros((Q, R), dtype=torch.float64, device=dev))
+
+
 def apply_commit(node, mask, rows, row_idx, qidx, idle, q_alloc, *,
                  mode: int, idle_sign: float, scratch, jw=None,
                  ntasks=None, alloc_l=None, assigned=None, pipe=None,
-                 pip=None, ports=None, counts=None,
+                 pip=None, ports=None, counts=None, match_terms=None,
                  plain: bool = False) -> None:
     """Commit (``mode=0``: idle -= req, ntasks += 1, q_alloc += req,
     alloc_l[jw] += 1, assigned = node) or discard (``mode=1``: idle +=
     req, q_alloc -= req, assigned = -1) the tasks where ``mask`` holds,
     in place.  Task t's request is ``rows[row_idx[t]]``, its queue
-    ``qidx[t]``.  ``scratch`` is the pair of zeroed float64 accumulators
-    ``([N, R], [Q, R])`` the kernel leaves zeroed again.
+    ``qidx[t]``.  ``scratch`` is the zeroed scratch the kernel leaves
+    zeroed again: ``commit_scratch``'s float64 accumulators ``([N, R],
+    [Q, R])``.
 
     ``pipe`` (mode 0, with releasing capacity): the tasks accepted as
     pipelined this sub-round; ``pip`` then holds the planes they charge,
@@ -1369,7 +1398,9 @@ def apply_commit(node, mask, rows, row_idx, qidx, idle, q_alloc, *,
     wave's window) adds one to ``cnt_a`` -- ``cnt_p`` for a pipelined
     task -- at (e, node_dom[node, term_key[e]]) for every window term e
     its profile matches where the node has a domain (wave.py:2043-2130),
-    as int32 atomics."""
+    as int32 atomics.  ``match_terms`` (``window_match_terms`` of
+    ``counts.t_matches``, built once per wave) lists the terms each
+    profile row matches; on the card ``counts`` needs it."""
     if not _on_card(plain, idle, node, mask):
         _apply_plain(node, mask, rows, row_idx, qidx, idle_sign, mode, jw,
                      idle, q_alloc, ntasks, alloc_l, assigned, pipe, pip,
@@ -1433,21 +1464,29 @@ def apply_commit(node, mask, rows, row_idx, qidx, idle, q_alloc, *,
                     counts.cnt_p, i32c, "cnt_p").shape != (Ew, Dw)))):
             raise ValueError("apply_commit: inconsistent count shapes")
         _req(counts.cnt_a, i32c, "cnt_a")
+        if match_terms is None:
+            raise ValueError("apply_commit: counts on the card need "
+                             "match_terms (window_match_terms, once per "
+                             "wave)")
+        if _req(match_terms, i32c, "match_terms").shape != (UM, Ew):
+            raise ValueError("apply_commit: match_terms is not [UM, EW]")
         co = (_ptr(nd), nd.shape[1], _ptr(counts.term_key),
-              _ptr(counts.t_matches), Ew, Dw, _ptr(counts.cnt_a),
+              _ptr(match_terms), Ew, Dw, _ptr(counts.cnt_a),
               _ptr(counts.cnt_p) if pipe is not None else None)
     _capture("apply_commit" + ("" if ports is None and counts is None
                                else ":aff"),
              mode=mode, idle_sign=idle_sign, ports=ports, counts=counts,
+             match_terms=match_terms,
              **a, **({} if pipe is None else dict(
                  pipe=pp[0], pip_extra=pp[1], pip_ntasks=pp[2], q_pip=pp[3],
                  pipelined=pp[4])))
     rc = load().vtt_apply_commit(
-        _ptr(a["node"]), _ptr(a["mask"]), _ptr(a["rows"]), _ptr(a["row_idx"]),
-        _ptr(a["qidx"]), T, R, float(idle_sign), int(mode), _ptr(a.get("jw")),
-        _ptr(a["idle"]), N, _ptr(a["q_alloc"]), Q, _ptr(a.get("ntasks")),
-        _ptr(a.get("alloc_l")), _ptr(a["assigned"]), _ptr(idle_acc),
-        _ptr(q_acc), *[_ptr(t) for t in pp], *po, *co, _stream(),
+        _ptr(a["node"]), _ptr(a["mask"]), _ptr(a["rows"]),
+        _ptr(a["row_idx"]), _ptr(a["qidx"]), T, R, float(idle_sign),
+        int(mode), _ptr(a.get("jw")), _ptr(a["idle"]), _ptr(a["q_alloc"]),
+        _ptr(a.get("ntasks")), _ptr(a.get("alloc_l")), _ptr(a["assigned"]),
+        _ptr(idle_acc), _ptr(q_acc), *[_ptr(t) for t in pp], *po,
+        *co, _stream(),
     )
     _check(rc, "apply_commit")
     LAUNCHES["apply_commit"] += 1

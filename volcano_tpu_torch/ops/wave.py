@@ -718,17 +718,15 @@ def _solve_wave(nodes: SolveNodes, jobs: SolveJobs,
         assigned=torch.full((P,), -1, dtype=i32, device=dev),
         pipelined=torch.full((P,), -1, dtype=i32, device=dev),
     )
-    # float64 accumulators of apply_commit, kept zeroed between calls.
-    scratch = (torch.zeros((N, R), dtype=torch.float64, device=dev),
-               torch.zeros((Q, R), dtype=torch.float64, device=dev))
+    # apply_commit's float64 accumulators, kept zeroed between calls.
+    scratch = kernels.commit_scratch(N, R, Q, dev)
     # The live future planes: the in-solve pipelined charges ride along.
     fut = None
     pip_scratch = None
     if has_future:
         fut = kernels.Future(future0.rel, future0.pip, st.pip_extra,
                              st.pip_ntasks)
-        pip_scratch = (torch.zeros((N, R), dtype=torch.float64, device=dev),
-                       torch.zeros((Q, R), dtype=torch.float64, device=dev))
+        pip_scratch = kernels.commit_scratch(N, R, Q, dev)
     t_idx = torch.arange(W, device=dev)
     all_rows = torch.arange(UM, dtype=i32, device=dev)
     TOPOV = min(16, K)
@@ -778,6 +776,7 @@ def _solve_wave(nodes: SolveNodes, jobs: SolveJobs,
             ports_w = kernels.Ports(prof.ports[pids].contiguous(), nport,
                                     pip_nport)
         at_w = None
+        match_w = None
         self_anti = None
         prof_req_terms = None
         term_req = None
@@ -805,6 +804,8 @@ def _solve_wave(nodes: SolveNodes, jobs: SolveJobs,
                 at_w = AffTerms(aff.node_dom, aff.term_key[wt].contiguous(),
                                 cw_a, cw_p, p_aff, p_anti, p_match,
                                 cols(prof.t_soft))
+                # Each row's matched terms, listed for apply_commit.
+                match_w = kernels.window_match_terms(p_match)
                 # The filter's constant planes, once per wave: the terms
                 # some row requires (the givers' terms).
                 term_req = (p_aff | p_anti).any(dim=0)
@@ -947,7 +948,7 @@ def _solve_wave(nodes: SolveNodes, jobs: SolveJobs,
                     mode=0, idle_sign=-1.0, jw=jw, ntasks=st.ntasks,
                     alloc_l=alloc_l, assigned=assigned_w, scratch=scratch,
                     pipe=acc_pipe, pip=pip, ports=ports_w, counts=at_w,
-                    plain=plain,
+                    match_terms=match_w, plain=plain,
                 )
                 resolved = acc if acc_pipe is None else acc | acc_pipe
                 done_sub = done_sub | resolved
