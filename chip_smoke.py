@@ -58,7 +58,8 @@ of which raises (and the script exits non-zero) when a check fails:
    solve per phase; launch counts zeroed before each phase and read after;
 11. ``victim_scores`` in both modes and the five solve kernels on inputs
    captured from future-branch solves, against their plain versions, timed
-   as in 4;
+   as in 4; beside ``victim_scores``, ``torch.sort(stable=True)`` of its
+   packed order key (a yardstick for the sort alone);
 12. rebalance: bench.py ``config_rebalance`` at 5,000 workers (10,000
    nodes, 5,000 stranded 3-cpu fillers placed by a set-up cycle, a
    2,500-task whole-node gang) under ``REBALANCE_SCHEDULER_CONF`` with
@@ -121,7 +122,11 @@ of which raises (and the script exits non-zero) when a check fails:
    "object", the lanes printed; the wave solve's kernels required;
 21. seq: the same under ``solver: seq``: ``seq_solve`` required, card
    against CPU, and the kernel against its plain version on the inputs of
-   its first launch, timed as in 4;
+   its first launch, timed as in 4; then a cold seq cycle on a fresh
+   store traced with ``torch.profiler`` (the card's idle share, from the
+   trace alone; a trace without the solve's two kernels fails the
+   phase), the allocate lane, and the solve's launches timed by CUDA
+   events around the library call;
 22. seq:north-star: the solve args of 2 through the sequential solve on
    the card: one launch, its wall time, the invariants of 2;
 23. custom: the config-2 store with a device-mask plugin (a fifth of the
@@ -167,7 +172,8 @@ def _smi() -> str:
 # (`nvcc -Xptxas -v`) the run prints.
 PTXAS_SOURCES = ("rank_candidates.cu", "aff_live.cu", "walk_accept.cu",
                  "aff_filter.cu", "coarse_shortlist.cu",
-                 "warm_shortlist.cu", "apply_commit.cu")
+                 "warm_shortlist.cu", "apply_commit.cu", "seq_solve.cu",
+                 "victim_scores.cu")
 
 
 def ptxas_report(sources=PTXAS_SOURCES) -> dict:
@@ -932,9 +938,7 @@ KERNEL_FUNCS = {
     "static_planes": ("class_static_kernel<1>",),
     "warm_shortlist": ("block_rank_kernel<false>", "merge_kernel<false>"),
     "scatter_rows": ("scatter_rows_kernel",),
-    "victim_scores": ("share_kernel", "key_kernel", "bitonic_tile_kernel",
-                      "bitonic_global_kernel", "order_kernel",
-                      "zero_kernel", "evictable_kernel"),
+    "victim_scores": ("victim_kernel",),
     "frag_scores": ("frag_scores_kernel",),
     "gang_block_fit": ("node_cap_kernel", "block_fit_kernel"),
     "fabric_frag": ("fabric_frag_kernel",),
@@ -944,7 +948,7 @@ KERNEL_FUNCS = {
     "aff_live": ("aff_live_kernel", "count_totals_kernel"),
     "aff_filter": ("aff_filter_init_kernel", "aff_filter_givers_kernel",
                    "aff_filter_check_kernel", "aff_filter_reset_kernel"),
-    "seq_solve": ("seq_solve_kernel",),
+    "seq_solve": ("row_prep_kernel", "seq_solve_kernel"),
 }
 
 
@@ -1549,6 +1553,38 @@ def _summary(stats: dict) -> dict:
     return {k: v for k, v in stats.items() if k != "cycles"}
 
 
+def sort_yardstick(cap: dict, reps: int = 20) -> float:
+    """Device ms of ``torch.sort(key, stable=True)`` on the captured victim
+    rows' order key packed into one int64 (ineligible bit, biased
+    prio_key, V - 1 - crank: crank is a permutation of 0..V-1 and the tie
+    arange(V) in the lanes' captures, so the key alone is the order).  A
+    yardstick for the sort part of ``victim_scores``, not the function:
+    its indices must equal the kernel's order."""
+    import torch
+
+    from volcano_tpu_torch.ops import kernels
+
+    c = _clone(cap)
+    el, order, _ev, _qs = kernels.victim_scores(
+        c["v_ok"], c["v_jprio"], c["v_crank"], c["v_tie"], c["v_queue"],
+        c["v_node"], c["v_req"], c["p_prio"], c["p_queue"], c["q_alloc"],
+        c["q_deserved"], c["q_reclaimable"], c["mode"], c["n_nodes"])
+    V = el.shape[0]
+    crank = c["v_crank"].long()
+    if not torch.equal(torch.sort(crank).values,
+                       torch.arange(V, device=crank.device)):
+        raise AssertionError("[kernels:evict] crank is not a permutation")
+    prio = torch.where(el, c["v_jprio"].long(),
+                       torch.full_like(crank, 2 ** 31 - 1))
+    key = (((~el).long() << 62) | ((prio + 2 ** 31) << 30)
+           | (V - 1 - crank))
+    if not torch.equal(torch.sort(key, stable=True).indices.int(), order):
+        raise AssertionError("[kernels:evict] torch.sort of the packed key "
+                             "differs from the kernel's order")
+    return min(_device_ms([lambda: torch.sort(key, stable=True)
+                           for _ in range(reps)])[0] for _ in range(2))
+
+
 def evict_phases():
     """Phases 9-11: the reclaim and preempt paths at 10,000 nodes, then
     ``victim_scores`` (both modes) and the solve kernels on future-branch
@@ -1623,11 +1659,14 @@ def evict_phases():
                              names=["victim_scores"])[0]
         row["mode"] = ("preempt", "reclaim")[mode]
         row["V"] = int(cap["v_req"].shape[0])
+        row["sort_ms"] = sort_yardstick(cap)
         rows.append(row)
         _log(f"[kernels:evict] victim_scores ({row['mode']}, V={row['V']}):"
              f" {row['ms']:.4f} ms/launch, plain {row['plain_ms']:.4f} ms, "
              f"bound {row['bound_ms']:.6f} ms ({row['bound_by']}), "
-             f"launches {row['launches']}, max_abs_err {row['max_abs_err']}")
+             f"launches {row['launches']}, max_abs_err {row['max_abs_err']}"
+             f"; torch.sort(stable) of the packed order key "
+             f"{row['sort_ms']:.4f} ms (the sort alone)")
     fut = dict(pfut)
     fut.update(rfut)
     missing = [k for k in FUTURE_KERNELS if k not in fut]
@@ -2552,6 +2591,40 @@ def _allowed_binds(store) -> None:
                                  f"{p.node_name}")
 
 
+class _SeqTimedLib:
+    """The kernel library with CUDA events around each ``vtt_seq_solve``
+    call: the device time of a solve's launches (its row pass and step
+    loop), timed apart from the profiler trace, which must hold them
+    too."""
+
+    def __init__(self, lib):
+        self.lib = lib
+        self.events = []
+
+    def __getattr__(self, name):
+        fn = getattr(self.lib, name)
+        if name != "vtt_seq_solve":
+            return fn
+
+        def timed(*args):
+            import torch
+
+            e0 = torch.cuda.Event(enable_timing=True)
+            e1 = torch.cuda.Event(enable_timing=True)
+            e0.record()
+            rc = fn(*args)
+            e1.record()
+            self.events.append((e0, e1))
+            return rc
+        return timed
+
+    def device_ms(self) -> list:
+        import torch
+
+        torch.cuda.synchronize()
+        return [e0.elapsed_time(e1) for e0, e1 in self.events]
+
+
 def object_phases(ns_args):
     """Phases 20-23: the object session on BASELINE config 2 (wave solver,
     ``VOLCANO_TPU_FASTPATH=0``), under ``solver: seq``, with custom
@@ -2587,6 +2660,54 @@ def object_phases(ns_args):
          f"{seq_row['plain_ms']:.4f} ms, bound {seq_row['bound_ms']:.6f} ms "
          f"({seq_row['bound_by']}), launches {seq_row['launches']}, "
          f"max_abs_err {seq_row['max_abs_err']}")
+
+    # [seq:trace]: a cold seq cycle on a fresh store, traced: the allocate
+    # lane beside the solve kernels' device time and the idle share.
+    from volcano_tpu_torch.scheduler import Scheduler
+
+    store = _fresh_cluster(**CONFIG2)
+    sched = Scheduler(store, conf_str=CONF_SEQ)
+    timed = _SeqTimedLib(kernels.load())
+    load, kernels.load = kernels.load, lambda: timed
+    try:
+        prof = profile_device(sched.run_once)
+    finally:
+        kernels.load = load
+    rec = store.flight.last()
+    if not prof or rec.path != "object" or rec.error is not None:
+        raise AssertionError(f"[seq:trace] no traced object cycle: path "
+                             f"{rec.path}, error {rec.error}, device "
+                             f"events {prof.get('device_events')}")
+    cycle_invariants(store, CONFIG2["n_pods"])
+    solve_ms = timed.device_ms()
+    if not solve_ms:
+        raise AssertionError("[seq:trace] the cycle launched no seq_solve")
+    # The busy time and idle share come from the trace alone: a trace that
+    # lacks a kernel the events saw launch is refused, not filled in.
+    missed = [f for f in KERNEL_FUNCS["seq_solve"] if f not in prof["funcs"]]
+    if missed:
+        raise AssertionError(f"[seq:trace] the trace holds no {missed}; "
+                             f"CUDA events saw {len(solve_ms)} seq_solve "
+                             f"calls, {sum(solve_ms):.3f} ms; traced "
+                             f"{json.dumps(prof['top'])}")
+    trace = {
+        "wall_ms": prof["wall_ms"], "busy_ms": prof["busy_ms"],
+        "idle_share": 1.0 - prof["busy_ms"] / prof["wall_ms"],
+        "top": prof["top"],
+        "allocate_lane_ms": rec.lanes.get("allocate", 0.0) * 1e3,
+        "lanes_ms": {k: round(v * 1e3, 3) for k, v in
+                     sorted(rec.lanes.items())},
+        "seq_solve_ms": solve_ms, "funcs": prof["funcs"],
+    }
+    seq_row["trace"] = trace
+    _log(f"[seq:trace] cold seq cycle (traced) {trace['wall_ms']:.1f} ms, "
+         f"allocate lane {trace['allocate_lane_ms']:.1f} ms, seq_solve's "
+         f"launches {sum(solve_ms):.3f} ms (wrapper calls: {len(solve_ms)}, "
+         f"CUDA events); traced functions: {_traced_sums(prof)}; card busy "
+         f"{trace['busy_ms']:.2f} ms, idle share "
+         f"{trace['idle_share']:.4f}; lanes(ms) "
+         f"{json.dumps(trace['lanes_ms'])}; top {json.dumps(prof['top'])}")
+    store.close()
 
     # 22. [seq:north-star]: the [main] solve args through the sequential
     # solve on the card (its plain replay is [seq]'s).

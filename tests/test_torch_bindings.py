@@ -200,7 +200,7 @@ def test_apply_commit_counts_need_match_terms(fake_card):
 
 
 def test_seq_solve_and_extra_planes_match_their_entries(fake_card):
-    """seq_solve's 75 arguments, and the custom-plugin planes of
+    """seq_solve's 87 arguments, and the custom-plugin planes of
     coarse_shortlist and rank_candidates."""
     from test_torch_fixtures import seq_extra, seq_store
 

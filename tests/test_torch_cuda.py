@@ -243,6 +243,56 @@ def _victim_case(seed, V, N=64, Q=4, R=3):
         q_deserved=q_des, q_reclaimable=rng.rand(Q) > 0.3)
 
 
+def _victim_kind(kind, V, seed):
+    """``_victim_case`` made harder: "dup" duplicate cranks with a
+    permuted tie; "inelig" every row ineligible; "wide" cranks, ties and
+    priorities over all of int32 (negative ones too), ties repeating."""
+    c = _victim_case(seed, V)
+    rng = np.random.RandomState(seed + 11)
+    if kind == "dup":
+        c["v_crank"] = rng.randint(0, max(1, V // 8), V).astype(np.int32)
+        c["v_tie"] = rng.permutation(V).astype(np.int32)
+    elif kind == "inelig":
+        c["v_ok"] = np.zeros(V, bool)
+    elif kind == "wide":
+        lo, hi = np.iinfo(np.int32).min, np.iinfo(np.int32).max
+        c["v_crank"] = rng.randint(lo, hi, V, dtype=np.int64).astype(
+            np.int32)
+        c["v_tie"] = rng.randint(-3, 3, V).astype(np.int32)
+        c["v_jprio"] = rng.choice([lo, -5, 0, 1, hi], V).astype(np.int32)
+    return c
+
+
+def _victim_both(c, mode, cuda, p_prio=2, N=64):
+    t = {k: torch.from_numpy(np.ascontiguousarray(v)).to(cuda)
+         for k, v in c.items()}
+    args = (t["v_ok"], t["v_jprio"], t["v_crank"], t["v_tie"], t["v_queue"],
+            t["v_node"], t["v_req"], p_prio, 1, t["q_alloc"],
+            t["q_deserved"], t["q_reclaimable"], mode, N)
+    before = kernels.LAUNCHES["victim_scores"]
+    got = kernels.victim_scores(*args)
+    want = kernels.victim_scores(*args, plain=True)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["victim_scores"] == before + 1
+    for g, w in zip(got, want):
+        assert g.dtype == w.dtype and torch.equal(g, w)
+    return got
+
+
+@pytest.mark.parametrize("kind,V", [
+    ("plain", 70000), ("plain", 131072), ("dup", 3000), ("dup", 70000),
+    ("inelig", 5000), ("wide", 4000), ("plain", 1), ("wide", 1)])
+@pytest.mark.parametrize("mode", [0, 1])
+def test_victim_scores_general_keys_equal_plain(cuda, mode, kind, V):
+    """Past 65,536 rows, duplicate cranks ordered by a permuted tie, no
+    eligible row, keys over all of int32, one row: every output equal to
+    the plain version in both modes."""
+    c = _victim_kind(kind, V, 100 * V + mode)
+    got = _victim_both(c, mode, cuda, p_prio=(2 if kind != "wide" else 1))
+    if kind == "inelig":
+        assert not got[0].any() and not got[2].any()
+
+
 @pytest.mark.parametrize("V", [50, 1024, 3000])
 @pytest.mark.parametrize("mode", [0, 1])
 def test_victim_scores_kernel_equals_plain(cuda, mode, V):
@@ -1097,6 +1147,101 @@ def test_seq_solve_synthetic_cluster_equals_plain(cuda):
     _same_bits(k, p)
     _same_bits(k, c)
     assert int((k.assigned >= 0).sum()) > 0
+
+
+def _kernel_profiles():
+    """The last card solve's row profiles, followers resolved."""
+    from volcano_tpu_torch.ops.allocate import LAST_SEQ
+
+    pidh = LAST_SEQ["pidh"].cpu().numpy()
+    out = pidh.copy()
+    for t in range(len(out)):
+        if pidh[t] == -2:
+            out[t] = out[t - 1]
+    return out
+
+
+def _seq_cpu_inputs(store):
+    from volcano_tpu_torch.ops.allocate import seq_inputs
+
+    a_cpu, _ = solve_args_from_store(store, binpack=True, nodeorder=True,
+                                     device="cpu")
+    return seq_inputs(*a_cpu[:8], None, None, torch.device("cpu"))
+
+
+@pytest.mark.parametrize("name", ["profile runs", "alternating profiles",
+                                  "terms between runs", "many profiles",
+                                  "scalar resources",
+                                  "many scalar resources"])
+def test_seq_solve_equal_row_runs_equal_plain_and_cpu(cuda, name):
+    """Runs of equal rows across jobs (a gang rolled back mid-run and its
+    nodes taken by the next equal job), alternating profiles, term rows
+    between two runs of one profile, more distinct profiles than the cap,
+    3 and 6 resource slots (the kernel's register path and its general
+    one): the kernel equals the plain version and the CPU bit for bit, one
+    launch, and its profiles equal ``kernels.seq_profiles``."""
+    from test_torch_fixtures import seq_store
+
+    store = seq_store(volcano_tpu_torch, name)
+    k, p, c, launched = _seq_three_ways(store)
+    _same_bits(k, p)
+    _same_bits(k, c)
+    assert launched == 1
+    x = _seq_cpu_inputs(store)
+    want = kernels.seq_profiles(x).numpy()
+    assert np.array_equal(_kernel_profiles(), want)
+    if name == "many profiles":
+        assert want.max() == kernels.SEQ_MAX_PROFILES - 1 and (
+            want[x.real.numpy()] < 0).any()
+
+
+@pytest.mark.parametrize("plane", ["req", "init_req", "sel_bits",
+                                   "aff_bits", "aff_terms", "tol_bits",
+                                   "pref_bits", "pref_w", "ports",
+                                   "extra_ok", "extra_score"])
+def test_seq_solve_one_plane_variant_equals_plain(cuda, plane):
+    """Equal custom-plugin rows and a row of a run changed in one plane the
+    node loop reads: the kernel gives it a profile of its own (its row pass
+    reads that plane), as the numpy reference of the test fixtures does,
+    and equals the plain version and the CPU bit for bit."""
+    from test_torch_fixtures import (seq_plane_variant,
+                                     seq_profile_reference, seq_store)
+
+    store = seq_store(volcano_tpu_torch, "profile runs")
+    a_cpu, _ = solve_args_from_store(store, binpack=True, nodeorder=True,
+                                     device="cpu")
+    x, t = seq_plane_variant(_seq_cpu_inputs(store), plane)
+    xg = type(x)(*[v.cuda() if torch.is_tensor(v) else v for v in x])
+    w = a_cpu[4]
+    kernels.reset_launches()
+    k = interop.result_to_numpy(kernels.seq_solve(xg, w))
+    assert kernels.LAUNCHES["seq_solve"] == 1
+    got = _kernel_profiles()
+    p = interop.result_to_numpy(kernels.seq_solve(xg, w, plain=True))
+    c = interop.result_to_numpy(kernels.seq_solve(x, w))
+    _same_bits(k, p)
+    _same_bits(k, c)
+    assert np.array_equal(
+        got, seq_profile_reference(x, kernels.SEQ_MAX_PROFILES))
+    assert got[t] >= 0 and got[t] != got[t - 1]
+
+
+@pytest.mark.parametrize("n_nodes,n_pods,cpu", [(4500, 8000, "4"),
+                                                (9000, 3000, "64")])
+def test_seq_solve_past_4096_nodes_equals_plain(cuda, n_nodes, n_pods, cpu):
+    """Several super-chunks of 1,024 nodes: a cluster filled past its
+    capacity (gangs rolled back and failing) and a roomy one."""
+    store = synthetic_cluster(n_nodes=n_nodes, n_pods=n_pods, gang_size=8,
+                              n_queues=2, node_cpu=cpu, zones=4, seed=5)
+    k, p, c, launched = _seq_three_ways(store)
+    _same_bits(k, p)
+    _same_bits(k, c)
+    assert launched == 1
+    assert np.array_equal(_kernel_profiles(),
+                          kernels.seq_profiles(_seq_cpu_inputs(store))
+                          .numpy())
+    if cpu == "4":
+        assert k.never_ready.any() or k.fit_failed.any()
 
 
 # ----------------------------------------- extra planes in the rankings

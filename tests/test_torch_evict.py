@@ -93,9 +93,10 @@ def _jax_planes(c):
         out[:V] = a
         return out
 
+    tie = np.concatenate([c["v_tie"], np.arange(V, Vp)]).astype(np.int32)
     planes = jvk.victim_scores(
         pad(c["v_ok"], False), pad(c["v_jprio"]), pad(c["v_crank"]),
-        np.arange(Vp, dtype=np.int32), pad(c["v_queue"]), pad(c["v_node"]),
+        tie, pad(c["v_queue"]), pad(c["v_node"]),
         pad(c["v_req"]), np.int32(c["p_prio"]), np.int32(c["p_queue"]),
         c["q_alloc"], c["q_des"], c["q_rec"], np.int32(c["mode"]),
         np.zeros((c["N"], 3), np.float32))
@@ -159,6 +160,37 @@ def test_victim_scores_plain_matches_jax(seed, mode):
         dict(kw["budget_left"]), kw["cap"], q_alloc=kw.get("q_alloc"),
         q_deserved=kw.get("q_deserved"))
     assert tuple(tsel) == tuple(jsel)
+
+
+def dup_crank_case(seed, mode):
+    """``_victim_case`` with duplicate creation ranks (a quarter of V
+    values) and a tie that is a permutation of 0..V-1, not arange: the
+    order's last two keys decide."""
+    c = _victim_case(seed, mode)
+    V = len(c["v_ok"])
+    rng = np.random.RandomState(seed + 7)
+    c["v_crank"] = rng.randint(0, max(1, V // 4), V).astype(np.int32)
+    c["v_tie"] = rng.permutation(V).astype(np.int32)
+    return c
+
+
+@pytest.mark.parametrize("mode", [tvk.PREEMPT, tvk.RECLAIM])
+@pytest.mark.parametrize("seed", range(10))
+def test_victim_scores_duplicate_cranks_match_jax(seed, mode):
+    c = dup_crank_case(2000 * (mode + 1) + seed, mode)
+    V = len(c["v_ok"])
+    jel, jorder, jev, jqs = _jax_planes(c)
+    el, order, ev, qs = _port_planes(c)
+    assert np.array_equal(el, jel[:V])
+    assert np.array_equal(order, jorder[:V])
+    assert np.array_equal(qs, jqs)
+    assert ev.tobytes() == jev.tobytes()
+    # The tie decided somewhere: two eligible rows of one priority and
+    # rank, taken in tie order, not row order.
+    key = list(zip(~el, c["v_jprio"], -c["v_crank"]))
+    pairs = [(a, b) for a, b in zip(order[:-1], order[1:])
+             if key[a] == key[b]]
+    assert pairs and all(c["v_tie"][a] < c["v_tie"][b] for a, b in pairs)
 
 
 def test_victim_scores_exercise_both_outcomes():

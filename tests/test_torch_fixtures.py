@@ -462,13 +462,23 @@ def affinity_store(pkg, n_nodes=32, n_gangs=24, gang_size=4, zones=4,
 
 SEQ_CASES = ("plain fit", "gang discard", "fit failure", "releasing",
              "host ports", "taints selectors node affinity")
+# Runs of equal task rows (the card kernel keeps one key table per run
+# profile): equal rows across jobs with a gang discarded mid-run whose
+# nodes the next equal job takes, alternating profiles, term-reading rows
+# between two runs of one profile, more distinct profiles than the card
+# kernel's cap of 64; extended scalar resources: 3 resource slots, and 6
+# (past the 4 the card kernel keeps in registers).
+SEQ_RUN_CASES = ("profile runs", "alternating profiles",
+                 "terms between runs", "many profiles", "scalar resources",
+                 "many scalar resources")
 SEQ_ZONES = ("zone-a", "zone-b", "zone-c")
 
 
 def seq_store(pkg, name, seed=0):
     """The sequential-solve stores (test_ops.py / test_affinity.py /
     test_oracle_parity.py shapes), built from either package's api.
-    ``name`` is one of SEQ_CASES, "affinity" or "random" (both seeded)."""
+    ``name`` is one of SEQ_CASES, SEQ_RUN_CASES, "affinity" or "random"
+    (both seeded)."""
     api = pkg.api
     store = pkg.cache.ClusterStore()
 
@@ -592,6 +602,68 @@ def seq_store(pkg, name, seed=0):
                     p.preferred_affinity = [(term, 50)]
                 pods.append(p)
             gang(f"g{g}", pods, min_member=int(rng.integers(1, size + 1)))
+    elif name == "profile runs":
+        # Every pod asks 2 CPUs: one profile across the jobs.  g2 (min 8)
+        # places four and fails; its rollback frees the nodes g3 takes.
+        for i in range(4):
+            node(f"n{i}", cpu="8", mem=f"{16 + 4 * i}Gi")
+        for g, (size, mm) in enumerate([(6, 6), (5, 5), (9, 8), (4, 4),
+                                        (3, 3), (2, 1)]):
+            gang(f"g{g}", [pod(f"g{g}-{k}", cpu="2") for k in range(size)],
+                 min_member=mm)
+    elif name == "alternating profiles":
+        # Two requests in alternating gangs, a selector gang between them.
+        for i in range(5):
+            node(f"n{i}", cpu=str(6 + i), mem="32Gi",
+                 labels={"disk": "ssd" if i % 2 else "hdd"})
+        for g in range(10):
+            cpu = "1" if g % 2 else "3"
+            sel = {"disk": "ssd"} if g == 4 else {}
+            gang(f"g{g}", [pod(f"g{g}-{k}", cpu=cpu, node_selector=sel)
+                           for k in range(3)], min_member=2)
+    elif name == "terms between runs":
+        # One profile before and after a gang that reads terms; the last
+        # gang matches the anti-affinity term without reading one.
+        for i in range(6):
+            node(f"n{i}", cpu="16", mem="64Gi",
+                 labels={"zone": SEQ_ZONES[i % 3]})
+        gang("a", [pod(f"a{k}", cpu="2", labels={"app": "a"})
+                   for k in range(4)])
+        gang("b", [pod(f"b{k}", cpu="2", labels={"app": "b"},
+                       anti_affinity=[api.AffinityTerm(
+                           match_labels={"app": "b"},
+                           topology_key="kubernetes.io/hostname")])
+                   for k in range(3)])
+        gang("c", [pod(f"c{k}", cpu="2", labels={"app": "a"})
+                   for k in range(4)])
+        gang("d", [pod(f"d{k}", cpu="2", labels={"app": "b"})
+                   for k in range(3)])
+        gang("e", [pod(f"e{k}", cpu="2", labels={"app": "b"},
+                       affinity=[api.AffinityTerm(
+                           match_labels={"app": "b"}, topology_key="zone")])
+                   for k in range(2)])
+    elif name == "many profiles":
+        # 70 distinct requests (past the cap), then the first ten again.
+        for i in range(8):
+            node(f"n{i}", cpu="64", mem="256Gi", pods=64)
+        for g in range(80):
+            milli = 100 + 10 * (g % 70)
+            gang(f"g{g}", [pod(f"g{g}-{k}", cpu=f"{milli}m")
+                           for k in range(2)])
+    elif name in ("scalar resources", "many scalar resources"):
+        extra = (["nvidia.com/gpu"] if name == "scalar resources" else
+                 ["nvidia.com/gpu", "example.com/fpga", "example.com/nic",
+                  "example.com/ssd"])
+        for i in range(5):
+            alloc = {"cpu": "16", "memory": "64Gi", "pods": 32}
+            for k, r in enumerate(extra):
+                alloc[r] = str(2 + (i + k) % 3)
+            store.add_node(api.Node(name=f"n{i}", allocatable=alloc))
+        for g in range(8):
+            want = {"cpu": str(1 + g % 3), "memory": "2Gi",
+                    extra[g % len(extra)]: "1"}
+            gang(f"g{g}", [api.Pod(name=f"g{g}-{k}", containers=[want])
+                           for k in range(3)], min_member=2)
     elif name == "random":
         # test_oracle_parity.py's _random_store: heterogeneous nodes,
         # labels, taints, host ports, selectors, gangs, several queues.
@@ -651,3 +723,64 @@ def seq_extra(args, seed):
     ok = rng.random((P, N)) < 0.7
     score = np.round(rng.normal(0.0, 4.0, (P, N)), 3).astype(np.float32)
     return ok, score
+
+
+# Every row plane the sequential solve's node loop reads (fields of
+# ops.allocate.SeqInputs), listed here apart from the port's own list.
+SEQ_PROFILE_PLANES = ("req", "init_req", "sel_bits", "aff_bits", "aff_terms",
+                      "tol_bits", "pref_bits", "pref_w", "ports", "extra_ok",
+                      "extra_score")
+
+
+def seq_profile_reference(x, cap):
+    """The profile of each row of ``x`` (a ``SeqInputs``) from numpy row
+    equality alone: a real row that reads no inter-pod term has one; it
+    takes the profile of the row before when their bytes over
+    SEQ_PROFILE_PLANES are equal and that row has one, else it opens a run
+    and takes the id its bytes first got (ids in order of first
+    appearance, at most ``cap``; -1 past it).  [P] int64."""
+    P = x.req.shape[0]
+    planes = [np.ascontiguousarray(getattr(x, f).cpu().numpy())
+              for f in SEQ_PROFILE_PLANES if getattr(x, f) is not None]
+    rows = [b"".join(p[t].tobytes() for p in planes) for t in range(P)]
+    reads = (x.t_req_aff.cpu().numpy() | x.t_req_anti.cpu().numpy()
+             | (x.t_soft.cpu().numpy() != 0)).any(axis=1)
+    prof = x.real.cpu().numpy() & ~reads
+    ids, out = {}, np.full(P, -1, np.int64)
+    for t in range(P):
+        if not prof[t]:
+            continue
+        if t > 0 and prof[t - 1] and rows[t - 1] == rows[t]:
+            out[t] = out[t - 1]
+            continue
+        if rows[t] not in ids and len(ids) < cap:
+            ids[rows[t]] = len(ids)
+        out[t] = ids.get(rows[t], -1)
+    return out
+
+
+def seq_plane_variant(x, plane, seed=0):
+    """``x`` with equal custom-plugin rows (every row the same verdicts and
+    scores, from a numpy seed) and one row t changed in ``plane`` alone
+    (its first element: a float + 1, a bit flipped, a verdict negated),
+    where rows t - 1 and t were equal profiled rows.  Returns (x', t)."""
+    import torch
+
+    P, N = x.req.shape[0], x.idle.shape[0]
+    rng = np.random.default_rng(seed)
+    ok = torch.from_numpy(np.tile(rng.random(N) < 0.9, (P, 1)))
+    score = torch.from_numpy(np.tile(
+        np.round(rng.normal(0.0, 1.0, N), 3).astype(np.float32), (P, 1)))
+    x = x._replace(extra_ok=ok.to(x.req.device),
+                   extra_score=score.to(x.req.device))
+    ref = seq_profile_reference(x, cap=P)
+    t = next(t for t in range(1, P) if ref[t] >= 0 and ref[t] == ref[t - 1])
+    a = getattr(x, plane).clone()
+    idx = (t,) + (0,) * (a.dim() - 1)
+    if a.dtype == torch.bool:
+        a[idx] = ~a[idx]
+    elif a.is_floating_point():
+        a[idx] = a[idx] + 1.0
+    else:
+        a[idx] = a[idx] ^ 1
+    return x._replace(**{plane: a}), t

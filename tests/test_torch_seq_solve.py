@@ -14,7 +14,10 @@ import numpy as np
 import pytest
 
 from test_oracle_parity import _random_store
-from test_torch_fixtures import SEQ_CASES, seq_extra, seq_store, tonp
+from test_torch_fixtures import (SEQ_CASES, SEQ_PROFILE_PLANES,
+                                 SEQ_RUN_CASES, seq_extra,
+                                 seq_plane_variant, seq_profile_reference,
+                                 seq_store, tonp)
 
 import volcano_tpu
 import volcano_tpu.api
@@ -23,8 +26,11 @@ from volcano_tpu.ops.allocate import SolveQueues
 from volcano_tpu.ops.allocate import solve as jax_solve
 from volcano_tpu.synth import solve_args_from_store
 
+import torch
+
 import volcano_tpu_torch.ops.allocate as port_allocate
-from volcano_tpu_torch.ops.allocate import LAST_SEQ, solve
+from volcano_tpu_torch.ops import kernels
+from volcano_tpu_torch.ops.allocate import LAST_SEQ, seq_inputs, solve
 
 
 def _bits(a):
@@ -185,3 +191,93 @@ def test_seq_solve_scored_rows_from_alloc_counts(what, monkeypatch):
         kept = int((res.assigned >= 0).sum()) + int(
             (res.pipelined >= 0).sum()) + int(res.fit_failed.sum())
         assert kept < scored
+
+
+@pytest.mark.parametrize("what", SEQ_RUN_CASES)
+def test_seq_solve_equal_row_runs_match_jax(what):
+    """Runs of equal rows: across jobs with a gang rolled back mid-run,
+    alternating, around term-reading rows, past the card kernel's profile
+    cap."""
+    args, _ = solve_args_from_store(seq_store(volcano_tpu, what),
+                                    nodeorder=True)
+    res = _check(args)
+    assert (np.asarray(res.assigned) >= 0).any()
+
+
+def test_seq_run_cases_reach_what_they_are_named_for():
+    """"profile runs" rolls a gang back and gives its nodes to the next
+    gang of the same profile; "terms between runs" has term-reading rows
+    between two runs of one profile and profiled rows that match a term;
+    "many profiles" has more distinct rows than the cap; the scalar cases
+    have 3 and 6 resource slots."""
+    def res(name):
+        args, _ = solve_args_from_store(seq_store(volcano_tpu, name),
+                                        nodeorder=True)
+        return jax_solve(*args), args
+
+    r, args = res("profile runs")
+    nr = np.asarray(r.never_ready)
+    assert nr.any()
+    job = np.asarray(args[1].job)
+    real = np.asarray(args[1].real)
+    discarded = int(np.flatnonzero(nr)[0])
+    nxt = np.asarray(r.assigned)[real & (job == discarded + 1)]
+    assert (nxt >= 0).all() and len(nxt) > 0
+    req = np.asarray(args[1].req)[real]
+    assert (req == req[0]).all()
+
+    _, args = res("terms between runs")
+    aff = args[7]
+    reads = (np.asarray(aff.t_req_aff) | np.asarray(aff.t_req_anti)
+             | (np.asarray(aff.t_soft) != 0)).any(axis=1)
+    matches = np.asarray(aff.t_matches).any(axis=1)
+    real = np.asarray(args[1].real)
+    assert (reads & real).any() and (matches & ~reads & real).any()
+    first = int(np.flatnonzero(reads & real)[0])
+    assert (~reads[:first] & real[:first]).any()
+    assert (~reads[first:] & real[first:]).any()
+
+    _, args = res("many profiles")
+    req = np.asarray(args[1].req)[np.asarray(args[1].real)]
+    assert len(np.unique(req, axis=0)) > kernels.SEQ_MAX_PROFILES
+
+    for name, R in (("scalar resources", 3), ("many scalar resources", 6)):
+        r, args = res(name)
+        assert np.asarray(args[0].idle).shape[1] == R
+        assert (np.asarray(r.assigned) >= 0).any()
+
+
+@pytest.mark.parametrize("what,seed", [(n, 0) for n in SEQ_RUN_CASES]
+                         + [("random", s) for s in range(3)]
+                         + [("affinity", s) for s in range(2)])
+def test_seq_profiles_equal_numpy_row_equality(what, seed):
+    """The plain profile pass (``kernels.seq_profiles``) against numpy:
+    two rows share a profile only when every plane the node loop reads
+    is equal, term-reading rows have none, and ids follow the heads'
+    order up to the cap."""
+    args, _ = solve_args_from_store(seq_store(volcano_tpu, what, seed),
+                                    nodeorder=True)
+    x = seq_inputs(*tonp(args)[:8], None, None, torch.device("cpu"))
+    got = kernels.seq_profiles(x).numpy()
+    np.testing.assert_array_equal(
+        got, seq_profile_reference(x, kernels.SEQ_MAX_PROFILES))
+    words = kernels._seq_profile_words(x).numpy()
+    for u in np.unique(got[got >= 0]):
+        rows = words[got == u]
+        assert (rows == rows[0]).all()
+
+
+@pytest.mark.parametrize("plane", SEQ_PROFILE_PLANES)
+def test_seq_profiles_split_rows_that_differ_in_one_plane(plane):
+    """Two equal profiled rows of a run, then one of them changed in a
+    single plane the node loop reads: the plain profile pass gives them
+    different profiles, as the numpy reference over the planes listed in
+    the test fixtures does."""
+    args, _ = solve_args_from_store(seq_store(volcano_tpu, "profile runs"),
+                                    nodeorder=True)
+    x = seq_inputs(*tonp(args)[:8], None, None, torch.device("cpu"))
+    y, t = seq_plane_variant(x, plane)
+    got = kernels.seq_profiles(y).numpy()
+    np.testing.assert_array_equal(
+        got, seq_profile_reference(y, kernels.SEQ_MAX_PROFILES))
+    assert got[t] >= 0 and got[t - 1] >= 0 and got[t] != got[t - 1]

@@ -1,33 +1,51 @@
 #!/usr/bin/env python3
-"""Traced device time of the PyTorch port's kernels on two trees, for
-comparing a change with its parent on one card.
+"""Device time of the PyTorch port's kernels on two trees, for comparing a
+change with its parent (or two builds of one source) on one card.
 
 Run on a machine with one CUDA card, once per tree and in turns (parent,
 change, change, parent), each in its own process:
 
-    python3 tools/port_ab.py --tree path/to/parent --label parent
-    python3 tools/port_ab.py --tree . --label change
+    python3 tools/port_ab.py --tree path/to/parent --label parent --phase seq
+    python3 tools/port_ab.py --tree . --label change --phase seq
 
 ``--tree`` is a checkout of the repository (the package
 ``volcano_tpu_torch`` and ``chip_smoke.py`` at its root); its kernels are
-built from its own sources into its own build directory.  The script
-measures, with that tree's code:
+built from its own sources into its own build directory.  ``--phase``
+(repeatable) picks what the script measures with that tree's code:
 
-- the north-star solve (``synthetic_cluster(10,000 nodes, 100,000 pods,
-  gangs of 8, 16 zones)`` through ``solve_wave``): one warm-up solve, the
-  median wall time of ``--solves`` (5; 0 skips the solve), and one solve
+- ``solve``: the north-star solve (``synthetic_cluster(10,000 nodes,
+  100,000 pods, gangs of 8, 16 zones)`` through ``solve_wave``): one
+  warm-up solve, the median wall time of ``--solves`` (5), and one solve
   traced with ``torch.profiler``;
-- BASELINE config 5's cold cycle (``chip_smoke.config5_cluster(10,000,
-  100,000)`` under ``CONF_BASE``, ``Scheduler(store).run_once()``):
-  ``--cold`` untraced cycles (1), each on a fresh store (their wall times
-  and ``device_fine`` lanes), then one traced cycle on another fresh store
-  of the same seed.
+- ``cold``: BASELINE config 5's cold cycle (``chip_smoke.config5_cluster(
+  10,000, 100,000)`` under ``CONF_BASE``): ``--cold`` untraced cycles (1),
+  each on a fresh store (wall times, ``device_fine`` lanes), then one
+  traced cycle on another fresh store of the same seed;
+- ``shortlist``: the block-form shortlist launches captured on their real
+  inputs (the north-star store's first ``coarse_shortlist`` and first warm
+  ``warm_shortlist``, config 5's cold ``coarse_shortlist``), each checked
+  against its plain version and timed by ``chip_smoke.replay_kernels``;
+- ``seq``: BASELINE config 2 (``chip_smoke.CONFIG2``: 1,000 nodes x 10,000
+  pods) under ``CONF_SEQ``, then again with chip_smoke's device-mask plugin
+  and batch scorer (``custom_seq``: every row its own custom-plugin rows):
+  a cold ``run_once()`` each, its ``seq_solve`` inputs captured and
+  launched ``--reps`` (5) times, each alone between CUDA events (median);
+- ``seq-north-star``: the north-star solve arguments through the
+  sequential ``ops.allocate.solve``: median host wall of three solves;
+- ``seq-trace``: ``--cycles`` (4) cold ``CONF_SEQ`` cycles of config 2,
+  each on a fresh store and traced, with CUDA events around every
+  ``vtt_seq_solve`` call: whether each trace holds the solve's kernels;
+- ``victim``: ``victim_scores`` in both modes at V = 40,000 over 10,000
+  nodes (four job priorities, creation ranks a permutation, ties 0..V-1,
+  numpy seed 0), checked against its plain version; CUDA events around 20
+  queued launches (``chip_smoke._device_ms``), best of two.
 
-For each trace: the device time and launch count summed per CUDA function
-(every device event, named as the profiler names it), the card's busy time
-and the cycle's or solve's wall time.  The last line of standard output is
-one JSON object with the label, the card's name and power limit, and these
-numbers.  Without a card it exits non-zero.
+A traced call reports the device time and launch count summed per CUDA
+function (every device event, named as the profiler names it), the card's
+busy time and the call's wall time.  A line per phase goes to standard
+error; the last line of standard output is one JSON object with the
+label, the card's name and power limit, and every phase's numbers.
+Without a card it exits non-zero.
 """
 
 from __future__ import annotations
@@ -39,6 +57,9 @@ import subprocess
 import sys
 import time
 from pathlib import Path
+
+PHASES = ("solve", "cold", "shortlist", "seq", "seq-north-star",
+          "seq-trace", "victim")
 
 
 def _trace(fn) -> dict:
@@ -71,15 +92,352 @@ def _trace(fn) -> dict:
         if b > end:
             busy += b - max(a, end)
             end = b
-    return {"wall_ms": wall * 1e3, "busy_ms": busy / 1e3, "funcs": funcs}
+    return {"wall_ms": wall * 1e3, "busy_ms": busy / 1e3,
+            "device_events": len(spans), "funcs": funcs}
+
+
+def _top(tr: dict, k: int = 12) -> str:
+    rows = sorted(tr["funcs"].items(), key=lambda kv: -kv[1][0])[:k]
+    return ", ".join(f"{f} {ms:.3f} ms / {n}" for f, (ms, n) in rows)
+
+
+def _log(label: str, msg: str) -> None:
+    print(f"[{label}] {msg}", file=sys.stderr, flush=True)
+
+
+# ------------------------------------------------------------ wave solve
+
+def phase_solve(cs, opts) -> dict:
+    import torch
+
+    from volcano_tpu_torch.ops.wave import LAST_TWOPHASE, solve_wave
+    from volcano_tpu_torch.synth import (solve_args_from_store,
+                                         synthetic_cluster)
+
+    store = synthetic_cluster(n_nodes=10000, n_pods=100000, gang_size=8,
+                              zones=16, seed=0)
+    args, _ = solve_args_from_store(store, binpack=True, nodeorder=True)
+    solve_wave(*args)
+    torch.cuda.synchronize()
+    walls, syncs = [], None
+    for _ in range(opts.solves):
+        t0 = time.perf_counter()
+        solve_wave(*args)
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+        syncs = LAST_TWOPHASE["syncs"]
+    out = {"median_s": statistics.median(walls), "walls_s": walls,
+           "syncs": syncs, "trace": _trace(lambda: solve_wave(*args))}
+    _log(opts.label, f"solve {out['median_s']:.4f} s; traced busy "
+         f"{out['trace']['busy_ms']:.3f} ms: {_top(out['trace'])}")
+    return out
+
+
+def phase_cold(cs, opts) -> dict:
+    import torch
+
+    from volcano_tpu_torch.ops.wave import LAST_TWOPHASE
+    from volcano_tpu_torch.scheduler import Scheduler
+
+    cold = {"wall_s": [], "device_fine_ms": [], "syncs": []}
+    for traced in [False] * opts.cold + [True]:
+        st = cs.config5_cluster(10000, 100000)
+        sched = Scheduler(st, conf_str=cs.CONF_BASE)
+        if traced:
+            cold["trace"] = _trace(sched.run_once)
+            cold["traced_device_fine_ms"] = cs._lanes(st).get(
+                "device_fine", 0.0)
+        else:
+            t0 = time.perf_counter()
+            sched.run_once()
+            torch.cuda.synchronize()
+            cold["wall_s"].append(time.perf_counter() - t0)
+            cold["device_fine_ms"].append(cs._lanes(st).get(
+                "device_fine", 0.0))
+            cold["syncs"].append(LAST_TWOPHASE["syncs"])
+        cs.cycle_invariants(st, len(st.pods))
+        st.close()
+    _log(opts.label, f"cold {cold['wall_s']} s; traced busy "
+         f"{cold['trace']['busy_ms']:.3f} ms: {_top(cold['trace'])}")
+    return cold
+
+
+# ------------------------------------------------------------ shortlists
+
+def _shortlist_shape(cap: dict) -> dict:
+    """(U profile rows, N nodes, B node blocks, S; ndb dirty blocks for a
+    warm pass)."""
+    U = int(cap["req"].shape[0])
+    N = int(cap["idle"].shape[0])
+    if "db" in cap:
+        B = int(cap["cand_s"].shape[1])
+        return {"U": U, "N": N, "B": B, "S": int(cap["S"]),
+                "ndb": int(cap["db"].shape[0])}
+    return {"U": U, "N": N, "B": int(cap["n_blocks"]), "S": int(cap["S"])}
+
+
+def phase_shortlist(cs, opts) -> dict:
+    from volcano_tpu_torch.ops import kernels
+    from volcano_tpu_torch.synth import synthetic_cluster
+
+    caps = {}
+    kernels.CAPTURE = {}
+    store = synthetic_cluster(n_nodes=10000, n_pods=100000, gang_size=8,
+                              zones=16, seed=0)
+    cs.run_cycle("ab:cycle", store, 100000)
+    cyc, kernels.CAPTURE = kernels.CAPTURE, None
+    store.close()
+    for name, key in (("north_star", "coarse_shortlist"),
+                      ("warm", "warm_shortlist")):
+        if key not in cyc or (key == "coarse_shortlist"
+                              and not cyc[key]["n_blocks"]):
+            raise AssertionError(f"[ab:cycle] no {name} launch captured")
+        caps[name] = (key, cyc[key])
+
+    kernels.CAPTURE = {}
+    store = cs.config5_cluster(10000, 100000)
+    stats, _ = cs.run_aff_cycles("ab:affinity", store, steady=0)
+    c5, kernels.CAPTURE = kernels.CAPTURE, None
+    store.close()
+    keys = [k for k in stats["cycles"][0]["captured"]
+            if k.startswith("coarse_shortlist")]
+    if len(keys) != 1 or not c5[keys[0]]["n_blocks"]:
+        raise AssertionError(f"[ab:affinity] captured {keys}: not one "
+                             f"block-form launch")
+    caps["config5_cold"] = ("coarse_shortlist", c5[keys[0]])
+
+    out = {}
+    for name, (key, cap) in caps.items():
+        row = cs.replay_kernels({key: cap}, {key: 1}, names=[key])[0]
+        shape = _shortlist_shape(cap)
+        out[name] = {"shape": shape, "ms": row["ms"],
+                     "plain_ms": row["plain_ms"], "queued": row["queued"],
+                     "max_abs_err": row["max_abs_err"]}
+        _log(opts.label, f"shortlist {name} {json.dumps(shape)}: "
+             f"{row['ms']:.5f} ms (plain {row['plain_ms']:.3f})")
+    return out
+
+
+# ------------------------------------------------------------ seq solve
+
+def _seq_times(x, weights, reps: int) -> list:
+    """Device ms of ``reps`` seq_solve launches on ``x``, each alone."""
+    import torch
+
+    from volcano_tpu_torch.ops import kernels
+
+    kernels.seq_solve(x, weights)
+    out = []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        e0 = torch.cuda.Event(enable_timing=True)
+        e1 = torch.cuda.Event(enable_timing=True)
+        e0.record()
+        kernels.seq_solve(x, weights)
+        e1.record()
+        torch.cuda.synchronize()
+        out.append(e0.elapsed_time(e1))
+    return out
+
+
+def _seq_cycle(cs, conf: str, reps: int) -> dict:
+    import torch
+
+    from volcano_tpu_torch.ops import kernels
+    from volcano_tpu_torch.scheduler import Scheduler
+
+    store = cs._fresh_cluster(**cs.CONFIG2)
+    kernels.CAPTURE = {}
+    sched = Scheduler(store, conf_str=conf)
+    t0 = time.perf_counter()
+    sched.run_once()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    cap, kernels.CAPTURE = kernels.CAPTURE, None
+    rec = store.flight.last()
+    if rec.path != "object" or "seq_solve" not in cap:
+        raise RuntimeError(f"no object-session seq solve: {rec.path}")
+    cs.cycle_invariants(store, cs.CONFIG2["n_pods"])
+    store.close()
+    c = cap["seq_solve"]
+    ms = _seq_times(c["x"], c["weights"], reps)
+    return {"cycle_wall_s": wall,
+            "lanes_ms": {k: v * 1e3 for k, v in sorted(rec.lanes.items())},
+            "rows": int(c["x"].req.shape[0]),
+            "extra": c["x"].extra_ok is not None,
+            "solve_ms": ms, "median_ms": statistics.median(ms)}
+
+
+def _register_custom(cs) -> str:
+    """chip_smoke's custom plugins registered; the conf naming them under
+    the sequential solver."""
+    from volcano_tpu_torch.framework import register_plugin_builder
+
+    register_plugin_builder(cs.ChipMask.name, cs.ChipMask)
+    register_plugin_builder(cs.ChipScorer.name, cs.ChipScorer)
+    return cs.CONF_CUSTOM + cs.CONF_SEQ[len(cs.CONF_BASE):]
+
+
+def phase_seq(cs, opts) -> dict:
+    out = {"seq": _seq_cycle(cs, cs.CONF_SEQ, opts.reps),
+           "custom_seq": _seq_cycle(cs, _register_custom(cs), opts.reps)}
+    _log(opts.label, f"seq {out['seq']['median_ms']:.3f} ms "
+         f"({out['seq']['solve_ms']}), custom:seq "
+         f"{out['custom_seq']['median_ms']:.3f} ms "
+         f"({out['custom_seq']['solve_ms']})")
+    return out
+
+
+def phase_seq_north_star(cs, opts) -> dict:
+    import torch
+
+    from volcano_tpu_torch.ops.allocate import solve
+    from volcano_tpu_torch.synth import (solve_args_from_store,
+                                         synthetic_cluster)
+
+    store = synthetic_cluster(n_nodes=10000, n_pods=100000, gang_size=8,
+                              zones=16, seed=0)
+    args, _ = solve_args_from_store(store, binpack=True, nodeorder=True)
+    walls = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        solve(*args)
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+    out = {"walls_s": walls, "median_s": statistics.median(walls)}
+    _log(opts.label, f"seq north star {out['median_s']:.4f} s ({walls})")
+    return out
+
+
+class _EventLib:
+    """A kernel library with CUDA events around each ``vtt_seq_solve``
+    call, timed apart from any profiler trace."""
+
+    def __init__(self, lib):
+        self.lib = lib
+        self.events = []
+
+    def __getattr__(self, name):
+        fn = getattr(self.lib, name)
+        if name != "vtt_seq_solve":
+            return fn
+
+        def timed(*args):
+            import torch
+
+            e0 = torch.cuda.Event(enable_timing=True)
+            e1 = torch.cuda.Event(enable_timing=True)
+            e0.record()
+            rc = fn(*args)
+            e1.record()
+            self.events.append((e0, e1))
+            return rc
+        return timed
+
+
+def phase_seq_trace(cs, opts) -> dict:
+    import torch
+
+    from volcano_tpu_torch.ops import kernels
+    from volcano_tpu_torch.scheduler import Scheduler
+
+    cycles = []
+    for _ in range(opts.cycles):
+        store = cs._fresh_cluster(**cs.CONFIG2)
+        sched = Scheduler(store, conf_str=cs.CONF_SEQ)
+        lib = _EventLib(kernels.load())
+        load, kernels.load = kernels.load, lambda: lib
+        try:
+            tr = _trace(sched.run_once)
+        finally:
+            kernels.load = load
+        torch.cuda.synchronize()
+        cs.cycle_invariants(store, cs.CONFIG2["n_pods"])
+        store.close()
+        ev = [e0.elapsed_time(e1) for e0, e1 in lib.events]
+        cycles.append({
+            "events_ms": ev, "wall_ms": tr["wall_ms"],
+            "busy_ms": tr["busy_ms"], "device_events": tr["device_events"],
+            "traced": {f: tr["funcs"].get(f) for f in
+                       ("row_prep_kernel", "seq_solve_kernel")},
+            "top": _top(tr, 6)})
+        _log(opts.label, f"seq-trace events {ev} ms, traced "
+             f"{cycles[-1]['traced']}, {tr['device_events']} device events, "
+             f"busy {tr['busy_ms']:.3f} of {tr['wall_ms']:.1f} ms")
+    return {"cycles": cycles,
+            "missed": sum(c["traced"]["seq_solve_kernel"] is None
+                          for c in cycles)}
+
+
+# ------------------------------------------------------------ victims
+
+def _victim_inputs(mode: int, dev):
+    import numpy as np
+    import torch
+
+    rng = np.random.default_rng(0)
+    V, N, Q, R = 40000, 10000, 4, 3
+    v_req = np.zeros((V, R), np.float32)
+    v_req[:, 0] = rng.choice([1000.0, 2000.0, 4000.0], V)
+    v_req[:, 1] = rng.choice([2.0, 4.0, 8.0], V) * 2.0 ** 30
+    q_alloc = rng.uniform(0.5, 2.0, (Q, R)).astype(np.float32) * 1e6
+    q_des = np.full((Q, R), 1e6, np.float32)
+    a = dict(
+        v_ok=rng.random(V) > 0.05, v_jprio=rng.integers(0, 4, V),
+        v_crank=rng.permutation(V), v_tie=np.arange(V),
+        v_queue=rng.integers(0, Q, V), v_node=rng.integers(0, N, V),
+        v_req=v_req, q_alloc=q_alloc, q_deserved=q_des,
+        q_reclaimable=np.ones(Q, bool))
+    t = {}
+    for k, v in a.items():
+        v = np.ascontiguousarray(v)
+        if v.dtype == np.int64:
+            v = v.astype(np.int32)
+        t[k] = torch.from_numpy(v).to(dev)
+    return (t["v_ok"], t["v_jprio"], t["v_crank"], t["v_tie"], t["v_queue"],
+            t["v_node"], t["v_req"], 3, 1, t["q_alloc"], t["q_deserved"],
+            t["q_reclaimable"], mode, N)
+
+
+def phase_victim(cs, opts) -> dict:
+    import torch
+
+    from volcano_tpu_torch.ops import kernels
+
+    out = {}
+    for mode, name in ((0, "preempt"), (1, "reclaim")):
+        args = _victim_inputs(mode, torch.device("cuda"))
+        got = kernels.victim_scores(*args)
+        want = kernels.victim_scores(*args, plain=True)
+        torch.cuda.synchronize()
+        if not all(torch.equal(g, w) for g, w in zip(got, want)):
+            raise RuntimeError(f"victim_scores ({name}) != plain version")
+        ms = min(cs._device_ms(
+            [lambda: kernels.victim_scores(*args) for _ in range(20)])[0]
+            for _ in range(2))
+        out[name] = {"ms": ms, "eligible": int(got[0].sum())}
+    _log(opts.label, f"victim preempt {out['preempt']['ms']:.5f} ms, "
+         f"reclaim {out['reclaim']['ms']:.5f} ms")
+    return out
+
+
+RUN = {"solve": phase_solve, "cold": phase_cold,
+       "shortlist": phase_shortlist, "seq": phase_seq,
+       "seq-north-star": phase_seq_north_star, "seq-trace": phase_seq_trace,
+       "victim": phase_victim}
 
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--tree", required=True)
     ap.add_argument("--label", required=True)
+    ap.add_argument("--phase", action="append", choices=PHASES,
+                    required=True)
     ap.add_argument("--solves", type=int, default=5)
     ap.add_argument("--cold", type=int, default=1)
+    ap.add_argument("--reps", type=int, default=5)
+    ap.add_argument("--cycles", type=int, default=4)
     opts = ap.parse_args()
 
     import torch
@@ -91,10 +449,6 @@ def main() -> int:
     sys.path.insert(0, str(tree))
     import chip_smoke
     from volcano_tpu_torch.ops import kernels
-    from volcano_tpu_torch.ops.wave import LAST_TWOPHASE, solve_wave
-    from volcano_tpu_torch.scheduler import Scheduler
-    from volcano_tpu_torch.synth import (solve_args_from_store,
-                                         synthetic_cluster)
 
     if not Path(kernels.__file__).resolve().is_relative_to(tree):
         raise RuntimeError(f"volcano_tpu_torch not loaded from {tree}")
@@ -104,58 +458,10 @@ def main() -> int:
         check=True).stdout.strip()
     t0 = time.perf_counter()
     kernels.load()
-    build_s = time.perf_counter() - t0
-
-    # The north-star solve.
-    solve = None
-    if opts.solves:
-        store = synthetic_cluster(n_nodes=10000, n_pods=100000,
-                                  gang_size=8, zones=16, seed=0)
-        args, _ = solve_args_from_store(store, binpack=True, nodeorder=True)
-        solve_wave(*args)
-        torch.cuda.synchronize()
-        walls, syncs = [], None
-        for _ in range(opts.solves):
-            t0 = time.perf_counter()
-            solve_wave(*args)
-            torch.cuda.synchronize()
-            walls.append(time.perf_counter() - t0)
-            syncs = LAST_TWOPHASE["syncs"]
-        solve = {"median_s": statistics.median(walls), "walls_s": walls,
-                 "syncs": syncs, "trace": _trace(lambda: solve_wave(*args))}
-        del args, store
-
-    # Config 5's cold cycle: untraced, then traced, each on a fresh store.
-    cold = {"wall_s": [], "device_fine_ms": [], "syncs": []}
-    for traced in [False] * opts.cold + [True]:
-        st = chip_smoke.config5_cluster(10000, 100000)
-        sched = Scheduler(st, conf_str=chip_smoke.CONF_BASE)
-        if traced:
-            cold["trace"] = _trace(sched.run_once)
-            cold["traced_device_fine_ms"] = chip_smoke._lanes(st).get(
-                "device_fine", 0.0)
-        else:
-            t0 = time.perf_counter()
-            sched.run_once()
-            torch.cuda.synchronize()
-            cold["wall_s"].append(time.perf_counter() - t0)
-            cold["device_fine_ms"].append(chip_smoke._lanes(st).get(
-                "device_fine", 0.0))
-            cold["syncs"].append(LAST_TWOPHASE["syncs"])
-        chip_smoke.cycle_invariants(st, len(st.pods))
-        st.close()
-
-    out = {"label": opts.label, "card": card, "build_s": build_s,
-           "north_star_solve": solve, "config5_cold": cold}
-    traces = [("cold", cold["trace"])]
-    if solve:
-        traces.insert(0, ("solve", solve["trace"]))
-    for what, tr in traces:
-        top = sorted(tr["funcs"].items(), key=lambda kv: -kv[1][0])[:12]
-        print(f"[{opts.label}:{what}] busy {tr['busy_ms']:.3f} of "
-              f"{tr['wall_ms']:.3f} ms; "
-              + ", ".join(f"{k} {ms:.3f} ms / {n}" for k, (ms, n) in top),
-              file=sys.stderr, flush=True)
+    out = {"label": opts.label, "card": card,
+           "build_s": time.perf_counter() - t0}
+    for phase in dict.fromkeys(opts.phase):
+        out[phase] = RUN[phase](chip_smoke, opts)
     print(json.dumps(out), flush=True)
     return 0
 

@@ -25,27 +25,46 @@ struct Weights {
   float balanced;
 };
 
+// ops/resreq.py less_equal for slot s: l <= r within eps[s] (a scalar slot
+// also when l is at most eps[s]).  eps and scalar_slot are read only when
+// l < r fails, so a slot that fits waits on no load of them.
+__device__ __forceinline__ bool slot_le(float l, float r, const float* eps,
+                                        const uint8_t* scalar_slot, int s) {
+  return (l < r) || (fabsf(l - r) < eps[s]) ||
+         (scalar_slot[s] && (l <= eps[s]));
+}
+
 // ops/resreq.py less_equal over R slots.
 __device__ __forceinline__ bool less_equal(const float* l, const float* r,
                                            const float* eps,
                                            const uint8_t* scalar_slot,
                                            int R) {
   for (int s = 0; s < R; ++s) {
-    const float a = l[s];
-    const float b = r[s];
-    const bool ok = (a < b) || (fabsf(a - b) < eps[s]) ||
-                    (scalar_slot[s] && (a <= eps[s]));
-    if (!ok) return false;
+    if (!slot_le(l[s], r[s], eps, scalar_slot, s)) return false;
   }
   return true;
 }
 
-// FutureIdle of node n (ops/wave.py:609, :1207, :1316, :1661): ((idle +
-// releasing) - pipelined) - pip_extra, each operation rounded on its own,
-// left to right.  `rel` null: no releasing capacity, the plain idle (the
-// JAX solve's has_future=False branch); `pxe` null: no in-solve pipelined
-// charge (the solve-start planes of the shortlist passes).  `rel`, `pip`
-// and `pxe` are [N, R] planes.
+// FutureIdle of one slot: ((idle + releasing) - pipelined) - pip_extra,
+// each operation rounded on its own, left to right; without `has_rel` the
+// plain idle, without `has_pxe` no pip_extra term.
+__device__ __forceinline__ float future_slot(float idle, float rel,
+                                             float pip, float pxe,
+                                             bool has_rel, bool has_pxe) {
+  float v = idle;
+  if (has_rel) {
+    v = v + rel;
+    v = v - pip;
+    if (has_pxe) v = v - pxe;
+  }
+  return v;
+}
+
+// FutureIdle of node n (ops/wave.py:609, :1207, :1316, :1661).  `rel`
+// null: no releasing capacity, the plain idle (the JAX solve's
+// has_future=False branch); `pxe` null: no in-solve pipelined charge (the
+// solve-start planes of the shortlist passes).  `rel`, `pip` and `pxe`
+// are [N, R] planes.
 __device__ __forceinline__ void future_idle(const float* idle,
                                             const float* rel,
                                             const float* pip,
@@ -53,35 +72,36 @@ __device__ __forceinline__ void future_idle(const float* idle,
                                             int R, float* out) {
   const int64_t o = n * R;
   for (int s = 0; s < R; ++s) {
-    float v = idle[o + s];
-    if (rel) {
-      v = v + rel[o + s];
-      v = v - pip[o + s];
-      if (pxe) v = v - pxe[o + s];
-    }
-    out[s] = v;
+    out[s] = future_slot(idle[o + s], rel ? rel[o + s] : 0.0f,
+                         rel ? pip[o + s] : 0.0f,
+                         rel && pxe ? pxe[o + s] : 0.0f, rel != nullptr,
+                         pxe != nullptr);
   }
 }
 
 // ops/scoring.py node_score: binpack + least-requested + most-requested +
-// balanced, used = allocatable - idle.  Sums over slots run left to right.
-__device__ __forceinline__ float node_score(const float* req,
-                                            const float* alloc,
-                                            const float* idle,
-                                            const float* bres, int R,
-                                            const Weights& w) {
-  float used[kMaxR];
-  for (int s = 0; s < R; ++s) used[s] = alloc[s] - idle[s];
+// balanced, used = allocatable - idle, over R slots of `req`, `alloc` and
+// `idle`: [R] planes, or register arrays of kR >= R floats.  Sums over
+// slots run left to right.  kR > 0 unrolls the slot loops, so that such
+// arrays stay in registers; kR = 0 loops to R.
+template <int kR, class P>
+__device__ __forceinline__ float node_score_at(const P& req, const P& alloc,
+                                               const P& idle,
+                                               const float* bres, int R,
+                                               const Weights& w) {
   // binpack.go:200-260
   float score = 0.0f;
   float wsum = 0.0f;
-  for (int s = 0; s < R; ++s) {
-    const float uf = used[s] + req[s];
-    const bool valid = (req[s] > 0.0f) && (alloc[s] > 0.0f) &&
-                       (bres[s] > 0.0f) && (uf <= alloc[s]);
+#pragma unroll
+  for (int s = 0; s < (kR > 0 ? kR : R); ++s) {
+    if (s >= R) break;
+    const float b = bres[s];
+    const float uf = (alloc[s] - idle[s]) + req[s];
+    const bool valid = (req[s] > 0.0f) && (alloc[s] > 0.0f) && (b > 0.0f) &&
+                       (uf <= alloc[s]);
     const float den = alloc[s] > 0.0f ? alloc[s] : 1.0f;
-    const float per = valid ? (uf * bres[s]) / den : 0.0f;
-    const float cnt = (req[s] > 0.0f && bres[s] > 0.0f) ? bres[s] : 0.0f;
+    const float per = valid ? (uf * b) / den : 0.0f;
+    const float cnt = (req[s] > 0.0f && b > 0.0f) ? b : 0.0f;
     if (s == 0) {
       score = per;
       wsum = cnt;
@@ -94,8 +114,9 @@ __device__ __forceinline__ float node_score(const float* req,
   const float binpack = (score * 10.0f) * w.binpack;
   // least / most requested and balanced read cpu + memory only.
   float lr[2], mr[2], fr[2];
+#pragma unroll
   for (int s = 0; s < 2; ++s) {
-    const float requested = used[s] + req[s];
+    const float requested = (alloc[s] - idle[s]) + req[s];
     const float cap = alloc[s];
     const float den = cap > 0.0f ? cap : 1.0f;
     const float spare = cap - requested;
@@ -114,6 +135,15 @@ __device__ __forceinline__ float node_score(const float* req,
   s = s + most;
   s = s + bal;
   return s;
+}
+
+// node_score over [R] planes.
+__device__ __forceinline__ float node_score(const float* req,
+                                            const float* alloc,
+                                            const float* idle,
+                                            const float* bres, int R,
+                                            const Weights& w) {
+  return node_score_at<0>(req, alloc, idle, bres, R, w);
 }
 
 // Host ports: does the profile's port word row `asked` share a bit with

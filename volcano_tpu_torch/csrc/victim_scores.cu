@@ -2,258 +2,579 @@
 // per-node evictable plane of the preempt and reclaim lanes.
 //
 // Replaces the JAX package's jitted `victim_scores`
-// (volcano_tpu/ops/victim.py:82).  Five steps on one stream:
+// (volcano_tpu/ops/victim.py:82).  One cooperative launch,
+// `victim_kernel`: every phase below is a pass over the victim rows by the
+// whole grid, with `cooperative_groups::this_grid().sync()` between them.
 //
-//  1. `share_kernel`, one thread per queue: q_share[q] = max over slots of
-//     q_alloc / max(q_deserved, 1e-9) where the slot is capped
-//     (q_deserved < 1e30), else 0 -- f32 IEEE division and a max.
-//  2. `key_kernel`, one thread per victim row: eligibility (preempt:
-//     v_ok & same queue & lower job priority; reclaim: v_ok & other queue &
-//     reclaimable & q_share > 1 + 1e-6, the queue index clipped), and two
-//     sort keys.  The order key replaces the JAX
-//     `lexsort((tie, -crank, prio_key, ineligible))`: torch has no lexsort,
-//     so one 64-bit word holds the ineligible bit (bit 63), the biased
-//     prio_key (int32 max when ineligible, bits 62-31) and V-1-crank (bits
-//     30-0; crank is a permutation of 0..V-1, whatif.py:758-759), and a
-//     second word holds the biased tie and the row index, so the
-//     (word, word) order is the lexsort order.  The node key is (clipped
-//     node, row index).
-//  3. A bitonic sort of both key arrays, ascending, padded to a power of
-//     two with all-ones keys: tiles of 1024 keys sort in shared memory
-//     (`bitonic_tile_kernel`), the compare distances of 1024 and more run
-//     as global passes (`bitonic_global_kernel`).
-//  4. `order_kernel`: the row indices of the sorted order keys.
-//  5. `evictable_kernel`: the node-sorted rows form one segment per node,
-//     in victim-index order; one thread per segment sums its rows'
-//     eligible requests left to right in f32, starting from 0, as the JAX
-//     scatter-add does on the CPU, and writes the node's row (the plane
-//     is zeroed first).  No float atomics: the sum order is fixed.
+//  A. Per row: the queue share q_share[q] = max over slots of q_alloc /
+//     max(q_deserved, 1e-9) where the slot is capped (q_deserved < 1e30),
+//     else 0 (f32 IEEE division and a max, computed where a row needs it,
+//     written by block 0); eligibility (preempt: v_ok & same queue & lower
+//     job priority; reclaim: v_ok & other queue & reclaimable & q_share >
+//     1 + 1e-6, the queue index clipped).  Each block reduces the AND and
+//     the OR of the sort-key fields over its rows, whether the ties are
+//     non-decreasing in row order, and the AND / OR of the clipped nodes.
+//     The evictable plane is zeroed.
+//  B. The order key is 97 bits, the JAX `lexsort((tie, -crank, prio_key,
+//     ineligible))` with the row index as the last (stable) key: the
+//     ineligible bit, the biased prio_key, the complemented biased crank
+//     (descending crank, as -crank in int64) and the biased tie.  Only the
+//     bits on which the keys differ decide the order (OR ^ AND of the
+//     reductions), so each row's key is compacted to those bits (a bit
+//     extract: order-preserving, since every key agrees on the others).
+//     An ineligible row's prio bits are set to the AND over the eligible
+//     rows (its prio_key, int32 max, never decides: the ineligible bit
+//     does), so a mix of eligible and ineligible rows does not make every
+//     prio byte vary.  When the ties are non-decreasing in row order (the
+//     only caller passes arange(V)), sorting by them is the identity of a
+//     stable sort, and their bits are dropped.  Nothing assumes crank is a
+//     permutation.  The clipped node ids are compacted the same way.
+//  C. Two stable LSD radix sorts at once, 8-bit digits over the compacted
+//     bits only: the eviction order and the grouping by node.  A pass is a
+//     histogram (each warp ranks its 32 rows a round with
+//     `__match_any_sync`, in row order, into a per-warp count per digit;
+//     the two sorts' loads go out together), a grid barrier, each block's
+//     offsets from every block's counts, the scatter, and a barrier.  A
+//     block takes 512 rows (one a thread) while the card holds the blocks.
+//     Digits on which every key agrees cost no pass: at the
+//     preempt_cluster shape (V = 40,000, crank a permutation: 16 varying
+//     bits, the ineligible bit, a few priority bits) the order sort takes
+//     about three passes and the node sort two (10,000 nodes), where the
+//     bitonic network took 28 launches.  The node sort's last
+//     scatter also writes each row's clipped node and eligible requests at
+//     its slot.
+//  D. The node-ordered rows form one segment per node, in victim-index
+//     order; one thread per segment sums its rows' eligible requests left
+//     to right in f32, starting from 0, as the JAX scatter-add does on the
+//     CPU, and writes the node's row (eight rows' nodes read at once).  No
+//     float atomics: the sum order is fixed.
 //
 // Bound: the function reads V x (R + 6) x 4 bytes of victim rows and
 // 2 x Q x R x 4 bytes of queue planes and writes the [N, R] plane; at the
 // preempt_cluster shape (V = 40,000, N = 10,000, R = 3) that is ~1.6 MB,
-// ~0.5 us at 3.35 TB/s.  The sort's ~20 launches over 64 K keys dominate.
+// ~0.5 us at 3.35 TB/s.  The launch is latency-bound: 1 + 2 x passes grid
+// barriers and the round trips between them.
+#include <cooperative_groups.h>
+
 #include "common.cuh"
+
+namespace cg = cooperative_groups;
 
 namespace {
 
-constexpr int kTile = 1024;  // keys a shared-memory tile sorts
+constexpr int kThreads = 512;
+constexpr int kWarps = kThreads / 32;
+constexpr int kRowsPerBlock = 512;   // positions a block takes, at least
+constexpr int kMaxBlocks = 256;      // the scratch's per-block rows
+constexpr int kSlot = 10;            // uint64 words of a block's reductions
+constexpr int kNone = 256;           // the digit of a position past V
+static_assert(kSlot <= kWarps, "phase B reduces a field a warp");
 
-__device__ __forceinline__ bool pair_less(uint64_t a1, uint64_t a2,
-                                          uint64_t b1, uint64_t b2) {
-  return a1 < b1 || (a1 == b1 && a2 < b2);
-}
+// Scratch layout, int32 words: kMaxBlocks x kSlot uint64 reductions, two
+// [kMaxBlocks, 256] count tables, then per row: the compacted order key
+// (two uint64), the compacted node id, two order and two node buffers, two
+// rank words, then the node-ordered nodes and requests (1 + R words).
+constexpr int64_t kSlotWords = int64_t{kMaxBlocks} * kSlot * 2;
+constexpr int64_t kHistWords = int64_t{kMaxBlocks} * 256;
 
-__global__ void share_kernel(const float* q_alloc, const float* q_des,
-                             int Q, int R, float* q_share) {
-  const int q = blockIdx.x * blockDim.x + threadIdx.x;
-  if (q >= Q) return;
+struct Victims {
+  const uint8_t* v_ok;
+  const int32_t* v_jprio;
+  const int32_t* v_crank;
+  const int32_t* v_tie;
+  const int32_t* v_queue;
+  const int32_t* v_node;
+  const float* v_req;
+  int V, R, p_prio, p_queue;
+  const float* q_alloc;
+  const float* q_des;
+  const uint8_t* q_rec;
+  int Q, mode, N;
+  // scratch
+  uint64_t* slot;      // [kMaxBlocks, kSlot]
+  int32_t* hist[2];    // [kMaxBlocks, 256] per sort
+  uint64_t* ck;        // [V, 2] compacted order keys (low word first)
+  uint32_t* cn;        // [V] compacted node ids
+  int32_t* obuf[2];    // order sort buffers
+  int32_t* nbuf[2];    // node sort buffers
+  int32_t* lrank[2];   // [V] per sort: digit << 24 | rank in the warp
+  int32_t* snode;      // [V] the clipped nodes in node order
+  float* sval;         // [V, R] their eligible requests, in node order
+  // outputs
+  uint8_t* eligible;
+  int32_t* order;
+  float* evictable;
+  float* q_share;
+  int T;               // positions a block owns (a multiple of kThreads)
+};
+
+struct Smem {
+  int wh[2][kWarps][256];  // per sort and warp: counts, then offsets
+  int gbase[2][256];       // per sort: the block's first slot per digit
+  int scan[kWarps];
+  uint64_t red[kWarps][kSlot];
+  uint64_t all[kSlot];
+};
+
+__device__ __forceinline__ float share(const Victims& a, int q) {
   float m = 0.0f;
-  for (int s = 0; s < R; ++s) {
-    const float d = q_des[static_cast<int64_t>(q) * R + s];
-    const float a = q_alloc[static_cast<int64_t>(q) * R + s];
-    const float r = d < 1.0e30f ? a / (d > 1e-9f ? d : 1e-9f) : 0.0f;
+  for (int s = 0; s < a.R; ++s) {
+    const float d = a.q_des[static_cast<int64_t>(q) * a.R + s];
+    const float al = a.q_alloc[static_cast<int64_t>(q) * a.R + s];
+    const float r = d < 1.0e30f ? al / (d > 1e-9f ? d : 1e-9f) : 0.0f;
     m = s == 0 ? r : (r > m ? r : m);
   }
-  q_share[q] = m;
+  return m;
 }
 
-__global__ void key_kernel(const uint8_t* v_ok, const int32_t* v_jprio,
-                           const int32_t* v_crank, const int32_t* v_tie,
-                           const int32_t* v_queue, const int32_t* v_node,
-                           int V, int Vp, int p_prio, int p_queue,
-                           const float* q_share, const uint8_t* q_rec, int Q,
-                           int mode, int N, uint8_t* eligible,
-                           uint64_t* ok1, uint64_t* ok2, uint64_t* nk1,
-                           uint64_t* nk2) {
-  const int v = blockIdx.x * blockDim.x + threadIdx.x;
-  if (v >= Vp) return;
-  if (v >= V) {
-    ok1[v] = ~0ull;
-    ok2[v] = ~0ull;
-    nk1[v] = ~0ull;
-    nk2[v] = ~0ull;
-    return;
-  }
-  int vq = v_queue[v];
-  vq = vq < 0 ? 0 : (vq > Q - 1 ? Q - 1 : vq);
-  const bool same_q = v_queue[v] == p_queue;
-  const bool ok = v_ok[v] != 0;
-  bool elig;
-  if (mode == 0) {
-    elig = ok && same_q && v_jprio[v] < p_prio;
-  } else {
-    const float tol = static_cast<float>(1.0 + 1e-6);
-    elig = ok && !same_q && q_rec[vq] != 0 && q_share[vq] > tol;
-  }
-  eligible[v] = elig ? 1 : 0;
-  const int32_t prio_key = elig ? v_jprio[v] : 0x7FFFFFFF;
-  const uint64_t prio_bits =
-      static_cast<uint64_t>(static_cast<uint32_t>(prio_key) ^ 0x80000000u);
-  const uint64_t young =
-      static_cast<uint64_t>(static_cast<uint32_t>(V - 1 - v_crank[v])) &
-      0x7FFFFFFFull;
-  ok1[v] = (static_cast<uint64_t>(elig ? 0 : 1) << 63) | (prio_bits << 31) |
-           young;
-  ok2[v] = (static_cast<uint64_t>(static_cast<uint32_t>(v_tie[v]) ^
-                                  0x80000000u)
-            << 32) |
-           static_cast<uint64_t>(v);
-  int n = v_node[v];
-  n = n < 0 ? 0 : (n > N - 1 ? N - 1 : n);
-  nk1[v] = static_cast<uint64_t>(n);
-  nk2[v] = static_cast<uint64_t>(v);
+__device__ __forceinline__ int clip_node(const Victims& a, int v) {
+  const int n = a.v_node[v];
+  return n < 0 ? 0 : (n > a.N - 1 ? a.N - 1 : n);
 }
 
-// One compare-exchange of the bitonic network at distance j inside the
-// sequence of length k; i is the global position.
-__device__ __forceinline__ void cmp_swap(uint64_t* k1, uint64_t* k2, int a,
-                                         int b, bool ascending) {
-  const uint64_t a1 = k1[a], a2 = k2[a], b1 = k1[b], b2 = k2[b];
-  if (pair_less(b1, b2, a1, a2) == ascending) {
-    k1[a] = b1;
-    k2[a] = b2;
-    k1[b] = a1;
-    k2[b] = a2;
+// The uncompacted order key's prio, crank and tie fields.
+__device__ __forceinline__ uint32_t prio_bits(int32_t prio) {
+  return static_cast<uint32_t>(prio) ^ 0x80000000u;
+}
+__device__ __forceinline__ uint32_t crank_bits(int32_t crank) {
+  return ~(static_cast<uint32_t>(crank) ^ 0x80000000u);
+}
+__device__ __forceinline__ uint32_t tie_bits(int32_t tie) {
+  return static_cast<uint32_t>(tie) ^ 0x80000000u;
+}
+
+// The bits of `x` under `mask`, packed from bit `at` of (lo, hi) up.
+__device__ __forceinline__ void extract(uint64_t x, uint64_t mask,
+                                       uint64_t& lo, uint64_t& hi,
+                                       int& at) {
+  while (mask) {
+    const int b = __ffsll(static_cast<long long>(mask)) - 1;
+    mask &= mask - 1;
+    if ((x >> b) & 1ull) {
+      if (at < 64) {
+        lo |= 1ull << at;
+      } else {
+        hi |= 1ull << (at - 64);
+      }
+    }
+    ++at;
   }
 }
 
-// blockIdx.y picks the key array (0: order keys, 1: node keys).  Sorts
-// each tile of kTile keys for every k in [k_lo, min(k_hi, kTile)] when
-// k_lo == 2 (the first pass), or finishes the distances j < kTile of one
-// k > kTile (a merge pass).
-__global__ void __launch_bounds__(kTile / 2) bitonic_tile_kernel(
-    uint64_t* a1, uint64_t* a2, uint64_t* b1, uint64_t* b2, int Vp, int k_fix) {
-  __shared__ uint64_t s1[kTile];
-  __shared__ uint64_t s2[kTile];
-  uint64_t* g1 = blockIdx.y ? b1 : a1;
-  uint64_t* g2 = blockIdx.y ? b2 : a2;
-  const int tile = blockDim.x * 2;
-  const int base = blockIdx.x * tile;
-  for (int i = threadIdx.x; i < tile; i += blockDim.x) {
-    s1[i] = g1[base + i];
-    s2[i] = g2[base + i];
+// The position of round r, lane `lane` of warp `warp` in this block.
+__device__ __forceinline__ int64_t position(const Victims& a, int warp,
+                                            int r, int lane) {
+  return static_cast<int64_t>(blockIdx.x) * a.T +
+         static_cast<int64_t>(warp) * (a.T / kWarps) + r * 32 + lane;
+}
+
+// Reduces the kSlot words of every thread (`ops`: 0 AND, 1 OR, 2 sum) to
+// sm.red, then slot[blockIdx.x].
+__device__ void block_reduce(const Victims& a, uint64_t* v, const int* ops,
+                             Smem& sm) {
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  for (int i = 0; i < kSlot; ++i) {
+    uint64_t x = v[i];
+    for (int off = 16; off > 0; off >>= 1) {
+      const uint64_t y = __shfl_xor_sync(vtt::kFullMask, x, off);
+      x = ops[i] == 0 ? (x & y) : ops[i] == 1 ? (x | y) : x + y;
+    }
+    if (lane == 0) sm.red[warp][i] = x;
   }
   __syncthreads();
-  const int k_first = k_fix ? k_fix : 2;
-  const int k_last = k_fix ? k_fix : (Vp < tile ? Vp : tile);
-  for (int k = k_first; k <= k_last; k <<= 1) {
-    for (int j = (k_fix ? tile : k) >> 1; j > 0; j >>= 1) {
-      for (int t = threadIdx.x; t < tile / 2; t += blockDim.x) {
-        // The t-th pair at distance j: low index i, partner i + j.
-        const int i = (t / j) * 2 * j + (t % j);
-        const bool ascending = ((base + i) & k) == 0;
-        cmp_swap(s1, s2, i, i + j, ascending);
+  if (threadIdx.x < kSlot) {
+    const int i = threadIdx.x;
+    uint64_t x = sm.red[0][i];
+    for (int w = 1; w < kWarps; ++w) {
+      const uint64_t y = sm.red[w][i];
+      x = ops[i] == 0 ? (x & y) : ops[i] == 1 ? (x | y) : x + y;
+    }
+    a.slot[static_cast<int64_t>(blockIdx.x) * kSlot + i] = x;
+  }
+}
+
+// The reduction slots' fields.
+enum {
+  kElig = 0,    // eligible rows (sum)
+  kAndPrio,     // AND / OR of the eligible rows' prio bits
+  kOrPrio,
+  kAndCrank,    // AND / OR of the crank bits
+  kOrCrank,
+  kAndTie,      // AND / OR of the tie bits
+  kOrTie,
+  kTieDown,     // rows whose tie exceeds the next row's (sum)
+  kAndNode,     // AND / OR of the clipped nodes
+  kOrNode,
+};
+__constant__ int kOps[kSlot] = {2, 0, 1, 0, 1, 0, 1, 2, 0, 1};
+
+// Pass k of the two sorts, for sort s live when live[s]: every position's
+// digit (from the row its source buffer holds there), its rank among the
+// warp's positions of that digit before it (lrank), the per-warp offsets
+// in sm.wh, the block's counts in hist[s][blockIdx.x].  The two sorts'
+// loads of a round go out together.
+__device__ void histogram(const Victims& a, int k, const bool* live,
+                          const int32_t* const* src, Smem& sm) {
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  for (int s = 0; s < 2; ++s) {
+    if (!live[s]) continue;
+    for (int i = lane; i < 256; i += 32) sm.wh[s][warp][i] = 0;
+  }
+  __syncwarp();
+  const int word = k >> 3;
+  const int oshift = (k & 7) * 8;
+  const int rounds = a.T / kThreads;
+  for (int r = 0; r < rounds; ++r) {
+    const int64_t p = position(a, warp, r, lane);
+    int row[2] = {-1, -1};
+    for (int s = 0; s < 2; ++s) {
+      if (live[s] && p < a.V) {
+        row[s] = src[s] ? src[s][p] : static_cast<int32_t>(p);
       }
-      __syncthreads();
+    }
+    int d[2] = {kNone, kNone};
+    if (row[0] >= 0) {
+      d[0] = static_cast<int>(
+          (a.ck[2 * static_cast<int64_t>(row[0]) + word] >> oshift) & 0xFF);
+    }
+    if (row[1] >= 0) {
+      d[1] = static_cast<int>((a.cn[row[1]] >> (k * 8)) & 0xFF);
+    }
+    for (int s = 0; s < 2; ++s) {
+      if (!live[s]) continue;
+      int* wh = sm.wh[s][warp];
+      const unsigned peers = __match_any_sync(vtt::kFullMask, d[s]);
+      const int before = __popc(peers & ((1u << lane) - 1u));
+      const int cur = d[s] < kNone ? wh[d[s]] : 0;
+      __syncwarp();
+      if (d[s] < kNone && before == 0) wh[d[s]] = cur + __popc(peers);
+      __syncwarp();
+      if (p < a.V) {
+        a.lrank[s][p] = static_cast<int32_t>(
+            (static_cast<uint32_t>(d[s]) << 24) |
+            static_cast<uint32_t>(cur + before));
+      }
     }
   }
-  for (int i = threadIdx.x; i < tile; i += blockDim.x) {
-    g1[base + i] = s1[i];
-    g2[base + i] = s2[i];
+  __syncthreads();
+  // Thread 256 s + d: digit d of sort s.
+  const int s = threadIdx.x >> 8;
+  const int d = threadIdx.x & 255;
+  if (live[s]) {
+    int sum = 0;
+    for (int w = 0; w < kWarps; ++w) {
+      const int c = sm.wh[s][w][d];
+      sm.wh[s][w][d] = sum;
+      sum += c;
+    }
+    a.hist[s][static_cast<int64_t>(blockIdx.x) * 256 + d] = sum;
   }
 }
 
-__global__ void bitonic_global_kernel(uint64_t* a1, uint64_t* a2,
-                                      uint64_t* b1, uint64_t* b2, int Vp,
-                                      int k, int j) {
-  const int t = blockIdx.x * blockDim.x + threadIdx.x;
-  if (t >= Vp / 2) return;
-  uint64_t* g1 = blockIdx.y ? b1 : a1;
-  uint64_t* g2 = blockIdx.y ? b2 : a2;
-  const int i = (t / j) * 2 * j + (t % j);
-  cmp_swap(g1, g2, i, i + j, (i & k) == 0);
-}
-
-__global__ void order_kernel(const uint64_t* ok2, int V, int32_t* order) {
-  const int r = blockIdx.x * blockDim.x + threadIdx.x;
-  if (r < V) order[r] = static_cast<int32_t>(ok2[r] & 0xFFFFFFFFull);
-}
-
-__global__ void zero_kernel(float* plane, int64_t n) {
-  const int64_t i = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
-  if (i < n) plane[i] = 0.0f;
-}
-
-__global__ void evictable_kernel(const uint64_t* nk1, const uint64_t* nk2,
-                                 int V, const uint8_t* eligible,
-                                 const float* v_req, int R,
-                                 float* evictable) {
-  const int r = blockIdx.x * blockDim.x + threadIdx.x;
-  if (r >= V) return;
-  if (r > 0 && nk1[r - 1] == nk1[r]) return;  // not a segment start
-  const uint64_t n = nk1[r];
-  float acc[vtt::kMaxR];
-  for (int s = 0; s < R; ++s) acc[s] = 0.0f;
-  for (int e = r; e < V && nk1[e] == n; ++e) {
-    const int v = static_cast<int>(nk2[e] & 0xFFFFFFFFull);
-    const bool el = eligible[v] != 0;
-    for (int s = 0; s < R; ++s) {
-      acc[s] = acc[s] + (el ? v_req[static_cast<int64_t>(v) * R + s] : 0.0f);
+// Pass k's scatter of the live sorts: each position's source row to its
+// slot in dst[s].  The node sort's last pass (`payload`) also writes, at
+// each slot, the row's clipped node and its eligible requests (0 where
+// ineligible), so the evictable sums read node order contiguously.
+__device__ void scatter(const Victims& a, const bool* live,
+                        const int32_t* const* src, int32_t* const* dst,
+                        bool payload, Smem& sm) {
+  const int tid = threadIdx.x;
+  const int lane = tid & 31;
+  const int warp = tid >> 5;
+  // Thread 256 s + d: digit d of sort s.  The blocks' counts of the digit,
+  // the block's own offset among them, then a scan over the digits.
+  const int s = tid >> 8;
+  const int d = tid & 255;
+  int total = 0;
+  int before = 0;
+  if (live[s]) {
+    for (int b = 0; b < static_cast<int>(gridDim.x); ++b) {
+      const int h = a.hist[s][static_cast<int64_t>(b) * 256 + d];
+      total += h;
+      if (b < static_cast<int>(blockIdx.x)) before += h;
     }
   }
-  for (int s = 0; s < R; ++s) evictable[static_cast<int64_t>(n) * R + s] = acc[s];
+  int x = total;
+  for (int off = 1; off < 32; off <<= 1) {
+    const int y = __shfl_up_sync(vtt::kFullMask, x, off);
+    if (lane >= off) x += y;
+  }
+  if (lane == 31) sm.scan[warp] = x;
+  __syncthreads();
+  int prev = 0;
+  for (int w = s * 8; w < warp; ++w) prev += sm.scan[w];
+  sm.gbase[s][d] = prev + x - total + before;
+  __syncthreads();
+  const int rounds = a.T / kThreads;
+  for (int r = 0; r < rounds; ++r) {
+    const int64_t p = position(a, warp, r, lane);
+    if (p >= a.V) continue;
+    uint32_t x2[2] = {0u, 0u};
+    int32_t row[2] = {0, 0};
+    for (int t = 0; t < 2; ++t) {
+      if (!live[t]) continue;
+      x2[t] = static_cast<uint32_t>(a.lrank[t][p]);
+      row[t] = src[t] ? src[t][p] : static_cast<int32_t>(p);
+    }
+    for (int t = 0; t < 2; ++t) {
+      if (!live[t]) continue;
+      const int dg = static_cast<int>(x2[t] >> 24);
+      const int slot = sm.gbase[t][dg] + sm.wh[t][warp][dg] +
+                       static_cast<int>(x2[t] & 0xFFFFFF);
+      dst[t][slot] = row[t];
+      if (t == 1 && payload) {
+        const bool el = a.eligible[row[1]] != 0;
+        a.snode[slot] = clip_node(a, row[1]);
+        for (int i = 0; i < a.R; ++i) {
+          a.sval[static_cast<int64_t>(slot) * a.R + i] =
+              el ? a.v_req[static_cast<int64_t>(row[1]) * a.R + i] : 0.0f;
+        }
+      }
+    }
+  }
+}
+
+__global__ void __launch_bounds__(kThreads) victim_kernel(Victims a) {
+  __shared__ Smem sm;
+  cg::grid_group grid = cg::this_grid();
+  const int tid = threadIdx.x;
+  const int lane = tid & 31;
+  const int warp = tid >> 5;
+  const int rounds = a.T / kThreads;
+
+  // ---- A: shares, eligibility, the key fields' reductions --------------
+  if (blockIdx.x == 0) {
+    for (int q = tid; q < a.Q; q += kThreads) a.q_share[q] = share(a, q);
+  }
+  const int64_t plane = static_cast<int64_t>(a.N) * a.R;
+  for (int64_t i = static_cast<int64_t>(blockIdx.x) * kThreads + tid;
+       i < plane; i += static_cast<int64_t>(gridDim.x) * kThreads) {
+    a.evictable[i] = 0.0f;
+  }
+  uint64_t acc[kSlot];
+  for (int i = 0; i < kSlot; ++i) acc[i] = kOps[i] == 0 ? ~0ull : 0ull;
+  const float tol = static_cast<float>(1.0 + 1e-6);
+  for (int r = 0; r < rounds; ++r) {
+    const int64_t p = position(a, warp, r, lane);
+    if (p >= a.V) continue;
+    const int v = static_cast<int>(p);
+    int vq = a.v_queue[v];
+    vq = vq < 0 ? 0 : (vq > a.Q - 1 ? a.Q - 1 : vq);
+    const bool same_q = a.v_queue[v] == a.p_queue;
+    const bool ok = a.v_ok[v] != 0;
+    const bool elig = a.mode == 0
+                          ? ok && same_q && a.v_jprio[v] < a.p_prio
+                          : ok && !same_q && a.q_rec[vq] != 0 &&
+                                share(a, vq) > tol;
+    a.eligible[v] = elig ? 1 : 0;
+    if (elig) {
+      const uint64_t pb = prio_bits(a.v_jprio[v]);
+      acc[kElig] += 1;
+      acc[kAndPrio] &= pb;
+      acc[kOrPrio] |= pb;
+    }
+    const uint64_t cb = crank_bits(a.v_crank[v]);
+    acc[kAndCrank] &= cb;
+    acc[kOrCrank] |= cb;
+    const uint64_t tb = tie_bits(a.v_tie[v]);
+    acc[kAndTie] &= tb;
+    acc[kOrTie] |= tb;
+    if (v + 1 < a.V && a.v_tie[v] > a.v_tie[v + 1]) acc[kTieDown] += 1;
+    const uint64_t nd = static_cast<uint64_t>(clip_node(a, v));
+    acc[kAndNode] &= nd;
+    acc[kOrNode] |= nd;
+  }
+  block_reduce(a, acc, kOps, sm);
+  grid.sync();
+
+  // ---- B: the varying bits, the compacted keys -------------------------
+  // Warp i reduces field i over the blocks' slots.
+  if (warp < kSlot) {
+    const int i = warp;
+    uint64_t x = kOps[i] == 0 ? ~0ull : 0ull;
+    for (int b = lane; b < static_cast<int>(gridDim.x); b += 32) {
+      const uint64_t y = a.slot[static_cast<int64_t>(b) * kSlot + i];
+      x = kOps[i] == 0 ? (x & y) : kOps[i] == 1 ? (x | y) : x + y;
+    }
+    for (int off = 16; off > 0; off >>= 1) {
+      const uint64_t y = __shfl_xor_sync(vtt::kFullMask, x, off);
+      x = kOps[i] == 0 ? (x & y) : kOps[i] == 1 ? (x | y) : x + y;
+    }
+    if (lane == 0) sm.all[i] = x;
+  }
+  __syncthreads();
+  const uint64_t n_elig = sm.all[kElig];
+  // The key as (hi, lo): hi = ineligible << 32 | prio bits, lo = crank
+  // bits << 32 | tie bits.
+  uint64_t m_hi = n_elig > 0 ? (sm.all[kOrPrio] ^ sm.all[kAndPrio]) : 0ull;
+  if (n_elig > 0 && n_elig < static_cast<uint64_t>(a.V)) m_hi |= 1ull << 32;
+  uint64_t m_lo = (sm.all[kOrCrank] ^ sm.all[kAndCrank]) << 32;
+  if (sm.all[kTieDown] > 0) m_lo |= sm.all[kOrTie] ^ sm.all[kAndTie];
+  const uint64_t fill = n_elig > 0 ? sm.all[kAndPrio] : 0ull;
+  const uint64_t m_node = sm.all[kOrNode] ^ sm.all[kAndNode];
+  const int po = (__popcll(m_hi) + __popcll(m_lo) + 7) / 8;
+  const int pn = (__popcll(m_node) + 7) / 8;
+  for (int r = 0; r < rounds; ++r) {
+    const int64_t p = position(a, warp, r, lane);
+    if (p >= a.V) continue;
+    const int v = static_cast<int>(p);
+    const bool elig = a.eligible[v] != 0;
+    const uint64_t hi = (static_cast<uint64_t>(elig ? 0 : 1) << 32) |
+                        (elig ? static_cast<uint64_t>(prio_bits(a.v_jprio[v]))
+                              : fill);
+    const uint64_t lo =
+        (static_cast<uint64_t>(crank_bits(a.v_crank[v])) << 32) |
+        tie_bits(a.v_tie[v]);
+    uint64_t c_lo = 0, c_hi = 0;
+    int at = 0;
+    extract(lo, m_lo, c_lo, c_hi, at);
+    extract(hi, m_hi, c_lo, c_hi, at);
+    a.ck[2 * p] = c_lo;
+    a.ck[2 * p + 1] = c_hi;
+    uint64_t n_lo = 0, n_hi = 0;
+    at = 0;
+    extract(static_cast<uint64_t>(clip_node(a, v)), m_node, n_lo, n_hi, at);
+    a.cn[v] = static_cast<uint32_t>(n_lo);
+    if (po == 0) a.order[v] = v;
+  }
+
+  // ---- C: the two radix sorts, pass by pass ------------------------------
+  const int passes = po > pn ? po : pn;
+  for (int k = 0; k < passes; ++k) {
+    const bool live[2] = {k < po, k < pn};
+    const int32_t* src[2] = {k == 0 ? nullptr : a.obuf[(k - 1) & 1],
+                             k == 0 ? nullptr : a.nbuf[(k - 1) & 1]};
+    int32_t* dst[2] = {k == po - 1 ? a.order : a.obuf[k & 1],
+                       a.nbuf[k & 1]};
+    histogram(a, k, live, src, sm);
+    grid.sync();
+    scatter(a, live, src, dst, k == pn - 1, sm);
+    grid.sync();
+  }
+
+  // ---- D: the evictable plane ---------------------------------------------
+  // In node order (the node sort's payload; row order when every row has
+  // one node): a segment's head sums its rows, eight nodes read at once.
+  const bool sorted = pn > 0;
+  auto node_at = [&](int64_t q) {
+    return sorted ? a.snode[q] : clip_node(a, static_cast<int>(q));
+  };
+  for (int64_t q = static_cast<int64_t>(blockIdx.x) * kThreads + tid;
+       q < a.V; q += static_cast<int64_t>(gridDim.x) * kThreads) {
+    const int n = node_at(q);
+    if (q > 0 && node_at(q - 1) == n) continue;  // not a segment start
+    float acc[vtt::kMaxR];
+    for (int i = 0; i < a.R; ++i) acc[i] = 0.0f;
+    for (int64_t e = q;; e += 8) {
+      int cnt = 0;
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        const int m = e + j < a.V ? node_at(e + j) : -1;
+        if (m == n && cnt == j) ++cnt;
+      }
+      for (int j = 0; j < cnt; ++j) {
+        const int64_t f = e + j;
+        for (int i = 0; i < a.R; ++i) {
+          const float v = sorted ? a.sval[f * a.R + i]
+                                 : (a.eligible[f] ? a.v_req[f * a.R + i]
+                                                  : 0.0f);
+          acc[i] = acc[i] + v;
+        }
+      }
+      if (cnt < 8) break;
+    }
+    for (int i = 0; i < a.R; ++i) {
+      a.evictable[static_cast<int64_t>(n) * a.R + i] = acc[i];
+    }
+  }
 }
 
 }  // namespace
 
-// Scratch: four uint64 arrays of Vp keys (Vp = V rounded up to a power of
-// two, at least kTile).  V >= 1, N >= 1, Q >= 1, R <= kMaxR.
+// Scratch: `scratch_words` int32 words, at least kSlotWords + 2 kHistWords
+// + (12 + R) V (kernels.victim_scratch_words).  V >= 1, N >= 1, Q >= 1, R <=
+// kMaxR.
 extern "C" int vtt_victim_scores(
     const void* v_ok, const void* v_jprio, const void* v_crank,
     const void* v_tie, const void* v_queue, const void* v_node,
     const void* v_req, int V, int R, int p_prio, int p_queue,
     const void* q_alloc, const void* q_des, const void* q_rec, int Q,
-    int mode, int N, int Vp, void* ok1, void* ok2, void* nk1, void* nk2,
-    void* eligible, void* order, void* evictable, void* q_share,
-    void* stream) {
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const int threads = 256;
-  share_kernel<<<(Q + threads - 1) / threads, threads, 0, st>>>(
-      static_cast<const float*>(q_alloc), static_cast<const float*>(q_des), Q,
-      R, static_cast<float*>(q_share));
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return static_cast<int>(err);
-  uint64_t* a1 = static_cast<uint64_t*>(ok1);
-  uint64_t* a2 = static_cast<uint64_t*>(ok2);
-  uint64_t* b1 = static_cast<uint64_t*>(nk1);
-  uint64_t* b2 = static_cast<uint64_t*>(nk2);
-  key_kernel<<<(Vp + threads - 1) / threads, threads, 0, st>>>(
-      static_cast<const uint8_t*>(v_ok), static_cast<const int32_t*>(v_jprio),
-      static_cast<const int32_t*>(v_crank), static_cast<const int32_t*>(v_tie),
-      static_cast<const int32_t*>(v_queue),
-      static_cast<const int32_t*>(v_node), V, Vp, p_prio, p_queue,
-      static_cast<const float*>(q_share), static_cast<const uint8_t*>(q_rec),
-      Q, mode, N, static_cast<uint8_t*>(eligible), a1, a2, b1, b2);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const dim3 tiles(Vp / kTile, 2);
-  bitonic_tile_kernel<<<tiles, kTile / 2, 0, st>>>(a1, a2, b1, b2, Vp, 0);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return static_cast<int>(err);
-  for (int k = 2 * kTile; k <= Vp; k <<= 1) {
-    for (int j = k >> 1; j >= kTile; j >>= 1) {
-      const dim3 grid((Vp / 2 + threads - 1) / threads, 2);
-      bitonic_global_kernel<<<grid, threads, 0, st>>>(a1, a2, b1, b2, Vp, k,
-                                                      j);
-      err = cudaGetLastError();
-      if (err != cudaSuccess) return static_cast<int>(err);
-    }
-    bitonic_tile_kernel<<<tiles, kTile / 2, 0, st>>>(a1, a2, b1, b2, Vp, k);
-    err = cudaGetLastError();
-    if (err != cudaSuccess) return static_cast<int>(err);
+    int mode, int N, void* scratch, int64_t scratch_words, void* eligible,
+    void* order, void* evictable, void* q_share, void* stream) {
+  if (V < 1 || N < 1 || Q < 1 || R < 1 || R > vtt::kMaxR ||
+      scratch_words <
+          kSlotWords + 2 * kHistWords + (12 + int64_t{R}) * V) {
+    return static_cast<int>(cudaErrorInvalidValue);
   }
-  order_kernel<<<(V + threads - 1) / threads, threads, 0, st>>>(
-      a2, V, static_cast<int32_t*>(order));
-  err = cudaGetLastError();
+  static int max_blocks = 0;
+  if (max_blocks == 0) {
+    int dev = 0;
+    int sms = 0;
+    int per_sm = 0;
+    cudaError_t err = cudaGetDevice(&dev);
+    if (err == cudaSuccess) {
+      err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    }
+    if (err == cudaSuccess) {
+      err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+          &per_sm, victim_kernel, kThreads, 0);
+    }
+    if (err != cudaSuccess) return static_cast<int>(err);
+    max_blocks = sms * per_sm < kMaxBlocks ? sms * per_sm : kMaxBlocks;
+  }
+  const int64_t want = (int64_t{V} + kRowsPerBlock - 1) / kRowsPerBlock;
+  const int blocks = static_cast<int>(want < max_blocks ? want : max_blocks);
+  const int64_t per = (int64_t{V} + blocks - 1) / blocks;
+  const int64_t T = (per + kThreads - 1) / kThreads * kThreads;
+  if (T / kWarps >= (1 << 24)) return static_cast<int>(cudaErrorInvalidValue);
+
+  int32_t* w = static_cast<int32_t*>(scratch);
+  Victims a;
+  a.v_ok = static_cast<const uint8_t*>(v_ok);
+  a.v_jprio = static_cast<const int32_t*>(v_jprio);
+  a.v_crank = static_cast<const int32_t*>(v_crank);
+  a.v_tie = static_cast<const int32_t*>(v_tie);
+  a.v_queue = static_cast<const int32_t*>(v_queue);
+  a.v_node = static_cast<const int32_t*>(v_node);
+  a.v_req = static_cast<const float*>(v_req);
+  a.V = V;
+  a.R = R;
+  a.p_prio = p_prio;
+  a.p_queue = p_queue;
+  a.q_alloc = static_cast<const float*>(q_alloc);
+  a.q_des = static_cast<const float*>(q_des);
+  a.q_rec = static_cast<const uint8_t*>(q_rec);
+  a.Q = Q;
+  a.mode = mode;
+  a.N = N;
+  a.slot = reinterpret_cast<uint64_t*>(w);
+  w += kSlotWords;
+  a.hist[0] = w;
+  a.hist[1] = w + kHistWords;
+  w += 2 * kHistWords;
+  a.ck = reinterpret_cast<uint64_t*>(w);
+  w += 4 * int64_t{V};
+  a.cn = reinterpret_cast<uint32_t*>(w);
+  w += V;
+  a.obuf[0] = w;
+  a.obuf[1] = w + V;
+  a.nbuf[0] = w + 2 * int64_t{V};
+  a.nbuf[1] = w + 3 * int64_t{V};
+  a.lrank[0] = w + 4 * int64_t{V};
+  a.lrank[1] = w + 5 * int64_t{V};
+  a.snode = w + 6 * int64_t{V};
+  a.sval = reinterpret_cast<float*>(w + 7 * int64_t{V});
+  a.eligible = static_cast<uint8_t*>(eligible);
+  a.order = static_cast<int32_t*>(order);
+  a.evictable = static_cast<float*>(evictable);
+  a.q_share = static_cast<float*>(q_share);
+  a.T = static_cast<int>(T);
+  void* args[] = {&a};
+  const cudaError_t err = cudaLaunchCooperativeKernel(
+      reinterpret_cast<void*>(victim_kernel), dim3(blocks), dim3(kThreads),
+      args, 0, static_cast<cudaStream_t>(stream));
   if (err != cudaSuccess) return static_cast<int>(err);
-  const int64_t plane = static_cast<int64_t>(N) * R;
-  zero_kernel<<<static_cast<int>((plane + threads - 1) / threads), threads, 0,
-                st>>>(static_cast<float*>(evictable), plane);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return static_cast<int>(err);
-  evictable_kernel<<<(V + threads - 1) / threads, threads, 0, st>>>(
-      b1, b2, V, static_cast<const uint8_t*>(eligible),
-      static_cast<const float*>(v_req), R, static_cast<float*>(evictable));
   return static_cast<int>(cudaGetLastError());
 }

@@ -63,9 +63,9 @@ constexpr int kMergeSmem = 200 * 1024;
 // least kRankGroupWork (row, dirty block) pairs.  A smaller launch (a warm
 // pass, the 64 rows of a north-star solve) keeps one row a block: there
 // the blocks' latency, not the card's throughput, sets the time.  On an
-// H100 (tools/shortlist_ab.py) four rows a block take 0.82x one row's
-// time on config 5's cold launch (65,536 pairs), 1.08x on the north-star
-// launch (1,024) and 1.19x on a one-block warm pass (64).
+// H100 (tools/port_ab.py --phase shortlist) four rows a block take 0.82x
+// one row's time on config 5's cold launch (65,536 pairs), 1.08x on the
+// north-star launch (1,024) and 1.19x on a one-block warm pass (64).
 constexpr int kRankRows = 4;
 constexpr size_t kRankSmem = 96 * 1024;
 constexpr int64_t kRankGroupWork = 4096;

@@ -10,8 +10,10 @@ task rows (the JAX ``fori_loop``, :276-458).  Leaves are numpy arrays on
 the host and torch tensors on the device.
 
 ``solve`` runs on the card as the ``seq_solve`` kernel
-(``csrc/seq_solve.cu``: one persistent block, one launch per solve, no host
-read until the result) and on CPU tensors as ``_solve_plain``, the same
+(``csrc/seq_solve.cu``: a row pass, then one persistent block that keeps
+each profile of equal rows' node keys and rescores only the nodes a step
+changed; no host read until the result) and on CPU tensors as
+``_solve_plain``, the same
 arithmetic in PyTorch.  Per task row: predicates from the bitsets, the fit
 on FutureIdle ((idle + releasing) - pipelined) - pip_extra, pod slots,
 host ports, inter-pod verdicts on the live counts and ``extra_ok``; the

@@ -24,7 +24,9 @@ wrapper                replaces (JAX package)
 ``gang_block_fit``     ``ops/topology.py:gang_block_fit`` (:179)
 ``fabric_frag``        ``ops/topology.py:fabric_frag`` (:240)
 ``seq_solve``          ``ops/allocate.py:solve`` (:201), the exact
-                       sequential allocate solve (one persistent block)
+                       sequential allocate solve (one persistent block,
+                       per-profile node keys rescored where steps changed
+                       them)
 =====================  ===================================================
 
 The inter-pod affinity kernels (``scatter_cnt0``, ``scatter_profile_tables``,
@@ -286,8 +288,7 @@ _SIGS = {
                          _P, _I, _P, _P, _P, _I, _P, _P, _I, _I, _P, _P,
                          _P],
     "vtt_victim_scores": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P, _P,
-                          _P, _I, _I, _I, _I, _P, _P, _P, _P, _P, _P, _P, _P,
-                          _P],
+                          _P, _I, _I, _I, _P, _L, _P, _P, _P, _P, _P],
     "vtt_frag_scores": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _P, _P, _P, _P],
     "vtt_gang_block_fit": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
                            _P, _P, _P, _P],
@@ -299,7 +300,8 @@ _SIGS = {
                      _I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P],
     "vtt_aff_filter": [_P, _P, _P, _I, _P, _I, _P, _P, _P, _I, _I, _P, _P,
                        _P, _P, _P, _P, _P, _P, _P, _P],
-    "vtt_seq_solve": [_I] * 13 + [_P] * 29 + [_F] * 5 + [_P] * 28,
+    "vtt_seq_solve": ([_I] * 13 + [_P] * 29 + [_F] * 5 + [_P] * 29
+                      + [_I] * 2 + [_P] * 9),
 }
 
 
@@ -1500,6 +1502,13 @@ DESERVED_UNCAPPED = 1.0e30
 SHARE_TOL = 1e-6
 
 
+def victim_scratch_words(V: int, R: int) -> int:
+    """int32 words of ``victim_scores``' scratch for V victim rows of R
+    slots (csrc/victim_scores.cu: 256 blocks' ten-uint64 reduction slots
+    and two [256, 256] count tables, then 12 + R words a row)."""
+    return 256 * 10 * 2 + 2 * 256 * 256 + (12 + R) * V
+
+
 def _queue_share_plain(q_alloc, q_des):
     capped = q_des < DESERVED_UNCAPPED
     ratio = torch.where(capped, q_alloc / torch.clamp(q_des, min=1e-9),
@@ -1558,12 +1567,13 @@ def victim_scores(v_ok, v_jprio, v_crank, v_tie, v_queue, v_node, v_req,
     (ops/victim.py:82 ``victim_scores``) over V unpadded victim rows:
     ``(eligible [V] bool, order [V] int32, evictable [n_nodes, R] f32,
     q_share [Q] f32)``.  ``v_ok``/``q_reclaimable`` bool, ``v_jprio``,
-    ``v_crank`` (a permutation of 0..V-1), ``v_tie``, ``v_queue``,
-    ``v_node`` int32 [V], ``v_req`` [V, R] f32, ``q_alloc``/``q_deserved``
-    [Q, R] f32; ``mode`` 0 preempt, 1 reclaim.  ``order`` equals the JAX
-    function's ``order[:V]``: the JAX caller pads V to a power of two with
-    ineligible rows of crank 0 and tie >= V, which sort after every real
-    row."""
+    ``v_crank`` (any int32: the caller passes a permutation of 0..V-1),
+    ``v_tie``, ``v_queue``, ``v_node`` int32 [V], ``v_req`` [V, R] f32,
+    ``q_alloc``/``q_deserved`` [Q, R] f32; ``mode`` 0 preempt, 1 reclaim.
+    ``order`` equals the JAX function's ``order[:V]``: the JAX caller pads
+    V to a power of two with ineligible rows of crank 0 and tie >= V, which
+    sort after every real row of crank >= 0.  On the card one cooperative
+    launch (csrc/victim_scores.cu) sorts by the key bits that vary."""
     if not _on_card(plain, v_req, q_alloc, v_ok):
         return _victim_plain(v_ok, v_jprio, v_crank, v_tie, v_queue, v_node,
                              v_req, int(p_prio), int(p_queue), q_alloc,
@@ -1594,10 +1604,8 @@ def victim_scores(v_ok, v_jprio, v_crank, v_tie, v_queue, v_node, v_req,
     _capture("victim_scores", p_prio=int(p_prio), p_queue=int(p_queue),
              mode=int(mode), n_nodes=N, **a)
     dev = v_req.device
-    Vp = 1024
-    while Vp < V:
-        Vp *= 2
-    keys = [torch.empty(Vp, dtype=torch.int64, device=dev) for _ in range(4)]
+    words = victim_scratch_words(V, R)
+    scratch = torch.empty(words, dtype=i32, device=dev)
     eligible = torch.empty(V, dtype=u8, device=dev)
     order = torch.empty(V, dtype=i32, device=dev)
     evictable = torch.empty((N, R), dtype=f32, device=dev)
@@ -1607,7 +1615,7 @@ def victim_scores(v_ok, v_jprio, v_crank, v_tie, v_queue, v_node, v_req,
         _ptr(a["v_tie"]), _ptr(a["v_queue"]), _ptr(a["v_node"]),
         _ptr(a["v_req"]), V, R, int(p_prio), int(p_queue),
         _ptr(a["q_alloc"]), _ptr(a["q_deserved"]), _ptr(a["q_reclaimable"]),
-        Q, int(mode), N, Vp, *[_ptr(k) for k in keys], _ptr(eligible),
+        Q, int(mode), N, _ptr(scratch), words, _ptr(eligible),
         _ptr(order), _ptr(evictable), _ptr(q_share), _stream(),
     )
     _check(rc, "victim_scores")
@@ -1817,13 +1825,112 @@ def fabric_frag(cfit, whole, prof_cnt, plain: bool = False):
 
 # ------------------------------------------------------------ seq_solve
 
+SEQ_MAX_PROFILES = 64  # csrc/seq_solve.cu kMaxProfiles
+SEQ_TABLE_BYTES = 256 << 20  # the profiles' tables, at most
+
+
+class SeqScratch(NamedTuple):
+    """``seq_solve``'s scratch (csrc/seq_solve.cu): per row the flags,
+    profile hash, profile word and head list, the log of changed nodes
+    ([2P + 1]), the ``U`` profiles' tables over ``Np`` nodes (N rounded up
+    to 32: keys, meta bytes, the kept preferred-affinity sums, and each
+    chunk of 32 nodes' maximum key and any-feasible byte), and the term
+    lists."""
+
+    flags: torch.Tensor
+    hash: torch.Tensor
+    pidh: torch.Tensor
+    heads: torch.Tensor
+    log: torch.Tensor
+    U: int
+    Np: int
+    keys: torch.Tensor
+    meta: torch.Tensor
+    spref: torch.Tensor
+    cmax: torch.Tensor
+    cany: torch.Tensor
+    rd_e: torch.Tensor
+    rd_flag: torch.Tensor
+    md_e: torch.Tensor
+
+
+def seq_scratch(N: int, P: int, E: int, dev) -> SeqScratch:
+    """The scratch of a solve of P rows over N nodes and E terms: as many
+    profiles (up to 64) as SEQ_TABLE_BYTES of tables hold."""
+    Np = -(-max(N, 1) // 32) * 32
+    per_profile = 13 * Np + 9 * (Np // 32)
+    U = max(0, min(SEQ_MAX_PROFILES, SEQ_TABLE_BYTES // per_profile))
+    u8, i32, i64, f32 = torch.uint8, torch.int32, torch.int64, torch.float32
+
+    def e(n, dtype):
+        return torch.empty(n, dtype=dtype, device=dev)
+
+    return SeqScratch(
+        flags=e(P, u8), hash=e(P, i64), pidh=e(P, i32), heads=e(P, i32),
+        log=e(2 * P + 1, i32), U=U, Np=Np, keys=e(U * Np, i64),
+        meta=e(U * Np, u8), spref=e(U * Np, f32), cmax=e(U * Np // 32, i64),
+        cany=e(U * Np // 32, u8), rd_e=e(E, i32), rd_flag=e(E, u8),
+        md_e=e(E, i32))
+
+
+def _seq_profile_words(x) -> torch.Tensor:
+    """[P, W] int32: each row's profile planes (every plane the node loop
+    reads of a row), float planes by their bits."""
+    P = x.req.shape[0]
+    i32 = torch.int32
+    planes = [x.req.view(i32), x.init_req.view(i32), x.sel_bits,
+              x.aff_bits.reshape(P, -1), x.aff_terms.reshape(P, 1),
+              x.tol_bits, x.pref_bits.reshape(P, -1), x.pref_w.view(i32),
+              x.ports]
+    if x.extra_ok is not None:
+        planes.append(x.extra_ok.to(i32))
+    if x.extra_score is not None:
+        planes.append(x.extra_score.view(i32))
+    return torch.cat([t.to(i32) for t in planes], dim=1)
+
+
+def seq_profiles(x) -> torch.Tensor:
+    """The profile of each task row of ``x`` (an ``ops.allocate.SeqInputs``)
+    as ``seq_solve``'s kernel gives them when its tables hold
+    SEQ_MAX_PROFILES profiles (N up to ~300,000 nodes), [P] int32 (-1:
+    none): the plain version of its row pass and profile rounds.  A real
+    row that reads no inter-pod term either equals the row before it (which
+    has such a row's profile) or is a head; round k takes the first head
+    without a profile and gives profile k to every head with equal profile
+    planes, for k < SEQ_MAX_PROFILES.  Rows that read terms, padding rows
+    and heads past the cap get -1."""
+    P = x.req.shape[0]
+    words = _seq_profile_words(x)
+    reads = (x.t_req_aff | x.t_req_anti | (x.t_soft != 0)).any(dim=1)
+    prof = x.real & ~reads
+    same = torch.zeros(P, dtype=torch.bool, device=words.device)
+    if P > 1:
+        same[1:] = (words[1:] == words[:-1]).all(dim=1) & prof[:-1]
+    head = prof & ~same
+    pid = torch.full((P,), -1, dtype=torch.int32)
+    open_heads = torch.nonzero(head).flatten().cpu()
+    for k in range(SEQ_MAX_PROFILES):
+        if open_heads.numel() == 0:
+            break
+        eq = (words[open_heads] == words[open_heads[0]]).all(dim=1).cpu()
+        pid[open_heads[eq]] = k
+        open_heads = open_heads[~eq]
+    follow = (prof & ~head).cpu().tolist()
+    for t in range(1, P):
+        if follow[t]:
+            pid[t] = pid[t - 1]
+    return pid.to(words.device)
+
+
 def seq_solve(x, weights, plain: bool = False):
     """The exact sequential allocate solve (ops/allocate.py:201 ``solve``)
-    on ``x``, an ``ops.allocate.SeqInputs``: one launch of one persistent
-    block for the whole solve.  Returns an ``AllocResult`` of tensors on
-    the inputs' device (``assigned`` / ``pipelined`` [P] int32,
-    ``never_ready`` / ``fit_failed`` [J] bool, ``idle`` [N, R], ``q_alloc``
-    [Q, R] = allocated + pipelined)."""
+    on ``x``, an ``ops.allocate.SeqInputs``: a grid pass that flags and
+    hashes the rows, then one persistent block for the whole solve, which
+    keeps the node keys of each profile of equal rows (``seq_scratch``)
+    and rescores only the nodes the steps changed.  Returns an
+    ``AllocResult`` of tensors on the inputs' device (``assigned`` /
+    ``pipelined`` [P] int32, ``never_ready`` / ``fit_failed`` [J] bool,
+    ``idle`` [N, R], ``q_alloc`` [Q, R] = allocated + pipelined)."""
     from .allocate import LAST_SEQ, AllocResult, _solve_plain
 
     if not _on_card(plain, x.idle, x.req, x.cnt0):
@@ -1901,9 +2008,7 @@ def seq_solve(x, weights, plain: bool = False):
     alloc_cnt = torch.empty(J, dtype=i32, device=dev)
     never_ready = torch.empty(J, dtype=u8, device=dev)
     fit_failed = torch.empty(J, dtype=u8, device=dev)
-    rd_e = torch.empty(E, dtype=i32, device=dev)
-    rd_flag = torch.empty(E, dtype=torch.uint8, device=dev)
-    md_e = torch.empty(E, dtype=i32, device=dev)
+    sc = seq_scratch(N, P, E, dev)
     rc = load().vtt_seq_solve(
         N, R, PW, LW, TW, P, A, AP, J, Q, K, E, D,
         _ptr(x.idle), _ptr(x.allocatable), _ptr(x.releasing),
@@ -1922,11 +2027,17 @@ def seq_solve(x, weights, plain: bool = False):
         _ptr(idle), _ptr(pxe), _ptr(ntasks), _ptr(pnt), _ptr(nports),
         _ptr(pports), _ptr(cnt), _ptr(tot), _ptr(q_alloc), _ptr(q_pip),
         _ptr(assigned), _ptr(pipelined), _ptr(alloc_cnt), _ptr(never_ready),
-        _ptr(fit_failed), _ptr(rd_e), _ptr(rd_flag), _ptr(md_e), _stream(),
+        _ptr(fit_failed), _ptr(sc.flags), _ptr(sc.hash), _ptr(sc.pidh),
+        _ptr(sc.heads), _ptr(sc.log), sc.U, sc.Np, _ptr(sc.keys),
+        _ptr(sc.meta), _ptr(sc.spref), _ptr(sc.cmax), _ptr(sc.cany),
+        _ptr(sc.rd_e), _ptr(sc.rd_flag), _ptr(sc.md_e), _stream(),
     )
     _check(rc, "seq_solve")
     LAUNCHES["seq_solve"] += 1
     LAST_SEQ["alloc_cnt"] = alloc_cnt
+    # The kernel's per-row profile words (a head's profile, -1 none, -2 the
+    # row before's), for tests against ``seq_profiles``.
+    LAST_SEQ["pidh"] = sc.pidh
     return AllocResult(assigned=assigned, pipelined=pipelined,
                        never_ready=never_ready, fit_failed=fit_failed,
                        idle=idle, q_alloc=q_alloc)
