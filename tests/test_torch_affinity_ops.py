@@ -75,6 +75,35 @@ def test_scatter_profile_tables_match_jax(k, u, e, real):
             what
 
 
+@pytest.mark.parametrize("kind,k,u,e", [
+    ("pad", 16, 6, 5), ("pad", 16, 1, 1), ("origin", 16, 1, 1),
+    ("origin", 32, 7, 5), ("negzero", 64, 9, 13), ("full", 16, 3, 5),
+    ("full", 64, 1, 33)])
+def test_scatter_profile_tables_edges_match_jax(kind, k, u, e):
+    """The entries the card kernel treats specially (it writes nothing for
+    an entry without flag bits and with a soft value of +-0.0, and stores
+    a flag bit where JAX sums counts): padding only, a real entry at
+    (0, 0) beside the padded ones, real soft values of -0.0 (JAX gives
+    +0.0), every cell real; cells counts that are not a multiple of 16,
+    and a single cell.  Bit-equal to the JAX jit, +0.0 and -0.0 told
+    apart."""
+    from test_torch_fixtures import profile_entry_case
+
+    rows, cols, flags, soft = profile_entry_case(kind, k, u, e, seed=k + u)
+    want = [np.asarray(x) for x in jw._scatter_profile_tables(
+        rows, cols, flags, soft, u, e)]
+    got = affkernels.scatter_profile_tables(
+        torch.from_numpy(rows), torch.from_numpy(cols),
+        torch.from_numpy(flags), torch.from_numpy(soft), u, e)
+    for a, b, what in zip(want, got, ("aff", "anti", "match", "soft")):
+        b = b.numpy()
+        assert a.dtype == b.dtype and a.shape == b.shape, what
+        assert a.tobytes() == b.tobytes(), what
+    assert not (np.signbit(want[3]) & (want[3] == 0)).any()
+    if kind == "origin":
+        assert want[0][0, 0] and want[3][0, 0] == -5.0
+
+
 def _tables(seed, U=20, E=14, D=30, N=90, K=3):
     rng = np.random.RandomState(seed)
     nd = rng.randint(-1, D, (N, K)).astype(np.int32)

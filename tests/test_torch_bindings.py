@@ -127,6 +127,33 @@ def test_affinity_wrappers_match_their_entries(fake_card):
                                + ["vtt_aff_live"] * 4 + ["vtt_aff_filter"])
 
 
+def test_topology_and_table_wrappers_match_their_entries(fake_card):
+    """gang_block_fit passes its cluster size (0: chosen by N) and a
+    [B, U] cfit; scatter_profile_tables passes four planes that start at
+    multiples of 16 bytes (the kernel's fill stores 16 bytes at a time)."""
+    N, U, R, B = 40, 3, 2, 8
+    args = (_z(N, R, dtype=F32), _z(N, dtype=B8), _z(N), _z(N), _z(N),
+            _z(U, R, dtype=F32), _z(U), _z(R, dtype=F32), B)
+    for cluster in (0, 1, 8, 16):
+        cfit, whole, score = kernels.gang_block_fit(*args, cluster=cluster)
+        assert cfit.shape == (B, U) and whole.shape == score.shape == (B,)
+        assert fake_card.args[-1][12] == cluster
+    with pytest.raises(ValueError):
+        kernels.gang_block_fit(*args, cluster=17)
+    kernels.fabric_frag(cfit, whole, _z(U))
+    for u, e in ((1, 1), (7, 5), (33, 17)):
+        out = affkernels.scatter_profile_tables(
+            _z(16), _z(16), _z(16, dtype=torch.int8), _z(16, dtype=F32),
+            u, e)
+        assert all(t.shape == (u, e) for t in out)
+        assert all(t.data_ptr() % 16 == 0 for t in out)
+        ptrs = [a.value for a in fake_card.args[-1][7:11]]
+        assert ptrs == [t.data_ptr() for t in out]
+    assert fake_card.calls == (["vtt_gang_block_fit"] * 4
+                               + ["vtt_fabric_frag"]
+                               + ["vtt_scatter_profile_tables"] * 3)
+
+
 def test_solve_wrappers_with_ports_and_counts_match(fake_card):
     U, N, R, PW, UM, W, S = 8, 32, 3, 2, 4, 16, 8
     prof, cls, nodes, weights, eps, slot = shortlist_tensors(

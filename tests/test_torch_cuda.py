@@ -436,6 +436,117 @@ def test_gang_block_fit_and_fabric_frag_equal_plain(cuda, seed):
     assert bool(got[1].any()) and not bool(got[1].all())
 
 
+def _bits_equal(a, b, what):
+    """Equal dtype, shape and bytes: +0.0 and -0.0 told apart."""
+    assert a.dtype == b.dtype and a.shape == b.shape, what
+    if a.is_floating_point():
+        a, b = a.view(torch.int32), b.view(torch.int32)
+    assert torch.equal(a, b), what
+
+
+def _device_ops(fn):
+    """Names of the device operations (kernels, memsets, copies) one call
+    of ``fn`` put on the card, from a ``torch.profiler`` trace."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    names = [e.name.replace("(anonymous namespace)::", "")
+             for e in prof.events() if e.device_type == DeviceType.CUDA]
+    # "void f<4, 1024>(float const*, ...)" -> "f"
+    return [n.removeprefix("void ").split("(")[0].split("<")[0]
+            for n in names]
+
+
+@pytest.mark.parametrize("seed,N,U,n_blocks,cluster", [
+    (0, 700, 4, 16, 0), (1, 700, 4, 16, 8), (2, 1025, 5, 64, 1),
+    (3, 1025, 5, 64, 8), (4, 8192, 4, 128, 1), (5, 8192, 4, 128, 8),
+    (6, 20000, 3, 256, 0), (7, 20000, 3, 256, 1), (8, 3000, 4, 16383, 0),
+    (9, 3000, 4, 16383, 8), (10, 300, 60000, 64, 0), (11, 1, 4, 4, 0)])
+def test_gang_block_fit_edges_equal_plain(cuda, seed, N, U, n_blocks,
+                                          cluster):
+    """The one-launch cluster kernel at its edges (``block_fit_edge_case``:
+    block ids -1, -7, n_blocks and past it, nodes not ready, ntasks past a
+    positive max_tasks, an all-zero profile row with and without a count),
+    N below one CTA's 1,024 threads and not a multiple of them, cluster
+    sizes forced to 1 and 8 and chosen by N, and tables past one CTA's
+    shared memory: 16,383 x 4 int32 (the tile of rows) and 64 x 60,000
+    (the tile of profiles).  cfit, whole and score identical to the plain
+    version; one kernel and no other device operation a call."""
+    from test_torch_fixtures import block_fit_edge_case
+
+    c = _tensors(block_fit_edge_case(seed, N=N, U=U, R=3 + seed % 3,
+                                     n_blocks=n_blocks), cuda)
+    args = (c["idle"], c["ready"], c["ntasks"], c["max_tasks"],
+            c["block_id"], c["prof_req"], c["prof_cnt"], c["eps"],
+            c["n_blocks"])
+    before = kernels.LAUNCHES["gang_block_fit"]
+    got = kernels.gang_block_fit(*args, cluster=cluster)
+    want = kernels.gang_block_fit(*args, plain=True)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["gang_block_fit"] == before + 1
+    for g, w, what in zip(got, want, ("cfit", "whole", "score")):
+        _bits_equal(g, w, what)
+    if seed % 2:
+        assert not bool(got[1].any())
+    if N > 1:
+        assert bool((got[0] > 0).any())
+    ops = _device_ops(lambda: kernels.gang_block_fit(*args, cluster=cluster))
+    assert ops == ["block_fit_kernel"], ops
+
+
+def test_gang_block_fit_every_cluster_size_equals_plain(cuda):
+    """The [topology] shape (8,192 nodes in 128 blocks of 64) at every
+    cluster size the kernel takes, 1 to 16: all identical."""
+    from test_torch_fixtures import block_fit_edge_case
+
+    c = _tensors(block_fit_edge_case(2, N=8192, U=4, n_blocks=128), cuda)
+    c["block_id"] = torch.arange(8192, dtype=torch.int32,
+                                 device=cuda) // 64
+    args = (c["idle"], c["ready"], c["ntasks"], c["max_tasks"],
+            c["block_id"], c["prof_req"], c["prof_cnt"], c["eps"], 128)
+    want = kernels.gang_block_fit(*args, plain=True)
+    for cluster in range(1, 17):
+        got = kernels.gang_block_fit(*args, cluster=cluster)
+        for g, w, what in zip(got, want, ("cfit", "whole", "score")):
+            _bits_equal(g, w, f"{what} (cluster {cluster})")
+
+
+@pytest.mark.parametrize("kind,k,u,e", [
+    ("pad", 16, 6, 5), ("pad", 16, 1, 1), ("origin", 16, 1, 1),
+    ("origin", 64, 7, 5), ("negzero", 256, 33, 17), ("full", 64, 3, 5),
+    ("full", 1024, 31, 33), ("origin", 4096, 4096, 4097),
+    ("negzero", 4096, 4096, 4097)])
+def test_scatter_profile_tables_edges_equal_plain(cuda, kind, k, u, e):
+    """The two-launch fill and scatter at its edges
+    (``profile_entry_case``): padding only, a real entry at (0, 0) among
+    the padded ones, real soft values of -0.0 (+0.0 in the tables), every
+    cell real; u x e not a multiple of 16, a single cell, and the
+    captured config-5 shape (4,096 x 4,097).  Every plane identical to the
+    plain version byte for byte; two kernels and no memset a call."""
+    from test_torch_fixtures import profile_entry_case
+
+    from volcano_tpu_torch.ops import affkernels
+
+    r, c, f, s = (torch.from_numpy(a).to(cuda)
+                  for a in profile_entry_case(kind, k, u, e, seed=k + u))
+    before = kernels.LAUNCHES["scatter_profile_tables"]
+    got = affkernels.scatter_profile_tables(r, c, f, s, u, e)
+    want = affkernels.scatter_profile_tables(r, c, f, s, u, e, plain=True)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["scatter_profile_tables"] == before + 1
+    for a, b, what in zip(got, want, ("aff", "anti", "match", "soft")):
+        _bits_equal(a, b, what)
+        assert a.data_ptr() % 16 == 0, what
+    ops = _device_ops(
+        lambda: affkernels.scatter_profile_tables(r, c, f, s, u, e))
+    assert sorted(ops) == ["scatter_profile_kernel",
+                           "zero_planes_kernel"], ops
+
+
 @pytest.mark.parametrize("make,wave", [
     (lambda: synthetic_cluster(n_nodes=64, n_pods=512, gang_size=4,
                                n_queues=2, zones=4, seed=1), 128),

@@ -383,6 +383,74 @@ def block_fit_case(seed, N=400, U=4, R=3, n_blocks=16):
                 prof_cnt=cnt, eps=c["eps"], n_blocks=n_blocks)
 
 
+def block_fit_edge_case(seed, N=300, U=4, R=3, n_blocks=16):
+    """``block_fit_case`` with the edges a scatter into block rows has to
+    get right: block ids -1 and below (blockless: JAX's trash row),
+    ``n_blocks`` (the trash row itself) and past it (dropped as out of
+    range); nodes not ready; ``max_tasks`` 0 (unlimited) and ``max_tasks``
+    > 0 with ``ntasks`` past it (no slot left); and an all-zero profile
+    row, with a pending count on odd seeds (no block is then whole)."""
+    c = block_fit_case(seed, N=N, U=U, R=R, n_blocks=n_blocks)
+    rng = np.random.RandomState(seed + 1000)
+    pick = rng.rand(N)
+    block = c["block_id"].copy()
+    block[pick < 0.08] = -1
+    block[(pick >= 0.08) & (pick < 0.12)] = -7
+    block[(pick >= 0.12) & (pick < 0.16)] = n_blocks
+    block[(pick >= 0.16) & (pick < 0.2)] = n_blocks + 5
+    past = (pick >= 0.2) & (pick < 0.3)
+    c["max_tasks"] = c["max_tasks"].copy()
+    c["ntasks"] = c["ntasks"].copy()
+    c["max_tasks"][past] = 3
+    c["ntasks"][past] = 5
+    c["prof_req"] = c["prof_req"].copy()
+    c["prof_cnt"] = c["prof_cnt"].copy()
+    c["prof_req"][U - 1] = 0.0
+    c["prof_cnt"][U - 1] = 3 if seed % 2 else 0
+    c["block_id"] = block
+    return c
+
+
+def profile_entry_case(kind, k, u, e, seed=0):
+    """Sparse entries for ``scatter_profile_tables`` at its edges: ``pad``
+    k padded entries only (flags 0 and +0.0 at (0, 0)); ``origin`` a real
+    entry at (0, 0) among the padded ones (and a few elsewhere); ``negzero``
+    real entries whose soft value is -0.0, with flag bits and without;
+    ``full`` every cell real, no padding.  Real (row, col) pairs are unique,
+    as the encode's ``np.nonzero`` gives them.  Returns (rows, cols, flags,
+    soft) as numpy arrays."""
+    rng = np.random.RandomState(seed)
+    cells = u * e
+    if kind == "pad":
+        real = np.zeros(0, np.int64)
+    elif kind == "origin":
+        rest = rng.choice(np.arange(1, cells), min(cells - 1, k // 4),
+                          replace=False) if cells > 1 else np.zeros(0, int)
+        real = np.concatenate([[0], rest]).astype(np.int64)
+    elif kind == "negzero":
+        real = rng.choice(cells, min(cells, k // 2), replace=False)
+    elif kind == "full":
+        real = np.arange(cells, dtype=np.int64)
+    else:
+        raise ValueError(kind)
+    n = len(real)
+    if n > k:
+        raise ValueError("more real entries than k")
+    flags = rng.randint(0, 8, n).astype(np.int8)
+    soft = rng.choice([5.0, -5.0, 10.0, -10.0, 0.0], n).astype(np.float32)
+    if kind == "origin":
+        flags[0], soft[0] = 7, -5.0
+    if kind == "negzero":
+        soft[:] = -0.0
+        flags[: n // 2] = 0
+    pad = k - n
+    rows = np.concatenate([real // e, np.zeros(pad, np.int64)])
+    cols = np.concatenate([real % e, np.zeros(pad, np.int64)])
+    return (rows.astype(np.int32), cols.astype(np.int32),
+            np.concatenate([flags, np.zeros(pad, np.int8)]),
+            np.concatenate([soft, np.zeros(pad, np.float32)]))
+
+
 def affinity_store(pkg, n_nodes=32, n_gangs=24, gang_size=4, zones=4,
                    seed=0, ports=True, residents=2, pod_cpu=("1", "2"),
                    node_cpu="16", mix=("aff", "anti", "res_aff", "res_anti",

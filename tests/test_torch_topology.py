@@ -68,6 +68,36 @@ def test_block_fit_and_fabric_frag_plain_match_jax(seed):
     assert jf.dtype == tf.dtype and jf.tobytes() == tf.tobytes()
 
 
+@pytest.mark.parametrize("seed,N,n_blocks", [
+    (0, 1, 4), (1, 31, 4), (2, 300, 16), (3, 1025, 16), (4, 2049, 64),
+    (5, 700, 8), (6, 4096, 32), (7, 333, 128)])
+def test_block_fit_edges_plain_match_jax(seed, N, n_blocks):
+    """The rows the card kernel skips or caps (``block_fit_edge_case``:
+    block ids -1, -7, n_blocks and past it, nodes not ready, ``ntasks``
+    past a positive ``max_tasks``, an all-zero profile row with and
+    without a count), at node counts below and just past a multiple of
+    the kernel's 1,024 threads: cfit, whole, score and fabric_frag
+    bit-equal to the JAX jits."""
+    from test_torch_fixtures import block_fit_edge_case
+
+    c = block_fit_edge_case(seed, N=N, R=3 + seed % 3, n_blocks=n_blocks)
+    args = (c["idle"], c["ready"], c["ntasks"], c["max_tasks"],
+            c["block_id"], c["prof_req"], c["prof_cnt"], c["eps"])
+    want = [np.asarray(a) for a in jax.device_get(
+        jtopo.gang_block_fit(*args, n_blocks=n_blocks))]
+    got = [t.numpy() for t in ttopo.gang_block_fit(
+        *args, n_blocks=n_blocks, device="cpu")]
+    for w, g in zip(want, got):
+        assert w.dtype == g.dtype and w.tobytes() == g.tobytes()
+    jf = np.asarray(jax.device_get(
+        jtopo.fabric_frag(want[0], want[1], c["prof_cnt"])))
+    tf = ttopo.fabric_frag(got[0], got[1], c["prof_cnt"],
+                           device="cpu").numpy()
+    assert jf.dtype == tf.dtype and jf.tobytes() == tf.tobytes()
+    if seed % 2:
+        assert not want[1].any()
+
+
 def test_block_fit_cases_are_not_vacuous():
     """Whole and partial blocks, stranded capacity and pod-slot caps all
     occur."""

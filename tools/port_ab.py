@@ -38,7 +38,18 @@ built from its own sources into its own build directory.  ``--phase``
 - ``victim``: ``victim_scores`` in both modes at V = 40,000 over 10,000
   nodes (four job priorities, creation ranks a permutation, ties 0..V-1,
   numpy seed 0), checked against its plain version; CUDA events around 20
-  queued launches (``chip_smoke._device_ms``), best of two.
+  queued launches (``chip_smoke._device_ms``), best of two;
+- ``kernels``: ``scatter_profile_tables`` and ``gang_block_fit`` on their
+  first launches' inputs -- config 5's cold cycle (``config5_cluster(
+  10,000, 100,000)``, U 4,096 x E+1 4,097) and the ``[topology]`` cycle 0
+  (``fabric_cluster(16, 8, 64)``: 8,192 nodes in 128 blocks) -- checked
+  against their plain versions and timed by ``chip_smoke.replay_kernels``;
+  the device operations one call puts on the card (a trace); where the
+  tree's wrapper takes ``cluster``, ``gang_block_fit`` at cluster sizes
+  1, 2, 4, 8 and 16; where the tree has ``chip_smoke.launch_floor``, an
+  empty kernel's launch.  ``--caps FILE`` keeps the captured inputs: the
+  first run captures and writes them, later runs (other trees) load them,
+  so that every tree is timed on the same inputs.
 
 A traced call reports the device time and launch count summed per CUDA
 function (every device event, named as the profiler names it), the card's
@@ -59,7 +70,7 @@ import time
 from pathlib import Path
 
 PHASES = ("solve", "cold", "shortlist", "seq", "seq-north-star",
-          "seq-trace", "victim")
+          "seq-trace", "victim", "kernels")
 
 
 def _trace(fn) -> dict:
@@ -422,10 +433,107 @@ def phase_victim(cs, opts) -> dict:
     return out
 
 
+# ------------------------------------------------ two redesigned kernels
+
+def _capture_kernels(cs) -> dict:
+    """The first ``scatter_profile_tables`` launch of config 5's cold cycle
+    and the first ``gang_block_fit`` launch of the ``[topology]`` cycle 0."""
+    from volcano_tpu_torch.cache import FakeBinder
+    from volcano_tpu_torch.framework import REBALANCE_SCHEDULER_CONF
+    from volcano_tpu_torch.ops import kernels
+    from volcano_tpu_torch.scheduler import Scheduler
+    from volcano_tpu_torch.synth import fabric_cluster
+
+    kernels.CAPTURE = {}
+    store = cs.config5_cluster(10000, 100000)
+    cs.run_aff_cycles("ab:affinity", store, steady=0)
+    c5, kernels.CAPTURE = kernels.CAPTURE, None
+    store.close()
+    kernels.CAPTURE = {}
+    store = fabric_cluster(racks=16, slices_per_rack=8, nodes_per_slice=64,
+                           gang_tasks=128, topology="require-contiguous",
+                           binder=FakeBinder())
+    Scheduler(store, conf_str=REBALANCE_SCHEDULER_CONF).run_once()
+    topo, kernels.CAPTURE = kernels.CAPTURE, None
+    store.close()
+    caps = {}
+    for key, got in (("scatter_profile_tables", c5),
+                     ("gang_block_fit", topo)):
+        if key not in got:
+            raise AssertionError(f"[ab:kernels] no {key} launch captured")
+        caps[key] = got[key]
+    return caps
+
+
+def _to(cap: dict, dev) -> dict:
+    return {k: v.to(dev) if hasattr(v, "to") else v for k, v in cap.items()}
+
+
+def phase_kernels(cs, opts) -> dict:
+    import inspect
+
+    import torch
+
+    from volcano_tpu_torch.ops import kernels
+
+    path = Path(opts.caps) if opts.caps else None
+    if path is not None and path.exists():
+        caps = {k: _to(v, "cuda") for k, v in torch.load(path).items()}
+    else:
+        caps = _capture_kernels(cs)
+        if path is not None:
+            path.parent.mkdir(parents=True, exist_ok=True)
+            torch.save({k: _to(v, "cpu") for k, v in caps.items()}, path)
+    out = {}
+    for key, cap in caps.items():
+        row = cs.replay_kernels({key: cap}, {key: 1}, names=[key])[0]
+        fn = cs._kernel_fn(key, cs._clone(cap), plain=False)
+        fn()
+        tr = _trace(fn)
+        out[key] = {k: row.get(k) for k in (
+            "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
+            "yardstick", "yardstick_ms", "queued", "max_abs_err", "bytes")}
+        out[key]["device_ops"] = {f: n for f, (_ms, n) in tr["funcs"].items()}
+        _log(opts.label, f"kernels {key}: {row['ms']:.5f} ms (plain "
+             f"{row['plain_ms']:.4f}, bound {row['bound_ms']:.6f}), device "
+             f"ops {out[key]['device_ops']}")
+    gbf = caps["gang_block_fit"]
+    out["gang_block_fit"]["shape"] = {
+        "N": int(gbf["idle"].shape[0]), "R": int(gbf["idle"].shape[1]),
+        "U": int(gbf["prof_req"].shape[0]), "B": int(gbf["n_blocks"])}
+    spt = caps["scatter_profile_tables"]
+    out["scatter_profile_tables"]["shape"] = {
+        "U": int(spt["u"]), "E1": int(spt["e"]),
+        "k": int(spt["rows"].shape[0])}
+    if "cluster" in inspect.signature(kernels.gang_block_fit).parameters:
+        c = gbf
+        args = (c["idle"], c["ready"], c["ntasks"], c["max_tasks"],
+                c["block_id"], c["prof_req"], c["prof_cnt"], c["eps"],
+                c["n_blocks"])
+        want = kernels.gang_block_fit(*args, plain=True)
+        sweep = {}
+        for C in (1, 2, 4, 8, 16):
+            got = kernels.gang_block_fit(*args, cluster=C)
+            torch.cuda.synchronize()
+            if not all(torch.equal(g, w) for g, w in zip(got, want)):
+                raise RuntimeError(f"gang_block_fit (cluster {C}) != plain")
+            sweep[C] = min(cs._device_ms(
+                [lambda C=C: kernels.gang_block_fit(*args, cluster=C)
+                 for _ in range(20)])[0] for _ in range(2))
+        out["gang_block_fit"]["clusters_ms"] = sweep
+        _log(opts.label, f"kernels gang_block_fit by cluster size "
+             f"{json.dumps(sweep)}")
+    if hasattr(cs, "launch_floor"):
+        out["launch_floor_ms"] = cs.launch_floor()
+        _log(opts.label, f"kernels empty launch "
+             f"{json.dumps(out['launch_floor_ms'])}")
+    return out
+
+
 RUN = {"solve": phase_solve, "cold": phase_cold,
        "shortlist": phase_shortlist, "seq": phase_seq,
        "seq-north-star": phase_seq_north_star, "seq-trace": phase_seq_trace,
-       "victim": phase_victim}
+       "victim": phase_victim, "kernels": phase_kernels}
 
 
 def main() -> int:
@@ -438,6 +546,8 @@ def main() -> int:
     ap.add_argument("--cold", type=int, default=1)
     ap.add_argument("--reps", type=int, default=5)
     ap.add_argument("--cycles", type=int, default=4)
+    ap.add_argument("--caps", help="kernels: file of captured inputs "
+                    "(written when missing, read when present)")
     opts = ap.parse_args()
 
     import torch

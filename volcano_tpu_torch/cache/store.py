@@ -18,13 +18,16 @@ write-back, the claim registry the volume gate reads, and the cycle's cache
 slots (``cycle_feed``, ``_devincr_cache``, ``device_snapshot``, the what-if
 streak and backoff maps).
 
-Not ported yet (ROADMAP.md, queue 1, "the fast path's remaining lanes"):
-asynchronous bind dispatch (``async_bind``), the remote solver
-(``remote_solver``), the device mesh (``solve_mesh``), persistence / HA,
-the object path's eviction (``evict``; the fast lanes flush through
-``evictor``), the controller-plane records, and the journey, audit, SLO
-and lockdep hooks.  Setting one of the slots, or calling ``evict``, raises
-``NotImplementedError``.
+The object session's eviction (``evict``, cache.go:439-489) is here too:
+the object session's preempt and reclaim evict through it, while the fast
+lanes flush through ``evictor``.
+
+Not ported yet (ROADMAP.md, queue 1): asynchronous bind dispatch
+(``async_bind``), persistence / HA, the controller-plane records, and the
+journey, audit, SLO and lockdep hooks ("the fast path's remaining lanes");
+the remote solver (``remote_solver``, "the solver service"); the device
+mesh (``solve_mesh``, "multi-GPU").  Setting one of the three slots raises
+``NotImplementedError`` naming its item.
 """
 
 from __future__ import annotations

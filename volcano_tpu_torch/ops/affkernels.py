@@ -140,10 +140,14 @@ def scatter_profile_tables(rows, cols, flags, soft, u: int, e: int,
     t_req_anti, t_matches, t_soft)``.
 
     Real (row, col) pairs are unique, so a real cell takes exactly one
-    add; the padded entries add flags 0 and +0.0 at (0, 0).  The soft
-    value of a real cell is therefore the same in any add order: 0.0 + v
-    = v, and v + 0.0 = v for every v other than -0.0, which a table
-    built by adding integer weights onto +0.0 never holds."""
+    add; the padded entries add flags 0 and +0.0 at (0, 0).  A cell's
+    count is therefore its entry's flag bit, and its soft value 0.0 + v
+    in any add order (v + 0.0 = v for every v other than -0.0, which a
+    table built by adding onto +0.0 never holds).
+
+    On the card: two launches, a zero fill of the four planes with
+    16-byte stores and a scatter of the entries.  The planes are views of
+    one buffer, each starting at a multiple of 16 bytes."""
     if not _on_card(plain, rows, cols, soft):
         return _profile_tables_plain(rows, cols, flags, soft, u, e)
     i32 = torch.int32
@@ -159,21 +163,23 @@ def scatter_profile_tables(rows, cols, flags, soft, u: int, e: int,
         raise ValueError(f"scatter_profile_tables: bad shape ({u}, {e})")
     _capture("scatter_profile_tables", rows=rows, cols=cols, flags=flags,
              soft=soft, u=u, e=e)
-    dev = soft.device
     cells = u * e
-    # The bool planes take byte counts from 32-bit atomics on their
-    # words: size them to whole words.
-    words = (cells + 3) // 4
-    planes = [torch.empty(words * 4, dtype=torch.uint8, device=dev)
-              for _ in range(3)]
-    st = torch.empty((u, e), dtype=torch.float32, device=dev)
+    # soft, aff, anti, match: each plane's offset a multiple of 16 bytes
+    # in one buffer (whose start the allocator aligns far wider).
+    sizes = (4 * cells, cells, cells, cells)
+    offs, off = [], 0
+    for n in sizes:
+        offs.append(off)
+        off += -(-n // 16) * 16
+    buf = torch.empty(off, dtype=torch.uint8, device=soft.device)
+    st = buf[:sizes[0]].view(torch.float32).view(u, e)
+    aff, anti, match = (buf[o:o + cells].view(torch.bool).view(u, e)
+                        for o in offs[1:])
     rc = load().vtt_scatter_profile_tables(
         _ptr(rows), _ptr(cols), _ptr(flags), _ptr(soft), k, u, e,
-        *[_ptr(p) for p in planes], _ptr(st), _stream())
+        _ptr(aff), _ptr(anti), _ptr(match), _ptr(st), _stream())
     _check(rc, "scatter_profile_tables")
     LAUNCHES["scatter_profile_tables"] += 1
-    aff, anti, match = (p[:cells].view(torch.bool).view(u, e)
-                        for p in planes)
     return aff, anti, match, st
 
 

@@ -195,7 +195,8 @@ _BUILD = _CSRC / "_build"
 _SOURCES = ("coarse_shortlist.cu", "rank_candidates.cu", "walk_accept.cu",
             "apply_commit.cu", "warm_shortlist.cu", "scatter_rows.cu",
             "victim_scores.cu", "frag_scores.cu", "topology.cu",
-            "aff_tables.cu", "aff_live.cu", "aff_filter.cu", "seq_solve.cu")
+            "aff_tables.cu", "aff_live.cu", "aff_filter.cu", "seq_solve.cu",
+            "launch_floor.cu")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-O3",
               "-fmad=false", "-std=c++17", "-Xcompiler", "-fPIC")
 BUILD_SECONDS: Optional[float] = None
@@ -291,7 +292,7 @@ _SIGS = {
                           _P, _I, _I, _I, _P, _L, _P, _P, _P, _P, _P],
     "vtt_frag_scores": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _P, _P, _P, _P],
     "vtt_gang_block_fit": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
-                           _P, _P, _P, _P],
+                           _I, _P, _P, _P, _P],
     "vtt_fabric_frag": [_P, _P, _P, _I, _I, _P, _P],
     "vtt_scatter_cnt0": [_P, _P, _P, _I, _I, _I, _P, _P],
     "vtt_scatter_profile_tables": [_P, _P, _P, _P, _I, _I, _I, _P, _P, _P,
@@ -302,6 +303,7 @@ _SIGS = {
                        _P, _P, _P, _P, _P, _P, _P, _P],
     "vtt_seq_solve": ([_I] * 13 + [_P] * 29 + [_F] * 5 + [_P] * 29
                       + [_I] * 2 + [_P] * 9),
+    "vtt_empty_launch": [_I, _P],
 }
 
 
@@ -1713,8 +1715,8 @@ def frag_scores(idle, alloc, ready, evictable, prof_req, eps,
 
 # --------------------------------------------- gang_block_fit, fabric_frag
 
-def _block_fit_plain(idle, ready, ntasks, max_tasks, block_id, prof_req,
-                     prof_cnt, eps, n_blocks):
+def _block_caps(idle, ready, ntasks, max_tasks, prof_req, eps):
+    """The [N, U] int32 capacity of each node for each profile."""
     cap = _profile_counts(idle, prof_req, eps)
     cap = torch.clamp(cap, 0.0, _FIT_INERT)
     slots_left = torch.where(
@@ -1722,7 +1724,12 @@ def _block_fit_plain(idle, ready, ntasks, max_tasks, block_id, prof_req,
         torch.full_like(idle[:, 0], _FIT_INERT))
     cap = torch.minimum(cap, slots_left[:, None])
     cap = torch.where(ready[:, None], cap, torch.zeros_like(cap))
-    cap = cap.to(torch.int32)
+    return cap.to(torch.int32)
+
+
+def _block_fit_plain(idle, ready, ntasks, max_tasks, block_id, prof_req,
+                     prof_cnt, eps, n_blocks):
+    cap = _block_caps(idle, ready, ntasks, max_tasks, prof_req, eps)
     # Segment sum; blockless rows land in the trash row n_blocks, rows past
     # it are dropped (XLA's out-of-range scatter).
     seg = torch.where(block_id >= 0, block_id,
@@ -1742,13 +1749,18 @@ def _block_fit_plain(idle, ready, ntasks, max_tasks, block_id, prof_req,
 
 
 def gang_block_fit(idle, ready, ntasks, max_tasks, block_id, prof_req,
-                   prof_cnt, eps, n_blocks: int, plain: bool = False):
+                   prof_cnt, eps, n_blocks: int, plain: bool = False,
+                   cluster: int = 0):
     """Whole-gang fit per fabric block (ops/topology.py:179
     ``gang_block_fit``): ``idle`` [N, R] f32, ``ready`` [N] bool,
     ``ntasks``/``max_tasks``/``block_id`` [N] int32 (block -1: blockless),
     ``prof_req`` [U, R] f32, ``prof_cnt`` [U] int32, ``eps`` [R] f32, over
     ``n_blocks`` block rows -> ``(cfit [n_blocks, U] int32, whole
-    [n_blocks] bool, score [n_blocks] f32)``."""
+    [n_blocks] bool, score [n_blocks] f32)``.
+
+    On the card: one launch of one thread-block cluster, which writes every
+    output once.  ``cluster`` forces its size (1-16; 0, the default: chosen
+    by N); only tests and measurements set it."""
     B = int(n_blocks)
     if not _on_card(plain, idle, prof_req, block_id):
         return _block_fit_plain(idle, ready, ntasks, max_tasks, block_id,
@@ -1766,6 +1778,9 @@ def gang_block_fit(idle, ready, ntasks, max_tasks, block_id, prof_req,
     U = prof_req.shape[0]
     if R > MAX_R:
         raise ValueError(f"{R} resource slots exceed the kernels' {MAX_R}")
+    if not 0 <= cluster <= 16:
+        raise ValueError(f"gang_block_fit: cluster size {cluster} not in "
+                         f"0-16")
     if (B < 1 or any(a[k].shape != (N,) for k in (
             "ready", "ntasks", "max_tasks", "block_id"))
             or prof_req.shape != (U, R) or prof_cnt.shape != (U,)
@@ -1773,17 +1788,17 @@ def gang_block_fit(idle, ready, ntasks, max_tasks, block_id, prof_req,
         raise ValueError("gang_block_fit: inconsistent input shapes")
     _capture("gang_block_fit", n_blocks=B, **a)
     dev = idle.device
-    cfit = torch.zeros((B + 1, U), dtype=i32, device=dev)
+    cfit = torch.empty((B, U), dtype=i32, device=dev)
     whole = torch.empty(B, dtype=torch.bool, device=dev)
     score = torch.empty(B, dtype=f32, device=dev)
     rc = load().vtt_gang_block_fit(
         _ptr(a["idle"]), _ptr(a["ready"]), _ptr(a["ntasks"]),
         _ptr(a["max_tasks"]), _ptr(a["block_id"]), _ptr(a["prof_req"]),
-        _ptr(a["prof_cnt"]), _ptr(a["eps"]), N, U, R, B, _ptr(cfit),
-        _ptr(whole), _ptr(score), _stream())
+        _ptr(a["prof_cnt"]), _ptr(a["eps"]), N, U, R, B, int(cluster),
+        _ptr(cfit), _ptr(whole), _ptr(score), _stream())
     _check(rc, "gang_block_fit")
     LAUNCHES["gang_block_fit"] += 1
-    return cfit[:B], whole, score
+    return cfit, whole, score
 
 
 def _fabric_frag_plain(cfit, whole, prof_cnt):

@@ -43,9 +43,11 @@ a sub-round), and inter-pod affinity, anti-affinity and soft terms
 (preferred affinity, topology spread) through the per-(term, domain)
 count tables of ``arrays/affinity.py``: phase 1 reads the solve-start
 counts, phase 2 each wave's window of them, updated as tasks commit.
-Custom plugin masks and scores, mesh sharding and
-``VOLCANO_TPU_TWOPHASE=0`` raise ``NotImplementedError``: the port never
-computes a different answer for them.  So does ``VOLCANO_TPU_AFF_STEER``
+Custom plugin masks and scores come in as ``extra_ok`` / ``extra_score``
+(per-task [P, N] planes, split into profiles as the JAX solve splits
+them).  Mesh sharding and ``VOLCANO_TPU_TWOPHASE=0`` raise
+``NotImplementedError``: the port never computes a different answer for
+them.  So does ``VOLCANO_TPU_AFF_STEER``
 (the JAX package's off-by-default live steering).
 """
 
