@@ -36,14 +36,26 @@ of which raises (and the script exits non-zero) when a check fails:
    the pods on nodes 0-63 (warm shortlists and static-plane hits
    required), one traced steady cycle (device idle share), and one cycle
    after ``update_node`` gives 100 nodes half as much CPU again (a devsnap
-   delta scatter and a full re-rank required); launch counts zeroed before the first cycle and
-   read after the last: every kernel must have launched; invariants after
-   every cycle;
+   delta and a full re-rank required; the delta one ``scatter_planes``
+   launch a chunk, the host time of ``DeviceSnapshot.node_planes``
+   printed), then a second such cycle whose ``node_planes`` call is traced
+   (its device operations: one copy and one launch a chunk, one copy a
+   plane re-uploaded whole); a cycle launches ``static_planes`` once a
+   static miss and never on a hit (printed per cycle); launch counts
+   zeroed before the first cycle and read after the last: every kernel
+   must have launched; invariants after every cycle;
 7. lanes on / off: the same sequence at 1,000 x 10,000 with the
    device-incremental lane and the device snapshot on, then off; binds,
    PodGroup phases and mirror states identical;
 8. every kernel of the cycle against its plain version on its captured
-   inputs, timed as in 4 (``scatter_rows`` beside ``index_copy_``);
+   inputs, timed as in 4: ``scatter_rows`` as the multi-plane launch of
+   the update cycle's delta beside ``index_copy_`` on each plane, the
+   one-plane launches and the packed copy with its launch;
+   ``static_planes`` also as its share of the north-star solve's row-form
+   shortlist launch, which builds the planes itself (that launch against
+   the same launch reading given planes, and the pair of launches it
+   replaced: the planes equal to the plain version's, every output to the
+   pair's);
 9. reclaim (BASELINE config 4): ``preempt_cluster(10,000 nodes, 4 fillers
    a node, 20,000 pending pods in gangs of 4)`` under the preempt + reclaim
    conf, ``ClusterSimulator(grace_steps=2)`` stepped after every cycle: a
@@ -88,7 +100,8 @@ of which raises (and the script exits non-zero) when a check fails:
    on nodes 0-63 (nonzero resident counts, encode-cache hits), one traced
    steady cycle (device idle share); launch counts zeroed before and read
    after, ``scatter_cnt0``, ``scatter_profile_tables``, ``aff_live`` and
-   ``aff_filter`` required; after every cycle every pod bound, no node
+   ``aff_filter`` required, the static planes' own launches and those
+   built in a shortlist launch printed per cycle; after every cycle every pod bound, no node
    over capacity, gangs whole, every zone-affine gang in one zone, every
    anti-affine gang on distinct nodes, no host port twice on a node, no
    device plane read back; ``aff_live``'s computing and gated launches
@@ -180,7 +193,8 @@ def _smi() -> str:
 PTXAS_SOURCES = ("rank_candidates.cu", "aff_live.cu", "walk_accept.cu",
                  "aff_filter.cu", "coarse_shortlist.cu",
                  "warm_shortlist.cu", "apply_commit.cu", "seq_solve.cu",
-                 "victim_scores.cu", "topology.cu", "aff_tables.cu")
+                 "victim_scores.cu", "topology.cu", "aff_tables.cu",
+                 "scatter_rows.cu")
 
 
 def ptxas_report(sources=PTXAS_SOURCES) -> dict:
@@ -222,6 +236,9 @@ def ptxas_report(sources=PTXAS_SOURCES) -> dict:
                 continue
             if fn is None:
                 continue
+            m = re.search(r"(\d+) bytes stack frame", line)
+            if m:
+                report[fn]["stack_bytes"] = int(m.group(1))
             m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill "
                           r"loads", line)
             if m:
@@ -452,12 +469,13 @@ def _kernel_fn(name, c, plain):
             t_req_anti=z, t_matches=z, t_soft=z)
         cls = NodeClasses(c["cls_id"], c.get("cls_label"),
                           c.get("cls_taint"), c.get("cls_ready"))
-        stat = ((c["stat_ok"], c["stat_score"]) if "stat_ok" in c
-                else None)
+        # The planes are read at call time (static_share swaps them in).
         return lambda: tuple(kernels.coarse_shortlist(
             prof, cls, c["idle"], c["alloc"], c["ntasks"], c["max_tasks"],
             c["eps"], c["scalar_slot"], c["weights"], c["S"],
-            c["has_taints"], stat=stat, n_blocks=c["n_blocks"],
+            c["has_taints"], stat=((c["stat_ok"], c["stat_score"])
+                                   if "stat_ok" in c else None),
+            n_blocks=c["n_blocks"],
             future=c.get("future"), ports=c.get("ports"), aff=c.get("aff"),
             extra=c.get("extra"), plain=plain))
     if name == "static_planes":
@@ -485,10 +503,11 @@ def _kernel_fn(name, c, plain):
             c["cand_i"], c["S"], future=c.get("future"),
             ports=c.get("ports"), aff=c.get("aff"), plain=plain))
     if name == "scatter_rows":
+        # The node-table delta of every plane in one launch.
         def scatter():
-            kernels.scatter_rows(c["buf"], c["rows"], c["vals"],
-                                 plain=plain)
-            return (c["buf"],)
+            kernels.scatter_planes(c["bufs"], c["staged"], c["k"],
+                                   plain=plain)
+            return tuple(c["bufs"])
         return scatter
     if name == "rank_candidates":
         return lambda: tuple(kernels.rank_candidates(
@@ -651,7 +670,11 @@ def _work(name, cap, outs):
             nbytes += U * pw * 4 + rows * pw * 4
         ops = U * rows * (25 + 12 * R) + U * B * klb
     elif name == "scatter_rows":
-        nbytes = _nbytes(cap["rows"]) + 2 * _nbytes(cap["vals"])
+        # The row ids and every plane's delta values read once, the same
+        # bytes written into the planes.
+        k = cap["k"]
+        vals = sum(k * b[0].numel() * b.element_size() for b in cap["bufs"])
+        nbytes = 4 * k + 2 * vals
         ops = 0
     elif name == "rank_candidates":
         rows = cap["rows"].long()
@@ -865,9 +888,6 @@ def _device_ms(fns) -> tuple:
 
 def _library_fn(name, c):
     """One PyTorch call computing the kernel's function, or None."""
-    if name == "scatter_rows":
-        rows = c["rows"].long()
-        return lambda: c["buf"].index_copy_(0, rows, c["vals"])
     if name == "scatter_cnt0":
         import torch
 
@@ -907,6 +927,23 @@ def _yardstick_fn(name, c):
             return call
         return ("torch.zeros + index_put_ on each of the four planes "
                 "(8 calls; padded entries dropped before timing)", make)
+    if name == "scatter_rows":
+        def make():
+            from volcano_tpu_torch.ops import kernels
+
+            # The staged rows and values as the planes' views, and fresh
+            # copies of the planes, made before timing.
+            rows, vals = kernels._delta_views(c["bufs"], c["staged"], c["k"])
+            rows = rows.long()
+            bufs = [b.clone() for b in c["bufs"]]
+
+            def call():
+                return tuple(b.index_copy_(0, rows, v)
+                             for b, v in zip(bufs, vals))
+            return call
+        return (f"index_copy_ on each of the {len(c['bufs'])} planes "
+                f"({len(c['bufs'])} calls, the staged delta already "
+                f"unpacked as views)", make)
     if name == "gang_block_fit":
         def make():
             from volcano_tpu_torch.ops import kernels
@@ -930,6 +967,125 @@ def _yardstick_fn(name, c):
         return ("torch.zeros + index_add_ of the precomputed [N, U] "
                 "capacities (2 calls: the segment sum alone)", make)
     return None
+
+
+STATIC_INPUTS = ("sel_bits", "aff_bits", "aff_terms", "tol_bits",
+                 "pref_bits", "pref_w", "cls_label", "cls_taint", "cls_ready")
+
+
+def static_share(cap: dict, reps: int = 20) -> dict:
+    """A row-form shortlist launch that built the static planes itself
+    (its captured inputs, no planes given) against the two-launch form:
+    the planes' own launch (``static_planes``), then the same shortlist
+    launch reading them.  The planes must equal ``class_static_plain``
+    and every output the two-launch form's.  Timed as in
+    ``replay_kernels`` (best of two runs of ``reps`` queued calls, in
+    turns): the launch building the planes (``fused_ms``), the same
+    launch reading given planes (``given_ms``), the planes' own launch
+    (``own_ms``) and the pair (``pair_ms``); ``share_ms`` = fused - given,
+    the planes' share of the launch.  Also the device operations of one
+    fused call and of one pair (``graph_ops``)."""
+    import torch
+
+    if "sel_bits" not in cap or "stat_ok" in cap or cap["n_blocks"]:
+        raise AssertionError("the captured launch is not a row-form "
+                             "shortlist building its static planes")
+    static = {k: cap[k] for k in STATIC_INPUTS}
+    static.update(naff=float(cap["weights"].node_affinity_weight),
+                  has_taints=cap["has_taints"])
+    want = _kernel_fn("static_planes", _clone(static), True)()
+
+    def given():
+        c = _clone(cap)
+        c["stat_ok"], c["stat_score"] = (t.clone() for t in want)
+        return c
+
+    def pair():
+        own = _kernel_fn("static_planes", _clone(static), False)
+        c = given()
+        short = _kernel_fn("coarse_shortlist", c, False)
+
+        def call():
+            c["stat_ok"], c["stat_score"] = own()
+            return short()
+        return call
+
+    fused = _kernel_fn("coarse_shortlist", _clone(cap), False)()
+    two = pair()()
+    torch.cuda.synchronize()
+    for a, b in zip(fused[1:3], want):
+        if not torch.equal(a, b):
+            raise AssertionError("static planes built in the shortlist "
+                                 "launch != class_static_plain")
+    for a, b in zip(fused, two):
+        if a.dtype != b.dtype or not torch.equal(a, b):
+            raise AssertionError("shortlist launch building the planes != "
+                                 "the two-launch form")
+    makers = {
+        "fused": lambda: _kernel_fn("coarse_shortlist", _clone(cap), False),
+        "given": lambda: _kernel_fn("coarse_shortlist", given(), False),
+        "own": lambda: _kernel_fn("static_planes", _clone(static), False),
+        "pair": pair,
+    }
+    times = {}
+    for name in ("fused", "given", "own", "pair", "pair", "own", "given",
+                 "fused"):
+        fns = [makers[name]() for _ in range(reps)]
+        times.setdefault(name, []).append(_device_ms(fns))
+    best = {k: min(v) for k, v in times.items()}
+    ops_fused = graph_ops(makers["fused"]())
+    ops_pair = graph_ops(makers["pair"]())
+    U, C = want[0].shape
+    return {"fused_ms": best["fused"][0], "given_ms": best["given"][0],
+            "own_ms": best["own"][0], "pair_ms": best["pair"][0],
+            "share_ms": best["fused"][0] - best["given"][0],
+            "queued": best["fused"][2],
+            "device_ops_fused": ops_fused, "device_ops_pair": ops_pair,
+            "shape": {"U": int(U), "C": int(C),
+                      "N": int(cap["idle"].shape[0]), "S": int(cap["S"])}}
+
+
+def scatter_one_plane_ms(cap: dict, reps: int = 20) -> dict:
+    """The captured node-table delta written plane by plane with the
+    one-plane ``scatter_rows`` launch (the values already on the card):
+    the summed device ms of those launches; and the whole delta as the
+    snapshot writes it, packed, copied and launched (``stage_delta`` +
+    ``scatter_planes``: the copy's and the launch's device ms)."""
+    import torch
+
+    from volcano_tpu_torch.ops import kernels
+
+    c = _clone(cap)
+    rows, vals = kernels._delta_views(c["bufs"], c["staged"], c["k"])
+    rows, vals = rows.clone(), [v.clone() for v in vals]
+    host = c["staged"].cpu().numpy()
+    offs, _ = kernels.delta_layout(c["k"], [
+        b[0].numel() * b.element_size() for b in c["bufs"]])
+    host_vals = [host[o:o + v.numel() * v.element_size()]
+                 .view(v.cpu().numpy().dtype).reshape(v.shape)
+                 for o, v in zip(offs, vals)]
+    host_rows = host[:4 * c["k"]].view("int32")
+    dev = c["staged"].device
+
+    def one_plane():
+        bufs = [b.clone() for b in cap["bufs"]]
+        return lambda: [kernels.scatter_rows(b, rows, v)
+                        for b, v in zip(bufs, vals)]
+
+    def staged():
+        bufs = [b.clone() for b in cap["bufs"]]
+        return lambda: kernels.scatter_planes(
+            bufs, kernels.stage_delta(host_rows, host_vals, dev), c["k"])
+
+    times = {}
+    for name, make in (("one", one_plane), ("staged", staged),
+                       ("staged", staged), ("one", one_plane)):
+        times.setdefault(name, []).append(
+            _device_ms([make() for _ in range(reps)])[0])
+    torch.cuda.synchronize()
+    return {"one_plane_launches_ms": min(times["one"]),
+            "staged_with_copy_ms": min(times["staged"]),
+            "planes": len(cap["bufs"]), "rows": int(c["k"])}
 
 
 def launch_floor(reps: int = 20) -> dict:
@@ -1031,14 +1187,14 @@ def replay_kernels(captured: dict, launches: dict, reps: int = 20,
 
 # The CUDA functions behind each wrapper (csrc/*.cu), to read a trace.
 KERNEL_FUNCS = {
-    "coarse_shortlist": ("class_static_kernel<0>", "shortlist_kernel",
-                         "block_rank_kernel<true>", "merge_kernel<true>"),
+    "coarse_shortlist": ("shortlist_kernel", "block_rank_kernel<true>",
+                         "merge_kernel<true>"),
     "rank_candidates": ("rank_tile_kernel", "rank_merge_kernel"),
     "walk_accept": ("walk_choice_kernel", "walk_accept_kernel"),
     "apply_commit": ("commit_kernel",),
-    "static_planes": ("class_static_kernel<1>",),
+    "static_planes": ("class_static_kernel",),
     "warm_shortlist": ("block_rank_kernel<false>", "merge_kernel<false>"),
-    "scatter_rows": ("scatter_rows_kernel",),
+    "scatter_rows": ("scatter_planes_kernel", "scatter_rows_kernel"),
     "victim_scores": ("victim_kernel",),
     "frag_scores": ("frag_scores_kernel",),
     "gang_block_fit": ("block_fit_kernel",),
@@ -1106,6 +1262,75 @@ def profile_device(fn) -> dict:
             "top": [[k[:60], by_name[k], count[k]] for k in top]}
 
 
+TRACE_LEAD_CYCLES = 2_000_000  # ~1 ms spin opening a short trace
+
+
+def device_ops(fn):
+    """(``fn()``, the names of the device operations the call put on the
+    card -- kernels, copies, memsets -- in order, from a
+    ``torch.profiler`` trace; None when the trace held none of them).  A
+    short trace has come back without its first device events on the
+    card, so it opens with a ~1 ms spin kernel (left out of the names);
+    a trace may still lose events, never add them."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        torch.cuda._sleep(TRACE_LEAD_CYCLES)
+        torch.cuda.synchronize()
+        out = fn()
+        torch.cuda.synchronize()
+    events = sorted((e for e in prof.events()
+                     if e.device_type == DeviceType.CUDA
+                     and "spin_kernel" not in e.name),
+                    key=lambda e: e.time_range.start)
+    names = [e.name.replace("(anonymous namespace)::", "")
+             .removeprefix("void ").split("(")[0].split("<")[0].strip()
+             for e in events]
+    return out, names or None
+
+
+# cuGraphNodeGetType's kinds (cuda.h CUgraphNodeType).
+NODE_KINDS = {0: "kernel", 1: "memcpy", 2: "memset"}
+
+
+def graph_ops(fn) -> dict:
+    """The device operations one call of the repeatable ``fn`` puts on
+    the card, counted by kind ("kernel", "memcpy", "memset") from a CUDA
+    graph captured around a second call (captured, not run).  Unlike a
+    short profiler trace, which has come back empty on the card, it
+    drops nothing."""
+    import ctypes
+
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    g = torch.cuda.CUDAGraph(keep_graph=True)
+    with torch.cuda.graph(g, capture_error_mode="relaxed"):
+        fn()
+    cu = ctypes.CDLL("libcuda.so.1")
+    graph = ctypes.c_void_p(g.raw_cuda_graph())
+    n = ctypes.c_size_t(0)
+    if cu.cuGraphGetNodes(graph, None, ctypes.byref(n)) != 0:
+        raise RuntimeError("cuGraphGetNodes failed")
+    nodes = (ctypes.c_void_p * n.value)()
+    if cu.cuGraphGetNodes(graph, nodes, ctypes.byref(n)) != 0:
+        raise RuntimeError("cuGraphGetNodes failed")
+    kinds = {}
+    for node in nodes[:n.value]:
+        t = ctypes.c_int(-1)
+        if cu.cuGraphNodeGetType(ctypes.c_void_p(node),
+                                 ctypes.byref(t)) != 0:
+            raise RuntimeError("cuGraphNodeGetType failed")
+        kind = NODE_KINDS.get(t.value, f"type {t.value}")
+        kinds[kind] = kinds.get(kind, 0) + 1
+    g.reset()
+    return kinds
+
+
 def _traced_sums(prof: dict) -> str:
     """The traced per-function device time and launches, largest first."""
     rows = sorted(prof["funcs"].items(), key=lambda kv: -kv[1][0])
@@ -1120,6 +1345,24 @@ SOLVE_KERNELS = ("coarse_shortlist", "rank_candidates", "walk_accept",
 # The kernels of the north-star cycle (phase 6).
 CYCLE_KERNELS = SOLVE_KERNELS + ("static_planes", "warm_shortlist",
                                  "scatter_rows")
+FUSED_STATIC = "static_planes:fused"
+
+
+def launch_counts() -> dict:
+    """The wrappers' launch counts, and under ``static_planes:fused`` the
+    ``coarse_shortlist`` launches that built the static planes themselves
+    (``static_planes`` counts the planes' own launches)."""
+    from volcano_tpu_torch.ops import kernels
+
+    return {**kernels.LAUNCHES,
+            FUSED_STATIC: kernels.FUSED["static_planes"]}
+
+
+def never_launched(launches: dict, names) -> list:
+    """The kernels of ``names`` with no launch: the static planes count
+    their own launches and the shortlist launches that built them."""
+    return [k for k in names if launches[k] + (
+        launches.get(FUSED_STATIC, 0) if k == "static_planes" else 0) == 0]
 
 
 def run_phase(label, store_fn, deserved=None, timed=0):
@@ -1152,9 +1395,9 @@ def run_phase(label, store_fn, deserved=None, timed=0):
     res = solve_wave(*args)
     torch.cuda.synchronize()
     first_s = time.perf_counter() - t0
-    launches = dict(kernels.LAUNCHES)
+    launches = launch_counts()
     captured, kernels.CAPTURE = kernels.CAPTURE, None
-    missing = [k for k in SOLVE_KERNELS if launches[k] == 0]
+    missing = never_launched(launches, SOLVE_KERNELS)
     if missing:
         raise AssertionError(f"[{label}] kernels never launched: {missing}")
     stats = check_invariants(args, res)
@@ -1263,12 +1506,19 @@ def run_cycle(label, store, n_pods, steady=5, n_update=100, trace=False):
     """The port's main path: ``Scheduler(store).run_once()`` with the
     deployed conf.  One cold cycle, ``steady`` cycles re-pending the pods
     on nodes 0-63, one cycle after ``update_node`` gives ``n_update``
-    nodes half as much CPU again.  Returns (stats, per-cycle records, the scheduler)."""
+    nodes half as much CPU again (a node-table delta: one copy and one
+    ``scatter_planes`` launch a chunk required, the host time of
+    ``DeviceSnapshot.node_planes`` recorded); with ``trace`` one steady
+    cycle traced and a second update cycle whose ``node_planes`` call is
+    traced (its device operations).  No cycle launches ``static_planes``
+    of its own but one a static miss (the block-form shortlist reads the
+    planes).  Returns (stats, per-cycle records, the scheduler)."""
     import dataclasses
 
     import torch
 
     from volcano_tpu_torch.framework import DEPLOYED_SCHEDULER_CONF
+    from volcano_tpu_torch.ops import devsnap
     from volcano_tpu_torch.scheduler import Scheduler
 
     from volcano_tpu_torch.ops import wave as wave_mod
@@ -1280,15 +1530,40 @@ def run_cycle(label, store, n_pods, steady=5, n_update=100, trace=False):
     # (LAST_TWOPHASE["host_reads"], read after every solve_wave call).
     solve_reads = []
     solve_wave = wave_mod.solve_wave
+    # Host ms of each node_planes call of the running cycle, and the
+    # device operations of the traced one.
+    planes_ms, planes_ops = [], []
+    node_planes = devsnap.DeviceSnapshot.node_planes
+    trace_planes = [False]
 
     def counted_solve(*a, **kw):
         out = solve_wave(*a, **kw)
         solve_reads.append(wave_mod.LAST_TWOPHASE.get("host_reads"))
         return out
 
+    def timed_planes(self, *a, **kw):
+        if trace_planes[0]:
+            out, ops = device_ops(lambda: node_planes(self, *a, **kw))
+            planes_ops.extend(ops or ())
+            return out
+        t0 = time.perf_counter()
+        out = node_planes(self, *a, **kw)
+        planes_ms.append((time.perf_counter() - t0) * 1e3)
+        return out
+
     def cycle(kind):
         solve_reads.clear()
+        planes_ms.clear()
+        planes_ops.clear()
+        snap = getattr(store, "device_snapshot", None)
+        chunks0 = 0 if snap is None else snap.delta_launches
+        uploads0 = 0 if snap is None else snap.plane_uploads
+        launched = launch_counts()
+        dv = getattr(store, "_devincr_cache", None)
+        builds0 = 0 if dv is None else dv.static_builds
         wave_mod.solve_wave = counted_solve
+        devsnap.DeviceSnapshot.node_planes = timed_planes
+        trace_planes[0] = kind.endswith(":traced")
         try:
             t0 = time.perf_counter()
             sched.run_once()
@@ -1296,18 +1571,63 @@ def run_cycle(label, store, n_pods, steady=5, n_update=100, trace=False):
             wall = time.perf_counter() - t0
         finally:
             wave_mod.solve_wave = solve_wave
+            devsnap.DeviceSnapshot.node_planes = node_planes
         inv = cycle_invariants(store, n_pods)
         snap = store.device_snapshot
+        dv = getattr(store, "_devincr_cache", None)
+        n = {k: v - launched[k] for k, v in launch_counts().items()}
         rec = {"kind": kind, "wall_s": wall, "lanes_ms": _lanes(store),
                "devincr": wave_mod.LAST_TWOPHASE.get("devincr"),
                "devsnap": None if snap is None else [
                    snap.full_uploads, snap.delta_uploads, snap.hits],
-               "host_reads": list(solve_reads), **inv}
+               "host_reads": list(solve_reads),
+               # Static planes: own launches, built in a shortlist launch,
+               # and the device-incremental lane's builds (misses).
+               "static_planes": [n["static_planes"], n[FUSED_STATIC]],
+               "static_builds": (0 if dv is None
+                                 else dv.static_builds - builds0),
+               "scatter_launches": n["scatter_rows"],
+               "delta_chunks": (0 if snap is None
+                                else snap.delta_launches - chunks0),
+               "plane_uploads": (0 if snap is None
+                                 else snap.plane_uploads - uploads0),
+               "node_planes_host_ms": list(planes_ms), **inv}
+        if planes_ops:
+            rec["node_planes_device_ops"] = list(planes_ops)
         stats["cycles"].append(rec)
         _log(f"[{label}] {kind} cycle {wall:.4f} s devincr "
              f"{json.dumps(rec['devincr'])} devsnap(full,delta,hits) "
              f"{rec['devsnap']} host reads per solve {rec['host_reads']} "
-             f"lanes(ms) {json.dumps(rec['lanes_ms'])}")
+             f"static planes (own, in a shortlist launch, misses) "
+             f"{rec['static_planes'] + [rec['static_builds']]} "
+             f"node_planes host ms "
+             f"{rec['node_planes_host_ms']} scatter launches "
+             f"{rec['scatter_launches']} lanes(ms) "
+             f"{json.dumps(rec['lanes_ms'])}")
+        if dv is not None and rec["static_planes"][0] != \
+                rec["static_builds"]:
+            raise AssertionError(
+                f"[{label}] {kind} cycle: {rec['static_planes'][0]} "
+                f"static_planes launches for {rec['static_builds']} "
+                f"static misses")
+        if rec["scatter_launches"] != rec["delta_chunks"]:
+            raise AssertionError(
+                f"[{label}] {kind} cycle: {rec['scatter_launches']} "
+                f"scatter launches for {rec['delta_chunks']} delta chunks")
+        if planes_ops:
+            # A trace may lose events, never add them: at most one copy
+            # and one launch a chunk, one copy a plane re-uploaded whole,
+            # nothing else.
+            copies = sum(o.startswith("Memcpy") for o in planes_ops)
+            kern = planes_ops.count("scatter_planes_kernel")
+            if (kern > rec["delta_chunks"]
+                    or copies > rec["delta_chunks"] + rec["plane_uploads"]
+                    or len(planes_ops) != copies + kern):
+                raise AssertionError(
+                    f"[{label}] {kind} cycle: node_planes put "
+                    f"{planes_ops} on the card for "
+                    f"{rec['delta_chunks']} chunks and "
+                    f"{rec['plane_uploads']} whole planes")
         if kind == "cold" and not solve_reads:
             raise AssertionError(f"[{label}] the cold cycle ran no solve")
         if any(r != 0 for r in solve_reads):
@@ -1343,22 +1663,40 @@ def run_cycle(label, store, n_pods, steady=5, n_update=100, trace=False):
     full_before = dv.counts["full"] if dv is not None else 0
     m = store.mirror
     step = max(1, m.n_nodes // n_update)
-    for row in range(0, step * n_update, step):
-        # More capacity (never less, so no bound pod is stranded).
-        old = m.node_objs[row]
-        cpu = str(int(float(old.allocatable["cpu"]) * 1.5))
-        store.update_node(dataclasses.replace(
-            old, allocatable={**old.allocatable, "cpu": cpu},
-            capacity={**old.capacity, "cpu": cpu}))
-    cycle("update_node")
-    if snap is not None and snap.delta_uploads < 1:
-        raise AssertionError(f"[{label}] no devsnap delta upload")
+
+    def update(kind):
+        for row in range(0, step * n_update, step):
+            # More capacity (never less, so no bound pod is stranded).
+            old = m.node_objs[row]
+            cpu = str(int(float(old.allocatable["cpu"]) * 1.5))
+            store.update_node(dataclasses.replace(
+                old, allocatable={**old.allocatable, "cpu": cpu},
+                capacity={**old.capacity, "cpu": cpu}))
+        cycle(kind)
+        rec = stats["cycles"][-1]
+        if snap is not None and (rec["delta_chunks"] < 1
+                                 or snap.delta_uploads < 1):
+            raise AssertionError(f"[{label}] {kind}: no devsnap delta "
+                                 f"upload")
+        return rec
+
+    rec = update("update_node")
     if dv is not None and dv.counts["full"] <= full_before:
         raise AssertionError(f"[{label}] node update did not re-rank")
     if snap is not None:
+        stats["update"] = {k: rec[k] for k in (
+            "node_planes_host_ms", "delta_chunks", "scatter_launches",
+            "plane_uploads", "static_planes")}
+    if trace and snap is not None:
+        rec = update("update_node:traced")
+        # None: the trace held no device event (not measured).
+        stats["update"]["traced_device_ops"] = rec.get(
+            "node_planes_device_ops")
+    if snap is not None:
         stats["devsnap"] = {k: getattr(snap, k) for k in (
             "full_uploads", "delta_uploads", "hits", "delta_chunks",
-            "class_uploads", "class_hits")}
+            "delta_launches", "plane_uploads", "class_uploads",
+            "class_hits")}
         stats["devsnap"]["resident_bytes"] = snap.resident_bytes()
     if dv is not None:
         stats["devincr"] = {"counts": dict(dv.counts),
@@ -1632,9 +1970,9 @@ def run_evict_phase(label, store, conf, grace, cycles, until=None,
     finally:
         wave_mod.solve_wave = solve_wave
         kernels.victim_scores = victim_fn
-    launches = dict(kernels.LAUNCHES)
+    launches = launch_counts()
     _log(f"[{label}] launches {json.dumps(launches)}")
-    missing = [k for k in need if launches[k] == 0]
+    missing = never_launched(launches, need)
     if missing:
         raise AssertionError(f"[{label}] kernels never launched: {missing}")
     stats["future_solves"] = sum(r["future_solves"] for r in stats["cycles"])
@@ -2194,7 +2532,7 @@ def run_aff_cycles(label, store, steady=5, trace=False, device=None,
 
     def cycle(kind):
         solves.clear()
-        launched = dict(kernels.LAUNCHES)
+        launched = launch_counts()
         captured = set(kernels.CAPTURE or ())
         wave_mod.solve_wave = counted_solve
         try:
@@ -2211,7 +2549,7 @@ def run_aff_cycles(label, store, steady=5, trace=False, device=None,
         rec = {"kind": kind, "wall_s": wall, "lanes_ms": _lanes(store),
                "solves": [dict(x) for x in solves],
                "launches": {k: v - launched[k]
-                            for k, v in kernels.LAUNCHES.items()
+                            for k, v in launch_counts().items()
                             if v != launched[k]},
                "captured": sorted(set(kernels.CAPTURE or ()) - captured),
                **inv}
@@ -2314,7 +2652,7 @@ def aff_cold_trace(big, cold_lanes) -> dict:
     build = time.perf_counter() - t0
     kernels.reset_launches()
     prof = profile_device(Scheduler(store, conf_str=CONF_BASE).run_once)
-    launches = dict(kernels.LAUNCHES)
+    launches = launch_counts()
     computing = kernels.read_tally("aff_live")
     aff_invariants(store)
     inv = cycle_invariants(store, len(store.pods))
@@ -2367,13 +2705,17 @@ def affinity_phases(big=(10000, 100000), mid=(1000, 10000),
     kernels.reset_launches()
     astats, _rec = run_aff_cycles("affinity", store, steady=5, trace=True,
                                   all_bound=True)
-    launches = dict(kernels.LAUNCHES)
+    launches = launch_counts()
     computing = kernels.read_tally("aff_live")
     caps, kernels.CAPTURE = kernels.CAPTURE, None
     _log(f"[affinity] launches {json.dumps(launches)}; aff_live "
          f"{computing} computing + {launches['aff_live'] - computing} gated;"
          f" first-launch shapes {json.dumps(first_shapes(caps))}")
-    missing = [k for k in AFF_KERNELS if launches[k] == 0]
+    _log(f"[affinity] static planes: {launches['static_planes']} launches "
+         f"of their own, {launches[FUSED_STATIC]} built in a shortlist "
+         f"launch; per cycle (own, in a shortlist launch) "
+         f"{[(c['launches'].get('static_planes', 0), c['launches'].get(FUSED_STATIC, 0)) for c in astats['cycles']]}")
+    missing = never_launched(launches, AFF_KERNELS)
     if missing:
         raise AssertionError(f"[affinity] kernels never launched: {missing}")
     c0 = astats["cycles"][0]
@@ -2427,7 +2769,7 @@ def affinity_phases(big=(10000, 100000), mid=(1000, 10000),
     kernels.reset_launches()
     s_card, r_card, dv_counts = small(None)
     x_card, rx_card, _ = small(None, release=True)
-    small_launches = dict(kernels.LAUNCHES)
+    small_launches = launch_counts()
     computing += kernels.read_tally("aff_live")
     small_caps, kernels.CAPTURE = kernels.CAPTURE, None
     for k, v in small_caps.items():
@@ -2668,10 +3010,10 @@ def _card_and_cpu(label, conf, kernels_needed, check_binds=None):
     kernels.CAPTURE = {}
     kernels.reset_launches()
     card, stats = object_cycles(label, conf, None, check_binds=check_binds)
-    launches = dict(kernels.LAUNCHES)
+    launches = launch_counts()
     captured, kernels.CAPTURE = kernels.CAPTURE, None
     _log(f"[{label}] launches {json.dumps(launches)}")
-    missing = [k for k in kernels_needed if launches[k] == 0]
+    missing = never_launched(launches, kernels_needed)
     if missing:
         raise AssertionError(f"[{label}] kernels never launched: {missing}")
     cpu, _ = object_cycles(label, conf, "cpu")
@@ -2964,12 +3306,23 @@ def main() -> int:
     kernels.reset_launches()
     cyc_stats, _rec, _sched = run_cycle("cycle", ns_store, 100000,
                                         trace=True)
-    cyc_launches = dict(kernels.LAUNCHES)
+    cyc_launches = launch_counts()
     cyc_captured, kernels.CAPTURE = kernels.CAPTURE, None
     _log(f"[cycle] launches {json.dumps(cyc_launches)}")
-    missing = [k for k in CYCLE_KERNELS if cyc_launches[k] == 0]
+    missing = never_launched(cyc_launches, CYCLE_KERNELS)
     if missing:
         raise AssertionError(f"[cycle] kernels never launched: {missing}")
+    _log(f"[cycle] static planes: {cyc_launches['static_planes']} launches "
+         f"of their own, {cyc_launches[FUSED_STATIC]} built in a shortlist "
+         f"launch; per cycle (own, in a shortlist launch, misses) "
+         f"{[c['static_planes'] + [c['static_builds']] for c in cyc_stats['cycles']]}")
+    upd = cyc_stats["update"]
+    _log(f"[cycle] update_node delta: node_planes host ms "
+         f"{upd['node_planes_host_ms']}, {upd['delta_chunks']} chunks, "
+         f"{upd['scatter_launches']} scatter launches, "
+         f"{upd['plane_uploads']} planes re-uploaded whole; device "
+         f"operations of node_planes (traced update cycle) "
+         f"{upd.get('traced_device_ops')}")
     cprof = cyc_stats.pop("profile")
     _log(f"[cycle] {json.dumps(cyc_stats)}")
     if cprof:
@@ -2987,12 +3340,36 @@ def main() -> int:
     # 7. lanes on against lanes off, at 1,000 x 10,000.
     lanes_on_off(1000, 10000)
 
-    # 8. every kernel of the cycle against its plain version, timed.
+    # 8. every kernel of the cycle against its plain version, timed; the
+    # static planes as their share of the shortlist launch that built them.
     rows = replay_kernels(cyc_captured, cyc_launches, names=CYCLE_KERNELS)
+    for r in rows:
+        if r["name"] == "scatter_rows":
+            r.update(scatter_one_plane_ms(cyc_captured["scatter_rows"]))
+        if r["name"] == "static_planes":
+            # The row form builds the planes in its own launch: the
+            # north-star solve's (phase 2) launch against the pair.
+            r["in_launch"] = static_share(captured["coarse_shortlist"])
+            r["in_launch_launches"] = launches[FUSED_STATIC]
     by_solve = {r["name"]: r for r in solve_rows}
     for r in rows:
         if cprof:
             r["cycle_ms"] = cprof["kernels_ms"][r["name"]]
+        if r["name"] == "static_planes":
+            sh = r["in_launch"]
+            _log(f"[kernels] static_planes in the row-form shortlist "
+                 f"launch {json.dumps(sh['shape'])}: fused "
+                 f"{sh['fused_ms']:.5f} ms, planes given "
+                 f"{sh['given_ms']:.5f}, own launch {sh['own_ms']:.5f}, "
+                 f"pair {sh['pair_ms']:.5f}; device ops fused "
+                 f"{sh['device_ops_fused']}, pair {sh['device_ops_pair']}")
+        if r["name"] == "scatter_rows":
+            _log(f"[kernels] scatter_rows: {r['planes']} planes x "
+                 f"{r['rows']} rows in one launch {r['ms']:.5f} ms; "
+                 f"one-plane launches {r['one_plane_launches_ms']:.5f} ms;"
+                 f" packed + copied + launched "
+                 f"{r['staged_with_copy_ms']:.5f} ms; index_copy_ per "
+                 f"plane {r['yardstick_ms']}")
         if r["name"] in by_solve:
             s = by_solve[r["name"]]
             r["solve_path"] = {k: s[k] for k in (

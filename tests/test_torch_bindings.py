@@ -381,3 +381,63 @@ def test_aff_filter_needs_the_wave_planes(fake_card):
             affkernels.aff_filter(_z(W), _z(W, dtype=B8), _z(W), at,
                                   _z(W, dtype=B8), gm=_z(E, D), **planes)
     assert fake_card.calls == []
+
+
+def test_in_launch_static_planes_and_scatter_planes_match(fake_card,
+                                                          monkeypatch):
+    """The row-form shortlist launch without planes passes the profile
+    bitsets and the class tables with ``static_ext`` 0 and returns the
+    planes it writes (counted in ``FUSED``); with the planes given it
+    passes nulls and zero widths.  ``scatter_planes`` passes the staged
+    buffer and a host array of (address, row bytes, offset) per plane,
+    offsets at multiples of 16."""
+    U, N, S = 8, 32, 4
+    prof, cls, nodes, weights, eps, slot = shortlist_tensors(
+        shortlist_case(0, U=U, N=N), "cpu")
+    args = (nodes["idle"], nodes["alloc"], nodes["ntasks"],
+            nodes["max_tasks"], eps, slot, weights, S, True)
+    C = cls.ready.shape[0]
+    stat = (_z(U, C, dtype=B8), _z(U, C, dtype=F32))
+    kernels.reset_launches()
+    out = kernels.coarse_shortlist(prof, cls, *args)
+    row = fake_card.args[-1]
+    assert row[36] == 0 and row[4] is not None and row[5] == 2
+    assert row[15] is not None and row[17] is not None
+    assert [row[37].value, row[38].value] == [t.data_ptr() for t in out[1:]]
+    kernels.coarse_shortlist(prof, cls, *args, stat=stat)
+    row = fake_card.args[-1]
+    assert row[36] == 1 and row[4] is None and row[5] == 0
+    assert row[15] is None and row[37].value == stat[0].data_ptr()
+    assert kernels.FUSED["static_planes"] == 1
+    assert kernels.LAUNCHES["coarse_shortlist"] == 2
+    bufs = [_z(N, 3, dtype=F32), _z(N), _z(N, dtype=B8), _z(N, 2)]
+    rows = torch.tensor([3, 7, 30], dtype=I32).numpy()
+    vals = [b[:3].numpy() for b in bufs]
+    staged = kernels.stage_delta(rows, vals, "cpu")
+    seen = []
+
+    class Peek:
+        """Reads the host descriptor array while the call holds it."""
+
+        def __getattr__(self, name):
+            fn = getattr(fake_card, name)
+
+            def call(*a):
+                if name == "vtt_scatter_planes":
+                    seen.append(list((ctypes.c_int64 * (3 * a[2]))
+                                     .from_address(a[3].value)))
+                return fn(*a)
+            return call
+
+    monkeypatch.setattr(kernels, "load", lambda: Peek())
+    kernels.scatter_planes(bufs, staged, 3)
+    sp = fake_card.args[-1]
+    assert sp[0].value == staged.data_ptr() and sp[1:3] == (3, 4)
+    offs, _ = kernels.delta_layout(3, [12, 4, 1, 8])
+    assert seen == [[x for b, rb, o in zip(bufs, (12, 4, 1, 8), offs)
+                     for x in (b.data_ptr(), rb, o)]]
+    assert kernels.LAUNCHES["scatter_rows"] == 1
+    with pytest.raises(ValueError):
+        kernels.scatter_planes(bufs * 3, staged, 3)
+    assert fake_card.calls == ["vtt_coarse_shortlist"] * 2 + [
+        "vtt_scatter_planes"]

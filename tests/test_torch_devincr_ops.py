@@ -4,11 +4,16 @@ package's jits on identical prepared inputs.
 - ``static_planes`` vs ``ops/wave.py:_static_planes``;
 - ``coarse_shortlist`` with ``stat`` and ``n_blocks`` vs
   ``_coarse_shortlist(with_cand=True, static_ext=True)``;
+- ``coarse_shortlist``'s row form computing the static planes in its
+  launch vs ``_static_planes`` and the JAX pass, and ``DeviceIncremental``
+  through static misses and hits before full and warm shortlists vs the
+  JAX context;
 - ``warm_shortlist`` vs ``_warm_shortlist`` after a state change confined
   to the dirty blocks, and against a full re-rank of the new state;
-- ``scatter_rows`` vs ``ops/devsnap.py:_scatter_rows``, and the port's
-  ``DeviceSnapshot`` vs the JAX one through full, delta, chunked-delta and
-  over-threshold uploads.
+- ``scatter_rows`` and ``scatter_planes`` vs ``ops/devsnap.py:_scatter_rows``,
+  and the port's ``DeviceSnapshot`` vs the JAX one through full, delta,
+  chunked-delta and over-threshold uploads, with four and with six planes
+  (one re-uploaded whole).
 
 Every output must be identical: shortlists and candidate ids exactly,
 candidate scores and static scores bit for bit.  Cases: taints, selectors
@@ -23,12 +28,14 @@ import torch
 from test_torch_fixtures import feature_store, tonp
 
 import volcano_tpu
+import volcano_tpu.ops.devincr as jdevincr
 import volcano_tpu.ops.devsnap as jdevsnap
 import volcano_tpu.ops.wave as jw
 from volcano_tpu.ops.nodeclass import NodeClasses as JaxClasses
 from volcano_tpu.synth import solve_args_from_store as jax_args
 from volcano_tpu.synth import synthetic_cluster as jax_cluster
 
+import volcano_tpu_torch.ops.devincr as tdevincr
 import volcano_tpu_torch.ops.devsnap as tdevsnap
 import volcano_tpu_torch.ops.wave as tw
 from volcano_tpu_torch import interop
@@ -291,3 +298,217 @@ def test_device_snapshot_deltas_identical(monkeypatch):
     assert snaps["port"].delta_chunks > 0
     assert snaps["port"].full_uploads == 2
     assert snaps["port"].delta_uploads == 2
+
+
+def _feats(taints):
+    return (False, False, bool(taints), False, False, False, False)
+
+
+@pytest.mark.parametrize("name,compacted", CASES)
+@pytest.mark.parametrize("taints", [True, False])
+def test_coarse_in_launch_static_planes_identical(name, compacted, taints):
+    """The row-form coarse_shortlist computing the static planes in its
+    own launch returns ``_static_planes`` bit for bit and the JAX pass's
+    shortlist; fed those planes back (``static_ext``), it returns the same
+    shortlist again."""
+    sl_k = 20
+    c = _Both(_case(name), compacted)
+    chunk = min(c.U, 64)
+    ok, sc = (np.asarray(x) for x in jw._static_planes(
+        c.nodes, c.prof, c.cls, c.w.node_affinity_weight, chunk=chunk,
+        has_taints=taints, cls_identity=not compacted))
+    want = np.asarray(jw._coarse_shortlist(
+        c.nodes, c.prof, np.ones((1, 1), bool), np.zeros((1, 1), np.float32),
+        c.cls, c.aff, c.w, c.eps, c.slot, sl_k=sl_k, chunk=chunk,
+        features=_feats(taints), cnt0_any=False,
+        cls_identity=not compacted))
+    nt = c.nodes_t()
+    args = (c.prof_t, c.cls_t(nt), nt.idle, nt.allocatable, nt.ntasks,
+            nt.max_tasks, c.eps_t, c.slot_t, c.w_t, sl_k, taints)
+    sl, t_ok, t_sc = kernels.coarse_shortlist(*args)
+    _bits_equal(ok, t_ok.numpy())
+    _bits_equal(sc, t_sc.numpy())
+    _bits_equal(want, sl.numpy())
+    again = kernels.coarse_shortlist(*args, stat=(t_ok, t_sc))
+    _bits_equal(want, again[0].numpy())
+    assert again[1] is t_ok and again[2] is t_sc
+
+
+def _capacity_change(nodes, rows, factor):
+    idle = np.asarray(nodes.idle).copy()
+    idle[rows] *= factor
+    return nodes._replace(idle=idle)
+
+
+@pytest.mark.parametrize("compacted", [True, False])
+def test_device_incremental_static_misses_identical(compacted,
+                                                    monkeypatch):
+    """miss -> full re-rank, hit -> warm, miss -> warm, hit -> null warm,
+    miss -> full: the port's shortlists and planes equal the JAX
+    context's, with equal static builds and hits; each miss calls
+    ``static_planes`` once and a hit never."""
+    sl_k = 16
+    c = _Both(_case("features"), compacted)
+    chunk = min(c.U, 64)
+    N = int(np.asarray(c.nodes.idle).shape[0])
+    B, nlb, _klb = tdevincr.block_geometry(N, sl_k)
+    assert B == 16 and nlb >= 2
+    standalone = []
+    real = kernels.static_planes
+
+    def counted(*a, **kw):
+        standalone.append(1)
+        return real(*a, **kw)
+
+    monkeypatch.setattr(kernels, "static_planes", counted)
+    n1 = _capacity_change(c.nodes, [nlb + 1, 3 * nlb], 0.25)
+    n2 = _capacity_change(n1, [5 * nlb + 1], 0.5)
+    steps = [  # static key, warm key, dirty rows, nodes, mode, static
+        (("s", 1), ("w", 1), None, c.nodes, "full", "build", 1),
+        (("s", 1), ("w", 1), [nlb + 1, 3 * nlb], n1, "warm", "hit", 0),
+        (("s", 2), ("w", 1), [5 * nlb + 1], n2, "warm", "build", 1),
+        (("s", 2), ("w", 1), [], n2, "warm", "hit", 0),
+        (("s", 3), ("w", 2), [0], n2, "full", "build", 1),
+    ]
+    jdv, tdv = jdevincr.DeviceIncremental(), tdevincr.DeviceIncremental()
+    one, zero = np.ones((1, 1), bool), np.zeros((1, 1), np.float32)
+    feats = _feats(c.taints)
+    for skey, wkey, dirty, nodes, mode, static, launched in steps:
+        d = None if dirty is None else np.asarray(dirty, np.int64)
+        jdv.begin_solve(skey, wkey, d)
+        tdv.begin_solve(skey, wkey, d)
+        jstat = jdv.static_planes(nodes, c.prof, c.cls,
+                                  c.w.node_affinity_weight, chunk,
+                                  c.taints, not compacted)
+        want = np.asarray(jdv.shortlist(
+            nodes, c.prof, one, zero, c.cls, c.aff, c.w, c.eps, c.slot,
+            sl_k, chunk, feats, False, not compacted, 1, jstat))
+        nt = c.nodes_t(nodes)
+        cls = c.cls_t(nt)
+        before = len(standalone)
+        tstat = tdv.static_planes(c.prof_t, cls, c.w.node_affinity_weight,
+                                  c.taints, not compacted)
+        got = tdv.shortlist(nt, c.prof_t, cls, c.w_t, c.eps_t, c.slot_t,
+                            sl_k, feats, not compacted, tstat)
+        planes = tdv._static
+        assert planes is tstat
+        assert len(standalone) - before == launched, (skey, wkey)
+        _bits_equal(want, got.numpy())
+        _bits_equal(np.asarray(jstat[0]), planes[0].numpy())
+        _bits_equal(np.asarray(jstat[1]), planes[1].numpy())
+        assert tdv.last_mode == jdv.last_mode == mode
+        assert tdv.last_static == jdv.last_static == static
+        assert (tdv.static_builds, tdv.static_hits) == \
+            (jdv.static_builds, jdv.static_hits)
+        assert tdv.counts == jdv.counts
+        jdv.end_solve()
+        tdv.end_solve()
+    assert (tdv.static_builds, tdv.static_hits) == (3, 2)
+
+
+def _six_planes(rng, N):
+    out = _planes(rng, N)
+    out["taint_bits"] = rng.integers(0, 1 << 31, size=(N, 1)).astype(
+        np.uint32)
+    out["class_id"] = rng.integers(0, 9, size=N).astype(np.int32)
+    return out
+
+
+def test_scatter_planes_identical():
+    """One staged delta of six planes (f32, int32, bool, uint32 bits)
+    written by ``scatter_planes`` equals ``_scatter_rows`` per plane."""
+    rng = np.random.default_rng(12)
+    N, k = 256, 37
+    base = _six_planes(rng, N)
+    rows = np.sort(rng.permutation(N)[:k]).astype(np.int32)
+    fresh = _six_planes(rng, k)
+    bufs = [to_tensor(base[n].copy(), CPU) for n in base]
+    vals = [fresh[n].view(np.int32) if fresh[n].dtype == np.uint32
+            else fresh[n] for n in base]
+    staged = kernels.stage_delta(rows, vals, CPU)
+    offs, total = kernels.delta_layout(k, [v.nbytes // k for v in vals])
+    assert staged.dtype == torch.uint8 and staged.numel() >= total
+    assert all(o % 16 == 0 for o in offs)
+    kernels.scatter_planes(bufs, staged, k)
+    for name, buf in zip(base, bufs):
+        want = np.asarray(jdevsnap._scatter_rows(base[name].copy(), rows,
+                                                 fresh[name]))
+        got = buf.numpy()
+        if want.dtype == np.uint32:
+            got = got.view(np.uint32)
+        _bits_equal(want, got)
+
+
+@pytest.mark.parametrize("budget_mb", [1.0, 0.02, 0.004])
+def test_device_snapshot_six_planes_identical(monkeypatch, budget_mb):
+    """Six planes through full, delta (chunked under small budgets) and
+    over-threshold uploads, one step re-uploading ``class_id`` whole (its
+    delta unprovable): resident planes and counters equal the JAX
+    snapshot's; the port writes each combined chunk with one launch."""
+    N = 4096
+    rng = np.random.default_rng(6)
+    truth = _six_planes(rng, N)
+    snaps = {"jax": jdevsnap.DeviceSnapshot(), "port":
+             tdevsnap.DeviceSnapshot(CPU)}
+    mirrors = {k: _FakeMirror() for k in snaps}
+    monkeypatch.setenv("VOLCANO_TPU_DEVSNAP_BUDGET_MB", str(budget_mb))
+    launched = []
+    real = kernels.scatter_planes
+
+    def counted(*a, **kw):
+        launched.append(a[2])
+        return real(*a, **kw)
+
+    monkeypatch.setattr(kernels, "scatter_planes", counted)
+    # (epoch, dirty rows, class ids unprovable)
+    steps = [(1, None, False), (2, 40, False), (3, 700, True),
+             (4, 1, False), (5, 1000, False), (6, 1500, False),
+             (6, None, False)]
+    for epoch, n_dirty, no_cls_delta in steps:
+        if n_dirty:
+            rows = np.sort(rng.permutation(N)[:n_dirty])
+            fresh = _six_planes(rng, n_dirty)
+            for name in truth:
+                truth[name] = truth[name].copy()
+                truth[name][rows] = fresh[name]
+        else:
+            rows = np.zeros(0, np.int64)
+        for k in snaps:
+            mirrors[k].rows = rows
+        build = _build(truth)
+        if no_cls_delta:
+            a = truth["class_id"]
+            build["class_id"] = lambda r, a=a: a if r is None else None
+        launched.clear()
+        before = snaps["port"].delta_launches
+        out = {k: snaps[k].node_planes(mirrors[k], (epoch, N, 3, 2),
+                                       build) for k in snaps}
+        for name, want in truth.items():
+            p = out["port"][name].numpy()
+            if want.dtype == np.uint32:
+                p = p.view(np.uint32)
+            _bits_equal(want, np.asarray(out["jax"][name]))
+            _bits_equal(want, p)
+        for attr in ("full_uploads", "delta_uploads", "hits",
+                     "delta_chunks"):
+            assert getattr(snaps["jax"], attr) == \
+                getattr(snaps["port"], attr), attr
+        assert len(launched) == snaps["port"].delta_launches - before
+        if launched:
+            # Every combined chunk but the last is a full power of two,
+            # and each fits the staging budget.
+            assert sum(launched) == (n_dirty or 0)
+            assert len(set(launched[:-1])) <= 1
+            planes = 5 if no_cls_delta else 6
+            row_nb = 4 + sum(truth[n][0].nbytes for n in truth
+                             if n != "class_id" or not no_cls_delta)
+            assert launched[0] * row_nb + 16 * planes <= \
+                tdevsnap.budget_bytes()
+    port = snaps["port"]
+    assert (port.full_uploads, port.delta_uploads) == (2, 4)
+    if budget_mb < 1:
+        # The combined chunks split where the JAX per-plane chunks may
+        # not (0.02 MB holds 1,024 rows of the widest plane alone).
+        assert port.delta_launches > port.delta_uploads
+    if budget_mb < 0.01:
+        assert port.delta_chunks > 0

@@ -47,9 +47,21 @@ built from its own sources into its own build directory.  ``--phase``
   the device operations one call puts on the card (a trace); where the
   tree's wrapper takes ``cluster``, ``gang_block_fit`` at cluster sizes
   1, 2, 4, 8 and 16; where the tree has ``chip_smoke.launch_floor``, an
-  empty kernel's launch.  ``--caps FILE`` keeps the captured inputs: the
-  first run captures and writes them, later runs (other trees) load them,
-  so that every tree is timed on the same inputs.
+  empty kernel's launch.  Then the north-star solve's row-form
+  ``coarse_shortlist`` call without static planes (the planes built on
+  the way: the parent's separate launch, or inside the shortlist launch),
+  its outputs held to the two-launch form's (``static_planes``, then the
+  launch reading them), both timed as above, with the device operations
+  of one call.  ``--caps FILE`` keeps the captured inputs: the first run
+  captures and writes them, later runs (other trees) load them, so that
+  every tree is timed on the same inputs;
+- ``delta``: one node-table delta of chip_smoke phase 6's shape: the
+  north-star store after a cold ``run_once()``, then ``--reps`` (5)
+  rounds of ``update_node`` on 100 nodes (half as much CPU again) and a
+  ``run_once()``, each timing the host wall of
+  ``DeviceSnapshot.node_planes`` (no synchronisation: what the cycle's
+  host pays), and one more round with that call traced (its device
+  operations).
 
 A traced call reports the device time and launch count summed per CUDA
 function (every device event, named as the profiler names it), the card's
@@ -70,7 +82,7 @@ import time
 from pathlib import Path
 
 PHASES = ("solve", "cold", "shortlist", "seq", "seq-north-star",
-          "seq-trace", "victim", "kernels")
+          "seq-trace", "victim", "kernels", "delta")
 
 
 def _trace(fn) -> dict:
@@ -105,6 +117,36 @@ def _trace(fn) -> dict:
             end = b
     return {"wall_ms": wall * 1e3, "busy_ms": busy / 1e3,
             "device_events": len(spans), "funcs": funcs}
+
+
+def _ops(fn, tries: int = 1) -> dict:
+    """Launches per device operation (kernels, copies, memsets) of one
+    call of ``fn``, from a trace that opens with a ~1 ms spin kernel (left
+    out): a short trace has come back without its first device events.  A
+    repeatable ``fn`` is traced ``tries`` times and the fullest trace
+    kept (a trace loses events, it never adds one)."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    best = {}
+    for _ in range(tries):
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            torch.cuda._sleep(2_000_000)
+            torch.cuda.synchronize()
+            fn()
+            torch.cuda.synchronize()
+        ops = {}
+        for e in prof.events():
+            if e.device_type != DeviceType.CUDA or "spin_kernel" in e.name:
+                continue
+            name = e.name.replace("(anonymous namespace)::", "")
+            key = name.split("(")[0].strip() or name
+            ops[key] = ops.get(key, 0) + 1
+        if sum(ops.values()) > sum(best.values()):
+            best = ops
+    return best
 
 
 def _top(tr: dict, k: int = 12) -> str:
@@ -462,7 +504,92 @@ def _capture_kernels(cs) -> dict:
         if key not in got:
             raise AssertionError(f"[ab:kernels] no {key} launch captured")
         caps[key] = got[key]
+    caps["miss:north_star_solve"] = _north_star_row()
     return caps
+
+
+def _north_star_row() -> dict:
+    """The north-star solve's row-form shortlist launch, no planes given."""
+    from volcano_tpu_torch.ops import kernels
+    from volcano_tpu_torch.ops.wave import solve_wave
+    from volcano_tpu_torch.synth import (solve_args_from_store,
+                                         synthetic_cluster)
+
+    store = synthetic_cluster(n_nodes=10000, n_pods=100000, gang_size=8,
+                              zones=16, seed=0)
+    args, _ = solve_args_from_store(store, binpack=True, nodeorder=True)
+    kernels.CAPTURE = {}
+    solve_wave(*args)
+    row, kernels.CAPTURE = kernels.CAPTURE, None
+    store.close()
+    cap = row.get("coarse_shortlist")
+    if cap is None or cap["n_blocks"] or "sel_bits" not in cap:
+        raise AssertionError("[ab:kernels] the north-star solve's "
+                             "shortlist launch was not the row form "
+                             "without planes")
+    return cap
+
+
+def _miss_calls(cap: dict):
+    """(without planes, two-launch form) zero-argument calls of the
+    row-form shortlist on ``cap`` with this tree's wrappers, each
+    returning the call's outputs."""
+    import torch
+
+    from volcano_tpu_torch.ops import kernels
+    from volcano_tpu_torch.ops.nodeclass import NodeClasses
+    from volcano_tpu_torch.ops.wave import SolveProfiles
+
+    z = torch.zeros(1, dtype=torch.float32, device=cap["req"].device)
+    prof = SolveProfiles(
+        req=cap["req"], init_req=cap["init_req"], ports=z,
+        sel_bits=cap["sel_bits"], aff_bits=cap["aff_bits"],
+        aff_terms=cap["aff_terms"], tol_bits=cap["tol_bits"],
+        pref_bits=cap["pref_bits"], pref_w=cap["pref_w"], t_req_aff=z,
+        t_req_anti=z, t_matches=z, t_soft=z)
+    cls = NodeClasses(cap["cls_id"], cap["cls_label"], cap["cls_taint"],
+                      cap["cls_ready"])
+    w = cap["weights"]
+
+    def short(**kw):
+        return tuple(kernels.coarse_shortlist(
+            prof, cls, cap["idle"], cap["alloc"], cap["ntasks"],
+            cap["max_tasks"], cap["eps"], cap["scalar_slot"], w, cap["S"],
+            cap["has_taints"], future=cap.get("future"),
+            ports=cap.get("ports"), aff=cap.get("aff"), **kw))
+
+    def pair():
+        stat = kernels.static_planes(prof, cls, w.node_affinity_weight,
+                                     cap["has_taints"])
+        return short(stat=stat)
+
+    return short, pair
+
+
+def _miss_row(cs, cap: dict, label: str, name: str) -> dict:
+    import torch
+
+    short, pair = _miss_calls(cap)
+    got, want = short(), pair()
+    torch.cuda.synchronize()
+    for a, b in zip(got, want):
+        if a.dtype != b.dtype or not torch.equal(a, b):
+            raise AssertionError(f"[ab:kernels] {name}: the call without "
+                                 f"planes != the two-launch form")
+    calls = {"no_planes": short, "pair": pair}
+    times = {}
+    for k in ("no_planes", "pair", "pair", "no_planes"):
+        times.setdefault(k, []).append(
+            cs._device_ms([calls[k] for _ in range(20)])[0])
+    out = {"shape": {"U": int(cap["req"].shape[0]),
+                     "N": int(cap["idle"].shape[0]),
+                     "C": int(cap["cls_ready"].shape[0]), "S": int(cap["S"])}}
+    for k, fn in calls.items():
+        out[k] = {"ms": min(times[k]), "device_ops": _ops(fn, tries=3)}
+    _log(label, f"kernels {name} {json.dumps(out['shape'])}: " + "; ".join(
+        f"{k} {out[k]['ms']:.5f} ms, device ops {out[k]['device_ops']}"
+        for k in calls))
+    return out
 
 
 def _to(cap: dict, dev) -> dict:
@@ -478,13 +605,16 @@ def phase_kernels(cs, opts) -> dict:
 
     path = Path(opts.caps) if opts.caps else None
     if path is not None and path.exists():
-        caps = {k: _to(v, "cuda") for k, v in torch.load(path).items()}
+        # Written by this tool in the same call: trusted pickles.
+        caps = {k: _to(v, "cuda") for k, v in torch.load(
+            path, weights_only=False).items()}
     else:
         caps = _capture_kernels(cs)
         if path is not None:
             path.parent.mkdir(parents=True, exist_ok=True)
             torch.save({k: _to(v, "cpu") for k, v in caps.items()}, path)
     out = {}
+    misses = {k: caps.pop(k) for k in list(caps) if k.startswith("miss:")}
     for key, cap in caps.items():
         row = cs.replay_kernels({key: cap}, {key: 1}, names=[key])[0]
         fn = cs._kernel_fn(key, cs._clone(cap), plain=False)
@@ -527,13 +657,83 @@ def phase_kernels(cs, opts) -> dict:
         out["launch_floor_ms"] = cs.launch_floor()
         _log(opts.label, f"kernels empty launch "
              f"{json.dumps(out['launch_floor_ms'])}")
+    for key, cap in misses.items():
+        out[key] = _miss_row(cs, cap, opts.label, key)
+    return out
+
+
+# ------------------------------------------------------- node-table delta
+
+def phase_delta(cs, opts) -> dict:
+    import dataclasses
+
+    import torch
+
+    from volcano_tpu_torch.framework import DEPLOYED_SCHEDULER_CONF
+    from volcano_tpu_torch.ops import devsnap
+    from volcano_tpu_torch.scheduler import Scheduler
+    from volcano_tpu_torch.synth import synthetic_cluster
+
+    store = synthetic_cluster(n_nodes=10000, n_pods=100000, gang_size=8,
+                              zones=16, seed=0)
+    sched = Scheduler(store, conf_str=DEPLOYED_SCHEDULER_CONF)
+    sched.run_once()
+    torch.cuda.synchronize()
+    # Every cycle re-places the pods of nodes 0-63, so it solves (and so
+    # builds the solve's node planes).
+    store.cycle_feed = cs.repend_feed(list(range(64)))
+    m = store.mirror
+    step = max(1, m.n_nodes // 100)
+    node_planes = devsnap.DeviceSnapshot.node_planes
+    host_ms, traces, tracing = [], [], [False]
+
+    def timed(self, *a, **kw):
+        before = self.delta_uploads
+        if tracing[0]:
+            holder = []
+            ops = _ops(lambda: holder.append(node_planes(self, *a, **kw)))
+            if self.delta_uploads != before:
+                traces.append(ops)
+            return holder[0]
+        t0 = time.perf_counter()
+        out = node_planes(self, *a, **kw)
+        if self.delta_uploads != before:
+            host_ms.append((time.perf_counter() - t0) * 1e3)
+        return out
+
+    devsnap.DeviceSnapshot.node_planes = timed
+    try:
+        for i in range(opts.reps + 1):
+            tracing[0] = i == opts.reps
+            for row in range(0, step * 100, step):
+                old = m.node_objs[row]
+                cpu = str(int(float(old.allocatable["cpu"]) * 1.5))
+                store.update_node(dataclasses.replace(
+                    old, allocatable={**old.allocatable, "cpu": cpu},
+                    capacity={**old.capacity, "cpu": cpu}))
+            sched.run_once()
+            torch.cuda.synchronize()
+    finally:
+        devsnap.DeviceSnapshot.node_planes = node_planes
+    if len(host_ms) != opts.reps or len(traces) != 1:
+        raise AssertionError(f"[ab:delta] {len(host_ms)} timed and "
+                             f"{len(traces)} traced deltas")
+    snap = store.device_snapshot
+    cs.cycle_invariants(store, len(store.pods))
+    store.close()
+    out = {"host_ms": host_ms, "median_host_ms": statistics.median(host_ms),
+           "delta_uploads": snap.delta_uploads, "device_ops": traces[0]}
+    _log(opts.label, f"delta: node_planes host ms {host_ms} (median "
+         f"{out['median_host_ms']:.4f}); traced device ops "
+         f"{out['device_ops']}")
     return out
 
 
 RUN = {"solve": phase_solve, "cold": phase_cold,
        "shortlist": phase_shortlist, "seq": phase_seq,
        "seq-north-star": phase_seq_north_star, "seq-trace": phase_seq_trace,
-       "victim": phase_victim, "kernels": phase_kernels}
+       "victim": phase_victim, "kernels": phase_kernels,
+       "delta": phase_delta}
 
 
 def main() -> int:

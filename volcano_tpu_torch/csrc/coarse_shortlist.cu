@@ -4,12 +4,21 @@
 // (volcano_tpu/ops/wave.py:547), with `_class_static` (wave.py:285) and
 // `_topk_nodes` (wave.py:498) folded in.
 //
-// Pre-pass (`class_static_kernel`): the static ok/score planes per
-// (profile, node class).  Its own C entry, `vtt_static_planes`, replaces
-// the JAX package's separately jitted `_static_planes` (wave.py:347), the
-// persistent [U, C] planes of the device-incremental lane; with
-// `static_ext` the main pass takes those planes as inputs instead.  The
-// TPU ran the selector / affinity / taint bit subset tests as bf16
+// The static ok/score planes per (profile, node class): without
+// `static_ext` the main pass computes them itself, in the same launch --
+// block u writes row u's C pairs (`static_at`), passes a block barrier
+// and reads them back while it scores (global writes of a block are
+// visible to the block after `__syncthreads()`; the pairs are not staged
+// in shared memory, which the row's score keys fill).  With `static_ext`
+// it reads the given planes.  `vtt_static_planes`, the planes alone
+// (`class_static_kernel`, one thread a pair), replaces the JAX package's
+// separately jitted `_static_planes` (wave.py:347): the
+// device-incremental lane's persistent planes, which its block-form
+// launches (warm_shortlist.cu) read.  Those launches keep the planes'
+// own launch: a block there ranks one node block of a row, so it cannot
+// read pairs another block writes, and every way of computing them inside
+// it measured slower on an H100 than the separate launch (PERF.md
+// section 6).  The TPU ran the selector / affinity / taint bit subset tests as bf16
 // indicator matmuls; here each test is an AND-NOT over the packed uint32
 // words, exact by construction.
 //
@@ -43,6 +52,58 @@
 using vtt::Weights;
 
 namespace {
+
+// The inputs of the [U, C] static planes: the profile rows' bitsets and
+// preferred-term weights, the node classes' tables, the node-affinity
+// weight.  Passed by value; only its named fields are read.
+struct StaticIn {
+  const uint32_t* sel_bits;   // [U, LW]
+  const uint32_t* aff_bits;   // [U, A, LW]
+  const int32_t* aff_terms;   // [U]
+  const uint32_t* tol_bits;   // [U, TW]
+  const uint32_t* pref_bits;  // [U, AP, LW]
+  const float* pref_w;        // [U, AP]
+  const uint32_t* cls_label;  // [C, LW]
+  const uint32_t* cls_taint;  // [C, TW]
+  const uint8_t* cls_ready;   // [C]
+  int LW, A, TW, AP;
+  float naff;
+  int has_taints;
+};
+
+// A StaticIn from the C entries' untyped arguments.
+inline StaticIn static_in(const void* sel_bits, int LW, const void* aff_bits,
+                          int A, const void* aff_terms, const void* tol_bits,
+                          int TW, const void* pref_bits, int AP,
+                          const void* pref_w, const void* cls_label,
+                          const void* cls_taint, const void* cls_ready,
+                          float naff, int has_taints) {
+  return StaticIn{static_cast<const uint32_t*>(sel_bits),
+                  static_cast<const uint32_t*>(aff_bits),
+                  static_cast<const int32_t*>(aff_terms),
+                  static_cast<const uint32_t*>(tol_bits),
+                  static_cast<const uint32_t*>(pref_bits),
+                  static_cast<const float*>(pref_w),
+                  static_cast<const uint32_t*>(cls_label),
+                  static_cast<const uint32_t*>(cls_taint),
+                  static_cast<const uint8_t*>(cls_ready),
+                  LW, A, TW, AP, naff, has_taints};
+}
+
+// Profile row u against node class c: the verdict, and the static score
+// naff * pref (ops/wave.py _class_static), the planes' two cells.
+__device__ __forceinline__ vtt::StaticPair static_at(const StaticIn& s,
+                                                     int u, int c) {
+  const vtt::StaticPair p = vtt::static_pair(
+      s.cls_ready[c] != 0, s.cls_label + static_cast<int64_t>(c) * s.LW,
+      s.has_taints ? s.cls_taint + static_cast<int64_t>(c) * s.TW : nullptr,
+      s.LW, s.TW, s.sel_bits + static_cast<int64_t>(u) * s.LW,
+      s.aff_bits + static_cast<int64_t>(u) * s.A * s.LW, s.A, s.aff_terms[u],
+      s.tol_bits + static_cast<int64_t>(u) * s.TW,
+      s.pref_bits + static_cast<int64_t>(u) * s.AP * s.LW,
+      s.pref_w + static_cast<int64_t>(u) * s.AP, s.AP);
+  return vtt::StaticPair{p.ok, s.naff * p.pref};
+}
 
 constexpr int kThreads = 512;
 // A row's 4-byte ordered scores stay in shared memory up to this size
@@ -82,37 +143,25 @@ __device__ void block_compact_asc(int L, Pred pred, Emit emit,
   }
 }
 
-// kTag only separates the two callers' launches in a profiler trace
-// (0: inside coarse_shortlist, 1: the static_planes entry).
-template <int kTag>
+// The [U, C] planes alone, one thread a pair.
 __global__ void __launch_bounds__(256) class_static_kernel(
-    const uint32_t* sel_bits, int LW, const uint32_t* aff_bits, int A,
-    const int32_t* aff_terms, const uint32_t* tol_bits, int TW,
-    const uint32_t* pref_bits, int AP, const float* pref_w,
-    const uint32_t* cls_label, const uint32_t* cls_taint,
-    const uint8_t* cls_ready, int C, int U, float naff, int has_taints,
-    uint8_t* stat_ok, float* stat_score) {
+    StaticIn sin, int C, int U, uint8_t* stat_ok, float* stat_score) {
   const int64_t idx =
       static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
   if (idx >= static_cast<int64_t>(U) * C) return;
-  const int u = static_cast<int>(idx / C);
-  const int c = static_cast<int>(idx % C);
-  const vtt::StaticPair s = vtt::static_pair(
-      cls_ready[c] != 0, cls_label + static_cast<int64_t>(c) * LW,
-      has_taints ? cls_taint + static_cast<int64_t>(c) * TW : nullptr, LW, TW,
-      sel_bits + static_cast<int64_t>(u) * LW,
-      aff_bits + static_cast<int64_t>(u) * A * LW, A, aff_terms[u],
-      tol_bits + static_cast<int64_t>(u) * TW,
-      pref_bits + static_cast<int64_t>(u) * AP * LW,
-      pref_w + static_cast<int64_t>(u) * AP, AP);
+  const vtt::StaticPair s = static_at(
+      sin, static_cast<int>(idx / C), static_cast<int>(idx % C));
   stat_ok[idx] = s.ok ? 1 : 0;
-  stat_score[idx] = naff * s.pref;
+  stat_score[idx] = s.pref;
 }
 
+// `fill`: the block first writes row u's C static pairs into stat_ok /
+// stat_score (read back below after the barrier; no other block touches
+// row u).  Else those planes are given and only read.
 __global__ void __launch_bounds__(kThreads, 2) shortlist_kernel(
-    const float* req, const float* init_req, int R, const uint8_t* stat_ok,
-    const float* stat_score, const int32_t* cls_id, int C,
-    const float* idle, const float* rel, const float* pip,
+    const float* req, const float* init_req, int R, uint8_t* stat_ok,
+    float* stat_score, StaticIn sin, int fill, const int32_t* cls_id,
+    int C, const float* idle, const float* rel, const float* pip,
     const float* alloc, const int32_t* ntasks, const int32_t* max_tasks,
     int N, const float* eps, const uint8_t* scalar_slot, const float* bres,
     Weights w, int S, uint32_t* ord_scratch, int in_smem, int32_t* out,
@@ -126,6 +175,16 @@ __global__ void __launch_bounds__(kThreads, 2) shortlist_kernel(
   const float* rq = req + static_cast<int64_t>(u) * R;
   const float* irq = init_req + static_cast<int64_t>(u) * R;
   uint32_t* ord = in_smem ? s_ord : ord_scratch + static_cast<int64_t>(u) * N;
+  uint8_t* sok = stat_ok + static_cast<int64_t>(u) * C;
+  float* ssc = stat_score + static_cast<int64_t>(u) * C;
+  if (fill) {
+    for (int c = threadIdx.x; c < C; c += blockDim.x) {
+      const vtt::StaticPair p = static_at(sin, u, c);
+      sok[c] = p.ok ? 1 : 0;
+      ssc[c] = p.pref;
+    }
+    __syncthreads();
+  }
   for (int n = threadIdx.x; n < N; n += blockDim.x) {
     const int c = cls_id[n];
     const float* id = idle + static_cast<int64_t>(n) * R;
@@ -135,15 +194,15 @@ __global__ void __launch_bounds__(kThreads, 2) shortlist_kernel(
     const bool pods_ok = max_tasks[n] <= 0 || ntasks[n] < max_tasks[n];
     const int64_t ai = static_cast<int64_t>(u) * N + n;
     const bool feas =
-        stat_ok[static_cast<int64_t>(u) * C + c] != 0 &&
-        vtt::less_equal(irq, fi0, eps, scalar_slot, R) && pods_ok &&
+        sok[c] != 0 && vtt::less_equal(irq, fi0, eps, scalar_slot, R) &&
+        pods_ok &&
         !(ports && vtt::ports_clash(ports + static_cast<int64_t>(u) * PW,
                                     nports, nullptr, n, PW)) &&
         !(aff_ok && !aff_ok[ai]) && !(e_ok && !e_ok[ai]);
     // An infeasible node's key is NEG whatever it scores: no score.
     float score = vtt::kNeg;
     if (feas) {
-      float stat = stat_score[static_cast<int64_t>(u) * C + c];
+      float stat = ssc[c];
       if (e_score) stat = stat + e_score[ai];
       score = vtt::node_score(rq, al, id, bres, R, w) + stat;
       if (aff_soft) score = score + aff_soft[ai];
@@ -179,24 +238,11 @@ extern "C" int vtt_coarse_shortlist(
     const void* aff_ok, const void* aff_soft, const void* e_ok,
     const void* e_score, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const int64_t pairs = static_cast<int64_t>(U) * C;
-  const int threads = 256;
-  const int blocks = static_cast<int>((pairs + threads - 1) / threads);
-  if (!static_ext) {
-    class_static_kernel<0><<<blocks, threads, 0, st>>>(
-        static_cast<const uint32_t*>(sel_bits), LW,
-        static_cast<const uint32_t*>(aff_bits), A,
-        static_cast<const int32_t*>(aff_terms),
-        static_cast<const uint32_t*>(tol_bits), TW,
-        static_cast<const uint32_t*>(pref_bits), AP,
-        static_cast<const float*>(pref_w),
-        static_cast<const uint32_t*>(cls_label),
-        static_cast<const uint32_t*>(cls_taint),
-        static_cast<const uint8_t*>(cls_ready), C, U, naff, has_taints,
-        static_cast<uint8_t*>(stat_ok), static_cast<float*>(stat_score));
-    const cudaError_t err = cudaGetLastError();
-    if (err != cudaSuccess) return static_cast<int>(err);
-  }
+  const StaticIn sin =
+      static_ext ? StaticIn{}
+                 : static_in(sel_bits, LW, aff_bits, A, aff_terms, tol_bits,
+                             TW, pref_bits, AP, pref_w, cls_label, cls_taint,
+                             cls_ready, naff, has_taints);
   Weights w{bw, lw, mw, balw};
   const size_t row_bytes = static_cast<size_t>(N) * sizeof(uint32_t);
   const int in_smem = row_bytes <= static_cast<size_t>(kRowSmem);
@@ -212,9 +258,8 @@ extern "C" int vtt_coarse_shortlist(
   }
   shortlist_kernel<<<U, kThreads, smem, st>>>(
       static_cast<const float*>(req), static_cast<const float*>(init_req), R,
-      static_cast<const uint8_t*>(stat_ok),
-      static_cast<const float*>(stat_score),
-      static_cast<const int32_t*>(cls_id), C,
+      static_cast<uint8_t*>(stat_ok), static_cast<float*>(stat_score), sin,
+      static_ext ? 0 : 1, static_cast<const int32_t*>(cls_id), C,
       static_cast<const float*>(idle), static_cast<const float*>(rel),
       static_cast<const float*>(pip), static_cast<const float*>(alloc),
       static_cast<const int32_t*>(ntasks),
@@ -234,7 +279,7 @@ extern "C" int vtt_coarse_shortlist(
 }
 
 // The [U, C] static planes alone (the device-incremental lane's
-// persistent planes).
+// persistent planes, which its block-form launches read).
 extern "C" int vtt_static_planes(
     int U, const void* sel_bits, int LW, const void* aff_bits, int A,
     const void* aff_terms, const void* tol_bits, int TW,
@@ -247,16 +292,10 @@ extern "C" int vtt_static_planes(
   if (pairs == 0) return 0;
   const int threads = 256;
   const int blocks = static_cast<int>((pairs + threads - 1) / threads);
-  class_static_kernel<1><<<blocks, threads, 0, st>>>(
-      static_cast<const uint32_t*>(sel_bits), LW,
-      static_cast<const uint32_t*>(aff_bits), A,
-      static_cast<const int32_t*>(aff_terms),
-      static_cast<const uint32_t*>(tol_bits), TW,
-      static_cast<const uint32_t*>(pref_bits), AP,
-      static_cast<const float*>(pref_w),
-      static_cast<const uint32_t*>(cls_label),
-      static_cast<const uint32_t*>(cls_taint),
-      static_cast<const uint8_t*>(cls_ready), C, U, naff, has_taints,
-      static_cast<uint8_t*>(stat_ok), static_cast<float*>(stat_score));
+  class_static_kernel<<<blocks, threads, 0, st>>>(
+      static_in(sel_bits, LW, aff_bits, A, aff_terms, tol_bits, TW,
+                pref_bits, AP, pref_w, cls_label, cls_taint, cls_ready, naff,
+                has_taints),
+      C, U, static_cast<uint8_t*>(stat_ok), static_cast<float*>(stat_score));
   return static_cast<int>(cudaGetLastError());
 }

@@ -11,11 +11,22 @@ device, keyed by the mirror epoch + plane shapes:
   upload, zero host copy;
 - epoch advanced with shapes intact -> only the rows the mirror recorded
   dirty (``StoreMirror.node_delta_rows``) are uploaded and written into
-  the persistent tensor in place by the ``scatter_rows`` kernel
-  (``ops/kernels.py``), chunked under the staging budget;
-- shape changed / delta unprovable -> full re-upload.
+  the persistent tensors in place: per chunk of rows, every plane's
+  values and the row ids packed into one pinned host buffer, one
+  asynchronous copy to the card and one ``scatter_planes`` launch
+  (``ops/kernels.py``) for all planes;
+- shape changed / delta unprovable -> full re-upload (of one plane when
+  only its delta is unprovable).
 
-Only ``scatter_rows`` writes a resident plane; the solve reads them (its
+Chunking: the JAX package chunks each plane on its own, at the power of
+two of rows whose values fit ``budget_bytes()``.  The port chunks the
+planes together: a chunk is the power of two of rows whose row ids and
+values of every plane fit the budget, so each chunk is one copy and one
+launch and stays under the budget.  ``delta_chunks`` keeps the JAX
+package's count beside that (the extra per-plane passes the JAX chunking
+takes), so the two packages' counters stay equal.
+
+Only ``scatter_planes`` writes a resident plane; the solve reads them (its
 per-cycle state -- idle, pod counts, queue allocations -- lives in fresh
 tensors).  The JAX package padded each delta to a power of two with
 duplicate rows so one compiled scatter served many lengths; the port
@@ -43,9 +54,9 @@ DELTA_MAX_FRACTION = 0.25
 
 def budget_bytes() -> int:
     """Per-scatter host-staging budget for delta uploads
-    (``VOLCANO_TPU_DEVSNAP_BUDGET_MB``, default 256 MB): each plane's
-    delta values are built and uploaded in chunks under it, so a churn
-    burst peaks at one chunk of staging memory per plane."""
+    (``VOLCANO_TPU_DEVSNAP_BUDGET_MB``, default 256 MB): a delta's values
+    are built and uploaded in chunks under it, so a churn burst peaks at
+    one chunk of staging memory."""
     try:
         mb = float(os.environ.get("VOLCANO_TPU_DEVSNAP_BUDGET_MB", 256))
     except ValueError:
@@ -56,10 +67,10 @@ def budget_bytes() -> int:
     return max(4096, int(mb * 1_000_000))
 
 
-def _chunk_rows_for(row_nbytes: int) -> int:
-    """Rows per delta-scatter chunk under the budget (a power of two, as
-    the JAX package sizes them, so both packages chunk alike)."""
-    rows = max(1, budget_bytes() // max(1, row_nbytes))
+def _chunk_rows_for(row_nbytes: int, slack: int = 0) -> int:
+    """Rows per delta-scatter chunk under the budget less ``slack`` bytes
+    (a power of two, as the JAX package sizes its per-plane chunks)."""
+    rows = max(1, (budget_bytes() - slack) // max(1, row_nbytes))
     p = 1
     while p * 2 <= rows:
         p *= 2
@@ -83,24 +94,30 @@ class DeviceSnapshot:
         self.hits = 0
         self.class_uploads = 0
         self.class_hits = 0
-        # Extra scatter passes taken because a delta exceeded the
-        # per-scatter staging budget (see budget_bytes).
+        # Extra scatter passes the JAX package's per-plane chunking takes
+        # because a delta exceeded the staging budget (see budget_bytes
+        # and the module doc; the port's launches are ``delta_launches``).
         self.delta_chunks = 0
+        # Combined chunks written (one copy and one launch each), and
+        # planes re-uploaded whole inside a delta (delta unprovable).
+        self.delta_launches = 0
+        self.plane_uploads = 0
 
     def _put_plane(self, a: np.ndarray) -> torch.Tensor:
         return to_tensor(np.ascontiguousarray(a), self.device)
 
-    def _scatter(self, name: str, rows: np.ndarray, vals) -> None:
+    def _delta_vals(self, name: str, rows: np.ndarray, vals) -> np.ndarray:
+        """One plane's delta values, checked against the resident plane."""
         plane = self._planes[name]
         vals = np.ascontiguousarray(vals)
         if vals.dtype == np.uint32:
             vals = vals.view(np.int32)
-        if vals.shape != (len(rows), *plane.shape[1:]):
-            raise ValueError(f"delta of plane {name}: {vals.shape} rows "
-                             f"for a {tuple(plane.shape)} plane")
-        kernels.scatter_rows(
-            plane, to_tensor(rows.astype(np.int32), self.device),
-            to_tensor(vals, self.device))
+        if (vals.shape != (len(rows), *plane.shape[1:])
+                or torch.from_numpy(vals[:0]).dtype != plane.dtype):
+            raise ValueError(f"delta of plane {name}: {vals.dtype} "
+                             f"{vals.shape} rows for a {plane.dtype} "
+                             f"{tuple(plane.shape)} plane")
+        return vals
 
     # Called only from FastCycle._solve_inputs, inside the cycle's
     # ``with store._lock`` -- the mirror delta reads and resets below
@@ -145,27 +162,40 @@ class DeviceSnapshot:
                 raise ValueError(
                     f"node delta rows outside [0, {n_plane}): "
                     f"{delta_rows[0]}..{delta_rows[-1]}")
+            probes = {}
             for name, fn in build.items():
-                # One-row probe sizes the plane's delta chunks (and
-                # detects the delta-unprovable answer) without
-                # materializing the full values array first.
+                # One-row probe sizes the plane's delta rows (and detects
+                # the delta-unprovable answer) without materializing the
+                # full values array first.
                 probe = fn(delta_rows[:1])
                 if probe is None:
                     # Plane-level delta unprovable (class ids after the
                     # class SET changed): re-upload just this plane.
                     self._planes[name] = self._put_plane(
                         np.asarray(fn(None)))
+                    self.plane_uploads += 1
                     continue
-                row_nb = max(1, np.asarray(probe).nbytes)
-                chunk = _chunk_rows_for(row_nb)
-                n_chunks = 0
+                probes[name] = probe
+                # The JAX package's per-plane chunking, counted.
+                chunk = _chunk_rows_for(max(1, np.asarray(probe).nbytes))
+                self.delta_chunks += max(
+                    0, -(-len(delta_rows) // chunk) - 1)
+            if probes:
+                row_nb = 4 + sum(np.asarray(v).nbytes
+                                 for v in probes.values())
+                # The staged layout pads each plane's values to 16 bytes.
+                chunk = _chunk_rows_for(row_nb, slack=16 * len(probes))
+                bufs = [self._planes[name] for name in probes]
                 for lo in range(0, len(delta_rows), chunk):
                     crows = delta_rows[lo:lo + chunk]
-                    vals = (probe if len(crows) == 1 and lo == 0
-                            else fn(crows))
-                    self._scatter(name, crows, np.asarray(vals))
-                    n_chunks += 1
-                self.delta_chunks += max(0, n_chunks - 1)
+                    vals = [self._delta_vals(
+                        name, crows,
+                        probe if len(crows) == 1 and lo == 0
+                        else build[name](crows))
+                        for name, probe in probes.items()]
+                    staged = kernels.stage_delta(crows, vals, self.device)
+                    kernels.scatter_planes(bufs, staged, len(crows))
+                    self.delta_launches += 1
             m.reset_node_delta()
             self._key = key
             self.delta_uploads += 1

@@ -16,9 +16,13 @@ wrapper                replaces (JAX package)
                        acceptance (:1660-2003)
 ``apply_commit``       the sub-round apply (:2013-2021, :2125-2131) and the
                        final gang discard (:2262-2274)
-``static_planes``      ``ops/wave.py:_static_planes`` (:347)
+``static_planes``      ``ops/wave.py:_static_planes`` (:347) for the block
+                       form (the row form computes them in its launch)
 ``warm_shortlist``     ``ops/wave.py:_warm_shortlist`` (:721)
-``scatter_rows``       ``ops/devsnap.py:_scatter_rows`` (:82)
+``scatter_planes``     ``ops/devsnap.py:_scatter_rows`` (:82) on every
+                       plane of a node-table delta at once (counted as
+                       ``scatter_rows``, as is the one-plane
+                       ``scatter_rows``)
 ``victim_scores``      ``ops/victim.py:victim_scores`` (:82)
 ``frag_scores``        ``ops/rebalance.py:frag_scores`` (:61)
 ``gang_block_fit``     ``ops/topology.py:gang_block_fit`` (:179)
@@ -154,9 +158,18 @@ CAPTURE: Optional[dict] = None
 TALLIES: dict = {}
 
 
+# Launches of another wrapper's kernel that also did this one's work:
+# ``static_planes``' counts the row-form ``coarse_shortlist`` launches that
+# computed the static planes themselves (``LAUNCHES["static_planes"]``
+# counts the planes' own launches).
+FUSED = {"static_planes": 0}
+
+
 def reset_launches() -> None:
     for k in LAUNCHES:
         LAUNCHES[k] = 0
+    for k in FUSED:
+        FUSED[k] = 0
     TALLIES.clear()
 
 
@@ -183,6 +196,8 @@ def _capture(name: str, **inputs) -> None:
             return v.clone()
         if isinstance(v, tuple) and hasattr(v, "_fields"):
             return type(v)(*[clone(t) for t in v])
+        if isinstance(v, (tuple, list)):
+            return type(v)(clone(t) for t in v)
         return v
 
     CAPTURE[name] = {k: clone(v) for k, v in inputs.items()}
@@ -277,6 +292,7 @@ _SIGS = {
                             _P, _P, _P, _I, _P],
     "vtt_block_shortlist_smem": [_I, _I],
     "vtt_scatter_rows": [_P, _P, _P, _I, _L, _P],
+    "vtt_scatter_planes": [_P, _I, _I, _P, _P],
     "vtt_rank_candidates": [_P, _I, _P, _I, _P, _P, _P, _I, _P, _P, _P, _I,
                             _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _F,
                             _F, _F, _F, _I, _P, _P, _P, _P, _P, _P, _P, _I,
@@ -680,23 +696,27 @@ def coarse_shortlist(prof, cls, idle, alloc, ntasks, max_tasks, eps,
     ``cls`` a ``NodeClasses`` of tensors.  ``stat_ok``/``stat_score`` are
     the per-(profile, class) static planes phase 2 reuses: rows compute
     independently, so gathering a wave's rows equals evaluating them per
-    wave (the JAX package's static_ext contract).  ``stat``, a pair of
-    such planes, is taken as given instead of evaluated (``static_ext``).
+    wave (the JAX package's static_ext contract).  Without ``stat`` the
+    launch computes them itself, each block its profile row's pairs
+    (``FUSED["static_planes"]`` counts those launches); ``stat``, a pair
+    of such planes, is taken as given instead (``static_ext``).
     ``n_blocks`` selects per node block (B ascending-id blocks of N / B
     rows, top ``klb = min(S, N / B)`` each, in rank order) and merges the
     winners (``with_cand``): the same shortlist, and the per-block
     candidates a later ``warm_shortlist`` patches.  It needs ``stat``
-    (``static_planes`` builds the planes it reads).  With ``future`` (its
-    ``rel`` and ``pip``) the fit reads fi0 = (idle + releasing) -
-    pipelined (wave.py:608-609).  ``ports`` (a ``Ports``: the profile
-    rows' asked ports and the nodes' solve-start ports) drops clashing
-    nodes (wave.py:650-653); ``aff`` (``aff_live``'s [U, N] planes on
-    the solve-start counts) masks required-affinity and anti-affinity
-    violations and adds the soft score after the static one (wave.py:
-    655-660).  ``extra`` (an ``Extra`` of [U, N] planes, the custom
-    plugins') ANDs its verdicts into the mask and adds its scores to the
-    static score, node_score + (static + extra) (wave.py:642-645); the
-    block form does not take it (the JAX package drops the
+    (``static_planes`` builds the planes it reads: a block of that form
+    cannot read pairs another block writes, and computing them in the
+    launch measured slower than the planes' own launch, PERF.md).  With
+    ``future`` (its ``rel`` and ``pip``) the fit reads fi0 = (idle +
+    releasing) - pipelined (wave.py:608-609).  ``ports`` (a ``Ports``:
+    the profile rows' asked ports and the nodes' solve-start ports) drops
+    clashing nodes (wave.py:650-653); ``aff`` (``aff_live``'s [U, N]
+    planes on the solve-start counts) masks required-affinity and
+    anti-affinity violations and adds the soft score after the static one
+    (wave.py:655-660).  ``extra`` (an ``Extra`` of [U, N] planes, the
+    custom plugins') ANDs its verdicts into the mask and adds its scores
+    to the static score, node_score + (static + extra) (wave.py:642-645);
+    the block form does not take it (the JAX package drops the
     device-incremental lane for such solves)."""
     naff = float(weights.node_affinity_weight)
     if n_blocks and stat is None:
@@ -752,11 +772,6 @@ def coarse_shortlist(prof, cls, idle, alloc, ntasks, max_tasks, eps,
              n_blocks=n_blocks, C=C, future=future, ports=ports, aff=aff,
              extra=extra, **a)
     dev = idle.device
-    if stat is None:
-        stat_ok = torch.empty((U, C), dtype=torch.bool, device=dev)
-        stat_score = torch.empty((U, C), dtype=torch.float32, device=dev)
-    else:
-        stat_ok, stat_score = a["stat_ok"], a["stat_score"]
     if n_blocks:
         nlb, klb = _block_geometry(N, n_blocks, S)
         cand_s = torch.empty((U, n_blocks, klb), dtype=torch.float32,
@@ -764,30 +779,36 @@ def coarse_shortlist(prof, cls, idle, alloc, ntasks, max_tasks, eps,
         cand_i = torch.empty((U, n_blocks, klb), dtype=torch.int32,
                              device=dev)
         rc, out = _launch_block_shortlist(
-            a, stat_ok, stat_score, weights, None, n_blocks, nlb, klb, S,
-            None, cand_s, cand_i, fut, ports, aff)
+            a, a["stat_ok"], a["stat_score"], weights, None, n_blocks, nlb,
+            klb, S, None, cand_s, cand_i, fut, ports, aff)
         _check(rc, "coarse_shortlist")
         LAUNCHES["coarse_shortlist"] += 1
-        return out, stat_ok, stat_score, cand_s, cand_i
+        return out, a["stat_ok"], a["stat_score"], cand_s, cand_i
+    if stat is None:
+        stat_ok = torch.empty((U, C), dtype=torch.bool, device=dev)
+        stat_score = torch.empty((U, C), dtype=torch.float32, device=dev)
+        static = (_ptr(a["sel_bits"]), a["sel_bits"].shape[-1],
+                  _ptr(a["aff_bits"]), a["aff_bits"].shape[1],
+                  _ptr(a["aff_terms"]), _ptr(a["tol_bits"]),
+                  a["tol_bits"].shape[-1], _ptr(a["pref_bits"]),
+                  a["pref_bits"].shape[1], _ptr(a["pref_w"]))
+        tables = (_ptr(a["cls_label"]), _ptr(a["cls_taint"]),
+                  _ptr(a["cls_ready"]))
+    else:
+        stat_ok, stat_score = a["stat_ok"], a["stat_score"]
+        static = (None, 0, None, 0, None, None, 0, None, 0, None)
+        tables = (None, None, None)
     # A row's ordered scores: shared memory up to COARSE_SMEM, else a
     # global scratch row.
     keys = (None if 4 * N <= COARSE_SMEM
             else torch.empty((U, N), dtype=torch.int32, device=dev))
     out = torch.empty((U, S), dtype=torch.int32, device=dev)
-    z = torch.zeros(1, dtype=torch.int32, device=dev)
-    g = (lambda k: a.get(k, z))
     pp = _ports_args(ports, U, N, "coarse_shortlist")
     ap = _aff_planes(aff, U, N, "coarse_shortlist")
     rc = load().vtt_coarse_shortlist(
-        _ptr(a["req"]), _ptr(a["init_req"]), U, R, _ptr(g("sel_bits")),
-        g("sel_bits").shape[-1] if stat is None else 0, _ptr(g("aff_bits")),
-        g("aff_bits").shape[1] if stat is None else 0, _ptr(g("aff_terms")),
-        _ptr(g("tol_bits")), g("tol_bits").shape[-1] if stat is None else 0,
-        _ptr(g("pref_bits")), g("pref_bits").shape[1] if stat is None else 0,
-        _ptr(g("pref_w")), _ptr(a["cls_id"]), _ptr(g("cls_label")),
-        _ptr(g("cls_taint")), _ptr(g("cls_ready")), C, _ptr(a["idle"]),
-        fut[0], fut[1], _ptr(a["alloc"]), _ptr(a["ntasks"]),
-        _ptr(a["max_tasks"]), N,
+        _ptr(a["req"]), _ptr(a["init_req"]), U, R, *static,
+        _ptr(a["cls_id"]), *tables, C, _ptr(a["idle"]), fut[0], fut[1],
+        _ptr(a["alloc"]), _ptr(a["ntasks"]), _ptr(a["max_tasks"]), N,
         _ptr(a["eps"]), _ptr(a["scalar_slot"]), _ptr(a["bres"]),
         *_weights(weights), naff, int(bool(has_taints)), S,
         int(stat is not None), _ptr(stat_ok), _ptr(stat_score), _ptr(keys),
@@ -795,6 +816,7 @@ def coarse_shortlist(prof, cls, idle, alloc, ntasks, max_tasks, eps,
     )
     _check(rc, "coarse_shortlist")
     LAUNCHES["coarse_shortlist"] += 1
+    FUSED["static_planes"] += int(stat is None)
     return out, stat_ok, stat_score
 
 
@@ -804,7 +826,8 @@ def static_planes(prof, cls, naff: float, has_taints: bool,
                   plain: bool = False):
     """The [U, C] static planes ``(ok bool, score f32)`` of every profile
     row against every node class (wave.py:347 ``_static_planes``): the
-    device-incremental lane's persistent planes."""
+    device-incremental lane's persistent planes, which its block-form
+    shortlist launches read (the row form computes its own)."""
     if not _on_card(plain, prof.sel_bits, cls.ready):
         return class_static_plain(
             prof.sel_bits, prof.aff_bits, prof.aff_terms, prof.tol_bits,
@@ -921,8 +944,9 @@ def warm_shortlist(prof, cls_id, stat_ok, stat_score, idle, alloc, ntasks,
 
 def scatter_rows(buf: torch.Tensor, rows: torch.Tensor, vals: torch.Tensor,
                  plain: bool = False) -> None:
-    """``buf[rows] = vals`` in place along the leading axis
-    (devsnap.py:82 ``_scatter_rows``).  ``rows`` [k] int32 must be unique
+    """``buf[rows] = vals`` in place along the leading axis, one plane
+    (devsnap.py:82 ``_scatter_rows``; the snapshot writes its planes
+    together with ``scatter_planes``).  ``rows`` [k] int32 must be unique
     and lie in ``[0, buf.shape[0])``; the caller checks that where the
     rows come from."""
     if not _on_card(plain, buf, rows, vals):
@@ -936,11 +960,103 @@ def scatter_rows(buf: torch.Tensor, rows: torch.Tensor, vals: torch.Tensor,
         raise ValueError("scatter_rows: vals must be [len(rows), *row]")
     if k == 0:
         return
-    _capture("scatter_rows", buf=buf, rows=rows, vals=vals)
+    _capture("scatter_rows:one_plane", buf=buf, rows=rows, vals=vals)
     row_bytes = buf[0].numel() * buf.element_size()
     rc = load().vtt_scatter_rows(_ptr(buf), _ptr(rows), _ptr(vals), k,
                                  row_bytes, _stream())
     _check(rc, "scatter_rows")
+    LAUNCHES["scatter_rows"] += 1
+
+
+SCATTER_MAX_PLANES = 8  # csrc/scatter_rows.cu kMaxPlanes
+_ALIGN = 16  # each plane's values start at a multiple of 16 bytes
+
+
+def delta_layout(k: int, row_bytes) -> tuple:
+    """(offsets, total bytes) of a staged node-table delta of ``k`` rows:
+    the int32 row ids at 0, then each plane's ``k * row_bytes[p]`` value
+    bytes at the next multiple of 16."""
+    offs = []
+    end = 4 * k
+    for rb in row_bytes:
+        end = -(-end // _ALIGN) * _ALIGN
+        offs.append(end)
+        end += k * int(rb)
+    return tuple(offs), end
+
+
+def stage_delta(rows, vals, device) -> torch.Tensor:
+    """One uint8 buffer on ``device`` holding a delta (``delta_layout``):
+    ``rows`` [k] (unique node rows) and ``vals``, each plane's [k, *row]
+    values as numpy arrays.  For the card the host packs it into pinned
+    memory (PyTorch's caching host allocator, which keeps a block until
+    the copies that read it are done) and copies it with one asynchronous
+    copy; on the CPU the packed buffer is the staged one."""
+    import numpy as np
+
+    device = torch.device(device)
+    k = len(rows)
+    vals = [np.ascontiguousarray(v) for v in vals]
+    offs, total = delta_layout(k, [v.nbytes // max(1, k) for v in vals])
+    host = torch.empty(max(total, _ALIGN), dtype=torch.uint8,
+                       pin_memory=device.type == "cuda")
+    h = host.numpy()
+    h[:4 * k] = np.asarray(rows, np.int32).view(np.uint8)
+    for off, v in zip(offs, vals):
+        h[off:off + v.nbytes] = v.reshape(-1).view(np.uint8)
+    if device.type == "cpu":
+        return host
+    return host.to(device, non_blocking=True)
+
+
+def _delta_views(bufs, staged, k):
+    """The staged delta's row ids and each plane's [k, *row] values, as
+    views of ``staged``."""
+    offs, _ = delta_layout(k, [b[0].numel() * b.element_size()
+                               for b in bufs])
+    rows = staged[:4 * k].view(torch.int32)
+    vals = [staged[off:off + k * b[0].numel() * b.element_size()]
+            .view(b.dtype).view((k, *b.shape[1:]))
+            for off, b in zip(offs, bufs)]
+    return rows, vals
+
+
+def scatter_planes(bufs, staged: torch.Tensor, k: int,
+                   plain: bool = False) -> None:
+    """``buf[rows] = vals_p`` in place for every plane ``bufs[p]``, the
+    rows and values read from ``staged`` (``stage_delta``): a node-table
+    delta in one launch (devsnap.py:82 ``_scatter_rows``, once per plane in
+    the JAX package).  The rows must be unique and lie in each plane's
+    leading axis; the caller checks that where they come from.  The plain
+    version writes plane by plane from views of ``staged``."""
+    bufs = list(bufs)
+    if not _on_card(plain, staged, *bufs):
+        rows, vals = _delta_views(bufs, staged, k)
+        for buf, v in zip(bufs, vals):
+            buf[rows.long()] = v
+        return
+    _req(staged, torch.uint8, "staged")
+    if not 1 <= len(bufs) <= SCATTER_MAX_PLANES:
+        raise ValueError(f"scatter_planes: {len(bufs)} planes (1 to "
+                         f"{SCATTER_MAX_PLANES})")
+    row_bytes = [b[0].numel() * b.element_size() for b in bufs]
+    offs, total = delta_layout(k, row_bytes)
+    if staged.dim() != 1 or staged.numel() < total \
+            or staged.data_ptr() % _ALIGN:
+        raise ValueError("scatter_planes: staged buffer does not hold the "
+                         "delta")
+    for b in bufs:
+        _req(b, b.dtype, "buf")
+    if k == 0:
+        return
+    _capture("scatter_rows", bufs=tuple(bufs), staged=staged, k=k)
+    desc = (ctypes.c_int64 * (3 * len(bufs)))(*[
+        x for b, rb, off in zip(bufs, row_bytes, offs)
+        for x in (b.data_ptr(), rb, off)])
+    rc = load().vtt_scatter_planes(_ptr(staged), k, len(bufs),
+                                   ctypes.c_void_p(ctypes.addressof(desc)),
+                                   _stream())
+    _check(rc, "scatter_planes")
     LAUNCHES["scatter_rows"] += 1
 
 
