@@ -83,15 +83,23 @@ of which raises (and the script exits non-zero) when a check fails:
 13. topology: ``fabric_cluster(16 racks x 8 slices x 64 nodes, a 128-task
    require-contiguous gang)``, 8,192 nodes in 128 blocks: cycle 0 gates
    the gang and commits one plan (traced), and the gang ends bound inside
-   exactly one block with all 256 fillers bound again;
+   exactly one block with all 256 fillers bound again; ``fabric_frag`` is
+   written by the block fit's launch (its own kernel launched 0 times),
+   and every plan's ``volcano_topology_frag_score`` gauge equals the plain
+   ``fabric_frag`` of the block fit that plan fetched; then, on a fresh
+   fabric, one plan call traced (the ``[rebalance:plan-trace]`` line: its
+   device operations, copies by direction and kernels, and the
+   synchronising calls torch's sync debug mode flags);
 14. prefer-contiguous: the same fabric binds the gang on cycle 0, through
    a biased ranking;
    after every cycle of 12-14 the checks of 9-10, the what-if engine's
    plan and what-if-solve spans printed with the lanes; launch counts
    zeroed before each phase and read after, each phase's kernels required;
-15. ``frag_scores``, ``gang_block_fit``, ``fabric_frag`` and the biased
+15. ``frag_scores``, ``gang_block_fit`` and the biased
    ``rank_candidates`` on their captured inputs against their plain
-   versions, timed as in 4;
+   versions, timed as in 4; the standalone ``fabric_frag`` kernel on the
+   captured block fit's ``cfit`` / ``whole`` (its row's launches are the
+   block-fit launches that wrote the plane on the path);
 16. affinity: BASELINE config 5 (bench.py ``config_5``: gangs of 8, 16
    zones, 5% required zone affinity, 5% required hostname anti-affinity,
    10% zone spread) at 10,000 nodes x 100,000 pods under CONF_BASE through
@@ -194,7 +202,7 @@ PTXAS_SOURCES = ("rank_candidates.cu", "aff_live.cu", "walk_accept.cu",
                  "aff_filter.cu", "coarse_shortlist.cu",
                  "warm_shortlist.cu", "apply_commit.cu", "seq_solve.cu",
                  "victim_scores.cu", "topology.cu", "aff_tables.cu",
-                 "scatter_rows.cu")
+                 "scatter_rows.cu", "frag_scores.cu")
 
 
 def ptxas_report(sources=PTXAS_SOURCES) -> dict:
@@ -796,12 +804,14 @@ def _work(name, cap, outs):
         # Every input read once, the [B, U] counts and the [B] planes
         # written once; per node and profile the fit (4 per slot) and one
         # add into its block, per block and profile a compare, a min and
-        # an add.
+        # an add, per block fabric_frag's divide and select, and the
+        # counts' sum.
         ins = [v for v in cap.values() if isinstance(v, torch.Tensor)]
         nbytes = _nbytes(*ins) + out_bytes
         N, R = cap["idle"].shape
         U = cap["prof_req"].shape[0]
-        ops = N * U * (4 * R + 3) + cap["n_blocks"] * U * 3
+        B = cap["n_blocks"]
+        ops = N * U * (4 * R + 3) + B * (U * 3 + 2) + U
     elif name == "fabric_frag":
         ins = [v for v in cap.values() if isinstance(v, torch.Tensor)]
         nbytes = _nbytes(*ins) + out_bytes
@@ -1346,16 +1356,20 @@ SOLVE_KERNELS = ("coarse_shortlist", "rank_candidates", "walk_accept",
 CYCLE_KERNELS = SOLVE_KERNELS + ("static_planes", "warm_shortlist",
                                  "scatter_rows")
 FUSED_STATIC = "static_planes:fused"
+FUSED_FRAG = "fabric_frag:fused"
 
 
 def launch_counts() -> dict:
-    """The wrappers' launch counts, and under ``static_planes:fused`` the
+    """The wrappers' launch counts, under ``static_planes:fused`` the
     ``coarse_shortlist`` launches that built the static planes themselves
-    (``static_planes`` counts the planes' own launches)."""
+    (``static_planes`` counts the planes' own launches) and under
+    ``fabric_frag:fused`` the ``gang_block_fit`` launches, each of which
+    writes ``fabric_frag``'s plane."""
     from volcano_tpu_torch.ops import kernels
 
     return {**kernels.LAUNCHES,
-            FUSED_STATIC: kernels.FUSED["static_planes"]}
+            FUSED_STATIC: kernels.FUSED["static_planes"],
+            FUSED_FRAG: kernels.FUSED["fabric_frag"]}
 
 
 def never_launched(launches: dict, names) -> list:
@@ -2127,10 +2141,11 @@ def evict_phases():
 
 # ------------------------------------------- rebalance and fabric topology
 
-# The kernels each phase's main path must launch.
+# The kernels each phase's main path must launch (``fabric_frag`` is
+# written by the ``gang_block_fit`` launch: its own kernel launches 0 times).
 REBALANCE_KERNELS = ("frag_scores", "coarse_shortlist", "rank_candidates",
                      "walk_accept", "apply_commit")
-TOPOLOGY_KERNELS = REBALANCE_KERNELS + ("gang_block_fit", "fabric_frag")
+TOPOLOGY_KERNELS = REBALANCE_KERNELS + ("gang_block_fit",)
 PREFER_KERNELS = ("gang_block_fit", "coarse_shortlist", "rank_candidates",
                   "walk_accept", "apply_commit")
 
@@ -2257,6 +2272,151 @@ def first_shapes(caps: dict) -> dict:
     return out
 
 
+def frag_gauge_checked(checks: list):
+    """A stand-in for ``FastCycle._plan_rebalance`` that holds each call's
+    ``volcano_topology_frag_score`` gauge to the plain ``fabric_frag`` of
+    the block fit the call fetched (``frag``, written by the block fit's
+    launch, bytes compared; the gauge its mean) and appends the gauge to
+    ``checks``.  Returns (the stand-in, the method it wraps)."""
+    import torch
+
+    from volcano_tpu_torch import fastpath
+    from volcano_tpu_torch.metrics import metrics
+    from volcano_tpu_torch.ops import kernels
+
+    plan = fastpath.FastCycle._plan_rebalance
+    fit = fastpath.FastCycle._topo_block_fit
+
+    def checked(self, jrow):
+        seen = []
+
+        def recorded(cyc, j):
+            tf = fit(cyc, j)
+            seen.append(tf)
+            return tf
+
+        metrics.topology_frag_score.data.clear()
+        fastpath.FastCycle._topo_block_fit = recorded
+        try:
+            out = plan(self, jrow)
+        finally:
+            fastpath.FastCycle._topo_block_fit = fit
+        seen = [tf for tf in seen if tf is not None]
+        if seen:
+            tf = seen[-1]
+            want = kernels._fabric_frag_plain(
+                torch.from_numpy(tf["cfit"]), torch.from_numpy(tf["whole"]),
+                torch.from_numpy(tf["prof_cnt"])).numpy()
+            gauge = metrics.topology_frag_score.data.get(())
+            want_g = float(want.mean()) if len(want) else 0.0
+            if want.tobytes() != tf["frag"].tobytes() or gauge != want_g:
+                raise AssertionError(
+                    f"[topology] frag gauge {gauge} (planes {tf['frag']}) "
+                    f"!= the plain fabric_frag's {want_g} ({want})")
+            checks.append(want_g)
+        return out
+
+    return checked, plan
+
+
+def sync_ops(fn):
+    """(``fn()``, the device operations of the call in order (``device_ops``;
+    [] when the trace held none), the synchronising calls it made: each
+    warns once under torch's sync debug mode -- a fetch, a pageable
+    upload -- and is listed as the ``file:line`` of the Python line that
+    made it; warnings raised from torch's own modules (turning the mode on
+    warns once a process) are not the call's)."""
+    import os
+    import warnings
+
+    import torch
+
+    own = os.path.dirname(torch.__file__) + os.sep
+    syncs = []
+
+    def counted():
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            torch.cuda.set_sync_debug_mode("warn")
+            try:
+                return fn()
+            finally:
+                torch.cuda.set_sync_debug_mode("default")
+                syncs.extend(f"{os.path.basename(w.filename)}:{w.lineno}"
+                             for w in caught
+                             if "synchroniz" in str(w.message).lower()
+                             and not w.filename.startswith(own))
+
+    res, ops = device_ops(counted)
+    return res, ops or [], syncs
+
+
+def op_counts(ops) -> dict:
+    """Device operations counted by kind: copies by direction, kernels by
+    name."""
+    kinds = {}
+    for op in ops:
+        key = ("copy HtoD" if "HtoD" in op else "copy DtoH" if "DtoH" in op
+               else op)
+        kinds[key] = kinds.get(key, 0) + 1
+    return kinds
+
+
+def plan_trace(racks=16, slices_per_rack=8, nodes_per_slice=64,
+               tries=3) -> dict:
+    """One ``FastCycle._plan_rebalance`` call with a topology constraint,
+    traced: the ``[topology]`` fabric built afresh and one ``run_once()``,
+    whose first plan call runs under ``sync_ops`` (its device operations
+    in order and its synchronising calls).  A short trace has lost its
+    first device events on the card, so this runs ``tries`` times, each on
+    a fresh fabric, and keeps the fullest trace (a trace loses events, it
+    never adds one).  Returns the operations, their counts
+    (``op_counts``), the synchronising calls of that try and of every
+    try."""
+    import torch
+
+    from volcano_tpu_torch import fastpath
+    from volcano_tpu_torch.cache import FakeBinder
+    from volcano_tpu_torch.framework import REBALANCE_SCHEDULER_CONF
+    from volcano_tpu_torch.scheduler import Scheduler
+    from volcano_tpu_torch.synth import fabric_cluster
+
+    plan = fastpath.FastCycle._plan_rebalance
+    best, all_syncs = None, []
+    for _ in range(tries):
+        store = fabric_cluster(racks=racks, slices_per_rack=slices_per_rack,
+                               nodes_per_slice=nodes_per_slice,
+                               gang_tasks=2 * nodes_per_slice,
+                               topology="require-contiguous",
+                               binder=FakeBinder())
+        out = {}
+
+        def traced(self, jrow, out=out):
+            if out:
+                return plan(self, jrow)
+            res, out["ops"], out["syncs"] = sync_ops(
+                lambda: plan(self, jrow))
+            out["topology"] = int(self.m.j_topo[jrow])
+            return res
+
+        fastpath.FastCycle._plan_rebalance = traced
+        try:
+            Scheduler(store, conf_str=REBALANCE_SCHEDULER_CONF).run_once()
+            torch.cuda.synchronize()
+        finally:
+            fastpath.FastCycle._plan_rebalance = plan
+            store.close()
+        if not out or not out["topology"]:
+            raise AssertionError("[rebalance:plan-trace] no plan call with "
+                                 "a topology constraint")
+        all_syncs.append(len(out["syncs"]))
+        if best is None or len(out["ops"]) > len(best["ops"]):
+            best = out
+    best["counts"] = op_counts(best["ops"])
+    best["syncs_each_try"] = all_syncs
+    return best
+
+
 def rebalance_phases(workers=5000, racks=16, slices_per_rack=8,
                      nodes_per_slice=64):
     """Phases 12-15: the rebalance lane at 2 x ``workers`` nodes, the fabric
@@ -2268,6 +2428,7 @@ def rebalance_phases(workers=5000, racks=16, slices_per_rack=8,
     rank_candidates row)."""
     import os
 
+    from volcano_tpu_torch import fastpath
     from volcano_tpu_torch.cache import FakeBinder
     from volcano_tpu_torch.framework import REBALANCE_SCHEDULER_CONF
     from volcano_tpu_torch.ops import kernels
@@ -2349,12 +2510,26 @@ def rebalance_phases(workers=5000, racks=16, slices_per_rack=8,
 
     store = fabric("require-contiguous")
     kernels.CAPTURE = {}
-    tstats, tlaunch, _vs, _fut = run_evict_phase(
-        "topology", store, conf, grace=2, cycles=12,
-        until=lambda st: _bound(st, "fabgang-") >= n_gang,
-        need=TOPOLOGY_KERNELS, require_future=False, extra=fabric_extra,
-        profile_cycle=0)
+    gauges = []
+    fastpath.FastCycle._plan_rebalance, plan = frag_gauge_checked(gauges)
+    try:
+        tstats, tlaunch, _vs, _fut = run_evict_phase(
+            "topology", store, conf, grace=2, cycles=12,
+            until=lambda st: _bound(st, "fabgang-") >= n_gang,
+            need=TOPOLOGY_KERNELS, require_future=False, extra=fabric_extra,
+            profile_cycle=0)
+    finally:
+        fastpath.FastCycle._plan_rebalance = plan
     tcaps, kernels.CAPTURE = kernels.CAPTURE, None
+    _log(f"[topology] fabric_frag: {tlaunch['fabric_frag']} launches of its "
+         f"own, {tlaunch[FUSED_FRAG]} written by gang_block_fit's "
+         f"{tlaunch['gang_block_fit']} launches; frag gauges of the "
+         f"{len(gauges)} plans equal to the plain fabric_frag: {gauges}")
+    if (tlaunch["fabric_frag"] != 0 or not gauges
+            or tlaunch[FUSED_FRAG] != tlaunch["gang_block_fit"]):
+        raise AssertionError("[topology] fabric_frag not written by the "
+                             "block-fit launch alone, or no plan's gauge "
+                             "checked")
     c0 = tstats["cycles"][0]
     led = store.migrations
     tstats.update(fabric_extra(store), evicted=len(store.evictor.evicts),
@@ -2385,11 +2560,41 @@ def rebalance_phases(workers=5000, racks=16, slices_per_rack=8,
         raise AssertionError("[topology:prefer] no biased ranking launched")
     store.close()
 
-    # 15. the new kernels and the biased ranking on their inputs.
+    # One plan call with a topology constraint, traced.
+    tr = plan_trace(racks, slices_per_rack, nodes_per_slice)
+    _log(f"[rebalance:plan-trace] one _plan_rebalance call (topology "
+         f"{tr['topology']}), the fullest of {len(tr['syncs_each_try'])} "
+         f"traces: device operations {json.dumps(tr['counts'])}, in order "
+         f"{tr['ops']}; synchronising calls {len(tr['syncs'])} (each try "
+         f"{tr['syncs_each_try']}) at {tr['syncs']}")
+    if (tr["counts"].get("copy DtoH", 0) > 2
+            or tr["counts"].get("fabric_frag_kernel", 0)):
+        raise AssertionError(f"[rebalance:plan-trace] more than two fetches "
+                             f"or a fabric_frag launch: {tr['counts']}")
+
+    # 15. the new kernels and the biased ranking on their inputs; the
+    # standalone fabric_frag on the captured block fit's cfit / whole.
     launches = {k: rlaunch[k] + tlaunch[k] + plaunch[k] for k in rlaunch}
     rows = _replay_rows(rcaps, launches, "rebalance", ["frag_scores"])
-    rows += _replay_rows(tcaps, launches, "topology",
-                         ["gang_block_fit", "fabric_frag"])
+    rows += _replay_rows(tcaps, launches, "topology", ["gang_block_fit"])
+    c = tcaps["gang_block_fit"]
+    cfit, whole, _score, _frag = kernels.gang_block_fit(
+        c["idle"], c["ready"], c["ntasks"], c["max_tasks"], c["block_id"],
+        c["prof_req"], c["prof_cnt"], c["eps"], c["n_blocks"])
+    fused = tlaunch[FUSED_FRAG] + plaunch[FUSED_FRAG]
+    frag_row = replay_kernels(
+        {"fabric_frag": {"cfit": cfit, "whole": whole,
+                         "prof_cnt": c["prof_cnt"]}},
+        {"fabric_frag": fused}, names=["fabric_frag"])[0]
+    frag_row.update(own_launches=launches["fabric_frag"],
+                    launched_by="gang_block_fit")
+    _log(f"[kernels:topology] fabric_frag (standalone, on the block fit's "
+         f"cfit / whole): {frag_row['ms']:.4f} ms/launch, plain "
+         f"{frag_row['plain_ms']:.4f} ms, bound {frag_row['bound_ms']:.6f} "
+         f"ms ({frag_row['bound_by']}); on the path written by "
+         f"{fused} gang_block_fit launches, {launches['fabric_frag']} of "
+         f"its own, max_abs_err {frag_row['max_abs_err']}")
+    rows.append(frag_row)
     bias_row = _replay_rows(tcaps, launches, "topology",
                             ["rank_candidates:bias"])[0]
     return rows, bias_row

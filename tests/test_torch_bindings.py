@@ -128,16 +128,20 @@ def test_affinity_wrappers_match_their_entries(fake_card):
 
 
 def test_topology_and_table_wrappers_match_their_entries(fake_card):
-    """gang_block_fit passes its cluster size (0: chosen by N) and a
-    [B, U] cfit; scatter_profile_tables passes four planes that start at
-    multiples of 16 bytes (the kernel's fill stores 16 bytes at a time)."""
+    """gang_block_fit passes its cluster size (0: chosen by N), a [B, U]
+    cfit and the [B] frag plane its launch writes; scatter_profile_tables
+    passes four planes that start at multiples of 16 bytes (the kernel's
+    fill stores 16 bytes at a time)."""
     N, U, R, B = 40, 3, 2, 8
     args = (_z(N, R, dtype=F32), _z(N, dtype=B8), _z(N), _z(N), _z(N),
             _z(U, R, dtype=F32), _z(U), _z(R, dtype=F32), B)
     for cluster in (0, 1, 8, 16):
-        cfit, whole, score = kernels.gang_block_fit(*args, cluster=cluster)
+        cfit, whole, score, frag = kernels.gang_block_fit(
+            *args, cluster=cluster)
         assert cfit.shape == (B, U) and whole.shape == score.shape == (B,)
+        assert frag.shape == (B,) and frag.dtype == F32
         assert fake_card.args[-1][12] == cluster
+        assert fake_card.args[-1][16].value == frag.data_ptr()
     with pytest.raises(ValueError):
         kernels.gang_block_fit(*args, cluster=17)
     kernels.fabric_frag(cfit, whole, _z(U))
@@ -152,6 +156,31 @@ def test_topology_and_table_wrappers_match_their_entries(fake_card):
     assert fake_card.calls == (["vtt_gang_block_fit"] * 4
                                + ["vtt_fabric_frag"]
                                + ["vtt_scatter_profile_tables"] * 3)
+
+
+def test_frag_scores_wrapper_reads_staged_views_writes_one_buffer(
+        fake_card):
+    """frag_scores on ``stage_frag``'s views passes the six views' pointers
+    (16-byte offsets into one staged buffer) and, as its three outputs,
+    the rows of one [3, N] int32 buffer."""
+    import numpy as np
+
+    N, U, R = 37, 5, 3
+    rng = np.random.RandomState(0)
+    staged = kernels.stage_frag(
+        rng.rand(N, R), rng.rand(N, R), rng.rand(N) < 0.5, rng.rand(N, R),
+        rng.rand(U, R), rng.rand(R), "cpu")
+    frag, now, freed = kernels.frag_scores(*staged)
+    args = fake_card.args[-1]
+    assert fake_card.calls == ["vtt_frag_scores"]
+    base = staged[0].data_ptr()
+    assert [a.value for a in args[:6]] == [v.data_ptr() for v in staged]
+    assert all((a.value - base) % 16 == 0 for a in args[:6])
+    assert args[6:9] == (N, U, R)
+    assert frag.dtype == F32 and now.dtype == freed.dtype == I32
+    ptrs = [a.value for a in args[9:12]]
+    assert ptrs == [frag.data_ptr(), now.data_ptr(), freed.data_ptr()]
+    assert ptrs[1] - ptrs[0] == ptrs[2] - ptrs[1] == 4 * N
 
 
 def test_solve_wrappers_with_ports_and_counts_match(fake_card):

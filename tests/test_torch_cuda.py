@@ -548,6 +548,113 @@ def test_gang_block_fit_edges_equal_plain(cuda, seed, N, U, n_blocks,
     assert ops == ["block_fit_kernel"], ops
 
 
+@pytest.mark.parametrize("seed,N,U,n_blocks,cluster", [
+    (3, 8192, 4, 128, c) for c in range(1, 17)] + [
+    (8, 3000, 4, 16383, 0), (9, 3000, 4, 16383, 8),
+    (10, 300, 60000, 64, 0), (11, 1, 4, 4, 0), (12, 700, 4, 16, 0),
+    (13, 1025, 5, 64, 8)])
+def test_fused_frag_equals_plain_and_standalone(cuda, seed, N, U, n_blocks,
+                                                cluster):
+    """The ``frag`` plane the block-fit launch writes: bytes equal to
+    ``_fabric_frag_plain`` on the launch's own cfit / whole, to the
+    standalone ``fabric_frag`` kernel on them and to the plain block fit's
+    ``frag``, at every cluster size at the [topology] shape (8,192 nodes
+    in 128 blocks), with row tiles (16,383 blocks) and two profile tiles
+    (60,000 profiles: written after the last), one node; on odd seeds no
+    block is whole and some block's frag is positive.  One kernel a call;
+    it counts as a fused ``fabric_frag`` launch, not as one of its
+    own."""
+    from test_torch_fixtures import block_fit_edge_case
+
+    c = _tensors(block_fit_edge_case(seed, N=N, U=U, R=3 + seed % 3,
+                                     n_blocks=n_blocks), cuda)
+    if N == 8192:
+        c["block_id"] = torch.arange(N, dtype=torch.int32,
+                                     device=cuda) // 64
+    args = (c["idle"], c["ready"], c["ntasks"], c["max_tasks"],
+            c["block_id"], c["prof_req"], c["prof_cnt"], c["eps"],
+            c["n_blocks"])
+    before = dict(kernels.LAUNCHES)
+    fused = kernels.FUSED["fabric_frag"]
+    got = kernels.gang_block_fit(*args, cluster=cluster)
+    assert kernels.LAUNCHES["fabric_frag"] == before["fabric_frag"]
+    assert kernels.FUSED["fabric_frag"] == fused + 1
+    want = kernels.gang_block_fit(*args, plain=True)
+    alone = kernels.fabric_frag(got[0], got[1], c["prof_cnt"])
+    torch.cuda.synchronize()
+    for g, w, what in zip(got, want, ("cfit", "whole", "score", "frag")):
+        _bits_equal(g, w, what)
+    _bits_equal(got[3], kernels._fabric_frag_plain(got[0], got[1],
+                                                   c["prof_cnt"]),
+                "frag vs fabric_frag plain")
+    _bits_equal(got[3], alone, "frag vs the standalone kernel")
+    if N > 1 and seed % 2:
+        assert not bool(got[1].any()) and bool((got[3] > 0).any())
+    ops = _device_ops(lambda: kernels.gang_block_fit(*args, cluster=cluster))
+    assert ops == ["block_fit_kernel"], ops
+
+
+@pytest.mark.parametrize("N", [1, 127, 3001, 16384])
+@pytest.mark.parametrize("R,U", [(1, 4), (2, 4), (3, 64), (5, 65),
+                                 (16, 130)])
+@pytest.mark.parametrize("zero_rows", ["first", "between", "last"])
+def test_frag_scores_edges_equal_plain(cuda, N, R, U, zero_rows):
+    """frag_scores at the kernel's edges (``frag_edge_case``): all-zero
+    profile rows first, between the live rows and last (skipped by the
+    kernel: the outputs equal those with the rows first), U up to and past
+    the 64-row staging chunk, R 1-16, 2N not a multiple of the 256-thread
+    CTA, overflow rows on odd R; inputs through ``stage_frag`` (one staged
+    buffer), outputs the rows of one [3, N] buffer, every byte equal to
+    the plain version."""
+    from test_torch_fixtures import frag_edge_case
+
+    from volcano_tpu_torch.ops import rebalance as treb
+
+    overflow = R % 2 == 1
+    names = ("idle", "alloc", "ready", "evictable", "prof_req", "eps")
+    c = frag_edge_case(R + N, N=N, U=U, R=R, zero_rows=zero_rows,
+                       overflow=overflow)
+    before = kernels.LAUNCHES["frag_scores"]
+    got = treb.frag_scores(*(c[k] for k in names), device=cuda)
+    assert kernels.LAUNCHES["frag_scores"] == before + 1
+    t = _tensors(c, cuda)
+    want = kernels.frag_scores(*(t[k] for k in names), plain=True)
+    torch.cuda.synchronize()
+    for g, w, what in zip(got, want, ("frag", "fit_now", "fit_freed")):
+        _bits_equal(g, w, what)
+    first = frag_edge_case(R + N, N=N, U=U, R=R, zero_rows="first",
+                           overflow=overflow)
+    tf = _tensors(first, cuda)
+    ref = kernels.frag_scores(*(tf[k] for k in names))
+    for g, w, what in zip(got, ref, ("frag", "fit_now", "fit_freed")):
+        _bits_equal(g, w, f"{what}: zero rows {zero_rows} vs first")
+    if N > 1000:
+        assert (int(got[1].max()) == 2 ** 31 - 1) == overflow
+
+
+def test_frag_scores_one_copy_each_way(cuda):
+    """One ``ops.rebalance.frag_scores`` call and its fetch at the
+    [rebalance] shape (16,384 padded nodes, R 2, a 4-row table with one
+    live row): one host-to-device copy, the kernel, one device-to-host
+    copy, and nothing else."""
+    from test_torch_fixtures import frag_edge_case
+
+    from volcano_tpu_torch.ops import rebalance as treb
+
+    c = frag_edge_case(0, N=16384, U=4, R=2, zero_rows="last")
+    c["prof_req"][1:] = 0.0
+    names = ("idle", "alloc", "ready", "evictable", "prof_req", "eps")
+
+    def call():
+        return treb.frag_scores(*(c[k] for k in names),
+                                device=cuda).packed.cpu()
+
+    ops = _device_ops(call)
+    kinds = [("HtoD" if "HtoD" in o else "DtoH" if "DtoH" in o else o)
+             for o in ops]
+    assert kinds == ["HtoD", "frag_scores_kernel", "DtoH"], ops
+
+
 def test_gang_block_fit_every_cluster_size_equals_plain(cuda):
     """The [topology] shape (8,192 nodes in 128 blocks of 64) at every
     cluster size the kernel takes, 1 to 16: all identical."""
@@ -629,8 +736,10 @@ def test_card_solve_with_node_bias_equals_plain_and_cpu(cuda, make, wave):
 
 def test_rebalance_and_topology_cycles_on_card_equal_cpu(cuda, monkeypatch):
     """The rebalance lane and the fabric hooks on the card (frag_scores,
-    gang_block_fit, fabric_frag, the biased what-if and live solves) equal
-    the CPU run cycle by cycle on the require-contiguous fabric."""
+    gang_block_fit with the fabric_frag plane its launch writes, the biased
+    what-if and live solves) equal the CPU run cycle by cycle on the
+    require-contiguous fabric, the two frag gauges included; the
+    standalone fabric_frag kernel is not launched on this path."""
     import itertools
 
     from test_torch_fixtures import mirror_state
@@ -638,15 +747,19 @@ def test_rebalance_and_topology_cycles_on_card_equal_cpu(cuda, monkeypatch):
     import volcano_tpu_torch.api.spec as spec
     from volcano_tpu_torch.cache import FakeBinder
     from volcano_tpu_torch.framework import REBALANCE_SCHEDULER_CONF
+    from volcano_tpu_torch.metrics import metrics
     from volcano_tpu_torch.scheduler import Scheduler
     from volcano_tpu_torch.sim import ClusterSimulator
     from volcano_tpu_torch.synth import fabric_cluster
 
     monkeypatch.setenv("VOLCANO_TPU_REBALANCE_DRAIN_CAP", "64")
+    gauges = (metrics.topology_frag_score, metrics.rebalance_frag_score)
 
     def run(device):
         spec._uid_counter = itertools.count(1)
         spec._ts_counter = itertools.count(1)
+        for g in gauges:
+            g.data.clear()
         store = fabric_cluster(binder=FakeBinder())
         sched = Scheduler(store, conf_str=REBALANCE_SCHEDULER_CONF,
                           device=device)
@@ -656,17 +769,21 @@ def test_rebalance_and_topology_cycles_on_card_equal_cpu(cuda, monkeypatch):
             sched.run_once()
             out.append((sorted(store.binder.binds.items()),
                         list(store.evictor.evicts), mirror_state(store),
-                        store.flight.last().rebalance))
+                        store.flight.last().rebalance,
+                        [dict(g.data) for g in gauges]))
             sim.step()
         return out
 
     kernels.reset_launches()
     card = run(None)
     launched = dict(kernels.LAUNCHES)
+    fused = dict(kernels.FUSED)
     assert card == run("cpu")
-    for k in ("frag_scores", "gang_block_fit", "fabric_frag",
-              "rank_candidates"):
+    for k in ("frag_scores", "gang_block_fit", "rank_candidates"):
         assert launched[k] > 0, launched
+    assert launched["fabric_frag"] == 0, launched
+    assert fused["fabric_frag"] == launched["gang_block_fit"], fused
+    assert card[0][4][0], card[0][4]
     assert sum(k.startswith("default/fabgang-")
                for k, _node in card[-1][0]) == 32
 

@@ -364,6 +364,48 @@ def frag_case(seed, N=300, U=8, R=3, overflow=False):
                 prof_req=req, eps=eps)
 
 
+def frag_edge_case(seed, N=300, U=8, R=3, zero_rows="between",
+                   overflow=False):
+    """``frag_scores``' inputs at the card kernel's edges, for any R from 1
+    to 16: all-zero profile rows placed ``first``, ``between`` the live
+    rows (every other row) or ``last``; live rows that leave some slots
+    unrequested (and one that requests only the last slot); U past the
+    kernel's 64-row staging chunk when asked; not-ready rows, empty idle
+    rows and zero-allocatable slots; with ``overflow``, a row of the table
+    requesting every slot just above eps and nodes whose counts over it
+    pass the int32 range."""
+    rng = np.random.RandomState(seed)
+    unit = np.array([1000.0, 1.0e9] + [1.0] * 14, np.float32)[:R]
+    alloc = (rng.randint(0, 65, (N, R)) * unit).astype(np.float32)
+    alloc[rng.rand(N, R) < 0.1] = 0.0
+    idle = np.floor(alloc * rng.uniform(0.0, 1.0, (N, R)) / unit * 4) \
+        * unit / 4
+    idle = idle.astype(np.float32)
+    idle[rng.rand(N) < 0.1] = 0.0
+    ev = (rng.randint(0, 9, (N, R)) * unit).astype(np.float32)
+    ready = rng.rand(N) > 0.15
+    eps = (unit * 0.01).astype(np.float32)
+    rows = np.arange(U)
+    n_live = max(1, U // 2)
+    live = {"first": rows[U - n_live:], "last": rows[:n_live],
+            "between": rows[1::2][:n_live] if U > 1 else rows}[zero_rows]
+    req = np.zeros((U, R), np.float32)
+    for u in live:
+        want = rng.rand(R) < 0.7
+        want[rng.randint(R)] = True
+        req[u] = np.where(want, rng.randint(1, 9, R) * unit, 0.0)
+    if len(live) > 1:
+        req[live[-1]] = 0.0
+        req[live[-1], R - 1] = 2.0 * unit[R - 1]
+    if overflow:
+        req[live[0]] = 2.0 * eps
+        big = rng.choice(N, min(N, 5), replace=False)
+        idle[big] = req[live[0]] * np.float32(2.0 ** 33)
+        alloc[big] = idle[big]
+    return dict(idle=idle, alloc=alloc, ready=ready, evictable=ev,
+                prof_req=req, eps=eps)
+
+
 def block_fit_case(seed, N=400, U=4, R=3, n_blocks=16):
     """Random planes for ``gang_block_fit``: block ids with -1 (blockless)
     rows, max_tasks > 0 on some nodes, not-ready nodes and all-zero

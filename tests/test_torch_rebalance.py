@@ -10,7 +10,12 @@
    ``frag`` must be bit-equal: both sides compute each slot's fraction
    with the same f32 operations and sum the R fractions from 0, left to
    right (XLA's CPU order for this short axis), then divide once -- no
-   tolerance is needed, and none is given.
+   tolerance is needed, and none is given.  Also on
+   ``test_torch_fixtures.frag_edge_case`` (R = 1..16, all-zero profile
+   rows first, between and last, U past the kernel's 64-row staging
+   chunk), the inputs going through ``kernels.stage_frag`` (one staged
+   buffer, unpacked byte for byte) and the outputs being the rows of one
+   [3, N] buffer (``FragScores.packed``).
 2. ``select_drain_set`` against the JAX function on 30 seeded inputs,
    half of them with budgets too small for the need (budget-blocked).
 3. Twin ``Scheduler.run_once()`` runs, port vs JAX, with
@@ -30,8 +35,9 @@ import itertools
 import jax
 import numpy as np
 import pytest
+import torch
 
-from test_torch_fixtures import frag_case, mirror_state
+from test_torch_fixtures import frag_case, frag_edge_case, mirror_state
 
 import volcano_tpu
 import volcano_tpu.api.spec as jax_spec
@@ -49,6 +55,7 @@ import volcano_tpu_torch.sim
 import volcano_tpu_torch.synth
 from volcano_tpu_torch.framework import REBALANCE_SCHEDULER_CONF
 from volcano_tpu_torch.metrics import metrics as port_metrics
+from volcano_tpu_torch.ops import kernels
 from volcano_tpu_torch.ops import rebalance as treb
 from volcano_tpu_torch.scheduler import Scheduler as PortScheduler
 
@@ -83,6 +90,81 @@ def test_frag_scores_cases_are_not_vacuous():
         frag += int((f > 0).sum())
         gain += int((freed > now).sum())
     assert frag > 100 and gain > 100
+
+
+FRAG_EDGES = [(R, zero_rows, U, R % 2 == 1)
+              for R, U in ((1, 4), (2, 8), (3, 70), (5, 4), (16, 130))
+              for zero_rows in ("first", "between", "last")]
+
+
+@pytest.mark.parametrize("R,zero_rows,U,overflow", FRAG_EDGES)
+def test_frag_scores_edges_plain_match_jax(R, zero_rows, U, overflow):
+    """The kernel's edges (``frag_edge_case``) through the port's entry
+    point (staged inputs, packed outputs): bytes equal to the JAX jit's,
+    and the same counts wherever the all-zero rows sit."""
+    c = frag_edge_case(R, N=257, U=U, R=R, zero_rows=zero_rows,
+                       overflow=overflow)
+    args = (c["idle"], c["alloc"], c["ready"], c["evictable"],
+            c["prof_req"], c["eps"])
+    want = [np.asarray(a) for a in jax.device_get(jreb.frag_scores(*args))]
+    got = [t.numpy() for t in treb.frag_scores(*args, device="cpu")]
+    for w, g in zip(want, got):
+        assert w.dtype == g.dtype and w.tobytes() == g.tobytes()
+    assert (int(got[1].max()) == 2 ** 31 - 1) == overflow
+    first = [t.numpy() for t in treb.frag_scores(
+        *args[:4], frag_edge_case(R, N=257, U=U, R=R, zero_rows="first",
+                                  overflow=overflow)["prof_req"],
+        args[5], device="cpu")]
+    for a, b in zip(got, first):
+        assert a.tobytes() == b.tobytes()
+
+
+@pytest.mark.parametrize("N,U,R", [(1, 1, 1), (7, 4, 3), (300, 8, 5),
+                                   (129, 70, 16), (5, 0, 2)])
+def test_stage_frag_unpacks_to_the_inputs(N, U, R):
+    """``kernels.stage_frag``: six views of one buffer, each starting at a
+    multiple of 16 bytes from its start (R odd included), holding the
+    inputs byte for byte, in the kernel's dtypes and shapes."""
+    c = frag_edge_case(N + U + R, N=N, U=max(U, 1), R=R)
+    c["prof_req"] = c["prof_req"][:U]
+    names = ("idle", "alloc", "ready", "evictable", "prof_req", "eps")
+    views = kernels.stage_frag(*(c[k] for k in names), "cpu")
+    base = views[0].untyped_storage().data_ptr()
+    assert views[0].data_ptr() == base
+    dtypes = (torch.float32, torch.float32, torch.bool, torch.float32,
+              torch.float32, torch.float32)
+    ends = []
+    for k, v, dt in zip(names, views, dtypes):
+        want = np.ascontiguousarray(c[k], v.numpy().dtype)
+        assert v.dtype == dt and tuple(v.shape) == want.shape, k
+        assert v.is_contiguous(), k
+        assert v.untyped_storage().data_ptr() == base, k
+        off = v.data_ptr() - base
+        assert off % 16 == 0, (k, off)
+        assert v.numpy().tobytes() == want.tobytes(), k
+        ends.append((off, off + want.nbytes))
+    ends.sort()
+    assert all(a[1] <= b[0] for a, b in zip(ends, ends[1:]))
+
+
+def test_frag_scores_outputs_are_rows_of_one_buffer():
+    """``FragScores.packed``: the [3, N] int32 buffer whose rows the three
+    planes are (frag as its f32 bits), what the planner fetches in one
+    copy; planes from separate tensors are refused."""
+    c = frag_case(3, N=211, R=4)
+    fs = treb.frag_scores(c["idle"], c["alloc"], c["ready"],
+                          c["evictable"], c["prof_req"], c["eps"],
+                          device="cpu")
+    packed = fs.packed
+    assert packed.dtype == torch.int32 and tuple(packed.shape) == (3, 211)
+    assert packed.is_contiguous()
+    assert packed[0].view(torch.float32).data_ptr() == fs.frag.data_ptr()
+    assert torch.equal(packed[0], fs.frag.view(torch.int32))
+    assert torch.equal(packed[1], fs.fit_now)
+    assert torch.equal(packed[2], fs.fit_freed)
+    with pytest.raises(ValueError):
+        treb.FragScores(fs.frag.clone(), fs.fit_now.clone(),
+                        fs.fit_freed.clone()).packed
 
 
 # ------------------------------------------------------ select_drain_set

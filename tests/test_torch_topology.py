@@ -6,7 +6,10 @@
    not-ready nodes, padded profiles with count 0, R = 3..5).  ``cfit`` and
    ``whole`` must be identical; ``score`` and ``fabric_frag`` bit-equal --
    both sum integer-valued floats below 2^24, which is exact in any order,
-   and ``fabric_frag`` then divides once; no tolerance is given.
+   and ``fabric_frag`` then divides once; no tolerance is given.  The
+   port's ``gang_block_fit`` also returns ``frag`` (its launch writes
+   ``fabric_frag``'s plane): bit-equal to the JAX ``fabric_frag`` of the
+   JAX block fit's ``cfit`` / ``whole``, on the same cases.
 2. ``fabric_planes`` on a ``fabric_cluster`` mirror (coordinates, block
    ids, block count, the interners) and ``has_fabric``; ``select_block``
    and ``contig_bias`` on seeded planes and at their edges.
@@ -105,7 +108,7 @@ def test_block_fit_cases_are_not_vacuous():
     for seed in range(30):
         c = block_fit_case(seed, N=150 + seed, R=3 + seed % 3,
                            n_blocks=8 * (1 + seed % 3))
-        cfit, w, _score = (t.numpy() for t in ttopo.gang_block_fit(
+        cfit, w, _score, _frag = (t.numpy() for t in ttopo.gang_block_fit(
             c["idle"], c["ready"], c["ntasks"], c["max_tasks"],
             c["block_id"], c["prof_req"], c["prof_cnt"], c["eps"],
             n_blocks=c["n_blocks"], device="cpu"))
@@ -115,6 +118,37 @@ def test_block_fit_cases_are_not_vacuous():
         capped += int(((c["max_tasks"] > 0)
                        & (c["max_tasks"] <= c["ntasks"])).sum())
     assert whole > 10 and partial > 10 and capped > 10
+
+
+def _frag_cases():
+    return ([(seed, 150 + seed, 3 + seed % 3, 8 * (1 + seed % 3), False)
+             for seed in range(30)]
+            + [(seed, N, 3 + seed % 3, n_blocks, True) for seed, N, n_blocks
+               in ((0, 1, 4), (1, 31, 4), (2, 300, 16), (3, 1025, 16),
+                   (4, 2049, 64), (5, 700, 8), (6, 4096, 32),
+                   (7, 333, 128))])
+
+
+@pytest.mark.parametrize("seed,N,R,n_blocks,edge", _frag_cases())
+def test_block_fit_frag_plain_matches_jax_fabric_frag(seed, N, R, n_blocks,
+                                                       edge):
+    """The block fit's ``frag`` (the plain version of what its launch
+    writes) against the JAX ``fabric_frag`` of the JAX block fit's cfit
+    and whole, bytes compared (+0.0 and -0.0 told apart), on every case of
+    the two tests above."""
+    from test_torch_fixtures import block_fit_edge_case
+
+    make = block_fit_edge_case if edge else block_fit_case
+    c = make(seed, N=N, R=R, n_blocks=n_blocks)
+    args = (c["idle"], c["ready"], c["ntasks"], c["max_tasks"],
+            c["block_id"], c["prof_req"], c["prof_cnt"], c["eps"])
+    jf = jtopo.gang_block_fit(*args, n_blocks=n_blocks)
+    want = np.asarray(jax.device_get(
+        jtopo.fabric_frag(jf.cfit, jf.whole, c["prof_cnt"])))
+    got = ttopo.gang_block_fit(*args, n_blocks=n_blocks, device="cpu")
+    assert got._fields[-1] == "frag"
+    frag = got.frag.numpy()
+    assert want.dtype == frag.dtype and want.tobytes() == frag.tobytes()
 
 
 # ---------------------------------------------------------- mirror planes
@@ -247,6 +281,40 @@ def test_twin_require_contiguous_defrag(fabric_env):
     assert last["ledger"][0] == 1 and len(last["restored"]) == 2
     assert last["series"][PLACEMENTS][(("outcome", "contiguous"),)] == 1.0
     assert sum(k.startswith("default/filler-") for k in last["binds"]) == 2
+
+
+@pytest.mark.parametrize("topology", ["require-contiguous",
+                                      "prefer-contiguous"])
+def test_twin_frag_gauges_equal(fabric_env, topology):
+    """``volcano_topology_frag_score`` (read from the block fit's ``frag``
+    in the port, from a ``fabric_frag`` call in the JAX package) and
+    ``volcano_rebalance_frag_score`` after every cycle: equal in the two
+    packages, and set on the require-contiguous fabric."""
+    from volcano_tpu.metrics import metrics as jax_metrics
+
+    from volcano_tpu_torch.metrics import metrics as port_metrics
+
+    seen = {}
+
+    def gauges(pkg):
+        m = jax_metrics if pkg is volcano_tpu else port_metrics
+        return m.topology_frag_score, m.rebalance_frag_score
+
+    def setup(pkg, store, sched, sim):
+        for g in gauges(pkg):
+            g.data.clear()
+        seen[pkg] = []
+
+    def churn(pkg, store, rng):
+        seen[pkg].append(tuple(dict(g.data) for g in gauges(pkg)))
+
+    args = (fabric(topology=topology), REBALANCE_SCHEDULER_CONF, 2, 4,
+            setup, churn)
+    assert_twins(rebalance_twin(volcano_tpu, *args),
+                 rebalance_twin(volcano_tpu_torch, *args))
+    assert seen[volcano_tpu] == seen[volcano_tpu_torch]
+    if topology == "require-contiguous":
+        assert seen[volcano_tpu_torch][0][0], seen
 
 
 def test_twin_prefer_contiguous_binds_first_cycle(fabric_env):

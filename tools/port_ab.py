@@ -61,7 +61,22 @@ built from its own sources into its own build directory.  ``--phase``
   ``run_once()``, each timing the host wall of
   ``DeviceSnapshot.node_planes`` (no synchronisation: what the cycle's
   host pays), and one more round with that call traced (its device
-  operations).
+  operations);
+- ``frag``: the rebalance planner's two kernels on captured inputs --
+  ``frag_scores`` from the first plan of ``[rebalance]``
+  (``chip_smoke.rebalance_store(5,000)``, its set-up cycle, the 2,500-task
+  gang: 16,384 padded nodes, R 2, a 4-row profile table) and
+  ``gang_block_fit`` from the ``[topology]`` cycle 0 -- each checked
+  against its plain version and timed by ``chip_smoke.replay_kernels``;
+  one ``ops.rebalance.frag_scores`` call from the captured planes as
+  numpy, with the fetch of its three planes as the tree's planner fetches
+  them: the host wall of ``--reps`` (5) x 10 calls (median), and one
+  call's device operations and synchronising calls; then one
+  ``_plan_rebalance`` call with a topology constraint traced
+  (``chip_smoke.plan_trace``).  The helpers (``sync_ops``,
+  ``plan_trace``) come from the ``chip_smoke.py`` beside this tool, run
+  with the tree's package, so a parent tree without them is measured the
+  same way.  ``--caps FILE`` as for ``kernels`` (another file).
 
 A traced call reports the device time and launch count summed per CUDA
 function (every device event, named as the profiler names it), the card's
@@ -82,7 +97,7 @@ import time
 from pathlib import Path
 
 PHASES = ("solve", "cold", "shortlist", "seq", "seq-north-star",
-          "seq-trace", "victim", "kernels", "delta")
+          "seq-trace", "victim", "kernels", "delta", "frag")
 
 
 def _trace(fn) -> dict:
@@ -603,16 +618,7 @@ def phase_kernels(cs, opts) -> dict:
 
     from volcano_tpu_torch.ops import kernels
 
-    path = Path(opts.caps) if opts.caps else None
-    if path is not None and path.exists():
-        # Written by this tool in the same call: trusted pickles.
-        caps = {k: _to(v, "cuda") for k, v in torch.load(
-            path, weights_only=False).items()}
-    else:
-        caps = _capture_kernels(cs)
-        if path is not None:
-            path.parent.mkdir(parents=True, exist_ok=True)
-            torch.save({k: _to(v, "cpu") for k, v in caps.items()}, path)
+    caps = _caps(opts, lambda: _capture_kernels(cs))
     out = {}
     misses = {k: caps.pop(k) for k in list(caps) if k.startswith("miss:")}
     for key, cap in caps.items():
@@ -729,11 +735,141 @@ def phase_delta(cs, opts) -> dict:
     return out
 
 
+# ------------------------------------------- the rebalance planner's kernels
+
+def _tool_chip_smoke():
+    """The ``chip_smoke.py`` beside this tool, loaded as a module of its
+    own: it imports the package only inside its functions, so they run
+    the tree's code."""
+    import importlib.util
+
+    path = Path(__file__).resolve().parent.parent / "chip_smoke.py"
+    spec = importlib.util.spec_from_file_location("chip_smoke_tool", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def _capture_frag(cs) -> dict:
+    """The first ``frag_scores`` launch of the ``[rebalance]`` plan cycle
+    and the first ``gang_block_fit`` launch of the ``[topology]`` cycle
+    0."""
+    import os
+
+    from volcano_tpu_torch.cache import FakeBinder
+    from volcano_tpu_torch.framework import REBALANCE_SCHEDULER_CONF
+    from volcano_tpu_torch.ops import kernels
+    from volcano_tpu_torch.scheduler import Scheduler
+    from volcano_tpu_torch.sim import ClusterSimulator
+    from volcano_tpu_torch.synth import fabric_cluster
+
+    conf = REBALANCE_SCHEDULER_CONF
+    os.environ["VOLCANO_TPU_REBALANCE_DRAIN_CAP"] = "5000"
+    try:
+        store = cs.rebalance_store(5000)
+        sched = Scheduler(store, conf_str=conf)
+        sim = ClusterSimulator(store, grace_steps=2)
+        sched.run_once()
+        sim.step()
+        cs.add_bench_gang(store, 2500)
+        kernels.CAPTURE = {}
+        for _ in range(4):
+            sched.run_once()
+            sim.step()
+            if "frag_scores" in kernels.CAPTURE:
+                break
+        reb, kernels.CAPTURE = kernels.CAPTURE, None
+        store.close()
+    finally:
+        os.environ.pop("VOLCANO_TPU_REBALANCE_DRAIN_CAP", None)
+    kernels.CAPTURE = {}
+    store = fabric_cluster(racks=16, slices_per_rack=8, nodes_per_slice=64,
+                           gang_tasks=128, topology="require-contiguous",
+                           binder=FakeBinder())
+    Scheduler(store, conf_str=conf).run_once()
+    topo, kernels.CAPTURE = kernels.CAPTURE, None
+    store.close()
+    for key, got in (("frag_scores", reb), ("gang_block_fit", topo)):
+        if key not in got:
+            raise AssertionError(f"[ab:frag] no {key} launch captured")
+    return {"frag_scores": reb["frag_scores"],
+            "gang_block_fit": topo["gang_block_fit"]}
+
+
+def _caps(opts, capture) -> dict:
+    """Captured inputs: read from ``--caps`` when the file exists (written
+    by this tool in the same call: trusted pickles), else captured and,
+    with ``--caps``, written there."""
+    import torch
+
+    path = Path(opts.caps) if opts.caps else None
+    if path is not None and path.exists():
+        return {k: _to(v, "cuda") for k, v in torch.load(
+            path, weights_only=False).items()}
+    caps = capture()
+    if path is not None:
+        path.parent.mkdir(parents=True, exist_ok=True)
+        torch.save({k: _to(v, "cpu") for k, v in caps.items()}, path)
+    return caps
+
+
+def phase_frag(cs, opts) -> dict:
+    import torch
+
+    from volcano_tpu_torch.ops import rebalance as treb
+
+    tool = _tool_chip_smoke()
+    caps = _caps(opts, lambda: _capture_frag(cs))
+    out = {}
+    for key, cap in caps.items():
+        row = cs.replay_kernels({key: cap}, {key: 1}, names=[key])[0]
+        out[key] = {k: row.get(k) for k in (
+            "ms", "plain_ms", "bound_ms", "bound_by", "max_abs_err",
+            "queued", "bytes", "ops")}
+        _log(opts.label, f"frag {key}: {row['ms']:.5f} ms (plain "
+             f"{row['plain_ms']:.4f}, bound {row['bound_ms']:.7f})")
+    fs = caps["frag_scores"]
+    out["frag_scores"]["shape"] = {
+        "N": int(fs["idle"].shape[0]), "R": int(fs["idle"].shape[1]),
+        "U": int(fs["prof_req"].shape[0]),
+        "live": int((fs["prof_req"] > fs["eps"]).any(dim=1).sum())}
+    planes = [fs[k].cpu().numpy() for k in (
+        "idle", "alloc", "ready", "evictable", "prof_req", "eps")]
+
+    def call():
+        got = treb.frag_scores(*planes, device="cuda")
+        if hasattr(type(got), "packed"):
+            return got.packed.cpu()
+        return torch.cat([got.frag.view(torch.int32), got.fit_now,
+                          got.fit_freed]).cpu()
+
+    call()
+    walls = []
+    for _ in range(opts.reps):
+        t0 = time.perf_counter()
+        for _ in range(10):
+            call()
+        walls.append((time.perf_counter() - t0) * 1e3 / 10)
+    _res, ops, syncs = tool.sync_ops(call)
+    out["frag_scores"]["call"] = {
+        "host_ms": walls, "median_host_ms": statistics.median(walls),
+        "device_ops": ops, "counts": tool.op_counts(ops), "syncs": syncs}
+    _log(opts.label, f"frag frag_scores call + fetch: host ms {walls}; "
+         f"device ops {ops}, {len(syncs)} syncs at {syncs}")
+    tr = tool.plan_trace()
+    out["plan_trace"] = {k: tr[k] for k in (
+        "counts", "syncs", "ops", "syncs_each_try")}
+    _log(opts.label, f"frag plan trace: {json.dumps(tr['counts'])}, "
+         f"{len(tr['syncs'])} syncs (each try {tr['syncs_each_try']}) at "
+         f"{tr['syncs']}")
+    return out
+
+
 RUN = {"solve": phase_solve, "cold": phase_cold,
        "shortlist": phase_shortlist, "seq": phase_seq,
        "seq-north-star": phase_seq_north_star, "seq-trace": phase_seq_trace,
        "victim": phase_victim, "kernels": phase_kernels,
-       "delta": phase_delta}
+       "delta": phase_delta, "frag": phase_frag}
 
 
 def main() -> int:

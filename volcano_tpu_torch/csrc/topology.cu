@@ -13,7 +13,10 @@
 //                0 on a node that is not ready -- an exact int32;
 //   cfit[b, u] = sum of cap over the nodes of block b;
 //   whole[b]   = cfit[b, u] >= cnt[u] for every u;
-//   score[b]   = sum over u of min(cfit[b, u], cnt[u]) in f32.
+//   score[b]   = sum over u of min(cfit[b, u], cnt[u]) in f32;
+//   frag[b]    = whole[b] ? 0 : score[b] / need, need = max(sum over u
+//                of f32 cnt[u], 1): JAX's fabric_frag of this cfit and
+//                whole, written by the same launch.
 //
 // The TPU program scatters with `.at[seg].add`.  Here it is one launch of
 // a thread-block cluster of C CTAs (`block_fit_kernel`; C from 1 to 16,
@@ -28,7 +31,9 @@
 //    warp in one block);
 // 2. `cluster.sync()`; CTA rank r reduces rows r, r + C, ... over all C
 //    CTAs' tables (distributed shared memory), one warp a row: it writes
-//    each row of `cfit` once and computes `whole` and `score` from it;
+//    each row of `cfit` once and computes `whole`, `score` and `frag`
+//    from it (`need` is summed once per CTA by thread 0 while the nodes
+//    are walked);
 // 3. a cluster barrier before any CTA zeroes its table again or exits, so
 //    no table is rewritten or released while another CTA still reads it
 //    (relaxed: it orders no memory, so it does not wait for the stores).
@@ -39,18 +44,28 @@
 // skipped.  Where Bp x U int32 does not fit one CTA's shared memory the
 // table is a tile of T rows x W profiles and steps 1-3 run once per tile
 // (profile tiles outermost, so a row's `whole` and `score` carry across
-// them in profile order).  Integer adds are exact in any order (int32
-// wraps alike on both sides); `score` adds its f32 terms left to right
-// over u.
+// them in profile order; `frag` is written after the last profile tile).
+// Integer adds are exact in any order (int32 wraps alike on both sides);
+// `score` adds its f32 terms left to right over u.
 //
-// fabric_frag, one thread per block: need = max(sum cnt, 1) and
+// `frag` is fabric_frag's output bit for bit: fabric_frag sums
+// min(f32 cfit, f32 cnt) left to right from +0.0, `score` f32(min(cfit,
+// cnt)) in the same order, and rounding to f32 is monotonic, so the two
+// minimums are the same f32 values and the sums are equal; `need` is
+// summed left to right from +0.0 as fabric_frag sums it.  So the
+// rebalance planner reads the stranded-block score from the block fit's
+// own fetch, with no upload, launch or fetch of its own.
+//
+// fabric_frag (`fabric_frag_kernel`, one thread per block) stays for a
+// caller that holds only cfit and whole: need = max(sum cnt, 1) and
 // frag[b] = whole[b] ? 0 : (sum over u of min(f32 cfit[b, u], cnt[u])) /
 // need, summed left to right.
 //
 // Bound: bytes -- gang_block_fit reads the [N, R] idle plane and four [N]
 // node planes (~28 bytes a node at R = 2; 8,192 nodes: ~0.23 MB) and
 // writes [B, U] counts; its ~U R divisions a node are far below the card's
-// rate.  fabric_frag reads and writes a few KB: launch latency dominates.
+// rate.  fabric_frag reads and writes a few KB: launch latency dominates,
+// which is why the block fit computes it in its launch.
 #include <cooperative_groups.h>
 
 #include "common.cuh"
@@ -137,13 +152,14 @@ __global__ void __launch_bounds__(kThreads, 1) block_fit_kernel(
     const float* idle, const uint8_t* ready, const int32_t* ntasks,
     const int32_t* max_tasks, const int32_t* block_id, const float* req,
     const int32_t* cnt, const float* eps, int N, int U, int R, int Bp, int T,
-    int W, int32_t* cfit, uint8_t* whole, float* score) {
+    int W, int32_t* cfit, uint8_t* whole, float* score, float* frag) {
   namespace cg = cooperative_groups;
   cg::cluster_group cluster = cg::this_cluster();
   extern __shared__ int32_t tab[];
   __shared__ float es[vtt::kMaxR];
   __shared__ float sreq[kReqSmem];
   __shared__ int32_t scnt[kCntSmem];
+  __shared__ float sneed;  // fabric_frag's divisor, max(sum cnt, 1)
   const int C = static_cast<int>(cluster.num_blocks());
   const int rank = static_cast<int>(cluster.block_rank());
   const int threads = blockDim.x;
@@ -179,6 +195,16 @@ __global__ void __launch_bounds__(kThreads, 1) block_fit_kernel(
         for (int i = threadIdx.x; i < w; i += threads) scnt[i] = cnt[u0 + i];
       }
       __syncthreads();
+      if (u0 == 0 && r0 == 0 && threadIdx.x == 0) {
+        // Left to right from +0.0, the staged counts where they are all
+        // staged; read after the cluster barrier below.
+        float need = 0.0f;
+        for (int u = 0; u < U; ++u) {
+          need = need + static_cast<float>(w == U && cnt_staged ? scnt[u]
+                                                                : cnt[u]);
+        }
+        sneed = fmaxf(need, 1.0f);
+      }
       float ev[kR];
 #pragma unroll
       for (int s = 0; s < kR; ++s) ev[s] = s < R ? es[s] : 0.0f;
@@ -255,6 +281,7 @@ __global__ void __launch_bounds__(kThreads, 1) block_fit_kernel(
         if (lane == 0) {
           whole[b] = ok ? 1 : 0;
           score[b] = sc;
+          if (u0 + w >= U) frag[b] = ok ? 0.0f : sc / sneed;
         }
       }
     }
@@ -271,7 +298,8 @@ cudaError_t launch_block_fit(int C, size_t smem, cudaStream_t st,
                              const int32_t* block_id, const float* req,
                              const int32_t* cnt, const float* eps, int N,
                              int U, int R, int Bp, int T, int W,
-                             int32_t* cfit, uint8_t* whole, float* score) {
+                             int32_t* cfit, uint8_t* whole, float* score,
+                             float* frag) {
   auto kernel = block_fit_kernel<kR, kThreads>;
   cudaError_t e = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kFitSmem);
@@ -303,7 +331,7 @@ cudaError_t launch_block_fit(int C, size_t smem, cudaStream_t st,
   cfg.numAttrs = 1;
   return cudaLaunchKernelEx(&cfg, kernel, idle, ready, ntasks, max_tasks,
                             block_id, req, cnt, eps, N, U, R, Bp, T, W, cfit,
-                            whole, score);
+                            whole, score, frag);
 }
 
 __global__ void __launch_bounds__(256) fabric_frag_kernel(
@@ -325,15 +353,15 @@ __global__ void __launch_bounds__(256) fabric_frag_kernel(
 
 }  // namespace
 
-// `cfit` is [Bp, U] int32 (every row written), `whole` / `score` [Bp];
-// `cluster` forces the cluster size (0: chosen by N).
+// `cfit` is [Bp, U] int32 (every row written), `whole` / `score` /
+// `frag` [Bp]; `cluster` forces the cluster size (0: chosen by N).
 extern "C" int vtt_gang_block_fit(const void* idle, const void* ready,
                                   const void* ntasks, const void* max_tasks,
                                   const void* block_id, const void* req,
                                   const void* cnt, const void* eps, int N,
                                   int U, int R, int Bp, int cluster,
                                   void* cfit, void* whole, void* score,
-                                  void* stream) {
+                                  void* frag, void* stream) {
   if (R > vtt::kMaxR || Bp < 1 || cluster < 0 || cluster > kMaxCluster) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
@@ -356,17 +384,18 @@ extern "C" int vtt_gang_block_fit(const void* idle, const void* ready,
   auto* f_cfit = static_cast<int32_t*>(cfit);
   auto* f_whole = static_cast<uint8_t*>(whole);
   auto* f_score = static_cast<float*>(score);
+  auto* f_frag = static_cast<float*>(frag);
   // Up to 4 slots: 1,024 threads with a node's idle row in 4 registers;
   // more: 512 threads with room for 16.
   const cudaError_t e =
       R <= 4 ? launch_block_fit<4, 1024>(cluster, smem, st, f_idle, f_ready,
                                          f_nt, f_mt, f_bid, f_req, f_cnt,
                                          f_eps, N, U, R, Bp, T, W, f_cfit,
-                                         f_whole, f_score)
+                                         f_whole, f_score, f_frag)
              : launch_block_fit<vtt::kMaxR, 512>(
                    cluster, smem, st, f_idle, f_ready, f_nt, f_mt, f_bid,
                    f_req, f_cnt, f_eps, N, U, R, Bp, T, W, f_cfit, f_whole,
-                   f_score);
+                   f_score, f_frag);
   if (e != cudaSuccess) return static_cast<int>(e);
   return static_cast<int>(cudaGetLastError());
 }

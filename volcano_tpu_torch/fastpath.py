@@ -34,9 +34,10 @@ scored by the ``frag_scores`` kernel, the drain set proven by a what-if
 solve in which the victims re-place too, committed through the same
 engine.
 
-Fabric topology (``ops/topology.py``, kernels ``gang_block_fit`` and
-``fabric_frag``): a ``require-contiguous`` gang that no fabric block can
-host whole sits the solve out (``_topology_pregate``, drop reason
+Fabric topology (``ops/topology.py``, kernel ``gang_block_fit``, whose
+launch also writes ``fabric_frag``'s plane): a ``require-contiguous``
+gang that no fabric block can host whole sits the solve out
+(``_topology_pregate``, drop reason
 ``topology-infeasible``) until a rebalance wave frees one; the solve's
 node-order bias steers a constrained gang onto its block
 (``_topo_node_bias``), and a scattered placement of a required gang is
@@ -1445,8 +1446,8 @@ class FastCycle:
         """Per-fabric-block whole-gang fit of job ``jrow``'s pending tasks
         (``ops/topology.gang_block_fit`` on the cycle's device, fetched in
         one copy), or None when the gang has nothing pending.  A dict with
-        the padded [Np] block-id plane, the per-block cfit / whole / score
-        (padding rows sliced off) and the profile counts."""
+        the padded [Np] block-id plane, the per-block cfit / whole / score /
+        frag (padding rows sliced off) and the profile counts."""
         from .ops import topology as topo
 
         m = self.m
@@ -1484,15 +1485,17 @@ class FastCycle:
         )
         packed = torch.cat([
             bf.cfit.reshape(-1), bf.whole.to(torch.int32),
-            bf.score.view(torch.int32),
+            bf.score.view(torch.int32), bf.frag.view(torch.int32),
         ]).cpu().numpy()
         cfit = packed[:Bp * Up].reshape(Bp, Up)
         whole = packed[Bp * Up:Bp * Up + Bp].astype(bool)
-        score = packed[Bp * Up + Bp:].view(F)
+        score = packed[Bp * Up + Bp:Bp * Up + 2 * Bp].view(F)
+        frag = packed[Bp * Up + 2 * Bp:].view(F)
         return {
             "block": bid, "n_blocks": n_blocks,
             "cfit": cfit[:n_blocks], "whole": whole[:n_blocks],
-            "score": score[:n_blocks], "prof_cnt": prof_cnt,
+            "score": score[:n_blocks], "frag": frag[:n_blocks],
+            "prof_cnt": prof_cnt,
         }
 
     def _topology_pregate(self, solve_jobs: List[int],
@@ -1737,12 +1740,10 @@ class FastCycle:
             )
             # One device -> host copy of the three planes.
             Nn = self.Nn
-            packed = torch.cat([
-                fs.frag.view(torch.int32), fs.fit_now, fs.fit_freed,
-            ]).cpu().numpy()
-            frag = packed[:Nn].view(F)
-            fit_now = packed[Np:Np + Nn]
-            fit_freed = packed[2 * Np:2 * Np + Nn]
+            packed = fs.packed.cpu().numpy()
+            frag = packed[0, :Nn].view(F)
+            fit_now = packed[1, :Nn]
+            fit_freed = packed[2, :Nn]
             alive = self.n_alive
             frag_mean = (float(frag[alive].mean())
                          if alive.any() else 0.0)
@@ -1754,13 +1755,11 @@ class FastCycle:
             # evenly across the fabric.  Outside the target block the gain
             # and frag signals are zeroed.
             if m.j_topo[jrow] and self._topo_active():
-                from .ops import topology as topo
-
                 tf = self._topo_block_fit(jrow)
                 if tf is not None:
-                    frag_b = topo.fabric_frag(
-                        tf["cfit"], tf["whole"], tf["prof_cnt"],
-                        device=self.device).cpu().numpy()
+                    # fabric_frag, written by the block fit's launch and
+                    # fetched with its planes.
+                    frag_b = tf["frag"]
                     metrics.topology_frag_score.set(
                         float(frag_b.mean()) if len(frag_b) else 0.0)
                     blk = tf["block"][:Nn]

@@ -161,8 +161,9 @@ TALLIES: dict = {}
 # Launches of another wrapper's kernel that also did this one's work:
 # ``static_planes``' counts the row-form ``coarse_shortlist`` launches that
 # computed the static planes themselves (``LAUNCHES["static_planes"]``
-# counts the planes' own launches).
-FUSED = {"static_planes": 0}
+# counts the planes' own launches), ``fabric_frag``'s the
+# ``gang_block_fit`` launches, each of which writes ``frag``.
+FUSED = {"static_planes": 0, "fabric_frag": 0}
 
 
 def reset_launches() -> None:
@@ -308,7 +309,7 @@ _SIGS = {
                           _P, _I, _I, _I, _P, _L, _P, _P, _P, _P, _P],
     "vtt_frag_scores": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _P, _P, _P, _P],
     "vtt_gang_block_fit": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
-                           _I, _P, _P, _P, _P],
+                           _I, _P, _P, _P, _P, _P],
     "vtt_fabric_frag": [_P, _P, _P, _I, _I, _P, _P],
     "vtt_scatter_cnt0": [_P, _P, _P, _I, _I, _I, _P, _P],
     "vtt_scatter_profile_tables": [_P, _P, _P, _P, _I, _I, _I, _P, _P, _P,
@@ -969,55 +970,73 @@ def scatter_rows(buf: torch.Tensor, rows: torch.Tensor, vals: torch.Tensor,
 
 
 SCATTER_MAX_PLANES = 8  # csrc/scatter_rows.cu kMaxPlanes
-_ALIGN = 16  # each plane's values start at a multiple of 16 bytes
+_ALIGN = 16  # each staged plane starts at a multiple of 16 bytes
+
+
+def plane_layout(nbytes) -> tuple:
+    """(offsets, total bytes) of planes of ``nbytes`` bytes staged one after
+    another in one buffer, each at the next multiple of 16 bytes."""
+    offs = []
+    end = 0
+    for n in nbytes:
+        end = -(-end // _ALIGN) * _ALIGN
+        offs.append(end)
+        end += int(n)
+    return tuple(offs), end
+
+
+def stage_planes(arrays, device) -> torch.Tensor:
+    """One uint8 buffer on ``device`` holding the numpy ``arrays`` at
+    ``plane_layout``'s offsets.  For the card the host packs it into pinned
+    memory (PyTorch's caching host allocator, which keeps a block until the
+    copies that read it are done) and copies it with one asynchronous copy;
+    on the CPU the packed buffer is the staged one."""
+    import numpy as np
+
+    device = torch.device(device)
+    arrays = [np.ascontiguousarray(a) for a in arrays]
+    offs, total = plane_layout([a.nbytes for a in arrays])
+    host = torch.empty(max(total, _ALIGN), dtype=torch.uint8,
+                       pin_memory=device.type == "cuda")
+    h = host.numpy()
+    for off, a in zip(offs, arrays):
+        h[off:off + a.nbytes] = a.reshape(-1).view(np.uint8)
+    if device.type == "cpu":
+        return host
+    return host.to(device, non_blocking=True)
+
+
+def staged_views(staged: torch.Tensor, specs) -> list:
+    """The planes of ``staged`` (``stage_planes``) as views, one per
+    ``(dtype, shape)`` of ``specs``, in order."""
+    sizes = [torch.Size(shape).numel() * dt.itemsize for dt, shape in specs]
+    offs, _ = plane_layout(sizes)
+    return [staged[off:off + n].view(dt).view(shape)
+            for off, n, (dt, shape) in zip(offs, sizes, specs)]
 
 
 def delta_layout(k: int, row_bytes) -> tuple:
     """(offsets, total bytes) of a staged node-table delta of ``k`` rows:
     the int32 row ids at 0, then each plane's ``k * row_bytes[p]`` value
     bytes at the next multiple of 16."""
-    offs = []
-    end = 4 * k
-    for rb in row_bytes:
-        end = -(-end // _ALIGN) * _ALIGN
-        offs.append(end)
-        end += k * int(rb)
-    return tuple(offs), end
+    offs, total = plane_layout([4 * k] + [k * int(rb) for rb in row_bytes])
+    return offs[1:], total
 
 
 def stage_delta(rows, vals, device) -> torch.Tensor:
     """One uint8 buffer on ``device`` holding a delta (``delta_layout``):
     ``rows`` [k] (unique node rows) and ``vals``, each plane's [k, *row]
-    values as numpy arrays.  For the card the host packs it into pinned
-    memory (PyTorch's caching host allocator, which keeps a block until
-    the copies that read it are done) and copies it with one asynchronous
-    copy; on the CPU the packed buffer is the staged one."""
+    values as numpy arrays, staged by ``stage_planes``."""
     import numpy as np
 
-    device = torch.device(device)
-    k = len(rows)
-    vals = [np.ascontiguousarray(v) for v in vals]
-    offs, total = delta_layout(k, [v.nbytes // max(1, k) for v in vals])
-    host = torch.empty(max(total, _ALIGN), dtype=torch.uint8,
-                       pin_memory=device.type == "cuda")
-    h = host.numpy()
-    h[:4 * k] = np.asarray(rows, np.int32).view(np.uint8)
-    for off, v in zip(offs, vals):
-        h[off:off + v.nbytes] = v.reshape(-1).view(np.uint8)
-    if device.type == "cpu":
-        return host
-    return host.to(device, non_blocking=True)
+    return stage_planes([np.asarray(rows, np.int32), *vals], device)
 
 
 def _delta_views(bufs, staged, k):
     """The staged delta's row ids and each plane's [k, *row] values, as
     views of ``staged``."""
-    offs, _ = delta_layout(k, [b[0].numel() * b.element_size()
-                               for b in bufs])
-    rows = staged[:4 * k].view(torch.int32)
-    vals = [staged[off:off + k * b[0].numel() * b.element_size()]
-            .view(b.dtype).view((k, *b.shape[1:]))
-            for off, b in zip(offs, bufs)]
+    rows, *vals = staged_views(staged, [(torch.int32, (k,))] + [
+        (b.dtype, (k, *b.shape[1:])) for b in bufs])
     return rows, vals
 
 
@@ -1792,15 +1811,41 @@ def _frag_plain(idle, alloc, ready, evictable, prof_req, eps):
     return frag, fit_now, fit_freed
 
 
+def stage_frag(idle, alloc, ready, evictable, prof_req, eps, device):
+    """``frag_scores``' six inputs, numpy, in one buffer on ``device``
+    (``stage_planes``: for the card one pinned buffer and one asynchronous
+    copy), returned as the six views ``frag_scores`` takes: ``idle`` /
+    ``alloc`` / ``evictable`` [N, R] f32, ``ready`` [N] bool, ``prof_req``
+    [U, R] f32, ``eps`` [R] f32."""
+    import numpy as np
+
+    f32 = torch.float32
+    arrays = [np.asarray(idle, np.float32), np.asarray(alloc, np.float32),
+              np.asarray(ready, np.bool_), np.asarray(evictable, np.float32),
+              np.asarray(prof_req, np.float32), np.asarray(eps, np.float32)]
+    dtypes = (f32, f32, torch.bool, f32, f32, f32)
+    return staged_views(stage_planes(arrays, device),
+                        [(dt, a.shape) for dt, a in zip(dtypes, arrays)])
+
+
+def _frag_rows(out: torch.Tensor):
+    """The [3, N] int32 output's rows: (frag as f32, fit_now, fit_freed)."""
+    return out[0].view(torch.float32), out[1], out[2]
+
+
 def frag_scores(idle, alloc, ready, evictable, prof_req, eps,
                 plain: bool = False):
     """Fragmentation planes of one starved gang (ops/rebalance.py:61
     ``frag_scores``): ``idle``/``alloc``/``evictable`` [N, R] f32,
     ``ready`` [N] bool, ``prof_req`` [U, R] f32 (all-zero rows inert),
-    ``eps`` [R] f32 -> ``(frag [N] f32, fit_now [N] int32, fit_freed [N]
-    int32)``."""
+    ``eps`` [R] f32 (each may be a view of one ``stage_frag`` buffer) ->
+    ``(frag [N] f32, fit_now [N] int32, fit_freed [N] int32)``, the rows
+    of one [3, N] int32 buffer (``frag`` as its f32 bits), so that one copy
+    fetches all three."""
     if not _on_card(plain, idle, alloc, prof_req):
-        return _frag_plain(idle, alloc, ready, evictable, prof_req, eps)
+        frag, now, freed = _frag_plain(idle, alloc, ready, evictable,
+                                       prof_req, eps)
+        return _frag_rows(torch.stack([frag.view(torch.int32), now, freed]))
     f32 = torch.float32
     a = dict(idle=_req(idle, f32, "idle"), alloc=_req(alloc, f32, "alloc"),
              ready=_req(ready, torch.bool, "ready"),
@@ -1816,17 +1861,14 @@ def frag_scores(idle, alloc, ready, evictable, prof_req, eps,
             or eps.shape != (R,)):
         raise ValueError("frag_scores: inconsistent input shapes")
     _capture("frag_scores", **a)
-    dev = idle.device
-    frag = torch.empty(N, dtype=f32, device=dev)
-    fit_now = torch.empty(N, dtype=torch.int32, device=dev)
-    fit_freed = torch.empty(N, dtype=torch.int32, device=dev)
+    out = torch.empty((3, N), dtype=torch.int32, device=idle.device)
     rc = load().vtt_frag_scores(
         _ptr(a["idle"]), _ptr(a["alloc"]), _ptr(a["ready"]),
         _ptr(a["evictable"]), _ptr(a["prof_req"]), _ptr(a["eps"]), N, U, R,
-        _ptr(frag), _ptr(fit_now), _ptr(fit_freed), _stream())
+        _ptr(out[0]), _ptr(out[1]), _ptr(out[2]), _stream())
     _check(rc, "frag_scores")
     LAUNCHES["frag_scores"] += 1
-    return frag, fit_now, fit_freed
+    return _frag_rows(out)
 
 
 # --------------------------------------------- gang_block_fit, fabric_frag
@@ -1861,7 +1903,7 @@ def _block_fit_plain(idle, ready, ntasks, max_tasks, block_id, prof_req,
     score = torch.zeros(n_blocks, dtype=torch.float32, device=idle.device)
     for u in range(part.shape[1]):
         score = score + part[:, u]
-    return cfit, whole, score
+    return cfit, whole, score, _fabric_frag_plain(cfit, whole, cnt)
 
 
 def gang_block_fit(idle, ready, ntasks, max_tasks, block_id, prof_req,
@@ -1872,7 +1914,10 @@ def gang_block_fit(idle, ready, ntasks, max_tasks, block_id, prof_req,
     ``ntasks``/``max_tasks``/``block_id`` [N] int32 (block -1: blockless),
     ``prof_req`` [U, R] f32, ``prof_cnt`` [U] int32, ``eps`` [R] f32, over
     ``n_blocks`` block rows -> ``(cfit [n_blocks, U] int32, whole
-    [n_blocks] bool, score [n_blocks] f32)``.
+    [n_blocks] bool, score [n_blocks] f32, frag [n_blocks] f32)``, ``frag``
+    being ``fabric_frag(cfit, whole, prof_cnt)`` bit for bit (the JAX
+    package computes it with a jit of its own; here the same launch
+    writes it, ``FUSED["fabric_frag"]`` counting those launches).
 
     On the card: one launch of one thread-block cluster, which writes every
     output once.  ``cluster`` forces its size (1-16; 0, the default: chosen
@@ -1907,14 +1952,16 @@ def gang_block_fit(idle, ready, ntasks, max_tasks, block_id, prof_req,
     cfit = torch.empty((B, U), dtype=i32, device=dev)
     whole = torch.empty(B, dtype=torch.bool, device=dev)
     score = torch.empty(B, dtype=f32, device=dev)
+    frag = torch.empty(B, dtype=f32, device=dev)
     rc = load().vtt_gang_block_fit(
         _ptr(a["idle"]), _ptr(a["ready"]), _ptr(a["ntasks"]),
         _ptr(a["max_tasks"]), _ptr(a["block_id"]), _ptr(a["prof_req"]),
         _ptr(a["prof_cnt"]), _ptr(a["eps"]), N, U, R, B, int(cluster),
-        _ptr(cfit), _ptr(whole), _ptr(score), _stream())
+        _ptr(cfit), _ptr(whole), _ptr(score), _ptr(frag), _stream())
     _check(rc, "gang_block_fit")
     LAUNCHES["gang_block_fit"] += 1
-    return cfit, whole, score
+    FUSED["fabric_frag"] += 1
+    return cfit, whole, score, frag
 
 
 def _fabric_frag_plain(cfit, whole, prof_cnt):
@@ -1934,7 +1981,9 @@ def fabric_frag(cfit, whole, prof_cnt, plain: bool = False):
     """Stranded-partial-block score (ops/topology.py:240 ``fabric_frag``):
     ``cfit`` [B, U] int32, ``whole`` [B] bool, ``prof_cnt`` [U] int32 ->
     ``[B]`` f32, 0 on a whole block, else sum_u min(cfit, cnt) / max(sum
-    cnt, 1)."""
+    cnt, 1).  For a caller that holds only ``cfit`` and ``whole``: the
+    rebalance planner reads ``gang_block_fit``'s ``frag``, which its launch
+    writes."""
     if not _on_card(plain, cfit, whole, prof_cnt):
         return _fabric_frag_plain(cfit, whole, prof_cnt)
     i32 = torch.int32

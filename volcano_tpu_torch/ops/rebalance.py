@@ -6,7 +6,8 @@ The counterpart of the JAX package's ``ops/rebalance.py``:
   ``csrc/frag_scores.cu``) over the node planes for one starved gang: per
   node a fragmentation score (idle-rich but unable to host any task of the
   gang's profiles), the gang tasks the node's idle holds now, and the gang
-  tasks it would hold after its migratable pods were drained.
+  tasks it would hold after its migratable pods were drained.  The inputs
+  go to the card in one staged copy, the three planes come back in one.
 - ``select_drain_set`` -- the deterministic host greedy over the fetched
   planes: cheapest-to-drain nodes first, per-PodGroup disruption budgets
   charged as nodes are taken, stopping once the freed capacity covers the
@@ -23,19 +24,31 @@ from typing import Dict, List, NamedTuple, Sequence, Tuple
 import numpy as np
 import torch
 
-from ..device import to_tensor
 from . import kernels
-
-F = np.float32
 
 
 class FragScores(NamedTuple):
     """Per-node planner vectors (tensors on the device they were computed
-    on)."""
+    on), the rows of one [3, N] int32 buffer (``packed``)."""
 
     frag: torch.Tensor       # [N] f32 fragmentation score in [0, 1]
     fit_now: torch.Tensor    # [N] i32 gang tasks the node's idle holds now
     fit_freed: torch.Tensor  # [N] i32 gang tasks after draining evictables
+
+    @property
+    def packed(self) -> torch.Tensor:
+        """The [3, N] int32 buffer whose rows the three planes are
+        (``frag`` as its f32 bits): one copy fetches all three."""
+        mid = self.fit_now
+        n = mid.shape[0]
+        if not (self.frag.untyped_storage().data_ptr()
+                == mid.untyped_storage().data_ptr()
+                == self.fit_freed.untyped_storage().data_ptr()
+                and self.frag.data_ptr() == mid.data_ptr() - 4 * n
+                and self.fit_freed.data_ptr() == mid.data_ptr() + 4 * n):
+            raise ValueError("FragScores: the planes are not the rows of "
+                             "one buffer")
+        return mid.as_strided((3, n), (n, 1), mid.storage_offset() - n)
 
 
 def frag_scores(idle, allocatable, ready, evictable, prof_req, eps, *,
@@ -45,8 +58,10 @@ def frag_scores(idle, allocatable, ready, evictable, prof_req, eps, *,
     ``evictable`` [N, R] (evictable = summed requests of the node's
     migratable Running pods), ``ready`` [N] bool, ``prof_req`` [U, R]
     per-profile init requests of the gang's pending tasks (all-zero rows
-    inert), ``eps`` [R].  The planes go to ``device`` and the kernel runs
-    there (its plain version on the CPU).
+    inert), ``eps`` [R].  The planes go to ``device`` in one buffer
+    (``kernels.stage_frag``: one pinned buffer and one asynchronous copy
+    for the card) and the kernel runs there (its plain version on the
+    CPU).
 
     - per (node, profile) fit count = min over requested slots of
       ``floor((plane + eps) / req)``, 0 when the profile requests nothing;
@@ -54,13 +69,9 @@ def frag_scores(idle, allocatable, ready, evictable, prof_req, eps, *,
     - ``frag`` = mean idle fraction over provisioned slots, zeroed on nodes
       that are not ready, hold no idle, or can already host a gang task.
     """
-    def t(a, dtype):
-        return to_tensor(np.asarray(a, dtype), device)
-
-    out = kernels.frag_scores(
-        t(idle, F), t(allocatable, F), t(ready, np.bool_), t(evictable, F),
-        t(prof_req, F), t(eps, F), plain=plain)
-    return FragScores(*out)
+    staged = kernels.stage_frag(idle, allocatable, ready, evictable,
+                                prof_req, eps, device)
+    return FragScores(*kernels.frag_scores(*staged, plain=plain))
 
 
 def select_drain_set(

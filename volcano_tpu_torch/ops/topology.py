@@ -17,8 +17,10 @@ The counterpart of the JAX package's ``ops/topology.py``:
   host it whole and its scattered placements are vetoed before commit; a
   ``prefer-contiguous`` gang gets ``contig_bias`` on its block's nodes,
   added to the solve's static node score.
-- **fabric defragmentation** -- ``fabric_frag`` (same source) scores
-  stranded partial blocks; the rebalance lane drains one target block for
+- **fabric defragmentation** -- ``fabric_frag`` scores stranded partial
+  blocks; ``gang_block_fit``'s launch writes it as its ``frag`` plane, and
+  the standalone kernel (same source) serves a caller that holds only
+  ``cfit`` and ``whole``.  The rebalance lane drains one target block for
   a constrained gang.
 
 ``VOLCANO_TPU_TOPOLOGY=0`` turns every hook off; so does a cluster without
@@ -125,11 +127,14 @@ def has_fabric(m) -> bool:
 
 class BlockFit(NamedTuple):
     """Per-block gang-fit planes (tensors on the device they were computed
-    on)."""
+    on).  The JAX ``BlockFit`` has the first three fields; ``frag`` is its
+    ``fabric_frag(cfit, whole, prof_cnt)``, written here by the same
+    launch."""
 
     cfit: torch.Tensor   # [B, U] i32 gang tasks of profile u the block holds
     whole: torch.Tensor  # [B] bool block can host the WHOLE gang
     score: torch.Tensor  # [B] f32 partial-fit score (sum of min(cfit, cnt))
+    frag: torch.Tensor   # [B] f32 stranded-partial-block score (fabric_frag)
 
 
 def gang_block_fit(idle, ready, ntasks, max_tasks, block_id, prof_req,
@@ -148,7 +153,9 @@ def gang_block_fit(idle, ready, ntasks, max_tasks, block_id, prof_req,
       slots when ``max_tasks > 0``;
     - ``cfit[b, u]`` = sum of the capacity over the block's nodes;
     - ``whole[b]`` = ``cfit[b, u] >= prof_cnt[u]`` for every profile;
-    - ``score[b]`` = sum over profiles of ``min(cfit[b, u], cnt[u])``.
+    - ``score[b]`` = sum over profiles of ``min(cfit[b, u], cnt[u])``;
+    - ``frag[b]`` = ``fabric_frag``: 0 on a whole block, else ``score[b] /
+      max(sum cnt, 1)``.
 
     Profiles are taken as independent, so ``whole`` is an upper bound; the
     post-solve topology gate is the exact enforcer."""
@@ -166,8 +173,9 @@ def fabric_frag(cfit, whole, prof_cnt, *, device,
                 plain: bool = False) -> torch.Tensor:
     """Stranded-partial-block score per block, in [0, 1] (the JAX
     ``fabric_frag``, ops/topology.py:240): ``(1 - whole[b]) * score[b] /
-    total_need``, from the numpy planes ``gang_block_fit`` fetched.  The
-    mean over blocks is the ``volcano_topology_frag_score`` gauge."""
+    total_need``, from numpy ``cfit`` / ``whole`` planes.  The mean over
+    blocks is the ``volcano_topology_frag_score`` gauge; the rebalance
+    planner reads it from ``gang_block_fit``'s ``frag``."""
     def t(a, dtype):
         return to_tensor(np.asarray(a, dtype), device)
 
