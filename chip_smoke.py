@@ -6,7 +6,9 @@ Run from the repository root on a machine with one CUDA card:
 
     python3 chip_smoke.py
 
-It builds the sixteen CUDA kernels of ``volcano_tpu_torch/csrc`` (fourteen
+(``python3 chip_smoke.py pipeline`` runs phase 8b alone, ``python3
+chip_smoke.py seq-trace`` the traced seq cycle of phase 21 alone.)  It
+builds the sixteen CUDA kernels of ``volcano_tpu_torch/csrc`` (fourteen
 sources, one nvcc each, started together; ``launch_floor.cu`` holds only an
 empty kernel, timed to give what one launch costs) and then runs these
 phases, each
@@ -56,6 +58,27 @@ of which raises (and the script exits non-zero) when a check fails:
    the same launch reading given planes, and the pair of launches it
    replaced: the planes equal to the plain version's, every output to the
    pair's);
+8b. pipeline: ``store.pipeline`` with ``async_bind`` (the solve on the
+   store's solve worker, its own thread and CUDA stream, committed the next
+   cycle behind the staleness guard; ``VOLCANO_TPU_FALLBACK=never`` is set
+   for the whole run).  At 1,000 x 10,000 a cold dispatch, an
+   ``update_node`` and a ``delete_pod`` during the overlap, two steady
+   cycles and a drain, on the card and on the CPU: binds, drops by reason,
+   solve ids and mirror states identical.  At the north star: the solve on
+   the worker against the calling thread, in turns, and the launch
+   counter's lock (``[pipeline:worker-ab]``); cycle 1 only dispatches,
+   cycle 2 commits -- its placements those of phase 6's cold cycle, the
+   solve's launches its launches -- then 5 steady cycles re-pending nodes
+   0-63, one traced with the solve it dispatched (device busy against wall,
+   idle share), an ``update_node`` of 100 nodes and a gang deleted during
+   the overlap (its rows dropped as ``deleted``), a drain; after every
+   cycle no node over capacity, no key bound twice, the binder, the mirror
+   and the pod records agreeing, ``host_reads`` 0 for every fetched solve;
+   after the drain every pod bound, gangs whole; per cycle the wall, the
+   fetch wait, lanes, ids and drops printed; the worker's captured
+   launches replayed against the plain versions; then a pipelined preempt
+   (``priority_tier_workload(2,000 workers, a 1,000-task serving gang)``)
+   card against CPU, ``victim_scores`` launched beside a worker solve;
 9. reclaim (BASELINE config 4): ``preempt_cluster(10,000 nodes, 4 fillers
    a node, 20,000 pending pods in gangs of 4)`` under the preempt + reclaim
    conf, ``ClusterSimulator(grace_steps=2)`` stepped after every cycle: a
@@ -146,8 +169,9 @@ of which raises (and the script exits non-zero) when a check fails:
 21. seq: the same under ``solver: seq``: ``seq_solve`` required, card
    against CPU, and the kernel against its plain version on the inputs of
    its first launch, timed as in 4; then a cold seq cycle on a fresh
-   store traced with ``torch.profiler`` (the card's idle share, from the
-   trace alone; a trace without the solve's two kernels fails the
+   store traced with ``torch.profiler`` in a process of its own
+   (``python3 chip_smoke.py seq-trace``: the card's idle share, from the
+   trace alone; three traces without the solve's two kernels fail the
    phase), the allocate lane, and the solve's launches timed by CUDA
    events around the library call;
 22. seq:north-star: the solve args of 2 through the sequential solve on
@@ -868,6 +892,7 @@ def _work(name, cap, outs):
 
 SLEEP_CYCLES = 100_000_000  # ~50 ms at the H100's clock
 SEQ_TRACE_TRIES = 3  # traces of the cold seq cycle before [seq:trace] fails
+SEQ_TRACE_TIMEOUT_S = 300  # the [seq:trace] process: start, build, 3 tries
 
 
 def _device_ms(fns) -> tuple:
@@ -1605,7 +1630,8 @@ def run_cycle(label, store, n_pods, steady=5, n_update=100, trace=False):
                                 else snap.delta_launches - chunks0),
                "plane_uploads": (0 if snap is None
                                  else snap.plane_uploads - uploads0),
-               "node_planes_host_ms": list(planes_ms), **inv}
+               "node_planes_host_ms": list(planes_ms),
+               "launches": {k: v for k, v in n.items() if v}, **inv}
         if planes_ops:
             rec["node_planes_device_ops"] = list(planes_ops)
         stats["cycles"].append(rec)
@@ -1718,6 +1744,537 @@ def run_cycle(label, store, n_pods, steady=5, n_update=100, trace=False):
                             "static_builds": dv.static_builds,
                             "last_blocks": list(dv.last_blocks)}
     return stats, records, sched
+
+
+# ------------------------------------------------ the pipelined cycle
+
+def pipeline_invariants(store, n_pods: int, final: bool = False,
+                        gone=()) -> dict:
+    """A pipelined cycle's state: every live pod Bound or Pending (a solve
+    may be in flight), each Bound pod on the binder's node and named so on
+    its record, no node over its allocatable or pod slots.  ``final``
+    (nothing in flight): every live pod bound, gangs whole, every PodGroup
+    Running; the binder holds exactly the live pods' binds and those of
+    ``gone`` (pods deleted after they were bound)."""
+    import numpy as np
+
+    m = store.mirror
+    Pn, Nn = m.n_pods, m.n_nodes
+    alive = m.p_alive[:Pn]
+    st = m.p_status[:Pn]
+    if int(alive.sum()) != n_pods:
+        raise AssertionError(f"{int(alive.sum())} live pods, not {n_pods}")
+    bound = alive & (st == ST_BOUND)
+    if (alive & ~bound & (st != 1)).any():
+        raise AssertionError("a live pod neither Bound nor Pending")
+    rows = np.flatnonzero(bound)
+    binds = store.binder.binds
+    for r in rows.tolist():
+        key = m.p_key[r]
+        if binds.get(key) != m.p_node_name[r]:
+            raise AssertionError(f"{key}: binder {binds.get(key)} != "
+                                 f"mirror {m.p_node_name[r]}")
+        if store.pods[m.p_uid[r]].node_name != m.p_node_name[r]:
+            raise AssertionError(f"{key}: record disagrees with mirror")
+    R = 2 + len(m.scalar_slots)
+    alloc = np.zeros((Nn, R), np.float64)
+    er, si, v = m.c_n_alloc.gather(m.node_csr_rows(np.arange(Nn)))
+    alloc[er, si] = v
+    use = np.zeros((Nn, R), np.float64)
+    er, si, v = m.c_req.gather(rows)
+    np.add.at(use, (m.p_node[rows][er].astype(np.int64), si), v)
+    if (use > alloc).any():
+        raise AssertionError("a node holds more than its allocatable")
+    cnt = np.bincount(m.p_node[rows], minlength=Nn)
+    mt = m.n_maxtasks[:Nn]
+    if ((mt > 0) & (cnt > mt)).any():
+        raise AssertionError("pod slots exceeded")
+    if final:
+        if len(rows) != n_pods:
+            raise AssertionError(f"{len(rows)} of {n_pods} pods bound")
+        if set(binds) != {m.p_key[r] for r in rows.tolist()} | set(gone):
+            raise AssertionError("the binder holds other binds")
+        Jn = len(m.j_uid)
+        per_job = np.bincount(m.p_job[rows], minlength=Jn)
+        if ((per_job > 0) & (per_job < m.j_minav[:Jn])).any():
+            raise AssertionError("a gang is bound below min_available")
+        phases = {pg.status.phase for pg in store.pod_groups.values()}
+        if phases != {"Running"}:
+            raise AssertionError(f"PodGroup phases {phases}")
+    return {"bound": int(len(rows)), "pending": int(n_pods - len(rows))}
+
+
+class _Fetches:
+    """Wraps ``pipeline.InflightSolve.fetch`` while active: each fetched
+    solve's id, ``host_reads``, syncs and launches (the worker's own)."""
+
+    def __init__(self):
+        self.seen = []
+
+    def __enter__(self):
+        from volcano_tpu_torch import pipeline as pl
+
+        self.real = real = pl.InflightSolve.fetch
+        seen = self.seen
+
+        def fetch(inflight):
+            out = real(inflight)
+            tp = inflight.twophase
+            seen.append({"solve_id": inflight.solve_id,
+                         "host_reads": tp.get("host_reads"),
+                         "syncs": tp.get("syncs"),
+                         "devincr": tp.get("devincr"),
+                         "launches": dict(inflight.launches)})
+            return out
+
+        pl.InflightSolve.fetch = fetch
+        return self
+
+    def __exit__(self, *exc):
+        from volcano_tpu_torch import pipeline as pl
+
+        pl.InflightSolve.fetch = self.real
+        return False
+
+
+def pipelined_run(label, store, device, n_pods, script, log_cycles=True):
+    """``store`` (``pipeline`` and ``async_bind`` on) through the deployed
+    conf: for each ``(kind, before, traced)`` of ``script``, ``before(store)``
+    (a mutation, the feed) then one ``run_once()``, ``flush_binds()`` and
+    ``pipeline_invariants``; with ``traced`` the cycle and the solve it
+    dispatched (until the worker is idle) run under ``profile_device``.  Per-cycle records: wall, fetch wait, lanes, ids,
+    drops, binds, mirror state; the fetched solves; ``host_reads`` must be
+    0 after every solve, and no key may be bound twice in one cycle."""
+    import torch
+
+    from volcano_tpu_torch.framework import DEPLOYED_SCHEDULER_CONF
+    from volcano_tpu_torch.scheduler import Scheduler
+
+    store.pipeline = True
+    store.async_bind = True
+    sched = Scheduler(store, conf_str=DEPLOYED_SCHEDULER_CONF, device=device)
+    on_card = sched.device.type == "cuda"
+    records, prof = [], None
+    with _Fetches() as fetches:
+        for kind, before, traced in script:
+            gone = before(store) if before is not None else None
+            ch0 = len(store.binder.channel)
+            nf = len(fetches.seen)
+            if traced:
+                # The window: the cycle, then the solve it dispatched,
+                # until the worker is idle (the device work of one
+                # pipelined period).
+                cyc = [None]
+
+                def period():
+                    t0 = time.perf_counter()
+                    sched.run_once()
+                    if on_card:
+                        torch.cuda.current_stream().synchronize()
+                    cyc[0] = time.perf_counter() - t0
+                    if not store._solve_worker.idle(600):
+                        raise AssertionError(f"[{label}] worker busy")
+
+                prof = profile_device(period)
+                wall = cyc[0]
+            else:
+                t0 = time.perf_counter()
+                sched.run_once()
+                if on_card:
+                    torch.cuda.current_stream().synchronize()
+                wall = time.perf_counter() - t0
+            if not store.flush_binds(120):
+                raise AssertionError(f"[{label}] binds not flushed")
+            rec = store.flight.last()
+            new = store.binder.channel[ch0:]
+            if len(new) != len(set(new)) or len(new) != rec.pods_bound:
+                raise AssertionError(
+                    f"[{label}] {kind}: {len(new)} binds ({len(set(new))} "
+                    f"keys) for {rec.pods_bound} committed rows")
+            n_pods -= len(gone or ())
+            inv = pipeline_invariants(store, n_pods)
+            solves = fetches.seen[nf:]
+            if any(f["host_reads"] != 0 for f in solves):
+                raise AssertionError(f"[{label}] {kind}: a solve read "
+                                     f"device planes back: {solves}")
+            r = {"kind": kind, "wall_s": wall,
+                 "inflight_fetch_wait_ms": rec.inflight_fetch_wait_ms,
+                 "lanes_ms": _lanes(store),
+                 "dispatched": rec.dispatched_solve_id,
+                 "committed": rec.committed_solve_id,
+                 "mut_at_dispatch": rec.mutation_seq_at_dispatch,
+                 "drops": dict(rec.drop_reasons),
+                 "bound_rows": rec.pods_bound, **inv,
+                 "solves": [{k: f[k] for k in ("solve_id", "host_reads",
+                                               "syncs")}
+                            for f in solves]}
+            if log_cycles:
+                _log(f"[{label}] {kind} cycle {json.dumps(r)}")
+            records.append((r, dict(store.binder.binds),
+                            _mirror_state(store)))
+    return records, fetches.seen, prof, sched
+
+
+def pipeline_preempt(workers=2000, serving=1000, max_cycles=24):
+    """A pipelined preempt: ``priority_tier_workload(workers, serving)``
+    under the preempt conf with ``store.pipeline``, grace 2, until the
+    serving gang is bound, on the card and on the CPU: every cycle's
+    binds, evictions and what-if outcome identical.  The plan's what-if
+    solve runs on the solve worker; ``victim_scores`` (a cooperative
+    launch) runs on the cycle thread's stream, and the launches made while
+    a worker solve was in flight are counted."""
+    import os
+
+    from volcano_tpu_torch.cache import ClusterStore, FakeBinder, FakeEvictor
+    from volcano_tpu_torch.ops import kernels
+    from volcano_tpu_torch.scheduler import Scheduler
+    from volcano_tpu_torch.sim import ClusterSimulator
+
+    saved = {k: os.environ.get(k) for k in ("VOLCANO_TPU_EVICT_DEVICE",
+                                            "VOLCANO_TPU_EVICT_CAP")}
+    os.environ["VOLCANO_TPU_EVICT_DEVICE"] = "1"
+    os.environ["VOLCANO_TPU_EVICT_CAP"] = str(workers)
+    real_vs = kernels.victim_scores
+    beside = {"launches": 0, "in_flight": 0}
+
+    def run(device):
+        store = ClusterStore(binder=FakeBinder(), evictor=FakeEvictor())
+        ClusterSimulator.priority_tier_workload(store, workers=workers,
+                                                serving_tasks=serving)
+        store.pipeline = True
+        sched = Scheduler(store, conf_str=CONF_PREEMPT_ONLY, device=device)
+        sim = ClusterSimulator(store, grace_steps=2)
+
+        def watched(*a, **kw):
+            w = store._solve_worker
+            beside["launches"] += 1
+            beside["in_flight"] += int(w is not None and not w.idle(0))
+            return real_vs(*a, **kw)
+
+        kernels.victim_scores = watched if device is None else real_vs
+        trace = []
+        try:
+            for _ in range(max_cycles):
+                t0 = time.perf_counter()
+                sched.run_once()
+                wall = time.perf_counter() - t0
+                rec = store.flight.last()
+                trace.append((dict(store.binder.binds),
+                              list(store.evictor.evicts),
+                              (rec.whatif or {}).get("outcome"),
+                              rec.dispatched_solve_id,
+                              rec.committed_solve_id, wall))
+                sim.step()
+                if sum(1 for p in store.pods.values()
+                       if p.name.startswith("serving-")
+                       and p.node_name) >= serving:
+                    break
+        finally:
+            kernels.victim_scores = real_vs
+        store.close()
+        return trace
+
+    try:
+        launched = kernels.LAUNCHES["victim_scores"]
+        card = run(None)
+        launched = kernels.LAUNCHES["victim_scores"] - launched
+        cpu = run("cpu")
+    finally:
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+    if len(card) != len(cpu):
+        raise AssertionError(f"[pipeline:preempt] {len(card)} cycles on the "
+                             f"card, {len(cpu)} on the CPU")
+    for i, (a, b) in enumerate(zip(card, cpu)):
+        if a[:5] != b[:5]:
+            raise AssertionError(f"[pipeline:preempt] cycle {i}: card and "
+                                 f"CPU differ")
+    outcomes = [t[2] for t in card]
+    if "committed" not in outcomes or launched < 1:
+        raise AssertionError(f"[pipeline:preempt] no committed plan "
+                             f"({outcomes}) or no victim_scores launch")
+    stats = {"cycles": len(card), "outcomes": outcomes,
+             "evictions": len(card[-1][1]),
+             "victim_scores_launches": launched,
+             "victim_scores_beside_worker_solve": beside["in_flight"],
+             "walls_s": [t[5] for t in card]}
+    _log(f"[pipeline:preempt] {workers} workers, a {serving}-task serving "
+         f"gang, pipelined: card == CPU over {len(card)} cycles; "
+         f"{json.dumps(stats)}")
+    return stats
+
+
+def worker_ab(store, reps=2) -> dict:
+    """What the solve worker costs: ``store``'s solve (``solve_args_from_
+    store``) on the calling thread and on the worker's thread and stream,
+    in turns (direct, worker, worker, direct) ``reps`` times, host clock
+    around each call and its packed result's fetch; the results must be
+    identical.  And the launch counter's lock: ``kernels.count_launch``
+    against the unlocked ``d[k] += 1`` it replaced, host microseconds a
+    call over 100,000 calls (counts reset after)."""
+    import torch
+
+    from volcano_tpu_torch import pipeline as pl
+    from volcano_tpu_torch.ops import kernels
+    from volcano_tpu_torch.ops.wave import solve_wave
+    from volcano_tpu_torch.synth import solve_args_from_store
+
+    args, _maps = solve_args_from_store(store, binpack=True, nodeorder=True)
+    dev = args[0].idle.device
+    # One untimed call each way first.
+    solve_wave(*args, device=dev)
+    pl.dispatch_solve(store, dev, args, pl.SOLVE_FIELDS).result()
+    torch.cuda.synchronize()
+    times = {"direct": [], "worker": []}
+    outs = {}
+    for _ in range(reps):
+        for kind in ("direct", "worker", "worker", "direct"):
+            t0 = time.perf_counter()
+            if kind == "direct":
+                out = pl._pack(solve_wave(*args, device=dev),
+                               pl.SOLVE_FIELDS).cpu().numpy()
+            else:
+                out = pl.dispatch_solve(store, dev, args,
+                                        pl.SOLVE_FIELDS).result()
+            times[kind].append((time.perf_counter() - t0) * 1e3)
+            if kind in outs and not (outs[kind] == out).all():
+                raise AssertionError(f"[pipeline:worker-ab] {kind} solves "
+                                     "differ")
+            outs[kind] = out
+    if not (outs["direct"] == outs["worker"]).all():
+        raise AssertionError("[pipeline:worker-ab] the worker's solve "
+                             "differs from the direct one")
+    n = 100000
+    d = {"x": 0}
+    t0 = time.perf_counter()
+    for _ in range(n):
+        d["x"] += 1
+    plain_us = (time.perf_counter() - t0) / n * 1e6
+    t0 = time.perf_counter()
+    for _ in range(n):
+        kernels.count_launch("scatter_rows")
+    lock_us = (time.perf_counter() - t0) / n * 1e6
+    kernels.reset_launches()
+    out = {"direct_ms": times["direct"], "worker_ms": times["worker"],
+           "direct_ms_median": statistics.median(times["direct"]),
+           "worker_ms_median": statistics.median(times["worker"]),
+           "count_launch_us": lock_us, "unlocked_increment_us": plain_us}
+    _log(f"[pipeline:worker-ab] north-star solve, host ms with its fetch: "
+         f"direct {out['direct_ms']}, worker {out['worker_ms']} (medians "
+         f"{out['direct_ms_median']:.3f} / {out['worker_ms_median']:.3f}); "
+         f"count_launch {lock_us:.4f} us a call against "
+         f"{plain_us:.4f} us unlocked")
+    return out
+
+
+def pipeline_phase(sync_binds=None, sync_launches=None, big=(10000, 100000),
+                   ref=(1000, 10000), preempt=None):
+    """The pipelined session (``store.pipeline`` with ``async_bind``).
+
+    Reference: at 1,000 x 10,000 the same pipelined script -- a cold
+    dispatch, one ``update_node`` and one ``delete_pod`` of a dispatched
+    pod during the overlap, two cycles re-pending the pods of nodes 0-7,
+    a drain cycle -- on the card and on the CPU: every cycle's binds,
+    drops by reason, ids and mirror state identical.
+
+    Full width: a fresh north-star store; cycle 1 only dispatches, cycle
+    2 commits (its placements equal the synchronous cold cycle's
+    ``sync_binds``, the solve's launches its ``sync_launches``; without
+    them the phase runs that synchronous cycle on a twin store), five
+    steady cycles re-pending the pods of nodes 0-63, one traced, then an
+    ``update_node`` of 100 nodes and a ``delete_pod`` of every pod of one
+    dispatched gang during the overlap, and a drain cycle: every pod
+    bound, gangs whole.  The worker's launches are captured and replayed
+    against the plain versions.  Returns (stats, replay rows)."""
+    import dataclasses
+
+    import numpy as np
+
+    from volcano_tpu_torch.ops import kernels
+
+    # -- reference: card against CPU at 1,000 x 10,000.
+    def ref_run(device):
+        store = _fresh_cluster(n_nodes=ref[0], n_pods=ref[1], gang_size=8,
+                               zones=16, seed=1)
+        feed = repend_feed(list(range(8)))
+
+        def overlap(store):
+            m = store.mirror
+            old = m.node_objs[7]
+            cpu = str(int(float(old.allocatable["cpu"]) * 1.5))
+            store.update_node(dataclasses.replace(
+                old, allocatable={**old.allocatable, "cpu": cpu},
+                capacity={**old.capacity, "cpu": cpu}))
+            row = int(store._inflight_solve.task_rows[0])
+            pod = store.pods[m.p_uid[row]]
+            store.delete_pod(pod)
+            return [pod]
+
+        def set_feed(store):
+            store.cycle_feed = feed
+
+        def drain(store):
+            store.cycle_feed = None
+
+        script = [("cold", None, False), ("overlap", overlap, False),
+                  ("steady", set_feed, False), ("steady", None, False),
+                  ("drain", drain, False)]
+        recs, solves, _p, _s = pipelined_run(
+            f"pipeline:ref:{'cpu' if device else 'card'}", store, device,
+            ref[1], script, log_cycles=device is None)
+        store.close()
+        return recs, solves
+
+    t0 = time.perf_counter()
+    card, card_solves = ref_run(None)
+    cpu, _ = ref_run("cpu")
+    for i, (a, b) in enumerate(zip(card, cpu)):
+        ra, rb = a[0], b[0]
+        for k in ("dispatched", "committed", "mut_at_dispatch", "drops",
+                  "bound_rows", "bound", "pending"):
+            if ra[k] != rb[k]:
+                raise AssertionError(f"[pipeline:ref] cycle {i} {k}: card "
+                                     f"{ra[k]} != CPU {rb[k]}")
+        if a[1] != b[1] or a[2] != b[2]:
+            raise AssertionError(f"[pipeline:ref] cycle {i}: binds or "
+                                 f"mirror differ card vs CPU")
+    if not card[1][0]["drops"].get("deleted"):
+        raise AssertionError("[pipeline:ref] the overlap delete dropped "
+                             "no row")
+    _log(f"[pipeline:ref] {ref[0]}x{ref[1]} pipelined script card == CPU: "
+         f"{len(card)} cycles, drops "
+         f"{[r[0]['drops'] for r in card]}, "
+         f"{time.perf_counter() - t0:.1f} s")
+
+    # -- the synchronous cold cycle, when the caller has none.
+    kw = dict(n_nodes=big[0], n_pods=big[1], gang_size=8, zones=16, seed=0)
+    if sync_binds is None:
+        from volcano_tpu_torch.framework import DEPLOYED_SCHEDULER_CONF
+        from volcano_tpu_torch.scheduler import Scheduler
+
+        twin = _fresh_cluster(**kw)
+        before = launch_counts()
+        Scheduler(twin, conf_str=DEPLOYED_SCHEDULER_CONF).run_once()
+        sync_launches = {k: v - before[k]
+                         for k, v in launch_counts().items()
+                         if v - before[k]}
+        sync_binds = dict(twin.binder.binds)
+        twin.close()
+        del twin
+
+    # -- full width.
+    store = _fresh_cluster(**kw)
+    ab = worker_ab(store)
+    n_pods = big[1]
+    feed = repend_feed(list(range(64)))
+    # Keys of deleted pods the binder had bound, and the deleted pods.
+    gone: list = []
+    deleted: list = []
+
+    def first_steady(store):
+        store.cycle_feed = feed
+
+    def overlap(store):
+        m = store.mirror
+        step = max(1, m.n_nodes // 100)
+        for row in range(0, step * 100, step):
+            old = m.node_objs[row]
+            cpu = str(int(float(old.allocatable["cpu"]) * 1.5))
+            store.update_node(dataclasses.replace(
+                old, allocatable={**old.allocatable, "cpu": cpu},
+                capacity={**old.capacity, "cpu": cpu}))
+        jrow = int(m.p_job[int(store._inflight_solve.task_rows[0])])
+        uid = m.j_uid[jrow]
+        pods = [p for p in list(store.pods.values())
+                if m.p_job[m.p_row[p.uid]] == jrow]
+        for p in pods:
+            if p.node_name is not None:
+                gone.append(f"{p.namespace}/{p.name}")
+            store.delete_pod(p)
+        store.delete_pod_group(uid)
+        deleted.extend(pods)
+        return pods
+
+    def drain(store):
+        store.cycle_feed = None
+
+    script = ([("cold:dispatch", None, False), ("cold:commit", None, False),
+               ("steady", first_steady, False)]
+              + [("steady", None, False)] * 4
+              + [("steady:traced", None, True),
+                 ("update+delete", overlap, False), ("drain", drain, False)])
+    kernels.CAPTURE = {}
+    kernels.reset_launches()
+    recs, solves, prof, _sched = pipelined_run(
+        "pipeline", store, None, n_pods, script)
+    launches = launch_counts()
+    caps, kernels.CAPTURE = kernels.CAPTURE, None
+    first, second = recs[0], recs[1]
+    if first[0]["bound_rows"] or first[1]:
+        raise AssertionError("[pipeline] cycle 1 bound pods")
+    if first[0]["dispatched"] is None or second[0]["committed"] != \
+            first[0]["dispatched"]:
+        raise AssertionError("[pipeline] cycle 2 did not commit cycle 1's "
+                             "dispatch")
+    if second[1] != sync_binds:
+        diff = sum(1 for k, v in sync_binds.items()
+                   if second[1].get(k) != v)
+        raise AssertionError(f"[pipeline] cycle 2's placements differ from "
+                             f"the synchronous cold cycle's ({diff} pods)")
+    cold = {k: v for k, v in solves[0]["launches"].items() if v}
+    sync_cold = {k: v for k, v in sync_launches.items() if v}
+    if cold != sync_cold:
+        raise AssertionError(f"[pipeline] the pipelined cold solve's "
+                             f"launches {cold} != the synchronous cold "
+                             f"cycle's {sync_cold}")
+    upd = recs[-2][0]
+    if not upd["drops"].get("deleted"):
+        raise AssertionError("[pipeline] the deleted gang dropped no row")
+    pipeline_invariants(store, n_pods - len(deleted), final=True, gone=gone)
+    missing = never_launched(launches, CYCLE_KERNELS)
+    if missing:
+        raise AssertionError(f"[pipeline] kernels never launched: {missing}")
+    # Steady cycles that fetched and committed the one before's solve.
+    steady = [r[0] for r in recs if r[0]["kind"] == "steady"
+              and r[0]["committed"] is not None]
+    stats = {
+        "worker_ab": ab,
+        "cycles": [r[0] for r in recs],
+        "launches": launches,
+        "cold_solve_launches": cold,
+        "steady_wall_s_median": statistics.median(r["wall_s"]
+                                                  for r in steady),
+        "steady_fetch_wait_ms_median": statistics.median(
+            r["inflight_fetch_wait_ms"] for r in steady),
+    }
+    if prof:
+        stats["traced"] = {
+            "busy_ms": prof["busy_ms"], "wall_ms": prof["wall_ms"],
+            "idle_share": 1 - prof["busy_ms"] / prof["wall_ms"],
+            "kernels_ms": prof["kernels_ms"]}
+        _log(f"[pipeline] traced steady cycle and the solve it dispatched "
+             f"(until the worker is idle): device busy "
+             f"{prof['busy_ms']:.3f} ms of {prof['wall_ms']:.3f} ms wall, "
+             f"device idle share "
+             f"{100.0 * (1 - prof['busy_ms'] / prof['wall_ms']):.2f}%, "
+             f"kernels(ms) {json.dumps(prof['kernels_ms'])}")
+    else:
+        _log("[pipeline] traced steady cycle: no device events in the "
+             "trace (idle share not measured)")
+    _log(f"[pipeline] steady cycles: median wall "
+         f"{stats['steady_wall_s_median']:.4f} s, median in-flight fetch "
+         f"wait {stats['steady_fetch_wait_ms_median']:.3f} ms; launches "
+         f"{json.dumps(launches)}; cold solve launches equal the "
+         f"synchronous cold cycle's; placements of cycle 2 equal the "
+         f"synchronous cold cycle's")
+    store.close()
+    del store, recs
+    rows = replay_kernels(caps, launches, reps=3, names=CYCLE_KERNELS)
+    stats["preempt"] = pipeline_preempt(**(preempt or {}))
+    return stats, rows
 
 
 def _mirror_state(store):
@@ -3273,6 +3830,94 @@ class _SeqTimedLib:
         return [e0.elapsed_time(e1) for e0, e1 in self.events]
 
 
+def seq_trace() -> dict:
+    """[seq:trace]: a cold seq cycle (``CONF_SEQ``) on a fresh config-2
+    store, traced with ``torch.profiler``: the allocate lane beside the
+    solve kernels' device time and the card's idle share.  Now and then
+    the profiler hands back a trace with no device events, or without the
+    solve's kernels, although the CUDA events saw them run: the cycle is
+    then traced again on a fresh store, at most SEQ_TRACE_TRIES times,
+    and the phase fails after the last.  Every attempt's cycle is held to
+    the same checks (object path, no error, the cycle invariants, a
+    ``seq_solve`` launch seen by CUDA events), and the busy time and idle
+    share come from a trace alone: a trace that lacks a kernel the events
+    saw launch is never filled in."""
+    from volcano_tpu_torch.ops import kernels
+    from volcano_tpu_torch.scheduler import Scheduler
+
+    for attempt in range(1, SEQ_TRACE_TRIES + 1):
+        store = _fresh_cluster(**CONFIG2)
+        sched = Scheduler(store, conf_str=CONF_SEQ)
+        timed = _SeqTimedLib(kernels.load())
+        load, kernels.load = kernels.load, lambda: timed
+        try:
+            prof = profile_device(sched.run_once)
+        finally:
+            kernels.load = load
+        rec = store.flight.last()
+        if rec.path != "object" or rec.error is not None:
+            raise AssertionError(f"[seq:trace] no traced object cycle: path "
+                                 f"{rec.path}, error {rec.error}")
+        cycle_invariants(store, CONFIG2["n_pods"])
+        store.close()
+        solve_ms = timed.device_ms()
+        if not solve_ms:
+            raise AssertionError("[seq:trace] the cycle launched no "
+                                 "seq_solve")
+        missed = [f for f in KERNEL_FUNCS["seq_solve"]
+                  if f not in prof.get("funcs", {})]
+        if not missed:
+            break
+        _log(f"[seq:trace] attempt {attempt}: the trace holds "
+             f"{prof.get('device_events', 0)} device events and no "
+             f"{missed}; CUDA events saw {len(solve_ms)} seq_solve calls, "
+             f"{sum(solve_ms):.3f} ms; traced "
+             f"{json.dumps(prof.get('top', []))}")
+    else:
+        raise AssertionError(f"[seq:trace] {SEQ_TRACE_TRIES} traces of the "
+                             f"cold seq cycle all lack {missed}")
+    return {
+        "wall_ms": prof["wall_ms"], "busy_ms": prof["busy_ms"],
+        "idle_share": 1.0 - prof["busy_ms"] / prof["wall_ms"],
+        "top": prof["top"],
+        "allocate_lane_ms": rec.lanes.get("allocate", 0.0) * 1e3,
+        "lanes_ms": {k: round(v * 1e3, 3) for k, v in
+                     sorted(rec.lanes.items())},
+        "seq_solve_ms": solve_ms, "funcs": prof["funcs"],
+        "attempts": attempt,
+    }
+
+
+def seq_trace_child() -> dict:
+    """``seq_trace()`` in a process of its own (``python3 chip_smoke.py
+    seq-trace``, which reuses the kernel build), waited for at most
+    SEQ_TRACE_TIMEOUT_S and killed past it; its log lines are relayed
+    here, its errors go to standard error.  Late in a whole run the
+    profiler has handed back traces of this cycle without device events
+    three times in a row, while a fresh process has traced it whole
+    every time it was tried (``tools/port_ab.py --phase seq-trace``,
+    alone and after ``--phase pipeline``)."""
+    import os
+
+    here = os.path.dirname(os.path.abspath(__file__))
+    try:
+        p = subprocess.run(
+            [sys.executable, os.path.join(here, "chip_smoke.py"),
+             "seq-trace"], cwd=here, stdout=subprocess.PIPE, text=True,
+            timeout=SEQ_TRACE_TIMEOUT_S)
+    except subprocess.TimeoutExpired as e:
+        raise AssertionError(f"[seq:trace] the traced process ran past "
+                             f"{SEQ_TRACE_TIMEOUT_S} s") from e
+    lines = p.stdout.strip().splitlines()
+    ok = p.returncode == 0 and lines
+    for line in lines[:-1] if ok else lines:
+        _log(f"[seq:trace process] {line}")
+    if not ok:
+        raise AssertionError(f"[seq:trace] the traced process exited "
+                             f"{p.returncode} (its errors are above)")
+    return json.loads(lines[-1])
+
+
 def object_phases(ns_args):
     """Phases 20-23: the object session on BASELINE config 2 (wave solver,
     ``VOLCANO_TPU_FASTPATH=0``), under ``solver: seq``, with custom
@@ -3309,66 +3954,18 @@ def object_phases(ns_args):
          f"({seq_row['bound_by']}), launches {seq_row['launches']}, "
          f"max_abs_err {seq_row['max_abs_err']}")
 
-    # [seq:trace]: a cold seq cycle on a fresh store, traced: the allocate
-    # lane beside the solve kernels' device time and the idle share.  Now
-    # and then the profiler hands back a trace with no device events, or
-    # without the solve's kernels, although the CUDA events saw them run:
-    # the cycle is then traced again on a fresh store, at most
-    # SEQ_TRACE_TRIES times.  Every attempt's cycle is held to the same
-    # checks, and the busy time and idle share come from a trace alone: a
-    # trace that lacks a kernel the events saw launch is never filled in.
-    from volcano_tpu_torch.scheduler import Scheduler
-
-    for attempt in range(1, SEQ_TRACE_TRIES + 1):
-        store = _fresh_cluster(**CONFIG2)
-        sched = Scheduler(store, conf_str=CONF_SEQ)
-        timed = _SeqTimedLib(kernels.load())
-        load, kernels.load = kernels.load, lambda: timed
-        try:
-            prof = profile_device(sched.run_once)
-        finally:
-            kernels.load = load
-        rec = store.flight.last()
-        if rec.path != "object" or rec.error is not None:
-            raise AssertionError(f"[seq:trace] no traced object cycle: path "
-                                 f"{rec.path}, error {rec.error}")
-        cycle_invariants(store, CONFIG2["n_pods"])
-        solve_ms = timed.device_ms()
-        if not solve_ms:
-            raise AssertionError("[seq:trace] the cycle launched no "
-                                 "seq_solve")
-        missed = [f for f in KERNEL_FUNCS["seq_solve"]
-                  if f not in prof.get("funcs", {})]
-        if not missed:
-            break
-        _log(f"[seq:trace] attempt {attempt}: the trace holds "
-             f"{prof.get('device_events', 0)} device events and no "
-             f"{missed}; CUDA events saw {len(solve_ms)} seq_solve calls, "
-             f"{sum(solve_ms):.3f} ms; traced "
-             f"{json.dumps(prof.get('top', []))}")
-        store.close()
-    else:
-        raise AssertionError(f"[seq:trace] {SEQ_TRACE_TRIES} traces of the "
-                             f"cold seq cycle all lack {missed}")
-    trace = {
-        "wall_ms": prof["wall_ms"], "busy_ms": prof["busy_ms"],
-        "idle_share": 1.0 - prof["busy_ms"] / prof["wall_ms"],
-        "top": prof["top"],
-        "allocate_lane_ms": rec.lanes.get("allocate", 0.0) * 1e3,
-        "lanes_ms": {k: round(v * 1e3, 3) for k, v in
-                     sorted(rec.lanes.items())},
-        "seq_solve_ms": solve_ms, "funcs": prof["funcs"],
-        "attempts": attempt,
-    }
+    # [seq:trace]: a cold seq cycle on a fresh store, traced, in a fresh
+    # process (see seq_trace_child).
+    trace = seq_trace_child()
     seq_row["trace"] = trace
     _log(f"[seq:trace] cold seq cycle (traced) {trace['wall_ms']:.1f} ms, "
          f"allocate lane {trace['allocate_lane_ms']:.1f} ms, seq_solve's "
-         f"launches {sum(solve_ms):.3f} ms (wrapper calls: {len(solve_ms)}, "
-         f"CUDA events); traced functions: {_traced_sums(prof)}; card busy "
-         f"{trace['busy_ms']:.2f} ms, idle share "
-         f"{trace['idle_share']:.4f} (attempt {attempt}); lanes(ms) "
-         f"{json.dumps(trace['lanes_ms'])}; top {json.dumps(prof['top'])}")
-    store.close()
+         f"launches {sum(trace['seq_solve_ms']):.3f} ms (wrapper calls: "
+         f"{len(trace['seq_solve_ms'])}, CUDA events); traced functions: "
+         f"{_traced_sums(trace)}; card busy {trace['busy_ms']:.2f} ms, idle "
+         f"share {trace['idle_share']:.4f} (attempt {trace['attempts']}, "
+         f"in a process of its own); lanes(ms) "
+         f"{json.dumps(trace['lanes_ms'])}; top {json.dumps(trace['top'])}")
 
     # 22. [seq:north-star]: the [main] solve args through the sequential
     # solve on the card (its plain replay is [seq]'s).
@@ -3412,12 +4009,16 @@ def _same_records(label, a, b, what, fields=4):
                                                   if name == "fb" else ""))
 
 
-def main() -> int:
+def main(argv=()) -> int:
+    import os
+
     import torch
 
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
         return 2
+    # No phase may turn a failing kernel into a passing cycle.
+    os.environ["VOLCANO_TPU_FALLBACK"] = "never"
     import numpy as np
 
     from volcano_tpu_torch import interop
@@ -3434,9 +4035,20 @@ def main() -> int:
     kernels.load()
     _log(f"kernel build {time.perf_counter() - t0:.3f} s "
          f"(nvcc {kernels.BUILD_SECONDS:.3f} s)")
+    if list(argv) == ["seq-trace"]:
+        # [seq:trace] alone: its trace on the last line of the output.
+        print(json.dumps(seq_trace()), flush=True)
+        return 0
     _log(f"ptxas {json.dumps(ptxas_report())}")
     _log(f"[kernels:floor] empty kernel, device ms a launch "
          f"{json.dumps(launch_floor())}")
+    if list(argv) == ["pipeline"]:
+        # The [pipeline] phase alone, with its own synchronous reference.
+        pstats, prows = pipeline_phase()
+        for r in prows:
+            _log(f"[kernels:pipeline] {json.dumps(r)}")
+        print(card, flush=True)
+        return 0
 
     # 1. small reference: the card against the CPU plain versions.
     store = synthetic_cluster(n_nodes=64, n_pods=512, gang_size=4,
@@ -3454,8 +4066,8 @@ def main() -> int:
 
     # 2-4. the solve path at the north-star shape.
     t0 = time.perf_counter()
-    ns_store = synthetic_cluster(n_nodes=10000, n_pods=100000, gang_size=8,
-                                 zones=16, seed=0)
+    ns_store = _fresh_cluster(n_nodes=10000, n_pods=100000, gang_size=8,
+                              zones=16, seed=0)
     _log(f"[main] north-star cluster {time.perf_counter() - t0:.3f} s")
     main_stats, launches, captured = run_phase("main", lambda: ns_store,
                                                timed=3)
@@ -3586,6 +4198,23 @@ def main() -> int:
              f"library {r['library_ms']}, bound {r['bound_ms']:.6f} ms "
              f"({r['bound_by']}), launches {r['launches']}")
 
+    # 8b. the pipelined session: the cycle's kernels launched from the
+    # solve worker's stream, held against the [cycle] cold cycle.
+    pstats, prows = pipeline_phase(
+        sync_binds=_rec[0][0],
+        sync_launches=cyc_stats["cycles"][0]["launches"])
+    del _rec
+    cycle_rows = {r["name"]: r for r in rows}
+    for r in prows:
+        row = cycle_rows[r["name"]]
+        row["worker"] = {k: r[k] for k in (
+            "launches", "ms", "plain_ms", "bound_ms", "bound_by",
+            "max_abs_err", "wrapper_ms", "queued", "bytes", "ops")}
+        _log(f"[kernels:pipeline] {r['name']}: {r['ms']:.4f} ms/launch "
+             f"from the worker's inputs, plain {r['plain_ms']:.4f} ms, "
+             f"max_abs_err {r['max_abs_err']}, launches {r['launches']}")
+    _log(f"[pipeline] {json.dumps(pstats)}")
+
     # 9-11. the reclaim and preempt paths; victim_scores and the solve
     # kernels on their inputs.
     vs_rows, future_rows = evict_phases()
@@ -3640,4 +4269,4 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(main(sys.argv[1:]))

@@ -312,20 +312,11 @@ def _conf(actions="enqueue, allocate, backfill", extra_plugin=""):
             f"  - name: priority\n  - name: gang\n{extra_plugin}")
 
 
-def _set(attr, value):
-    def make():
-        store = _cycle_store()
-        setattr(store, attr, value)
-        return store
-    return make
-
-
 CYCLE_NOT_PORTED = {
     # The device-native preempt / reclaim lanes run; the host victim walk
     # they replace (VOLCANO_TPU_EVICT_DEVICE=0, set below) does not.
     "preempt": (_cycle_store, _conf("enqueue, allocate, preempt")),
     "reclaim": (_cycle_store, _conf("allocate, reclaim")),
-    "pipeline": (_set("pipeline", True), _conf()),
 }
 
 
@@ -428,13 +419,54 @@ def test_rebalance_runs_with_host_victim_walk_selected(monkeypatch):
 
 
 @pytest.mark.parametrize("attr,value", [
-    ("async_bind", True), ("remote_solver", object()),
-    ("solve_mesh", object()),
+    ("remote_solver", object()), ("solve_mesh", object()),
 ])
 def test_store_slots_not_ported_raise(attr, value):
     store = _cycle_store()
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         setattr(store, attr, value)
+
+
+def test_pipelined_cycle_binds_like_jax():
+    """A pipelined run_once() (store.pipeline) no longer raises: its
+    second cycle binds what the JAX package's pipelined cycles bind."""
+    import volcano_tpu.synth
+    from volcano_tpu.scheduler import Scheduler as JaxScheduler
+
+    from volcano_tpu_torch.scheduler import Scheduler
+
+    jstore = volcano_tpu.synth.synthetic_cluster(n_nodes=4, n_pods=8,
+                                                 gang_size=2)
+    jstore.pipeline = True
+    jsched = JaxScheduler(jstore, conf_str=_conf())
+    store = _cycle_store()
+    store.pipeline = True
+    sched = Scheduler(store, conf_str=_conf(), device="cpu")
+    for _ in range(2):
+        jsched.run_once()
+        sched.run_once()
+    jstore.flush_binds()
+    store.flush_binds()
+    assert len(store.binder.binds) == 8
+    assert dict(store.binder.binds) == dict(jstore.binder.binds)
+    jstore.close()
+    store.close()
+
+
+def test_store_accepts_async_bind():
+    """store.async_bind = True is accepted and queues the cycle's binds
+    on the bind dispatcher."""
+    from volcano_tpu_torch.cache.bindqueue import BindDispatcher
+    from volcano_tpu_torch.scheduler import Scheduler
+
+    store = _cycle_store()
+    store.async_bind = True
+    assert store.async_bind is True
+    Scheduler(store, conf_str=_conf(), device="cpu").run_once()
+    assert isinstance(store._bind_dispatcher, BindDispatcher)
+    assert store.flush_binds(10)
+    assert len(store.binder.binds) == 8
+    store.close()
 
 
 @pytest.mark.parametrize("fail", [False, True])

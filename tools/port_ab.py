@@ -77,6 +77,24 @@ built from its own sources into its own build directory.  ``--phase``
   ``plan_trace``) come from the ``chip_smoke.py`` beside this tool, run
   with the tree's package, so a parent tree without them is measured the
   same way.  ``--caps FILE`` as for ``kernels`` (another file).
+- ``worker``: the north-star solve (as ``solve``) through the pieces of
+  the pipelined session's solve worker (``volcano_tpu_torch/pipeline.py``),
+  in turns forward and backward ``--reps`` (5) times after one warm-up
+  call each: on the calling thread (``direct``), on the calling thread
+  under a second CUDA stream (``stream``), on a plain second thread
+  (``thread``), on the store's solve worker (``worker``: its thread and
+  stream, the inputs' owned copies, the packed pinned fetch), and on the
+  worker while the calling thread runs pure-Python work until the solve
+  is done (``worker_busy``; ``worker_busy_si``: the same with
+  ``sys.setswitchinterval(0.0005)``, restored after): host wall of each
+  call with its packed result's fetch, and the solve's ``fine_s``; every
+  variant's result identical;
+- ``pipeline``: ``chip_smoke.pipeline_phase()`` as ``python3 chip_smoke.py
+  pipeline`` runs it (its card-against-CPU reference, the north-star
+  pipelined script with its own synchronous twin, the pipelined preempt
+  plan), summarised: the per-cycle kinds, walls and fetch waits, and the
+  traced steady cycle's busy time.  Given before ``seq-trace``, it shows
+  whether the traces that follow it keep their device events;
 
 A traced call reports the device time and launch count summed per CUDA
 function (every device event, named as the profiler names it), the card's
@@ -97,7 +115,8 @@ import time
 from pathlib import Path
 
 PHASES = ("solve", "cold", "shortlist", "seq", "seq-north-star",
-          "seq-trace", "victim", "kernels", "delta", "frag")
+          "seq-trace", "victim", "kernels", "delta", "frag", "worker",
+          "pipeline")
 
 
 def _trace(fn) -> dict:
@@ -113,9 +132,10 @@ def _trace(fn) -> dict:
         fn()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-    spans, funcs = [], {}
+    spans, funcs, host = [], {}, {}
     for e in prof.events():
         if e.device_type != DeviceType.CUDA:
+            host[e.name] = host.get(e.name, 0) + 1
             continue
         a, b = e.time_range.start, e.time_range.end
         spans.append((a, b))
@@ -131,7 +151,8 @@ def _trace(fn) -> dict:
             busy += b - max(a, end)
             end = b
     return {"wall_ms": wall * 1e3, "busy_ms": busy / 1e3,
-            "device_events": len(spans), "funcs": funcs}
+            "device_events": len(spans), "funcs": funcs,
+            "host_events": host}
 
 
 def _ops(fn, tries: int = 1) -> dict:
@@ -429,9 +450,10 @@ def phase_seq_trace(cs, opts) -> dict:
             "busy_ms": tr["busy_ms"], "device_events": tr["device_events"],
             "traced": {f: tr["funcs"].get(f) for f in
                        ("row_prep_kernel", "seq_solve_kernel")},
-            "top": _top(tr, 6)})
+            "host_events": tr["host_events"], "top": _top(tr, 6)})
         _log(opts.label, f"seq-trace events {ev} ms, traced "
              f"{cycles[-1]['traced']}, {tr['device_events']} device events, "
+             f"host events {json.dumps(tr['host_events'])}, "
              f"busy {tr['busy_ms']:.3f} of {tr['wall_ms']:.1f} ms")
     return {"cycles": cycles,
             "missed": sum(c["traced"]["seq_solve_kernel"] is None
@@ -865,11 +887,112 @@ def phase_frag(cs, opts) -> dict:
     return out
 
 
+# ---------------------------------------------------- the solve worker
+
+def phase_worker(cs, opts) -> dict:
+    import threading
+
+    import torch
+
+    from volcano_tpu_torch import pipeline as pl
+    from volcano_tpu_torch.ops import wave
+    from volcano_tpu_torch.synth import (solve_args_from_store,
+                                         synthetic_cluster)
+
+    store = synthetic_cluster(n_nodes=10000, n_pods=100000, gang_size=8,
+                              zones=16, seed=0)
+    args, _ = solve_args_from_store(store, binpack=True, nodeorder=True)
+    dev = args[0].idle.device
+    side = torch.cuda.Stream(dev)
+
+    def direct():
+        out = pl._pack(wave.solve_wave(*args, device=dev),
+                       pl.SOLVE_FIELDS).cpu().numpy()
+        return out, wave.LAST_TWOPHASE["fine_s"]
+
+    def stream():
+        with torch.cuda.stream(side):
+            return direct()
+
+    def thread():
+        box = []
+        t = threading.Thread(target=lambda: box.append(direct()))
+        t.start()
+        t.join()
+        return box[0]
+
+    def worker():
+        job = pl.dispatch_solve(store, dev, args, pl.SOLVE_FIELDS)
+        return job.result(), job.twophase["fine_s"]
+
+    def worker_busy():
+        job = pl.dispatch_solve(store, dev, args, pl.SOLVE_FIELDS)
+        n = 0
+        while not job.done.is_set():
+            n += sum(range(2000))
+        return job.result(), job.twophase["fine_s"]
+
+    def worker_busy_si():
+        old = sys.getswitchinterval()
+        sys.setswitchinterval(0.0005)
+        try:
+            return worker_busy()
+        finally:
+            sys.setswitchinterval(old)
+
+    variants = {"direct": direct, "stream": stream, "thread": thread,
+                "worker": worker, "worker_busy": worker_busy,
+                "worker_busy_si": worker_busy_si}
+    ref = None
+    for fn in variants.values():
+        out, _ = fn()
+        torch.cuda.synchronize()
+        if ref is None:
+            ref = out
+        elif not (out == ref).all():
+            raise AssertionError("port_ab worker: results differ")
+    walls = {k: [] for k in variants}
+    fines = {k: [] for k in variants}
+    order = list(variants) + list(reversed(list(variants)))
+    for _ in range(opts.reps):
+        for k in order:
+            t0 = time.perf_counter()
+            out, fine = variants[k]()
+            walls[k].append((time.perf_counter() - t0) * 1e3)
+            fines[k].append(fine * 1e3)
+            if not (out == ref).all():
+                raise AssertionError(f"port_ab worker: {k} differs")
+    out = {k: {"wall_ms_median": statistics.median(walls[k]),
+               "wall_ms": walls[k],
+               "fine_ms_median": statistics.median(fines[k])}
+           for k in variants}
+    _log(opts.label, "worker: " + "; ".join(
+        f"{k} wall {v['wall_ms_median']:.3f} ms (fine "
+        f"{v['fine_ms_median']:.3f})" for k, v in out.items()))
+    store.close()
+    return out
+
+
+# ------------------------------------------------------------ pipeline
+
+def phase_pipeline(cs, opts) -> dict:
+    stats, rows = cs.pipeline_phase()
+    out = {"cycles": [{k: c[k] for k in ("kind", "wall_s",
+                                         "inflight_fetch_wait_ms")}
+                      for c in stats["cycles"]],
+           "traced": {k: stats["traced"][k] for k in ("busy_ms", "wall_ms")}
+           if stats.get("traced") else None,
+           "kernels": [r["name"] for r in rows]}
+    _log(opts.label, f"pipeline {json.dumps(out)}")
+    return out
+
+
 RUN = {"solve": phase_solve, "cold": phase_cold,
        "shortlist": phase_shortlist, "seq": phase_seq,
        "seq-north-star": phase_seq_north_star, "seq-trace": phase_seq_trace,
        "victim": phase_victim, "kernels": phase_kernels,
-       "delta": phase_delta, "frag": phase_frag}
+       "delta": phase_delta, "frag": phase_frag, "worker": phase_worker,
+       "pipeline": phase_pipeline}
 
 
 def main() -> int:

@@ -9,8 +9,15 @@ struct-of-arrays mirror (``cache/mirror.py``) the fast cycle schedules
 from.
 
 What the port's fast cycle needs is here: the mirror, pod / node /
-PodGroup / queue handlers, the bind path onto the binder (synchronous;
+PodGroup / queue handlers, the bind path onto the binder (inline, or with
+``async_bind`` queued on the dispatcher thread of ``cache/bindqueue.py``;
 failures re-enter Pending with backoff through ``drain_bind_failures``),
+the deferred bind-record walk (``defer_bind_records``: the asynchronous
+commit leaves ``pod.node_name`` to the dispatcher, and any path that reads
+pod records as scheduling truth forces it first through
+``apply_pending_bind_records``), the pipelined session's slots
+(``_inflight_solve``, ``_inflight_plan``, ``_solve_seq``, the solve worker
+of ``pipeline.py``),
 the evictor the preempt / reclaim lanes flush to, the migration ledger
 (``migrations``: ``delete_pod`` restores a terminating eviction victim as a
 fresh Pending pod), the event trails the cycle writes, PodGroup status
@@ -22,12 +29,12 @@ The object session's eviction (``evict``, cache.go:439-489) is here too:
 the object session's preempt and reclaim evict through it, while the fast
 lanes flush through ``evictor``.
 
-Not ported yet (ROADMAP.md, queue 1): asynchronous bind dispatch
-(``async_bind``), persistence / HA, the controller-plane records, and the
-journey, audit, SLO and lockdep hooks ("the fast path's remaining lanes");
-the remote solver (``remote_solver``, "the solver service"); the device
-mesh (``solve_mesh``, "multi-GPU").  Setting one of the three slots raises
-``NotImplementedError`` naming its item.
+Not ported yet (ROADMAP.md, queue 1): persistence / HA, the
+controller-plane records, and the journey, audit, SLO and lockdep hooks
+("the fast path's remaining lanes"); the remote solver (``remote_solver``,
+"the solver service"); the device mesh (``solve_mesh``, "multi-GPU").
+Setting one of the two slots raises ``NotImplementedError`` naming its
+item.
 """
 
 from __future__ import annotations
@@ -71,11 +78,6 @@ from .interface import (
 log = logging.getLogger(__name__)
 
 DEFAULT_QUEUE = "default"
-
-# Bind-failure retry backoff (the rate-limited errTasks queue,
-# cache.go:627-649): 1 s doubling per consecutive failure, capped.
-BACKOFF_BASE = 1.0
-BACKOFF_MAX = 60.0
 
 def not_ported(what: str, item: str) -> NotImplementedError:
     """The error for a part of the JAX package the port does not run yet,
@@ -129,6 +131,10 @@ class ClusterStore:
         self.mirror = StoreMirror()
         self.mirror.attach(self.pods)
 
+        # Asynchronous bind dispatch (cache.go:536-552 goroutine binds):
+        # off by default, so a cycle's binds land before run_once returns.
+        self.async_bind = False
+        self._bind_dispatcher = None
         self._bind_fail_lock = threading.Lock()
         self._succeeded_bind_keys: List[str] = []
         self._failed_bind_keys: List[tuple] = []
@@ -160,12 +166,25 @@ class ClusterStore:
         # Workload-injection seam: called as feed(cycle) after the cycle's
         # derive and before its actions.
         self.cycle_feed = None
-        # Pipelined sessions are not ported: False (the default) is the
-        # only value the cycle accepts.
+        # Pipelined sessions (pipeline.py): None reads
+        # VOLCANO_TPU_PIPELINE, as in the JAX package.
         self.pipeline = None
-        # Parked what-if plan of a pipelined session: with pipelining
-        # refused it stays None, and the evict lanes plan every cycle.
+        # The dispatched-but-uncommitted solve and what-if plan of a
+        # pipelined session, written by the cycle thread at dispatch and
+        # popped at the next cycle's top -- or by close() / Scheduler.stop()
+        # on other threads, so both slots are taken under _lock.
+        self._inflight_solve = None
         self._inflight_plan = None
+        # The pipelined session's solve worker (pipeline.SolveWorker),
+        # created at the first dispatch.
+        self._solve_worker = None
+        # Monotonic pipelined solve id: the flow link between a dispatch
+        # span in cycle N and its fetch and commit spans in cycle N+1.
+        self._solve_seq = 0
+        # Deferred bind-record walks not yet materialized
+        # (defer_bind_records).
+        self._record_walk_lock = threading.Lock()
+        self._pending_record_walks: List[list] = []
         # Migration ledger (actions/rebalance.py MigrationLedger), attached
         # by the first committed eviction wave; delete_pod restores
         # terminating victims through it.
@@ -199,16 +218,6 @@ class ClusterStore:
         self.add_queue(Queue(name=default_queue, weight=1))
 
     # ------------------------------------------------- not-ported slots
-
-    @property
-    def async_bind(self) -> bool:
-        return False
-
-    @async_bind.setter
-    def async_bind(self, value) -> None:
-        if value:
-            raise not_ported("asynchronous bind dispatch (async_bind)",
-                              "the fast path's remaining lanes")
 
     @property
     def remote_solver(self):
@@ -306,11 +315,72 @@ class ClusterStore:
 
     # ------------------------------------------------------ bind machinery
 
-    def dispatch_binds(self, keys, hosts, pods) -> None:
-        """Dispatch a batch of binds to the binder, synchronously (the
-        JAX package queues them on a dispatcher thread; the port runs the
-        same drain inline).  Failures surface at the next cycle's
-        ``drain_bind_failures``; successes record Scheduled events."""
+    def defer_bind_records(self, keys_a, hosts_a, pods_a) -> list:
+        """Register a deferred bind batch (numpy object arrays).  The
+        tolist + pod.node_name record walk runs when the batch is
+        materialized -- normally on the bind dispatcher's thread, after
+        the cycle (the reference's API-server-side NodeName write,
+        cache.go:536-552) -- but any path about to read pod RECORDS as
+        scheduling truth forces it first with
+        ``apply_pending_bind_records`` (committed-but-unnamed pods would
+        read as unbound and double-schedule)."""
+        entry = [keys_a, hosts_a, pods_a, False]
+        with self._record_walk_lock:
+            self._pending_record_walks.append(entry)
+        return entry
+
+    def _materialize_bind_entry(self, entry: list):
+        """Idempotent: lists + node_name walk applied exactly once, from
+        whichever thread gets here first."""
+        with self._record_walk_lock:
+            if not entry[3]:
+                keys = entry[0].tolist()
+                hosts = entry[1].tolist()
+                pods = entry[2].tolist()
+                for pod, hostname in zip(pods, hosts):
+                    pod.node_name = hostname
+                entry[0], entry[1], entry[2] = keys, hosts, pods
+                entry[3] = True
+                # Removed by IDENTITY, never with list.remove: remove scans
+                # with ==, and comparing this entry with another pending
+                # one compares numpy object arrays elementwise (an
+                # ambiguous-truth ValueError), which would strand the
+                # entry and make apply_pending_bind_records loop forever.
+                self._pending_record_walks = [
+                    e for e in self._pending_record_walks if e is not entry]
+            return entry[0], entry[1], entry[2]
+
+    def apply_pending_bind_records(self) -> None:
+        """Apply every registered deferred record walk now -- before any
+        path that treats pod records as scheduling truth (the mirror
+        resync of a failed cycle, the object session)."""
+        while True:
+            with self._record_walk_lock:
+                if not self._pending_record_walks:
+                    return
+                entry = self._pending_record_walks[0]
+            self._materialize_bind_entry(entry)
+
+    def dispatch_binds(self, keys, hosts, pods,
+                       entry: Optional[list] = None) -> None:
+        """Dispatch a batch of binds to the binder: queued on the
+        background dispatcher when ``async_bind`` is set (failures surface
+        at the next cycle's ``drain_bind_failures``), else drained inline
+        the same way.  ``entry`` marks a deferred batch from
+        ``defer_bind_records`` (keys / hosts / pods then None)."""
+        if self.async_bind:
+            if self._bind_dispatcher is None:
+                from .bindqueue import BindDispatcher
+
+                self._bind_dispatcher = BindDispatcher(
+                    self.binder, self._on_bind_failures,
+                    on_success=self._on_bind_success,
+                    materialize=self._materialize_bind_entry,
+                )
+            self._bind_dispatcher.dispatch(keys, hosts, pods, entry=entry)
+            return
+        if entry is not None:
+            keys, hosts, pods = self._materialize_bind_entry(entry)
         keys, hosts, pods = list(keys), list(hosts), list(pods)
         failed: set = set()
         bind_keys = getattr(self.binder, "bind_keys", None)
@@ -333,12 +403,21 @@ class ClusterStore:
             self._on_bind_success([k for k, _ in ok], [h for _, h in ok])
 
     def flush_binds(self, timeout: Optional[float] = None) -> bool:
-        """Binds dispatch inline, so nothing is ever queued."""
-        return True
+        """Wait until every queued bind batch has been processed (True
+        at once when nothing was queued); False past ``timeout``."""
+        if self._bind_dispatcher is None:
+            return True
+        return self._bind_dispatcher.flush(timeout)
 
     def close(self) -> None:
-        """Drop the cycle's caches and the device-resident state (the
-        device snapshot's planes, the device-incremental planes)."""
+        """Stop the background machinery and drop the cycle's caches and
+        the device-resident state.  A parked pipelined solve or what-if
+        plan is abandoned (it mutated nothing), the solve worker and the
+        bind dispatcher stop."""
+        from ..pipeline import abandon_inflight, abandon_inflight_plan
+
+        abandon_inflight(self)
+        abandon_inflight_plan(self)
         with self._lock:
             self._job_rank_cache = None
             self._pending_order_cache = None
@@ -348,6 +427,12 @@ class ClusterStore:
             self._close_gang_cache = None
             self._devincr_cache = None
             self.device_snapshot = None
+            worker, self._solve_worker = self._solve_worker, None
+        if worker is not None:
+            worker.stop()
+        if self._bind_dispatcher is not None:
+            self._bind_dispatcher.stop()
+            self._bind_dispatcher = None
 
     def _on_bind_failures(self, failed_pairs) -> None:
         with self._bind_fail_lock:
@@ -378,6 +463,8 @@ class ClusterStore:
                     self.bind_backoff.pop(key, None)
         if not failed:
             return 0
+        from .bindqueue import BACKOFF_BASE, BACKOFF_MAX
+
         now = time.time()
         n = 0
         with self._lock:

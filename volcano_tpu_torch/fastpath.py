@@ -49,11 +49,23 @@ other conf runs the object session (``scheduler.py``).  The JAX package's
 other lanes raise ``NotImplementedError`` here, naming their
 ROADMAP.md item, before the cycle mutates anything: the host victim walk
 (``VOLCANO_TPU_EVICT_DEVICE=0``, for preempt and reclaim; the rebalance
-lane ignores the switch, as the JAX package's does), pipelined sessions,
-the remote solver and the device mesh.  Inter-pod affinity, anti-affinity
-and spread terms ride the encode (``_affinity_and_profiles``: active-term
-compaction, per-domain resident counts, membership-split profiles) into
-the solve, in job-aligned chunks when their count tables would pass
+lane ignores the switch, as the JAX package's does), the remote solver and
+the device mesh.
+
+Pipelined sessions (``store.pipeline`` or ``VOLCANO_TPU_PIPELINE=1``,
+``pipeline.py``): a single-chunk wave solve is handed to the store's solve
+worker (its own thread and CUDA stream) without waiting, and cycle N+1
+fetches and commits it first (``_commit_inflight``), behind a staleness
+guard (``_revalidate_inflight``) against what moved during the overlap;
+the what-if plans of preempt / reclaim / rebalance park and commit the
+same way (``whatif.commit_inflight_plan``).  With ``store.async_bind`` the
+commit's binds go to the bind dispatcher at cycle end
+(``cache/bindqueue.py``), and the pod-record walk with them.
+
+Inter-pod affinity, anti-affinity and spread terms ride the encode
+(``_affinity_and_profiles``: active-term compaction, per-domain resident
+counts, membership-split profiles) into the solve, in job-aligned chunks
+when their count tables would pass
 ``VOLCANO_TPU_AFF_BUDGET_MB`` (``_solve_chunks``).
 """
 
@@ -213,7 +225,7 @@ class FastCycle:
 
     # Pipelined cycles see starvation one commit behind, so a gang must
     # stay starved this many consecutive rebalance passes before a plan
-    # forms there (the port refuses pipelined sessions: one pass).
+    # forms there (one pass without pipelining).
     REBALANCE_STREAK_PIPELINED = 2
     # Passes a gang sits out after a rejected eviction plan: a gang whose
     # what-if keeps failing must not re-pay the kernel and the what-if
@@ -273,9 +285,6 @@ class FastCycle:
                 raise _not_ported(
                     f"the host victim walk of the {name} action "
                     "(VOLCANO_TPU_EVICT_DEVICE=0)", "the host victim walk")
-        if self._pipeline_on:
-            raise _not_ported("pipelined sessions (store.pipeline)",
-                              "the fast path's remaining lanes")
         if getattr(self.store, "remote_solver", None) is not None:
             raise _not_ported("the remote solver", "the solver service")
         if getattr(self.store, "solve_mesh", None) is not None \
@@ -792,52 +801,81 @@ class FastCycle:
             self._proportion()
         self.new_conditions: Dict[int, PodGroupCondition] = {}
         self._evictor = None
+        # Asynchronous bind batches the commits collect, dispatched at
+        # cycle end so the dispatcher's drain does not contend with the
+        # commit and close for the interpreter.
+        self._bind_batches: List[tuple] = []
         try:
-            # Workload-injection seam (steady-state loops): new work
-            # "arrives" after the derive and before the actions.
-            feed = getattr(store, "cycle_feed", None)
-            if feed is not None:
-                with tracer.span("feed", lanes=self.lanes):
-                    feed(self)
-            for name in self.action_names:
-                lane = (name if name in ("enqueue", "backfill", "rebalance")
-                        + _EVICT_ACTIONS else None)
-                with metrics.action_timer(name), tracer.span(
-                        f"action:{name}", cat="action",
-                        lanes=(self.lanes if lane else None),
-                        lane=lane):
-                    if name == "enqueue":
-                        self._enqueue()
-                    elif name == "allocate":
-                        self._allocate()
-                    elif name == "backfill":
-                        if self._backfill():
-                            # Backfill bound BestEffort rows directly in
-                            # the mirror.
-                            self.m.mutation_seq += 1
-                    elif name in _EVICT_ACTIONS:
-                        # Device-native lane: plan victims with the
-                        # victim_scores kernel, prove the wave with a
-                        # what-if solve, commit -- the engine stamps the
-                        # mutation counter itself iff it evicts.
-                        from . import whatif
-
-                        whatif.run_evict_action(self, name)
-                    elif name == "rebalance":
-                        # Defragmentation planner: a committed plan evicts
-                        # through the what-if engine and stamps the
-                        # mutation counter itself.
-                        self._rebalance()
+            try:
+                self._run_actions()
+            except BaseException:
+                # A failed cycle may leave uncommitted status mutations in
+                # the mirror; re-derive dynamic state from the pod records
+                # -- after the deferred record walks (node_name on
+                # committed pods, this cycle's or a prior one's not yet
+                # processed by the dispatcher) landed, or committed pods
+                # would read as unbound.
+                store.apply_pending_bind_records()
+                self.m.resync_status(self.store.pods)
+                raise
+            if self._evictor is not None:
+                self._evictor.flush()
+            with tracer.span("close", lanes=self.lanes):
+                self._close()
+            store.last_cycle_lanes = dict(self.lanes)
         except BaseException:
-            # A failed cycle may leave uncommitted status mutations in the
-            # mirror; re-derive dynamic state from the pod records.
-            self.m.resync_status(self.store.pods)
+            store.apply_pending_bind_records()
             raise
-        if self._evictor is not None:
-            self._evictor.flush()
-        with tracer.span("close", lanes=self.lanes):
-            self._close()
-        store.last_cycle_lanes = dict(self.lanes)
+        finally:
+            # Committed binds dispatch even when close fails: binds are
+            # idempotent and the commit bookkeeping already happened.
+            for keys, hosts, pods, entry in self._bind_batches:
+                store.dispatch_binds(keys, hosts, pods, entry=entry)
+
+    def _run_actions(self) -> None:
+        store = self.store
+        tracer = self.tracer
+        # Double-buffered sessions: the previous cycle's dispatched solve
+        # lands first, then its what-if plan, against the freshest state
+        # this cycle sees (pipeline.py).
+        self._commit_inflight()
+        self._commit_inflight_plan()
+        # Workload-injection seam (steady-state loops): new work "arrives"
+        # after the commit and before the actions, so every pipelined cycle
+        # both commits session N-1 and dispatches session N.
+        feed = getattr(store, "cycle_feed", None)
+        if feed is not None:
+            with tracer.span("feed", lanes=self.lanes):
+                feed(self)
+        for name in self.action_names:
+            lane = (name if name in ("enqueue", "backfill", "rebalance")
+                    + _EVICT_ACTIONS else None)
+            with metrics.action_timer(name), tracer.span(
+                    f"action:{name}", cat="action",
+                    lanes=(self.lanes if lane else None),
+                    lane=lane):
+                if name == "enqueue":
+                    self._enqueue()
+                elif name == "allocate":
+                    self._allocate()
+                elif name == "backfill":
+                    if self._backfill():
+                        # Backfill bound BestEffort rows directly in
+                        # the mirror.
+                        self.m.mutation_seq += 1
+                elif name in _EVICT_ACTIONS:
+                    # Device-native lane: plan victims with the
+                    # victim_scores kernel, prove the wave with a
+                    # what-if solve, commit -- the engine stamps the
+                    # mutation counter itself iff it evicts.
+                    from . import whatif
+
+                    whatif.run_evict_action(self, name)
+                elif name == "rebalance":
+                    # Defragmentation planner: a committed plan evicts
+                    # through the what-if engine and stamps the
+                    # mutation counter itself.
+                    self._rebalance()
 
     # ------------------------------------------------------------- telemetry
 
@@ -895,10 +933,11 @@ class FastCycle:
             + exhausted + affinity)
 
     def _record_twophase_lanes(self) -> None:
-        """Fold the wave solver's timings into the cycle's lane split
-        (device_prep / device_coarse / device_fine sub-lanes of the device
-        lane: host prep and upload, phase 1, phase 2, each ending in a
-        device sync) and the trace event stream."""
+        """Fold the wave solver's timings (``LAST_TWOPHASE``, the last
+        solve the cycle read) into the cycle's lane split (device_prep /
+        device_coarse / device_fine sub-lanes of the device lane: host
+        prep and upload, phase 1, phase 2, each ending in a device sync)
+        and the trace event stream."""
         from .ops import wave as _wave_mod
 
         info = _wave_mod.LAST_TWOPHASE
@@ -1238,6 +1277,33 @@ class FastCycle:
             # Job-aligned chunks bound the affinity count tables; later
             # chunks see earlier chunks' commits.
             chunks = list(self._solve_chunks(solve_jobs, task_rows))
+            # Pipelined dispatch: a single-chunk solve goes to the solve
+            # worker without waiting for its result; the commit lands at
+            # the top of the next cycle.  Chunked solves stay synchronous
+            # -- later chunks must see earlier chunks' placements.
+            if self._pipeline_on and len(chunks) == 1:
+                cjobs, crows = chunks[0]
+                with tracer.span("encode", lanes=lanes):
+                    inputs, pid, profiles, ncls = self._solve_inputs(
+                        cjobs, crows, slim=True)
+                dv = self._devincr_prepare(inputs)
+                # The dispatch span opens the solve-id flow; the fetch and
+                # commit spans of cycle N+1 close it.
+                store._solve_seq += 1
+                solve_id = store._solve_seq
+                with tracer.span(
+                        "dispatch", cat="pipeline", flow=solve_id,
+                        lanes=lanes, lane="device",
+                        args={"kind": "local", "rows": len(crows),
+                              "solve_id": solve_id}):
+                    self._last_encode_token = (
+                        self._null_delta_token(solver, rounds)
+                        if dv_store is not None else None)
+                    self._dispatch_async(
+                        cjobs, crows, inputs, pid, profiles, ncls, dv,
+                        solve_id, devincr_token=self._last_encode_token)
+                self.stats["dispatched_solve_id"] = solve_id
+                break
             for cjobs, crows in chunks:
                 with tracer.span("encode", lanes=lanes):
                     inputs, pid, profiles, ncls = self._solve_inputs(
@@ -1299,7 +1365,10 @@ class FastCycle:
                 break
         if dv_store is not None:
             # Persist the skip proof iff nothing mutated after the last
-            # encode -- i.e. the final solve of this lane placed nothing.
+            # encode -- i.e. the final solve of this lane placed nothing
+            # (a pipelined dispatch counts: its commit lands next cycle
+            # and bumps the mutation counter if it binds, breaking the
+            # proof before the next skip check reads it).
             tok_now = (self._null_delta_token(solver, rounds)
                        if self._last_encode_token is not None else None)
             dv_store.skip_token = (
@@ -1419,6 +1488,246 @@ class FastCycle:
             h.hexdigest(), solver, int(rounds),
             tuple(self.action_names), tuple(sorted(self.plugin_opts)),
         )
+
+    # ------------------------------------------------- pipelined sessions
+
+    def _dispatch_async(self, cjobs: List[int], crows: np.ndarray,
+                        inputs, pid, profiles, ncls, dv, solve_id: int,
+                        devincr_token=None) -> None:
+        """Hand the encoded solve to the store's solve worker and park the
+        handle on the store; the solve then runs beside this cycle's
+        backfill and close and the next cycle's derive, and
+        ``_commit_inflight`` lands it at the top of cycle N+1.
+        ``solve_id`` is the trace flow id linking this dispatch to the
+        next cycle's fetch and commit spans."""
+        from .pipeline import SOLVE_FIELDS, InflightSolve, dispatch_solve
+
+        if dv is not None:
+            # The dirty set this solve consumed is anchored now, on the
+            # cycle thread, where the next derives add to it (the JAX
+            # solve anchors it at dispatch too); a solve that fails voids
+            # the anchor at its fetch.
+            dv.anchor_dirty()
+        job = dispatch_solve(
+            self.store, self.device, inputs, SOLVE_FIELDS,
+            snap=getattr(self.store, "device_snapshot", None), pid=pid,
+            profiles=profiles, taint_any=self._taint_any,
+            node_classes=ncls, devincr=dv)
+        # Commit prep that needs no assignment overlaps the solve.
+        req_gather = self.m.c_req.gather(crows)
+        self.store._inflight_solve = InflightSolve(
+            "local", job, list(cjobs), crows, req_gather,
+            self.m.mutation_seq, self.m.epoch, self.m.compact_gen,
+            self.Nn, solve_id=solve_id, dirty_seq=self.m.dirty_seq,
+            devincr_token=devincr_token,
+        )
+
+    def _void_devincr(self) -> None:
+        """A pipelined solve whose result is lost: drop the null-delta
+        skip proof its dispatch anchored, and re-rank fully next time
+        (the dirty set was anchored at dispatch)."""
+        dv = self.store._devincr_cache
+        if dv is not None:
+            dv.skip_token = None
+            dv.accumulate_dirty(None)
+
+    def _commit_inflight(self) -> None:
+        """Fetch and commit the previous cycle's dispatched solve (runs
+        first, before this cycle's actions).  A staleness guard drops rows
+        invalidated by store mutations that landed during the overlap --
+        pod deleted / bound / evicted, node gone, capacity taken --
+        everything else commits exactly as a synchronous cycle would have.
+        An error the worker raised propagates, as the synchronous solve's
+        would."""
+        from .ops import wave as _wave_mod
+        from .pipeline import take_inflight
+
+        inflight = take_inflight(self.store)
+        if inflight is None:
+            return
+        m = self.m
+        lanes = self.lanes
+        tracer = self.tracer
+        flow = inflight.solve_id or None
+        if inflight.compact_gen != m.compact_gen:
+            # Pod rows were renumbered while the solve was in flight: the
+            # whole result is void (rows are otherwise stable for a pod's
+            # lifetime).  The pods are still Pending and re-place.
+            log.info("in-flight solve predates a mirror compaction; "
+                     "dropped (%d rows re-place this cycle)",
+                     len(inflight.task_rows))
+            self._count_drops({"compaction": len(inflight.task_rows)})
+            self.stats["device_events"].append(
+                f"solve {inflight.solve_id} voided by mirror compaction")
+            if not inflight.abandon():
+                self._void_devincr()
+            return
+        fetch_span = tracer.span(
+            "inflight_fetch", cat="pipeline", flow=flow, lanes=lanes,
+            lane="device",
+            args={"rows": len(inflight.task_rows),
+                  "solve_id": inflight.solve_id},
+        )
+        try:
+            with fetch_span:
+                assigned = inflight.fetch()
+        except BaseException:
+            self._void_devincr()
+            raise
+        # The solve the cycle read: its record and lanes.
+        _wave_mod.LAST_TWOPHASE.clear()
+        _wave_mod.LAST_TWOPHASE.update(inflight.twophase)
+        self._record_twophase_lanes()
+        self.stats["committed_solve_id"] = inflight.solve_id or None
+        self._count_shortlist_fb(*inflight.fallbacks)
+        # The residual wait is the pipeline's health signal: it approaches
+        # zero exactly when the overlap works.
+        fetch_wait_ms = fetch_span.dur_ns / 1e6
+        metrics.inflight_fetch_wait.observe(fetch_wait_ms)
+        self.stats["fetch_wait_ms"] = round(fetch_wait_ms, 3)
+        # Dispatch-vs-commit delta of the solve landing this cycle.
+        self.stats["mut_at_dispatch"] = int(inflight.mutation_seq)
+        self.stats["epoch_at_dispatch"] = int(inflight.epoch)
+        self.stats["mut_at_commit"] = int(m.mutation_seq)
+        self.stats["epoch_at_commit"] = int(m.epoch)
+        with tracer.span(
+                "inflight_commit", cat="pipeline", flow=flow,
+                lanes=lanes, lane="commit",
+                args={"solve_id": inflight.solve_id,
+                      "dispatch_mutation_seq": inflight.mutation_seq,
+                      "dispatch_epoch": inflight.epoch}):
+            task_rows = inflight.task_rows
+            req_gather = inflight.req_gather
+            stale = (m.mutation_seq != inflight.mutation_seq
+                     or self.Nn != inflight.n_nodes)
+            if not stale and m.dirty_seq != inflight.dirty_seq:
+                # Every writer that marks the dirty set also bumps the
+                # mutation counter: a quiet mutation_seq with an advanced
+                # dirty_seq means a writer broke the contract --
+                # revalidate instead of skipping on the broken proof.
+                log.error(
+                    "dirty set advanced (%d -> %d) without a "
+                    "mutation_seq bump; revalidating in-flight solve "
+                    "defensively", inflight.dirty_seq, m.dirty_seq,
+                )
+                stale = True
+            if stale:
+                assigned = self._revalidate_inflight(
+                    task_rows, assigned,
+                    node_churn=(m.epoch != inflight.epoch))
+                # Row set changed: _commit re-gathers the committed rows.
+                req_gather = None
+            # Fabric gate after the staleness guard: rows it vetoes are
+            # already -1, so topology-infeasible stays exclusive with the
+            # revalidation's reasons.
+            assigned = self._topology_gate(task_rows, assigned)
+            if (assigned >= 0).any():
+                self._commit(
+                    inflight.solve_jobs, task_rows, assigned,
+                    np.zeros(len(inflight.solve_jobs), bool),
+                    np.zeros(len(task_rows), bool), req_gather,
+                )
+
+    def _revalidate_inflight(self, task_rows: np.ndarray,
+                             assigned: np.ndarray,
+                             node_churn: bool = False) -> np.ndarray:
+        """Drop assignment rows invalidated during the overlap; returns
+        ``assigned`` with conflicting rows forced to -1.
+
+        All vectorized: the pod row is still alive and Pending, the target
+        node row still exists, is alive and ready, and charging the
+        surviving rows neither oversubscribes a node's allocatable nor its
+        task slots (rows on a conflicted node drop wholesale; the next
+        cycle re-places them).  Constraint-sensitive rows drop
+        conservatively: pods with inter-pod terms whenever anything moved,
+        pods with a node selector, node-affinity terms or tolerations when
+        ``node_churn`` says the node table changed.
+
+        Every dropped row is attributed to exactly one reason (the first
+        matching check, in this order), counted in the flight record and
+        ``volcano_pipeline_stale_drop_rows_total``: ``deleted``,
+        ``competing-bind``, ``constraint-sensitive``, ``node-epoch-churn``
+        (also a target node gone or not ready), ``capacity-taken``.  The
+        fabric gate after it adds the exclusive ``topology-infeasible``."""
+        m = self.m
+        nn = self.Nn
+        live = assigned >= 0
+        alive_m = m.p_alive[task_rows]
+        pending_m = alive_m & (m.p_status[task_rows] == ST_PENDING)
+        r_deleted = live & ~alive_m
+        r_competing = live & alive_m & ~pending_m
+        ok = live & pending_m
+        has_ip = m.p_has_ip[task_rows]
+        r_constraint = ok & has_ip
+        ok &= ~has_ip
+        r_churn = np.zeros(len(task_rows), bool)
+        if node_churn:
+            sensitive = (
+                m.p_has_tol[task_rows]
+                | (m.p_aff_lo[task_rows] < m.p_aff_hi[task_rows])
+            )
+            er, _li = m.c_sel.gather(task_rows)
+            has_sel = np.zeros(len(task_rows), bool)
+            has_sel[er] = True
+            r_churn |= ok & (sensitive | has_sel)
+            ok &= ~(sensitive | has_sel)
+        # Target node gone (row beyond today's table) or not ready.
+        node_gone = assigned >= nn
+        r_churn |= ok & node_gone
+        ok &= ~node_gone
+        node = np.clip(assigned, 0, max(nn - 1, 0))
+        if nn:
+            not_ready = ~self.n_ready[node]
+            r_churn |= ok & not_ready
+            ok &= ~not_ready
+        r_capacity = np.zeros(len(task_rows), bool)
+        if ok.any():
+            # Capacity re-check against this cycle's derive; the request
+            # gather is re-read (an update may have changed requests).
+            rows_ok = task_rows[ok]
+            nodes_ok = assigned[ok]
+            er, si, v = m.c_req.gather(rows_ok)
+            add = np.bincount(
+                nodes_ok[er].astype(np.int64) * self.R + si,
+                weights=v, minlength=nn * self.R,
+            ).reshape(nn, self.R).astype(F)
+            ntasks_add = np.bincount(nodes_ok, minlength=nn).astype(I)
+            bad = (
+                ((self.n_used + add) > self.n_alloc + self.eps[None, :])
+                .any(axis=1)
+                | ((self.n_ntasks + ntasks_add) > self.n_maxtasks)
+            )
+            if bad.any():
+                r_capacity = ok & bad[node]
+                ok &= ~bad[node]
+        self._count_drops({
+            "deleted": int(np.count_nonzero(r_deleted)),
+            "competing-bind": int(np.count_nonzero(r_competing)),
+            "constraint-sensitive": int(np.count_nonzero(r_constraint)),
+            "node-epoch-churn": int(np.count_nonzero(r_churn)),
+            "capacity-taken": int(np.count_nonzero(r_capacity)),
+        })
+        out = np.where(ok, assigned, -1)
+        n_drop = int(np.count_nonzero(live & (out < 0)))
+        if n_drop and not ok.any():
+            log.info("in-flight solve fully invalidated by "
+                     "concurrent mutations (%d rows)", n_drop)
+        elif n_drop:
+            log.info(
+                "staleness guard dropped %d/%d in-flight rows "
+                "(concurrent store mutations); survivors commit",
+                n_drop, int(np.count_nonzero(live)),
+            )
+        return out
+
+    def _commit_inflight_plan(self) -> None:
+        """Land (or void) the previous cycle's pipelined what-if plan --
+        rebalance, preempt or reclaim -- through the shared engine
+        (``whatif.commit_inflight_plan``): any mutation / epoch /
+        compaction / node-count drift voids it wholesale."""
+        from . import whatif
+
+        whatif.commit_inflight_plan(self)
 
     # ------------------------------------------------------ topology gates
 
@@ -3099,7 +3408,8 @@ class FastCycle:
         self._aggr_pending.append((jr[er], si, v, self.q_of_job[jr][er]))
 
         # Pod records + bind dispatch (async in the reference,
-        # cache.go:536-552; here one synchronous batched dispatch).
+        # cache.go:536-552): one batched dispatch, inline or, with
+        # ``async_bind``, queued at cycle end.
         binder = store.binder
         bind_keys = getattr(binder, "bind_keys", None)
         notify = store._watchers
@@ -3107,6 +3417,19 @@ class FastCycle:
         # Bound hostnames land in the mirror as ONE batched column write
         # (the vectorized replacement for a per-row setattr walk).
         m.p_node_name[rows] = name_a[nodes_c]
+        if (store.async_bind and not notify and not store.n_volume_pods
+                and not m.p_pod_nones):
+            # The reference sets pod.NodeName through the API server on
+            # the asynchronous bind, not inside the cycle: the object
+            # arrays go to the bind dispatcher, whose thread does the
+            # tolist + node_name walk after the cycle.  The mirror is
+            # already current; a path about to read pod records forces
+            # the walk first (store.apply_pending_bind_records).
+            entry = store.defer_bind_records(
+                key_a[rows], name_a[nodes_c], pod_a[rows])
+            self._bind_batches.append((None, None, None, entry))
+            store.mark_objects_stale()
+            return True
         pod_l = pod_a[rows].tolist()
         host_l = name_a[nodes_c].tolist()
         # Tombstoned rows can't be committed in the common case; the
@@ -3175,26 +3498,33 @@ class FastCycle:
                 bound_pods = [p for _, _, p, _ in kept]
                 bound_rows = [r for _, _, _, r in kept]
 
-        try:
-            if bind_keys is not None:
-                bind_keys(keys, hosts)
-            else:
-                failed = []
-                for pod, hostname, key in zip(bound_pods, hosts, keys):
-                    try:
-                        binder.bind(pod, hostname)
-                    except BindFailure:
-                        failed.append(key)
-                if failed:
-                    raise BindFailure(failed)
-        except BindFailure as bf:
-            self._revert_failed_binds(bf.failed, keys, bound_rows,
-                                      bound_pods)
-            failed = set(bf.failed)
-            bound_pods = [
-                pod for pod, key in zip(bound_pods, keys)
-                if key not in failed
-            ]
+        if store.async_bind:
+            # The cycle pays a list append; the batch goes to the
+            # dispatcher at cycle end (_run_body), and failures re-enter
+            # Pending with backoff at the next cycle's drain.
+            self._bind_batches.append((keys, hosts, bound_pods, None))
+        else:
+            try:
+                if bind_keys is not None:
+                    bind_keys(keys, hosts)
+                else:
+                    failed = []
+                    for pod, hostname, key in zip(bound_pods, hosts,
+                                                  keys):
+                        try:
+                            binder.bind(pod, hostname)
+                        except BindFailure:
+                            failed.append(key)
+                    if failed:
+                        raise BindFailure(failed)
+            except BindFailure as bf:
+                self._revert_failed_binds(bf.failed, keys, bound_rows,
+                                          bound_pods)
+                failed = set(bf.failed)
+                bound_pods = [
+                    pod for pod, key in zip(bound_pods, keys)
+                    if key not in failed
+                ]
         if notify:
             for pod in bound_pods:
                 store._notify("Pod", "bind", pod)

@@ -38,8 +38,8 @@ from typing import NamedTuple, Optional
 
 import torch
 
-from .kernels import (LAUNCHES, _capture, _check, _on_card, _ptr, _req,
-                      _stream, load, tally)
+from .kernels import (_capture, _check, _on_card, _ptr, _req,
+                      _stream, count_launch, load, tally)
 
 AFF_TOTAL_CHUNK = 4096  # csrc/aff_live.cu kTotChunk
 
@@ -111,7 +111,7 @@ def scatter_cnt0(rows, cols, vals, e: int, d: int, plain: bool = False):
     rc = load().vtt_scatter_cnt0(_ptr(rows), _ptr(cols), _ptr(vals), k, e, d,
                                  _ptr(out), _stream())
     _check(rc, "scatter_cnt0")
-    LAUNCHES["scatter_cnt0"] += 1
+    count_launch("scatter_cnt0")
     return out
 
 
@@ -179,7 +179,7 @@ def scatter_profile_tables(rows, cols, flags, soft, u: int, e: int,
         _ptr(rows), _ptr(cols), _ptr(flags), _ptr(soft), k, u, e,
         _ptr(aff), _ptr(anti), _ptr(match), _ptr(st), _stream())
     _check(rc, "scatter_profile_tables")
-    LAUNCHES["scatter_profile_tables"] += 1
+    count_launch("scatter_profile_tables")
     return aff, anti, match, st
 
 
@@ -311,7 +311,7 @@ def aff_live(rows, cand, terms, at: AffTerms, plain: bool = False, *,
         _ptr(at.t_soft), _ptr(part), _ptr(gate),
         _ptr(tally("aff_live", dev)), _ptr(ok), _ptr(soft), _stream())
     _check(rc, "aff_live")
-    LAUNCHES["aff_live"] += 1
+    count_launch("aff_live")
     return ok, soft
 
 
@@ -414,4 +414,4 @@ def aff_filter(choice, live, pid_l, at: AffTerms, acc, pipe=None, *,
         _ptr(term_req), _ptr(prof_req), _ptr(gm), _ptr(scratch), _ptr(acc),
         _ptr(pipe), _stream())
     _check(rc, "aff_filter")
-    LAUNCHES["aff_filter"] += 1
+    count_launch("aff_filter")

@@ -28,9 +28,15 @@ takes), so the two packages' counters stay equal.
 
 Only ``scatter_planes`` writes a resident plane; the solve reads them (its
 per-cycle state -- idle, pod counts, queue allocations -- lives in fresh
-tensors).  The JAX package padded each delta to a power of two with
-duplicate rows so one compiled scatter served many lengths; the port
-passes the unique row list.
+tensors).  A pipelined session's solve reads them on its worker thread and
+stream (``pipeline.py``) while the cycle thread goes on: the dispatch
+registers the solve as a reader (``add_reader``), and a delta waits for
+every registered solve to finish before it scatters (``wait_readers``).
+The JAX package orders the same write through ``donate_argnums``.  On the
+CPU a plane is a copy of the host array it was built from, never a view.
+The JAX package padded each delta to a power of two with duplicate rows so
+one compiled scatter served many lengths; the port passes the unique row
+list.
 
 One snapshot lives per store (``store.device_snapshot``), created by the
 fast path on first use.  The mesh-sharded placement is not ported
@@ -102,9 +108,26 @@ class DeviceSnapshot:
         # planes re-uploaded whole inside a delta (delta unprovable).
         self.delta_launches = 0
         self.plane_uploads = 0
+        # Pipelined solves dispatched with these planes among their inputs
+        # (pipeline.SolveJob), not yet known to be finished.
+        self._readers: list = []
+
+    def add_reader(self, job) -> None:
+        self._readers = [j for j in self._readers if not j.done.is_set()]
+        self._readers.append(job)
+
+    def wait_readers(self) -> None:
+        """Wait for every registered solve to finish (bounded, raising:
+        ``pipeline.SolveJob.wait``) -- called before a plane is written in
+        place.  A solve's device reads end before its host loop does."""
+        readers, self._readers = self._readers, []
+        for job in readers:
+            job.wait()
 
     def _put_plane(self, a: np.ndarray) -> torch.Tensor:
-        return to_tensor(np.ascontiguousarray(a), self.device)
+        t = to_tensor(np.ascontiguousarray(a), self.device)
+        # A CPU tensor from numpy shares the array's memory: copy it.
+        return t.clone() if t.device.type == "cpu" else t
 
     def _delta_vals(self, name: str, rows: np.ndarray, vals) -> np.ndarray:
         """One plane's delta values, checked against the resident plane."""
@@ -181,6 +204,8 @@ class DeviceSnapshot:
                 self.delta_chunks += max(
                     0, -(-len(delta_rows) // chunk) - 1)
             if probes:
+                # The scatter writes resident planes in place.
+                self.wait_readers()
                 row_nb = 4 + sum(np.asarray(v).nbytes
                                  for v in probes.values())
                 # The staged layout pads each plane's values to 16 bytes.

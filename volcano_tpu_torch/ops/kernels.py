@@ -42,7 +42,8 @@ kernel's plain version; on CUDA tensors it launches the kernel (on torch's
 current stream) or raises -- there is no fallback.  ``plain=True`` forces
 the plain version on the card; only ``chip_smoke.py`` asks for it, to hold
 the two against each other.  ``LAUNCHES`` counts kernel launches, one per
-wrapper call that launched its kernel.
+wrapper call that launched its kernel (``count_launch``, under a lock: a
+pipelined session launches from two threads).
 
 The five solve kernels take ``future``, a ``Future`` of the releasing
 capacity planes: the JAX solve's has_future branch, where a fit reads
@@ -166,20 +167,61 @@ TALLIES: dict = {}
 FUSED = {"static_planes": 0, "fabric_frag": 0}
 
 
+# Two threads launch in a pipelined session (the cycle thread and the solve
+# worker, ``pipeline.py``): the counts, the capture and the tallies are
+# written under this lock, and a thread inside ``own_counts`` also counts
+# its launches in its own dict (the worker's per-solve counts).
+_COUNT_LOCK = threading.Lock()
+_OWN = threading.local()
+
+
+def count_launch(name: str, fused: Optional[str] = None) -> None:
+    """One launch of ``name``'s kernel (which also did ``fused``'s work)."""
+    with _COUNT_LOCK:
+        LAUNCHES[name] += 1
+        if fused is not None:
+            FUSED[fused] += 1
+        own = getattr(_OWN, "counts", None)
+        if own is not None:
+            own[name] = own.get(name, 0) + 1
+            if fused is not None:
+                key = f"{fused}:fused"
+                own[key] = own.get(key, 0) + 1
+
+
+class own_counts:
+    """Within the block, the calling thread's launches are also counted
+    in ``counts`` (``name``, and ``name:fused`` for ``FUSED``)."""
+
+    def __init__(self, counts: dict):
+        self.counts = counts
+
+    def __enter__(self):
+        self.prev = getattr(_OWN, "counts", None)
+        _OWN.counts = self.counts
+        return self.counts
+
+    def __exit__(self, *exc):
+        _OWN.counts = self.prev
+        return False
+
+
 def reset_launches() -> None:
-    for k in LAUNCHES:
-        LAUNCHES[k] = 0
-    for k in FUSED:
-        FUSED[k] = 0
-    TALLIES.clear()
+    with _COUNT_LOCK:
+        for k in LAUNCHES:
+            LAUNCHES[k] = 0
+        for k in FUSED:
+            FUSED[k] = 0
+        TALLIES.clear()
 
 
 def tally(name: str, dev) -> torch.Tensor:
     """The [1] int32 counter ``name`` on device ``dev``."""
     key = (name, str(dev))
-    t = TALLIES.get(key)
-    if t is None:
-        t = TALLIES[key] = torch.zeros(1, dtype=torch.int32, device=dev)
+    with _COUNT_LOCK:
+        t = TALLIES.get(key)
+        if t is None:
+            t = TALLIES[key] = torch.zeros(1, dtype=torch.int32, device=dev)
     return t
 
 
@@ -190,6 +232,11 @@ def read_tally(name: str) -> int:
 
 
 def _capture(name: str, **inputs) -> None:
+    with _COUNT_LOCK:
+        _capture_locked(name, inputs)
+
+
+def _capture_locked(name: str, inputs: dict) -> None:
     if CAPTURE is None or name in CAPTURE:
         return
     def clone(v):
@@ -783,7 +830,7 @@ def coarse_shortlist(prof, cls, idle, alloc, ntasks, max_tasks, eps,
             a, a["stat_ok"], a["stat_score"], weights, None, n_blocks, nlb,
             klb, S, None, cand_s, cand_i, fut, ports, aff)
         _check(rc, "coarse_shortlist")
-        LAUNCHES["coarse_shortlist"] += 1
+        count_launch("coarse_shortlist")
         return out, a["stat_ok"], a["stat_score"], cand_s, cand_i
     if stat is None:
         stat_ok = torch.empty((U, C), dtype=torch.bool, device=dev)
@@ -816,8 +863,8 @@ def coarse_shortlist(prof, cls, idle, alloc, ntasks, max_tasks, eps,
         _ptr(out), *pp[:3], *ap, *ep, _stream(),
     )
     _check(rc, "coarse_shortlist")
-    LAUNCHES["coarse_shortlist"] += 1
-    FUSED["static_planes"] += int(stat is None)
+    count_launch("coarse_shortlist",
+                 fused="static_planes" if stat is None else None)
     return out, stat_ok, stat_score
 
 
@@ -865,7 +912,7 @@ def static_planes(prof, cls, naff: float, has_taints: bool,
         int(bool(has_taints)), _ptr(ok), _ptr(score), _stream(),
     )
     _check(rc, "static_planes")
-    LAUNCHES["static_planes"] += 1
+    count_launch("static_planes")
     return ok, score
 
 
@@ -937,7 +984,7 @@ def warm_shortlist(prof, cls_id, stat_ok, stat_score, idle, alloc, ntasks,
         a, a["stat_ok"], a["stat_score"], weights, db, B, nlb, klb, S,
         (cand_s, cand_i), new_s, new_i, fut, ports, aff)
     _check(rc, "warm_shortlist")
-    LAUNCHES["warm_shortlist"] += 1
+    count_launch("warm_shortlist")
     return out, new_s, new_i
 
 
@@ -966,7 +1013,7 @@ def scatter_rows(buf: torch.Tensor, rows: torch.Tensor, vals: torch.Tensor,
     rc = load().vtt_scatter_rows(_ptr(buf), _ptr(rows), _ptr(vals), k,
                                  row_bytes, _stream())
     _check(rc, "scatter_rows")
-    LAUNCHES["scatter_rows"] += 1
+    count_launch("scatter_rows")
 
 
 SCATTER_MAX_PLANES = 8  # csrc/scatter_rows.cu kMaxPlanes
@@ -1076,7 +1123,7 @@ def scatter_planes(bufs, staged: torch.Tensor, k: int,
                                    ctypes.c_void_p(ctypes.addressof(desc)),
                                    _stream())
     _check(rc, "scatter_planes")
-    LAUNCHES["scatter_rows"] += 1
+    count_launch("scatter_rows")
 
 
 # ----------------------------------------------------- rank_candidates
@@ -1239,7 +1286,7 @@ def rank_candidates(rows, cand, ok_w, score_w, cls_id, p_req, p_init_req,
         _ptr(pids if extra is not None else None), EN, *ep, _stream(),
     )
     _check(rc, "rank_candidates")
-    LAUNCHES["rank_candidates"] += 1
+    count_launch("rank_candidates")
     return ranked, feas_k, p_any
 
 
@@ -1408,7 +1455,7 @@ def walk_accept(ranked, feas_k, p_req, p_init_req, pid_l, cand_s, any_feas,
         _ptr(acc), _ptr(pipe), *pp, _ptr(self_anti), _stream(),
     )
     _check(rc, "walk_accept")
-    LAUNCHES["walk_accept"] += 1
+    count_launch("walk_accept")
     return choice, acc, pipe
 
 
@@ -1628,7 +1675,7 @@ def apply_commit(node, mask, rows, row_idx, qidx, idle, q_alloc, *,
         *co, _stream(),
     )
     _check(rc, "apply_commit")
-    LAUNCHES["apply_commit"] += 1
+    count_launch("apply_commit")
 
 
 # ------------------------------------------------------- victim_scores
@@ -1756,7 +1803,7 @@ def victim_scores(v_ok, v_jprio, v_crank, v_tie, v_queue, v_node, v_req,
         _ptr(order), _ptr(evictable), _ptr(q_share), _stream(),
     )
     _check(rc, "victim_scores")
-    LAUNCHES["victim_scores"] += 1
+    count_launch("victim_scores")
     return eligible, order, evictable, q_share
 
 
@@ -1867,7 +1914,7 @@ def frag_scores(idle, alloc, ready, evictable, prof_req, eps,
         _ptr(a["evictable"]), _ptr(a["prof_req"]), _ptr(a["eps"]), N, U, R,
         _ptr(out[0]), _ptr(out[1]), _ptr(out[2]), _stream())
     _check(rc, "frag_scores")
-    LAUNCHES["frag_scores"] += 1
+    count_launch("frag_scores")
     return _frag_rows(out)
 
 
@@ -1959,8 +2006,7 @@ def gang_block_fit(idle, ready, ntasks, max_tasks, block_id, prof_req,
         _ptr(a["prof_cnt"]), _ptr(a["eps"]), N, U, R, B, int(cluster),
         _ptr(cfit), _ptr(whole), _ptr(score), _ptr(frag), _stream())
     _check(rc, "gang_block_fit")
-    LAUNCHES["gang_block_fit"] += 1
-    FUSED["fabric_frag"] += 1
+    count_launch("gang_block_fit", fused="fabric_frag")
     return cfit, whole, score, frag
 
 
@@ -1999,7 +2045,7 @@ def fabric_frag(cfit, whole, prof_cnt, plain: bool = False):
                                 _ptr(a["prof_cnt"]), B, U, _ptr(out),
                                 _stream())
     _check(rc, "fabric_frag")
-    LAUNCHES["fabric_frag"] += 1
+    count_launch("fabric_frag")
     return out
 
 
@@ -2213,7 +2259,7 @@ def seq_solve(x, weights, plain: bool = False):
         _ptr(sc.rd_e), _ptr(sc.rd_flag), _ptr(sc.md_e), _stream(),
     )
     _check(rc, "seq_solve")
-    LAUNCHES["seq_solve"] += 1
+    count_launch("seq_solve")
     LAST_SEQ["alloc_cnt"] = alloc_cnt
     # The kernel's per-row profile words (a head's profile, -1 none, -2 the
     # row before's), for tests against ``seq_profiles``.

@@ -54,6 +54,7 @@ them.  So does ``VOLCANO_TPU_AFF_STEER``
 from __future__ import annotations
 
 import os as _os
+import threading as _threading
 import time as _time
 from typing import NamedTuple, Optional
 
@@ -134,8 +135,33 @@ def shortlist_size(n: int) -> int:
 # fine_s (host wall seconds, each ending in a device sync), shortlist
 # (U, S), n_nodes, compacted_classes, syncs (host reads of loop
 # conditions), host_reads (device planes read back), future (the
-# releasing-capacity branch ran).
+# releasing-capacity branch ran).  A thread inside ``own_twophase`` (the
+# pipelined session's solve worker) writes its own record instead.
 LAST_TWOPHASE: dict = {"enabled": False}
+_OWN = _threading.local()
+
+
+def _twophase() -> dict:
+    """The record the calling thread's solve writes."""
+    rec = getattr(_OWN, "record", None)
+    return LAST_TWOPHASE if rec is None else rec
+
+
+class own_twophase:
+    """Within the block, the calling thread's solves write ``record``
+    instead of ``LAST_TWOPHASE``."""
+
+    def __init__(self, record: dict):
+        self.record = record
+
+    def __enter__(self):
+        self.prev = getattr(_OWN, "record", None)
+        _OWN.record = self.record
+        return self.record
+
+    def __exit__(self, *exc):
+        _OWN.record = self.prev
+        return False
 
 
 class SolveProfiles(NamedTuple):
@@ -1011,8 +1037,9 @@ def _solve_wave(nodes: SolveNodes, jobs: SolveJobs,
         # Node indices fit int16 whenever N does (wave.py:2275).
         assigned = assigned.to(torch.int16)
         pipelined = pipelined.to(torch.int16)
-    LAST_TWOPHASE["syncs"] = syncs
-    LAST_TWOPHASE["aff_attempts"] = aff_attempts
+    rec = _twophase()
+    rec["syncs"] = syncs
+    rec["aff_attempts"] = aff_attempts
     return AllocResult(
         assigned=assigned,
         pipelined=pipelined,
@@ -1027,8 +1054,10 @@ def _solve_wave(nodes: SolveNodes, jobs: SolveJobs,
 
 
 def _sync(dev: torch.device) -> None:
+    """Wait for the calling thread's current stream (a pipelined solve
+    runs on the worker's stream beside the cycle thread's)."""
     if dev.type == "cuda":
-        torch.cuda.synchronize(dev)
+        torch.cuda.current_stream(dev).synchronize()
 
 
 def solve_wave(
@@ -1353,10 +1382,11 @@ def solve_wave(
     )
     _sync(dev)
     t_fine = _time.perf_counter() - t0
-    syncs = LAST_TWOPHASE.get("syncs", 0)
-    aff_attempts = LAST_TWOPHASE.get("aff_attempts", 0)
-    LAST_TWOPHASE.clear()
-    LAST_TWOPHASE.update({
+    rec = _twophase()
+    syncs = rec.get("syncs", 0)
+    aff_attempts = rec.get("aff_attempts", 0)
+    rec.clear()
+    rec.update({
         "enabled": True,
         "prep_s": t_prep,
         "coarse_s": t_coarse,

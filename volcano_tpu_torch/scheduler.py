@@ -14,7 +14,9 @@ good conf yet, the error propagates.
 
 A cycle that fails propagates its error: a fast-path failure does not fall
 back to the object session (the JAX package's ``VOLCANO_TPU_FALLBACK``
-fallback is not ported).  The cycle runs on the card unless the scheduler is
+fallback is not ported).  With ``store.pipeline`` a cycle dispatches its
+solve to the store's solve worker and commits it in the next cycle
+(``pipeline.py``); ``stop()`` abandons what is still parked.  The cycle runs on the card unless the scheduler is
 built with ``device="cpu"``; without a card the default raises.
 """
 
@@ -118,6 +120,17 @@ class Scheduler:
             if self._fastpath_enabled() and run_cycle_fast(
                     self.store, conf, device=self.device):
                 return
+            # A pipelined solve or what-if plan must not survive into the
+            # object session: its pods read as Pending there and would
+            # double-schedule when a later fast cycle committed the stale
+            # result.  Abandoning is safe -- the pods re-place here.
+            from .pipeline import abandon_inflight, abandon_inflight_plan
+
+            abandon_inflight(self.store)
+            abandon_inflight_plan(self.store)
+            # The object session reads pod RECORDS as scheduling truth:
+            # force the deferred bind-record walks first.
+            self.store.apply_pending_bind_records()
             self._run_object_session(conf, action_names)
 
     def _run_object_session(self, conf, action_names) -> None:
@@ -206,7 +219,10 @@ class Scheduler:
     STOP_TIMEOUT = 30.0
 
     def stop(self, timeout: Optional[float] = None) -> None:
-        """Stop the periodic loop and join its thread."""
+        """Stop the periodic loop, join its thread, and abandon the
+        pipelined solve and what-if plan left parked between cycles: the
+        solved pods are still Pending store-side, so a restarted
+        scheduler re-places them on its first cycle."""
         with self._lifecycle_lock:
             self._stop.set()
             t = self._thread
@@ -214,8 +230,14 @@ class Scheduler:
                 t.join(self.STOP_TIMEOUT if timeout is None else timeout)
                 if t.is_alive():
                     log.error("scheduler loop thread did not exit within "
-                              "%.0fs",
+                              "%.0fs; in-flight state NOT drained",
                               self.STOP_TIMEOUT if timeout is None
                               else timeout)
                     return
                 self._thread = None
+        # Only after the thread is dead: the cycle thread owns the
+        # in-flight handles while it runs.
+        from .pipeline import abandon_inflight, abandon_inflight_plan
+
+        abandon_inflight(self.store)
+        abandon_inflight_plan(self.store)

@@ -23,9 +23,13 @@ mutates nothing until commit, so rejecting one is free.
 The what-if solve runs on the cycle's device with no device-incremental
 state (it neither builds nor reuses static planes or warm shortlists and
 anchors no dirty set), never writes through the live cycle's arrays, and
-restores the store's encode cache around its encode.  The JAX package's
-pipelined plans (``InflightPlan``), mesh dispatch and remote-solver offload
-are unreachable here: the port refuses pipelined sessions, meshes and
+restores the store's encode cache around its encode.  Pipelined stores
+park the what-if as ``pipeline.InflightPlan``, its solve on the store's
+solve worker behind the allocate lane's, and commit it at the next cycle's
+top behind the staleness guard: any ``mutation_seq`` / ``epoch`` /
+``compact_gen`` / node-count drift voids the plan wholesale
+(``commit_inflight_plan``).  The JAX package's mesh dispatch and
+remote-solver offload are unreachable here: the port refuses meshes and
 remote solvers up front (``FastCycle.check_ported``).
 
 Every function here runs on the cycle thread inside ``FastCycle.run``
@@ -175,17 +179,32 @@ def whatif_inputs(cyc, plan: WhatIfPlan):
 
 
 def dispatch_plan(cyc, plan: WhatIfPlan) -> None:
-    """Run the plan's what-if solve on the cycle's device and judge it.
-    No device-incremental state rides along (the JAX package passes none
-    to the plan solve either)."""
+    """Run (or, pipelined, park) the plan's what-if solve on the cycle's
+    device and judge it.  No device-incremental state rides along (the JAX
+    package passes none to the plan solve either)."""
     from .ops.wave import solve_wave
 
+    m = cyc.m
+    store = cyc.store
     with cyc.tracer.span(
             "whatif_solve", cat="whatif",
             args={"action": plan.action, "gang": plan.gang_uid,
                   "victims": len(plan.victim_rows),
                   "need": plan.need}):
         inputs, pid, profiles, ncls = whatif_inputs(cyc, plan)
+        if cyc._pipeline_on:
+            from .pipeline import PLAN_FIELDS, InflightPlan, dispatch_solve
+
+            job = dispatch_solve(
+                store, cyc.device, inputs, PLAN_FIELDS,
+                snap=getattr(store, "device_snapshot", None), pid=pid,
+                profiles=profiles, taint_any=cyc._taint_any,
+                node_classes=ncls)
+            store._solve_seq += 1
+            store._inflight_plan = InflightPlan(
+                job, plan, m.mutation_seq, m.epoch, m.compact_gen, cyc.Nn,
+                plan_id=store._solve_seq)
+            return
         res = solve_wave(*inputs, pid=pid, profiles=profiles,
                          taint_any=cyc._taint_any, node_classes=ncls,
                          device=cyc.device)
@@ -197,6 +216,38 @@ def dispatch_plan(cyc, plan: WhatIfPlan) -> None:
         ]).cpu().numpy()
         assigned, never_ready = packed[:P], packed[P:].astype(bool)
     apply_plan(cyc, plan, assigned, never_ready)
+
+
+def commit_inflight_plan(cyc) -> None:
+    """Land (or void) the previous cycle's pipelined what-if plan.  A
+    whole-cluster what-if has no per-row salvage, so ANY drift -- mutation
+    counter, node-table epoch, compaction generation, node count -- voids
+    the plan wholesale (it mutated nothing; the planner re-forms against
+    fresh state).  An error the worker raised propagates."""
+    from .pipeline import take_inflight_plan
+
+    inflight = take_inflight_plan(cyc.store)
+    if inflight is None:
+        return
+    m = cyc.m
+    plan = inflight.plan
+    with cyc.tracer.span(
+            "whatif_commit", cat="whatif", lanes=cyc.lanes,
+            lane=plan.action,
+            args={"plan_id": inflight.plan_id,
+                  "action": plan.action, "gang": plan.gang_uid,
+                  "victims": len(plan.victim_rows)}):
+        if (m.mutation_seq != inflight.mutation_seq
+                or m.epoch != inflight.epoch
+                or m.compact_gen != inflight.compact_gen
+                or cyc.Nn != inflight.n_nodes):
+            inflight.abandon()
+            count_plan(cyc, plan.action, "stale-voided",
+                       gang=plan.gang_uid,
+                       victims=len(plan.victim_rows))
+            return
+        assigned, never_ready = inflight.fetch()
+        apply_plan(cyc, plan, assigned, never_ready)
 
 
 def apply_plan(cyc, plan: WhatIfPlan, assigned: np.ndarray,
@@ -561,6 +612,8 @@ def _plan_evict(cyc, action: str) -> Optional[WhatIfPlan]:
     streaks, backoff = update_streaks(store, action, uids)
     if not len(cand):
         return None
+    # Pipelined cycles see starvation one commit behind.
+    need_streak = 2 if cyc._pipeline_on else 1
     ledger = store.migrations
     needs = (m.j_minav[cand] - cyc.j_ready_base[cand]).astype(np.int64)
     prios = m.j_prio[cand].astype(np.int64)
@@ -579,7 +632,7 @@ def _plan_evict(cyc, action: str) -> Optional[WhatIfPlan]:
         for r in cand[order]:
             jrow = int(r)
             uid = m.j_uid[jrow]
-            if streaks.get((action, uid), 0) < 1 \
+            if streaks.get((action, uid), 0) < need_streak \
                     or backoff.get((action, uid), 0) > 0:
                 continue
             if ledger is not None:
@@ -653,9 +706,10 @@ def _plan_evict_gang(cyc, action: str, jrow: int,
 
 
 def run_evict_action(cyc, action: str) -> None:
-    """The device-native preempt/reclaim lane body: plan, prove, commit.
-    One what-if wave is in flight at a time (the ``_inflight_plan`` slot,
-    always empty without pipelined sessions)."""
+    """The device-native preempt/reclaim lane body: plan, prove, commit (or
+    park the proof for the next cycle's top).  One what-if wave is in
+    flight at a time across every engine action: the ``_inflight_plan``
+    slot is shared."""
     if cyc.store._inflight_plan is not None:
         return
     plan = _plan_evict(cyc, action)
