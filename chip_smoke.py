@@ -7,7 +7,8 @@ Run from the repository root on a machine with one CUDA card:
     python3 chip_smoke.py
 
 (``python3 chip_smoke.py pipeline`` runs phase 8b alone, ``python3
-chip_smoke.py seq-trace`` the traced seq cycle of phase 21 alone.)  It
+chip_smoke.py obs`` phases 8c and 8d, ``python3 chip_smoke.py seq-trace``
+the traced seq cycle of phase 21 alone.)  It
 builds the sixteen CUDA kernels of ``volcano_tpu_torch/csrc`` (fourteen
 sources, one nvcc each, started together; ``launch_floor.cu`` holds only an
 empty kernel, timed to give what one launch costs) and then runs these
@@ -79,6 +80,31 @@ of which raises (and the script exits non-zero) when a check fails:
    launches replayed against the plain versions; then a pipelined preempt
    (``priority_tier_workload(2,000 workers, a 1,000-task serving gang)``)
    card against CPU, ``victim_scores`` launched beside a worker solve;
+   the north-star store's flight records and journey rows written with
+   ``obs.export.write_trace`` and parsed back: one dispatch -> commit flow
+   per committed solve id, journey instants on committed solve ids only;
+8c. obs: every store of every phase runs with the default observability
+   (the conservation auditor with its SLO tracker and the pod journey);
+   each fast-path phase ends with no auditor anomaly, at least one audited
+   cycle, and the journey's conservation check clean over its placed pods
+   (``audit_checked``: ``audit_stats()`` and the journey's ``stats()``
+   printed; an auditor error is an anomaly, so it fails the run).  At the
+   north star, two stores loaded from the checkpoint of phase 6's store
+   (taken before its cold cycle), one with ``VOLCANO_TPU_AUDIT_SAMPLE=1``
+   (the aggregate re-verify and the encode and devincr sentinels every
+   cycle), one with ``VOLCANO_TPU_AUDIT=0 VOLCANO_TPU_JOURNEY=0``: a cold
+   and 5 steady cycles each, binds equal, every solve's launches and syncs
+   equal, ``host_reads`` 0; then on against off in turns at the default
+   sample rate, 3 times each: a re-cold cycle (caches dropped, a fresh
+   journey, every pod placed again), a steady cycle, a pipelined steady
+   cycle -- walls and the self-timed audit and journey time;
+8d. ha: the checkpoint of 8c (its bytes, save and load seconds); the
+   loaded store's cold binds equal phase 6's cold binds pod for pod; a
+   scheduler gated
+   on a ``LeaderElector`` whose lease another identity holds: no bind, no
+   cycle and no launch over 10 periods of ``Scheduler.run()``; after the
+   holder releases, every pod of a 1,000 x 10,000 store bound; healthy
+   after ``stop()``;
 9. reclaim (BASELINE config 4): ``preempt_cluster(10,000 nodes, 4 fillers
    a node, 20,000 pending pods in gangs of 4)`` under the preempt + reclaim
    conf, ``ClusterSimulator(grace_steps=2)`` stepped after every cycle: a
@@ -1541,6 +1567,52 @@ def _lanes(store) -> dict:
             sorted((store.last_cycle_lanes or {}).items())}
 
 
+# TaskStatus bits of a pod holding a placement: Allocated, Binding, Bound,
+# Running, Succeeded (the journey's own mask).
+BOUND_MASK = 2 | 8 | 16 | 32 | 128
+
+
+def bound_uids(store) -> list:
+    """The uids of the live pods the mirror holds placed."""
+    import numpy as np
+
+    m = store.mirror
+    Pn = m.n_pods
+    rows = np.flatnonzero(m.p_alive[:Pn]
+                          & ((m.p_status[:Pn] & BOUND_MASK) != 0))
+    return [m.p_uid[r] for r in rows.tolist()]
+
+
+def audit_checked(label, store, fast=True) -> dict:
+    """The store's default observability at the end of a phase: no
+    anomaly in the auditor's ring (an auditor error is an ``audit-error``
+    anomaly, so a broken auditor fails here too), with ``fast`` at least
+    one audited cycle and one reconcile, and the journey's conservation
+    check clean over every placed pod.  Logs ``audit_stats()`` and the
+    journey's ``stats()``; returns ``audit_stats()``."""
+    anoms = store.auditor.anomalies()
+    if anoms:
+        raise AssertionError(
+            f"[{label}] {len(anoms)} auditor anomalies: "
+            f"{json.dumps([a.to_dict() for a in anoms[:5]], default=str)}")
+    stats = store.auditor.audit_stats()
+    if fast and store.auditor.enabled and (stats["cycles"] < 1
+                                           or stats["reconciles"] < 1):
+        raise AssertionError(f"[{label}] the auditor audited no cycle: "
+                             f"{stats}")
+    jstats = None
+    if store.journey is not None:
+        bad = store.journey.conservation_check(bound_uids(store))
+        if bad:
+            raise AssertionError(
+                f"[{label}] journey conservation: "
+                f"{json.dumps([a.to_dict() for a in bad], default=str)}")
+        jstats = store.journey.stats()
+    _log(f"[{label}] audit {json.dumps(stats)} journey "
+         f"{json.dumps(jstats)}")
+    return stats
+
+
 def run_cycle(label, store, n_pods, steady=5, n_update=100, trace=False):
     """The port's main path: ``Scheduler(store).run_once()`` with the
     deployed conf.  One cold cycle, ``steady`` cycles re-pending the pods
@@ -1743,6 +1815,7 @@ def run_cycle(label, store, n_pods, steady=5, n_update=100, trace=False):
                             "static_hits": dv.static_hits,
                             "static_builds": dv.static_builds,
                             "last_blocks": list(dv.last_blocks)}
+    stats["audit"] = audit_checked(label, store)
     return stats, records, sched
 
 
@@ -1912,6 +1985,7 @@ def pipelined_run(label, store, device, n_pods, script, log_cycles=True):
                 _log(f"[{label}] {kind} cycle {json.dumps(r)}")
             records.append((r, dict(store.binder.binds),
                             _mirror_state(store)))
+    audit_checked(label, store)
     return records, fetches.seen, prof, sched
 
 
@@ -1971,6 +2045,7 @@ def pipeline_preempt(workers=2000, serving=1000, max_cycles=24):
                     break
         finally:
             kernels.victim_scores = real_vs
+        audit_checked(f"pipeline:preempt:{device or 'card'}", store)
         store.close()
         return trace
 
@@ -2234,6 +2309,7 @@ def pipeline_phase(sync_binds=None, sync_launches=None, big=(10000, 100000),
     if not upd["drops"].get("deleted"):
         raise AssertionError("[pipeline] the deleted gang dropped no row")
     pipeline_invariants(store, n_pods - len(deleted), final=True, gone=gone)
+    export = export_checked("pipeline", store)
     missing = never_launched(launches, CYCLE_KERNELS)
     if missing:
         raise AssertionError(f"[pipeline] kernels never launched: {missing}")
@@ -2242,6 +2318,7 @@ def pipeline_phase(sync_binds=None, sync_launches=None, big=(10000, 100000),
               and r[0]["committed"] is not None]
     stats = {
         "worker_ab": ab,
+        "export": export,
         "cycles": [r[0] for r in recs],
         "launches": launches,
         "cold_solve_launches": cold,
@@ -2275,6 +2352,410 @@ def pipeline_phase(sync_binds=None, sync_launches=None, big=(10000, 100000),
     rows = replay_kernels(caps, launches, reps=3, names=CYCLE_KERNELS)
     stats["preempt"] = pipeline_preempt(**(preempt or {}))
     return stats, rows
+
+
+def export_checked(label, store) -> dict:
+    """Write the store's flight records and its journey's rows with
+    ``obs.export.write_trace``, parse the file back and check it: for
+    every committed solve id one flow arrow -- one start, on its dispatch
+    span, and one finish, the commit span's among its events -- and
+    journey instants whose solve ids are all committed ones (at least
+    one).  Returns the counts."""
+    import os
+    import tempfile
+
+    from volcano_tpu_torch.obs import export
+
+    recs = store.flight.recent()
+    committed = {r.committed_solve_id for r in recs
+                 if r.committed_solve_id is not None}
+    with tempfile.TemporaryDirectory() as d:
+        path = export.write_trace(os.path.join(d, "trace.json"), recs,
+                                  journey=store.journey.trace_rows())
+        nbytes = os.path.getsize(path)
+        with open(path) as f:
+            evs = json.load(f)["traceEvents"]
+    spans = {}
+    for e in evs:
+        if e["ph"] == "X" and e["name"] in ("dispatch", "inflight_commit"):
+            spans.setdefault((e["name"], e["args"].get("solve_id")),
+                             []).append(e["ts"])
+    flows = {}
+    for e in evs:
+        if e.get("cat") == "flow":
+            flows.setdefault(e["id"], []).append((e["ph"], e["ts"]))
+    if not committed:
+        raise AssertionError(f"[{label}] no committed solve to export")
+    for sid in committed:
+        ph = flows.get(sid, [])
+        starts = [ts for p, ts in ph if p == "s"]
+        if len(starts) != 1 or [p for p, _ in ph].count("f") != 1:
+            raise AssertionError(f"[{label}] solve {sid}: flow phases "
+                                 f"{sorted(p for p, _ in ph)}")
+        if starts != spans.get(("dispatch", sid)):
+            raise AssertionError(f"[{label}] solve {sid}: the flow does "
+                                 "not start on its dispatch span")
+        if not set(spans.get(("inflight_commit", sid), ())) <= \
+                {ts for _, ts in ph} or ("inflight_commit", sid) not in spans:
+            raise AssertionError(f"[{label}] solve {sid}: the commit span "
+                                 "is not on its flow")
+    jsids = {e["args"]["solve_id"] for e in evs
+             if e.get("cat") == "journey" and e["ph"] == "n"
+             and e["args"].get("solve_id")}
+    tracks = sum(1 for e in evs if e.get("cat") == "journey"
+                 and e["ph"] == "b")
+    if not jsids or not jsids <= committed:
+        raise AssertionError(f"[{label}] journey solve ids {sorted(jsids)} "
+                             f"not among the committed {sorted(committed)}")
+    out = {"bytes": nbytes, "events": len(evs), "committed": len(committed),
+           "journey_tracks": tracks, "journey_solve_ids": sorted(jsids)}
+    _log(f"[{label}:export] Perfetto trace of {len(recs)} flight records "
+         f"and the journey ring: {json.dumps(out)}; one dispatch -> commit "
+         f"flow per committed solve id")
+    return out
+
+
+class _Env:
+    """Set environment variables for a ``with`` block, then restore."""
+
+    def __init__(self, **kv):
+        self.kv = kv
+
+    def __enter__(self):
+        import os
+
+        self.saved = {k: os.environ.get(k) for k in self.kv}
+        os.environ.update(self.kv)
+        return self
+
+    def __exit__(self, *exc):
+        import os
+
+        for k, v in self.saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+        return False
+
+
+class _Solves:
+    """Wraps ``ops.wave.solve_wave`` while active (synchronous cycles
+    only: the difference of the launch counts around a call is that
+    call's): each solve's launches, syncs and host reads."""
+
+    def __init__(self):
+        self.seen = []
+
+    def __enter__(self):
+        from volcano_tpu_torch.ops import wave as wave_mod
+
+        self.real = real = wave_mod.solve_wave
+        seen = self.seen
+
+        def counted(*a, **kw):
+            before = launch_counts()
+            out = real(*a, **kw)
+            info = wave_mod.LAST_TWOPHASE
+            seen.append({
+                "launches": {k: v - before[k]
+                             for k, v in launch_counts().items()
+                             if v - before[k]},
+                "syncs": info.get("syncs"),
+                "host_reads": info.get("host_reads")})
+            return out
+
+        wave_mod.solve_wave = counted
+        return self
+
+    def __exit__(self, *exc):
+        from volcano_tpu_torch.ops import wave as wave_mod
+
+        wave_mod.solve_wave = self.real
+        return False
+
+
+def _obs_cycle(store, sched, pipelined=False) -> dict:
+    """One ``run_once()`` on the card, host clock around it ending in a
+    sync (of the cycle thread's stream when ``pipelined``); the solves it
+    ran (synchronous: launches, syncs, host reads; pipelined: the solve it
+    fetched), the auditor's and the journey's self-timed nanoseconds in
+    it, the lanes."""
+    import torch
+
+    a0 = store.auditor.overhead_ns
+    jr = store.journey
+    j0 = 0 if jr is None else jr.capture_ns
+    with (_Fetches() if pipelined else _Solves()) as counts:
+        t0 = time.perf_counter()
+        sched.run_once()
+        if pipelined:
+            torch.cuda.current_stream().synchronize()
+        else:
+            torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    if pipelined and not store.flush_binds(120):
+        raise AssertionError("binds not flushed")
+    solves = counts.seen
+    if any(x["host_reads"] != 0 for x in solves):
+        raise AssertionError(f"a solve read device planes back: {solves}")
+    return {"wall_s": wall, "solves": solves,
+            "audit_ns": store.auditor.overhead_ns - a0,
+            "journey_ns": 0 if jr is None else jr.capture_ns - j0,
+            "lanes_ms": _lanes(store)}
+
+
+def save_checkpoint(store, directory) -> dict:
+    """``persistence.save_store`` of ``store`` into ``directory`` (the
+    first half of ``[ha]``): the path, the file's bytes and the seconds."""
+    import os
+
+    from volcano_tpu_torch.persistence import save_store
+
+    path = os.path.join(directory, "north-star.ckpt")
+    t0 = time.perf_counter()
+    save_store(store, path)
+    out = {"path": path, "save_s": time.perf_counter() - t0,
+           "checkpoint_bytes": os.path.getsize(path),
+           "pods": len(store.pods)}
+    _log(f"[ha] checkpoint of the north-star store before its cold cycle: "
+         f"{json.dumps(out)}")
+    return out
+
+
+def obs_phase(ckpt, orig_binds, reps=3):
+    """The default observability at full width, and the checkpoint round
+    trip of ``[ha]``.
+
+    Two stores are loaded from ``ckpt`` (``save_checkpoint`` of the
+    north-star store before its cold cycle): one with
+    ``VOLCANO_TPU_AUDIT_SAMPLE=1`` (every cycle runs the aggregate
+    re-verify and the encode and devincr sentinels over the card's
+    planes), one with ``VOLCANO_TPU_AUDIT=0 VOLCANO_TPU_JOURNEY=0``; the
+    load seconds are printed.  Both run a cold cycle and five steady
+    cycles re-pending nodes 0-63: the cold binds equal ``orig_binds`` (the
+    original store's cold cycle) pod for pod, the two stores' binds are
+    equal after every cycle, every solve's launches and syncs are equal
+    with observability on and off, ``host_reads`` is 0, and the audited
+    store has no anomaly and clean journey conservation.  Then the A/B at
+    the default sample rate, alternating the two stores (on, off) ``reps``
+    times each: a re-cold cycle (caches dropped with ``close()``, a fresh
+    journey, every pod re-pended by the feed and placed again), a steady
+    synchronous cycle, and -- with ``store.pipeline`` and ``async_bind``
+    -- a steady pipelined cycle; per cycle the wall and the auditor's and
+    the journey's self-timed nanoseconds.  Returns the stats."""
+    from volcano_tpu_torch.framework import DEPLOYED_SCHEDULER_CONF
+    from volcano_tpu_torch.obs import JourneyLog
+    from volcano_tpu_torch.obs.audit import DEFAULT_SAMPLE
+    from volcano_tpu_torch.persistence import load_store
+    from volcano_tpu_torch.scheduler import Scheduler
+
+    n_pods = ckpt["pods"]
+    ha = {k: v for k, v in ckpt.items() if k != "path"}
+    t0 = time.perf_counter()
+    with _Env(VOLCANO_TPU_AUDIT_SAMPLE="1"):
+        on = load_store(ckpt["path"])
+    ha["load_s"] = time.perf_counter() - t0
+    with _Env(VOLCANO_TPU_AUDIT="0", VOLCANO_TPU_JOURNEY="0"):
+        off = load_store(ckpt["path"])
+    if on.auditor.sample != 1 or not on.auditor.enabled \
+            or on.journey is None:
+        raise AssertionError("[obs] the audited store's observability is "
+                             "not on")
+    if off.auditor.enabled or off.journey is not None:
+        raise AssertionError("[obs] the other store's observability is on")
+    if len(on.pods) != n_pods or set(off.pods) != set(on.pods):
+        raise AssertionError("[ha] the checkpoint lost pods")
+    _log(f"[ha] north-star checkpoint loaded: {json.dumps(ha)}")
+    scheds = {k: Scheduler(st, conf_str=DEPLOYED_SCHEDULER_CONF)
+              for k, st in (("on", on), ("off", off))}
+    stores = {"on": on, "off": off}
+    feed = repend_feed(list(range(64)))
+    runs = {"on": [], "off": []}
+    for kind in ["cold"] + ["steady"] * 5:
+        for k in ("on", "off"):
+            if kind == "steady":
+                stores[k].cycle_feed = feed
+            rec = _obs_cycle(stores[k], scheds[k])
+            rec["kind"] = kind
+            runs[k].append(rec)
+            cycle_invariants(stores[k], n_pods)
+        if kind == "cold" and dict(on.binder.binds) != orig_binds:
+            raise AssertionError("[ha] the loaded store's cold binds differ "
+                                 "from the original store's")
+        if dict(on.binder.binds) != dict(off.binder.binds):
+            raise AssertionError(f"[obs] {kind} cycle: binds differ with "
+                                 f"observability on and off")
+        a, b = runs["on"][-1], runs["off"][-1]
+        if [(x["launches"], x["syncs"]) for x in a["solves"]] != \
+                [(x["launches"], x["syncs"]) for x in b["solves"]]:
+            raise AssertionError(
+                f"[obs] {kind} cycle: solves differ with observability on "
+                f"and off: {a['solves']} != {b['solves']}")
+        _log(f"[obs] {kind} cycle: on {a['wall_s']:.4f} s (audit "
+             f"{a['audit_ns'] / 1e6:.3f} ms, journey "
+             f"{a['journey_ns'] / 1e6:.3f} ms), off {b['wall_s']:.4f} s; "
+             f"per solve (launches, syncs) equal: "
+             f"{[(sum(x['launches'].values()), x['syncs']) for x in a['solves']]}"
+             f"; lanes(ms) on {json.dumps(a['lanes_ms'])}")
+    st = audit_checked("obs", on)
+    slots = sorted(on.auditor._sentinels)
+    if st["sampled_cycles"] != 6 or "devincr-static" not in slots:
+        raise AssertionError(f"[obs] not every cycle sampled, or no devincr "
+                             f"sentinel: {st}, slots {slots}")
+    _log(f"[ha] the loaded store's cold binds equal the original store's "
+         f"pod for pod; [obs] binds and per-solve launches and syncs equal "
+         f"on and off over the cold and 5 steady cycles; sentinel slots "
+         f"{slots}")
+    on.auditor.sample = DEFAULT_SAMPLE  # the A/B at the default rate
+
+    # -- the A/B: the two stores in turns.
+    def recold(k):
+        store = stores[k]
+        store.close()  # the cycle's caches and device state dropped
+        if k == "on":
+            store.journey = JourneyLog(slo=store.auditor.slo,
+                                       auditor=store.auditor)
+            store.mirror.journey = store.journey
+
+        def all_pending(fc):
+            import numpy as np
+
+            m = fc.m
+            rows = np.flatnonzero((m.p_status[:fc.Pn] == ST_BOUND)
+                                  & m.p_alive[:fc.Pn])
+            fc._unbind_rows(rows)
+
+        store.cycle_feed = all_pending
+
+    ab = {"cold": {"on": [], "off": []}, "steady": {"on": [], "off": []},
+          "pipelined": {"on": [], "off": []}}
+    for _ in range(reps):
+        for k in ("on", "off"):
+            recold(k)
+            ab["cold"][k].append(_obs_cycle(stores[k], scheds[k]))
+    for k in ("on", "off"):
+        stores[k].cycle_feed = feed
+    for _ in range(reps):
+        for k in ("on", "off"):
+            ab["steady"][k].append(_obs_cycle(stores[k], scheds[k]))
+    for k in ("on", "off"):
+        stores[k].pipeline = True
+        stores[k].async_bind = True
+        _obs_cycle(stores[k], scheds[k], pipelined=True)  # first dispatch
+    for _ in range(reps):
+        for k in ("on", "off"):
+            ab["pipelined"][k].append(
+                _obs_cycle(stores[k], scheds[k], pipelined=True))
+    for k in ("on", "off"):
+        stores[k].cycle_feed = None
+        _obs_cycle(stores[k], scheds[k], pipelined=True)  # drain
+        pipeline_invariants(stores[k], n_pods, final=True)
+    if dict(on.binder.binds) != dict(off.binder.binds):
+        raise AssertionError("[obs] the A/B's binds differ on and off")
+    out = {"ha": ha, "audit": audit_checked("obs:ab", on),
+           "journey": on.journey.stats()}
+    for kind, by in ab.items():
+        row = {}
+        for k in ("on", "off"):
+            walls = [r["wall_s"] for r in by[k]]
+            row[k] = {"wall_s": walls,
+                      "wall_s_median": statistics.median(walls)}
+        row["on"]["audit_ms"] = [r["audit_ns"] / 1e6 for r in by["on"]]
+        row["on"]["journey_ms"] = [r["journey_ns"] / 1e6 for r in by["on"]]
+        row["delta_ms_median"] = 1e3 * (row["on"]["wall_s_median"]
+                                        - row["off"]["wall_s_median"])
+        row["self_timed_ms_median"] = statistics.median(
+            (r["audit_ns"] + r["journey_ns"]) / 1e6 for r in by["on"])
+        out[kind] = row
+        _log(f"[obs:ab] {kind}: on {json.dumps(row['on'])}, off "
+             f"{json.dumps(row['off'])}, median on - off "
+             f"{row['delta_ms_median']:.3f} ms, self-timed audit + journey "
+             f"median {row['self_timed_ms_median']:.3f} ms")
+    for st in stores.values():
+        st.close()
+    return out
+
+
+def ha_gate_phase(size=(1000, 10000), periods=10, period_s=0.05):
+    """The second half of ``[ha]``: a scheduler gated on a
+    ``LeaderElector`` whose lease (in a temporary directory) another
+    identity holds runs ``Scheduler.run()`` for ``periods`` periods with
+    no bind, no flight record and no kernel launch; when the holder
+    releases, the elector takes the lease and the next cycle binds every
+    pod on the card; after ``stop()`` the scheduler is healthy."""
+    import os
+    import tempfile
+    import threading
+
+    from volcano_tpu_torch.framework import DEPLOYED_SCHEDULER_CONF
+    from volcano_tpu_torch.ha import LeaderElector
+    from volcano_tpu_torch.scheduler import Scheduler
+
+    store = _fresh_cluster(n_nodes=size[0], n_pods=size[1], gang_size=8,
+                           zones=16, seed=1)
+    lease_kw = dict(lease_duration=1.0, renew_deadline=0.5,
+                    retry_period=0.05)
+    with tempfile.TemporaryDirectory() as d:
+        lease = os.path.join(d, "lease")
+        holder = LeaderElector(lease, identity="holder", **lease_kw)
+        if not holder.try_acquire():
+            raise AssertionError("[ha:gate] the holder took no lease")
+        standby = LeaderElector(lease, identity="standby", **lease_kw)
+        elect = threading.Thread(
+            target=standby.run, args=(lambda: None, lambda: None),
+            daemon=True)
+        elect.start()
+        sched = Scheduler(store, conf_str=DEPLOYED_SCHEDULER_CONF,
+                          schedule_period=period_s,
+                          gate=lambda: standby.is_leader)
+        before = launch_counts()
+        sched.run()
+        try:
+            for _ in range(periods):
+                time.sleep(period_s)
+                if not holder.renew():
+                    raise AssertionError("[ha:gate] the holder lost its "
+                                         "lease")
+            launched = {k: v - before[k] for k, v in launch_counts().items()
+                        if v != before[k]}
+            if (standby.is_leader or store.binder.binds
+                    or store.flight.recent() or launched):
+                raise AssertionError(
+                    f"[ha:gate] the standby ran: leader "
+                    f"{standby.is_leader}, {len(store.binder.binds)} binds,"
+                    f" {len(store.flight.recent())} cycles, launches "
+                    f"{launched}")
+            t0 = time.perf_counter()
+            holder.stop()  # releases the lease
+            deadline = time.time() + 120
+            while len(store.binder.binds) < size[1] and \
+                    time.time() < deadline:
+                time.sleep(0.02)
+            takeover_s = time.perf_counter() - t0
+        finally:
+            sched.stop()
+            standby.stop()
+            elect.join(timeout=10)
+    launched = {k: v - before[k] for k, v in launch_counts().items()
+                if v != before[k]}
+    if len(store.binder.binds) != size[1] or not launched:
+        raise AssertionError(f"[ha:gate] after the takeover "
+                             f"{len(store.binder.binds)} binds, launches "
+                             f"{launched}")
+    if not sched.healthy():
+        raise AssertionError("[ha:gate] unhealthy after stop()")
+    cycle_invariants(store, size[1])
+    out = {"standby_periods": periods, "takeover_to_bound_s": takeover_s,
+           "cycles": len(store.flight.recent()), "launches": launched,
+           "healthy": sched.healthy(),
+           "audit": audit_checked("ha:gate", store)}
+    _log(f"[ha:gate] {size[0]}x{size[1]}: no bind and no launch over "
+         f"{periods} gated periods; after the holder released, every pod "
+         f"bound in {takeover_s:.3f} s; healthy after stop(); "
+         f"{json.dumps({k: v for k, v in out.items() if k != 'audit'})}")
+    store.close()
+    return out
 
 
 def _mirror_state(store):
@@ -2556,6 +3037,7 @@ def run_evict_phase(label, store, conf, grace, cycles, until=None,
     stats["evictions"] = sum(metrics.preempt_evictions.data.values()) - evict0
     stats["rebalance_evictions"] = (
         sum(metrics.rebalance_evictions.data.values()) - reb0)
+    stats["audit"] = audit_checked(label, store)
     return stats, launches, vs_caps, fut_caps
 
 
@@ -2960,6 +3442,7 @@ def plan_trace(racks=16, slices_per_rack=8, nodes_per_slice=64,
         try:
             Scheduler(store, conf_str=REBALANCE_SCHEDULER_CONF).run_once()
             torch.cuda.synchronize()
+            audit_checked("rebalance:plan-trace", store)
         finally:
             fastpath.FastCycle._plan_rebalance = plan
             store.close()
@@ -3355,6 +3838,7 @@ def run_aff_cycles(label, store, steady=5, trace=False, device=None,
         sim = ClusterSimulator(store, grace_steps=1)
         for _ in range(3):
             cycle("release")
+    stats["audit"] = audit_checked(label, store)
     return stats, records
 
 
@@ -3419,6 +3903,7 @@ def aff_cold_trace(big, cold_lanes) -> dict:
     aff_invariants(store)
     inv = cycle_invariants(store, len(store.pods))
     fine = _lanes(store).get("device_fine", 0.0)
+    audit_checked("affinity:cold-trace", store)
     store.close()
     if not prof:
         _log("[affinity:cold-trace] no device events in the trace (the "
@@ -3759,6 +4244,8 @@ def object_cycles(label, conf, device, cycles=3, check_binds=None):
         _log(f"[{label}] {device or 'card'} cycle {c}: {wall:.4f} s (build "
              f"{build_s:.3f} s), re-pended {repended}, lanes(ms) "
              f"{json.dumps(lanes)}")
+    audit_checked(f"{label}:{device or 'card'}", store, fast=False)
+    store.close()
     return records, stats
 
 
@@ -3859,6 +4346,7 @@ def seq_trace() -> dict:
             raise AssertionError(f"[seq:trace] no traced object cycle: path "
                                  f"{rec.path}, error {rec.error}")
         cycle_invariants(store, CONFIG2["n_pods"])
+        audit_checked("seq:trace", store, fast=False)
         store.close()
         solve_ms = timed.device_ms()
         if not solve_ms:
@@ -4049,6 +4537,26 @@ def main(argv=()) -> int:
             _log(f"[kernels:pipeline] {json.dumps(r)}")
         print(card, flush=True)
         return 0
+    if list(argv) == ["obs"]:
+        # The [obs] and [ha] phases alone, on a north-star store of their
+        # own (checkpointed, then its cold cycle: the binds to hold).
+        import tempfile
+
+        from volcano_tpu_torch.framework import DEPLOYED_SCHEDULER_CONF
+        from volcano_tpu_torch.scheduler import Scheduler
+
+        store = _fresh_cluster(n_nodes=10000, n_pods=100000, gang_size=8,
+                               zones=16, seed=0)
+        with tempfile.TemporaryDirectory() as d:
+            ckpt = save_checkpoint(store, d)
+            Scheduler(store, conf_str=DEPLOYED_SCHEDULER_CONF).run_once()
+            binds = dict(store.binder.binds)
+            store.close()
+            del store
+            _log(f"[obs] {json.dumps(obs_phase(ckpt, binds))}")
+        ha_gate_phase()
+        print(card, flush=True)
+        return 0
 
     # 1. small reference: the card against the CPU plain versions.
     store = synthetic_cluster(n_nodes=64, n_pods=512, gang_size=4,
@@ -4118,7 +4626,12 @@ def main(argv=()) -> int:
         raise AssertionError("[features] overuse gating did not bind")
     _log("[features] kernels match their plain versions")
 
-    # 6. the cycle: Scheduler(store).run_once() on the north-star store.
+    # 6. the cycle: Scheduler(store).run_once() on the north-star store,
+    # checkpointed first (the [ha] round trip of 8c-8d loads it).
+    import tempfile
+
+    ckpt_dir = tempfile.TemporaryDirectory()
+    ckpt = save_checkpoint(ns_store, ckpt_dir.name)
     kernels.CAPTURE = {}
     kernels.reset_launches()
     cyc_stats, _rec, _sched = run_cycle("cycle", ns_store, 100000,
@@ -4200,8 +4713,9 @@ def main(argv=()) -> int:
 
     # 8b. the pipelined session: the cycle's kernels launched from the
     # solve worker's stream, held against the [cycle] cold cycle.
+    cold_binds = _rec[0][0]
     pstats, prows = pipeline_phase(
-        sync_binds=_rec[0][0],
+        sync_binds=cold_binds,
         sync_launches=cyc_stats["cycles"][0]["launches"])
     del _rec
     cycle_rows = {r["name"]: r for r in rows}
@@ -4214,6 +4728,13 @@ def main(argv=()) -> int:
              f"from the worker's inputs, plain {r['plain_ms']:.4f} ms, "
              f"max_abs_err {r['max_abs_err']}, launches {r['launches']}")
     _log(f"[pipeline] {json.dumps(pstats)}")
+
+    # 8c-8d. the default observability at full width (on against off) and
+    # HA: the checkpoint round trip, the gated standby.
+    _log(f"[obs] {json.dumps(obs_phase(ckpt, cold_binds))}")
+    del cold_binds
+    ckpt_dir.cleanup()
+    ha_gate_phase()
 
     # 9-11. the reclaim and preempt paths; victim_scores and the solve
     # kernels on their inputs.

@@ -15,6 +15,11 @@
     ``NotImplementedError`` naming their ROADMAP.md item; the rebalance
     lane, which ignores the host-walk switch, runs under it; a cycle with
     inter-pod terms binds what the JAX package's cycle binds.
+(f) The store's observability (auditor, SLO tracker, journey, Perfetto
+    export), checkpoints and the lease are the port's own modules: they
+    import neither ``jax`` nor ``volcano_tpu``, and a default store with
+    them wired runs an audited cycle, exports a trace and round-trips a
+    checkpoint with the JAX package unimportable.
 """
 
 import ast
@@ -541,3 +546,59 @@ def test_run_and_stop_loop():
         sched.stop()
         assert sched._thread is None
     assert len(store.binder.binds) == 8
+
+
+OBS_AND_HA = ("obs/slo.py", "obs/audit.py", "obs/journey.py",
+              "obs/export.py", "persistence.py", "ha.py")
+
+
+@pytest.mark.parametrize("module", OBS_AND_HA)
+def test_observability_and_ha_modules_import_no_jax(module):
+    path = PORT / module
+    assert path.is_file(), module
+    names = list(_imported_names(path))
+    assert not any(n.split(".")[0] in ("jax", "jaxlib", "volcano_tpu")
+                   for n in names), (module, names)
+
+
+_OBS_HA = r'''
+import os, sys, tempfile
+os.environ["VOLCANO_TPU_AUDIT_SAMPLE"] = "1"
+from volcano_tpu_torch.cache import ClusterStore
+from volcano_tpu_torch.ha import LeaderElector
+from volcano_tpu_torch.obs import export
+from volcano_tpu_torch.persistence import load_store, save_store
+from volcano_tpu_torch.scheduler import Scheduler
+from volcano_tpu_torch.synth import synthetic_cluster
+assert ClusterStore().auditor is not None
+store = synthetic_cluster(n_nodes=8, n_pods=32, gang_size=4)
+assert store.auditor.slo is not None and store.journey is not None
+d = tempfile.mkdtemp()
+save_store(store, os.path.join(d, "ckpt"))
+again = load_store(os.path.join(d, "ckpt"))
+for s in (store, again):
+    Scheduler(s, device="cpu").run_once()
+assert dict(store.binder.binds) == dict(again.binder.binds)
+assert len(store.binder.binds) == 32
+assert store.auditor.total_anomalies() == 0
+assert store.auditor.audit_stats()["sampled_cycles"] == 1
+assert store.journey.conservation_check(list(store.pods)) == []
+export.write_trace(os.path.join(d, "t.json"), store.flight.recent(),
+                   journey=store.journey.trace_rows())
+el = LeaderElector(os.path.join(d, "lease"), identity="x")
+assert el.try_acquire()
+el.stop()
+assert not any(k.split(".")[0] in ("jax", "jaxlib", "volcano_tpu")
+               for k in sys.modules)
+print("ok")
+'''
+
+
+def test_observability_and_ha_run_with_jax_and_reference_blocked():
+    env = dict(os.environ, PYTHONPATH=str(ROOT))
+    out = subprocess.run(
+        [sys.executable, "-c", _BLOCKER + _OBS_HA],
+        capture_output=True, text=True, env=env, cwd=str(ROOT), timeout=300,
+    )
+    assert out.returncode == 0, out.stderr[-3000:]
+    assert out.stdout.strip().endswith("ok")

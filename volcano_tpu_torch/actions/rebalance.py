@@ -156,6 +156,11 @@ class MigrationLedger:
         entry.restored_uid = restored.uid
         self.restored_pods += 1
         store.add_pod(restored)
+        # Journey stitch: the fresh uid's timeline links back to the
+        # evicted victim's, so the migration reads as one pod journey.
+        journey = getattr(store, "journey", None)
+        if journey is not None:
+            journey.pod_restored(pod.uid, restored.uid)
         planned = (f" (planned node {entry.planned_node})"
                    if entry.planned_node else "")
         store.record_event(

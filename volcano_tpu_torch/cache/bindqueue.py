@@ -16,8 +16,8 @@ re-derives the task with exponential backoff (``cache.go:106-107,
   backoff (``not_before``) during which the solver does not re-place it.
 
 The JAX dispatcher arms the runtime lock checker (``obs.lockdep.attach``)
-before its thread starts; lockdep is not ported (ROADMAP.md, queue 1: the
-fast path's remaining lanes), so this one does not.
+before its thread starts; lockdep is not ported (ROADMAP.md, queue 1:
+lockdep), so this one does not.
 """
 
 from __future__ import annotations

@@ -29,12 +29,19 @@ The object session's eviction (``evict``, cache.go:439-489) is here too:
 the object session's preempt and reclaim evict through it, while the fast
 lanes flush through ``evictor``.
 
-Not ported yet (ROADMAP.md, queue 1): persistence / HA, the
-controller-plane records, and the journey, audit, SLO and lockdep hooks
-("the fast path's remaining lanes"); the remote solver (``remote_solver``,
-"the solver service"); the device mesh (``solve_mesh``, "multi-GPU").
-Setting one of the two slots raises ``NotImplementedError`` naming its
-item.
+The always-on observability of the JAX store is wired in every store: the
+conservation auditor with its SLO tracker (``auditor``, ``auditor.slo``,
+``mirror.audit``; kill switch ``VOLCANO_TPU_AUDIT=0``) and the pod-journey
+log (``journey``, ``mirror.journey``; ``VOLCANO_TPU_JOURNEY=0`` leaves it
+None).  The controller-plane records (batch jobs, commands, config maps,
+secrets, services, network policies) are kept as the JAX store keeps them;
+``persistence.py`` checkpoints them with the specs.
+
+Not ported yet (ROADMAP.md, queue 1): lockdep, the JAX store's runtime
+enforcement of ``# guarded-by:`` comments ("lockdep"); the remote solver
+(``remote_solver``, "the solver service"); the device mesh
+(``solve_mesh``, "multi-GPU").  Setting one of the two slots raises
+``NotImplementedError`` naming its item.
 """
 
 from __future__ import annotations
@@ -56,6 +63,7 @@ from ..api import (
     Pod,
     PodGroup,
     PodGroupCondition,
+    PodPhase,
     PriorityClass,
     Queue,
     QueueInfo,
@@ -116,6 +124,14 @@ class ClusterStore:
         self.n_volume_pods = 0
         # ns/name -> claim record {"spec", "phase", "node", "owner_job"}.
         self.pvcs: Dict[str, Dict[str, object]] = {}
+        # Controller-plane records, as the JAX store keeps them: batch
+        # jobs by key, commands by name, and ns/name -> data or spec.
+        self.batch_jobs: Dict[str, object] = {}
+        self.commands: Dict[str, object] = {}
+        self.config_maps: Dict[str, Dict[str, str]] = {}
+        self.secrets: Dict[str, Dict[str, bytes]] = {}
+        self.services: Dict[str, Dict[str, object]] = {}
+        self.network_policies: Dict[str, Dict[str, object]] = {}
 
         self.binder: Binder = binder or FakeBinder()
         self.evictor: Evictor = evictor or FakeEvictor()
@@ -204,15 +220,28 @@ class ClusterStore:
         # (Scheduler(store, device=...) sets it).
         self.device = None
 
-        from ..obs import FlightRecorder, Tracer
+        from ..obs import (Auditor, FlightRecorder, JourneyLog,
+                           SLOTracker, Tracer, journey_on)
 
         self.tracer = Tracer()
         self.flight = FlightRecorder()
-        # Not ported: the fast cycle skips both hooks when they are None.
-        self.auditor = None
-        self.journey = None
-        self.mirror.audit = None
-        self.mirror.journey = None
+        # Conservation auditor + SLO layer (obs/audit.py, obs/slo.py),
+        # internally synchronized (the auditor's lock nests inside _lock
+        # and is never taken around store state).  The mirror's writers
+        # declare pod-count flows through mirror.audit; the fast cycle
+        # declares its own and reconciles at cycle end.
+        self.auditor = Auditor()
+        self.auditor.slo = SLOTracker()
+        self.mirror.audit = self.auditor
+        # Pod-journey log (obs/journey.py), synchronized the same way;
+        # VOLCANO_TPU_JOURNEY=0 leaves the slot None.
+        self.journey = (JourneyLog(slo=self.auditor.slo,
+                                   auditor=self.auditor)
+                        if journey_on() else None)
+        self.mirror.journey = self.journey
+        # The fast cycle's first-seen row masks for the journey's bulk
+        # accounting (FastCycle._journey_masks), keyed on compact_gen.
+        self._journey_masks = None
         self.last_cycle_lanes = None
 
         self.add_queue(Queue(name=default_queue, weight=1))
@@ -426,6 +455,7 @@ class ClusterStore:
             self._unbind_gather_cache = None
             self._close_gang_cache = None
             self._devincr_cache = None
+            self._journey_masks = None
             self.device_snapshot = None
             worker, self._solve_worker = self._solve_worker, None
         if worker is not None:
@@ -744,6 +774,68 @@ class ClusterStore:
                     pass
             self._notify("ResourceQuota", "add", quota)
 
+    # ---------------------------------------------------- controller plane
+
+    def add_batch_job(self, job) -> None:
+        with self._lock:
+            self.batch_jobs[job.key] = job
+            self._notify("Job", "add", job)
+
+    def update_batch_job(self, job) -> None:
+        with self._lock:
+            self.batch_jobs[job.key] = job
+            self._notify("Job", "update", job)
+
+    def delete_batch_job(self, key: str) -> None:
+        with self._lock:
+            job = self.batch_jobs.pop(key, None)
+            if job is not None:
+                self._notify("Job", "delete", job)
+
+    def add_command(self, command) -> None:
+        with self._lock:
+            self.commands[command.name] = command
+            self._notify("Command", "add", command)
+
+    def delete_command(self, name: str) -> None:
+        with self._lock:
+            self.commands.pop(name, None)
+
+    def put_config_map(self, ns: str, name: str,
+                       data: Dict[str, str]) -> None:
+        with self._lock:
+            self.config_maps[f"{ns}/{name}"] = dict(data)
+
+    def delete_config_map(self, ns: str, name: str) -> None:
+        with self._lock:
+            self.config_maps.pop(f"{ns}/{name}", None)
+
+    def put_secret(self, ns: str, name: str, data) -> None:
+        with self._lock:
+            self.secrets[f"{ns}/{name}"] = dict(data)
+
+    def delete_secret(self, ns: str, name: str) -> None:
+        with self._lock:
+            self.secrets.pop(f"{ns}/{name}", None)
+
+    def put_service(self, ns: str, name: str, spec) -> None:
+        with self._lock:
+            self.services[f"{ns}/{name}"] = spec
+
+    def delete_service(self, ns: str, name: str) -> None:
+        with self._lock:
+            self.services.pop(f"{ns}/{name}", None)
+
+    def put_network_policy(self, ns: str, name: str, spec) -> None:
+        """Job-scoped ingress isolation record (the NetworkPolicy the
+        reference svc plugin creates, svc.go:252-299)."""
+        with self._lock:
+            self.network_policies[f"{ns}/{name}"] = spec
+
+    def delete_network_policy(self, ns: str, name: str) -> None:
+        with self._lock:
+            self.network_policies.pop(f"{ns}/{name}", None)
+
     # ------------------------------------------------------- claim registry
 
     def put_pvc(self, ns: str, name: str, spec,
@@ -784,6 +876,17 @@ class ClusterStore:
                 if rec is not None:
                     rec["phase"] = "Pending"
                     rec["node"] = None
+
+    def delete_pvcs_owned_by(self, job_key: str) -> int:
+        """Owner-reference cleanup: claims created by the controller for
+        a job die with the Job object (job_controller_actions.go:512-531);
+        returns how many went."""
+        with self._lock:
+            doomed = [k for k, rec in self.pvcs.items()
+                      if rec.get("owner_job") == job_key]
+            for k in doomed:
+                del self.pvcs[k]
+        return len(doomed)
 
     # -------------------------------------------------------------- snapshot
 
@@ -899,6 +1002,18 @@ class ClusterStore:
             conditions.append(condition)
             pg.status.conditions = conditions
             self.mirror.refresh_pod_group_status(pg)
+
+    # --------------------------------------------------------------- helpers
+
+    def pending_pods(self) -> List[Pod]:
+        with self._lock:
+            return [p for p in self.pods.values()
+                    if p.phase == PodPhase.Pending and not p.node_name]
+
+    def task_in_store(self, uid: str) -> Optional[Pod]:
+        with self._lock:
+            return self.pods.get(uid)
+
 
 class StoreVolumeBinder:
     """Volume binder against the store's claim registry (the

@@ -370,6 +370,12 @@ class FastCycle:
         # the bench A/B (BENCH_HOST=1) measures the full surface.
         self._incr = incremental_on()
         self.derive_mode = aggr.refresh(m, Pn, Nn, R, self.n_alive)
+        # Sampled coherence audit of the refreshed planes: here, right
+        # after refresh, the persistent aggregates equal mirror truth by
+        # construction (by cycle end they lag the cycle's own commits).
+        auditor = getattr(self.store, "auditor", None)
+        if auditor is not None and auditor.enabled:
+            auditor.audit_aggregates_now(m)
         # Device-lane incrementality: fold this derive's
         # changed-node capture into the store's DeviceIncremental — the
         # warm-shortlist diff is against the previous SOLVE, which may
@@ -877,19 +883,120 @@ class FastCycle:
                     # mutation counter itself.
                     self._rebalance()
 
+    # ------------------------------------------------------------- audit
+
+    def _audit_flow(self, old_status: int, new_status: int,
+                    reason: str) -> None:
+        """Scalar conservation-flow declaration (obs/audit.py): the
+        per-row mirror status writers pair each write with one of these,
+        so the cycle-end reconcile can balance declared flows against the
+        census."""
+        a = getattr(self.store, "auditor", None)
+        if a is not None and a.enabled and old_status != new_status:
+            a.flow(reason, old_status, new_status)
+
+    def _audit_flow_rows(self, rows, new_status: int,
+                         reason: str) -> None:
+        """Bulk conservation-flow declaration for the vectorized status
+        writes -- MUST be called before the ``p_status`` write (it
+        classifies the rows' old statuses)."""
+        a = getattr(self.store, "auditor", None)
+        if a is not None and a.enabled and len(rows):
+            a.flow_rows(self.m.p_status, rows, int(new_status), reason)
+
+    # ----------------------------------------------------------- journey
+
+    def _journey_shard(self) -> int:
+        """The journey's shard field: -1, the port runs one scheduler."""
+        return -1
+
+    def _journey_masks(self):
+        """First-time row masks for the journey's steady-state bulk
+        accounting (obs/journey.py): the feed re-pends and re-binds the
+        SAME rows every cycle, and per-pod Python capture at that scale
+        would dwarf the cycle.  The masks remember which rows already
+        recorded their first consideration / first bind, so per-pod work
+        is paid once per pod and repeats fold into bulk counters.  Row
+        indices are stable for a pod's lifetime; a compaction renumbers
+        them, so the masks are keyed on ``compact_gen`` and rebuilt on a
+        bump (the uid-keyed journey state survives)."""
+        m = self.m
+        n = len(m.p_uid)
+        mk = self.store._journey_masks
+        if mk is None or mk[0] != m.compact_gen:
+            mk = self.store._journey_masks = (
+                m.compact_gen, np.zeros(n, bool), np.zeros(n, bool))
+        elif len(mk[1]) < n:
+            grow = lambda a: np.concatenate(  # noqa: E731
+                [a, np.zeros(n - len(a), bool)])
+            mk = self.store._journey_masks = (
+                mk[0], grow(mk[1]), grow(mk[2]))
+        return mk
+
+    def _journey_event(self, row: int, kind: str, *,
+                       solve_id: int = 0, detail: str = "") -> None:
+        """Scalar journey capture for one mirror row."""
+        jr = getattr(self.store, "journey", None)
+        if jr is None:
+            return
+        uid = self.m.p_uid[int(row)]
+        if uid:
+            jr.pod_event(uid, kind, shard=self._journey_shard(),
+                         solve_id=solve_id, detail=detail)
+
+    def _journey_rows(self, rows, kind: str, *, solve_id: int = 0,
+                      epoch: int = -1, detail: str = "") -> None:
+        """Bulk journey capture for the vectorized seams (``rows``: host
+        numpy row indices).  For the steady-state kinds (``dispatched`` /
+        ``bound`` / ``unbound``) only FIRST-time rows pay per-pod work
+        (see ``_journey_masks``); drops and voids are churn-sized, so
+        every row records."""
+        jr = getattr(self.store, "journey", None)
+        if jr is None or not len(rows):
+            return
+        m = self.m
+        shard = self._journey_shard()
+        if kind in ("dispatched", "bound"):
+            _gen, considered, bound_seen = self._journey_masks()
+            mask = considered if kind == "dispatched" else bound_seen
+            fresh = ~mask[rows]
+            n_rep = int(len(rows) - np.count_nonzero(fresh))
+            if n_rep:
+                jr.repeat_rows(n_rep, kind)
+            if not fresh.any():
+                return
+            rows = rows[fresh]
+            mask[rows] = True
+        elif kind == "unbound":
+            # Re-pend loop: the pods' journeys already hold their
+            # first-bind latency; count in bulk only.
+            jr.repeat_rows(int(len(rows)), kind)
+            return
+        jr.pod_rows((m.p_uid[i] for i in rows.tolist()), kind,
+                    shard=shard, solve_id=solve_id, epoch=epoch,
+                    detail=detail)
+
     # ------------------------------------------------------------- telemetry
 
     def _record_cycle(self, t_wall: float, duration_s: float,
                       err: Optional[BaseException]) -> None:
-        """Seal this cycle into the store's flight recorder."""
+        """Run the cycle-end audits and seal this cycle into the store's
+        flight recorder."""
         from .obs.recorder import CycleRecord
 
         st = self.stats
+        # Conservation reconcile, sampled coherence audits, SLO feed.
+        # Runs even without a flight recorder: the anomaly ring and the
+        # counters are the production surface, the record a copy.
+        anoms = []
+        auditor = getattr(self.store, "auditor", None)
+        if auditor is not None and auditor.enabled:
+            anoms = auditor.end_cycle(self, duration_s, err)
         flight = getattr(self.store, "flight", None)
         if flight is None:
             self.tracer.drain()
             return
-        flight.record(CycleRecord(
+        seq = flight.record(CycleRecord(
             session=self.uid, path="fast", t_wall=t_wall,
             duration_s=duration_s, lanes=dict(self.lanes),
             pods_considered=int(st["considered"]),
@@ -908,7 +1015,12 @@ class FastCycle:
             whatif=st.get("whatif"),
             error=type(err).__name__ if err is not None else None,
             spans=self.tracer.drain(),
+            anomalies=[a.to_dict() for a in anoms],
         ))
+        # Stamp the ring copies with the flight seq: an anomaly leads to
+        # the record of the cycle that found it.
+        for a in anoms:
+            a.cycle_seq = seq
 
     def _count_shortlist_fb(self, exhausted: int, affinity: int) -> None:
         """Fold the two-phase solve's shortlist-fallback rescore counts
@@ -1308,6 +1420,9 @@ class FastCycle:
                 with tracer.span("encode", lanes=lanes):
                     inputs, pid, profiles, ncls = self._solve_inputs(
                         cjobs, crows, slim=True)
+                # Journey: these rows entered a device solve (first-time
+                # rows record; repeats bulk-count).
+                self._journey_rows(crows, "dispatched")
                 # Device-incremental context: single-chunk solves only
                 # (chunked solves interleave commits, so each chunk would
                 # need its own proof).
@@ -1340,7 +1455,8 @@ class FastCycle:
                 ]).cpu().numpy()
                 assigned = packed[:P].astype(np.int64)
                 # Fabric gate: require-contiguous gangs scattered across
-                # blocks are vetoed before the commit.
+                # blocks are vetoed before the commit (on the host copy
+                # just fetched).
                 assigned = self._topology_gate(crows, assigned)
                 never_ready = packed[P:P + J].astype(bool)
                 fit_failed = packed[P + J:P + 2 * J].astype(bool)
@@ -1515,6 +1631,9 @@ class FastCycle:
             node_classes=ncls, devincr=dv)
         # Commit prep that needs no assignment overlaps the solve.
         req_gather = self.m.c_req.gather(crows)
+        # Journey: these rows entered a device solve (first-time rows
+        # record with the flow's solve id; repeats bulk-count).
+        self._journey_rows(crows, "dispatched", solve_id=solve_id)
         self.store._inflight_solve = InflightSolve(
             "local", job, list(cjobs), crows, req_gather,
             self.m.mutation_seq, self.m.epoch, self.m.compact_gen,
@@ -1557,6 +1676,12 @@ class FastCycle:
                      "dropped (%d rows re-place this cycle)",
                      len(inflight.task_rows))
             self._count_drops({"compaction": len(inflight.task_rows)})
+            # Row indices are void, but the compaction kept uids 1:1 (the
+            # journey masks rebuild on the gen bump): attribute the void
+            # in bulk, without reading the stale rows.
+            jr = getattr(self.store, "journey", None)
+            if jr is not None:
+                jr.repeat_rows(len(inflight.task_rows), "unbound")
             self.stats["device_events"].append(
                 f"solve {inflight.solve_id} voided by mirror compaction")
             if not inflight.abandon():
@@ -1571,9 +1696,19 @@ class FastCycle:
         try:
             with fetch_span:
                 assigned = inflight.fetch()
-        except BaseException:
+        except BaseException as e:
             self._void_devincr()
+            if inflight.kind == "remote" and isinstance(
+                    e, (OSError, ConnectionError, ValueError)):
+                self._lost_reply(inflight, e)
+                return
+            # A device crash at the fetch (the JAX package's budget
+            # degradation, with its device-crash drop and journey seam)
+            # comes with the fallback and crash recovery (ROADMAP.md,
+            # queue 1): here it propagates, as a synchronous solve's
+            # error would.
             raise
+        self.store._remote_fetch_fails = 0
         # The solve the cycle read: its record and lanes.
         _wave_mod.LAST_TWOPHASE.clear()
         _wave_mod.LAST_TWOPHASE.update(inflight.twophase)
@@ -1620,13 +1755,42 @@ class FastCycle:
             # Fabric gate after the staleness guard: rows it vetoes are
             # already -1, so topology-infeasible stays exclusive with the
             # revalidation's reasons.
-            assigned = self._topology_gate(task_rows, assigned)
+            assigned = self._topology_gate(
+                task_rows, assigned, solve_id=inflight.solve_id)
             if (assigned >= 0).any():
                 self._commit(
                     inflight.solve_jobs, task_rows, assigned,
                     np.zeros(len(inflight.solve_jobs), bool),
                     np.zeros(len(task_rows), bool), req_gather,
                 )
+
+    # Consecutive lost replies of a remote solve tolerated before the
+    # pipelined commit fails the cycle (a solver that keeps replying
+    # garbage never fails the send).
+    REMOTE_FETCH_FAIL_CAP = 3
+
+    def _lost_reply(self, inflight, err: BaseException) -> None:
+        """A remote solve whose reply was lost: its rows are still Pending
+        and re-place this cycle; counted as ``lost-reply`` (never as a
+        clean commit), past ``REMOTE_FETCH_FAIL_CAP`` consecutive losses
+        the cycle fails.  The port dispatches only local solves, which
+        never get here (the remote kind arrives with the solver service,
+        ROADMAP.md queue 1)."""
+        fails = getattr(self.store, "_remote_fetch_fails", 0) + 1
+        self.store._remote_fetch_fails = fails
+        if fails >= self.REMOTE_FETCH_FAIL_CAP:
+            log.error("in-flight remote solve fetch failed %d "
+                      "consecutive times; failing the cycle", fails)
+            raise err
+        log.warning("in-flight remote solve reply lost; %d rows re-place "
+                    "this cycle", len(inflight.task_rows))
+        self._count_drops({"lost-reply": len(inflight.task_rows)})
+        self._journey_rows(inflight.task_rows, "dropped",
+                           solve_id=inflight.solve_id, detail="lost-reply")
+        self.stats["device_events"].append(
+            f"solve {inflight.solve_id} reply lost "
+            f"({type(err).__name__}); fetch failure "
+            f"{fails}/{self.REMOTE_FETCH_FAIL_CAP}")
 
     def _revalidate_inflight(self, task_rows: np.ndarray,
                              assigned: np.ndarray,
@@ -1707,6 +1871,17 @@ class FastCycle:
             "node-epoch-churn": int(np.count_nonzero(r_churn)),
             "capacity-taken": int(np.count_nonzero(r_capacity)),
         })
+        # Journey: per-pod exclusive drop attribution (the why-pending
+        # evidence chain); drop sets are churn-sized.
+        if getattr(self.store, "journey", None) is not None:
+            for mask, reason in ((r_deleted, "deleted"),
+                                 (r_competing, "competing-bind"),
+                                 (r_constraint, "constraint-sensitive"),
+                                 (r_churn, "node-epoch-churn"),
+                                 (r_capacity, "capacity-taken")):
+                if mask.any():
+                    self._journey_rows(task_rows[mask], "dropped",
+                                       detail=reason)
         out = np.where(ok, assigned, -1)
         n_drop = int(np.count_nonzero(live & (out < 0)))
         if n_drop and not ok.any():
@@ -1837,6 +2012,9 @@ class FastCycle:
                 # cycle until the fabric changes.
                 gated.add(uid)
                 metrics.topology_placements.inc(outcome="infeasible")
+                self._journey_rows(
+                    task_rows[self.jobr[task_rows] == j], "dropped",
+                    detail="topology-infeasible")
                 log.info(
                     "gang %s requires contiguous placement but no "
                     "fabric block can host it whole; held out of the "
@@ -1876,7 +2054,8 @@ class FastCycle:
         return bias if bias.any() else None
 
     def _topology_gate(self, task_rows: np.ndarray,
-                       assigned: np.ndarray) -> np.ndarray:
+                       assigned: np.ndarray, *,
+                       solve_id: int = 0) -> np.ndarray:
         """Post-solve fabric gate: each constrained gang's placement
         outcome by the block span of its assigned rows.  A
         ``require-contiguous`` gang spanning more than one block (or
@@ -1918,6 +2097,9 @@ class FastCycle:
             assigned[veto] = -1
             self._count_drops({"topology-infeasible":
                                int(np.count_nonzero(veto))})
+            self._journey_rows(task_rows[veto], "dropped",
+                               solve_id=solve_id,
+                               detail="topology-infeasible")
         return assigned
 
     def _count_drops(self, reasons: Dict[str, int]) -> None:
@@ -3380,6 +3562,13 @@ class FastCycle:
         # reconciles the persistent aggregates) and the mutation counter
         # moves with them — the dirty set and the null-delta proof must
         # agree on what "changed" means.
+        self._audit_flow_rows(rows, ST_BOUND, "commit-bind")
+        # Journey: the placement landed (first-time rows record the bind
+        # and their time-to-bind with the committing solve's flow id;
+        # steady-state re-binds bulk-count).
+        self._journey_rows(
+            rows, "bound",
+            solve_id=int(self.stats.get("committed_solve_id") or 0))
         m.p_status[rows] = ST_BOUND
         m.p_node[rows] = nodes_c
         m.mark_pods_dirty(rows)
@@ -3596,6 +3785,10 @@ class FastCycle:
         self.n_ntasks -= np.bincount(
             nodes_f, minlength=self.Nn
         )[:self.Nn].astype(I)
+        self._audit_flow_rows(rows_f, ST_PENDING, "unbind")
+        # Journey: bulk-count only -- the re-pend loop and the bind-
+        # failure resync leave the pods' first-bind latency standing.
+        self._journey_rows(rows_f, "unbound")
         m.p_status[rows_f] = ST_PENDING
         m.p_node[rows_f] = -1
         m.p_node_name[rows_f] = None
@@ -3663,6 +3856,9 @@ class FastCycle:
                 placed = ni
                 break
             if placed is not None:
+                self._audit_flow(int(m.p_status[row]), ST_BOUND,
+                                 "backfill-bind")
+                self._journey_event(row, "bound", detail="backfill")
                 m.p_status[row] = ST_BOUND
                 m.p_node[row] = placed
                 m.p_node_name[row] = m.n_name[placed]
@@ -3720,6 +3916,10 @@ class FastCycle:
                         kept.append((pod, hostname))
                         continue
                     jrow = self.jobr[row]
+                    self._audit_flow(int(m.p_status[row]), ST_PENDING,
+                                     "backfill-revert")
+                    self._journey_event(row, "dropped",
+                                        detail="bind-failed")
                     m.p_status[row] = ST_PENDING
                     self.n_ntasks[m.p_node[row]] -= 1
                     m.p_node[row] = -1

@@ -55,6 +55,8 @@ class EvictState:
         m = c.m
         n = int(m.p_node[row])
         req = self.req[row]
+        c._audit_flow(int(m.p_status[row]), ST_RELEASING, "evict")
+        c._journey_event(row, "evicted")
         m.p_status[row] = ST_RELEASING
         # Direct mirror status write: the incremental derive's dirty set
         # must see it.
@@ -75,6 +77,8 @@ class EvictState:
         c = self.cyc
         m = c.m
         req = self.req[row]
+        c._audit_flow(int(m.p_status[row]), ST_RUNNING, "evict-revert")
+        c._journey_event(row, "evict-reverted")
         m.p_status[row] = ST_RUNNING
         m.mark_pod_dirty(row)
         c.n_releasing[n] -= req

@@ -59,6 +59,31 @@ class _Histogram:
             state[1] += value
             state[2] += 1
 
+    def observe_many(self, values, **labels):
+        """``observe`` of every value of the float array ``values`` in
+        order under one label set, with one lock acquisition (the
+        journey's bulk capture): the same bucket counts, and the sum
+        added value by value from the running one."""
+        import numpy as np
+
+        values = np.asarray(values, np.float64)
+        if not len(values):
+            return
+        key = _labels_key(labels)
+        buckets = np.bincount(
+            np.searchsorted(_DEFAULT_BUCKETS, values, side="left"),
+            minlength=_N_BUCKETS + 1).tolist()
+        with self._lock:
+            state = self.data.get(key)
+            if state is None:
+                state = self.data[key] = [[0] * (_N_BUCKETS + 1), 0.0, 0]
+            counts = state[0]
+            for i, c in enumerate(buckets):
+                counts[i] += c
+            state[1] = float(np.cumsum(
+                np.concatenate([[state[1]], values]))[-1])
+            state[2] += len(values)
+
 
 class _Gauge:
     def __init__(self, name: str, help_: str,

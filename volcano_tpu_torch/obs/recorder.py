@@ -103,14 +103,17 @@ class CycleRecord:
         # outcome, gang uid, need, drain/victim counts, frag score
         # (fastpath.FastCycle._rebalance).  None when the lane was idle.
         self.rebalance = rebalance
-        # Device-native preempt/reclaim plan accounting (# volcano_tpu/whatif.py): action, outcome, gang uid, victim
-        # counts.  None when neither lane planned anything.
+        # Device-native preempt/reclaim plan accounting (whatif.py):
+        # action, outcome, gang uid, victim counts.  None when neither
+        # lane planned anything.
         self.whatif = whatif
-        # Solver-pool fetch accounting for the cycle (# volcano_tpu/solver_pool.py): winning replica, hedge /
-        # failover flags, residual wait.  None for single-connection
-        # (or local-solver) stores.
+        # Solver-pool fetch accounting for the cycle (the JAX package's
+        # solver_pool.py): winning replica, hedge / failover flags,
+        # residual wait.  None for local-solver stores, the only kind
+        # the port runs.
         self.pool = pool
-        # Runtime-auditor findings for THIS cycle (# obs/audit.py Anomaly.to_dict): empty on a healthy cycle.
+        # Runtime-auditor findings for THIS cycle (obs/audit.py,
+        # Anomaly.to_dict): empty on a healthy cycle.
         self.anomalies = anomalies or []
 
     def to_dict(self, include_spans: bool = False) -> dict:

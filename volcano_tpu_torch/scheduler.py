@@ -16,8 +16,16 @@ A cycle that fails propagates its error: a fast-path failure does not fall
 back to the object session (the JAX package's ``VOLCANO_TPU_FALLBACK``
 fallback is not ported).  With ``store.pipeline`` a cycle dispatches its
 solve to the store's solve worker and commits it in the next cycle
-(``pipeline.py``); ``stop()`` abandons what is still parked.  The cycle runs on the card unless the scheduler is
-built with ``device="cpu"``; without a card the default raises.
+(``pipeline.py``); ``stop()`` abandons what is still parked.  The cycle
+runs on the card unless the scheduler is built with ``device="cpu"``;
+without a card the default raises.
+
+The periodic loop (``run()``) honours a leadership gate: with ``gate=`` (a
+callable, e.g. ``ha.LeaderElector``'s ``is_leader`` read) it skips every
+period in which the gate returns False, as an active/passive standby
+does, and skipping clears the failure count.  A failed cycle is logged
+and counted; ``healthy()`` turns False after ``UNHEALTHY_AFTER``
+consecutive failures, so a supervisor or a standby can take over.
 """
 
 from __future__ import annotations
@@ -53,6 +61,7 @@ class Scheduler:
         conf_str: Optional[str] = None,
         schedule_period: float = 1.0,
         device=None,
+        gate=None,
     ):
         self.store = store
         self.conf_path = conf_path
@@ -60,10 +69,14 @@ class Scheduler:
         self.schedule_period = schedule_period
         self.device = resolve_device(device)
         store.device = self.device
+        # Optional leadership gate: the periodic loop skips cycles while
+        # it returns False (active/passive HA, see ha.py).
+        self.gate = gate
         self._stop = threading.Event()
         self._lifecycle_lock = threading.Lock()
         self._thread: Optional[threading.Thread] = None
         self._last_conf = None
+        self._consecutive_failures = 0
 
     # --------------------------------------------------------------- config
 
@@ -199,6 +212,14 @@ class Scheduler:
             self._thread = threading.Thread(target=self._loop, daemon=True)
             self._thread.start()
 
+    # Consecutive failed cycles before healthy() reports False (a device
+    # runtime that crashed is not recovered in-process; the health signal
+    # lets a supervisor or the HA standby take over).
+    UNHEALTHY_AFTER = 3
+
+    def healthy(self) -> bool:
+        return self._consecutive_failures < self.UNHEALTHY_AFTER
+
     # Full (gen-2) garbage collections run between periods every N cycles.
     GC_FULL_EVERY = 120
 
@@ -207,12 +228,20 @@ class Scheduler:
         while not self._stop.is_set():
             t0 = time.time()
             try:
-                self.run_once()
-                cycles += 1
-                if cycles % self.GC_FULL_EVERY == 0:
-                    gc.collect()
+                if self.gate is None or self.gate():
+                    self.run_once()
+                    self._consecutive_failures = 0
+                    cycles += 1
+                    if cycles % self.GC_FULL_EVERY == 0:
+                        gc.collect()
+                else:
+                    # A standby runs no cycles; failures from its time as
+                    # leader must not keep its health check red.
+                    self._consecutive_failures = 0
             except Exception:
-                log.exception("Scheduling cycle failed")
+                self._consecutive_failures += 1
+                log.exception("Scheduling cycle failed (%d consecutive)",
+                              self._consecutive_failures)
             elapsed = time.time() - t0
             self._stop.wait(max(self.schedule_period - elapsed, 0.0))
 

@@ -331,6 +331,10 @@ def commit_plan(cyc, plan: WhatIfPlan, victim_rows: np.ndarray,
         st.evict(int(row))
         st.evicted_rows.append(int(row))
         tgt_name = m.n_name[int(tgt)] if 0 <= int(tgt) < cyc.Nn else ""
+        # Journey: the victim's timeline shows the planned target, so the
+        # later restore stitch reads as one migration.
+        cyc._journey_event(int(row), "migration-planned",
+                           detail=tgt_name)
         ledger.register(m.p_uid[row], m.j_uid[int(cyc.jobr[row])],
                         tgt_name, action=plan.action,
                         for_gang=plan.gang_uid)
