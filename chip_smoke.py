@@ -8,7 +8,9 @@ Run from the repository root on a machine with one CUDA card:
 
 (``python3 chip_smoke.py pipeline`` runs phase 8b alone, ``python3
 chip_smoke.py obs`` phases 8c and 8d, ``python3 chip_smoke.py seq-trace``
-the traced seq cycle of phase 21 alone.)  It
+the traced seq cycle of phase 21 alone, ``python3 chip_smoke.py recovery``
+phases 24-31; ``crash-sticky``, ``lockdep <hash>`` and ``trace-dir`` are
+the child processes of phases 29, 30 and 31.)  It
 builds the sixteen CUDA kernels of ``volcano_tpu_torch/csrc`` (fourteen
 sources, one nvcc each, started together; ``launch_floor.cu`` holds only an
 empty kernel, timed to give what one launch costs) and then runs these
@@ -206,7 +208,47 @@ of which raises (and the script exits non-zero) when a check fails:
    nodes vetoed per gang) and a batch scorer (three nodes a task), under
    the wave and the sequential solver, card against CPU, every bind on an
    allowed node; ``coarse_shortlist`` and ``rank_candidates`` on their
-   custom-plugin inputs against their plain versions, timed as in 4.
+   custom-plugin inputs against their plain versions, timed as in 4;
+24. warm-knobs: phase 7's sequence at 1,000 x 10,000 with
+   ``VOLCANO_TPU_WARM_BLOCKS=4`` and ``VOLCANO_TPU_WARM_BLOCK_ROWS=256``, on
+   the card and on the CPU: binds, the solve's warm-block geometry every
+   cycle and the warm / full / skip counts identical, one cycle warm, the
+   block count the knobs give;
+25. affinity:crash: phase 18's store (config 5 at 1,000 x 10,000,
+   ``VOLCANO_TPU_AFF_BUDGET_MB=2``) with a ``torch.cuda.OutOfMemoryError``
+   raised at the cold cycle's second chunk's solve: the cycle completes,
+   the chunk budget's scale halves (one ``DeviceCrashRecovered`` event,
+   one crash-recovery count), the rest re-solves in more chunks, binds
+   equal the CPU run given the same injection, the invariants of 16; 8
+   clean affinity cycles bring the scale back to 1;
+26. affinity:crash:ns: config 5 at 10,000 x 100,000, the default budget;
+   first [fallback]'s north-star half on the fresh store (pending tasks x
+   nodes 1e9 > 5e7: with ``VOLCANO_TPU_FALLBACK=auto`` an injected
+   fast-path failure raises), then one out-of-memory error in the cold
+   cycle: every pod bound, the invariants of 16, ``host_reads`` 0;
+27. pipeline:crash: the pipelined 1,000 x 10,000 store; the worker's
+   first solve raises the out-of-memory error, which surfaces at the
+   fetch: its rows dropped as ``device-crash`` (journey rows too), the
+   scale halved, after a drain every pod bound; card against CPU;
+28. fallback: config 2 with ``VOLCANO_TPU_FALLBACK=auto`` for the
+   phase only and ``FastCycle._allocate`` raising once: the object session
+   binds every pod (path "object"), card against CPU, ``never`` restored;
+29. crash:sticky: ``python3 chip_smoke.py crash-sticky``: a real
+   device-side assert inside the solve; the child must exit non-zero with
+   the crash classified, the probe failed and the original error raised;
+30. lockdep: ``python3 chip_smoke.py lockdep <hash>`` with
+   ``VOLCANO_TPU_LOCKDEP=1``: the pipelined north-star sequence with
+   asynchronous binds (cold, 3 steady cycles re-pending nodes 0-63, an
+   ``update_node`` during an overlap, a drain; the cold binds hashed
+   against phase 6's) and the pipelined preempt of 8b: no
+   ``lockdep-violation``, no ``lock-order-cycle``, order edges seen; then
+   the same run in a child with ``VOLCANO_TPU_LOCKDEP=0``, its walls
+   beside the armed run's;
+31. trace-dir: ``python3 chip_smoke.py trace-dir``: one cycle at 1,000 x
+   10,000 with ``VOLCANO_TPU_TRACE_DIR`` writes one Chrome trace holding
+   the port's kernels; under an outer profiler a cycle binds every pod,
+   writes nothing and warns.  The ``[recovery] seconds`` line gives each
+   of 24-31's seconds.
 
 Output: the card's name and power limit, versions, build time, the
 registers, shared memory and spills of the kernels of ``PTXAS_SOURCES``
@@ -4485,6 +4527,812 @@ def object_phases(ns_args):
     return seq_row, extra_rows
 
 
+# ------------------------- warm knobs, crash recovery, fallback, lockdep
+
+CRASH_OOM = "CUDA out of memory (injected)"
+
+
+def _crash_counter() -> int:
+    from volcano_tpu_torch.metrics import metrics
+
+    return int(sum(metrics.device_crash_recoveries.data.values()))
+
+
+def _crash_events(store) -> list:
+    return [e["reason"] for e in store.events_for("Scheduler/device")]
+
+
+class _Crashing:
+    """While active, ``ops.wave.solve_wave`` raises a
+    ``torch.cuda.OutOfMemoryError`` at its ``at``-th call (1-based) and
+    delegates otherwise; ``FastCycle._solve_chunks`` records the chunk
+    count of each allocate round, and ``FastCycle._allocate`` the affinity
+    chunk budget's scale after each cycle's allocate."""
+
+    def __init__(self, at: int):
+        self.at = at
+        self.calls = 0
+        self.chunks: list = []
+        self.scales: list = []
+
+    def __enter__(self):
+        import torch
+
+        from volcano_tpu_torch.fastpath import FastCycle
+        from volcano_tpu_torch.ops import wave as wave_mod
+
+        self.saved = (wave_mod.solve_wave, FastCycle._solve_chunks,
+                      FastCycle._allocate)
+        real, real_chunks, real_alloc = self.saved
+
+        def solve(*a, **kw):
+            self.calls += 1
+            if self.calls == self.at:
+                raise torch.cuda.OutOfMemoryError(CRASH_OOM)
+            return real(*a, **kw)
+
+        def chunks(cyc, *a, **kw):
+            out = list(real_chunks(cyc, *a, **kw))
+            self.chunks.append(len(out))
+            return iter(out)
+
+        def allocate(cyc):
+            try:
+                real_alloc(cyc)
+            finally:
+                self.scales.append(cyc.store._aff_budget_scale)
+
+        wave_mod.solve_wave = solve
+        FastCycle._solve_chunks = chunks
+        FastCycle._allocate = allocate
+        return self
+
+    def __exit__(self, *exc):
+        from volcano_tpu_torch.fastpath import FastCycle
+        from volcano_tpu_torch.ops import wave as wave_mod
+
+        (wave_mod.solve_wave, FastCycle._solve_chunks,
+         FastCycle._allocate) = self.saved
+        return False
+
+
+def _grow_cpu(store, n_update: int) -> None:
+    """``update_node`` on ``n_update`` nodes spread over the node table,
+    each with half as much CPU again (never less, so no bound pod is
+    stranded): a node-table delta.  Reads the mirror under the store's
+    lock (lockdep's children hold to that)."""
+    import dataclasses
+
+    with store._lock:
+        m = store.mirror
+        step = max(1, m.n_nodes // n_update)
+        olds = [m.node_objs[r] for r in range(0, step * n_update, step)]
+    for old in olds:
+        cpu = str(int(float(old.allocatable["cpu"]) * 1.5))
+        store.update_node(dataclasses.replace(
+            old, allocatable={**old.allocatable, "cpu": cpu},
+            capacity={**old.capacity, "cpu": cpu}))
+
+
+def warm_knobs_phase(size=(1000, 10000), blocks="4", rows="256",
+                     steady=5) -> dict:
+    """[warm-knobs]: phase 7's sequence (a cold cycle, ``steady`` cycles
+    re-pending the pods of nodes 0-63, an ``update_node`` of 1% of the
+    nodes and a cycle) with ``VOLCANO_TPU_WARM_BLOCKS`` /
+    ``VOLCANO_TPU_WARM_BLOCK_ROWS`` set, on the card and on the CPU: the
+    binds, the solve's warm-block geometry
+    (``LAST_TWOPHASE["devincr"]["blocks"]``) every cycle and the warm /
+    full / skip counts identical; one cycle warm; the geometry the knobs'
+    (``devincr.block_geometry``)."""
+    import torch
+
+    from volcano_tpu_torch.framework import DEPLOYED_SCHEDULER_CONF
+    from volcano_tpu_torch.ops import devincr
+    from volcano_tpu_torch.ops import wave as wave_mod
+    from volcano_tpu_torch.scheduler import Scheduler
+
+    def run(device):
+        label = f"warm-knobs:{device or 'card'}"
+        store = _fresh_cluster(n_nodes=size[0], n_pods=size[1], gang_size=8,
+                               zones=16, seed=0)
+        sched = Scheduler(store, conf_str=DEPLOYED_SCHEDULER_CONF,
+                          device=device)
+        recs = []
+
+        def cycle(kind):
+            wave_mod.LAST_TWOPHASE.clear()
+            t0 = time.perf_counter()
+            sched.run_once()
+            if device is None:
+                torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            dv = wave_mod.LAST_TWOPHASE.get("devincr") or {}
+            recs.append({"kind": kind, "wall_s": wall,
+                         "mode": dv.get("mode"),
+                         "blocks": list(dv.get("blocks") or ()),
+                         "host_reads": wave_mod.LAST_TWOPHASE.get(
+                             "host_reads"),
+                         "binds": dict(store.binder.binds)})
+
+        cycle("cold")
+        cycle_invariants(store, size[1])
+        store.cycle_feed = repend_feed(list(range(64)))
+        for _ in range(steady):
+            cycle("steady")
+        _grow_cpu(store, max(1, size[0] // 100))
+        cycle("update_node")
+        counts = dict(store._devincr_cache.counts)
+        audit_checked(label, store)
+        store.close()
+        return recs, counts
+
+    t0 = time.perf_counter()
+    with _Env(VOLCANO_TPU_WARM_BLOCKS=blocks,
+              VOLCANO_TPU_WARM_BLOCK_ROWS=rows):
+        card, card_counts = run(None)
+        cpu, cpu_counts = run("cpu")
+        want_b = devincr.block_geometry(size[0], 1)[0]
+    if card_counts != cpu_counts:
+        raise AssertionError(f"[warm-knobs] counts card {card_counts} != "
+                             f"CPU {cpu_counts}")
+    for i, (a, b) in enumerate(zip(card, cpu)):
+        for k in ("mode", "blocks", "binds"):
+            if a[k] != b[k]:
+                raise AssertionError(f"[warm-knobs] cycle {i} {k}: card "
+                                     f"{a[k] if k != 'binds' else '...'} != "
+                                     f"CPU")
+        if a["host_reads"] not in (0, None):
+            raise AssertionError(f"[warm-knobs] cycle {i} read planes back")
+    modes = [r["mode"] for r in card]
+    if "warm" not in modes or card_counts["warm"] < 1:
+        raise AssertionError(f"[warm-knobs] no warm cycle: {modes}")
+    totals = {r["blocks"][1] for r in card if r["blocks"]}
+    if totals != {want_b}:
+        raise AssertionError(f"[warm-knobs] block counts {totals}, the "
+                             f"knobs give {want_b}")
+    stats = {"knobs": [blocks, rows], "blocks_total": want_b,
+             "modes": modes, "blocks": [r["blocks"] for r in card],
+             "counts": card_counts,
+             "walls_s": [r["wall_s"] for r in card],
+             "cpu_walls_s": [r["wall_s"] for r in cpu],
+             "phase_s": time.perf_counter() - t0}
+    _log(f"[warm-knobs] {size[0]}x{size[1]} with VOLCANO_TPU_WARM_BLOCKS="
+         f"{blocks} VOLCANO_TPU_WARM_BLOCK_ROWS={rows}: card == CPU over "
+         f"{len(card)} cycles; {json.dumps(stats)}")
+    return stats
+
+
+def aff_crash_phase(mid=(1000, 10000), budget_mb="2", recover=8) -> dict:
+    """[affinity:crash]: phase 18's store (config 5 at ``mid``,
+    ``VOLCANO_TPU_AFF_BUDGET_MB=budget_mb``) with a
+    ``torch.cuda.OutOfMemoryError`` raised at the cold cycle's second
+    chunk's ``solve_wave`` call: the cycle completes, the budget's scale
+    halves (one ``DeviceCrashRecovered`` event, one increment of
+    ``volcano_device_crash_recoveries_total``), the work left re-solves in
+    more chunks than the first round had, the binds equal the CPU run
+    given the same injection, the phase-16 invariants hold; then
+    ``recover`` clean affinity cycles (the pods of nodes 0-63 re-pended)
+    bring the scale back to 1.0."""
+    def run(device, steady):
+        label = f"affinity:crash:{device or 'card'}"
+        store = config5_cluster(*mid)
+        before = _crash_counter()
+        with _Env(VOLCANO_TPU_AFF_BUDGET_MB=budget_mb), _Crashing(2) as c:
+            stats, recs = run_aff_cycles(label, store, steady=steady,
+                                         device=device)
+        out = {"chunks": list(c.chunks), "scales": list(c.scales),
+               "events": _crash_events(store),
+               "recoveries": _crash_counter() - before,
+               "walls_s": [x["wall_s"] for x in stats["cycles"]],
+               "cold_solves": len(stats["cycles"][0]["solves"]),
+               "bound": len(store.binder.binds)}
+        store.close()
+        return out, recs
+
+    t0 = time.perf_counter()
+    card, card_recs = run(None, recover)
+    cpu, cpu_recs = run("cpu", 0)
+    _same_records("affinity:crash", card_recs[:1], cpu_recs, "card vs CPU")
+    ch = card["chunks"]
+    if card["scales"][0] != 0.5 or card["events"] != [
+            "DeviceCrashRecovered"] or card["recoveries"] != 1:
+        raise AssertionError(f"[affinity:crash] not degraded once: {card}")
+    if len(ch) < 2 or ch[0] < 4 or ch[1] <= ch[0] - 1:
+        raise AssertionError(f"[affinity:crash] chunks per round {ch}")
+    if card["scales"][-1] != 1.0:
+        raise AssertionError(f"[affinity:crash] the scale did not recover "
+                             f"in {recover} clean cycles: {card['scales']}")
+    if cpu["chunks"][:2] != ch[:2] or cpu["scales"] != card["scales"][:1]:
+        raise AssertionError(f"[affinity:crash] CPU {cpu} != card {card}")
+    card["phase_s"] = time.perf_counter() - t0
+    _log(f"[affinity:crash] {mid[0]}x{mid[1]}, budget {budget_mb} MB: "
+         f"chunks before the crash {ch[0]}, after it {ch[1]} (the first "
+         f"chunk committed); card == CPU; {json.dumps(card)}")
+    return card
+
+
+def fallback_north_star(store) -> dict:
+    """[fallback] at the north star: with ``VOLCANO_TPU_FALLBACK=auto``
+    and ``FastCycle._allocate`` raising once, pending tasks x nodes (1e9)
+    exceed ``FALLBACK_MAX_WORK``: the cycle raises, nothing binds."""
+    import os
+
+    from volcano_tpu_torch.fastpath import FastCycle
+    from volcano_tpu_torch.scheduler import Scheduler
+
+    sched = Scheduler(store, conf_str=CONF_BASE)
+    m = store.mirror
+    work = int((m.p_status[:m.n_pods] == 1).sum()) * m.n_nodes
+    real = FastCycle._allocate
+
+    def fail(cyc):
+        FastCycle._allocate = real
+        raise RuntimeError("fast path failed (injected)")
+
+    raised = None
+    with _Env(VOLCANO_TPU_FALLBACK="auto"):
+        FastCycle._allocate = fail
+        try:
+            sched.run_once()
+        except RuntimeError as e:
+            raised = str(e)
+        finally:
+            FastCycle._allocate = real
+    if os.environ.get("VOLCANO_TPU_FALLBACK") != "never":
+        raise AssertionError("[fallback] VOLCANO_TPU_FALLBACK not restored")
+    if raised != "fast path failed (injected)" or store.binder.binds:
+        raise AssertionError(f"[fallback] the north star fell back: "
+                             f"raised {raised}, {len(store.binder.binds)} "
+                             f"binds")
+    if work <= Scheduler.FALLBACK_MAX_WORK:
+        raise AssertionError(f"[fallback] {work} work is within the bound")
+    stats = {"pending_x_nodes": work,
+             "bound": Scheduler.FALLBACK_MAX_WORK, "raised": raised}
+    _log(f"[fallback:north-star] {json.dumps(stats)}")
+    return stats
+
+
+def aff_crash_ns_phase(big=(10000, 100000)) -> dict:
+    """[affinity:crash:ns]: a config-5 store at ``big`` with the default
+    budget (first, on the same store, the north-star half of
+    [fallback]); one ``torch.cuda.OutOfMemoryError`` at the cold cycle's
+    first ``solve_wave`` call: every pod bound, the phase-16 invariants,
+    ``host_reads`` 0; chunks before and after the crash printed."""
+    t0 = time.perf_counter()
+    store = config5_cluster(*big)
+    build_s = time.perf_counter() - t0
+    fb = fallback_north_star(store)
+    before = _crash_counter()
+    with _Crashing(1) as c:
+        stats, _recs = run_aff_cycles("affinity:crash:ns", store, steady=0,
+                                      all_bound=True)
+    out = {"build_s": build_s, "chunks": list(c.chunks),
+           "scales": list(c.scales), "events": _crash_events(store),
+           "recoveries": _crash_counter() - before,
+           "cold_wall_s": stats["cycles"][0]["wall_s"],
+           "lanes_ms": stats["cycles"][0]["lanes_ms"],
+           "fallback": fb}
+    store.close()
+    if out["scales"] != [0.5] or out["recoveries"] != 1 or len(
+            out["chunks"]) != 2:
+        raise AssertionError(f"[affinity:crash:ns] {out}")
+    out["phase_s"] = time.perf_counter() - t0
+    _log(f"[affinity:crash:ns] {big[0]}x{big[1]}: chunks before the crash "
+         f"{out['chunks'][0]}, after it {out['chunks'][1]}; every pod "
+         f"bound; {json.dumps(out)}")
+    return out
+
+
+def pipeline_crash_phase(size=(1000, 10000)) -> dict:
+    """[pipeline:crash]: the pipelined 1,000 x 10,000 store (``async_bind``
+    on); the solve worker's first solve raises a
+    ``torch.cuda.OutOfMemoryError``, which surfaces at cycle 2's fetch:
+    the rows drop as ``device-crash`` (journey rows ``dropped`` /
+    ``device-crash``), the scale halves, the rows re-dispatch; after a
+    drain every pod bound; card against the CPU given the same
+    injection: binds, drops, ids and mirror states identical."""
+    def run(device):
+        label = f"pipeline:crash:{device or 'card'}"
+        store = _fresh_cluster(n_nodes=size[0], n_pods=size[1], gang_size=8,
+                               zones=16, seed=1)
+        before = _crash_counter()
+        script = [("cold:dispatch", None, False),
+                  ("fetch-crash", None, False), ("commit", None, False),
+                  ("drain", None, False)]
+        with _Crashing(1):
+            recs, _solves, _p, _s = pipelined_run(label, store, device,
+                                                  size[1], script,
+                                                  log_cycles=device is None)
+        pipeline_invariants(store, size[1], final=True)
+        dropped = [r.get("detail") for r in store.journey.trace_rows()
+                   if r["kind"] == "dropped"]
+        out = {"drops": [r[0]["drops"] for r in recs],
+               "ids": [(r[0]["dispatched"], r[0]["committed"])
+                       for r in recs],
+               "walls_s": [r[0]["wall_s"] for r in recs],
+               "scale": store._aff_budget_scale,
+               "events": _crash_events(store),
+               "recoveries": _crash_counter() - before,
+               "journey_dropped": {d: dropped.count(d)
+                                   for d in set(dropped)}}
+        store.close()
+        return out, recs
+
+    t0 = time.perf_counter()
+    card, card_recs = run(None)
+    cpu, cpu_recs = run("cpu")
+    for i, (a, b) in enumerate(zip(card_recs, cpu_recs)):
+        if a[1] != b[1] or a[2] != b[2]:
+            raise AssertionError(f"[pipeline:crash] cycle {i}: binds or "
+                                 f"mirror differ card vs CPU")
+    for k in ("drops", "ids", "scale", "events", "recoveries",
+              "journey_dropped"):
+        if card[k] != cpu[k]:
+            raise AssertionError(f"[pipeline:crash] {k}: card {card[k]} != "
+                                 f"CPU {cpu[k]}")
+    n = card["drops"][1].get("device-crash", 0)
+    if (n < 1 or card["drops"][1] != {"device-crash": n}
+            or card["journey_dropped"] != {"device-crash": n}
+            or card["scale"] != 0.5 or card["recoveries"] != 1):
+        raise AssertionError(f"[pipeline:crash] {card}")
+    card["phase_s"] = time.perf_counter() - t0
+    _log(f"[pipeline:crash] {size[0]}x{size[1]}: the worker's OOM dropped "
+         f"{n} rows as device-crash at the fetch; card == CPU; "
+         f"{json.dumps(card)}")
+    return card
+
+
+def fallback_phase() -> dict:
+    """[fallback] at BASELINE config 2: for this phase only
+    ``VOLCANO_TPU_FALLBACK=auto``, ``FastCycle._allocate`` raising a
+    non-crash ``RuntimeError`` once: the object session binds every pod,
+    its flight record has path "object", the binds equal the CPU run given
+    the same injection; ``never`` restored afterwards."""
+    import os
+
+    import torch
+
+    from volcano_tpu_torch.fastpath import FastCycle
+    from volcano_tpu_torch.scheduler import Scheduler
+
+    def run(device):
+        store = _fresh_cluster(**CONFIG2)
+        sched = Scheduler(store, conf_str=CONF_BASE, device=device)
+        real = FastCycle._allocate
+        calls = [0]
+
+        def fail(cyc):
+            calls[0] += 1
+            if calls[0] == 1:
+                raise RuntimeError("fast path failed (injected)")
+            return real(cyc)
+
+        with _Env(VOLCANO_TPU_FALLBACK="auto"):
+            FastCycle._allocate = fail
+            try:
+                t0 = time.perf_counter()
+                sched.run_once()
+                if device is None:
+                    torch.cuda.synchronize()
+                wall = time.perf_counter() - t0
+            finally:
+                FastCycle._allocate = real
+        rec = store.flight.last()
+        if rec.path != "object" or rec.error is not None or calls[0] != 1:
+            raise AssertionError(f"[fallback] path {rec.path}, error "
+                                 f"{rec.error}, {calls[0]} allocate calls")
+        inv = cycle_invariants(store, CONFIG2["n_pods"])
+        audit_checked(f"fallback:{device or 'card'}", store, fast=False)
+        out = (dict(store.binder.binds),
+               {u: pg.status.phase
+                for u, pg in sorted(store.pod_groups.items())},
+               _mirror_state(store))
+        lanes = {k: round(v * 1e3, 3) for k, v in sorted(rec.lanes.items())}
+        store.close()
+        return out, {"wall_s": wall, "lanes_ms": lanes, **inv}
+
+    t0 = time.perf_counter()
+    card, stats = run(None)
+    cpu, cpu_stats = run("cpu")
+    _same_records("fallback", [card], [cpu], "card vs CPU", fields=3)
+    if os.environ.get("VOLCANO_TPU_FALLBACK") != "never":
+        raise AssertionError("[fallback] VOLCANO_TPU_FALLBACK not restored")
+    stats["cpu_wall_s"] = cpu_stats["wall_s"]
+    stats["phase_s"] = time.perf_counter() - t0
+    _log(f"[fallback] config 2 ({CONFIG2['n_nodes']}x{CONFIG2['n_pods']}): "
+         f"the failed fast cycle fell back to the object session, every "
+         f"pod bound, card == CPU, VOLCANO_TPU_FALLBACK=never restored; "
+         f"{json.dumps(stats)}")
+    return stats
+
+
+def _child(args, label, timeout, env=None):
+    """``python3 chip_smoke.py <args>`` in a process of its own (it reuses
+    the kernel build), its output relayed line by line; killed past
+    ``timeout``.  Returns (exit code, output lines)."""
+    import os
+
+    here = os.path.dirname(os.path.abspath(__file__))
+    full_env = dict(os.environ, **(env or {}))
+    try:
+        p = subprocess.run(
+            [sys.executable, os.path.join(here, "chip_smoke.py"), *args],
+            cwd=here, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+            text=True, timeout=timeout, env=full_env)
+    except subprocess.TimeoutExpired as e:
+        raise AssertionError(f"[{label}] the child ran past {timeout} "
+                             f"s") from e
+    lines = p.stdout.strip().splitlines()
+    for line in lines:
+        _log(f"[{label} process] {line}")
+    return p.returncode, lines
+
+
+def _binds_hash(binds: dict) -> str:
+    import hashlib
+
+    return hashlib.sha256(
+        json.dumps(sorted(binds.items())).encode()).hexdigest()
+
+
+STICKY_MARK = "[crash:sticky] the cycle raised"
+
+
+def crash_sticky_child() -> None:
+    """``python3 chip_smoke.py crash-sticky``: a real device-side assert
+    inside the solve (an out-of-range index gathered on the card, then a
+    synchronize): the classifier counts it as a crash, the probe fails
+    (the context is poisoned), and ``run_once`` raises the original error
+    under ``VOLCANO_TPU_FALLBACK=never``.  Prints ``STICKY_MARK`` and the
+    evidence, then exits 3."""
+    import os
+
+    import torch
+
+    from volcano_tpu_torch.fastpath import FastCycle
+    from volcano_tpu_torch.ops import wave as wave_mod
+    from volcano_tpu_torch.scheduler import Scheduler
+
+    store = _fresh_cluster(n_nodes=64, n_pods=512, gang_size=4, seed=3)
+    sched = Scheduler(store)
+    seen = {"error": None, "classified": None, "probe": None}
+    real_probe = FastCycle._probe_device
+
+    def solve(*a, **kw):
+        x = torch.zeros(4, device="cuda")
+        _ = x[torch.tensor([1 << 20], device="cuda")]
+        try:
+            torch.cuda.synchronize()
+        except Exception as e:
+            seen["error"] = e
+            seen["classified"] = FastCycle._is_device_crash(e)
+            raise
+        raise AssertionError("the out-of-range gather did not fault")
+
+    def probe(cyc):
+        try:
+            real_probe(cyc)
+        except Exception as e:
+            seen["probe"] = f"{type(e).__name__}: {str(e)[:80]}"
+            raise
+        seen["probe"] = "passed"
+
+    wave_mod.solve_wave = solve
+    FastCycle._probe_device = probe
+    try:
+        sched.run_once()
+    except Exception as e:
+        ev = {"classified": seen["classified"], "probe": seen["probe"],
+              "original_error_raised": e is seen["error"]}
+        _log(f"{STICKY_MARK} {type(e).__name__}: "
+             f"{str(e).splitlines()[0]}; {json.dumps(ev)}")
+        sys.stdout.flush()
+        os._exit(3)
+    _log("[crash:sticky] run_once returned")
+    os._exit(4)
+
+
+def crash_sticky_phase() -> dict:
+    """[crash:sticky]: the parent requires the child's non-zero exit and
+    the expected message: the crash classified, the probe failed, the
+    original device error raised."""
+    t0 = time.perf_counter()
+    rc, lines = _child(["crash-sticky"], "crash:sticky", 300)
+    hit = [x for x in lines if x.startswith(STICKY_MARK)]
+    if rc == 0 or not hit:
+        raise AssertionError(f"[crash:sticky] the child exited {rc} without "
+                             f"the expected message")
+    ev = json.loads(hit[0][hit[0].index("; {") + 2:])
+    if (ev != {"classified": True, "probe": ev["probe"],
+               "original_error_raised": True}
+            or ev["probe"] in (None, "passed")
+            or "device-side assert" not in hit[0]):
+        raise AssertionError(f"[crash:sticky] {hit[0]}")
+    out = {"rc": rc, "evidence": ev, "phase_s": time.perf_counter() - t0}
+    _log(f"[crash:sticky] the child failed with the original device error: "
+         f"{json.dumps(out)}")
+    return out
+
+
+def lockdep_child(cold_hash: str, big=(10000, 100000),
+                  preempt=(2000, 1000), max_cycles=24) -> dict:
+    """``python3 chip_smoke.py lockdep <hash>`` with
+    ``VOLCANO_TPU_LOCKDEP=1`` (without it, the same run unarmed: the walls
+    to compare with): the pipelined north-star sequence with
+    asynchronous binds (a cold dispatch and its commit -- binds hashed
+    against ``cold_hash``, phase 6's cold binds -- 3 steady cycles
+    re-pending nodes 0-63 with an ``update_node`` of 100 nodes during the
+    second one's overlap, a drain), then a pipelined preempt at phase
+    8b's size; every check reads the store under its lock.  Armed: no
+    ``lockdep-violation`` and no ``lock-order-cycle``; ``stats()`` active
+    with order edges.  Returns the walls."""
+    import os
+
+    import torch
+
+    from volcano_tpu_torch.cache import ClusterStore, FakeBinder, FakeEvictor
+    from volcano_tpu_torch.framework import DEPLOYED_SCHEDULER_CONF
+    from volcano_tpu_torch.obs import lockdep
+    from volcano_tpu_torch.scheduler import Scheduler
+    from volcano_tpu_torch.sim import ClusterSimulator
+
+    armed = lockdep.lockdep_on()
+    t0 = time.perf_counter()
+    store = _fresh_cluster(n_nodes=big[0], n_pods=big[1], gang_size=8,
+                           zones=16, seed=0)
+    build_s = time.perf_counter() - t0
+    if isinstance(store._lock, lockdep._LockProxy) != armed:
+        raise AssertionError(f"[lockdep] the store is armed: "
+                             f"{not armed}, the switch {armed}")
+    store.pipeline = True
+    store.async_bind = True
+    sched = Scheduler(store, conf_str=DEPLOYED_SCHEDULER_CONF)
+    feed = repend_feed(list(range(64)))
+
+    def update(store):
+        _grow_cpu(store, 100)
+
+    def set_feed(store):
+        store.cycle_feed = feed
+
+    def drain(store):
+        store.cycle_feed = None
+
+    script = [("cold:dispatch", None), ("cold:commit", None),
+              ("steady", set_feed), ("steady", None),
+              ("update+steady", update), ("drain", drain),
+              ("drain", None)]
+    walls = []
+    cold = None
+    for kind, before in script:
+        if before is not None:
+            before(store)
+        t0 = time.perf_counter()
+        sched.run_once()
+        torch.cuda.current_stream().synchronize()
+        walls.append([kind, time.perf_counter() - t0])
+        if not store.flush_binds(120):
+            raise AssertionError(f"[lockdep] {kind}: binds not flushed")
+        with store._lock:
+            pipeline_invariants(store, big[1])
+            if kind == "cold:commit":
+                cold = _binds_hash(store.binder.binds)
+        _log(f"[lockdep] {kind} cycle {walls[-1][1]:.4f} s")
+    if cold != cold_hash:
+        raise AssertionError("[lockdep] the cold binds differ from phase "
+                             "6's cold binds")
+    with store._lock:
+        if store._inflight_solve is not None:
+            raise AssertionError("[lockdep] a solve still in flight")
+        pipeline_invariants(store, big[1], final=True)
+        audit_checked("lockdep", store)
+    stores = [store]
+
+    saved = {k: os.environ.get(k) for k in ("VOLCANO_TPU_EVICT_DEVICE",
+                                            "VOLCANO_TPU_EVICT_CAP")}
+    pre = ClusterStore(binder=FakeBinder(), evictor=FakeEvictor())
+    stores.append(pre)
+    ClusterSimulator.priority_tier_workload(pre, workers=preempt[0],
+                                            serving_tasks=preempt[1])
+    pre.pipeline = True
+    pre.async_bind = True
+    pwalls = []
+    with _Env(VOLCANO_TPU_EVICT_DEVICE="1",
+              VOLCANO_TPU_EVICT_CAP=str(preempt[0])):
+        psched = Scheduler(pre, conf_str=CONF_PREEMPT_ONLY)
+        sim = ClusterSimulator(pre, grace_steps=2)
+        for _ in range(max_cycles):
+            t0 = time.perf_counter()
+            psched.run_once()
+            torch.cuda.current_stream().synchronize()
+            pwalls.append(time.perf_counter() - t0)
+            pre.flush_binds(120)
+            sim.step()
+            with pre._lock:
+                done = sum(1 for p in pre.pods.values()
+                           if p.name.startswith("serving-")
+                           and p.node_name) >= preempt[1]
+            if done:
+                break
+    if not done or not pre.evictor.evicts:
+        raise AssertionError("[lockdep] the pipelined preempt did not bind "
+                             "the serving gang")
+    with pre._lock:
+        audit_checked("lockdep:preempt", pre)
+    bad = [a.to_dict() for s in stores for a in s.auditor.anomalies()
+           if a.reason in ("lockdep-violation", "lock-order-cycle")]
+    st = lockdep.stats()
+    for s in stores:
+        s.close()
+    if bad:
+        raise AssertionError(f"[lockdep] {json.dumps(bad[:4], default=str)}")
+    if armed and (not st["active"] or st["order_edges"] < 1
+                  or st["violations"] or st["order_cycles"]):
+        raise AssertionError(f"[lockdep] stats {st}")
+    return {"armed": armed, "stats": st, "build_s": build_s,
+            "walls_s": walls,
+            "preempt_walls_s": pwalls,
+            "evictions": len(pre.evictor.evicts)}
+
+
+LOCKDEP_MARK = "[lockdep] result "
+
+
+def lockdep_phase(cold_hash: str) -> dict:
+    """[lockdep] in a child process (the descriptors stay on the port's
+    classes for the life of a process), then the same run unarmed in
+    another: beside each other the cost of enforcement (not a gate)."""
+    t0 = time.perf_counter()
+    runs = {}
+    for name, env in (("on", {"VOLCANO_TPU_LOCKDEP": "1"}),
+                      ("off", {"VOLCANO_TPU_LOCKDEP": "0"})):
+        rc, lines = _child(["lockdep", cold_hash], f"lockdep:{name}", 900,
+                           env=env)
+        hit = [x for x in lines if x.startswith(LOCKDEP_MARK)]
+        if rc != 0 or not hit:
+            raise AssertionError(f"[lockdep] the {name} child exited {rc}")
+        runs[name] = json.loads(hit[-1][len(LOCKDEP_MARK):])
+    on, off = runs["on"], runs["off"]
+    if not on["armed"] or off["armed"]:
+        raise AssertionError("[lockdep] the children's switches")
+    out = {"stats": on["stats"], "evictions": on["evictions"],
+           "walls_s": [[k, a, b] for (k, a), (_k, b)
+                       in zip(on["walls_s"], off["walls_s"])],
+           "preempt_walls_s": [on["preempt_walls_s"],
+                               off["preempt_walls_s"]],
+           "build_s": [on["build_s"], off["build_s"]],
+           "phase_s": time.perf_counter() - t0}
+    _log(f"[lockdep] no lockdep-violation, no lock-order-cycle; per cycle "
+         f"(kind, wall with lockdep, without) {json.dumps(out['walls_s'])};"
+         f" pipelined preempt walls (with, without) "
+         f"{json.dumps(out['preempt_walls_s'])}; " + json.dumps(
+             {k: out[k] for k in ("stats", "build_s", "evictions",
+                                  "phase_s")}))
+    return out
+
+
+TRACE_MARK = "[trace-dir] result "
+TRACE_TRIES = 3
+
+
+def trace_dir_child(size=(1000, 10000)) -> dict:
+    """``python3 chip_smoke.py trace-dir``: one cycle on a fresh store with
+    ``VOLCANO_TPU_TRACE_DIR`` set writes one Chrome-trace JSON that parses
+    and holds the device events of the port's kernels (an empty trace is
+    taken again on a fresh store, at most TRACE_TRIES times); then, with an
+    outer ``torch.profiler`` open, a cycle binds every pod, writes no file
+    and logs a warning."""
+    import glob
+    import logging
+    import os
+    import tempfile
+
+    import torch
+
+    from volcano_tpu_torch.framework import DEPLOYED_SCHEDULER_CONF
+    from volcano_tpu_torch.scheduler import Scheduler
+
+    funcs = [f for fs in KERNEL_FUNCS.values() for f in fs]
+    d = tempfile.mkdtemp(prefix="vtt-trace-")
+    out = {"tries": 0}
+    with _Env(VOLCANO_TPU_TRACE_DIR=d):
+        for attempt in range(1, TRACE_TRIES + 1):
+            store = _fresh_cluster(n_nodes=size[0], n_pods=size[1],
+                                   gang_size=8, zones=16, seed=0)
+            before = set(glob.glob(os.path.join(d, "*.json")))
+            t0 = time.perf_counter()
+            Scheduler(store, conf_str=DEPLOYED_SCHEDULER_CONF).run_once()
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            cycle_invariants(store, size[1])
+            store.close()
+            new = sorted(set(glob.glob(os.path.join(d, "*.json"))) - before)
+            if len(new) != 1:
+                raise AssertionError(f"[trace-dir] {len(new)} trace files")
+            with open(new[0]) as f:
+                events = json.load(f)["traceEvents"]
+            kern = {}
+            for e in events:
+                if e.get("cat") != "kernel":
+                    continue
+                name = e.get("name", "")
+                for fn in funcs:
+                    if fn in name:
+                        kern[fn] = kern.get(fn, 0) + 1
+            out = {"tries": attempt, "file": os.path.basename(new[0]),
+                   "bytes": os.path.getsize(new[0]), "events": len(events),
+                   "kernel_events": kern, "traced_cycle_s": wall}
+            if "walk_accept_kernel" in kern:
+                break
+            _log(f"[trace-dir] attempt {attempt}: no kernel events "
+                 f"({len(events)} events)")
+        else:
+            raise AssertionError(f"[trace-dir] {TRACE_TRIES} traces without "
+                                 f"the port's kernels")
+
+        # An outer profiler already open: the cycle still binds, no file.
+        class Warnings(logging.Handler):
+            def __init__(self):
+                super().__init__(logging.WARNING)
+                self.msgs = []
+
+            def emit(self, record):
+                self.msgs.append(record.getMessage())
+
+        h = Warnings()
+        log = logging.getLogger("volcano_tpu_torch.scheduler")
+        log.addHandler(h)
+        store = _fresh_cluster(n_nodes=size[0], n_pods=size[1], gang_size=8,
+                               zones=16, seed=0)
+        before = set(glob.glob(os.path.join(d, "*.json")))
+        try:
+            with torch.profiler.profile(activities=[
+                    torch.profiler.ProfilerActivity.CPU,
+                    torch.profiler.ProfilerActivity.CUDA]):
+                Scheduler(store, conf_str=DEPLOYED_SCHEDULER_CONF).run_once()
+                torch.cuda.synchronize()
+        finally:
+            log.removeHandler(h)
+        cycle_invariants(store, size[1])
+        store.close()
+        if set(glob.glob(os.path.join(d, "*.json"))) != before:
+            raise AssertionError("[trace-dir] a nested trace was written")
+        if not any("device trace" in m for m in h.msgs):
+            raise AssertionError(f"[trace-dir] no warning: {h.msgs}")
+        out["nested_warning"] = [m for m in h.msgs if "device trace" in m][0]
+    return out
+
+
+def trace_dir_phase() -> dict:
+    t0 = time.perf_counter()
+    rc, lines = _child(["trace-dir"], "trace-dir", 600)
+    hit = [x for x in lines if x.startswith(TRACE_MARK)]
+    if rc != 0 or not hit:
+        raise AssertionError(f"[trace-dir] the child exited {rc}")
+    out = json.loads(hit[-1][len(TRACE_MARK):])
+    out["phase_s"] = time.perf_counter() - t0
+    _log(f"[trace-dir] one Chrome trace a cycle with the port's kernels; "
+         f"under an outer profiler the cycle bound every pod and warned; "
+         f"{json.dumps(out)}")
+    return out
+
+
+def recovery_phases(cold_hash: str) -> dict:
+    """Phases 24-31 in order; each one's seconds printed on the
+    ``[recovery] seconds`` line."""
+    out = {"warm-knobs": warm_knobs_phase(),
+           "affinity:crash": aff_crash_phase(),
+           "affinity:crash:ns": aff_crash_ns_phase(),
+           "pipeline:crash": pipeline_crash_phase(),
+           "fallback": fallback_phase(),
+           "crash:sticky": crash_sticky_phase(),
+           "lockdep": lockdep_phase(cold_hash),
+           "trace-dir": trace_dir_phase()}
+    _log(f"[recovery] seconds "
+         f"{json.dumps({k: v['phase_s'] for k, v in out.items()})}")
+    return out
+
+
 def _same_records(label, a, b, what, fields=4):
     if len(a) != len(b):
         raise AssertionError(f"[{label}] {what}: cycle counts differ")
@@ -4527,6 +5375,15 @@ def main(argv=()) -> int:
         # [seq:trace] alone: its trace on the last line of the output.
         print(json.dumps(seq_trace()), flush=True)
         return 0
+    # The children of [crash:sticky], [lockdep] and [trace-dir].
+    if list(argv) == ["crash-sticky"]:
+        crash_sticky_child()  # exits the process
+    if argv[:1] == ["lockdep"] and len(argv) == 2:
+        print(LOCKDEP_MARK + json.dumps(lockdep_child(argv[1])), flush=True)
+        return 0
+    if list(argv) == ["trace-dir"]:
+        print(TRACE_MARK + json.dumps(trace_dir_child()), flush=True)
+        return 0
     _log(f"ptxas {json.dumps(ptxas_report())}")
     _log(f"[kernels:floor] empty kernel, device ms a launch "
          f"{json.dumps(launch_floor())}")
@@ -4555,6 +5412,21 @@ def main(argv=()) -> int:
             del store
             _log(f"[obs] {json.dumps(obs_phase(ckpt, binds))}")
         ha_gate_phase()
+        print(card, flush=True)
+        return 0
+    if list(argv) == ["recovery"]:
+        # Phases 24-31 alone, [lockdep] against a synchronous cold cycle
+        # of its own.
+        from volcano_tpu_torch.framework import DEPLOYED_SCHEDULER_CONF
+        from volcano_tpu_torch.scheduler import Scheduler
+
+        store = _fresh_cluster(n_nodes=10000, n_pods=100000, gang_size=8,
+                               zones=16, seed=0)
+        Scheduler(store, conf_str=DEPLOYED_SCHEDULER_CONF).run_once()
+        cold_hash = _binds_hash(store.binder.binds)
+        store.close()
+        del store
+        recovery_phases(cold_hash)
         print(card, flush=True)
         return 0
 
@@ -4714,6 +5586,7 @@ def main(argv=()) -> int:
     # 8b. the pipelined session: the cycle's kernels launched from the
     # solve worker's stream, held against the [cycle] cold cycle.
     cold_binds = _rec[0][0]
+    cold_hash = _binds_hash(cold_binds)
     pstats, prows = pipeline_phase(
         sync_binds=cold_binds,
         sync_launches=cyc_stats["cycles"][0]["launches"])
@@ -4780,6 +5653,10 @@ def main(argv=()) -> int:
             "launches", "ms", "plain_ms", "bound_ms", "bound_by",
             "max_abs_err", "wrapper_ms", "queued", "bytes", "ops")}
     rows.append(seq_row)
+
+    # 24-31. the warm-block knobs, crash recovery, the fallback, lockdep
+    # and the per-cycle trace.
+    recovery_phases(cold_hash)
 
     print(json.dumps({"kernels": rows}), flush=True)
     print(card, flush=True)

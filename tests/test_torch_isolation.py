@@ -549,7 +549,8 @@ def test_run_and_stop_loop():
 
 
 OBS_AND_HA = ("obs/slo.py", "obs/audit.py", "obs/journey.py",
-              "obs/export.py", "persistence.py", "ha.py")
+              "obs/export.py", "persistence.py", "ha.py", "obs/lockdep.py",
+              "obs/annotations.py")
 
 
 @pytest.mark.parametrize("module", OBS_AND_HA)
@@ -598,6 +599,47 @@ def test_observability_and_ha_run_with_jax_and_reference_blocked():
     env = dict(os.environ, PYTHONPATH=str(ROOT))
     out = subprocess.run(
         [sys.executable, "-c", _BLOCKER + _OBS_HA],
+        capture_output=True, text=True, env=env, cwd=str(ROOT), timeout=300,
+    )
+    assert out.returncode == 0, out.stderr[-3000:]
+    assert out.stdout.strip().endswith("ok")
+
+
+_LOCKDEP = r'''
+import os, sys
+os.environ["VOLCANO_TPU_LOCKDEP"] = "1"
+os.environ["VOLCANO_TPU_FALLBACK"] = "never"
+from volcano_tpu_torch.obs import lockdep
+from volcano_tpu_torch.scheduler import Scheduler
+from volcano_tpu_torch.synth import synthetic_cluster
+store = synthetic_cluster(n_nodes=8, n_pods=32, gang_size=4)
+store.pipeline = True
+store.async_bind = True
+assert isinstance(store._lock, lockdep._LockProxy)
+sched = Scheduler(store, device="cpu")
+for _ in range(3):
+    sched.run_once()
+assert store.flush_binds(timeout=60)
+assert len(store.binder.binds) == 32
+assert store.auditor.total_anomalies() == 0
+assert lockdep.stats()["order_edges"] > 0
+store.close()
+assert not any(k.split(".")[0] in ("jax", "jaxlib", "volcano_tpu", "tools")
+               for k in sys.modules)
+print("ok")
+'''
+
+
+def test_lockdep_runs_with_jax_tools_and_reference_blocked():
+    """Lockdep reads the port's own annotation parser: with ``jax``, the
+    JAX package and ``tools`` (whose parser the JAX lockdep loads)
+    unimportable, a pipelined store arms it and runs clean."""
+    blocker = _BLOCKER.replace('("jax", "jaxlib", "volcano_tpu")',
+                               '("jax", "jaxlib", "volcano_tpu", "tools")')
+    assert blocker != _BLOCKER
+    env = dict(os.environ, PYTHONPATH=str(ROOT))
+    out = subprocess.run(
+        [sys.executable, "-c", blocker + _LOCKDEP],
         capture_output=True, text=True, env=env, cwd=str(ROOT), timeout=300,
     )
     assert out.returncode == 0, out.stderr[-3000:]

@@ -15,9 +15,9 @@ re-derives the task with exponential backoff (``cache.go:106-107,
   thread); each failure re-enters Pending with an exponential per-task
   backoff (``not_before``) during which the solver does not re-place it.
 
-The JAX dispatcher arms the runtime lock checker (``obs.lockdep.attach``)
-before its thread starts; lockdep is not ported (ROADMAP.md, queue 1:
-lockdep), so this one does not.
+The dispatcher arms the runtime lock checker (``obs.lockdep.attach``,
+``VOLCANO_TPU_LOCKDEP=1``) on itself before its thread starts, so its
+condition is tracked from the thread's first acquire.
 """
 
 from __future__ import annotations
@@ -52,6 +52,12 @@ class BindDispatcher:
         self._q: List[tuple] = []  # guarded-by: _cv
         self._stopped = False  # guarded-by: _cv
         self._inflight = 0  # guarded-by: _cv
+        # Runtime lockdep (obs/lockdep.py): the dispatcher is created
+        # lazily, after the store armed its graph, so it arms itself
+        # before the thread can take the condition.
+        from ..obs.lockdep import attach
+
+        attach(self)
         self._thread = threading.Thread(
             target=self._run, name="vc-bind-dispatch", daemon=True)
         self._thread.start()

@@ -37,8 +37,12 @@ None).  The controller-plane records (batch jobs, commands, config maps,
 secrets, services, network policies) are kept as the JAX store keeps them;
 ``persistence.py`` checkpoints them with the specs.
 
-Not ported yet (ROADMAP.md, queue 1): lockdep, the JAX store's runtime
-enforcement of ``# guarded-by:`` comments ("lockdep"); the remote solver
+The ``# guarded-by:`` comments on the attributes below name the lock an
+access must hold; with ``VOLCANO_TPU_LOCKDEP=1`` the constructor arms
+``obs/lockdep.py`` over the store's object graph, which reports an access
+without it (and a lock-order cycle) to the auditor.
+
+Not ported yet (ROADMAP.md, queue 1): the remote solver
 (``remote_solver``, "the solver service"); the device mesh
 (``solve_mesh``, "multi-GPU").  Setting one of the two slots raises
 ``NotImplementedError`` naming its item.
@@ -116,14 +120,14 @@ class ClusterStore:
         self.queues: Dict[str, QueueInfo] = {}
         self.priority_classes: Dict[str, PriorityClass] = {}
         self.namespace_weights: Dict[str, int] = {}
-        self.pods: Dict[str, Pod] = {}
+        self.pods: Dict[str, Pod] = {}  # guarded-by: _lock
         self.pod_groups: Dict[str, PodGroup] = {}
         self.raw_queues: Dict[str, Queue] = {}
         # Count of live pods carrying volume claims: the commit's volume
         # gate skips on this O(1) check.
-        self.n_volume_pods = 0
+        self.n_volume_pods = 0  # guarded-by: _lock
         # ns/name -> claim record {"spec", "phase", "node", "owner_job"}.
-        self.pvcs: Dict[str, Dict[str, object]] = {}
+        self.pvcs: Dict[str, Dict[str, object]] = {}  # guarded-by: _lock
         # Controller-plane records, as the JAX store keeps them: batch
         # jobs by key, commands by name, and ns/name -> data or spec.
         self.batch_jobs: Dict[str, object] = {}
@@ -152,30 +156,37 @@ class ClusterStore:
         self.async_bind = False
         self._bind_dispatcher = None
         self._bind_fail_lock = threading.Lock()
+        # Successful binds whose backoff entries the cycle thread clears
+        # at the next drain, and [(key, pod), ...] failed binds, both
+        # reported by the dispatcher thread.
+        # guarded-by: _bind_fail_lock
         self._succeeded_bind_keys: List[str] = []
+        # guarded-by: _bind_fail_lock
         self._failed_bind_keys: List[tuple] = []
-        # "ns/name" -> (consecutive fails, retry-not-before ts, pod uid).
-        self.bind_backoff: Dict[str, tuple] = {}
+        # "ns/name" -> (consecutive fails, retry-not-before ts, pod uid);
+        # cycle-thread-owned: the dispatcher queues clears instead.
+        self.bind_backoff: Dict[str, tuple] = {}  # guarded-by: _lock
 
         # Per-object event trail, "Kind/ns/name" -> [reason, message,
         # count, first_ts, last_ts] entries deduplicated on (reason,
         # message); OrderedDict for O(1) FIFO eviction at the cap.
+        # guarded-by: _events_lock
         self._events: "collections.OrderedDict[str, List[list]]" = (
             collections.OrderedDict())
         self._events_lock = threading.Lock()
-        self._deferred_events: List[tuple] = []
+        self._deferred_events: List[tuple] = []  # guarded-by: _events_lock
 
         # The cycle's content-validated host-lane caches (fastpath.py,
         # fastpath_incr.py) and the device-incremental context
         # (ops/devincr.py), all written and read by the cycle thread under
         # _lock and dropped on close().
-        self._job_rank_cache = None
-        self._pending_order_cache = None
-        self._encode_cache = None
-        self._objarr_cache = None
-        self._unbind_gather_cache = None
-        self._close_gang_cache = None
-        self._devincr_cache = None
+        self._job_rank_cache = None  # guarded-by: _lock (any-receiver)
+        self._pending_order_cache = None  # guarded-by: _lock (any-receiver)
+        self._encode_cache = None  # guarded-by: _lock (any-receiver)
+        self._objarr_cache = None  # guarded-by: _lock (any-receiver)
+        self._unbind_gather_cache = None  # guarded-by: _lock (any-receiver)
+        self._close_gang_cache = None  # guarded-by: _lock (any-receiver)
+        self._devincr_cache = None  # guarded-by: _lock (any-receiver)
         # Device-resident node snapshot (ops/devsnap.py), created by the
         # fast path on first use.
         self.device_snapshot = None
@@ -189,17 +200,18 @@ class ClusterStore:
         # pipelined session, written by the cycle thread at dispatch and
         # popped at the next cycle's top -- or by close() / Scheduler.stop()
         # on other threads, so both slots are taken under _lock.
-        self._inflight_solve = None
-        self._inflight_plan = None
+        self._inflight_solve = None  # guarded-by: _lock (any-receiver)
+        self._inflight_plan = None  # guarded-by: _lock (any-receiver)
         # The pipelined session's solve worker (pipeline.SolveWorker),
         # created at the first dispatch.
         self._solve_worker = None
         # Monotonic pipelined solve id: the flow link between a dispatch
         # span in cycle N and its fetch and commit spans in cycle N+1.
-        self._solve_seq = 0
+        self._solve_seq = 0  # guarded-by: _lock
         # Deferred bind-record walks not yet materialized
         # (defer_bind_records).
         self._record_walk_lock = threading.Lock()
+        # guarded-by: _record_walk_lock
         self._pending_record_walks: List[list] = []
         # Migration ledger (actions/rebalance.py MigrationLedger), attached
         # by the first committed eviction wave; delete_pod restores
@@ -216,6 +228,11 @@ class ClusterStore:
         self._rebalance_streaks: Dict[str, int] = {}
         self._rebalance_backoff: Dict[str, int] = {}
         self._topo_gated: set = set()
+        # Crash recovery (fastpath.FastCycle._on_device_crash): the scale
+        # on the affinity chunk budget, halved by a device crash, and the
+        # clean affinity cycles since, which walk it back up.
+        self._aff_budget_scale = 1.0
+        self._aff_clean_cycles = 0
         # Where the cycle's solve runs: the card unless set to "cpu"
         # (Scheduler(store, device=...) sets it).
         self.device = None
@@ -243,6 +260,12 @@ class ClusterStore:
         # accounting (FastCycle._journey_masks), keyed on compact_gen.
         self._journey_masks = None
         self.last_cycle_lanes = None
+        # Runtime lock enforcement (obs/lockdep.py, VOLCANO_TPU_LOCKDEP=1):
+        # arms the `# guarded-by:` comments over this store's object graph;
+        # one environment read when the switch is off.
+        from ..obs.lockdep import enable_lockdep
+
+        enable_lockdep(self)
 
         self.add_queue(Queue(name=default_queue, weight=1))
 
@@ -469,6 +492,13 @@ class ClusterStore:
             self._failed_bind_keys.extend(failed_pairs)
 
     def _on_bind_success(self, keys: List[str], hosts: List[str]) -> None:
+        """Dispatcher-thread hook: record Scheduled events (cache.go:540).
+        Backoff clears are queued for the cycle thread (``bind_backoff``
+        is cycle-thread-owned)."""
+        # vclint: disable=VCL101 -- dispatcher-thread truthiness probe
+        # of the cycle-thread-owned dict; a stale read only delays when
+        # clears are queued, and drain_bind_failures reconciles.  Taking
+        # _lock here would block this thread for a whole cycle.
         if self.bind_backoff:
             with self._bind_fail_lock:
                 self._succeeded_bind_keys.extend(keys)
@@ -913,6 +943,7 @@ class ClusterStore:
 
     # ------------------------------------------------------------ side effects
 
+    # holds: _lock
     def _replace_pod(self, pod, **mutations):
         """Copy-on-write pod replacement: snapshot TaskInfos holding the
         old Pod keep their point-in-time view.  Caller holds the lock."""

@@ -67,12 +67,25 @@ Inter-pod affinity, anti-affinity and spread terms ride the encode
 counts, membership-split profiles) into the solve, in job-aligned chunks
 when their count tables would pass
 ``VOLCANO_TPU_AFF_BUDGET_MB`` (``_solve_chunks``).
+
+Crash recovery: a solve that dies of a device crash -- a CUDA out-of-memory
+error, a launch that failed to allocate, or a sticky fault (illegal
+address, device-side assert, launch failure) -- does not lose the cycle
+(``_on_device_crash``): the affinity chunk budget halves (down to 1/64),
+the device-incremental caches drop, the card is probed with a tiny op and
+a synchronize, and the remaining pending work is re-derived and solved in
+the smaller chunks.  A sticky fault fails the probe, so the original error
+is raised.  At most 3 crashes a cycle; a programming error propagates at
+once.  The same degradation handles a crash that surfaces at the pipelined
+fetch (its rows drop as ``device-crash``).  After 8 clean affinity cycles
+the budget doubles back toward 1.
 """
 
 from __future__ import annotations
 
 import logging
 import os
+import re
 import time
 from typing import Dict, List, Optional, Tuple
 
@@ -235,6 +248,7 @@ class FastCycle:
     # The single entry point (run_cycle_fast) wraps the whole cycle in
     # ``with store._lock``, so every method below runs with the store
     # lock held.
+    # vclint: class-holds: _lock
 
     def __init__(self, store, conf, device=None):
         self.store = store
@@ -1328,6 +1342,85 @@ class FastCycle:
 
     # ------------------------------------------------------------ allocate
 
+    # CUDA runtime codes a launch wrapper reports (``kernels._check``)
+    # that are device crashes: an allocation failure (2,
+    # cudaErrorMemoryAllocation) and the sticky faults -- illegal address
+    # (700), device-side assert (710), launch failure (719).  A
+    # launch-configuration error (1 invalid value, 9 invalid
+    # configuration, 98 invalid device function) is a programming error.
+    _CRASH_RCS = frozenset((2, 700, 710, 719))
+    _LAUNCH_RC = re.compile(r"kernel launch failed: CUDA error (\d+)")
+    # torch's own messages for the same faults.
+    _DEVICE_CRASH_MARKERS = (
+        "CUDA out of memory",
+        "CUDA error: out of memory",
+        "CUDA error: an illegal memory access",
+        "CUDA error: device-side assert triggered",
+        "CUDA error: unspecified launch failure",
+    )
+    # Lowest budget scale the crash handler degrades to (1/64 of the
+    # configured VOLCANO_TPU_AFF_BUDGET_MB).
+    _MIN_BUDGET_SCALE = 1.0 / 64.0
+    # Clean affinity cycles before the degraded budget doubles back up.
+    _SCALE_RECOVER_AFTER = 8
+
+    @classmethod
+    def _is_device_crash(cls, e: BaseException) -> bool:
+        """A device crash the cycle may recover from (vs a programming
+        error, which must propagate)."""
+        if not isinstance(e, Exception):
+            return False
+        if isinstance(e, torch.OutOfMemoryError):
+            return True
+        msg = str(e)
+        m = cls._LAUNCH_RC.search(msg)
+        if m is not None:
+            return int(m.group(1)) in cls._CRASH_RCS
+        return any(k in msg for k in cls._DEVICE_CRASH_MARKERS)
+
+    def _probe_device(self) -> None:
+        """A tiny op on the cycle's device and a synchronize of it: raises
+        when the card did not survive (a sticky fault poisons the
+        context)."""
+        x = torch.zeros(8, device=self.device) + 1
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+        if float(x.sum()) != 8.0:
+            raise RuntimeError("device probe returned a wrong sum")
+
+    def _on_device_crash(self, e: Exception) -> None:
+        """Degrade the affinity chunk budget and re-probe the device.
+        Raises the original error when the device did not come back --
+        the scheduler's failure accounting (``healthy()``,
+        ``UNHEALTHY_AFTER``) then takes over."""
+        store = self.store
+        scale = max(store._aff_budget_scale / 2.0, self._MIN_BUDGET_SCALE)
+        store._aff_budget_scale = scale
+        store._aff_clean_cycles = 0
+        # The device-incremental caches may hold a half-updated solve's
+        # candidates: drop them, so the next solve recomputes in full.
+        # The resident devsnap planes stay (an allocation failure does not
+        # corrupt them).
+        dvc = store._devincr_cache
+        if dvc is not None:
+            dvc.invalidate()
+        log.error(
+            "device crash mid-solve (%s); halving affinity chunk budget to "
+            "%.3gx and resuming the cycle", e, scale)
+        store.record_event(
+            "Scheduler/device", "DeviceCrashRecovered",
+            f"solve crashed ({type(e).__name__}); chunk budget now "
+            f"{scale:.3g}x")
+        metrics.device_crash_recoveries.inc()
+        self.stats["device_events"].append(
+            f"device crash ({type(e).__name__}); chunk budget degraded to "
+            f"{scale:.3g}x")
+        try:
+            self._probe_device()
+        except Exception:
+            log.exception("device did not recover after crash")
+            raise e
+
     def _allocate(self) -> None:
         from .ops import devincr as _dvm
         from .ops.wave import solve_wave
@@ -1363,8 +1456,10 @@ class FastCycle:
         self._last_encode_token = None
         retry = False
         rnd = 0
-        while rnd < max_rounds:
-            if rnd >= max(rounds, 1) and not retry:
+        crashes = 0
+        had_aff_chunks = False
+        while rnd < max_rounds + crashes:
+            if rnd >= max(rounds, 1) + crashes and not retry:
                 break
             rnd += 1
             with tracer.span("order", lanes=lanes):
@@ -1386,99 +1481,124 @@ class FastCycle:
                 int(self.stats["considered"]), len(task_rows))
             progress_any = False
             never_any = False
-            # Job-aligned chunks bound the affinity count tables; later
-            # chunks see earlier chunks' commits.
-            chunks = list(self._solve_chunks(solve_jobs, task_rows))
-            # Pipelined dispatch: a single-chunk solve goes to the solve
-            # worker without waiting for its result; the commit lands at
-            # the top of the next cycle.  Chunked solves stay synchronous
-            # -- later chunks must see earlier chunks' placements.
-            if self._pipeline_on and len(chunks) == 1:
-                cjobs, crows = chunks[0]
-                with tracer.span("encode", lanes=lanes):
-                    inputs, pid, profiles, ncls = self._solve_inputs(
-                        cjobs, crows, slim=True)
-                dv = self._devincr_prepare(inputs)
-                # The dispatch span opens the solve-id flow; the fetch and
-                # commit spans of cycle N+1 close it.
-                store._solve_seq += 1
-                solve_id = store._solve_seq
-                with tracer.span(
-                        "dispatch", cat="pipeline", flow=solve_id,
-                        lanes=lanes, lane="device",
-                        args={"kind": "local", "rows": len(crows),
-                              "solve_id": solve_id}):
-                    self._last_encode_token = (
-                        self._null_delta_token(solver, rounds)
-                        if dv_store is not None else None)
-                    self._dispatch_async(
-                        cjobs, crows, inputs, pid, profiles, ncls, dv,
-                        solve_id, devincr_token=self._last_encode_token)
-                self.stats["dispatched_solve_id"] = solve_id
-                break
-            for cjobs, crows in chunks:
-                with tracer.span("encode", lanes=lanes):
-                    inputs, pid, profiles, ncls = self._solve_inputs(
-                        cjobs, crows, slim=True)
-                # Journey: these rows entered a device solve (first-time
-                # rows record; repeats bulk-count).
-                self._journey_rows(crows, "dispatched")
-                # Device-incremental context: single-chunk solves only
-                # (chunked solves interleave commits, so each chunk would
-                # need its own proof).
-                dv = None
-                if len(chunks) == 1:
+            try:
+                # Job-aligned chunks bound the affinity count tables; later
+                # chunks see earlier chunks' commits.
+                chunks = list(self._solve_chunks(solve_jobs, task_rows))
+                # Pipelined dispatch: a single-chunk solve goes to the solve
+                # worker without waiting for its result; the commit lands at
+                # the top of the next cycle.  Chunked solves stay synchronous
+                # -- later chunks must see earlier chunks' placements.
+                if self._pipeline_on and len(chunks) == 1:
+                    cjobs, crows = chunks[0]
+                    had_aff_chunks |= self._chunks_had_terms
+                    with tracer.span("encode", lanes=lanes):
+                        inputs, pid, profiles, ncls = self._solve_inputs(
+                            cjobs, crows, slim=True)
                     dv = self._devincr_prepare(inputs)
-                    self._last_encode_token = (
-                        self._null_delta_token(solver, rounds)
-                        if dv_store is not None else None)
-                t0 = time.perf_counter()
-                result = solve_wave(*inputs, pid=pid, profiles=profiles,
-                                    taint_any=self._taint_any,
-                                    node_classes=ncls, devincr=dv,
-                                    device=self.device)
-                self._record_twophase_lanes()
-                # Commit prep that does not need the assignments.
-                req_gather = self.m.c_req.gather(crows)
-                self._obj_arrays()
-                # One device->host copy for the five results the commit
-                # reads (assignment, never-ready and fit-failed flags, the
-                # two shortlist-fallback counters).
-                P = len(crows)
-                J = int(result.never_ready.shape[0])
-                packed = torch.cat([
-                    result.assigned.reshape(-1).to(torch.int32),
-                    result.never_ready.reshape(-1).to(torch.int32),
-                    result.fit_failed.reshape(-1).to(torch.int32),
-                    result.fb_exhausted.reshape(1).to(torch.int32),
-                    result.fb_affinity.reshape(1).to(torch.int32),
-                ]).cpu().numpy()
-                assigned = packed[:P].astype(np.int64)
-                # Fabric gate: require-contiguous gangs scattered across
-                # blocks are vetoed before the commit (on the host copy
-                # just fetched).
-                assigned = self._topology_gate(crows, assigned)
-                never_ready = packed[P:P + J].astype(bool)
-                fit_failed = packed[P + J:P + 2 * J].astype(bool)
-                self._count_shortlist_fb(int(packed[P + 2 * J]),
-                                         int(packed[P + 2 * J + 1]))
-                dt_dev = time.perf_counter() - t0
-                lanes["device"] = lanes.get("device", 0.0) + dt_dev
-                metrics.device_solve_latency.observe(dt_dev * 1e3)
-                tracer.event("device_solve", "device",
-                             time.perf_counter_ns() - int(dt_dev * 1e9),
-                             int(dt_dev * 1e9), tid="cycle",
-                             args={"rows": len(crows)})
-                with tracer.span("commit", lanes=lanes):
-                    progress = self._commit(
-                        cjobs, crows, assigned, never_ready,
-                        fit_failed, req_gather,
-                    )
-                progress_any |= progress
-                never_any |= bool(never_ready.any())
+                    # The dispatch span opens the solve-id flow; the fetch and
+                    # commit spans of cycle N+1 close it.
+                    store._solve_seq += 1
+                    solve_id = store._solve_seq
+                    with tracer.span(
+                            "dispatch", cat="pipeline", flow=solve_id,
+                            lanes=lanes, lane="device",
+                            args={"kind": "local", "rows": len(crows),
+                                  "solve_id": solve_id}):
+                        self._last_encode_token = (
+                            self._null_delta_token(solver, rounds)
+                            if dv_store is not None else None)
+                        self._dispatch_async(
+                            cjobs, crows, inputs, pid, profiles, ncls, dv,
+                            solve_id, devincr_token=self._last_encode_token)
+                    self.stats["dispatched_solve_id"] = solve_id
+                    break
+                for cjobs, crows in chunks:
+                    had_aff_chunks |= self._chunks_had_terms
+                    with tracer.span("encode", lanes=lanes):
+                        inputs, pid, profiles, ncls = self._solve_inputs(
+                            cjobs, crows, slim=True)
+                    # Journey: these rows entered a device solve (first-time
+                    # rows record; repeats bulk-count).
+                    self._journey_rows(crows, "dispatched")
+                    # Device-incremental context: single-chunk solves only
+                    # (chunked solves interleave commits, so each chunk would
+                    # need its own proof).
+                    dv = None
+                    if len(chunks) == 1:
+                        dv = self._devincr_prepare(inputs)
+                        self._last_encode_token = (
+                            self._null_delta_token(solver, rounds)
+                            if dv_store is not None else None)
+                    t0 = time.perf_counter()
+                    result = solve_wave(*inputs, pid=pid, profiles=profiles,
+                                        taint_any=self._taint_any,
+                                        node_classes=ncls, devincr=dv,
+                                        device=self.device)
+                    self._record_twophase_lanes()
+                    # Commit prep that does not need the assignments.
+                    req_gather = self.m.c_req.gather(crows)
+                    self._obj_arrays()
+                    # One device->host copy for the five results the commit
+                    # reads (assignment, never-ready and fit-failed flags, the
+                    # two shortlist-fallback counters).
+                    P = len(crows)
+                    J = int(result.never_ready.shape[0])
+                    packed = torch.cat([
+                        result.assigned.reshape(-1).to(torch.int32),
+                        result.never_ready.reshape(-1).to(torch.int32),
+                        result.fit_failed.reshape(-1).to(torch.int32),
+                        result.fb_exhausted.reshape(1).to(torch.int32),
+                        result.fb_affinity.reshape(1).to(torch.int32),
+                    ]).cpu().numpy()
+                    assigned = packed[:P].astype(np.int64)
+                    # Fabric gate: require-contiguous gangs scattered across
+                    # blocks are vetoed before the commit (on the host copy
+                    # just fetched).
+                    assigned = self._topology_gate(crows, assigned)
+                    never_ready = packed[P:P + J].astype(bool)
+                    fit_failed = packed[P + J:P + 2 * J].astype(bool)
+                    self._count_shortlist_fb(int(packed[P + 2 * J]),
+                                             int(packed[P + 2 * J + 1]))
+                    dt_dev = time.perf_counter() - t0
+                    lanes["device"] = lanes.get("device", 0.0) + dt_dev
+                    metrics.device_solve_latency.observe(dt_dev * 1e3)
+                    tracer.event("device_solve", "device",
+                                 time.perf_counter_ns() - int(dt_dev * 1e9),
+                                 int(dt_dev * 1e9), tid="cycle",
+                                 args={"rows": len(crows)})
+                    with tracer.span("commit", lanes=lanes):
+                        progress = self._commit(
+                            cjobs, crows, assigned, never_ready,
+                            fit_failed, req_gather,
+                        )
+                    progress_any |= progress
+                    never_any |= bool(never_ready.any())
+            except Exception as e:
+                # A device crash mid-solve: committed chunks already
+                # landed; the crashed chunk mutated nothing host-side.
+                # Degrade the chunk budget and re-derive the remaining
+                # pending work (committed tasks are no longer pending).
+                if crashes >= 3 or not self._is_device_crash(e):
+                    raise
+                crashes += 1
+                self._on_device_crash(e)
+                retry = True
+                continue
             retry = never_any and progress_any
             if not progress_any:
                 break
+        if had_aff_chunks and not crashes:
+            # Gradual budget recovery: after _SCALE_RECOVER_AFTER clean
+            # affinity cycles the degraded budget doubles back toward 1.
+            scale = store._aff_budget_scale
+            if scale < 1.0:
+                clean = store._aff_clean_cycles + 1
+                if clean >= self._SCALE_RECOVER_AFTER:
+                    store._aff_budget_scale = min(1.0, scale * 2.0)
+                    store._aff_clean_cycles = 0
+                else:
+                    store._aff_clean_cycles = clean
         if dv_store is not None:
             # Persist the skip proof iff nothing mutated after the last
             # encode -- i.e. the final solve of this lane placed nothing
@@ -1702,11 +1822,22 @@ class FastCycle:
                     e, (OSError, ConnectionError, ValueError)):
                 self._lost_reply(inflight, e)
                 return
-            # A device crash at the fetch (the JAX package's budget
-            # degradation, with its device-crash drop and journey seam)
-            # comes with the fallback and crash recovery (ROADMAP.md,
-            # queue 1): here it propagates, as a synchronous solve's
-            # error would.
+            if self._is_device_crash(e):
+                # A crash of the worker's solve surfaces here, on the
+                # cycle thread: its rows drop as device-crash and re-place
+                # this cycle, through the budget degradation a synchronous
+                # solve gets (the probe runs on this thread; it raises
+                # when the card stayed down).
+                log.warning("in-flight solve fetch hit a device crash; %d "
+                            "rows re-place this cycle",
+                            len(inflight.task_rows))
+                self._count_drops({"device-crash": len(inflight.task_rows)})
+                self._journey_rows(inflight.task_rows, "dropped",
+                                   solve_id=inflight.solve_id,
+                                   detail="device-crash")
+                self._on_device_crash(e)
+                return
+            # A programming error propagates, as from a synchronous solve.
             raise
         self.store._remote_fetch_fails = 0
         # The solve the cycle read: its record and lanes.
@@ -2359,6 +2490,9 @@ class FastCycle:
                     "number; using 1024", raw,
                 )
             budget = 1024e6
+        # Crash-recovery degradation (_on_device_crash): smaller chunks
+        # bound the device footprint after an out-of-memory error.
+        budget *= self.store._aff_budget_scale
         # Footprint scales with the terms the PENDING rows actually touch
         # (the solver compacts [E, D] to active terms), not the mirror's
         # full interned term table.
@@ -2370,6 +2504,9 @@ class FastCycle:
         from .ops.wave import bucket_pow2
 
         E = len(np.unique(refs_term)) if len(refs_term) else 0
+        # Crash-recovery bookkeeping: only solves that carried affinity
+        # terms count as clean affinity cycles for the budget's recovery.
+        self._chunks_had_terms = E > 0
         # Force domain interning BEFORE sizing (only when terms exist —
         # plain workloads skip the O(N x K) interning walk): the domain
         # table fills lazily in node_dom() (hostname domains intern per

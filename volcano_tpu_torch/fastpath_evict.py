@@ -36,6 +36,8 @@ class EvictState:
 
     Lives inside FastCycle.run, under run_cycle_fast's store lock."""
 
+    # vclint: class-holds: _lock
+
     def __init__(self, cyc):
         self.cyc = cyc
         m = cyc.m

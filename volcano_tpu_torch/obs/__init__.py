@@ -16,8 +16,9 @@ read), so the store wires them unconditionally:
 - ``journey``  -- the per-pod event timeline (``JourneyLog``): why-pending
   verdicts, time-to-bind, the conservation check.
 
-Not ported: lockdep (the JAX package's ``obs/lockdep.py``, runtime
-enforcement of ``# guarded-by:`` comments; ROADMAP.md, queue 1).
+Two more, imported where they are used: ``lockdep`` (runtime enforcement
+of the ``# guarded-by:`` comments, ``VOLCANO_TPU_LOCKDEP=1``) and
+``annotations``, the parser of those comments it reads.
 """
 
 from .audit import Anomaly, Auditor

@@ -1,0 +1,201 @@
+"""The lock-annotation parser that runtime lockdep (``obs/lockdep.py``)
+reads: ``# guarded-by: <lock>`` on an attribute assignment (or on a
+comment line directly above it), ``# holds: <lock>[, ...]`` on a def line,
+its decorators or the line above, and ``# vclint: class-holds: <lock>``
+inside a class.
+
+The same grammar as the JAX package's static checker, with the port's own
+file list.  Stdlib only.
+"""
+
+from __future__ import annotations
+
+import ast
+import re
+from dataclasses import dataclass, field
+from typing import Dict, List, Optional, Set, Tuple
+
+# Files under the lock discipline: the port's counterparts of the JAX
+# package's list (the store, the mirror, the bind dispatcher, the pipelined
+# solve handle, the cycle and its evict lanes, the what-if engine, the
+# device snapshot, the flight recorder, the auditor, the SLO tracker) plus
+# the pod journey.  ``lockdep.enable_lockdep`` wraps the guarded
+# attributes of exactly these files' classes.  The sharded control plane
+# and the solver service are not ported (ROADMAP.md, queue 1).
+LOCK_FILES = [
+    "volcano_tpu_torch/cache/store.py",
+    "volcano_tpu_torch/cache/mirror.py",
+    "volcano_tpu_torch/cache/bindqueue.py",
+    "volcano_tpu_torch/pipeline.py",
+    "volcano_tpu_torch/scheduler.py",
+    "volcano_tpu_torch/fastpath.py",
+    "volcano_tpu_torch/fastpath_evict.py",
+    "volcano_tpu_torch/whatif.py",
+    "volcano_tpu_torch/ops/devsnap.py",
+    "volcano_tpu_torch/obs/recorder.py",
+    "volcano_tpu_torch/obs/audit.py",
+    "volcano_tpu_torch/obs/slo.py",
+    "volcano_tpu_torch/obs/journey.py",
+]
+
+# The framework's cross-object locks: guarded-by may name one
+# of these even when the annotated class does not create it (the mirror's
+# state is guarded by its owning store's _lock).
+KNOWN_LOCKS = {"_lock", "_events_lock", "_bind_fail_lock",
+               "_record_walk_lock"}
+
+_GUARDED_RE = re.compile(
+    r"#\s*guarded-by:\s*([A-Za-z_]\w*)\s*(\(any-receiver\))?"
+)
+_HOLDS_RE = re.compile(r"#\s*holds:\s*([A-Za-z_]\w*(?:\s*,\s*[A-Za-z_]\w*)*)")
+_CLASS_HOLDS_RE = re.compile(r"#\s*vclint:\s*class-holds:\s*([A-Za-z_]\w*)")
+
+@dataclass
+class GuardedAttr:
+    lock: str
+    any_receiver: bool
+    line: int
+
+
+@dataclass
+class ClassInfo:
+    name: str
+    node: ast.ClassDef
+    guarded: Dict[str, GuardedAttr] = field(default_factory=dict)
+    class_holds: Set[str] = field(default_factory=set)
+    created_locks: Set[str] = field(default_factory=set)
+    # method name -> declared holds set
+    holds: Dict[str, Set[str]] = field(default_factory=dict)
+
+
+@dataclass
+class FileModel:
+    path: str
+    tree: ast.Module
+    lines: List[str]
+    classes: List[ClassInfo] = field(default_factory=list)
+    # module-level function name -> holds set
+    fn_holds: Dict[str, Set[str]] = field(default_factory=dict)
+    annotation_errors: List[Tuple[int, str]] = field(default_factory=list)
+
+
+def _attr_chain(node: ast.AST) -> Optional[str]:
+    """Dotted name of a Name/Attribute chain, or None."""
+    parts: List[str] = []
+    while isinstance(node, ast.Attribute):
+        parts.append(node.attr)
+        node = node.value
+    if isinstance(node, ast.Name):
+        parts.append(node.id)
+        return ".".join(reversed(parts))
+    return None
+
+
+def _holds_for_def(lines: List[str], node) -> Set[str]:
+    """Parse ``# holds:`` from the def line, its decorators, or the line
+    directly above."""
+    out: Set[str] = set()
+    candidates = [node.lineno]
+    for dec in getattr(node, "decorator_list", []):
+        candidates.append(dec.lineno)
+    first = min(candidates)
+    candidates.append(first - 1)
+    for lineno in candidates:
+        if 1 <= lineno <= len(lines):
+            m = _HOLDS_RE.search(lines[lineno - 1])
+            if m:
+                out.update(
+                    s.strip() for s in m.group(1).split(",") if s.strip()
+                )
+    return out
+
+
+def _is_lock_factory(value: ast.AST) -> bool:
+    """True for ``threading.Lock()`` / ``RLock()`` / ``Condition()``."""
+    if not isinstance(value, ast.Call):
+        return False
+    name = _attr_chain(value.func) or ""
+    return name.split(".")[-1] in ("Lock", "RLock", "Condition")
+
+
+def build_model(path: str, source: str,
+                tree: Optional[ast.Module] = None) -> FileModel:
+    if tree is None:
+        tree = ast.parse(source)
+    lines = source.splitlines()
+    model = FileModel(path=path, tree=tree, lines=lines)
+
+    # guarded-by comment lines (line -> (lock, any_receiver)); each must
+    # attach to an attribute assignment on that line.
+    ann_lines: Dict[int, Tuple[str, bool]] = {}
+    for lineno, text in enumerate(lines, start=1):
+        m = _GUARDED_RE.search(text)
+        if m:
+            ann_lines[lineno] = (m.group(1), bool(m.group(2)))
+
+    consumed: Set[int] = set()
+
+    for node in tree.body:
+        if isinstance(node, ast.FunctionDef):
+            h = _holds_for_def(lines, node)
+            if h:
+                model.fn_holds[node.name] = h
+        if not isinstance(node, ast.ClassDef):
+            continue
+        info = ClassInfo(name=node.name, node=node)
+        # class-holds markers inside the class source range.
+        end = getattr(node, "end_lineno", node.lineno)
+        for lineno in range(node.lineno, end + 1):
+            m = _CLASS_HOLDS_RE.search(lines[lineno - 1])
+            if m:
+                info.class_holds.add(m.group(1))
+        # Attribute annotations + created locks: scan every statement of
+        # the class body and its methods.
+        for sub in ast.walk(node):
+            if isinstance(sub, (ast.Assign, ast.AnnAssign)):
+                targets = (
+                    sub.targets if isinstance(sub, ast.Assign)
+                    else [sub.target]
+                )
+                value = sub.value
+                for tgt in targets:
+                    attr = None
+                    if (isinstance(tgt, ast.Attribute)
+                            and isinstance(tgt.value, ast.Name)
+                            and tgt.value.id == "self"):
+                        attr = tgt.attr
+                    elif isinstance(tgt, ast.Name):
+                        attr = tgt.id
+                    if attr is None:
+                        continue
+                    if value is not None and _is_lock_factory(value):
+                        info.created_locks.add(attr)
+                    # Annotation on the assignment line, or on a
+                    # comment-only line directly above it.
+                    ann_line = sub.lineno
+                    ann = ann_lines.get(ann_line)
+                    if ann is None and sub.lineno >= 2 \
+                            and lines[sub.lineno - 2].lstrip() \
+                            .startswith("#"):
+                        ann_line = sub.lineno - 1
+                        ann = ann_lines.get(ann_line)
+                    if ann is not None:
+                        lock, any_recv = ann
+                        info.guarded[attr] = GuardedAttr(
+                            lock, any_recv, sub.lineno
+                        )
+                        consumed.add(ann_line)
+            elif isinstance(sub, (ast.FunctionDef, ast.AsyncFunctionDef)):
+                h = _holds_for_def(lines, sub)
+                if h:
+                    info.holds[sub.name] = h
+        model.classes.append(info)
+
+    for lineno, (lock, _any) in ann_lines.items():
+        if lineno not in consumed:
+            model.annotation_errors.append(
+                (lineno,
+                 f"guarded-by: {lock} does not attach to an attribute "
+                 "assignment on this line")
+            )
+    return model

@@ -49,11 +49,31 @@ def devincr_on() -> bool:
     return os.environ.get("VOLCANO_TPU_DEVINCR", "1") != "0"
 
 
-# Node-axis block count of the warm-shortlist candidates, and the most
-# node rows a block holds: past 16 x 8192 rows the block count grows
-# instead, so one dirty node re-ranks a bounded number of rows.
-WARM_BLOCKS = 16
-WARM_BLOCK_ROWS = 8192
+def _pow2_knob(name: str, default: int) -> int:
+    """The environment knob ``name`` rounded down to a power of two (read
+    per call); a value that does not parse gives ``default``."""
+    try:
+        v = int(os.environ.get(name, default))
+    except ValueError:
+        v = default
+    p = 1
+    while p * 2 <= max(1, v):
+        p *= 2
+    return p
+
+
+def warm_blocks() -> int:
+    """Node-axis block count of the warm-shortlist candidates
+    (``VOLCANO_TPU_WARM_BLOCKS``, default 16, a power of two)."""
+    return _pow2_knob("VOLCANO_TPU_WARM_BLOCKS", 16)
+
+
+def warm_block_rows() -> int:
+    """The most node rows a warm block holds before the block count
+    grows instead (``VOLCANO_TPU_WARM_BLOCK_ROWS``, default 8,192, a power
+    of two): one dirty node then re-ranks a bounded number of rows."""
+    return _pow2_knob("VOLCANO_TPU_WARM_BLOCK_ROWS", 8192)
+
 
 # Past this fraction of blocks dirty, a full re-rank beats the warm pass
 # (and seeds fresh candidates anyway).
@@ -62,8 +82,9 @@ WARM_MAX_BLOCK_FRACTION = 0.5
 
 def block_geometry(N: int, sl_k: int) -> Tuple[int, int, int]:
     """(B, nlb, klb) of the warm candidates for an N-row node axis."""
-    B = WARM_BLOCKS
-    while N % (B * 2) == 0 and N // B > WARM_BLOCK_ROWS:
+    B = warm_blocks()
+    max_rows = warm_block_rows()
+    while N % (B * 2) == 0 and N // B > max_rows:
         B *= 2
     B = min(B, N)
     while N % B:
@@ -136,6 +157,18 @@ class DeviceIncremental:
         self._pend_warm = warm_key
         self._pend_dirty = (None if dirty_nodes is None
                             else np.asarray(dirty_nodes, np.int64))
+
+    def invalidate(self) -> None:
+        """Drop every cached plane and proof (a device crash): the next
+        solve recomputes in full on fresh buffers."""
+        self._static_key = None
+        self._static = None
+        self._warm_key = None
+        self._cand = None
+        self.skip_token = None
+        self._dirty_consumed = False
+        self.end_solve()
+        self._acc_dirty = None
 
     def anchor_dirty(self) -> None:
         self._acc_dirty = []

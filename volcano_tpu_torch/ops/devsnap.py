@@ -145,6 +145,7 @@ class DeviceSnapshot:
     # Called only from FastCycle._solve_inputs, inside the cycle's
     # ``with store._lock`` -- the mirror delta reads and resets below
     # mutate store-guarded state.
+    # holds: _lock
     def node_planes(self, m, key: Tuple,
                     build: Dict[str, Callable[..., np.ndarray]]):
         """Return ``{name: tensor}`` for the node-side planes.

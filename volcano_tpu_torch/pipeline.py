@@ -34,10 +34,12 @@ What the port does that the JAX package gets for free:
 - The result comes back as one packed device-to-host copy into pinned
   memory, made by the worker after the solve.
 
-There is no fallback: an exception raised in the worker is raised again
-by ``fetch()`` in the cycle that reads the result, and a fetch whose
-worker does not finish within ``FETCH_TIMEOUT_S`` raises instead of
-hanging.
+An exception raised in the worker is raised again by ``fetch()`` in the
+cycle that reads the result, on the cycle thread: a device crash (a CUDA
+out-of-memory error) drops the solve's rows as ``device-crash`` and
+degrades the affinity chunk budget there (``fastpath.FastCycle.
+_commit_inflight``), anything else propagates.  A fetch whose worker does
+not finish within ``FETCH_TIMEOUT_S`` raises instead of hanging.
 
 ``InflightSolve`` is the handle the fast path parks on the store
 (``store._inflight_solve``) between the two cycles; ``InflightPlan`` the

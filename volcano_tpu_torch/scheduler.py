@@ -12,9 +12,25 @@ conf's actions, close it), as the JAX package's ``scheduler.py`` does.  A
 conf that fails to parse on a hot reload keeps the last good conf; with no
 good conf yet, the error propagates.
 
-A cycle that fails propagates its error: a fast-path failure does not fall
-back to the object session (the JAX package's ``VOLCANO_TPU_FALLBACK``
-fallback is not ported).  With ``store.pipeline`` a cycle dispatches its
+A fast-path cycle that raises falls back to the object session for that
+cycle, as the JAX package's does (``VOLCANO_TPU_FALLBACK``: ``auto``, the
+default, falls back while pending tasks x nodes stays within
+``FALLBACK_MAX_WORK`` and re-raises past it; ``always``; ``never``
+re-raises).  Before the object session runs, the pipelined solve and
+what-if plan still parked are abandoned and the deferred bind records
+applied.  The fast cycle recovers from a device crash on its own
+(``fastpath.FastCycle._on_device_crash``: a CUDA out-of-memory error
+halves the affinity chunk budget and the cycle goes on); what still
+raises reaches this fallback.
+
+``VOLCANO_TPU_TRACE_DIR=<dir>`` traces every cycle with ``torch.profiler``
+(CPU activities, and CUDA activities on the card) and writes one
+Chrome-trace JSON a cycle into that directory, named
+``cycle-<pid>-<n>.json`` (``n`` counts the traced cycles of the process
+from 1).  The trace is best-effort: a directory that cannot be written or
+a profiler that is already running logs a warning, and the cycle goes on.
+
+With ``store.pipeline`` a cycle dispatches its
 solve to the store's solve worker and commits it in the next cycle
 (``pipeline.py``); ``stop()`` abandons what is still parked.  The cycle
 runs on the card unless the scheduler is built with ``device="cpu"``;
@@ -30,7 +46,9 @@ consecutive failures, so a supervisor or a standby can take over.
 
 from __future__ import annotations
 
+import contextlib
 import gc
+import itertools
 import logging
 import os
 import threading
@@ -51,6 +69,51 @@ from .framework import (
 from .metrics import metrics
 
 log = logging.getLogger(__name__)
+
+# Cycles traced by _device_trace in this process (names the files).
+_TRACES = itertools.count(1)
+
+
+@contextlib.contextmanager
+def _device_trace(device):
+    """A ``torch.profiler`` trace of the cycle when
+    ``VOLCANO_TPU_TRACE_DIR`` is set (the JAX package's per-cycle device
+    trace), written as ``cycle-<pid>-<n>.json`` into that directory; a
+    no-op context otherwise.  Best-effort: a failure to start (a profiler
+    already running), to stop or to write logs a warning, and the cycle's
+    own errors pass through untouched."""
+    trace_dir = os.environ.get("VOLCANO_TPU_TRACE_DIR")
+    if not trace_dir:
+        yield
+        return
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    prof = None
+    try:
+        if torch._C._autograd._profiler_enabled():
+            # A second profiler would stop the caller's at its exit.
+            raise RuntimeError("a profiler is already running")
+        os.makedirs(trace_dir, exist_ok=True)
+        acts = [ProfilerActivity.CPU]
+        if torch.device(device).type == "cuda":
+            acts.append(ProfilerActivity.CUDA)
+        prof = profile(activities=acts)
+        prof.__enter__()
+    except Exception as err:
+        log.warning("device trace unavailable: %s", err)
+        prof = None
+    try:
+        yield
+    finally:
+        if prof is not None:
+            try:
+                prof.__exit__(None, None, None)
+                path = os.path.join(
+                    trace_dir, f"cycle-{os.getpid()}-{next(_TRACES)}.json")
+                prof.export_chrome_trace(path)
+            except Exception as err:
+                log.warning("device trace not written: %s", err)
 
 
 class Scheduler:
@@ -73,7 +136,10 @@ class Scheduler:
         # it returns False (active/passive HA, see ha.py).
         self.gate = gate
         self._stop = threading.Event()
+        # run() / stop() may race from different operator threads; the
+        # lifecycle lock keeps two run() calls from both starting loops.
         self._lifecycle_lock = threading.Lock()
+        # guarded-by: _lifecycle_lock
         self._thread: Optional[threading.Thread] = None
         self._last_conf = None
         self._consecutive_failures = 0
@@ -129,10 +195,23 @@ class Scheduler:
         # Queued bind failures re-enter Pending (with backoff) before the
         # cycle derives or snapshots (cache.go errTasks resync).
         self.store.drain_bind_failures()
-        with metrics.e2e_timer():
-            if self._fastpath_enabled() and run_cycle_fast(
-                    self.store, conf, device=self.device):
-                return
+        with metrics.e2e_timer(), _device_trace(self.device):
+            if self._fastpath_enabled():
+                try:
+                    if run_cycle_fast(self.store, conf, device=self.device):
+                        return
+                except Exception:
+                    if not self._fallback_sensible():
+                        # At hyperscale the object session takes hours a
+                        # cycle: falling back would stall scheduling while
+                        # masking the failure.
+                        log.exception(
+                            "Fast path failed and the cluster is too large "
+                            "for the object-session fallback (override "
+                            "with VOLCANO_TPU_FALLBACK=always)")
+                        raise
+                    log.exception(
+                        "Fast path failed; falling back to object session")
             # A pipelined solve or what-if plan must not survive into the
             # object session: its pods read as Pending there and would
             # double-schedule when a later fast cycle committed the stale
@@ -199,6 +278,33 @@ class Scheduler:
         """``VOLCANO_TPU_FASTPATH=0`` runs every cycle on the object
         session."""
         return os.environ.get("VOLCANO_TPU_FASTPATH", "1") != "0"
+
+    # Above this tasks x nodes product the object-session fallback is
+    # slower than retrying the fast path next period (the object walk is
+    # O(tasks x nodes) Python).
+    FALLBACK_MAX_WORK = 50_000_000
+
+    def _fallback_sensible(self) -> bool:
+        """Whether a failed fast cycle falls back to the object session
+        (``VOLCANO_TPU_FALLBACK``: ``auto`` / ``always`` / ``never``)."""
+        import numpy as np
+
+        from .api import TaskStatus
+
+        mode = os.environ.get("VOLCANO_TPU_FALLBACK", "auto")
+        if mode == "always":
+            return True
+        if mode == "never":
+            return False
+        m = self.store.mirror
+        # The object walk is O(pending tasks x nodes): a mostly-scheduled
+        # large cluster with a handful of pending pods falls back fine.
+        with self.store._lock:
+            pending = int(np.count_nonzero(
+                (m.p_status[:m.n_pods] == int(TaskStatus.Pending))
+                & m.p_alive[:m.n_pods]))
+            n_nodes = m.n_nodes
+        return pending * max(n_nodes, 1) <= self.FALLBACK_MAX_WORK
 
     # ----------------------------------------------------------------- loop
 

@@ -117,6 +117,7 @@ def plan_task_order(plan: WhatIfPlan):
 # ----------------------------------------------------------- input patch
 
 
+# holds: _lock
 def whatif_inputs(cyc, plan: WhatIfPlan):
     """Solver inputs for the hypothetically drained cluster: the drained
     victims' capacity returns to idle, their rows leave the resident set,
@@ -178,6 +179,7 @@ def whatif_inputs(cyc, plan: WhatIfPlan):
 # ------------------------------------------------------ dispatch / commit
 
 
+# holds: _lock
 def dispatch_plan(cyc, plan: WhatIfPlan) -> None:
     """Run (or, pipelined, park) the plan's what-if solve on the cycle's
     device and judge it.  No device-incremental state rides along (the JAX
@@ -218,6 +220,7 @@ def dispatch_plan(cyc, plan: WhatIfPlan) -> None:
     apply_plan(cyc, plan, assigned, never_ready)
 
 
+# holds: _lock
 def commit_inflight_plan(cyc) -> None:
     """Land (or void) the previous cycle's pipelined what-if plan.  A
     whole-cluster what-if has no per-row salvage, so ANY drift -- mutation
@@ -250,6 +253,7 @@ def commit_inflight_plan(cyc) -> None:
         apply_plan(cyc, plan, assigned, never_ready)
 
 
+# holds: _lock
 def apply_plan(cyc, plan: WhatIfPlan, assigned: np.ndarray,
                never_ready: np.ndarray) -> None:
     """Judge the what-if verdict and commit iff the solve proved the
@@ -295,6 +299,7 @@ def apply_plan(cyc, plan: WhatIfPlan, assigned: np.ndarray,
     commit_plan(cyc, plan, vr_sorted, victim_nodes)
 
 
+# holds: _lock
 def commit_plan(cyc, plan: WhatIfPlan, victim_rows: np.ndarray,
                 victim_nodes: np.ndarray) -> None:
     """Execute a proven plan: evict every victim through the cycle's
@@ -593,6 +598,7 @@ class _VictimPass:
         return hit
 
 
+# holds: _lock
 def _plan_evict(cyc, action: str) -> Optional[WhatIfPlan]:
     """Plan one preempt/reclaim wave: pick the starved gang, score and
     rank victims with the kernel (ops/victim.py), select under budgets,
@@ -652,6 +658,7 @@ def _plan_evict(cyc, action: str) -> Optional[WhatIfPlan]:
     return None
 
 
+# holds: _lock
 def _plan_evict_gang(cyc, action: str, jrow: int,
                      vpass: _VictimPass) -> Optional[WhatIfPlan]:
     from .ops import victim as vk
@@ -709,6 +716,7 @@ def _plan_evict_gang(cyc, action: str, jrow: int,
     )
 
 
+# holds: _lock
 def run_evict_action(cyc, action: str) -> None:
     """The device-native preempt/reclaim lane body: plan, prove, commit (or
     park the proof for the next cycle's top).  One what-if wave is in
