@@ -642,6 +642,10 @@ def _kernel_fn(name, c, plain):
         return lambda: tuple(affkernels.aff_live(
             c["rows"], c["cand"], c["terms"], c["at"], gate=c.get("gate"),
             out=c.get("out"), plain=plain))
+    if name == "aff_steer":
+        return lambda: (affkernels.aff_steer(
+            c["ranked"], c["feas_att"], c["at"], gate=c.get("gate"),
+            out=c.get("out"), plain=plain),)
     if name == "aff_filter":
         gm = torch.full(tuple(c["at"].cnt_a.shape), c["W"],
                         dtype=torch.int32, device=c["acc"].device)
@@ -859,6 +863,32 @@ def _work(name, cap, outs):
                   + _nbytes(cap["rows"], cand, cap["terms"]) + out_bytes)
         L = outs[0].shape[1]
         ops = entries * L * 6 + used * D
+    elif name == "aff_steer":
+        # The ranked ids, the attempt's plane and the plane written; the
+        # count rows of the terms whose self-match rule needs a total;
+        # the window's term keys and [UM, EW] table entries; the ranked
+        # nodes' domain rows; one count cell (two with pipelined counts)
+        # per distinct (term, domain) a feasible candidate reads under its
+        # row's required or anti terms.
+        at = cap["at"]
+        E, D = at.cnt_a.shape
+        UM, K = cap["ranked"].shape
+        NK = at.node_dom.shape[1]
+        planes = 1 + (at.cnt_p is not None)
+        kinds = at.t_req_aff | at.t_req_anti  # [UM, E]
+        self_terms = int((at.t_req_aff & at.t_matches).any(dim=0).sum())
+        rk = cap["ranked"].long()
+        dom = at.node_dom.long()[rk[:, :, None],
+                                 at.term_key.long()[None, None, :]]
+        read = (cap["feas_att"][:, :, None] & kinds[:, None, :]
+                & (dom >= 0))
+        e_idx = torch.arange(E, device=dom.device)[None, None, :].expand_as(
+            dom)
+        cells = torch.unique((e_idx * D + dom)[read]).numel()
+        nbytes = (_nbytes(cap["ranked"], cap["feas_att"]) + out_bytes
+                  + self_terms * D * 4 * planes + E * 4 + UM * E * 3
+                  + _distinct(cap["ranked"]) * NK * 4 + cells * 4 * planes)
+        ops = int(read.sum()) * 3 + self_terms * D
     elif name == "aff_filter":
         # The required terms' count rows (their totals: no other term's
         # is read), the term keys, the table entries, the chosen nodes'
@@ -1308,6 +1338,8 @@ KERNEL_FUNCS = {
     "aff_live": ("aff_live_kernel", "count_totals_kernel"),
     "aff_filter": ("aff_filter_init_kernel", "aff_filter_givers_kernel",
                    "aff_filter_check_kernel", "aff_filter_reset_kernel"),
+    # Its totals launch is aff_live's count_totals_kernel, counted there.
+    "aff_steer": ("aff_steer_kernel",),
     "seq_solve": ("row_prep_kernel", "seq_solve_kernel"),
 }
 
@@ -3300,31 +3332,33 @@ def _replay_rows(caps: dict, launches: dict, label: str, names) -> list:
     return rows
 
 
-def aff_live_gated(cap: dict, reps: int = 20) -> dict:
-    """``aff_live`` on its captured inputs with the gate clear (a cached
-    attempt's launch): the kernel and the plain version must leave the
-    buffers as they were; timed as in ``replay_kernels``."""
+def gated_replay(name: str, cap: dict, reps: int = 20) -> dict:
+    """``aff_live`` or ``aff_steer`` on its captured inputs with the gate
+    clear (a launch behind its byte): the kernel and the plain version
+    must leave the buffers as they were; timed as in ``replay_kernels``."""
     import torch
 
     c = _clone(cap)
-    dev = c["rows"].device
-    M = c["rows"].shape[0]
-    cand = c["cand"]
-    L = (c["at"].node_dom.shape[0] if cand is None
-         else cand.shape[0] if cand.dim() == 1 else cand.shape[1])
-    if c.get("out") is None:
+    dev = c["at"].cnt_a.device
+    if name == "aff_live" and c.get("out") is None:
+        # A phase-1 launch: no cache buffers of its own.
+        M = c["rows"].shape[0]
+        cand = c["cand"]
+        L = (c["at"].node_dom.shape[0] if cand is None
+             else cand.shape[0] if cand.dim() == 1 else cand.shape[1])
         c["out"] = (torch.ones((M, L), dtype=torch.bool, device=dev),
                     torch.zeros((M, L), dtype=torch.float32, device=dev))
     c["gate"] = torch.zeros(1, dtype=torch.bool, device=dev)
+    prior = _tensors(c["out"])
     for plain in (False, True):
-        out = _kernel_fn("aff_live", _clone(c), plain)()
+        out = _kernel_fn(name, _clone(c), plain)()
         torch.cuda.synchronize()
-        if not all(torch.equal(a, b) for a, b in zip(out, c["out"])):
-            raise AssertionError(f"aff_live gated (plain={plain}) changed "
+        if not all(torch.equal(a, b) for a, b in zip(out, prior)):
+            raise AssertionError(f"{name} gated (plain={plain}) changed "
                                  f"its buffers")
     times = {}
     for plain in (False, True, True, False):
-        fns = [_kernel_fn("aff_live", _clone(c), plain) for _ in range(reps)]
+        fns = [_kernel_fn(name, _clone(c), plain) for _ in range(reps)]
         times.setdefault(plain, []).append(_device_ms(fns))
     k_best, p_best = min(times[False]), min(times[True])
     return {"ms": k_best[0], "plain_ms": p_best[0], "wrapper_ms": k_best[1],
@@ -3767,8 +3801,9 @@ def aff_invariants(store, split=()) -> dict:
 
 
 def run_aff_cycles(label, store, steady=5, trace=False, device=None,
-                   release=None, repend=range(64), all_bound=False):
-    """``Scheduler(store).run_once()`` under CONF_BASE: one cold cycle,
+                   release=None, repend=range(64), all_bound=False,
+                   conf=CONF_BASE):
+    """``Scheduler(store).run_once()`` under ``conf``: one cold cycle,
     ``steady`` cycles re-pending the pods on the nodes ``repend``,
     optionally one traced steady cycle; ``release(store)`` (when given)
     runs after the steady cycles, and three more cycles follow, each
@@ -3789,7 +3824,7 @@ def run_aff_cycles(label, store, steady=5, trace=False, device=None,
     from volcano_tpu_torch.scheduler import Scheduler
     from volcano_tpu_torch.sim import ClusterSimulator
 
-    sched = Scheduler(store, conf_str=CONF_BASE, device=device)
+    sched = Scheduler(store, conf_str=conf, device=device)
     sim = None
     solve_wave = wave_mod.solve_wave
     solves = []
@@ -3812,7 +3847,8 @@ def run_aff_cycles(label, store, steady=5, trace=False, device=None,
         info = wave_mod.LAST_TWOPHASE
         solves.append({k: info.get(k) for k in (
             "host_reads", "future", "ports", "affinity", "cnt0_any",
-            "sparse", "devincr")})
+            "sparse", "devincr", "enabled", "compacted_classes",
+            "steer_calls")})
         solves[-1]["fb"] = [int(out.fb_exhausted), int(out.fb_affinity)]
         solves[-1]["pipelined"] = int((out.pipelined >= 0).sum())
         return out
@@ -4122,7 +4158,7 @@ def affinity_phases(big=(10000, 100000), mid=(1000, 10000),
     # the gate skipped (device counts), and a gated launch's time.
     live["computing_launches"] = computing
     live["gated_launches"] = total["aff_live"] - computing
-    live["gated"] = aff_live_gated(caps["aff_live"])
+    live["gated"] = gated_replay("aff_live", caps["aff_live"])
     _log(f"[kernels:affinity] aff_live gated: {json.dumps(live['gated'])}")
     ext = list(zip(AFF_REPLAY[4:], _replay_rows(caps, total, "affinity",
                                                 AFF_REPLAY[4:])))
@@ -5333,6 +5369,445 @@ def recovery_phases(cold_hash: str) -> dict:
     return out
 
 
+# ------------------------- the single-phase solve and live steering
+
+
+def _env(name, value):
+    """Sets environment variable ``name`` (None: unsets it); returns a
+    function that restores it."""
+    import os
+
+    old = os.environ.get(name)
+    if value is None:
+        os.environ.pop(name, None)
+    else:
+        os.environ[name] = value
+
+    def restore():
+        if old is None:
+            os.environ.pop(name, None)
+        else:
+            os.environ[name] = old
+    return restore
+
+
+def host_flag_args(args):
+    """The solve args with the flags a solve would read off the card taken
+    on the host beforehand, as the fast path hands them over: the
+    releasing / pipelined planes as host arrays and ``taint_any``.
+    Returns (args, taint_any)."""
+    from volcano_tpu_torch.device import to_numpy
+
+    nodes = args[0]
+    taint_any = bool(to_numpy(nodes.taint_bits).any())
+    nodes = nodes._replace(releasing=to_numpy(nodes.releasing),
+                           pipelined=to_numpy(nodes.pipelined))
+    return (nodes,) + tuple(args[1:]), taint_any
+
+
+def timed_solves(args, reps=3, **kw) -> tuple:
+    """``reps`` solves of ``args`` on the card: (walls, the last result,
+    its ``LAST_TWOPHASE`` record)."""
+    import torch
+
+    from volcano_tpu_torch.ops import wave as wave_mod
+
+    walls, res = [], None
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        again = wave_mod.solve_wave(*args, **kw)
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+        if res is not None:
+            same_result(res, again, "repeat solve")
+        res = again
+    return walls, res, dict(wave_mod.LAST_TWOPHASE)
+
+
+def single_phase_solves(label, stats) -> None:
+    """Every solve of ``run_aff_cycles``' cycles single-phase: no node
+    classes, no device-incremental state."""
+    for c in stats["cycles"]:
+        for x in c["solves"]:
+            if x["enabled"] or x["compacted_classes"] or x["devincr"]:
+                raise AssertionError(f"[{label}] a solve ran two-phase, on "
+                                     f"classes or with devincr: {x}")
+
+
+def contended_store(seed=0):
+    """The contended inter-pod mix of the steering twins
+    (``tests/test_torch_fixtures.affinity_store(n_nodes=64, n_gangs=48,
+    gang_size=8, zones=4, node_cpu="8", mix=("aff", "anti", "res_aff",
+    "res_anti"))``): 64 nodes of 8 CPUs in 4 zones (every seventh without
+    a zone label), two resident pods of each of three apps (host port 9000
+    on every other one), 48 gangs of 8 cycling through required zone
+    affinity and hostname anti-affinity to their own app and to a resident
+    app, every third gang asking for host port 8080 (every sixth also
+    9000)."""
+    import itertools
+
+    import numpy as np
+
+    import volcano_tpu_torch.api.spec as spec
+    from volcano_tpu_torch.api import (GROUP_NAME_ANNOTATION, AffinityTerm,
+                                       Node, Pod, PodGroup)
+    from volcano_tpu_torch.cache import ClusterStore
+
+    spec._uid_counter = itertools.count(1)
+    spec._ts_counter = itertools.count(1)
+    rng = np.random.default_rng(seed)
+    store = ClusterStore()
+    n_nodes = 64
+    for i in range(n_nodes):
+        labels = {} if i % 7 == 6 else {"zone": f"z{i % 4}"}
+        store.add_node(Node(name=f"n{i:03d}", labels=labels,
+                            allocatable={"cpu": "8", "memory": "64Gi",
+                                         "pods": 110}))
+    for k in range(3):
+        store.add_pod_group(PodGroup(name=f"res-{k}", min_member=1,
+                                     queue="default"))
+        for r in range(2):
+            store.add_pod(Pod(
+                name=f"res-{k}-{r}", labels={"app": f"res-{k}"},
+                annotations={GROUP_NAME_ANNOTATION: f"res-{k}"},
+                containers=[{"cpu": "1", "memory": "1Gi"}],
+                node_name=f"n{(5 * k + 3 * r) % n_nodes:03d}",
+                phase="Running", host_ports=[9000] if r % 2 == 0 else []))
+    mix = ("aff", "anti", "res_aff", "res_anti")
+    for g in range(48):
+        name = f"g{g:03d}"
+        kind = mix[g % len(mix)]
+        res = f"res-{g % 3}"
+        extra = {}
+        if kind == "aff":
+            extra["affinity"] = [AffinityTerm(match_labels={"app": name},
+                                              topology_key="zone")]
+        elif kind == "anti":
+            extra["anti_affinity"] = [AffinityTerm(
+                match_labels={"app": name}, topology_key=HOSTNAME)]
+        elif kind == "res_aff":
+            extra["affinity"] = [AffinityTerm(match_labels={"app": res},
+                                              topology_key="zone")]
+        else:
+            extra["anti_affinity"] = [AffinityTerm(
+                match_labels={"app": res}, topology_key=HOSTNAME)]
+        if g % 3 == 0:
+            extra["host_ports"] = [8080] + ([9000] if g % 6 == 0 else [])
+        store.add_pod_group(PodGroup(name=name, min_member=8,
+                                     queue="default"))
+        cpu = str(rng.choice(["1", "2"]))
+        for k in range(8):
+            store.add_pod(Pod(
+                name=f"{name}-{k}", labels={"app": name},
+                annotations={GROUP_NAME_ANNOTATION: name},
+                containers=[{"cpu": cpu, "memory": "2Gi"}], **extra))
+    return store
+
+
+def steer_replay(cap: dict, launches: int, computing: int) -> dict:
+    """``aff_steer`` on its first launch's captured inputs (the live window
+    of that sub-round) with the gate set -- held against the plain version
+    and timed as in ``replay_kernels`` -- and with it clear
+    (``gated_replay``)."""
+    import torch
+
+    c = dict(cap)
+    c["gate"] = torch.ones(1, dtype=torch.bool, device=c["ranked"].device)
+    row = replay_kernels({"aff_steer": c}, {"aff_steer": launches},
+                         names=["aff_steer"])[0]
+    row["computing_launches"] = computing
+    row["gated_launches"] = launches - computing
+    row["gated"] = gated_replay("aff_steer", cap)
+    UM, K = cap["ranked"].shape
+    EW, D = cap["at"].cnt_a.shape
+    row["shape"] = {"UM": int(UM), "K": int(K), "EW": int(EW), "D": int(D)}
+    return row
+
+
+def fold_single_rows(rows: list, single_rows: dict) -> None:
+    """The single-phase launches' numbers under ``single`` in the rows of
+    ``rank_candidates``, ``aff_live`` and ``static_planes``."""
+    by_name = {r["name"]: r for r in rows}
+    keys = ("launches", "ms", "plain_ms", "bound_ms", "bound_by",
+            "max_abs_err", "wrapper_ms", "queued", "bytes", "ops")
+    for name in ("rank_candidates", "aff_live", "static_planes"):
+        r = single_rows[name]
+        entry = {k: r[k] for k in keys}
+        if name == "aff_live":
+            entry.update({k: r[k] for k in ("computing_launches",
+                                            "gated_launches", "gated")})
+        by_name[name]["single"] = entry
+
+
+def single_phase_phases(ns_args=None, big=(10000, 100000),
+                        mid=(1000, 10000)):
+    """Phases 32-34.  [single-phase]: the north-star solve with
+    ``VOLCANO_TPU_TWOPHASE=0`` equal to its plain run on the card, timed
+    against the two-phase solve of the same args; a cold and 2 steady
+    cycles of a north-star store; 1,000 x 10,000 card against CPU.
+    [single-phase:affinity]: config 5's cold cycle single-phase, and the
+    full-N ``aff_live`` (computing and gated), ``rank_candidates`` and the
+    node-level ``static_planes`` launches against their plain versions.
+    [steer]: config 5 with ``AFF_STEER`` on (two-phase), a cold and 2
+    steady cycles; ``aff_steer`` on its captured inputs; 1,000 x 10,000 in
+    both phase modes and the contended store, card against CPU, and steering
+    on against off there.  Returns (the ``aff_steer`` row, the single-phase
+    rows of ``rank_candidates``, ``aff_live`` and ``static_planes``)."""
+    import statistics
+
+    import torch
+
+    from volcano_tpu_torch.framework import DEPLOYED_SCHEDULER_CONF
+    from volcano_tpu_torch.ops import kernels
+    from volcano_tpu_torch.ops import wave as wave_mod
+    from volcano_tpu_torch.synth import solve_args_from_store
+
+    t_phase = time.perf_counter()
+    secs = {}
+    # 32. [single-phase]
+    if ns_args is None:
+        st = _fresh_cluster(n_nodes=big[0], n_pods=big[1], gang_size=8,
+                            zones=16, seed=0)
+        ns_args, _ = solve_args_from_store(st, binpack=True, nodeorder=True)
+        st.close()
+        del st
+    args, taint_any = host_flag_args(ns_args)
+    restore = _env("VOLCANO_TPU_TWOPHASE", "1")
+    try:
+        two_walls, two_res, two_rec = timed_solves(args, taint_any=taint_any)
+    finally:
+        restore()
+    restore = _env("VOLCANO_TPU_TWOPHASE", "0")
+    single_rows = {}
+    try:
+        kernels.CAPTURE = {}
+        kernels.reset_launches()
+        t0 = time.perf_counter()
+        res = wave_mod.solve_wave(*args, taint_any=taint_any)
+        torch.cuda.synchronize()
+        first_s = time.perf_counter() - t0
+        launches = launch_counts()
+        caps, kernels.CAPTURE = kernels.CAPTURE, None
+        rec = dict(wave_mod.LAST_TWOPHASE)
+        if rec["enabled"] or rec["shortlist"] is not None:
+            raise AssertionError(f"[single-phase] the solve ran two-phase: "
+                                 f"{rec}")
+        if rec["host_reads"] != 0:
+            raise AssertionError(f"[single-phase] the solve read device "
+                                 f"planes back: {rec['host_reads']}")
+        missing = never_launched(launches, ("rank_candidates", "walk_accept",
+                                            "apply_commit", "static_planes"))
+        if missing or launches["coarse_shortlist"] \
+                or launches["warm_shortlist"]:
+            raise AssertionError(f"[single-phase] launches {launches}")
+        if launches["static_planes"] != rec["waves"]:
+            raise AssertionError(f"[single-phase] {launches['static_planes']}"
+                                 f" static_planes launches for "
+                                 f"{rec['waves']} waves")
+        inv = check_invariants(args, res)
+        walls, again, _r = timed_solves(args, taint_any=taint_any)
+        same_result(res, again, "[single-phase] repeat solve")
+        t0 = time.perf_counter()
+        plain = wave_mod.solve_wave(*args, taint_any=taint_any, plain=True)
+        torch.cuda.synchronize()
+        plain_s = time.perf_counter() - t0
+        same_result(res, plain, "[single-phase] kernels vs plain versions")
+        stats = {"first_solve_s": first_s,
+                 "solve_s_median": statistics.median(walls),
+                 "solve_s_all": walls, "plain_solve_s": plain_s,
+                 "two_phase_solve_s_median": statistics.median(two_walls),
+                 "two_phase_solve_s_all": two_walls,
+                 "two_phase_host_reads": two_rec["host_reads"],
+                 "two_phase_syncs": two_rec["syncs"],
+                 "two_phase_pods_bound": int((two_res.assigned >= 0).sum()),
+                 **{k: rec[k] for k in ("syncs", "host_reads", "waves",
+                                        "prep_s", "fine_s")},
+                 "launches": {k: v for k, v in launches.items() if v},
+                 **inv}
+        _log(f"[single-phase] north-star solve median "
+             f"{stats['solve_s_median']:.4f} s (two-phase "
+             f"{stats['two_phase_solve_s_median']:.4f} s, same args, same "
+             f"run), equal to its plain run; {json.dumps(stats)}")
+        single_rows["static_planes"] = _replay_rows(
+            caps, launches, "single-phase", ["static_planes"])[0]
+        del caps, res, again, plain, two_res
+        # The cycle on a north-star store of its own.
+        t0 = time.perf_counter()
+        store = _fresh_cluster(n_nodes=big[0], n_pods=big[1], gang_size=8,
+                               zones=16, seed=0)
+        _log(f"[single-phase] north-star cluster "
+             f"{time.perf_counter() - t0:.3f} s")
+        cstats, _r = run_aff_cycles("single-phase:cycle", store, steady=2,
+                                    all_bound=True,
+                                    conf=DEPLOYED_SCHEDULER_CONF)
+        single_phase_solves("single-phase:cycle", cstats)
+        dv = store._devincr_cache
+        if dv is not None and any(dv.counts.values()):
+            raise AssertionError(f"[single-phase] devincr counted "
+                                 f"{dv.counts}")
+        store.close()
+        del store
+        _log(f"[single-phase] cycle walls (s) "
+             f"{[round(c['wall_s'], 4) for c in cstats['cycles']]}")
+
+        def mid_run(device):
+            st = _fresh_cluster(n_nodes=mid[0], n_pods=mid[1], gang_size=8,
+                                zones=16, seed=0)
+            s_, r = run_aff_cycles(f"single-phase:mid:{device or 'cuda'}",
+                                   st, steady=1, device=device,
+                                   all_bound=True,
+                                   conf=DEPLOYED_SCHEDULER_CONF)
+            single_phase_solves("single-phase:mid", s_)
+            st.close()
+            return r
+        _same_records("single-phase:mid", mid_run(None), mid_run("cpu"),
+                      "card vs CPU")
+        _log(f"[single-phase:mid] {mid[0]} x {mid[1]}: card = CPU")
+        secs["single-phase"] = time.perf_counter() - t_phase
+
+        # 33. [single-phase:affinity]
+        t0 = time.perf_counter()
+        store = config5_cluster(*big)
+        _log(f"[single-phase:affinity] cluster "
+             f"{time.perf_counter() - t0:.3f} s")
+        kernels.CAPTURE = {}
+        kernels.reset_launches()
+        astats, _r = run_aff_cycles("single-phase:affinity", store,
+                                    steady=0, all_bound=True)
+        single_phase_solves("single-phase:affinity", astats)
+        launches = launch_counts()
+        computing = kernels.read_tally("aff_live")
+        caps, kernels.CAPTURE = kernels.CAPTURE, None
+        store.close()
+        del store
+        if launches["coarse_shortlist"] or launches["warm_shortlist"]:
+            raise AssertionError(f"[single-phase:affinity] launches "
+                                 f"{launches}")
+        missing = never_launched(launches, (
+            "rank_candidates", "walk_accept", "apply_commit",
+            "static_planes", "aff_live", "aff_filter"))
+        if missing:
+            raise AssertionError(f"[single-phase:affinity] kernels never "
+                                 f"launched: {missing}")
+        _log(f"[single-phase:affinity] launches {json.dumps(launches)}; "
+             f"aff_live {computing} computing + "
+             f"{launches['aff_live'] - computing} gated; first-launch "
+             f"shapes {json.dumps(first_shapes(caps))}")
+        for name in ("aff_live", "rank_candidates:aff:fallback"):
+            if caps[name]["cand"] is not None:
+                raise AssertionError(f"[single-phase:affinity] {name} was "
+                                     f"not a full-N launch")
+        live = _replay_rows(caps, launches, "single-phase:affinity",
+                            ["aff_live"])[0]
+        live["computing_launches"] = computing
+        live["gated_launches"] = launches["aff_live"] - computing
+        live["gated"] = gated_replay("aff_live", caps["aff_live"])
+        single_rows["aff_live"] = live
+        single_rows["rank_candidates"] = _replay_rows(
+            caps, launches, "single-phase:affinity",
+            ["rank_candidates:aff:fallback"])[0]
+        single_rows["cold_cycle_s"] = astats["cycles"][0]["wall_s"]
+        del caps
+        secs["single-phase:affinity"] = (time.perf_counter() - t_phase
+                                         - sum(secs.values()))
+    finally:
+        restore()
+
+    # 34. [steer]
+    steer0 = wave_mod.AFF_STEER
+    wave_mod.AFF_STEER = 1
+    try:
+        t0 = time.perf_counter()
+        store = config5_cluster(*big)
+        _log(f"[steer] cluster {time.perf_counter() - t0:.3f} s")
+        kernels.CAPTURE = {}
+        kernels.reset_launches()
+        sstats, _r = run_aff_cycles("steer", store, steady=2,
+                                    all_bound=True)
+        launches = launch_counts()
+        computing = kernels.read_tally("aff_steer")
+        caps, kernels.CAPTURE = kernels.CAPTURE, None
+        store.close()
+        del store
+        if launches["aff_steer"] == 0 or computing == 0:
+            raise AssertionError(f"[steer] aff_steer launches "
+                                 f"{launches['aff_steer']}, computing "
+                                 f"{computing}")
+        _log(f"[steer] launches {json.dumps(launches)}; aff_steer "
+             f"{computing} computing + {launches['aff_steer'] - computing} "
+             f"gated; cycle walls (s) "
+             f"{[round(c['wall_s'], 4) for c in sstats['cycles']]}")
+        steer_row = steer_replay(caps["aff_steer"], launches["aff_steer"],
+                                 computing)
+        steer_row["cycle_walls_s"] = [c["wall_s"]
+                                      for c in sstats["cycles"]]
+        _log(f"[kernels:steer] aff_steer: {steer_row['ms']:.5f} ms/launch "
+             f"computing, {steer_row['gated']['ms']:.5f} ms gated, plain "
+             f"{steer_row['plain_ms']:.5f} ms, bound "
+             f"{steer_row['bound_ms']:.6f} ms ({steer_row['bound_by']}); "
+             f"{json.dumps(steer_row)}")
+        del caps
+
+        def mid_run(device, twophase):
+            restore = _env("VOLCANO_TPU_TWOPHASE", twophase)
+            try:
+                st = config5_cluster(*mid)
+                s_, r = run_aff_cycles(
+                    f"steer:mid:{twophase}:{device or 'cuda'}", st,
+                    steady=1, device=device, repend=range(16))
+                st.close()
+                if twophase == "0":
+                    single_phase_solves("steer:mid", s_)
+                return r
+            finally:
+                restore()
+        for tp in ("1", "0"):
+            card, cpu = mid_run(None, tp), mid_run("cpu", tp)
+            _same_records("steer:mid", card, cpu,
+                          f"card vs CPU (TWOPHASE={tp})")
+            _log(f"[steer:mid] {mid[0]} x {mid[1]} TWOPHASE={tp}: card = "
+                 f"CPU")
+        # The contended store: card against CPU in both phase modes, and
+        # steering on against off.
+        binds = {}
+        for tp in ("1", "0"):
+            restore = _env("VOLCANO_TPU_TWOPHASE", tp)
+            try:
+                for steer in (1, 0):
+                    wave_mod.AFF_STEER = steer
+                    got = []
+                    for dev in (None, "cpu"):
+                        st = contended_store()
+                        a, _ = solve_args_from_store(
+                            st, binpack=True, nodeorder=True, device=dev)
+                        st.close()
+                        r = wave_mod.solve_wave(*a, wave=32, device=dev)
+                        got.append((r, dict(wave_mod.LAST_TWOPHASE)))
+                    same_result(got[0][0], got[1][0],
+                                f"[steer:contended] TWOPHASE={tp} "
+                                f"AFF_STEER={steer} card vs CPU")
+                    if steer and got[0][1]["steer_calls"] == 0:
+                        raise AssertionError("[steer:contended] no "
+                                             "steering call")
+                    binds[(tp, steer)] = int((got[0][0].assigned >= 0).sum())
+                    key = got[0][0].assigned.cpu().numpy().tobytes()
+                    binds[(tp, steer, "key")] = key
+            finally:
+                restore()
+        for tp in ("1", "0"):
+            if binds[(tp, 1, "key")] == binds[(tp, 0, "key")]:
+                raise AssertionError(f"[steer:contended] steering changed "
+                                     f"nothing (TWOPHASE={tp})")
+        _log(f"[steer:contended] card = CPU in both phase modes, steering "
+             f"on and off; pods bound (TWOPHASE, AFF_STEER): "
+             f"{json.dumps({f'{k[0]},{k[1]}': v for k, v in binds.items() if len(k) == 2})}")
+    finally:
+        wave_mod.AFF_STEER = steer0
+    secs["steer"] = time.perf_counter() - t_phase - sum(secs.values())
+    _log(f"[single-phase] seconds {json.dumps(secs)}")
+    return steer_row, single_rows
+
+
 def _same_records(label, a, b, what, fields=4):
     if len(a) != len(b):
         raise AssertionError(f"[{label}] {what}: cycle counts differ")
@@ -5412,6 +5887,13 @@ def main(argv=()) -> int:
             del store
             _log(f"[obs] {json.dumps(obs_phase(ckpt, binds))}")
         ha_gate_phase()
+        print(card, flush=True)
+        return 0
+    if list(argv) == ["single-phase"]:
+        # Phases 32-34 alone, on north-star solve args of their own.
+        steer_row, single_rows = single_phase_phases()
+        _log(f"[kernels:single] {json.dumps(single_rows)}")
+        _log(f"[kernels:steer] {json.dumps(steer_row)}")
         print(card, flush=True)
         return 0
     if list(argv) == ["recovery"]:
@@ -5647,7 +6129,6 @@ def main(argv=()) -> int:
     # 20-23. the object session: config 2 with the fast path off, the
     # sequential solver (seq_solve), its north-star solve, custom plugins.
     seq_row, extra_rows = object_phases(ns_args)
-    del ns_args
     for r in extra_rows:
         by_name[r["name"]]["extra"] = {k: r[k] for k in (
             "launches", "ms", "plain_ms", "bound_ms", "bound_by",
@@ -5657,6 +6138,12 @@ def main(argv=()) -> int:
     # 24-31. the warm-block knobs, crash recovery, the fallback, lockdep
     # and the per-cycle trace.
     recovery_phases(cold_hash)
+
+    # 32-34. the single-phase solve and live steering.
+    steer_row, single_rows = single_phase_phases(ns_args)
+    del ns_args
+    fold_single_rows(rows, single_rows)
+    rows.append(steer_row)
 
     print(json.dumps({"kernels": rows}), flush=True)
     print(card, flush=True)

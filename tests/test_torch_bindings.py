@@ -396,6 +396,38 @@ def test_aff_live_passes_the_gate_and_the_tally(fake_card):
     assert len(fake_card.calls) == 2
 
 
+def test_aff_steer_passes_the_gate_the_tally_and_the_plane(fake_card):
+    """aff_steer hands the kernel the ranked ids, the attempt's plane, the
+    window, the gate byte, the computing tally and the caller's working
+    plane (without a gate: null, the tally, a fresh plane); a plane of
+    another shape or a gate without one raises before any launch."""
+    U, E, D, N, K, KR = 8, 5, 9000, 32, 2, 16
+    at = _terms(U, E, D, N, K)
+    ranked, feas = _z(U, KR), _z(U, KR, dtype=B8)
+    gate = _z(1, dtype=B8)
+    out = _z(U, KR, dtype=B8)
+    assert affkernels.aff_steer(ranked, feas, at, gate=gate,
+                                out=out) is out
+    fresh_out = affkernels.aff_steer(ranked, feas, at)
+    assert fresh_out.shape == (U, KR) and fresh_out.dtype == B8
+    g, fresh = fake_card.args
+    # (ranked, feas_att, UM, K, node_dom, NK, term_key, cnt_a, cnt_p, E, D,
+    #  t_aff, t_anti, t_match, part, gate, computed, feas_k, stream)
+    assert g[0].value == ranked.data_ptr() and g[1].value == feas.data_ptr()
+    assert (g[2], g[3], g[5], g[9], g[10]) == (U, KR, K, E, D)
+    assert g[15].value == gate.data_ptr() and fresh[15] is None
+    tally = kernels.tally("aff_steer", torch.device("cpu")).data_ptr()
+    assert g[16].value == tally and fresh[16].value == tally
+    assert g[17].value == out.data_ptr()
+    assert fresh[17].value == fresh_out.data_ptr()
+    with pytest.raises(ValueError):
+        affkernels.aff_steer(ranked, feas, at, gate=gate,
+                             out=_z(U, KR - 1, dtype=B8))
+    with pytest.raises(ValueError):
+        affkernels.aff_steer(ranked, feas, at, gate=gate)
+    assert fake_card.calls == ["vtt_aff_steer"] * 2
+
+
 def test_aff_filter_needs_the_wave_planes(fake_card):
     """On the card the filter takes term_req [E] and prof_req [UM] from
     its caller; without them (or at other shapes) it raises and launches

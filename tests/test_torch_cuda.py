@@ -2014,3 +2014,75 @@ def test_cycle_static_planes_one_launch_a_miss(cuda):
     assert store.device_snapshot.delta_uploads >= 1
     assert kernels.LAUNCHES["scatter_rows"] == \
         store.device_snapshot.delta_launches
+
+
+# ------------------------------------- single-phase solve and steering
+
+
+@pytest.mark.parametrize("UM,K,E,D", [(6, 9, 12, 40), (64, 256, 12, 9001),
+                                      (16, 300, 300, 8192)])
+def test_aff_steer_gate_equals_plain(cuda, UM, K, E, D):
+    """aff_steer over random windows (domain-less nodes, terms no pod
+    matches yet, pipelined counts): K = 300 spans two tiles, E = 300 two
+    staging rounds, D = 9,001 the unaligned totals loads.  A clear gate
+    leaves the working plane and the computing tally untouched; a set gate
+    writes what the plain version writes; without a gate the plane is the
+    same."""
+    from volcano_tpu_torch.ops import affkernels
+
+    at = _aff_case(7 + E, cuda, U=UM, E=E, D=D, N=500, cnt_density=0.05)
+    g = torch.Generator().manual_seed(K)
+    # About as many required and anti entries a row at every E (a row of
+    # 300 terms at _aff_case's density fails everywhere).
+    keep = (torch.rand((UM, E), generator=g) < min(1.0, 12.0 / E)).to(cuda)
+    at = at._replace(t_req_aff=at.t_req_aff & keep,
+                     t_req_anti=at.t_req_anti & keep)
+    ranked = torch.randint(0, 500, (UM, K), generator=g).to(torch.int32)
+    feas = torch.rand((UM, K), generator=g) < 0.8
+    ranked, feas = ranked.to(cuda), feas.to(cuda)
+    want = affkernels.aff_steer(ranked, feas, at, plain=True)
+    prior = torch.rand((UM, K), generator=g).to(cuda) < 0.5
+    kernels.reset_launches()
+    for gate in (False, True):
+        out = prior.clone()
+        ref = prior.clone()
+        gt = torch.tensor([gate], device=cuda)
+        got = affkernels.aff_steer(ranked, feas, at, gate=gt, out=out)
+        affkernels.aff_steer(ranked, feas, at, gate=gt, out=ref, plain=True)
+        assert got is out
+        _equal(out, ref, "plane")
+        _equal(out, want if gate else prior, "plane vs expected")
+    assert kernels.LAUNCHES["aff_steer"] == 2
+    # The plain version's computing call counts too.
+    assert kernels.read_tally("aff_steer") == 2
+    _equal(affkernels.aff_steer(ranked, feas, at), want, "without a gate")
+    assert bool((feas & ~want).any()) and bool(want.any())
+
+
+@pytest.mark.parametrize("steer", [0, 1])
+@pytest.mark.parametrize("twophase", ["0", "1"])
+def test_single_phase_and_steered_solves_equal_plain_and_cpu(
+        cuda, monkeypatch, twophase, steer):
+    """The contended affinity store (steering changes its binds) in both
+    phase modes, steering on and off: the kernels equal the plain versions
+    on the card and the CPU run, and the single-phase solve launches the
+    static planes per wave and no shortlist."""
+    import volcano_tpu_torch.ops.wave as tw
+    from test_torch_fixtures import affinity_store
+
+    monkeypatch.setenv("VOLCANO_TPU_TWOPHASE", twophase)
+    monkeypatch.setattr(tw, "AFF_STEER", steer)
+    store = affinity_store(volcano_tpu_torch, n_nodes=64, n_gangs=48,
+                           gang_size=8, zones=4, node_cpu="8",
+                           mix=("aff", "anti", "res_aff", "res_anti"))
+    k, p, c, launched = _solve_three_ways(store, 32)
+    _same(k, p)
+    _same(k, c)
+    assert tw.LAST_TWOPHASE["enabled"] is (twophase == "1")
+    for kn in ("aff_live", "aff_filter", "rank_candidates", "walk_accept",
+               "apply_commit"):
+        assert launched[kn] > 0, (kn, launched)
+    assert (launched["aff_steer"] > 0) is bool(steer)
+    if twophase == "0":
+        assert launched["coarse_shortlist"] == 0
+        assert launched["static_planes"] == tw.LAST_TWOPHASE["waves"]

@@ -1,7 +1,9 @@
 """The port stands alone.
 
 (a) With ``jax``, ``jaxlib`` and ``volcano_tpu`` unimportable, the port's
-    modules import and run a tiny CPU solve.
+    modules import and run a tiny CPU solve, also single-phase
+    (``VOLCANO_TPU_TWOPHASE=0``) with live steering
+    (``VOLCANO_TPU_AFF_STEER=1``) on an affinity mix.
 (b) No module of the port, and not ``chip_smoke.py``, imports ``jax`` or
     anything of ``volcano_tpu``.
 (c) Without CUDA, the default-device entry points raise.
@@ -226,11 +228,33 @@ def test_unsupported_features_raise(what):
         port_wave.solve_wave(*make(), wave=8, device="cpu", **kw)
 
 
-def test_single_phase_raises(monkeypatch):
-    monkeypatch.setenv("VOLCANO_TPU_TWOPHASE", "0")
-    with pytest.raises(NotImplementedError, match="TWOPHASE"):
-        port_wave.solve_wave(*_args(), wave=8, device="cpu")
-    assert volcano_tpu_torch.__version__
+_STEERED_SOLVE = r'''
+import volcano_tpu_torch.ops.wave as tw
+args, _ = solve_args_from_store(synthetic_cluster(
+    n_nodes=16, n_pods=96, gang_size=8, zones=4, affinity_fraction=0.3,
+    anti_affinity_fraction=0.3, seed=1), device="cpu")
+res = solve_wave(*args, wave=32, device="cpu")
+assert int((res.assigned >= 0).sum()) > 0
+assert tw.LAST_TWOPHASE["enabled"] is False and tw.LAST_TWOPHASE["affinity"]
+assert tw.AFF_STEER == 1
+assert not any(k.split(".")[0] in ("jax", "jaxlib", "volcano_tpu")
+               for k in sys.modules)
+print("ok")
+'''
+
+
+def test_single_phase_and_steering_run_with_jax_and_reference_blocked():
+    """The single-phase solve and live steering, switched on from the
+    environment, run with the JAX package unimportable."""
+    env = dict(os.environ, PYTHONPATH=str(ROOT), VOLCANO_TPU_TWOPHASE="0",
+               VOLCANO_TPU_AFF_STEER="1")
+    out = subprocess.run(
+        [sys.executable, "-c",
+         _BLOCKER + "import sys\n" + _TINY_SOLVE + _STEERED_SOLVE],
+        capture_output=True, text=True, env=env, cwd=str(ROOT), timeout=300,
+    )
+    assert out.returncode == 0, out.stderr[-3000:]
+    assert out.stdout.split() == ["ok", "ok"]
 
 
 _CYCLE = r'''

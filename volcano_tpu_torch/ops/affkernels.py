@@ -14,11 +14,14 @@ wrapper                        replaces (JAX package)
                                fallback's ``live_parts`` (:1229-1282)
 ``aff_filter``                 the sub-round's live per-task recheck and
                                pair-conflict filter (:1749-2000)
+``aff_steer``                  the sub-round's live steering (``steer``,
+                               :1594-1652): the ranked candidates'
+                               required (anti-)affinity on the live window
 =============================  ============================================
 
 The loader, the launch counts and the input capture are ``ops/kernels.py``'s;
-the sources are ``csrc/aff_tables.cu``, ``csrc/aff_live.cu`` and
-``csrc/aff_filter.cu``.  Each wrapper runs its plain version on CPU tensors
+the sources are ``csrc/aff_tables.cu``, ``csrc/aff_live.cu`` (``aff_live``
+and ``aff_steer``) and ``csrc/aff_filter.cu``.  Each wrapper runs its plain version on CPU tensors
 and launches its kernel on CUDA tensors (``plain=True`` forces the plain
 version on the card, for comparisons only).
 
@@ -415,3 +418,80 @@ def aff_filter(choice, live, pid_l, at: AffTerms, acc, pipe=None, *,
         _ptr(pipe), _stream())
     _check(rc, "aff_filter")
     count_launch("aff_filter")
+
+
+# -------------------------------------------------------------- aff_steer
+
+def _aff_steer_plain(ranked, feas_att, at: AffTerms):
+    E = at.cnt_a.shape[0]
+    cnt = _counts(at)
+    tot = cnt.sum(dim=1)
+    dom = at.node_dom.long()[ranked.long()[:, :, None],
+                             at.term_key.long()[None, None, :]]  # [UM,K,E]
+    e_idx = torch.arange(E, device=cnt.device)[None, None, :]
+    cv = torch.where(dom >= 0, cnt[e_idx, dom.clamp(min=0)],
+                     torch.zeros_like(dom, dtype=cnt.dtype))
+    need = at.t_req_aff & ~((tot == 0)[None, :] & at.t_matches)
+    viol = ((need[:, None, :] & (cv == 0))
+            | (at.t_req_anti[:, None, :] & (cv > 0))).any(dim=-1)
+    return feas_att & ~viol
+
+
+def aff_steer(ranked, feas_att, at: AffTerms, plain: bool = False, *,
+              gate=None, out=None):
+    """The sub-round's live steering (wave.py:1594-1652): ``feas_att``
+    ([UM, K] bool, the attempt's feasibility at its ranked nodes
+    ``ranked`` [UM, K] int32) kept only where node ``ranked[u, k]`` holds
+    every required term of row u on the live window ``at`` (the count
+    over the term's domain > 0, unless the self-match rule exempts it:
+    no match anywhere and row u matches the term itself) and violates no
+    anti term (count 0) -- ``aff_live``'s verdict, at the ranked nodes, on
+    the window's [UM, EW] table columns, with no soft score.
+
+    ``gate`` (a [1] bool tensor beside the counts) writes the result into
+    ``out`` (the caller's [UM, K] working plane) only when set, leaving it
+    as it was when clear; on the card the kernel reads the gate itself.
+    Every computing call adds one to ``kernels.tally("aff_steer")`` on the
+    counts' device.  Returns the [UM, K] bool plane (``out`` when given)."""
+    if gate is not None and out is None:
+        raise ValueError("aff_steer: a gate needs the out plane")
+    dev = at.cnt_a.device
+    if not _on_card(plain, ranked, at.cnt_a, feas_att):
+        if gate is not None and not bool(gate[0]):
+            return out
+        tally("aff_steer", dev).add_(1)
+        res = _aff_steer_plain(ranked, feas_att, at)
+        if out is None:
+            return res
+        out.copy_(res)
+        return out
+    at = _check_terms(at, "aff_steer")
+    ranked = _req(ranked, torch.int32, "ranked")
+    feas_att = _req(feas_att, torch.bool, "feas_att")
+    UM, K = ranked.shape
+    N, NK = at.node_dom.shape
+    E, D = at.cnt_a.shape
+    if feas_att.shape != (UM, K) or at.t_req_aff.shape[0] != UM:
+        raise ValueError("aff_steer: inconsistent input shapes")
+    if out is None:
+        out = torch.empty((UM, K), dtype=torch.bool, device=dev)
+    elif _req(out, torch.bool, "aff_steer out").shape != (UM, K):
+        raise ValueError(f"aff_steer: out is not [{UM}, {K}]")
+    if gate is not None and (_req(gate, torch.bool, "aff_steer gate").shape
+                             != (1,)):
+        raise ValueError("aff_steer: gate is not [1]")
+    if UM == 0 or K == 0:
+        return out
+    _capture("aff_steer", ranked=ranked, feas_att=feas_att, at=at,
+             gate=gate, out=out)
+    part = torch.empty(E * max(1, -(-D // AFF_TOTAL_CHUNK)),
+                       dtype=torch.int32, device=dev)
+    rc = load().vtt_aff_steer(
+        _ptr(ranked), _ptr(feas_att), UM, K, _ptr(at.node_dom), NK,
+        _ptr(at.term_key), _ptr(at.cnt_a), _ptr(at.cnt_p), E, D,
+        _ptr(at.t_req_aff), _ptr(at.t_req_anti), _ptr(at.t_matches),
+        _ptr(part), _ptr(gate), _ptr(tally("aff_steer", dev)), _ptr(out),
+        _stream())
+    _check(rc, "aff_steer")
+    count_launch("aff_steer")
+    return out

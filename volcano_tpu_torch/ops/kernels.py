@@ -34,7 +34,7 @@ wrapper                replaces (JAX package)
 =====================  ===================================================
 
 The inter-pod affinity kernels (``scatter_cnt0``, ``scatter_profile_tables``,
-``aff_live``, ``aff_filter``) have their wrappers in ``ops/affkernels.py``
+``aff_live``, ``aff_filter``, ``aff_steer``) have their wrappers in ``ops/affkernels.py``
 and share this module's loader, launch counts and capture.
 
 Each wrapper takes its inputs as tensors.  On CPU tensors it runs the
@@ -93,6 +93,7 @@ LAUNCHES = {
     "scatter_profile_tables": 0,
     "aff_live": 0,
     "aff_filter": 0,
+    "aff_steer": 0,
     "seq_solve": 0,
 }
 
@@ -114,6 +115,7 @@ KERNEL_SOURCES = {
     "scatter_profile_tables": "volcano_tpu_torch/csrc/aff_tables.cu",
     "aff_live": "volcano_tpu_torch/csrc/aff_live.cu",
     "aff_filter": "volcano_tpu_torch/csrc/aff_filter.cu",
+    "aff_steer": "volcano_tpu_torch/csrc/aff_live.cu",
     "seq_solve": "volcano_tpu_torch/csrc/seq_solve.cu",
 }
 REPLACES = {
@@ -132,6 +134,7 @@ REPLACES = {
     "scatter_profile_tables": "volcano_tpu/ops/wave.py:2301",
     "aff_live": "volcano_tpu/ops/wave.py:1229",
     "aff_filter": "volcano_tpu/ops/wave.py:1749",
+    "aff_steer": "volcano_tpu/ops/wave.py:1594",
     "seq_solve": "volcano_tpu/ops/allocate.py:201",
 }
 
@@ -153,9 +156,9 @@ CAPTURE: Optional[dict] = None
 
 
 # Counts a kernel keeps on the card itself, where the host cannot know
-# without a read: ``aff_live``'s computing calls (a gated call does no
-# work).  One int32 counter per (name, device), made at its first use after
-# a reset; the plain versions add to the same counters.
+# without a read: ``aff_live``'s and ``aff_steer``'s computing calls (a
+# gated call does no work).  One int32 counter per (name, device), made at
+# its first use after a reset; the plain versions add to the same counters.
 TALLIES: dict = {}
 
 
@@ -365,6 +368,8 @@ _SIGS = {
                      _I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P],
     "vtt_aff_filter": [_P, _P, _P, _I, _P, _I, _P, _P, _P, _I, _I, _P, _P,
                        _P, _P, _P, _P, _P, _P, _P, _P],
+    "vtt_aff_steer": [_P, _P, _I, _I, _P, _I, _P, _P, _P, _I, _I, _P, _P,
+                      _P, _P, _P, _P, _P, _P],
     "vtt_seq_solve": ([_I] * 13 + [_P] * 29 + [_F] * 5 + [_P] * 29
                       + [_I] * 2 + [_P] * 9),
     "vtt_empty_launch": [_I, _P],

@@ -15,6 +15,8 @@ This module runs the same computation:
    device (kernels ``scatter_cnt0``, ``scatter_profile_tables``);
 2. phase 1, ``_coarse_shortlist``: static (profile x class) planes and each
    profile's top-S shortlist over all nodes (kernel ``coarse_shortlist``);
+   the single-phase solve (``VOLCANO_TPU_TWOPHASE=0``, the JAX package's
+   reference mode) has no phase 1;
 3. phase 2, ``_solve_wave``: the wave / attempt / sub-round loops of
    ``wave.py:2260, 2225, 2151`` as Python loops around the kernels
    ``rank_candidates``, ``walk_accept`` and ``apply_commit``, with
@@ -22,7 +24,12 @@ This module runs the same computation:
    count window, kept across the wave's attempts and recomputed only
    after a sub-round changed a count: JAX's attempt cache, gated by a
    device byte) and ``aff_filter`` (the sub-round's live affinity
-   recheck and pair conflicts) on waves that carry terms.  The loop
+   recheck and pair conflicts) on waves that carry terms; with
+   ``AFF_STEER`` also ``aff_steer`` (the ranked candidates' required
+   (anti-)affinity rechecked against the live window after a sub-round
+   accepted a task that carries or gives to a required term).  Single
+   phase, each wave's static planes come from ``static_planes`` over
+   identity classes and every attempt ranks all N nodes.  The loop
    conditions are read on the host, one sync per iteration;
 4. the gang discard (``apply_commit`` again) and the int16 narrowing of the
    result.
@@ -45,10 +52,8 @@ count tables of ``arrays/affinity.py``: phase 1 reads the solve-start
 counts, phase 2 each wave's window of them, updated as tasks commit.
 Custom plugin masks and scores come in as ``extra_ok`` / ``extra_score``
 (per-task [P, N] planes, split into profiles as the JAX solve splits
-them).  Mesh sharding and ``VOLCANO_TPU_TWOPHASE=0`` raise
-``NotImplementedError``: the port never computes a different answer for
-them.  So does ``VOLCANO_TPU_AFF_STEER``
-(the JAX package's off-by-default live steering).
+them).  Mesh sharding raises ``NotImplementedError``: the port never
+computes a different answer for it.
 """
 
 from __future__ import annotations
@@ -91,8 +96,9 @@ CNT0_SPARSE_MIN = 4_000_000
 # Same for the profile-term tables ([U, Ep]): past this element count the
 # four tables ship as one sparse entry list.
 PROF_SPARSE_MIN = _env_int("VOLCANO_TPU_PROF_SPARSE_MIN", 1_000_000)
-# The JAX package's live affinity steering inside sub-rounds (off by
-# default there); the port does not run it.
+# Live affinity steering inside sub-rounds (wave.py:1594-1652, off by
+# default as in the JAX package).  Read at call time: tests set it on the
+# module.
 AFF_STEER = _env_int("VOLCANO_TPU_AFF_STEER", 0)
 # The attempt cache of the affinity planes (wave.py AFF_ACACHE): a live
 # wave's shortlist-width planes are recomputed only after a sub-round
@@ -549,6 +555,10 @@ def _host_node_classes(nodes: SolveNodes):
 
 _host_node_classes._cache = None
 
+# The profile columns the static planes read.
+_STATIC_FIELDS = ("sel_bits", "aff_bits", "aff_terms", "tol_bits",
+                  "pref_bits", "pref_w")
+
 # ------------------------------------------------------------------ device
 
 def _unsupported(what: str, item: str):
@@ -678,6 +688,12 @@ def _solve_wave(nodes: SolveNodes, jobs: SolveJobs,
                 plain: bool = False) -> AllocResult:
     """Phase 2 (wave.py:860).
 
+    ``shortlists`` None runs the single-phase solve (wave.py:1131-1170,
+    :1513-1522): each wave's [UM, N] static planes are its profile rows
+    through ``kernels.static_planes`` over identity classes (``stat_ok`` /
+    ``stat_score`` unused), every attempt ranks all N nodes on an [UM, N]
+    affinity attempt cache, and there is no shortlist-exhaustion fallback.
+
     ``host`` carries the numpy task/job columns the loops index with
     (``job``, ``real``, ``pid``, ``queue``); the device tensors carry the
     state.  Every loop condition is one host read.  ``future0``: the
@@ -708,8 +724,10 @@ def _solve_wave(nodes: SolveNodes, jobs: SolveJobs,
     Q = int(queues.deserved.shape[0])
     W = wave
     UM = int(wave_prof.shape[1])
-    S = int(shortlists.shape[1])
+    single = shortlists is None
+    S = N if single else int(shortlists.shape[1])
     K = min(TOPK, S)
+    steer_on = bool(AFF_STEER)
     JP = J + W
     i32 = torch.int32
     if cls is None:
@@ -764,6 +782,7 @@ def _solve_wave(nodes: SolveNodes, jobs: SolveJobs,
     fb_rounds = 0
     syncs = 0
     aff_attempts = 0
+    steer_calls = 0
     if has_ports:
         # Used host ports per node (wave.py:947-948): committed and
         # pipelined tasks' ports, OR-ed in by apply_commit.
@@ -796,9 +815,20 @@ def _solve_wave(nodes: SolveNodes, jobs: SolveJobs,
         pids_i = pids.to(i32) if extra is not None else None
         p_req = prof.req[pids].contiguous()
         p_init_req = prof.init_req[pids].contiguous()
-        ok_w = stat_ok[pids].contiguous()
-        score_w = stat_score[pids].contiguous()
-        sl_w = shortlists[pids].contiguous()
+        if single:
+            # Node-level static planes of the wave's rows: class_static at
+            # C = N equals the JAX solve's _subset_mm planes (wave.py:
+            # 285-298), and stays [UM, N].
+            ok_w, score_w = kernels.static_planes(
+                prof._replace(**{f: getattr(prof, f)[pids].contiguous()
+                                 for f in _STATIC_FIELDS}),
+                cls, weights.node_affinity_weight, bool(features[2]),
+                plain=plain)
+            sl_w = None
+        else:
+            ok_w = stat_ok[pids].contiguous()
+            score_w = stat_score[pids].contiguous()
+            sl_w = shortlists[pids].contiguous()
         ports_w = None
         if has_ports:
             ports_w = kernels.Ports(prof.ports[pids].contiguous(), nport,
@@ -851,6 +881,14 @@ def _solve_wave(nodes: SolveNodes, jobs: SolveJobs,
                                      device=dev))
                 aff_dirty = torch.ones(1, dtype=torch.bool, device=dev)
                 matches_any_t = p_match[pl].any(dim=1)
+                if steer_on:
+                    # The tasks whose acceptance sets the steering byte
+                    # (wave.py:2133-2140): a required or anti term of
+                    # their own, or a match to a term some row requires.
+                    steer_rel = prof_req_terms[pl] | (
+                        p_match[pl] & term_req[None, :]).any(dim=1)
+                    steer_dirty = torch.zeros(1, dtype=torch.bool,
+                                              device=dev)
 
         alloc_l = st.alloc_cnt[jwin].clone()
         fitf_l = st.fit_failed[jwin].clone()
@@ -906,14 +944,17 @@ def _solve_wave(nodes: SolveNodes, jobs: SolveJobs,
                 pids=pids_i, plain=plain,
             )
             # Shortlist exhaustion -> full-N rescore of the affected
-            # profiles only (wave.py:1450-1512).
-            cand_u = torch.zeros(UM, dtype=torch.bool, device=dev)
-            cand_u[pl[cand]] = True
-            exhausted = cand_u & ~p_any
-            syncs += 1
-            need_fb = bool(exhausted.any())
-            if fb_cap:
-                need_fb = need_fb and fb_rounds < fb_cap
+            # profiles only (wave.py:1450-1512); a single-phase ranking
+            # already covers every node.
+            need_fb = False
+            if not single:
+                cand_u = torch.zeros(UM, dtype=torch.bool, device=dev)
+                cand_u[pl[cand]] = True
+                exhausted = cand_u & ~p_any
+                syncs += 1
+                need_fb = bool(exhausted.any())
+                if fb_cap:
+                    need_fb = need_fb and fb_rounds < fb_cap
             if need_fb:
                 rows_x = exhausted.nonzero().squeeze(1).to(i32)
                 # Fresh full-N affinity planes (wave.py:1455-1470).
@@ -952,12 +993,27 @@ def _solve_wave(nodes: SolveNodes, jobs: SolveJobs,
             ov = member[:, top].sum(dim=-1).T  # [UM, UM] shared-top counts
             grp = (ov >= (TOPOV + 1) // 2).contiguous()
 
+            steer = steer_on and at_w is not None
+            if steer:
+                # The attempt's ranking feasibility, and the working copy
+                # the sub-rounds carry (steered in place).
+                feas_k_att = feas_k
+                feas_k = feas_k_att.clone()
+                steer_dirty.zero_()
             done_sub = done.clone()
             subs = 0
             syncs += 1
             go = bool((cand & ~done_sub & ~aborted).any())
             while go and subs < SUBROUNDS:
                 cand_s = cand & ~done_sub & ~aborted
+                if steer and subs:
+                    # Live steering (wave.py:1594-1652): behind the byte
+                    # the last sub-round set, the ranked candidates'
+                    # required (anti-)affinity on the live window.
+                    affkernels.aff_steer(ranked, feas_k_att, at_w,
+                                         gate=steer_dirty, out=feas_k,
+                                         plain=plain)
+                    steer_calls += 1
                 live = None if at_w is None else torch.empty(
                     W, dtype=torch.bool, device=dev)
                 choice, acc, acc_pipe = kernels.walk_accept(
@@ -980,6 +1036,9 @@ def _solve_wave(nodes: SolveNodes, jobs: SolveJobs,
                 )
                 resolved = acc if acc_pipe is None else acc | acc_pipe
                 done_sub = done_sub | resolved
+                if steer:
+                    torch.any(resolved & steer_rel, dim=0, keepdim=True,
+                              out=steer_dirty)
                 subs += 1
                 syncs += 1
                 go = bool(resolved.any()
@@ -1040,6 +1099,7 @@ def _solve_wave(nodes: SolveNodes, jobs: SolveJobs,
     rec = _twophase()
     rec["syncs"] = syncs
     rec["aff_attempts"] = aff_attempts
+    rec["steer_calls"] = steer_calls
     return AllocResult(
         assigned=assigned,
         pipelined=pipelined,
@@ -1082,8 +1142,11 @@ def solve_wave(
     device=None,
     plain: bool = False,
 ) -> AllocResult:
-    """Wave-batched two-phase solve; the JAX ``solve_wave``'s signature and
-    result (wave.py:2674), plus:
+    """Wave-batched solve, two-phase unless ``VOLCANO_TPU_TWOPHASE=0``
+    (read per call) or the node table is empty; the JAX ``solve_wave``'s
+    signature and result (wave.py:2674).  Single-phase, ``node_classes``
+    and ``devincr`` are not used and ``LAST_TWOPHASE["enabled"]`` is
+    False, as in JAX.  Also:
 
     ``device``: where the solve runs -- the card unless the caller passes
     ``device="cpu"`` (without a card the default raises).  Task, job,
@@ -1127,9 +1190,6 @@ def solve_wave(
         raise ValueError(
             "extra_ok/extra_score require in-call profile computation"
         )
-    if not _two_phase_on():
-        raise _unsupported("the single-phase solve (VOLCANO_TPU_TWOPHASE=0)",
-                           "queue 1, ports and inter-pod affinity")
     t_start = _time.perf_counter()
     # Node planes are taken as given: numpy planes upload, tensors (the
     # fast path's device-resident snapshot) are used where they lie and
@@ -1230,9 +1290,6 @@ def solve_wave(
         extra_ok is not None,
         extra_score is not None,
     )
-    if features[1] and AFF_STEER:
-        raise _unsupported("live affinity steering (VOLCANO_TPU_AFF_STEER)",
-                           "queue 1, ports and inter-pod affinity")
     prof_sparse = _np(profiles.t_req_aff).size > PROF_SPARSE_MIN
     profiles, aff, wave_terms, _ew, prof_iom, terms_disjoint = (
         _term_windows(profiles, aff, pid, wave_prof, n_waves,
@@ -1281,7 +1338,10 @@ def solve_wave(
             to_tensor(vals_nz, dev), cnt0_host.shape[0] + 1,
             cnt0_host.shape[1], plain=plain))
     N_in = int(nodes.idle.shape[0])
-    if node_classes is None and _nodeclass_on():
+    # The single-phase solve (wave.py:2959) builds no classes, no
+    # shortlists and no device-incremental state.
+    two_phase = _two_phase_on() and N_in > 0
+    if two_phase and node_classes is None and _nodeclass_on():
         planes = (nodes.label_bits, nodes.taint_bits, nodes.ready,
                   nodes.allocatable, nodes.max_tasks)
         host_reads += sum(isinstance(a, torch.Tensor)
@@ -1290,7 +1350,7 @@ def solve_wave(
             nodes._replace(**{f: _np(getattr(nodes, f)) for f in (
                 "label_bits", "taint_bits", "ready", "allocatable",
                 "max_tasks")}))
-    cls_identity = node_classes is None
+    cls_identity = node_classes is None or not two_phase
     sl_k = shortlist_size(N_in)
 
     # Device placement.  Bit planes travel as int32 (same bits).
@@ -1321,7 +1381,7 @@ def solve_wave(
     aff_t = None
     aff1 = None
     ports1 = None
-    if features[0]:
+    if features[0] and two_phase:
         ports1 = kernels.Ports(prof_t.ports, nodes_t.ports)
     if features[1]:
         aff_t = AffinityArgs(
@@ -1330,7 +1390,7 @@ def solve_wave(
                                dev),
             cnt0=to_tensor(aff.cnt0, dev).to(torch.int32),
             t_req_aff=None, t_req_anti=None, t_matches=None, t_soft=None)
-        if cnt0_any:
+        if cnt0_any and two_phase:
             aff1 = Phase1Aff(
                 AffTerms(aff_t.node_dom, aff_t.term_key, aff_t.cnt0, None,
                          prof_t.t_req_aff, prof_t.t_req_anti,
@@ -1349,7 +1409,7 @@ def solve_wave(
     # Custom-plugin solves carry per-solve [U, N] planes the
     # device-incremental lane's keys cannot cover: it sits them out, as in
     # the JAX package (wave.py:2981-2985).
-    dv = devincr if extra is None else None
+    dv = devincr if extra is None and two_phase else None
     # Device-incremental lane: persistent [U, C] static planes and
     # warm-started shortlists, bit-identical to the direct pass (None
     # without a static key from begin_solve).
@@ -1357,7 +1417,9 @@ def solve_wave(
         prof_t, cls_t, weights_t.node_affinity_weight,
         has_taints=features[2], cls_identity=cls_identity, plain=plain)
     future0 = _future_planes(nodes_t, features)
-    if stat is not None:
+    if not two_phase:
+        sl = stat_ok = stat_score = None
+    elif stat is not None:
         sl = dv.shortlist(nodes_t, prof_t, cls_t, weights_t, eps_t, slot_t,
                           sl_k, features, cls_identity, stat,
                           future=future0, ports=ports1, aff1=aff1,
@@ -1385,20 +1447,24 @@ def solve_wave(
     rec = _twophase()
     syncs = rec.get("syncs", 0)
     aff_attempts = rec.get("aff_attempts", 0)
+    steer_calls = rec.get("steer_calls", 0)
     rec.clear()
     rec.update({
-        "enabled": True,
+        "enabled": two_phase,
         "prep_s": t_prep,
         "coarse_s": t_coarse,
         "fine_s": t_fine,
-        "shortlist": (int(profiles.req.shape[0]), sl_k),
+        "shortlist": ((int(profiles.req.shape[0]), sl_k) if two_phase
+                      else None),
         "n_nodes": N_in,
         "compacted_classes": not cls_identity,
         "waves": n_waves,
         "syncs": syncs,
-        # Attempts of live waves: the shortlist-width affinity calls
-        # (computing or, behind the attempt cache, gated).
+        # Attempts of live waves: the attempt cache's affinity calls
+        # (computing or, behind the cache's byte, gated).
         "aff_attempts": aff_attempts,
+        # aff_steer calls (computing or, behind the steering byte, gated).
+        "steer_calls": steer_calls,
         "host_reads": host_reads,
         # The solve ran the releasing-capacity (has_future) branch.
         "future": future0 is not None,
