@@ -9,8 +9,10 @@ Run from the repository root on a machine with one CUDA card:
 (``python3 chip_smoke.py pipeline`` runs phase 8b alone, ``python3
 chip_smoke.py obs`` phases 8c and 8d, ``python3 chip_smoke.py seq-trace``
 the traced seq cycle of phase 21 alone, ``python3 chip_smoke.py recovery``
-phases 24-31; ``crash-sticky``, ``lockdep <hash>`` and ``trace-dir`` are
-the child processes of phases 29, 30 and 31.)  It
+phases 24-31, ``python3 chip_smoke.py single-phase`` phases 32-34,
+``python3 chip_smoke.py host-walk`` phases 35-37; ``crash-sticky``,
+``lockdep <hash>`` and ``trace-dir`` are the child processes of phases
+29, 30 and 31.)  It
 builds the sixteen CUDA kernels of ``volcano_tpu_torch/csrc`` (fourteen
 sources, one nvcc each, started together; ``launch_floor.cu`` holds only an
 empty kernel, timed to give what one launch costs) and then runs these
@@ -248,7 +250,39 @@ of which raises (and the script exits non-zero) when a check fails:
    10,000 with ``VOLCANO_TPU_TRACE_DIR`` writes one Chrome trace holding
    the port's kernels; under an outer profiler a cycle binds every pod,
    writes nothing and warns.  The ``[recovery] seconds`` line gives each
-   of 24-31's seconds.
+   of 24-31's seconds;
+32. single-phase: the north-star solve and its cycles with
+   ``VOLCANO_TPU_TWOPHASE=0``, card against CPU at 1,000 x 10,000;
+33. single-phase:affinity: config 5's cold cycle single-phase;
+34. steer: config 5 with ``VOLCANO_TPU_AFF_STEER=1`` (``aff_steer``), card
+   against CPU in both phase modes and on a contended store.  The
+   ``[single-phase] seconds`` line gives each of 32-34's seconds;
+35. host-walk:reclaim: the host victim walk (``VOLCANO_TPU_EVICT_DEVICE=0``)
+   on BASELINE config 4 at its full size (phase 9's store) under the
+   preempt + reclaim conf, grace 2, 6 cycles: after every cycle the
+   capacity and gang checks of 9, no device plane read back, every pod
+   that left the store evicted (the walk deletes its victims: no ledger
+   restores them) and the mirror holding the store's pods; the exact
+   evictions per cycle (20,000, then 40,000: every filler) and all 20,000
+   reclaimers bound, the proportions the CPU tests hold at small sizes
+   against the JAX package's walk; every eviction deleted after its grace
+   or still terminating; the native reclaim drive (``csrc/host/vcreclaim.cc``,
+   built with g++) ran every reclaim action in C; no ``victim_scores``
+   launch and no what-if plan; the allocate kernels launched; per cycle
+   the wall and the preempt / reclaim / allocate lanes;
+36. host-walk:preempt: phase 10's store with the walk: the serving gang
+   bound within 24 cycles through statement-wrapped preemption, exactly
+   5,000 evictions in the first cycle and 10,000 from the second on, the
+   checks of 35;
+37. host-walk:twin: at 1,000 nodes, ``preempt_cluster`` and a two-queue
+   store (the JAX package's tests/test_reclaim_multiqueue.py shape), 5
+   walk cycles (the simulator stepped, grace 1) on the card against the
+   CPU, and with the native drive against ``VOLCANO_TPU_NO_NATIVE=1``,
+   through the CPU tests' own harness (``tests/test_torch_fixtures.py``'s
+   ``walk_run``): evicted and pipelined uids, evictor keys, binds,
+   PodGroup phases and mirror states identical every cycle, the audit
+   clean after each.  The
+   ``[host-walk] seconds`` line gives each of 35-37's seconds.
 
 Output: the card's name and power limit, versions, build time, the
 registers, shared memory and spills of the kernels of ``PTXAS_SOURCES``
@@ -1657,13 +1691,13 @@ def bound_uids(store) -> list:
     return [m.p_uid[r] for r in rows.tolist()]
 
 
-def audit_checked(label, store, fast=True) -> dict:
+def audit_checked(label, store, fast=True, quiet=False) -> dict:
     """The store's default observability at the end of a phase: no
     anomaly in the auditor's ring (an auditor error is an ``audit-error``
     anomaly, so a broken auditor fails here too), with ``fast`` at least
     one audited cycle and one reconcile, and the journey's conservation
     check clean over every placed pod.  Logs ``audit_stats()`` and the
-    journey's ``stats()``; returns ``audit_stats()``."""
+    journey's ``stats()`` unless ``quiet``; returns ``audit_stats()``."""
     anoms = store.auditor.anomalies()
     if anoms:
         raise AssertionError(
@@ -1682,8 +1716,9 @@ def audit_checked(label, store, fast=True) -> dict:
                 f"[{label}] journey conservation: "
                 f"{json.dumps([a.to_dict() for a in bad], default=str)}")
         jstats = store.journey.stats()
-    _log(f"[{label}] audit {json.dumps(stats)} journey "
-         f"{json.dumps(jstats)}")
+    if not quiet:
+        _log(f"[{label}] audit {json.dumps(stats)} journey "
+             f"{json.dumps(jstats)}")
     return stats
 
 
@@ -2838,16 +2873,22 @@ def _mirror_state(store):
                  for r in range(m.n_pods) if m.p_uid[r] is not None)
 
 
-def _fresh_cluster(**kw):
-    """synthetic_cluster with the uid counters reset, so two builds of one
-    configuration carry the same uids."""
+def _reset_uids() -> None:
+    """Restart the uid counters, so two builds of one configuration carry
+    the same uids."""
     import itertools
 
     import volcano_tpu_torch.api.spec as spec
-    from volcano_tpu_torch.synth import synthetic_cluster
 
     spec._uid_counter = itertools.count(1)
     spec._ts_counter = itertools.count(1)
+
+
+def _fresh_cluster(**kw):
+    """synthetic_cluster with the uid counters reset."""
+    from volcano_tpu_torch.synth import synthetic_cluster
+
+    _reset_uids()
     return synthetic_cluster(**kw)
 
 
@@ -2979,12 +3020,14 @@ def held_invariants(store, split=()):
 
 def run_evict_phase(label, store, conf, grace, cycles, until=None,
                     need=EVICT_KERNELS, require_future=True, extra=None,
-                    profile_cycle=None):
+                    profile_cycle=None, invariants=None):
     """``Scheduler(store).run_once()`` then ``ClusterSimulator.step()``,
     ``cycles`` times (or until ``until(store)`` holds), with the checks of
     ``evict_invariants`` and zero host reads after every solve; the kernels
     ``need`` must have launched, and (``require_future``) one solve must
-    have run the future branch.  ``extra(store)`` adds fields to each
+    have run the future branch.  ``invariants(store, n_pods)`` replaces
+    ``evict_invariants`` (the host walk deletes its victims: there is no
+    restore to keep the pod count).  ``extra(store)`` adds fields to each
     cycle's record, which also carries the what-if engine's spans (plan and
     what-if solve, ms); cycle ``profile_cycle`` runs under
     ``profile_device`` (its device busy time and idle share).  Captures ``victim_scores``' inputs per mode and, from
@@ -3000,6 +3043,7 @@ def run_evict_phase(label, store, conf, grace, cycles, until=None,
     from volcano_tpu_torch.sim import ClusterSimulator
 
     n_pods = len(store.pods)
+    check = invariants or evict_invariants
     sched = Scheduler(store, conf_str=conf)
     sim = ClusterSimulator(store, grace_steps=grace)
     solve_wave = wave_mod.solve_wave
@@ -3063,7 +3107,7 @@ def run_evict_phase(label, store, conf, grace, cycles, until=None,
             if prof:
                 # The traced call alone, without the profiler's set-up.
                 wall = prof["wall_ms"] / 1e3
-            inv = evict_invariants(store, n_pods)
+            inv = check(store, n_pods)
             if any(r != 0 for r, _f in solves):
                 raise AssertionError(f"[{label}] cycle {c}: a solve read "
                                      f"device planes back: {solves}")
@@ -3090,7 +3134,7 @@ def run_evict_phase(label, store, conf, grace, cycles, until=None,
             stats["cycles"].append(rec)
             _log(f"[{label}] cycle {c} {wall:.4f} s {json.dumps(rec)}")
             sim.step()
-            evict_invariants(store, n_pods)
+            check(store, n_pods)
             if until is not None and until(store):
                 break
     finally:
@@ -5808,12 +5852,323 @@ def single_phase_phases(ns_args=None, big=(10000, 100000),
     return steer_row, single_rows
 
 
+# ------------------------------------------------- the host victim walk
+
+# The allocate kernels a walk cycle launches (the walk itself is host work:
+# no victim_scores, no what-if solve).
+WALK_KERNELS = ("coarse_shortlist", "static_planes", "rank_candidates",
+                "walk_accept", "apply_commit")
+
+
+def walk_checks(store):
+    """The checks of ``held_invariants`` after a walk cycle, and the walk's
+    own conservation: the host walk deletes its victims (no migration
+    ledger restores them), so every pod that left the store was evicted,
+    and the mirror holds exactly the store's pods."""
+    import numpy as np
+
+    keys0 = {f"{p.namespace}/{p.name}" for p in store.pods.values()}
+
+    def check(st, n_pods):
+        keys = {f"{p.namespace}/{p.name}" for p in st.pods.values()}
+        gone = keys0 - keys
+        evicted = set(st.evictor.evicts)
+        if not gone <= evicted or len(evicted) != len(st.evictor.evicts):
+            raise AssertionError(f"a pod left the store unevicted, or one "
+                                 f"was evicted twice: {len(gone)} gone, "
+                                 f"{len(evicted)} evicted")
+        if keys - keys0 or len(st.pods) != n_pods - len(gone):
+            raise AssertionError("the walk added or lost a pod")
+        m = st.mirror
+        if int(np.count_nonzero(m.p_alive[:m.n_pods])) != len(st.pods):
+            raise AssertionError("the mirror and the store disagree")
+        out = held_invariants(st)[0]
+        out.update(evicted=len(evicted), deleted=len(gone))
+        return out
+
+    return check
+
+
+class WalkSpy:
+    """Counts the walk's actions, and per reclaim action whether the native
+    drive engaged (``_native_reclaim_setup`` gave a context and
+    ``_native_reclaim_drive`` ran) and finished it in C."""
+
+    def __init__(self):
+        from volcano_tpu_torch import fastpath_evict as fe
+
+        self.fe = fe
+        self.orig = (fe.FastEvictor.preempt, fe.FastEvictor.reclaim,
+                     fe.FastEvictor._native_reclaim_drive)
+        self.preempts = self.reclaims = 0
+        self.engaged = []  # per reclaim action: (drive calls, finished)
+
+    def __enter__(self):
+        E = self.fe.FastEvictor
+        preempt, reclaim, drive = self.orig
+
+        def preempt_spy(ev):
+            self.preempts += 1
+            return preempt(ev)
+
+        def reclaim_spy(ev):
+            self.reclaims += 1
+            self.engaged.append([0, 0])
+            return reclaim(ev)
+
+        def drive_spy(ev, *a, **k):
+            out = drive(ev, *a, **k)
+            if self.engaged:
+                self.engaged[-1][0] += 1
+                self.engaged[-1][1] += bool(out)
+            return out
+
+        E.preempt, E.reclaim = preempt_spy, reclaim_spy
+        E._native_reclaim_drive = drive_spy
+        return self
+
+    def __exit__(self, *exc):
+        E = self.fe.FastEvictor
+        (E.preempt, E.reclaim, E._native_reclaim_drive) = self.orig
+
+
+def walk_lanes(stats) -> list:
+    """Per cycle (wall s, preempt ms, reclaim ms, the allocate solve's
+    ``device`` lane ms)."""
+    return [(round(c["wall_s"], 4), c["lanes_ms"].get("preempt"),
+             c["lanes_ms"].get("reclaim"), c["lanes_ms"].get("device"))
+            for c in stats["cycles"]]
+
+
+def _preempt_cluster_reset(**kw):
+    """preempt_cluster with the uid counters reset."""
+    from volcano_tpu_torch.synth import preempt_cluster
+
+    _reset_uids()
+    return preempt_cluster(**kw)
+
+
+def walk_fixtures():
+    """``tests/test_torch_fixtures.py``, which imports only the port at
+    module level: phase 37 runs its twin harness (``walk_run``) and its
+    two-queue store, the CPU tests' own."""
+    import os
+    import sys
+
+    tests = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                         "tests")
+    if tests not in sys.path:
+        sys.path.insert(0, tests)
+    import test_torch_fixtures
+
+    return test_torch_fixtures
+
+
+def walk_audited(label):
+    """``walk_run``'s per-cycle hook: the phase's audit checks after every
+    cycle, adding no field to the record."""
+    def check(store):
+        audit_checked(label, store, quiet=True)
+        return {}
+    return check
+
+
+def host_walk_phases(big=10000, workers=10000, serving=5000,
+                     twin_nodes=1000) -> dict:
+    """Phases 35-37: the host victim walk (``VOLCANO_TPU_EVICT_DEVICE=0``)
+    at full size, config 4 and the 10,000-worker preempt, then card
+    against CPU and native drive against the Python walk at 1,000 nodes.
+    Returns the per-phase records."""
+    from volcano_tpu_torch import native
+    from volcano_tpu_torch.cache import ClusterStore, FakeBinder, FakeEvictor
+    from volcano_tpu_torch.sim import ClusterSimulator
+
+    secs = {}
+    out = {}
+    restore = _env("VOLCANO_TPU_EVICT_DEVICE", "0")
+    restore_cap = _env("VOLCANO_TPU_EVICT_CAP", None)
+    try:
+        t0 = time.perf_counter()
+        native.load()
+        _log(f"[host-walk] native engine built and loaded "
+             f"{time.perf_counter() - t0:.3f} s ({native.CXX} "
+             f"{' '.join(native.CXX_FLAGS)})")
+
+        # 35. [host-walk:reclaim]: BASELINE config 4 at its full size.
+        t_phase = time.perf_counter()
+        t0 = time.perf_counter()
+        store = _preempt_cluster_reset(n_nodes=big, fill_per_node=4,
+                                       n_pending=2 * big, gang_size=4, seed=0)
+        _log(f"[host-walk:reclaim] cluster {time.perf_counter() - t0:.3f} s,"
+             f" {len(store.pods)} pods")
+        with WalkSpy() as spy:
+            rstats, rlaunch, _vs, _fut = run_evict_phase(
+                "host-walk:reclaim", store, CONF_PREEMPT, grace=2, cycles=6,
+                need=WALK_KERNELS, require_future=False,
+                invariants=walk_checks(store))
+        bound = sum(1 for p in store.pods.values()
+                    if p.name.startswith("hi-") and p.node_name)
+        deleted = rstats["cycles"][-1]["deleted"]
+        evicted = rstats["cycles"][-1]["evicted"]
+        rstats.update(hi_bound=bound, walk_evictions=evicted,
+                      deleted=deleted, preempt_actions=spy.preempts,
+                      reclaim_actions=spy.reclaims,
+                      drive=spy.engaged, lanes=walk_lanes(rstats))
+        _log(f"[host-walk:reclaim] per cycle (wall s, preempt ms, reclaim "
+             f"ms, solve device ms) {json.dumps(rstats['lanes'])}")
+        _log(f"[host-walk:reclaim] {json.dumps(_summary(rstats))}")
+        # The walk's exact counts, in the proportions the CPU tests hold
+        # at small sizes, where the port's walk equals the JAX package's
+        # (tests/test_torch_host_walk.py, test_walk_eviction_counts_*):
+        # the first wave evicts one filler for each pending pod, the
+        # second as many again (the walk reclaims again for the gangs
+        # allocate pipelined onto releasing capacity), no later cycle
+        # evicts, and every pending pod binds.
+        pending = 2 * big
+        want = [pending] + [2 * pending] * (len(rstats["cycles"]) - 1)
+        got = [c["evicted"] for c in rstats["cycles"]]
+        if got != want or bound != pending:
+            raise AssertionError(f"[host-walk:reclaim] evictions per cycle "
+                                 f"{got}, {want} expected; {bound} of "
+                                 f"{pending} reclaimers bound")
+        if rlaunch["victim_scores"]:
+            raise AssertionError("[host-walk:reclaim] the device lane ran")
+        if rstats["whatif_plans"]:
+            raise AssertionError("[host-walk:reclaim] a what-if plan was "
+                                 f"counted: {rstats['whatif_plans']}")
+        if spy.reclaims != len(rstats["cycles"]) or not all(
+                n >= 1 and f == n for n, f in spy.engaged):
+            raise AssertionError(f"[host-walk:reclaim] the native drive did "
+                                 f"not run every reclaim action in C: "
+                                 f"{spy.reclaims} actions, {spy.engaged}")
+        # Evictions against deletions: every evicted pod left the store
+        # after its grace or is still terminating (deleting, Releasing in
+        # the mirror), and no other pod left (walk_checks, every cycle).
+        ev_keys = set(store.evictor.evicts)
+        left = [p for p in store.pods.values()
+                if f"{p.namespace}/{p.name}" in ev_keys]
+        if evicted < 1 or not all(p.deleting for p in left) \
+                or deleted + len(left) != evicted:
+            raise AssertionError(f"[host-walk:reclaim] {evicted} evictions,"
+                                 f" {deleted} deleted, {len(left)} "
+                                 "terminating")
+        rstats["terminating"] = len(left)
+        out["reclaim"] = _summary(rstats)
+        store.close()
+        del store
+        secs["host-walk:reclaim"] = time.perf_counter() - t_phase
+
+        # 36. [host-walk:preempt]: bench.py config_preempt at 10,000
+        # workers, the walk's statement-wrapped phase 1.
+        t_phase = time.perf_counter()
+        store = ClusterStore(binder=FakeBinder(), evictor=FakeEvictor())
+        t0 = time.perf_counter()
+        ClusterSimulator.priority_tier_workload(store, workers=workers,
+                                                serving_tasks=serving)
+        _log(f"[host-walk:preempt] cluster {time.perf_counter() - t0:.3f} "
+             f"s, {len(store.pods)} pods")
+
+        def serving_bound(st):
+            return sum(1 for p in st.pods.values()
+                       if p.name.startswith("serving-") and p.node_name) \
+                >= serving
+
+        with WalkSpy() as spy:
+            pstats, _pl, _vs, _fut = run_evict_phase(
+                "host-walk:preempt", store, CONF_PREEMPT_ONLY, grace=2,
+                cycles=24, until=serving_bound, need=WALK_KERNELS,
+                require_future=False, invariants=walk_checks(store))
+        pstats.update(serving_bound=serving_bound(store),
+                      walk_evictions=len(set(store.evictor.evicts)),
+                      preempt_actions=spy.preempts,
+                      lanes=walk_lanes(pstats))
+        _log(f"[host-walk:preempt] per cycle (wall s, preempt ms, reclaim "
+             f"ms, solve device ms) {json.dumps(pstats['lanes'])}")
+        _log(f"[host-walk:preempt] {json.dumps(_summary(pstats))}")
+        if not pstats["serving_bound"]:
+            raise AssertionError("[host-walk:preempt] the serving gang did "
+                                 "not bind in 24 cycles")
+        # The walk's exact counts, in the proportions the CPU tests hold
+        # at small sizes against the JAX package's walk
+        # (test_walk_eviction_counts_*): the first wave evicts one batch
+        # pod for each serving task, the next cycle as many again (the
+        # gang, pipelined by allocate onto the releasing capacity, still
+        # reads as pending to the walk), and no later cycle evicts.
+        want = [serving] + [2 * serving] * (len(pstats["cycles"]) - 1)
+        got = [c["evicted"] for c in pstats["cycles"]]
+        if 2 * serving > workers or got != want \
+                or pstats["walk_evictions"] != 2 * serving:
+            raise AssertionError(f"[host-walk:preempt] evictions per cycle "
+                                 f"{got}, {want} expected")
+        out["preempt"] = _summary(pstats)
+        store.close()
+        del store
+        secs["host-walk:preempt"] = time.perf_counter() - t_phase
+
+        # 37. [host-walk:twin]: card against CPU, native against Python.
+        t_phase = time.perf_counter()
+        fx = walk_fixtures()
+        half = twin_nodes // 2
+        builds = {
+            "preempt-cluster": lambda pkg: pkg.synth.preempt_cluster(
+                n_nodes=twin_nodes, fill_per_node=4,
+                n_pending=2 * twin_nodes, gang_size=4, seed=0),
+            "two-queue": lambda pkg: fx.two_queue_store(
+                pkg, n_nodes=twin_nodes, hi_a=half, hi_b=half),
+        }
+        import volcano_tpu_torch
+
+        def walk(build, device, native):
+            return fx.walk_run(volcano_tpu_torch, build, conf=CONF_PREEMPT,
+                               cycles=5, native=native, device=device,
+                               on_cycle=walk_audited("host-walk:twin"))
+
+        twin = {}
+        for name, build in builds.items():
+            with WalkSpy() as spy:
+                card = walk(build, None, True)
+            if not spy.engaged or not all(n >= 1 for n, _f in spy.engaged):
+                raise AssertionError(f"[host-walk:twin] {name}: the native "
+                                     f"drive did not engage: {spy.engaged}")
+            cpu = walk(build, "cpu", True)
+            _same_records("host-walk:twin", card, cpu, f"{name} card vs CPU")
+            with WalkSpy() as spy:
+                py = walk(build, None, False)
+            if any(n for n, _f in spy.engaged):
+                raise AssertionError(f"[host-walk:twin] {name}: the drive "
+                                     "ran with VOLCANO_TPU_NO_NATIVE=1")
+            _same_records("host-walk:twin", card, py,
+                          f"{name} native vs Python walk")
+            twin[name] = {
+                "cycles": len(card),
+                "evicted": [len(r["evicted"]) for r in card],
+                "pipelined": [len(r["pipelined"]) for r in card],
+                "binds": len(card[-1]["binds"]),
+            }
+            if not any(twin[name]["evicted"]):
+                raise AssertionError(f"[host-walk:twin] {name}: no eviction")
+            _log(f"[host-walk:twin] {name} at {twin_nodes} nodes: card = "
+                 f"CPU, native = Python walk {json.dumps(twin[name])}")
+        out["twin"] = twin
+        secs["host-walk:twin"] = time.perf_counter() - t_phase
+    finally:
+        restore_cap()
+        restore()
+    _log(f"[host-walk] seconds {json.dumps(secs)}")
+    out["seconds"] = secs
+    return out
+
+
 def _same_records(label, a, b, what, fields=4):
+    """Per-cycle records equal field by field: tuples of (binds, phases,
+    mirror, fallback), their first ``fields``, or dicts (``walk_run``'s)."""
     if len(a) != len(b):
         raise AssertionError(f"[{label}] {what}: cycle counts differ")
     for i, (x, y) in enumerate(zip(a, b)):
-        for name, p, q in list(zip(("binds", "phases", "mirror", "fb"),
-                                   x, y))[:fields]:
+        pairs = ([(k, x[k], y[k]) for k in x] if isinstance(x, dict) else
+                 list(zip(("binds", "phases", "mirror", "fb"),
+                          x, y))[:fields])
+        for name, p, q in pairs:
             if p != q:
                 raise AssertionError(f"[{label}] {what}: cycle {i} {name} "
                                      f"differ" + (f": {p} != {q}"
@@ -5894,6 +6249,11 @@ def main(argv=()) -> int:
         steer_row, single_rows = single_phase_phases()
         _log(f"[kernels:single] {json.dumps(single_rows)}")
         _log(f"[kernels:steer] {json.dumps(steer_row)}")
+        print(card, flush=True)
+        return 0
+    if list(argv) == ["host-walk"]:
+        # Phases 35-37 alone.
+        host_walk_phases()
         print(card, flush=True)
         return 0
     if list(argv) == ["recovery"]:
@@ -6144,6 +6504,9 @@ def main(argv=()) -> int:
     del ns_args
     fold_single_rows(rows, single_rows)
     rows.append(steer_row)
+
+    # 35-37. the host victim walk (VOLCANO_TPU_EVICT_DEVICE=0).
+    host_walk_phases()
 
     print(json.dumps({"kernels": rows}), flush=True)
     print(card, flush=True)

@@ -2086,3 +2086,31 @@ def test_single_phase_and_steered_solves_equal_plain_and_cpu(
     if twophase == "0":
         assert launched["coarse_shortlist"] == 0
         assert launched["static_planes"] == tw.LAST_TWOPHASE["waves"]
+
+
+@pytest.mark.parametrize("case", ["preempt-cluster", "two-queue", "tier"])
+def test_host_walk_cycles_on_card_equal_cpu(cuda, monkeypatch, case):
+    """The host victim walk (``VOLCANO_TPU_EVICT_DEVICE=0``) with the
+    allocate solves on the card: evicted and pipelined uids, binds,
+    PodGroup phases and mirror states equal the CPU run every cycle."""
+    from test_torch_fixtures import (EVICT_CONF, tier_store,
+                                     two_queue_store, walk_run)
+
+    monkeypatch.setenv("VOLCANO_TPU_EVICT_DEVICE", "0")
+    monkeypatch.setenv("VOLCANO_TPU_FALLBACK", "never")
+    monkeypatch.delenv("VOLCANO_TPU_NO_NATIVE", raising=False)
+    build = {
+        "preempt-cluster": lambda pkg: pkg.synth.preempt_cluster(
+            n_nodes=64, n_pending=128, seed=0),
+        "two-queue": lambda pkg: two_queue_store(pkg, n_nodes=32, hi_a=16,
+                                                 hi_b=16),
+        "tier": lambda pkg: tier_store(pkg, workers=32, serving=16),
+    }[case]
+    kernels.reset_launches()
+    card = walk_run(volcano_tpu_torch, build, conf=EVICT_CONF, cycles=5,
+                    grace=1, device=None)
+    assert kernels.LAUNCHES["rank_candidates"] > 0
+    cpu = walk_run(volcano_tpu_torch, build, conf=EVICT_CONF, cycles=5,
+                   grace=1, device="cpu")
+    assert card == cpu
+    assert any(r["evicted"] for r in card)

@@ -894,3 +894,456 @@ def seq_plane_variant(x, plane, seed=0):
     else:
         a[idx] = a[idx] ^ 1
     return x._replace(**{plane: a}), t
+
+
+# ------------------------------------------------ the host victim walk
+
+# The preempt + reclaim conf of the JAX package's legacy eviction suites
+# (tests/test_fastpath_evict.py, test_evict_oracle.py,
+# test_reclaim_multiqueue.py).
+EVICT_CONF = """
+actions: "enqueue, allocate, preempt, reclaim, backfill"
+tiers:
+- plugins:
+  - name: priority
+  - name: gang
+  - name: conformance
+- plugins:
+  - name: drf
+  - name: predicates
+  - name: proportion
+  - name: nodeorder
+  - name: binpack
+"""
+
+# tests/test_fastpath_evict.py's conf with preempt before allocate.
+EVICT_CONF_INTERLEAVED = EVICT_CONF.replace(
+    '"enqueue, allocate, preempt, reclaim, backfill"',
+    '"enqueue, preempt, allocate, reclaim, backfill"',
+)
+
+
+def reset_uid_counters():
+    """Restart both packages' uid and timestamp counters, so twin stores
+    built one after the other carry the same uids (the walk's tie-breaks
+    read them)."""
+    import itertools
+    import sys
+
+    # A package not imported yet starts its counters at 1 when it is.
+    for name in ("volcano_tpu.api.spec", "volcano_tpu_torch.api.spec"):
+        spec = sys.modules.get(name)
+        if spec is not None:
+            spec._uid_counter = itertools.count(1)
+            spec._ts_counter = itertools.count(1)
+
+
+def oversubscribed_store(pkg, seed: int):
+    """tests/test_evict_oracle.py's seed-deterministic oversubscribed
+    cluster: running filler gangs (mixed sizes and min_member, some
+    critical pods, some holding a claim) in a weight-1 victim queue
+    (reclaimable for 80% of the seeds), pending high-priority gangs in a
+    weight-9 queue, and for about half the seeds a second pending queue."""
+    api = pkg.api
+    rng = np.random.default_rng(seed)
+    store = pkg.cache.ClusterStore()
+    store.add_priority_class(api.PriorityClass(name="low", value=100))
+    store.add_priority_class(api.PriorityClass(name="mid", value=1000))
+    store.add_priority_class(api.PriorityClass(name="high", value=10000))
+    store.add_queue(api.Queue(name="victim", weight=1,
+                              reclaimable=bool(rng.random() < 0.8)))
+    store.add_queue(api.Queue(name="premium", weight=9))
+    second_queue = bool(rng.random() < 0.5)
+    if second_queue:
+        store.add_queue(api.Queue(name="premium2", weight=5))
+    n_nodes = int(rng.integers(3, 9))
+    node_cpu = int(rng.integers(16, 33))
+    for i in range(n_nodes):
+        store.add_node(api.Node(
+            name=f"node-{i:03d}",
+            allocatable={"cpu": str(node_cpu),
+                         "memory": f"{node_cpu * 4}Gi", "pods": 64},
+            topology={"topology.kubernetes.io/zone": f"zone-{i % 3}"},
+        ))
+    g = 0
+    for i in range(n_nodes):
+        budget = node_cpu
+        while budget >= 4:
+            size = int(rng.integers(1, 4))
+            min_member = int(rng.integers(1, size + 1))
+            cpu = int(rng.choice([4, 8]))
+            if cpu > budget:
+                cpu = 4
+            if cpu * size > budget:
+                size = budget // cpu
+                min_member = min(min_member, size)
+            prio_name, prio = ("mid", 1000) if rng.random() < 0.3 else (
+                "low", 100)
+            critical = rng.random() < 0.1
+            pg = api.PodGroup(name=f"fill-{g:04d}", min_member=min_member,
+                              queue="victim")
+            store.add_pod_group(pg)
+            for k in range(size):
+                volumes = []
+                if rng.random() < 0.1:
+                    claim = f"claim-fill-{g:04d}-{k}"
+                    store.put_pvc("default", claim, {"storage": "1Gi"})
+                    volumes = [(claim, "/data")]
+                store.add_pod(api.Pod(
+                    name=f"fill-{g:04d}-{k}",
+                    annotations={api.GROUP_NAME_ANNOTATION: pg.name},
+                    containers=[{"cpu": str(cpu),
+                                 "memory": f"{cpu * 2}Gi"}],
+                    phase=api.PodPhase.Running,
+                    node_name=f"node-{i:03d}",
+                    volumes=volumes,
+                    priority_class=(
+                        "system-node-critical" if critical else prio_name
+                    ),
+                    priority=prio,
+                ))
+                budget -= cpu
+                if budget < 0:
+                    break
+            g += 1
+    for j in range(int(rng.integers(2, 6))):
+        size = int(rng.integers(1, 4))
+        qname = (
+            "premium2" if second_queue and rng.random() < 0.5
+            else "premium"
+        )
+        pg = api.PodGroup(name=f"hi-{j:03d}", min_member=size, queue=qname)
+        store.add_pod_group(pg)
+        for k in range(size):
+            volumes = []
+            if rng.random() < 0.2:
+                claim = f"claim-hi-{j:03d}-{k}"
+                store.put_pvc("default", claim, {"storage": "1Gi"})
+                volumes = [(claim, "/data")]
+            store.add_pod(api.Pod(
+                name=f"hi-{j:03d}-{k}",
+                annotations={api.GROUP_NAME_ANNOTATION: pg.name},
+                containers=[{"cpu": str(int(rng.choice([8, 12]))),
+                             "memory": "8Gi"}],
+                volumes=volumes,
+                priority_class="high",
+                priority=10000,
+            ))
+    return store
+
+
+def _fill(api, store, name, queue, node, cpu="8", memory="16Gi"):
+    """One Running low-priority single-pod filler gang on ``node``."""
+    pg = api.PodGroup(name=name, min_member=1, queue=queue)
+    store.add_pod_group(pg)
+    store.add_pod(api.Pod(
+        name=f"{name}-0",
+        annotations={api.GROUP_NAME_ANNOTATION: pg.name},
+        containers=[{"cpu": cpu, "memory": memory}],
+        phase=api.PodPhase.Running, node_name=node,
+        priority_class="low", priority=100,
+    ))
+
+
+def _reclaimer(api, store, name, queue, cpu="8", memory="16Gi",
+               ports=()):
+    """One pending high-priority single-pod gang."""
+    pg = api.PodGroup(name=name, min_member=1, queue=queue)
+    store.add_pod_group(pg)
+    store.add_pod(api.Pod(
+        name=f"{name}-0",
+        annotations={api.GROUP_NAME_ANNOTATION: pg.name},
+        containers=[{"cpu": cpu, "memory": memory}],
+        host_ports=list(ports),
+        priority_class="high", priority=10000,
+    ))
+
+
+def _two_class_store(pkg, queues):
+    api = pkg.api
+    s = pkg.cache.ClusterStore()
+    s.add_priority_class(api.PriorityClass(name="low", value=100))
+    s.add_priority_class(api.PriorityClass(name="high", value=10000))
+    for name, weight, reclaimable in queues:
+        s.add_queue(api.Queue(name=name, weight=weight,
+                              reclaimable=reclaimable))
+    return s
+
+
+def two_queue_store(pkg, n_nodes=6, hi_a=3, hi_b=3):
+    """tests/test_reclaim_multiqueue.py's shape: a victim queue filling
+    ``n_nodes`` 16-cpu nodes with 8-cpu pods; two pending premium queues
+    (weights 6 and 3) of single-pod 8-cpu reclaimers."""
+    api = pkg.api
+    s = _two_class_store(pkg, [("victim", 1, True), ("prem-a", 6, True),
+                               ("prem-b", 3, True)])
+    for i in range(n_nodes):
+        s.add_node(api.Node(name=f"n{i}",
+                            allocatable={"cpu": "16", "memory": "64Gi",
+                                         "pods": 64}))
+        for k in range(2):
+            _fill(api, s, f"fill-{i}-{k}", "victim", f"n{i}")
+    for q, count in (("prem-a", hi_a), ("prem-b", hi_b)):
+        for j in range(count):
+            _reclaimer(api, s, f"{q}-hi-{j}", q)
+    return s
+
+
+def three_queue_store(pkg):
+    """test_reclaim_multiqueue.py's three pending premium queues."""
+    s = two_queue_store(pkg, n_nodes=8, hi_a=2, hi_b=2)
+    s.add_queue(pkg.api.Queue(name="prem-c", weight=2))
+    for j in range(2):
+        _reclaimer(pkg.api, s, f"prem-c-hi-{j}", "prem-c")
+    return s
+
+
+def unreclaimable_store(pkg):
+    """Victims in a reclaimable=False queue; two premium queues."""
+    api = pkg.api
+    s = _two_class_store(pkg, [("victim", 1, False), ("prem-a", 6, True),
+                               ("prem-b", 3, True)])
+    s.add_node(api.Node(name="n0", allocatable={"cpu": "16",
+                                                "memory": "64Gi"}))
+    for k in range(2):
+        _fill(api, s, f"fill-{k}", "victim", "n0")
+    for q in ("prem-a", "prem-b"):
+        _reclaimer(api, s, f"{q}-hi", q)
+    return s
+
+
+def yield_bail_store(pkg):
+    """Most reclaimers carry host ports: the native drive yields each to
+    a Python turn and bails to the Python loop mid-stream."""
+    api = pkg.api
+    s = _two_class_store(pkg, [("victim", 1, True), ("prem-a", 6, True),
+                               ("prem-b", 3, True)])
+    for i in range(4):
+        s.add_node(api.Node(name=f"n{i}",
+                            allocatable={"cpu": "16", "memory": "64Gi",
+                                         "pods": 64}))
+        for k in range(2):
+            _fill(api, s, f"fill-{i}-{k}", "victim", f"n{i}")
+    idx = 0
+    for q, count in (("prem-a", 3), ("prem-b", 3)):
+        for j in range(count):
+            ports = [9100 + idx] if idx % 4 != 3 else []
+            idx += 1
+            _reclaimer(api, s, f"{q}-hi-{j}", q, ports=ports)
+    return s
+
+
+def yield_path_store(pkg, seed):
+    """test_evict_oracle.py's drive-yield store: half the reclaimers carry
+    host ports."""
+    api = pkg.api
+    rng = np.random.default_rng(3000 + seed)
+    s = _two_class_store(pkg, [("victim", 1, True), ("premium", 9, True)])
+    for i in range(4):
+        s.add_node(api.Node(
+            name=f"node-{i:03d}",
+            allocatable={"cpu": "16", "memory": "64Gi", "pods": 64}))
+    g = 0
+    for i in range(4):
+        for _ in range(2):
+            _fill(api, s, f"fill-{g:03d}", "victim", f"node-{i:03d}",
+                  cpu=str(int(rng.choice([4, 8]))), memory="8Gi")
+            g += 1
+    for j in range(4):
+        _reclaimer(api, s, f"hi-{j:03d}", "premium", memory="8Gi",
+                   ports=[9000 + j] if j % 2 == 0 else [])
+    return s
+
+
+def scalar_store(pkg, seed):
+    """test_evict_oracle.py's extended-scalar store: fillers and
+    reclaimers with 0-2 ``tpu.dev/chips`` on 8-chip nodes."""
+    api = pkg.api
+    rng = np.random.default_rng(1000 + seed)
+    s = _two_class_store(pkg, [("victim", 1, True), ("premium", 9, True)])
+    for i in range(4):
+        s.add_node(api.Node(
+            name=f"node-{i:03d}",
+            allocatable={"cpu": "16", "memory": "64Gi",
+                         "tpu.dev/chips": 8}))
+    g = 0
+    for i in range(4):
+        for _ in range(3):
+            chips = int(rng.choice([0, 1, 2]))
+            res = {"cpu": "4", "memory": "8Gi"}
+            if chips:
+                res["tpu.dev/chips"] = chips
+            pg = api.PodGroup(name=f"fill-{g:03d}", min_member=1,
+                              queue="victim")
+            s.add_pod_group(pg)
+            s.add_pod(api.Pod(
+                name=f"fill-{g:03d}-0",
+                annotations={api.GROUP_NAME_ANNOTATION: pg.name},
+                containers=[res], phase=api.PodPhase.Running,
+                node_name=f"node-{i:03d}",
+                priority_class="low", priority=100,
+            ))
+            g += 1
+    for j in range(3):
+        chips = int(rng.choice([0, 2]))
+        res = {"cpu": "8", "memory": "8Gi"}
+        if chips:
+            res["tpu.dev/chips"] = chips
+        pg = api.PodGroup(name=f"hi-{j:03d}", min_member=1, queue="premium")
+        s.add_pod_group(pg)
+        s.add_pod(api.Pod(
+            name=f"hi-{j:03d}-0",
+            annotations={api.GROUP_NAME_ANNOTATION: pg.name},
+            containers=[res], priority_class="high", priority=10000,
+        ))
+    return s
+
+
+def rollback_store(pkg):
+    """test_evict_oracle.py's statement-rollback store: a preemptor larger
+    than its node even empty, two victims."""
+    api = pkg.api
+    s = _two_class_store(pkg, [("victim", 1, True), ("premium", 9, True)])
+    s.add_node(api.Node(name="n0", allocatable={"cpu": "16",
+                                                "memory": "32Gi"}))
+    s.add_pod_group(api.PodGroup(name="fill", min_member=1, queue="victim"))
+    for k in range(2):
+        s.add_pod(api.Pod(
+            name=f"fill-{k}",
+            annotations={api.GROUP_NAME_ANNOTATION: "fill"},
+            containers=[{"cpu": "8", "memory": "16Gi"}],
+            phase=api.PodPhase.Running, node_name="n0",
+            priority_class="low", priority=100,
+        ))
+    s.add_pod_group(api.PodGroup(name="huge", min_member=1,
+                                 queue="premium"))
+    s.add_pod(api.Pod(
+        name="huge-0",
+        annotations={api.GROUP_NAME_ANNOTATION: "huge"},
+        containers=[{"cpu": "32", "memory": "64Gi"}],
+        priority_class="high", priority=10000,
+    ))
+    return s
+
+
+def tiny_priority_store(pkg):
+    """tests/test_whatif_preempt.py:319's host-walk store: two low-priority
+    pods filling a 4-cpu node, one pending high-priority pod."""
+    api = pkg.api
+    cache = pkg.cache
+    store = cache.ClusterStore(evictor=cache.FakeEvictor(),
+                               binder=cache.FakeBinder())
+    store.add_node(api.Node(name="n1", allocatable={
+        "cpu": "4", "memory": "8Gi", "pods": 110}))
+    store.add_priority_class(api.PriorityClass(name="high", value=100))
+    store.add_priority_class(api.PriorityClass(name="low", value=1))
+    store.add_pod_group(api.PodGroup(name="lo", min_member=1,
+                                     priority_class="low"))
+    store.pod_groups["default/lo"].status.phase = \
+        api.PodGroupPhase.Running.value
+    for i in range(2):
+        store.add_pod(api.Pod(
+            name=f"lo-{i}", annotations={api.GROUP_NAME_ANNOTATION: "lo"},
+            containers=[{"cpu": "2", "memory": "1Gi"}],
+            phase=api.PodPhase.Running, node_name="n1", priority=1))
+    store.add_pod_group(api.PodGroup(name="hi", min_member=1,
+                                     priority_class="high"))
+    store.add_pod(api.Pod(
+        name="hi-0", annotations={api.GROUP_NAME_ANNOTATION: "hi"},
+        containers=[{"cpu": "2", "memory": "1Gi"}], priority=100))
+    return store
+
+
+def tier_store(pkg, workers=4, serving=2):
+    """``priority_tier_workload``: whole-node batch pods and a pending
+    high-priority serving gang (tests/test_whatif_preempt.py:492)."""
+    cache = pkg.cache
+    store = cache.ClusterStore(evictor=cache.FakeEvictor(),
+                               binder=cache.FakeBinder())
+    pkg.sim.ClusterSimulator.priority_tier_workload(
+        store, workers=workers, serving_tasks=serving)
+    return store
+
+
+def walk_run(pkg, build, conf=EVICT_CONF, cycles=1, grace=1,
+             pipeline=False, async_bind=False, on_cycle=None, native=None,
+             device="cpu"):
+    """Twin run of the host victim walk: ``build(pkg)`` after the uid
+    counters restart, then ``cycles`` x (``run_once()``, the simulator's
+    step with ``grace`` Terminating ticks).  Per cycle: the uids the walk
+    evicted and pipelined (read at the cycle-end flush, in order), the
+    evictor's keys so far, the binds, the PodGroup phases and the mirror
+    state (uid, status code, node).  ``on_cycle(store)`` adds a field.
+
+    ``native`` picks the reclaim walk: the C++ engine (True) or the Python
+    walk (False).  By default the port runs its engine and the JAX package
+    its Python walk: the JAX package's native replay leaves the evicted
+    rows out of the mirror's dirty set, so from the second cycle on its
+    incremental aggregates still count them Running, and its own Python
+    walk and the port's engine agree with each other and not with it.
+    ``device`` is the port's (None: the card)."""
+    import importlib
+    import os
+
+    fe = importlib.import_module(f"{pkg.__name__}.fastpath_evict")
+    is_jax = pkg.__name__ == "volcano_tpu"
+    if native is None:
+        native = not is_jax
+    sim_mod = importlib.import_module(f"{pkg.__name__}.sim")
+    sched_mod = importlib.import_module(f"{pkg.__name__}.scheduler")
+    reset_uid_counters()
+    store = build(pkg)
+    store.pipeline = pipeline
+    store.async_bind = async_bind
+    kw = {} if is_jax else {"device": device}
+    sched = sched_mod.Scheduler(store, conf_str=conf, **kw)
+    sim = sim_mod.ClusterSimulator(store, grace_steps=grace)
+    seen = []
+    orig = fe.EvictState.flush
+    setup = fe.FastEvictor._native_reclaim_setup
+    no_native = os.environ.get("VOLCANO_TPU_NO_NATIVE")
+
+    def spy(st):
+        m = st.cyc.m
+        seen.append(([m.p_uid[r] for r in st.evicted_rows],
+                     [m.p_uid[r]
+                      for r in getattr(st, "pipelined_rows", ())]))
+        return orig(st)
+
+    out = []
+    try:
+        fe.EvictState.flush = spy
+        if native:
+            os.environ.pop("VOLCANO_TPU_NO_NATIVE", None)
+        elif is_jax:
+            fe.FastEvictor._native_reclaim_setup = lambda self: None
+        else:
+            os.environ["VOLCANO_TPU_NO_NATIVE"] = "1"
+        for _ in range(cycles):
+            seen.clear()
+            sched.run_once()
+            if async_bind:
+                assert store.flush_binds(timeout=30)
+            ev, pipe = seen[0] if seen else ([], [])
+            rec = {
+                "evicted": ev,
+                "pipelined": pipe,
+                "evicts": sorted(getattr(store.evictor, "evicts", [])),
+                "binds": dict(store.binder.binds),
+                "phases": {uid: pg.status.phase
+                           for uid, pg in sorted(store.pod_groups.items())},
+                "mirror": mirror_state(store),
+            }
+            if on_cycle is not None:
+                rec.update(on_cycle(store))
+            out.append(rec)
+            sim.step()
+    finally:
+        fe.EvictState.flush = orig
+        fe.FastEvictor._native_reclaim_setup = setup
+        if no_native is None:
+            os.environ.pop("VOLCANO_TPU_NO_NATIVE", None)
+        else:
+            os.environ["VOLCANO_TPU_NO_NATIVE"] = no_native
+        store.close()
+    return out

@@ -11,12 +11,14 @@
     inter-pod affinity, anti-affinity and spread, which the port runs, give
     the JAX package's placements on the same small stores.
 (e) The same for the scheduler cycle: it runs with ``jax``, ``volcano_tpu``
-    and ``yaml`` unimportable (preempt / reclaim and the rebalance lane on a
-    fabric included), no module imports ``yaml``, the default device raises
-    without CUDA, and the JAX fast path's lanes the port does not run raise
-    ``NotImplementedError`` naming their ROADMAP.md item; the rebalance
-    lane, which ignores the host-walk switch, runs under it; a cycle with
-    inter-pod terms binds what the JAX package's cycle binds.
+    and ``yaml`` unimportable (preempt / reclaim on the device lane and on
+    the host victim walk with its native engine, and the rebalance lane on
+    a fabric, included), no module imports ``yaml``, the default device
+    raises without CUDA; with the walk selected preempt and reclaim evict
+    and bind what the JAX package's walk does, and the rebalance lane,
+    which ignores the host-walk switch, runs under it; the walk's native
+    loader builds the port's own source only; a cycle with inter-pod terms
+    binds what the JAX package's cycle binds.
 (f) The store's observability (auditor, SLO tracker, journey, Perfetto
     export), checkpoints and the lease are the port's own modules: they
     import neither ``jax`` nor ``volcano_tpu``, and a default store with
@@ -25,7 +27,6 @@
 """
 
 import ast
-import collections
 import os
 import subprocess
 import sys
@@ -282,6 +283,22 @@ for _ in range(3):
     sched.run_once()
     sim.step()
 assert store.migrations.committed_plans >= 1
+os.environ["VOLCANO_TPU_EVICT_DEVICE"] = "0"
+store = preempt_cluster(n_nodes=4, n_pending=8)
+sched = Scheduler(store, conf_str=(
+    'actions: "enqueue, allocate, preempt, reclaim, backfill"\n'
+    'tiers:\n- plugins:\n  - name: priority\n  - name: gang\n'
+    '  - name: conformance\n- plugins:\n  - name: drf\n'
+    '  - name: predicates\n  - name: proportion\n'), device="cpu")
+sim = ClusterSimulator(store, grace_steps=1)
+for _ in range(3):
+    sched.run_once()
+    sim.step()
+assert store.evictor.evicts and store.migrations is None
+assert any(p.node_name for p in store.pods.values()
+           if p.name.startswith("hi-"))
+from volcano_tpu_torch import native
+assert native.reclaim_lib() is not None
 from volcano_tpu_torch.cache import FakeBinder
 from volcano_tpu_torch.framework import REBALANCE_SCHEDULER_CONF
 from volcano_tpu_torch.synth import fabric_cluster
@@ -313,6 +330,38 @@ def test_cycle_runs_with_jax_reference_and_yaml_blocked():
     assert out.stdout.strip().endswith("ok")
 
 
+def test_native_loader_builds_port_sources_only(monkeypatch, tmp_path):
+    """The host reclaim engine's loader compiles one source, under
+    ``volcano_tpu_torch/csrc/host``, into a directory of the port's, and
+    imports nothing of ``volcano_tpu`` (not ``volcano_tpu.native``, not
+    the JAX package's ``csrc/libvcsnap.so``)."""
+    import subprocess as sp
+
+    from volcano_tpu_torch import native
+
+    names = list(_imported_names(PORT / "native.py"))
+    assert not any(n.split(".")[0] in ("jax", "volcano_tpu") for n in names)
+    text = (PORT / "native.py").read_text()
+    assert "libvcsnap" not in text and "volcano_tpu.native" not in text
+    assert native.SOURCE.resolve().is_relative_to(PORT / "csrc" / "host")
+    assert native._BUILD.resolve().is_relative_to(PORT)
+    calls = []
+    real = sp.run
+
+    def spy(cmd, *a, **k):
+        calls.append([str(c) for c in cmd])
+        return real(cmd, *a, **k)
+
+    monkeypatch.setattr(native, "_BUILD", tmp_path)
+    monkeypatch.setattr(sp, "run", spy)
+    native.build()
+    assert len(calls) == 1
+    paths = [c for c in calls[0] if c.startswith("/")]
+    sources = [c for c in paths if not c.startswith(str(tmp_path))]
+    assert sources == [str(native.SOURCE)]
+    assert all(Path(c).resolve().is_relative_to(PORT) for c in sources)
+
+
 def test_no_yaml_imports():
     files = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
     for f in files:
@@ -341,30 +390,40 @@ def _conf(actions="enqueue, allocate, backfill", extra_plugin=""):
             f"  - name: priority\n  - name: gang\n{extra_plugin}")
 
 
-CYCLE_NOT_PORTED = {
-    # The device-native preempt / reclaim lanes run; the host victim walk
-    # they replace (VOLCANO_TPU_EVICT_DEVICE=0, set below) does not.
-    "preempt": (_cycle_store, _conf("enqueue, allocate, preempt")),
-    "reclaim": (_cycle_store, _conf("allocate, reclaim")),
+# The host victim walk (VOLCANO_TPU_EVICT_DEVICE=0) of each evict action,
+# on a store where it evicts.
+CYCLE_WALK = {
+    "preempt": _conf("enqueue, allocate, preempt"),
+    "reclaim": _conf("enqueue, allocate, reclaim"),
 }
 
 
-# The ROADMAP.md queue 1 item each case's error must name.
-_ITEM = collections.defaultdict(str, preempt="host victim walk",
-                                reclaim="host victim walk")
+@pytest.mark.parametrize("what", sorted(CYCLE_WALK))
+def test_cycle_host_walk_matches_jax(what, monkeypatch):
+    """With the walk selected, preempt and reclaim run on the port (no
+    ``NotImplementedError``) and evict, pipeline and bind what the JAX
+    package's walk does, cycle by cycle."""
+    import volcano_tpu
+    import volcano_tpu.sim
+    import volcano_tpu.synth
 
+    from test_torch_fixtures import tier_store, walk_run
 
-@pytest.mark.parametrize("what", sorted(CYCLE_NOT_PORTED))
-def test_cycle_lanes_not_ported_raise(what, monkeypatch):
-    from volcano_tpu_torch.scheduler import Scheduler
+    import volcano_tpu_torch.sim
 
     monkeypatch.setenv("VOLCANO_TPU_EVICT_DEVICE", "0")
-    make, conf = CYCLE_NOT_PORTED[what]
-    store = make()
-    with pytest.raises(NotImplementedError,
-                       match=rf"ROADMAP\.md, queue 1: .*{_ITEM[what]}"):
-        Scheduler(store, conf_str=conf, device="cpu").run_once()
-    assert not store.binder.binds
+    if what == "preempt":
+        build = tier_store  # in-queue victims of lower priority
+    else:
+        build = lambda pkg: pkg.synth.preempt_cluster(  # noqa: E731
+            n_nodes=4, n_pending=8, seed=0)
+    want = walk_run(volcano_tpu, build, conf=CYCLE_WALK[what], cycles=4,
+                    grace=1)
+    got = walk_run(volcano_tpu_torch, build, conf=CYCLE_WALK[what],
+                   cycles=4, grace=1)
+    assert got == want
+    assert got[0]["evicted"] and got[0]["pipelined"]
+    assert got[-1]["binds"]
 
 
 # Confs the fast path does not run, and the switched-off fast path: the
@@ -430,9 +489,9 @@ def test_cycle_affinity_matches_jax(what):
 
 
 def test_rebalance_runs_with_host_victim_walk_selected(monkeypatch):
-    """VOLCANO_TPU_EVICT_DEVICE=0 selects the preempt / reclaim host walk,
-    which the port does not run; the rebalance lane ignores the switch (as
-    the JAX package's does) and plans, proves and commits under it."""
+    """VOLCANO_TPU_EVICT_DEVICE=0 selects the preempt / reclaim host walk;
+    the rebalance lane ignores the switch (as the JAX package's does) and
+    plans, proves and commits through the what-if engine under it."""
     from volcano_tpu_torch.cache import FakeBinder
     from volcano_tpu_torch.framework import REBALANCE_SCHEDULER_CONF
     from volcano_tpu_torch.scheduler import Scheduler

@@ -422,9 +422,8 @@ def _holds(ann, rel):
     ("whatif.py", True, ()),
     # FastCycle runs under run_cycle_fast's store lock.
     ("fastpath.py", False, ("FastCycle",)),
-    # EvictState (the port has no FastEvictor: the host victim walk is
-    # queue 1 item 4).
-    ("fastpath_evict.py", False, ("EvictState",)),
+    # EvictState and the host victim walk's FastEvictor.
+    ("fastpath_evict.py", False, ("EvictState", "FastEvictor")),
     ("ops/devsnap.py", False, ("DeviceSnapshot",)),
     ("cache/store.py", False, ("ClusterStore",)),
 ])

@@ -95,6 +95,18 @@ built from its own sources into its own build directory.  ``--phase``
   plan), summarised: the per-cycle kinds, walls and fetch waits, and the
   traced steady cycle's busy time.  Given before ``seq-trace``, it shows
   whether the traces that follow it keep their device events;
+- ``evict``: chip_smoke phases 9 and 10 on the device-native eviction lane
+  (``VOLCANO_TPU_EVICT_DEVICE=1``): BASELINE config 4 (``preempt_cluster(
+  10,000 nodes, 4 fillers a node, 20,000 pending in gangs of 4, seed 0)``)
+  under ``CONF_PREEMPT``, 6 cycles, grace 2, then
+  ``priority_tier_workload(10,000 workers, 5,000-task serving gang)``
+  under ``CONF_PREEMPT_ONLY`` with ``VOLCANO_TPU_EVICT_CAP=10000`` until
+  the gang binds, each through the tree's ``run_evict_phase`` with its
+  checks: per cycle the wall and the preempt / reclaim lanes (ms);
+- ``walk``: ``chip_smoke.host_walk_phases()`` (phases 35-37: the host
+  victim walk, ``VOLCANO_TPU_EVICT_DEVICE=0``, on the stores of ``evict``
+  and the twins at 1,000 nodes), where the tree has it: per cycle the
+  wall and the preempt / reclaim lanes;
 
 A traced call reports the device time and launch count summed per CUDA
 function (every device event, named as the profiler names it), the card's
@@ -116,7 +128,7 @@ from pathlib import Path
 
 PHASES = ("solve", "cold", "shortlist", "seq", "seq-north-star",
           "seq-trace", "victim", "kernels", "delta", "frag", "worker",
-          "pipeline")
+          "pipeline", "evict", "walk")
 
 
 def _trace(fn) -> dict:
@@ -987,12 +999,74 @@ def phase_pipeline(cs, opts) -> dict:
     return out
 
 
+def _lanes(stats) -> list:
+    """Per cycle: the wall (s) and the preempt / reclaim lanes (ms)."""
+    return [[c["wall_s"], c["lanes_ms"].get("preempt"),
+             c["lanes_ms"].get("reclaim")] for c in stats["cycles"]]
+
+
+def phase_evict(cs, opts) -> dict:
+    import os
+
+    from volcano_tpu_torch.cache import ClusterStore, FakeBinder, FakeEvictor
+    from volcano_tpu_torch.sim import ClusterSimulator
+    from volcano_tpu_torch.synth import preempt_cluster
+
+    old = {k: os.environ.get(k) for k in ("VOLCANO_TPU_EVICT_DEVICE",
+                                          "VOLCANO_TPU_EVICT_CAP")}
+    out = {}
+    try:
+        os.environ["VOLCANO_TPU_EVICT_DEVICE"] = "1"
+        os.environ.pop("VOLCANO_TPU_EVICT_CAP", None)
+        store = preempt_cluster(n_nodes=10000, fill_per_node=4,
+                                n_pending=20000, gang_size=4, seed=0)
+        rstats = cs.run_evict_phase("reclaim", store, cs.CONF_PREEMPT,
+                                    grace=2, cycles=6)[0]
+        out["reclaim"] = _lanes(rstats)
+        store.close()
+        os.environ["VOLCANO_TPU_EVICT_CAP"] = "10000"
+        store = ClusterStore(binder=FakeBinder(), evictor=FakeEvictor())
+        ClusterSimulator.priority_tier_workload(store, workers=10000,
+                                                serving_tasks=5000)
+
+        def serving_bound(st):
+            return sum(1 for p in st.pods.values()
+                       if p.name.startswith("serving-") and p.node_name) \
+                >= 5000
+
+        pstats = cs.run_evict_phase("preempt", store, cs.CONF_PREEMPT_ONLY,
+                                    grace=2, cycles=24,
+                                    until=serving_bound)[0]
+        if not serving_bound(store):
+            raise AssertionError("[preempt] the serving gang did not bind")
+        out["preempt"] = _lanes(pstats)
+        store.close()
+    finally:
+        for k, v in old.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+    _log(opts.label, f"evict {json.dumps(out)}")
+    return out
+
+
+def phase_walk(cs, opts) -> dict:
+    if not hasattr(cs, "host_walk_phases"):
+        return None
+    res = cs.host_walk_phases()
+    out = {k: res[k]["lanes"] for k in ("reclaim", "preempt")}
+    _log(opts.label, f"walk {json.dumps(out)}")
+    return out
+
+
 RUN = {"solve": phase_solve, "cold": phase_cold,
        "shortlist": phase_shortlist, "seq": phase_seq,
        "seq-north-star": phase_seq_north_star, "seq-trace": phase_seq_trace,
        "victim": phase_victim, "kernels": phase_kernels,
        "delta": phase_delta, "frag": phase_frag, "worker": phase_worker,
-       "pipeline": phase_pipeline}
+       "pipeline": phase_pipeline, "evict": phase_evict,
+       "walk": phase_walk}
 
 
 def main() -> int:

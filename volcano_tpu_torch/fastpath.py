@@ -24,15 +24,22 @@ session close -- over the store's incremental array mirror
   OnSessionClose conditions (``gang.go:140-183``).
 
 The preempt and reclaim actions run the device-native lanes of the
-what-if engine (``whatif.py``: victims ranked by the ``victim_scores``
-kernel, the wave proven by a what-if solve, evictions committed through
-``fastpath_evict.EvictState`` and flushed to the store's evictor before the
-session closes); the victims stay Releasing through their grace window,
-and every later solve reads their capacity as future idle.  The rebalance
+what-if engine by default (``whatif.py``: victims ranked by the
+``victim_scores`` kernel, the wave proven by a what-if solve, evictions
+committed through ``fastpath_evict.EvictState`` and
+flushed to the store's evictor before the session closes); the victims
+stay Releasing through their grace window, and every later solve reads
+their capacity as future idle.  ``VOLCANO_TPU_EVICT_DEVICE=0`` selects the
+host victim walk instead (``fastpath_evict.FastEvictor.preempt`` /
+``reclaim``, bind for bind the object session's actions: statement-wrapped
+preemptors with undo logs, plugin victim tiers, and the reclaim
+round-robin in the host engine ``csrc/host/vcreclaim.cc``); the walk is
+host work over numpy, and each walk action stamps the mirror's mutation
+counter for the pipelined staleness guard.  The rebalance
 action (``_rebalance``) drains fragmented nodes for a starved gang: nodes
 scored by the ``frag_scores`` kernel, the drain set proven by a what-if
 solve in which the victims re-place too, committed through the same
-engine.
+engine; it ignores the host-walk switch, as the JAX package's does.
 
 Fabric topology (``ops/topology.py``, kernel ``gang_block_fit``, whose
 launch also writes ``fabric_frag``'s plane): a ``require-contiguous``
@@ -47,9 +54,7 @@ Eligibility (``eligible()``): actions within ``FAST_ACTIONS``, plugins
 within ``FAST_PLUGINS`` (the eight built-ins), and the wave solver; any
 other conf runs the object session (``scheduler.py``).  The JAX package's
 other lanes raise ``NotImplementedError`` here, naming their
-ROADMAP.md item, before the cycle mutates anything: the host victim walk
-(``VOLCANO_TPU_EVICT_DEVICE=0``, for preempt and reclaim; the rebalance
-lane ignores the switch, as the JAX package's does), the remote solver and
+ROADMAP.md item, before the cycle mutates anything: the remote solver and
 the device mesh.
 
 Pipelined sessions (``store.pipeline`` or ``VOLCANO_TPU_PIPELINE=1``,
@@ -229,7 +234,8 @@ class _JobProxy:
         self.queue = queue
         self.key = key
 
-# The evict lanes the port runs (device-native, whatif.py).
+# The evict lanes: device-native (whatif.py) or the host victim walk
+# (fastpath_evict.py).
 _EVICT_ACTIONS = ("preempt", "reclaim")
 
 
@@ -292,13 +298,6 @@ class FastCycle:
     def check_ported(self) -> None:
         """Raise for the JAX fast path's lanes the port does not run, up
         front, before the cycle mutates anything."""
-        from .whatif import evict_device_enabled
-
-        for name in self.action_names:
-            if name in _EVICT_ACTIONS and not evict_device_enabled():
-                raise _not_ported(
-                    f"the host victim walk of the {name} action "
-                    "(VOLCANO_TPU_EVICT_DEVICE=0)", "the host victim walk")
         if getattr(self.store, "remote_solver", None) is not None:
             raise _not_ported("the remote solver", "the solver service")
         if getattr(self.store, "solve_mesh", None) is not None \
@@ -820,6 +819,7 @@ class FastCycle:
             self.derive()
             self._proportion()
         self.new_conditions: Dict[int, PodGroupCondition] = {}
+        self._evict_st = None
         self._evictor = None
         # Asynchronous bind batches the commits collect, dispatched at
         # cycle end so the dispatcher's drain does not contend with the
@@ -838,8 +838,8 @@ class FastCycle:
                 store.apply_pending_bind_records()
                 self.m.resync_status(self.store.pods)
                 raise
-            if self._evictor is not None:
-                self._evictor.flush()
+            if self._evict_st is not None:
+                self._evict_st.flush()
             with tracer.span("close", lanes=self.lanes):
                 self._close()
             store.last_cycle_lanes = dict(self.lanes)
@@ -884,13 +884,26 @@ class FastCycle:
                         # the mirror.
                         self.m.mutation_seq += 1
                 elif name in _EVICT_ACTIONS:
-                    # Device-native lane: plan victims with the
-                    # victim_scores kernel, prove the wave with a
-                    # what-if solve, commit -- the engine stamps the
-                    # mutation counter itself iff it evicts.
                     from . import whatif
 
-                    whatif.run_evict_action(self, name)
+                    if whatif.evict_device_enabled():
+                        # Device-native lane: plan victims with the
+                        # victim_scores kernel, prove the wave with a
+                        # what-if solve, commit -- the engine stamps the
+                        # mutation counter itself iff it evicts.
+                        whatif.run_evict_action(self, name)
+                    else:
+                        ev = self._evict_machinery()
+                        if name == "preempt":
+                            ev.preempt()
+                        else:
+                            ev.reclaim()
+                        # Evictions write p_status directly; the
+                        # pipelined staleness guard keys off the
+                        # mirror's mutation counter, so stamp the
+                        # action (preempt / reclaim run after the
+                        # allocate dispatch in the standard confs).
+                        self.m.mutation_seq += 1
                 elif name == "rebalance":
                     # Defragmentation planner: a committed plan evicts
                     # through the what-if engine and stamps the
@@ -1097,13 +1110,31 @@ class FastCycle:
                 int(fine * 1e9), tid="cycle",
             )
 
-    def _evict_machinery(self):
-        """The cycle's eviction state, built on the first eviction."""
+    def _evict_state(self):
+        """The cycle's ``EvictState``, built lean on the first eviction:
+        the device-native and rebalance lanes commit through it and read
+        nothing of the walk's state."""
         self._flush_aggr()
-        if self._evictor is None:
+        if self._evict_st is None:
             from .fastpath_evict import EvictState
 
-            self._evictor = EvictState(self)
+            self._evict_st = EvictState(self)
+        return self._evict_st
+
+    def _evict_machinery(self):
+        """The host victim walk's ``FastEvictor``, wrapping the cycle's
+        ``EvictState``; resynced whenever it was not built just now."""
+        fresh = self._evict_st is None
+        st = self._evict_state()
+        if self._evictor is None:
+            from .fastpath_evict import FastEvictor
+
+            self._evictor = FastEvictor(self, st)
+            if fresh:
+                return self._evictor
+        # Action order is free-form: an allocate / backfill action may
+        # have mutated n_idle / n_ntasks since the state was built.
+        self._evictor.resync()
         return self._evictor
 
     # ------------------------------------------------------------- enqueue

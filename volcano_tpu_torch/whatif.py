@@ -329,11 +329,11 @@ def commit_plan(cyc, plan: WhatIfPlan, victim_rows: np.ndarray,
             count_plan(cyc, plan.action, "rejected-budget",
                        gang=plan.gang_uid, victims=len(victim_rows))
             return
-    st = cyc._evict_machinery()
+    st = cyc._evict_state()
     events = []
     reason = plan.action.capitalize()  # Preempt, Reclaim, Rebalance
     for row, tgt in zip(victim_rows.tolist(), victim_nodes.tolist()):
-        st.evict(int(row))
+        st.evict(int(row), None)
         st.evicted_rows.append(int(row))
         tgt_name = m.n_name[int(tgt)] if 0 <= int(tgt) < cyc.Nn else ""
         # Journey: the victim's timeline shows the planned target, so the
