@@ -10,9 +10,10 @@ Run from the repository root on a machine with one CUDA card:
 chip_smoke.py obs`` phases 8c and 8d, ``python3 chip_smoke.py seq-trace``
 the traced seq cycle of phase 21 alone, ``python3 chip_smoke.py recovery``
 phases 24-31, ``python3 chip_smoke.py single-phase`` phases 32-34,
-``python3 chip_smoke.py host-walk`` phases 35-37; ``crash-sticky``,
-``lockdep <hash>`` and ``trace-dir`` are the child processes of phases
-29, 30 and 31.)  It
+``python3 chip_smoke.py host-walk`` phases 35-37, ``python3 chip_smoke.py
+remote`` phases 38-41; ``crash-sticky``, ``lockdep <hash>`` and
+``trace-dir`` are the child processes of phases 29, 30 and 31,
+``solver-child`` the solver child of 38-41.)  It
 builds the sixteen CUDA kernels of ``volcano_tpu_torch/csrc`` (fourteen
 sources, one nvcc each, started together; ``launch_floor.cu`` holds only an
 empty kernel, timed to give what one launch costs) and then runs these
@@ -99,7 +100,8 @@ of which raises (and the script exits non-zero) when a check fails:
    cycle), one with ``VOLCANO_TPU_AUDIT=0 VOLCANO_TPU_JOURNEY=0``: a cold
    and 5 steady cycles each, binds equal, every solve's launches and syncs
    equal, ``host_reads`` 0; then on against off in turns at the default
-   sample rate, 3 times each: a re-cold cycle (caches dropped, a fresh
+   sample rate, 2 times each: a
+   re-cold cycle (caches dropped, a fresh
    journey, every pod placed again), a steady cycle, a pipelined steady
    cycle -- walls and the self-timed audit and journey time;
 8d. ha: the checkpoint of 8c (its bytes, save and load seconds); the
@@ -198,7 +200,8 @@ of which raises (and the script exits non-zero) when a check fails:
    "object", the lanes printed; the wave solve's kernels required;
 21. seq: the same under ``solver: seq``: ``seq_solve`` required, card
    against CPU, and the kernel against its plain version on the inputs of
-   its first launch, timed as in 4; then a cold seq cycle on a fresh
+   its first launch, timed as in 4 but one call a turn and the plain
+   version in one turn (kernel, plain, kernel); then a cold seq cycle on a fresh
    store traced with ``torch.profiler`` in a process of its own
    (``python3 chip_smoke.py seq-trace``: the card's idle share, from the
    trace alone; three traces without the solve's two kernels fail the
@@ -282,7 +285,33 @@ of which raises (and the script exits non-zero) when a check fails:
    ``walk_run``): evicted and pipelined uids, evictor keys, binds,
    PodGroup phases and mirror states identical every cycle, the audit
    clean after each.  The
-   ``[host-walk] seconds`` line gives each of 35-37's seconds.
+   ``[host-walk] seconds`` line gives each of 35-37's seconds;
+38. remote: the solver service.  Solver children (``python3 chip_smoke.py
+   solver-child``: the port's ``SolverServer`` on the card, started with
+   ``subprocess``, reusing this run's kernel build) serve the wave solves.
+   The north-star store of 6 through a ``RemoteSolver``: a cold and 5
+   steady cycles re-pending nodes 0-63, the binds of each equal phase 6's
+   (by hash), the steady frames deltas, the invariants after every cycle,
+   the wire audit every cycle without an anomaly, no kernel launched in
+   this process and every kernel of ``REMOTE_KERNELS`` (PERF.md rows 1-4,
+   2a-2c) in the child, which replays each one's first launch against its
+   plain version when it stops; per cycle the wall, the frame kind and
+   bytes, the child's ``solve_ms`` and the wait for the reply;
+39. remote:shm: the same sequence at 1,000 x 10,000 over TCP and over the
+   shared-memory lane (``VOLCANO_TPU_SHM=1``): binds equal each other and
+   the local cycles', no ``remote_frame_fallback_total``;
+40. remote:heal: a pipelined store at 1,000 x 10,000; the child killed
+   with a solve in flight: the reply lost and its rows re-placed, the
+   restarted child's first frame full, deltas again, every pod bound, the
+   binds those of a local run losing the same reply;
+41. remote:pool: two children on the one card (the mechanism, not
+   multi-card scale): a pool of one equal to a single client (binds,
+   frames, bytes); a hedge forced by a child holding its reply (the hedge
+   wins, the held reply drains, binds unchanged); the what-if offload on
+   BASELINE config 4 at 1,000 nodes (the evictions of the local what-if,
+   cycle by cycle); failover after the primary child is killed (one
+   cycle's lost reply, no pod lost).  The ``[remote] seconds`` line gives
+   each of 38-41's seconds, the ``[phases]`` line each phase group's.
 
 Output: the card's name and power limit, versions, build time, the
 registers, shared memory and spills of the kernels of ``PTXAS_SOURCES``
@@ -1275,13 +1304,14 @@ def launch_floor(reps: int = 20) -> dict:
 
 
 def replay_kernels(captured: dict, launches: dict, reps: int = 20,
-                   names=None) -> list:
+                   names=None, turns=(False, True, True, False)) -> list:
     """Each kernel against its plain version on its captured inputs;
     integer outputs must be identical, float outputs identical too (the
     kernels round like the plain versions and sum integers exactly).  Then
     ``reps`` back-to-back calls of each, on fresh copies of the inputs,
-    timed by ``_device_ms``: kernel, plain, plain, kernel, best of each;
-    and, where one PyTorch call computes the same function, that call."""
+    timed by ``_device_ms`` in ``turns`` (plain or not: kernel, plain,
+    plain, kernel), best of each; and, where one PyTorch call computes the
+    same function, that call."""
     import torch
 
     from volcano_tpu_torch.ops import kernels
@@ -1304,7 +1334,7 @@ def replay_kernels(captured: dict, launches: dict, reps: int = 20,
             if not torch.equal(a, b):
                 raise AssertionError(f"{name}: kernel != plain version")
         times = {}
-        for plain in (False, True, True, False):
+        for plain in turns:
             fns = [_kernel_fn(name, _clone(cap), plain=plain)
                    for _ in range(reps)]
             times.setdefault(plain, []).append(_device_ms(fns))
@@ -2632,7 +2662,7 @@ def save_checkpoint(store, directory) -> dict:
     return out
 
 
-def obs_phase(ckpt, orig_binds, reps=3):
+def obs_phase(ckpt, orig_binds, reps=2):
     """The default observability at full width, and the checkpoint round
     trip of ``[ha]``.
 
@@ -4557,8 +4587,10 @@ def object_phases(ns_args):
     # version on the inputs of its first launch.
     _s, seq_launches, seq_cap = _card_and_cpu("seq", CONF_SEQ,
                                               ("seq_solve",))
+    # The plain version takes ~30 s a call on the card: timed once.
     seq_row = replay_kernels(seq_cap, seq_launches, reps=1,
-                             names=["seq_solve"])[0]
+                             names=["seq_solve"],
+                             turns=(False, True, False))[0]
     _log(f"[kernels:seq] seq_solve: {seq_row['ms']:.4f} ms/launch, plain "
          f"{seq_row['plain_ms']:.4f} ms, bound {seq_row['bound_ms']:.6f} ms "
          f"({seq_row['bound_by']}), launches {seq_row['launches']}, "
@@ -6159,6 +6191,619 @@ def host_walk_phases(big=10000, workers=10000, serving=5000,
     return out
 
 
+# ------------------------------------------------ the solver service
+
+REMOTE_MARK = "[remote:child] result "
+# PERF.md section 6, rows 1-4 and 2a-2c: the wave solve's kernels, which
+# the solver child launches on its card.
+REMOTE_KERNELS = ("coarse_shortlist", "static_planes", "warm_shortlist",
+                  "rank_candidates", "walk_accept", "apply_commit")
+# A child: start (interpreter, torch, CUDA context, the built library)
+# and its stop (the replay of its captured first launches).
+CHILD_START_S = 180
+CHILD_STOP_S = 180
+# How long a held child keeps a reply back ([remote:heal]'s kill with a
+# reply unsent, [remote:pool]'s hedge).
+HOLD_S = 3.0
+
+
+def solver_child(argv) -> None:
+    """``python3 chip_smoke.py solver-child [--hold-file F]``: the port's
+    ``SolverServer`` on the card, on a port of its own, announced as
+    ``SOLVER <port>``.  With ``--hold-file``, while that file exists the
+    reply of every solve from the one numbered in it (empty: every solve)
+    waits ``HOLD_S`` seconds: a straggler the pool hedges, or a reply
+    still unsent when the child is killed.  Launch
+    counts start at 0 and the inputs of each kernel's first launch are
+    captured; on SIGTERM the child stops serving, replays the first
+    launches of ``REMOTE_KERNELS`` against their plain versions and prints
+    one ``REMOTE_MARK`` line: its launches, its build seconds (0: the
+    library the parent built was reused), its solves and the rows."""
+    import os
+    import signal
+
+    from volcano_tpu_torch.ops import kernels
+    from volcano_tpu_torch.solver_service import SolverServer
+
+    hold = argv[argv.index("--hold-file") + 1] \
+        if "--hold-file" in argv else None
+    kernels.reset_launches()
+    kernels.CAPTURE = {}
+    server = SolverServer(port=0)
+    if hold is not None:
+        def delay(i):
+            try:
+                with open(hold) as f:
+                    first = int(f.read().strip() or 0)
+            except OSError:
+                return 0.0
+            return HOLD_S if i >= first else 0.0
+
+        server.solve_delay_fn = delay
+    signal.signal(signal.SIGTERM, lambda *_: server._stop.set())
+    print(f"SOLVER {server.port}", flush=True)
+    server.serve_forever()
+    server.shutdown()
+    launches = launch_counts()
+    captured, kernels.CAPTURE = kernels.CAPTURE, None
+    names = [k for k in REMOTE_KERNELS if k in captured]
+    rows = replay_kernels(captured, launches, reps=10, names=names)
+    print(REMOTE_MARK + json.dumps({
+        "launches": {k: v for k, v in launches.items() if v},
+        "build_s": kernels.BUILD_SECONDS, "solves": server.solves,
+        "first_launch": [{k: r[k] for k in (
+            "name", "launches", "ms", "plain_ms", "bound_ms", "bound_by",
+            "max_abs_err", "library_ms")} for r in rows]}), flush=True)
+
+
+class _SolverChild:
+    """``python3 chip_smoke.py solver-child`` started with ``subprocess``
+    (never forked: this process holds a CUDA context); its output read on
+    a thread."""
+
+    def __init__(self, label, *args):
+        import os
+        import threading
+
+        here = os.path.dirname(os.path.abspath(__file__))
+        self.label = label
+        self.proc = subprocess.Popen(
+            [sys.executable, os.path.join(here, "chip_smoke.py"),
+             "solver-child", *args],
+            cwd=here, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+            text=True)
+        self.lines = []
+        self.port = None
+        self._ready = threading.Event()
+        self._reader = threading.Thread(target=self._read, daemon=True)
+        self._reader.start()
+
+    def _read(self):
+        for line in self.proc.stdout:
+            line = line.rstrip("\n")
+            self.lines.append(line)
+            if self.port is None and line.startswith("SOLVER "):
+                self.port = int(line.split()[1])
+                self._ready.set()
+        self._ready.set()
+
+    def address(self) -> str:
+        if not self._ready.wait(CHILD_START_S) or self.port is None:
+            self.kill()
+            raise AssertionError(f"[{self.label}] the solver child did not "
+                                 f"start: {self.lines[-5:]}")
+        return f"127.0.0.1:{self.port}"
+
+    def stop(self) -> dict:
+        """SIGTERM, wait, and the child's ``REMOTE_MARK`` result."""
+        import signal
+
+        self.proc.send_signal(signal.SIGTERM)
+        try:
+            rc = self.proc.wait(CHILD_STOP_S)
+        except subprocess.TimeoutExpired as e:
+            self.kill()
+            raise AssertionError(f"[{self.label}] the child did not stop") \
+                from e
+        self._reader.join(30)
+        hit = [x for x in self.lines if x.startswith(REMOTE_MARK)]
+        if rc != 0 or not hit:
+            raise AssertionError(f"[{self.label}] the child exited {rc}: "
+                                 f"{self.lines[-8:]}")
+        return json.loads(hit[-1][len(REMOTE_MARK):])
+
+    def kill(self) -> None:
+        if self.proc.poll() is None:
+            self.proc.kill()
+            self.proc.wait(30)
+        self._reader.join(30)
+
+
+def _remote_sched(store, conf=None):
+    from volcano_tpu_torch.framework import DEPLOYED_SCHEDULER_CONF
+    from volcano_tpu_torch.scheduler import Scheduler
+
+    return Scheduler(store, conf_str=conf or DEPLOYED_SCHEDULER_CONF)
+
+
+def remote_sequence(label, store, n_pods, cycles, pipelined=False,
+                    client=None, between=None, drain=0, log=True,
+                    lose_fetch=None):
+    """``cycles`` cycles of the deployed conf on ``store`` (a cold one, then
+    cycles re-pending the pods of nodes 0-63), through ``client`` when
+    given (the store's remote solver) and locally otherwise, then ``drain``
+    cycles with the feed off.  ``between(step)`` runs after cycle ``step``;
+    ``lose_fetch`` (local, pipelined) drops the reply of that fetch (1 =
+    the first) as a lost one, as a killed child loses it.  After every
+    cycle the invariants (``cycle_invariants``; pipelined
+    ``pipeline_invariants``, every pod bound after the drain).  Returns
+    per-cycle records: the binds' hash and, remote, the frame kind, its
+    bytes, the child's ``solve_ms``, the cycle's wait for the reply (a
+    synchronous solve's round trip, a pipelined fetch's wait) and the
+    wall."""
+    import torch
+
+    from volcano_tpu_torch import pipeline as pl
+
+    store.pipeline = pipelined
+    if client is not None:
+        store.remote_solver = client
+    sched = _remote_sched(store)
+    waits = []
+    if client is not None and not pipelined:
+        real_solve = client.solve
+
+        def timed_solve(*a, **kw):
+            t0 = time.perf_counter()
+            try:
+                return real_solve(*a, **kw)
+            finally:
+                waits.append((time.perf_counter() - t0) * 1e3)
+
+        client.solve = timed_solve
+    real_fetch = pl.InflightSolve.fetch
+    fetches = [0]
+    if lose_fetch is not None:
+        def fetch(inflight):
+            out = real_fetch(inflight)
+            fetches[0] += 1
+            if fetches[0] == lose_fetch:
+                inflight.kind = "remote"
+                raise ConnectionError("reply lost (injected)")
+            return out
+
+        pl.InflightSolve.fetch = fetch
+    out = []
+    try:
+        for step in range(cycles + drain):
+            if step == 1:
+                store.cycle_feed = repend_feed(list(range(64)))
+            if step == cycles:
+                store.cycle_feed = None
+            before = dict(client.frame_bytes) if client is not None else {}
+            waits.clear()
+            t0 = time.perf_counter()
+            sched.run_once()
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            store.flush_binds()
+            if pipelined:
+                inv = pipeline_invariants(store, n_pods,
+                                          final=step == cycles + drain - 1
+                                          and drain > 0)
+            else:
+                inv = cycle_invariants(store, n_pods)
+            rec = store.flight.last()
+            r = {"cycle": step, "wall_s": round(wall, 4),
+                 "binds": _binds_hash(store.binder.binds), **inv,
+                 "drops": dict(rec.drop_reasons)}
+            if client is not None:
+                r["frame"] = client.last_frame_kind
+                r["frame_bytes"] = sum(
+                    v - before.get(k, 0)
+                    for k, v in client.frame_bytes.items())
+                r["solve_ms"] = getattr(client, "last_solve_ms", None)
+                r["wait_ms"] = (round(sum(waits), 3) if not pipelined
+                                else rec.inflight_fetch_wait_ms)
+            out.append(r)
+            if log:
+                _log(f"[{label}] {json.dumps(r)}")
+            if between is not None:
+                between(step)
+    finally:
+        pl.InflightSolve.fetch = real_fetch
+        if client is not None and not pipelined:
+            client.solve = real_solve
+    return out
+
+
+def _same_hashes(label, a, b, what, start=0):
+    x = [r["binds"] for r in a][start:]
+    y = [r["binds"] for r in b][start:]
+    if x != y:
+        raise AssertionError(f"[{label}] binds differ from {what}: "
+                             f"{[i for i, (p, q) in enumerate(zip(x, y)) if p != q]}")
+
+
+def _mid_store(mid):
+    return _fresh_cluster(n_nodes=mid[0], n_pods=mid[1], gang_size=8,
+                          zones=16, seed=0)
+
+
+def remote_main(child, big, ns_hashes):
+    """[remote]: the north-star store, a cold and 5 steady cycles, through
+    a ``RemoteSolver`` to ``child`` on the card."""
+    from volcano_tpu_torch.solver_service import RemoteSolver
+
+    restore = _env("VOLCANO_TPU_AUDIT_SAMPLE", "1")
+    try:
+        t0 = time.perf_counter()
+        store = _fresh_cluster(n_nodes=big[0], n_pods=big[1], gang_size=8,
+                               zones=16, seed=0)
+        _log(f"[remote] north-star cluster {time.perf_counter() - t0:.3f} s")
+        client = RemoteSolver(child.address(), timeout=600)
+        pong = client.ping()
+        if pong.get("backend") != "cuda" or pong.get("wire") != 2:
+            raise AssertionError(f"[remote] the child's pong {pong}")
+        _log(f"[remote] child pong {json.dumps(pong)}")
+        from volcano_tpu_torch.ops import kernels
+
+        kernels.reset_launches()
+        recs = remote_sequence("remote", store, big[1], 6, client=client)
+        parent = {k: v for k, v in launch_counts().items() if v}
+        if parent:
+            raise AssertionError(f"[remote] the scheduler process launched "
+                                 f"{parent}")
+        kinds = [r["frame"] for r in recs]
+        if kinds[0] != "full" or any(k != "delta" for k in kinds[1:]):
+            raise AssertionError(f"[remote] frame kinds {kinds}")
+        if ns_hashes is not None:
+            _same_hashes("remote", recs,
+                         [{"binds": h} for h in ns_hashes],
+                         "the local card cycles")
+        stats = audit_checked("remote", store)
+        if stats["sampled_cycles"] < 6:
+            raise AssertionError(f"[remote] the wire audit ran "
+                                 f"{stats['sampled_cycles']} times")
+        out = {"frames": dict(client.frame_counts),
+               "frame_bytes": dict(client.frame_bytes),
+               "fallbacks": dict(client.wire_fallbacks),
+               "cycles": recs, "parent_launches": parent}
+        client.close()
+        store.close()
+        return out
+    finally:
+        restore()
+
+
+def remote_shm(child, mid):
+    """[remote:shm]: the sequence of [remote] at 1,000 x 10,000 over TCP,
+    then over the shared-memory lane, against one child."""
+    from volcano_tpu_torch.metrics import metrics
+    from volcano_tpu_torch.solver_service import RemoteSolver
+
+    local = remote_sequence("remote:shm:local", _mid_store(mid), mid[1], 6,
+                            log=False)
+    tcp_client = RemoteSolver(child.address(), timeout=600)
+    tcp = remote_sequence("remote:shm:tcp", _mid_store(mid), mid[1], 6,
+                          client=tcp_client)
+    restore = _env("VOLCANO_TPU_SHM", "1")
+    try:
+        before = sum(metrics.remote_frame_fallback.data.values())
+        shm_client = RemoteSolver(child.address(), timeout=600)
+        if shm_client._shm is None:
+            raise AssertionError("[remote:shm] the lane is off")
+        shm = remote_sequence("remote:shm", _mid_store(mid), mid[1], 6,
+                              client=shm_client)
+        fallbacks = sum(metrics.remote_frame_fallback.data.values()) - before
+        if fallbacks or shm_client._shm is None:
+            raise AssertionError(f"[remote:shm] {fallbacks} fallbacks, "
+                                 f"{shm_client.wire_fallbacks}")
+    finally:
+        restore()
+    _same_hashes("remote:shm", shm, tcp, "the TCP lane")
+    _same_hashes("remote:shm", tcp, local, "the local card cycles")
+    out = {"tcp_bytes": dict(tcp_client.frame_bytes),
+           "shm_bytes": dict(shm_client.frame_bytes),
+           "fallback_total": fallbacks}
+    if out["shm_bytes"]["full"] >= out["tcp_bytes"]["full"]:
+        raise AssertionError(f"[remote:shm] socket bytes {out}")
+    tcp_client.close()
+    shm_client.close()
+    return out
+
+
+def remote_heal(child, mid, start_children, local, hold):
+    """[remote:heal]: a pipelined store at 1,000 x 10,000 on ``child``;
+    after cycle 2 (a solve in flight) the child is killed and
+    ``start_children()`` starts the next ones; the client is pointed at
+    the first of them.  The lost reply re-places its rows, the restarted
+    child's first frame is full, deltas resume, every pod binds, and the
+    binds equal ``local``, a local pipelined run that loses the same
+    reply."""
+    import os
+
+    from volcano_tpu_torch.solver_service import RemoteSolver
+
+    client = RemoteSolver(child.address(), timeout=600)
+    # The child's solves so far: cycle 2's solve is the third after them;
+    # its reply is held, so the kill leaves it unsent.
+    base = client.ping()["solves"]
+    with open(hold, "w") as f:
+        f.write(str(base + 3))
+    fresh = []
+
+    def between(step):
+        if step == 2:
+            child.kill()
+            os.unlink(hold)
+            fresh.extend(start_children())
+            host, _, port = fresh[0].address().rpartition(":")
+            client.host, client.port = host, int(port)
+
+    recs = remote_sequence("remote:heal", _mid_store(mid), mid[1], 6,
+                           pipelined=True, client=client, between=between,
+                           drain=2)
+    kinds = [r["frame"] for r in recs]
+    lost = [r["drops"].get("lost-reply", 0) for r in recs]
+    if lost[3] < 1 or kinds[3] != "full" or "delta" not in kinds[4:]:
+        raise AssertionError(f"[remote:heal] lost {lost}, kinds {kinds}")
+    if client.wire_fallbacks.get("reconnect", 0) < 1:
+        raise AssertionError(f"[remote:heal] {client.wire_fallbacks}")
+    _same_hashes("remote:heal", recs, local,
+                 "the local run losing the same reply")
+    client.close()
+    return {"kinds": kinds, "lost_reply": lost,
+            "fallbacks": dict(client.wire_fallbacks)}, fresh
+
+
+def remote_pool(children, mid, hold, lost_local):
+    """[remote:pool]: two children on the one card (the mechanism, not
+    multi-card scale): a pool of one against a single client; a hedge
+    forced by a held primary; the what-if offload on BASELINE config 4 at
+    1,000 nodes against the local what-if; failover after the primary is
+    killed."""
+    import os
+
+    from volcano_tpu_torch.cache import FakeBinder, FakeEvictor
+    from volcano_tpu_torch.metrics import metrics
+    from volcano_tpu_torch.sim import ClusterSimulator
+    from volcano_tpu_torch.solver_pool import SolverPool
+    from volcano_tpu_torch.solver_service import RemoteSolver
+    from volcano_tpu_torch.synth import preempt_cluster
+
+    addrs = [c.address() for c in children]
+    out = {}
+    local = remote_sequence("remote:pool:local", _mid_store(mid), mid[1],
+                            10, pipelined=True, drain=2, log=False)
+    # A pool of one against the single client: binds, frames, bytes.
+    pool = SolverPool(addrs[:1], size=1, timeout=600)
+    one = remote_sequence("remote:pool:one", _mid_store(mid), mid[1], 5,
+                          pipelined=True, client=pool, log=False)
+    single = RemoteSolver(addrs[0], timeout=600)
+    ref = remote_sequence("remote:pool:single", _mid_store(mid), mid[1], 5,
+                          pipelined=True, client=single, log=False)
+    if [(r["binds"], r["frame"], r["frame_bytes"]) for r in one] != \
+            [(r["binds"], r["frame"], r["frame_bytes"]) for r in ref] or \
+            dict(pool.frame_counts) != dict(single.frame_counts) or \
+            dict(pool.frame_bytes) != dict(single.frame_bytes):
+        raise AssertionError("[remote:pool] a pool of one differs from the "
+                             "single client")
+    out["one"] = {"frames": dict(pool.frame_counts),
+                  "frame_bytes": dict(pool.frame_bytes)}
+    pool.close()
+    single.close()
+    # Hedging: child 1 holds its replies while the hold file exists; after
+    # 6 cycles (samples for the rolling p99) the routing is steered to it
+    # (the other replica's latency score raised), so the next dispatch is
+    # held and the fetch hedges to child 0.
+    restores = [_env("VOLCANO_TPU_POOL_HEDGE_MIN_MS", "200"),
+                _env("VOLCANO_TPU_POOL_HEDGE_P99_MULT", "3")]
+    try:
+        pool = SolverPool(addrs, timeout=600)
+
+        def steer(step):
+            if step == 5:
+                open(hold, "w").close()  # every solve of child 1 held
+                with pool._lock:
+                    pool.replicas[0].ewma_ms = 1.0e9
+            if step == 7:
+                # Past the hedged fetch of cycle 7; the held reply drains.
+                os.unlink(hold)
+
+        hedged = remote_sequence("remote:pool:hedge", _mid_store(mid),
+                                 mid[1], 10, pipelined=True, client=pool,
+                                 between=steer, drain=2)
+        snap = pool.health_snapshot()
+        for r in pool.replicas:
+            pool._drain(r, block=True)
+        if snap["hedge_dispatches"] < 1 or snap["hedge_wins"] < 1:
+            raise AssertionError(f"[remote:pool] no hedge won: {snap}")
+        if pool.wire_fallbacks.get("abandon", 0):
+            raise AssertionError(f"[remote:pool] {pool.wire_fallbacks}")
+        _same_hashes("remote:pool", hedged, local,
+                     "the local pipelined run")
+        out["hedge"] = {k: snap[k] for k in (
+            "hedge_dispatches", "hedge_wins", "failovers")}
+        out["hedge"]["frames"] = pool.per_replica_frames()
+        out["hedge"]["wait_ms"] = [r["wait_ms"] for r in hedged]
+        pool.close()
+    finally:
+        for restore in restores:
+            restore()
+        if os.path.exists(hold):
+            os.unlink(hold)
+    # The what-if offload: BASELINE config 4 at 1,000 nodes, pipelined.
+    restore = _env("VOLCANO_TPU_EVICT_DEVICE", "1")
+    try:
+        def config4(pool_):
+            _reset_uids()
+            store = preempt_cluster(n_nodes=1000, fill_per_node=4,
+                                    n_pending=2000, gang_size=4, seed=0)
+            store.pipeline = True
+            if pool_ is not None:
+                store.remote_solver = pool_
+            sched = _remote_sched(store, CONF_PREEMPT)
+            sim = ClusterSimulator(store, grace_steps=2)
+            recs = []
+            for _ in range(6):
+                sched.run_once()
+                store.flush_binds()
+                recs.append((_binds_hash(store.binder.binds),
+                             sorted(store.evictor.evicts)))
+                sim.step()
+            plans = store.migrations.committed_plans \
+                if store.migrations is not None else 0
+            store.close()
+            return recs, plans
+
+        def whatifs():
+            return sum(v for k, v in metrics.solver_pool_dispatch.data.items()
+                       if dict(k).get("kind") == "whatif")
+
+        want, want_plans = config4(None)
+        pool = SolverPool(addrs, timeout=600)
+        w0 = whatifs()
+        got, got_plans = config4(pool)
+        offloaded = whatifs() - w0
+        pool.close()
+    finally:
+        restore()
+    if got != want or got_plans != want_plans or got_plans < 1 \
+            or offloaded < 1:
+        raise AssertionError(
+            f"[remote:pool] what-if offload: plans {got_plans} against "
+            f"{want_plans}, {offloaded} offloaded, evictions equal "
+            f"{[a[1] == b[1] for a, b in zip(got, want)]}")
+    out["whatif"] = {"offloaded": offloaded, "plans": got_plans,
+                     "evictions": [len(r[1]) for r in got]}
+    # Failover: the primary killed with a solve in flight.
+    pool = SolverPool(addrs, timeout=600)
+    killed = []
+
+    def kill(step):
+        if step == 2:
+            prim = pool.health_snapshot()["primary"]
+            killed.append(prim)
+            children[prim].kill()
+
+    fail = remote_sequence("remote:pool:failover", _mid_store(mid), mid[1],
+                           6, pipelined=True, client=pool, between=kill,
+                           drain=2)
+    snap = pool.health_snapshot()
+    lost = [r["drops"].get("lost-reply", 0) for r in fail]
+    # The reply in flight at the kill is lost (its fetch fails) unless the
+    # child had sent it; then the next send fails over without a loss, or
+    # the one after is lost.  The binds must equal a local run losing the
+    # same reply, or none.
+    at = [i for i, n in enumerate(lost) if n]
+    if len(at) > 1 or snap["failovers"] < 1 \
+            or snap["primary"] == killed[0]:
+        raise AssertionError(f"[remote:pool] failover {snap}, lost {lost}")
+    if at != [3]:
+        lost_local = remote_sequence(
+            "remote:pool:local-lost", _mid_store(mid), mid[1], 6,
+            pipelined=True, drain=2, lose_fetch=at[0] if at else None,
+            log=False)
+    _same_hashes("remote:pool", fail, lost_local,
+                 "a local run losing the same reply")
+    out["failover"] = {"failovers": snap["failovers"], "lost_reply": lost,
+                       "killed": killed[0]}
+    pool.close()
+    return out, killed[0]
+
+
+def remote_phases(ns_hashes=None, big=(10000, 100000), mid=(1000, 10000)):
+    """Phases 38-41, the solver service on the card.  ``ns_hashes``: the
+    binds' hashes of phase 6's cold and first 5 steady cycles (None: a
+    local run here gives them).  Returns the [remote] child's first-launch
+    rows (``REMOTE_KERNELS`` against their plain versions) and its
+    launches."""
+    import os
+    import tempfile
+
+    seconds = {}
+    t_all = time.perf_counter()
+    kids = []
+
+    def start(*labels_args):
+        new = [_SolverChild(label, *args) for label, args in labels_args]
+        kids.extend(new)
+        return new
+
+    tmp = tempfile.mkdtemp(prefix="remote-hold-")
+    hold = os.path.join(tmp, "hold")
+    try:
+        c1, c2 = start(("remote:child1", ()),
+                       ("remote:child2", ("--hold-file", hold)))
+        if ns_hashes is None:
+            _log("[remote] the local reference: phase 6's cold and steady "
+                 "cycles")
+            store = _fresh_cluster(n_nodes=big[0], n_pods=big[1],
+                                   gang_size=8, zones=16, seed=0)
+            ns_hashes = [r["binds"] for r in remote_sequence(
+                "remote:local", store, big[1], 6, log=False)]
+            store.close()
+        t0 = time.perf_counter()
+        main_out = remote_main(c1, big, ns_hashes)
+        res1 = c1.stop()
+        seconds["remote"] = time.perf_counter() - t0
+        missing = [k for k in REMOTE_KERNELS
+                   if not res1["launches"].get(k)
+                   and not (k == "static_planes"
+                            and res1["launches"].get(FUSED_STATIC))]
+        if missing or res1["build_s"] != 0.0:
+            raise AssertionError(f"[remote] the child's launches "
+                                 f"{res1['launches']} (never: {missing}), "
+                                 f"build {res1['build_s']} s")
+        _log(f"[remote] child launches {json.dumps(res1['launches'])}, "
+             f"solves {res1['solves']}, build {res1['build_s']} s (the "
+             f"parent's library); the scheduler process launched nothing")
+        for r in res1["first_launch"]:
+            _log(f"[kernels:remote] {r['name']}: {r['ms']:.4f} ms/launch "
+                 f"on the child's first-launch inputs, plain "
+                 f"{r['plain_ms']:.4f} ms, bound {r['bound_ms']:.6f} ms, "
+                 f"launches {r['launches']}, max_abs_err "
+                 f"{r['max_abs_err']}")
+        _log(f"[remote] {json.dumps({k: main_out[k] for k in ('frames', 'frame_bytes', 'fallbacks')})}")
+
+        t0 = time.perf_counter()
+        shm_out = remote_shm(c2, mid)
+        seconds["remote:shm"] = time.perf_counter() - t0
+        _log(f"[remote:shm] binds equal the TCP lane's and the local "
+             f"cycles'; {json.dumps(shm_out)}")
+
+        t0 = time.perf_counter()
+        lost_local = remote_sequence("remote:local-lost", _mid_store(mid),
+                                     mid[1], 6, pipelined=True, drain=2,
+                                     lose_fetch=3, log=False)
+        heal_out, fresh = remote_heal(c2, mid, lambda: start(
+            ("remote:child3", ()),
+            ("remote:child4", ("--hold-file", hold))), lost_local, hold)
+        seconds["remote:heal"] = time.perf_counter() - t0
+        _log(f"[remote:heal] the lost reply re-placed, the restarted "
+             f"child's first frame full, binds equal the local run losing "
+             f"the same reply; {json.dumps(heal_out)}")
+
+        t0 = time.perf_counter()
+        pool_out, killed = remote_pool(fresh, mid, hold, lost_local)
+        seconds["remote:pool"] = time.perf_counter() - t0
+        _log(f"[remote:pool] two children on one card (the mechanism, not "
+             f"multi-card scale): {json.dumps(pool_out)}")
+        survivor = fresh[1 - killed].stop()
+        _log(f"[remote:pool] the surviving child's launches "
+             f"{json.dumps(survivor['launches'])}")
+    finally:
+        for k in kids:
+            k.kill()
+        if os.path.exists(hold):
+            os.unlink(hold)
+        os.rmdir(tmp)
+    seconds["all"] = time.perf_counter() - t_all
+    _log(f"[remote] seconds {json.dumps(seconds)}")
+    return res1, main_out
+
+
 def _same_records(label, a, b, what, fields=4):
     """Per-cycle records equal field by field: tuples of (binds, phases,
     mirror, fallback), their first ``fields``, or dicts (``walk_run``'s)."""
@@ -6183,6 +6828,7 @@ def main(argv=()) -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
         return 2
+    t_script = time.perf_counter()
     # No phase may turn a failing kernel into a passing cycle.
     os.environ["VOLCANO_TPU_FALLBACK"] = "never"
     import numpy as np
@@ -6213,6 +6859,10 @@ def main(argv=()) -> int:
         return 0
     if list(argv) == ["trace-dir"]:
         print(TRACE_MARK + json.dumps(trace_dir_child()), flush=True)
+        return 0
+    # The solver child of phases 38-41.
+    if argv[:1] == ["solver-child"]:
+        solver_child(list(argv[1:]))
         return 0
     _log(f"ptxas {json.dumps(ptxas_report())}")
     _log(f"[kernels:floor] empty kernel, device ms a launch "
@@ -6256,6 +6906,11 @@ def main(argv=()) -> int:
         host_walk_phases()
         print(card, flush=True)
         return 0
+    if list(argv) == ["remote"]:
+        # Phases 38-41 alone, against a local north-star run of their own.
+        remote_phases()
+        print(card, flush=True)
+        return 0
     if list(argv) == ["recovery"]:
         # Phases 24-31 alone, [lockdep] against a synchronous cold cycle
         # of its own.
@@ -6272,6 +6927,9 @@ def main(argv=()) -> int:
         print(card, flush=True)
         return 0
 
+    # Seconds of each phase group (the [phases] line).
+    phase_s = {}
+    t_phase = time.perf_counter()
     # 1. small reference: the card against the CPU plain versions.
     store = synthetic_cluster(n_nodes=64, n_pods=512, gang_size=4,
                               n_queues=2, zones=4, seed=3)
@@ -6285,6 +6943,9 @@ def main(argv=()) -> int:
     if int((r_gpu.assigned >= 0).sum()) != 512:
         raise AssertionError("[reference] not every pod placed")
     _log("[reference] 64x512 solve on the card equals the CPU solve")
+
+    phase_s["1 reference"] = time.perf_counter() - t_phase
+    t_phase = time.perf_counter()
 
     # 2-4. the solve path at the north-star shape.
     t0 = time.perf_counter()
@@ -6329,6 +6990,9 @@ def main(argv=()) -> int:
     ns_args, _ = solve_args_from_store(ns_store, binpack=True,
                                        nodeorder=True)
 
+    phase_s["2-4 solve"] = time.perf_counter() - t_phase
+    t_phase = time.perf_counter()
+
     # 5. features: taints, selectors, node affinity, finite deserved.
     gib = float(2 ** 30)
     feat_stats, feat_launches, feat_cap = run_phase(
@@ -6339,6 +7003,9 @@ def main(argv=()) -> int:
     if feat_stats["pods_bound"] >= 10000 or feat_stats["pods_bound"] == 0:
         raise AssertionError("[features] overuse gating did not bind")
     _log("[features] kernels match their plain versions")
+
+    phase_s["5 features"] = time.perf_counter() - t_phase
+    t_phase = time.perf_counter()
 
     # 6. the cycle: Scheduler(store).run_once() on the north-star store,
     # checkpointed first (the [ha] round trip of 8c-8d loads it).
@@ -6352,6 +7019,8 @@ def main(argv=()) -> int:
                                         trace=True)
     cyc_launches = launch_counts()
     cyc_captured, kernels.CAPTURE = kernels.CAPTURE, None
+    # The cold and first 5 steady cycles' binds: [remote]'s reference.
+    ns_hashes = [_binds_hash(r[0]) for r in _rec[:6]]
     _log(f"[cycle] launches {json.dumps(cyc_launches)}")
     missing = never_launched(cyc_launches, CYCLE_KERNELS)
     if missing:
@@ -6381,8 +7050,14 @@ def main(argv=()) -> int:
         _log("[cycle] traced steady cycle: no device events in the trace "
              "(idle share not measured)")
 
+    phase_s["6 cycle"] = time.perf_counter() - t_phase
+    t_phase = time.perf_counter()
+
     # 7. lanes on against lanes off, at 1,000 x 10,000.
     lanes_on_off(1000, 10000)
+
+    phase_s["7 lanes"] = time.perf_counter() - t_phase
+    t_phase = time.perf_counter()
 
     # 8. every kernel of the cycle against its plain version, timed; the
     # static planes as their share of the shortlist launch that built them.
@@ -6425,6 +7100,9 @@ def main(argv=()) -> int:
              f"library {r['library_ms']}, bound {r['bound_ms']:.6f} ms "
              f"({r['bound_by']}), launches {r['launches']}")
 
+    phase_s["8 kernels"] = time.perf_counter() - t_phase
+    t_phase = time.perf_counter()
+
     # 8b. the pipelined session: the cycle's kernels launched from the
     # solve worker's stream, held against the [cycle] cold cycle.
     cold_binds = _rec[0][0]
@@ -6444,12 +7122,18 @@ def main(argv=()) -> int:
              f"max_abs_err {r['max_abs_err']}, launches {r['launches']}")
     _log(f"[pipeline] {json.dumps(pstats)}")
 
+    phase_s["8b pipeline"] = time.perf_counter() - t_phase
+    t_phase = time.perf_counter()
+
     # 8c-8d. the default observability at full width (on against off) and
     # HA: the checkpoint round trip, the gated standby.
     _log(f"[obs] {json.dumps(obs_phase(ckpt, cold_binds))}")
     del cold_binds
     ckpt_dir.cleanup()
     ha_gate_phase()
+
+    phase_s["8c-8d obs, ha"] = time.perf_counter() - t_phase
+    t_phase = time.perf_counter()
 
     # 9-11. the reclaim and preempt paths; victim_scores and the solve
     # kernels on their inputs.
@@ -6466,6 +7150,9 @@ def main(argv=()) -> int:
     vs["max_abs_err"] = max(r["max_abs_err"] for r in vs_rows)
     rows.append(vs)
 
+    phase_s["9-11 evict"] = time.perf_counter() - t_phase
+    t_phase = time.perf_counter()
+
     # 12-15. the rebalance lane and the fabric topology path; the three
     # new kernels and the biased ranking on their inputs.
     reb_rows, bias_row = rebalance_phases()
@@ -6477,6 +7164,9 @@ def main(argv=()) -> int:
         "wrapper_ms", "queued", "bytes", "ops")}
     rows.extend(reb_rows)
 
+    phase_s["12-15 rebalance"] = time.perf_counter() - t_phase
+    t_phase = time.perf_counter()
+
     # 16-19. BASELINE config 5 through run_once(); the affinity kernels.
     aff_rows, ext_rows, _astats = affinity_phases()
     for cap, r in ext_rows:
@@ -6485,6 +7175,9 @@ def main(argv=()) -> int:
             "launches", "ms", "plain_ms", "bound_ms", "bound_by",
             "max_abs_err", "wrapper_ms", "queued", "bytes", "ops")}
     rows.extend(aff_rows)
+
+    phase_s["16-19 affinity"] = time.perf_counter() - t_phase
+    t_phase = time.perf_counter()
 
     # 20-23. the object session: config 2 with the fast path off, the
     # sequential solver (seq_solve), its north-star solve, custom plugins.
@@ -6495,9 +7188,15 @@ def main(argv=()) -> int:
             "max_abs_err", "wrapper_ms", "queued", "bytes", "ops")}
     rows.append(seq_row)
 
+    phase_s["20-23 object"] = time.perf_counter() - t_phase
+    t_phase = time.perf_counter()
+
     # 24-31. the warm-block knobs, crash recovery, the fallback, lockdep
     # and the per-cycle trace.
     recovery_phases(cold_hash)
+
+    phase_s["24-31 recovery"] = time.perf_counter() - t_phase
+    t_phase = time.perf_counter()
 
     # 32-34. the single-phase solve and live steering.
     steer_row, single_rows = single_phase_phases(ns_args)
@@ -6505,8 +7204,24 @@ def main(argv=()) -> int:
     fold_single_rows(rows, single_rows)
     rows.append(steer_row)
 
+    phase_s["32-34 single-phase"] = time.perf_counter() - t_phase
+    t_phase = time.perf_counter()
+
     # 35-37. the host victim walk (VOLCANO_TPU_EVICT_DEVICE=0).
     host_walk_phases()
+    phase_s["35-37 host-walk"] = time.perf_counter() - t_phase
+    t_phase = time.perf_counter()
+
+    # 38-41. the solver service: the wave solve in solver children.
+    child, _remote = remote_phases(ns_hashes)
+    for r in child["first_launch"]:
+        by_name[r["name"]]["remote"] = {
+            "launches": child["launches"].get(r["name"], 0),
+            **{k: r[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
+                                 "max_abs_err")}}
+    phase_s["38-41 remote"] = time.perf_counter() - t_phase
+    _log(f"[phases] seconds {json.dumps(phase_s)}, script "
+         f"{time.perf_counter() - t_script:.1f} s")
 
     print(json.dumps({"kernels": rows}), flush=True)
     print(card, flush=True)

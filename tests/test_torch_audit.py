@@ -6,9 +6,12 @@ feed, made from one seed, go through the JAX ``Scheduler`` and the port's
 counts must be equal -- the ledger's per-reason flow totals, the
 ``audit_cycles`` modes, the reconciles, census skips and sampled cycles,
 the anomaly reasons of each seeded fault.  Wall-clock latencies are never
-compared.  The wire-mirror cases of ``tests/test_audit.py`` belong to the
-solver service and the ``/debug`` endpoint case to the service
-(ROADMAP.md, queue 1, items 5 and 6): not twinned here.
+compared.  The three wire-mirror cases run each package's store against
+its own solver child on loopback TCP (the port's child on the CPU): a
+generation that went backward, mirror bytes changed under a held
+generation, and a replaced client that re-anchors.  The ``/debug``
+endpoint case belongs to the service (ROADMAP.md, queue 1, item 6): not
+twinned here.
 
 Also here: every one of the port's six status writers of the fast cycle
 (commit-bind, unbind, backfill-bind, backfill-revert, evict,
@@ -379,6 +382,110 @@ def test_audit_disable_and_reenable_reanchors():
     assert got == want
     assert got["anomalies"] == {}
     assert got["stats"]["cycles"] == 3
+
+
+class _CycStub:
+    """The end_cycle surface of a FastCycle, for audit passes driven
+    between real cycles (a real cycle would re-dispatch and move the wire
+    generation the seed corrupts)."""
+
+    def __init__(self, store):
+        self.store = store
+        self.m = store.mirror
+        self.stats = {"dispatched_solve_id": None}
+        self.lanes = {}
+
+
+def _wire_store(pkg):
+    """A store whose solves ship over loopback TCP to its own package's
+    solver child, so the wire mirror the audit guards is the production
+    one."""
+    import threading
+
+    if pkg is volcano_tpu:
+        from volcano_tpu.solver_service import RemoteSolver, SolverServer
+
+        server = SolverServer(port=0)
+    else:
+        from volcano_tpu_torch.solver_service import (RemoteSolver,
+                                                      SolverServer)
+
+        server = SolverServer(port=0, device="cpu")
+    threading.Thread(target=server.serve_forever, daemon=True).start()
+    store = _churn_store(pkg, n_nodes=8, n_pods=16)
+    client = RemoteSolver(f"127.0.0.1:{server.port}", timeout=60.0)
+    store.remote_solver = client
+    sched = _sched(pkg, store)
+    for _ in range(3):
+        sched.run_once()  # real frames ship; the sentinel anchors
+    store.flush_binds()
+    assert client._wire.arrays is not None, "no wire mirror to audit"
+    assert store.auditor.total_anomalies() == 0
+    return store, server, client, RemoteSolver
+
+
+def _wire_close(store, server, *clients):
+    for c in clients:
+        c.close()
+    server.shutdown()
+    store.close()
+
+
+def _wire_skew_run(pkg):
+    store, server, client, _cls = _wire_store(pkg)
+    before = _metrics(pkg).audit_anomalies.data.get(
+        (("reason", "wire-mirror-divergence"),), 0)
+    client._gen -= 1  # the corruption: the generation went backward
+    anoms = store.auditor.end_cycle(_CycStub(store), 0.01)
+    after = _metrics(pkg).audit_anomalies.data.get(
+        (("reason", "wire-mirror-divergence"),), 0)
+    out = ([a.reason for a in anoms], anoms[0].detail["kind"],
+           after - before,
+           [a.reason for a in store.auditor.anomalies()])
+    _wire_close(store, server, client)
+    return out
+
+
+def test_seeded_wire_generation_skew():
+    want, got = _both(_wire_skew_run)
+    assert got == want
+    assert got[0] == ["wire-mirror-divergence"]
+    assert got[1] == "key-regressed" and got[2] == 1
+
+
+def _wire_mutation_run(pkg):
+    store, server, client, _cls = _wire_store(pkg)
+    first = store.auditor.end_cycle(_CycStub(store), 0.01)
+    arr = client._wire.arrays[0]
+    arr.reshape(-1)[0] += 1  # in-place mutation under the same gen
+    anoms = store.auditor.end_cycle(_CycStub(store), 0.01)
+    out = (first, [a.reason for a in anoms], anoms[0].detail["kind"])
+    _wire_close(store, server, client)
+    return out
+
+
+def test_seeded_wire_mirror_mutation():
+    want, got = _both(_wire_mutation_run)
+    assert got == want
+    assert got[0] == [] and got[1] == ["wire-mirror-divergence"]
+    assert got[2] == "content-changed-under-key"
+
+
+def _wire_replace_run(pkg):
+    store, server, client, cls = _wire_store(pkg)
+    assert client._gen > 0
+    fresh = cls(f"127.0.0.1:{server.port}", timeout=60.0)
+    store.remote_solver = fresh  # failover: a brand-new client, gen 0
+    out = (store.auditor.end_cycle(_CycStub(store), 0.01),
+           store.auditor.end_cycle(_CycStub(store), 0.01),
+           store.auditor.total_anomalies())
+    _wire_close(store, server, fresh, client)
+    return out
+
+
+def test_replaced_wire_client_reanchors_not_regresses():
+    want, got = _both(_wire_replace_run)
+    assert got == want == ([], [], 0)
 
 
 def test_kill_switch_leaves_the_auditor_off(monkeypatch):

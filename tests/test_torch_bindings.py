@@ -10,7 +10,10 @@ call only against the argument types the loader declares.  So:
 2. each wrapper, forced down its card path with a stand-in library that
    checks every call against those declarations, passes one argument of
    the declared kind per parameter -- for the affinity kernels and for
-   the solve kernels with their port and count arguments.
+   the solve kernels with their port and count arguments;
+3. the solver service's host frame codec (``csrc/host/vcsnap.cc``): its
+   six entry points are declared in ``native.CODEC_SIGS`` with the C
+   return and parameter types.
 """
 
 import ctypes
@@ -502,3 +505,53 @@ def test_in_launch_static_planes_and_scatter_planes_match(fake_card,
         kernels.scatter_planes(bufs * 3, staged, 3)
     assert fake_card.calls == ["vtt_coarse_shortlist"] * 2 + [
         "vtt_scatter_planes"]
+
+
+# ------------------------------------------------ the host frame codec
+
+
+def _codec_prototypes():
+    """C name -> (return type, [parameter types]) of every entry point
+    defined in the frame codec's ``extern "C"`` block."""
+    from volcano_tpu_torch import native
+
+    text = native.CODEC_SOURCE.read_text()
+    block = text[text.index('extern "C" {'):]
+    out = {}
+    for m in re.finditer(r"^(\w+)\s+(vcsnap_\w+)\((.*?)\)\s*\{", block,
+                         re.S | re.M):
+        params = [" ".join(p.split()) for p in m.group(3).split(",")
+                  if p.strip()]
+        out[m.group(2)] = (m.group(1), params)
+    return out
+
+
+def _codec_ctype(decl):
+    decl = decl.replace("const ", "").strip()
+    if "*" in decl:
+        return ctypes.c_void_p
+    base = decl.split()[0]
+    return {"int64_t": ctypes.c_int64, "int32_t": ctypes.c_int32,
+            "void": None}[base]
+
+
+def test_codec_declarations_match_the_c_prototypes():
+    """The six entry points of ``csrc/host/vcsnap.cc`` -- the frame size,
+    pack, info and unpack, the delta check and apply -- are declared in
+    ``native.CODEC_SIGS`` with the C return and parameter types, in order,
+    and nothing else is declared; the library built here exports them."""
+    from volcano_tpu_torch import native
+
+    protos = _codec_prototypes()
+    assert set(protos) == {
+        "vcsnap_frame_bytes", "vcsnap_frame_pack", "vcsnap_frame_info",
+        "vcsnap_frame_unpack", "vcsnap_delta_check", "vcsnap_delta_apply"}
+    assert set(protos) == set(native.CODEC_SIGS)
+    for name, (restype, argtypes) in native.CODEC_SIGS.items():
+        ret, params = protos[name]
+        assert _codec_ctype(ret) is restype, name
+        assert [_codec_ctype(p) for p in params] == list(argtypes), name
+    lib = native.load_codec()
+    for name in protos:
+        fn = getattr(lib, name)
+        assert fn.restype is native.CODEC_SIGS[name][0]

@@ -2114,3 +2114,75 @@ def test_host_walk_cycles_on_card_equal_cpu(cuda, monkeypatch, case):
                    grace=1, device="cpu")
     assert card == cpu
     assert any(r["evicted"] for r in card)
+
+
+def _spawn_port_child(*extra):
+    import os
+    import subprocess
+    import sys
+    from pathlib import Path
+
+    root = Path(__file__).resolve().parent.parent
+    env = dict(os.environ, PYTHONPATH=str(root))
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "volcano_tpu_torch.solver_service",
+         "--port", "0", "--announce", *extra],
+        stdout=subprocess.PIPE, stderr=subprocess.DEVNULL, env=env,
+        cwd=str(root), text=True)
+    line = proc.stdout.readline().strip()
+    if not line.startswith("SOLVER "):
+        proc.kill()
+        raise RuntimeError(f"solver child did not announce: {line!r}")
+    return proc, int(line.split()[1])
+
+
+def test_solver_child_on_card_answers_like_the_cpu_child(cuda):
+    """A port solver child on the card (the default device) answers
+    ``ping`` with the card's name, and a 64-node solve frame gets the
+    reply the CPU child gives, array for array."""
+    from volcano_tpu_torch.scheduler import Scheduler
+    from volcano_tpu_torch.solver_service import RemoteSolver
+
+    card, card_port = _spawn_port_child()
+    cpu, cpu_port = _spawn_port_child("--device", "cpu")
+    try:
+        on_card = RemoteSolver(f"127.0.0.1:{card_port}", timeout=300)
+        on_cpu = RemoteSolver(f"127.0.0.1:{cpu_port}", timeout=300)
+        pong = on_card.ping()
+        assert pong["backend"] == "cuda" and pong["wire"] == 2
+        assert pong["device"] == torch.cuda.get_device_name(0)
+        assert on_cpu.ping()["backend"] == "cpu"
+
+        calls = []
+
+        class Capture:
+            def __getattr__(self, name):
+                return getattr(on_cpu, name)
+
+            def solve(self, inputs, pid, profiles, wave=None, devincr=None):
+                calls.append((inputs, pid, profiles))
+                return on_cpu.solve(inputs, pid, profiles, wave=wave,
+                                    devincr=devincr)
+
+        store = synthetic_cluster(n_nodes=64, n_pods=512, gang_size=4,
+                                  n_queues=2, zones=4, seed=3)
+        store.remote_solver = Capture()
+        Scheduler(store, device="cpu").run_once()
+        assert calls
+        fields = ("assigned", "pipelined", "never_ready", "fit_failed",
+                  "iters", "fb_exhausted", "fb_affinity")
+        a = on_card.solve(*calls[0])
+        b = on_cpu.solve(*calls[0])
+        for f in fields:
+            x, y = np.asarray(getattr(a, f)), np.asarray(getattr(b, f))
+            assert x.dtype == y.dtype and x.shape == y.shape, f
+            assert np.array_equal(x, y), f
+        assert int((np.asarray(a.assigned) >= 0).sum()) > 0
+        assert on_card.ping()["solves"] == 1
+        store.close()
+        on_card.close()
+        on_cpu.close()
+    finally:
+        for proc in (card, cpu):
+            proc.terminate()
+            proc.wait(timeout=30)

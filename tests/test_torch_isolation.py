@@ -507,12 +507,88 @@ def test_rebalance_runs_with_host_victim_walk_selected(monkeypatch):
 
 
 @pytest.mark.parametrize("attr,value", [
-    ("remote_solver", object()), ("solve_mesh", object()),
+    pytest.param("solve_mesh", object(), id="solve_mesh-value1"),
 ])
 def test_store_slots_not_ported_raise(attr, value):
     store = _cycle_store()
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         setattr(store, attr, value)
+
+
+def test_store_takes_a_port_remote_solver_and_mesh_still_raises(
+        monkeypatch):
+    """``remote_solver`` is a plain slot that takes the port's
+    ``RemoteSolver`` (or ``SolverPool``), and a cycle on such a store
+    runs without raising; ``check_ported`` still raises for a mesh."""
+    import threading
+
+    from volcano_tpu_torch.fastpath import FastCycle
+    from volcano_tpu_torch.solver_pool import SolverPool
+    from volcano_tpu_torch.solver_service import RemoteSolver, SolverServer
+
+    server = SolverServer(port=0, device="cpu")
+    threading.Thread(target=server.serve_forever, daemon=True).start()
+    try:
+        store = _cycle_store()
+        client = RemoteSolver(f"127.0.0.1:{server.port}", timeout=60.0)
+        store.remote_solver = client
+        assert store.remote_solver is client
+        from volcano_tpu_torch.scheduler import Scheduler
+
+        sched = Scheduler(store, conf_str=_conf(), device="cpu")
+        sched.run_once()
+        store.flush_binds()
+        assert store.binder.binds and client.frame_counts["full"] == 1
+        FastCycle(store, sched._load_conf(), device="cpu").check_ported()
+        pool = SolverPool([f"127.0.0.1:{server.port}"] * 2)
+        store.remote_solver = pool
+        assert store.remote_solver is pool
+        monkeypatch.setenv("VOLCANO_TPU_MESH", "2")
+        with pytest.raises(NotImplementedError, match="multi-GPU"):
+            FastCycle(store, sched._load_conf(),
+                      device="cpu").check_ported()
+        pool.close()
+        client.close()
+        store.close()
+    finally:
+        server.shutdown()
+
+
+_SOLVER_CHILD = r'''
+import threading
+from volcano_tpu_torch.solver_service import SolverServer, RemoteSolver
+from volcano_tpu_torch.synth import synthetic_cluster
+from volcano_tpu_torch.scheduler import Scheduler
+server = SolverServer(port=0, device="cpu")
+threading.Thread(target=server.serve_forever, daemon=True).start()
+store = synthetic_cluster(n_nodes=8, n_pods=32, gang_size=4, seed=5)
+store.pipeline = True
+store.remote_solver = RemoteSolver(f"127.0.0.1:{server.port}", timeout=60)
+sched = Scheduler(store, device="cpu")
+for _ in range(3):
+    sched.run_once()
+store.flush_binds()
+assert len(store.binder.binds) == 32
+assert store.remote_solver.frame_counts["full"] >= 1
+store.close()
+store.remote_solver.close()
+server.shutdown()
+assert not any(k.split(".")[0] in ("jax", "jaxlib", "volcano_tpu")
+               for k in sys.modules)
+print("ok")
+'''
+
+
+def test_solver_service_runs_with_jax_and_reference_blocked():
+    """The solver child, its client, the codec and a pipelined remote
+    cycle run with ``jax``, ``jaxlib`` and ``volcano_tpu`` unimportable."""
+    env = dict(os.environ, PYTHONPATH=str(ROOT))
+    out = subprocess.run(
+        [sys.executable, "-c", _BLOCKER + "import sys\n" + _SOLVER_CHILD],
+        capture_output=True, text=True, env=env, cwd=str(ROOT), timeout=300,
+    )
+    assert out.returncode == 0, out.stderr[-3000:]
+    assert out.stdout.strip().endswith("ok")
 
 
 def test_pipelined_cycle_binds_like_jax():

@@ -346,11 +346,8 @@ def _guarded_maps(ann, files):
 
 
 # The JAX files whose classes the port has no counterpart of: the sharded
-# control plane (ShardOwnershipTable; ROADMAP.md queue 1, multi-GPU) and
-# the solver service (RemoteSolver, SolverPool, _Replica; queue 1, the
-# solver service).
-JAX_ONLY_FILES = {"volcano_tpu/shard.py", "volcano_tpu/solver_service.py",
-                  "volcano_tpu/solver_pool.py"}
+# control plane (ShardOwnershipTable; ROADMAP.md queue 1, multi-GPU).
+JAX_ONLY_FILES = {"volcano_tpu/shard.py"}
 # Guarded attributes of a shared class that exist on one side only.
 JAX_ONLY_ATTRS = {
     # The per-shard parked solves, the shard table and the mesh plane

@@ -316,8 +316,9 @@ def _lost_reply_run(pkg, monkeypatch):
 def test_lost_reply_recorded_not_as_clean_commit(monkeypatch):
     """A remote solve whose reply is lost records no committed solve id;
     its rows count under ``lost-reply`` and each pod's journey drops with
-    the solve's id -- as in the JAX package.  (The port dispatches only
-    local solves; the remote kind arrives with the solver service.)"""
+    the solve's id -- as in the JAX package.  (The handle is a local
+    solve presented as the remote kind; ``tests/test_torch_remote_solver.
+    py`` loses a real one.)"""
     want, got = _both(lambda pkg: _lost_reply_run(pkg, monkeypatch))
     assert got == want
     rec, (n_rows, sid), drops = got

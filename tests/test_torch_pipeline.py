@@ -13,13 +13,16 @@ same mutation script; after every cycle the binds (pod -> node), the drop
 counts by reason of the staleness guard and the flight-record ids
 (``dispatched_solve_id``, ``committed_solve_id``,
 ``mutation_seq_at_dispatch``) must be equal -- exactly, placements are
-integers.  The twins of ``tests/test_pipeline.py`` that need neither the
-solver service nor the fast path's fallback are here, the pipelined
-version of ``tests/test_torch_cycle.py``'s 10-cycle churn run, pipelined
-preempt and rebalance plans, and the port's own traps: inputs owned by the
-worker, no resident plane written under an in-flight solve, a worker
-failure failing the fetching cycle, exact per-solve launch counts and
-``LAST_TWOPHASE`` records under two launching threads.
+integers.  The twins of ``tests/test_pipeline.py`` that do not need the
+fast path's fallback are here, the three cases of the ``"remote"``
+payload kind among them (lost replies failing the cycle past the cap, a
+pipelined remote deployment over a solver child process, the remote
+protocol's one outstanding solve); the pipelined version of
+``tests/test_torch_cycle.py``'s 10-cycle churn run, pipelined preempt and
+rebalance plans, and the port's own traps: inputs owned by the worker, no
+resident plane written under an in-flight solve, a worker failure failing
+the fetching cycle, exact per-solve launch counts and ``LAST_TWOPHASE``
+records under two launching threads.
 """
 
 import itertools
@@ -301,6 +304,125 @@ def test_fetch_programming_error_propagates(monkeypatch):
                 sched.run_once()
         assert not store.binder.binds
         store.close()
+
+
+def _garbage_run(pkg, monkeypatch):
+    if pkg is volcano_tpu:
+        from volcano_tpu import pipeline as pl
+        from volcano_tpu.fastpath import FastCycle, run_cycle_fast
+    else:
+        pl = pipeline
+        from volcano_tpu_torch.fastpath import FastCycle, run_cycle_fast
+
+    store = _small(pkg, seed=33)
+    store.pipeline = True
+    sched = _sched(pkg, store)
+    conf = sched._load_conf()
+    sched.run_once()
+    assert store._inflight_solve is not None
+
+    def garbage(self):
+        raise ValueError("malformed snapshot frame")
+
+    out = []
+    with monkeypatch.context() as mp:
+        mp.setattr(pl.InflightSolve, "fetch", garbage)
+        for _ in range(FastCycle.REMOTE_FETCH_FAIL_CAP - 1):
+            # The parked handle presented as a remote dispatch: the
+            # failure counts as a lost reply and the cycle re-dispatches.
+            store._inflight_solve.kind = "remote"
+            run_cycle_fast(store, conf, **({} if pkg is volcano_tpu
+                                           else {"device": "cpu"}))
+            assert store._inflight_solve is not None
+            rec = store.flight.last()
+            out.append((dict(rec.drop_reasons), store._remote_fetch_fails))
+        store._inflight_solve.kind = "remote"
+        with pytest.raises(ValueError, match="malformed"):
+            run_cycle_fast(store, conf, **({} if pkg is volcano_tpu
+                                           else {"device": "cpu"}))
+    sched.run_once()
+    sched.run_once()
+    out.append(store._remote_fetch_fails)
+    store.close()
+    return out
+
+
+def test_remote_garbage_replies_fail_cycle_after_cap(monkeypatch):
+    """tests/test_pipeline.py:309: a child that keeps replying garbage
+    fails the cycle past ``REMOTE_FETCH_FAIL_CAP`` consecutive lost
+    replies; one success resets the count -- on both packages alike."""
+    want = _garbage_run(volcano_tpu, monkeypatch)
+    _reset_uid_counters()
+    got = _garbage_run(volcano_tpu_torch, monkeypatch)
+    assert got == want
+    assert got[-1] == 0 and got[0][0].get("lost-reply", 0) >= 1
+
+
+def test_remote_pipelined_two_process_parity():
+    """tests/test_pipeline.py:463: a pipelined remote deployment over a
+    port solver child process sends frame N+1 while frame N's reply is
+    outstanding, and places what the local synchronous cycle and the JAX
+    package's pipelined remote deployment place."""
+    import threading as _threading
+
+    from test_torch_remote_solver import spawn_child, stop_child
+
+    from volcano_tpu.solver_service import RemoteSolver as JaxRemote
+    from volcano_tpu.solver_service import SolverServer as JaxServer
+    from volcano_tpu_torch.solver_service import RemoteSolver
+
+    _reset_uid_counters()
+    local = _small(volcano_tpu_torch, seed=23)
+    _sched(volcano_tpu_torch, local).run_once()
+    local.flush_binds()
+    placements = {"local": _placements(local)}
+    local.close()
+    jsrv = JaxServer(port=0)
+    _threading.Thread(target=jsrv.serve_forever, daemon=True).start()
+    proc, port = spawn_child()
+    try:
+        for pkg, cls, p in ((volcano_tpu, JaxRemote, jsrv.port),
+                            (volcano_tpu_torch, RemoteSolver, port)):
+            _reset_uid_counters()
+            remote = _small(pkg, seed=23)
+            remote.pipeline = True
+            client = cls(f"127.0.0.1:{p}", timeout=60.0)
+            remote.remote_solver = client
+            sched = _sched(pkg, remote)
+            sched.run_once()
+            inflight = remote._inflight_solve
+            assert inflight is not None and inflight.kind == "remote"
+            sched.run_once()
+            remote.flush_binds()
+            placements[pkg.__name__] = _placements(remote)
+            assert client.ping()["solves"] >= 1  # the child solved
+            client.close()
+            remote.close()
+    finally:
+        stop_child(proc)
+        jsrv.shutdown()
+    assert placements["volcano_tpu_torch"] == placements["local"]
+    assert placements["volcano_tpu"] == placements["local"]
+
+
+def test_dispatch_slot_is_exclusive_remote_contract():
+    """tests/test_pipeline.py:502: the remote protocol allows one
+    outstanding solve: a round trip beside a parked one raises, and
+    abandoning clears the slot."""
+    from volcano_tpu_torch.solver_service import (PendingSolve,
+                                                  RemoteSolver, _WireCache)
+
+    client = RemoteSolver.__new__(RemoteSolver)
+    client._lock = threading.Lock()
+    client._sock = None
+    client._wire = _WireCache()
+    client._shm = None
+    client.wire_fallbacks = {}
+    client._pending = PendingSolve(client)
+    with pytest.raises(RuntimeError):
+        client._roundtrip(b"x")
+    client._pending.abandon()
+    assert client._pending is None
 
 
 def test_stop_mid_flight_abandons_and_restart_places_all():

@@ -42,10 +42,11 @@ access must hold; with ``VOLCANO_TPU_LOCKDEP=1`` the constructor arms
 ``obs/lockdep.py`` over the store's object graph, which reports an access
 without it (and a lock-order cycle) to the auditor.
 
-Not ported yet (ROADMAP.md, queue 1): the remote solver
-(``remote_solver``, "the solver service"); the device mesh
-(``solve_mesh``, "multi-GPU").  Setting one of the two slots raises
-``NotImplementedError`` naming its item.
+``remote_solver`` holds the solver service's client
+(``solver_service.RemoteSolver`` or ``solver_pool.SolverPool``): the fast
+cycle then ships its wave solves to a solver child.  Not ported yet
+(ROADMAP.md, queue 1): the device mesh (``solve_mesh``, "multi-GPU");
+setting that slot raises ``NotImplementedError`` naming its item.
 """
 
 from __future__ import annotations
@@ -202,6 +203,13 @@ class ClusterStore:
         # on other threads, so both slots are taken under _lock.
         self._inflight_solve = None  # guarded-by: _lock (any-receiver)
         self._inflight_plan = None  # guarded-by: _lock (any-receiver)
+        # Remote-solver client: a solver_service.RemoteSolver (one
+        # connection) or a solver_pool.SolverPool (replicas with hedged
+        # dispatch, failover and the what-if offload); None for a store
+        # that solves on its own device.  Dispatch and fetch run only on
+        # the cycle thread, and both client types lock their own state
+        # (never the store's), so the slot needs no store-lock guard.
+        self.remote_solver = None
         # The pipelined session's solve worker (pipeline.SolveWorker),
         # created at the first dispatch.
         self._solve_worker = None
@@ -270,16 +278,6 @@ class ClusterStore:
         self.add_queue(Queue(name=default_queue, weight=1))
 
     # ------------------------------------------------- not-ported slots
-
-    @property
-    def remote_solver(self):
-        return None
-
-    @remote_solver.setter
-    def remote_solver(self, value) -> None:
-        if value is not None:
-            raise not_ported("the remote solver (remote_solver)",
-                              "the solver service")
 
     @property
     def solve_mesh(self):

@@ -53,9 +53,18 @@ vetoed before commit (``_topology_gate``).
 Eligibility (``eligible()``): actions within ``FAST_ACTIONS``, plugins
 within ``FAST_PLUGINS`` (the eight built-ins), and the wave solver; any
 other conf runs the object session (``scheduler.py``).  The JAX package's
-other lanes raise ``NotImplementedError`` here, naming their
-ROADMAP.md item, before the cycle mutates anything: the remote solver and
-the device mesh.
+device mesh raises ``NotImplementedError`` here, naming its ROADMAP.md
+item, before the cycle mutates anything.
+
+The solver service (``store.remote_solver``, ``solver_service.py`` /
+``solver_pool.py``): the wave solve ships to a solver child as a frame
+and its reply is committed as a local solve's would be; this process then
+launches no wave-solve kernel.  The device-incremental keys ride the frame
+as tokens (``_devincr_prepare``), the resident snapshot stays off
+(``_device_snapshot``), a pipelined solve's lost reply re-places its rows
+(``_lost_reply``), and preempt / reclaim run the host victim walk unless
+a solver pool has a replica free for the what-if offload
+(``whatif.evict_device_on``).
 
 Pipelined sessions (``store.pipeline`` or ``VOLCANO_TPU_PIPELINE=1``,
 ``pipeline.py``): a single-chunk wave solve is handed to the store's solve
@@ -280,6 +289,9 @@ class FastCycle:
         # Span tracer (obs/trace.py): the cycle's lanes record spans and
         # accumulate store.last_cycle_lanes.
         self.tracer = tracer_of(store)
+        # The solver service's client: the wave solve then runs in the
+        # solver child (solver_service.py / solver_pool.py).
+        self._remote_solver = getattr(store, "remote_solver", None)
 
     # --------------------------------------------------------- eligibility
 
@@ -296,10 +308,8 @@ class FastCycle:
         return True
 
     def check_ported(self) -> None:
-        """Raise for the JAX fast path's lanes the port does not run, up
-        front, before the cycle mutates anything."""
-        if getattr(self.store, "remote_solver", None) is not None:
-            raise _not_ported("the remote solver", "the solver service")
+        """Raise for the JAX fast path's lane the port does not run (the
+        device mesh), up front, before the cycle mutates anything."""
         if getattr(self.store, "solve_mesh", None) is not None \
                 or os.environ.get("VOLCANO_TPU_MESH"):
             raise _not_ported("the device mesh", "multi-GPU")
@@ -886,11 +896,13 @@ class FastCycle:
                 elif name in _EVICT_ACTIONS:
                     from . import whatif
 
-                    if whatif.evict_device_enabled():
+                    if whatif.evict_device_on(self.store):
                         # Device-native lane: plan victims with the
                         # victim_scores kernel, prove the wave with a
                         # what-if solve, commit -- the engine stamps the
-                        # mutation counter itself iff it evicts.
+                        # mutation counter itself iff it evicts.  A
+                        # remote-solver store runs it only when a solver
+                        # pool can take the what-if solve.
                         whatif.run_evict_action(self, name)
                     else:
                         ev = self._evict_machinery()
@@ -1109,6 +1121,17 @@ class FastCycle:
                 "device_fine", "device", now - int(fine * 1e9),
                 int(fine * 1e9), tid="cycle",
             )
+
+    def _record_pool_fetch(self) -> None:
+        """Fold a solver pool's last-fetch info (winning replica, hedge and
+        failover flags, wait) into the cycle's flight record.  A plain
+        ``RemoteSolver`` has none and records nothing."""
+        take = getattr(self._remote_solver, "take_last_fetch_info", None)
+        if take is None:
+            return
+        info = take()
+        if info:
+            self.stats["pool"] = info
 
     def _evict_state(self):
         """The cycle's ``EvictState``, built lean on the first eviction:
@@ -1520,13 +1543,18 @@ class FastCycle:
                 # worker without waiting for its result; the commit lands at
                 # the top of the next cycle.  Chunked solves stay synchronous
                 # -- later chunks must see earlier chunks' placements.
+                remote = self._remote_solver
                 if self._pipeline_on and len(chunks) == 1:
                     cjobs, crows = chunks[0]
                     had_aff_chunks |= self._chunks_had_terms
                     with tracer.span("encode", lanes=lanes):
                         inputs, pid, profiles, ncls = self._solve_inputs(
                             cjobs, crows, slim=True)
-                    dv = self._devincr_prepare(inputs)
+                    # Device-incremental context: the store's primed
+                    # DeviceIncremental, or the token dict a solver child
+                    # keys its own planes on.
+                    dv = self._devincr_prepare(inputs, remote is not None)
+                    kind = "remote" if remote is not None else "local"
                     # The dispatch span opens the solve-id flow; the fetch and
                     # commit spans of cycle N+1 close it.
                     store._solve_seq += 1
@@ -1534,14 +1562,15 @@ class FastCycle:
                     with tracer.span(
                             "dispatch", cat="pipeline", flow=solve_id,
                             lanes=lanes, lane="device",
-                            args={"kind": "local", "rows": len(crows),
+                            args={"kind": kind, "rows": len(crows),
                                   "solve_id": solve_id}):
                         self._last_encode_token = (
                             self._null_delta_token(solver, rounds)
                             if dv_store is not None else None)
                         self._dispatch_async(
                             cjobs, crows, inputs, pid, profiles, ncls, dv,
-                            solve_id, devincr_token=self._last_encode_token)
+                            solve_id, devincr_token=self._last_encode_token,
+                            remote=remote)
                     self.stats["dispatched_solve_id"] = solve_id
                     break
                 for cjobs, crows in chunks:
@@ -1557,40 +1586,69 @@ class FastCycle:
                     # need its own proof).
                     dv = None
                     if len(chunks) == 1:
-                        dv = self._devincr_prepare(inputs)
+                        dv = self._devincr_prepare(inputs, remote is not None)
                         self._last_encode_token = (
                             self._null_delta_token(solver, rounds)
                             if dv_store is not None else None)
                     t0 = time.perf_counter()
-                    result = solve_wave(*inputs, pid=pid, profiles=profiles,
-                                        taint_any=self._taint_any,
-                                        node_classes=ncls, devincr=dv,
-                                        device=self.device)
-                    self._record_twophase_lanes()
-                    # Commit prep that does not need the assignments.
-                    req_gather = self.m.c_req.gather(crows)
-                    self._obj_arrays()
-                    # One device->host copy for the five results the commit
-                    # reads (assignment, never-ready and fit-failed flags, the
-                    # two shortlist-fallback counters).
                     P = len(crows)
-                    J = int(result.never_ready.shape[0])
-                    packed = torch.cat([
-                        result.assigned.reshape(-1).to(torch.int32),
-                        result.never_ready.reshape(-1).to(torch.int32),
-                        result.fit_failed.reshape(-1).to(torch.int32),
-                        result.fb_exhausted.reshape(1).to(torch.int32),
-                        result.fb_affinity.reshape(1).to(torch.int32),
-                    ]).cpu().numpy()
-                    assigned = packed[:P].astype(np.int64)
+                    if remote is not None:
+                        # The solver service: the inputs cross to the
+                        # solver child as one frame and the assignment
+                        # vectors come back as numpy; the child builds its
+                        # node classes from the frame itself.
+                        result = remote.solve(inputs, pid, profiles,
+                                              devincr=dv)
+                        if dv is not None:
+                            # The child solves every frame it receives: a
+                            # reply anchors the dirty accumulator on its
+                            # caches.
+                            _dvm.of_store(store).anchor_dirty()
+                        mode = getattr(remote, "last_devincr_mode", None)
+                        if mode in ("warm", "full"):
+                            metrics.device_incremental_solves.inc(mode=mode)
+                        req_gather = self.m.c_req.gather(crows)
+                        self._obj_arrays()
+                        assigned = np.asarray(
+                            result.assigned)[:P].astype(np.int64)
+                        never_ready = np.asarray(
+                            result.never_ready).astype(bool)
+                        fit_failed = np.asarray(
+                            result.fit_failed).astype(bool)
+                        fb = (int(result.fb_exhausted),
+                              int(result.fb_affinity))
+                    else:
+                        result = solve_wave(*inputs, pid=pid,
+                                            profiles=profiles,
+                                            taint_any=self._taint_any,
+                                            node_classes=ncls, devincr=dv,
+                                            device=self.device)
+                        self._record_twophase_lanes()
+                        # Commit prep that does not need the assignments.
+                        req_gather = self.m.c_req.gather(crows)
+                        self._obj_arrays()
+                        # One device->host copy for the five results the
+                        # commit reads (assignment, never-ready and
+                        # fit-failed flags, the two shortlist-fallback
+                        # counters).
+                        J = int(result.never_ready.shape[0])
+                        packed = torch.cat([
+                            result.assigned.reshape(-1).to(torch.int32),
+                            result.never_ready.reshape(-1).to(torch.int32),
+                            result.fit_failed.reshape(-1).to(torch.int32),
+                            result.fb_exhausted.reshape(1).to(torch.int32),
+                            result.fb_affinity.reshape(1).to(torch.int32),
+                        ]).cpu().numpy()
+                        assigned = packed[:P].astype(np.int64)
+                        never_ready = packed[P:P + J].astype(bool)
+                        fit_failed = packed[P + J:P + 2 * J].astype(bool)
+                        fb = (int(packed[P + 2 * J]),
+                              int(packed[P + 2 * J + 1]))
                     # Fabric gate: require-contiguous gangs scattered across
                     # blocks are vetoed before the commit (on the host copy
                     # just fetched).
                     assigned = self._topology_gate(crows, assigned)
-                    never_ready = packed[P:P + J].astype(bool)
-                    fit_failed = packed[P + J:P + 2 * J].astype(bool)
-                    self._count_shortlist_fb(int(packed[P + 2 * J]),
-                                             int(packed[P + 2 * J + 1]))
+                    self._count_shortlist_fb(*fb)
                     dt_dev = time.perf_counter() - t0
                     lanes["device"] = lanes.get("device", 0.0) + dt_dev
                     metrics.device_solve_latency.observe(dt_dev * 1e3)
@@ -1683,13 +1741,15 @@ class FastCycle:
                 pass
         return FastCycle._DEVINCR_CNT0_HASH_MAX
 
-    def _devincr_prepare(self, inputs):
+    def _devincr_prepare(self, inputs, remote: bool = False):
         """Assemble the device-incremental cache keys + dirty superset
         for the solve about to run.  Returns the store's
-        DeviceIncremental primed via ``begin_solve``, or None when the
-        lane is off.  The warm key carries a content hash of the affinity
-        count table (the shortlists rank on it); past
-        ``_devincr_cnt0_hash_max`` bytes there is no warm key."""
+        DeviceIncremental primed via ``begin_solve``, or, for a solver
+        child (``remote``), the JSON-able token dict it keys its own
+        persistent planes on; None when the lane is off.  The warm key
+        carries a content hash of the affinity count table (the
+        shortlists rank on it); past ``_devincr_cnt0_hash_max`` bytes
+        there is no warm key."""
         import hashlib
 
         from .ops import devincr as _dvm
@@ -1728,6 +1788,14 @@ class FastCycle:
         if dv is None:
             dv = _dvm.of_store(self.store)
         dirty = dv.take_dirty(self._dirty_nodes_now())
+        if remote:
+            return {
+                "static_key": repr(static_key),
+                "warm_key": repr(warm_key) if warm_key is not None
+                else None,
+                "dirty_nodes": (dirty.tolist() if dirty is not None
+                                else None),
+            }
         dv.begin_solve(static_key, warm_key, dirty)
         return dv
 
@@ -1760,33 +1828,45 @@ class FastCycle:
 
     def _dispatch_async(self, cjobs: List[int], crows: np.ndarray,
                         inputs, pid, profiles, ncls, dv, solve_id: int,
-                        devincr_token=None) -> None:
-        """Hand the encoded solve to the store's solve worker and park the
-        handle on the store; the solve then runs beside this cycle's
-        backfill and close and the next cycle's derive, and
-        ``_commit_inflight`` lands it at the top of cycle N+1.
+                        devincr_token=None, remote=None) -> None:
+        """Hand the encoded solve to the store's solve worker (or, with
+        ``remote``, send its frame to the solver child without reading the
+        reply) and park the handle on the store; the solve then runs
+        beside this cycle's backfill and close and the next cycle's
+        derive, and ``_commit_inflight`` lands it at the top of cycle N+1.
         ``solve_id`` is the trace flow id linking this dispatch to the
         next cycle's fetch and commit spans."""
+        from .ops import devincr as _dvm
         from .pipeline import SOLVE_FIELDS, InflightSolve, dispatch_solve
 
-        if dv is not None:
-            # The dirty set this solve consumed is anchored now, on the
-            # cycle thread, where the next derives add to it (the JAX
-            # solve anchors it at dispatch too); a solve that fails voids
-            # the anchor at its fetch.
-            dv.anchor_dirty()
-        job = dispatch_solve(
-            self.store, self.device, inputs, SOLVE_FIELDS,
-            snap=getattr(self.store, "device_snapshot", None), pid=pid,
-            profiles=profiles, taint_any=self._taint_any,
-            node_classes=ncls, devincr=dv)
+        if remote is not None:
+            # ``dv`` is the child's token dict.  The child solves every
+            # frame it receives: a successful send anchors the dirty
+            # accumulator on its caches.
+            job = remote.solve_async(inputs, pid, profiles, devincr=dv)
+            if dv is not None:
+                _dvm.of_store(self.store).anchor_dirty()
+            kind = "remote"
+        else:
+            if dv is not None:
+                # The dirty set this solve consumed is anchored now, on the
+                # cycle thread, where the next derives add to it (the JAX
+                # solve anchors it at dispatch too); a solve that fails
+                # voids the anchor at its fetch.
+                dv.anchor_dirty()
+            job = dispatch_solve(
+                self.store, self.device, inputs, SOLVE_FIELDS,
+                snap=getattr(self.store, "device_snapshot", None), pid=pid,
+                profiles=profiles, taint_any=self._taint_any,
+                node_classes=ncls, devincr=dv)
+            kind = "local"
         # Commit prep that needs no assignment overlaps the solve.
         req_gather = self.m.c_req.gather(crows)
         # Journey: these rows entered a device solve (first-time rows
         # record with the flow's solve id; repeats bulk-count).
         self._journey_rows(crows, "dispatched", solve_id=solve_id)
         self.store._inflight_solve = InflightSolve(
-            "local", job, list(cjobs), crows, req_gather,
+            kind, job, list(cjobs), crows, req_gather,
             self.m.mutation_seq, self.m.epoch, self.m.compact_gen,
             self.Nn, solve_id=solve_id, dirty_seq=self.m.dirty_seq,
             devincr_token=devincr_token,
@@ -1848,11 +1928,18 @@ class FastCycle:
             with fetch_span:
                 assigned = inflight.fetch()
         except BaseException as e:
-            self._void_devincr()
-            if inflight.kind == "remote" and isinstance(
-                    e, (OSError, ConnectionError, ValueError)):
-                self._lost_reply(inflight, e)
-                return
+            if inflight.kind == "remote":
+                # The child keeps its own planes (a lost connection takes
+                # them with it): only the null-delta skip proof goes.
+                dvc = self.store._devincr_cache
+                if dvc is not None:
+                    dvc.skip_token = None
+                if isinstance(e, (OSError, ConnectionError, ValueError)):
+                    self._lost_reply(inflight, e)
+                    self._record_pool_fetch()
+                    return
+            else:
+                self._void_devincr()
             if self._is_device_crash(e):
                 # A crash of the worker's solve surfaces here, on the
                 # cycle thread: its rows drop as device-crash and re-place
@@ -1871,10 +1958,18 @@ class FastCycle:
             # A programming error propagates, as from a synchronous solve.
             raise
         self.store._remote_fetch_fails = 0
-        # The solve the cycle read: its record and lanes.
-        _wave_mod.LAST_TWOPHASE.clear()
-        _wave_mod.LAST_TWOPHASE.update(inflight.twophase)
-        self._record_twophase_lanes()
+        if inflight.kind == "remote":
+            self._record_pool_fetch()
+            # The child reported its device-incremental decision in the
+            # reply's manifest (decoded by the fetch above).
+            mode = getattr(self._remote_solver, "last_devincr_mode", None)
+            if mode in ("warm", "full"):
+                metrics.device_incremental_solves.inc(mode=mode)
+        else:
+            # The solve the cycle read: its record and lanes.
+            _wave_mod.LAST_TWOPHASE.clear()
+            _wave_mod.LAST_TWOPHASE.update(inflight.twophase)
+            self._record_twophase_lanes()
         self.stats["committed_solve_id"] = inflight.solve_id or None
         self._count_shortlist_fb(*inflight.fallbacks)
         # The residual wait is the pipeline's health signal: it approaches
@@ -1932,12 +2027,13 @@ class FastCycle:
     REMOTE_FETCH_FAIL_CAP = 3
 
     def _lost_reply(self, inflight, err: BaseException) -> None:
-        """A remote solve whose reply was lost: its rows are still Pending
-        and re-place this cycle; counted as ``lost-reply`` (never as a
-        clean commit), past ``REMOTE_FETCH_FAIL_CAP`` consecutive losses
-        the cycle fails.  The port dispatches only local solves, which
-        never get here (the remote kind arrives with the solver service,
-        ROADMAP.md queue 1)."""
+        """A remote solve whose reply was lost (the solver child died, the
+        connection dropped, a resync or an acknowledgement mismatch): its
+        rows are still Pending and re-place this cycle; counted as
+        ``lost-reply`` (never as a clean commit).  A persistently dead
+        child fails this cycle's own dispatch, but a child that keeps
+        replying garbage never fails the send, so past
+        ``REMOTE_FETCH_FAIL_CAP`` consecutive losses the cycle fails."""
         fails = getattr(self.store, "_remote_fetch_fails", 0) + 1
         self.store._remote_fetch_fails = fails
         if fails >= self.REMOTE_FETCH_FAIL_CAP:
@@ -2296,6 +2392,13 @@ class FastCycle:
 
         store = self.store
         if not rebalance_enabled():
+            return
+        remote = self._remote_solver
+        if remote is not None and not whatif.whatif_offload_on(remote):
+            # A single-connection remote deployment keeps the lane off
+            # (the plan solve would contend for the one request/reply
+            # connection); a solver pool with an idle non-primary replica
+            # offloads the plan solve there instead.
             return
         ledger = store.migrations
         if ledger is not None and ledger.active(store, "rebalance"):
@@ -2973,8 +3076,11 @@ class FastCycle:
 
     def _device_snapshot(self):
         """The store's persistent device-resident snapshot on the cycle's
-        device, or None when disabled (VOLCANO_TPU_DEVSNAP=0)."""
-        if os.environ.get("VOLCANO_TPU_DEVSNAP", "1") == "0":
+        device, or None on the remote path (frames ship numpy; the solver
+        child owns its device state) or when disabled
+        (VOLCANO_TPU_DEVSNAP=0)."""
+        if (self._remote_solver is not None
+                or os.environ.get("VOLCANO_TPU_DEVSNAP", "1") == "0"):
             return None
         from .ops.devsnap import for_store
 

@@ -17,17 +17,20 @@ from typing import Dict, List, Optional, Set, Tuple
 
 # Files under the lock discipline: the port's counterparts of the JAX
 # package's list (the store, the mirror, the bind dispatcher, the pipelined
-# solve handle, the cycle and its evict lanes, the what-if engine, the
-# device snapshot, the flight recorder, the auditor, the SLO tracker) plus
-# the pod journey.  ``lockdep.enable_lockdep`` wraps the guarded
-# attributes of exactly these files' classes.  The sharded control plane
-# and the solver service are not ported (ROADMAP.md, queue 1).
+# solve handle, the scheduler, the solver service and its pool, the cycle
+# and its evict lanes, the what-if engine, the device snapshot, the flight
+# recorder, the auditor, the SLO tracker) plus the pod journey.
+# ``lockdep.enable_lockdep`` wraps the guarded attributes of exactly these
+# files' classes.  The sharded control plane is not ported (ROADMAP.md,
+# queue 1).
 LOCK_FILES = [
     "volcano_tpu_torch/cache/store.py",
     "volcano_tpu_torch/cache/mirror.py",
     "volcano_tpu_torch/cache/bindqueue.py",
     "volcano_tpu_torch/pipeline.py",
     "volcano_tpu_torch/scheduler.py",
+    "volcano_tpu_torch/solver_service.py",
+    "volcano_tpu_torch/solver_pool.py",
     "volcano_tpu_torch/fastpath.py",
     "volcano_tpu_torch/fastpath_evict.py",
     "volcano_tpu_torch/whatif.py",

@@ -35,9 +35,11 @@ enough to stay on:
    ``torch.Tensor`` (the devincr planes live on the card) is signed by
    its type name and shape and never copied to the host, so a sampled
    cycle adds no device-to-host copy.  The remote solver's wire mirror
-   (``wire-mirror-divergence``) and the shard census
-   (``shard-ownership-violation``) are audited when the store has those
-   slots; the port's store has neither yet, so both return at once.
+   (``wire-mirror-divergence``: the frame generation only grows, and the
+   client's mirror copies change only with it) is audited when the store
+   has a remote solver, per replica for a solver pool.  The shard census
+   (``shard-ownership-violation``) returns at once: the port's store has
+   no shard table yet.
 
 3. **SLO feed**: the auditor drives ``obs.slo.SLOTracker`` with each
    cycle's lane latencies and turns burn-rate breaches into
@@ -574,10 +576,9 @@ class Auditor:
         """Client-side wire-mirror invariants of a remote solver: the
         frame generation only ever grows, and the private mirror copies
         may only change when the generation does.  A solver pool is
-        audited per replica (sentinel slot ``wire-mirror-<i>``).  The
-        port's store has no remote solver yet (ROADMAP.md, queue 1: the
-        solver service): ``remote_solver`` is None and this returns at
-        once."""
+        audited per replica (sentinel slot ``wire-mirror-<i>``), so a
+        divergence names the replica.  A store without a remote solver
+        clears the wire sentinels and returns."""
         client = getattr(store, "remote_solver", None)
         if client is None:
             with self._lock:

@@ -28,9 +28,10 @@ equal to a fresh solve, with a proven fallback and the
    and produce the identical (empty) outcome, so the cycle skips it.
 
 Cached planes and candidates are never handed to a kernel that writes
-them: ``warm_shortlist`` returns new candidate tensors.  The mesh and
-remote-solver placements of the JAX package are not ported (ROADMAP.md,
-queue 1).
+them: ``warm_shortlist`` returns new candidate tensors.  A solver child
+(``solver_service.py``) keeps one context per connection, keyed by the
+token dict the scheduler's frame carries (``FastCycle._devincr_prepare``).
+The JAX package's mesh placements are not ported (ROADMAP.md, queue 1).
 """
 
 from __future__ import annotations

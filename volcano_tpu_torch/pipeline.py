@@ -43,9 +43,15 @@ not finish within ``FETCH_TIMEOUT_S`` raises instead of hanging.
 
 ``InflightSolve`` is the handle the fast path parks on the store
 (``store._inflight_solve``) between the two cycles; ``InflightPlan`` the
-what-if plan's (``store._inflight_plan``).  Only the ``"local"`` kind is
-ported: the remote solver and the per-shard slots are not (ROADMAP.md,
-queue 1: the solver service; the sharded control plane).
+what-if plan's (``store._inflight_plan``).  Two payload kinds:
+
+- ``"local"``: a ``SolveJob`` on the store's solve worker;
+- ``"remote"``: a ``solver_service.PendingSolve`` (or a solver pool's
+  ``PoolPendingSolve``): the frame was sent to the solver child and its
+  reply is still unread; ``fetch()`` receives and decodes it.
+
+The per-shard slots are not ported (ROADMAP.md, queue 1: the sharded
+control plane).
 
 Validity bookkeeping captured at dispatch, as in the JAX package:
 ``mutation_seq`` (equality at fetch proves nothing moved, so the
@@ -309,13 +315,20 @@ class InflightSolve:
         self.launches: dict = {}
 
     def fetch(self) -> np.ndarray:
-        """Join the worker's solve; return the assignment ([P] node row or
-        -1) as numpy.  The fallback counters ride the same packed copy."""
+        """Join the worker's solve (or read the solver child's reply);
+        return the assignment ([P] node row or -1) as numpy.  The fallback
+        counters ride the same packed copy (the same reply)."""
+        P = len(self.task_rows)
+        if self.kind == "remote":
+            res = self.payload.fetch()
+            if res.fb_exhausted is not None:
+                self.fallbacks = (int(res.fb_exhausted),
+                                  int(res.fb_affinity))
+            return np.asarray(res.assigned)[:P].astype(np.int64)
         job = self.payload
         packed = job.result()
         self.twophase = job.twophase
         self.launches = job.launches
-        P = len(self.task_rows)
         J = (len(packed) - P - 2) // 2
         self.fallbacks = (int(packed[P + 2 * J]), int(packed[P + 2 * J + 1]))
         return packed[:P].astype(np.int64)
@@ -325,8 +338,23 @@ class InflightSolve:
         are still Pending store-side and re-place on a later cycle.  The
         worker's solve is waited for (bounded), so that nothing it writes
         -- the device-incremental planes -- outlives the handle.  Returns
-        whether the solve finished without an error."""
+        whether the solve finished without an error (a remote solve's
+        reply is dropped unread: its connection resets its framing, and
+        the child's planes are the child's)."""
+        if self.kind == "remote":
+            return _drop_remote(self, "in-flight remote solve")
         return _wait_dropped(self, "in-flight solve")
+
+
+def _drop_remote(handle, what: str) -> bool:
+    """Abandon ``handle``'s unread remote reply (best effort)."""
+    pending, handle.payload = handle.payload, None
+    if pending is not None:
+        try:
+            pending.abandon()
+        except Exception:
+            log.debug("%s abandon failed", what, exc_info=True)
+    return True
 
 
 def _wait_dropped(handle, what: str) -> bool:
@@ -395,9 +423,12 @@ class InflightPlan:
         "compact_gen", "n_nodes", "plan_id",
     )
 
-    def __init__(self, payload: SolveJob, plan, mutation_seq: int,
+    def __init__(self, payload, plan, mutation_seq: int,
                  epoch: int, compact_gen: int, n_nodes: int,
                  plan_id: int = 0, kind: str = "local"):
+        # "local": a SolveJob on the store's worker.  "remote": a
+        # solver_pool.PoolPendingSolve, the plan solve offloaded to an
+        # idle pool replica, its reply still unread.
         self.kind = kind
         self.payload = payload
         self.plan = plan
@@ -408,17 +439,24 @@ class InflightPlan:
         self.plan_id = plan_id
 
     def fetch(self):
-        """Join the worker's what-if solve; (assigned [P], never_ready
-        [J] bool) as numpy."""
+        """Join the worker's what-if solve (or read the replica's reply);
+        (assigned [P], never_ready [J] bool) as numpy."""
         from .whatif import plan_task_order
 
+        if self.kind == "remote":
+            res = self.payload.fetch()
+            return (np.asarray(res.assigned),
+                    np.asarray(res.never_ready).astype(bool))
         packed = self.payload.result()
         P = len(plan_task_order(self.plan)[1])
         return packed[:P], packed[P:].astype(bool)
 
     def abandon(self) -> bool:
         """Drop the pending plan (nothing was mutated store-side); the
-        worker's solve is waited for, bounded, as ``InflightSolve``'s."""
+        worker's solve is waited for, bounded, as ``InflightSolve``'s (an
+        offloaded plan's reply is dropped unread)."""
+        if self.kind == "remote":
+            return _drop_remote(self, "in-flight plan")
         return _wait_dropped(self, "what-if plan solve")
 
 

@@ -1,0 +1,917 @@
+"""Solver replica pool: hedged dispatch, one-cycle failover, what-if
+offload.  The counterpart of the JAX package's ``solver_pool.py``.
+
+Protocol v2's per-connection generation'd wire mirrors make
+every solver connection self-contained: each ``RemoteSolver`` keeps a
+private ``_WireCache`` and monotone frame generation, and the child
+keeps the matching mirror + device-incremental context per connection —
+so a *pool* of replicas needs no shared wire state at all.  Any replica
+can serve any solve; deltas re-engage per replica after its first full
+frame (reconnect -> full frame -> deltas is the healed path a restarted
+child already takes).
+
+``SolverPool`` duck-types the ``RemoteSolver`` client surface the fast
+path and the auditor consume (``solve`` / ``solve_async`` / ``ping``
+/ ``close`` / telemetry counters), so ``store.remote_solver`` may hold
+either and the dispatch seams stay unchanged.  Three perf behaviors,
+all kill-switched by ``VOLCANO_TPU_SOLVER_POOL`` (default 1 = exactly
+the single-connection path — a pool of one adds no machinery to the
+wire):
+
+1. **Health-scored routing + one-cycle failover** — each replica keeps
+   an EWMA of its fetch latency and a consecutive-failure counter; the
+   dispatch target is the healthy replica with the lowest EWMA (lowest
+   index tie-break, so fault-free pools route deterministically).  A
+   dead replica's in-flight reply surfaces as the existing lost-reply
+   path (``FastCycle._commit_inflight``: rows re-place, nothing lost)
+   and the NEXT dispatch routes to a healthy replica, whose empty
+   mirror makes the first frame full by construction — one cycle's
+   re-place, no scheduler stall.  Failed replicas are re-probed with a
+   doubling cooldown so a restarted child heals back into rotation.
+2. **Hedged dispatch** (the tail-at-scale trick applied at the solve
+   transport) — when the
+   primary's reply exceeds its rolling p99 x
+   ``VOLCANO_TPU_POOL_HEDGE_P99_MULT``, the IDENTICAL frame
+   re-dispatches to a second replica and whichever valid reply lands
+   first commits.  The byte-frozen frame comes from the dispatching
+   replica's wire cache — the private copies of exactly what its child
+   received, already paid for by the delta diff — so later in-place
+   plane mutations cannot skew the duplicate and the hot path carries
+   no extra copy.  Replies are deterministic for identical frames, so
+   first-wins is safe; the loser's reply is drained off its connection
+   later (never abandoned mid-stream, so its mirror stays coherent via
+   ``ack_gen``).
+3. **What-if offload** — ``whatif.dispatch_plan`` ships plan-proving
+   solves (preempt / reclaim / rebalance) to an idle non-primary
+   replica, overlapping the allocate lane instead of contending for
+   the store's single inflight slot.  The staleness guard and
+   ``InflightPlan`` commit semantics are unchanged; a lost plan reply
+   voids the plan (it mutated nothing) and counts
+   ``outcome="lost-reply"``.
+
+Threading: every dispatch/fetch runs on the scheduler's cycle thread
+(like ``RemoteSolver``); ``close()`` may race it from
+``Scheduler.stop()``/test teardown, so the replica table's mutable
+health state is guarded by the pool's own ``_lock`` (``obs/lockdep.py``
+arms the annotations below; ``obs/annotations.py`` lists this file).  The lock is never held across socket
+I/O — only across the bookkeeping reads/writes.
+"""
+
+from __future__ import annotations
+
+import logging
+import os
+import select
+import threading
+import time
+from typing import Dict, List, Optional, Sequence, Tuple
+
+from .metrics import metrics
+
+log = logging.getLogger(__name__)
+
+# Rolling fetch-latency window per replica (p99 of <= 64 samples is the
+# max of the recent window — exactly the "slower than everything recent"
+# signal hedging wants).
+_LATENCY_WINDOW = 64
+# Hedge only once the window carries enough signal.
+_HEDGE_MIN_SAMPLES = 5
+# EWMA smoothing for the routing score.
+_EWMA_ALPHA = 0.2
+# A failed replica is re-probed (one ping) after this many dispatches,
+# doubling per consecutive failure so a permanently dead endpoint costs
+# one cheap probe every 2^k dispatches, not one per cycle.
+_PROBE_BASE = 8
+
+
+def pool_size() -> int:
+    """The pool kill switch ``VOLCANO_TPU_SOLVER_POOL=<n>``, default 1 =
+    the single-connection path (``make_solver_client`` then builds a plain
+    ``RemoteSolver``, no pool object at all)."""
+    try:
+        return max(1, int(os.environ.get("VOLCANO_TPU_SOLVER_POOL", "1")))
+    except ValueError:
+        return 1
+
+
+def hedge_p99_mult() -> float:
+    """Hedge trigger: the in-flight reply must exceed (rolling p99 x
+    this multiplier) before the frame re-dispatches to a second
+    replica.  0 disables hedging."""
+    try:
+        return float(os.environ.get("VOLCANO_TPU_POOL_HEDGE_P99_MULT",
+                                    "3.0"))
+    except ValueError:
+        return 3.0
+
+
+def hedge_min_ms() -> float:
+    """Floor on the hedge deadline: pipelined fetch waits are near zero
+    in steady state, so a bare p99 multiple would hedge on scheduler
+    jitter; the floor keeps hedges for genuine stragglers."""
+    try:
+        return float(os.environ.get("VOLCANO_TPU_POOL_HEDGE_MIN_MS",
+                                    "25.0"))
+    except ValueError:
+        return 25.0
+
+
+class _Replica:
+    """One pool member: a ``RemoteSolver`` plus its health state.  All
+    mutable fields below are guarded by the owning pool's ``_lock``
+    (the client object itself synchronizes internally)."""
+
+    __slots__ = ("index", "client", "ewma_ms", "window", "failures",
+                 "since_fail", "busy", "draining", "probing")
+
+    def __init__(self, index: int, client):
+        self.index = index
+        self.client = client
+        self.ewma_ms = 0.0       # guarded-by: _lock
+        self.window: List[float] = []  # guarded-by: _lock
+        self.failures = 0        # guarded-by: _lock
+        self.since_fail = 0      # guarded-by: _lock
+        # An outstanding request (allocate pending, hedge, or what-if)
+        # owns the connection: strict request/reply allows one.
+        self.busy = False        # guarded-by: _lock
+        # A hedge loser's unread reply parked for a later drain.
+        self.draining = None     # guarded-by: _lock
+        # A health probe is in flight on its daemon thread.
+        self.probing = False     # guarded-by: _lock
+
+
+class PoolPendingSolve:
+    """A dispatched-but-unread pool solve (the ``InflightSolve`` payload
+    for kind "remote").  ``fetch()`` adds the hedging leg on top of the
+    plain ``PendingSolve`` receive; ``abandon()`` drops every leg.
+
+    A hedge must re-dispatch the *identical* frame even if the
+    scheduler mutated the encode planes in place during the overlap.
+    The byte-frozen copy already exists: the dispatching replica's
+    ``_WireCache`` holds private copies of exactly the bytes the child
+    received (its delta-diff base), so the hedge rebuilds the frame
+    from there at hedge time — no per-dispatch copy on the hot path.
+    ``hedgeable`` is False when no hedge can ever fire (pool of one,
+    hedging disabled); ``wave``/``devincr`` are the scalar dispatch
+    params the rebuilt frame needs."""
+
+    __slots__ = ("pool", "replica", "handle", "hedgeable", "wave",
+                 "devincr", "kind")
+
+    def __init__(self, pool: "SolverPool", replica: _Replica, handle,
+                 hedgeable: bool = False, wave: Optional[int] = None,
+                 devincr: Optional[dict] = None, kind: str = "primary"):
+        self.pool = pool
+        self.replica = replica
+        self.handle = handle
+        self.hedgeable = hedgeable
+        self.wave = wave
+        self.devincr = devincr
+        self.kind = kind
+
+    def fetch(self):
+        return self.pool._fetch(self)
+
+    def abandon(self) -> None:
+        self.pool._abandon(self)
+
+
+class SolverPool:
+    """N ``RemoteSolver`` replicas behind one RemoteSolver-shaped
+    client (see module docstring).  Construct with one address
+    (replicated ``size`` times — N connections to one child still buy
+    hedging and what-if offload, since the server threads per
+    connection) or one address per replica (real failover)."""
+
+    def __init__(self, addresses: Sequence[str],
+                 size: Optional[int] = None, timeout: float = 300.0):
+        from .solver_service import RemoteSolver
+
+        addresses = list(addresses)
+        if not addresses:
+            raise ValueError("solver pool needs at least one address")
+        n = max(size or len(addresses), len(addresses))
+        while len(addresses) < n:
+            addresses.append(addresses[-1])
+        self._lock = threading.Lock()
+        # The replica table itself is immutable after construction
+        # (only each replica's health state mutates); readers may grab
+        # the list reference without the lock.
+        self.replicas: List[_Replica] = [
+            _Replica(i, RemoteSolver(addr, timeout=timeout))
+            for i, addr in enumerate(addresses)
+        ]
+        # Index of the replica serving the allocate stream (the frame
+        # the per-replica devincr dirty superset is anchored on).
+        self._primary = 0        # guarded-by: _lock
+        # Replica that last received an anchored devincr frame: warm
+        # tokens are only valid for it (any other replica's child
+        # missed the dirty supersets since ITS last frame).
+        self._devincr_owner: Optional[int] = None  # guarded-by: _lock
+        # Telemetry (the flight recorder, chip_smoke.py's pool phase).
+        self.hedge_dispatches = 0  # guarded-by: _lock
+        self.hedge_wins = 0        # guarded-by: _lock
+        self.failovers = 0         # guarded-by: _lock
+        # Fetch info of the last completed/lost fetch, folded into the
+        # cycle's flight record by FastCycle._commit_inflight.
+        self.last_fetch_info: Optional[dict] = None  # guarded-by: _lock
+        self.last_devincr_mode: Optional[str] = None
+        self.last_frame_kind: Optional[str] = None
+        from .obs.trace import null_tracer
+
+        self._tracer = null_tracer()
+        # Runtime lockdep (obs/lockdep.py): the pool is usually attached
+        # to a store AFTER that store's construction-time walk, so it
+        # arms itself.  No-op unless VOLCANO_TPU_LOCKDEP enabled it.
+        from .obs.lockdep import attach
+
+        attach(self)
+
+    # ------------------------------------------------------- client shims
+
+    @property
+    def size(self) -> int:
+        return len(self.replicas)
+
+    @property
+    def tracer(self):
+        return self._tracer
+
+    @tracer.setter
+    def tracer(self, t) -> None:
+        self._tracer = t
+        for r in self.replicas:
+            r.client.tracer = t
+
+    def ping(self) -> dict:
+        """Ping every replica; returns the first healthy pong.  A pool
+        is built to serve degraded — a member that is down at startup
+        is marked failed (the doubling-cooldown probe heals it into
+        rotation later) instead of aborting the whole service the way
+        the single-client path fail-fasts.  Only when EVERY address is
+        unreachable does the last error propagate: that is the
+        permanently-wrong-config case fail-fast exists for."""
+        out = None
+        last_err: Optional[BaseException] = None
+        for r in self.replicas:
+            try:
+                pong = r.client.ping()
+            except (OSError, ConnectionError, ValueError) as e:
+                last_err = e
+                self._mark_failure(r)
+                log.warning(
+                    "solver pool replica %d unreachable at startup "
+                    "(%s); serving degraded until it heals", r.index,
+                    type(e).__name__)
+                continue
+            if out is None:
+                out = pong
+        if out is None:
+            raise last_err if last_err is not None else RuntimeError(
+                "solver pool has no replicas")
+        return out
+
+    def close(self) -> None:
+        for r in self.replicas:
+            with self._lock:
+                r.draining = None
+                r.busy = False
+            r.client.close()
+
+    # Aggregated telemetry, read off whatever store.remote_solver holds.
+    @property
+    def requests(self) -> int:
+        return sum(r.client.requests for r in self.replicas)
+
+    @property
+    def bytes_out(self) -> int:
+        return sum(r.client.bytes_out for r in self.replicas)
+
+    @property
+    def bytes_in(self) -> int:
+        return sum(r.client.bytes_in for r in self.replicas)
+
+    @property
+    def frame_counts(self) -> Dict[str, int]:
+        out: Dict[str, int] = {"full": 0, "delta": 0}
+        for r in self.replicas:
+            for k, v in r.client.frame_counts.items():
+                out[k] = out.get(k, 0) + v
+        return out
+
+    @property
+    def frame_bytes(self) -> Dict[str, int]:
+        out: Dict[str, int] = {"full": 0, "delta": 0}
+        for r in self.replicas:
+            for k, v in r.client.frame_bytes.items():
+                out[k] = out.get(k, 0) + v
+        return out
+
+    @property
+    def wire_fallbacks(self) -> Dict[str, int]:
+        out: Dict[str, int] = {}
+        for r in self.replicas:
+            for k, v in r.client.wire_fallbacks.items():
+                out[k] = out.get(k, 0) + v
+        return out
+
+    def per_replica_frames(self) -> List[Dict[str, int]]:
+        """Per-replica frame counters (the proof that deltas re-engaged on
+        each member)."""
+        return [dict(r.client.frame_counts) for r in self.replicas]
+
+    def health_snapshot(self) -> dict:
+        """The /debug/health "solver_pool" block: per-replica EWMA,
+        failure counters, busy/draining flags + pool totals.  Reads
+        only the pool's own lock — never store state."""
+        with self._lock:
+            return {
+                "size": len(self.replicas),
+                "primary": self._primary,
+                "hedge_dispatches": self.hedge_dispatches,
+                "hedge_wins": self.hedge_wins,
+                "failovers": self.failovers,
+                "replicas": [
+                    {
+                        "index": r.index,
+                        "address": f"{r.client.host}:{r.client.port}",
+                        "ewma_ms": round(r.ewma_ms, 3),
+                        "consecutive_failures": r.failures,
+                        "busy": r.busy,
+                        "draining": r.draining is not None,
+                        "frames": dict(r.client.frame_counts),
+                    }
+                    for r in self.replicas
+                ],
+            }
+
+    # --------------------------------------------------------- health state
+
+    def _score_gauge_locked(self) -> None:
+        # holds: _lock
+        for r in self.replicas:
+            metrics.solver_pool_replica_health.set(
+                1.0 / (1.0 + r.failures), replica=str(r.index))
+
+    def _fold_latency_locked(self, replica: _Replica,
+                             wait_ms: float) -> None:
+        # holds: _lock
+        replica.ewma_ms = (wait_ms if not replica.window
+                           else (1 - _EWMA_ALPHA) * replica.ewma_ms
+                           + _EWMA_ALPHA * wait_ms)
+        replica.window.append(wait_ms)
+        if len(replica.window) > _LATENCY_WINDOW:
+            del replica.window[0]
+
+    def _mark_success(self, replica: _Replica, wait_ms: float) -> None:
+        with self._lock:
+            replica.failures = 0
+            replica.since_fail = 0
+            self._fold_latency_locked(replica, wait_ms)
+            self._score_gauge_locked()
+
+    def _mark_failure(self, replica: _Replica) -> None:
+        with self._lock:
+            replica.failures += 1
+            replica.since_fail = 0
+            replica.busy = False
+            replica.draining = None
+            self._score_gauge_locked()
+
+    def _note_latency(self, replica: _Replica, wait_ms: float) -> None:
+        """Fold a latency sample into the routing state WITHOUT
+        touching the failure counters.  Used for the hedge loser's
+        still-in-flight primary: its reply took AT LEAST the elapsed
+        wait (a lower bound — the true latency lands later, at drain
+        time, untimed), and skipping the sample entirely is what lets
+        a persistently-slow-but-not-erroring member keep its stale
+        good EWMA and win ``_choose`` forever, paying the hedge
+        deadline plus a duplicate solve every cycle."""
+        with self._lock:
+            self._fold_latency_locked(replica, wait_ms)
+
+    def _p99_ms(self, replica: _Replica) -> Optional[float]:
+        """Rolling p99 of the replica's HEALTHY latency class: samples
+        past 4x the rolling median are trimmed before the percentile.
+        Raw p99 would learn the stragglers (and the first compile
+        spike) themselves, ratcheting the hedge deadline above the
+        very tail it exists to cut — the classic hedged-request
+        feedback loop; excluding known-anomalous samples from the
+        estimator is the standard fix (The Tail at Scale).  A replica
+        with a thin window (fresh primary after a failover) borrows
+        the pool-wide union — replicas serve identical frames, so
+        their samples are exchangeable and a failover must not open
+        an unhedged window."""
+        with self._lock:
+            w = sorted(replica.window)
+            if len(w) < _HEDGE_MIN_SAMPLES:
+                w = sorted(
+                    x for r in self.replicas for x in r.window)
+        if len(w) < _HEDGE_MIN_SAMPLES:
+            return None
+        med = w[len(w) // 2]
+        clean = [x for x in w if x <= med * 4] or w
+        return clean[min(int(0.99 * (len(clean) - 1) + 0.5),
+                         len(clean) - 1)]
+
+    def _maybe_probe(self) -> None:
+        """Re-probe failed replicas on a doubling cooldown so a
+        restarted child heals back into rotation (reconnect -> full
+        frame -> deltas re-engage, per replica).  The probe itself
+        runs on a daemon thread: a black-holed endpoint (connect
+        hangs rather than refusing) must cost the cycle thread
+        NOTHING — a recurring 2 s dispatch stall every cooldown lap
+        is exactly the p99 spike class the pool exists to cut.  At
+        most one probe per replica is in flight (``probing``)."""
+        probes = []
+        with self._lock:
+            for r in self.replicas:
+                if r.failures <= 0 or r.probing:
+                    continue
+                r.since_fail += 1
+                if r.since_fail >= _PROBE_BASE * (
+                        2 ** min(r.failures - 1, 4)):
+                    r.since_fail = 0
+                    r.probing = True
+                    probes.append(r)
+        for r in probes:
+            threading.Thread(target=self._probe_replica, args=(r,),
+                             daemon=True).start()
+
+    def _probe_replica(self, r: _Replica) -> None:
+        """Bounded raw TCP probe, NOT a client ping: a black-holed
+        endpoint must cost its probe thread 2 s, not the client's
+        full solve timeout, and the probe must not perturb the
+        client's own connection state (the next real dispatch
+        performs the actual reconnect + full frame)."""
+        import socket as _socket
+
+        ok = False
+        try:
+            s = _socket.create_connection(
+                (r.client.host, r.client.port), timeout=2.0)
+            s.close()
+            ok = True
+        except OSError:
+            pass
+        with self._lock:
+            r.probing = False
+            if ok and r.failures > 0:
+                r.failures = 0
+                self._score_gauge_locked()
+        if ok:
+            log.info("solver pool replica %d healed (probe ok)",
+                     r.index)
+
+    def _choose(self, exclude: Tuple[int, ...] = ()) -> Optional[_Replica]:
+        """Healthiest free replica: zero-failure members by lowest
+        EWMA (index tie-break), else the least-failed member — the
+        pool never refuses to dispatch while any replica exists."""
+        with self._lock:
+            free = [r for r in self.replicas
+                    if r.index not in exclude
+                    and not r.busy and r.draining is None]
+            if not free:
+                # Drainable members count as reachable: the caller
+                # drains before dispatching.
+                free = [r for r in self.replicas
+                        if r.index not in exclude and not r.busy]
+            if not free:
+                return None
+            healthy = [r for r in free if r.failures == 0]
+            pick = min(healthy or free,
+                       key=lambda r: (r.failures, r.ewma_ms, r.index))
+            return pick
+
+    # ----------------------------------------------------------- draining
+
+    def _drain(self, replica: _Replica, block: bool) -> None:
+        """Consume a hedge loser's parked reply so the connection's
+        request/reply framing stays coherent (the decode also verifies
+        ``ack_gen``, keeping the replica's wire mirror honest).  The
+        reply itself is discarded — it solved a frame whose result
+        already committed from the hedge winner."""
+        with self._lock:
+            handle = replica.draining
+            if handle is None:
+                return
+            if not block and not replica.client.reply_ready(0.0):
+                return
+            replica.draining = None
+        try:
+            handle.fetch()
+        except Exception:
+            # The connection died with the stale reply; the client
+            # already closed it (wire cache voided) — the replica's
+            # next frame ships full.
+            log.debug("pool drain of replica %d failed", replica.index,
+                      exc_info=True)
+            self._mark_failure(replica)
+
+    def _drain_opportunistic(self) -> None:
+        for r in self.replicas:
+            self._drain(r, block=False)
+
+    # ------------------------------------------------------------ dispatch
+
+    def _hedge_frame_from_wire(self, client) -> Optional[tuple]:
+        """Rebuild the dispatched frame's ``(solve_args, pid,
+        profiles)`` from the dispatching replica's wire cache — the
+        private byte copies of EXACTLY what its child received (the
+        delta-diff base), unreachable by the scheduler's in-place plane
+        mutations and stable while the solve is pending (the strict
+        request/reply protocol admits no newer frame).  None when the
+        cache is off (kill switch, v1 child): the hedge then simply
+        does not fire — re-encoding from live planes could ship a
+        DIFFERENT frame and break first-wins determinism."""
+        w = getattr(client, "_wire", None)
+        if w is None or w.arrays is None or w.spec is None:
+            return None
+        from .cache import snapwire as sw
+        from .solver_service import _registry
+
+        return sw.unflatten_tree(w.spec, list(w.arrays), _registry())
+
+    def _strip_devincr(self, replica: _Replica,
+                       devincr: Optional[dict]) -> Optional[dict]:
+        """Warm-shortlist tokens are only valid for the replica whose
+        child consumed every dirty superset since its last frame — the
+        devincr owner.  Any other target full-re-ranks (static planes
+        are content-keyed and stay valid everywhere)."""
+        if devincr is None:
+            return None
+        with self._lock:
+            owner = self._devincr_owner
+        if owner is None or owner == replica.index:
+            # No anchored frame anywhere yet (every child's caches are
+            # empty — the tokens cannot hit) or this replica owns the
+            # anchor: ship the manifest untouched.  The None case also
+            # keeps a pool of one byte-identical to the single client.
+            return devincr
+        out = dict(devincr)
+        out["warm_key"] = None
+        out["dirty_nodes"] = None
+        return out
+
+    def _count_dispatch(self, replica: _Replica, kind: str) -> None:
+        metrics.solver_pool_dispatch.inc(replica=str(replica.index),
+                                         kind=kind)
+
+    def _note_failover(self, chosen: _Replica) -> None:
+        with self._lock:
+            if chosen.index != self._primary:
+                prev = self.replicas[self._primary]
+                if prev.failures > 0:
+                    self.failovers += 1
+                    metrics.solver_pool_failover.inc()
+                    log.warning(
+                        "solver pool failover: replica %d -> %d",
+                        prev.index, chosen.index)
+                self._primary = chosen.index
+
+    def _dispatch_with_failover(self, send, devincr: Optional[dict],
+                                exclude: Tuple[int, ...] = (),
+                                kind: str = "primary"):
+        """The ONE dispatch loop every entry point routes through:
+        probe failed members, opportunistically drain hedge losers,
+        then try replicas healthiest-first — a send failure marks the
+        member and moves on, so a dead child never stalls a cycle.
+        ``send(replica, dv)`` performs the client call; returns
+        ``(replica, send's result)`` or raises the last send error when
+        every candidate failed."""
+        self._maybe_probe()
+        self._drain_opportunistic()
+        tried: List[int] = list(exclude)
+        last_err: Optional[BaseException] = None
+        while True:
+            replica = self._choose(exclude=tuple(tried))
+            if replica is None:
+                break
+            self._drain(replica, block=True)
+            dv = self._strip_devincr(replica, devincr)
+            try:
+                out = send(replica, dv)
+            except (OSError, ConnectionError, ValueError) as e:
+                last_err = e
+                tried.append(replica.index)
+                self._mark_failure(replica)
+                log.warning(
+                    "solver pool dispatch to replica %d failed (%s); "
+                    "trying next replica", replica.index,
+                    type(e).__name__)
+                continue
+            if kind == "primary":
+                self._note_failover(replica)
+            with self._lock:
+                if dv is not None:
+                    self._devincr_owner = replica.index
+            self._count_dispatch(replica, kind)
+            self.last_frame_kind = replica.client.last_frame_kind
+            return replica, out
+        raise last_err if last_err is not None else RuntimeError(
+            "solver pool has no dispatchable replica")
+
+    def solve_async(self, solve_args: Sequence, pid, profiles,
+                    wave: Optional[int] = None,
+                    devincr: Optional[dict] = None) -> PoolPendingSolve:
+        """Pipelined dispatch on the healthiest replica; a send failure
+        fails over to the next replica in the SAME cycle (the frame is
+        rebuilt against that replica's own wire cache, full by
+        construction after its reconnect)."""
+        replica, handle = self._dispatch_with_failover(
+            lambda r, dv: r.client.solve_async(
+                solve_args, pid, profiles, wave=wave, devincr=dv),
+            devincr)
+        with self._lock:
+            replica.busy = True
+        hedgeable = len(self.replicas) > 1 and hedge_p99_mult() > 0
+        return PoolPendingSolve(self, replica, handle,
+                                hedgeable=hedgeable, wave=wave,
+                                devincr=devincr)
+
+    def solve(self, solve_args: Sequence, pid, profiles,
+              wave: Optional[int] = None,
+              devincr: Optional[dict] = None):
+        """Synchronous round trip (the chunked / non-pipelined path):
+        routed like ``solve_async``, no hedging (the caller is already
+        blocking; failover still applies)."""
+        cell = {}
+
+        def send(r, dv):
+            cell["t0"] = time.perf_counter()
+            return r.client.solve(solve_args, pid, profiles,
+                                  wave=wave, devincr=dv)
+
+        replica, res = self._dispatch_with_failover(send, devincr)
+        self._mark_success(replica,
+                           (time.perf_counter() - cell["t0"]) * 1e3)
+        self.last_devincr_mode = replica.client.last_devincr_mode
+        return res
+
+    # ------------------------------------------------------ what-if offload
+
+    def whatif_replica_available(self) -> bool:
+        """True when a healthy, idle, NON-primary replica can take a
+        plan-proving solve without contending with the allocate lane
+        (whatif.evict_device_on gates the engine on this)."""
+        if len(self.replicas) < 2:
+            return False
+        with self._lock:
+            primary = self._primary
+            return any(
+                r.index != primary and not r.busy
+                and r.draining is None and r.failures == 0
+                for r in self.replicas
+            )
+
+    def solve_whatif_async(self, solve_args: Sequence, pid,
+                           profiles) -> PoolPendingSolve:
+        """Dispatch a what-if solve to an idle non-primary replica
+        (plan frames carry no devincr section, so they cannot perturb
+        any child's incremental caches).  A dead candidate marks its
+        failure and the next one is tried; raises when none can take
+        the frame — the caller voids the plan, which mutated nothing."""
+        with self._lock:
+            primary = self._primary
+        replica, handle = self._dispatch_with_failover(
+            lambda r, dv: r.client.solve_async(solve_args, pid,
+                                               profiles),
+            None, exclude=(primary,), kind="whatif")
+        with self._lock:
+            replica.busy = True
+        return PoolPendingSolve(self, replica, handle, kind="whatif")
+
+    # --------------------------------------------------------------- fetch
+
+    def _hedge_deadline_s(self, replica: _Replica) -> Optional[float]:
+        if hedge_p99_mult() <= 0 or len(self.replicas) < 2:
+            return None
+        p99 = self._p99_ms(replica)
+        if p99 is None:
+            return None
+        return max(p99 * hedge_p99_mult(), hedge_min_ms()) / 1e3
+
+    def _fetch(self, pending: PoolPendingSolve):
+        """Receive the reply, hedging past the primary's rolling-p99
+        deadline.  Returns the decoded AllocResult-shaped namedtuple
+        (the ``InflightSolve.fetch`` contract); raises the standard
+        lost-reply errors when every leg died."""
+        replica = pending.replica
+        t0 = time.perf_counter()
+        info = {"replica": replica.index, "kind": pending.kind,
+                "hedged": False, "hedge_won": False}
+        try:
+            if pending.kind != "primary" or not pending.hedgeable:
+                res = pending.handle.fetch()
+                self._finish_fetch(pending, replica, res, t0, info)
+                return res
+            deadline = self._hedge_deadline_s(replica)
+            if deadline is None or replica.client.reply_ready(deadline):
+                res = pending.handle.fetch()
+                self._finish_fetch(pending, replica, res, t0, info)
+                return res
+            return self._fetch_hedged(pending, t0, info, deadline)
+        except Exception as e:
+            self._mark_failure(replica)
+            with self._lock:
+                replica.busy = False
+                info["lost"] = type(e).__name__
+                self.last_fetch_info = info
+            raise
+
+    def _fetch_hedged(self, pending: PoolPendingSolve, t0: float,
+                      info: dict, deadline: float):
+        """The primary exceeded its hedge deadline: re-dispatch the
+        frozen frame to a second replica and commit whichever valid
+        reply lands first; the loser's reply parks for a drain."""
+        replica = pending.replica
+        hedge = self._choose(exclude=(replica.index,))
+        frozen = (self._hedge_frame_from_wire(replica.client)
+                  if hedge is not None else None)
+        hedge_handle = None
+        t_hedge = time.perf_counter()
+        if hedge is not None and frozen is not None:
+            self._drain(hedge, block=True)
+            fargs, fpid, fprof = frozen
+            dv = self._strip_devincr(hedge, pending.devincr)
+            try:
+                hedge_handle = hedge.client.solve_async(
+                    fargs, fpid, fprof, wave=pending.wave, devincr=dv)
+            except (OSError, ConnectionError, ValueError):
+                self._mark_failure(hedge)
+                hedge_handle = None
+            else:
+                with self._lock:
+                    hedge.busy = True
+                    self.hedge_dispatches += 1
+                info["hedged"] = True
+                self._count_dispatch(hedge, "hedge")
+                log.info(
+                    "solver pool hedge: replica %d reply past its "
+                    "p99 deadline (%.0f ms); re-dispatched to %d",
+                    replica.index, deadline * 1e3, hedge.index)
+        if hedge_handle is None:
+            # No hedge capacity: block on the primary as before.
+            res = pending.handle.fetch()
+            self._finish_fetch(pending, replica, res, t0, info)
+            return res
+        # First valid reply wins.  Replies are deterministic for
+        # identical frames, so committing either is equivalent; the
+        # loser's reply drains later, keeping its mirror coherent.
+        winner_is_hedge = self._wait_first(replica, hedge)
+        if winner_is_hedge:
+            with self._lock:
+                replica.draining = pending.handle
+                replica.busy = False
+            try:
+                res = hedge_handle.fetch()
+            except Exception:
+                # The hedge died at the finish line; fall back to the
+                # primary (drain-parked above, still in flight).
+                self._mark_failure(hedge)
+                with self._lock:
+                    replica.draining = None
+                    replica.busy = True
+                res = pending.handle.fetch()
+                self._finish_fetch(pending, replica, res, t0, info)
+                return res
+            # The primary is still in flight: its reply took AT LEAST
+            # this long (the drain discards it untimed later), so fold
+            # the lower bound into its routing state — a persistently
+            # slow member must lose _choose eventually, not keep its
+            # stale good EWMA and force a hedge every cycle.
+            self._note_latency(replica,
+                               (time.perf_counter() - t0) * 1e3)
+            return self._commit_hedge_win(hedge, res, t0, t_hedge,
+                                          info)
+        # Primary won after all: park the hedge reply for a drain.
+        with self._lock:
+            hedge.draining = hedge_handle
+            hedge.busy = False
+        try:
+            res = pending.handle.fetch()
+        except Exception:
+            # Primary died mid-reply with a live hedge outstanding:
+            # commit the hedge instead (identical frame).
+            with self._lock:
+                hedge.draining = None
+                hedge.busy = True
+            try:
+                res = hedge_handle.fetch()
+            except Exception:
+                # Double fault: BOTH legs died.  Mark the hedge here
+                # (clearing its busy flag — a leaked busy=True would
+                # silently retire the replica from rotation forever);
+                # the primary is marked ONCE, by _fetch's outer
+                # lost-reply handler on the re-raise (marking it here
+                # too would count one incident as two consecutive
+                # failures, doubling its re-probe cooldown).
+                self._mark_failure(hedge)
+                raise
+            self._mark_failure(replica)
+            return self._commit_hedge_win(hedge, res, t0, t_hedge,
+                                          info)
+        self._finish_fetch(pending, replica, res, t0, info)
+        return res
+
+    def _commit_hedge_win(self, hedge: _Replica, res, t0: float,
+                          t_hedge: float, info: dict):
+        """The ONE hedge-win commit sequence (both win paths: hedge
+        replied first, or the primary died mid-reply): counted only
+        AFTER the hedge reply actually decoded — a hedge that dies at
+        the finish line is not a win.  The hedge replica's latency
+        sample starts at ITS dispatch, not the primary's — charging it
+        the hedge deadline would teach the router the hedge replica is
+        slow for having rescued a straggler."""
+        with self._lock:
+            self.hedge_wins += 1
+            info["hedge_won"] = True
+            # The record names the replica whose reply COMMITTED (the
+            # recorder/tuning docs' contract), not the straggler.
+            info["replica"] = hedge.index
+            hedge.busy = False
+        metrics.solver_pool_hedge_wins.inc()
+        self.last_devincr_mode = hedge.client.last_devincr_mode
+        self._mark_success(hedge,
+                           (time.perf_counter() - t_hedge) * 1e3)
+        with self._lock:
+            info["wait_ms"] = round((time.perf_counter() - t0) * 1e3, 3)
+            self.last_fetch_info = info
+        return res
+
+    def _wait_first(self, primary: _Replica, hedge: _Replica) -> bool:
+        """Block until either leg's reply starts arriving; True when
+        the hedge replica's reply is first.  A dead socket reads as
+        ready (its fetch raises promptly, which the caller handles).
+        Bounded by the primary client's timeout: if NEITHER leg ever
+        replies (both children hung, blackholed network), fall back to
+        the primary's blocking fetch, whose socket timeout turns the
+        hang into the standard lost-reply OSError — hedging must never
+        remove the timeout bound the single-client path has."""
+        deadline = time.monotonic() + max(
+            float(primary.client.timeout or 0.0), 1.0)
+        while time.monotonic() < deadline:
+            socks = {}
+            for is_hedge, r in ((False, primary), (True, hedge)):
+                s = r.client.wire_socket()
+                if s is None:
+                    return is_hedge
+                socks[s] = is_hedge
+            ready, _, _ = select.select(list(socks), [], [], 1.0)
+            if ready:
+                return socks[ready[0]]
+        return False
+
+    def _finish_fetch(self, pending: PoolPendingSolve,
+                      replica: _Replica, res, t0: float,
+                      info: dict) -> None:
+        wait_ms = (time.perf_counter() - t0) * 1e3
+        with self._lock:
+            replica.busy = False
+        self._mark_success(replica, wait_ms)
+        self.last_devincr_mode = replica.client.last_devincr_mode
+        with self._lock:
+            info["wait_ms"] = round(wait_ms, 3)
+            self.last_fetch_info = info
+
+    def take_last_fetch_info(self) -> Optional[dict]:
+        with self._lock:
+            info, self.last_fetch_info = self.last_fetch_info, None
+        return info
+
+    def _abandon(self, pending: PoolPendingSolve) -> None:
+        """Drop the pending reply (scheduler shutdown / plan void) by
+        PARKING it for a drain — the hedge-loser machinery: the reply
+        is read and discarded opportunistically, keeping the
+        connection framing and the replica's wire cache warm (deltas
+        keep flowing), where a client abandon would tear the socket
+        down and cost a reconnect + full frame for EVERY stale-voided
+        what-if plan.  ``close()`` still tears parked replies down
+        with the socket at shutdown."""
+        replica = pending.replica
+        with self._lock:
+            replica.busy = False
+            if replica.draining is None:
+                replica.draining = pending.handle
+                return
+        # A reply is already parked (unreachable under the strict
+        # request/reply protocol, but never leak a second handle):
+        # fall back to the teardown abandon.
+        try:
+            pending.handle.abandon()
+        except Exception:  # pragma: no cover - best-effort teardown
+            log.debug("pool abandon failed", exc_info=True)
+
+
+def make_solver_client(addresses: str, timeout: float = 300.0):
+    """Build the store's solver client from a ``host:port[,host:port...]``
+    spec honoring ``VOLCANO_TPU_SOLVER_POOL``: a plain ``RemoteSolver``
+    for the default single-connection path (bit-for-bit today's wire),
+    a ``SolverPool`` when more than one replica is asked for."""
+    from .solver_service import RemoteSolver
+
+    addrs = [a.strip() for a in str(addresses).split(",") if a.strip()]
+    n = max(pool_size(), len(addrs))
+    if n <= 1:
+        return RemoteSolver(addrs[0], timeout=timeout)
+    return SolverPool(addrs, size=n, timeout=timeout)

@@ -1,0 +1,1311 @@
+"""The solver service: the solver child that owns the card, as its own
+process, and the scheduler's client of it.
+
+The counterpart of the JAX package's ``solver_service.py``.  The scheduler
+process (store, controllers, session encode, commit) runs the fast cycle
+without running the wave solve: it ships each cycle's solve inputs over a
+socket as one frame packed by the port's C++ codec (``cache/snapwire.py``,
+``csrc/host/vcsnap.cc``), and the solver child runs the port's
+``ops.wave.solve_wave`` on its card and returns the assignment vectors the
+commit consumes.  The wire is the JAX package's, byte for byte, so a JAX
+scheduler can drive a port child and a port scheduler a JAX child.
+
+Wire protocol v2 (one TCP connection, request/response):
+
+    [u64 little-endian frame length][frame bytes]
+
+Request manifest: ``{"op": "solve", "tree": <spec>, "wave": int|None}``
+(``tree`` is the ``snapwire.flatten_tree`` spec of
+``(solve_args, pid, profiles)``), or ``{"op": "ping"}``.
+Response manifest: ``{"op": "result", "tree": ...}`` with
+``(assigned, pipelined, never_ready, fit_failed, iters, fb_exhausted,
+fb_affinity)`` (decoders accept the older 5-tuple, the two shortlist-
+fallback counters then read as zero) or ``{"op": "error", "message":
+...}``.
+
+Protocol v2 additions (a v1 manifest without them behaves exactly as
+before):
+
+- **Delta solve frames** (``VOLCANO_TPU_WIRE``, default on): the child
+  keeps a per-connection mirror of the last materialized solve-args
+  arrays, keyed by a client-assigned generation.  A solve manifest may
+  carry ``"wire": {"gen": g}`` (full frame: the frame's arrays replace
+  the mirror wholesale) or ``"wire": {"gen": g, "base": b, "recs":
+  [...]}`` (delta frame: per mirror slot, ``[REC_SAME]`` reuses the
+  mirrored array, ``[REC_FULL, p]`` replaces it with frame array p,
+  ``[REC_DELTA, d, p]`` patches the changed row ranges of descriptor
+  array d with the row payload array p).  Every reply echoes
+  ``"ack_gen": g``; a delta whose ``base`` is not the mirror's generation
+  gets a ``{"op": "resync", "have_gen": ...}`` reply without solving, so a
+  reconnect, child restart or token mismatch always falls back to a full
+  frame, never a stale solve.
+- **Scatter-gather transport**: frames go out as header bytes plus
+  ``memoryview``s of the array data via ``socket.sendmsg`` and come in
+  with ``recv_into`` one preallocated buffer.
+- **Same-host shared memory** (``VOLCANO_TPU_SHM=1``): array payloads
+  ride a ``multiprocessing.shared_memory`` segment (``"shm": {"name",
+  "slots"}`` in the manifest, no arrays on the socket).  A child that
+  cannot attach the segment replies an ``ShmUnavailable`` error; the
+  client then disables the lane and re-sends over TCP: the fallback costs
+  one cycle, never a stale solve.
+
+Run the child:  ``python -m volcano_tpu_torch.solver_service --port 18477
+--announce`` (on the card; ``--device cpu`` runs the plain versions on
+the CPU).  Point a port store at it:  ``store.remote_solver =
+RemoteSolver("127.0.0.1:18477")`` (or ``solver_pool.make_solver_client``).
+
+Failure semantics: a transport or solver error fails the cycle (or, for a
+pipelined solve, loses its reply: the rows re-place); the scheduler's next
+period retries (the store is untouched, the solve is pure).  The client
+reconnects per error, so a restarted child heals without scheduler
+intervention; its first frame is full.
+"""
+
+from __future__ import annotations
+
+import argparse
+import itertools
+import logging
+import os
+import socket
+import struct
+import threading
+from typing import Dict, List, Optional, Sequence, Tuple
+
+import numpy as np
+import torch
+
+from .device import to_tensor
+
+log = logging.getLogger(__name__)
+
+_LEN = struct.Struct("<Q")
+# A full hyperscale chunk is ~1 GB of count tensors; anything beyond this
+# is a corrupt length prefix, not a snapshot.
+MAX_FRAME = 8 << 30
+
+
+def _registry():
+    """The NamedTuples a frame may carry, by name.  The port's copies keep
+    the JAX package's names and field orders, so either package's client
+    drives either package's child."""
+    from .arrays.affinity import AffinityArgs
+    from .ops.allocate import (
+        SolveJobs,
+        SolveNodes,
+        SolveQueues,
+        SolveTasks,
+    )
+    from .ops.scoring import ScoreWeights
+    from .ops.wave import SolveProfiles
+
+    return {
+        cls.__name__: cls
+        for cls in (SolveNodes, SolveTasks, SolveJobs, SolveQueues,
+                    ScoreWeights, AffinityArgs, SolveProfiles)
+    }
+
+
+def wire_mode() -> str:
+    """The delta-frame lane switch ``VOLCANO_TPU_WIRE``, read per frame:
+    ``"on"`` (delta frames when the wire cache holds, the default),
+    ``"off"`` (classic v1 full frames, no wire section at all: the kill
+    switch), or ``"fallback"`` (the v2 machinery runs but every frame voids
+    the cache first, exercising the full-frame fallback path)."""
+    v = os.environ.get("VOLCANO_TPU_WIRE", "1").strip().lower()
+    if v in ("0", "off", "no"):
+        return "off"
+    if v == "fallback":
+        return "fallback"
+    return "on"
+
+
+def shm_on() -> bool:
+    """Same-host shared-memory payload lane (``VOLCANO_TPU_SHM=1``)."""
+    return os.environ.get("VOLCANO_TPU_SHM", "0") == "1"
+
+
+def _recv_exact(sock: socket.socket, n: int) -> bytearray:
+    """Receive exactly n bytes into ONE preallocated buffer.  The old
+    chunk-list + ``b"".join`` made a second full copy of every frame;
+    ``recv_into`` fills the final buffer directly (and the returned
+    ``bytearray`` is writable, so the child's mirror can patch delta
+    rows into it in place)."""
+    buf = bytearray(n)
+    view = memoryview(buf)
+    got = 0
+    while got < n:
+        r = sock.recv_into(view[got:], n - got)
+        if not r:
+            raise ConnectionError("peer closed mid-frame")
+        got += r
+    return buf
+
+
+# sendmsg iovec budget per call (IOV_MAX is 1024 on Linux; stay under).
+_SENDMSG_MAX_PARTS = 512
+
+
+def send_frame_views(sock: socket.socket, total: int, parts) -> None:
+    """Scatter-gather frame send: the length prefix plus the codec's
+    header/data buffers go out via ``socket.sendmsg`` (writev) with no
+    concatenation — zero extra host copies for the array payload.
+    Handles partial sends by advancing through the buffer list."""
+    bufs = [_LEN.pack(total)]
+    bufs.extend(parts)
+    if not hasattr(sock, "sendmsg"):  # pragma: no cover - exotic hosts
+        sock.sendall(b"".join(bytes(b) for b in bufs))
+        return
+    i = 0
+    while i < len(bufs):
+        sent = sock.sendmsg(bufs[i:i + _SENDMSG_MAX_PARTS])
+        while i < len(bufs) and sent >= len(bufs[i]):
+            sent -= len(bufs[i])
+            i += 1
+        if sent:
+            bufs[i] = memoryview(bufs[i])[sent:]
+
+
+def send_frame(sock: socket.socket, payload: bytes) -> None:
+    # Two sendalls, no prefix+payload concatenation: at hyperscale a
+    # frame carries ~GB of count tensors and the concat would copy it.
+    sock.sendall(_LEN.pack(len(payload)))
+    sock.sendall(payload)
+
+
+def recv_frame(sock: socket.socket) -> bytearray:
+    (n,) = _LEN.unpack(_recv_exact(sock, 8))
+    if n > MAX_FRAME:
+        raise ValueError(f"frame length {n} exceeds limit")
+    return _recv_exact(sock, n)
+
+
+# ----------------------------------------------------------- shm payloads
+
+
+class ShmUnavailable(RuntimeError):
+    """The child could not attach the client's shared-memory segment
+    (different host, unlinked segment, resized race).  The error reply
+    carries this type name; the client disables the shm lane and
+    re-sends payloads over TCP — one lost cycle, never a stale solve."""
+
+
+# Segment names embed the pid plus a PROCESS-GLOBAL sequence: two live
+# clients in one process (two stores, an A/B) must never both
+# create "vtpu_wire_<pid>_1".
+_SHM_SEQ = itertools.count(1)
+
+
+class _ShmLane:
+    """Client side of the same-host payload lane: one resizable
+    ``multiprocessing.shared_memory`` segment the scheduler writes each
+    frame's array payloads into (8-aligned slots); the socket carries
+    only the manifest.  The strict request/reply protocol (at most one
+    solve outstanding) guarantees the child finished reading a frame's
+    slots before the next frame overwrites them."""
+
+    def __init__(self):
+        self._seg = None
+
+    def write(self, arrays: List[np.ndarray]) -> dict:
+        from multiprocessing import shared_memory
+
+        from .cache import snapwire as sw
+
+        # Same wire-format restrictions as the socket codec, checked
+        # up front so an unsupported array fails like the TCP path
+        # (not a bare KeyError from the slot builder below).
+        for a in arrays:
+            if a.dtype not in sw._DTYPE_CODE:
+                raise TypeError(f"unsupported wire dtype {a.dtype}")
+            if a.ndim > sw.WIRE_MAX_DIMS:
+                raise ValueError(f"unsupported wire ndim {a.ndim}")
+        # Slot alignment is the frame codec's: the 8-byte rule that
+        # lays out socket frames also lays out segment slots.
+        need = sum(sw._align8(a.nbytes) for a in arrays)
+        if self._seg is None or need > self._seg.size:
+            old = self._seg
+            size = max(need, 1 << 20)
+            if old is not None:
+                size = max(size, 2 * old.size)
+            self._seg = shared_memory.SharedMemory(
+                name=f"vtpu_wire_{os.getpid()}_{next(_SHM_SEQ)}",
+                create=True, size=size,
+            )
+            if old is not None:
+                old.close()
+                old.unlink()
+        slots = []
+        off = 0
+        for a in arrays:
+            if a.nbytes:
+                np.frombuffer(self._seg.buf, np.uint8, count=a.nbytes,
+                              offset=off)[:] = a.reshape(-1).view(np.uint8)
+            slots.append([int(sw._DTYPE_CODE[a.dtype]), list(a.shape),
+                          off])
+            off += sw._align8(a.nbytes)
+        return {"name": self._seg.name, "slots": slots}
+
+    def close(self) -> None:
+        if self._seg is not None:
+            try:
+                self._seg.close()
+                self._seg.unlink()
+            except (OSError, BufferError):
+                # Best-effort teardown: a still-live numpy view keeps
+                # the mmap exported (BufferError); the segment unlinks
+                # when the last holder drops it.
+                pass
+            self._seg = None
+
+
+class _ShmReader:
+    """Child side: attaches the client's segment (cached by name) and
+    views the frame's payload arrays out of it."""
+
+    def __init__(self):
+        self._seg = None
+        self._name = None
+        # Segments replaced by growth whose payload views may still be
+        # alive: keep them referenced (log-bounded — growth doubles)
+        # instead of a close() that hits BufferError and then re-raises
+        # unraisably from SharedMemory.__del__ at GC time.
+        self._retired: List = []
+
+    def arrays(self, section: dict) -> List[np.ndarray]:
+        from .cache import snapwire as sw
+
+        name = section.get("name")
+        if name != self._name:
+            if self._seg is not None:
+                self._retired.append(self._seg)
+                self._seg = None
+                self._name = None
+            try:
+                from multiprocessing import shared_memory
+
+                seg = shared_memory.SharedMemory(name=name, create=False)
+            except (OSError, ValueError, TypeError) as e:
+                raise ShmUnavailable(f"cannot attach segment "
+                                     f"{name!r}: {e}") from e
+            # py3.10 registers ATTACHED segments with the resource
+            # tracker too, which would unlink the client's live segment
+            # when this process exits; the creator owns the unlink.
+            # Skip when creator and reader share a process (in-process
+            # server): attach and create then share ONE tracker
+            # entry, and unregistering here would delete the creator's.
+            try:
+                creator_pid = int(str(name).split("_")[2])
+            except (IndexError, ValueError):
+                creator_pid = -1
+            if creator_pid != os.getpid():
+                try:  # pragma: no cover - stdlib-version dependent
+                    from multiprocessing import resource_tracker
+
+                    resource_tracker.unregister(seg._name,
+                                                "shared_memory")
+                except Exception:
+                    pass
+            self._seg, self._name = seg, name
+        out = []
+        size = self._seg.size
+        for code, shape, off in section.get("slots", ()):
+            code, off = int(code), int(off)
+            if not 0 <= code < len(sw._DTYPES):
+                raise ShmUnavailable(f"bad dtype code {code}")
+            dt = sw._DTYPES[code]
+            shape = tuple(int(d) for d in shape)
+            # Unbounded python-int arithmetic: np.prod over hostile
+            # dims (e.g. [2**32, 2**32]) wraps int64 to 0 and would
+            # sail through the bounds check below.
+            count = 1
+            for d in shape:
+                count *= d
+            nbytes = count * dt.itemsize
+            if min(shape, default=0) < 0 or off < 0 \
+                    or nbytes > size - off:
+                raise ShmUnavailable("slot outside segment bounds")
+            out.append(np.frombuffer(self._seg.buf, dt, count=count,
+                                     offset=off).reshape(shape))
+        return out
+
+    def close(self) -> None:
+        if self._seg is not None:
+            self._retired.append(self._seg)
+            self._seg = None
+            self._name = None
+        retired, self._retired = self._retired, []
+        for seg in retired:
+            try:
+                seg.close()
+            except (OSError, BufferError):
+                # A frame's payload views may still be alive (teardown
+                # mid-request); dropping the reference suffices.
+                pass
+
+
+# ----------------------------------------------------------- wire mirror
+
+
+class _WireMirror:
+    """The child's per-connection mirror of the last materialized
+    solve-args array list (protocol v2 delta frames).  ``gen`` is the
+    client-assigned generation of the mirrored state; -1 = empty or
+    poisoned (the next frame must be full or gets a resync reply)."""
+
+    def __init__(self):
+        self.gen = -1
+        self.arrays: List[np.ndarray] = []
+
+    def poison(self) -> None:
+        """Drop the mirrored state: the next delta frame gets a resync
+        reply and the client falls back to a full frame.  The single
+        owner of the poison invariant — gen and arrays reset together."""
+        self.gen = -1
+        self.arrays = []
+
+    def apply(self, sw, wire: dict, payload: List[np.ndarray],
+              payload_shared: bool) -> List[np.ndarray]:
+        """Materialize the solve arrays for this frame and advance the
+        mirror.  Raises ``ValueError`` on a malformed frame (the mirror
+        is poisoned first, so the NEXT delta resyncs rather than
+        patching inconsistent state)."""
+        gen = int(wire["gen"])
+        recs = wire.get("recs")
+        if recs is None:
+            # Full frame: payload IS the slot list.  Shared-memory
+            # payloads are views into the client's segment, which the
+            # next frame overwrites — mirror slots must own their
+            # bytes.  Socket payloads are views into this frame's
+            # private recv buffer and are kept as-is (zero copies).
+            self.arrays = [np.array(a) if payload_shared else a
+                           for a in payload]
+            self.gen = gen
+            return self.arrays
+        base = int(wire.get("base", -2))
+        if base != self.gen or len(recs) != len(self.arrays):
+            raise _ResyncNeeded(self.gen)
+        try:
+            out = []
+            for i, rec in enumerate(recs):
+                tag = int(rec[0])
+                if tag == sw.REC_SAME:
+                    out.append(self.arrays[i])
+                elif tag == sw.REC_FULL:
+                    a = payload[int(rec[1])]
+                    out.append(np.array(a) if payload_shared else a)
+                elif tag == sw.REC_DELTA:
+                    a = self.arrays[i]
+                    if not (a.flags.writeable and a.flags.c_contiguous):
+                        a = np.array(a)  # one-time private writable copy
+                    sw.delta_apply(a, np.ascontiguousarray(
+                        payload[int(rec[1])], np.int64),
+                        payload[int(rec[2])], base, base)
+                    out.append(a)
+                else:
+                    raise ValueError(f"unknown wire record tag {tag}")
+        except Exception:
+            # A half-applied delta leaves the mirror inconsistent;
+            # poison it so the next delta frame resyncs to full.
+            self.poison()
+            raise
+        self.arrays = out
+        self.gen = gen
+        return out
+
+
+class _ResyncNeeded(Exception):
+    """The mirror does not hold the delta's base generation (reconnect
+    race, poisoned mirror): reply ``{"op": "resync"}`` without solving."""
+
+    def __init__(self, have_gen: int):
+        super().__init__(f"mirror at gen {have_gen}")
+        self.have_gen = have_gen
+
+
+# ------------------------------------------------------------------ server
+
+
+class SolverServer:
+    """Owns the solve device (the card unless ``device="cpu"``); serves
+    solve requests over TCP.
+
+    Each connection has its own thread, wire mirror and device-incremental
+    context, but the solves run one at a time under ``_solve_lock``: the
+    port's solve keeps module state (``wave.LAST_TWOPHASE``, the launch
+    counters) and launches on the calling thread's current stream.  The
+    reply's encode and send and the fault-injection delay run outside the
+    lock, so a held-back reply never holds back another connection's
+    solve."""
+
+    def __init__(self, host: str = "127.0.0.1", port: int = 18477,
+                 device=None):
+        from .device import resolve_device
+
+        # Resolved first: a host without CUDA raises before a port opens.
+        self.device = resolve_device(device)
+        self._sock = socket.create_server((host, port))
+        self.port = self._sock.getsockname()[1]
+        self.host = host
+        self._stop = threading.Event()
+        self._solve_lock = threading.Lock()
+        # Live connections (thread -> socket), so shutdown() can close and
+        # join them: a thread that ran solves must not outlive the server
+        # (torch's per-thread state would then be torn down by the
+        # process exit under it).
+        self._conn_lock = threading.Lock()
+        self._conns: Dict[threading.Thread, socket.socket] = {}
+        # Solves served; read and written under _solve_lock.
+        self.solves = 0
+        # Fault-injection hook (the solver-pool tests, chip_smoke.py's
+        # pool phase): called with the running solve count after the
+        # solve; a positive return sleeps that many seconds before the
+        # reply ships (a reply-side straggler, the tail the pool's hedged
+        # dispatch exists to cut), and a hook that blocks on an event
+        # orders replies without sleeps.  None in production.
+        self.solve_delay_fn = None
+
+    def serve_forever(self) -> None:
+        self._sock.settimeout(0.5)
+        while not self._stop.is_set():
+            try:
+                conn, addr = self._sock.accept()
+            except socket.timeout:
+                continue
+            except OSError:
+                break
+            log.info("solver client connected: %s", addr)
+            t = threading.Thread(
+                target=self._serve_conn, args=(conn,), daemon=True
+            )
+            with self._conn_lock:
+                if self._stop.is_set():
+                    conn.close()
+                    break
+                self._conns[t] = conn
+            t.start()
+
+    def shutdown(self) -> None:
+        """Stop accepting, close every live connection and wait (up to
+        ``_JOIN_S`` seconds each) for their threads to finish the solve
+        they may be running."""
+        self._stop.set()
+        try:
+            self._sock.close()
+        except OSError:
+            pass
+        with self._conn_lock:
+            conns = list(self._conns.items())
+        for _t, conn in conns:
+            try:
+                conn.shutdown(socket.SHUT_RDWR)
+            except OSError:
+                pass
+        for t, _conn in conns:
+            if t is not threading.current_thread() and t.ident is not None:
+                t.join(_JOIN_S)
+
+    # ------------------------------------------------------------ handling
+
+    def _serve_conn(self, conn: socket.socket) -> None:
+        from .cache import snapwire as sw
+        from .ops.devincr import DeviceIncremental
+
+        registry = _registry()
+        # Per-connection device-incremental caches: the
+        # scheduler sends cache-generation tokens in each solve frame's
+        # manifest, so the child keeps its own persistent static planes
+        # and warm-shortlist candidates across solves — one context per
+        # connection (one scheduler per connection by protocol).
+        devincr = DeviceIncremental()
+        # Per-connection wire mirror + shm attachment (protocol v2):
+        # the delta-frame base state lives with the connection — a
+        # reconnect starts empty, so the first frame is always full.
+        mirror = _WireMirror()
+        shm = _ShmReader()
+        try:
+            while True:
+                try:
+                    req = recv_frame(conn)
+                except (ConnectionError, ValueError, OSError):
+                    return
+                try:
+                    reply = self._handle(req, registry, sw, devincr,
+                                         mirror, shm)
+                except _ResyncNeeded as rs:
+                    # The mirror does not hold the delta's base: no
+                    # solve ran, but the scheduler anchored its dirty
+                    # accumulator at send time — drop the cached device
+                    # planes so the post-fallback solve provably
+                    # full-recomputes over the rows this frame carried.
+                    devincr.invalidate()
+                    reply = sw.encode_frame(
+                        [], {"op": "resync", "have_gen": rs.have_gen}
+                    )
+                except Exception as e:  # solver-side error -> client raises
+                    log.exception("solve failed")
+                    # The scheduler anchored its dirty accumulator at
+                    # SEND time (it cannot see this failure distinctly
+                    # from a slow solve), so the failed frame's dirty
+                    # rows will be absent from later frames: drop every
+                    # cached plane — the next solve provably
+                    # full-recomputes (and sheds any buffer a
+                    # mid-execution crash poisoned).  The wire mirror is
+                    # likewise untrustworthy (the frame may have half-
+                    # applied); poison it so the next delta resyncs.
+                    devincr.invalidate()
+                    mirror.poison()
+                    reply = sw.encode_frame(
+                        [], {"op": "error", "message": f"{type(e).__name__}: {e}"}
+                    )
+                try:
+                    send_frame(conn, reply)
+                except OSError:
+                    return
+        finally:
+            shm.close()
+            try:
+                conn.close()
+            except OSError:
+                pass
+            with self._conn_lock:
+                self._conns.pop(threading.current_thread(), None)
+
+    def _handle(self, req: bytes, registry, sw, devincr=None,
+                mirror=None, shm=None) -> bytes:
+        manifest, arrays = sw.decode_frame(req)
+        op = manifest.get("op")
+        if op == "ping":
+            dev = self.device
+            name = (torch.cuda.get_device_name(dev) if dev.type == "cuda"
+                    else "cpu")
+            with self._solve_lock:
+                solves = self.solves
+            return sw.encode_frame(
+                [], {"op": "pong", "solves": solves, "backend": dev.type,
+                     "device": name, "wire": 2}
+            )
+        if op != "solve":
+            return sw.encode_frame(
+                [], {"op": "error", "message": f"unknown op {op!r}"}
+            )
+        # Same-host shm lane: the socket frame carried only the
+        # manifest; the payload arrays live in the client's segment.
+        shm_section = manifest.get("shm")
+        if shm_section is not None:
+            if shm is None:
+                raise ShmUnavailable("no shm reader on this connection")
+            arrays = shm.arrays(shm_section)
+        # Delta solve frames (protocol v2): materialize this frame's
+        # slot arrays through the per-connection mirror.  A frame
+        # without the section solves exactly as v1 (and poisons the
+        # mirror — mixed v1/v2 clients on one connection cannot
+        # interleave safely).
+        wire = manifest.get("wire")
+        ack_gen = None
+        if wire is not None and mirror is not None:
+            arrays = mirror.apply(sw, wire, arrays,
+                                  payload_shared=shm_section is not None)
+            ack_gen = int(wire["gen"])
+        elif mirror is not None:
+            mirror.poison()
+        # The recv buffer, shm segment and mirror slots are writable (the
+        # mirror patches delta rows in place): ``_solve`` copies each array
+        # once into memory of its own before the solve reads it.
+        solve_args, pid, profiles = sw.unflatten_tree(
+            manifest["tree"], arrays, registry
+        )
+        kw = {}
+        if manifest.get("wave") is not None:
+            kw["wave"] = int(manifest["wave"])
+        import time as _time
+
+        # Device-incremental tokens: the scheduler's frame names the cache
+        # generations its static planes / warm shortlists are valid under;
+        # this child's per-connection context applies the same key and
+        # dirty-superset discipline the local path does (ops/devincr.py).
+        # Frames without the section (kill switch) solve exactly as before.
+        dv_tokens = manifest.get("devincr")
+        dirty = None
+        if dv_tokens and dv_tokens.get("dirty_nodes") is not None:
+            dirty = np.asarray(dv_tokens["dirty_nodes"], np.int64)
+        dv = None
+        t0 = _time.perf_counter()
+        with self._solve_lock:
+            if devincr is not None and dv_tokens:
+                devincr.begin_solve(dv_tokens.get("static_key"),
+                                    dv_tokens.get("warm_key"), dirty)
+                dv = devincr
+            out = self._solve(solve_args, pid, profiles, dv, kw)
+            self.solves += 1
+            solves = self.solves
+        solve_ms = (_time.perf_counter() - t0) * 1e3
+        if self.solve_delay_fn is not None:
+            delay = float(self.solve_delay_fn(solves) or 0.0)
+            if delay > 0:
+                _time.sleep(delay)
+        arrays_out = []
+        tree = sw.flatten_tree(out, arrays_out)
+        reply = {"op": "result", "tree": tree,
+                 "solve_ms": round(solve_ms, 1)}
+        if ack_gen is not None:
+            # Explicit per-reply acknowledgement of the frame generation
+            # this result was solved from; the client cross-checks it
+            # against the generation it dispatched (a mismatch voids
+            # the wire cache and the reply — never a stale solve).
+            reply["ack_gen"] = ack_gen
+        if dv is not None:
+            reply["devincr_mode"] = dv.last_mode
+        return sw.encode_frame(arrays_out, reply)
+
+
+    def _solve(self, solve_args, pid, profiles, dv, kw) -> tuple:
+        """Run the port's ``solve_wave`` on this child's device and fetch
+        the reply's seven fields to the host in one copy (the caller holds
+        ``_solve_lock``).
+
+        The frame arrays are views of the receive buffer, the shm segment
+        or the wire mirror's slots, and the mirror patches its slots in
+        place on the next delta.  Each array is therefore copied once
+        here, at the child's boundary, into memory the solve owns: the
+        node table's planes to the device (``taint_any`` and the node
+        classes are read off the host copy first, so no plane comes back),
+        every other array into a private host copy that the solve reads or
+        uploads.  Nothing the solve keeps (the device-incremental planes)
+        can alias a buffer that changes later."""
+        from .ops import wave as _wave
+        from .ops.allocate import SolveNodes
+        from .ops.wave import solve_wave
+        from .pipeline import owned
+
+        dev = self.device
+        args = [owned(a) for a in solve_args]
+        nodes = SolveNodes(*args[0])
+        extra = {"taint_any": bool(nodes.taint_bits.any())}
+        if (_wave._two_phase_on() and nodes.idle.shape[0]
+                and _wave._nodeclass_on()):
+            extra["node_classes"] = _wave._host_node_classes(nodes)
+        if dev.type == "cuda":
+            # releasing / pipelined stay on the host: the solve reads
+            # their any() there (they are [1, R] outside eviction cycles).
+            args[0] = nodes._replace(**{
+                f: to_tensor(getattr(nodes, f), dev)
+                for f in _DEVICE_NODE_PLANES})
+        res = solve_wave(*args, pid=owned(pid), profiles=owned(profiles),
+                         devincr=dv, device=dev, **extra, **kw)
+        P = int(res.assigned.reshape(-1).shape[0])
+        J = int(res.never_ready.reshape(-1).shape[0])
+
+        def flat(t):
+            if t is None:
+                return torch.zeros(1, dtype=torch.int32, device=dev)
+            return torch.as_tensor(t, device=dev).reshape(-1).to(
+                torch.int32)
+
+        packed = torch.cat([
+            flat(res.assigned), flat(res.pipelined), flat(res.never_ready),
+            flat(res.fit_failed), flat(res.iters), flat(res.fb_exhausted),
+            flat(res.fb_affinity)]).cpu().numpy()
+        # The JAX child's reply dtypes: node indices narrow to int16 while
+        # the node axis fits (wave.py:2275-2282), the flags are bool and
+        # the three counters int32 scalars.
+        idx = np.int16 if int(nodes.idle.shape[0]) <= 32000 else np.int32
+        out = []
+        o = 0
+        for width, dtype in ((P, idx), (P, idx), (J, np.bool_),
+                             (J, np.bool_)):
+            out.append(packed[o:o + width].astype(dtype))
+            o += width
+        out.extend(np.asarray(packed[o + i], np.int32) for i in range(3))
+        return tuple(out)
+
+
+# How long shutdown() waits for a connection's thread (its solve).
+_JOIN_S = 30.0
+
+# The node planes the child uploads at its boundary (``SolverServer.
+# _solve``); the solve reads the other two on the host.
+_DEVICE_NODE_PLANES = ("idle", "allocatable", "ntasks", "max_tasks",
+                       "ports", "ready", "label_bits", "taint_bits")
+
+
+# ------------------------------------------------------------------ client
+
+
+class _WireCache:
+    """Client side of the delta-frame lane: private copies of the last
+    solve-args arrays the child provably mirrors (what frame ``gen``
+    materialized to), plus the reason the next frame must ship full.
+    Copies, not references — encode inputs may be views of persistent
+    planes the scheduler mutates in place, and the diff must run
+    against the bytes the child actually holds."""
+
+    def __init__(self):
+        self.spec = None     # tree spec of the mirrored frame
+        self.arrays = None   # list of private np copies, slot order
+        self.pending_reason: Optional[str] = None
+
+    def invalidate(self, reason: Optional[str] = None) -> None:
+        if reason is not None and self.arrays is not None \
+                and self.pending_reason is None:
+            self.pending_reason = reason
+        self.spec = None
+        self.arrays = None
+
+
+# Below this many bytes (or above this changed-row fraction) a slot
+# ships whole: the descriptor + range bookkeeping would cost more than
+# the rows it saves.
+_DELTA_MIN_BYTES = 1024
+_DELTA_MAX_FRACTION = 0.5
+
+
+class RemoteSolver:
+    """Client-side drop-in for ``solve_wave`` over the snapshot bridge.
+
+    One persistent connection; reconnects after any transport error so a
+    restarted solver process heals transparently.  Thread-compatible with
+    the scheduler's single cycle thread (no internal locking needed
+    beyond reconnect)."""
+
+    def __init__(self, address: str, timeout: float = 300.0):
+        if "//" in address:
+            address = address.split("//", 1)[1]
+        host, _, port = address.rpartition(":")
+        self.host = host or "127.0.0.1"
+        self.port = int(port)
+        self.timeout = timeout
+        self._lock = threading.Lock()
+        self._sock: Optional[socket.socket] = None  # guarded-by: _lock
+        # Outstanding pipelined request (solve_async): the wire protocol
+        # is strict request/reply, so at most one may be unread.
+        self._pending: Optional["PendingSolve"] = None  # guarded-by: _lock
+        # Round-trip and payload telemetry.
+        self.requests = 0
+        self.bytes_out = 0
+        self.bytes_in = 0
+        self.last_solve_ms: Optional[float] = None
+        # Device-incremental decision the child reported for the last
+        # decoded reply ("warm" | "full" | None) — the scheduler folds
+        # it into volcano_device_incremental_solves_total.
+        self.last_devincr_mode: Optional[str] = None
+        # Delta-frame wire state (protocol v2).  All wire-cache access
+        # happens on the scheduler's single cycle thread (encode under
+        # _lock, decode after the reply), like the telemetry counters.
+        self._wire = _WireCache()
+        self._gen = 0
+        # Set when the child proves it speaks protocol v1 (a reply with
+        # no ack_gen): the delta lane self-disables for this client's
+        # life — rolling upgrades degrade to v1 full frames instead of
+        # dropping every reply (like the shm lane's self-disable).
+        self._wire_v1_child = False
+        self._shm = _ShmLane() if shm_on() else None
+        # Frame telemetry for the metrics counters.
+        self.frame_counts = {"full": 0, "delta": 0}
+        self.frame_bytes = {"full": 0, "delta": 0}
+        self.wire_fallbacks: Dict[str, int] = {}
+        self.last_frame_kind: Optional[str] = None
+        self.last_wire_gen: Optional[int] = None
+        # Span sink (obs/trace.py Tracer; the default is the shared
+        # no-op): the pipelined send and
+        # fetch legs then land in the cycle trace as "rpc" track spans.
+        from .obs.trace import null_tracer
+
+        self.tracer = null_tracer()
+
+    # holds: _lock
+    def _connect(self) -> socket.socket:
+        if self._sock is None:
+            s = socket.create_connection(
+                (self.host, self.port), timeout=self.timeout
+            )
+            s.setsockopt(socket.IPPROTO_TCP, socket.TCP_NODELAY, 1)
+            self._sock = s
+            if self._shm is not None and not self._wire_v1_child:
+                self._handshake_locked()
+        return self._sock
+
+    # holds: _lock
+    def _handshake_locked(self) -> None:
+        """One ping round trip on a fresh connection while the shm lane
+        is armed.  A protocol-v1 child cannot report ShmUnavailable —
+        it never reads the manifest's shm section, it just errors on
+        the empty array list — so every shm solve would fail as a
+        generic child error forever.  Probe the advertised wire
+        version up front instead and degrade to v1 TCP frames before
+        the first payload ships (the delta-lane skew heals itself via
+        the missing ack_gen; this handshake exists for shm)."""
+        from .cache import snapwire as sw
+
+        send_frame(self._sock, sw.encode_frame([], {"op": "ping"}))
+        manifest, _ = sw.decode_frame(recv_frame(self._sock))
+        try:
+            wire_version = int(manifest.get("wire") or 0)
+        except (TypeError, ValueError):
+            wire_version = 0
+        if wire_version < 2:
+            self._wire_v1_child = True
+            self._disable_shm(
+                "protocol-v1 solver (no wire>=2 in pong)")
+
+    def _close_locked(self, reason: Optional[str] = None) -> None:
+        if self._sock is not None:
+            try:
+                self._sock.close()
+            except OSError:
+                pass
+            self._sock = None
+        # The child's mirror lives with the connection: any close voids
+        # the wire cache, so the next frame after a reconnect is full
+        # by construction (``reason`` labels the fallback counter).
+        self._wire.invalidate(reason)
+        if self._shm is not None:
+            # An abandoned/lost solve may still be mid-read in the old
+            # child thread: retire the segment (its mapping stays valid
+            # until the child drops it) so the next frame writes fresh
+            # memory instead of tearing the in-flight read — the strict
+            # request/reply overwrite guarantee does not span a close.
+            self._shm.close()
+
+    def close(self) -> None:
+        with self._lock:
+            self._pending = None
+            self._close_locked()
+        if self._shm is not None:
+            self._shm.close()
+            self._shm = None
+
+    # holds: _lock
+    def _retry_locked(self, attempt):
+        """Run ``attempt`` (a thunk that connects/sends/receives on the
+        socket); on a transport error, reconnect once (solver restart)
+        and re-run it — frames are REBUILT by the thunk, not resent,
+        because the close voided the wire cache — then give up closing
+        again, letting the cycle fail/retry next period."""
+        try:
+            return attempt()
+        except (OSError, ConnectionError, ValueError):
+            self._close_locked("reconnect")
+            try:
+                return attempt()
+            except (OSError, ConnectionError, ValueError):
+                self._close_locked("reconnect")
+                raise
+
+    def _roundtrip(self, payload: bytes) -> bytes:
+        with self._lock:
+            if self._pending is not None:
+                raise RuntimeError(
+                    "a pipelined solve is in flight; fetch or abandon "
+                    "it before a synchronous round trip"
+                )
+
+            def attempt():
+                sock = self._connect()
+                send_frame(sock, payload)
+                return recv_frame(sock)
+
+            return self._retry_locked(attempt)
+
+    def ping(self) -> dict:
+        from .cache import snapwire as sw
+
+        manifest, _ = sw.decode_frame(
+            self._roundtrip(sw.encode_frame([], {"op": "ping"}))
+        )
+        return manifest
+
+    def _count_fallback(self, reason: str) -> None:
+        from .metrics import metrics
+
+        self.wire_fallbacks[reason] = \
+            self.wire_fallbacks.get(reason, 0) + 1
+        metrics.remote_frame_fallback.inc(reason=reason)
+
+    def _disable_shm(self, why: str) -> None:
+        """The child cannot attach the segment (different host, stale
+        name): drop the lane for the rest of this client's life and
+        void the wire cache — the child errored before mirroring the
+        frame, so the next frame must ship full, over TCP."""
+        log.warning("remote solver shm lane disabled: %s", why)
+        self._count_fallback("shm")
+        self._wire.invalidate()
+        if self._shm is not None:
+            self._shm.close()
+            self._shm = None
+
+    def _build_frame(self, solve_args: Sequence, pid, profiles,
+                     wave: Optional[int], devincr: Optional[dict]):
+        """Encode one solve frame against the wire cache: ``(total_len,
+        buffers, kind, gen)``.  ``kind`` is "full" or "delta"; ``gen``
+        is the frame generation (None with the kill switch off).  The
+        wire cache is updated to the frame's content HERE — a failed
+        send closes the socket, which voids the cache, so the cache
+        only ever describes bytes the child received in order."""
+        from .cache import snapwire as sw
+
+        arrays: list = []
+        tree = sw.flatten_tree(
+            (tuple(solve_args), np.asarray(pid), profiles), arrays
+        )
+        manifest = {"op": "solve", "tree": tree, "wave": wave}
+        if devincr is not None:
+            # Cache-generation tokens keying the child's persistent
+            # device-incremental planes (see _serve_conn).
+            manifest["devincr"] = devincr
+        mode = wire_mode()
+        if self._wire_v1_child:
+            # The child already proved it cannot speak the delta lane.
+            mode = "off"
+        w = self._wire
+        kind = "full"
+        gen: Optional[int] = None
+        if mode == "off":
+            # Kill switch: classic v1 frames, no wire section.  A later
+            # flip back on must not diff against a cache the child was
+            # never told about (v1 frames poison the child mirror too).
+            w.invalidate()
+            payload = arrays
+        else:
+            if mode == "fallback":
+                # Forced-fallback A/B lever: exercise the full-frame
+                # fallback machinery (and its counter) every frame.
+                w.invalidate("forced")
+            arrs = [np.ascontiguousarray(a).reshape(np.shape(a))
+                    for a in arrays]
+            gen = self._gen + 1
+            if w.arrays is None or w.spec != tree \
+                    or len(arrs) != len(w.arrays):
+                if w.arrays is not None and w.pending_reason is None:
+                    # The pytree shape itself drifted (profile table
+                    # growth, affinity terms appearing): slots no
+                    # longer align, ship whole.
+                    w.pending_reason = "spec-change"
+                if w.pending_reason is not None:
+                    self._count_fallback(w.pending_reason)
+                    w.pending_reason = None
+                manifest["wire"] = {"gen": gen}
+                payload = arrs
+                w.arrays = [np.array(a) for a in arrs]
+                w.spec = tree
+            else:
+                kind = "delta"
+                recs = []
+                payload = []
+                for i, a in enumerate(arrs):
+                    base = w.arrays[i]
+                    r = sw.diff_rows(a, base)
+                    if r is not None and not len(r):
+                        recs.append([sw.REC_SAME])
+                        continue
+                    rows = a.shape[0] if a.ndim else 0
+                    changed = int((r[:, 1] - r[:, 0]).sum()) \
+                        if r is not None else rows
+                    if r is None or a.nbytes < _DELTA_MIN_BYTES \
+                            or changed > rows * _DELTA_MAX_FRACTION:
+                        recs.append([sw.REC_FULL, len(payload)])
+                        payload.append(a)
+                        w.arrays[i] = np.array(a)
+                        continue
+                    desc = sw.ranges_to_desc(r)
+                    rowpay = sw.gather_rows(a, r)
+                    recs.append(
+                        [sw.REC_DELTA, len(payload), len(payload) + 1])
+                    payload.append(desc)
+                    payload.append(rowpay)
+                    # Patch the private mirror copy to the new bytes —
+                    # the same scatter the child runs.
+                    sw.delta_apply(w.arrays[i], desc, rowpay, 0, 0)
+                manifest["wire"] = {"gen": gen, "base": self._gen,
+                                    "recs": recs}
+            self._gen = gen
+        if self._shm is not None:
+            # Same-host lane: payloads ride the shared segment; the
+            # socket frame carries only the manifest.
+            manifest["shm"] = self._shm.write(
+                [np.ascontiguousarray(a).reshape(np.shape(a))
+                 for a in payload])
+            payload = []
+        total, parts = sw.encode_frame_views(payload, manifest)
+        return total, parts, kind, gen
+
+    # holds: _lock
+    def _send_solve_locked(self, solve_args, pid, profiles, wave,
+                           devincr):
+        from .metrics import metrics
+
+        sock = self._connect()
+        try:
+            total, parts, kind, gen = self._build_frame(
+                solve_args, pid, profiles, wave, devincr)
+        except (TypeError, ValueError) as e:
+            # Deterministic local encode failure (unsupported wire
+            # dtype/ndim): NOT a transport error — surface it without
+            # letting the reconnect retry recycle a healthy socket,
+            # re-encode the identical frame, and count a spurious
+            # reason=reconnect fallback.
+            raise TypeError(f"solve frame encode failed: {e}") from e
+        send_frame_views(sock, total, parts)
+        self.frame_counts[kind] += 1
+        self.frame_bytes[kind] += total + 8
+        metrics.remote_frame_bytes.inc(total + 8, kind=kind)
+        self.last_frame_kind = kind
+        self.last_wire_gen = gen
+        return total, kind, gen
+
+    def _decode_result(self, reply: bytes,
+                       expect_gen: Optional[int] = None):
+        from .cache import snapwire as sw
+        from .ops.allocate import AllocResult
+
+        self.bytes_in += len(reply) + 8
+        manifest, rarrays = sw.decode_frame(reply)
+        if manifest.get("op") == "resync":
+            # The child's mirror does not hold the delta's base (it
+            # never solved this frame).  Void the cache so the next
+            # frame ships full; ValueError makes the pipelined fetch
+            # treat this as a lost reply — the pods stay Pending and
+            # re-place, never a stale solve.
+            self._wire.invalidate("gen-mismatch")
+            self._count_fallback("gen-mismatch")
+            self._wire.pending_reason = None
+            raise ValueError(
+                f"remote solver mirror resync (child at gen "
+                f"{manifest.get('have_gen')})"
+            )
+        if manifest.get("op") == "error":
+            msg = str(manifest.get("message"))
+            if msg.startswith("ShmUnavailable"):
+                self._disable_shm(msg)
+                raise ValueError(f"remote solver dropped frame: {msg}")
+            # The child poisons its mirror on any solve exception (the
+            # frame may have half-applied); void the wire cache so the
+            # NEXT frame ships full instead of a doomed delta that
+            # would cost a second lost cycle to the resync round trip.
+            if self._wire.arrays is not None:
+                self._count_fallback("child-error")
+            self._wire.invalidate()
+            self._wire.pending_reason = None
+            raise RuntimeError(f"remote solver failed: {msg}")
+        if expect_gen is not None \
+                and manifest.get("ack_gen") != expect_gen:
+            if manifest.get("ack_gen") is None:
+                # The child solved but never saw the wire section: a
+                # protocol-v1 solver (rolling upgrade, scheduler
+                # first).  Degrade to v1 full frames for this client's
+                # life instead of dropping every reply — a permanent
+                # solve outage under version skew.  The reply itself is
+                # trustworthy ONLY for a full frame (a v1 child reads a
+                # delta frame's descriptor arrays as solve args); the
+                # strict request/reply protocol means the first wire
+                # frame on a connection — always full — is the one that
+                # exposes the skew, so the delta case is pure defense.
+                self._wire_v1_child = True
+                self._wire.invalidate()
+                self._wire.pending_reason = None
+                self._count_fallback("v1-child")
+                if self.last_frame_kind != "full":
+                    with self._lock:
+                        self._close_locked()
+                    raise ValueError(
+                        "protocol-v1 remote solver solved a delta "
+                        "frame; reply dropped"
+                    )
+            else:
+                # The reply acknowledges a different frame than the one
+                # dispatched: the connection's framing (or the child's
+                # mirror) cannot be trusted — void everything, DROP THE
+                # SOCKET (a desynced reply stream would shift every
+                # later reply by one forever), and drop the reply
+                # rather than commit a solve of unknown inputs.
+                self._wire.invalidate("ack-mismatch")
+                self._count_fallback("ack-mismatch")
+                self._wire.pending_reason = None
+                with self._lock:
+                    self._close_locked()
+                raise ValueError(
+                    f"remote solver acked gen "
+                    f"{manifest.get('ack_gen')}, expected {expect_gen}"
+                )
+        self.last_solve_ms = manifest.get("solve_ms")
+        self.last_devincr_mode = manifest.get("devincr_mode")
+        vals = sw.unflatten_tree(manifest["tree"], rarrays, _registry())
+        assigned, pipelined, never_ready, fit_failed, iters = vals[:5]
+        # Replies predating the two-phase solve carry 5 entries; the
+        # shortlist-fallback counters then read as zero.
+        if len(vals) >= 7:
+            fb_exhausted, fb_affinity = vals[5], vals[6]
+        else:
+            fb_exhausted = fb_affinity = np.int32(0)
+        return AllocResult(
+            assigned=assigned, pipelined=pipelined,
+            never_ready=never_ready, fit_failed=fit_failed,
+            idle=None, q_alloc=None, iters=iters,
+            fb_exhausted=fb_exhausted, fb_affinity=fb_affinity,
+        )
+
+    def solve(self, solve_args: Sequence, pid, profiles,
+              wave: Optional[int] = None,
+              devincr: Optional[dict] = None):
+        """Ship (solve_args, pid, profiles); return an AllocResult-shaped
+        namedtuple of numpy arrays (assigned/pipelined/never_ready/
+        fit_failed/iters; idle/q_alloc stay device-side concerns and are
+        not transported — the host commit recomputes both)."""
+        with self.tracer.timed_event("rpc:solve"):
+            with self._lock:
+                if self._pending is not None:
+                    raise RuntimeError(
+                        "a pipelined solve is in flight; fetch or "
+                        "abandon it before a synchronous round trip"
+                    )
+                def attempt():
+                    total, _kind, gen = self._send_solve_locked(
+                        solve_args, pid, profiles, wave, devincr)
+                    return total, gen, recv_frame(self._sock)
+
+                total, gen, reply = self._retry_locked(attempt)
+            self.requests += 1
+            self.bytes_out += total + 8
+            return self._decode_result(reply, gen)
+
+    def solve_async(self, solve_args: Sequence, pid, profiles,
+                    wave: Optional[int] = None,
+                    devincr: Optional[dict] = None) -> "PendingSolve":
+        """Pipelined dispatch: send frame N and return WITHOUT reading
+        the reply, so the child's upload+solve+fetch runs concurrently
+        with the scheduler's host lanes; ``PendingSolve.fetch`` receives
+        it (normally at the top of cycle N+1 — the double-buffered
+        session).  One request may be outstanding at a time
+        (the wire protocol is strict request/reply on one connection).
+
+        Send errors reconnect-and-REBUILD once, like ``solve`` — no
+        reply is outstanding yet, and the reconnect voided the wire
+        cache, so the retry ships a full frame.  A fetch error does
+        NOT resend: the frame may be mid-solve in the child, and the
+        caller's staleness machinery already treats a lost reply as
+        "this cycle placed nothing" (the pods stay Pending and
+        re-place)."""
+        with self.tracer.timed_event("rpc:solve_send"):
+            with self._lock:
+                if self._pending is not None:
+                    raise RuntimeError(
+                        "a remote solve is already in flight; fetch or "
+                        "abandon it before dispatching another"
+                    )
+                total, _kind, gen = self._retry_locked(
+                    lambda: self._send_solve_locked(
+                        solve_args, pid, profiles, wave, devincr))
+                handle = PendingSolve(self, gen)
+                self._pending = handle
+        self.requests += 1
+        self.bytes_out += total + 8
+        return handle
+
+    def wire_socket(self) -> Optional[socket.socket]:
+        """The live connection's socket (None when disconnected) — the
+        solver pool selects over these to race a hedged reply against
+        the primary's (solver_pool.SolverPool._wait_first)."""
+        with self._lock:
+            return self._sock
+
+    def reply_ready(self, timeout: float = 0.0) -> bool:
+        """True when reply bytes are waiting on the connection (or the
+        connection is gone — the fetch then fails promptly, which is
+        as 'ready' as a dead socket gets).  Waits up to ``timeout``
+        seconds.  Read-side probe only; never consumes bytes."""
+        import select as _select
+
+        with self._lock:
+            sock = self._sock
+        if sock is None:
+            return True
+        ready, _, _ = _select.select([sock], [], [], max(timeout, 0.0))
+        return bool(ready)
+
+    def _finish_async(self, handle: "PendingSolve") -> bytes:
+        with self._lock:
+            if self._pending is not handle:
+                raise RuntimeError("stale PendingSolve handle")
+            self._pending = None
+            if self._sock is None:
+                # The connection died while this solve was parked
+                # (solver-child kill/restart between dispatch and
+                # fetch): the reply is unrecoverable.  Surface the
+                # standard lost-reply error the pipelined staleness
+                # machinery already handles — not an AttributeError
+                # on the dead socket slot.
+                raise ConnectionError(
+                    "solver connection closed while a solve was "
+                    "in flight")
+            try:
+                return recv_frame(self._sock)
+            except (OSError, ConnectionError, ValueError):
+                # The connection's request/reply framing is now
+                # indeterminate; drop it so the next dispatch starts
+                # clean on a fresh socket.
+                self._close_locked("reconnect")
+                raise
+
+    def _abandon_async(self, handle: "PendingSolve") -> None:
+        with self._lock:
+            if self._pending is not handle:
+                return
+            self._pending = None
+            # The unread reply would desynchronize the next request;
+            # closing the socket resets the framing (the server logs the
+            # dead peer and drops the reply).
+            self._close_locked("abandon")
+
+
+class PendingSolve:
+    """An unread remote-solve reply (see ``RemoteSolver.solve_async``).
+    Carries the dispatched frame's wire generation so the fetch can
+    verify the reply's explicit ``ack_gen`` against it."""
+
+    def __init__(self, client: RemoteSolver, gen: Optional[int] = None):
+        self._client = client
+        self.gen = gen
+
+    def fetch(self):
+        """Receive + decode the reply; returns the AllocResult-shaped
+        numpy namedtuple ``RemoteSolver.solve`` returns."""
+        with self._client.tracer.timed_event("rpc:solve_fetch"):
+            return self._client._decode_result(
+                self._client._finish_async(self), self.gen
+            )
+
+    def abandon(self) -> None:
+        self._client._abandon_async(self)
+
+
+def main(argv=None) -> None:
+    parser = argparse.ArgumentParser(
+        description="volcano-tpu-torch solver child (owns the card)"
+    )
+    parser.add_argument("--host", default="127.0.0.1")
+    parser.add_argument("--port", type=int, default=18477)
+    parser.add_argument("--announce", action="store_true",
+                        help="print 'SOLVER <port>' once listening "
+                             "(spawners parse this)")
+    parser.add_argument("--device", default="cuda",
+                        help="where the solves run: the card (default; a "
+                             "host without CUDA raises) or 'cpu' (the "
+                             "kernels' plain versions)")
+    args = parser.parse_args(argv)
+    logging.basicConfig(level=logging.INFO)
+    server = SolverServer(host=args.host, port=args.port,
+                          device=args.device)
+    if args.announce:
+        print(f"SOLVER {server.port}", flush=True)
+    log.info("solver listening on %s:%d (%s)", server.host, server.port,
+             server.device)
+    try:
+        server.serve_forever()
+    except KeyboardInterrupt:
+        pass
+    finally:
+        server.shutdown()
+
+
+if __name__ == "__main__":
+    main()

@@ -28,9 +28,18 @@ park the what-if as ``pipeline.InflightPlan``, its solve on the store's
 solve worker behind the allocate lane's, and commit it at the next cycle's
 top behind the staleness guard: any ``mutation_seq`` / ``epoch`` /
 ``compact_gen`` / node-count drift voids the plan wholesale
-(``commit_inflight_plan``).  The JAX package's mesh dispatch and
-remote-solver offload are unreachable here: the port refuses meshes and
-remote solvers up front (``FastCycle.check_ported``).
+(``commit_inflight_plan``).
+
+A remote-solver store (the solver service) keeps the engine off with a
+single connection: the plan solve would contend with the allocate lane
+for its one request/reply connection, and preempt / reclaim run the host
+victim walk.  A solver pool lifts that (``whatif_offload_on``): plan
+solves go to an idle non-primary replica
+(``solver_pool.SolverPool.solve_whatif_async``) and overlap the allocate
+lane; the staleness guard and the ``InflightPlan`` commit are unchanged,
+and a lost plan reply voids the plan (it mutated nothing; outcome
+``lost-reply``).  The JAX package's mesh dispatch is unreachable here: the
+port refuses meshes up front (``FastCycle.check_ported``).
 
 Every function here runs on the cycle thread inside ``FastCycle.run``
 (under ``run_cycle_fast``'s store lock).
@@ -38,6 +47,7 @@ Every function here runs on the cycle thread inside ``FastCycle.run``
 
 from __future__ import annotations
 
+import logging
 import os
 from typing import Dict, NamedTuple, Optional, Tuple
 
@@ -47,6 +57,8 @@ import torch
 from .api import TaskStatus
 from .metrics import metrics
 
+
+log = logging.getLogger(__name__)
 
 F = np.float32
 I = np.int32
@@ -61,9 +73,28 @@ def _env_int(name: str, default: int) -> int:
 
 def evict_device_enabled() -> bool:
     """Master switch for the device-native preempt/reclaim lanes.
-    ``VOLCANO_TPU_EVICT_DEVICE=0`` asks for the host-side victim walk,
-    which the port does not run yet (the cycle raises)."""
+    ``VOLCANO_TPU_EVICT_DEVICE=0`` asks for the host-side victim walk
+    (``fastpath_evict``)."""
     return os.environ.get("VOLCANO_TPU_EVICT_DEVICE", "1") != "0"
+
+
+def whatif_offload_on(remote) -> bool:
+    """True when ``remote`` is a solver pool with an idle non-primary
+    replica that can take a plan-proving solve right now.  A plain
+    ``RemoteSolver`` has no offload capacity by construction."""
+    avail = getattr(remote, "whatif_replica_available", None)
+    return avail is not None and bool(avail())
+
+
+def evict_device_on(store) -> bool:
+    """True when this store's preempt / reclaim run the plan-prove-commit
+    device lane: the master switch is on, and the store solves on its own
+    device or has a solver pool that can take the plan solve (a single
+    remote connection keeps the host walk)."""
+    if not evict_device_enabled():
+        return False
+    remote = getattr(store, "remote_solver", None)
+    return remote is None or whatif_offload_on(remote)
 
 
 def evict_cap() -> int:
@@ -182,8 +213,9 @@ def whatif_inputs(cyc, plan: WhatIfPlan):
 # holds: _lock
 def dispatch_plan(cyc, plan: WhatIfPlan) -> None:
     """Run (or, pipelined, park) the plan's what-if solve on the cycle's
-    device and judge it.  No device-incremental state rides along (the JAX
-    package passes none to the plan solve either)."""
+    device, or offload it to an idle solver-pool replica, and judge it.
+    No device-incremental state rides along (the JAX package passes none
+    to the plan solve either)."""
     from .ops.wave import solve_wave
 
     m = cyc.m
@@ -194,6 +226,46 @@ def dispatch_plan(cyc, plan: WhatIfPlan) -> None:
                   "victims": len(plan.victim_rows),
                   "need": plan.need}):
         inputs, pid, profiles, ncls = whatif_inputs(cyc, plan)
+        remote = getattr(store, "remote_solver", None)
+        if remote is not None:
+            # The what-if offload: the plan solve ships to an idle
+            # non-primary pool replica, overlapping the allocate lane's
+            # in-flight solve.  The child builds its node classes from the
+            # frame; plan frames carry no devincr section.
+            try:
+                payload = remote.solve_whatif_async(inputs, pid, profiles)
+            except (OSError, ConnectionError, ValueError, RuntimeError):
+                # Every offload candidate died between the lane's gate and
+                # this dispatch: the plan mutated nothing -- void it, let
+                # the pool's probes heal, re-plan next cycle.
+                log.warning("what-if offload dispatch failed; plan voided "
+                            "(action=%s gang=%s)", plan.action,
+                            plan.gang_uid, exc_info=True)
+                count_plan(cyc, plan.action, "lost-reply",
+                           gang=plan.gang_uid,
+                           victims=len(plan.victim_rows))
+                return
+            if cyc._pipeline_on:
+                from .pipeline import InflightPlan
+
+                store._solve_seq += 1
+                store._inflight_plan = InflightPlan(
+                    payload, plan, m.mutation_seq, m.epoch, m.compact_gen,
+                    cyc.Nn, plan_id=store._solve_seq, kind="remote")
+                return
+            try:
+                res = payload.fetch()
+            except (OSError, ConnectionError, ValueError):
+                # Lost plan reply (the replica died mid-solve): the plan
+                # mutated nothing -- drop it and re-plan next cycle.
+                count_plan(cyc, plan.action, "lost-reply",
+                           gang=plan.gang_uid,
+                           victims=len(plan.victim_rows))
+                return
+            assigned = np.asarray(res.assigned)
+            never_ready = np.asarray(res.never_ready).astype(bool)
+            apply_plan(cyc, plan, assigned, never_ready)
+            return
         if cyc._pipeline_on:
             from .pipeline import PLAN_FIELDS, InflightPlan, dispatch_solve
 
@@ -249,7 +321,22 @@ def commit_inflight_plan(cyc) -> None:
                        gang=plan.gang_uid,
                        victims=len(plan.victim_rows))
             return
-        assigned, never_ready = inflight.fetch()
+        try:
+            assigned, never_ready = inflight.fetch()
+        except (OSError, ConnectionError, ValueError):
+            if inflight.kind != "remote":
+                raise
+            # The offloaded plan solve's reply died with its replica.  A
+            # plan mutates nothing until commit, so this is free: drop it
+            # and let the planner re-form against fresh state (the pool's
+            # health scoring routes the next offload to a live replica).
+            log.warning("offloaded what-if plan reply lost; plan voided "
+                        "(action=%s gang=%s)", plan.action, plan.gang_uid,
+                        exc_info=True)
+            count_plan(cyc, plan.action, "lost-reply",
+                       gang=plan.gang_uid,
+                       victims=len(plan.victim_rows))
+            return
         apply_plan(cyc, plan, assigned, never_ready)
 
 
