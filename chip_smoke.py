@@ -11,7 +11,8 @@ chip_smoke.py obs`` phases 8c and 8d, ``python3 chip_smoke.py seq-trace``
 the traced seq cycle of phase 21 alone, ``python3 chip_smoke.py recovery``
 phases 24-31, ``python3 chip_smoke.py single-phase`` phases 32-34,
 ``python3 chip_smoke.py host-walk`` phases 35-37, ``python3 chip_smoke.py
-remote`` phases 38-41; ``crash-sticky``, ``lockdep <hash>`` and
+remote`` phases 38-41, ``python3 chip_smoke.py control`` phases 42-44;
+``crash-sticky``, ``lockdep <hash>`` and
 ``trace-dir`` are the child processes of phases 29, 30 and 31,
 ``solver-child`` the solver child of 38-41.)  It
 builds the sixteen CUDA kernels of ``volcano_tpu_torch/csrc`` (fourteen
@@ -100,7 +101,7 @@ of which raises (and the script exits non-zero) when a check fails:
    cycle), one with ``VOLCANO_TPU_AUDIT=0 VOLCANO_TPU_JOURNEY=0``: a cold
    and 5 steady cycles each, binds equal, every solve's launches and syncs
    equal, ``host_reads`` 0; then on against off in turns at the default
-   sample rate, 2 times each: a
+   sample rate, once each: a
    re-cold cycle (caches dropped, a fresh
    journey, every pod placed again), a steady cycle, a pipelined steady
    cycle -- walls and the self-timed audit and journey time;
@@ -246,9 +247,9 @@ of which raises (and the script exits non-zero) when a check fails:
    asynchronous binds (cold, 3 steady cycles re-pending nodes 0-63, an
    ``update_node`` during an overlap, a drain; the cold binds hashed
    against phase 6's) and the pipelined preempt of 8b: no
-   ``lockdep-violation``, no ``lock-order-cycle``, order edges seen; then
-   the same run in a child with ``VOLCANO_TPU_LOCKDEP=0``, its walls
-   beside the armed run's;
+   ``lockdep-violation``, no ``lock-order-cycle``, order edges seen, the
+   armed run's walls (the unarmed run beside it, the cost of enforcement,
+   is not repeated);
 31. trace-dir: ``python3 chip_smoke.py trace-dir``: one cycle at 1,000 x
    10,000 with ``VOLCANO_TPU_TRACE_DIR`` writes one Chrome trace holding
    the port's kernels; under an outer profiler a cycle binds every pod,
@@ -311,7 +312,39 @@ of which raises (and the script exits non-zero) when a check fails:
    BASELINE config 4 at 1,000 nodes (the evictions of the local what-if,
    cycle by cycle); failover after the primary child is killed (one
    cycle's lost reply, no pod lost).  The ``[remote] seconds`` line gives
-   each of 38-41's seconds, the ``[phases]`` line each phase group's.
+   each of 38-41's seconds;
+42. control:twin: the control plane in lockstep at 1,000 nodes, through
+   the CPU tests' own harness (``tests/test_torch_fixtures.py``'s
+   ``control_run``: both example job files, a mix over four queues of
+   weights 1 / 2 / 4 / 8 with gangs of 2-16, a ``tpuslice`` job, a failed
+   pod restarting its job, a failed node, AbortJob / ResumeJob, a queue
+   closed and opened, a job collected by the TTL GC and one deleted; each
+   step ``ControllerManager.process()``, ``run_once()``, ``sim.step()``)
+   on the card against the CPU: job phases and retry counts, the pods'
+   names, env, annotations and affinity, binds, PodGroup phases, queue
+   states and events identical after every step, the auditor clean; the
+   wave solve's kernels and ``aff_live`` (the slice term) launched;
+43. control:service: the daemon on the card (``Service(simulate=True)``
+   over the north-star nodes, the deployed conf from a file, its own
+   scheduler, controller and HTTP threads): 4 queues created over HTTP,
+   2,000 jobs of 8 (16,000 pods) through the admitted store, both example
+   files through ``python -m volcano_tpu_torch.cli job run -f`` in
+   children; a bounded wait until every job is Running; every gang whole,
+   no node over capacity, no pod lost; the submit-to-all-Running wall,
+   per-job submit-to-Running p50 / p99, the placing cycles with their
+   lanes; ``/healthz``, ``/metrics``, ``/debug/health``, ``/debug/cycles``,
+   ``/debug/pods/<uid>``, ``/debug/trace``, ``job list`` and ``job view``;
+   rows 1-4 and 2a-2c launched in this process, each first launch
+   replayed against its plain version;
+44. control:config1: BASELINE config 1 as ``bench.py:630-681`` drives it
+   (prewarmed, 2 nodes, a 3-replica gang, periods 0.01 / 0.005 s): the
+   submit-to-3-Running ms of 5 runs and their median; then the same job
+   with ``--remote-binder`` / ``--remote-evictor`` /
+   ``--remote-status-updater`` at a ``python -m
+   volcano_tpu_torch.cache.remote --port 0`` child: the binds and the
+   PodGroup status land in the child.  The ``[control] seconds`` line
+   gives each of 42-44's seconds, the ``[phases]`` line each phase
+   group's.
 
 Output: the card's name and power limit, versions, build time, the
 registers, shared memory and spills of the kernels of ``PTXAS_SOURCES``
@@ -2662,7 +2695,7 @@ def save_checkpoint(store, directory) -> dict:
     return out
 
 
-def obs_phase(ckpt, orig_binds, reps=2):
+def obs_phase(ckpt, orig_binds, reps=1):
     """The default observability at full width, and the checkpoint round
     trip of ``[ha]``.
 
@@ -5292,32 +5325,26 @@ LOCKDEP_MARK = "[lockdep] result "
 
 def lockdep_phase(cold_hash: str) -> dict:
     """[lockdep] in a child process (the descriptors stay on the port's
-    classes for the life of a process), then the same run unarmed in
-    another: beside each other the cost of enforcement (not a gate)."""
+    classes for the life of a process).  The unarmed run beside it (the
+    cost of enforcement) is not repeated."""
     t0 = time.perf_counter()
-    runs = {}
-    for name, env in (("on", {"VOLCANO_TPU_LOCKDEP": "1"}),
-                      ("off", {"VOLCANO_TPU_LOCKDEP": "0"})):
-        rc, lines = _child(["lockdep", cold_hash], f"lockdep:{name}", 900,
-                           env=env)
-        hit = [x for x in lines if x.startswith(LOCKDEP_MARK)]
-        if rc != 0 or not hit:
-            raise AssertionError(f"[lockdep] the {name} child exited {rc}")
-        runs[name] = json.loads(hit[-1][len(LOCKDEP_MARK):])
-    on, off = runs["on"], runs["off"]
-    if not on["armed"] or off["armed"]:
-        raise AssertionError("[lockdep] the children's switches")
+    rc, lines = _child(["lockdep", cold_hash], "lockdep:on", 900,
+                       env={"VOLCANO_TPU_LOCKDEP": "1"})
+    hit = [x for x in lines if x.startswith(LOCKDEP_MARK)]
+    if rc != 0 or not hit:
+        raise AssertionError(f"[lockdep] the armed child exited {rc}")
+    on = json.loads(hit[-1][len(LOCKDEP_MARK):])
+    if not on["armed"]:
+        raise AssertionError("[lockdep] the child's switch")
     out = {"stats": on["stats"], "evictions": on["evictions"],
-           "walls_s": [[k, a, b] for (k, a), (_k, b)
-                       in zip(on["walls_s"], off["walls_s"])],
-           "preempt_walls_s": [on["preempt_walls_s"],
-                               off["preempt_walls_s"]],
-           "build_s": [on["build_s"], off["build_s"]],
+           "walls_s": on["walls_s"],
+           "preempt_walls_s": on["preempt_walls_s"],
+           "build_s": on["build_s"],
            "phase_s": time.perf_counter() - t0}
     _log(f"[lockdep] no lockdep-violation, no lock-order-cycle; per cycle "
-         f"(kind, wall with lockdep, without) {json.dumps(out['walls_s'])};"
-         f" pipelined preempt walls (with, without) "
-         f"{json.dumps(out['preempt_walls_s'])}; " + json.dumps(
+         f"(kind, wall with lockdep) {json.dumps(out['walls_s'])};"
+         f" pipelined preempt walls {json.dumps(out['preempt_walls_s'])}; "
+         + json.dumps(
              {k: out[k] for k in ("stats", "build_s", "evictions",
                                   "phase_s")}))
     return out
@@ -6804,6 +6831,461 @@ def remote_phases(ns_hashes=None, big=(10000, 100000), mid=(1000, 10000)):
     return res1, main_out
 
 
+# ------------------------------------------------- 42-44: the control plane
+
+# The kernels a tpuslice job's soft slice term adds to the [control:twin]
+# card run, beside the wave solve's (read from the launch counter).
+CONTROL_AFF_KERNELS = ("aff_live", "aff_filter")
+SERVICE_KERNELS = REMOTE_KERNELS  # rows 1-4, 2a-2c
+SERVICE_JOBS = 2000  # of 8 replicas: 16,000 pods
+SERVICE_DEADLINE_S = 240.0
+
+
+def control_twin(n_nodes=1000) -> dict:
+    """Phase 42: ``tests/test_torch_fixtures.control_run`` (the CPU tests'
+    lockstep script: both example files, a 4-queue mix, a tpuslice job,
+    a failed pod and a failed node, AbortJob / ResumeJob, a queue closed
+    and opened, a TTL collection and a deletion) at ``n_nodes`` on the
+    card and on the CPU: every step's control digest equal, the auditor
+    clean after each step (``control_run`` checks)."""
+    import volcano_tpu_torch
+    from volcano_tpu_torch.ops import kernels
+
+    fixtures = walk_fixtures()
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    card = fixtures.control_run(volcano_tpu_torch, n_nodes=n_nodes,
+                                device=None)
+    card_s = time.perf_counter() - t0
+    launches = launch_counts()
+    t0 = time.perf_counter()
+    cpu = fixtures.control_run(volcano_tpu_torch, n_nodes=n_nodes,
+                               device="cpu")
+    cpu_s = time.perf_counter() - t0
+    if [c[0] for c in card] != [c[0] for c in cpu]:
+        raise AssertionError("[control:twin] step lists differ")
+    for i, ((label, a), (_, b)) in enumerate(zip(card, cpu)):
+        if a != b:
+            keys = [k for k in a if a[k] != b.get(k)]
+            raise AssertionError(
+                f"[control:twin] step {i} ({label}): card and CPU differ "
+                f"in {keys}")
+    need = SOLVE_KERNELS + CONTROL_AFF_KERNELS
+    missing = never_launched(launches, need)
+    if missing:
+        raise AssertionError(f"[control:twin] kernels never launched: "
+                             f"{missing}; launches {json.dumps(launches)}")
+    final = card[-1][1]
+    phases = {}
+    for j in final["jobs"].values():
+        ph = j["status"]["state"]["phase"]
+        phases[ph] = phases.get(ph, 0) + 1
+    out = {"nodes": n_nodes, "steps": len(card),
+           "pods": len(final["pods"]), "binds": len(final["binds"]),
+           "job_phases": phases,
+           "retries": {k: j["status"]["retry_count"]
+                       for k, j in final["jobs"].items()
+                       if j["status"]["retry_count"]},
+           "card_s": round(card_s, 3), "cpu_s": round(cpu_s, 3),
+           "launches": {k: v for k, v in launches.items() if v}}
+    _log(f"[control:twin] card == CPU at every step: {json.dumps(out)}")
+    return out
+
+
+def _get(url, parse=True):
+    import urllib.request
+
+    with urllib.request.urlopen(url, timeout=60) as r:
+        body = r.read()
+    return r.status, (json.loads(body) if parse else body.decode())
+
+
+def _cli_out(argv) -> str:
+    import contextlib
+    import io
+
+    from volcano_tpu_torch.cli.main import main as cli_main
+
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        if cli_main(argv) != 0:
+            raise AssertionError(f"vtpuctl {argv} failed")
+    return out.getvalue()
+
+
+def service_invariants(store, expect: dict) -> dict:
+    """Every job of ``expect`` (key -> replicas) with all its pods Running
+    on a node, no node over its allocatable CPU, memory or pod slots, no
+    pod lost."""
+    from volcano_tpu_torch.api import Resource
+
+    with store._lock:
+        pods = list(store.pods.values())
+        nodes = {n: ni for n, ni in store.nodes.items()}
+    by_job, per_node = {}, {}
+    for p in pods:
+        by_job.setdefault(p.owner_job, []).append(p)
+        if p.node_name:
+            r = Resource.empty()
+            for c in p.containers:
+                r.add(Resource.from_resource_list(c))
+            acc = per_node.setdefault(p.node_name, [0.0, 0.0, 0])
+            acc[0] += r.milli_cpu
+            acc[1] += r.memory
+            acc[2] += 1
+    for key, n in expect.items():
+        got = by_job.get(key, [])
+        if len(got) != n or any(p.phase != "Running" or not p.node_name
+                                for p in got):
+            raise AssertionError(f"[control:service] job {key}: "
+                                 f"{len(got)} pods, not all Running")
+    if len(pods) != sum(expect.values()):
+        raise AssertionError(f"[control:service] {len(pods)} pods, "
+                             f"expected {sum(expect.values())}")
+    for name, (cpu, mem, cnt) in per_node.items():
+        alloc = nodes[name].allocatable
+        if cpu > alloc.milli_cpu or mem > alloc.memory:
+            raise AssertionError(f"[control:service] node {name} over "
+                                 f"its allocatable")
+        slots = nodes[name].node.allocatable.get("pods")
+        if slots is not None and cnt > int(slots):
+            raise AssertionError(f"[control:service] node {name} pod "
+                                 f"slots exceeded")
+    return {"pods": len(pods), "nodes_used": len(per_node)}
+
+
+def control_service(n_jobs=SERVICE_JOBS, replicas=8,
+                    n_nodes=10000) -> tuple:
+    """Phase 43: the daemon on the card at full width: ``Service(simulate=
+    True)`` over the north-star nodes (10,000 nodes, 16 zones) with the
+    deployed conf from a file, ``start(http_port=0)``; 4 queues created
+    over HTTP, ``n_jobs`` jobs of ``replicas`` submitted through the
+    admitted store, the two example files through ``python -m
+    volcano_tpu_torch.cli job run -f`` in children; a bounded wait until
+    every job is Running.  Returns (stats, kernel rows: the wave solve's
+    kernels' first launches in this process against their plain
+    versions)."""
+    import os
+    import subprocess
+    import tempfile
+
+    import numpy as np
+
+    from volcano_tpu_torch.client import Client
+    from volcano_tpu_torch.controllers import Job, TaskSpec
+    from volcano_tpu_torch.framework import DEPLOYED_SCHEDULER_CONF
+    from volcano_tpu_torch.ops import kernels
+    from volcano_tpu_torch.service import Service
+    from volcano_tpu_torch.synth import synthetic_cluster
+
+    t_build = time.perf_counter()
+    store = synthetic_cluster(n_nodes=n_nodes, n_pods=0, gang_size=8,
+                              zones=16, seed=0)
+    build_s = time.perf_counter() - t_build
+    conf = tempfile.NamedTemporaryFile("w", suffix=".yaml", delete=False)
+    conf.write(DEPLOYED_SCHEDULER_CONF)
+    conf.close()
+    kernels.reset_launches()
+    kernels.CAPTURE = {}
+    svc = Service(store=store, simulate=True, conf_path=conf.name,
+                  schedule_period=0.05, controller_period=0.02)
+    port = svc.start(http_port=0)
+    url = f"http://127.0.0.1:{port}"
+    stats = {"nodes": n_nodes, "jobs": n_jobs, "replicas": replicas,
+             "store_build_s": round(build_s, 3)}
+    try:
+        client = Client(url)
+        queues = [("sq1", 1), ("sq2", 2), ("sq4", 4), ("sq8", 8)]
+        for name, w in queues:
+            client.create_queue(name, weight=w)
+        expect = {}
+        submitted = {}
+        rng = np.random.default_rng(0)
+        jobs = [Job(name=f"sj{j}", min_available=replicas,
+                    queue=queues[j % 4][0],
+                    tasks=[TaskSpec(name="worker", replicas=replicas,
+                                    containers=[{
+                                        "cpu": str(int(rng.choice([1, 2, 4]))),
+                                        "memory": "4Gi"}])])
+                for j in range(n_jobs)]
+        t0 = time.perf_counter()
+        # One burst: the store lock held across the admissions, so the
+        # daemon's threads see every job at once (one at a time beside
+        # the running daemon, each admission waits its turn at the store
+        # lock and the interpreter: 20-30 ms a job).
+        with svc.store._lock:
+            for job in jobs:
+                svc.admitted.add_batch_job(job)
+                submitted[job.key] = time.perf_counter()
+                expect[job.key] = replicas
+        stats["submit_s"] = round(time.perf_counter() - t0, 3)
+        repo = os.path.dirname(os.path.abspath(__file__))
+        kids = [subprocess.Popen(
+            [sys.executable, "-m", "volcano_tpu_torch.cli", "--server", url,
+             "job", "run", "-f", os.path.join(repo, "examples", f)],
+            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+            cwd=repo) for f in ("job.yaml", "tensorflow-dist.yaml")]
+        for k, f in zip(kids, ("default/test-job", "default/dist-mnist")):
+            out, err = k.communicate(timeout=180)
+            if k.returncode != 0 or "successfully" not in out:
+                raise AssertionError(f"[control:service] vtpuctl job run "
+                                     f"-f failed: {err[-2000:]}")
+            submitted[f] = time.perf_counter()
+        expect["default/test-job"] = 6
+        expect["default/dist-mnist"] = 3
+        running_at = {}
+        deadline = t0 + SERVICE_DEADLINE_S
+        while time.perf_counter() < deadline:
+            now = time.perf_counter()
+            for key, job in list(svc.store.batch_jobs.items()):
+                if key not in running_at and \
+                        job.status.state.phase == "Running" and \
+                        job.status.running == expect.get(key, -1):
+                    running_at[key] = now
+            if len(running_at) == len(expect):
+                break
+            time.sleep(0.02)
+        else:
+            raise AssertionError(
+                f"[control:service] {len(expect) - len(running_at)} jobs "
+                f"not Running after {SERVICE_DEADLINE_S} s")
+        all_s = max(running_at.values()) - t0
+        per_job = np.array([1e3 * (running_at[k] - submitted[k])
+                            for k in expect])
+        stats.update({
+            "submit_to_all_running_s": round(all_s, 3),
+            "job_submit_to_running_ms": {
+                "p50": float(np.percentile(per_job, 50)),
+                "p99": float(np.percentile(per_job, 99)),
+                "max": float(per_job.max())}})
+        # The endpoints, while the daemon runs.
+        code, text = _get(url + "/healthz", parse=False)
+        if (code, text) != (200, "ok"):
+            raise AssertionError(f"[control:service] /healthz {code}")
+        code, text = _get(url + "/metrics", parse=False)
+        fams = sorted({ln.split()[2] for ln in text.splitlines()
+                       if ln.startswith("# TYPE volcano_")})
+        if not fams:
+            raise AssertionError("[control:service] /metrics: no volcano_ "
+                                 "family")
+        _, health = _get(url + "/debug/health")
+        _, cycles = _get(url + "/debug/cycles")
+        uid = next(p.uid for p in list(svc.store.pods.values())
+                   if p.owner_job == "default/sj0")
+        code, timeline = _get(f"{url}/debug/pods/{uid}")
+        _, trace = _get(url + "/debug/trace?cycles=4")
+        if health["status"] != "ok" or not cycles or \
+                timeline["why_pending"] != "bound" or \
+                not trace["traceEvents"]:
+            raise AssertionError(
+                f"[control:service] /debug: health {health['status']}, "
+                f"{len(cycles)} cycles, pod {timeline.get('why_pending')}, "
+                f"{len(trace['traceEvents'])} trace events")
+        listing = _cli_out(["--server", url, "job", "list"])
+        view = _cli_out(["--server", url, "job", "view", "--name",
+                         "dist-mnist"])
+        if len(listing.splitlines()) != len(expect) + 1 or \
+                not view.startswith("name: dist-mnist"):
+            raise AssertionError("[control:service] job list / view")
+        stats["endpoints"] = {"metrics_families": len(fams),
+                              "debug_cycles": len(cycles),
+                              "trace_events": len(trace["traceEvents"]),
+                              "job_list_lines": len(listing.splitlines()),
+                              "job_view_lines": len(view.splitlines())}
+        stats["waiting"] = _waiting_gang(svc, client, n_nodes, expect)
+    finally:
+        svc.stop()
+        os.unlink(conf.name)
+    launches = launch_counts()
+    captured, kernels.CAPTURE = kernels.CAPTURE, None
+    stats.update(service_invariants(svc.store, expect))
+    recs = svc.store.flight.recent()
+    busy = [r for r in recs if r.pods_bound or r.pods_considered]
+    stats["cycles"] = {
+        "recorded": len(recs), "placing": len(busy),
+        "placing_wall_ms": [round(r.duration_s * 1e3, 3) for r in busy],
+        "pods_bound": [r.pods_bound for r in busy],
+        "lanes_ms": [{k: round(v * 1e3, 3) for k, v in r.lanes.items()}
+                     for r in busy[:6]]}
+    missing = never_launched(launches, SERVICE_KERNELS)
+    if missing:
+        raise AssertionError(f"[control:service] kernels never launched "
+                             f"in the service process: {missing}")
+    stats["launches"] = {k: v for k, v in launches.items() if v}
+    audit_checked("control:service", svc.store, quiet=True)
+    rows = replay_kernels(captured, launches, reps=5,
+                          names=SERVICE_KERNELS)
+    _log(f"[control:service] {json.dumps(stats)}")
+    for r in rows:
+        _log(f"[kernels:service] {r['name']}: {r['ms']:.4f} ms/launch on "
+             f"its first service inputs, plain {r['plain_ms']:.4f} ms, "
+             f"max_abs_err {r['max_abs_err']}, launches {r['launches']}")
+    return stats, rows
+
+
+def _bounded(cond, what, timeout=120.0):
+    """Poll ``cond()`` until it holds; raise after ``timeout`` s."""
+    deadline = time.perf_counter() + timeout
+    while not cond():
+        if time.perf_counter() > deadline:
+            raise AssertionError(f"[control:service] {what} not within "
+                                 f"{timeout} s")
+        time.sleep(0.005)
+
+
+def _waiting_gang(svc, client, n_nodes, expect, n_delete=8) -> dict:
+    """A gang waiting for capacity while users delete jobs: its pods
+    select zone-0 (``n_nodes`` / 16 nodes) and outnumber them, so they
+    stay Pending cycle after cycle (the same rows: the encode cache
+    holds); each deletion frees a few nodes, and the next solve re-ranks
+    only their node blocks (``warm_shortlist``).  The gang and the
+    deleted jobs leave ``expect``."""
+    from volcano_tpu_torch.controllers import Job, TaskSpec
+    from volcano_tpu_torch.ops import devincr, kernels
+
+    store = svc.store
+    n = n_nodes // 16 + 8
+    svc.admitted.add_batch_job(Job(
+        name="waiting", min_available=n, queue="sq8",
+        tasks=[TaskSpec(name="worker", replicas=n,
+                        node_selector={"zone": "zone-0"},
+                        containers=[{"cpu": "48", "memory": "4Gi"}])]))
+
+    def waiting_pods():
+        return [p for p in list(store.pods.values())
+                if p.owner_job == "default/waiting"]
+
+    _bounded(lambda: len(waiting_pods()) == n, "the waiting gang's pods")
+    warm0 = kernels.LAUNCHES["warm_shortlist"]
+    counts0 = dict(devincr.of_store(store).counts)
+    for j in range(n_delete):
+        seq0 = store.flight.last().seq
+        client.delete_job(f"sj{j}")
+        expect.pop(f"default/sj{j}")
+        _bounded(lambda: store.flight.last().seq >= seq0 + 2,
+                 "two cycles after a deletion")
+    counts = {k: v - counts0.get(k, 0)
+              for k, v in devincr.of_store(store).counts.items()}
+    out = {"replicas": n, "deleted": n_delete,
+           "warm_launches": kernels.LAUNCHES["warm_shortlist"] - warm0,
+           "devincr_modes": counts,
+           "bound": sum(1 for p in waiting_pods() if p.node_name)}
+    client.delete_job("waiting")
+    _bounded(lambda: not waiting_pods() and not any(
+        p.owner_job.startswith("default/sj") and p.owner_job not in expect
+        for p in list(store.pods.values())), "the deleted jobs' pods gone")
+    if out["bound"]:
+        raise AssertionError(f"[control:service] the waiting gang bound "
+                             f"{out['bound']} pods")
+    return out
+
+
+def _config1_once(**svc_kw) -> tuple:
+    """BASELINE config 1 as ``bench.py:630-681`` drives it: the daemon
+    with periods 0.01 / 0.005 s, two nodes, a 3-replica gang; returns
+    (submit -> 3 pods Running ms, the service)."""
+    from volcano_tpu_torch.api import Node
+    from volcano_tpu_torch.controllers import Job, TaskSpec
+    from volcano_tpu_torch.service import Service
+
+    svc = Service(simulate=True, schedule_period=0.01,
+                  controller_period=0.005, **svc_kw)
+    for i in range(2):
+        svc.store.add_node(Node(name=f"node-{i}", allocatable={
+            "cpu": "8", "memory": "16Gi", "pods": 64}))
+    job = Job(name="test-job", min_available=3, tasks=[TaskSpec(
+        name="worker", replicas=3,
+        containers=[{"cpu": "1", "memory": "1Gi"}])])
+    svc.start(http_port=0)
+    try:
+        t0 = time.perf_counter()
+        svc.admitted.add_batch_job(job)
+        deadline = t0 + 60.0
+        while time.perf_counter() < deadline:
+            pods = [p for p in list(svc.store.pods.values())
+                    if p.owner_job == job.key and p.phase == "Running"]
+            if len(pods) >= 3:
+                break
+            time.sleep(0.002)
+        else:
+            raise AssertionError("[control:config1] job did not reach "
+                                 "Running in 60 s")
+        ms = (time.perf_counter() - t0) * 1e3
+    finally:
+        svc.stop()
+    return ms, svc
+
+
+def control_config1(runs=5) -> dict:
+    """Phase 44: config 1, prewarmed, the median of ``runs``; then the
+    same job with ``--remote-binder`` / ``--remote-evictor`` /
+    ``--remote-status-updater`` at a ``python -m
+    volcano_tpu_torch.cache.remote --port 0`` child: the binds and the
+    PodGroup status land in the child."""
+    import os
+    import subprocess
+
+    from volcano_tpu_torch.scheduler import Scheduler
+    from volcano_tpu_torch.synth import synthetic_cluster
+
+    warm = synthetic_cluster(n_nodes=2, n_pods=3, gang_size=3)
+    Scheduler(warm).run_once()
+    warm.close()
+    times = [_config1_once()[0] for _ in range(runs)]
+    out = {"submit_to_3_running_ms": times,
+           "median_ms": statistics.median(times)}
+    repo = os.path.dirname(os.path.abspath(__file__))
+    child = subprocess.Popen(
+        [sys.executable, "-m", "volcano_tpu_torch.cache.remote", "--port",
+         "0"], stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+        cwd=repo)
+    try:
+        line = child.stdout.readline()
+        if "listening" not in line:
+            raise AssertionError(f"[control:config1] remote child: {line}")
+        url = f"http://127.0.0.1:{int(line.rsplit(':', 1)[1])}"
+        ms, svc = _config1_once(remote_binder=url, remote_evictor=url,
+                                remote_status_updater=url)
+        _, binds = _get(url + "/binds")
+        _, groups = _get(url + "/podgroups")
+        want = {f"default/test-job-worker-{i}" for i in range(3)}
+        if set(binds) != want:
+            raise AssertionError(f"[control:config1] remote binds {binds}")
+        local = {f"{p.namespace}/{p.name}": p.node_name
+                 for p in svc.store.pods.values()}
+        if any(binds[k] != local[k] for k in want):
+            raise AssertionError("[control:config1] a remote bind "
+                                 "disagrees with the pod's node")
+        if groups.get("default/test-job", {}).get("phase") != "Running":
+            raise AssertionError(f"[control:config1] remote PodGroup "
+                                 f"status {groups}")
+        out["remote_ms"] = ms
+        out["remote_binds"] = len(binds)
+        out["remote_podgroup"] = groups["default/test-job"]
+    finally:
+        child.terminate()
+        child.wait(timeout=30)
+    _log(f"[control:config1] {json.dumps(out)}")
+    return out
+
+
+def control_phases(twin_nodes=1000, service=None) -> tuple:
+    """Phases 42-44; returns ([control:service]'s kernel rows, each
+    group's seconds).  ``service``: ``control_service``'s keywords."""
+    seconds = {}
+    t0 = time.perf_counter()
+    control_twin(twin_nodes)
+    seconds["42 twin"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    _stats, rows = control_service(**(service or {}))
+    seconds["43 service"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    control_config1()
+    seconds["44 config1"] = time.perf_counter() - t0
+    _log(f"[control] seconds {json.dumps(seconds)}")
+    return rows, seconds
+
+
 def _same_records(label, a, b, what, fields=4):
     """Per-cycle records equal field by field: tuples of (binds, phases,
     mirror, fallback), their first ``fields``, or dicts (``walk_run``'s)."""
@@ -6909,6 +7391,11 @@ def main(argv=()) -> int:
     if list(argv) == ["remote"]:
         # Phases 38-41 alone, against a local north-star run of their own.
         remote_phases()
+        print(card, flush=True)
+        return 0
+    if list(argv) == ["control"]:
+        # Phases 42-44 alone.
+        control_phases()
         print(card, flush=True)
         return 0
     if list(argv) == ["recovery"]:
@@ -7220,6 +7707,16 @@ def main(argv=()) -> int:
             **{k: r[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
                                  "max_abs_err")}}
     phase_s["38-41 remote"] = time.perf_counter() - t_phase
+    t_phase = time.perf_counter()
+
+    # 42-44. the control plane: the lockstep twin, the daemon at full
+    # width, config 1 (also against a remote side-effect child).
+    svc_rows, _control_s = control_phases()
+    for r in svc_rows:
+        by_name[r["name"]]["service"] = {
+            k: r[k] for k in ("launches", "ms", "plain_ms", "bound_ms",
+                              "bound_by", "max_abs_err")}
+    phase_s["42-44 control"] = time.perf_counter() - t_phase
     _log(f"[phases] seconds {json.dumps(phase_s)}, script "
          f"{time.perf_counter() - t_script:.1f} s")
 

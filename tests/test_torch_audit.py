@@ -10,8 +10,10 @@ compared.  The three wire-mirror cases run each package's store against
 its own solver child on loopback TCP (the port's child on the CPU): a
 generation that went backward, mirror bytes changed under a held
 generation, and a replaced client that re-anchors.  The ``/debug``
-endpoint case belongs to the service (ROADMAP.md, queue 1, item 6): not
-twinned here.
+endpoints: ``/debug/health``, ``/debug/anomalies`` and ``/debug/cycles``
+of each package's service over a store with a seeded conservation fault,
+``/debug/health`` fetched while the store lock is held; the verdicts, the
+anomaly ring and the flagged cycle equal.
 
 Also here: every one of the port's six status writers of the fast cycle
 (commit-bind, unbind, backfill-bind, backfill-revert, evict,
@@ -695,3 +697,61 @@ def test_status_writer_flows_equal_jax(writer):
     flows, anomalies = got
     assert flows.get(writer, 0) > 0, flows
     assert anomalies == {}
+
+
+# ------------------------------------------------------ /debug surface
+
+
+def _debug_run(pkg):
+    """tests/test_audit.py's /debug case: three churn cycles, a bound
+    row flipped to Pending behind the auditor's back, a fourth cycle,
+    then the endpoints (``/debug/health`` with the store lock held)."""
+    from test_torch_fixtures import debug_scrape
+
+    store = _churn_store(pkg)
+    sched = _sched(pkg, store)
+    for _ in range(3):
+        sched.run_once()
+    m = store.mirror
+    n = len(m.p_uid)
+    rows = np.flatnonzero(m.p_alive[:n] & (m.p_status[:n] == ST_BOUND))
+    m.p_status[rows[0]] = ST_PENDING
+    sched.run_once()
+    got = debug_scrape(pkg, store, ["/debug/health", "/debug/anomalies",
+                                    "/debug/anomalies?n=1",
+                                    "/debug/cycles"],
+                       locked=("/debug/health",))
+    flag_seq = next(c["seq"] for c in got["/debug/cycles"][1]
+                    if any(d["reason"] == "conservation-mismatch"
+                           for d in c["anomalies"]))
+    got.update(debug_scrape(pkg, store, [f"/debug/cycles/{flag_seq}"]))
+    store.close()
+    health = got["/debug/health"][1]
+    return {
+        "status": health["status"],
+        "by_reason": health["anomalies_by_reason"],
+        "audit_cycles": health["audit"]["cycles"],
+        "keys": sorted(health),
+        "ring": [(a["reason"], a["cycle_seq"])
+                 for a in got["/debug/anomalies"][1]],
+        "ring1": [a["reason"] for a in got["/debug/anomalies?n=1"][1]],
+        "cycles": [(c["seq"], [d["reason"] for d in c["anomalies"]])
+                   for c in got["/debug/cycles"][1]],
+        "flag_seq": flag_seq,
+        "one": [d["reason"] for d in
+                got[f"/debug/cycles/{flag_seq}"][1]["anomalies"]],
+    }
+
+
+def test_debug_health_and_anomalies_endpoints_equal_jax():
+    want, got = _debug_run(volcano_tpu), _debug_run(volcano_tpu_torch)
+    assert got == want
+    assert got["status"] == "anomalous"
+    assert got["by_reason"].get("conservation-mismatch", 0) >= 1
+    assert got["audit_cycles"] >= 4
+    assert "verifiers" in got["keys"] and "slo" in got["keys"]
+    assert "conservation-mismatch" in got["one"]
+    assert got["flag_seq"] in {seq for r, seq in got["ring"]
+                               if r == "conservation-mismatch"}
+    assert got["ring1"] == [got["ring"][-1][0]]
+

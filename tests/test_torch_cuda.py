@@ -2186,3 +2186,47 @@ def test_solver_child_on_card_answers_like_the_cpu_child(cuda):
         for proc in (card, cpu):
             proc.terminate()
             proc.wait(timeout=30)
+
+
+def test_service_on_card_takes_config1_job_to_running(cuda):
+    """BASELINE config 1 through the daemon on the card (the default
+    device): two nodes, a 3-replica gang, periods 0.01 / 0.005 s; the
+    gang Running within a bounded wait, the wave solve's kernels launched
+    by the scheduler's thread, every thread joined by ``stop()``."""
+    import threading
+    import time
+
+    from volcano_tpu_torch.api import Node
+    from volcano_tpu_torch.controllers import Job, TaskSpec
+    from volcano_tpu_torch.service import Service
+
+    before = set(threading.enumerate())
+    svc = Service(simulate=True, schedule_period=0.01,
+                  controller_period=0.005)
+    assert svc.scheduler.device.type == "cuda"
+    for i in range(2):
+        svc.store.add_node(Node(name=f"node-{i}", allocatable={
+            "cpu": "8", "memory": "16Gi", "pods": 64}))
+    job = Job(name="test-job", min_available=3, tasks=[TaskSpec(
+        name="worker", replicas=3,
+        containers=[{"cpu": "1", "memory": "1Gi"}])])
+    kernels.reset_launches()
+    svc.start(http_port=0)
+    started = [t for t in threading.enumerate() if t not in before]
+    try:
+        svc.admitted.add_batch_job(job)
+        deadline = time.monotonic() + 120.0
+        running = []
+        while time.monotonic() < deadline:
+            running = [p for p in list(svc.store.pods.values())
+                       if p.owner_job == job.key and p.phase == "Running"]
+            if len(running) >= 3:
+                break
+            time.sleep(0.002)
+        assert len(running) == 3
+    finally:
+        svc.stop()
+    assert not [t.name for t in started if t.is_alive()]
+    for name in ("coarse_shortlist", "rank_candidates", "walk_accept",
+                 "apply_commit"):
+        assert kernels.LAUNCHES[name] > 0, name

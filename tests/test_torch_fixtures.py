@@ -1347,3 +1347,500 @@ def walk_run(pkg, build, conf=EVICT_CONF, cycles=1, grace=1,
             os.environ["VOLCANO_TPU_NO_NATIVE"] = no_native
         store.close()
     return out
+
+
+# ----------------------------------------------------- the control plane
+
+
+def plain(obj, skip=("last_transition", "last_transition_time",
+                     "transition_time", "first_seen", "last_seen",
+                     "transition_id")):
+    """A comparable copy of a record: dataclasses and namespaces as dicts
+    (the fields in ``skip`` left out: wall-clock stamps, and the session
+    uid a condition names, which counts every uid the scheduler drew),
+    enums as their values, tuples as lists, bytes as their length."""
+    import dataclasses
+    import enum
+
+    if isinstance(obj, enum.Enum):
+        return obj.value
+    if dataclasses.is_dataclass(obj) and not isinstance(obj, type):
+        return {f.name: plain(getattr(obj, f.name), skip)
+                for f in dataclasses.fields(obj) if f.name not in skip}
+    if hasattr(obj, "__dict__") and type(obj).__name__ == "SimpleNamespace":
+        return {k: plain(v, skip) for k, v in sorted(vars(obj).items())
+                if k not in skip}
+    if isinstance(obj, dict):
+        return {str(k): plain(v, skip) for k, v in obj.items()
+                if k not in skip}
+    if isinstance(obj, (list, tuple)):
+        return [plain(v, skip) for v in obj]
+    if isinstance(obj, (set, frozenset)):
+        return sorted(plain(v, skip) for v in obj)
+    if isinstance(obj, (bytes, bytearray)):
+        return ("bytes", len(obj))
+    if isinstance(obj, float) and obj != obj:
+        return "nan"
+    return obj
+
+
+def control_digest(store, cm=None) -> dict:
+    """The control plane's decisions held in a store: jobs (phase, retry
+    count, version, counters, controlled resources), pods (names, env,
+    annotations, labels, affinity, node, phase), PodGroups and their
+    phases, queues and the queue controller's status, binds, evictions,
+    event trails (reason, message, count), claims, config maps, services,
+    network policies, secret keys and pending commands.  Secrets' contents
+    (random keys) and wall-clock stamps are left out."""
+    if getattr(store, "async_bind", False):
+        assert store.flush_binds(timeout=60)
+    with store._lock:
+        out = {
+            "jobs": {k: plain(j) for k, j in store.batch_jobs.items()},
+            "pods": [plain(p) for p in store.pods.values()],
+            "pod_groups": {k: plain(pg)
+                           for k, pg in store.pod_groups.items()},
+            "queues": {k: plain(q) for k, q in store.raw_queues.items()},
+            "pvcs": plain(store.pvcs),
+            "config_maps": plain(store.config_maps),
+            "services": plain(store.services),
+            "network_policies": plain(store.network_policies),
+            "secrets": {k: sorted(v) for k, v in store.secrets.items()},
+            "commands": sorted(store.commands),
+        }
+    # The in-process fakes' records (the HTTP drop-ins' are methods).
+    binds = getattr(store.binder, "binds", None)
+    out["binds"] = dict(binds) if isinstance(binds, dict) else None
+    evicts = getattr(store.evictor, "evicts", None)
+    out["evicts"] = plain(evicts) if isinstance(evicts, list) else None
+    out["events"] = {k: [(e["reason"], e["message"], e["count"])
+                         for e in store.events_for(k)]
+                     for k in list(store._events)}
+    if cm is not None:
+        out["queue_status"] = {k: plain(v) for k, v in
+                               cm.queue_controller.status.items()}
+    return out
+
+
+# The calls after which a twin run records the store's control digest.
+CONTROL_HOOKS = (
+    ("controllers", "ControllerManager", "process"),
+    ("controllers", "JobController", "process_all"),
+    ("controllers", "QueueController", "process_all"),
+    ("controllers", "PodGroupController", "process_all"),
+    ("controllers", "GarbageCollector", "sweep"),
+    ("scheduler", "Scheduler", "run_once"),
+    ("sim", "ClusterSimulator", "step"),
+    ("sim", "ClusterSimulator", "fail_pod"),
+    ("sim", "ClusterSimulator", "fail_node"),
+)
+
+PORT_REWRITES = (
+    (r"\bvolcano_tpu\b(?!_torch)", "volcano_tpu_torch"),
+    (r"\bScheduler\(store(?=[,)])", 'Scheduler(store, device="cpu"'),
+    (r"\bService\(", 'Service(device="cpu", '),
+)
+
+
+def twin_module(path, port: bool):
+    """A JAX package test module executed as written (``port`` False) or
+    with every ``volcano_tpu`` import, ``-m`` target and module path
+    pointing at the port and its ``Scheduler`` / ``Service`` on the CPU
+    (``port`` True).  The uid counters restart first, so the module-level
+    objects of the two executions carry the same uids."""
+    import re
+    import types
+    from pathlib import Path
+
+    src = Path(path).read_text()
+    if port:
+        for pat, rep in PORT_REWRITES:
+            src = re.sub(pat, rep, src)
+    reset_uid_counters()
+    mod = types.ModuleType(Path(path).stem + ("_port" if port else "_jax"))
+    mod.__file__ = str(path)
+    exec(compile(src, f"{path}{' (port)' if port else ''}", "exec"),
+         mod.__dict__)
+    return mod
+
+
+def twin_cases(path, skip=()):
+    """Ids of the test functions, test methods and their parametrized
+    cases in a JAX test module (``qualname`` or ``qualname[i]``), less
+    those whose qualname is in ``skip``."""
+    import itertools
+
+    mod = twin_module(path, port=False)
+    out = []
+    for qual, fn in _twin_tests(mod):
+        if qual in skip or qual.split(".")[0] in skip:
+            continue
+        n = len(list(itertools.product(*_param_sets(fn))))
+        out.extend([qual] if n == 1 and not _param_sets(fn)
+                   else [f"{qual}[{i}]" for i in range(n)])
+    return out
+
+
+def _twin_tests(mod):
+    for name, obj in vars(mod).items():
+        if name.startswith("test") and callable(obj) \
+                and not isinstance(obj, type):
+            yield name, obj
+        elif name.startswith("Test") and isinstance(obj, type):
+            for mname, meth in vars(obj).items():
+                if mname.startswith("test") and callable(meth):
+                    yield f"{name}.{mname}", meth
+
+
+def _param_sets(fn):
+    """Per ``parametrize`` mark: the list of {argname: value} dicts."""
+    sets = []
+    for mark in reversed(getattr(fn, "pytestmark", [])):
+        if mark.name != "parametrize":
+            continue
+        names, values = mark.args[0], mark.args[1]
+        if isinstance(names, str):
+            names = [n.strip() for n in names.split(",") if n.strip()]
+        rows = []
+        for v in values:
+            if hasattr(v, "marks") and hasattr(v, "values"):
+                v = v.values if len(names) > 1 else v.values[0]
+            rows.append({names[0]: v} if len(names) == 1
+                        else dict(zip(names, v)))
+        sets.append(rows)
+    return sets
+
+
+def run_twin_case(path, case, pkg, tmp_factory=None):
+    """Run one case of a JAX test module on ``pkg`` (the JAX package as
+    written, or the port through ``twin_module(port=True)``), recording
+    ``control_digest`` after every call of ``CONTROL_HOOKS``; returns the
+    list of (call, digest).  Fixtures: ``monkeypatch`` (a fresh one,
+    undone after), ``tmp_path`` (``tmp_factory()``), and the module's or
+    class's own fixtures, generators finalized after the case."""
+    import importlib
+    import inspect
+    import itertools
+    import tempfile
+    from pathlib import Path
+
+    import pytest
+
+    port = pkg.__name__ == "volcano_tpu_torch"
+    mod = twin_module(path, port)
+    qual, _, idx = case.partition("[")
+    tests = dict(_twin_tests(mod))
+    fn = tests[qual]
+    params = {}
+    if idx:
+        combo = list(itertools.product(*_param_sets(fn)))[int(idx[:-1])]
+        for d in combo:
+            params.update(d)
+    owner = None
+    if "." in qual:
+        owner = getattr(mod, qual.split(".")[0])()
+        fn = getattr(owner, qual.split(".")[1])
+    trace = []
+    mp = pytest.MonkeyPatch()
+    finalizers = []
+
+    def record(label, self_obj):
+        store = getattr(self_obj, "store", None)
+        if store is not None and hasattr(store, "batch_jobs"):
+            trace.append((label, control_digest(store)))
+
+    for modname, cls, meth in CONTROL_HOOKS:
+        klass = getattr(importlib.import_module(f"{pkg.__name__}.{modname}"),
+                        cls)
+        orig = getattr(klass, meth)
+
+        def hooked(self, *a, _orig=orig, _label=f"{cls}.{meth}", **kw):
+            out = _orig(self, *a, **kw)
+            record(_label, self)
+            return out
+
+        mp.setattr(klass, meth, hooked)
+    if not port:
+        # The JAX package's Python reclaim walk, as ``walk_run`` runs it:
+        # its native replay skips the mirror's dirty mark (ROADMAP.md,
+        # queue 3), so a cycle's close reads its victims as Running.
+        fe = importlib.import_module("volcano_tpu.fastpath_evict")
+        mp.setattr(fe.FastEvictor, "_native_reclaim_setup",
+                   lambda self: None)
+
+    def resolve(name, scope):
+        if name in params:
+            return params[name]
+        if name == "monkeypatch":
+            return mp
+        if name == "tmp_path":
+            return Path(tmp_factory() if tmp_factory is not None
+                        else tempfile.mkdtemp())
+        fx = getattr(scope, name, None) if scope is not None else None
+        if fx is None:
+            fx = getattr(mod, name)
+        raw = fx._get_wrapped_function()
+        sig = inspect.signature(raw)
+        args = [resolve(p, scope) for p in sig.parameters if p != "self"]
+        val = raw(scope, *args) if "self" in sig.parameters else raw(*args)
+        if inspect.isgenerator(val):
+            gen, val = val, next(val)
+            finalizers.append(gen)
+        return val
+
+    try:
+        sig = inspect.signature(fn)
+        args = {p: resolve(p, owner) for p in sig.parameters}
+        fn(**args)
+    finally:
+        for gen in reversed(finalizers):
+            for _ in gen:
+                pass
+        mp.undo()
+    return trace
+
+
+CONTROL_CONF = """
+actions: "enqueue, allocate, backfill"
+tiers:
+- plugins:
+  - name: priority
+  - name: gang
+  - name: conformance
+- plugins:
+  - name: drf
+  - name: predicates
+  - name: proportion
+  - name: nodeorder
+  - name: binpack
+"""
+
+CONTROL_QUEUES = (("q1", 1), ("q2", 2), ("q4", 4), ("q8", 8))
+
+
+def control_jobs(seed=0, per_queue=3):
+    """The lockstep script's jobs, in the API's JSON form: both example
+    files (read by the port's YAML subset reader), a mix over four queues
+    of weights 1 / 2 / 4 / 8 with gangs of 2-16 (the first job of each
+    queue restarts on a failed pod), a ``tpuslice`` job of 8 and a job of
+    2 with a zero TTL."""
+    from pathlib import Path
+
+    from volcano_tpu_torch.framework.conf import load_yaml
+
+    root = Path(__file__).resolve().parent.parent / "examples"
+    specs = [load_yaml((root / f).read_text())
+             for f in ("job.yaml", "tensorflow-dist.yaml")]
+    rng = np.random.default_rng(seed)
+    for q, _w in CONTROL_QUEUES:
+        for k in range(per_queue):
+            size = int(rng.integers(2, 17))
+            spec = {"name": f"{q}-j{k}", "queue": q, "minAvailable": size,
+                    "tasks": [{"name": "worker", "replicas": size,
+                               "containers": [{
+                                   "cpu": str(int(rng.choice([1, 2]))),
+                                   "memory": "2Gi"}]}],
+                    "plugins": {"env": [], "svc": []}}
+            if k == 0:
+                spec["policies"] = [{"event": "PodFailed",
+                                     "action": "RestartJob"}]
+            specs.append(spec)
+    specs.append({"name": "slice-job", "minAvailable": 8,
+                  "tasks": [{"name": "worker", "replicas": 8,
+                             "containers": [{"cpu": "2",
+                                             "memory": "4Gi"}]}],
+                  "plugins": {"tpuslice": ["--weight=10"], "svc": [],
+                              "env": []}})
+    specs.append({"name": "short", "minAvailable": 2,
+                  "ttlSecondsAfterFinished": 0,
+                  "tasks": [{"name": "worker", "replicas": 2,
+                             "containers": [{"cpu": "1",
+                                             "memory": "1Gi"}]}]})
+    return specs
+
+
+def control_run(pkg, n_nodes=64, device="cpu", per_queue=3, seed=0,
+                on_step=None):
+    """The control plane in lockstep, no threads: every step applies its
+    event, then ``ControllerManager.process()``, ``Scheduler.run_once()``
+    and ``ClusterSimulator.step()``, and records ``control_digest``.  The
+    events: the jobs of ``control_jobs`` submitted through the admitted
+    store; three steps to converge; a failed pod of ``dist-mnist``
+    (RestartJob); a failed node under ``q1-j0``; AbortJob then ResumeJob
+    on ``q2-j1``; ``q4`` closed then opened; ``short`` completed and
+    collected by the TTL GC (one clock, 10 s a step); ``q8-j2`` deleted.
+    ``n_nodes`` nodes of 16 CPUs in slices of 16 (``volcano-tpu/slice``).
+    Returns [(event, digest)]; the auditor must stay clean (checked
+    after every step).  ``device`` is the port's (None: the card)."""
+    import importlib
+    import types
+
+    is_jax = pkg.__name__ == "volcano_tpu"
+    mods = {m: importlib.import_module(f"{pkg.__name__}.{m}")
+            for m in ("api", "cache", "controllers", "scheduler", "sim",
+                      "service", "webhooks")}
+    api, cache, ctrl = mods["api"], mods["cache"], mods["controllers"]
+    reset_uid_counters()
+    store = cache.ClusterStore(binder=cache.FakeBinder(),
+                               evictor=cache.FakeEvictor())
+    for i in range(n_nodes):
+        store.add_node(api.Node(
+            name=f"n{i:04d}",
+            allocatable={"cpu": "16", "memory": "64Gi", "pods": 110},
+            topology={"volcano-tpu/slice": f"s{i // 16}"}))
+    for q, w in CONTROL_QUEUES:
+        store.add_queue(api.Queue(name=q, weight=w))
+    cm = ctrl.ControllerManager(store)
+    # One clock for the TTL GC and the job controller's transition
+    # stamps, 10 s a step.
+    clock = [1000.0]
+    cm.gc.clock = lambda: clock[0]
+    jc_mod = importlib.import_module(
+        f"{pkg.__name__}.controllers.job_controller")
+    real_time = jc_mod.time
+    jc_mod.time = types.SimpleNamespace(time=lambda: clock[0])
+    kw = {} if is_jax else {"device": device}
+    sched = mods["scheduler"].Scheduler(store, conf_str=CONTROL_CONF, **kw)
+    sim = mods["sim"].ClusterSimulator(store)
+    admitted = mods["webhooks"].AdmittedStore(store)
+
+    def job_pods(key):
+        with store._lock:
+            return sorted((p for p in store.pods.values()
+                           if p.owner_job == key), key=lambda p: p.name)
+
+    def command(action, kind, name):
+        store.add_command(ctrl.Command(action=action, target_kind=kind,
+                                       target_name=name))
+
+    def submit():
+        for spec in control_jobs(seed, per_queue):
+            admitted.add_batch_job(mods["service"].job_from_dict(spec))
+
+    def fail_pod():
+        running = [p for p in job_pods("default/dist-mnist")
+                   if p.phase == api.PodPhase.Running]
+        sim.fail_pod(running[0].uid, exit_code=137)
+
+    def fail_node():
+        sim.fail_node(job_pods("default/q1-j0")[0].node_name)
+
+    def short_done(pod):
+        return 0 if pod.owner_job == "default/short" else None
+
+    script = [("submit", submit)] + [("converge", None)] * 3 + [
+        ("fail-pod", fail_pod), ("converge", None), ("converge", None),
+        ("fail-node", fail_node), ("converge", None),
+        ("abort", lambda: command("AbortJob", "Job", "q2-j1")),
+        ("converge", None),
+        ("resume", lambda: command("ResumeJob", "Job", "q2-j1")),
+        ("close-queue", lambda: command("CloseQueue", "Queue", "q4")),
+        ("open-queue", lambda: command("OpenQueue", "Queue", "q4")),
+        ("complete-short", "short"),
+        ("delete", lambda: store.delete_batch_job("default/q8-j2")),
+        ("converge", None), ("converge", None)]
+    out = []
+    try:
+        for label, event in script:
+            complete = None
+            if event == "short":
+                complete = short_done
+            elif event is not None:
+                event()
+            cm.process()
+            sched.run_once()
+            sim.step(complete=complete)
+            clock[0] += 10.0
+            anomalies = [a.reason for a in store.auditor.anomalies()]
+            assert not anomalies, (label, anomalies)
+            out.append((label, control_digest(store, cm)))
+            if on_step is not None:
+                on_step(label, store)
+    finally:
+        jc_mod.time = real_time
+        store.close()
+    return out
+
+
+class PumpedService:
+    """A package's ``Service`` with its HTTP API up on a free loopback
+    port and its loops not started: ``pump()`` runs a controller pump, a
+    scheduler cycle (binds flushed), a kubelet tick and a controller pump
+    on the calling thread, so a test orders every step itself (no sleeps,
+    no threads racing).  The port's runs on the CPU."""
+
+    def __init__(self, pkg, nodes=(), **kw):
+        import importlib
+
+        svc_mod = importlib.import_module(f"{pkg.__name__}.service")
+        self.pkg = pkg
+        kw.setdefault("simulate", True)
+        if pkg.__name__ == "volcano_tpu_torch":
+            kw.setdefault("device", "cpu")
+        self.svc = svc_mod.Service(**kw)
+        for name, alloc in nodes:
+            self.svc.store.add_node(pkg.api.Node(name=name,
+                                                 allocatable=alloc))
+        self.port = self.svc._start_http(0)
+        self.url = f"http://127.0.0.1:{self.port}"
+
+    @property
+    def store(self):
+        return self.svc.store
+
+    def pump(self, n=1):
+        svc = self.svc
+        for _ in range(n):
+            svc.controllers.process()
+            svc.scheduler.run_once()
+            assert svc.store.flush_binds(timeout=60)
+            svc.simulator.step()
+            svc.controllers.process()
+
+    def stop(self):
+        self.svc.stop()
+
+
+def debug_scrape(pkg, store, paths, locked=()):
+    """GET each of ``paths`` from the package's ``Service`` over ``store``
+    (its HTTP API on a free loopback port, its loops not started); a path
+    in ``locked`` is fetched by another thread while this one holds the
+    store lock, and must answer within 5 s.  Returns {path: (status,
+    parsed body)}; the service stops (the store stays open)."""
+    import importlib
+    import json
+    import threading
+    import urllib.error
+    import urllib.request
+
+    svc_mod = importlib.import_module(f"{pkg.__name__}.service")
+    kw = {"device": "cpu"} if pkg.__name__ == "volcano_tpu_torch" else {}
+    svc = svc_mod.Service(store=store, schedule_period=30.0,
+                          controller_period=5.0, **kw)
+    port = svc._start_http(0)
+    out = {}
+
+    def get(path):
+        try:
+            with urllib.request.urlopen(f"http://127.0.0.1:{port}{path}",
+                                        timeout=10) as r:
+                out[path] = (r.status, json.loads(r.read()))
+        except urllib.error.HTTPError as err:
+            out[path] = (err.code, json.loads(err.read()))
+
+    try:
+        for path in paths:
+            if path in locked:
+                with store._lock:
+                    t = threading.Thread(target=get, args=(path,))
+                    t.start()
+                    t.join(timeout=5)
+                    assert not t.is_alive(), f"{path} blocked on the lock"
+            else:
+                get(path)
+    finally:
+        # Not ``svc.stop()``: that closes the store, which the caller
+        # still reads.
+        svc._httpd.shutdown()
+        svc._httpd.server_close()
+    return out

@@ -20,9 +20,10 @@ roundtrip.py`` and ``tests/test_scheduler_loop.py`` for what the port runs:
 - the controller-plane record methods leave the dicts the JAX store's
   leave after the same calls.
 
-The controller manager (the JAX package's ``controllers``) is not ported:
-batch jobs and commands here are plain namespaces carrying the fields the
-store keys them by.
+Batch jobs and commands round-trip both as plain namespaces carrying the
+fields the store keys them by and as the port's own ``controllers.apis``
+records (``Job`` with its tasks, policies, volumes and status;
+``Command``), equal to the JAX package's after its own round trip.
 
 Run as ``python tests/test_torch_ha.py <lease> <log> <identity> <n_pods>``
 the module is the two-process test's worker.
@@ -318,6 +319,55 @@ def test_checkpoint_roundtrips_claims_policies_and_commands(tmp_path):
     assert restored.config_maps == {"default/cm": {"a": "1"}}
     assert restored.secrets == {"default/s": {"token": b"x"}}
     assert restored.services == {"default/svc": {"ports": [80]}}
+
+
+def _controller_records_roundtrip(pkg, tmp_path):
+    """A store holding a real batch ``Job`` (tasks, policies, a volume,
+    plugins, a status mid-restart) and a pending ``Command``, saved and
+    loaded by the package's own persistence."""
+    import importlib
+
+    ctrl = importlib.import_module(f"{pkg.__name__}.controllers")
+    persist = importlib.import_module(f"{pkg.__name__}.persistence")
+    from test_torch_fixtures import plain, reset_uid_counters
+
+    reset_uid_counters()
+    store = pkg.cache.ClusterStore()
+    job = ctrl.Job(
+        name="j1", min_available=2, max_retry=4,
+        tasks=[ctrl.TaskSpec(
+            name="w", replicas=2, containers=[{"cpu": "1"}],
+            env={"A": "1"}, policies=[ctrl.LifecyclePolicy(
+                action="RestartJob", event="PodFailed")])],
+        volumes=[ctrl.VolumeSpec(mount_path="/d",
+                                 volume_claim={"storage": "1Gi"})],
+        plugins={"svc": [], "env": []}, ttl_seconds_after_finished=60.0)
+    job.status.state.phase = "Restarting"
+    job.status.retry_count = 1
+    job.status.version = 3
+    store.add_batch_job(job)
+    store.add_command(ctrl.Command(action="ResumeJob", target_kind="Job",
+                                   target_name="j1"))
+    path = str(tmp_path / f"{pkg.__name__}.ckpt")
+    persist.save_store(store, path)
+    back = persist.load_store(path)
+    out = (type(back.batch_jobs["default/j1"]).__name__,
+           plain(back.batch_jobs["default/j1"]),
+           [(type(c).__name__, plain(c)) for c in back.commands.values()])
+    assert back.batch_jobs["default/j1"] == job
+    store.close()
+    back.close()
+    return out
+
+
+def test_checkpoint_roundtrips_real_job_and_command(tmp_path):
+    import volcano_tpu
+
+    want = _controller_records_roundtrip(volcano_tpu, tmp_path)
+    got = _controller_records_roundtrip(volcano_tpu_torch, tmp_path)
+    assert got == want
+    assert got[0] == "Job" and got[2][0][0] == "Command"
+    assert got[1]["status"]["retry_count"] == 1
 
 
 def test_version_mismatch_raises(tmp_path):

@@ -24,6 +24,11 @@
     import neither ``jax`` nor ``volcano_tpu``, and a default store with
     them wired runs an audited cycle, exports a trace and round-trips a
     checkpoint with the JAX package unimportable.
+(g) The control plane (``controllers``, ``webhooks``, ``service``,
+    ``client``, ``cli``, ``cache.remote``) imports and runs with ``jax``,
+    ``volcano_tpu`` and ``yaml`` unimportable: a daemon on the CPU takes a
+    gang submitted by ``vtpuctl job run -f examples/job.yaml`` to Running
+    and ``job view`` prints it.
 """
 
 import ast
@@ -803,3 +808,52 @@ def test_lockdep_runs_with_jax_tools_and_reference_blocked():
     )
     assert out.returncode == 0, out.stderr[-3000:]
     assert out.stdout.strip().endswith("ok")
+
+
+_CONTROL_PLANE = r'''
+import contextlib, io, sys
+import volcano_tpu_torch.controllers, volcano_tpu_torch.webhooks
+import volcano_tpu_torch.client, volcano_tpu_torch.cli
+import volcano_tpu_torch.cache.remote
+from volcano_tpu_torch.api import Node
+from volcano_tpu_torch.cli.main import main
+from volcano_tpu_torch.client import Client
+from volcano_tpu_torch.service import Service
+svc = Service(simulate=True, device="cpu")
+for i in range(2):
+    svc.store.add_node(Node(name=f"n{i}", allocatable={
+        "cpu": "8", "memory": "16Gi", "pods": 110}))
+port = svc._start_http(0)
+srv = ["--server", f"http://127.0.0.1:{port}"]
+try:
+    assert main(srv + ["job", "run", "-f", "examples/job.yaml"]) == 0
+    for _ in range(4):
+        svc.controllers.process()
+        svc.scheduler.run_once()
+        assert svc.store.flush_binds(timeout=60)
+        svc.simulator.step()
+        svc.controllers.process()
+    job = Client(srv[1]).get_job("test-job")
+    assert job["status"]["phase"] == "Running", job
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        assert main(srv + ["job", "view", "--name", "test-job"]) == 0
+    assert out.getvalue().startswith("name: test-job")
+finally:
+    svc.stop()
+assert not any(k.split(".")[0] in ("jax", "jaxlib", "volcano_tpu", "yaml")
+               for k in sys.modules)
+print("ok")
+'''
+
+
+def test_control_plane_runs_with_jax_reference_and_yaml_blocked():
+    env = dict(os.environ, PYTHONPATH=str(ROOT))
+    blocker = _BLOCKER.replace('("jax", "jaxlib", "volcano_tpu")',
+                               '("jax", "jaxlib", "volcano_tpu", "yaml")')
+    out = subprocess.run(
+        [sys.executable, "-c", blocker + _CONTROL_PLANE],
+        capture_output=True, text=True, env=env, cwd=ROOT, timeout=300)
+    assert out.returncode == 0, out.stderr[-3000:]
+    assert out.stdout.strip().endswith("ok")
+

@@ -8,10 +8,12 @@ clean over every bound pod.  Latencies are never compared.  The fabric
 drive of the verify notes (a require-contiguous gang held as
 ``topology-infeasible``, then placed by a rebalance wave with
 ``migration-planned`` / ``restored`` stitches) and a preempt drive
-(``evicted``) are twinned too.  The cross-shard and work-stealing cases of
-``tests/test_journey.py`` belong to the sharded control plane and the
-``/debug/pods`` case to the service (ROADMAP.md, queue 1, items 7 and 6):
-not twinned here.
+(``evicted``) are twinned too, and so is the ``/debug/pods/<uid>``
+endpoint of each package's service (fetched while the store lock is
+held: the timeline, its event kinds and verdict, a missing pod's error,
+and ``/debug/health``'s journey rollup equal).  The cross-shard and
+work-stealing cases of ``tests/test_journey.py`` belong to the sharded
+control plane (ROADMAP.md, queue 1, item 7): not twinned here.
 """
 
 import collections
@@ -516,3 +518,48 @@ def test_columnar_capture_equals_jax(seed, monkeypatch):
     want, got = _both(lambda pkg: _random_drive(pkg, seed, monkeypatch))
     for key in want:
         assert got[key] == want[key], key
+
+
+# ----------------------------------------------------- debug endpoint
+
+
+def _debug_run(pkg):
+    """tests/test_journey.py's /debug/pods case: four churn cycles, then
+    a bound pod's timeline with the store lock held, a missing pod, and
+    the health rollup."""
+    from test_torch_fixtures import debug_scrape
+
+    store = _churn_store(pkg, n_nodes=8, n_pods=32)
+    sched = _sched(pkg, store)
+    for _ in range(4):
+        sched.run_once()
+    store.flush_binds()
+    uid = _bound_uids(store)[0]
+    got = debug_scrape(pkg, store, [f"/debug/pods/{uid}",
+                                    "/debug/pods/does-not-exist",
+                                    "/debug/health"],
+                       locked=(f"/debug/pods/{uid}",))
+    store.close()
+    body = got[f"/debug/pods/{uid}"][1]
+    roll = got["/debug/health"][1]["journey"]
+    return {
+        "uid": body["uid"],
+        "kinds": [e["kind"] for e in body["events"]],
+        "why": body["why_pending"],
+        "fields": {k: body[k] for k in ("queue", "gang", "status",
+                                        "last_kind", "monotone")},
+        "missing": (got["/debug/pods/does-not-exist"][0],
+                    sorted(got["/debug/pods/does-not-exist"][1])),
+        "tracked": roll["pods_tracked"],
+        "bound": {q: v["bound_total"] for q, v in roll["queues"].items()},
+    }
+
+
+def test_debug_pods_endpoint_equal_jax():
+    want, got = _both(_debug_run)
+    assert got == want
+    assert got["why"] == "bound"
+    assert got["kinds"][0] == "enqueued"
+    assert got["missing"][0] == 404 and "error" in got["missing"][1]
+    assert got["tracked"] > 0 and any(v > 0 for v in got["bound"].values())
+

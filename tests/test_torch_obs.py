@@ -9,8 +9,10 @@ drop events must be equal.  Timings are never compared.  Cases: a
 pipelined run's dispatch -> commit flow, the record's overlap accounting,
 staleness drops whose reasons sum to the dropped rows, capacity theft, a
 lost reply, a compaction void, tracing off, the bounded ring and the
-object session's records.  The ``/debug`` endpoint case belongs to the
-service (ROADMAP.md, queue 1, item 6): not twinned here.
+object session's records.  The ``/debug`` endpoints: ``/debug/cycles``
+(with ``?n=``), ``/debug/cycles/<seq>`` (spans included; a missing seq's
+404) and ``/debug/trace`` of each package's service over the staleness
+scenario, the records' fields and the trace's event names equal.
 """
 
 import copy
@@ -412,3 +414,57 @@ def test_object_session_cycles_are_recorded(monkeypatch):
     assert got[2] and got[4]
     assert got == want
     assert got[5] == 0
+
+
+# ------------------------------------------------------- /debug endpoints
+
+
+def _debug_run(pkg):
+    """tests/test_obs.py's /debug case: the staleness-guarded cycle of
+    the drop scenario, then the flight ring and the trace over HTTP."""
+    from test_torch_fixtures import debug_scrape
+
+    store = _drop_scenario_store(pkg)
+    sched = _sched(pkg, store)
+    sched.run_once()
+    victim = next(p for p in store.pods.values() if p.name == "p0")
+    store.delete_pod(victim)
+    sched.run_once()
+    store.flush_binds()
+    want = next(r for r in reversed(store.flight.recent())
+                if r.committed_solve_id is not None)
+    got = debug_scrape(pkg, store, [
+        "/debug/cycles", "/debug/cycles?n=1", f"/debug/cycles/{want.seq}",
+        "/debug/cycles/999999", "/debug/trace?cycles=8"])
+    store.close()
+    cycles = got["/debug/cycles"][1]
+    match = [c for c in cycles if c["seq"] == want.seq]
+    one = got[f"/debug/cycles/{want.seq}"][1]
+    trace = got["/debug/trace?cycles=8"][1]
+    return {
+        "seqs": [c["seq"] for c in cycles],
+        "match": [(c["drop_reasons"], c["pods_dropped"], c["pods_bound"],
+                   c["path"]) for c in match],
+        "record": (dict(want.drop_reasons), want.pods_dropped),
+        "last": got["/debug/cycles?n=1"][1][-1]["seq"],
+        # The record's own span list is the cycle thread's; which cycle
+        # the pipelined device lanes' spans land in is not a decision.
+        "one": (one["seq"], bool(one["spans"]), one["pods_dropped"],
+                one["drop_reasons"]),
+        "missing": got["/debug/cycles/999999"][0],
+        "trace": sorted({e["name"] for e in trace["traceEvents"]}),
+    }
+
+
+def test_debug_endpoints_serve_ring_and_trace_equal_jax():
+    want, got = _both(_debug_run)
+    assert got == want
+    assert got["match"], "the staleness cycle is in the served ring"
+    reasons, dropped, _bound, _path = got["match"][0]
+    assert (reasons, dropped) == got["record"]
+    assert sum(reasons.values()) == dropped
+    assert got["one"][1], "per-cycle endpoint includes spans"
+    assert got["trace"]
+    assert got["last"] == got["seqs"][-1]
+    assert got["missing"] == 404
+

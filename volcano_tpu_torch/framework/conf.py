@@ -15,6 +15,11 @@ string).  Anything else -- flow collections, anchors and aliases, block
 scalars, tags, multiple documents, tabs, unknown top-level keys -- raises
 ``ValueError``: a conf the port would read differently is refused, never
 guessed at.
+
+``load_yaml`` reads the same subset widened to one-line flow collections of
+scalars (``[]``, ``{}``, ``[a, b]``, ``{a: 1}``) -- what job files use --
+for the CLI's ``job run -f``; it raises with the line number where the
+subset ends, as the conf reader does.
 """
 
 from __future__ import annotations
@@ -125,12 +130,13 @@ class _Line:
 
 
 def _fail(no: int, why: str):
-    return ValueError(f"scheduler conf line {no}: {why}")
+    return ValueError(f"line {no}: {why}")
 
 
-def _strip_comment(raw: str, no: int) -> str:
+def _strip_comment(raw: str, no: int, flow: bool = False) -> str:
     """Drop a ``# comment`` that is outside quotes (YAML needs a space or
     line start before the ``#``)."""
+    starts = ("", ":", "-", "[", "{", ",") if flow else ("", ":", "-")
     quote = None
     i = 0
     while i < len(raw):
@@ -143,7 +149,7 @@ def _strip_comment(raw: str, no: int) -> str:
                     quote = None
             elif ch == "\\" and quote == '"':
                 i += 1
-        elif ch in "'\"" and raw[:i].rstrip()[-1:] in ("", ":", "-"):
+        elif ch in "'\"" and raw[:i].rstrip()[-1:] in starts:
             # A quote opens a scalar only where a scalar starts.
             quote = ch
         elif ch == "#" and (i == 0 or raw[i - 1] in " \t"):
@@ -154,12 +160,12 @@ def _strip_comment(raw: str, no: int) -> str:
     return raw.rstrip()
 
 
-def _lines(text: str) -> List[_Line]:
+def _lines(text: str, flow: bool = False) -> List[_Line]:
     out = []
     for no, raw in enumerate(text.splitlines(), 1):
         if "\t" in raw[: len(raw) - len(raw.lstrip(" \t"))]:
             raise _fail(no, "tab indentation")
-        body = _strip_comment(raw, no)
+        body = _strip_comment(raw, no, flow)
         stripped = body.strip()
         if not stripped:
             continue
@@ -173,9 +179,70 @@ def _lines(text: str) -> List[_Line]:
     return out
 
 
-def _scalar(tok: str, no: int):
-    """A plain or quoted scalar, resolved like YAML 1.1's safe loader."""
+def _flow_items(body: str, no: int) -> List[str]:
+    """Split a one-line flow collection's inside at its top-level commas
+    (a trailing comma ends it); a nested collection raises."""
+    items, cur, quote, i = [], [], None, 0
+    while i < len(body):
+        ch = body[i]
+        if quote:
+            if ch == quote:
+                if quote == "'" and body[i + 1:i + 2] == "'":
+                    cur.append(ch)
+                    i += 1
+                else:
+                    quote = None
+            elif ch == "\\" and quote == '"':
+                cur.append(ch)
+                i += 1
+                ch = body[i:i + 1]
+        elif ch in "'\"" and "".join(cur).rstrip()[-1:] in ("", ":"):
+            quote = ch
+        elif ch in "[]{}":
+            raise _fail(no, "nested flow collection")
+        elif ch == ",":
+            items.append("".join(cur).strip())
+            cur = []
+            i += 1
+            continue
+        cur.append(ch)
+        i += 1
+    last = "".join(cur).strip()
+    if last or not items:
+        items.append(last)
+    if items == [""]:
+        return []
+    if "" in items:
+        raise _fail(no, "empty entry in a flow collection")
+    return items
+
+
+def _flow(tok: str, no: int):
+    """A one-line flow sequence or mapping of scalars."""
+    close = "]" if tok[0] == "[" else "}"
+    if not tok.endswith(close):
+        raise _fail(no, f"unterminated flow collection {tok!r}")
+    items = _flow_items(tok[1:-1], no)
+    if close == "]":
+        return [_scalar(item, no) for item in items]
+    out: Dict[str, object] = {}
+    for item in items:
+        kv = _split_key(item, no)
+        if kv is None:
+            raise _fail(no, f"flow mapping entry without 'key: ', {item!r}")
+        key, rest = kv
+        if key in out:
+            raise _fail(no, f"duplicate key {key!r}")
+        out[key] = _scalar(rest, no) if rest else None
+    return out
+
+
+def _scalar(tok: str, no: int, flow: bool = False):
+    """A plain or quoted scalar, resolved like YAML 1.1's safe loader; with
+    ``flow``, also a one-line flow collection of such scalars."""
     tok = tok.strip()
+    if flow and tok[:1] in ("[", "{"):
+        return _flow(tok, no)
     if tok[:1] in ("'", '"'):
         q = tok[0]
         if len(tok) < 2 or tok[-1] != q:
@@ -243,29 +310,29 @@ def _split_key(text: str, no: int) -> Optional[Tuple[str, str]]:
     return m.group(1).strip(), (m.group(2) or "").strip()
 
 
-def _parse_block(lines: List[_Line], i: int, indent: int):
+def _parse_block(lines: List[_Line], i: int, indent: int, flow: bool):
     """Parse the block node whose lines start at ``i`` with exactly
     ``indent``; returns (value, next index)."""
     if lines[i].text.startswith("- ") or lines[i].text == "-":
-        return _parse_seq(lines, i, indent)
-    return _parse_map(lines, i, indent)
+        return _parse_seq(lines, i, indent, flow)
+    return _parse_map(lines, i, indent, flow)
 
 
-def _value_after(lines, i, parent_indent, rest, no, seq_ok: bool):
+def _value_after(lines, i, parent_indent, rest, no, seq_ok: bool, flow):
     """The value of a key whose inline text is ``rest``: the scalar, or
     the nested block on the following lines."""
     if rest:
-        return _scalar(rest, no), i + 1
+        return _scalar(rest, no, flow), i + 1
     j = i + 1
     if j < len(lines) and (
             lines[j].indent > parent_indent
             or (seq_ok and lines[j].indent == parent_indent
                 and lines[j].text.startswith("-"))):
-        return _parse_block(lines, j, lines[j].indent)
+        return _parse_block(lines, j, lines[j].indent, flow)
     return None, j
 
 
-def _parse_map(lines, i, indent):
+def _parse_map(lines, i, indent, flow):
     out: Dict[str, object] = {}
     while i < len(lines) and lines[i].indent == indent:
         ln = lines[i]
@@ -277,20 +344,22 @@ def _parse_map(lines, i, indent):
         key, rest = kv
         if key in out:
             raise _fail(ln.no, f"duplicate key {key!r}")
-        out[key], i = _value_after(lines, i, indent, rest, ln.no, True)
+        out[key], i = _value_after(lines, i, indent, rest, ln.no, True,
+                                   flow)
     if i < len(lines) and lines[i].indent > indent:
         raise _fail(lines[i].no, "bad indentation")
     return out, i
 
 
-def _parse_seq(lines, i, indent):
+def _parse_seq(lines, i, indent, flow):
     out: list = []
     while (i < len(lines) and lines[i].indent == indent
            and (lines[i].text.startswith("- ") or lines[i].text == "-")):
         ln = lines[i]
         body = ln.text[1:].lstrip(" ")
         if not body:
-            val, i = _value_after(lines, i, indent, "", ln.no, False)
+            val, i = _value_after(lines, i, indent, "", ln.no, False,
+                                  flow)
             out.append(val)
             continue
         # "- key: value" opens a mapping whose further keys sit at the
@@ -298,29 +367,41 @@ def _parse_seq(lines, i, indent):
         col = indent + (len(ln.text) - len(body))
         if body.startswith("- "):
             raise _fail(ln.no, "nested inline sequence")
-        kv = _split_key(body, ln.no)
+        kv = (None if flow and body[:1] in ("[", "{")
+              else _split_key(body, ln.no))
         if kv is None:
-            out.append(_scalar(body, ln.no))
+            out.append(_scalar(body, ln.no, flow))
             i += 1
             continue
         lines = lines[:i] + [_Line(ln.no, col, body)] + lines[i + 1:]
-        val, i = _parse_map(lines, i, col)
+        val, i = _parse_map(lines, i, col, flow)
         out.append(val)
     if i < len(lines) and lines[i].indent > indent:
         raise _fail(lines[i].no, "bad indentation")
     return out, i
 
 
-def _load(text: str):
-    lines = _lines(text)
+def _load(text: str, flow: bool = False):
+    lines = _lines(text, flow)
     if not lines:
         return {}
     if lines[0].indent != 0:
         raise _fail(lines[0].no, "the document must start at column 0")
-    val, i = _parse_block(lines, 0, 0)
+    val, i = _parse_block(lines, 0, 0, flow)
     if i != len(lines):
         raise _fail(lines[i].no, "trailing content")
     return val
+
+
+def load_yaml(text: str, what: str = "YAML"):
+    """The subset of YAML a job file uses, read as ``yaml.safe_load``
+    reads it: block mappings and sequences, comments, plain and quoted
+    scalars, one-line flow collections of scalars.  Anything else raises
+    ``ValueError`` naming ``what`` and the line."""
+    try:
+        return _load(text, flow=True)
+    except ValueError as err:
+        raise ValueError(f"{what} {err}") from None
 
 
 def _map_of(v, what: str) -> dict:
@@ -342,7 +423,11 @@ def _list_of(v, what: str) -> list:
 def parse_scheduler_conf(conf_str: str) -> SchedulerConfiguration:
     """Parse the scheduler conf and apply plugin defaults
     (pkg/scheduler/util.go loadSchedulerConf)."""
-    raw = _map_of(_load(conf_str), "the document")
+    try:
+        doc = _load(conf_str)
+    except ValueError as err:
+        raise ValueError(f"scheduler conf {err}") from None
+    raw = _map_of(doc, "the document")
     unknown = sorted(set(raw) - set(_TOP_KEYS))
     if unknown:
         raise ValueError(f"scheduler conf: unknown keys {unknown}")

@@ -58,8 +58,8 @@ _STDLIB = {
     "collections": {"OrderedDict", "defaultdict", "deque"},
     "copyreg": {"_reconstructor"},
     "datetime": {"datetime", "date", "time", "timedelta", "timezone"},
-    # Controller-plane records the port has no class for (batch jobs,
-    # commands) may be plain namespaces.
+    # Controller-plane records (batch jobs, commands) are the port's
+    # ``controllers.apis`` classes; plain namespaces load too.
     "types": {"SimpleNamespace"},
 }
 

@@ -4,7 +4,9 @@ The counterpart of the JAX package's ``sim.py``: it plays the kubelet's
 role against the in-memory store (bound pods start running, deleting pods
 terminate through an optional grace window, optional completions), so job
 lifecycles and eviction waves run hermetically at any scale.  Fault
-injection (``fail_pod`` / ``fail_node``) is not ported yet.
+injection: ``fail_pod`` fails a pod with an exit code (the controllers'
+``PodFailed`` policies), ``fail_node`` marks a node NotReady and fails the
+pods running on it (``DeviceUnhealthy``).
 """
 
 from __future__ import annotations
@@ -172,3 +174,32 @@ class ClusterSimulator:
             "batch_groups": batch_groups,
             "nodes": nodes,
         }
+
+    def fail_pod(self, uid: str, exit_code: int = 1) -> None:
+        """Inject a pod failure (fault injection; the reference's e2e kills
+        pods to trigger policies, job_error_handling.go:145-276)."""
+        with self.store._lock:
+            pod = self.store.pods[uid]
+        updated = copy.copy(pod)
+        updated.exit_code = exit_code
+        updated.phase = PodPhase.Failed
+        self.store.update_pod(updated)
+
+    def fail_node(self, name: str) -> None:
+        """Mark a node NotReady (device-unhealthy / node-failure injection).
+
+        The update flows through the store so the job controller raises
+        DeviceUnhealthy requests for resident pods; the pods themselves then
+        fail on the next tick (the kubelet on a dead device cannot report
+        success)."""
+        node_info = self.store.nodes.get(name)
+        if node_info is None or node_info.node is None:
+            return
+        spec = node_info.node
+        spec.ready = False
+        self.store.update_node(spec)
+        with self.store._lock:
+            resident = list(self.store.pods.values())
+        for pod in resident:
+            if pod.node_name == name and pod.phase == PodPhase.Running:
+                self.fail_pod(pod.uid, exit_code=255)
