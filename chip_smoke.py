@@ -193,17 +193,18 @@ of which raises (and the script exits non-zero) when a check fails:
    node block and merged) as a kernels row of its own,
    ``coarse_shortlist:cold``, with its shape (U, N, B, klb, S);
 20. object: BASELINE config 2 (bench.py ``config_2``: 1,000 nodes x 10,000
-   pods, gangs of 4) under CONF_BASE with ``VOLCANO_TPU_FASTPATH=0``: three
+   pods, gangs of 4) under CONF_BASE with ``VOLCANO_TPU_FASTPATH=0``: two
    object-session cycles (open, the conf's actions, close; the pods of
-   nodes 0-63 re-pended before each later cycle), on the card and on the
+   nodes 0-63 re-pended before the second), on the card and on the
    CPU: binds, PodGroup phases and mirror states identical every cycle,
    ``cycle_invariants`` after every cycle, a flight record with path
    "object", the lanes printed; the wave solve's kernels required;
 21. seq: the same under ``solver: seq``: ``seq_solve`` required, card
    against CPU, and the kernel against its plain version on the inputs of
-   its first launch, timed as in 4 but one call a turn and the plain
-   version in one turn (kernel, plain, kernel); then a cold seq cycle on a fresh
-   store traced with ``torch.profiler`` in a process of its own
+   its first launch, timed as in 4 but one call a turn, the plain version
+   timed on the one call that checks it (kernel, kernel); then a cold seq
+   cycle on a fresh store traced with ``torch.profiler`` in a process of
+   its own
    (``python3 chip_smoke.py seq-trace``: the card's idle share, from the
    trace alone; three traces without the solve's two kernels fail the
    phase), the allocate lane, and the solve's launches timed by CUDA
@@ -259,7 +260,10 @@ of which raises (and the script exits non-zero) when a check fails:
    ``VOLCANO_TPU_TWOPHASE=0``, card against CPU at 1,000 x 10,000;
 33. single-phase:affinity: config 5's cold cycle single-phase;
 34. steer: config 5 with ``VOLCANO_TPU_AFF_STEER=1`` (``aff_steer``), card
-   against CPU in both phase modes and on a contended store.  The
+   against CPU in both phase modes and on a contended store; its first
+   launch replayed computing and gated against the plain version, each
+   call one ``aff_steer_row_kernel`` on the card (a trace's names, a CUDA
+   graph's count: ``[kernels:steer]``).  The
    ``[single-phase] seconds`` line gives each of 32-34's seconds;
 35. host-walk:reclaim: the host victim walk (``VOLCANO_TPU_EVICT_DEVICE=0``)
    on BASELINE config 4 at its full size (phase 9's store) under the
@@ -386,8 +390,8 @@ def _smi() -> str:
 
 # The sources whose kernels' registers, shared memory and spills
 # (`nvcc -Xptxas -v`) the run prints.
-PTXAS_SOURCES = ("rank_candidates.cu", "aff_live.cu", "walk_accept.cu",
-                 "aff_filter.cu", "coarse_shortlist.cu",
+PTXAS_SOURCES = ("rank_candidates.cu", "aff_live.cu", "aff_steer.cu",
+                 "walk_accept.cu", "aff_filter.cu", "coarse_shortlist.cu",
                  "warm_shortlist.cu", "apply_commit.cu", "seq_solve.cu",
                  "victim_scores.cu", "topology.cu", "aff_tables.cu",
                  "scatter_rows.cu", "frag_scores.cu")
@@ -1337,14 +1341,17 @@ def launch_floor(reps: int = 20) -> dict:
 
 
 def replay_kernels(captured: dict, launches: dict, reps: int = 20,
-                   names=None, turns=(False, True, True, False)) -> list:
+                   names=None, turns=(False, True, True, False),
+                   time_check: bool = False) -> list:
     """Each kernel against its plain version on its captured inputs;
     integer outputs must be identical, float outputs identical too (the
     kernels round like the plain versions and sum integers exactly).  Then
     ``reps`` back-to-back calls of each, on fresh copies of the inputs,
     timed by ``_device_ms`` in ``turns`` (plain or not: kernel, plain,
     plain, kernel), best of each; and, where one PyTorch call computes the
-    same function, that call."""
+    same function, that call.  ``time_check``: the plain call of the
+    equality check is timed too (a plain version too slow to run again;
+    ``turns`` may then leave the plain version out)."""
     import torch
 
     from volcano_tpu_torch.ops import kernels
@@ -1355,7 +1362,14 @@ def replay_kernels(captured: dict, launches: dict, reps: int = 20,
             raise AssertionError(f"kernel {name} never launched")
         cap = captured[name]
         k_out = _kernel_fn(name, _clone(cap), plain=False)()
-        p_out = _kernel_fn(name, _clone(cap), plain=True)()
+        times = {}
+        pfn = _kernel_fn(name, _clone(cap), plain=True)
+        if time_check:
+            box = []
+            times[True] = [_device_ms([lambda: box.append(pfn())])]
+            p_out = box[0]
+        else:
+            p_out = pfn()
         torch.cuda.synchronize()
         err = 0.0
         for a, b in zip(k_out, p_out):
@@ -1366,7 +1380,6 @@ def replay_kernels(captured: dict, launches: dict, reps: int = 20,
                 err = max(err, float(d.max()) if d.numel() else 0.0)
             if not torch.equal(a, b):
                 raise AssertionError(f"{name}: kernel != plain version")
-        times = {}
         for plain in turns:
             fns = [_kernel_fn(name, _clone(cap), plain=plain)
                    for _ in range(reps)]
@@ -1435,8 +1448,8 @@ KERNEL_FUNCS = {
     "aff_live": ("aff_live_kernel", "count_totals_kernel"),
     "aff_filter": ("aff_filter_init_kernel", "aff_filter_givers_kernel",
                    "aff_filter_check_kernel", "aff_filter_reset_kernel"),
-    # Its totals launch is aff_live's count_totals_kernel, counted there.
-    "aff_steer": ("aff_steer_kernel",),
+    # One launch a call, computing or gated.
+    "aff_steer": ("aff_steer_row_kernel",),
     "seq_solve": ("row_prep_kernel", "seq_solve_kernel"),
 }
 
@@ -2947,12 +2960,33 @@ def _reset_uids() -> None:
     spec._ts_counter = itertools.count(1)
 
 
+class _no_gc:
+    """Python's cyclic collector off around a store's build (set-up, not
+    a measured path): a build only allocates, and late in the script, with
+    a large live heap, the collector's passes took a third or more of it
+    (builds of one store spread 1-12 s)."""
+
+    def __enter__(self):
+        import gc
+
+        self.was = gc.isenabled()
+        gc.disable()
+
+    def __exit__(self, *exc):
+        import gc
+
+        if self.was:
+            gc.enable()
+        return False
+
+
 def _fresh_cluster(**kw):
     """synthetic_cluster with the uid counters reset."""
     from volcano_tpu_torch.synth import synthetic_cluster
 
     _reset_uids()
-    return synthetic_cluster(**kw)
+    with _no_gc():
+        return synthetic_cluster(**kw)
 
 
 def lanes_on_off(n_nodes, n_pods):
@@ -3272,8 +3306,9 @@ def evict_phases():
     os.environ["VOLCANO_TPU_EVICT_DEVICE"] = "1"
     # 9. reclaim: BASELINE config 4 at its full size.
     t0 = time.perf_counter()
-    store = preempt_cluster(n_nodes=10000, fill_per_node=4, n_pending=20000,
-                            gang_size=4, seed=0)
+    with _no_gc():
+        store = preempt_cluster(n_nodes=10000, fill_per_node=4,
+                                n_pending=20000, gang_size=4, seed=0)
     _log(f"[reclaim] cluster {time.perf_counter() - t0:.3f} s, "
          f"{len(store.pods)} pods")
     os.environ.pop("VOLCANO_TPU_EVICT_CAP", None)
@@ -3292,8 +3327,9 @@ def evict_phases():
     try:
         store = ClusterStore(binder=FakeBinder(), evictor=FakeEvictor())
         t0 = time.perf_counter()
-        ClusterSimulator.priority_tier_workload(store, workers=10000,
-                                                serving_tasks=5000)
+        with _no_gc():
+            ClusterSimulator.priority_tier_workload(store, workers=10000,
+                                                    serving_tasks=5000)
         _log(f"[preempt] cluster {time.perf_counter() - t0:.3f} s, "
              f"{len(store.pods)} pods")
 
@@ -4388,7 +4424,7 @@ def _repend_nodes(store, n_nodes: int) -> int:
     return len(pods)
 
 
-def object_cycles(label, conf, device, cycles=3, check_binds=None):
+def object_cycles(label, conf, device, cycles=2, check_binds=None):
     """``cycles`` object-session cycles of ``Scheduler(store).run_once()``
     on BASELINE config 2 (``synthetic_cluster(1,000 nodes, 10,000 pods,
     gangs of 4)``, uids reset), the pods of nodes 0-63 re-pended before
@@ -4620,10 +4656,11 @@ def object_phases(ns_args):
     # version on the inputs of its first launch.
     _s, seq_launches, seq_cap = _card_and_cpu("seq", CONF_SEQ,
                                               ("seq_solve",))
-    # The plain version takes ~30 s a call on the card: timed once.
+    # The plain version takes ~30 s a call on the card: run once, timed as
+    # it is checked.
     seq_row = replay_kernels(seq_cap, seq_launches, reps=1,
-                             names=["seq_solve"],
-                             turns=(False, True, False))[0]
+                             names=["seq_solve"], turns=(False, False),
+                             time_check=True)[0]
     _log(f"[kernels:seq] seq_solve: {seq_row['ms']:.4f} ms/launch, plain "
          f"{seq_row['plain_ms']:.4f} ms, bound {seq_row['bound_ms']:.6f} ms "
          f"({seq_row['bound_by']}), launches {seq_row['launches']}, "
@@ -5611,7 +5648,8 @@ def steer_replay(cap: dict, launches: int, computing: int) -> dict:
     """``aff_steer`` on its first launch's captured inputs (the live window
     of that sub-round) with the gate set -- held against the plain version
     and timed as in ``replay_kernels`` -- and with it clear
-    (``gated_replay``)."""
+    (``gated_replay``); each with the device operations one call puts on
+    the card (``_steer_ops``)."""
     import torch
 
     c = dict(cap)
@@ -5621,10 +5659,33 @@ def steer_replay(cap: dict, launches: int, computing: int) -> dict:
     row["computing_launches"] = computing
     row["gated_launches"] = launches - computing
     row["gated"] = gated_replay("aff_steer", cap)
+    _steer_ops(row, c, cap)
     UM, K = cap["ranked"].shape
     EW, D = cap["at"].cnt_a.shape
     row["shape"] = {"UM": int(UM), "K": int(K), "EW": int(EW), "D": int(D)}
     return row
+
+
+def _steer_ops(row: dict, computing: dict, cap: dict) -> None:
+    """The device operations of one computing and one gated ``aff_steer``
+    call on ``cap`` into ``row`` (and ``row["gated"]``): a trace's names
+    and a CUDA graph's counts; a call that is not one ``aff_steer``
+    kernel fails."""
+    import torch
+
+    gated = dict(cap)
+    gated["gate"] = torch.zeros(1, dtype=torch.bool,
+                                device=cap["ranked"].device)
+    for entry, c in ((row, computing), (row["gated"], gated)):
+        fn = _kernel_fn("aff_steer", _clone(c), plain=False)
+        _out, names = device_ops(fn)
+        counts = graph_ops(fn)
+        entry["device_ops"] = names
+        entry["graph_ops"] = counts
+        if counts != {"kernel": 1} or (names is not None and (
+                names != list(KERNEL_FUNCS["aff_steer"]))):
+            raise AssertionError(f"[kernels:steer] one aff_steer call put "
+                                 f"{counts} ({names}) on the card")
 
 
 def fold_single_rows(rows: list, single_rows: dict) -> None:
@@ -5848,7 +5909,8 @@ def single_phase_phases(ns_args=None, big=(10000, 100000),
              f"computing, {steer_row['gated']['ms']:.5f} ms gated, plain "
              f"{steer_row['plain_ms']:.5f} ms, bound "
              f"{steer_row['bound_ms']:.6f} ms ({steer_row['bound_by']}); "
-             f"{json.dumps(steer_row)}")
+             f"device ops a call {steer_row['device_ops']} / gated "
+             f"{steer_row['gated']['device_ops']}; {json.dumps(steer_row)}")
         del caps
 
         def mid_run(device, twophase):
@@ -6004,7 +6066,8 @@ def _preempt_cluster_reset(**kw):
     from volcano_tpu_torch.synth import preempt_cluster
 
     _reset_uids()
-    return preempt_cluster(**kw)
+    with _no_gc():
+        return preempt_cluster(**kw)
 
 
 def walk_fixtures():
@@ -6122,8 +6185,9 @@ def host_walk_phases(big=10000, workers=10000, serving=5000,
         t_phase = time.perf_counter()
         store = ClusterStore(binder=FakeBinder(), evictor=FakeEvictor())
         t0 = time.perf_counter()
-        ClusterSimulator.priority_tier_workload(store, workers=workers,
-                                                serving_tasks=serving)
+        with _no_gc():
+            ClusterSimulator.priority_tier_workload(store, workers=workers,
+                                                    serving_tasks=serving)
         _log(f"[host-walk:preempt] cluster {time.perf_counter() - t0:.3f} "
              f"s, {len(store.pods)} pods")
 

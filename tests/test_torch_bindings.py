@@ -402,8 +402,9 @@ def test_aff_live_passes_the_gate_and_the_tally(fake_card):
 def test_aff_steer_passes_the_gate_the_tally_and_the_plane(fake_card):
     """aff_steer hands the kernel the ranked ids, the attempt's plane, the
     window, the gate byte, the computing tally and the caller's working
-    plane (without a gate: null, the tally, a fresh plane); a plane of
-    another shape or a gate without one raises before any launch."""
+    plane (without a gate: null, the tally, a fresh plane), and no scratch;
+    a plane of another shape or a gate without one raises before any
+    launch."""
     U, E, D, N, K, KR = 8, 5, 9000, 32, 2, 16
     at = _terms(U, E, D, N, K)
     ranked, feas = _z(U, KR), _z(U, KR, dtype=B8)
@@ -415,14 +416,14 @@ def test_aff_steer_passes_the_gate_the_tally_and_the_plane(fake_card):
     assert fresh_out.shape == (U, KR) and fresh_out.dtype == B8
     g, fresh = fake_card.args
     # (ranked, feas_att, UM, K, node_dom, NK, term_key, cnt_a, cnt_p, E, D,
-    #  t_aff, t_anti, t_match, part, gate, computed, feas_k, stream)
+    #  t_aff, t_anti, t_match, gate, computed, feas_k, stream)
     assert g[0].value == ranked.data_ptr() and g[1].value == feas.data_ptr()
     assert (g[2], g[3], g[5], g[9], g[10]) == (U, KR, K, E, D)
-    assert g[15].value == gate.data_ptr() and fresh[15] is None
+    assert g[14].value == gate.data_ptr() and fresh[14] is None
     tally = kernels.tally("aff_steer", torch.device("cpu")).data_ptr()
-    assert g[16].value == tally and fresh[16].value == tally
-    assert g[17].value == out.data_ptr()
-    assert fresh[17].value == fresh_out.data_ptr()
+    assert g[15].value == tally and fresh[15].value == tally
+    assert g[16].value == out.data_ptr()
+    assert fresh[16].value == fresh_out.data_ptr()
     with pytest.raises(ValueError):
         affkernels.aff_steer(ranked, feas, at, gate=gate,
                              out=_z(U, KR - 1, dtype=B8))

@@ -2019,27 +2019,60 @@ def test_cycle_static_planes_one_launch_a_miss(cuda):
 # ------------------------------------- single-phase solve and steering
 
 
-@pytest.mark.parametrize("UM,K,E,D", [(6, 9, 12, 40), (64, 256, 12, 9001),
-                                      (16, 300, 300, 8192)])
-def test_aff_steer_gate_equals_plain(cuda, UM, K, E, D):
-    """aff_steer over random windows (domain-less nodes, terms no pod
-    matches yet, pipelined counts): K = 300 spans two tiles, E = 300 two
-    staging rounds, D = 9,001 the unaligned totals loads.  A clear gate
-    leaves the working plane and the computing tally untouched; a set gate
-    writes what the plain version writes; without a gate the plane is the
-    same."""
-    from volcano_tpu_torch.ops import affkernels
-
+def _steer_case(kind, cuda, UM, K, E, D):
+    """aff_steer inputs: a random window (domain-less nodes, terms no pod
+    matches yet, pipelined counts) with about as many required and anti
+    entries a row at every E (a row of 300 terms at _aff_case's density
+    fails everywhere), then, by ``kind``:
+    - "exempt": every required entry self-matched, on a term with no count
+      anywhere: the rule exempts it at every node;
+    - "last": every required entry self-matched, and each such term's only
+      count in the window's last domain, which the zero test must reach;
+    - "pipelined": the self-matched terms' counts only in ``cnt_p``
+      (``cnt_a`` zero there), some of them none at all."""
     at = _aff_case(7 + E, cuda, U=UM, E=E, D=D, N=500, cnt_density=0.05)
     g = torch.Generator().manual_seed(K)
-    # About as many required and anti entries a row at every E (a row of
-    # 300 terms at _aff_case's density fails everywhere).
     keep = (torch.rand((UM, E), generator=g) < min(1.0, 12.0 / E)).to(cuda)
     at = at._replace(t_req_aff=at.t_req_aff & keep,
                      t_req_anti=at.t_req_anti & keep)
+    if kind != "random":
+        aff = at.t_req_aff
+        req = aff.any(dim=0)
+        cnt_a, cnt_p = at.cnt_a.clone(), at.cnt_p.clone()
+        cnt_a[req] = 0
+        cnt_p[req] = 0
+        at = at._replace(t_matches=at.t_matches | aff)
+        if kind == "last":
+            cnt_a[req, D - 1] = 1
+            # Some ranked nodes in that domain: the count holds there.
+            nd = at.node_dom.clone()
+            nd[:50] = D - 1
+            at = at._replace(node_dom=nd)
+        elif kind == "pipelined":
+            some = req & (torch.rand(E, generator=g) < 0.5).to(cuda)
+            cols = torch.randint(0, D, (E,), generator=g).to(cuda)
+            rows = torch.nonzero(some).flatten()
+            cnt_p[rows, cols[rows]] = 1
+        at = at._replace(cnt_a=cnt_a, cnt_p=cnt_p)
     ranked = torch.randint(0, 500, (UM, K), generator=g).to(torch.int32)
     feas = torch.rand((UM, K), generator=g) < 0.8
-    ranked, feas = ranked.to(cuda), feas.to(cuda)
+    return at, ranked.to(cuda), feas.to(cuda), g
+
+
+@pytest.mark.parametrize("kind,UM,K,E,D", [
+    ("random", 6, 9, 12, 40), ("random", 64, 256, 12, 9001),
+    ("random", 16, 300, 300, 8192), ("exempt", 64, 256, 12, 10016),
+    ("last", 64, 256, 12, 10016), ("last", 32, 64, 12, 9001),
+    ("last", 16, 300, 300, 8192), ("pipelined", 64, 256, 12, 10016)])
+def test_aff_steer_gate_equals_plain(cuda, kind, UM, K, E, D):
+    """aff_steer over the windows of ``_steer_case``: K = 300 spans two
+    tiles, E = 300 two staging rounds, D = 9,001 the unaligned zero tests.
+    A clear gate leaves the working plane and the computing tally
+    untouched; a set gate writes what the plain version writes; without a
+    gate the plane is the same."""
+    from volcano_tpu_torch.ops import affkernels
+
+    at, ranked, feas, g = _steer_case(kind, cuda, UM, K, E, D)
     want = affkernels.aff_steer(ranked, feas, at, plain=True)
     prior = torch.rand((UM, K), generator=g).to(cuda) < 0.5
     kernels.reset_launches()
@@ -2056,7 +2089,42 @@ def test_aff_steer_gate_equals_plain(cuda, UM, K, E, D):
     # The plain version's computing call counts too.
     assert kernels.read_tally("aff_steer") == 2
     _equal(affkernels.aff_steer(ranked, feas, at), want, "without a gate")
-    assert bool((feas & ~want).any()) and bool(want.any())
+    assert bool(want.any())
+    if kind != "exempt":
+        assert bool((feas & ~want).any())
+    if kind in ("exempt", "last"):
+        # The rule decides: exempt, nothing fails a required term; with
+        # the last domain's count, the nodes outside it do.
+        free = affkernels.aff_steer(
+            ranked, feas, at._replace(t_req_aff=torch.zeros_like(
+                at.t_req_aff)), plain=True)
+        assert torch.equal(want, free) is (kind == "exempt")
+
+
+@pytest.mark.parametrize("gate", [True, False])
+def test_aff_steer_is_one_kernel_a_call(cuda, gate):
+    """One aff_steer call, computing or gated, puts one kernel on the card
+    and nothing else, read from a torch.profiler trace (opened by a spin
+    kernel, left out: a short trace has lost its first events)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from volcano_tpu_torch.ops import affkernels
+
+    at, ranked, feas, _g = _steer_case("last", cuda, 64, 256, 12, 10016)
+    out = torch.zeros_like(feas)
+    gt = torch.tensor([gate], device=cuda)
+    affkernels.aff_steer(ranked, feas, at, gate=gt, out=out)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        torch.cuda._sleep(2_000_000)
+        torch.cuda.synchronize()
+        affkernels.aff_steer(ranked, feas, at, gate=gt, out=out)
+        torch.cuda.synchronize()
+    names = [e.name for e in prof.events()
+             if e.device_type == DeviceType.CUDA
+             and "spin_kernel" not in e.name]
+    assert len(names) == 1 and "aff_steer_row_kernel" in names[0], names
 
 
 @pytest.mark.parametrize("steer", [0, 1])

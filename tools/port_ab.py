@@ -55,6 +55,13 @@ built from its own sources into its own build directory.  ``--phase``
   of one call.  ``--caps FILE`` keeps the captured inputs: the first run
   captures and writes them, later runs (other trees) load them, so that
   every tree is timed on the same inputs;
+- ``steer``: ``aff_steer``'s first computing launch of config 5's cold
+  cycle with ``VOLCANO_TPU_AFF_STEER=1`` (``config5_cluster(10,000,
+  100,000)``: UM 128 x K 256 over an EW 128 x D 10,016 window), replayed
+  computing and gated: held against the plain version, timed by
+  ``chip_smoke._device_ms`` (best of two), with the device operations one
+  call puts on the card and the bound (``chip_smoke._work``).  ``--caps
+  FILE`` as for ``kernels`` (another file);
 - ``delta``: one node-table delta of chip_smoke phase 6's shape: the
   north-star store after a cold ``run_once()``, then ``--reps`` (5)
   rounds of ``update_node`` on 100 nodes (half as much CPU again) and a
@@ -127,8 +134,8 @@ import time
 from pathlib import Path
 
 PHASES = ("solve", "cold", "shortlist", "seq", "seq-north-star",
-          "seq-trace", "victim", "kernels", "delta", "frag", "worker",
-          "pipeline", "evict", "walk")
+          "seq-trace", "victim", "kernels", "steer", "delta", "frag",
+          "worker", "pipeline", "evict", "walk")
 
 
 def _trace(fn) -> dict:
@@ -702,6 +709,99 @@ def phase_kernels(cs, opts) -> dict:
     return out
 
 
+# ------------------------------------------------------- live steering
+
+def _capture_steer(cs) -> dict:
+    """The first computing ``aff_steer`` launch of config 5's cold cycle
+    (``config5_cluster(10,000, 100,000)`` under ``CONF_BASE``) with
+    ``VOLCANO_TPU_AFF_STEER=1``: a launch behind a clear steering byte is
+    not captured (the byte is read on the host, during the capture only)."""
+    from volcano_tpu_torch.ops import affkernels, kernels
+    from volcano_tpu_torch.ops import wave as wave_mod
+
+    capture = affkernels._capture
+
+    def computing_only(name, **inputs):
+        gate = inputs.get("gate")
+        if name == "aff_steer" and gate is not None and not bool(gate[0]):
+            return
+        capture(name, **inputs)
+
+    steer0 = wave_mod.AFF_STEER
+    wave_mod.AFF_STEER = 1
+    affkernels._capture = computing_only
+    try:
+        store = cs.config5_cluster(10000, 100000)
+        kernels.CAPTURE = {}
+        cs.run_aff_cycles("ab:steer", store, steady=0)
+        got = kernels.CAPTURE
+        store.close()
+    finally:
+        kernels.CAPTURE = None
+        affkernels._capture = capture
+        wave_mod.AFF_STEER = steer0
+    if "aff_steer" not in got:
+        raise AssertionError("[ab:steer] no computing aff_steer launch in "
+                             "the cold cycle")
+    return {"aff_steer": got["aff_steer"]}
+
+
+def _steer_call(cs, cap: dict, gate: bool):
+    """A zero-argument ``aff_steer`` call on a copy of ``cap`` with the
+    steering byte ``gate``, writing into the copy's working plane."""
+    import torch
+
+    from volcano_tpu_torch.ops import affkernels
+
+    c = cs._clone(cap)
+    c["gate"] = torch.tensor([gate], device=c["ranked"].device)
+    if c.get("out") is None:
+        c["out"] = torch.zeros(tuple(c["ranked"].shape), dtype=torch.bool,
+                               device=c["ranked"].device)
+    return lambda: affkernels.aff_steer(c["ranked"], c["feas_att"],
+                                        c["at"], gate=c["gate"],
+                                        out=c["out"])
+
+
+def phase_steer(cs, opts) -> dict:
+    """``aff_steer`` on its captured launch, computing and gated: checked
+    against the plain version (a gated call must leave the plane as it
+    was), timed by ``chip_smoke._device_ms`` over 20 queued calls, best of
+    two turns, with the device operations of one call (a trace) and the
+    bound (``chip_smoke._work``)."""
+    import torch
+
+    from volcano_tpu_torch.ops import affkernels
+
+    cap = _caps(opts, lambda: _capture_steer(cs))["aff_steer"]
+    at = cap["at"]
+    want = affkernels.aff_steer(cap["ranked"], cap["feas_att"], at,
+                                plain=True)
+    res = {}
+    for gate, key in ((True, "ms"), (False, "gated_ms")):
+        got = _steer_call(cs, cap, gate)()
+        torch.cuda.synchronize()
+        ref = want if gate else cap.get("out")
+        if ref is not None and not torch.equal(got, ref):
+            raise AssertionError(f"[ab:steer] gate {gate}: the plane != "
+                                 f"its expected one")
+        res[key] = min(cs._device_ms([_steer_call(cs, cap, gate)
+                                      for _ in range(20)])[0]
+                       for _ in range(2))
+        res[key.replace("ms", "device_ops")] = _ops(
+            _steer_call(cs, cap, gate), tries=3)
+    nbytes, ops = cs._work("aff_steer", cap, (want,))
+    UM, K = cap["ranked"].shape
+    EW, D = at.cnt_a.shape
+    res["shape"] = {"UM": int(UM), "K": int(K), "EW": int(EW), "D": int(D),
+                    "pipelined": at.cnt_p is not None,
+                    "self_terms": int((at.t_req_aff & at.t_matches)
+                                      .any(dim=0).sum())}
+    res["bound_ms"] = max(nbytes / cs.MEM_BPS, ops / cs.F32_OPS) * 1e3
+    _log(opts.label, f"steer {json.dumps(res)}")
+    return res
+
+
 # ------------------------------------------------------- node-table delta
 
 def phase_delta(cs, opts) -> dict:
@@ -1064,7 +1164,7 @@ RUN = {"solve": phase_solve, "cold": phase_cold,
        "shortlist": phase_shortlist, "seq": phase_seq,
        "seq-north-star": phase_seq_north_star, "seq-trace": phase_seq_trace,
        "victim": phase_victim, "kernels": phase_kernels,
-       "delta": phase_delta, "frag": phase_frag, "worker": phase_worker,
+       "steer": phase_steer, "delta": phase_delta, "frag": phase_frag, "worker": phase_worker,
        "pipeline": phase_pipeline, "evict": phase_evict,
        "walk": phase_walk}
 
@@ -1079,8 +1179,8 @@ def main() -> int:
     ap.add_argument("--cold", type=int, default=1)
     ap.add_argument("--reps", type=int, default=5)
     ap.add_argument("--cycles", type=int, default=4)
-    ap.add_argument("--caps", help="kernels: file of captured inputs "
-                    "(written when missing, read when present)")
+    ap.add_argument("--caps", help="kernels, frag, steer: file of captured "
+                    "inputs (written when missing, read when present)")
     opts = ap.parse_args()
 
     import torch

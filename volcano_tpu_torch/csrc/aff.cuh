@@ -1,6 +1,6 @@
 // Shared device helpers of the inter-pod affinity kernels (aff_live.cu,
-// aff_filter.cu): the count-table read, and the required / anti verdict
-// that aff_live and aff_steer share.
+// aff_steer.cu, aff_filter.cu): the count-table read, and the required /
+// anti verdict that aff_live and aff_steer share.
 //
 // A count table is [E, D] int32: resident (or, in `cnt_p`, pipelined)
 // pods matching term e in domain d.  A node's count for term e is read
@@ -45,6 +45,14 @@ __device__ __forceinline__ uint8_t term_kind(bool aff, bool anti,
                                              bool match, const int32_t* part,
                                              int P, int e) {
   const bool need = aff && !(match && term_total(part, P, e) == 0);
+  return (need ? kRequired : 0) | (anti ? kAnti : 0);
+}
+
+// The same kind once the entry's zero test is known (aff_steer reads a
+// total only for an entry with aff & match, and only whether it is zero).
+__device__ __forceinline__ uint8_t kind_of(bool aff, bool anti, bool match,
+                                           bool total_zero) {
+  const bool need = aff && !(match && total_zero);
   return (need ? kRequired : 0) | (anti ? kAnti : 0);
 }
 

@@ -52,15 +52,7 @@
 // call reads the wave's [EW, D] window (~6 MB) for its totals and writes
 // [UM, S] planes: a few microseconds at the card's rate, latency beyond.
 //
-// aff_steer replaces the sub-round's live steering (`_solve_wave`'s
-// `steer`, :1594-1652): after a sub-round accepted a task that carries a
-// required term or matches one some row requires, the next sub-round
-// walks feas_k = feas_att & (no violation at ranked[u, k]) on the live
-// window, the same verdict as aff_live's (aff.cuh), with no soft score.
-// The steering byte gates both of its launches (count_totals_kernel, then
-// aff_steer_kernel) as the cache byte gates aff_live's.  Bound: bytes --
-// the [UM, K] ranked ids and two flag planes, the window's count rows for
-// the totals, the [UM, EW] table columns.
+// aff_steer, which shares the verdict (aff.cuh), is csrc/aff_steer.cu.
 #include "aff.cuh"
 
 namespace {
@@ -198,68 +190,6 @@ __global__ void __launch_bounds__(kThreads) aff_live_kernel(
   }
 }
 
-// aff_steer: one block per (row u, kThreads ranked positions).  The row's
-// window entries are staged kThreads at a time, compacted in list order to
-// those with a kind (required without the self-match rule, anti); a
-// thread then reads its ranked node's domain per staged term and one count
-// each, and stops at the first violation.  Positions the attempt already
-// found infeasible stay infeasible without a read.
-__global__ void __launch_bounds__(kThreads) aff_steer_kernel(
-    const int32_t* ranked, const uint8_t* feas_att, int K,
-    const int32_t* node_dom, int NK, const int32_t* term_key,
-    const int32_t* cnt_a, const int32_t* cnt_p, int D, const uint8_t* t_aff,
-    const uint8_t* t_anti, const uint8_t* t_match, int E, const int32_t* part,
-    int P, const uint8_t* gate, int32_t* computed, uint8_t* feas_k) {
-  __shared__ int s_e[kThreads];
-  __shared__ int s_key[kThreads];
-  __shared__ uint8_t s_kind[kThreads];
-  __shared__ int s_warp[kThreads / 32];
-  if (gate && !*gate) return;
-  const int tid = threadIdx.x;
-  const int lane = tid & 31;
-  const int warp = tid >> 5;
-  const int u = blockIdx.x;
-  const int k = blockIdx.y * kThreads + tid;
-  if (computed && u == 0 && blockIdx.y == 0 && tid == 0) {
-    atomicAdd(computed, 1);
-  }
-  const int64_t pos_k = static_cast<int64_t>(u) * K + k;
-  bool ok = k < K && feas_att[pos_k] != 0;
-  const int32_t* nd =
-      node_dom + static_cast<int64_t>(ok ? ranked[pos_k] : 0) * NK;
-  for (int j0 = 0; j0 < E; j0 += kThreads) {
-    const int e = j0 + tid;
-    uint8_t kind = 0;
-    if (e < E) {
-      const int64_t c = static_cast<int64_t>(u) * E + e;
-      kind = vtt::term_kind(t_aff[c] != 0, t_anti[c] != 0, t_match[c] != 0,
-                            part, P, e);
-    }
-    const unsigned act = __ballot_sync(kFull, kind != 0);
-    if (lane == 0) s_warp[warp] = __popc(act);
-    __syncthreads();
-    int pos = __popc(act & ((1u << lane) - 1u));
-    int cnt = 0;
-    for (int v = 0; v < kThreads / 32; ++v) {
-      const int x = s_warp[v];
-      if (v < warp) pos += x;
-      cnt += x;
-    }
-    if (kind != 0) {
-      s_e[pos] = e;
-      s_key[pos] = term_key[e];
-      s_kind[pos] = kind;
-    }
-    __syncthreads();
-    for (int q = 0; ok && q < cnt; ++q) {
-      const int32_t cv = vtt::count_at(cnt_a, cnt_p, s_e[q], nd[s_key[q]], D);
-      if (vtt::violates(s_kind[q], cv)) ok = false;
-    }
-    __syncthreads();
-  }
-  if (k < K) feas_k[pos_k] = ok ? 1 : 0;
-}
-
 }  // namespace
 
 // mode 0: every node (L = N); 1: one shared [L] candidate list; 2: [U, L]
@@ -305,49 +235,5 @@ extern "C" int vtt_aff_live(
       static_cast<const int32_t*>(part), P, g,
       static_cast<int32_t*>(computed), static_cast<uint8_t*>(out_ok),
       static_cast<float*>(out_soft));
-  return static_cast<int>(cudaGetLastError());
-}
-
-// feas_k[u, k] = feas_att[u, k] and no required / anti violation of row
-// u's window entries at node ranked[u, k], on the live counts cnt_a (+
-// cnt_p); written only when `gate` (null: always) is set on the device.
-// `part` is count_totals_kernel's [E, max(1, ceil(D / 4,096))] int32
-// scratch; `computed` (may be null) counts the computing launches.
-extern "C" int vtt_aff_steer(
-    const void* ranked, const void* feas_att, int UM, int K,
-    const void* node_dom, int NK, const void* term_key, const void* cnt_a,
-    const void* cnt_p, int E, int D, const void* t_aff, const void* t_anti,
-    const void* t_match, void* part, const void* gate, void* computed,
-    void* feas_k, void* stream) {
-  if (UM == 0 || K == 0) return 0;
-  const int64_t tiles = (static_cast<int64_t>(K) + kThreads - 1) / kThreads;
-  if (tiles > 65535) return static_cast<int>(cudaErrorInvalidValue);
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const int P = D > 0 ? (D + kTotChunk - 1) / kTotChunk : 1;
-  const auto aligned = [](const void* p) {
-    return p == nullptr || reinterpret_cast<uintptr_t>(p) % 16 == 0;
-  };
-  const int vec = D % 4 == 0 && aligned(cnt_a) && aligned(cnt_p);
-  const uint8_t* g = static_cast<const uint8_t*>(gate);
-  if (E > 0) {
-    count_totals_kernel<<<dim3(E, P), kThreads, 0, st>>>(
-        static_cast<const int32_t*>(cnt_a),
-        static_cast<const int32_t*>(cnt_p), D, P, vec, g,
-        static_cast<int32_t*>(part));
-    const cudaError_t err = cudaGetLastError();
-    if (err != cudaSuccess) return static_cast<int>(err);
-  }
-  aff_steer_kernel<<<dim3(UM, static_cast<unsigned>(tiles)), kThreads, 0,
-                     st>>>(
-      static_cast<const int32_t*>(ranked),
-      static_cast<const uint8_t*>(feas_att), K,
-      static_cast<const int32_t*>(node_dom), NK,
-      static_cast<const int32_t*>(term_key),
-      static_cast<const int32_t*>(cnt_a), static_cast<const int32_t*>(cnt_p),
-      D, static_cast<const uint8_t*>(t_aff),
-      static_cast<const uint8_t*>(t_anti),
-      static_cast<const uint8_t*>(t_match), E,
-      static_cast<const int32_t*>(part), P, g,
-      static_cast<int32_t*>(computed), static_cast<uint8_t*>(feas_k));
   return static_cast<int>(cudaGetLastError());
 }

@@ -20,10 +20,11 @@ wrapper                        replaces (JAX package)
 =============================  ============================================
 
 The loader, the launch counts and the input capture are ``ops/kernels.py``'s;
-the sources are ``csrc/aff_tables.cu``, ``csrc/aff_live.cu`` (``aff_live``
-and ``aff_steer``) and ``csrc/aff_filter.cu``.  Each wrapper runs its plain version on CPU tensors
-and launches its kernel on CUDA tensors (``plain=True`` forces the plain
-version on the card, for comparisons only).
+the sources are ``csrc/aff_tables.cu``, ``csrc/aff_live.cu``,
+``csrc/aff_steer.cu`` and ``csrc/aff_filter.cu``.  Each wrapper runs its
+plain version on CPU tensors and launches its kernel on CUDA tensors
+(``plain=True`` forces the plain version on the card, for comparisons
+only).
 
 The count reads gather: a term's count at node n is ``cnt[e, node_dom[n,
 term_key[e]]]`` (0 where the node has no domain under the term's key).  The
@@ -452,7 +453,11 @@ def aff_steer(ranked, feas_att, at: AffTerms, plain: bool = False, *,
     ``out`` (the caller's [UM, K] working plane) only when set, leaving it
     as it was when clear; on the card the kernel reads the gate itself.
     Every computing call adds one to ``kernels.tally("aff_steer")`` on the
-    counts' device.  Returns the [UM, K] bool plane (``out`` when given)."""
+    counts' device.  On the card a call is one launch, computing or gated,
+    with no allocation but a fresh plane when ``out`` is None; a term's
+    count row is read only for an entry with ``t_req_aff & t_matches``,
+    and only until its first nonzero word.  Returns the [UM, K] bool
+    plane (``out`` when given)."""
     if gate is not None and out is None:
         raise ValueError("aff_steer: a gate needs the out plane")
     dev = at.cnt_a.device
@@ -484,14 +489,11 @@ def aff_steer(ranked, feas_att, at: AffTerms, plain: bool = False, *,
         return out
     _capture("aff_steer", ranked=ranked, feas_att=feas_att, at=at,
              gate=gate, out=out)
-    part = torch.empty(E * max(1, -(-D // AFF_TOTAL_CHUNK)),
-                       dtype=torch.int32, device=dev)
     rc = load().vtt_aff_steer(
         _ptr(ranked), _ptr(feas_att), UM, K, _ptr(at.node_dom), NK,
         _ptr(at.term_key), _ptr(at.cnt_a), _ptr(at.cnt_p), E, D,
         _ptr(at.t_req_aff), _ptr(at.t_req_anti), _ptr(at.t_matches),
-        _ptr(part), _ptr(gate), _ptr(tally("aff_steer", dev)), _ptr(out),
-        _stream())
+        _ptr(gate), _ptr(tally("aff_steer", dev)), _ptr(out), _stream())
     _check(rc, "aff_steer")
     count_launch("aff_steer")
     return out

@@ -115,7 +115,7 @@ KERNEL_SOURCES = {
     "scatter_profile_tables": "volcano_tpu_torch/csrc/aff_tables.cu",
     "aff_live": "volcano_tpu_torch/csrc/aff_live.cu",
     "aff_filter": "volcano_tpu_torch/csrc/aff_filter.cu",
-    "aff_steer": "volcano_tpu_torch/csrc/aff_live.cu",
+    "aff_steer": "volcano_tpu_torch/csrc/aff_steer.cu",
     "seq_solve": "volcano_tpu_torch/csrc/seq_solve.cu",
 }
 REPLACES = {
@@ -261,8 +261,8 @@ _BUILD = _CSRC / "_build"
 _SOURCES = ("coarse_shortlist.cu", "rank_candidates.cu", "walk_accept.cu",
             "apply_commit.cu", "warm_shortlist.cu", "scatter_rows.cu",
             "victim_scores.cu", "frag_scores.cu", "topology.cu",
-            "aff_tables.cu", "aff_live.cu", "aff_filter.cu", "seq_solve.cu",
-            "launch_floor.cu")
+            "aff_tables.cu", "aff_live.cu", "aff_steer.cu", "aff_filter.cu",
+            "seq_solve.cu", "launch_floor.cu")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-O3",
               "-fmad=false", "-std=c++17", "-Xcompiler", "-fPIC")
 BUILD_SECONDS: Optional[float] = None
@@ -369,7 +369,7 @@ _SIGS = {
     "vtt_aff_filter": [_P, _P, _P, _I, _P, _I, _P, _P, _P, _I, _I, _P, _P,
                        _P, _P, _P, _P, _P, _P, _P, _P],
     "vtt_aff_steer": [_P, _P, _I, _I, _P, _I, _P, _P, _P, _I, _I, _P, _P,
-                      _P, _P, _P, _P, _P, _P],
+                      _P, _P, _P, _P, _P],
     "vtt_seq_solve": ([_I] * 13 + [_P] * 29 + [_F] * 5 + [_P] * 29
                       + [_I] * 2 + [_P] * 9),
     "vtt_empty_launch": [_I, _P],
