@@ -11,11 +11,13 @@ chip_smoke.py obs`` phases 8c and 8d, ``python3 chip_smoke.py seq-trace``
 the traced seq cycle of phase 21 alone, ``python3 chip_smoke.py recovery``
 phases 24-31, ``python3 chip_smoke.py single-phase`` phases 32-34,
 ``python3 chip_smoke.py host-walk`` phases 35-37, ``python3 chip_smoke.py
-remote`` phases 38-41, ``python3 chip_smoke.py control`` phases 42-44;
+remote`` phases 38-41, ``python3 chip_smoke.py control`` phases 42-44,
+``python3 chip_smoke.py mask`` phases 45-47, ``python3 chip_smoke.py tier``
+the scale tier at its full 100,000 x 1,000,000 (not in the default run);
 ``crash-sticky``, ``lockdep <hash>`` and
 ``trace-dir`` are the child processes of phases 29, 30 and 31,
 ``solver-child`` the solver child of 38-41.)  It
-builds the sixteen CUDA kernels of ``volcano_tpu_torch/csrc`` (fourteen
+builds the seventeen CUDA kernels of ``volcano_tpu_torch/csrc`` (fifteen
 sources, one nvcc each, started together; ``launch_floor.cu`` holds only an
 empty kernel, timed to give what one launch costs) and then runs these
 phases, each
@@ -254,8 +256,10 @@ of which raises (and the script exits non-zero) when a check fails:
 31. trace-dir: ``python3 chip_smoke.py trace-dir``: one cycle at 1,000 x
    10,000 with ``VOLCANO_TPU_TRACE_DIR`` writes one Chrome trace holding
    the port's kernels; under an outer profiler a cycle binds every pod,
-   writes nothing and warns.  The ``[recovery] seconds`` line gives each
-   of 24-31's seconds;
+   writes nothing and warns.  The children of 29-31 start before 24 and
+   run beside 24-28 (their walls share the host and the card).  The
+   ``[recovery] seconds`` line gives each of 24-31's seconds (a child's
+   from its start);
 32. single-phase: the north-star solve and its cycles with
    ``VOLCANO_TPU_TWOPHASE=0``, card against CPU at 1,000 x 10,000;
 33. single-phase:affinity: config 5's cold cycle single-phase;
@@ -347,7 +351,29 @@ of which raises (and the script exits non-zero) when a check fails:
    ``--remote-status-updater`` at a ``python -m
    volcano_tpu_torch.cache.remote --port 0`` child: the binds and the
    PodGroup status land in the child.  The ``[control] seconds`` line
-   gives each of 42-44's seconds, the ``[phases]`` line each phase
+   gives each of 42-44's seconds;
+45. predicates: ``feature_store(10,000 x 100,000)`` (phase 5's mix at the
+   north-star width and depth, not cut) encoded by the port's
+   ``encode_cluster``; ``static_predicate_mask`` on the card
+   (``csrc/static_mask.cu``, one launch; launch counts zeroed before and
+   read after) equal to its plain version on the card cell for cell; one
+   cold ``run_once()`` with the deployed conf, every pod it binds on a
+   node whose mask cell is True; the kernel against its plain version on
+   its captured inputs, timed as in 4 (the ``[kernels:predicates]``
+   line);
+46. oracle: phase 5's solve args through ``ops.allocate.solve`` on the
+   card (one ``seq_solve`` launch) and through the port's NumPy oracle
+   (``volcano_tpu_torch.oracle.solve_oracle``) on the host: assigned,
+   pipelined, discarded and fit-failed jobs identical, the invariants of 2;
+47. tier: ``tier_cluster`` at 100,000 nodes (not cut) x 200,000 pods (the
+   tier's 1,000,000 cut for the script's time budget; ``python3
+   chip_smoke.py tier`` runs them all), gangs of 8, 32 zones, 4 queues:
+   one cold and one steady cycle (the pods of nodes 0-63 re-pended) with
+   the deployed conf: every pod bound, no node over its allocatable or
+   pod slots, gangs whole, no device plane read back, the solve's kernels
+   launched; build seconds, walls, lanes, the device snapshot's resident
+   bytes and the peak RSS printed.  The ``[mask-oracle-tier] seconds`` line
+   gives each of 45-47's seconds, the ``[phases]`` line each phase
    group's.
 
 Output: the card's name and power limit, versions, build time, the
@@ -394,7 +420,7 @@ PTXAS_SOURCES = ("rank_candidates.cu", "aff_live.cu", "aff_steer.cu",
                  "walk_accept.cu", "aff_filter.cu", "coarse_shortlist.cu",
                  "warm_shortlist.cu", "apply_commit.cu", "seq_solve.cu",
                  "victim_scores.cu", "topology.cu", "aff_tables.cu",
-                 "scatter_rows.cu", "frag_scores.cu")
+                 "scatter_rows.cu", "frag_scores.cu", "static_mask.cu")
 
 
 def ptxas_report(sources=PTXAS_SOURCES) -> dict:
@@ -804,6 +830,9 @@ def _kernel_fn(name, c, plain):
     if name == "fabric_frag":
         return lambda: (kernels.fabric_frag(c["cfit"], c["whole"],
                                             c["prof_cnt"], plain=plain),)
+    if name == "static_predicate_mask":
+        kw = {k: v for k, v in c.items() if k != "terms"}
+        return lambda: (kernels.static_mask(c["terms"], plain=plain, **kw),)
     if name == "seq_solve":
         from volcano_tpu_torch.ops.allocate import LAST_SEQ
 
@@ -1039,6 +1068,22 @@ def _work(name, cap, outs):
         nbytes = _nbytes(*ins) + out_bytes
         B, U = cap["cfit"].shape
         ops = B * (2 * U + 1) + U
+    elif name == "static_predicate_mask":
+        # Every input read once and the [P, N] mask written once (the
+        # bytes bound it).  Per cell the readiness ANDs (3), per taint word
+        # an and-not and a compare (2); per selector word 2 on the rows
+        # with a selector, per real affinity term 2 a word and its OR, on
+        # this run's rows.
+        ins = [v for v in cap.values() if isinstance(v, torch.Tensor)]
+        nbytes = _nbytes(*ins) + out_bytes
+        P, N = outs[0].shape
+        LW = cap["node_label"].shape[1]
+        A = cap["aff_bits"].shape[1]
+        TW = cap["node_taint"].shape[1]
+        sel_rows = int(cap["has_selector"].sum())
+        terms = int(cap["aff_terms"].clamp(0, A).sum())
+        ops = N * (P * (3 + 2 * TW) + sel_rows * 2 * LW
+                   + terms * (2 * LW + 1))
     elif name == "seq_solve":
         # Every input read once, every output written once.  The work is
         # the rows the solve scored against every node, exactly: each row
@@ -1451,6 +1496,7 @@ KERNEL_FUNCS = {
     # One launch a call, computing or gated.
     "aff_steer": ("aff_steer_row_kernel",),
     "seq_solve": ("row_prep_kernel", "seq_solve_kernel"),
+    "static_predicate_mask": ("static_mask_kernel",),
 }
 
 
@@ -1614,11 +1660,11 @@ def never_launched(launches: dict, names) -> list:
         launches.get(FUSED_STATIC, 0) if k == "static_planes" else 0) == 0]
 
 
-def run_phase(label, store_fn, deserved=None, timed=0):
+def run_phase(label, store_fn, deserved=None, timed=0, args_out=None):
     """Encode, zero the launch counts, solve on the card, read the counts;
     invariants; optionally time more solves and trace one; plain-version
     solve on the card must match; returns (stats, launches, captured
-    inputs)."""
+    inputs), and appends the solve args to ``args_out`` when given."""
     import numpy as np
     import torch
 
@@ -1630,11 +1676,9 @@ def run_phase(label, store_fn, deserved=None, timed=0):
     store = store_fn()
     args, _maps = solve_args_from_store(store, binpack=True, nodeorder=True)
     if deserved is not None:
-        q = args[3]
-        des = q.deserved.clone()
-        des[: len(deserved)] = torch.tensor(deserved, dtype=torch.float32,
-                                            device=des.device)
-        args = args[:3] + (q._replace(deserved=des),) + args[4:]
+        args = _with_deserved(args, deserved)
+    if args_out is not None:
+        args_out.append(args)
     torch.cuda.synchronize()
     _log(f"[{label}] cluster + encode {time.perf_counter() - t0:.3f} s, "
          f"tasks {int(args[1].real.sum())}, nodes {int(args[0].ready.sum())}")
@@ -5128,26 +5172,48 @@ def fallback_phase() -> dict:
     return stats
 
 
-def _child(args, label, timeout, env=None):
-    """``python3 chip_smoke.py <args>`` in a process of its own (it reuses
-    the kernel build), its output relayed line by line; killed past
-    ``timeout``.  Returns (exit code, output lines)."""
+def _child_start(args, env=None) -> tuple:
+    """Starts ``python3 chip_smoke.py <args>`` in a process of its own (it
+    reuses the kernel build), its output into a temporary file.  Returns
+    (process, output file, start time) for ``_child_join``."""
     import os
+    import tempfile
 
     here = os.path.dirname(os.path.abspath(__file__))
-    full_env = dict(os.environ, **(env or {}))
+    out = tempfile.TemporaryFile(mode="w+")
+    p = subprocess.Popen(
+        [sys.executable, os.path.join(here, "chip_smoke.py"), *args],
+        cwd=here, stdout=out, stderr=subprocess.STDOUT,
+        env=dict(os.environ, **(env or {})))
+    return p, out, time.perf_counter()
+
+
+def _child_join(started, label, timeout):
+    """Waits for a ``_child_start`` process, killed ``timeout`` s after its
+    start; its output relayed line by line.  Returns (exit code, output
+    lines)."""
+    p, out, t0 = started
     try:
-        p = subprocess.run(
-            [sys.executable, os.path.join(here, "chip_smoke.py"), *args],
-            cwd=here, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
-            text=True, timeout=timeout, env=full_env)
+        rc = p.wait(timeout=max(1.0, timeout - (time.perf_counter() - t0)))
     except subprocess.TimeoutExpired as e:
+        _child_stop(started)
         raise AssertionError(f"[{label}] the child ran past {timeout} "
                              f"s") from e
-    lines = p.stdout.strip().splitlines()
+    out.seek(0)
+    lines = out.read().strip().splitlines()
+    out.close()
     for line in lines:
         _log(f"[{label} process] {line}")
-    return p.returncode, lines
+    return rc, lines
+
+
+def _child_stop(started) -> None:
+    """Kills a ``_child_start`` process still running."""
+    p = started[0]
+    if p.poll() is None:
+        p.kill()
+        p.wait()
+
 
 
 def _binds_hash(binds: dict) -> str:
@@ -5214,12 +5280,12 @@ def crash_sticky_child() -> None:
     os._exit(4)
 
 
-def crash_sticky_phase() -> dict:
-    """[crash:sticky]: the parent requires the child's non-zero exit and
-    the expected message: the crash classified, the probe failed, the
-    original device error raised."""
-    t0 = time.perf_counter()
-    rc, lines = _child(["crash-sticky"], "crash:sticky", 300)
+def crash_sticky_phase(started) -> dict:
+    """[crash:sticky]: the parent requires the child's non-zero exit
+    (``started``: ``_child_start(["crash-sticky"])``) and the expected
+    message: the crash classified, the probe failed, the original device
+    error raised."""
+    rc, lines = _child_join(started, "crash:sticky", 300)
     hit = [x for x in lines if x.startswith(STICKY_MARK)]
     if rc == 0 or not hit:
         raise AssertionError(f"[crash:sticky] the child exited {rc} without "
@@ -5230,7 +5296,8 @@ def crash_sticky_phase() -> dict:
             or ev["probe"] in (None, "passed")
             or "device-side assert" not in hit[0]):
         raise AssertionError(f"[crash:sticky] {hit[0]}")
-    out = {"rc": rc, "evidence": ev, "phase_s": time.perf_counter() - t0}
+    out = {"rc": rc, "evidence": ev,
+           "phase_s": time.perf_counter() - started[2]}
     _log(f"[crash:sticky] the child failed with the original device error: "
          f"{json.dumps(out)}")
     return out
@@ -5360,13 +5427,12 @@ def lockdep_child(cold_hash: str, big=(10000, 100000),
 LOCKDEP_MARK = "[lockdep] result "
 
 
-def lockdep_phase(cold_hash: str) -> dict:
+def lockdep_phase(started) -> dict:
     """[lockdep] in a child process (the descriptors stay on the port's
-    classes for the life of a process).  The unarmed run beside it (the
-    cost of enforcement) is not repeated."""
-    t0 = time.perf_counter()
-    rc, lines = _child(["lockdep", cold_hash], "lockdep:on", 900,
-                       env={"VOLCANO_TPU_LOCKDEP": "1"})
+    classes for the life of a process; ``started``: ``_child_start(
+    ["lockdep", cold_hash], env={"VOLCANO_TPU_LOCKDEP": "1"})``).  The
+    unarmed run beside it (the cost of enforcement) is not repeated."""
+    rc, lines = _child_join(started, "lockdep:on", 900)
     hit = [x for x in lines if x.startswith(LOCKDEP_MARK)]
     if rc != 0 or not hit:
         raise AssertionError(f"[lockdep] the armed child exited {rc}")
@@ -5377,7 +5443,7 @@ def lockdep_phase(cold_hash: str) -> dict:
            "walls_s": on["walls_s"],
            "preempt_walls_s": on["preempt_walls_s"],
            "build_s": on["build_s"],
-           "phase_s": time.perf_counter() - t0}
+           "phase_s": time.perf_counter() - started[2]}
     _log(f"[lockdep] no lockdep-violation, no lock-order-cycle; per cycle "
          f"(kind, wall with lockdep) {json.dumps(out['walls_s'])};"
          f" pipelined preempt walls {json.dumps(out['preempt_walls_s'])}; "
@@ -5479,14 +5545,15 @@ def trace_dir_child(size=(1000, 10000)) -> dict:
     return out
 
 
-def trace_dir_phase() -> dict:
-    t0 = time.perf_counter()
-    rc, lines = _child(["trace-dir"], "trace-dir", 600)
+def trace_dir_phase(started) -> dict:
+    """[trace-dir]: the child's result (``started``: ``_child_start(
+    ["trace-dir"])``)."""
+    rc, lines = _child_join(started, "trace-dir", 600)
     hit = [x for x in lines if x.startswith(TRACE_MARK)]
     if rc != 0 or not hit:
         raise AssertionError(f"[trace-dir] the child exited {rc}")
     out = json.loads(hit[-1][len(TRACE_MARK):])
-    out["phase_s"] = time.perf_counter() - t0
+    out["phase_s"] = time.perf_counter() - started[2]
     _log(f"[trace-dir] one Chrome trace a cycle with the port's kernels; "
          f"under an outer profiler the cycle bound every pod and warned; "
          f"{json.dumps(out)}")
@@ -5494,16 +5561,28 @@ def trace_dir_phase() -> dict:
 
 
 def recovery_phases(cold_hash: str) -> dict:
-    """Phases 24-31 in order; each one's seconds printed on the
-    ``[recovery] seconds`` line."""
-    out = {"warm-knobs": warm_knobs_phase(),
-           "affinity:crash": aff_crash_phase(),
-           "affinity:crash:ns": aff_crash_ns_phase(),
-           "pipeline:crash": pipeline_crash_phase(),
-           "fallback": fallback_phase(),
-           "crash:sticky": crash_sticky_phase(),
-           "lockdep": lockdep_phase(cold_hash),
-           "trace-dir": trace_dir_phase()}
+    """Phases 24-31; each one's seconds printed on the ``[recovery]
+    seconds`` line.  The children of [crash:sticky], [lockdep] and
+    [trace-dir] start first and run beside 24-28 (each process has its own
+    CUDA context, so the sticky fault stays in its child); their walls
+    share the host and the card with the parent, and a child's seconds
+    count from its start."""
+    kids = {"crash:sticky": _child_start(["crash-sticky"]),
+            "lockdep": _child_start(["lockdep", cold_hash],
+                                    env={"VOLCANO_TPU_LOCKDEP": "1"}),
+            "trace-dir": _child_start(["trace-dir"])}
+    try:
+        out = {"warm-knobs": warm_knobs_phase(),
+               "affinity:crash": aff_crash_phase(),
+               "affinity:crash:ns": aff_crash_ns_phase(),
+               "pipeline:crash": pipeline_crash_phase(),
+               "fallback": fallback_phase(),
+               "crash:sticky": crash_sticky_phase(kids["crash:sticky"]),
+               "lockdep": lockdep_phase(kids["lockdep"]),
+               "trace-dir": trace_dir_phase(kids["trace-dir"])}
+    finally:
+        for started in kids.values():
+            _child_stop(started)
     _log(f"[recovery] seconds "
          f"{json.dumps({k: v['phase_s'] for k, v in out.items()})}")
     return out
@@ -6073,7 +6152,8 @@ def _preempt_cluster_reset(**kw):
 def walk_fixtures():
     """``tests/test_torch_fixtures.py``, which imports only the port at
     module level: phase 37 runs its twin harness (``walk_run``) and its
-    two-queue store, the CPU tests' own."""
+    two-queue store, phase 45 its encode of a store's pending tasks
+    (``pending_encode``), the CPU tests' own."""
     import os
     import sys
 
@@ -7366,6 +7446,299 @@ def _same_records(label, a, b, what, fields=4):
                                                   if name == "fb" else ""))
 
 
+# ---------------------- the static mask, the oracle and the scale tier
+
+PRED_KERNELS = ("static_predicate_mask",)
+TIER_PODS = 200_000  # [tier]'s pods in the default run (the tier: 1,000,000)
+
+
+def predicates_phase(size=(10000, 100000), seed=0) -> tuple:
+    """Phase 45, ``[predicates]``: ``feature_store(10,000 x 100,000)``
+    encoded by the port's ``encode_cluster`` (the CPU tests'
+    ``pending_encode``); ``static_predicate_mask`` on
+    the card (launch counts zeroed before, read after: the kernel
+    required) equal to its plain version on the card cell for cell; one
+    cold ``run_once()`` with the deployed conf, every pod it binds on a
+    node whose mask cell is True; the kernel against its plain version on
+    its captured inputs, timed.  Returns (the kernels row, stats)."""
+    import numpy as np
+    import torch
+
+    import volcano_tpu_torch
+    from volcano_tpu_torch.framework import DEPLOYED_SCHEDULER_CONF
+    from volcano_tpu_torch.ops import kernels
+    from volcano_tpu_torch.ops.predicates import static_predicate_mask
+    from volcano_tpu_torch.scheduler import Scheduler
+
+    n_nodes, n_pods = size
+    t0 = time.perf_counter()
+    _reset_uids()
+    with _no_gc():
+        store = feature_store(n_nodes, n_pods, seed=seed)
+    build_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    arrays, maps = walk_fixtures().pending_encode(volcano_tpu_torch, store)
+    encode_s = time.perf_counter() - t0
+    kernels.CAPTURE = {}
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    mask = static_predicate_mask(arrays)
+    torch.cuda.synchronize()
+    mask_s = time.perf_counter() - t0
+    launches = launch_counts()
+    captured, kernels.CAPTURE = kernels.CAPTURE, None
+    missing = never_launched(launches, PRED_KERNELS)
+    if missing:
+        raise AssertionError(f"[predicates] kernels never launched: "
+                             f"{missing}")
+    plain = static_predicate_mask(arrays, plain=True)
+    if plain.shape != mask.shape or not torch.equal(mask, plain):
+        raise AssertionError("[predicates] kernel mask != plain version")
+    del plain
+    P, N = mask.shape
+    t, n = arrays.tasks, arrays.nodes
+    stats = {"nodes": n_nodes, "pods": n_pods, "P": int(P), "N": int(N),
+             "LW": int(t.sel_bits.shape[1]), "A": int(t.aff_bits.shape[1]),
+             "TW": int(t.tol_bits.shape[1]), "build_s": build_s,
+             "encode_s": encode_s, "first_call_s": mask_s,
+             "cells_true": int(mask.sum()),
+             "rows_with_a_node": int(mask.any(dim=1).sum())}
+    if not 0 < stats["cells_true"] < int(t.real.sum()) * n_nodes:
+        raise AssertionError("[predicates] the mask passes all or nothing")
+    # The cold cycle: every bind inside the mask.
+    sched = Scheduler(store, conf_str=DEPLOYED_SCHEDULER_CONF)
+    t0 = time.perf_counter()
+    sched.run_once()
+    torch.cuda.synchronize()
+    stats["cold_cycle_s"] = time.perf_counter() - t0
+    stats["cold_lanes_ms"] = _lanes(store)
+    m = store.mirror
+    row_of = {u: i for i, u in enumerate(maps.task_uids)}
+    placed = np.flatnonzero(m.p_alive[:m.n_pods]
+                            & ((m.p_status[:m.n_pods] & BOUND_MASK) != 0))
+    if any(m.p_uid[r] not in row_of for r in placed.tolist()):
+        raise AssertionError("[predicates] a bound pod was not pending at "
+                             "the encode")
+    tr = [row_of[m.p_uid[r]] for r in placed.tolist()]
+    nc = [maps.node_index[m.p_node_name[r]] for r in placed.tolist()]
+    if not tr:
+        raise AssertionError("[predicates] the cold cycle bound nothing")
+    dev = mask.device
+    cells = mask[torch.tensor(tr, device=dev), torch.tensor(nc, device=dev)]
+    if not bool(cells.all()):
+        raise AssertionError(f"[predicates] {int((~cells).sum())} binds on "
+                             f"a node the mask forbids")
+    stats["binds_checked"] = len(tr)
+    store.close()
+    del store, mask, cells
+    torch.cuda.empty_cache()
+    # The plain version (~0.1 s a call, 17 GB of intermediates at this
+    # shape) is timed on the call that checks it.
+    row = replay_kernels(captured, launches, names=PRED_KERNELS,
+                         turns=(False, False), time_check=True)[0]
+    row["shape"] = {k: stats[k] for k in ("P", "N", "LW", "A", "TW")}
+    del captured
+    torch.cuda.empty_cache()
+    _log(f"[predicates] {json.dumps(stats)}")
+    _log(f"[kernels:predicates] static_predicate_mask: {row['ms']:.5f} ms "
+         f"a launch (queued {row['queued']}), plain {row['plain_ms']:.5f} "
+         f"ms, bound {row['bound_ms']:.6f} ms ({row['bound_by']}), "
+         f"launches {row['launches']}, shape {json.dumps(row['shape'])}")
+    return row, stats
+
+
+def _host_tree(tree):
+    """Every tensor leaf of a (nested) NamedTuple on the host as numpy;
+    floats stay floats."""
+    import torch
+
+    from volcano_tpu_torch.device import to_numpy
+
+    if isinstance(tree, tuple) and hasattr(tree, "_fields"):
+        return type(tree)(*[_host_tree(x) for x in tree])
+    if isinstance(tree, torch.Tensor):
+        return to_numpy(tree)
+    return tree
+
+
+def oracle_phase(args) -> dict:
+    """Phase 46, ``[oracle]``: phase 5's solve args (1,000 x 10,000, finite
+    deserved shares) through ``ops.allocate.solve`` on the card (one
+    ``seq_solve`` launch) and through the port's NumPy oracle
+    (``volcano_tpu_torch.oracle.solve_oracle``) on the same arguments on
+    the host: assigned, pipelined, never_ready and fit_failed identical,
+    the invariants of 2."""
+    import numpy as np
+    import torch
+
+    from volcano_tpu_torch.interop import result_to_numpy
+    from volcano_tpu_torch.ops import kernels
+    from volcano_tpu_torch.ops.allocate import solve
+    from volcano_tpu_torch.oracle import solve_oracle
+
+    kernels.reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res = solve(*args)
+    torch.cuda.synchronize()
+    solve_s = time.perf_counter() - t0
+    if kernels.LAUNCHES["seq_solve"] != 1:
+        raise AssertionError("[oracle] seq_solve did not launch once")
+    inv = check_invariants(args, res)
+    got = result_to_numpy(res)
+    host = tuple(_host_tree(a) for a in args)
+    t0 = time.perf_counter()
+    want = solve_oracle(*host)
+    oracle_s = time.perf_counter() - t0
+    for f in ("assigned", "pipelined", "never_ready", "fit_failed"):
+        a, b = getattr(got, f), getattr(want, f)
+        if f in ("never_ready", "fit_failed"):
+            a = a.astype(bool)
+        if a.shape != b.shape or not np.array_equal(a, b):
+            raise AssertionError(f"[oracle] seq_solve's {f} != the "
+                                 f"oracle's")
+    stats = {"tasks": int(got.assigned.shape[0]),
+             "assigned": int((got.assigned >= 0).sum()),
+             "pipelined": int((got.pipelined >= 0).sum()),
+             "jobs_discarded": int(got.never_ready.astype(bool).sum()),
+             "solve_s": solve_s, "oracle_s": oracle_s, **inv}
+    _log(f"[oracle] seq_solve on the card equals the NumPy oracle: "
+         f"{json.dumps(stats)}")
+    return stats
+
+
+def tier_phase(n_nodes=100_000, n_pods=TIER_PODS, steady=1,
+               chunk_pods=50_000) -> dict:
+    """Phase 47, ``[tier]``: ``tier_cluster(n_nodes, n_pods, gangs of 8, 32
+    zones, 4 queues, seed 0)`` (the 100,000-node tier; the default run
+    cuts its 1,000,000 pods to ``TIER_PODS`` for the script's time
+    budget, ``python3 chip_smoke.py tier`` builds them all), one cold and
+    ``steady`` steady cycles (re-pending the pods of nodes 0-63) with the
+    deployed conf on the card: build seconds, each cycle's wall and lanes,
+    pods bound, the device snapshot's resident bytes and the process's
+    peak RSS; every pod bound, no node over its allocatable or pod slots,
+    gangs whole, no device plane read back; the solve's kernels launched.
+    ``chunk_pods``: the builder's fill chunk (a GC pass between chunks;
+    its default, 50,000, for the full tier)."""
+    import resource
+
+    import torch
+
+    from volcano_tpu_torch.framework import DEPLOYED_SCHEDULER_CONF
+    from volcano_tpu_torch.ops import wave as wave_mod
+    from volcano_tpu_torch.scheduler import Scheduler
+    from volcano_tpu_torch.synth import tier_cluster
+
+    _log(f"[tier] {n_nodes} nodes (not cut) x {n_pods} pods (the tier: "
+         f"1,000,000; cut to {n_pods} here)" if n_pods < 1_000_000 else
+         f"[tier] {n_nodes} nodes x {n_pods} pods (the full tier)")
+    _reset_uids()
+    t0 = time.perf_counter()
+    with _no_gc():
+        store = tier_cluster(n_nodes=n_nodes, n_pods=n_pods, gang_size=8,
+                             zones=32, n_queues=4, seed=0,
+                             chunk_pods=chunk_pods)
+    stats = {"nodes": n_nodes, "pods": n_pods,
+             "build_s": time.perf_counter() - t0, "cycles": []}
+    _log(f"[tier] build {stats['build_s']:.3f} s")
+    sched = Scheduler(store, conf_str=DEPLOYED_SCHEDULER_CONF)
+    solve_wave = wave_mod.solve_wave
+    reads = []
+
+    def counted_solve(*a, **kw):
+        out = solve_wave(*a, **kw)
+        reads.append(wave_mod.LAST_TWOPHASE.get("host_reads"))
+        return out
+
+    for kind in ["cold"] + ["steady"] * steady:
+        if kind == "steady":
+            store.cycle_feed = repend_feed(list(range(64)))
+        reads.clear()
+        launched = launch_counts()
+        wave_mod.solve_wave = counted_solve
+        try:
+            t0 = time.perf_counter()
+            sched.run_once()
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        finally:
+            wave_mod.solve_wave = solve_wave
+        if any(reads):
+            raise AssertionError(f"[tier] {kind}: device planes read back "
+                                 f"{reads}")
+        inv = cycle_invariants(store, n_pods)
+        n = {k: v - launched[k] for k, v in launch_counts().items()}
+        rec = {"kind": kind, "wall_s": wall, "lanes_ms": _lanes(store),
+               "solves": len(reads),
+               "launches": {k: v for k, v in n.items() if v}, **inv}
+        if kind == "cold":
+            missing = never_launched(n, SOLVE_KERNELS)
+            if missing:
+                raise AssertionError(f"[tier] kernels never launched: "
+                                     f"{missing}")
+        stats["cycles"].append(rec)
+        _log(f"[tier] {kind} cycle {json.dumps(rec)}")
+    store.cycle_feed = None
+    snap = getattr(store, "device_snapshot", None)
+    stats["resident_bytes"] = None if snap is None else snap.resident_bytes()
+    stats["peak_rss_gb"] = (resource.getrusage(resource.RUSAGE_SELF)
+                            .ru_maxrss / 1e6)
+    audit_checked("tier", store, quiet=True)
+    store.close()
+    del store
+    torch.cuda.empty_cache()
+    summary = {k: v for k, v in stats.items() if k != "cycles"}
+    _log(f"[tier] {json.dumps(summary)}")
+    return stats
+
+
+def mask_oracle_tier_phases(feat_args=None) -> tuple:
+    """Phases 45-47; ``feat_args``: phase 5's solve args (built here when
+    None).  Returns ([predicates]' kernels row, each phase's seconds)."""
+    seconds = {}
+    t0 = time.perf_counter()
+    row, _stats = predicates_phase()
+    seconds["45 predicates"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    if feat_args is None:
+        feat_args = features_args()
+    oracle_phase(feat_args)
+    seconds["46 oracle"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    # One fill chunk: at 200,000 pods the builder's spike is small, and late
+    # in the run each GC pass between chunks walks the script's whole heap.
+    tier_phase(n_pods=TIER_PODS, chunk_pods=TIER_PODS)
+    seconds["47 tier"] = time.perf_counter() - t0
+    _log(f"[mask-oracle-tier] seconds {json.dumps(seconds)}")
+    return row, seconds
+
+
+FEATURES_DESERVED = [[8.0e6, 32000 * float(2 ** 30)],
+                     [6.0e6, 24000 * float(2 ** 30)]]
+
+
+def features_args():
+    """Phase 5's solve args built again: ``feature_store(1,000 x 10,000,
+    seed 1)`` with its finite deserved shares."""
+    from volcano_tpu_torch.synth import solve_args_from_store
+
+    _reset_uids()
+    with _no_gc():
+        store = feature_store(1000, 10000, seed=1)
+    args, _maps = solve_args_from_store(store, binpack=True, nodeorder=True)
+    return _with_deserved(args, FEATURES_DESERVED)
+
+
+def _with_deserved(args, deserved):
+    import torch
+
+    q = args[3]
+    des = q.deserved.clone()
+    des[: len(deserved)] = torch.tensor(deserved, dtype=torch.float32,
+                                        device=des.device)
+    return args[:3] + (q._replace(deserved=des),) + args[4:]
+
+
 def main(argv=()) -> int:
     import os
 
@@ -7462,6 +7835,17 @@ def main(argv=()) -> int:
         control_phases()
         print(card, flush=True)
         return 0
+    if list(argv) == ["mask"]:
+        # Phases 45-47 alone ([oracle] on phase 5's args built again).
+        row, _s = mask_oracle_tier_phases()
+        _log(f"[kernels:predicates] {json.dumps(row)}")
+        print(card, flush=True)
+        return 0
+    if list(argv) == ["tier"]:
+        # [tier] at its full shape: 100,000 nodes x 1,000,000 pods.
+        tier_phase(n_pods=1_000_000)
+        print(card, flush=True)
+        return 0
     if list(argv) == ["recovery"]:
         # Phases 24-31 alone, [lockdep] against a synchronous cold cycle
         # of its own.
@@ -7503,8 +7887,9 @@ def main(argv=()) -> int:
     ns_store = _fresh_cluster(n_nodes=10000, n_pods=100000, gang_size=8,
                               zones=16, seed=0)
     _log(f"[main] north-star cluster {time.perf_counter() - t0:.3f} s")
+    main_args = []
     main_stats, launches, captured = run_phase("main", lambda: ns_store,
-                                               timed=3)
+                                               timed=3, args_out=main_args)
     _log(f"[main] north-star solve median {main_stats['solve_s_median']:.4f}"
          f" s, pods bound {main_stats['pods_bound']}, card {card}")
     _log(f"[main] first-launch shapes {json.dumps(first_shapes(captured))}")
@@ -7537,18 +7922,19 @@ def main(argv=()) -> int:
         _log("[main] traced solve: no device events in the trace "
              "(device time per solve not measured)")
 
-    # The [main] solve args, kept for the sequential solve of phase 22.
-    ns_args, _ = solve_args_from_store(ns_store, binpack=True,
-                                       nodeorder=True)
+    # The [main] solve args, kept for the sequential solve of phase 22 and
+    # the single-phase solve of 32 (the store is unchanged: no cycle ran).
+    ns_args = main_args.pop()
 
     phase_s["2-4 solve"] = time.perf_counter() - t_phase
     t_phase = time.perf_counter()
 
-    # 5. features: taints, selectors, node affinity, finite deserved.
-    gib = float(2 ** 30)
+    # 5. features: taints, selectors, node affinity, finite deserved (the
+    # solve args kept for [oracle], phase 46).
+    feat_args = []
     feat_stats, feat_launches, feat_cap = run_phase(
         "features", lambda: feature_store(1000, 10000, seed=1),
-        deserved=[[8.0e6, 32000 * gib], [6.0e6, 24000 * gib]],
+        deserved=FEATURES_DESERVED, args_out=feat_args,
     )
     replay_kernels(feat_cap, feat_launches, reps=3, names=solve_names)
     if feat_stats["pods_bound"] >= 10000 or feat_stats["pods_bound"] == 0:
@@ -7781,6 +8167,15 @@ def main(argv=()) -> int:
             k: r[k] for k in ("launches", "ms", "plain_ms", "bound_ms",
                               "bound_by", "max_abs_err")}
     phase_s["42-44 control"] = time.perf_counter() - t_phase
+    t_phase = time.perf_counter()
+
+    # 45-47. the static predicate mask at the north-star width, the
+    # sequential solve against the NumPy oracle on phase 5's args, the
+    # 100,000-node tier.
+    pred_row, _mot_s = mask_oracle_tier_phases(feat_args[0])
+    del feat_args
+    rows.append(pred_row)
+    phase_s["45-47 mask, oracle, tier"] = time.perf_counter() - t_phase
     _log(f"[phases] seconds {json.dumps(phase_s)}, script "
          f"{time.perf_counter() - t_script:.1f} s")
 

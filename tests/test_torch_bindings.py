@@ -556,3 +556,64 @@ def test_codec_declarations_match_the_c_prototypes():
     for name in protos:
         fn = getattr(lib, name)
         assert fn.restype is native.CODEC_SIGS[name][0]
+
+
+def test_static_mask_prototype():
+    """``vtt_static_mask``: the terms, P and N as int64_t, the four word
+    counts, twelve input pointers, the output and the stream."""
+    assert _prototypes()["vtt_static_mask"] == (
+        ["i", "l", "l", "i", "i", "i", "i"] + ["p"] * 14)
+
+
+def test_static_mask_wrappers_match_their_entry(fake_card):
+    """Each function of ``ops/predicates.py`` on the card is one
+    ``vtt_static_mask`` call: its terms, the 64-bit P and N, the word
+    counts, a null pointer for every input its terms do not read, the
+    [P, N] bool output; no launch (and no count) for P or N = 0."""
+    from types import SimpleNamespace
+
+    from volcano_tpu_torch.ops import predicates as pp
+
+    P, N, LW, A, TW, PW = 37, 45, 2, 3, 1, 4
+    nodes = SimpleNamespace(ready=_z(N, dtype=B8), real=_z(N, dtype=B8),
+                            label_bits=_z(N, LW), taint_bits=_z(N, TW))
+    tasks = SimpleNamespace(real=_z(P, dtype=B8), sel_bits=_z(P, LW),
+                            has_selector=_z(P, dtype=B8),
+                            aff_bits=_z(P, A, LW), aff_terms=_z(P),
+                            tol_bits=_z(P, TW))
+    arrays = SimpleNamespace(nodes=nodes, tasks=tasks)
+    before = kernels.LAUNCHES["static_predicate_mask"]
+    outs = [
+        pp.static_predicate_mask(arrays, device="cpu"),
+        pp.selector_mask(tasks.sel_bits, tasks.has_selector,
+                         nodes.label_bits),
+        pp.affinity_mask(tasks.aff_bits, tasks.aff_terms, nodes.label_bits),
+        pp.taint_mask(tasks.tol_bits, nodes.taint_bits),
+        pp.port_mask(_z(P, PW), _z(N, PW)),
+    ]
+    assert fake_card.calls == ["vtt_static_mask"] * 5
+    assert kernels.LAUNCHES["static_predicate_mask"] == before + 5
+    # Which of the twelve inputs (n_ready, n_real, t_real, n_label, sel,
+    # has_sel, aff, aff_terms, n_taint, tol, n_port, t_port) each reads.
+    reads = [
+        (kernels.MASK_STATIC, (LW, A, TW, 0), "111111111100"),
+        (kernels.MASK_SEL, (LW, 0, 0, 0), "000111000000"),
+        (kernels.MASK_AFF, (LW, A, 0, 0), "000100110000"),
+        (kernels.MASK_TAINT, (0, 0, TW, 0), "000000001100"),
+        (kernels.MASK_PORT, (0, 0, 0, PW), "000000000011"),
+    ]
+    for args, out, (terms, words, used) in zip(fake_card.args, outs, reads):
+        assert args[:3] == (terms, P, N)
+        assert args[3:7] == words
+        assert "".join("0" if a is None else "1" for a in args[7:19]) \
+            == used
+        assert out.shape == (P, N) and out.dtype == B8
+        assert args[19].value == out.data_ptr()
+    empty = pp.taint_mask(_z(0, TW), nodes.taint_bits)
+    assert empty.shape == (0, N)
+    assert fake_card.calls == ["vtt_static_mask"] * 5
+    assert kernels.LAUNCHES["static_predicate_mask"] == before + 5
+    with pytest.raises(TypeError):
+        pp.taint_mask(tasks.tol_bits, _z(N, TW, dtype=torch.int64))
+    with pytest.raises(ValueError):
+        pp.taint_mask(tasks.tol_bits, _z(N, TW + 1))

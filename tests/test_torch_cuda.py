@@ -12,7 +12,9 @@ import numpy as np
 import pytest
 import torch
 
-from test_torch_fixtures import feature_store, one_node_gang
+from test_torch_fixtures import (MASK_CARD_KINDS, MASK_EDGE_KINDS,
+                                 feature_store, mask_edge_arrays,
+                                 one_node_gang)
 
 import volcano_tpu_torch
 from volcano_tpu_torch import interop
@@ -2298,3 +2300,57 @@ def test_service_on_card_takes_config1_job_to_running(cuda):
     for name in ("coarse_shortlist", "rank_candidates", "walk_accept",
                  "apply_commit"):
         assert kernels.LAUNCHES[name] > 0, name
+
+
+def _five_masks(a, dev, plain):
+    """The five functions of ``ops/predicates.py`` on ``a``'s words as
+    tensors on ``dev`` (``plain``: the plain versions there)."""
+    from volcano_tpu_torch.device import to_tensor
+    from volcano_tpu_torch.ops import predicates as pp
+
+    t = {f: to_tensor(getattr(a.tasks, f), dev) for f in (
+        "sel_bits", "has_selector", "aff_bits", "aff_terms", "tol_bits",
+        "port_bits")}
+    n = {f: to_tensor(getattr(a.nodes, f), dev) for f in (
+        "label_bits", "taint_bits", "port_bits")}
+    return {
+        "static": pp.static_predicate_mask(a, device=dev, plain=plain),
+        "selector": pp.selector_mask(t["sel_bits"], t["has_selector"],
+                                     n["label_bits"], plain=plain),
+        "affinity": pp.affinity_mask(t["aff_bits"], t["aff_terms"],
+                                     n["label_bits"], plain=plain),
+        "taint": pp.taint_mask(t["tol_bits"], n["taint_bits"],
+                               plain=plain),
+        "port": pp.port_mask(t["port_bits"], n["port_bits"], plain=plain),
+    }
+
+
+@pytest.mark.parametrize("case", ["store"] + MASK_EDGE_KINDS
+                         + MASK_CARD_KINDS)
+def test_static_mask_equals_plain(cuda, case):
+    """``csrc/static_mask.cu`` against its plain version on the card and on
+    the CPU, cell for cell, for each function of ``ops/predicates.py`` (one
+    launch each): a small random store's encode and the hand-built edge
+    cases (empty word axes, no terms, terms past ``aff_terms``, no
+    selector, padded rows, more node words than the kernel stages, rows
+    16-byte aligned, more row tiles than the grid's y-blocks)."""
+    from test_torch_fixtures import pending_encode
+
+    if case == "store":
+        a = pending_encode(volcano_tpu_torch, feature_store(
+            volcano_tpu_torch, 96, 700, seed=2))[0]
+    else:
+        a = mask_edge_arrays(case)
+    kernels.reset_launches()
+    got = _five_masks(a, cuda, plain=False)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["static_predicate_mask"] == 5
+    want = _five_masks(a, cuda, plain=True)
+    cpu = _five_masks(a, torch.device("cpu"), plain=False)
+    for name, m in got.items():
+        assert m.is_cuda and m.dtype == torch.bool, name
+        assert torch.equal(m, want[name]), name
+        assert torch.equal(m.cpu(), cpu[name]), name
+    if case == "store":
+        s = got["static"]
+        assert bool(s.any()) and not bool(s.all())

@@ -8,6 +8,8 @@ JAX package is imported only inside those tests, so the builders also serve
 the card-only tests on machines without JAX.
 """
 
+from types import SimpleNamespace
+
 import numpy as np
 
 import volcano_tpu_torch
@@ -1844,3 +1846,103 @@ def debug_scrape(pkg, store, paths, locked=()):
         svc._httpd.shutdown()
         svc._httpd.server_close()
     return out
+
+
+# ------------------------------------------- static predicate masks
+
+def pending_encode(pkg, store):
+    """The store's pending tasks (jobs by id, tasks by priority and
+    creation, empty requests left out) through ``pkg``'s encode_cluster:
+    (the numpy ClusterArrays, the IndexMaps)."""
+    snap = store.snapshot()
+    pending, jobs = [], []
+    for jid in sorted(snap.jobs):
+        tasks = sorted(
+            snap.jobs[jid].task_status_index.get(
+                pkg.api.TaskStatus.Pending, {}).values(),
+            key=lambda t: (-t.priority, t.pod.creation_timestamp))
+        tasks = [t for t in tasks if not t.resreq.is_empty()]
+        if tasks:
+            jobs.append(jid)
+            pending.extend(tasks)
+    return pkg.arrays.encode_cluster(snap, pending, jobs)
+
+
+def mask_edge_arrays(kind, seed=0):
+    """Hand-built ClusterArrays-shaped namespaces (numpy, uint32 words) for
+    the edge cases of the static predicate mask (``MASK_EDGE_KINDS``; the
+    card tests add ``MASK_CARD_KINDS``: rows that start 16-byte aligned
+    over two node tiles, and more row tiles than a grid's 65,535 y-blocks
+    hold)."""
+    rng = np.random.default_rng(seed)
+    P, N, LW, TW, PW, A = 37, 45, 2, 1, 1, 3
+    if kind == "empty words":
+        LW = TW = PW = 0
+    if kind == "no terms":
+        A = 0
+    if kind == "wide":  # more node words than the kernel stages
+        P, N, LW, TW, PW, A = 70, 515, 27, 3, 2, 2
+    if kind == "aligned":
+        P, N = 300, 1024
+    if kind == "many rows":
+        P, N, LW, TW, PW, A = 65535 * 32 + 37, 16, 1, 1, 1, 1
+    u = np.uint32
+
+    def words(*shape, k=1):
+        """Random words whose bits are set with probability 2**-k (k > 0)
+        or 1 - 2**k (k < 0)."""
+        out = rng.integers(0, 2 ** 32, shape, dtype=np.uint64).astype(u)
+        for _ in range(abs(k) - 1):
+            more = rng.integers(0, 2 ** 32, shape, dtype=np.uint64).astype(u)
+            out = (out & more) if k > 0 else (out | more)
+        return out
+
+    label = words(N, LW, k=-2)
+    taint = words(N, TW, k=4)
+    nport = words(N, PW, k=4)
+    # Task words drawn from node rows (some subsets), or random.
+    sel = np.where(rng.random((P, 1)) < 0.5,
+                   label[rng.integers(0, N, P)] & words(P, LW),
+                   words(P, LW, k=3)).astype(u)
+    aff = np.where(rng.random((P, A, 1)) < 0.5,
+                   label[rng.integers(0, N, (P, A))] & words(P, A, LW),
+                   words(P, A, LW, k=3)).astype(u)
+    tol = words(P, TW, k=-2)
+    tport = words(P, PW, k=4)
+    has_sel = rng.random(P) < 0.7
+    aff_terms = rng.integers(0, A + 1, P).astype(np.int32)
+    ready = rng.random(N) < 0.9
+    nreal = np.ones(N, bool)
+    treal = np.ones(P, bool)
+    if kind == "terms masked":
+        # Term 0 fails everywhere, term 1 matches every node: with
+        # aff_terms == 1 the matching term does not count.
+        aff[:, 0, :] = 0xFFFFFFFF
+        aff[:, 1, :] = 0
+        aff_terms[:] = 1
+        aff_terms[::3] = 2
+    if kind == "no selector":
+        sel[:] = 0xFFFFFFFF  # words set, no selector: every node passes
+        has_sel[:] = False
+        has_sel[::4] = True
+    if kind == "padded":
+        nreal[-5:] = False
+        treal[-4:] = False
+        ready[:3] = False
+    if kind == "terms out of range":
+        aff_terms[::2] = A + 2
+        aff_terms[1::5] = -1
+    if kind == "no terms":
+        aff_terms[:] = 0
+        aff_terms[::5] = 1  # terms asked for, none given: no node matches
+    nodes = SimpleNamespace(ready=ready, real=nreal, label_bits=label,
+                            taint_bits=taint, port_bits=nport)
+    tasks = SimpleNamespace(real=treal, sel_bits=sel, has_selector=has_sel,
+                            aff_bits=aff, aff_terms=aff_terms, tol_bits=tol,
+                            port_bits=tport)
+    return SimpleNamespace(nodes=nodes, tasks=tasks)
+
+
+MASK_EDGE_KINDS = ["random", "empty words", "no terms", "terms masked",
+                   "no selector", "padded", "terms out of range", "wide"]
+MASK_CARD_KINDS = ["aligned", "many rows"]

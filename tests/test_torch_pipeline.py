@@ -62,6 +62,10 @@ def _lanes_on(monkeypatch):
               "VOLCANO_TPU_PIPELINE", "VOLCANO_TPU_EVICT_CAP"):
         monkeypatch.delenv(k, raising=False)
     monkeypatch.setenv("VOLCANO_TPU_EVICT_DEVICE", "1")
+    # The suite's setting (tests/conftest.py), pinned: a test that ran
+    # earlier in the same worker may have unset it, and under the default
+    # ("auto") the errors these tests expect fall back instead.
+    monkeypatch.setenv("VOLCANO_TPU_FALLBACK", "never")
 
 
 def _reset_uid_counters():

@@ -390,3 +390,45 @@ def test_no_native_is_read_at_every_call(monkeypatch):
     assert sw.lib_or_none() is None
     monkeypatch.delenv("VOLCANO_TPU_NO_NATIVE")
     assert sw.lib_or_none() is native.load_codec()
+
+
+def test_vcsnap_names_a_prebuilt_codec(monkeypatch, tmp_path):
+    """``VOLCANO_TPU_VCSNAP`` (read per call) names a prebuilt codec
+    library, loaded instead of the build and bound to the codec's
+    prototypes: the port's own built codec, copied elsewhere, serves the
+    frames; unset again, the build's library does."""
+    import shutil
+
+    built = native.load_codec()
+    copy = tmp_path / "libvcsnap_prebuilt.so"
+    shutil.copyfile(native.build_codec(), copy)
+    monkeypatch.setenv("VOLCANO_TPU_VCSNAP", str(copy))
+    lib = native.codec_lib()
+    assert lib is not built and lib._name == str(copy)
+    assert sw.lib_or_none() is lib
+    for name, (restype, argtypes) in native.CODEC_SIGS.items():
+        fn = getattr(lib, name)
+        assert fn.restype == restype and fn.argtypes == argtypes, name
+    arrays = _cases()
+    frame = sw.encode_frame(arrays, {"op": "x"})
+    assert frame == jsw.encode_frame(arrays, {"op": "x"})
+    _man, back = sw.decode_frame(frame)
+    assert all(np.array_equal(a, b) for a, b in zip(arrays, back))
+    monkeypatch.delenv("VOLCANO_TPU_VCSNAP")
+    assert native.codec_lib() is built
+
+
+@pytest.mark.parametrize("kind", ["text", "other library", "missing"])
+def test_vcsnap_not_a_codec_raises(monkeypatch, tmp_path, kind):
+    """A file that does not load, or a library without the codec's entry
+    points (the reclaim engine's), raises: it is not skipped quietly."""
+    path = tmp_path / "libvcsnap.so"
+    if kind == "text":
+        path.write_text("not a shared library\n")
+    elif kind == "other library":
+        path = native.build()
+    monkeypatch.setenv("VOLCANO_TPU_VCSNAP", str(path))
+    with pytest.raises(RuntimeError, match="not a frame codec library"):
+        native.codec_lib()
+    with pytest.raises(RuntimeError, match="not a frame codec library"):
+        sw.encode_frame([np.arange(3)], {})

@@ -14,6 +14,7 @@ agreement with this module.
 
 from __future__ import annotations
 
+import functools
 import math
 from typing import Dict, Iterable, Optional, Tuple
 
@@ -344,7 +345,14 @@ def parse_quantity(q: object) -> float:
     """Parse a k8s quantity string (or pass through a number) to a float."""
     if isinstance(q, (int, float)):
         return float(q)
-    s = str(q).strip()
+    return _parse_text(str(q))
+
+
+# A cluster spells its quantities with a few distinct strings, parsed once
+# per pod and node: the parses are kept (a pure function of the string).
+@functools.lru_cache(maxsize=4096)
+def _parse_text(text: str) -> float:
+    s = text.strip()
     if s.endswith("m"):
         return float(s[:-1]) / 1000.0
     for suf, mult in _BINARY_SUFFIXES.items():

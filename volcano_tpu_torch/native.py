@@ -13,7 +13,10 @@ source and the flags, so an edited source builds anew) and needs no
 
 ``VOLCANO_TPU_NO_NATIVE=1`` asks for the Python reclaim walk and the numpy
 frame codec instead (``reclaim_lib()`` and ``codec_lib()`` return None;
-read at every call).
+read at every call).  ``VOLCANO_TPU_VCSNAP`` (read at every call) names a
+prebuilt frame codec library, loaded instead of the build and held to the
+codec's prototypes (``CODEC_SIGS``): a file that does not load, or lacks
+an entry point, raises.
 """
 
 from __future__ import annotations
@@ -35,6 +38,7 @@ CXX_FLAGS = ("-O2", "-shared", "-fPIC", "-std=c++17")
 _LOCK = threading.Lock()
 _LIB: Optional[ctypes.CDLL] = None
 _CODEC: Optional[ctypes.CDLL] = None
+_PREBUILT: dict = {}  # VOLCANO_TPU_VCSNAP path -> its bound library
 
 _vp = ctypes.c_void_p
 _ll = ctypes.c_longlong
@@ -149,9 +153,22 @@ def load() -> ctypes.CDLL:
 
 
 def load_codec() -> ctypes.CDLL:
-    """Build (if needed) and load the frame codec; raises on failure."""
+    """Build (if needed) and load the frame codec, or the prebuilt library
+    ``VOLCANO_TPU_VCSNAP`` names; raises on failure."""
     global _CODEC
+    override = os.environ.get("VOLCANO_TPU_VCSNAP")
     with _LOCK:
+        if override:
+            lib = _PREBUILT.get(override)
+            if lib is None:
+                try:
+                    lib = _bind(Path(override), CODEC_SIGS)
+                except (OSError, AttributeError) as err:
+                    raise RuntimeError(
+                        f"VOLCANO_TPU_VCSNAP={override!r} is not a frame "
+                        f"codec library: {err}") from err
+                _PREBUILT[override] = lib
+            return lib
         if _CODEC is None:
             _CODEC = _bind(build_codec(), CODEC_SIGS)
     return _CODEC

@@ -31,6 +31,9 @@ wrapper                replaces (JAX package)
                        sequential allocate solve (one persistent block,
                        per-profile node keys rescored where steps changed
                        them)
+``static_mask``        ``ops/predicates.py:static_predicate_mask`` (:57)
+                       and its four helpers (:22, :31, :44, :51), one
+                       launch each (counted as ``static_predicate_mask``)
 =====================  ===================================================
 
 The inter-pod affinity kernels (``scatter_cnt0``, ``scatter_profile_tables``,
@@ -95,6 +98,7 @@ LAUNCHES = {
     "aff_filter": 0,
     "aff_steer": 0,
     "seq_solve": 0,
+    "static_predicate_mask": 0,
 }
 
 # Where each kernel's source lives and which JAX code it replaces
@@ -117,6 +121,7 @@ KERNEL_SOURCES = {
     "aff_filter": "volcano_tpu_torch/csrc/aff_filter.cu",
     "aff_steer": "volcano_tpu_torch/csrc/aff_steer.cu",
     "seq_solve": "volcano_tpu_torch/csrc/seq_solve.cu",
+    "static_predicate_mask": "volcano_tpu_torch/csrc/static_mask.cu",
 }
 REPLACES = {
     "coarse_shortlist": "volcano_tpu/ops/wave.py:547",
@@ -136,6 +141,7 @@ REPLACES = {
     "aff_filter": "volcano_tpu/ops/wave.py:1749",
     "aff_steer": "volcano_tpu/ops/wave.py:1594",
     "seq_solve": "volcano_tpu/ops/allocate.py:201",
+    "static_predicate_mask": "volcano_tpu/ops/predicates.py:57",
 }
 
 MAX_R = 16  # csrc/common.cuh kMaxR
@@ -262,7 +268,7 @@ _SOURCES = ("coarse_shortlist.cu", "rank_candidates.cu", "walk_accept.cu",
             "apply_commit.cu", "warm_shortlist.cu", "scatter_rows.cu",
             "victim_scores.cu", "frag_scores.cu", "topology.cu",
             "aff_tables.cu", "aff_live.cu", "aff_steer.cu", "aff_filter.cu",
-            "seq_solve.cu", "launch_floor.cu")
+            "seq_solve.cu", "static_mask.cu", "launch_floor.cu")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-O3",
               "-fmad=false", "-std=c++17", "-Xcompiler", "-fPIC")
 BUILD_SECONDS: Optional[float] = None
@@ -372,6 +378,7 @@ _SIGS = {
                       _P, _P, _P, _P, _P],
     "vtt_seq_solve": ([_I] * 13 + [_P] * 29 + [_F] * 5 + [_P] * 29
                       + [_I] * 2 + [_P] * 9),
+    "vtt_static_mask": [_I, _L, _L, _I, _I, _I, _I] + [_P] * 14,
     "vtt_empty_launch": [_I, _P],
 }
 
@@ -2272,3 +2279,91 @@ def seq_solve(x, weights, plain: bool = False):
     return AllocResult(assigned=assigned, pipelined=pipelined,
                        never_ready=never_ready, fit_failed=fit_failed,
                        idle=idle, q_alloc=q_alloc)
+
+
+# ---------------------------------------------------------- static_mask
+
+MASK_READY = 1  # csrc/static_mask.cu kReady: node ready & real, task real
+MASK_SEL = 2  # kSel: node selector
+MASK_AFF = 4  # kAff: required node affinity
+MASK_TAINT = 8  # kTaint: taints tolerated
+MASK_PORT = 16  # kPort: host ports disjoint
+MASK_STATIC = MASK_READY | MASK_SEL | MASK_AFF | MASK_TAINT
+
+# Inputs each term reads: (name, dtype, axis of its first dimension, word
+# axis or None).
+_MASK_INPUTS = {
+    MASK_READY: (("n_ready", torch.bool, "N"), ("n_real", torch.bool, "N"),
+                 ("t_real", torch.bool, "P")),
+    MASK_SEL: (("node_label", torch.int32, "N"),
+               ("sel_bits", torch.int32, "P"),
+               ("has_selector", torch.bool, "P")),
+    MASK_AFF: (("node_label", torch.int32, "N"),
+               ("aff_bits", torch.int32, "P"),
+               ("aff_terms", torch.int32, "P")),
+    MASK_TAINT: (("node_taint", torch.int32, "N"),
+                 ("tol_bits", torch.int32, "P")),
+    MASK_PORT: (("node_port", torch.int32, "N"),
+                ("task_port", torch.int32, "P")),
+}
+
+
+def static_mask(terms: int, plain: bool = False, **inputs):
+    """The [P, N] bool mask of the ``terms`` (``MASK_*``) in one launch:
+    ``MASK_STATIC`` is ``static_predicate_mask``, one term a helper of
+    ``ops/predicates.py``.  Inputs by name (bit words as int32, the
+    encode's uint32 bits): ``n_ready`` / ``n_real`` [N] and ``t_real`` [P]
+    bool; ``node_label`` [N, LW], ``sel_bits`` [P, LW], ``has_selector``
+    [P]; ``aff_bits`` [P, A, LW], ``aff_terms`` [P] int32; ``node_taint``
+    [N, TW], ``tol_bits`` [P, TW]; ``node_port`` [N, PW], ``task_port``
+    [P, PW] -- only those the terms read."""
+    need = {}
+    for bit, spec in _MASK_INPUTS.items():
+        if terms & bit:
+            for name, dtype, axis in spec:
+                need[name] = (dtype, axis)
+    if terms not in (MASK_STATIC, MASK_SEL, MASK_AFF, MASK_TAINT, MASK_PORT):
+        raise ValueError(f"static_mask: no kernel for terms {terms}")
+    if set(inputs) != set(need):
+        raise ValueError(f"static_mask: inputs {sorted(inputs)} for terms "
+                         f"{terms}, expected {sorted(need)}")
+    if not _on_card(plain, *inputs.values()):
+        from .predicates import mask_plain
+
+        return mask_plain(terms, **inputs)
+    dims = {}
+    for name, (dtype, axis) in need.items():
+        t = _req(inputs[name], dtype, f"static_mask {name}")
+        if t.dim() == 0 or dims.setdefault(axis, t.shape[0]) != t.shape[0]:
+            raise ValueError(f"static_mask: {name} is not [{axis}, ...]")
+    P, N = dims["P"], dims["N"]
+    w = {"LW": 0, "A": 0, "TW": 0, "PW": 0}
+    for node, task, key in (("node_label", "sel_bits", "LW"),
+                            ("node_label", "aff_bits", "LW"),
+                            ("node_taint", "tol_bits", "TW"),
+                            ("node_port", "task_port", "PW")):
+        if task in inputs:
+            nw, tw = inputs[node].shape[-1], inputs[task].shape[-1]
+            if nw != tw or inputs[node].dim() != 2:
+                raise ValueError(f"static_mask: {node} and {task} words")
+            w[key] = int(nw)
+    if "aff_bits" in inputs:
+        if inputs["aff_bits"].dim() != 3:
+            raise ValueError("static_mask: aff_bits is not [P, A, LW]")
+        w["A"] = int(inputs["aff_bits"].shape[1])
+    dev = next(iter(inputs.values())).device
+    out = torch.empty((P, N), dtype=torch.bool, device=dev)
+    if P == 0 or N == 0:
+        return out
+    _capture("static_predicate_mask", terms=terms, **inputs)
+    g = inputs.get
+    rc = load().vtt_static_mask(
+        terms, P, N, w["LW"], w["A"], w["TW"], w["PW"],
+        _ptr(g("n_ready")), _ptr(g("n_real")), _ptr(g("t_real")),
+        _ptr(g("node_label")), _ptr(g("sel_bits")), _ptr(g("has_selector")),
+        _ptr(g("aff_bits")), _ptr(g("aff_terms")), _ptr(g("node_taint")),
+        _ptr(g("tol_bits")), _ptr(g("node_port")), _ptr(g("task_port")),
+        _ptr(out), _stream())
+    _check(rc, "static_mask")
+    count_launch("static_predicate_mask")
+    return out

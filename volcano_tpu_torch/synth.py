@@ -2,7 +2,9 @@
 
 The counterpart of the JAX package's ``synth.py``: ``synthetic_cluster``
 draws the same cluster from the same seed (identical
-``np.random.default_rng(seed)`` draws), ``preempt_cluster`` builds the
+``np.random.default_rng(seed)`` draws), ``tier_cluster`` builds the
+100,000-node x 1,000,000-pod scale tier memory-frugally (the JAX package's
+store for the same arguments), ``preempt_cluster`` builds the
 oversubscribed-queue cluster of BASELINE config 4, ``fabric_cluster`` a
 fragmented fabric of labeled blocks (``fabric_labels``) with a pending
 topology-constrained gang, and ``solve_args_from_store``
@@ -155,6 +157,108 @@ def synthetic_cluster(
             )
             pods_made += 1
         g += 1
+    return store
+
+
+def tier_cluster(
+    n_nodes: int = 100_000,
+    n_pods: int = 1_000_000,
+    gang_size: int = 8,
+    zones: int = 32,
+    n_queues: int = 4,
+    node_cpu: str = "64",
+    node_mem: str = "256Gi",
+    pod_cpu_choices: Sequence[str] = ("1", "2", "4"),
+    pod_mem_choices: Sequence[str] = ("2Gi", "4Gi", "8Gi"),
+    seed: int = 0,
+    chunk_pods: int = 50_000,
+) -> ClusterStore:
+    """The 100k-node x 1M-pod scale tier, built memory-frugally.
+
+    ``synthetic_cluster`` allocates one containers list, one labels
+    dict, and one annotations dict PER POD — ~5 host objects per row,
+    which at 1M pods costs gigabytes of Python-object overhead before
+    the first solve runs.  This builder fills the pod table in chunks
+    with shared sub-objects so the big shape is buildable on CI-class
+    hosts:
+
+    - one containers list per distinct (cpu, mem) shape, shared by
+      reference across every pod of that shape (the store treats pod
+      specs as immutable — nothing mutates a containers list);
+    - one annotations dict per GANG (the group-name annotation is the
+      only entry and it is per-gang, not per-pod);
+    - explicit uids/creation timestamps (skips the per-pod uuid and
+      clock reads, and keeps task order deterministic);
+    - ``chunk_pods``-sized fill chunks with a GC pass between chunks,
+      bounding the transient allocation spike of the builder itself.
+
+    Pods carry no labels/affinity — the tier measures the solve's
+    scale envelope (fit/score/ranking over 100k nodes x 1M rows); the
+    affinity mix rides the existing hyperscale config.  Nodes spread
+    over ``zones`` zone labels so node classes stay > 1, and carry
+    deterministic ``fabric.volcano-tpu/*`` coordinates so
+    the tier and the endurance harness exercise the topology planes.
+    Fabric labels are never *queried* by any pod, so they add no label
+    bits to the fast path's mirror and leave node classes untouched.
+
+    The same arguments build the same store as the JAX package's
+    ``tier_cluster``: the same names, uids, timestamps and draws.
+    """
+    import gc
+
+    rng = np.random.default_rng(seed)
+    store = ClusterStore()
+    zone_labels = [{"zone": f"zone-{z}"} for z in range(max(zones, 1))]
+    for i in range(n_nodes):
+        labels = dict(fabric_labels(i))
+        if zones:
+            labels.update(zone_labels[i % len(zone_labels)])
+        store.add_node(
+            Node(
+                name=f"node-{i:06d}",
+                allocatable={"cpu": node_cpu, "memory": node_mem,
+                             "pods": 256},
+                labels=labels,
+            )
+        )
+    for q in range(1, n_queues):
+        store.add_queue(Queue(name=f"queue-{q}",
+                              weight=int(rng.integers(1, 9))))
+    queues = ["default"] + [f"queue-{q}" for q in range(1, n_queues)]
+
+    # Shared containers lists: one per distinct pod shape.
+    shapes = [
+        [{"cpu": cpu, "memory": mem}]
+        for cpu in pod_cpu_choices for mem in pod_mem_choices
+    ]
+    shape_ids = rng.integers(0, len(shapes),
+                             size=(n_pods // gang_size) + 1)
+    g = 0
+    pods_made = 0
+    ts = 1.0
+    while pods_made < n_pods:
+        chunk_end = min(pods_made + chunk_pods, n_pods)
+        while pods_made < chunk_end:
+            size = min(gang_size, n_pods - pods_made) or 1
+            pg = PodGroup(name=f"pg-{g:07d}", min_member=size,
+                          queue=queues[g % len(queues)])
+            store.add_pod_group(pg)
+            anno = {GROUP_NAME_ANNOTATION: pg.name}  # shared per gang
+            containers = shapes[int(shape_ids[g])]
+            for k in range(size):
+                ts += 1.0
+                store.add_pod(
+                    Pod(
+                        name=f"pg-{g:07d}-{k}",
+                        uid=f"tier-{g:07d}-{k}",
+                        annotations=anno,
+                        containers=containers,
+                        creation_timestamp=ts,
+                    )
+                )
+            pods_made += size
+            g += 1
+        gc.collect()
     return store
 
 
