@@ -359,8 +359,9 @@ of which raises (and the script exits non-zero) when a check fails:
    read after) equal to its plain version on the card cell for cell; one
    cold ``run_once()`` with the deployed conf, every pod it binds on a
    node whose mask cell is True; the kernel against its plain version on
-   its captured inputs, timed as in 4 (the ``[kernels:predicates]``
-   line);
+   its captured inputs, timed as in 4, with its share of the bound and
+   the write floor (``mask_write_floor``: a ``fill_(True)`` of the same
+   [P, N] bool, timed the same way) (the ``[kernels:predicates]`` line);
 46. oracle: phase 5's solve args through ``ops.allocate.solve`` on the
    card (one ``seq_solve`` launch) and through the port's NumPy oracle
    (``volcano_tpu_torch.oracle.solve_oracle``) on the host: assigned,
@@ -1496,6 +1497,7 @@ KERNEL_FUNCS = {
     # One launch a call, computing or gated.
     "aff_steer": ("aff_steer_row_kernel",),
     "seq_solve": ("row_prep_kernel", "seq_solve_kernel"),
+    # One launch a call: persistent blocks over node tiles and row groups.
     "static_predicate_mask": ("static_mask_kernel",),
 }
 
@@ -7452,6 +7454,20 @@ PRED_KERNELS = ("static_predicate_mask",)
 TIER_PODS = 200_000  # [tier]'s pods in the default run (the tier: 1,000,000)
 
 
+def mask_write_floor(P: int, N: int, reps: int = 20) -> float:
+    """Device ms of ``torch.empty((P, N), dtype=torch.bool).fill_(True)``
+    on the card, timed as the kernels are (``_device_ms`` over ``reps``
+    queued calls, best of two turns).  A yardstick for the mask's write
+    alone, not the function: it reads no input."""
+    import torch
+
+    def fill():
+        return torch.empty((P, N), dtype=torch.bool, device="cuda").fill_(
+            True)
+
+    return min(_device_ms([fill] * reps)[0] for _ in range(2))
+
+
 def predicates_phase(size=(10000, 100000), seed=0) -> tuple:
     """Phase 45, ``[predicates]``: ``feature_store(10,000 x 100,000)``
     encoded by the port's ``encode_cluster`` (the CPU tests'
@@ -7539,11 +7555,15 @@ def predicates_phase(size=(10000, 100000), seed=0) -> tuple:
     row["shape"] = {k: stats[k] for k in ("P", "N", "LW", "A", "TW")}
     del captured
     torch.cuda.empty_cache()
+    row["write_floor_ms"] = mask_write_floor(P, N)
+    row["share_of_bound"] = row["bound_ms"] / row["ms"]
     _log(f"[predicates] {json.dumps(stats)}")
     _log(f"[kernels:predicates] static_predicate_mask: {row['ms']:.5f} ms "
          f"a launch (queued {row['queued']}), plain {row['plain_ms']:.5f} "
          f"ms, bound {row['bound_ms']:.6f} ms ({row['bound_by']}), "
-         f"launches {row['launches']}, shape {json.dumps(row['shape'])}")
+         f"share of bound {row['share_of_bound']:.4f}, write floor "
+         f"{row['write_floor_ms']:.5f} ms, launches {row['launches']}, "
+         f"shape {json.dumps(row['shape'])}")
     return row, stats
 
 

@@ -38,6 +38,11 @@ def _env(monkeypatch):
     for k in ("VOLCANO_TPU_PIPELINE", "VOLCANO_TPU_DEVINCR",
               "VOLCANO_TPU_DEVSNAP"):
         monkeypatch.delenv(k, raising=False)
+    # The suite's setting (tests/conftest.py), pinned: a test that ran
+    # earlier in the same worker may have unset it, and under the default
+    # ("auto") the error a cycle here is expected to raise falls back
+    # instead.
+    monkeypatch.setenv("VOLCANO_TPU_FALLBACK", "never")
 
 
 def _reset_uid_counters():

@@ -2333,7 +2333,10 @@ def test_static_mask_equals_plain(cuda, case):
     launch each): a small random store's encode and the hand-built edge
     cases (empty word axes, no terms, terms past ``aff_terms``, no
     selector, padded rows, more node words than the kernel stages, rows
-    16-byte aligned, more row tiles than the grid's y-blocks)."""
+    16-byte aligned, more row tiles than the grid's y-blocks, one row, a
+    prime count of rows just past one 128-row batch, one node and 16 k +
+    7 nodes (fewer node tiles than SMs), task rows past the batch buffers
+    read through the cache)."""
     from test_torch_fixtures import pending_encode
 
     if case == "store":
@@ -2354,3 +2357,62 @@ def test_static_mask_equals_plain(cuda, case):
     if case == "store":
         s = got["static"]
         assert bool(s.any()) and not bool(s.all())
+
+
+def _mask_calls(a, dev, skip=0):
+    """Zero-argument ``kernels.static_mask`` calls of the five functions
+    on ``a``'s words, already on ``dev`` (so a call copies nothing), and
+    the same calls' plain versions.  ``skip`` > 0: every input a view
+    that starts ``skip`` elements into a larger buffer (a data pointer not
+    16-byte aligned)."""
+    def put(x):
+        x = np.ascontiguousarray(x)
+        if x.dtype == np.uint32:
+            x = x.view(np.int32)
+        t = torch.from_numpy(x)
+        if skip:
+            pad = torch.zeros((skip,) + tuple(t.shape[1:]), dtype=t.dtype)
+            t = torch.cat([pad, t])
+        t = t.to(dev)
+        return t[skip:] if skip else t
+
+    n, t = a.nodes, a.tasks
+    x = {"n_ready": put(n.ready), "n_real": put(n.real),
+         "t_real": put(t.real), "node_label": put(n.label_bits),
+         "sel_bits": put(t.sel_bits), "has_selector": put(t.has_selector),
+         "aff_bits": put(t.aff_bits), "aff_terms": put(t.aff_terms),
+         "node_taint": put(n.taint_bits), "tol_bits": put(t.tol_bits),
+         "node_port": put(n.port_bits), "task_port": put(t.port_bits)}
+    def call(terms, plain):
+        kw = {name: x[name] for bit, spec in kernels._MASK_INPUTS.items()
+              if terms & bit for name, _dtype, _axis in spec}
+        return lambda: kernels.static_mask(terms, plain=plain, **kw)
+
+    return {terms: (call(terms, False), call(terms, True))
+            for terms in (kernels.MASK_STATIC, kernels.MASK_SEL,
+                          kernels.MASK_AFF, kernels.MASK_TAINT,
+                          kernels.MASK_PORT)}
+
+
+@pytest.mark.parametrize("case", ["random", "wide"])
+def test_static_mask_is_one_kernel_a_call(cuda, case):
+    """Each of the five functions is one ``static_mask_kernel`` on the
+    card and no other device operation, node words staged or read
+    through the cache, read from a torch.profiler trace (``_device_ops``:
+    opened by a spin kernel, left out)."""
+    for terms, (fn, _plain) in _mask_calls(mask_edge_arrays(case),
+                                           cuda).items():
+        fn()
+        assert _device_ops(fn) == ["static_mask_kernel"], terms
+
+
+@pytest.mark.parametrize("case", ["past one batch", "wide task words"])
+def test_static_mask_unaligned_inputs_equal_plain(cuda, case):
+    """Inputs whose data starts one element into their buffer (the task
+    fields then copied into the batch buffers with plain loads, not
+    ``cp.async``): every function equal to its plain version."""
+    for terms, (fn, plain) in _mask_calls(mask_edge_arrays(case), cuda,
+                                          skip=1).items():
+        got = fn()
+        torch.cuda.synchronize()
+        assert torch.equal(got, plain()), terms

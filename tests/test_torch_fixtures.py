@@ -1872,8 +1872,12 @@ def mask_edge_arrays(kind, seed=0):
     """Hand-built ClusterArrays-shaped namespaces (numpy, uint32 words) for
     the edge cases of the static predicate mask (``MASK_EDGE_KINDS``; the
     card tests add ``MASK_CARD_KINDS``: rows that start 16-byte aligned
-    over two node tiles, and more row tiles than a grid's 65,535 y-blocks
-    hold)."""
+    (1,024 nodes), more row tiles than a grid's 65,535 y-blocks hold, one
+    task row, a prime count of rows just past the kernel's 128-row batch
+    over an odd multiple of 16 nodes (two node tiles of 1,024, the second
+    one 16-node run), one node, 16 k + 7 nodes (both fewer node tiles
+    than the card has SMs), and task rows too wide for the batch buffers
+    while the node words are staged)."""
     rng = np.random.default_rng(seed)
     P, N, LW, TW, PW, A = 37, 45, 2, 1, 1, 3
     if kind == "empty words":
@@ -1886,6 +1890,16 @@ def mask_edge_arrays(kind, seed=0):
         P, N = 300, 1024
     if kind == "many rows":
         P, N, LW, TW, PW, A = 65535 * 32 + 37, 16, 1, 1, 1, 1
+    if kind == "one row":
+        P = 1
+    if kind == "past one batch":
+        P, N = 131, 1040
+    if kind == "one node":
+        P, N = 300, 1
+    if kind == "odd nodes":
+        P, N = 257, 16 * 19 + 7
+    if kind == "wide task words":  # 53 words a row: read through the cache
+        P, N, LW, TW, PW, A = 300, 700, 4, 1, 9, 12
     u = np.uint32
 
     def words(*shape, k=1):
@@ -1945,4 +1959,5 @@ def mask_edge_arrays(kind, seed=0):
 
 MASK_EDGE_KINDS = ["random", "empty words", "no terms", "terms masked",
                    "no selector", "padded", "terms out of range", "wide"]
-MASK_CARD_KINDS = ["aligned", "many rows"]
+MASK_CARD_KINDS = ["aligned", "many rows", "one row", "past one batch",
+                   "one node", "odd nodes", "wide task words"]

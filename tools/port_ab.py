@@ -62,6 +62,19 @@ built from its own sources into its own build directory.  ``--phase``
   ``chip_smoke._device_ms`` (best of two), with the device operations one
   call puts on the card and the bound (``chip_smoke._work``).  ``--caps
   FILE`` as for ``kernels`` (another file);
+- ``mask``: ``[predicates]``' one ``static_predicate_mask`` launch
+  (``chip_smoke.feature_store(10,000, 100,000, seed 0)``'s pending tasks
+  through the tree's ``encode_cluster``: P 131,072 x N 16,384 padded, LW
+  1, A 2, TW 1), held to its plain version cell for cell and timed by
+  ``chip_smoke._device_ms`` over 20 queued calls, best of two turns:
+  ms, the bound (``chip_smoke._work``) and the share of it, the device
+  operations one call puts on the card (a trace) and the write floor
+  (``torch.empty((P, N), dtype=torch.bool).fill_(True)``, timed the same
+  way: a yardstick for the write alone, from the ``chip_smoke.py``
+  beside this tool); then the same launch with every task row unreal
+  (``store_only_ms``: each row's first test fails, the stores alone) and
+  with every node ready and real (``all_nodes_ms``: no node tile without
+  work).  ``--caps FILE`` as for ``kernels`` (another file);
 - ``delta``: one node-table delta of chip_smoke phase 6's shape: the
   north-star store after a cold ``run_once()``, then ``--reps`` (5)
   rounds of ``update_node`` on 100 nodes (half as much CPU again) and a
@@ -134,8 +147,8 @@ import time
 from pathlib import Path
 
 PHASES = ("solve", "cold", "shortlist", "seq", "seq-north-star",
-          "seq-trace", "victim", "kernels", "steer", "delta", "frag",
-          "worker", "pipeline", "evict", "walk")
+          "seq-trace", "victim", "kernels", "steer", "mask", "delta",
+          "frag", "worker", "pipeline", "evict", "walk")
 
 
 def _trace(fn) -> dict:
@@ -802,6 +815,86 @@ def phase_steer(cs, opts) -> dict:
     return res
 
 
+# ------------------------------------------------------- static mask
+
+def _capture_mask(cs) -> dict:
+    """``[predicates]``' ``static_predicate_mask`` launch: the pending
+    tasks of ``feature_store(10,000, 100,000, seed 0)`` through the tree's
+    ``encode_cluster`` (chip_smoke phase 45's inputs)."""
+    import volcano_tpu_torch
+    from volcano_tpu_torch.ops import kernels
+    from volcano_tpu_torch.ops.predicates import static_predicate_mask
+
+    cs._reset_uids()
+    with cs._no_gc():
+        store = cs.feature_store(10000, 100000, seed=0)
+    arrays, _maps = cs.walk_fixtures().pending_encode(volcano_tpu_torch,
+                                                      store)
+    store.close()
+    kernels.CAPTURE = {}
+    try:
+        static_predicate_mask(arrays)
+        got = kernels.CAPTURE
+    finally:
+        kernels.CAPTURE = None
+    if "static_predicate_mask" not in got:
+        raise AssertionError("[ab:mask] no static_predicate_mask launch")
+    return {"static_predicate_mask": got["static_predicate_mask"]}
+
+
+def phase_mask(cs, opts) -> dict:
+    import torch
+
+    from volcano_tpu_torch.ops import kernels
+
+    cap = _caps(opts, lambda: _capture_mask(cs))["static_predicate_mask"]
+    terms = cap["terms"]
+    kw = {k: v for k, v in cap.items() if k != "terms"}
+
+    def call():
+        return kernels.static_mask(terms, **kw)
+
+    got = call()
+    want = kernels.static_mask(terms, plain=True, **kw)
+    torch.cuda.synchronize()
+    if got.shape != want.shape or not torch.equal(got, want):
+        raise AssertionError("[ab:mask] the kernel's mask != the plain one")
+    del want
+    torch.cuda.empty_cache()
+    P, N = got.shape
+    nbytes, ops = cs._work("static_predicate_mask", cap, (got,))
+    res = {"shape": {"P": int(P), "N": int(N),
+                     "LW": int(kw["node_label"].shape[1]),
+                     "A": int(kw["aff_bits"].shape[1]),
+                     "TW": int(kw["node_taint"].shape[1])},
+           "cells_true": int(got.sum())}
+    del got
+    turns = [cs._device_ms([call] * 20) for _ in range(2)]
+    res["ms"] = min(t[0] for t in turns)
+    res["turns_ms"] = [t[0] for t in turns]
+    res["queued"] = all(t[2] for t in turns)
+    res["bound_ms"] = max(nbytes / cs.MEM_BPS, ops / cs.F32_OPS) * 1e3
+    res["bound_by"] = "bytes" if nbytes / cs.MEM_BPS >= ops / cs.F32_OPS \
+        else "operations"
+    res["share_of_bound"] = res["bound_ms"] / res["ms"]
+    res["write_floor_ms"] = _tool_chip_smoke().mask_write_floor(P, N)
+    # Where the time goes: the same call with every task row unreal (each
+    # row's first test fails: the stores alone) and with every node ready
+    # and real (no node tile left without work).
+    for key, name, fill in (("store_only_ms", "t_real", False),
+                            ("all_nodes_ms", "n_ready", True)):
+        alt = dict(kw)
+        alt[name] = torch.full_like(kw[name], fill)
+        if name == "n_ready":
+            alt["n_real"] = torch.full_like(kw["n_real"], True)
+        res[key] = min(cs._device_ms(
+            [lambda alt=alt: kernels.static_mask(terms, **alt)] * 20)[0]
+            for _ in range(2))
+    res["device_ops"] = _ops(call, tries=3)
+    _log(opts.label, f"mask {json.dumps(res)}")
+    return res
+
+
 # ------------------------------------------------------- node-table delta
 
 def phase_delta(cs, opts) -> dict:
@@ -1164,7 +1257,7 @@ RUN = {"solve": phase_solve, "cold": phase_cold,
        "shortlist": phase_shortlist, "seq": phase_seq,
        "seq-north-star": phase_seq_north_star, "seq-trace": phase_seq_trace,
        "victim": phase_victim, "kernels": phase_kernels,
-       "steer": phase_steer, "delta": phase_delta, "frag": phase_frag, "worker": phase_worker,
+       "steer": phase_steer, "mask": phase_mask, "delta": phase_delta, "frag": phase_frag, "worker": phase_worker,
        "pipeline": phase_pipeline, "evict": phase_evict,
        "walk": phase_walk}
 
@@ -1179,8 +1272,9 @@ def main() -> int:
     ap.add_argument("--cold", type=int, default=1)
     ap.add_argument("--reps", type=int, default=5)
     ap.add_argument("--cycles", type=int, default=4)
-    ap.add_argument("--caps", help="kernels, frag, steer: file of captured "
-                    "inputs (written when missing, read when present)")
+    ap.add_argument("--caps", help="kernels, frag, steer, mask: file of "
+                    "captured inputs (written when missing, read when "
+                    "present)")
     opts = ap.parse_args()
 
     import torch

@@ -4,9 +4,14 @@ Host-side per-(task, node) checks mirroring the wrapped upstream predicates:
 pod-count, node unschedulable/ready, node selector + required node affinity,
 taints/tolerations, host ports, and inter-pod (anti)affinity by topology
 domain (predicates.go:144-293).  The device path evaluates the same checks
-as [P, N] bitset tests in the solve kernels; this plugin flags
-the session so the allocate action includes the static mask, and provides the
-host fallback used by preempt/reclaim/backfill.
+as bitset tests in the solve kernels: the fast path's static verdicts come
+per profile from the static planes (``kernels.static_planes``, the JAX
+package's ``_static_planes``), and the sequential solve tests each row's
+words.  No cycle builds the [P, N] mask of
+``ops.predicates.static_predicate_mask``.  This plugin registers the host
+predicate used by preempt/reclaim/backfill; the allocate action counts it
+as built in (``BUILTIN_PREDICATE_PLUGINS``), so it adds no custom-plugin
+plane.
 """
 
 from __future__ import annotations
@@ -157,11 +162,11 @@ class PredicatesPlugin:
 
         ssn.add_predicate_fn(self.name, predicate_fn)
 
-        # Device contribution: the allocate action builds the [P,N] static
-        # mask (ops.predicates.static_predicate_mask) when this plugin is
-        # enabled — encoded directly from the snapshot arrays, so no
-        # device-mask factory is registered here (that registry carries
-        # OUT-OF-TREE mask contributions, session.add_device_mask_fn).
+        # Device contribution: none registered here.  The solves test the
+        # same predicates from the encode's words (the static planes per
+        # profile); no cycle builds the [P, N] static mask.  The
+        # device-mask registry carries OUT-OF-TREE mask contributions
+        # (session.add_device_mask_fn).
 
     def on_session_close(self, ssn) -> None:
         pass
